@@ -1,0 +1,424 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one NVIDIA card and check it.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero and prints no result:
+
+1. device: the card's name, its `nvidia-smi` name and power limit, and
+   the torch and CUDA versions.
+2. build: nvcc compiles `shockwave_tpu_torch/csrc/*.cu` (timed).
+3. kernels: each of the three flash-attention kernels (forward, dQ,
+   dK/dV) against its plain PyTorch version on the card, in bf16, at the
+   main path's three attention variants (B=64, T=32, H=8, D=64),
+   cross-attention with Tq != Tk, head dim 32, the bench shape
+   (4, 2048, 8, 64) causal and a causal row that sees no key. Times are
+   medians of CUDA-event timings of CUDA-graph replays (device time, no
+   host launch cost), beside the bound and the PyTorch library call
+   (`scaled_dot_product_attention`, a yardstick the port never calls).
+4. slice: the translation trainer at full width (dim 512, 8 heads,
+   6 + 6 layers, batch 64) for 30 steps through
+   `shockwave_tpu_torch.workloads.translation.train.main`, with the
+   launch counters set to 0 just before and read just after; then a
+   resume from its checkpoint, and the logits with flash on against the
+   einsum path on the same weights and batch.
+
+Output: one `kernel_case:` JSON line per shape, a `slice:` line, then the
+`{"kernels": [...]}` line, the `nvidia-smi` name and power limit, and as
+the last line `{"ok": true, "device": {...}}`.
+"""
+import contextlib
+import io
+import json
+import math
+import os
+import shutil
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+import torch
+
+# Published dense peaks (NVIDIA data sheets): memory bytes/s, bf16 FLOP/s.
+# The SXM part is the default; the others are told apart by their names.
+PEAKS = {"H100 PCIe": (2.0e12, 756e12), "H100 NVL": (3.9e12, 835e12),
+         "H100 SXM": (3.35e12, 989e12)}
+NAME_TAGS = {"PCIe": "H100 PCIe", "NVL": "H100 NVL"}
+
+# (name, B, Tq, Tk, H, D, causal, mask): mask "tail" pads each sequence's
+# tail at a random length, "key0" pads key 0 only, None attends to all.
+CASES = (
+    ("main_enc_self", 64, 32, 32, 8, 64, False, "tail"),
+    ("main_dec_self", 64, 32, 32, 8, 64, True, "tail"),
+    ("main_cross", 64, 32, 32, 8, 64, False, "tail"),
+    ("cross_64x128", 1, 64, 128, 2, 64, False, None),
+    ("head_dim_32", 2, 128, 128, 4, 32, True, "tail"),
+    ("bench_causal", 4, 2048, 2048, 8, 64, True, None),
+    ("masked_row0", 1, 128, 128, 2, 64, True, "key0"),
+)
+MAIN_CASE = "main_enc_self"  # 12 of the 18 launches per step are key-padded, non-causal
+
+# Tolerances, against the plain version on the same bf16 inputs:
+# - forward output: max abs error 2e-2, on rows that see a key (a row that
+#   sees none is a uniform average whose extent depends on the tiling, as
+#   in the JAX package). The output is rounded to bf16 (half an ulp is
+#   3.9e-3 below 2), p is rounded to bf16 before p.V in both, and the
+#   sums run in another order; 2e-2 leaves room for one ulp at |o| < 4.
+# - lse: max abs error 1e-3; both are f32 from the same bf16 products.
+# - dQ, dK, dV: max|kernel - plain| / max|plain| <= 5e-2; dS and p are
+#   rounded to bf16 in both, so a rounding flip moves a term by 2^-8.
+# - the row that sees no key: dQ, dK and dV of row/key 0 exactly 0.
+FWD_TOL, LSE_TOL, GRAD_TOL = 2e-2, 1e-3, 5e-2
+# Flash against einsum logits of the full-width model in bf16: the einsum
+# path rounds the scores to bf16 before its softmax, the kernels keep
+# them in f32, and the difference travels through 12 bf16 layers.
+LOGITS_TOL = 5e-2
+
+STEPS = 30
+BATCH = 64
+TGT_TOKENS_PER_STEP = BATCH * 32  # tgt[:, 1:] of (B, 33); no pads in the synthetic data
+
+
+class Failure(Exception):
+    pass
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise Failure(what)
+
+
+def emit(tag: str, obj) -> None:
+    print(f"{tag}: {json.dumps(obj, sort_keys=True)}", flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def peaks(name: str):
+    variant = next((v for tag, v in NAME_TAGS.items() if tag in name), "H100 SXM")
+    return variant, PEAKS[variant]
+
+
+def graph_ms(fn, inner: int = 20, reps: int = 7) -> float:
+    """Median device milliseconds of one call of `fn`: `inner` calls are
+    captured in a CUDA graph, which is replayed `reps` times between CUDA
+    events after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    del graph
+    return statistics.median(times)
+
+
+def make_mask(kind, b, tk, gen, device):
+    if kind is None:
+        return None
+    mask = torch.ones(b, tk, dtype=torch.bool, device=device)
+    if kind == "key0":
+        mask[:, 0] = False
+    else:  # "tail": keep a random prefix of at least half the keys
+        lengths = torch.randint(tk // 2, tk + 1, (b,), generator=gen, device=device)
+        mask = torch.arange(tk, device=device)[None, :] < lengths[:, None]
+    return mask
+
+
+def visible_rows(mask, b, h, tq, tk, causal, device):
+    """(BH, Tq) bool: rows that see at least one key."""
+    keys = mask if mask is not None else torch.ones(b, tk, dtype=torch.bool, device=device)
+    keys = keys.repeat_interleave(h, dim=0)
+    if causal:
+        seen = torch.cumsum(keys.int(), dim=1) > 0  # row i sees a key <= i
+        return seen[:, :tq]
+    return keys.any(dim=1, keepdim=True).expand(-1, tq)
+
+
+def work(b, tq, tk, h, d, causal):
+    """Bytes each kernel must move (each input read once, each output
+    written once) and the FLOPs it must do at this shape: the causal
+    kernels need only the (q, k) pairs with k <= q."""
+    bh = b * h
+    pairs = tq * (tq + 1) // 2 if causal else tq * tk
+    q_bytes, kv_bytes = bh * tq * d * 2, bh * tk * d * 2
+    row_bytes, mask_bytes = bh * tq * 4, b * tk
+    return {
+        "flash_fwd": (2 * q_bytes + 2 * kv_bytes + row_bytes + mask_bytes,
+                      4 * bh * pairs * d),
+        "flash_dq": (3 * q_bytes + 2 * kv_bytes + 2 * row_bytes + mask_bytes,
+                     6 * bh * pairs * d),
+        "flash_dkv": (2 * q_bytes + 4 * kv_bytes + 2 * row_bytes + mask_bytes,
+                      8 * bh * pairs * d),
+    }
+
+
+def max_abs(a, b, rows=None):
+    diff = (a.float() - b.float()).abs()
+    if rows is not None:
+        diff = diff[rows]
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def max_rel(a, b):
+    return max_abs(a, b) / max(float(b.float().abs().max()), 1e-30)
+
+
+def kernel_case(fa, case, seed, device, rates):
+    name, b, tq, tk, h, d, causal, mask_kind = case
+    gen = torch.Generator(device=device).manual_seed(seed)
+    bh, scale = b * h, 1.0 / math.sqrt(d)
+
+    def randn(t):
+        return torch.randn(bh, t, d, generator=gen, device=device).to(torch.bfloat16)
+
+    q, k, v, g = randn(tq), randn(tk), randn(tk), randn(tq)
+    mask = make_mask(mask_kind, b, tk, gen, device)
+    args = (mask, h, scale, causal)
+
+    out, lse = fa.attention_forward(q, k, v, *args)
+    out_p, lse_p = fa.attention_forward_plain(q, k, v, *args)
+    delta = (out.float() * g.float()).sum(dim=-1)
+    bwd = (g, lse, delta) + args
+    dq = fa.attention_dq(q, k, v, *bwd)
+    dq_p = fa.attention_dq_plain(q, k, v, *bwd)
+    dk, dv = fa.attention_dkv(q, k, v, *bwd)
+    dk_p, dv_p = fa.attention_dkv_plain(q, k, v, *bwd)
+    torch.cuda.synchronize()
+
+    rows = visible_rows(mask, b, h, tq, tk, causal, device)
+    errs = {"fwd_max_abs": max_abs(out, out_p, rows), "lse_max_abs": max_abs(lse, lse_p, rows),
+            "dq_max_rel": max_rel(dq, dq_p), "dk_max_rel": max_rel(dk, dk_p),
+            "dv_max_rel": max_rel(dv, dv_p), "dq_max_abs": max_abs(dq, dq_p),
+            "dkv_max_abs": max(max_abs(dk, dk_p), max_abs(dv, dv_p))}
+    for t in (out, lse, dq, dk, dv):
+        check(bool(torch.isfinite(t.float()).all()), f"{name}: non-finite kernel output")
+    check(errs["fwd_max_abs"] <= FWD_TOL, f"{name}: forward error {errs['fwd_max_abs']}")
+    check(errs["lse_max_abs"] <= LSE_TOL, f"{name}: lse error {errs['lse_max_abs']}")
+    for key in ("dq_max_rel", "dk_max_rel", "dv_max_rel"):
+        check(errs[key] <= GRAD_TOL, f"{name}: {key} {errs[key]}")
+    if mask_kind == "key0":
+        zero = all(float(t[:, 0].abs().max()) == 0.0 for t in (dq, dk, dv))
+        check(zero, f"{name}: the row that sees no key leaks gradient")
+        errs["row0_grads_zero"] = zero
+
+    bw, flops_peak = rates
+    times = {
+        "flash_fwd": (graph_ms(lambda: fa.attention_forward(q, k, v, *args)),
+                      graph_ms(lambda: fa.attention_forward_plain(q, k, v, *args))),
+        "flash_dq": (graph_ms(lambda: fa.attention_dq(q, k, v, *bwd)),
+                     graph_ms(lambda: fa.attention_dq_plain(q, k, v, *bwd))),
+        "flash_dkv": (graph_ms(lambda: fa.attention_dkv(q, k, v, *bwd)),
+                      graph_ms(lambda: fa.attention_dkv_plain(q, k, v, *bwd))),
+    }
+    record = {"case": name, "shape": [b, tq, tk, h, d], "causal": causal,
+              "mask": mask_kind, **errs, "kernels": {}}
+    for kname, (nbytes, flops) in work(b, tq, tk, h, d, causal).items():
+        t_bytes, t_ops = nbytes / bw * 1e3, flops / flops_peak * 1e3
+        record["kernels"][kname] = {
+            "ms": times[kname][0], "plain_ms": times[kname][1],
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+    record["library_fwd_ms"], record["library_fwd_bwd_ms"] = library_ms(
+        q, k, v, g, mask, b, h, tq, tk, d, causal)
+    record["flash_fwd_bwd_ms"] = flash_fwd_bwd_ms(fa, q, k, v, g, mask, b, h, tq, tk, d, causal)
+    return record
+
+
+def library_ms(q, k, v, g, mask, b, h, tq, tk, d, causal):
+    """`scaled_dot_product_attention` forward, and forward + backward, on
+    the same inputs in (B, H, T, D) layout."""
+    import torch.nn.functional as F
+    q4, k4, v4, g4 = (t.view(b, h, -1, d) for t in (q, k, v, g))
+    attn_mask = None
+    if mask is not None:
+        attn_mask = mask[:, None, None, :].expand(b, 1, tq, tk)
+        if causal:
+            attn_mask = attn_mask & torch.ones(tq, tk, dtype=torch.bool,
+                                               device=q.device).tril()
+    is_causal = causal and mask is None
+
+    def fwd():
+        return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=attn_mask,
+                                              is_causal=is_causal)
+
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q4, k4, v4))
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=attn_mask,
+                                             is_causal=is_causal)
+        return torch.autograd.grad(out, (qg, kg, vg), g4)
+
+    return graph_ms(fwd), graph_ms(fwd_bwd)
+
+
+def flash_fwd_bwd_ms(fa, q, k, v, g, mask, b, h, tq, tk, d, causal):
+    """The port's autograd path (K1, delta, K2, K3) in (B, T, H, D) layout."""
+    q4, k4, v4, g4 = (t.view(b, h, -1, d).transpose(1, 2) for t in (q, k, v, g))
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q4, k4, v4))
+
+    def fwd_bwd():
+        out = fa.flash_attention(qg, kg, vg, causal=causal, key_padding_mask=mask)
+        return torch.autograd.grad(out, (qg, kg, vg), g4)
+
+    return graph_ms(fwd_bwd)
+
+
+class _Tee(io.TextIOBase):
+    def __init__(self, *streams):
+        self._streams = streams
+
+    def write(self, s):
+        for stream in self._streams:
+            stream.write(s)
+        return len(s)
+
+    def flush(self):
+        for stream in self._streams:
+            stream.flush()
+
+
+def slice_phase(fa, train, device):
+    from shockwave_tpu_torch.models import data
+    from shockwave_tpu_torch.models.transformer import Seq2SeqTransformer
+    ckpt = tempfile.mkdtemp(prefix="swt_chip_smoke_")
+    try:
+        argv = ["-batch_size", str(BATCH), "-step", str(STEPS), "-proj_share_weight", "--use_flash",
+                "--checkpoint_dir", ckpt, "--throughput_estimation_interval", "10"]
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        t0 = time.time()
+        trainer = train.main(argv)
+        wall = time.time() - t0
+        launches = dict(fa.LAUNCHES)
+        for kname, n in launches.items():
+            check(n == 18 * STEPS, f"slice: {kname} launched {n} times, not {18 * STEPS}")
+        first = float(trainer.first_metrics["loss"])
+        last = float(trainer.last_metrics["loss"])
+        check(math.isfinite(first) and math.isfinite(last), "slice: non-finite loss")
+        check(last < first, f"slice: loss did not fall ({first} -> {last})")
+        gsq = float(trainer.last_metrics["grad_norm_sq"])
+        check(math.isfinite(gsq), "slice: non-finite grad_norm_sq")
+        (t_a, s_a), (t_b, s_b) = trainer.throughput_marks[0], trainer.throughput_marks[-1]
+        steps_per_s = (s_b - s_a) / (t_b - t_a)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+        captured = io.StringIO()
+        with contextlib.redirect_stdout(_Tee(sys.stdout, captured)):
+            resumed = train.main(argv[:3] + [str(STEPS + 1)] + argv[4:])
+        check(f"TRAINED 1 steps (cumulative {STEPS + 1})" in captured.getvalue(),
+              "slice: the resume did not train exactly one step from the checkpoint")
+
+        src, tgt = next(iter(data.multi30k(BATCH, tgt_len=33)))
+        src = torch.as_tensor(src, device=device).long()
+        tgt = torch.as_tensor(tgt, device=device).long()[:, :-1]
+        einsum = Seq2SeqTransformer(use_flash=False).to(device)
+        einsum.load_state_dict(resumed.model.state_dict())
+        with torch.no_grad():
+            logits_flash = resumed.model(src, tgt)
+            logits_einsum = einsum(src, tgt)
+        logits_err = max_abs(logits_flash, logits_einsum)
+        check(bool(torch.isfinite(logits_flash).all()), "slice: non-finite logits")
+        check(logits_err <= LOGITS_TOL, f"slice: flash vs einsum logits differ by {logits_err}")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    return {"steps": STEPS, "batch": BATCH, "wall_s": wall, "loss_first": first,
+            "loss_last": last, "grad_norm_sq_last": gsq, "steps_per_s": steps_per_s,
+            "tgt_tokens_per_s": steps_per_s * TGT_TOKENS_PER_STEP,
+            "peak_mem_gib": peak_gib, "launches": launches,
+            "logits_flash_vs_einsum_max_abs": logits_err}
+
+
+def main() -> int:
+    t_start = time.time()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card only",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from shockwave_tpu_torch.ops import _build
+    from shockwave_tpu_torch.ops import flash_attention as fa
+    from shockwave_tpu_torch.workloads.translation import train
+
+    device = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kind = torch.cuda.get_device_name(0)
+    smi = nvidia_smi()
+    variant, rates = peaks(smi)
+    emit("device", {"name": kind, "nvidia_smi": smi, "count": torch.cuda.device_count(),
+                    "torch": torch.__version__, "cuda": torch.version.cuda,
+                    "peaks_from": variant, "peak_bytes_per_s": rates[0],
+                    "peak_bf16_flops": rates[1]})
+
+    t0 = time.time()
+    path = _build.build()
+    _build.library()
+    emit("build", {"seconds": time.time() - t0, "library": os.path.relpath(path)})
+    for line in _build.build_log().splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            print(f"ptxas: {line.strip()}")
+
+    t0 = time.time()
+    cases = {}
+    for seed, case in enumerate(CASES):
+        cases[case[0]] = kernel_case(fa, case, seed, device, rates)
+        emit("kernel_case", cases[case[0]])
+    kernel_s = time.time() - t0
+
+    t0 = time.time()
+    sliced = slice_phase(fa, train, device)
+    sliced["seconds"] = time.time() - t0
+    emit("slice", sliced)
+
+    main_case = cases[MAIN_CASE]
+    replaces = {"flash_fwd": "shockwave_tpu/ops/flash_attention.py:40",
+                "flash_dq": "shockwave_tpu/ops/flash_attention.py:167",
+                "flash_dkv": "shockwave_tpu/ops/flash_attention.py:222"}
+    main_cases = [c for n, c in cases.items() if n.startswith("main_")]
+    err_keys = {"flash_fwd": ("fwd_max_abs",), "flash_dq": ("dq_max_abs",),
+                "flash_dkv": ("dkv_max_abs",)}
+    kernels = []
+    for kname, source_line in replaces.items():
+        k = main_case["kernels"][kname]
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "shockwave_tpu_torch/csrc/flash_attention.cu",
+            "replaces": source_line, "launches": sliced["launches"][kname],
+            "max_abs_err": max(c[e] for c in main_cases for e in err_keys[kname]),
+            "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"],
+            "library_ms": main_case["library_fwd_ms"] if kname == "flash_fwd" else None,
+            "at": f"{MAIN_CASE} {main_case['shape']}",
+            "bench_ms": cases["bench_causal"]["kernels"][kname]["ms"],
+            "bench_bound_ms": cases["bench_causal"]["kernels"][kname]["bound_ms"]})
+    print(json.dumps({"kernels": kernels, "kernel_phase_s": kernel_s,
+                      "total_s": time.time() - t_start}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

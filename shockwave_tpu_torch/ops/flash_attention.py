@@ -1,0 +1,281 @@
+"""Fused flash attention: hand-written CUDA kernels for Hopper.
+
+The port of `shockwave_tpu/ops/flash_attention.py`. Three kernels
+(`csrc/flash_attention.cu`) replace its three Pallas kernels:
+
+  flash_fwd  <- _fa_kernel   forward by online softmax, emits a per-row
+                             logsumexp `lse` (BH, Tq) f32
+  flash_dq   <- _dq_kernel   dQ, k-tiles innermost
+  flash_dkv  <- _dkv_kernel  dK and dV, q-tiles innermost
+
+A `torch.autograd.Function` ties them together; its backward computes
+`delta = rowsum(dO * O)` in f32 as plain tensor code (the JAX package
+does this in plain jnp) and then launches the two backward kernels, kept
+as two passes so neither needs atomics.
+
+Beside each kernel sits its plain PyTorch version with the same masking
+constants and casts (scores in f32, p cast to v's dtype before p.V, ds
+cast to q's dtype, p = 0 where s <= -5e29 in the backward). A wrapper
+takes the plain version only for a tensor on the CPU; for a CUDA tensor
+it launches its kernel or raises. `LAUNCHES` counts the kernel launches.
+
+The CUDA kernels take bf16 (the main path's type) and head dims 32 and
+64; anything else on the card raises. The plain versions take any dtype
+and head dim.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from . import _build
+
+NEG_INF = -1e30
+KERNEL_HEAD_DIMS = (32, 64)
+KERNEL_DTYPE = torch.bfloat16
+
+# Launches of each kernel since the last reset; a wrapper adds one where
+# it launches its kernel and nowhere else.
+LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# Plain versions. q: (BH, Tq, D); k, v: (BH, Tk, D); kv_mask: (B, Tk) bool
+# (True = attend) or None, its row for bh being bh // heads.
+# ---------------------------------------------------------------------------
+
+def _masked_scores(q, k, kv_mask, heads, scale, causal):
+    """s = q.k^T * scale in f32, causal entries set to NEG_INF, then the
+    key-padding bias (0 / NEG_INF) added, as _fa_kernel does."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if causal:
+        tq, tk = s.shape[-2:]
+        keep = torch.ones(tq, tk, dtype=torch.bool, device=s.device).tril()
+        s = torch.where(keep, s, NEG_INF)
+    if kv_mask is not None:
+        bias = torch.where(kv_mask, 0.0, NEG_INF).to(torch.float32)
+        s = s + bias.repeat_interleave(heads, dim=0)[:, None, :]
+    return s
+
+
+def _backward_terms(q, k, v, g, lse, delta, kv_mask, heads, scale, causal):
+    """(p in f32, ds in q's dtype) of the backward kernels: p = exp(s - lse)
+    and ds = p * (dO.v^T - delta) * scale."""
+    s = _masked_scores(q, k, kv_mask, heads, scale, causal)
+    # Masked entries sit at the NEG_INF floor; so does lse for a row that
+    # sees no key, where exp(s - lse) would be O(1) garbage. Zero them.
+    p = torch.where(s <= NEG_INF / 2, 0.0, torch.exp(s - lse[..., None]))
+    dp = torch.matmul(g.float(), v.float().transpose(-1, -2))
+    ds = (p * (dp - delta[..., None]) * scale).to(q.dtype)
+    return p, ds
+
+
+def attention_forward_plain(q, k, v, kv_mask, heads: int, scale: float,
+                            causal: bool):
+    """(out in q's dtype, lse (BH, Tq) f32) of one k-block of _fa_kernel:
+    the running max starts at NEG_INF, p is cast to v's dtype for p.V."""
+    s = _masked_scores(q, k, kv_mask, heads, scale, causal)
+    m = s.amax(dim=-1, keepdim=True).clamp_min(NEG_INF)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    acc = torch.matmul(p.to(v.dtype).float(), v.float())
+    out = (acc / l).to(q.dtype)
+    lse = (m + torch.log(l)).squeeze(-1)
+    return out, lse
+
+
+def attention_dq_plain(q, k, v, g, lse, delta, kv_mask, heads: int,
+                       scale: float, causal: bool):
+    """dQ of _dq_kernel; g is dO in q's dtype, lse and delta (BH, Tq) f32."""
+    _, ds = _backward_terms(q, k, v, g, lse, delta, kv_mask, heads, scale,
+                            causal)
+    return torch.matmul(ds.float(), k.float()).to(q.dtype)
+
+
+def attention_dkv_plain(q, k, v, g, lse, delta, kv_mask, heads: int,
+                        scale: float, causal: bool):
+    """(dK, dV) of _dkv_kernel: dV = p^T.dO with p in q's dtype,
+    dK = ds^T.q."""
+    p, ds = _backward_terms(q, k, v, g, lse, delta, kv_mask, heads, scale,
+                            causal)
+    dv = torch.matmul(p.to(q.dtype).float().transpose(-1, -2), g.float())
+    dk = torch.matmul(ds.float().transpose(-1, -2), q.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers.
+# ---------------------------------------------------------------------------
+
+def _on_cpu(*tensors) -> bool:
+    """True when the inputs lie on the CPU (plain version); False when
+    they lie on one CUDA device (kernel). Anything else raises."""
+    devices = {t.device for t in tensors if t is not None}
+    if len(devices) == 1:
+        (device,) = devices
+        if device.type in ("cpu", "cuda"):
+            return device.type == "cpu"
+    raise ValueError(f"flash attention needs all tensors on the CPU or on "
+                     f"one CUDA device; got {sorted(map(str, devices))}")
+
+
+def _check_kernel_inputs(q, k, v, kv_mask, heads):
+    bh, tq, d = q.shape
+    tk = k.shape[1]
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"CUDA flash attention takes head dims "
+                         f"{KERNEL_HEAD_DIMS}; got {d}")
+    if k.shape != (bh, tk, d) or v.shape != (bh, tk, d):
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not match")
+    if bh % heads:
+        raise ValueError(f"BH={bh} is not a multiple of heads={heads}")
+    for t in (q, k, v):
+        if t.dtype != KERNEL_DTYPE:
+            raise TypeError(f"CUDA flash attention takes {KERNEL_DTYPE}; "
+                            f"got {t.dtype}")
+    if kv_mask is not None and (kv_mask.dtype != torch.bool
+                                or kv_mask.shape != (bh // heads, tk)):
+        raise ValueError(f"kv_mask must be bool {(bh // heads, tk)}; got "
+                         f"{kv_mask.dtype} {tuple(kv_mask.shape)}")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    if t is None:
+        return None
+    if not t.is_contiguous():
+        raise ValueError("CUDA flash attention takes contiguous tensors")
+    if t.data_ptr() % 16:
+        raise ValueError("CUDA flash attention takes 16-byte aligned tensors")
+    return t.data_ptr()
+
+
+def _device_and_stream(t: torch.Tensor):
+    """The (device index, current stream) a kernel on `t` launches with."""
+    return t.device.index, torch.cuda.current_stream(t.device).cuda_stream
+
+
+def attention_forward(q, k, v, kv_mask, heads: int, scale: float,
+                      causal: bool):
+    """K1: (out, lse). Plain version on the CPU, `flash_fwd` on CUDA."""
+    if _on_cpu(q, k, v, kv_mask):
+        return attention_forward_plain(q, k, v, kv_mask, heads, scale, causal)
+    _check_kernel_inputs(q, k, v, kv_mask, heads)
+    bh, tq, d = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty(bh, tq, dtype=torch.float32, device=q.device)
+    lib = _build.library()
+    rc = lib.swt_flash_fwd(_ptr(q), _ptr(k), _ptr(v), _ptr(kv_mask), _ptr(out),
+                           _ptr(lse), bh, heads, tq, k.shape[1], d, scale,
+                           int(causal), *_device_and_stream(q))
+    _build.check(lib, rc, "flash_fwd")
+    LAUNCHES["flash_fwd"] += 1
+    return out, lse
+
+
+def _check_backward_inputs(q, g, lse, delta):
+    bh, tq, _ = q.shape
+    if g.shape != q.shape or g.dtype != q.dtype:
+        raise ValueError("dO must match q in shape and dtype")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.dtype != torch.float32 or t.shape != (bh, tq):
+            raise ValueError(f"{name} must be f32 {(bh, tq)}")
+
+
+def attention_dq(q, k, v, g, lse, delta, kv_mask, heads: int, scale: float,
+                 causal: bool):
+    """K2: dQ. Plain version on the CPU, `flash_dq` on CUDA."""
+    if _on_cpu(q, k, v, g, lse, delta, kv_mask):
+        return attention_dq_plain(q, k, v, g, lse, delta, kv_mask, heads,
+                                  scale, causal)
+    _check_kernel_inputs(q, k, v, kv_mask, heads)
+    _check_backward_inputs(q, g, lse, delta)
+    bh, tq, d = q.shape
+    dq = torch.empty_like(q)
+    lib = _build.library()
+    rc = lib.swt_flash_dq(_ptr(q), _ptr(k), _ptr(v), _ptr(g), _ptr(lse),
+                          _ptr(delta), _ptr(kv_mask), _ptr(dq), bh, heads, tq,
+                          k.shape[1], d, scale, int(causal),
+                          *_device_and_stream(q))
+    _build.check(lib, rc, "flash_dq")
+    LAUNCHES["flash_dq"] += 1
+    return dq
+
+
+def attention_dkv(q, k, v, g, lse, delta, kv_mask, heads: int, scale: float,
+                  causal: bool):
+    """K3: (dK, dV). Plain version on the CPU, `flash_dkv` on CUDA."""
+    if _on_cpu(q, k, v, g, lse, delta, kv_mask):
+        return attention_dkv_plain(q, k, v, g, lse, delta, kv_mask, heads,
+                                   scale, causal)
+    _check_kernel_inputs(q, k, v, kv_mask, heads)
+    _check_backward_inputs(q, g, lse, delta)
+    bh, tq, d = q.shape
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    lib = _build.library()
+    rc = lib.swt_flash_dkv(_ptr(q), _ptr(k), _ptr(v), _ptr(g), _ptr(lse),
+                           _ptr(delta), _ptr(kv_mask), _ptr(dk), _ptr(dv), bh,
+                           heads, tq, k.shape[1], d, scale, int(causal),
+                           *_device_and_stream(q))
+    _build.check(lib, rc, "flash_dkv")
+    LAUNCHES["flash_dkv"] += 1
+    return dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """(BH, T, D) flash attention; the counterpart of _flash_bhtd's
+    custom_vjp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, heads, scale, causal):
+        out, lse = attention_forward(q, k, v, kv_mask, heads, scale, causal)
+        ctx.save_for_backward(q, k, v, kv_mask, out, lse)
+        ctx.heads, ctx.scale, ctx.causal = heads, scale, causal
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, kv_mask, out, lse = ctx.saved_tensors
+        delta = (out.float() * g.float()).sum(dim=-1)
+        g16 = g.to(q.dtype).contiguous()
+        args = (g16, lse, delta, kv_mask, ctx.heads, ctx.scale, ctx.causal)
+        dq = attention_dq(q, k, v, *args)
+        dk, dv = attention_dkv(q, k, v, *args)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q, k, v, causal: bool = False,
+                    key_padding_mask: Optional[torch.Tensor] = None,
+                    scale: Optional[float] = None):
+    """Fused attention for (batch, seq, heads, head_dim) inputs.
+
+    key_padding_mask is (B, Tk) with True = attend. Cross-attention
+    (Tq != Tk) is supported for causal=False. The output is in q's dtype.
+    The JAX version's block_q/block_k are Mosaic tiling arguments; the
+    CUDA kernels pick their own 64-row tiles and mask ragged sequence
+    edges themselves, so any lengths are taken.
+    """
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    if causal and tq != tk:
+        raise ValueError("causal flash attention requires Tq == Tk")
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+
+    def to_bhtd(x):
+        return x.transpose(1, 2).reshape(b * h, x.shape[1], d).contiguous()
+
+    kv_mask = None
+    if key_padding_mask is not None:
+        kv_mask = key_padding_mask.to(torch.bool).contiguous()
+    out = _FlashAttention.apply(to_bhtd(q), to_bhtd(k), to_bhtd(v), kv_mask,
+                                h, float(scale), causal)
+    return out.reshape(b, h, tq, d).transpose(1, 2).to(q.dtype)

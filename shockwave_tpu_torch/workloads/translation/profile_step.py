@@ -1,0 +1,127 @@
+#!/usr/bin/env python3
+"""Where a training step of the translation trainer spends its time on the card.
+
+    python3 -m shockwave_tpu_torch.workloads.translation.profile_step [--steps 5]
+
+Builds the full-width trainer through `train.main` (dim 512, 8 heads,
+6 + 6 layers, batch 64, flash on) and lets it take `--warmup` steps.
+Then, on the same batch:
+
+- `--steps` steps timed on the host clock between two synchronisations,
+  with the profiler off (`ms_per_step`);
+- `--steps` more steps under `torch.profiler` (CUDA activity only):
+  the device's busy time per step (the union of its kernel and memory
+  intervals), its idle share of the profiled window, kernel launches per
+  step, and device time per kernel group and for the top kernels.
+
+Prints one JSON line. Runs on the card only.
+"""
+import argparse
+import json
+import os
+import shutil
+import sys
+import tempfile
+import time
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), *[".."] * 3))
+
+import torch  # noqa: E402
+from torch.autograd import DeviceType  # noqa: E402
+
+from shockwave_tpu_torch.workloads.translation import train  # noqa: E402
+
+# Kernel groups, by a piece of the kernel's name (first match wins).
+GROUPS = (("flash_fwd", ("flash_fwd_kernel",)), ("flash_dq", ("flash_dq_kernel",)),
+          ("flash_dkv", ("flash_dkv_kernel",)),
+          ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "cublas", "sm90_")),
+          ("optimizer", ("multi_tensor", "foreach")),
+          ("softmax_and_loss", ("softmax", "nll", "cross_entropy", "log_softmax")),
+          ("reduce", ("reduce",)))
+
+
+def group_of(name: str) -> str:
+    low = name.lower()
+    for group, keys in GROUPS:
+        if any(k in low for k in keys):
+            return group
+    return "other"
+
+
+def union_us(intervals):
+    total, end = 0.0, float("-inf")
+    for start, stop in sorted(intervals):
+        if stop <= end:
+            continue
+        total += stop - max(start, end)
+        end = stop
+    return total
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--steps", type=int, default=5)
+    p.add_argument("--warmup", type=int, default=10)
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_step runs on the CUDA card only")
+
+    ckpt = tempfile.mkdtemp(prefix="swt_profile_")
+    try:
+        trainer = train.main(["-batch_size", "64", "-step", str(args.warmup),
+                              "-proj_share_weight", "--use_flash",
+                              "--checkpoint_dir", ckpt,
+                              "--throughput_estimation_interval", str(10**9)])
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    device = trainer.device
+    batch = tuple(torch.as_tensor(b, device=device).long()
+                  for b in next(iter(trainer.data_loader)))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        trainer.train_step(*batch)
+    torch.cuda.synchronize()
+    ms_per_step = (time.perf_counter() - t0) * 1e3 / args.steps
+
+    # Device activity only: recording every host-side op as well slows the
+    # host enough to change the idle share being measured.
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            trainer.train_step(*batch)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+
+    intervals, per_group, per_kernel = [], {}, {}
+    for event in prof.events():
+        if event.device_type != DeviceType.CUDA:
+            continue
+        start, end = event.time_range.start, event.time_range.end
+        intervals.append((start, end))
+        us = end - start
+        group = group_of(event.name)
+        per_group[group] = per_group.get(group, 0.0) + us
+        total, count = per_kernel.get(event.name, (0.0, 0))
+        per_kernel[event.name] = (total + us, count + 1)
+    busy_ms = union_us(intervals) / 1e3
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:10]
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0), "steps": args.steps,
+        "ms_per_step": ms_per_step, "profiled_ms_per_step": window_ms / args.steps,
+        "device_busy_ms_per_step": busy_ms / args.steps,
+        "device_idle_share": 1.0 - busy_ms / window_ms if window_ms else None,
+        "device_events_per_step": len(intervals) / args.steps,
+        "group_ms_per_step": {g: us / 1e3 / args.steps
+                              for g, us in sorted(per_group.items(), key=lambda kv: -kv[1])},
+        "top_kernels": [{"name": name[:100], "ms_per_step": us / 1e3 / args.steps,
+                         "calls_per_step": n / args.steps} for name, (us, n) in top],
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

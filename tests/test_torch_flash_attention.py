@@ -1,0 +1,226 @@
+"""The port's flash attention against the JAX package's, on the CPU in f32.
+
+The same numpy inputs go through `shockwave_tpu.ops.flash_attention`
+(Pallas in interpret mode, as tests/test_ops.py runs it) and through
+`shockwave_tpu_torch.ops.flash_attention`, whose wrappers take their
+plain PyTorch versions for CPU tensors. Tolerances are test_ops.py's:
+2e-5 on the forward, 5e-4 on gradients.
+"""
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from shockwave_tpu.ops import flash_attention as jax_flash_attention
+from shockwave_tpu_torch.ops import flash_attention as fa
+
+jfa = importlib.import_module("shockwave_tpu.ops.flash_attention")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """These tests share the machine with the rest of the suite's workers
+    (some of them timing-sensitive loopbacks); their tensors are tiny, so
+    one intra-op thread is enough."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+FWD_TOL = 2e-5
+GRAD_TOL = 5e-4
+
+
+def rand_qkv(rng, b, t, h, d, tk=None):
+    tk = tk or t
+    return (rng.randn(b, t, h, d).astype(np.float32),
+            rng.randn(b, tk, h, d).astype(np.float32),
+            rng.randn(b, tk, h, d).astype(np.float32))
+
+
+def torch_out(q, k, v, **kw):
+    kpm = kw.pop("key_padding_mask", None)
+    if kpm is not None:
+        kpm = torch.from_numpy(kpm)
+    out = fa.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                             key_padding_mask=kpm, **kw)
+    return out.numpy()
+
+
+def jax_out(q, k, v, **kw):
+    kpm = kw.pop("key_padding_mask", None)
+    if kpm is not None:
+        kpm = jnp.asarray(kpm)
+    return np.asarray(jax_flash_attention(
+        *(jnp.asarray(x) for x in (q, k, v)), key_padding_mask=kpm, **kw))
+
+
+def torch_grads(q, k, v, kpm, causal):
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = fa.flash_attention(qt, kt, vt, causal=causal,
+                             key_padding_mask=torch.from_numpy(kpm))
+    (out ** 2).sum().backward()
+    return [t.grad.numpy() for t in (qt, kt, vt)]
+
+
+def jax_grads(q, k, v, kpm, causal, **blocks):
+    def loss(q, k, v):
+        out = jax_flash_attention(q, k, v, causal=causal,
+                                  key_padding_mask=jnp.asarray(kpm), **blocks)
+        return (out.astype(jnp.float32) ** 2).sum()
+    grads = jax.grad(loss, argnums=(0, 1, 2))(
+        *(jnp.asarray(x) for x in (q, k, v)))
+    return [np.asarray(g) for g in grads]
+
+
+class TestFlashAttention:
+    @pytest.mark.parametrize("t,causal", [(128, False), (128, True),
+                                          (32, True)])
+    def test_forward_parity(self, t, causal):
+        rng = np.random.RandomState(0)
+        q, k, v = rand_qkv(rng, 2, t, 2, 64)
+        err = np.abs(torch_out(q, k, v, causal=causal)
+                     - jax_out(q, k, v, causal=causal)).max()
+        assert err < FWD_TOL, err
+
+    def test_key_padding_mask(self):
+        rng = np.random.RandomState(1)
+        q, k, v = rand_qkv(rng, 2, 128, 2, 64)
+        kpm = rng.rand(2, 128) > 0.3
+        err = np.abs(torch_out(q, k, v, key_padding_mask=kpm)
+                     - jax_out(q, k, v, key_padding_mask=kpm)).max()
+        assert err < FWD_TOL, err
+
+    def test_cross_attention_lengths(self):
+        rng = np.random.RandomState(2)
+        q, k, v = rand_qkv(rng, 1, 64, 2, 64, tk=128)
+        assert torch_out(q, k, v).shape == (1, 64, 2, 64)
+        err = np.abs(torch_out(q, k, v) - jax_out(q, k, v)).max()
+        assert err < FWD_TOL, err
+
+    def test_gradients_match(self):
+        rng = np.random.RandomState(3)
+        q, k, v = rand_qkv(rng, 1, 64, 2, 64)
+        kpm = rng.rand(1, 64) > 0.2
+        for a, b in zip(torch_grads(q, k, v, kpm, True),
+                        jax_grads(q, k, v, kpm, True)):
+            assert np.abs(a - b).max() < GRAD_TOL
+
+    def test_fully_masked_row_leaks_no_gradient(self):
+        """causal + key 0 padded: query row 0 sees no key. Its gradient
+        contribution is exactly zero in both packages (the p = 0 where
+        s <= NEG_INF/2 guard), and every gradient matches the JAX
+        package's multi-block run."""
+        rng = np.random.RandomState(5)
+        t = 128
+        q, k, v = rand_qkv(rng, 1, t, 2, 64)
+        kpm = np.ones((1, t), bool)
+        kpm[0, 0] = False
+        g_port = torch_grads(q, k, v, kpm, True)
+        g_jax = jax_grads(q, k, v, kpm, True, block_q=32, block_k=32)
+        assert np.abs(g_port[0][0, 0]).max() == 0.0
+        assert np.abs(g_port[1][0, 0]).max() == 0.0
+        assert np.abs(g_port[2][0, 0]).max() == 0.0
+        for a, b in zip(g_port, g_jax):
+            assert np.abs(a - b).max() < GRAD_TOL
+        # Rows that see a key agree; row 0's output depends on tiling.
+        out_p = torch_out(q, k, v, causal=True, key_padding_mask=kpm)
+        out_j = jax_out(q, k, v, causal=True, key_padding_mask=kpm,
+                        block_q=32, block_k=32)
+        assert np.abs(out_p[:, 1:] - out_j[:, 1:]).max() < FWD_TOL
+
+    def test_causal_cross_rejected(self):
+        rng = np.random.RandomState(4)
+        q, k, v = rand_qkv(rng, 1, 64, 2, 64, tk=128)
+        with pytest.raises(ValueError):
+            torch_out(q, k, v, causal=True)
+
+
+def bhtd(rng, bh, t, d):
+    return rng.randn(bh, t, d).astype(np.float32)
+
+
+# (heads, B, Tq, Tk, causal, block): multi-block JAX grids, masks with no
+# fully masked row.
+KERNEL_CASES = [(2, 2, 64, 64, True, 32), (2, 1, 64, 128, False, 32),
+                (1, 2, 32, 32, False, 32)]
+
+
+class TestPlainVersionsAgainstPallasKernels:
+    """Each plain version against the Pallas kernel it stands beside, on
+    identical inputs (the JAX side in interpret mode)."""
+
+    @staticmethod
+    def _inputs(seed, heads, b, tq, tk):
+        rng = np.random.RandomState(seed)
+        q, g = bhtd(rng, b * heads, tq, 64), bhtd(rng, b * heads, tq, 64)
+        k, v = bhtd(rng, b * heads, tk, 64), bhtd(rng, b * heads, tk, 64)
+        mask = np.ones((b, tk), bool)
+        mask[:, 1::3] = rng.rand(b, len(range(1, tk, 3))) > 0.5  # key 0 stays
+        return q, k, v, g, mask
+
+    @pytest.mark.parametrize("heads,b,tq,tk,causal,block", KERNEL_CASES)
+    def test_forward_and_lse(self, heads, b, tq, tk, causal, block):
+        q, k, v, _, mask = self._inputs(0, heads, b, tq, tk)
+        scale = 1.0 / 8.0
+        out_j, lse_j = jfa._forward_impl(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+            jnp.asarray(np.repeat(mask, heads, axis=0).astype(np.int8)),
+            scale, causal, block, block, True)
+        out_p, lse_p = fa.attention_forward_plain(
+            *(torch.from_numpy(x) for x in (q, k, v)), torch.from_numpy(mask),
+            heads, scale, causal)
+        assert np.abs(out_p.numpy() - np.asarray(out_j)).max() < FWD_TOL
+        assert np.abs(lse_p.numpy() - np.asarray(lse_j)[..., 0]).max() < FWD_TOL
+
+    @pytest.mark.parametrize("heads,b,tq,tk,causal,block", KERNEL_CASES)
+    def test_dq_and_dkv(self, heads, b, tq, tk, causal, block):
+        q, k, v, g, mask = self._inputs(1, heads, b, tq, tk)
+        scale = 1.0 / 8.0
+        jmask = jnp.asarray(np.repeat(mask, heads, axis=0).astype(np.int8))
+        jq, jk, jv, jg = (jnp.asarray(x) for x in (q, k, v, g))
+        out_j, lse_j = jfa._forward_impl(jq, jk, jv, jmask, scale, causal,
+                                         block, block, True)
+        dq_j, dk_j, dv_j = jfa._backward_impl(jq, jk, jv, jmask, out_j, lse_j,
+                                              jg, scale, causal, block, block,
+                                              True)
+        out = torch.from_numpy(np.array(out_j))
+        tg = torch.from_numpy(g)
+        delta = (out * tg).sum(-1)
+        lse = torch.from_numpy(np.asarray(lse_j)[..., 0].copy())
+        args = (*(torch.from_numpy(x) for x in (q, k, v)), tg, lse, delta,
+                torch.from_numpy(mask), heads, scale, causal)
+        dq = fa.attention_dq_plain(*args)
+        dk, dv = fa.attention_dkv_plain(*args)
+        for a, b_ in ((dq, dq_j), (dk, dk_j), (dv, dv_j)):
+            assert np.abs(a.numpy() - np.asarray(b_)).max() < GRAD_TOL
+
+
+class TestWrappers:
+    def test_cpu_tensors_take_the_plain_versions(self):
+        fa.reset_launch_counts()
+        rng = np.random.RandomState(7)
+        q, k, v = (torch.from_numpy(x).requires_grad_()
+                   for x in rand_qkv(rng, 1, 32, 2, 32))
+        fa.flash_attention(q, k, v, causal=True).sum().backward()
+        assert fa.LAUNCHES == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+
+    def test_other_devices_raise(self):
+        q = torch.empty(2, 32, 64, device="meta")
+        with pytest.raises(ValueError):
+            fa.attention_forward(q, q, q, None, 1, 0.125, False)
+        with pytest.raises(ValueError):
+            fa.attention_forward(q, torch.zeros(2, 32, 64), q, None, 1, 0.125,
+                                 False)
+
+    def test_default_scale_and_output_dtype(self):
+        rng = np.random.RandomState(8)
+        q, k, v = (torch.from_numpy(x).to(torch.bfloat16)
+                   for x in rand_qkv(rng, 1, 16, 2, 32))
+        out = fa.flash_attention(q, k, v)
+        ref = fa.flash_attention(q, k, v, scale=1.0 / np.sqrt(32))
+        assert out.dtype == torch.bfloat16
+        assert torch.equal(out, ref)

@@ -1,0 +1,55 @@
+"""The port imports torch, never JAX and nothing of the JAX package.
+
+An AST scan of every module of `shockwave_tpu_torch/` and of
+`chip_smoke.py`: no import of `jax`, `flax` or `optax`, and none of
+`shockwave_tpu` itself (matched as a whole package name, so
+`shockwave_tpu_torch` passes).
+"""
+import ast
+import os
+
+import pytest
+
+REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "shockwave_tpu"}
+
+
+def port_files():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, dirs, names in os.walk(os.path.join(REPO, "shockwave_tpu_torch")):
+        dirs[:] = [d for d in dirs if d not in ("__pycache__", "build")]
+        files += [os.path.join(root, n) for n in sorted(names) if n.endswith(".py")]
+    return files
+
+
+def imported_packages(path):
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+        elif isinstance(node, ast.Call) and getattr(node.func, "attr", None) == "import_module":
+            if node.args and isinstance(node.args[0], ast.Constant):
+                yield str(node.args[0].value).split(".")[0]
+
+
+def test_the_scan_covers_the_port():
+    names = {os.path.relpath(p, REPO) for p in port_files()}
+    assert "chip_smoke.py" in names
+    assert "shockwave_tpu_torch/ops/flash_attention.py" in names
+    assert "shockwave_tpu_torch/workloads/translation/train.py" in names
+
+
+@pytest.mark.parametrize("path", port_files(), ids=lambda p: os.path.relpath(p, REPO))
+def test_no_jax_and_no_reference_package(path):
+    packages = set(imported_packages(path))
+    assert not packages & FORBIDDEN, sorted(packages & FORBIDDEN)
+
+
+def test_the_scan_catches_the_reference_package(tmp_path):
+    bad = tmp_path / "bad.py"
+    bad.write_text("import shockwave_tpu_torch\nfrom shockwave_tpu.core import job\n")
+    assert set(imported_packages(str(bad))) & FORBIDDEN == {"shockwave_tpu"}

@@ -1,0 +1,199 @@
+"""The port's trainer against the JAX package's, on the CPU.
+
+Two SGD-momentum steps on one batch are compared with
+`jax.value_and_grad` of the JAX trainer's loss plus
+`optax.sgd(1e-3, momentum=0.9)`, with weights carried across by
+`convert.py`; then the data pipeline, the checkpoints and the entry
+point.
+"""
+import functools
+import signal
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from shockwave_tpu.core import durable_io as jax_durable_io
+from shockwave_tpu.models import data as jax_data
+from shockwave_tpu.models.transformer import Seq2SeqTransformer as FlaxSeq2Seq
+from shockwave_tpu_torch.convert import flax_to_state_dict
+from shockwave_tpu_torch.core import durable_io
+from shockwave_tpu_torch.models import data, train_common
+from shockwave_tpu_torch.models.transformer import Seq2SeqTransformer
+from shockwave_tpu_torch.ops import flash_attention as fa
+from shockwave_tpu_torch.workloads.translation import train
+
+KW = dict(vocab_size=64, dim=64, num_heads=2, num_layers=2, mlp_dim=128,
+          max_len=32)
+# f32 on both sides; the sums run in another order. Loss: ~1e-7 relative
+# is f32 rounding over 2 layers, 2e-6 leaves room. grad_norm_sq sums the
+# squares of ~10^5 gradient entries: 1e-5 relative. Parameters move by
+# lr * momentum trace (~1e-3 * |g|): 1e-6 absolute covers f32 rounding of
+# the gradients feeding them.
+LOSS_RTOL, GSQ_RTOL, PARAM_ATOL = 2e-6, 1e-5, 1e-6
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """These tests share the machine with the rest of the suite's workers
+    (some of them timing-sensitive loopbacks); their tensors are tiny, so
+    one intra-op thread is enough."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def batch(seed=0):
+    rng = np.random.RandomState(seed)
+    src = rng.randint(1, 64, (4, 32)).astype(np.int32)
+    tgt = rng.randint(1, 64, (4, 33)).astype(np.int32)
+    src[1, 24:] = 0
+    tgt[2, 20:] = 0
+    return src, tgt
+
+
+def jax_steps(params, src, tgt, use_flash, n=2):
+    """The JAX trainer's step (workloads/translation/train.py's loss_fn,
+    train_common's value_and_grad + global_norm + optax.sgd)."""
+    model = FlaxSeq2Seq(**KW, dtype=jnp.float32, use_flash=use_flash)
+
+    def loss_fn(params, src_tokens, tgt_tokens):
+        logits = model.apply({"params": params}, src_tokens, tgt_tokens[:, :-1])
+        targets = tgt_tokens[:, 1:]
+        mask = (targets != 0).astype(jnp.float32)
+        losses = optax.softmax_cross_entropy_with_integer_labels(logits, targets)
+        return (losses * mask).sum() / jnp.maximum(mask.sum(), 1.0)
+
+    value_and_grad = jax.jit(jax.value_and_grad(loss_fn))
+    tx = optax.sgd(1e-3, momentum=0.9)
+    opt = tx.init(params)
+    metrics = []
+    for _ in range(n):
+        loss, grads = value_and_grad(params, src, tgt)
+        metrics.append((float(loss), float(optax.global_norm(grads) ** 2)))
+        updates, opt = tx.update(grads, opt, params)
+        params = optax.apply_updates(params, updates)
+    return params, metrics
+
+
+@pytest.mark.parametrize("use_flash", [False, True])
+def test_two_sgd_steps_match_jax(use_flash):
+    src, tgt = batch()
+    params = FlaxSeq2Seq(**KW, dtype=jnp.float32).init(
+        jax.random.PRNGKey(0), src, tgt[:, :-1])["params"]
+    params = jax.tree_util.tree_map(np.asarray, params)
+    model = Seq2SeqTransformer(**KW, dtype=torch.float32, use_flash=use_flash)
+    model.load_state_dict(flax_to_state_dict(params))
+    trainer = train_common.Trainer(types.SimpleNamespace(), train.loss_fn,
+                                   model, None, torch.device("cpu"),
+                                   learning_rate=1e-3)
+    src_t, tgt_t = (torch.from_numpy(x).long() for x in (src, tgt))
+    port_metrics = [trainer.train_step(src_t, tgt_t) for _ in range(2)]
+
+    ref_params, ref_metrics = jax_steps(params, src, tgt, use_flash)
+    for got, (loss, gsq) in zip(port_metrics, ref_metrics):
+        assert got["loss"].item() == pytest.approx(loss, rel=LOSS_RTOL)
+        assert got["grad_norm_sq"].item() == pytest.approx(gsq, rel=GSQ_RTOL)
+    ref = flax_to_state_dict(jax.tree_util.tree_map(np.asarray, ref_params))
+    state = model.state_dict()
+    moved = 0.0
+    for name, value in ref.items():
+        assert (state[name] - value).abs().max().item() < PARAM_ATOL, name
+        moved = max(moved, (value - flax_to_state_dict(params)[name]).abs().max().item())
+    assert moved > 10 * PARAM_ATOL  # the steps did move the weights
+    assert trainer.step == 2
+
+
+@pytest.mark.parametrize("batch_size", [2, 64])
+def test_synthetic_batches_are_the_jax_packages(batch_size):
+    ours = next(iter(data.multi30k(batch_size, tgt_len=33)))
+    ref = next(iter(jax_data.multi30k(batch_size, tgt_len=33)))
+    assert ours[0].shape == (batch_size, 32) and ours[1].shape == (batch_size, 33)
+    for a, b in zip(ours, ref):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def test_multi30k_files_load_as_the_jax_package_does(tmp_path):
+    (tmp_path / "train.de").write_text("ein hund läuft\n\nzwei katzen\nein ball\n")
+    (tmp_path / "train.en").write_text("a dog runs\nblank\ntwo cats\na ball\n")
+    ours = data.multi30k(2, tgt_len=33, data_dir=str(tmp_path), seed=3)
+    ref = jax_data.multi30k(2, tgt_len=33, data_dir=str(tmp_path), seed=3)
+    assert not ours.synthetic
+    for got, want in zip(ours, ref):
+        for a, b in zip(got, want):
+            assert np.array_equal(a, b)
+
+
+def test_checkpoint_round_trip_and_prev_fallback(tmp_path):
+    path = train_common.checkpoint_path(str(tmp_path))
+    first = {"params": {"w": torch.arange(4.0)}, "step": 1}
+    second = {"params": {"w": torch.arange(4.0) * 2}, "step": 2}
+    train_common.save_checkpoint(path, first)
+    train_common.save_checkpoint(path, second)
+    loaded = train_common.load_checkpoint(path, torch.device("cpu"))
+    assert loaded["step"] == 2 and torch.equal(loaded["params"]["w"], second["params"]["w"])
+    # The footer is the JAX package's format.
+    with open(path, "rb") as f:
+        status, _ = jax_durable_io.verify_footer(f.read(), b"SWCKPT1\n")
+    assert status == jax_durable_io.FOOTER_OK
+    with open(path, "r+b") as f:  # corrupt the current generation
+        f.seek(10)
+        f.write(b"\xff\xfe\xfd")
+    with open(path, "rb") as f:
+        assert durable_io.verify_footer(f.read(), b"SWCKPT1\n")[0] == durable_io.FOOTER_CORRUPT
+    loaded = train_common.load_checkpoint(path, torch.device("cpu"))
+    assert loaded["step"] == 1 and torch.equal(loaded["params"]["w"], first["params"]["w"])
+
+
+@pytest.fixture(autouse=True)
+def _keep_sigterm_handler():
+    """train.main installs the trainer's SIGTERM handler; give the test
+    process its own back."""
+    handler = signal.getsignal(signal.SIGTERM)
+    yield
+    signal.signal(signal.SIGTERM, handler)
+
+
+SMALL = functools.partial(Seq2SeqTransformer, dim=32, num_heads=2,
+                          num_layers=1, mlp_dim=64)
+
+
+def test_main_trains_and_resumes(tmp_path, monkeypatch, capsys):
+    monkeypatch.setattr(train, "Seq2SeqTransformer", SMALL)
+    fa.reset_launch_counts()
+    argv = ["-batch_size", "2", "-step", "2", "--device", "cpu",
+            "-proj_share_weight", "--checkpoint_dir", str(tmp_path)]
+    trainer = train.main(argv)
+    assert "TRAINED 2 steps (cumulative 2)" in capsys.readouterr().out
+    assert trainer.step == 2 and np.isfinite(trainer.last_metrics["loss"].item())
+    assert not trainer.model.enc[0].self_attn.use_flash  # off by default on the CPU
+    argv[3] = "3"
+    resumed = train.main(argv + ["--use_flash"])
+    assert "TRAINED 1 steps (cumulative 3)" in capsys.readouterr().out
+    assert resumed.step == 3 and resumed.model.enc[0].self_attn.use_flash
+    assert fa.LAUNCHES == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+
+
+def test_cuda_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["-step", "1"])
+
+
+@pytest.mark.parametrize("argv,env", [
+    (["--enable_lease_iterator"], {}),
+    (["--num_processes", "2", "--process_id", "0"], {}),
+    ([], {"SWTPU_MODE": "accordion"}),
+])
+def test_unported_paths_raise(argv, env, monkeypatch, tmp_path):
+    monkeypatch.setattr(train, "Seq2SeqTransformer", SMALL)
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        train.main(["-step", "1", "--device", "cpu",
+                    "--checkpoint_dir", str(tmp_path)] + argv)
