@@ -7,14 +7,19 @@ Phases, in order; any failure exits non-zero and prints no result:
 
 1. device: the card's name, its `nvidia-smi` name and power limit, and
    the torch and CUDA versions.
-2. build: nvcc compiles `shockwave_tpu_torch/csrc/*.cu` (timed).
+2. build: nvcc compiles `shockwave_tpu_torch/csrc/*.cu` (timed); then
+   each kernel instantiation's resident CTAs per SM, threads, shared
+   memory and registers (`occupancy:`).
 3. kernels: each of the three flash-attention kernels (forward, dQ,
    dK/dV) against its plain PyTorch version on the card, in bf16, at the
    main path's three attention variants (B=64, T=32, H=8, D=64),
    cross-attention with Tq != Tk, head dim 32, the bench shape
-   (4, 2048, 8, 64) causal and a causal row that sees no key. Times are
-   medians of CUDA-event timings of CUDA-graph replays (device time, no
-   host launch cost), beside the bound and the PyTorch library call
+   (4, 2048, 8, 64) causal, a causal row that sees no key, and the edges
+   of the forward's and dK/dV's two tile widths (32 and 64, chosen by
+   `launch_config`): ragged T=17, Tq=32 against Tk=48, T=33, D=32 at
+   T=32 and the key-0 row at T=32. Times are medians of CUDA-event
+   timings of CUDA-graph replays (device time, no host launch cost),
+   beside the bound and the PyTorch library call
    (`scaled_dot_product_attention`, a yardstick the port never calls).
 4. slice: the translation trainer at full width (dim 512, 8 heads,
    6 + 6 layers, batch 64) for 30 steps through
@@ -23,7 +28,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    resume from its checkpoint, and the logits with flash on against the
    einsum path on the same weights and batch.
 
-Output: one `kernel_case:` JSON line per shape, a `slice:` line, then the
+Output: `device:`, `build:`, `ptxas:` and `occupancy:` lines, one
+`kernel_case:` JSON line per shape, a `slice:` line, then the
 `{"kernels": [...]}` line, the `nvidia-smi` name and power limit, and as
 the last line `{"ok": true, "device": {...}}`.
 """
@@ -57,6 +63,11 @@ CASES = (
     ("head_dim_32", 2, 128, 128, 4, 32, True, "tail"),
     ("bench_causal", 4, 2048, 2048, 8, 64, True, None),
     ("masked_row0", 1, 128, 128, 2, 64, True, "key0"),
+    ("short_ragged", 3, 17, 17, 2, 64, True, "tail"),
+    ("cross_32x48", 4, 32, 48, 2, 64, False, "tail"),
+    ("one_past_short", 2, 33, 33, 2, 64, True, "tail"),
+    ("short_head_dim_32", 2, 32, 32, 4, 32, True, "tail"),
+    ("short_masked_row0", 1, 32, 32, 2, 64, True, "key0"),
 )
 MAIN_CASE = "main_enc_self"  # 12 of the 18 launches per step are key-padded, non-causal
 
@@ -230,7 +241,7 @@ def kernel_case(fa, case, seed, device, rates):
                       graph_ms(lambda: fa.attention_dkv_plain(q, k, v, *bwd))),
     }
     record = {"case": name, "shape": [b, tq, tk, h, d], "causal": causal,
-              "mask": mask_kind, **errs, "kernels": {}}
+              "mask": mask_kind, "tile": fa.launch_config(tq, tk, d), **errs, "kernels": {}}
     for kname, (nbytes, flops) in work(b, tq, tk, h, d, causal).items():
         t_bytes, t_ops = nbytes / bw * 1e3, flops / flops_peak * 1e3
         record["kernels"][kname] = {
@@ -377,6 +388,12 @@ def main() -> int:
     for line in _build.build_log().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"ptxas: {line.strip()}")
+    occupancy = fa.kernel_occupancy(torch.cuda.current_device())
+    emit("occupancy", {"sms": torch.cuda.get_device_properties(0).multi_processor_count,
+                       "kernels": occupancy})
+    for row in occupancy:
+        check(row["ctas_per_sm"] > 0, f"{row['kernel']} d={row['d']} tile={row['tile']}: "
+                                      f"no CTA fits on an SM")
 
     t0 = time.time()
     cases = {}
@@ -409,8 +426,7 @@ def main() -> int:
             "bound_by": k["bound_by"],
             "library_ms": main_case["library_fwd_ms"] if kname == "flash_fwd" else None,
             "at": f"{MAIN_CASE} {main_case['shape']}",
-            "bench_ms": cases["bench_causal"]["kernels"][kname]["ms"],
-            "bench_bound_ms": cases["bench_causal"]["kernels"][kname]["bound_ms"]})
+            "bench_ms": cases["bench_causal"]["kernels"][kname]["ms"]})
     print(json.dumps({"kernels": kernels, "kernel_phase_s": kernel_s,
                       "total_s": time.time() - t_start}), flush=True)
     print(smi, flush=True)

@@ -6,20 +6,26 @@
 // (B, Tk) uint8 key mask (1 = attend, nullptr = all attend, row = bh /
 // heads) and keep the reference's masking constants: causal entries are
 // set to -1e30, masked keys get a -1e30 additive bias after that, and
-// the backward zeroes p wherever s <= -5e29.
+// the backward zeroes p wherever s <= -5e29. Rows or keys past a ragged
+// sequence end get -inf, which no reference tile has, so they never move
+// a running max. Nothing is written to device memory but the outputs.
 //
-// Layout of every kernel: one CTA of four warps owns a 64-row tile of
-// one (batch, head); each warp owns 16 of those rows. The sequential
-// TPU grid axis becomes a loop over 64-row tiles of the other sequence
-// inside the CTA. Products run on the tensor cores through WMMA
-// (16x16x16, bf16 operands, f32 accumulation); softmax and masking run
-// in f32 on the CUDA cores, one row at a time per warp, two columns per
-// lane. Nothing is written to device memory but the outputs.
+// K1 (forward) and K3 (dK/dV) are built on mma.sync.m16n8k16 (bf16
+// operands, f32 accumulation) in the FA2 register layout: operands come
+// from shared memory through ldmatrix, and scores, probabilities and
+// sums stay in registers in the accumulator fragment layout. Their CTA
+// owns a square tile of `kBlock` rows (16 per warp) of one (batch,
+// head) and streams `kBlock`-wide tiles of the other sequence through a
+// two-stage cp.async ring. The wrapper picks kBlock from the sequence
+// lengths (ops/flash_attention.py:launch_config): 32 when both are at
+// most 32 (the trainer's T = 32: a 2-warp CTA per (bh), no padding
+// rows), 64 otherwise. wgmma and TMA need 64-row warpgroup tiles that
+// the T = 32 path cannot fill; they are left for the long-sequence
+// paths a later slice brings.
 //
-// This is the simple first version: no TMA, no wgmma, no double
-// buffering of the streamed tiles, scalar bf16 stores. Tile loads are
-// 16-byte vector loads, and rows past the sequence end are zero-filled
-// and masked inside the kernel.
+// K2 (dQ) is still the first version: WMMA 16x16x16 fragments, one
+// 4-warp CTA per 64-row tile, a serial per-row pass over scores staged
+// in shared memory, synchronous tile loads and scalar bf16 stores.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -33,23 +39,356 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kTile = 64;          // rows of a CTA's own tile and of each streamed tile
+constexpr int kTile = 64;          // K2: rows of a CTA's own tile and of each streamed tile
 constexpr int kWarpRows = 16;      // rows a warp owns
 constexpr float kNegInf = -1e30f;  // the reference's NEG_INF
 
 __device__ __forceinline__ float minus_infinity() { return __int_as_float(0xff800000); }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+// Additive bias of one key, as the reference's _kbias gives it: 0
+// (attend), -1e30 (masked), and -inf past the sequence end.
+__device__ __forceinline__ float key_bias(const uint8_t* mask_row, int key, int tk) {
+  if (key >= tk) return minus_infinity();
+  return (mask_row != nullptr && mask_row[key] == 0) ? kNegInf : 0.f;
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+// ---------------------------------------------------------------------------
+// Building blocks of K1 and K3: cp.async, ldmatrix, mma.sync.
+// ---------------------------------------------------------------------------
+
+// Shared tiles keep rows of D + 8 bf16 (D = 64: 144 bytes). The 8 rows an
+// ldmatrix phase reads then start in 8 different 16-byte bank groups, so
+// neither ldmatrix nor the epilogue's staging stores conflict.
+template <int D>
+__host__ __device__ constexpr int smem_stride() {
+  return D + 8;
 }
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy; with valid false the 16 bytes are zeroed
+// and nothing is read.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups of this thread are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of
+// matrix i, and register i of lane l holds row l/4, columns 2(l%4) and
+// 2(l%4)+1 of matrix i (with .trans: of its transpose).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c (16x8 f32) += a (16x16 bf16, row-major) . b (16x8 bf16, col-major).
+// With g = lane / 4 and t = lane % 4: c[0], c[1] are row g, columns
+// 2t, 2t+1; c[2], c[3] the same columns of row g + 8.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The A operand (16 x 16, row-major) at `tile` (row stride S) for this lane.
+template <int S>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile, int lane) {
+  ldmatrix_x4(a, tile + (lane & 15) * S + (lane >> 4) * 8);
+}
+
+// B operands of two n8 tiles for A . X^T where X is row-major (rows =
+// n): rows 0-7 and 8-15 of `tile`, columns 0-15. b[0], b[1] feed n-tile
+// 0, b[2], b[3] n-tile 1.
+template <int S>
+__device__ __forceinline__ void load_bt(uint32_t (&b)[4], const bf16* tile, int lane) {
+  ldmatrix_x4(b, tile + (((lane >> 4) << 3) + (lane & 7)) * S + ((lane >> 3) & 1) * 8);
+}
+
+// B operands of two n8 tiles for A . X where X is row-major (rows = k):
+// rows 0-15 of `tile`, columns 0-7 (b[0], b[1]) and 8-15 (b[2], b[3]).
+template <int S>
+__device__ __forceinline__ void load_b(uint32_t (&b)[4], const bf16* tile, int lane) {
+  ldmatrix_x4_trans(b, tile + (((lane >> 3) & 1) * 8 + (lane & 7)) * S + (lane >> 4) * 8);
+}
+
+// The A operand of a 16 x 16 slice of probabilities held as two n8
+// accumulator tiles: the FA2 repacking, no shared memory.
+__device__ __forceinline__ void accum_to_a(uint32_t (&a)[4], const float (&c0)[4],
+                                           const float (&c1)[4]) {
+  a[0] = pack_bf16(c0[0], c0[1]);
+  a[1] = pack_bf16(c0[2], c0[3]);
+  a[2] = pack_bf16(c1[0], c1[1]);
+  a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// Start cp.async copies of rows [row0, row0 + R) of a (rows, D) bf16
+// matrix into an R-row shared tile; rows past `rows` are zero-filled.
+template <int D, int R, int kCtaThreads>
+__device__ __forceinline__ void copy_tile_async(bf16* dst, const bf16* src, int row0, int rows) {
+  constexpr int kChunks = D / 8;
+  for (int i = threadIdx.x; i < R * kChunks; i += kCtaThreads) {
+    const int r = i / kChunks, c = i % kChunks;
+    const bool valid = row0 + r < rows;
+    cp_async16(dst + r * smem_stride<D>() + c * 8, src + (size_t)(valid ? row0 + r : 0) * D + c * 8,
+               valid);
+  }
+}
+
+// Write 16 staged bf16 rows to rows [row0, row0 + 16) of a (rows, D)
+// matrix with 16-byte stores.
+template <int D>
+__device__ __forceinline__ void warp_store_tile(bf16* dst, const bf16* stage, int row0, int rows,
+                                                int lane) {
+  constexpr int kChunks = D / 8;
+  for (int i = lane; i < 16 * kChunks; i += 32) {
+    const int r = i / kChunks, c = i % kChunks;
+    if (row0 + r < rows)
+      *reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * D + c * 8) =
+          *reinterpret_cast<const uint4*>(stage + r * smem_stride<D>() + c * 8);
+  }
+}
+
+// Stage a warp's 16 x D f32 sum, held as D/8 accumulator tiles, as bf16
+// rows of `stage`.
+template <int D>
+__device__ __forceinline__ void stage_accum(bf16* stage, const float (&acc)[D / 8][4], float scale0,
+                                            float scale1, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    *reinterpret_cast<uint32_t*>(stage + g * smem_stride<D>() + n * 8 + 2 * t) =
+        pack_bf16(acc[n][0] * scale0, acc[n][1] * scale0);
+    *reinterpret_cast<uint32_t*>(stage + (g + 8) * smem_stride<D>() + n * 8 + 2 * t) =
+        pack_bf16(acc[n][2] * scale1, acc[n][3] * scale1);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K1, forward. Replaces _fa_kernel (shockwave_tpu/ops/flash_attention.py:40).
+//
+// Grid (BH, q-tiles), heaviest causal tile first; a CTA of kBlock / 16
+// warps owns kBlock query rows and walks the kBlock-wide k-tiles up to
+// the causal diagonal with an online softmax.
+//
+// Bound on an H100 SXM (3.35 TB/s, 989 bf16 TFLOP/s): at the trainer's
+// shape (BH 512, T 32, D 64) it moves 8.5 MB for 0.27 GFLOP, 2.5 us by
+// bytes; at the bench shape (4, 2048, 8, 64) causal it does 17.2 GFLOP
+// for 17 MB, 17 us by operations.
+//
+// What the design does about what held the first version back:
+// 1. Softmax: each lane holds 2 rows x (kBlock / 4) scores; the row max
+//    and sum are reduced over the 4 lanes of a quad with 2 shuffles, for
+//    all 16 rows of the warp at once, and the partial sums stay per lane
+//    until the epilogue.
+// 2. Registers: Q fragments are loaded once; S, P and the f32 output sum
+//    O live in accumulator fragments, P is repacked into A operands of
+//    P.V in registers and O is rescaled in registers. Nothing of S, P or
+//    O goes through shared memory until the epilogue.
+// 3. Tiles follow the sequence: kBlock = 32 at T = 32, no padding rows.
+// 4. Shared memory: Q plus two K/V stages, (5 kBlock (D + 8) bf16 +
+//    2 kBlock f32): 23 KB at the trainer's shape, 46 KB at kBlock 64.
+// 5. K/V tiles are double-buffered with cp.async: tile j + 1 is copied
+//    while tile j is multiplied.
+// 6. The epilogue normalises O, stages it through the warp's own Q rows
+//    and writes 16-byte stores; lse is written once per row.
+// ---------------------------------------------------------------------------
+template <int D, int kBlock>
+struct FwdShape {
+  static constexpr int kCtaThreads = kBlock * 2;  // kBlock / 16 warps
+  static constexpr int kTileElems = kBlock * smem_stride<D>();
+  static constexpr size_t kSmemBytes =
+      5 * kTileElems * sizeof(bf16)       // Q, 2 x K, 2 x V
+      + 2 * kBlock * sizeof(float);       // 2 x key bias
+};
+
+template <int D, int kBlock>
+__global__ void __launch_bounds__(FwdShape<D, kBlock>::kCtaThreads)
+    flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
+                     bf16* __restrict__ out, float* __restrict__ lse, int heads, int tq, int tk,
+                     float scale, int causal) {
+  using Shape = FwdShape<D, kBlock>;
+  constexpr int S = smem_stride<D>();
+  constexpr int kThr = Shape::kCtaThreads;
+  constexpr int kN = kBlock / 8;  // n8 score tiles per row block
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sK = sQ + Shape::kTileElems;
+  bf16* sV = sK + 2 * Shape::kTileElems;
+  float* sBias = reinterpret_cast<float*>(sV + 2 * Shape::kTileElems);
+
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // causal: the longest k loops start first
+  const int q0 = qt * kBlock;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const bf16* kb = k + (size_t)bh * tk * D;
+  const bf16* vb = v + (size_t)bh * tk * D;
+  const uint8_t* mask_row = mask != nullptr ? mask + (size_t)(bh / heads) * tk : nullptr;
+  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+
+  int nk = (tk + kBlock - 1) / kBlock;
+  if (causal) nk = min(nk, qt + 1);  // k-tiles past the diagonal see nothing
+
+  copy_tile_async<D, kBlock, kThr>(sQ, q + (size_t)bh * tq * D, q0, tq);
+  copy_tile_async<D, kBlock, kThr>(sK, kb, 0, tk);
+  copy_tile_async<D, kBlock, kThr>(sV, vb, 0, tk);
+  for (int j = threadIdx.x; j < kBlock; j += kThr) sBias[j] = key_bias(mask_row, j, tk);
+  cp_async_commit();
+
+  uint32_t qf[D / 16][4];
+  float o[D / 8][4] = {};
+  float m[2] = {kNegInf, kNegInf};  // running max of rows g, g + 8
+  float l[2] = {0.f, 0.f};          // this lane's part of their normalisers
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int buf = kt & 1;
+    if (kt + 1 < nk) {
+      const int k1 = (kt + 1) * kBlock;
+      copy_tile_async<D, kBlock, kThr>(sK + (buf ^ 1) * Shape::kTileElems, kb, k1, tk);
+      copy_tile_async<D, kBlock, kThr>(sV + (buf ^ 1) * Shape::kTileElems, vb, k1, tk);
+      for (int j = threadIdx.x; j < kBlock; j += kThr)
+        sBias[(buf ^ 1) * kBlock + j] = key_bias(mask_row, k1 + j, tk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (kt == 0) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) load_a<S>(qf[kk], sQ + warp * 16 * S + kk * 16, lane);
+    }
+    const bf16* cK = sK + buf * Shape::kTileElems;
+    const bf16* cV = sV + buf * Shape::kTileElems;
+    const float* cBias = sBias + buf * kBlock;
+    const int k0 = kt * kBlock;
+
+    float s[kN][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+      for (int nn = 0; nn < kN / 2; ++nn) {
+        uint32_t b[4];
+        load_bt<S>(b, cK + nn * 16 * S + kk * 16, lane);
+        mma_bf16(s[2 * nn], qf[kk], b[0], b[1]);
+        mma_bf16(s[2 * nn + 1], qf[kk], b[2], b[3]);
+      }
+    }
+
+    // Scale, causal -1e30, then the key bias, as _fa_kernel orders them;
+    // the new running max starts from the old one.
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < kN; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kl = j * 8 + 2 * t + (e & 1);
+        float x = s[j][e] * scale;
+        if (causal && row[e >> 1] < k0 + kl) x = kNegInf;
+        x += cBias[kl];
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      corr[h] = expf(m[h] - mx[h]);
+      m[h] = mx[h];
+      l[h] *= corr[h];
+    }
+#pragma unroll
+    for (int j = 0; j < kN; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[j][e] - m[e >> 1]);
+        s[j][e] = p;
+        l[e >> 1] += p;
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      o[n][0] *= corr[0];
+      o[n][1] *= corr[0];
+      o[n][2] *= corr[1];
+      o[n][3] *= corr[1];
+    }
+
+    // O += P.V, P cast to bf16 straight from the score fragments.
+#pragma unroll
+    for (int c = 0; c < kN / 2; ++c) {
+      uint32_t pa[4];
+      accum_to_a(pa, s[2 * c], s[2 * c + 1]);
+#pragma unroll
+      for (int nn = 0; nn < D / 16; ++nn) {
+        uint32_t b[4];
+        load_b<S>(b, cV + c * 16 * S + nn * 16, lane);
+        mma_bf16(o[2 * nn], pa, b[0], b[1]);
+        mma_bf16(o[2 * nn + 1], pa, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+  float lc[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    lc[h] = fmaxf(l[h], 1e-30f);
+  }
+  // The warp's own Q rows are free: its Q fragments are in registers.
+  bf16* stage = sQ + warp * 16 * S;
+  stage_accum<D>(stage, o, 1.f / lc[0], 1.f / lc[1], lane);
+  __syncwarp();
+  warp_store_tile<D>(out + (size_t)bh * tq * D, stage, q0 + warp * 16, tq, lane);
+  if (t == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (row[h] < tq) lse[(size_t)bh * tq + row[h]] = m[h] + logf(lc[h]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// WMMA helpers of K2.
+// ---------------------------------------------------------------------------
 
 // Copy rows [row0, row0 + kTile) of a (rows, D) bf16 matrix into a
 // kTile x D shared tile with 16-byte loads; rows past `rows` become zero.
@@ -64,23 +403,14 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0, 
   }
 }
 
-// Additive key bias of the reference's _kbias for keys [k0, k0 + kTile):
-// 0 (attend), -1e30 (masked), and -inf past the sequence end, which no
-// reference tile has.
+// Additive key bias of the reference's _kbias for keys [k0, k0 + kTile).
 __device__ __forceinline__ void load_key_bias(float* dst, const uint8_t* mask_row, int k0,
                                               int tk) {
-  for (int j = threadIdx.x; j < kTile; j += kThreads) {
-    const int key = k0 + j;
-    float b = 0.f;
-    if (key >= tk) b = minus_infinity();
-    else if (mask_row != nullptr && mask_row[key] == 0) b = kNegInf;
-    dst[j] = b;
-  }
+  for (int j = threadIdx.x; j < kTile; j += kThreads) dst[j] = key_bias(mask_row, k0 + j, tk);
 }
 
 // C (16 x kTile, f32, row stride kTile) = A (16 x D) . B^T where B is a
-// (kTile x D) row-major tile: the score products Q.K^T, dO.V^T, K.Q^T
-// and V.dO^T.
+// (kTile x D) row-major tile: the score products Q.K^T and dO.V^T.
 template <int D>
 __device__ __forceinline__ void warp_a_bt(float* c_out, const bf16* a, const bf16* b) {
   wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
@@ -135,122 +465,6 @@ __device__ __forceinline__ void warp_store_rows(
     if (row0 + r >= rows) break;
     for (int c = lane; c < D; c += 32)
       dst[(size_t)(row0 + r) * D + c] = __float2bfloat16(stage[r * D + c]);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K1, forward. Replaces _fa_kernel (shockwave_tpu/ops/flash_attention.py).
-// Grid (BH, q-tiles); the CTA walks the k-tiles up to the causal diagonal
-// with an online softmax: running max m and normaliser l per row in
-// registers (replicated across the warp's lanes), the f32 output sum O in
-// shared memory, rescaled by exp(m_old - m_new) before each P.V product.
-// Bound on this card: at the main path's T = 32 each CTA does a few
-// hundred kFLOP and the launch moves ~8.5 MB, so it is bandwidth- and
-// latency-bound; at T = 2048 causal it is compute-bound (~17 GFLOP per
-// call). The design reads Q once and each K/V tile once per CTA, keeps
-// S and P on chip, and stops the k loop at the diagonal.
-// ---------------------------------------------------------------------------
-template <int D>
-struct FwdSmem {
-  static constexpr size_t kBytes = 3 * kTile * D * sizeof(bf16)          // Q, K, V
-                                   + kTile * kTile * sizeof(float)       // S
-                                   + kTile * kTile * sizeof(bf16)        // P
-                                   + kTile * D * sizeof(float)           // O
-                                   + kTile * sizeof(float);              // key bias
-};
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
-                     bf16* __restrict__ out, float* __restrict__ lse, int heads, int tq, int tk,
-                     float scale, int causal) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + kTile * D;
-  bf16* sV = sK + kTile * D;
-  float* sS = reinterpret_cast<float*>(sV + kTile * D);
-  bf16* sP = reinterpret_cast<bf16*>(sS + kTile * kTile);
-  float* sO = reinterpret_cast<float*>(sP + kTile * kTile);
-  float* sBias = sO + kTile * D;
-
-  const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * kTile;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const bf16* qb = q + (size_t)bh * tq * D;
-  const bf16* kb = k + (size_t)bh * tk * D;
-  const bf16* vb = v + (size_t)bh * tk * D;
-  const uint8_t* mask_row = mask != nullptr ? mask + (size_t)(bh / heads) * tk : nullptr;
-
-  load_tile<D>(sQ, qb, q0, tq);
-  for (int i = threadIdx.x; i < kTile * D; i += kThreads) sO[i] = 0.f;
-
-  float* Sw = sS + warp * kWarpRows * kTile;
-  bf16* Pw = sP + warp * kWarpRows * kTile;
-  float* Ow = sO + warp * kWarpRows * D;
-  const int wrow0 = q0 + warp * kWarpRows;
-
-  float m[kWarpRows], l[kWarpRows];
-#pragma unroll
-  for (int r = 0; r < kWarpRows; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-  }
-
-  int nk = (tk + kTile - 1) / kTile;
-  if (causal) nk = min(nk, (int)blockIdx.y + 1);  // k-tiles past the diagonal see nothing
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // every warp is done with the previous K, V tiles
-    load_tile<D>(sK, kb, k0, tk);
-    load_tile<D>(sV, vb, k0, tk);
-    load_key_bias(sBias, mask_row, k0, tk);
-    __syncthreads();
-
-    warp_a_bt<D>(Sw, sQ + warp * kWarpRows * D, sK);
-    __syncwarp();
-
-#pragma unroll
-    for (int r = 0; r < kWarpRows; ++r) {
-      float s[2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int j = lane + 32 * h;
-        float x = Sw[r * kTile + j] * scale;
-        if (causal && wrow0 + r < k0 + j) x = kNegInf;
-        s[h] = x + sBias[j];
-      }
-      const float m_new = fmaxf(m[r], warp_max(fmaxf(s[0], s[1])));
-      const float p0 = expf(s[0] - m_new), p1 = expf(s[1] - m_new);
-      const float corr = expf(m[r] - m_new);
-      l[r] = l[r] * corr + warp_sum(p0 + p1);
-      m[r] = m_new;
-      Pw[r * kTile + lane] = __float2bfloat16(p0);
-      Pw[r * kTile + lane + 32] = __float2bfloat16(p1);
-      for (int c = lane; c < D; c += 32) Ow[r * D + c] *= corr;
-    }
-    __syncwarp();
-
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[D / 16];
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n)
-      wmma::load_matrix_sync(acc[n], Ow + n * 16, D, wmma::mem_row_major);
-    warp_a_b_acc<D>(acc, Pw, sV);
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n)
-      wmma::store_matrix_sync(Ow + n * 16, acc[n], D, wmma::mem_row_major);
-    __syncwarp();
-  }
-
-  bf16* ob = out + (size_t)bh * tq * D;
-#pragma unroll
-  for (int r = 0; r < kWarpRows; ++r) {
-    const int row = wrow0 + r;
-    if (row < tq) {
-      const float lc = fmaxf(l[r], 1e-30f);
-      for (int c = lane; c < D; c += 32) ob[(size_t)row * D + c] = __float2bfloat16(Ow[r * D + c] / lc);
-      if (lane == 0) lse[(size_t)bh * tq + row] = m[r] + logf(lc);
-    }
   }
 }
 
@@ -352,111 +566,197 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// K3, dK and dV. Replaces _dkv_kernel (shockwave_tpu/ops/flash_attention.py).
-// Grid (BH, k-tiles); the CTA holds its K and V tiles and walks the
-// q-tiles from the diagonal on, computing the transposed products
-// S^T = K.Q^T and dP^T = V.dO^T so that each warp owns 16 keys. It forms
-// P^T (bf16) and dS^T (bf16) with the same guard as K2 and accumulates
-// dV += P^T.dO and dK += dS^T.Q in registers. Bound on this card:
-// bandwidth and launch latency at T = 32 (~12.7 MB per launch), compute
-// at the bench shape.
+// K3, dK and dV. Replaces _dkv_kernel (shockwave_tpu/ops/flash_attention.py:222).
+//
+// Grid (BH, k-tiles); a CTA of kBlock / 16 warps owns kBlock keys, 16
+// per warp, and walks the kBlock-wide q-tiles from the causal diagonal
+// on. Each warp keeps its K and V rows as A fragments for the whole loop
+// and works through a q-tile 16 queries at a time: S^T = K.Q^T and
+// dP^T = V.dO^T in registers, then P^T and dS^T (with the reference's
+// p = 0 where s <= -5e29 guard) repacked as A operands of dV += P^T.dO
+// and dK += dS^T.Q. No atomics: dQ is the separate K2 pass.
+//
+// Bound on an H100 SXM: at the trainer's shape it moves 12.7 MB for
+// 0.27 GFLOP, 3.8 us by bytes; at the bench shape it does 34.4 GFLOP
+// (four products per (q, k) pair), 35 us by operations.
+//
+// What the design does about what held the first version back:
+// 1. The p and dS terms are formed for all 16 keys of a warp at once,
+//    element-wise in registers; the q-side lse and delta come per tile
+//    from shared memory as float2 pairs. No shuffles are needed.
+// 2. S^T, dP^T, P^T and dS^T never leave registers; the dK and dV sums
+//    stay in accumulator fragments.
+// 3. Tiles follow the sequence: kBlock = 32 at T = 32, no padding keys
+//    and no padding queries.
+// 4. Shared memory: K, V and two Q/dO stages, (6 kBlock (D + 8) bf16 +
+//    4 kBlock f32): 28 KB at the trainer's shape, 56 KB at kBlock 64.
+//    Working 16 queries at a time keeps the live scores to 16 floats
+//    per lane at any kBlock.
+// 5. Q/dO tiles and their lse/delta rows are double-buffered with
+//    cp.async: tile j + 1 is copied while tile j is multiplied.
+// 6. dK and dV are staged through the warp's own K and V rows and
+//    written with 16-byte stores.
 // ---------------------------------------------------------------------------
-template <int D>
-struct DkvSmem {
-  static constexpr size_t kBytes = 4 * kTile * D * sizeof(bf16)          // K, V, Q, dO
-                                   + 2 * kTile * kTile * sizeof(float)   // S^T, dP^T
-                                   + 2 * kTile * kTile * sizeof(bf16)    // P^T, dS^T
-                                   + 3 * kTile * sizeof(float);          // key bias, lse, delta
+template <int D, int kBlock>
+struct DkvShape {
+  static constexpr int kCtaThreads = kBlock * 2;
+  static constexpr int kTileElems = kBlock * smem_stride<D>();
+  static constexpr size_t kSmemBytes =
+      6 * kTileElems * sizeof(bf16)       // K, V, 2 x Q, 2 x dO
+      + 4 * kBlock * sizeof(float);       // 2 x lse, 2 x delta
 };
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
+template <int D, int kBlock>
+__device__ __forceinline__ void copy_q_side_async(bf16* sQ, bf16* sG, float* sLse, float* sDelta,
+                                                  const bf16* qb, const bf16* gb,
+                                                  const float* lse_b, const float* delta_b,
+                                                  int q0, int tq) {
+  constexpr int kThr = DkvShape<D, kBlock>::kCtaThreads;
+  static_assert(kThr == 2 * kBlock, "one lse and one delta entry per thread");
+  copy_tile_async<D, kBlock, kThr>(sQ, qb, q0, tq);
+  copy_tile_async<D, kBlock, kThr>(sG, gb, q0, tq);
+  // kThr == 2 kBlock: one f32 each, lse then delta; rows past tq read 0.
+  const int i = threadIdx.x % kBlock;
+  const bool valid = q0 + i < tq;
+  const float* src = threadIdx.x < kBlock ? lse_b : delta_b;
+  float* dst = threadIdx.x < kBlock ? sLse : sDelta;
+  cp_async4(dst + i, src + (valid ? q0 + i : 0), valid);
+}
+
+template <int D, int kBlock>
+__global__ void __launch_bounds__(DkvShape<D, kBlock>::kCtaThreads)
     flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ g,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      const uint8_t* __restrict__ mask, bf16* __restrict__ dk,
                      bf16* __restrict__ dv, int heads, int tq, int tk, float scale, int causal) {
+  using Shape = DkvShape<D, kBlock>;
+  constexpr int S = smem_stride<D>();
+  constexpr int kThr = Shape::kCtaThreads;
+  constexpr int kE = Shape::kTileElems;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + kTile * D;
-  bf16* sQ = sV + kTile * D;
-  bf16* sG = sQ + kTile * D;
-  float* sS = reinterpret_cast<float*>(sG + kTile * D);
-  float* sDP = sS + kTile * kTile;
-  bf16* sP = reinterpret_cast<bf16*>(sDP + kTile * kTile);
-  bf16* sDS = sP + kTile * kTile;
-  float* sBias = reinterpret_cast<float*>(sDS + kTile * kTile);
-  float* sLse = sBias + kTile;
-  float* sDelta = sLse + kTile;
+  bf16* sV = sK + kE;
+  bf16* sQ = sV + kE;       // 2 stages
+  bf16* sG = sQ + 2 * kE;   // 2 stages
+  float* sLse = reinterpret_cast<float*>(sG + 2 * kE);  // 2 stages
+  float* sDelta = sLse + 2 * kBlock;                    // 2 stages
 
   const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * kTile;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int k0 = blockIdx.y * kBlock;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, t = lane & 3;
   const bf16* qb = q + (size_t)bh * tq * D;
   const bf16* gb = g + (size_t)bh * tq * D;
+  const float* lse_b = lse + (size_t)bh * tq;
+  const float* delta_b = delta + (size_t)bh * tq;
   const uint8_t* mask_row = mask != nullptr ? mask + (size_t)(bh / heads) * tk : nullptr;
+  const int key[2] = {k0 + warp * 16 + gq, k0 + warp * 16 + gq + 8};
+  const float bias[2] = {key_bias(mask_row, key[0], tk), key_bias(mask_row, key[1], tk)};
 
-  load_tile<D>(sK, k + (size_t)bh * tk * D, k0, tk);
-  load_tile<D>(sV, v + (size_t)bh * tk * D, k0, tk);
-  load_key_bias(sBias, mask_row, k0, tk);
+  const int nq = (tq + kBlock - 1) / kBlock;
+  const int qt0 = causal ? (int)blockIdx.y : 0;  // q-tiles above the diagonal see none of these keys
 
-  float* Sw = sS + warp * kWarpRows * kTile;
-  float* DPw = sDP + warp * kWarpRows * kTile;
-  bf16* Pw = sP + warp * kWarpRows * kTile;
-  bf16* DSw = sDS + warp * kWarpRows * kTile;
-  const int wkey0 = k0 + warp * kWarpRows;
+  copy_tile_async<D, kBlock, kThr>(sK, k + (size_t)bh * tk * D, k0, tk);
+  copy_tile_async<D, kBlock, kThr>(sV, v + (size_t)bh * tk * D, k0, tk);
+  if (qt0 < nq)
+    copy_q_side_async<D, kBlock>(sQ, sG, sLse, sDelta, qb, gb, lse_b, delta_b, qt0 * kBlock, tq);
+  cp_async_commit();
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc_dk[D / 16], acc_dv[D / 16];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    wmma::fill_fragment(acc_dk[n], 0.f);
-    wmma::fill_fragment(acc_dv[n], 0.f);
-  }
+  uint32_t kf[D / 16][4], vf[D / 16][4];
+  float dk_acc[D / 8][4] = {}, dv_acc[D / 8][4] = {};
 
-  const int nq = (tq + kTile - 1) / kTile;
-  const int qt_begin = causal ? (int)blockIdx.y : 0;  // q-tiles above the diagonal see none of these keys
-  for (int qt = qt_begin; qt < nq; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();
-    load_tile<D>(sQ, qb, q0, tq);
-    load_tile<D>(sG, gb, q0, tq);
-    for (int i = threadIdx.x; i < kTile; i += kThreads) {
-      const bool in = q0 + i < tq;
-      sLse[i] = in ? lse[(size_t)bh * tq + q0 + i] : 0.f;
-      sDelta[i] = in ? delta[(size_t)bh * tq + q0 + i] : 0.f;
+  for (int qt = qt0; qt < nq; ++qt) {
+    const int buf = (qt - qt0) & 1;
+    if (qt + 1 < nq) {
+      const int nb = buf ^ 1;
+      copy_q_side_async<D, kBlock>(sQ + nb * kE, sG + nb * kE, sLse + nb * kBlock,
+                                   sDelta + nb * kBlock, qb, gb, lse_b, delta_b,
+                                   (qt + 1) * kBlock, tq);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-
-    warp_a_bt<D>(Sw, sK + warp * kWarpRows * D, sQ);
-    warp_a_bt<D>(DPw, sV + warp * kWarpRows * D, sG);
-    __syncwarp();
-
-#pragma unroll 4
-    for (int r = 0; r < kWarpRows; ++r) {
-      const int key = wkey0 + r;
-      const float bias = sBias[warp * kWarpRows + r];
+    if (qt == qt0) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int j = lane + 32 * h;
-        const int row = q0 + j;
-        float x = Sw[r * kTile + j] * scale;
-        if (causal && row < key) x = kNegInf;
-        x += bias;
-        const float p = (x <= kNegInf * 0.5f || row >= tq) ? 0.f : expf(x - sLse[j]);
-        const float ds = p * (DPw[r * kTile + j] - sDelta[j]) * scale;
-        Pw[r * kTile + j] = __float2bfloat16(p);
-        DSw[r * kTile + j] = __float2bfloat16(ds);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        load_a<S>(kf[kk], sK + warp * 16 * S + kk * 16, lane);
+        load_a<S>(vf[kk], sV + warp * 16 * S + kk * 16, lane);
       }
     }
-    __syncwarp();
-    warp_a_b_acc<D>(acc_dv, Pw, sG);
-    warp_a_b_acc<D>(acc_dk, DSw, sQ);
+    const bf16* cQ = sQ + buf * kE;
+    const bf16* cG = sG + buf * kE;
+    const float* cLse = sLse + buf * kBlock;
+    const float* cDelta = sDelta + buf * kBlock;
+    const int q0 = qt * kBlock;
+
+#pragma unroll
+    for (int c = 0; c < kBlock / 16; ++c) {  // 16 queries at a time
+      float st[2][4] = {}, dpt[2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t b[4];
+        load_bt<S>(b, cQ + c * 16 * S + kk * 16, lane);
+        mma_bf16(st[0], kf[kk], b[0], b[1]);
+        mma_bf16(st[1], kf[kk], b[2], b[3]);
+        load_bt<S>(b, cG + c * 16 * S + kk * 16, lane);
+        mma_bf16(dpt[0], vf[kk], b[0], b[1]);
+        mma_bf16(dpt[1], vf[kk], b[2], b[3]);
+      }
+      // Lane holds keys key[0] (e = 0, 1) and key[1] (e = 2, 3) against
+      // queries ql and ql + 1 of each n8 tile.
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int ql = c * 16 + j * 8 + 2 * t;
+        const float2 lq = *reinterpret_cast<const float2*>(cLse + ql);
+        const float2 dq = *reinterpret_cast<const float2*>(cDelta + ql);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int query = q0 + ql + (e & 1);
+          float x = st[j][e] * scale;
+          if (causal && query < key[e >> 1]) x = kNegInf;
+          x += bias[e >> 1];
+          const float p = (x <= kNegInf * 0.5f || query >= tq)
+                              ? 0.f
+                              : expf(x - ((e & 1) ? lq.y : lq.x));
+          st[j][e] = p;
+          dpt[j][e] = p * (dpt[j][e] - ((e & 1) ? dq.y : dq.x)) * scale;
+        }
+      }
+      uint32_t pa[4], dsa[4];
+      accum_to_a(pa, st[0], st[1]);
+      accum_to_a(dsa, dpt[0], dpt[1]);
+#pragma unroll
+      for (int nn = 0; nn < D / 16; ++nn) {
+        uint32_t b[4];
+        load_b<S>(b, cG + c * 16 * S + nn * 16, lane);
+        mma_bf16(dv_acc[2 * nn], pa, b[0], b[1]);
+        mma_bf16(dv_acc[2 * nn + 1], pa, b[2], b[3]);
+        load_b<S>(b, cQ + c * 16 * S + nn * 16, lane);
+        mma_bf16(dk_acc[2 * nn], dsa, b[0], b[1]);
+        mma_bf16(dk_acc[2 * nn + 1], dsa, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
   }
+  cp_async_wait<0>();  // no copy is left in flight when the loop never ran
+  __syncthreads();
+
+  // The warp's own K and V rows are free: their fragments are in registers.
+  bf16* stage_k = sK + warp * 16 * S;
+  bf16* stage_v = sV + warp * 16 * S;
+  stage_accum<D>(stage_k, dk_acc, 1.f, 1.f, lane);
+  stage_accum<D>(stage_v, dv_acc, 1.f, 1.f, lane);
   __syncwarp();
-  warp_store_rows<D>(dk + (size_t)bh * tk * D, Sw, acc_dk, wkey0, tk, lane);
-  __syncwarp();
-  warp_store_rows<D>(dv + (size_t)bh * tk * D, Sw, acc_dv, wkey0, tk, lane);
+  warp_store_tile<D>(dk + (size_t)bh * tk * D, stage_k, k0 + warp * 16, tk, lane);
+  warp_store_tile<D>(dv + (size_t)bh * tk * D, stage_v, k0 + warp * 16, tk, lane);
 }
+
+// ---------------------------------------------------------------------------
+// Launchers.
+// ---------------------------------------------------------------------------
 
 constexpr int kMaxDevices = 64;
 
@@ -475,15 +775,16 @@ cudaError_t set_smem(Kernel kernel, size_t bytes, bool (&done)[kMaxDevices]) {
   return err;
 }
 
-template <int D>
+template <int D, int kBlock>
 int launch_fwd(const void* q, const void* k, const void* v, const void* mask, void* out,
                void* lse, int bh, int heads, int tq, int tk, float scale, int causal,
                cudaStream_t stream) {
+  using Shape = FwdShape<D, kBlock>;
   static bool configured[kMaxDevices] = {};
-  cudaError_t err = set_smem(flash_fwd_kernel<D>, FwdSmem<D>::kBytes, configured);
+  cudaError_t err = set_smem(flash_fwd_kernel<D, kBlock>, Shape::kSmemBytes, configured);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(bh, (tq + kTile - 1) / kTile);
-  flash_fwd_kernel<D><<<grid, kThreads, FwdSmem<D>::kBytes, stream>>>(
+  const dim3 grid(bh, (tq + kBlock - 1) / kBlock);
+  flash_fwd_kernel<D, kBlock><<<grid, Shape::kCtaThreads, Shape::kSmemBytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const uint8_t*>(mask), static_cast<bf16*>(out), static_cast<float*>(lse),
       heads, tq, tk, scale, causal);
@@ -506,20 +807,54 @@ int launch_dq(const void* q, const void* k, const void* v, const void* g, const 
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, int kBlock>
 int launch_dkv(const void* q, const void* k, const void* v, const void* g, const void* lse,
                const void* delta, const void* mask, void* dk, void* dv, int bh, int heads,
                int tq, int tk, float scale, int causal, cudaStream_t stream) {
+  using Shape = DkvShape<D, kBlock>;
   static bool configured[kMaxDevices] = {};
-  cudaError_t err = set_smem(flash_dkv_kernel<D>, DkvSmem<D>::kBytes, configured);
+  cudaError_t err = set_smem(flash_dkv_kernel<D, kBlock>, Shape::kSmemBytes, configured);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(bh, (tk + kTile - 1) / kTile);
-  flash_dkv_kernel<D><<<grid, kThreads, DkvSmem<D>::kBytes, stream>>>(
+  const dim3 grid(bh, (tk + kBlock - 1) / kBlock);
+  flash_dkv_kernel<D, kBlock><<<grid, Shape::kCtaThreads, Shape::kSmemBytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(g), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<const uint8_t*>(mask),
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), heads, tq, tk, scale, causal);
   return (int)cudaGetLastError();
+}
+
+// out = {resident CTAs per SM, threads per CTA, dynamic shared bytes,
+// registers per thread} of one kernel instantiation.
+template <typename Kernel>
+int occupancy(Kernel kernel, int threads, size_t smem, int* out) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = blocks;
+  out[1] = threads;
+  out[2] = (int)smem;
+  out[3] = attr.numRegs;
+  return 0;
+}
+
+template <int D, int kBlock>
+int occupancy_of(int kernel, int* out) {
+  if (kernel == 0)
+    return occupancy(flash_fwd_kernel<D, kBlock>, FwdShape<D, kBlock>::kCtaThreads,
+                     FwdShape<D, kBlock>::kSmemBytes, out);
+  if (kernel == 1 && kBlock == kTile)
+    return occupancy(flash_dq_kernel<D>, kThreads, DqSmem<D>::kBytes, out);
+  if (kernel == 2)
+    return occupancy(flash_dkv_kernel<D, kBlock>, DkvShape<D, kBlock>::kCtaThreads,
+                     DkvShape<D, kBlock>::kSmemBytes, out);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -528,18 +863,25 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* g, const
 // current for this library's CUDA runtime (its own copy, linked
 // statically, so PyTorch's current device does not carry over), launches
 // on `stream`, and returns the cudaError_t of the launch (0 = launched);
-// an unsupported head dim returns cudaErrorInvalidValue. Nothing here
-// synchronises.
+// an unsupported head dim or tile returns cudaErrorInvalidValue. `tile`
+// is the square tile of K1 and K3 (32 or 64) that the wrapper's
+// launch_config chose. Nothing here synchronises.
 extern "C" {
 
 int swt_flash_fwd(const void* q, const void* k, const void* v, const void* mask, void* out,
-                  void* lse, int bh, int heads, int tq, int tk, int d, float scale, int causal,
-                  int device, void* stream) {
+                  void* lse, int bh, int heads, int tq, int tk, int d, int tile, float scale,
+                  int causal, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64) return launch_fwd<64>(q, k, v, mask, out, lse, bh, heads, tq, tk, scale, causal, s);
-  if (d == 32) return launch_fwd<32>(q, k, v, mask, out, lse, bh, heads, tq, tk, scale, causal, s);
+  if (d == 64 && tile == 32)
+    return launch_fwd<64, 32>(q, k, v, mask, out, lse, bh, heads, tq, tk, scale, causal, s);
+  if (d == 64 && tile == 64)
+    return launch_fwd<64, 64>(q, k, v, mask, out, lse, bh, heads, tq, tk, scale, causal, s);
+  if (d == 32 && tile == 32)
+    return launch_fwd<32, 32>(q, k, v, mask, out, lse, bh, heads, tq, tk, scale, causal, s);
+  if (d == 32 && tile == 64)
+    return launch_fwd<32, 64>(q, k, v, mask, out, lse, bh, heads, tq, tk, scale, causal, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -558,16 +900,36 @@ int swt_flash_dq(const void* q, const void* k, const void* v, const void* g, con
 
 int swt_flash_dkv(const void* q, const void* k, const void* v, const void* g, const void* lse,
                   const void* delta, const void* mask, void* dk, void* dv, int bh, int heads,
-                  int tq, int tk, int d, float scale, int causal, int device, void* stream) {
+                  int tq, int tk, int d, int tile, float scale, int causal, int device,
+                  void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64)
-    return launch_dkv<64>(q, k, v, g, lse, delta, mask, dk, dv, bh, heads, tq, tk, scale,
-                          causal, s);
-  if (d == 32)
-    return launch_dkv<32>(q, k, v, g, lse, delta, mask, dk, dv, bh, heads, tq, tk, scale,
-                          causal, s);
+  if (d == 64 && tile == 32)
+    return launch_dkv<64, 32>(q, k, v, g, lse, delta, mask, dk, dv, bh, heads, tq, tk, scale,
+                              causal, s);
+  if (d == 64 && tile == 64)
+    return launch_dkv<64, 64>(q, k, v, g, lse, delta, mask, dk, dv, bh, heads, tq, tk, scale,
+                              causal, s);
+  if (d == 32 && tile == 32)
+    return launch_dkv<32, 32>(q, k, v, g, lse, delta, mask, dk, dv, bh, heads, tq, tk, scale,
+                              causal, s);
+  if (d == 32 && tile == 64)
+    return launch_dkv<32, 64>(q, k, v, g, lse, delta, mask, dk, dv, bh, heads, tq, tk, scale,
+                              causal, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Occupancy of kernel 0 (K1), 1 (K2, tile 64 only) or 2 (K3) at head dim
+// d and tile `tile` on `device`: writes {CTAs per SM, threads per CTA,
+// dynamic shared bytes, registers per thread} to out[0..3].
+int swt_flash_occupancy(int kernel, int d, int tile, int device, int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (d == 64 && tile == 32) return occupancy_of<64, 32>(kernel, out);
+  if (d == 64 && tile == 64) return occupancy_of<64, 64>(kernel, out);
+  if (d == 32 && tile == 32) return occupancy_of<32, 32>(kernel, out);
+  if (d == 32 && tile == 64) return occupancy_of<32, 64>(kernel, out);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -8,6 +8,11 @@ The port of `shockwave_tpu/ops/flash_attention.py`. Three kernels
   flash_dq   <- _dq_kernel   dQ, k-tiles innermost
   flash_dkv  <- _dkv_kernel  dK and dV, q-tiles innermost
 
+K1 and K3 own a square tile of 32 or 64 rows of one (batch, head) and
+stream tiles of the same width; `launch_config` picks the width from the
+sequence lengths (32 for the trainer's T = 32, 64 otherwise) and the
+wrapper passes it to the C entry point. K2 keeps its fixed 64-row tile.
+
 A `torch.autograd.Function` ties them together; its backward computes
 `delta = rowsum(dO * O)` in f32 as plain tensor code (the JAX package
 does this in plain jnp) and then launches the two backward kernels, kept
@@ -25,6 +30,7 @@ and head dim.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional
 
@@ -35,6 +41,11 @@ from . import _build
 NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (32, 64)
 KERNEL_DTYPE = torch.bfloat16
+# Square tiles K1 and K3 are built for (rows per CTA = streamed tile
+# width, 16 rows per warp).
+KERNEL_TILES = (32, 64)
+# K2's fixed tile.
+DQ_TILE = 64
 
 # Launches of each kernel since the last reset; a wrapper adds one where
 # it launches its kernel and nowhere else.
@@ -126,12 +137,23 @@ def _on_cpu(*tensors) -> bool:
                      f"one CUDA device; got {sorted(map(str, devices))}")
 
 
-def _check_kernel_inputs(q, k, v, kv_mask, heads):
-    bh, tq, d = q.shape
-    tk = k.shape[1]
+def launch_config(tq: int, tk: int, d: int) -> int:
+    """The square tile of K1 and K3 for these lengths and head dim: 32
+    when neither sequence is longer (the trainer's T = 32 fills it with no
+    padding rows and one tile per (batch, head)), 64 otherwise."""
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"CUDA flash attention takes head dims "
                          f"{KERNEL_HEAD_DIMS}; got {d}")
+    if tq < 1 or tk < 1:
+        raise ValueError(f"CUDA flash attention takes non-empty sequences; "
+                         f"got Tq={tq}, Tk={tk}")
+    return KERNEL_TILES[0] if max(tq, tk) <= KERNEL_TILES[0] else KERNEL_TILES[1]
+
+
+def _check_kernel_inputs(q, k, v, kv_mask, heads):
+    bh, tq, d = q.shape
+    tk = k.shape[1]
+    launch_config(tq, tk, d)
     if k.shape != (bh, tk, d) or v.shape != (bh, tk, d):
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not match")
@@ -172,9 +194,11 @@ def attention_forward(q, k, v, kv_mask, heads: int, scale: float,
     out = torch.empty_like(q)
     lse = torch.empty(bh, tq, dtype=torch.float32, device=q.device)
     lib = _build.library()
+    tk = k.shape[1]
     rc = lib.swt_flash_fwd(_ptr(q), _ptr(k), _ptr(v), _ptr(kv_mask), _ptr(out),
-                           _ptr(lse), bh, heads, tq, k.shape[1], d, scale,
-                           int(causal), *_device_and_stream(q))
+                           _ptr(lse), bh, heads, tq, tk, d,
+                           launch_config(tq, tk, d), scale, int(causal),
+                           *_device_and_stream(q))
     _build.check(lib, rc, "flash_fwd")
     LAUNCHES["flash_fwd"] += 1
     return out, lse
@@ -220,14 +244,35 @@ def attention_dkv(q, k, v, g, lse, delta, kv_mask, heads: int, scale: float,
     bh, tq, d = q.shape
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    tk = k.shape[1]
     lib = _build.library()
     rc = lib.swt_flash_dkv(_ptr(q), _ptr(k), _ptr(v), _ptr(g), _ptr(lse),
                            _ptr(delta), _ptr(kv_mask), _ptr(dk), _ptr(dv), bh,
-                           heads, tq, k.shape[1], d, scale, int(causal),
-                           *_device_and_stream(q))
+                           heads, tq, tk, d, launch_config(tq, tk, d), scale,
+                           int(causal), *_device_and_stream(q))
     _build.check(lib, rc, "flash_dkv")
     LAUNCHES["flash_dkv"] += 1
     return dk, dv
+
+
+def kernel_occupancy(device: int = 0):
+    """Resident CTAs per SM of every kernel instantiation on CUDA device
+    `device` (cudaOccupancyMaxActiveBlocksPerMultiprocessor), with its
+    threads, dynamic shared memory and registers. Needs the card."""
+    lib = _build.library()
+    rows = []
+    for name, kernel, tiles in (("flash_fwd", 0, KERNEL_TILES),
+                                ("flash_dq", 1, (DQ_TILE,)),
+                                ("flash_dkv", 2, KERNEL_TILES)):
+        for d in KERNEL_HEAD_DIMS:
+            for tile in tiles:
+                out = (ctypes.c_int * 4)()
+                rc = lib.swt_flash_occupancy(kernel, d, tile, device, out)
+                _build.check(lib, rc, f"{name} occupancy")
+                rows.append({"kernel": name, "d": d, "tile": tile,
+                             "ctas_per_sm": out[0], "threads": out[1],
+                             "smem_bytes": out[2], "registers": out[3]})
+    return rows
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -260,8 +305,8 @@ def flash_attention(q, k, v, causal: bool = False,
     key_padding_mask is (B, Tk) with True = attend. Cross-attention
     (Tq != Tk) is supported for causal=False. The output is in q's dtype.
     The JAX version's block_q/block_k are Mosaic tiling arguments; the
-    CUDA kernels pick their own 64-row tiles and mask ragged sequence
-    edges themselves, so any lengths are taken.
+    CUDA kernels take their tiles from `launch_config` and mask ragged
+    sequence edges themselves, so any lengths are taken.
     """
     b, tq, h, d = q.shape
     tk = k.shape[1]

@@ -4,9 +4,12 @@ The same numpy inputs go through `shockwave_tpu.ops.flash_attention`
 (Pallas in interpret mode, as tests/test_ops.py runs it) and through
 `shockwave_tpu_torch.ops.flash_attention`, whose wrappers take their
 plain PyTorch versions for CPU tensors. Tolerances are test_ops.py's:
-2e-5 on the forward, 5e-4 on gradients.
+2e-5 on the forward, 5e-4 on gradients. The CUDA kernels' tile choice,
+`launch_config`, is plain Python and is held here too.
 """
 import importlib
+import importlib.util
+import os
 
 import jax
 import jax.numpy as jnp
@@ -18,6 +21,7 @@ from shockwave_tpu.ops import flash_attention as jax_flash_attention
 from shockwave_tpu_torch.ops import flash_attention as fa
 
 jfa = importlib.import_module("shockwave_tpu.ops.flash_attention")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -224,3 +228,94 @@ class TestWrappers:
         ref = fa.flash_attention(q, k, v, scale=1.0 / np.sqrt(32))
         assert out.dtype == torch.bfloat16
         assert torch.equal(out, ref)
+
+
+class TestRaggedEdgesAgainstJax:
+    """The lengths on either side of the CUDA kernels' short tile
+    (chip_smoke.py's edge cases: T = 17, T = 33, Tq 32 against Tk 48),
+    with padded key tails, against the JAX package, whose blocks shrink
+    to the sequence length. On the CPU this covers the plain versions at
+    these ragged lengths; the kernels' tiles are held at the same lengths
+    on the card by chip_smoke.py."""
+
+    @pytest.mark.parametrize("tq,tk,causal", [(17, 17, True), (33, 33, True),
+                                              (32, 48, False), (33, 33, False)])
+    def test_forward(self, tq, tk, causal):
+        rng = np.random.RandomState(tq + tk)
+        q, k, v = rand_qkv(rng, 3, tq, 2, 64, tk=tk)
+        kpm = np.arange(tk)[None, :] < rng.randint(tk // 2 + 1, tk + 1, (3, 1))
+        err = np.abs(torch_out(q, k, v, causal=causal, key_padding_mask=kpm)
+                     - jax_out(q, k, v, causal=causal, key_padding_mask=kpm)).max()
+        assert err < FWD_TOL, err
+
+    @pytest.mark.parametrize("t", [17, 33])
+    def test_gradients(self, t):
+        rng = np.random.RandomState(t)
+        q, k, v = rand_qkv(rng, 2, t, 2, 32)
+        kpm = np.arange(t)[None, :] < np.array([[t], [t // 2 + 1]])
+        for a, b in zip(torch_grads(q, k, v, kpm, True),
+                        jax_grads(q, k, v, kpm, True)):
+            assert np.abs(a - b).max() < GRAD_TOL
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (it imports only torch at the top)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+class TestLaunchConfig:
+    """`launch_config` picks K1's and K3's square tile on the host, so its
+    choice is testable here; the kernels themselves run on the card."""
+
+    LENGTHS = list(range(1, 70)) + [96, 127, 128, 129, 512, 2048, 4097]
+
+    @pytest.mark.parametrize("d", fa.KERNEL_HEAD_DIMS)
+    def test_total_over_accepted_shapes(self, d):
+        for tq in self.LENGTHS:
+            for tk in self.LENGTHS:
+                tile = fa.launch_config(tq, tk, d)
+                assert tile in fa.KERNEL_TILES
+                # The short tile only where both sequences fit in it.
+                short = fa.KERNEL_TILES[0]
+                assert (tile == short) == (max(tq, tk) <= short)
+
+    def test_rejects_what_the_wrapper_rejects(self):
+        for d in (16, 48, 128):
+            with pytest.raises(ValueError):
+                fa.launch_config(32, 32, d)
+        for tq, tk in ((0, 32), (32, 0)):
+            with pytest.raises(ValueError):
+                fa.launch_config(tq, tk, 64)
+        empty = torch.zeros(2, 0, 64, dtype=torch.bfloat16)
+        full = torch.zeros(2, 32, 64, dtype=torch.bfloat16)
+        with pytest.raises(ValueError):
+            fa._check_kernel_inputs(empty, full, full, None, 1)
+
+    def test_main_shape_gets_the_short_tile(self):
+        # The trainer's self- and cross-attention: src 32, tgt[:, :-1] 32.
+        assert fa.launch_config(32, 32, 64) == 32
+        smoke = _chip_smoke()
+        main = [c for c in smoke.CASES if c[0].startswith("main_")]
+        assert len(main) == 3
+        for _, _, tq, tk, _, d, _, _ in main:
+            assert fa.launch_config(tq, tk, d) == 32
+
+    def test_every_config_is_reached_by_a_chip_smoke_case(self):
+        smoke = _chip_smoke()
+        reachable = {(fa.launch_config(tq, tk, d), d)
+                     for d in fa.KERNEL_HEAD_DIMS
+                     for tq in self.LENGTHS for tk in self.LENGTHS}
+        reached = {(fa.launch_config(tq, tk, d), d)
+                   for _, _, tq, tk, _, d, _, _ in smoke.CASES}
+        assert reachable == reached
+        # Each width's edges: one past and below the short tile, Tq != Tk
+        # inside the long one, and the row that sees no key in both.
+        shapes = {c[0]: c for c in smoke.CASES}
+        assert fa.launch_config(33, 33, 64) == 64 and "one_past_short" in shapes
+        assert {c[7] for c in smoke.CASES if c[2] == 32 and c[3] == 32} >= {"key0", "tail"}
+        assert any(c[2] != c[3] and fa.launch_config(c[2], c[3], c[5]) == 64
+                   for c in smoke.CASES)
