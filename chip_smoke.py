@@ -7,15 +7,18 @@ Phases, in order; any failure exits non-zero and prints no result:
 
 1. device: the card's name, its `nvidia-smi` name and power limit, and
    the torch and CUDA versions.
-2. build: nvcc compiles `shockwave_tpu_torch/csrc/*.cu` (timed); then
-   each kernel instantiation's resident CTAs per SM, threads, shared
-   memory and registers (`occupancy:`).
+2. build: nvcc compiles `shockwave_tpu_torch/csrc/*.cu` (timed); the
+   instantiations that spill registers, named from ptxas's report
+   (`spills:`); then each kernel instantiation's resident CTAs per SM,
+   threads, shared memory and registers, and at the main shape each
+   kernel's resident CTA slots (CTAs per SM x SMs) against its grid
+   (`occupancy:`).
 3. kernels: each of the three flash-attention kernels (forward, dQ,
    dK/dV) against its plain PyTorch version on the card, in bf16, at the
    main path's three attention variants (B=64, T=32, H=8, D=64),
    cross-attention with Tq != Tk, head dim 32, the bench shape
    (4, 2048, 8, 64) causal, a causal row that sees no key, and the edges
-   of the forward's and dK/dV's two tile widths (32 and 64, chosen by
+   of the kernels' two tile widths (32 and 64, chosen by
    `launch_config`): ragged T=17, Tq=32 against Tk=48, T=33, D=32 at
    T=32 and the key-0 row at T=32. Times are medians of CUDA-event
    timings of CUDA-graph replays (device time, no host launch cost),
@@ -28,16 +31,19 @@ Phases, in order; any failure exits non-zero and prints no result:
    resume from its checkpoint, and the logits with flash on against the
    einsum path on the same weights and batch.
 
-Output: `device:`, `build:`, `ptxas:` and `occupancy:` lines, one
-`kernel_case:` JSON line per shape, a `slice:` line, then the
-`{"kernels": [...]}` line, the `nvidia-smi` name and power limit, and as
-the last line `{"ok": true, "device": {...}}`.
+Output: `device:`, `build:`, `ptxas:`, `spills:` and `occupancy:`
+lines, one `kernel_case:` JSON line per shape, a `slice:` line, then the
+`{"kernels": [...]}` line (with the main case's forward + backward
+through the port's autograd path and through
+`scaled_dot_product_attention`), the `nvidia-smi` name and power limit,
+and as the last line `{"ok": true, "device": {...}}`.
 """
 import contextlib
 import io
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -110,6 +116,38 @@ def nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def spills(log: str):
+    """{"kernel<D, tile>": spill store bytes} of every instantiation
+    that spills, from ptxas's -v report."""
+    found, entry = {}, None
+    for line in log.splitlines():
+        props = re.search(r"Function properties for (\S+)", line)
+        if props:
+            entry = props.group(1)
+            continue
+        spill = re.search(r"(\d+) bytes spill stores", line)
+        if spill and int(spill.group(1)) and entry:
+            k = re.search(r"(flash_[a-z]+_kernel)ILi(\d+)ELi(\d+)E", entry)
+            name = f"{k.group(1)}<{k.group(2)}, {k.group(3)}>" if k else entry
+            found[name] = int(spill.group(1))
+    return found
+
+
+def main_shape_slots(fa, occupancy, sms):
+    """Resident CTA slots (CTAs per SM x SMs) of each kernel at the main
+    case's shape and tile, against its grid."""
+    _, b, tq, tk, h, d, _, _ = next(c for c in CASES if c[0] == MAIN_CASE)
+    tile = fa.launch_config(tq, tk, d)
+    per_sm = {(r["kernel"], r["d"], r["tile"]): r["ctas_per_sm"] for r in occupancy}
+    rows = []
+    for kname in fa.LAUNCHES:
+        length = tk if kname == "flash_dkv" else tq  # K3 tiles the keys
+        rows.append({"kernel": kname, "d": d, "tile": tile,
+                     "slots": per_sm[(kname, d, tile)] * sms,
+                     "grid": b * h * -(-length // tile)})
+    return rows
 
 
 def peaks(name: str):
@@ -385,12 +423,15 @@ def main() -> int:
     path = _build.build()
     _build.library()
     emit("build", {"seconds": time.time() - t0, "library": os.path.relpath(path)})
-    for line in _build.build_log().splitlines():
+    log = _build.build_log()
+    for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"ptxas: {line.strip()}")
+    emit("spills", spills(log))
     occupancy = fa.kernel_occupancy(torch.cuda.current_device())
-    emit("occupancy", {"sms": torch.cuda.get_device_properties(0).multi_processor_count,
-                       "kernels": occupancy})
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    emit("occupancy", {"sms": sms, "kernels": occupancy,
+                       "main_shape": main_shape_slots(fa, occupancy, sms)})
     for row in occupancy:
         check(row["ctas_per_sm"] > 0, f"{row['kernel']} d={row['d']} tile={row['tile']}: "
                                       f"no CTA fits on an SM")
@@ -427,8 +468,10 @@ def main() -> int:
             "library_ms": main_case["library_fwd_ms"] if kname == "flash_fwd" else None,
             "at": f"{MAIN_CASE} {main_case['shape']}",
             "bench_ms": cases["bench_causal"]["kernels"][kname]["ms"]})
-    print(json.dumps({"kernels": kernels, "kernel_phase_s": kernel_s,
-                      "total_s": time.time() - t_start}), flush=True)
+    print(json.dumps({"kernels": kernels, "fwd_bwd_ms": main_case["flash_fwd_bwd_ms"],
+                      "library_fwd_bwd_ms": main_case["library_fwd_bwd_ms"],
+                      "kernel_phase_s": kernel_s, "total_s": time.time() - t_start}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

@@ -10,37 +10,26 @@
 // sequence end get -inf, which no reference tile has, so they never move
 // a running max. Nothing is written to device memory but the outputs.
 //
-// K1 (forward) and K3 (dK/dV) are built on mma.sync.m16n8k16 (bf16
-// operands, f32 accumulation) in the FA2 register layout: operands come
-// from shared memory through ldmatrix, and scores, probabilities and
-// sums stay in registers in the accumulator fragment layout. Their CTA
-// owns a square tile of `kBlock` rows (16 per warp) of one (batch,
-// head) and streams `kBlock`-wide tiles of the other sequence through a
-// two-stage cp.async ring. The wrapper picks kBlock from the sequence
-// lengths (ops/flash_attention.py:launch_config): 32 when both are at
-// most 32 (the trainer's T = 32: a 2-warp CTA per (bh), no padding
-// rows), 64 otherwise. wgmma and TMA need 64-row warpgroup tiles that
-// the T = 32 path cannot fill; they are left for the long-sequence
-// paths a later slice brings.
-//
-// K2 (dQ) is still the first version: WMMA 16x16x16 fragments, one
-// 4-warp CTA per 64-row tile, a serial per-row pass over scores staged
-// in shared memory, synchronous tile loads and scalar bf16 stores.
+// All three kernels are built on mma.sync.m16n8k16 (bf16 operands, f32
+// accumulation) in the FA2 register layout: operands come from shared
+// memory through ldmatrix, and scores, probabilities and sums stay in
+// registers in the accumulator fragment layout. A CTA owns a square tile
+// of `kBlock` rows (16 per warp) of one (batch, head) and streams
+// `kBlock`-wide tiles of the other sequence through a two-stage cp.async
+// ring. The wrapper picks kBlock from the sequence lengths
+// (ops/flash_attention.py:launch_config): 32 when both are at most 32
+// (the trainer's T = 32: a 2-warp CTA per (bh), no padding rows), 64
+// otherwise. wgmma and TMA need 64-row warpgroup tiles that the T = 32
+// path cannot fill; they are left for the long-sequence paths a later
+// slice brings.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
-
-using namespace nvcuda;
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kTile = 64;          // K2: rows of a CTA's own tile and of each streamed tile
-constexpr int kWarpRows = 16;      // rows a warp owns
 constexpr float kNegInf = -1e30f;  // the reference's NEG_INF
 
 __device__ __forceinline__ float minus_infinity() { return __int_as_float(0xff800000); }
@@ -53,7 +42,7 @@ __device__ __forceinline__ float key_bias(const uint8_t* mask_row, int key, int 
 }
 
 // ---------------------------------------------------------------------------
-// Building blocks of K1 and K3: cp.async, ldmatrix, mma.sync.
+// Building blocks of the kernels: cp.async, ldmatrix, mma.sync.
 // ---------------------------------------------------------------------------
 
 // Shared tiles keep rows of D + 8 bf16 (D = 64: 144 bytes). The 8 rows an
@@ -387,182 +376,174 @@ __global__ void __launch_bounds__(FwdShape<D, kBlock>::kCtaThreads)
 }
 
 // ---------------------------------------------------------------------------
-// WMMA helpers of K2.
+// K2, dQ. Replaces _dq_kernel (shockwave_tpu/ops/flash_attention.py:167).
+//
+// Grid (BH, q-tiles), heaviest causal tile first; a CTA of kBlock / 16
+// warps owns kBlock query rows, 16 per warp, and walks the kBlock-wide
+// k-tiles up to the causal diagonal. Each warp keeps its Q and dO rows as
+// A fragments and its rows' lse and delta in registers for the whole
+// loop, and works through a k-tile 16 keys at a time: S = Q.K^T and
+// dP = dO.V^T in registers, then dS = p (dP - delta) scale with the
+// reference's p = 0 where s <= -5e29 guard, repacked as the A operand of
+// dQ += dS.K. No atomics: dK/dV is the separate K3 pass.
+//
+// Bound on an H100 SXM: at the trainer's shape it moves 10.6 MB for
+// 0.20 GFLOP, 3.2 us by bytes; at the bench shape it does 25.8 GFLOP
+// (three products per (q, k) pair), 26 us by operations.
+//
+// What the design does about what held the first version back:
+// 1. Tiles follow the sequence: kBlock = 32 at T = 32, a 2-warp CTA with
+//    no padding rows and no padding keys (the first version's fixed
+//    64-row tile left half of each CTA's rows and keys as padding).
+// 2. Shared memory: Q, dO and two K/V stages, (6 kBlock (D + 8) bf16 +
+//    2 kBlock f32): 27,904 B at the trainer's shape (74,496 B before),
+//    so all 512 CTAs of a main-path launch are resident in one wave.
+// 3. S, dP and dS never leave registers: the scores are formed in
+//    accumulator fragments, the p and dS terms element-wise in them, and
+//    dS is repacked into an A operand (no f32 staging in shared memory,
+//    no serial per-row pass, no bf16 round trip of dS).
+// 4. K/V tiles and their key-bias rows are double-buffered with
+//    cp.async: tile j + 1 is copied while tile j is multiplied.
+// 5. dQ is staged as bf16 through the warp's own Q rows and written with
+//    16-byte stores (the first version stored 2 bytes at a time).
+// 6. 16 keys at a time, as K3 works 16 queries at a time: the live
+//    scores stay at 16 floats per lane at either tile, and the unrolled
+//    chunk loop leaves the compiler free to overlap one chunk's products
+//    with the next one's.
 // ---------------------------------------------------------------------------
-
-// Copy rows [row0, row0 + kTile) of a (rows, D) bf16 matrix into a
-// kTile x D shared tile with 16-byte loads; rows past `rows` become zero.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0, int rows) {
-  constexpr int kChunks = D / 8;
-  for (int i = threadIdx.x; i < kTile * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = i % kChunks;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < rows) val = reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D)[c];
-    reinterpret_cast<uint4*>(dst + r * D)[c] = val;
-  }
-}
-
-// Additive key bias of the reference's _kbias for keys [k0, k0 + kTile).
-__device__ __forceinline__ void load_key_bias(float* dst, const uint8_t* mask_row, int k0,
-                                              int tk) {
-  for (int j = threadIdx.x; j < kTile; j += kThreads) dst[j] = key_bias(mask_row, k0 + j, tk);
-}
-
-// C (16 x kTile, f32, row stride kTile) = A (16 x D) . B^T where B is a
-// (kTile x D) row-major tile: the score products Q.K^T and dO.V^T.
-template <int D>
-__device__ __forceinline__ void warp_a_bt(float* c_out, const bf16* a, const bf16* b) {
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> fc[kTile / 16];
-#pragma unroll
-  for (int n = 0; n < kTile / 16; ++n) wmma::fill_fragment(fc[n], 0.f);
-#pragma unroll
-  for (int kk = 0; kk < D; kk += 16) {
-    wmma::load_matrix_sync(fa, a + kk, D);
-#pragma unroll
-    for (int n = 0; n < kTile / 16; ++n) {
-      wmma::load_matrix_sync(fb, b + n * 16 * D + kk, D);
-      wmma::mma_sync(fc[n], fa, fb, fc[n]);
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < kTile / 16; ++n)
-    wmma::store_matrix_sync(c_out + n * 16, fc[n], kTile, wmma::mem_row_major);
-}
-
-// acc[n] (16 x 16 column block n of a 16 x D f32 sum) += A (16 x kTile,
-// bf16, row stride kTile) . B (kTile x D row-major tile).
-template <int D>
-__device__ __forceinline__ void warp_a_b_acc(
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> (&acc)[D / 16], const bf16* a,
-    const bf16* b) {
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-#pragma unroll
-  for (int kk = 0; kk < kTile; kk += 16) {
-    wmma::load_matrix_sync(fa, a + kk, kTile);
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      wmma::load_matrix_sync(fb, b + kk * D + n * 16, D);
-      wmma::mma_sync(acc[n], fa, fb, acc[n]);
-    }
-  }
-}
-
-// Write a warp's 16 x D f32 sum as bf16 rows [row0, row0 + 16) of a
-// (rows, D) matrix, staging through `stage` (16 x D f32 of shared memory).
-template <int D>
-__device__ __forceinline__ void warp_store_rows(
-    bf16* dst, float* stage, wmma::fragment<wmma::accumulator, 16, 16, 16, float> (&acc)[D / 16],
-    int row0, int rows, int lane) {
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n)
-    wmma::store_matrix_sync(stage + n * 16, acc[n], D, wmma::mem_row_major);
-  __syncwarp();
-  for (int r = 0; r < kWarpRows; ++r) {
-    if (row0 + r >= rows) break;
-    for (int c = lane; c < D; c += 32)
-      dst[(size_t)(row0 + r) * D + c] = __float2bfloat16(stage[r * D + c]);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K2, dQ. Replaces _dq_kernel (shockwave_tpu/ops/flash_attention.py).
-// Grid (BH, q-tiles); the CTA walks the k-tiles up to the diagonal,
-// recomputes S = Q.K^T and dP = dO.V^T per tile, forms
-// dS = p (dP - delta) scale in bf16 with p = exp(s - lse) (0 where
-// s <= -5e29), and accumulates dQ += dS.K in WMMA accumulators that stay
-// in registers for the whole loop. Bound on this card: bandwidth and
-// launch latency at T = 32 (~10.6 MB per launch), compute at the bench
-// shape. No atomics: dK/dV is the separate K3 pass.
-// ---------------------------------------------------------------------------
-template <int D>
-struct DqSmem {
-  static constexpr size_t kBytes = 4 * kTile * D * sizeof(bf16)          // Q, dO, K, V
-                                   + 2 * kTile * kTile * sizeof(float)   // S, dP
-                                   + kTile * kTile * sizeof(bf16)        // dS
-                                   + 3 * kTile * sizeof(float);          // key bias, lse, delta
+template <int D, int kBlock>
+struct DqShape {
+  static constexpr int kCtaThreads = kBlock * 2;  // kBlock / 16 warps
+  static constexpr int kTileElems = kBlock * smem_stride<D>();
+  static constexpr size_t kSmemBytes =
+      6 * kTileElems * sizeof(bf16)       // Q, dO, 2 x K, 2 x V
+      + 2 * kBlock * sizeof(float);       // 2 x key bias
 };
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
+template <int D, int kBlock>
+__global__ void __launch_bounds__(DqShape<D, kBlock>::kCtaThreads)
     flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ g,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     const uint8_t* __restrict__ mask, bf16* __restrict__ dq, int heads, int tq,
                     int tk, float scale, int causal) {
+  using Shape = DqShape<D, kBlock>;
+  constexpr int S = smem_stride<D>();
+  constexpr int kThr = Shape::kCtaThreads;
+  constexpr int kE = Shape::kTileElems;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sG = sQ + kTile * D;
-  bf16* sK = sG + kTile * D;
-  bf16* sV = sK + kTile * D;
-  float* sS = reinterpret_cast<float*>(sV + kTile * D);
-  float* sDP = sS + kTile * kTile;
-  bf16* sDS = reinterpret_cast<bf16*>(sDP + kTile * kTile);
-  float* sBias = reinterpret_cast<float*>(sDS + kTile * kTile);
-  float* sLse = sBias + kTile;
-  float* sDelta = sLse + kTile;
+  bf16* sG = sQ + kE;
+  bf16* sK = sG + kE;      // 2 stages
+  bf16* sV = sK + 2 * kE;  // 2 stages
+  float* sBias = reinterpret_cast<float*>(sV + 2 * kE);  // 2 stages
 
   const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * kTile;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // causal: the longest k loops start first
+  const int q0 = qt * kBlock;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, t = lane & 3;
   const bf16* kb = k + (size_t)bh * tk * D;
   const bf16* vb = v + (size_t)bh * tk * D;
   const uint8_t* mask_row = mask != nullptr ? mask + (size_t)(bh / heads) * tk : nullptr;
+  const int row[2] = {q0 + warp * 16 + gq, q0 + warp * 16 + gq + 8};
 
-  load_tile<D>(sQ, q + (size_t)bh * tq * D, q0, tq);
-  load_tile<D>(sG, g + (size_t)bh * tq * D, q0, tq);
-  for (int i = threadIdx.x; i < kTile; i += kThreads) {
-    const bool in = q0 + i < tq;
-    sLse[i] = in ? lse[(size_t)bh * tq + q0 + i] : 0.f;
-    sDelta[i] = in ? delta[(size_t)bh * tq + q0 + i] : 0.f;
+  int nk = (tk + kBlock - 1) / kBlock;
+  if (causal) nk = min(nk, qt + 1);  // k-tiles past the diagonal see nothing
+
+  copy_tile_async<D, kBlock, kThr>(sQ, q + (size_t)bh * tq * D, q0, tq);
+  copy_tile_async<D, kBlock, kThr>(sG, g + (size_t)bh * tq * D, q0, tq);
+  copy_tile_async<D, kBlock, kThr>(sK, kb, 0, tk);
+  copy_tile_async<D, kBlock, kThr>(sV, vb, 0, tk);
+  for (int j = threadIdx.x; j < kBlock; j += kThr) sBias[j] = key_bias(mask_row, j, tk);
+  cp_async_commit();
+
+  // lse and delta of the lane's rows g and g + 8; a row past tq reads 0
+  // and its dQ is never written.
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool in = row[h] < tq;
+    row_lse[h] = in ? lse[(size_t)bh * tq + row[h]] : 0.f;
+    row_delta[h] = in ? delta[(size_t)bh * tq + row[h]] : 0.f;
   }
 
-  float* Sw = sS + warp * kWarpRows * kTile;
-  float* DPw = sDP + warp * kWarpRows * kTile;
-  bf16* DSw = sDS + warp * kWarpRows * kTile;
-  const int wrow0 = q0 + warp * kWarpRows;
+  uint32_t qf[D / 16][4], gf[D / 16][4];
+  float dq_acc[D / 8][4] = {};
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[D / 16];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
-
-  int nk = (tk + kTile - 1) / kTile;
-  if (causal) nk = min(nk, (int)blockIdx.y + 1);
   for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kTile;
+    const int buf = kt & 1;
+    if (kt + 1 < nk) {
+      const int k1 = (kt + 1) * kBlock;
+      copy_tile_async<D, kBlock, kThr>(sK + (buf ^ 1) * kE, kb, k1, tk);
+      copy_tile_async<D, kBlock, kThr>(sV + (buf ^ 1) * kE, vb, k1, tk);
+      for (int j = threadIdx.x; j < kBlock; j += kThr)
+        sBias[(buf ^ 1) * kBlock + j] = key_bias(mask_row, k1 + j, tk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
-    load_tile<D>(sK, kb, k0, tk);
-    load_tile<D>(sV, vb, k0, tk);
-    load_key_bias(sBias, mask_row, k0, tk);
-    __syncthreads();
-
-    warp_a_bt<D>(Sw, sQ + warp * kWarpRows * D, sK);
-    warp_a_bt<D>(DPw, sG + warp * kWarpRows * D, sV);
-    __syncwarp();
-
-#pragma unroll 4
-    for (int r = 0; r < kWarpRows; ++r) {
-      const float row_lse = sLse[warp * kWarpRows + r];
-      const float row_delta = sDelta[warp * kWarpRows + r];
+    if (kt == 0) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int j = lane + 32 * h;
-        float x = Sw[r * kTile + j] * scale;
-        if (causal && wrow0 + r < k0 + j) x = kNegInf;
-        x += sBias[j];
-        const float p = x <= kNegInf * 0.5f ? 0.f : expf(x - row_lse);
-        const float ds = p * (DPw[r * kTile + j] - row_delta) * scale;
-        DSw[r * kTile + j] = __float2bfloat16(ds);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        load_a<S>(qf[kk], sQ + warp * 16 * S + kk * 16, lane);
+        load_a<S>(gf[kk], sG + warp * 16 * S + kk * 16, lane);
       }
     }
-    __syncwarp();
-    warp_a_b_acc<D>(acc, DSw, sK);
+    const bf16* cK = sK + buf * kE;
+    const bf16* cV = sV + buf * kE;
+    const float* cBias = sBias + buf * kBlock;
+    const int k0 = kt * kBlock;
+
+#pragma unroll
+    for (int c = 0; c < kBlock / 16; ++c) {  // 16 keys at a time
+      float s[2][4] = {}, dp[2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t b[4];
+        load_bt<S>(b, cK + c * 16 * S + kk * 16, lane);
+        mma_bf16(s[0], qf[kk], b[0], b[1]);
+        mma_bf16(s[1], qf[kk], b[2], b[3]);
+        load_bt<S>(b, cV + c * 16 * S + kk * 16, lane);
+        mma_bf16(dp[0], gf[kk], b[0], b[1]);
+        mma_bf16(dp[1], gf[kk], b[2], b[3]);
+      }
+      // Scale, causal -1e30, then the key bias, as _dq_kernel orders
+      // them; lane holds rows row[0] (e = 0, 1) and row[1] (e = 2, 3)
+      // against keys kl and kl + 1 of each n8 tile.
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kl = c * 16 + j * 8 + 2 * t + (e & 1);
+          const int h = e >> 1;
+          float x = s[j][e] * scale;
+          if (causal && row[h] < k0 + kl) x = kNegInf;
+          x += cBias[kl];
+          const float p = x <= kNegInf * 0.5f ? 0.f : expf(x - row_lse[h]);
+          dp[j][e] = p * (dp[j][e] - row_delta[h]) * scale;
+        }
+      }
+      uint32_t dsa[4];
+      accum_to_a(dsa, dp[0], dp[1]);
+#pragma unroll
+      for (int nn = 0; nn < D / 16; ++nn) {
+        uint32_t b[4];
+        load_b<S>(b, cK + c * 16 * S + nn * 16, lane);
+        mma_bf16(dq_acc[2 * nn], dsa, b[0], b[1]);
+        mma_bf16(dq_acc[2 * nn + 1], dsa, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
   }
+
+  // The warp's own Q rows are free: its Q fragments are in registers.
+  bf16* stage = sQ + warp * 16 * S;
+  stage_accum<D>(stage, dq_acc, 1.f, 1.f, lane);
   __syncwarp();
-  warp_store_rows<D>(dq + (size_t)bh * tq * D, Sw, acc, wrow0, tq, lane);
+  warp_store_tile<D>(dq + (size_t)bh * tq * D, stage, q0 + warp * 16, tq, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -791,15 +772,16 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* mask, vo
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, int kBlock>
 int launch_dq(const void* q, const void* k, const void* v, const void* g, const void* lse,
               const void* delta, const void* mask, void* dq, int bh, int heads, int tq, int tk,
               float scale, int causal, cudaStream_t stream) {
+  using Shape = DqShape<D, kBlock>;
   static bool configured[kMaxDevices] = {};
-  cudaError_t err = set_smem(flash_dq_kernel<D>, DqSmem<D>::kBytes, configured);
+  cudaError_t err = set_smem(flash_dq_kernel<D, kBlock>, Shape::kSmemBytes, configured);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(bh, (tq + kTile - 1) / kTile);
-  flash_dq_kernel<D><<<grid, kThreads, DqSmem<D>::kBytes, stream>>>(
+  const dim3 grid(bh, (tq + kBlock - 1) / kBlock);
+  flash_dq_kernel<D, kBlock><<<grid, Shape::kCtaThreads, Shape::kSmemBytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(g), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<const uint8_t*>(mask),
@@ -849,8 +831,9 @@ int occupancy_of(int kernel, int* out) {
   if (kernel == 0)
     return occupancy(flash_fwd_kernel<D, kBlock>, FwdShape<D, kBlock>::kCtaThreads,
                      FwdShape<D, kBlock>::kSmemBytes, out);
-  if (kernel == 1 && kBlock == kTile)
-    return occupancy(flash_dq_kernel<D>, kThreads, DqSmem<D>::kBytes, out);
+  if (kernel == 1)
+    return occupancy(flash_dq_kernel<D, kBlock>, DqShape<D, kBlock>::kCtaThreads,
+                     DqShape<D, kBlock>::kSmemBytes, out);
   if (kernel == 2)
     return occupancy(flash_dkv_kernel<D, kBlock>, DkvShape<D, kBlock>::kCtaThreads,
                      DkvShape<D, kBlock>::kSmemBytes, out);
@@ -864,8 +847,8 @@ int occupancy_of(int kernel, int* out) {
 // statically, so PyTorch's current device does not carry over), launches
 // on `stream`, and returns the cudaError_t of the launch (0 = launched);
 // an unsupported head dim or tile returns cudaErrorInvalidValue. `tile`
-// is the square tile of K1 and K3 (32 or 64) that the wrapper's
-// launch_config chose. Nothing here synchronises.
+// is the square tile (32 or 64) that the wrapper's launch_config chose.
+// Nothing here synchronises.
 extern "C" {
 
 int swt_flash_fwd(const void* q, const void* k, const void* v, const void* mask, void* out,
@@ -887,14 +870,22 @@ int swt_flash_fwd(const void* q, const void* k, const void* v, const void* mask,
 
 int swt_flash_dq(const void* q, const void* k, const void* v, const void* g, const void* lse,
                  const void* delta, const void* mask, void* dq, int bh, int heads, int tq, int tk,
-                 int d, float scale, int causal, int device, void* stream) {
+                 int d, int tile, float scale, int causal, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64)
-    return launch_dq<64>(q, k, v, g, lse, delta, mask, dq, bh, heads, tq, tk, scale, causal, s);
-  if (d == 32)
-    return launch_dq<32>(q, k, v, g, lse, delta, mask, dq, bh, heads, tq, tk, scale, causal, s);
+  if (d == 64 && tile == 32)
+    return launch_dq<64, 32>(q, k, v, g, lse, delta, mask, dq, bh, heads, tq, tk, scale,
+                             causal, s);
+  if (d == 64 && tile == 64)
+    return launch_dq<64, 64>(q, k, v, g, lse, delta, mask, dq, bh, heads, tq, tk, scale,
+                             causal, s);
+  if (d == 32 && tile == 32)
+    return launch_dq<32, 32>(q, k, v, g, lse, delta, mask, dq, bh, heads, tq, tk, scale,
+                             causal, s);
+  if (d == 32 && tile == 64)
+    return launch_dq<32, 64>(q, k, v, g, lse, delta, mask, dq, bh, heads, tq, tk, scale,
+                             causal, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -920,7 +911,7 @@ int swt_flash_dkv(const void* q, const void* k, const void* v, const void* g, co
   return (int)cudaErrorInvalidValue;
 }
 
-// Occupancy of kernel 0 (K1), 1 (K2, tile 64 only) or 2 (K3) at head dim
+// Occupancy of kernel 0 (K1), 1 (K2) or 2 (K3) at head dim
 // d and tile `tile` on `device`: writes {CTAs per SM, threads per CTA,
 // dynamic shared bytes, registers per thread} to out[0..3].
 int swt_flash_occupancy(int kernel, int d, int tile, int device, int* out) {

@@ -29,7 +29,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # (name, argtypes) of every C entry point; each returns a cudaError_t as int.
 _ENTRY_POINTS = (
     ("swt_flash_fwd", [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P]),
-    ("swt_flash_dq", [_P] * 8 + [_I] * 5 + [_F, _I, _I, _P]),
+    ("swt_flash_dq", [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P]),
     ("swt_flash_dkv", [_P] * 9 + [_I] * 6 + [_F, _I, _I, _P]),
     ("swt_flash_occupancy", [_I] * 4 + [_P]),
 )

@@ -8,10 +8,11 @@ The port of `shockwave_tpu/ops/flash_attention.py`. Three kernels
   flash_dq   <- _dq_kernel   dQ, k-tiles innermost
   flash_dkv  <- _dkv_kernel  dK and dV, q-tiles innermost
 
-K1 and K3 own a square tile of 32 or 64 rows of one (batch, head) and
-stream tiles of the same width; `launch_config` picks the width from the
-sequence lengths (32 for the trainer's T = 32, 64 otherwise) and the
-wrapper passes it to the C entry point. K2 keeps its fixed 64-row tile.
+All three kernels own a square tile of 32 or 64 rows of one (batch,
+head) and stream tiles of the same width; each takes its tile from
+`launch_config`, which picks the width from the sequence lengths (32 for
+the trainer's T = 32, 64 otherwise), and the wrapper passes it to the C
+entry point.
 
 A `torch.autograd.Function` ties them together; its backward computes
 `delta = rowsum(dO * O)` in f32 as plain tensor code (the JAX package
@@ -41,11 +42,9 @@ from . import _build
 NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (32, 64)
 KERNEL_DTYPE = torch.bfloat16
-# Square tiles K1 and K3 are built for (rows per CTA = streamed tile
+# Square tiles the kernels are built for (rows per CTA = streamed tile
 # width, 16 rows per warp).
 KERNEL_TILES = (32, 64)
-# K2's fixed tile.
-DQ_TILE = 64
 
 # Launches of each kernel since the last reset; a wrapper adds one where
 # it launches its kernel and nowhere else.
@@ -138,7 +137,7 @@ def _on_cpu(*tensors) -> bool:
 
 
 def launch_config(tq: int, tk: int, d: int) -> int:
-    """The square tile of K1 and K3 for these lengths and head dim: 32
+    """The square tile of the kernels for these lengths and head dim: 32
     when neither sequence is longer (the trainer's T = 32 fills it with no
     padding rows and one tile per (batch, head)), 64 otherwise."""
     if d not in KERNEL_HEAD_DIMS:
@@ -223,10 +222,11 @@ def attention_dq(q, k, v, g, lse, delta, kv_mask, heads: int, scale: float,
     _check_backward_inputs(q, g, lse, delta)
     bh, tq, d = q.shape
     dq = torch.empty_like(q)
+    tk = k.shape[1]
     lib = _build.library()
     rc = lib.swt_flash_dq(_ptr(q), _ptr(k), _ptr(v), _ptr(g), _ptr(lse),
                           _ptr(delta), _ptr(kv_mask), _ptr(dq), bh, heads, tq,
-                          k.shape[1], d, scale, int(causal),
+                          tk, d, launch_config(tq, tk, d), scale, int(causal),
                           *_device_and_stream(q))
     _build.check(lib, rc, "flash_dq")
     LAUNCHES["flash_dq"] += 1
@@ -261,11 +261,9 @@ def kernel_occupancy(device: int = 0):
     threads, dynamic shared memory and registers. Needs the card."""
     lib = _build.library()
     rows = []
-    for name, kernel, tiles in (("flash_fwd", 0, KERNEL_TILES),
-                                ("flash_dq", 1, (DQ_TILE,)),
-                                ("flash_dkv", 2, KERNEL_TILES)):
+    for kernel, name in enumerate(LAUNCHES):  # 0 K1, 1 K2, 2 K3, as in C
         for d in KERNEL_HEAD_DIMS:
-            for tile in tiles:
+            for tile in KERNEL_TILES:
                 out = (ctypes.c_int * 4)()
                 rc = lib.swt_flash_occupancy(kernel, d, tile, device, out)
                 _build.check(lib, rc, f"{name} occupancy")

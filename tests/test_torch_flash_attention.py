@@ -7,6 +7,7 @@ plain PyTorch versions for CPU tensors. Tolerances are test_ops.py's:
 2e-5 on the forward, 5e-4 on gradients. The CUDA kernels' tile choice,
 `launch_config`, is plain Python and is held here too.
 """
+import ctypes
 import importlib
 import importlib.util
 import os
@@ -319,3 +320,79 @@ class TestLaunchConfig:
         assert {c[7] for c in smoke.CASES if c[2] == 32 and c[3] == 32} >= {"key0", "tail"}
         assert any(c[2] != c[3] and fa.launch_config(c[2], c[3], c[5]) == 64
                    for c in smoke.CASES)
+
+
+class _RecordingLibrary:
+    """Stands in for the kernel library: every entry point records its
+    arguments and reports success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append((name, args))
+            return 0
+        return entry
+
+
+class TestCInterface:
+    """What each wrapper hands its C entry point, with the library, the
+    device check and the stream replaced (there is no card here): as many
+    arguments as `_build._ENTRY_POINTS` declares, each of the declared
+    type, and `launch_config`'s tile right after the head dim."""
+
+    ENTRY = {"fwd": "swt_flash_fwd", "dq": "swt_flash_dq", "dkv": "swt_flash_dkv"}
+
+    @pytest.fixture
+    def lib(self, monkeypatch):
+        lib = _RecordingLibrary()
+        monkeypatch.setattr(fa._build, "library", lambda: lib)
+        monkeypatch.setattr(fa, "_on_cpu", lambda *tensors: False)
+        monkeypatch.setattr(fa, "_device_and_stream", lambda t: (0, 0))
+        yield lib
+        fa.reset_launch_counts()
+
+    @staticmethod
+    def _check_types(name, args):
+        argtypes = dict(fa._build._ENTRY_POINTS)[name]
+        assert len(args) == len(argtypes), (name, len(args), len(argtypes))
+        kinds = {ctypes.c_void_p: (int, type(None)), ctypes.c_int: (int,),
+                 ctypes.c_float: (float,)}
+        for i, (arg, argtype) in enumerate(zip(args, argtypes)):
+            assert isinstance(arg, kinds[argtype]) and not isinstance(arg, bool), (name, i, arg)
+
+    @pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
+    @pytest.mark.parametrize("tq,tk", [(32, 32), (33, 33), (32, 48)])
+    def test_wrapper_hands_over_the_declared_arguments(self, lib, kernel, tq, tk):
+        bh, heads, d = 4, 2, 64
+        q, g = (torch.zeros(bh, tq, d, dtype=torch.bfloat16) for _ in range(2))
+        k, v = (torch.zeros(bh, tk, d, dtype=torch.bfloat16) for _ in range(2))
+        lse, delta = (torch.zeros(bh, tq) for _ in range(2))
+        mask = torch.ones(bh // heads, tk, dtype=torch.bool)
+        causal = tq == tk
+        if kernel == "fwd":
+            fa.attention_forward(q, k, v, mask, heads, 0.125, causal)
+        elif kernel == "dq":
+            fa.attention_dq(q, k, v, g, lse, delta, mask, heads, 0.125, causal)
+        else:
+            fa.attention_dkv(q, k, v, g, lse, delta, mask, heads, 0.125, causal)
+        [(name, args)] = lib.calls
+        assert name == self.ENTRY[kernel]
+        self._check_types(name, args)
+        assert fa.LAUNCHES[f"flash_{kernel}"] == 1
+        # ..., bh, heads, tq, tk, d, tile, scale, causal, device, stream
+        assert args[-10:-4] == (bh, heads, tq, tk, d, fa.launch_config(tq, tk, d))
+        assert args[-4:] == (0.125, int(causal), 0, 0)
+
+    def test_occupancy_asks_for_every_kernel_at_both_tiles(self, lib):
+        rows = fa.kernel_occupancy(device=0)
+        asked = set()
+        for name, args in lib.calls:
+            assert name == "swt_flash_occupancy"
+            self._check_types(name, args[:-1] + (0,))  # `out` is a ctypes array
+            asked.add(args[:3])
+        assert asked == {(kernel, d, tile) for kernel in range(3)
+                         for d in fa.KERNEL_HEAD_DIMS for tile in fa.KERNEL_TILES}
+        assert {(r["kernel"], r["d"], r["tile"]) for r in rows} >= {
+            ("flash_dq", d, tile) for d in (32, 64) for tile in (32, 64)}
