@@ -30,10 +30,23 @@ Phases, in order; any failure exits non-zero and prints no result:
    launch counters set to 0 just before and read just after; then a
    resume from its checkpoint, and the logits with flash on against the
    einsum path on the same weights and batch.
+5. lease: the same trainer under the scheduler's lease protocol, against
+   a stand-in scheduler on loopback built from the port's
+   `rpc.generic_handler` (the JAX package's scheduler is not imported
+   here). In process: `train.main(... -step 30 --enable_lease_iterator)`
+   under a lease of 10 steps that one renewal extends to 20 and no
+   further must expire at exactly step 20, write its checkpoint and its
+   last `[PROGRESS] [STEPS] 20` line, and launch each kernel 18 x 20
+   times; a second dispatch granted the remaining 10 must resume at step
+   20 and end at 30 with 18 x 10 launches each. Then the port's
+   `WorkerDaemon`, in process, takes a `RunJob` for the trace's own
+   Transformer command with a 10-step budget and runs the trainer as a
+   subprocess on the card: it must see CUDA_VISIBLE_DEVICES=0, exit 0,
+   and its `Done` must report exactly 10 steps.
 
 Output: `device:`, `build:`, `ptxas:`, `spills:` and `occupancy:`
-lines, one `kernel_case:` JSON line per shape, a `slice:` line, then the
-`{"kernels": [...]}` line (with the main case's forward + backward
+lines, one `kernel_case:` JSON line per shape, `slice:` and `lease:`
+lines, then the `{"kernels": [...]}` line (with the main case's forward + backward
 through the port's autograd path and through
 `scaled_dot_product_attention`), the `nvidia-smi` name and power limit,
 and as the last line `{"ok": true, "device": {...}}`.
@@ -45,6 +58,7 @@ import math
 import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -95,6 +109,10 @@ LOGITS_TOL = 5e-2
 
 STEPS = 30
 BATCH = 64
+# The lease phase: a first lease of 10 steps, renewed once to 20, on a
+# 30-step job; the second dispatch is granted the remaining 10; the
+# daemon's dispatch has a budget of its own.
+LEASE_GRANT, LEASE_CAP, DAEMON_STEPS = 10, 20, 10
 TGT_TOKENS_PER_STEP = BATCH * 32  # tgt[:, 1:] of (B, 33); no pads in the synthetic data
 
 
@@ -397,6 +415,204 @@ def slice_phase(fa, train, device):
             "logits_flash_vs_einsum_max_abs": logits_err}
 
 
+class StandInScheduler:
+    """The scheduler's side of WorkerToScheduler and IteratorToScheduler
+    on loopback, from the port's `rpc.generic_handler`: it grants each
+    job `grants[job_id] = (first lease, cap)` in steps, extends a lease
+    by 10 steps per renewal up to the cap, and records every call with
+    its arrival time."""
+
+    def __init__(self, rpc, pb, grants):
+        import grpc
+        from concurrent import futures
+        self._pb, self.grants, self.calls = pb, grants, []
+        self.done = {}
+        self.server = grpc.server(futures.ThreadPoolExecutor(max_workers=8))
+        self.server.add_generic_rpc_handlers((
+            rpc.generic_handler("shockwave_tpu.IteratorToScheduler", {
+                "InitJob": self._init_job, "UpdateLease": self._update_lease}),
+            rpc.generic_handler("shockwave_tpu.WorkerToScheduler", {
+                "RegisterWorker": self._register, "Done": self._done}),
+        ))
+        self.port = self.server.add_insecure_port("127.0.0.1:0")
+        self.server.start()
+
+    def _init_job(self, req, ctx):
+        self.calls.append((time.time(), "InitJob", req.job_id))
+        return self._pb.InitJobResponse(max_steps=self.grants[req.job_id][0],
+                                        max_duration=1e6, extra_time=0.0)
+
+    def _update_lease(self, req, ctx):
+        self.calls.append((time.time(), "UpdateLease", req.job_id, req.steps,
+                           req.max_steps))
+        return self._pb.UpdateLeaseResponse(
+            max_steps=min(req.max_steps + 10, self.grants[req.job_id][1]),
+            max_duration=req.max_duration, run_time_so_far=0.0, deadline=1e9)
+
+    def _register(self, req, ctx):
+        return self._pb.RegisterWorkerResponse(success=True, worker_ids=[0],
+                                               round_duration=60.0)
+
+    def _done(self, req, ctx):
+        self.calls.append((time.time(), "Done", list(req.job_ids)))
+        self.done[req.job_ids[0]] = (time.time(), list(req.num_steps),
+                                     list(req.execution_times))
+        return self._pb.Empty()
+
+    def first(self, method, job_id):
+        return next(c for c in self.calls if c[1] == method and c[2] == job_id)
+
+
+def lease_dispatch(fa, train, standin, ckpt, round_id, steps):
+    """One in-process dispatch of the full-width trainer under a lease;
+    returns (trainer, stdout, the iterator log, launches)."""
+    os.environ.update(SWTPU_JOB_ID="0", SWTPU_WORKER_ID="0",
+                      SWTPU_ROUND_ID=str(round_id), SWTPU_SCHED_ADDR="127.0.0.1",
+                      SWTPU_SCHED_PORT=str(standin.port))
+    argv = ["-batch_size", str(BATCH), "-step", str(steps), "-proj_share_weight",
+            "--use_flash", "--enable_lease_iterator", "--checkpoint_dir", ckpt,
+            "--throughput_estimation_interval", "5"]
+    captured = io.StringIO()
+    fa.reset_launch_counts()
+    with contextlib.redirect_stdout(_Tee(sys.stdout, captured)):
+        trainer = train.main(argv)
+    launches = dict(fa.LAUNCHES)
+    with open(os.path.join(ckpt, ".swtpu", f"round={round_id}", "worker=0.log")) as f:
+        log = f.read()
+    return trainer, captured.getvalue(), log, launches
+
+
+def lease_phase(fa, train):
+    import grpc
+    from shockwave_tpu_torch.models import train_common
+    from shockwave_tpu_torch.runtime import clients, rpc
+    from shockwave_tpu_torch.runtime.proto import control_pb2 as pb
+    from shockwave_tpu_torch.runtime.worker import WorkerDaemon
+
+    standin = StandInScheduler(rpc, pb, {0: (LEASE_GRANT, LEASE_CAP),
+                                         1: (DAEMON_STEPS, DAEMON_STEPS)})
+    renewal_s, save_s = [], []
+    real_update_lease = clients.IteratorToSchedulerClient.update_lease
+    real_save = train_common.save_checkpoint
+
+    def timed_update_lease(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = real_update_lease(self, *args, **kwargs)
+        renewal_s.append(time.perf_counter() - t0)
+        return out
+
+    def timed_save(path, state):
+        t0 = time.perf_counter()
+        real_save(path, state)
+        save_s.append(time.perf_counter() - t0)
+
+    ckpt = tempfile.mkdtemp(prefix="swt_chip_lease_")
+    work = tempfile.mkdtemp(prefix="swt_chip_daemon_")
+    launched = []
+    real_popen = subprocess.Popen
+
+    class RecordingPopen(real_popen):
+        def __init__(self, args, **kwargs):
+            super().__init__(args, **kwargs)
+            launched.append((self, kwargs.get("env") or {}))
+
+    clients.IteratorToSchedulerClient.update_lease = timed_update_lease
+    train_common.save_checkpoint = timed_save
+    saved_env = dict(os.environ)
+    try:
+        # 1. In process: expiry at the renewed lease's end, then a resume.
+        trainer, out, log, launches = lease_dispatch(fa, train, standin, ckpt, 0, STEPS)
+        renewals = [c for c in standin.calls if c[1] == "UpdateLease"]
+        check(any(c[4] == LEASE_GRANT for c in renewals),
+              f"lease: no renewal of the {LEASE_GRANT}-step lease arrived: {standin.calls}")
+        check(trainer.step == LEASE_CAP and f"TRAINED {LEASE_CAP} steps (cumulative {LEASE_CAP})" in out,
+              f"lease: the lease did not stop the job at exactly step {LEASE_CAP}")
+        check(f"[LEASE] [EXPIRED] {LEASE_CAP} / {LEASE_CAP} steps" in log,
+              "lease: the iterator did not log its expiry at the granted step")
+        progress = re.findall(r"\[PROGRESS\] \[STEPS\] (\d+)", log)
+        check(progress and int(progress[-1]) == LEASE_CAP,
+              f"lease: last [PROGRESS] [STEPS] is {progress[-1:]}, not {LEASE_CAP}")
+        path = train_common.checkpoint_path(ckpt)
+        check(os.path.exists(path), "lease: no checkpoint at lease expiry")
+        ckpt_bytes = os.path.getsize(path)
+        for kname, n in launches.items():
+            check(n == 18 * LEASE_CAP, f"lease: {kname} launched {n} times, not {18 * LEASE_CAP}")
+        (t_a, s_a), (t_b, s_b) = trainer.throughput_marks[0], trainer.throughput_marks[-1]
+        lease_steps_per_s = (s_b - s_a) / (t_b - t_a)
+        check(math.isfinite(float(trainer.last_metrics["loss"])), "lease: non-finite loss")
+
+        rest = STEPS - LEASE_CAP
+        standin.grants[0] = (rest, rest)
+        resumed, out, log, resumed_launches = lease_dispatch(fa, train, standin, ckpt, 1, STEPS)
+        check(f"TRAINED {rest} steps (cumulative {STEPS})" in out and resumed.step == STEPS,
+              f"lease: the second dispatch did not resume at {LEASE_CAP} and end at {STEPS}")
+        for kname, n in resumed_launches.items():
+            check(n == 18 * rest, f"lease: resumed {kname} launched {n} times, not {18 * rest}")
+        del trainer, resumed
+        torch.cuda.empty_cache()
+
+        # 2. The worker daemon dispatches the trace's command to the card.
+        subprocess.Popen = RecordingPopen
+        for key in list(os.environ):
+            if key.startswith("SWTPU_"):
+                del os.environ[key]
+        workloads = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                 "shockwave_tpu_torch", "workloads")
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            worker_port = sock.getsockname()[1]
+        daemon = WorkerDaemon(
+            worker_type="h100", sched_addr="127.0.0.1", sched_port=standin.port,
+            worker_port=worker_port, num_chips=1,
+            run_dirs={mode: workloads for mode in ("static", "accordion", "gns", "serving")},
+            data_dir=os.path.join(work, "data"), checkpoint_dir=os.path.join(work, "ckpt"))
+        try:
+            job = pb.JobDescription(
+                job_id=1, command=("python3 train.py -data %s/translation/"
+                                   f"multi30k.atok.low.pt -batch_size {BATCH} -proj_share_weight"),
+                working_directory="translation", needs_data_dir=True,
+                num_steps_arg="-step", num_steps=DAEMON_STEPS, mode="static")
+            with grpc.insecure_channel(f"127.0.0.1:{worker_port}") as channel:
+                t_runjob = time.time()
+                rpc.Stub(channel, "shockwave_tpu.SchedulerToWorker").RunJob(
+                    pb.RunJobRequest(jobs=[job], worker_id=0, round_id=0), timeout=30)
+            deadline = time.time() + 600
+            while 1 not in standin.done and time.time() < deadline:
+                time.sleep(0.2)
+        finally:
+            daemon._shutdown()
+            daemon.join()
+        check(1 in standin.done, "lease: the daemon's job reported no Done in 600 s")
+        t_done, done_steps, done_times = standin.done[1]
+        trainers = [(p, env) for p, env in launched if "train.py" in str(p.args)]
+        check(len(trainers) == 1, f"lease: {len(trainers)} trainer processes launched, not 1")
+        proc, env = trainers[0]
+        check(env.get("CUDA_VISIBLE_DEVICES") == "0",
+              f"lease: the trainer ran with CUDA_VISIBLE_DEVICES={env.get('CUDA_VISIBLE_DEVICES')}")
+        check(proc.returncode == 0, f"lease: the trainer exited {proc.returncode}")
+        check(done_steps == [DAEMON_STEPS] and done_times[0] > 0,
+              f"lease: Done reported {done_steps} steps in {done_times} s, not {DAEMON_STEPS}")
+        t_init = standin.first("InitJob", 1)[0]
+    finally:
+        subprocess.Popen = real_popen
+        clients.IteratorToSchedulerClient.update_lease = real_update_lease
+        train_common.save_checkpoint = real_save
+        os.environ.clear()
+        os.environ.update(saved_env)
+        standin.server.stop(grace=0)
+        shutil.rmtree(ckpt, ignore_errors=True)
+        shutil.rmtree(work, ignore_errors=True)
+    return {"expired_at": LEASE_CAP, "resumed_to": STEPS, "renewals": len(renewals),
+            "launches": launches, "resumed_launches": resumed_launches,
+            "steps_per_s": lease_steps_per_s, "renewal_rtt_s": renewal_s,
+            "checkpoint_save_s": save_s, "checkpoint_bytes": ckpt_bytes,
+            "daemon_job": {"steps": done_steps[0], "execution_time_s": done_times[0],
+                           "cuda_visible_devices": env["CUDA_VISIBLE_DEVICES"],
+                           "returncode": proc.returncode,
+                           "runjob_to_initjob_s": t_init - t_runjob,
+                           "runjob_to_done_s": t_done - t_runjob}}
+
+
 def main() -> int:
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -447,6 +663,12 @@ def main() -> int:
     sliced = slice_phase(fa, train, device)
     sliced["seconds"] = time.time() - t0
     emit("slice", sliced)
+
+    t0 = time.time()
+    leased = lease_phase(fa, train)
+    leased.update(seconds=time.time() - t0, slice_steps_per_s=sliced["steps_per_s"],
+                  nvidia_smi=smi)
+    emit("lease", leased)
 
     main_case = cases[MAIN_CASE]
     replaces = {"flash_fwd": "shockwave_tpu/ops/flash_attention.py:40",

@@ -1,9 +1,12 @@
 """Shared training scaffold for the port's workload entry points.
 
-The port of `shockwave_tpu/models/train_common.py` on its lease-free
-path: the same CLI, SIGTERM -> SystemExit, the `Trainer` loop with its
-`[THROUGHPUT_ESTIMATION]` and `TRAINED` lines, and CRC-footered
-checkpoints with the `.prev` fallback and resume from `step`.
+The port of `shockwave_tpu/models/train_common.py`: the same CLI,
+SIGTERM -> SystemExit, the `Trainer` loop with its
+`[THROUGHPUT_ESTIMATION]` and `TRAINED` lines, CRC-footered checkpoints
+with the `.prev` fallback and resume from `step`, and the lease branch
+(`--enable_lease_iterator`, which the dispatcher appends to every job):
+the job trains under `runtime.iterator.LeaseIterator`, checkpoints when
+the lease expires and reconciles a checkpoint that is already at budget.
 
 PyTorch runs eagerly, so there is no jit'd step: one `train_step` runs
 forward, backward and `torch.optim.SGD(lr, momentum=0.9)`, which matches
@@ -11,10 +14,9 @@ forward, backward and `torch.optim.SGD(lr, momentum=0.9)`, which matches
 gradient). Its metrics (`loss`, `grad_norm_sq`) stay on the device; the
 host waits for the device only at each throughput interval and at exit.
 
-Not in this slice, each raising NotImplementedError that names its
-ROADMAP.md item: the lease iterator (`--enable_lease_iterator`), gangs
-(`--num_processes > 1`) and the Accordion/GNS adaptation monitors
-(`SWTPU_MODE`).
+Not ported yet, each raising NotImplementedError that names its
+ROADMAP.md item: gangs (`--num_processes > 1`) and the Accordion/GNS
+adaptation monitors (`SWTPU_MODE`).
 """
 from __future__ import annotations
 
@@ -32,9 +34,8 @@ import torch
 
 THROUGHPUT_LOG_INTERVAL = 100
 
-_LEASE_ITEM = "ROADMAP.md Queue 1, item 1 (the job-side lease iterator)"
-_GANG_ITEM = "ROADMAP.md Queue 1, item 3 (gangs over torch.distributed)"
-_MONITOR_ITEM = "ROADMAP.md Queue 1, item 3 (the Accordion/GNS monitors)"
+_GANG_ITEM = "ROADMAP.md Queue 1, item 4 (gangs over torch.distributed)"
+_MONITOR_ITEM = "ROADMAP.md Queue 1, item 4 (the Accordion/GNS monitors)"
 
 
 def common_parser(description: str, steps_args=("--num_steps",)) -> argparse.ArgumentParser:
@@ -69,9 +70,6 @@ def parse_args(parser: argparse.ArgumentParser, argv=None):
     signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
     if args.num_processes is not None and args.num_processes > 1:
         raise NotImplementedError(f"gangs are not ported yet: {_GANG_ITEM}")
-    if args.enable_lease_iterator:
-        raise NotImplementedError(
-            f"the lease iterator is not ported yet: {_LEASE_ITEM}")
     return args
 
 
@@ -206,12 +204,31 @@ class Trainer:
 
     def run(self) -> int:
         args = self.args
-        iterator = _PlainIterator(self.data_loader)
-        restored = self._load(checkpoint_path(args.checkpoint_dir))
+        use_lease = args.enable_lease_iterator
+        path = checkpoint_path(args.checkpoint_dir)
+        if use_lease:
+            # Imported here so that the lease-free path never loads grpc.
+            from ..runtime.iterator import LeaseIterator
+            iterator = LeaseIterator(
+                self.data_loader, args.checkpoint_dir,
+                load_checkpoint_func=self._load,
+                save_checkpoint_func=self._save,
+                synthetic_data=args.synthetic_data)
+            restored = iterator.load_checkpoint(path)
+        else:
+            iterator = _PlainIterator(self.data_loader)
+            restored = self._load(path)
         if restored is not None:
             self.restore(restored)
         start_step = self.step
         budget = args.num_steps
+        if use_lease and budget is not None and start_step >= budget:
+            # Checkpoint is ahead of the scheduler's accounting (previous
+            # worker died post-checkpoint, pre-report): reconcile instead
+            # of exiting (0, 0) — the micro-task-failure signal — which
+            # would burn a failure attempt every round until the job is
+            # dropped despite being fully trained.
+            iterator.report_checkpoint_ahead()
 
         steps_done = 0
         window_steps = 0
@@ -227,6 +244,8 @@ class Trainer:
                         host_batch_ref = batch
                         dev_batch = self._upload(batch)
                     metrics = self.train_step(*dev_batch)
+                    if use_lease:
+                        iterator.set_sync_ref(metrics["loss"])
                     if self.first_metrics is None:
                         self.first_metrics = metrics
                     self.last_metrics = metrics
@@ -242,11 +261,20 @@ class Trainer:
                     if budget is not None and start_step + steps_done >= budget:
                         iterator.complete()
                         break
-                if budget is None or start_step + steps_done >= budget:
+                if not use_lease and (budget is None
+                                      or start_step + steps_done >= budget):
                     break
         finally:
             sync(self.device)
-            self._save(checkpoint_path(args.checkpoint_dir))
+            if use_lease:
+                try:
+                    iterator.save_checkpoint(path)
+                finally:
+                    # The lease's final [PROGRESS] lines, which the
+                    # dispatcher reads once this process has exited.
+                    iterator.close()
+            else:
+                self._save(path)
         print(f"TRAINED {steps_done} steps (cumulative "
               f"{start_step + steps_done})", flush=True)
         return steps_done

@@ -1,0 +1,198 @@
+"""Worker daemon: registers this host's CUDA cards with the scheduler and
+dispatches training jobs onto them. The port of
+`shockwave_tpu/runtime/worker.py`; the scheduler is the reference's,
+unchanged.
+
+Usage (from the repository root, so the default run dir resolves):
+    python -m shockwave_tpu_torch.runtime.worker \\
+        --worker_type h100 --sched_addr 10.0.0.2 --sched_port 50070 \\
+        --worker_port 50061 --checkpoint_dir /nfs/ckpt
+
+The cards are counted with `torch.cuda.device_count()`; with none and no
+`--num_chips`, the daemon refuses to start (there is no CPU fallback).
+Jobs resolve their trace `working_directory` under the run dirs,
+`shockwave_tpu_torch/workloads` by default, which holds the translation
+family only so far. Fleet tracing and the `/metrics` exporter are not
+ported yet: `--trace_dir`, `--obs_port` and SWTPU_SPAN_SHARD_DIR are
+refused.
+"""
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import signal
+import threading
+import time
+
+import grpc
+
+from ..obs import get_observability
+from ..obs import names as obs_names
+from ..obs.logconfig import LEVELS, setup_logging
+from . import resilience
+from .clients import WorkerToSchedulerClient
+from .dispatcher import Dispatcher
+from .servers import get_host_ip, serve_worker
+
+logger = logging.getLogger("shockwave_tpu_torch.runtime")
+
+REGISTER_RETRY_WINDOW_S = 300.0
+REGISTER_RETRY_INTERVAL_S = 5.0
+RUN_DIR = "shockwave_tpu_torch/workloads"
+
+_TRACING_ITEM = "ROADMAP.md Queue 1, item 3 (fleet tracing and /metrics for the port)"
+
+
+def detect_num_chips() -> int:
+    """CUDA cards visible to this process (0 without a card)."""
+    import torch
+    return torch.cuda.device_count()
+
+
+class WorkerDaemon:
+    def __init__(self, worker_type: str, sched_addr: str, sched_port: int,
+                 worker_port: int, num_chips: int, run_dirs: dict,
+                 data_dir: str, checkpoint_dir: str):
+        self._shutdown_event = threading.Event()
+        self._obs = get_observability()
+        self._rpc_client = WorkerToSchedulerClient(sched_addr, sched_port)
+
+        # Control-plane HA: reject dispatches from a deposed leader
+        # (stale epoch -> FAILED_PRECONDITION via the server fence) and
+        # chase a promoted one (advanced epoch -> re-resolve the
+        # scheduler endpoint / reset breakers before its work runs).
+        self._fence = resilience.EpochFence()
+
+        callbacks = {
+            "RunJob": self._run_job,
+            "KillJob": self._kill_job,
+            "Reset": self._reset,
+            "Shutdown": self._shutdown,
+        }
+        self._server = serve_worker(worker_port, callbacks,
+                                    fence=self._fence,
+                                    on_epoch_advance=self._on_epoch_advance)
+
+        # Daemons race the scheduler at cluster bring-up (and the
+        # scheduler may spend a minute importing before its server
+        # listens), so registration retries with backoff instead of
+        # dying on the first connection refusal.
+        deadline = time.monotonic() + REGISTER_RETRY_WINDOW_S
+        while True:
+            try:
+                worker_ids, round_duration = self._rpc_client.register_worker(
+                    worker_type=worker_type, ip_addr=get_host_ip(),
+                    port=worker_port, num_chips=num_chips)
+                break
+            except grpc.RpcError as e:
+                # Registration carries a per-attempt deadline, so a
+                # stalled (not just absent) scheduler surfaces as
+                # DEADLINE_EXCEEDED — retry both transport codes.
+                if (not resilience.is_retryable(e)
+                        or time.monotonic() >= deadline):
+                    # Don't leave the control server listening on a
+                    # half-constructed daemon (its handlers dereference
+                    # a dispatcher that was never built).
+                    self._server.stop(grace=0)
+                    raise
+                logger.info("scheduler at %s:%d unavailable; retrying",
+                            sched_addr, sched_port)
+                time.sleep(REGISTER_RETRY_INTERVAL_S)
+        logger.info("registered %d chips as workers %s (round %.0fs)",
+                    num_chips, worker_ids, round_duration)
+        # Done may legitimately block at the scheduler until the round
+        # boundary (early finisher); its deadline must cover a round.
+        self._rpc_client.stretch_done_deadline(round_duration + 60.0)
+
+        os.makedirs(checkpoint_dir, exist_ok=True)
+        self._dispatcher = Dispatcher(
+            round_duration, chip_ids=list(range(num_chips)),
+            worker_rpc_client=self._rpc_client, sched_addr=sched_addr,
+            sched_port=sched_port, run_dirs=run_dirs, data_dir=data_dir,
+            checkpoint_dir=checkpoint_dir)
+
+    def _on_epoch_advance(self, epoch: int) -> None:
+        """A new leader's first dispatch reached this daemon: point the
+        report channel at it before the dispatched work needs to Done
+        (the client also self-heals lazily on its next failure, but the
+        eager refresh saves the first post-failover report a full
+        failover-retry loop)."""
+        logger.warning("leader epoch advanced to %d; re-resolving "
+                       "scheduler endpoint", epoch)
+        self._rpc_client.refresh_endpoint()
+
+    def _run_job(self, jobs, worker_id, round_id):
+        self._obs.inc(obs_names.WORKER_JOBS_DISPATCHED_TOTAL)
+        self._obs.set_gauge(obs_names.WORKER_LAST_DISPATCH_TIMESTAMP,
+                            time.time())
+        self._dispatcher.dispatch_jobs(jobs, worker_id, round_id)
+
+    def _kill_job(self, job_id):
+        self._dispatcher.kill_job(job_id)
+
+    def _reset(self):
+        self._dispatcher.reset()
+
+    def _shutdown(self):
+        self._dispatcher.shutdown()
+        self._shutdown_event.set()
+
+    def join(self):
+        self._shutdown_event.wait()
+        self._server.stop(grace=1)
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--worker_type", "-t", default="h100")
+    p.add_argument("--sched_addr", "-i", required=True)
+    p.add_argument("--sched_port", "-s", type=int, default=50070)
+    p.add_argument("--worker_port", "-w", type=int, default=50061)
+    p.add_argument("--num_chips", "-g", type=int, default=None,
+                   help="default: torch.cuda.device_count()")
+    p.add_argument("--static_run_dir", default=RUN_DIR)
+    p.add_argument("--accordion_run_dir", default=RUN_DIR)
+    p.add_argument("--gns_run_dir", default=RUN_DIR)
+    p.add_argument("--data_dir", default=None)
+    p.add_argument("--checkpoint_dir", required=True,
+                   help="per-deployment checkpoint root; each daemon needs its own")
+    p.add_argument("--obs_port", type=int, default=None,
+                   help="not ported yet; refused")
+    p.add_argument("--trace_dir", default=None,
+                   help="not ported yet; refused (as is "
+                        f"${obs_names.SHARD_DIR_ENV})")
+    p.add_argument("--log_level", default="info", choices=LEVELS)
+    args = p.parse_args(argv)
+
+    if args.obs_port is not None:
+        raise NotImplementedError(
+            f"--obs_port (/metrics) is not ported yet: {_TRACING_ITEM}")
+    if args.trace_dir or os.environ.get(obs_names.SHARD_DIR_ENV):
+        raise NotImplementedError(
+            f"fleet tracing is not ported yet: {_TRACING_ITEM}")
+
+    setup_logging(args.log_level)
+
+    num_chips = args.num_chips if args.num_chips is not None else detect_num_chips()
+    if num_chips <= 0:
+        raise RuntimeError("no CUDA devices detected; pass --num_chips")
+
+    daemon = WorkerDaemon(
+        worker_type=args.worker_type, sched_addr=args.sched_addr,
+        sched_port=args.sched_port, worker_port=args.worker_port,
+        num_chips=num_chips,
+        run_dirs={"static": args.static_run_dir,
+                  "accordion": args.accordion_run_dir,
+                  "gns": args.gns_run_dir,
+                  # The port has no serving workload yet (only the
+                  # translation family is ported); the key keeps the
+                  # dispatcher's mode table whole.
+                  "serving": args.static_run_dir},
+        data_dir=args.data_dir, checkpoint_dir=args.checkpoint_dir)
+    signal.signal(signal.SIGINT, lambda s, f: daemon._shutdown())
+    daemon.join()
+
+
+if __name__ == "__main__":
+    main()

@@ -3,10 +3,14 @@
 An AST scan of every module of `shockwave_tpu_torch/` and of
 `chip_smoke.py`: no import of `jax`, `flax` or `optax`, and none of
 `shockwave_tpu` itself (matched as a whole package name, so
-`shockwave_tpu_torch` passes).
+`shockwave_tpu_torch` passes). Then the two things the port shares with
+the JAX package on purpose: the wire schema of the control plane, and
+nothing else loaded on the lease-free path (no grpc).
 """
 import ast
 import os
+import subprocess
+import sys
 
 import pytest
 
@@ -41,6 +45,9 @@ def test_the_scan_covers_the_port():
     assert "chip_smoke.py" in names
     assert "shockwave_tpu_torch/ops/flash_attention.py" in names
     assert "shockwave_tpu_torch/workloads/translation/train.py" in names
+    assert "shockwave_tpu_torch/runtime/iterator.py" in names
+    assert "shockwave_tpu_torch/runtime/worker.py" in names
+    assert "shockwave_tpu_torch/runtime/proto/control_pb2.py" in names
 
 
 @pytest.mark.parametrize("path", port_files(), ids=lambda p: os.path.relpath(p, REPO))
@@ -53,3 +60,22 @@ def test_the_scan_catches_the_reference_package(tmp_path):
     bad = tmp_path / "bad.py"
     bad.write_text("import shockwave_tpu_torch\nfrom shockwave_tpu.core import job\n")
     assert set(imported_packages(str(bad))) & FORBIDDEN == {"shockwave_tpu"}
+
+
+def test_the_wire_schema_is_the_reference_packages():
+    """The port's proto module registers the same serialized descriptor
+    (file control.proto, package shockwave_tpu), so its RPCs reach the
+    unchanged scheduler and both modules load in one process."""
+    from shockwave_tpu.runtime.proto import control_pb2 as ref
+    from shockwave_tpu_torch.runtime.proto import control_pb2 as port
+    assert port.DESCRIPTOR.serialized_pb == ref.DESCRIPTOR.serialized_pb
+    assert port.DESCRIPTOR.package == "shockwave_tpu"
+    assert port.UpdateLeaseRequest is ref.UpdateLeaseRequest
+
+
+def test_the_lease_free_trainer_does_not_load_grpc():
+    code = ("import sys; import shockwave_tpu_torch.workloads.translation.train; "
+            "assert 'grpc' not in sys.modules, 'grpc loaded'")
+    done = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert done.returncode == 0, done.stderr[-2000:]

@@ -186,7 +186,7 @@ def test_cuda_without_a_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("argv,env", [
-    (["--enable_lease_iterator"], {}),
+    (["--enable_lease_iterator"], {"SWTPU_SPAN_SHARD_DIR": "spans"}),
     (["--num_processes", "2", "--process_id", "0"], {}),
     ([], {"SWTPU_MODE": "accordion"}),
 ])
@@ -197,3 +197,49 @@ def test_unported_paths_raise(argv, env, monkeypatch, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         train.main(["-step", "1", "--device", "cpu",
                     "--checkpoint_dir", str(tmp_path)] + argv)
+
+
+def test_main_trains_under_a_lease(tmp_path, monkeypatch, capsys):
+    """The lease branch of Trainer.run against a stub scheduler: expiry
+    at the granted step with a checkpoint, resume in the next dispatch
+    to the budget, then a dispatch whose checkpoint is already at
+    budget reports the grant instead of failing."""
+    import re
+    import socket
+
+    from shockwave_tpu.runtime.servers import serve_scheduler
+    monkeypatch.setattr(train, "Seq2SeqTransformer", SMALL)
+    with socket.socket() as s:
+        s.bind(("", 0))
+        port = s.getsockname()[1]
+    grants = iter([3, 2, 2])
+    server = serve_scheduler(port, {
+        "RegisterWorker": lambda **kw: ([0], 60.0), "Done": lambda *a: None,
+        "InitJob": lambda job_id: (next(grants), 1e6, 0.0),
+        "UpdateLease": lambda job, w, steps, d, max_steps, md: (max_steps, md, 0.0, 1e9)})
+    for key, value in {"SWTPU_JOB_ID": "0", "SWTPU_WORKER_ID": "0",
+                       "SWTPU_SCHED_ADDR": "localhost",
+                       "SWTPU_SCHED_PORT": str(port)}.items():
+        monkeypatch.setenv(key, value)
+    monkeypatch.delenv("SWTPU_SPAN_SHARD_DIR", raising=False)
+    argv = ["-batch_size", "2", "-step", "5", "--device", "cpu",
+            "--enable_lease_iterator", "--checkpoint_dir", str(tmp_path)]
+
+    def dispatch(round_id):
+        monkeypatch.setenv("SWTPU_ROUND_ID", str(round_id))
+        trainer = train.main(argv)
+        log = (tmp_path / ".swtpu" / f"round={round_id}" / "worker=0.log").read_text()
+        return trainer, capsys.readouterr().out, re.findall(r"\[PROGRESS\] \[STEPS\] (\d+)", log)
+
+    try:
+        trainer, out, progress = dispatch(0)
+        assert "TRAINED 3 steps (cumulative 3)" in out and progress[-1] == "3"
+        assert train_common.load_checkpoint(
+            train_common.checkpoint_path(str(tmp_path)), torch.device("cpu"))["step"] == 3
+        trainer, out, progress = dispatch(1)
+        assert "TRAINED 2 steps (cumulative 5)" in out and progress[-1] == "2"
+        trainer, out, progress = dispatch(2)
+        assert "TRAINED 0 steps (cumulative 5)" in out and progress[-1] == "2"
+        assert "[LEASE] [CKPT_AHEAD]" in (tmp_path / ".swtpu" / "round=2" / "worker=0.log").read_text()
+    finally:
+        server.stop(grace=0)
