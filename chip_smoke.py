@@ -44,9 +44,27 @@ Phases, in order; any failure exits non-zero and prints no result:
    subprocess on the card: it must see CUDA_VISIBLE_DEVICES=0, exit 0,
    and its `Done` must report exactly 10 steps.
 
+6. families: the LM, Recommendation, ResNet-18 and ResNet-50 trainers
+   through their mains at their largest batch (`MAX_BS`: 80, 8192, 256,
+   128), 20 steps each on the repeated synthetic batch with the launch
+   counters set to 0 (these paths reach none of the kernels): the loss
+   must be finite and fall, and a resume from the checkpoint must train
+   exactly one more step. Per family: steps/s from the throughput marks,
+   samples/s, peak device memory and checkpoint bytes.
+7. adapt: the dynamic-adaptation monitors under the stand-in scheduler,
+   which now records `UpdateResourceRequirement`. ResNet-18 at batch 128
+   in `accordion` mode with 10-batch epochs: the per-epoch mean gradient
+   norms, and the port's request must be the one `AccordionMonitor`'s
+   rule gives on them; when the rule asks for the big batch, the
+   stand-in must receive `big_bs=True` and a second dispatch at
+   `--batch_size 256` must resume from the saved step and complete its
+   grant. Then one dispatch in `gns` mode, past GNS's 50-step window,
+   must train and issue no request (on one card the small batch is the
+   whole batch).
+
 Output: `device:`, `build:`, `ptxas:`, `spills:` and `occupancy:`
-lines, one `kernel_case:` JSON line per shape, `slice:` and `lease:`
-lines, then the `{"kernels": [...]}` line (with the main case's forward + backward
+lines, one `kernel_case:` JSON line per shape, `slice:`, `lease:`,
+`families:` and `adapt:` lines, then the `{"kernels": [...]}` line (with the main case's forward + backward
 through the port's autograd path and through
 `scaled_dot_product_attention`), the `nvidia-smi` name and power limit,
 and as the last line `{"ok": true, "device": {...}}`.
@@ -114,6 +132,21 @@ BATCH = 64
 # daemon's dispatch has a budget of its own.
 LEASE_GRANT, LEASE_CAP, DAEMON_STEPS = 10, 20, 10
 TGT_TOKENS_PER_STEP = BATCH * 32  # tgt[:, 1:] of (B, 33); no pads in the synthetic data
+
+# The families phase: (main module under shockwave_tpu_torch.workloads,
+# the CLI before the steps' count at batch b); each runs at its MAX_BS.
+FAMILIES = {
+    "lm": ("language_modeling.main", lambda b: ["--cuda", "--batch_size", b, "--steps"]),
+    "recommendation": ("recommendation.train", lambda b: ["--batch_size", b, "-n"]),
+    "resnet18": ("image_classification.cifar10.main", lambda b: ["--batch_size", b, "--num_steps"]),
+    "resnet50": ("image_classification.imagenet.main",
+                 lambda b: ["-j", "4", "-a", "resnet50", "-b", b, "--num_minibatches"]),
+}
+FAMILY_STEPS = 20
+# The adapt phase: ResNet-18 in accordion mode at batch 128 with 10-batch
+# epochs and a budget of 6 epochs; the resumed dispatch at 256 is granted
+# 10 steps; the gns dispatch runs past the 50-step GNS window.
+ADAPT_BATCH, ADAPT_EPOCH, ADAPT_STEPS, ADAPT_RESUME, GNS_STEPS = 128, 10, 60, 10, 55
 
 
 class Failure(Exception):
@@ -364,6 +397,19 @@ class _Tee(io.TextIOBase):
             stream.flush()
 
 
+def run_main(module, argv):
+    """`module.main(argv)` with its stdout teed; returns (trainer, stdout)."""
+    captured = io.StringIO()
+    with contextlib.redirect_stdout(_Tee(sys.stdout, captured)):
+        trainer = module.main(argv)
+    return trainer, captured.getvalue()
+
+
+def steps_per_s(trainer):
+    (t_a, s_a), (t_b, s_b) = trainer.throughput_marks[0], trainer.throughput_marks[-1]
+    return (s_b - s_a) / (t_b - t_a)
+
+
 def slice_phase(fa, train, device):
     from shockwave_tpu_torch.models import data
     from shockwave_tpu_torch.models.transformer import Seq2SeqTransformer
@@ -385,14 +431,11 @@ def slice_phase(fa, train, device):
         check(last < first, f"slice: loss did not fall ({first} -> {last})")
         gsq = float(trainer.last_metrics["grad_norm_sq"])
         check(math.isfinite(gsq), "slice: non-finite grad_norm_sq")
-        (t_a, s_a), (t_b, s_b) = trainer.throughput_marks[0], trainer.throughput_marks[-1]
-        steps_per_s = (s_b - s_a) / (t_b - t_a)
+        rate = steps_per_s(trainer)
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
-        captured = io.StringIO()
-        with contextlib.redirect_stdout(_Tee(sys.stdout, captured)):
-            resumed = train.main(argv[:3] + [str(STEPS + 1)] + argv[4:])
-        check(f"TRAINED 1 steps (cumulative {STEPS + 1})" in captured.getvalue(),
+        resumed, out = run_main(train, argv[:3] + [str(STEPS + 1)] + argv[4:])
+        check(f"TRAINED 1 steps (cumulative {STEPS + 1})" in out,
               "slice: the resume did not train exactly one step from the checkpoint")
 
         src, tgt = next(iter(data.multi30k(BATCH, tgt_len=33)))
@@ -409,8 +452,8 @@ def slice_phase(fa, train, device):
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     return {"steps": STEPS, "batch": BATCH, "wall_s": wall, "loss_first": first,
-            "loss_last": last, "grad_norm_sq_last": gsq, "steps_per_s": steps_per_s,
-            "tgt_tokens_per_s": steps_per_s * TGT_TOKENS_PER_STEP,
+            "loss_last": last, "grad_norm_sq_last": gsq, "steps_per_s": rate,
+            "tgt_tokens_per_s": rate * TGT_TOKENS_PER_STEP,
             "peak_mem_gib": peak_gib, "launches": launches,
             "logits_flash_vs_einsum_max_abs": logits_err}
 
@@ -419,8 +462,8 @@ class StandInScheduler:
     """The scheduler's side of WorkerToScheduler and IteratorToScheduler
     on loopback, from the port's `rpc.generic_handler`: it grants each
     job `grants[job_id] = (first lease, cap)` in steps, extends a lease
-    by 10 steps per renewal up to the cap, and records every call with
-    its arrival time."""
+    by 10 steps per renewal up to the cap, takes batch-size requests, and
+    records every call with its arrival time."""
 
     def __init__(self, rpc, pb, grants):
         import grpc
@@ -430,7 +473,8 @@ class StandInScheduler:
         self.server = grpc.server(futures.ThreadPoolExecutor(max_workers=8))
         self.server.add_generic_rpc_handlers((
             rpc.generic_handler("shockwave_tpu.IteratorToScheduler", {
-                "InitJob": self._init_job, "UpdateLease": self._update_lease}),
+                "InitJob": self._init_job, "UpdateLease": self._update_lease,
+                "UpdateResourceRequirement": self._update_resource_requirement}),
             rpc.generic_handler("shockwave_tpu.WorkerToScheduler", {
                 "RegisterWorker": self._register, "Done": self._done}),
         ))
@@ -448,6 +492,11 @@ class StandInScheduler:
         return self._pb.UpdateLeaseResponse(
             max_steps=min(req.max_steps + 10, self.grants[req.job_id][1]),
             max_duration=req.max_duration, run_time_so_far=0.0, deadline=1e9)
+
+    def _update_resource_requirement(self, req, ctx):
+        self.calls.append((time.time(), "UpdateResourceRequirement", req.job_id,
+                           req.big_bs, req.small_bs))
+        return self._pb.Empty()
 
     def _register(self, req, ctx):
         return self._pb.RegisterWorkerResponse(success=True, worker_ids=[0],
@@ -472,14 +521,12 @@ def lease_dispatch(fa, train, standin, ckpt, round_id, steps):
     argv = ["-batch_size", str(BATCH), "-step", str(steps), "-proj_share_weight",
             "--use_flash", "--enable_lease_iterator", "--checkpoint_dir", ckpt,
             "--throughput_estimation_interval", "5"]
-    captured = io.StringIO()
     fa.reset_launch_counts()
-    with contextlib.redirect_stdout(_Tee(sys.stdout, captured)):
-        trainer = train.main(argv)
+    trainer, out = run_main(train, argv)
     launches = dict(fa.LAUNCHES)
     with open(os.path.join(ckpt, ".swtpu", f"round={round_id}", "worker=0.log")) as f:
         log = f.read()
-    return trainer, captured.getvalue(), log, launches
+    return trainer, out, log, launches
 
 
 def lease_phase(fa, train):
@@ -537,8 +584,7 @@ def lease_phase(fa, train):
         ckpt_bytes = os.path.getsize(path)
         for kname, n in launches.items():
             check(n == 18 * LEASE_CAP, f"lease: {kname} launched {n} times, not {18 * LEASE_CAP}")
-        (t_a, s_a), (t_b, s_b) = trainer.throughput_marks[0], trainer.throughput_marks[-1]
-        lease_steps_per_s = (s_b - s_a) / (t_b - t_a)
+        lease_steps_per_s = steps_per_s(trainer)
         check(math.isfinite(float(trainer.last_metrics["loss"])), "lease: non-finite loss")
 
         rest = STEPS - LEASE_CAP
@@ -613,6 +659,154 @@ def lease_phase(fa, train):
                            "runjob_to_done_s": t_done - t_runjob}}
 
 
+def families_phase(fa):
+    import importlib
+    from shockwave_tpu_torch.models import train_common
+    results = {}
+    for family, (module_name, head) in FAMILIES.items():
+        module = importlib.import_module(f"shockwave_tpu_torch.workloads.{module_name}")
+        batch = module.MAX_BS
+        ckpt = tempfile.mkdtemp(prefix=f"swt_chip_{family}_")
+        try:
+            argv = head(str(batch))
+            tail = ["--checkpoint_dir", ckpt, "--throughput_estimation_interval", "5"]
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            fa.reset_launch_counts()
+            t0 = time.time()
+            trainer, _ = run_main(module, argv + [str(FAMILY_STEPS)] + tail)
+            wall = time.time() - t0
+            launches = dict(fa.LAUNCHES)
+            check(not any(launches.values()),
+                  f"families: {family} launched flash kernels {launches}")
+            first = float(trainer.first_metrics["loss"])
+            last = float(trainer.last_metrics["loss"])
+            check(math.isfinite(first) and math.isfinite(last), f"families: {family} non-finite loss")
+            check(last < first, f"families: {family} loss did not fall ({first} -> {last})")
+            rate = steps_per_s(trainer)
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            ckpt_bytes = os.path.getsize(train_common.checkpoint_path(ckpt))
+            del trainer
+            resumed, out = run_main(module, argv + [str(FAMILY_STEPS + 1)] + tail)
+            check(f"TRAINED 1 steps (cumulative {FAMILY_STEPS + 1})" in out
+                  and resumed.step == FAMILY_STEPS + 1,
+                  f"families: {family} resume did not train exactly one step")
+            del resumed
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+        results[family] = {"batch": batch, "steps": FAMILY_STEPS, "wall_s": wall,
+                           "steps_per_s": rate, "samples_per_s": rate * batch,
+                           "peak_mem_gib": peak_gib, "checkpoint_bytes": ckpt_bytes,
+                           "loss_first": first, "loss_last": last, "resumed_to": FAMILY_STEPS + 1}
+    torch.cuda.empty_cache()
+    return results
+
+
+def accordion_rule(epoch_norms, launch_bs, max_bs, threshold=0.5):
+    """The first request `AccordionMonitor`'s rule makes on these epoch
+    norms, as (epoch, (big_bs, small_bs)), or None."""
+    for epoch in range(1, len(epoch_norms)):
+        prev, cur = epoch_norms[epoch - 1], epoch_norms[epoch]
+        critical = abs(prev - cur) / max(prev, 1e-12) > threshold
+        if critical and launch_bs >= max_bs:
+            return epoch + 1, (False, True)
+        if not critical and launch_bs < max_bs:
+            return epoch + 1, (True, False)
+    return None
+
+
+def adapt_dispatch(module, standin, ckpt, job_id, round_id, mode, argv, epoch=10**6):
+    """One in-process leased dispatch in `mode` with `epoch`-batch
+    synthetic epochs (by default none ends within the run)."""
+    os.environ.update(SWTPU_JOB_ID=str(job_id), SWTPU_WORKER_ID="0",
+                      SWTPU_ROUND_ID=str(round_id), SWTPU_SCHED_ADDR="127.0.0.1",
+                      SWTPU_SCHED_PORT=str(standin.port), SWTPU_MODE=mode,
+                      SWTPU_SYNTH_EPOCH_BATCHES=str(epoch))
+    return run_main(module, argv + ["--enable_lease_iterator", "--checkpoint_dir", ckpt,
+                                    "--throughput_estimation_interval", "5"])
+
+
+def adapt_phase():
+    from shockwave_tpu_torch.runtime import rpc
+    from shockwave_tpu_torch.runtime.proto import control_pb2 as pb
+    from shockwave_tpu_torch.workloads.image_classification.cifar10 import main as cifar10
+
+    acc_job, gns_job = 2, 3
+    standin = StandInScheduler(rpc, pb, {acc_job: (ADAPT_STEPS, ADAPT_STEPS),
+                                         gns_job: (GNS_STEPS, GNS_STEPS)})
+    ckpt = tempfile.mkdtemp(prefix="swt_chip_adapt_")
+    saved_env = dict(os.environ)
+    try:
+        argv = ["--batch_size", str(ADAPT_BATCH), "--num_steps", str(ADAPT_STEPS)]
+        trainer, out = adapt_dispatch(cifar10, standin, ckpt, acc_job, 0, "accordion", argv,
+                                      epoch=ADAPT_EPOCH)
+        norms = list(trainer.monitor.epoch_norms)
+        expected = accordion_rule(norms, ADAPT_BATCH, cifar10.MAX_BS)
+        requests = [c[3:] for c in standin.calls
+                    if c[1] == "UpdateResourceRequirement" and c[2] == acc_job]
+        stopped_at = trainer.step
+        check(all(math.isfinite(n) for n in norms), f"adapt: non-finite epoch norms {norms}")
+        # The lease iterator (the reference's, kept) counts the call that
+        # ends a synthetic epoch as a step and yields no batch there: an
+        # epoch of 10 trains 9 steps, and the 60-step lease ends after 6.
+        if expected is None:
+            check(requests == [] and len(norms) == ADAPT_STEPS // ADAPT_EPOCH,
+                  f"adapt: the rule asks nothing on {norms}, but the port sent {requests}")
+        else:
+            epoch, request = expected
+            check(requests == [request] and stopped_at == epoch * (ADAPT_EPOCH - 1),
+                  f"adapt: the rule asks {request} after epoch {epoch} on {norms}; the port "
+                  f"sent {requests} and stopped at step {stopped_at}")
+        resumed = None
+        if expected is not None and expected[1] == (True, False):
+            # The scheduler redispatches at MAX_BS with a grant of its own.
+            standin.grants[acc_job] = (ADAPT_RESUME, ADAPT_RESUME)
+            budget = stopped_at + ADAPT_RESUME
+            resumed, out = adapt_dispatch(
+                cifar10, standin, ckpt, acc_job, 1, "accordion",
+                ["--batch_size", str(cifar10.MAX_BS), "--num_steps", str(budget)])
+            check(f"TRAINED {ADAPT_RESUME} steps (cumulative {budget})" in out
+                  and resumed.step == budget,
+                  f"adapt: the dispatch at batch {cifar10.MAX_BS} did not resume at "
+                  f"{stopped_at} and end at {budget}")
+            check(math.isfinite(float(resumed.last_metrics["loss"])),
+                  "adapt: non-finite loss at the big batch")
+        acc_rate = steps_per_s(trainer)
+        resumed_rate = None if resumed is None else steps_per_s(resumed)
+        del trainer, resumed
+
+        shutil.rmtree(ckpt, ignore_errors=True)
+        os.makedirs(ckpt)
+        gns, out = adapt_dispatch(cifar10, standin, ckpt, gns_job, 0, "gns",
+                                  ["--batch_size", str(ADAPT_BATCH),
+                                   "--num_steps", str(GNS_STEPS)])
+        gns_requests = [c for c in standin.calls
+                        if c[1] == "UpdateResourceRequirement" and c[2] == gns_job]
+        check(f"TRAINED {GNS_STEPS} steps (cumulative {GNS_STEPS})" in out and not gns_requests,
+              f"adapt: the gns dispatch sent {gns_requests} or did not train {GNS_STEPS} steps")
+        metrics = gns.last_metrics
+        check(metrics["grad_norm_sq_small"] is metrics["grad_norm_sq"],
+              "adapt: on one card the GNS small batch is the whole batch")
+        gns_rate = steps_per_s(gns)
+        del gns
+    finally:
+        os.environ.clear()
+        os.environ.update(saved_env)
+        standin.server.stop(grace=0)
+        shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"accordion": {"batch": ADAPT_BATCH, "epoch_batches": ADAPT_EPOCH,
+                          "epoch_mean_norms": norms,
+                          "rule": None if expected is None else
+                          {"after_epoch": expected[0], "big_bs": expected[1][0],
+                           "small_bs": expected[1][1]},
+                          "requests": requests, "stopped_at": stopped_at,
+                          "resumed_at_batch": None if resumed_rate is None else cifar10.MAX_BS,
+                          "steps_per_s": acc_rate, "big_batch_steps_per_s": resumed_rate},
+            "gns": {"batch": ADAPT_BATCH, "steps": GNS_STEPS, "requests": len(gns_requests),
+                    "steps_per_s": gns_rate}}
+
+
 def main() -> int:
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -669,6 +863,14 @@ def main() -> int:
     leased.update(seconds=time.time() - t0, slice_steps_per_s=sliced["steps_per_s"],
                   nvidia_smi=smi)
     emit("lease", leased)
+
+    t0 = time.time()
+    fams = families_phase(fa)
+    emit("families", {"seconds": time.time() - t0, "nvidia_smi": smi, **fams})
+
+    t0 = time.time()
+    adapted = adapt_phase()
+    emit("adapt", {"seconds": time.time() - t0, "nvidia_smi": smi, **adapted})
 
     main_case = cases[MAIN_CASE]
     replaces = {"flash_fwd": "shockwave_tpu/ops/flash_attention.py:40",

@@ -9,11 +9,16 @@ counterpart:
   ops/flash_attention.py       hand-written CUDA kernels (csrc/) for the
                                three Pallas flash-attention kernels
   models/transformer.py        Seq2SeqTransformer (the translation model)
-  models/data.py               multi30k batches (numpy, copied)
-  models/train_common.py       CLI, Trainer, checkpoints
+  models/lm.py, recommendation.py, resnet.py
+                               the LM, Recommendation and ResNet models
+  models/data.py               input pipelines (numpy, copied)
+  models/train_common.py       CLI, Trainer, checkpoints, the
+                               Accordion/GNS adaptation monitors
+  runtime/                     lease iterator, worker daemon, dispatcher
   core/durable_io.py           the checkpoint CRC footer (copied)
-  workloads/translation/       the translation trainer's entry point
-  convert.py                   flax parameter tree -> state_dict
+  workloads/<working_directory>/
+                               the entry points the dispatcher launches
+  convert.py                   flax parameter trees -> state_dicts
 
 Entry points run on the CUDA card unless the caller asks for the CPU.
 """

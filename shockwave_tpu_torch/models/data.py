@@ -1,14 +1,27 @@
-"""Input pipelines of the translation workload: a copy of the Multi30k
-part of `shockwave_tpu/models/data.py` (`SyntheticBatches`,
-`ArrayBatches`, `_load_multi30k`, `multi30k`).
+"""Input pipelines of the port's workloads: a copy of
+`shockwave_tpu/models/data.py` for the families the port runs
+(`SyntheticBatches`, `ArrayBatches`, `SparseRowBatches`,
+`LazyImageFolderBatches` and the loaders of CIFAR-10, ImageNet, Multi30k,
+Wikitext-2 and ML-20M).
 
 numpy only, and kept byte-for-byte in behaviour: with the same seed the
-synthetic batches are the JAX package's, src (B, 32) and tgt (B, 33)
-int32 from `RandomState(0)`. The trainer moves them to the device.
+synthetic batches are the JAX package's (tokens int32, images NHWC
+float32, multi-hot rows float32), and the real-format loaders read the
+same files into the same arrays. When no data directory is given or its
+files are absent, deterministic synthetic batches of the right shapes
+are made on the host. The trainer moves batches to the device.
+
+Real formats supported per family:
+  cifar10     pickled python batches (cifar-10-batches-py/) or cifar10.npz
+  imagenet    train/<class>/ image folders, decoded lazily per batch
+  wikitext2   wiki.train.tokens / train.txt word stream
+  multi30k    train.de/train.en parallel sentence files
+  ml20m       pro_sg/train.csv (uid,sid) interaction list
 """
 from __future__ import annotations
 
 import os
+import pickle
 from typing import Optional, Sequence
 
 import numpy as np
@@ -64,6 +77,165 @@ class ArrayBatches:
         for i in range(len(self)):
             idx = order[i * self._bs:(i + 1) * self._bs]
             yield tuple(a[idx] for a in self._arrays)
+
+
+def _decode_image(path: str, size: int, scale: float,
+                  offset: float) -> np.ndarray:
+    """Decode one image file to (size, size, 3) float32 as
+    pixel/scale + offset (classification: /255 in [0,1]; GAN tanh
+    range: /127.5 - 1)."""
+    from PIL import Image
+    with Image.open(path) as im:
+        im = im.convert("RGB").resize((size, size))
+        return np.asarray(im, np.float32) / scale + offset
+
+
+class SparseRowBatches:
+    """Epochs of dense multi-hot rows densified per batch from per-row
+    item-index lists. ML-20M's full user×item matrix is ~9 GB dense, so
+    rows stay sparse on host and only each (batch, num_items) slab is
+    materialized. Reshuffles each epoch; drops the partial tail batch."""
+
+    synthetic = False
+
+    def __init__(self, rows: Sequence[np.ndarray], num_items: int,
+                 batch_size: int, seed: int = 0):
+        if len(rows) < batch_size:
+            raise ValueError(
+                f"dataset has {len(rows)} rows < batch_size {batch_size}")
+        self._rows = rows
+        self._num_items = num_items
+        self._bs = batch_size
+        self._rng = np.random.RandomState(seed)
+
+    def __len__(self):
+        return len(self._rows) // self._bs
+
+    def __iter__(self):
+        order = self._rng.permutation(len(self._rows))
+        for i in range(len(self)):
+            batch = np.zeros((self._bs, self._num_items), np.float32)
+            for j, r in enumerate(order[i * self._bs:(i + 1) * self._bs]):
+                batch[j, self._rows[r]] = 1.0
+            yield (batch,)
+
+
+def _load_cifar10(data_dir: str) -> Optional[tuple]:
+    """Read CIFAR-10 from `data_dir`: either the standard pickled python
+    batches (cifar-10-batches-py/data_batch_*) or a cifar10.npz with
+    images/labels arrays. Returns (images NHWC float32 in [0,1], labels
+    int32) or None when absent."""
+    batch_dir = None
+    for cand in (data_dir, os.path.join(data_dir, "cifar-10-batches-py")):
+        if os.path.exists(os.path.join(cand, "data_batch_1")):
+            batch_dir = cand
+            break
+    if batch_dir is not None:
+        images, labels = [], []
+        for i in range(1, 6):
+            with open(os.path.join(batch_dir, f"data_batch_{i}"), "rb") as f:
+                d = pickle.load(f, encoding="bytes")
+            images.append(np.asarray(d[b"data"], np.uint8))
+            labels.append(np.asarray(d[b"labels"], np.int64))
+        x = np.concatenate(images).reshape(-1, 3, 32, 32)
+        x = x.transpose(0, 2, 3, 1).astype(np.float32) / 255.0
+        y = np.concatenate(labels).astype(np.int32)
+        return x, y
+    npz = os.path.join(data_dir, "cifar10.npz")
+    if os.path.exists(npz):
+        d = np.load(npz)
+        x = np.asarray(d["images"], np.float32)
+        if x.max() > 1.5:
+            x = x / 255.0
+        return x, np.asarray(d["labels"], np.int32)
+    return None
+
+
+def cifar10(batch_size: int, data_dir: Optional[str] = None,
+            dataset_size: int = 50000, seed: int = 0):
+    if data_dir:
+        real = _load_cifar10(data_dir)
+        if real is not None and real[0].shape[0] >= batch_size:
+            return ArrayBatches(real, batch_size, seed)
+
+    def make(rng):
+        return (rng.rand(batch_size, 32, 32, 3).astype(np.float32),
+                rng.randint(0, 10, size=(batch_size,)).astype(np.int32))
+    return SyntheticBatches(make, dataset_size // batch_size, seed)
+
+
+class LazyImageFolderBatches:
+    """ImageFolder-style epochs decoded lazily per batch: train/<class>/
+    image files, label = class-dir index. The full dataset never sits in
+    RAM (ImageNet is ~150 GB decoded) — only each (batch, size, size, 3)
+    slab, matching the torchvision ImageFolder+DataLoader behavior the
+    reference relies on. Shuffles each epoch; drops the partial tail."""
+
+    synthetic = False
+
+    def __init__(self, files: Sequence[str], labels: np.ndarray,
+                 batch_size: int, image_size: int = 224, seed: int = 0):
+        if len(files) < batch_size:
+            raise ValueError(
+                f"dataset has {len(files)} images < batch_size {batch_size}")
+        self._files = files
+        self._labels = labels
+        self._bs = batch_size
+        self._size = image_size
+        self._rng = np.random.RandomState(seed)
+
+    def __len__(self):
+        return len(self._files) // self._bs
+
+    def __iter__(self):
+        order = self._rng.permutation(len(self._files))
+        for i in range(len(self)):
+            idx = order[i * self._bs:(i + 1) * self._bs]
+            batch = np.empty((self._bs, self._size, self._size, 3),
+                             np.float32)
+            for j, r in enumerate(idx):
+                batch[j] = _decode_image(self._files[r], self._size,
+                                         255.0, 0.0)
+            yield batch, self._labels[idx].astype(np.int32)
+
+
+def _scan_image_folder(data_dir: str) -> Optional[tuple]:
+    """(files, labels) from a train/<class>/* tree (or <class>/* directly
+    under data_dir). Returns None when no class dirs with images exist."""
+    try:
+        from PIL import Image  # noqa: F401 - decoding needs PIL later
+    except ImportError:
+        return None
+    exts = (".jpg", ".jpeg", ".png", ".bmp")
+    for root in (os.path.join(data_dir, "train"), data_dir):
+        if not os.path.isdir(root):
+            continue
+        classes = sorted(d for d in os.listdir(root)
+                         if os.path.isdir(os.path.join(root, d)))
+        files, labels = [], []
+        for ci, cls in enumerate(classes):
+            cdir = os.path.join(root, cls)
+            for name in sorted(os.listdir(cdir)):
+                if name.lower().endswith(exts):
+                    files.append(os.path.join(cdir, name))
+                    labels.append(ci)
+        if files:
+            return files, np.asarray(labels, np.int64)
+    return None
+
+
+def imagenet(batch_size: int, dataset_size: int = 100000, seed: int = 0,
+             data_dir: Optional[str] = None):
+    if data_dir:
+        scanned = _scan_image_folder(data_dir)
+        if scanned is not None and len(scanned[0]) >= batch_size:
+            return LazyImageFolderBatches(scanned[0], scanned[1], batch_size,
+                                          seed=seed)
+
+    def make(rng):
+        return (rng.rand(batch_size, 224, 224, 3).astype(np.float32),
+                rng.randint(0, 1000, size=(batch_size,)).astype(np.int32))
+    return SyntheticBatches(make, dataset_size // batch_size, seed)
 
 
 PAD, BOS, EOS, UNK = 0, 1, 2, 3
@@ -131,4 +303,104 @@ def multi30k(batch_size: int, src_len: int = 32, tgt_len: int = 32,
         src = rng.randint(1, vocab, size=(batch_size, src_len)).astype(np.int32)
         tgt = rng.randint(1, vocab, size=(batch_size, tgt_len)).astype(np.int32)
         return src, tgt
+    return SyntheticBatches(make, dataset_size // batch_size, seed)
+
+
+def _load_wikitext2(data_dir: str, seq_len: int,
+                    vocab_cap: int) -> Optional[tuple]:
+    """Read wikitext-2 word-level LM windows from `data_dir`
+    (wiki.train.tokens or train.txt). Builds a frequency-ranked vocab
+    capped at `vocab_cap` (rarer words -> <unk>=0) and slices the token
+    stream into (seq_len + 1)-long windows, reference-style batchify
+    (word_language_model/data.py)."""
+    path = None
+    for cand in ("wiki.train.tokens", "train.txt",
+                 os.path.join("wikitext-2", "wiki.train.tokens")):
+        full = os.path.join(data_dir, cand)
+        if os.path.exists(full):
+            path = full
+            break
+    if path is None:
+        return None
+    with open(path, encoding="utf-8") as f:
+        words = f.read().split()
+    uniq, counts = np.unique(np.asarray(words), return_counts=True)
+    keep = uniq[np.argsort(-counts, kind="stable")][: vocab_cap - 1]
+    ids = {w: i + 1 for i, w in enumerate(keep)}  # 0 = <unk>
+    stream = np.fromiter((ids.get(w, 0) for w in words), np.int32,
+                         count=len(words))
+    n_windows = (len(stream) - 1) // (seq_len + 1)
+    if n_windows == 0:
+        return None
+    windows = stream[: n_windows * (seq_len + 1)].reshape(
+        n_windows, seq_len + 1)
+    return (windows[:, :-1], windows[:, 1:])
+
+
+def wikitext2(batch_size: int, seq_len: int = 35, vocab: int = 33278,
+              dataset_size: int = 59675, seed: int = 0,
+              data_dir: Optional[str] = None):
+    if data_dir:
+        real = _load_wikitext2(data_dir, seq_len, vocab)
+        if real is not None and real[0].shape[0] >= batch_size:
+            return ArrayBatches(real, batch_size, seed)
+
+    def make(rng):
+        tokens = rng.randint(1, vocab, size=(batch_size, seq_len + 1)).astype(np.int32)
+        return tokens[:, :-1], tokens[:, 1:]
+    return SyntheticBatches(make, dataset_size // batch_size, seed)
+
+
+def _load_ml20m(data_dir: str, num_items: int) -> Optional[list]:
+    """Read the VAE-CF pro_sg interaction list: train.csv with a header
+    and (uid, sid) integer rows. Items are frequency-ranked and capped at
+    `num_items` (the model's output width); returns one sorted item-id
+    array per user."""
+    path = None
+    for cand in (data_dir, os.path.join(data_dir, "pro_sg"),
+                 os.path.join(data_dir, "ml-20m", "pro_sg")):
+        full = os.path.join(cand, "train.csv")
+        if os.path.exists(full):
+            path = full
+            break
+    if path is None:
+        return None
+    try:
+        # The real file is ~10M rows; np.loadtxt's C tokenizer parses it
+        # in seconds, where genfromtxt's python loop takes minutes — and
+        # jobs re-pay loader startup on every lease re-dispatch.
+        pairs = np.loadtxt(path, delimiter=",", skiprows=1, dtype=np.int64,
+                           usecols=(0, 1), ndmin=2)
+    except Exception:  # noqa: BLE001 - malformed file -> synthetic fallback
+        return None
+    if pairs.shape[0] == 0:
+        return None
+    uids, sids = pairs[:, 0], pairs[:, 1]
+    # Frequency-rank items so the cap keeps the most-interacted ones.
+    uniq, inverse, counts = np.unique(sids, return_inverse=True,
+                                      return_counts=True)
+    rank = np.empty(len(uniq), np.int64)
+    rank[np.argsort(-counts, kind="stable")] = np.arange(len(uniq))
+    new_sid = rank[inverse]
+    keep = new_sid < num_items
+    uids, new_sid = uids[keep], new_sid[keep]
+    order = np.argsort(uids, kind="stable")
+    uids, new_sid = uids[order], new_sid[order]
+    bounds = np.searchsorted(uids, np.unique(uids))
+    rows = [np.sort(chunk.astype(np.int32))
+            for chunk in np.split(new_sid, bounds[1:])]
+    return [r for r in rows if r.size]
+
+
+def ml20m(batch_size: int, num_items: int = 20108, dataset_size: int = 117907,
+          seed: int = 0, data_dir: Optional[str] = None):
+    if data_dir:
+        rows = _load_ml20m(data_dir, num_items)
+        if rows is not None and len(rows) >= batch_size:
+            return SparseRowBatches(rows, num_items, batch_size, seed)
+
+    def make(rng):
+        # ~1% interaction density multi-hot rows.
+        rows = (rng.rand(batch_size, num_items) < 0.01).astype(np.float32)
+        return (rows,)
     return SyntheticBatches(make, dataset_size // batch_size, seed)

@@ -11,12 +11,20 @@ the lease expires and reconciles a checkpoint that is already at budget.
 PyTorch runs eagerly, so there is no jit'd step: one `train_step` runs
 forward, backward and `torch.optim.SGD(lr, momentum=0.9)`, which matches
 `optax.sgd(lr, momentum=0.9)` (both start the momentum trace at the first
-gradient). Its metrics (`loss`, `grad_norm_sq`) stay on the device; the
-host waits for the device only at each throughput interval and at exit.
+gradient). Its metrics (`loss`, `grad_norm_sq`, and in `gns` mode
+`grad_norm_sq_small`) stay on the device; the host waits for the device
+only at each throughput interval, where a monitor needs its norms, and at
+exit.
 
-Not ported yet, each raising NotImplementedError that names its
-ROADMAP.md item: gangs (`--num_processes > 1`) and the Accordion/GNS
-adaptation monitors (`SWTPU_MODE`).
+The dynamic-adaptation monitors (`SWTPU_MODE` accordion or gns) are the
+reference's `AccordionMonitor` and `GNSMonitor` with the same arithmetic.
+They hold the per-step norms as device scalars and read them, in step
+order, only where their rule needs the values (Accordion at an epoch's
+end, GNS once its window is full and its two batch sizes differ), so the
+host sums are the same float64 sums of the same f32 values.
+
+Not ported yet, raising NotImplementedError that names its ROADMAP.md
+item: gangs (`--num_processes > 1`).
 """
 from __future__ import annotations
 
@@ -28,14 +36,14 @@ import signal
 import sys
 import tempfile
 import time
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
+import numpy as np
 import torch
 
 THROUGHPUT_LOG_INTERVAL = 100
 
 _GANG_ITEM = "ROADMAP.md Queue 1, item 4 (gangs over torch.distributed)"
-_MONITOR_ITEM = "ROADMAP.md Queue 1, item 4 (the Accordion/GNS monitors)"
 
 
 def common_parser(description: str, steps_args=("--num_steps",)) -> argparse.ArgumentParser:
@@ -74,11 +82,17 @@ def parse_args(parser: argparse.ArgumentParser, argv=None):
 
 
 def resolve_device(name: str) -> torch.device:
-    """The device a run asked for; `cuda` without a card raises."""
+    """The device a run asked for; `cuda` without a card raises. On the
+    card TF32 is turned off for cuBLAS and cuDNN: the JAX package's f32
+    products (tied logits, the LSTM, f32 dense heads) are full f32, and
+    PyTorch's `cudnn.allow_tf32` defaults to True."""
     device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda was asked for but no CUDA device "
-                           "is available (pass --device cpu to run on the CPU)")
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("--device cuda was asked for but no CUDA device "
+                               "is available (pass --device cpu to run on the CPU)")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
     return device
 
 
@@ -86,6 +100,14 @@ def sync(device: torch.device) -> None:
     """Wait for the device's queued work (a no-op on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def upload(array, device: torch.device) -> torch.Tensor:
+    """One host batch array on `device`: integers (tokens, labels) as
+    int64, floats (images, multi-hot rows) as float32."""
+    tensor = torch.as_tensor(array)
+    tensor = tensor.float() if tensor.is_floating_point() else tensor.long()
+    return tensor.to(device)
 
 
 def checkpoint_path(checkpoint_dir: str) -> str:
@@ -152,20 +174,134 @@ def load_checkpoint(path: str, device: torch.device) -> Optional[dict]:
     return None
 
 
+def _host_floats(values: Sequence) -> list:
+    """Python floats of per-step norms, in order: device scalars are read
+    with one transfer, numbers are taken as they are."""
+    if values and isinstance(values[0], torch.Tensor):
+        return torch.stack(list(values)).tolist()
+    return [float(v) for v in values]
+
+
+class AccordionMonitor:
+    """Critical-regime detector (Agarwal et al.): compares successive
+    epochs' accumulated gradient norms; a large relative swing means the
+    gradient is changing fast -> critical regime -> train at the small
+    batch size (the reference's `AccordionMonitor`, same arithmetic).
+
+    The process only knows the batch size it was launched with; the
+    scheduler owns the original/max sizes and applies the actual rescale
+    on the next dispatch. `observe_step` keeps the norm as it comes (a
+    device scalar stays on the device); `end_epoch` reads the epoch's
+    norms and sums them in step order, as the reference's per-step
+    `float()` accumulation does."""
+
+    def __init__(self, iterator, launch_bs: int, max_bs: int,
+                 threshold: float = 0.5):
+        self._iterator = iterator
+        self._launch_bs = launch_bs
+        self._max_bs = max_bs
+        self._threshold = threshold
+        self._norms: list = []
+        self.epoch_norms: list = []  # each finished epoch's mean norm
+
+    def observe_step(self, grad_norm):
+        self._norms.append(grad_norm)
+
+    def end_epoch(self) -> bool:
+        """Returns True if a resize request was issued (job must exit)."""
+        if not self._norms:
+            return False
+        accum = 0.0
+        for norm in _host_floats(self._norms):
+            accum += norm
+        epoch_norm = accum / len(self._norms)
+        self._norms = []
+        prev = self.epoch_norms[-1] if self.epoch_norms else None
+        self.epoch_norms.append(epoch_norm)
+        if prev is None:
+            return False
+        ratio = abs(prev - epoch_norm) / max(prev, 1e-12)
+        in_critical = ratio > self._threshold
+        if in_critical and self._launch_bs >= self._max_bs:
+            self._iterator.update_resource_requirement(big_bs=False, small_bs=True)
+            return True
+        if not in_critical and self._launch_bs < self._max_bs:
+            self._iterator.update_resource_requirement(big_bs=True, small_bs=False)
+            return True
+        return False
+
+
+class GNSMonitor:
+    """Gradient-noise-scale estimator (McCandlish et al.): compares the
+    gradient norm at a small (per-device) batch vs the full global batch
+    to estimate the noise scale B_noise = S / |G|^2; when the running
+    noise scale clears the current batch size, request a doubling (the
+    reference's `GNSMonitor`, same arithmetic). The window holds the
+    norms as they come and is read only when the estimate is made."""
+
+    def __init__(self, iterator, small_bs: int, big_bs: int, max_bs: int,
+                 window: int = 50):
+        self._iterator = iterator
+        self._b_small = small_bs
+        self._b_big = big_bs
+        self._max_bs = max_bs
+        self._window = window
+        self._small_sq: list = []
+        self._big_sq: list = []
+
+    def observe_step(self, small_norm_sq, big_norm_sq):
+        self._small_sq.append(small_norm_sq)
+        self._big_sq.append(big_norm_sq)
+        if len(self._small_sq) > self._window:
+            self._small_sq.pop(0)
+            self._big_sq.pop(0)
+
+    def maybe_request_double(self, current_bs: int) -> bool:
+        if len(self._small_sq) < self._window or self._b_big == self._b_small:
+            return False
+        small = float(np.mean(_host_floats(self._small_sq)))
+        big = float(np.mean(_host_floats(self._big_sq)))
+        # Unbiased |G|^2 and trace(Sigma) estimates from two batch sizes.
+        g2 = (self._b_big * big - self._b_small * small) / (self._b_big - self._b_small)
+        s = (small - big) / (1.0 / self._b_small - 1.0 / self._b_big)
+        if g2 <= 0:
+            return False
+        noise_scale = s / g2
+        if noise_scale > current_bs and current_bs < self._max_bs:
+            self._iterator.update_resource_requirement(big_bs=True, small_bs=False)
+            return True
+        return False
+
+
 class Trainer:
     """Drives the standard training loop for one workload.
 
     `loss_fn(model, *batch)` returns `(loss, aux)`. The model is moved to
     `device`; batches (numpy) are uploaded once per distinct host batch.
+    `mode` (default `SWTPU_MODE`, else static) selects the adaptation
+    monitor; `initial_bs` is the batch size the job was launched with and
+    `max_bs` its family's largest. `n_dev` is the size of the job's
+    data-parallel group, whose per-device slice of the batch is GNS's
+    small batch: 1 on one card.
+
+    In `gns` mode with `n_dev == 1` the small batch is the whole batch, so
+    `train_step` reports `grad_norm_sq` as `grad_norm_sq_small` instead of
+    running a second backward pass over the same rows (an intended
+    divergence from the reference, which runs it): `GNSMonitor` returns
+    before it reads a norm when its two batch sizes are equal, so no
+    request can change.
     """
 
     def __init__(self, args, loss_fn: Callable, model: torch.nn.Module,
-                 data_loader, device: torch.device, learning_rate: float = 1e-2):
+                 data_loader, device: torch.device, learning_rate: float = 1e-2,
+                 mode: Optional[str] = None, initial_bs: Optional[int] = None,
+                 max_bs: Optional[int] = None, n_dev: int = 1):
         self.args = args
-        mode = os.environ.get("SWTPU_MODE", "static")
-        if mode != "static":
-            raise NotImplementedError(
-                f"SWTPU_MODE={mode} is not ported yet: {_MONITOR_ITEM}")
+        self.mode = mode or os.environ.get("SWTPU_MODE", "static")
+        self.initial_bs = initial_bs
+        self.max_bs = max_bs or initial_bs
+        self.n_dev = n_dev
+        self.monitor = None  # the adaptation monitor of the last run()
         self.device = device
         self.model = model.to(device)
         self.optimizer = torch.optim.SGD(self.model.parameters(),
@@ -186,9 +322,30 @@ class Trainer:
         loss.backward()
         grads = [p.grad for p in self.model.parameters() if p.grad is not None]
         grad_norm_sq = torch.nn.utils.get_total_norm(grads) ** 2
+        metrics = {"loss": loss.detach(), "grad_norm_sq": grad_norm_sq}
+        if self.mode == "gns":
+            metrics["grad_norm_sq_small"] = self._small_grad_norm_sq(batch, grad_norm_sq)
         self.optimizer.step()
         self.step += 1
-        return {"loss": loss.detach(), "grad_norm_sq": grad_norm_sq}
+        return metrics
+
+    def _small_grad_norm_sq(self, batch, grad_norm_sq):
+        """Squared global gradient norm over the first max(1, B // n_dev)
+        rows of each batch tensor, at the step's parameters. Running
+        statistics (BatchNorm's buffers) keep the full batch's update, as
+        the reference keeps the full batch's `batch_stats`."""
+        small = tuple(b[: max(1, b.shape[0] // self.n_dev)] for b in batch)
+        if all(s.shape[0] == b.shape[0] for s, b in zip(small, batch)):
+            return grad_norm_sq  # the same rows: see the class docstring
+        saved = [b.clone() for b in self.model.buffers()]
+        params = [p for p in self.model.parameters() if p.requires_grad]
+        loss, _ = self._loss_fn(self.model, *small)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        with torch.no_grad():
+            for buf, value in zip(self.model.buffers(), saved):
+                buf.copy_(value)
+        return torch.nn.utils.get_total_norm(
+            [g for g in grads if g is not None]) ** 2
 
     def state(self) -> dict:
         return {"params": self.model.state_dict(),
@@ -198,9 +355,6 @@ class Trainer:
         self.model.load_state_dict(state["params"])
         self.optimizer.load_state_dict(state["opt_state"])
         self.step = int(state["step"])
-
-    def _upload(self, batch):
-        return tuple(torch.as_tensor(b, device=self.device).long() for b in batch)
 
     def run(self) -> int:
         args = self.args
@@ -230,6 +384,14 @@ class Trainer:
             # dropped despite being fully trained.
             iterator.report_checkpoint_ahead()
 
+        monitor = None
+        if self.mode == "accordion" and self.initial_bs:
+            monitor = AccordionMonitor(iterator, self.initial_bs, self.max_bs)
+        elif self.mode == "gns" and self.initial_bs:
+            monitor = GNSMonitor(iterator, max(1, self.initial_bs // self.n_dev),
+                                 self.initial_bs, self.max_bs)
+        self.monitor = monitor
+
         steps_done = 0
         window_steps = 0
         # Synthetic pipelines yield the same host batch object every step;
@@ -239,10 +401,11 @@ class Trainer:
         try:
             while not iterator.done and (budget is None
                                          or start_step + steps_done < budget):
+                epoch_resized = False
                 for batch in iterator:
                     if batch is not host_batch_ref:
                         host_batch_ref = batch
-                        dev_batch = self._upload(batch)
+                        dev_batch = tuple(upload(b, self.device) for b in batch)
                     metrics = self.train_step(*dev_batch)
                     if use_lease:
                         iterator.set_sync_ref(metrics["loss"])
@@ -251,6 +414,14 @@ class Trainer:
                     self.last_metrics = metrics
                     steps_done += 1
                     window_steps += 1
+                    if isinstance(monitor, AccordionMonitor):
+                        monitor.observe_step(torch.sqrt(metrics["grad_norm_sq"]))
+                    elif monitor is not None:
+                        monitor.observe_step(metrics["grad_norm_sq_small"],
+                                             metrics["grad_norm_sq"])
+                        if monitor.maybe_request_double(self.initial_bs):
+                            epoch_resized = True
+                            break
                     if window_steps >= args.throughput_estimation_interval:
                         sync(self.device)
                         now = time.time()
@@ -261,6 +432,11 @@ class Trainer:
                     if budget is not None and start_step + steps_done >= budget:
                         iterator.complete()
                         break
+                if (isinstance(monitor, AccordionMonitor) and not iterator.done
+                        and not epoch_resized):
+                    epoch_resized = monitor.end_epoch()
+                if epoch_resized:
+                    break
                 if not use_lease and (budget is None
                                       or start_step + steps_done >= budget):
                     break
@@ -297,4 +473,7 @@ class _PlainIterator:
         return iter(self._loader)
 
     def complete(self):
+        self.done = True
+
+    def update_resource_requirement(self, big_bs, small_bs):
         self.done = True

@@ -37,6 +37,12 @@ from ..ops.flash_attention import flash_attention
 _TRUNC_STD = 0.87962566103423978
 
 
+def lecun_normal_(weight: torch.Tensor, fan_in: int, generator) -> None:
+    """flax's lecun_normal: truncated normal with variance 1 / fan_in."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std, generator=generator)
+
+
 def sinusoidal_positions(length: int, dim: int) -> np.ndarray:
     pos = np.arange(length)[:, None]
     div = np.exp(np.arange(0, dim, 2) / dim * -np.log(10000.0))
@@ -187,9 +193,7 @@ class Seq2SeqTransformer(nn.Module):
         call before moving the module to its device)."""
         for module in self.modules():
             if isinstance(module, nn.Linear):
-                std = math.sqrt(1.0 / module.in_features) / _TRUNC_STD
-                nn.init.trunc_normal_(module.weight, std=std, a=-2 * std,
-                                      b=2 * std, generator=generator)
+                lecun_normal_(module.weight, module.in_features, generator)
                 nn.init.zeros_(module.bias)
             elif isinstance(module, LayerNorm):
                 nn.init.ones_(module.weight)

@@ -315,3 +315,9 @@ class IteratorToSchedulerClient:
             max_duration=max_duration,
             measured_reports=list(measured_reports or [])))
         return r.max_steps, r.max_duration, r.run_time_so_far, r.deadline
+
+    def update_resource_requirement(self, big_bs: bool, small_bs: bool) -> None:
+        self._call("UpdateResourceRequirement",
+                   pb.UpdateResourceRequirementRequest(
+                       job_id=self._job_id, worker_id=self._worker_id,
+                       big_bs=big_bs, small_bs=small_bs))

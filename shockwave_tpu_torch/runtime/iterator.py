@@ -31,10 +31,7 @@ reference's.
   ported: a run with SWTPU_SPAN_SHARD_DIR set is refused.
 - Checkpointing is delegated to caller functions.
 - Cut to what the port's jobs use: the final `[PROGRESS]` lines are
-  always written at close (the reference's default `write_on_close`),
-  and the batch-size change request (`update_resource_requirement`,
-  called only by the Accordion/GNS monitors, which the port refuses
-  with SWTPU_MODE) comes with those monitors.
+  always written at close (the reference's default `write_on_close`).
 
 Environment contract (set by the dispatcher):
   SWTPU_JOB_ID, SWTPU_WORKER_ID, SWTPU_ROUND_ID, SWTPU_SCHED_ADDR,
@@ -320,6 +317,12 @@ class LeaseIterator:
         self._logger.info(
             "checkpoint already at budget; reporting granted remainder %d",
             self._steps, extra={"event": "LEASE", "status": "CKPT_AHEAD"})
+
+    def update_resource_requirement(self, big_bs: bool, small_bs: bool) -> None:
+        """Report a batch-size change request; the job must checkpoint and
+        exit."""
+        self._done = True
+        self._rpc.update_resource_requirement(big_bs, small_bs)
 
     def load_checkpoint(self, *args, **kwargs):
         self._logger.info("", extra={"event": "LOAD CHECKPOINT", "status": "BEGIN"})

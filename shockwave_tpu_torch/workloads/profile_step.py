@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
-"""Where a training step of the translation trainer spends its time on the card.
+"""Where a training step of one workload spends its time on the card.
 
-    python3 -m shockwave_tpu_torch.workloads.translation.profile_step [--steps 5]
+    python3 -m shockwave_tpu_torch.workloads.profile_step \
+        [--family translation|lm|recommendation|cifar10|imagenet] \
+        [--batch_size N] [--steps 5]
 
-Builds the full-width trainer through `train.main` (dim 512, 8 heads,
-6 + 6 layers, batch 64, flash on) and lets it take `--warmup` steps.
-Then, on the same batch:
+Builds the family's full-width trainer through its main (the translation
+Transformer at batch 64 with flash on by default; the other families at
+their largest batch, `MAX_BS`) and lets it take `--warmup` steps. Then,
+on the same batch:
 
 - `--steps` steps timed on the host clock between two synchronisations,
   with the profiler off (`ms_per_step`);
@@ -17,6 +20,7 @@ Then, on the same batch:
 Prints one JSON line. Runs on the card only.
 """
 import argparse
+import importlib
 import json
 import os
 import shutil
@@ -24,16 +28,31 @@ import sys
 import tempfile
 import time
 
-sys.path.insert(0, os.path.join(os.path.dirname(__file__), *[".."] * 3))
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), *[".."] * 2))
 
 import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 
-from shockwave_tpu_torch.workloads.translation import train  # noqa: E402
+from shockwave_tpu_torch.models.train_common import upload  # noqa: E402
+
+# family: (main module, default batch, argv before the steps' count)
+FAMILIES = {
+    "translation": ("translation.train", 64,
+                    lambda b: ["-batch_size", b, "-proj_share_weight", "--use_flash", "-step"]),
+    "lm": ("language_modeling.main", 80, lambda b: ["--cuda", "--batch_size", b, "--steps"]),
+    "recommendation": ("recommendation.train", 8192, lambda b: ["--batch_size", b, "-n"]),
+    "cifar10": ("image_classification.cifar10.main", 256,
+                lambda b: ["--batch_size", b, "--num_steps"]),
+    "imagenet": ("image_classification.imagenet.main", 128,
+                 lambda b: ["-b", b, "--num_minibatches"]),
+}
 
 # Kernel groups, by a piece of the kernel's name (first match wins).
 GROUPS = (("flash_fwd", ("flash_fwd_kernel",)), ("flash_dq", ("flash_dq_kernel",)),
           ("flash_dkv", ("flash_dkv_kernel",)),
+          ("conv", ("fprop", "dgrad", "wgrad", "conv")),
+          ("batch_norm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw")),
+          ("lstm", ("lstm", "rnn")),
           ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "cublas", "sm90_")),
           ("optimizer", ("multi_tensor", "foreach")),
           ("softmax_and_loss", ("softmax", "nll", "cross_entropy", "log_softmax")),
@@ -60,23 +79,26 @@ def union_us(intervals):
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--family", choices=sorted(FAMILIES), default="translation")
+    p.add_argument("--batch_size", type=int, default=None)
     p.add_argument("--steps", type=int, default=5)
     p.add_argument("--warmup", type=int, default=10)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_step runs on the CUDA card only")
 
+    module, default_batch, head = FAMILIES[args.family]
+    batch_size = args.batch_size or default_batch
+    main_module = importlib.import_module(f"shockwave_tpu_torch.workloads.{module}")
     ckpt = tempfile.mkdtemp(prefix="swt_profile_")
     try:
-        trainer = train.main(["-batch_size", "64", "-step", str(args.warmup),
-                              "-proj_share_weight", "--use_flash",
-                              "--checkpoint_dir", ckpt,
-                              "--throughput_estimation_interval", str(10**9)])
+        trainer = main_module.main(head(str(batch_size)) + [
+            str(args.warmup), "--checkpoint_dir", ckpt,
+            "--throughput_estimation_interval", str(10**9)])
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     device = trainer.device
-    batch = tuple(torch.as_tensor(b, device=device).long()
-                  for b in next(iter(trainer.data_loader)))
+    batch = tuple(upload(b, device) for b in next(iter(trainer.data_loader)))
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -110,6 +132,7 @@ def main(argv=None) -> int:
     busy_ms = union_us(intervals) / 1e3
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:10]
     print(json.dumps({
+        "family": args.family, "batch_size": batch_size,
         "device": torch.cuda.get_device_name(0), "steps": args.steps,
         "ms_per_step": ms_per_step, "profiled_ms_per_step": window_ms / args.steps,
         "device_busy_ms_per_step": busy_ms / args.steps,

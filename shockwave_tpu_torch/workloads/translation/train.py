@@ -44,20 +44,15 @@ def main(argv=None):
                    help="fused CUDA attention (default: on for the card; "
                         "--no-use_flash forces the einsum path)")
     args = parse_args(p, argv)
-    device = resolve_device(args.device)
-    if device.type == "cuda":
-        # The tied logits are an f32 product against the f32 embedding, as
-        # in the JAX package: keep them in full f32, not TF32.
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-
+    device = resolve_device(args.device)  # on the card: TF32 off
     use_flash = (device.type == "cuda") if args.use_flash is None else args.use_flash
     model = Seq2SeqTransformer(use_flash=use_flash,
                                generator=torch.Generator().manual_seed(0))
     trainer = Trainer(
         args, loss_fn, model,
         data.multi30k(args.batch_size, tgt_len=33, data_dir=args.data),
-        device=device, learning_rate=1e-3)
+        device=device, learning_rate=1e-3, initial_bs=args.batch_size,
+        max_bs=128)
     trainer.run()
     return trainer
 

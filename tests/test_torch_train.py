@@ -188,7 +188,6 @@ def test_cuda_without_a_card_raises(monkeypatch):
 @pytest.mark.parametrize("argv,env", [
     (["--enable_lease_iterator"], {"SWTPU_SPAN_SHARD_DIR": "spans"}),
     (["--num_processes", "2", "--process_id", "0"], {}),
-    ([], {"SWTPU_MODE": "accordion"}),
 ])
 def test_unported_paths_raise(argv, env, monkeypatch, tmp_path):
     monkeypatch.setattr(train, "Seq2SeqTransformer", SMALL)
@@ -197,6 +196,79 @@ def test_unported_paths_raise(argv, env, monkeypatch, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         train.main(["-step", "1", "--device", "cpu",
                     "--checkpoint_dir", str(tmp_path)] + argv)
+
+
+def record_monitor(monkeypatch, cls, **init_kwargs):
+    """Patches `cls` (and the lease-free iterator) to record each observed
+    norm as the host reads it, each epoch end, each request and the
+    monitor's arguments; `init_kwargs` override its own."""
+    rec = types.SimpleNamespace(events=[], requests=[], args=None)
+    init, observe = cls.__init__, cls.observe_step
+
+    def recording_init(self, iterator, *args, **kwargs):
+        rec.args = args
+        init(self, iterator, *args, **{**kwargs, **init_kwargs})
+
+    def recording_observe(self, *norms):
+        rec.events.append(tuple(float(n) for n in norms))
+        observe(self, *norms)
+
+    monkeypatch.setattr(cls, "__init__", recording_init)
+    monkeypatch.setattr(cls, "observe_step", recording_observe)
+    if cls is train_common.AccordionMonitor:
+        end_epoch = cls.end_epoch
+        monkeypatch.setattr(cls, "end_epoch",
+                            lambda self: rec.events.append("epoch") or end_epoch(self))
+    request = train_common._PlainIterator.update_resource_requirement
+    monkeypatch.setattr(train_common._PlainIterator, "update_resource_requirement",
+                        lambda self, big_bs, small_bs: rec.requests.append((big_bs, small_bs))
+                        or request(self, big_bs, small_bs))
+    return rec
+
+
+@pytest.mark.parametrize("mode", ["accordion", "gns"])
+def test_main_adapts_as_the_reference_does(mode, tmp_path, monkeypatch, capsys):
+    """The translation main trains in `accordion` and `gns` mode (batch
+    4, two-step epochs) and its monitor's requests are the reference
+    monitor's on the same norms. The port trains on one device, so its
+    GNS small batch is the whole batch; with n_dev = 2 the two sizes
+    differ and the estimator runs (a window of 3)."""
+    from shockwave_tpu.models import train_common as ref
+    monkeypatch.setattr(train, "Seq2SeqTransformer", SMALL)
+    monkeypatch.setenv("SWTPU_MODE", mode)
+    monkeypatch.setenv("SWTPU_SYNTH_EPOCH_BATCHES", "2")
+    if mode == "accordion":
+        rec = record_monitor(monkeypatch, train_common.AccordionMonitor)
+    else:
+        rec = record_monitor(monkeypatch, train_common.GNSMonitor, window=3)
+        monkeypatch.setattr(train, "Trainer", functools.partial(train_common.Trainer, n_dev=2))
+    trainer = train.main(["-batch_size", "4", "-step", "8", "--device", "cpu",
+                          "--checkpoint_dir", str(tmp_path)])
+    steps = sum(1 for e in rec.events if e != "epoch")
+    assert f"TRAINED {steps} steps" in capsys.readouterr().out
+    assert steps > 0 and trainer.initial_bs == 4 and trainer.max_bs == 128
+
+    ref_iterator = types.SimpleNamespace(requests=[])
+    ref_iterator.update_resource_requirement = (
+        lambda big_bs, small_bs: ref_iterator.requests.append((big_bs, small_bs)))
+    if mode == "accordion":
+        monitor = ref.AccordionMonitor(ref_iterator, *rec.args)
+        for event in rec.events:
+            if event == "epoch":
+                monitor.end_epoch()
+            else:
+                monitor.observe_step(*event)
+    else:
+        assert rec.args[:2] == (2, 4)  # (small, big) batch sizes
+        assert "grad_norm_sq_small" in trainer.last_metrics
+        monitor = ref.GNSMonitor(ref_iterator, *rec.args, window=3)
+        for event in rec.events:
+            monitor.observe_step(*event)
+            if monitor.maybe_request_double(4):
+                break
+    assert rec.requests == ref_iterator.requests
+    if mode == "accordion":  # two stable epochs at 4 < 128: the big batch
+        assert rec.requests == [(True, False)] and trainer.step == 4
 
 
 def test_main_trains_under_a_lease(tmp_path, monkeypatch, capsys):
