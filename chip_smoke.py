@@ -61,10 +61,26 @@ Phases, in order; any failure exits non-zero and prints no result:
    grant. Then one dispatch in `gns` mode, past GNS's 50-step window,
    must train and issue no request (on one card the small batch is the
    whole batch).
+8. profile: the profilers of `shockwave_tpu_torch/profiling/`. First
+   `bench_gpu`'s long path: the full-width flagship with flash on at
+   batch 4 x T 2048 under Adam, timed by two-point marginal timing, with
+   the launch counters set to 0 just before and read just after: each
+   kernel must launch exactly 18 times per step run (the encoder's
+   key-padded self-attention, the decoder's causal self-attention and
+   the cross-attention, in the kernels' 64-wide tile), and the loss must
+   be finite and fall; steps/s, FLOPs per step (counted with flash off)
+   and MFU against the card's bf16 peak. Then one forward of the flash
+   model against the einsum path with the same weights, on sources
+   padded at ragged lengths, so that the key-padded tile-64 path runs.
+   Then `measure_throughput --only` with one row per ported family into
+   a temporary oracle file: every rate must be > 0 and the port's
+   `core/oracle.read_throughputs` must read the file back. Then
+   `measure_startup` for one job type with one measured run: its
+   dispatch overhead must be > 0.
 
 Output: `device:`, `build:`, `ptxas:`, `spills:` and `occupancy:`
 lines, one `kernel_case:` JSON line per shape, `slice:`, `lease:`,
-`families:` and `adapt:` lines, then the `{"kernels": [...]}` line (with the main case's forward + backward
+`families:`, `adapt:` and `profile:` lines, then the `{"kernels": [...]}` line (with the main case's forward + backward
 through the port's autograd path and through
 `scaled_dot_product_attention`), the `nvidia-smi` name and power limit,
 and as the last line `{"ok": true, "device": {...}}`.
@@ -84,12 +100,6 @@ import tempfile
 import time
 
 import torch
-
-# Published dense peaks (NVIDIA data sheets): memory bytes/s, bf16 FLOP/s.
-# The SXM part is the default; the others are told apart by their names.
-PEAKS = {"H100 PCIe": (2.0e12, 756e12), "H100 NVL": (3.9e12, 835e12),
-         "H100 SXM": (3.35e12, 989e12)}
-NAME_TAGS = {"PCIe": "H100 PCIe", "NVL": "H100 NVL"}
 
 # (name, B, Tq, Tk, H, D, causal, mask): mask "tail" pads each sequence's
 # tail at a random length, "key0" pads key 0 only, None attends to all.
@@ -120,9 +130,10 @@ MAIN_CASE = "main_enc_self"  # 12 of the 18 launches per step are key-padded, no
 #   rounded to bf16 in both, so a rounding flip moves a term by 2^-8.
 # - the row that sees no key: dQ, dK and dV of row/key 0 exactly 0.
 FWD_TOL, LSE_TOL, GRAD_TOL = 2e-2, 1e-3, 5e-2
-# Flash against einsum logits of the full-width model in bf16: the einsum
-# path rounds the scores to bf16 before its softmax, the kernels keep
-# them in f32, and the difference travels through 12 bf16 layers.
+# Flash against einsum logits of the full-width model in bf16, max abs
+# (the slice at T = 32, the profile phase at T = 2048): the einsum path
+# rounds the scores to bf16 before its softmax, the kernels keep them in
+# f32, and the difference travels through 12 bf16 layers.
 LOGITS_TOL = 5e-2
 
 STEPS = 30
@@ -147,6 +158,12 @@ FAMILY_STEPS = 20
 # epochs and a budget of 6 epochs; the resumed dispatch at 256 is granted
 # 10 steps; the gns dispatch runs past the 50-step GNS window.
 ADAPT_BATCH, ADAPT_EPOCH, ADAPT_STEPS, ADAPT_RESUME, GNS_STEPS = 128, 10, 60, 10, 55
+# The profile phase: the bench's long path, one oracle row per ported
+# family at few steps, and one job type's cold dispatch.
+LONG_BATCH, LONG_SEQ, LONG_STEPS = 4, 2048, 10
+PROFILE_ROWS = ("ResNet-18:16", "ResNet-50:16", "Transformer:16", "LM:5", "Recommendation:512")
+PROFILE_STEPS, PROFILE_WARMUP = 8, 2
+STARTUP_JOB = "LM (batch size 20)"
 
 
 class Failure(Exception):
@@ -160,13 +177,6 @@ def check(ok: bool, what: str) -> None:
 
 def emit(tag: str, obj) -> None:
     print(f"{tag}: {json.dumps(obj, sort_keys=True)}", flush=True)
-
-
-def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout
-    return out.strip().splitlines()[0]
 
 
 def spills(log: str):
@@ -199,11 +209,6 @@ def main_shape_slots(fa, occupancy, sms):
                      "slots": per_sm[(kname, d, tile)] * sms,
                      "grid": b * h * -(-length // tile)})
     return rows
-
-
-def peaks(name: str):
-    variant = next((v for tag, v in NAME_TAGS.items() if tag in name), "H100 SXM")
-    return variant, PEAKS[variant]
 
 
 def graph_ms(fn, inner: int = 20, reps: int = 7) -> float:
@@ -807,6 +812,85 @@ def adapt_phase():
                     "steps_per_s": gns_rate}}
 
 
+def ragged_tokens(b, t, vocab, gen, device):
+    """(b, t) token ids in [1, vocab), each row padded with 0 past a
+    random length of at least t / 2."""
+    tokens = torch.randint(1, vocab, (b, t), generator=gen, device=device)
+    lengths = torch.randint(t // 2, t + 1, (b,), generator=gen, device=device)
+    return torch.where(torch.arange(t, device=device)[None, :] < lengths[:, None], tokens, 0)
+
+
+def profile_phase(fa, device):
+    from shockwave_tpu_torch.core.oracle import read_oracle
+    from shockwave_tpu_torch.models.transformer import Seq2SeqTransformer
+    from shockwave_tpu_torch.profiling import bench_gpu, measure_startup, measure_throughput
+
+    # 1. The bench's long path, at full width.
+    prefix = "transformer_long"
+    fa.reset_launch_counts()
+    long = bench_gpu.transformer_train_bench(batch=LONG_BATCH, steps=LONG_STEPS,
+                                             seq=LONG_SEQ, prefix=prefix)
+    launches = dict(fa.LAUNCHES)
+    steps = long[f"{prefix}_steps_run"]
+    for kname, n in launches.items():
+        check(n == 18 * steps, f"profile: {kname} launched {n} times in {steps} bench "
+                               f"steps, not {18 * steps}")
+    first, last = long[f"{prefix}_loss_first"], long[f"{prefix}_loss_last"]
+    check(math.isfinite(first) and math.isfinite(last), "profile: non-finite bench loss")
+    check(last < first, f"profile: the bench loss did not fall ({first} -> {last})")
+    check(long[f"{prefix}_mfu"] > 0, f"profile: MFU {long[f'{prefix}_mfu']}")
+    torch.cuda.empty_cache()
+
+    # 2. Flash against einsum logits at T = 2048, sources ragged-padded.
+    gen = torch.Generator(device=device).manual_seed(0)
+    flash = Seq2SeqTransformer(use_flash=True, max_len=LONG_SEQ).to(device)
+    einsum = Seq2SeqTransformer(use_flash=False, max_len=LONG_SEQ).to(device)
+    einsum.load_state_dict(flash.state_dict())
+    vocab = flash.shared_embedding.num_embeddings
+    src = ragged_tokens(LONG_BATCH, LONG_SEQ, vocab, gen, device)
+    tgt = torch.randint(1, vocab, (LONG_BATCH, LONG_SEQ), generator=gen, device=device)
+    with torch.no_grad():
+        logits_flash = flash(src, tgt)
+        logits_einsum = einsum(src, tgt)
+    logits_err = max_abs(logits_flash, logits_einsum)
+    check(bool(torch.isfinite(logits_flash).all()), "profile: non-finite T = 2048 logits")
+    check(logits_err <= LOGITS_TOL,
+          f"profile: flash vs einsum logits at T = {LONG_SEQ} differ by {logits_err}")
+    padded = int((src == 0).sum())
+    del flash, einsum, logits_flash, logits_einsum
+    torch.cuda.empty_cache()
+
+    # 3. The throughput oracle, one row per ported family; 4. one job
+    # type's cold dispatch into the same file.
+    work = tempfile.mkdtemp(prefix="swt_chip_profile_")
+    try:
+        oracle = os.path.join(work, "h100_throughputs.json")
+        t0 = time.time()
+        measure_throughput.main(["--output", oracle, "--only", *PROFILE_ROWS,
+                                 "--scale_factors", "1", "--steps", str(PROFILE_STEPS),
+                                 "--warmup", str(PROFILE_WARMUP)])
+        oracle_s = time.time() - t0
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        measure_startup.main(["--oracle", oracle, "--families", STARTUP_JOB,
+                              "--repeats", "1"])
+        startup_s = time.time() - t0
+        rows, meta = read_oracle(oracle)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    rates = {key[0]: entry["null"] for key, entry in rows["h100"].items()}
+    check(len(rates) == len(PROFILE_ROWS) and all(r > 0 for r in rates.values()),
+          f"profile: oracle rates {rates}")
+    overhead = meta["dispatch_overhead_s"]["h100"]
+    check(overhead > 0, f"profile: dispatch overhead {overhead}")
+    return {"bench_long": long, "launches": launches,
+            "logits_flash_vs_einsum_max_abs": logits_err, "logits_shape": [LONG_BATCH, LONG_SEQ],
+            "padded_src_tokens": padded, "oracle_rates": rates, "oracle_s": oracle_s,
+            "dispatch_overhead_s": overhead,
+            "dispatch_detail": meta["dispatch_overhead_detail"]["h100"]["per_family"],
+            "startup_s": startup_s}
+
+
 def main() -> int:
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -816,6 +900,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from shockwave_tpu_torch.ops import _build
     from shockwave_tpu_torch.ops import flash_attention as fa
+    from shockwave_tpu_torch.profiling.device import nvidia_smi, peaks
     from shockwave_tpu_torch.workloads.translation import train
 
     device = torch.device("cuda")
@@ -872,6 +957,10 @@ def main() -> int:
     adapted = adapt_phase()
     emit("adapt", {"seconds": time.time() - t0, "nvidia_smi": smi, **adapted})
 
+    t0 = time.time()
+    profiled = profile_phase(fa, device)
+    emit("profile", {"seconds": time.time() - t0, "nvidia_smi": smi, **profiled})
+
     main_case = cases[MAIN_CASE]
     replaces = {"flash_fwd": "shockwave_tpu/ops/flash_attention.py:40",
                 "flash_dq": "shockwave_tpu/ops/flash_attention.py:167",
@@ -891,7 +980,8 @@ def main() -> int:
             "bound_by": k["bound_by"],
             "library_ms": main_case["library_fwd_ms"] if kname == "flash_fwd" else None,
             "at": f"{MAIN_CASE} {main_case['shape']}",
-            "bench_ms": cases["bench_causal"]["kernels"][kname]["ms"]})
+            "bench_ms": cases["bench_causal"]["kernels"][kname]["ms"],
+            "bench_long_launches": profiled["launches"][kname]})
     print(json.dumps({"kernels": kernels, "fwd_bwd_ms": main_case["flash_fwd_bwd_ms"],
                       "library_fwd_bwd_ms": main_case["library_fwd_bwd_ms"],
                       "kernel_phase_s": kernel_s, "total_s": time.time() - t_start}),

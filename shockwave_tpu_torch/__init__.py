@@ -16,6 +16,11 @@ counterpart:
                                Accordion/GNS adaptation monitors
   runtime/                     lease iterator, worker daemon, dispatcher
   core/durable_io.py           the checkpoint CRC footer (copied)
+  core/{constants,job_table,oracle}.py
+                               the job table and oracle files (copied)
+  core/{timing,artifacts}.py   two-point step timing, measurement files
+  profiling/                   the throughput oracle, cold-dispatch and
+                               flagship-bench profilers; peak rates
   workloads/<working_directory>/
                                the entry points the dispatcher launches
   convert.py                   flax parameter trees -> state_dicts

@@ -11,10 +11,14 @@ Usage (from the repository root, so the default run dir resolves):
 The cards are counted with `torch.cuda.device_count()`; with none and no
 `--num_chips`, the daemon refuses to start (there is no CPU fallback).
 Jobs resolve their trace `working_directory` under the run dirs,
-`shockwave_tpu_torch/workloads` by default, which holds the translation
-family only so far. Fleet tracing and the `/metrics` exporter are not
-ported yet: `--trace_dir`, `--obs_port` and SWTPU_SPAN_SHARD_DIR are
-refused.
+`shockwave_tpu_torch/workloads` by default, which holds every family of
+the canonical trace (translation, language_modeling, recommendation,
+image_classification/{cifar10,imagenet}); serving, A3C (`rl`) and
+CycleGAN have no port workload yet (ROADMAP.md Queue 1, items 6 and 7).
+The scheduler plans port workers of type `h100` from
+`data/h100_throughputs.json` (`profiling/measure_throughput.py`). Fleet
+tracing and the `/metrics` exporter are not ported yet: `--trace_dir`,
+`--obs_port` and SWTPU_SPAN_SHARD_DIR are refused.
 """
 from __future__ import annotations
 
@@ -185,9 +189,9 @@ def main(argv=None):
         run_dirs={"static": args.static_run_dir,
                   "accordion": args.accordion_run_dir,
                   "gns": args.gns_run_dir,
-                  # The port has no serving workload yet (only the
-                  # translation family is ported); the key keeps the
-                  # dispatcher's mode table whole.
+                  # The port has no serving workload yet (ROADMAP.md
+                  # Queue 1, item 6); the key keeps the dispatcher's
+                  # mode table whole.
                   "serving": args.static_run_dir},
         data_dir=args.data_dir, checkpoint_dir=args.checkpoint_dir)
     signal.signal(signal.SIGINT, lambda s, f: daemon._shutdown())

@@ -28,16 +28,21 @@ def loss_fn(model, images, labels):
     return F.cross_entropy(model(images), labels), {}
 
 
-def main(argv=None):
+def build_trainer(argv=None):
+    """The job's `Trainer` from the trace's CLI, built but not trained."""
     p = common_parser("ResNet-18 on CIFAR-10", steps_args=("--num_steps",))
     p.add_argument("--data_dir", default=None)
     p.add_argument("--batch_size", type=int, default=128)
     args = parse_args(p, argv)
     device = resolve_device(args.device)
-    trainer = Trainer(
+    return Trainer(
         args, loss_fn, ResNet18(generator=torch.Generator().manual_seed(0)),
         data.cifar10(args.batch_size, data_dir=args.data_dir), device=device,
         learning_rate=0.1, initial_bs=args.batch_size, max_bs=MAX_BS)
+
+
+def main(argv=None):
+    trainer = build_trainer(argv)
     trainer.run()
     return trainer
 

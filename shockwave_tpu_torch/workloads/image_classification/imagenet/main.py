@@ -24,7 +24,8 @@ from shockwave_tpu_torch.workloads.image_classification.cifar10.main import (  #
 MAX_BS = 128
 
 
-def main(argv=None):
+def build_trainer(argv=None):
+    """The job's `Trainer` from the trace's CLI, built but not trained."""
     p = common_parser("ResNet-50 on ImageNet", steps_args=("--num_minibatches",))
     p.add_argument("data", nargs="?", default=None)
     p.add_argument("-j", "--workers", type=int, default=4)
@@ -32,10 +33,14 @@ def main(argv=None):
     p.add_argument("-b", "--batch_size", type=int, default=64)
     args = parse_args(p, argv)
     device = resolve_device(args.device)
-    trainer = Trainer(
+    return Trainer(
         args, loss_fn, ResNet50(generator=torch.Generator().manual_seed(0)),
         data.imagenet(args.batch_size, data_dir=args.data), device=device,
         learning_rate=0.1, initial_bs=args.batch_size, max_bs=MAX_BS)
+
+
+def main(argv=None):
+    trainer = build_trainer(argv)
     trainer.run()
     return trainer
 

@@ -27,16 +27,21 @@ def loss_fn(model, tokens, targets):
     return F.cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1)), {}
 
 
-def main(argv=None):
+def build_trainer(argv=None):
+    """The job's `Trainer` from the trace's CLI, built but not trained."""
     p = common_parser("LSTM LM on Wikitext-2", steps_args=("--steps",))
     p.add_argument("--data", default=None)
     p.add_argument("--batch_size", type=int, default=20)
     args = parse_args(p, argv)
     device = resolve_device(args.device)
-    trainer = Trainer(
+    return Trainer(
         args, loss_fn, LSTMLanguageModel(generator=torch.Generator().manual_seed(0)),
         data.wikitext2(args.batch_size, data_dir=args.data), device=device,
         learning_rate=1.0, initial_bs=args.batch_size, max_bs=MAX_BS)
+
+
+def main(argv=None):
+    trainer = build_trainer(argv)
     trainer.run()
     return trainer
 

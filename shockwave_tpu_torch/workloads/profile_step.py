@@ -2,13 +2,15 @@
 """Where a training step of one workload spends its time on the card.
 
     python3 -m shockwave_tpu_torch.workloads.profile_step \
-        [--family translation|lm|recommendation|cifar10|imagenet] \
+        [--family translation|lm|recommendation|cifar10|imagenet|flagship_long] \
         [--batch_size N] [--steps 5]
 
-Builds the family's full-width trainer through its main (the translation
-Transformer at batch 64 with flash on by default; the other families at
-their largest batch, `MAX_BS`) and lets it take `--warmup` steps. Then,
-on the same batch:
+Builds the family's full-width trainer through its main's
+`build_trainer` (the translation Transformer at batch 64 with flash on
+by default; the other families at their largest batch, `MAX_BS`) and
+lets it take `--warmup` steps on one batch; `flagship_long` is
+`profiling/bench_gpu.py`'s flagship at T = 2048 (batch 4 by default,
+Adam, K1-K3 in the model). Then, on the same batch:
 
 - `--steps` steps timed on the host clock between two synchronisations,
   with the profiler off (`ms_per_step`);
@@ -23,9 +25,7 @@ import argparse
 import importlib
 import json
 import os
-import shutil
 import sys
-import tempfile
 import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), *[".."] * 2))
@@ -35,17 +35,17 @@ from torch.autograd import DeviceType  # noqa: E402
 
 from shockwave_tpu_torch.models.train_common import upload  # noqa: E402
 
-# family: (main module, default batch, argv before the steps' count)
+# family: (main module, default batch, the trace's CLI at batch b)
 FAMILIES = {
     "translation": ("translation.train", 64,
-                    lambda b: ["-batch_size", b, "-proj_share_weight", "--use_flash", "-step"]),
-    "lm": ("language_modeling.main", 80, lambda b: ["--cuda", "--batch_size", b, "--steps"]),
-    "recommendation": ("recommendation.train", 8192, lambda b: ["--batch_size", b, "-n"]),
-    "cifar10": ("image_classification.cifar10.main", 256,
-                lambda b: ["--batch_size", b, "--num_steps"]),
-    "imagenet": ("image_classification.imagenet.main", 128,
-                 lambda b: ["-b", b, "--num_minibatches"]),
+                    lambda b: ["-batch_size", b, "-proj_share_weight", "--use_flash"]),
+    "lm": ("language_modeling.main", 80, lambda b: ["--cuda", "--batch_size", b]),
+    "recommendation": ("recommendation.train", 8192, lambda b: ["--batch_size", b]),
+    "cifar10": ("image_classification.cifar10.main", 256, lambda b: ["--batch_size", b]),
+    "imagenet": ("image_classification.imagenet.main", 128, lambda b: ["-b", b]),
+    "flagship_long": (None, 4, None),
 }
+LONG_SEQ = 2048
 
 # Kernel groups, by a piece of the kernel's name (first match wins).
 GROUPS = (("flash_fwd", ("flash_fwd_kernel",)), ("flash_dq", ("flash_dq_kernel",)),
@@ -89,21 +89,25 @@ def main(argv=None) -> int:
 
     module, default_batch, head = FAMILIES[args.family]
     batch_size = args.batch_size or default_batch
-    main_module = importlib.import_module(f"shockwave_tpu_torch.workloads.{module}")
-    ckpt = tempfile.mkdtemp(prefix="swt_profile_")
-    try:
-        trainer = main_module.main(head(str(batch_size)) + [
-            str(args.warmup), "--checkpoint_dir", ckpt,
-            "--throughput_estimation_interval", str(10**9)])
-    finally:
-        shutil.rmtree(ckpt, ignore_errors=True)
-    device = trainer.device
-    batch = tuple(upload(b, device) for b in next(iter(trainer.data_loader)))
+    if module is None:
+        from shockwave_tpu_torch.models.train_common import resolve_device
+        from shockwave_tpu_torch.profiling.bench_gpu import flagship
+        resolve_device("cuda")  # TF32 off, as for every trainer
+        _, step = flagship(batch_size, LONG_SEQ)
+    else:
+        main_module = importlib.import_module(f"shockwave_tpu_torch.workloads.{module}")
+        trainer = main_module.build_trainer(head(str(batch_size)))
+        batch = tuple(upload(b, trainer.device) for b in next(iter(trainer.data_loader)))
+
+        def step():
+            return trainer.train_step(*batch)
+    for _ in range(args.warmup):
+        step()
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(args.steps):
-        trainer.train_step(*batch)
+        step()
     torch.cuda.synchronize()
     ms_per_step = (time.perf_counter() - t0) * 1e3 / args.steps
 
@@ -114,7 +118,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(args.steps):
-            trainer.train_step(*batch)
+            step()
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
 

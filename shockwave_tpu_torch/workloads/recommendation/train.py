@@ -27,17 +27,22 @@ def loss_fn(model, interactions):
     return multinomial_nll(model(interactions), interactions), {}
 
 
-def main(argv=None):
+def build_trainer(argv=None):
+    """The job's `Trainer` from the trace's CLI, built but not trained."""
     p = common_parser("AutoEncoder on ML-20M", steps_args=("-n", "--num_steps"))
     p.add_argument("--data_dir", default=None)
     p.add_argument("--batch_size", type=int, default=2048)
     args = parse_args(p, argv)
     device = resolve_device(args.device)
     model = AutoEncoder(generator=torch.Generator().manual_seed(0))
-    trainer = Trainer(
+    return Trainer(
         args, loss_fn, model,
         data.ml20m(args.batch_size, num_items=model.num_items, data_dir=args.data_dir),
         device=device, learning_rate=1e-3, initial_bs=args.batch_size, max_bs=MAX_BS)
+
+
+def main(argv=None):
+    trainer = build_trainer(argv)
     trainer.run()
     return trainer
 

@@ -34,7 +34,8 @@ def loss_fn(model, src_tokens, tgt_tokens):
     return loss, {}
 
 
-def main(argv=None):
+def build_trainer(argv=None):
+    """The job's `Trainer` from the trace's CLI, built but not trained."""
     p = common_parser("Transformer on Multi30k", steps_args=("-step", "--step"))
     p.add_argument("-data", dest="data", default=None)
     p.add_argument("-batch_size", dest="batch_size", type=int, default=64)
@@ -48,11 +49,15 @@ def main(argv=None):
     use_flash = (device.type == "cuda") if args.use_flash is None else args.use_flash
     model = Seq2SeqTransformer(use_flash=use_flash,
                                generator=torch.Generator().manual_seed(0))
-    trainer = Trainer(
+    return Trainer(
         args, loss_fn, model,
         data.multi30k(args.batch_size, tgt_len=33, data_dir=args.data),
         device=device, learning_rate=1e-3, initial_bs=args.batch_size,
         max_bs=128)
+
+
+def main(argv=None):
+    trainer = build_trainer(argv)
     trainer.run()
     return trainer
 

@@ -48,6 +48,11 @@ def test_the_scan_covers_the_port():
     assert "shockwave_tpu_torch/runtime/iterator.py" in names
     assert "shockwave_tpu_torch/runtime/worker.py" in names
     assert "shockwave_tpu_torch/runtime/proto/control_pb2.py" in names
+    for module in ("constants", "job_table", "oracle", "artifacts", "timing"):
+        assert f"shockwave_tpu_torch/core/{module}.py" in names
+    for module in ("device", "measure_throughput", "extrapolate_sf", "measure_startup",
+                   "bench_gpu"):
+        assert f"shockwave_tpu_torch/profiling/{module}.py" in names
 
 
 @pytest.mark.parametrize("path", port_files(), ids=lambda p: os.path.relpath(p, REPO))

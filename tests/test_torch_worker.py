@@ -48,11 +48,13 @@ def dispatched_steps(checkpoint_dir, job_id):
 
 
 def drive_loopback(tmp_path, worker_type, job_type, command,
-                   working_directory, run_dir, budgets, round_s, limit_s):
-    """The real scheduler and the port's daemon (one card) run one job
-    per budget to completion; returns the scheduler, the job ids, each
-    job's steps per dispatch (from its iterator logs), the RunJobs the
-    daemon counted, and the wall seconds."""
+                   working_directory, run_dir, budgets, round_s, limit_s,
+                   throughputs="tacc_throughputs.json"):
+    """The real scheduler, planning from the oracle file `throughputs`
+    under data/, and the port's daemon (one card) run one job per budget
+    to completion; returns the scheduler, the job ids, each job's steps
+    per dispatch (from its iterator logs), the RunJobs the daemon
+    counted, and the wall seconds."""
     from shockwave_tpu.core.job import Job
     from shockwave_tpu.sched.physical import PhysicalScheduler
     from shockwave_tpu.sched.scheduler import SchedulerConfig
@@ -66,7 +68,7 @@ def drive_loopback(tmp_path, worker_type, job_type, command,
     ckpt = str(tmp_path / "ckpt")
     sched = PhysicalScheduler(
         get_policy("max_min_fairness"),
-        throughputs_file=os.path.join(REPO, "data", "tacc_throughputs.json"),
+        throughputs_file=os.path.join(REPO, "data", throughputs),
         config=SchedulerConfig(time_per_iteration=round_s, max_rounds=40),
         expected_num_workers=1, port=sched_port)
     daemon = WorkerDaemon(
@@ -127,14 +129,17 @@ def test_scheduler_dispatches_the_port_trainer_with_exact_steps(tmp_path):
 
 
 @pytest.mark.cuda
-def test_h100_loopback_of_the_trace_command(tmp_path):
+def test_h100_loopback_of_the_trace_command(tmp_path, caplog):
     """The same drive on the card, at full width: the trace's own
     Transformer command from the JAX package's job table, resolved under
-    the port's run dir, trained with the CUDA kernels. Run it on the
-    card with `python -m pytest --noconftest -m cuda
+    the port's run dir, trained with the CUDA kernels, and planned from
+    the port's own measured H100 rates (data/h100_throughputs.json), so
+    the scheduler starts the job from a profiled rate, not its default.
+    Run it on the card with `python -m pytest --noconftest -m cuda
     tests/test_torch_worker.py -s` (the conftest imports JAX, which the
     card's machine need not have)."""
     import json
+    import logging
 
     import torch
     if not torch.cuda.is_available():
@@ -142,11 +147,15 @@ def test_h100_loopback_of_the_trace_command(tmp_path):
     from shockwave_tpu.core.job_table import transformer
     template = transformer(64)
     budgets = (300, 200)
-    sched, job_ids, per_dispatch, runjobs, wall = drive_loopback(
-        tmp_path, "h100", template.model, template.command,
-        template.working_directory,
-        os.path.join(REPO, "shockwave_tpu_torch", "workloads"),
-        budgets, round_s=15.0, limit_s=900)
+    with caplog.at_level(logging.WARNING):
+        sched, job_ids, per_dispatch, runjobs, wall = drive_loopback(
+            tmp_path, "h100", template.model, template.command,
+            template.working_directory,
+            os.path.join(REPO, "shockwave_tpu_torch", "workloads"),
+            budgets, round_s=15.0, limit_s=900, throughputs="h100_throughputs.json")
+    unprofiled = [r.getMessage() for r in caplog.records
+                  if "no profiled throughput" in r.getMessage()]
+    assert not unprofiled, unprofiled
     check_exact_steps(sched, job_ids, per_dispatch, runjobs, budgets)
     print("h100_loopback:", json.dumps({
         "budgets": budgets, "steps_per_dispatch": per_dispatch,
