@@ -77,10 +77,29 @@ Phases, in order; any failure exits non-zero and prints no result:
    `core/oracle.read_throughputs` must read the file back. Then
    `measure_startup` for one job type with one measured run: its
    dispatch overhead must be > 0.
+9. gang: data-parallel gangs of two ranks that share the one card (the
+   port's `Dispatcher` with `chip_ids=[0, 0]`, so the ranks pick gloo;
+   a gang of one card per rank takes NCCL, which this card alone cannot
+   show), under the stand-in scheduler, each rank a subprocess of the
+   trace's main run through this script's `--gang-member` mode, which
+   reports the rank's result as a `GANG_MEMBER` line. The Transformer at
+   global batch 64 in `gns` mode, sf = 2: a lease of 10 steps renewed to
+   20, then a resume dispatch granted 5; ResNet-18 at global batch 128 in
+   `accordion` mode, sf = 2, for 6 steps (the BatchNorm statistics
+   all-reduced on the card). Checked: both ranks print backend gloo on
+   `cuda`, stop at the same step, report exactly the granted steps in
+   `Done` (the scheduler sums the ranks' steps), rank 0 alone writes the
+   checkpoint and both ranks resume from it, the ranks' states are equal
+   bit for bit, each kernel launches exactly 18 times per rank per step,
+   and each job's loss and parameters are within the stated tolerance of
+   a one-process run of the same main on the global batch on the card.
+   Printed: the gang's steps/s beside that one-process run's, and the
+   gradient all-reduce's ms per call. Two ranks on one card over gloo
+   measure nothing of a two-card NCCL gang's speed.
 
 Output: `device:`, `build:`, `ptxas:`, `spills:` and `occupancy:`
 lines, one `kernel_case:` JSON line per shape, `slice:`, `lease:`,
-`families:`, `adapt:` and `profile:` lines, then the `{"kernels": [...]}` line (with the main case's forward + backward
+`families:`, `adapt:`, `profile:` and `gang:` lines, then the `{"kernels": [...]}` line (with the main case's forward + backward
 through the port's autograd path and through
 `scaled_dot_product_attention`), the `nvidia-smi` name and power limit,
 and as the last line `{"ok": true, "device": {...}}`.
@@ -164,6 +183,25 @@ LONG_BATCH, LONG_SEQ, LONG_STEPS = 4, 2048, 10
 PROFILE_ROWS = ("ResNet-18:16", "ResNet-50:16", "Transformer:16", "LM:5", "Recommendation:512")
 PROFILE_STEPS, PROFILE_WARMUP = 8, 2
 STARTUP_JOB = "LM (batch size 20)"
+# The gang phase: two ranks on the one card. The Transformer (global
+# batch 64, gns) under a lease of 10 steps renewed to 20, then a resume
+# granted 5; ResNet-18 (global batch 128, accordion) for 6 steps.
+GANG_RANKS = 2
+GANG_LEASE, GANG_CAP, GANG_RESUME = 10, 20, 5
+GANG_RESNET_BATCH, GANG_RESNET_STEPS = 128, 6
+ALLREDUCE_CALLS = 5
+# The gang against a one-process run of the same main on the global
+# batch, on the card, after the same steps. Each rank rounds its bf16
+# weight gradients (a half-batch sum, 2^-9 relative) before the f32 sum
+# where the one process rounds the whole sum, and cuBLAS may pick other
+# kernels for half the rows: a bf16 ulp here and there, carried through
+# the steps. The Transformer: loss within 1e-2 relative, the parameters'
+# error within 0.05 of how far the steps moved them (2-norms over all
+# parameters). ResNet-18 in bf16: test_torch_families.py's stated bf16
+# ResNet tolerance (loss 5e-2, movement 0.4, running statistics 5e-2 of
+# their scale).
+GANG_TOL = {"transformer": {"loss": 1e-2, "whole": 0.05, "stats": None},
+            "resnet18": {"loss": 5e-2, "whole": 0.4, "stats": 5e-2}}
 
 
 class Failure(Exception):
@@ -508,10 +546,15 @@ class StandInScheduler:
                                                round_duration=60.0)
 
     def _done(self, req, ctx):
-        self.calls.append((time.time(), "Done", list(req.job_ids)))
+        self.calls.append((time.time(), "Done", list(req.job_ids), req.worker_id,
+                           list(req.num_steps)))
         self.done[req.job_ids[0]] = (time.time(), list(req.num_steps),
                                      list(req.execution_times))
         return self._pb.Empty()
+
+    def dones(self, job_id):
+        """(worker id, steps) of every Done for `job_id`, in arrival order."""
+        return [(c[3], c[4][0]) for c in self.calls if c[1] == "Done" and c[2] == [job_id]]
 
     def first(self, method, job_id):
         return next(c for c in self.calls if c[1] == method and c[2] == job_id)
@@ -891,6 +934,242 @@ def profile_phase(fa, device):
             "startup_s": startup_s}
 
 
+def gang_member(module_name, argv) -> int:
+    """`--gang-member MODULE ARGS...`: one rank of a gang job, as the
+    dispatcher launches it. The main (`shockwave_tpu_torch.workloads.
+    MODULE`) builds its trainer from ARGS and runs its dispatch, with the
+    launch counters set to 0 just before; then the rank prints one
+    `GANG_MEMBER` JSON line: its backend and device, the steps it ran,
+    its launches, its checkpoint writes, a SHA-256 of its model state,
+    and the ms of one gradient all-reduce on its last gradients."""
+    import hashlib
+    import importlib
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from shockwave_tpu_torch.models import train_common
+    from shockwave_tpu_torch.ops import flash_attention as fa
+    from shockwave_tpu_torch.parallel import mesh
+    module = importlib.import_module(f"shockwave_tpu_torch.workloads.{module_name}")
+    writes = []
+    real_save = train_common.save_checkpoint
+    train_common.save_checkpoint = lambda path, state: writes.append(path) or real_save(path, state)
+    trainer = module.build_trainer(argv)
+    fa.reset_launch_counts()
+    steps = trainer.run()
+    launches = dict(fa.LAUNCHES)
+    digest = hashlib.sha256()
+    for name, value in sorted(trainer.model.state_dict().items()):
+        digest.update(name.encode())
+        digest.update(value.detach().reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
+    grads = [p.grad for p in trainer.model.parameters() if p.requires_grad]
+    extras = torch.tensor([0.0, 1.0, 0.0], device=trainer.device)
+    torch.cuda.synchronize()
+    mesh.barrier()
+    t0 = time.perf_counter()
+    for _ in range(ALLREDUCE_CALLS):
+        trainer.allreduce_gradients(grads, extras.clone())
+    torch.cuda.synchronize()
+    allreduce_ms = (time.perf_counter() - t0) / ALLREDUCE_CALLS * 1e3
+    metrics = trainer.last_metrics
+    print("GANG_MEMBER " + json.dumps({
+        "rank": trainer.rank, "n_dev": trainer.n_dev, "backend": mesh.backend(),
+        "device": str(trainer.device), "steps": steps, "step": trainer.step,
+        "launches": launches, "writes": len(writes), "state_sha256": digest.hexdigest(),
+        "allreduce_ms": allreduce_ms,
+        "grad_mb": sum(g.numel() * g.element_size() for g in grads) / 2**20,
+        "steps_per_s": (steps_per_s(trainer) if len(trainer.throughput_marks) > 1 else None),
+        "loss_last": float(metrics["loss"]),
+        "grad_norm_sq_small": (float(metrics["grad_norm_sq_small"])
+                               if "grad_norm_sq_small" in metrics else None)}), flush=True)
+    return 0
+
+
+def gang_dispatch(dispatcher, standin, outputs, job, round_id):
+    """Both ranks of `job` (a dispatcher job dict whose command lacks the
+    rendezvous flags) through the dispatcher; waits for both `Done`s.
+    Returns (the ranks' GANG_MEMBER records by rank, {worker id: Done
+    steps}, the ranks' output)."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    seen = len(standin.dones(job["job_id"]))
+    outputs.clear()
+    for rank in range(GANG_RANKS):
+        command = (f"{job['command']} --coordinator 127.0.0.1:{port} "
+                   f"--num_processes {GANG_RANKS} --process_id {rank}")
+        dispatcher.dispatch_jobs([dict(job, command=command)], worker_id=rank,
+                                 round_id=round_id)
+    deadline = time.time() + 600
+    while len(standin.dones(job["job_id"])) < seen + GANG_RANKS and time.time() < deadline:
+        time.sleep(0.2)
+    dones = dict(standin.dones(job["job_id"])[seen:])
+    text = "\n".join(outputs)
+    check(len(dones) == GANG_RANKS, f"gang: job {job['job_id']} reported {dones}:\n{text[-4000:]}")
+    members = sorted((json.loads(line.split(" ", 1)[1]) for line in text.splitlines()
+                      if line.startswith("GANG_MEMBER ")), key=lambda m: m["rank"])
+    check([m["rank"] for m in members] == list(range(GANG_RANKS)),
+          f"gang: job {job['job_id']}: no result from every rank:\n{text[-4000:]}")
+    return members, dones, text
+
+
+def check_gang_dispatch(name, members, dones, text, steps, step, launches_per_step):
+    """The checks every gang dispatch must pass (see the module docstring)."""
+    for m in members:
+        check(f"[GANG] rank {m['rank']} of {GANG_RANKS}: backend gloo, device cuda" in text
+              and m["backend"] == "gloo" and m["device"].startswith("cuda"),
+              f"gang: {name} rank {m['rank']} ran on {m['backend']} / {m['device']}")
+        check(m["steps"] == steps and m["step"] == step,
+              f"gang: {name} rank {m['rank']} ran {m['steps']} steps to {m['step']}, "
+              f"not {steps} to {step}")
+        for kname, n in m["launches"].items():
+            check(n == launches_per_step * steps,
+                  f"gang: {name} rank {m['rank']} launched {kname} {n} times, "
+                  f"not {launches_per_step} x {steps}")
+    check(dones == {r: steps for r in range(GANG_RANKS)},
+          f"gang: {name} Done reported {dones}, not {steps} from each rank")
+    check([m["writes"] for m in members] == [1] + [0] * (GANG_RANKS - 1),
+          f"gang: {name} checkpoint writes by rank {[m['writes'] for m in members]}")
+    check(len({m["state_sha256"] for m in members}) == 1,
+          f"gang: {name} ranks' states differ after {step} steps")
+
+
+def gang_against_one_process(name, gang_ckpt, one, fresh, tol, gang_loss):
+    """The gang's checkpoint against a one-process trainer `one` after the
+    same steps; `fresh` is the model's initial state. Returns the errors."""
+    from shockwave_tpu_torch.models import train_common
+    state = train_common.load_checkpoint(gang_ckpt, torch.device("cuda"))["params"]
+    want = one.model.state_dict()
+    errs, moves, stats = [], [], 0.0
+    for key, value in want.items():
+        diff = (state[key].float() - value.float())
+        if "running" in key:
+            stats = max(stats, float(diff.abs().max()) / max(float(value.abs().max()), 1.0))
+            continue
+        errs.append(diff.flatten())
+        moves.append((value.float() - fresh[key].to(value.device).float()).flatten())
+    whole = float(torch.cat(errs).norm()) / float(torch.cat(moves).norm())
+    loss = float(one.last_metrics["loss"])
+    loss_rel = abs(gang_loss - loss) / abs(loss)
+    check(math.isfinite(gang_loss) and loss_rel <= tol["loss"],
+          f"gang: {name} loss {gang_loss} against one process's {loss}")
+    check(whole <= tol["whole"], f"gang: {name} parameters {whole} of their movement "
+                                 f"from the one-process run")
+    if tol["stats"] is not None:
+        check(stats <= tol["stats"], f"gang: {name} running statistics off by {stats}")
+    return {"loss_rel": loss_rel, "whole_move_rel": whole, "stats_rel": stats,
+            "one_process_steps_per_s": steps_per_s(one)}
+
+
+def gang_phase():
+    from shockwave_tpu_torch.runtime import rpc
+    from shockwave_tpu_torch.runtime.clients import WorkerToSchedulerClient
+    from shockwave_tpu_torch.runtime.dispatcher import Dispatcher
+    from shockwave_tpu_torch.runtime.proto import control_pb2 as pb
+    from shockwave_tpu_torch.workloads.image_classification.cifar10 import main as cifar10
+    from shockwave_tpu_torch.workloads.translation import train
+
+    tr_job, rn_job = 4, 5
+    total = GANG_CAP + GANG_RESUME
+    standin = StandInScheduler(rpc, pb, {tr_job: (GANG_LEASE, GANG_CAP),
+                                         rn_job: (GANG_RESNET_STEPS, GANG_RESNET_STEPS)})
+    here = os.path.dirname(os.path.abspath(__file__))
+    workloads = os.path.join(here, "shockwave_tpu_torch", "workloads")
+    member = f"{sys.executable} {os.path.join(here, 'chip_smoke.py')} --gang-member"
+    work = tempfile.mkdtemp(prefix="swt_chip_gang_")
+    outputs = []
+    real_popen = subprocess.Popen
+
+    class RecordingPopen(real_popen):
+        def communicate(self, *args, **kwargs):
+            out, err = super().communicate(*args, **kwargs)
+            outputs.append(out.decode(errors="replace"))
+            return out, err
+
+    # Two "chips" that are the one card: the smoke's own arrangement.
+    dispatcher = Dispatcher(
+        60.0, chip_ids=[0] * GANG_RANKS,
+        worker_rpc_client=WorkerToSchedulerClient("127.0.0.1", standin.port),
+        sched_addr="127.0.0.1", sched_port=standin.port,
+        run_dirs={mode: workloads for mode in ("static", "accordion", "gns", "serving")},
+        data_dir=os.path.join(work, "data"), checkpoint_dir=os.path.join(work, "ckpt"))
+    saved_env = dict(os.environ)
+    subprocess.Popen = RecordingPopen
+    try:
+        for key in list(os.environ):
+            if key.startswith("SWTPU_"):
+                del os.environ[key]
+        transformer = dict(
+            job_id=tr_job, working_directory="translation", needs_data_dir=True,
+            command=(f"{member} translation.train -data %s/translation/multi30k.atok.low.pt "
+                     f"-batch_size {BATCH} -proj_share_weight --throughput_estimation_interval 5"),
+            num_steps_arg="-step", num_steps=total, mode="gns")
+        t0 = time.time()
+        first, dones, text = gang_dispatch(dispatcher, standin, outputs, transformer, 0)
+        first_s = time.time() - t0
+        check_gang_dispatch("transformer", first, dones, text, GANG_CAP, GANG_CAP, 18)
+        check(all(m["grad_norm_sq_small"] is not None for m in first)
+              and len({m["grad_norm_sq_small"] for m in first}) == 1,
+              f"gang: the ranks' GNS small norms differ: {first}")
+        standin.grants[tr_job] = (GANG_RESUME, GANG_RESUME)
+        t0 = time.time()
+        resumed, dones, text = gang_dispatch(dispatcher, standin, outputs, transformer, 1)
+        resume_s = time.time() - t0
+        check_gang_dispatch("transformer resume", resumed, dones, text, GANG_RESUME, total, 18)
+        resnet = dict(
+            job_id=rn_job, working_directory="image_classification/cifar10",
+            needs_data_dir=True,
+            command=(f"{member} image_classification.cifar10.main --data_dir=%s/cifar10 "
+                     f"--batch_size {GANG_RESNET_BATCH} --throughput_estimation_interval 2"),
+            num_steps_arg="--num_steps", num_steps=GANG_RESNET_STEPS, mode="accordion")
+        t0 = time.time()
+        rn, dones, text = gang_dispatch(dispatcher, standin, outputs, resnet, 0)
+        resnet_s = time.time() - t0
+        check_gang_dispatch("resnet18", rn, dones, text, GANG_RESNET_STEPS, GANG_RESNET_STEPS, 0)
+
+        # One process on the global batch, the same main and mode.
+        ckpt = os.path.join(work, "one")
+        os.environ["SWTPU_MODE"] = "gns"
+        one, _ = run_main(train, ["-batch_size", str(BATCH), "-step", str(total),
+                                  "-proj_share_weight", "--checkpoint_dir", ckpt,
+                                  "--throughput_estimation_interval", "5"])
+        fresh = train.Seq2SeqTransformer(generator=torch.Generator().manual_seed(0)).state_dict()
+        tr_cmp = gang_against_one_process(
+            "transformer", os.path.join(work, "ckpt", f"job_id={tr_job}", "model.ckpt"), one,
+            fresh, GANG_TOL["transformer"], resumed[0]["loss_last"])
+        del one
+        torch.cuda.empty_cache()
+        shutil.rmtree(ckpt, ignore_errors=True)
+        os.environ["SWTPU_MODE"] = "accordion"
+        one, _ = run_main(cifar10, ["--batch_size", str(GANG_RESNET_BATCH), "--num_steps",
+                                    str(GANG_RESNET_STEPS), "--checkpoint_dir", ckpt,
+                                    "--throughput_estimation_interval", "2"])
+        fresh = cifar10.ResNet18(generator=torch.Generator().manual_seed(0)).state_dict()
+        rn_cmp = gang_against_one_process(
+            "resnet18", os.path.join(work, "ckpt", f"job_id={rn_job}", "model.ckpt"), one,
+            fresh, GANG_TOL["resnet18"], rn[0]["loss_last"])
+        del one
+    finally:
+        subprocess.Popen = real_popen
+        os.environ.clear()
+        os.environ.update(saved_env)
+        dispatcher.shutdown()
+        standin.server.stop(grace=0)
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"ranks": GANG_RANKS, "backend": first[0]["backend"],
+            "note": "two ranks share one card over gloo: nothing here measures a "
+                    "two-card NCCL gang's speed",
+            "transformer": {"global_batch": BATCH, "mode": "gns", "expired_at": GANG_CAP,
+                            "resumed_to": total, "gang_steps_per_s": first[0]["steps_per_s"],
+                            "allreduce_ms": [m["allreduce_ms"] for m in first],
+                            "grad_mb": first[0]["grad_mb"], "launches": first[0]["launches"],
+                            "dispatch_s": first_s, "resume_dispatch_s": resume_s,
+                            "state_sha256": resumed[0]["state_sha256"], **tr_cmp},
+            "resnet18": {"global_batch": GANG_RESNET_BATCH, "mode": "accordion",
+                         "steps": GANG_RESNET_STEPS, "gang_steps_per_s": rn[0]["steps_per_s"],
+                         "allreduce_ms": [m["allreduce_ms"] for m in rn],
+                         "grad_mb": rn[0]["grad_mb"], "dispatch_s": resnet_s, **rn_cmp}}
+
+
 def main() -> int:
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -961,6 +1240,10 @@ def main() -> int:
     profiled = profile_phase(fa, device)
     emit("profile", {"seconds": time.time() - t0, "nvidia_smi": smi, **profiled})
 
+    t0 = time.time()
+    ganged = gang_phase()
+    emit("gang", {"seconds": time.time() - t0, "nvidia_smi": smi, **ganged})
+
     main_case = cases[MAIN_CASE]
     replaces = {"flash_fwd": "shockwave_tpu/ops/flash_attention.py:40",
                 "flash_dq": "shockwave_tpu/ops/flash_attention.py:167",
@@ -994,4 +1277,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--gang-member"]:
+        sys.exit(gang_member(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

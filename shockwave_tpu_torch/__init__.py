@@ -15,6 +15,7 @@ counterpart:
   models/train_common.py       CLI, Trainer, checkpoints, the
                                Accordion/GNS adaptation monitors
   runtime/                     lease iterator, worker daemon, dispatcher
+  parallel/mesh.py             data-parallel gangs over torch.distributed
   core/durable_io.py           the checkpoint CRC footer (copied)
   core/{constants,job_table,oracle}.py
                                the job table and oracle files (copied)

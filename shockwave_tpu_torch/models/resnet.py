@@ -14,7 +14,10 @@ PyTorch's habits:
 - BatchNorm (`BatchNorm` below): flax's momentum 0.9 on the running
   statistics, eps 1e-5, and the running variance follows the biased
   batch variance (`nn.BatchNorm2d` would take the unbiased one). The
-  last BatchNorm of each block starts with a zero scale.
+  last BatchNorm of each block starts with a zero scale. In a gang the
+  batch statistics are the global batch's, as in the JAX package's one
+  jit over the dp-sharded global array: `_SyncBatchNorm` all-reduces
+  them across the ranks (`nn.SyncBatchNorm` refuses CPU tensors).
 
 Parameters are drawn as flax draws them (lecun-normal kernels, unit
 scales, zero biases) from an explicit `torch.Generator`, on the CPU;
@@ -28,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import mesh
 from .transformer import lecun_normal_
 
 
@@ -64,7 +68,10 @@ class Conv(nn.Module):
 class BatchNorm(nn.Module):
     """flax `nn.BatchNorm(momentum=0.9, epsilon=1e-5, dtype=float32)`:
     f32 batch statistics in training, and running statistics updated as
-    `0.9 * running + 0.1 * batch` with the biased batch variance."""
+    `0.9 * running + 0.1 * batch` with the biased batch variance. In a
+    gang the statistics are the global batch's (`_SyncBatchNorm`), unless
+    `local_statistics` is set (the trainer sets it while it runs GNS's
+    small batch, which takes one rank's own statistics)."""
 
     def __init__(self, channels: int, zero_scale: bool = False,
                  momentum: float = 0.9, eps: float = 1e-5):
@@ -74,19 +81,67 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
+        self.local_statistics = False
 
     def forward(self, x):
         x = x.to(self.weight.dtype)  # f32, the parameters' dtype
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
-        out, mean, rstd = torch.native_batch_norm(
-            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        if mesh.process_count() > 1 and not self.local_statistics:
+            out, mean, var = _SyncBatchNorm.apply(x, self.weight, self.bias, self.eps)
+        else:
+            out, mean, rstd = torch.native_batch_norm(
+                x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+            var = (rstd.detach().double().pow(-2) - self.eps).clamp_min(0.0).to(x.dtype)
         with torch.no_grad():
-            var = (rstd.double().pow(-2) - self.eps).clamp_min(0.0).to(x.dtype)
             self.running_mean.mul_(self.momentum).add_(mean, alpha=1 - self.momentum)
             self.running_var.mul_(self.momentum).add_(var, alpha=1 - self.momentum)
         return out
+
+
+class _SyncBatchNorm(torch.autograd.Function):
+    """Training-mode batch norm over the gang's global batch, for NCHW f32
+    `x`. Forward all-reduces each rank's (count, count x mean, count x
+    (var + mean^2)) per channel, from this rank's two-pass `var_mean`, in
+    float64; backward all-reduces (sum dy, sum dy x_hat). Returns the
+    output and the global mean and biased variance (for the running
+    statistics). The parameter gradients are this rank's part; the
+    trainer's gradient all-reduce sums them."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        dims = (0, 2, 3)
+        var_r, mean_r = torch.var_mean(x, dims, correction=0)
+        n_r = torch.full_like(mean_r, x.numel() // x.shape[1], dtype=torch.float64)
+        sums = torch.stack([n_r, n_r * mean_r.double(),
+                            n_r * (var_r.double() + mean_r.double() ** 2)])
+        mesh.all_reduce_sum(sums)
+        n = sums[0]
+        mean64 = sums[1] / n
+        var64 = (sums[2] / n - mean64 ** 2).clamp_min(0.0)
+        mean, var = mean64.to(x.dtype), var64.to(x.dtype)
+        rstd = torch.rsqrt(var64 + eps).to(x.dtype)
+        shape = (1, -1, 1, 1)
+        x_hat = (x - mean.view(shape)) * rstd.view(shape)
+        ctx.save_for_backward(x_hat, weight, rstd)
+        ctx.count = n
+        ctx.mark_non_differentiable(mean, var)
+        return x_hat * weight.view(shape) + bias.view(shape), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x_hat, weight, rstd = ctx.saved_tensors
+        dims, shape = (0, 2, 3), (1, -1, 1, 1)
+        sum_dy = dy.sum(dims)  # this rank's bias and weight gradients
+        sum_dy_xhat = (dy * x_hat).sum(dims)
+        sums = torch.stack([sum_dy, sum_dy_xhat])
+        mesh.all_reduce_sum(sums)
+        n = ctx.count.to(dy.dtype)
+        mean_dy = (sums[0] / n).view(shape)
+        mean_dy_xhat = (sums[1] / n).view(shape)
+        dx = (weight * rstd).view(shape) * (dy - mean_dy - x_hat * mean_dy_xhat)
+        return dx, sum_dy_xhat, sum_dy, None
 
 
 class ResNetBlock(nn.Module):

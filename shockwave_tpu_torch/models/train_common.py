@@ -23,8 +23,17 @@ order, only where their rule needs the values (Accordion at an epoch's
 end, GNS once its window is full and its two batch sizes differ), so the
 host sums are the same float64 sums of the same f32 values.
 
-Not ported yet, raising NotImplementedError that names its ROADMAP.md
-item: gangs (`--num_processes > 1`).
+A job of scale factor N runs as a data-parallel gang of N processes
+(`--coordinator`, `--num_processes`, `--process_id`; `parallel/mesh.py`),
+and the gang computes what the reference's one jit over the dp-sharded
+global batch computes: each rank trains on its slice of the global
+batch; its loss is scaled by the loss's element count (`aux["count"]`)
+before the backward pass, and the gradients are summed over the gang in
+flat buckets and divided by the gang's total count, so a token-masked
+mean gives the global batch's gradient even when the ranks' token counts
+differ. The gang's loss and gradient norm are the global batch's; GNS's
+small batch is rank 0's slice. Rank 0 alone writes the checkpoint, after
+the lease iterator's exit barrier; every rank loads it.
 """
 from __future__ import annotations
 
@@ -41,9 +50,11 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-THROUGHPUT_LOG_INTERVAL = 100
+from ..parallel import mesh
 
-_GANG_ITEM = "ROADMAP.md Queue 1, item 4 (gangs over torch.distributed)"
+THROUGHPUT_LOG_INTERVAL = 100
+#: Gradient bytes per all-reduce in a gang.
+BUCKET_BYTES = 25 * 2**20
 
 
 def common_parser(description: str, steps_args=("--num_steps",)) -> argparse.ArgumentParser:
@@ -71,13 +82,16 @@ def common_parser(description: str, steps_args=("--num_steps",)) -> argparse.Arg
 
 
 def parse_args(parser: argparse.ArgumentParser, argv=None):
-    """Parse workload CLI args; refuse what this slice does not port."""
+    """Parse workload CLI args and, for gang members, join the gang
+    before the caller builds its model (as the reference joins its
+    `jax.distributed` cluster here)."""
     args = parser.parse_args(argv)
     # The dispatcher kills with SIGTERM-then-SIGKILL; converting SIGTERM
     # to SystemExit lets the mains' finally blocks (checkpoint save) run.
     signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
     if args.num_processes is not None and args.num_processes > 1:
-        raise NotImplementedError(f"gangs are not ported yet: {_GANG_ITEM}")
+        mesh.maybe_initialize_distributed(args.coordinator, args.num_processes,
+                                          args.process_id, resolve_device(args.device))
     return args
 
 
@@ -282,7 +296,21 @@ class Trainer:
     monitor; `initial_bs` is the batch size the job was launched with and
     `max_bs` its family's largest. `n_dev` is the size of the job's
     data-parallel group, whose per-device slice of the batch is GNS's
-    small batch: 1 on one card.
+    small batch: the gang's size in a gang (the default), 1 on one card;
+    a single process may give more, to take GNS's small batch as the
+    first of `n_dev` slices without a gang.
+
+    In a gang, `run` feeds each rank its slice of the global batch, and
+    `loss_fn`'s aux must hold `count`, the number of elements its loss
+    averages (see the module docstring). `train_step` then takes the
+    rank's slice and returns the global batch's loss and gradient norm.
+    Its small-batch norm needs no second backward: rank 0's gradient
+    before the all-reduce is its count times the gradient over its
+    slice, and the all-reduce carries the norm to every rank. A model
+    whose ranks are coupled in the forward pass (a gang's BatchNorm,
+    whose statistics are the global batch's) is the exception: rank 0
+    runs its slice again with its own statistics, as the reference's
+    small-batch loss does.
 
     In `gns` mode with `n_dev == 1` the small batch is the whole batch, so
     `train_step` reports `grad_norm_sq` as `grad_norm_sq_small` instead of
@@ -295,12 +323,16 @@ class Trainer:
     def __init__(self, args, loss_fn: Callable, model: torch.nn.Module,
                  data_loader, device: torch.device, learning_rate: float = 1e-2,
                  mode: Optional[str] = None, initial_bs: Optional[int] = None,
-                 max_bs: Optional[int] = None, n_dev: int = 1):
+                 max_bs: Optional[int] = None, n_dev: Optional[int] = None):
         self.args = args
         self.mode = mode or os.environ.get("SWTPU_MODE", "static")
         self.initial_bs = initial_bs
         self.max_bs = max_bs or initial_bs
-        self.n_dev = n_dev
+        self.gang = mesh.process_count() > 1
+        if self.gang and n_dev not in (None, mesh.process_count()):
+            raise ValueError(f"n_dev {n_dev} in a gang of {mesh.process_count()}")
+        self.n_dev = n_dev or mesh.process_count()
+        self.rank = mesh.process_index()
         self.monitor = None  # the adaptation monitor of the last run()
         self.device = device
         self.model = model.to(device)
@@ -308,6 +340,8 @@ class Trainer:
                                          lr=learning_rate, momentum=0.9)
         self.step = 0
         self._loss_fn = loss_fn
+        # Modules whose forward pass couples the ranks (a gang's BatchNorm).
+        self._coupled = [m for m in self.model.modules() if hasattr(m, "local_statistics")]
         self.data_loader = data_loader
         # Device-resident metrics of the first and the last step of run(),
         # and (wall time, cumulative step) at every throughput line.
@@ -316,9 +350,12 @@ class Trainer:
         self.throughput_marks: list = []
 
     def train_step(self, *batch) -> dict:
-        """One SGD step on device tensors; metrics stay on the device."""
+        """One SGD step on device tensors (this rank's slice in a gang);
+        metrics stay on the device."""
         self.optimizer.zero_grad(set_to_none=True)
-        loss, _ = self._loss_fn(self.model, *batch)
+        loss, aux = self._loss_fn(self.model, *batch)
+        if self.gang:
+            return self._gang_step(batch, loss, aux)
         loss.backward()
         grads = [p.grad for p in self.model.parameters() if p.grad is not None]
         grad_norm_sq = torch.nn.utils.get_total_norm(grads) ** 2
@@ -329,6 +366,64 @@ class Trainer:
         self.step += 1
         return metrics
 
+    def _gang_step(self, batch, loss, aux) -> dict:
+        """`train_step`'s gang branch (see the class docstring)."""
+        count = aux["count"]  # a device tensor or a number: no host round trip
+        count = (count.float() if isinstance(count, torch.Tensor)
+                 else torch.full((), float(count), device=self.device))
+        (loss * count).backward()
+        params = [p for p in self.model.parameters() if p.requires_grad]
+        for p in params:  # one bucket layout on every rank
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in params]
+        small = torch.zeros((), device=self.device)
+        if self.mode == "gns" and self.rank == 0:
+            if self._coupled:  # rerun the slice with its own statistics
+                for m in self._coupled:
+                    m.local_statistics = True
+                try:
+                    small = self._grad_norm_sq_of(batch)
+                finally:
+                    for m in self._coupled:
+                        m.local_statistics = False
+            else:  # rank 0's gradient is count x its slice's gradient
+                small = (torch.nn.utils.get_total_norm(grads) ** 2
+                         / count.clamp_min(1.0) ** 2)
+        extras = torch.stack([loss.detach().float() * count, count, small.float()])
+        self.allreduce_gradients(grads, extras)
+        metrics = {"loss": extras[0] / extras[1].clamp_min(1.0),
+                   "grad_norm_sq": torch.nn.utils.get_total_norm(grads) ** 2}
+        if self.mode == "gns":
+            metrics["grad_norm_sq_small"] = extras[2]
+        self.optimizer.step()
+        self.step += 1
+        return metrics
+
+    def allreduce_gradients(self, grads, extras) -> None:
+        """Sum `grads` and the 1-d f32 `extras` (whose element 1 is the
+        rank's loss count) over the gang, in flat buckets of at most
+        BUCKET_BYTES, then divide the gradients by the gang's count."""
+        buckets, size = [], 0
+        for g in grads:
+            nbytes = g.numel() * g.element_size()
+            if not buckets or size + nbytes > BUCKET_BYTES or g.dtype != buckets[-1][0].dtype:
+                buckets.append([])
+                size = 0
+            buckets[-1].append(g)
+            size += nbytes
+        flats = [torch.cat([g.reshape(-1) for g in bucket]) for bucket in buckets]
+        works = [mesh.all_reduce_sum(f, async_op=True) for f in flats + [extras]]
+        for work in works:
+            work.wait()
+        total = extras[1].clamp_min(1.0)
+        for bucket, flat in zip(buckets, flats):
+            flat.div_(total.to(flat.dtype))
+            offset = 0
+            for g in bucket:
+                g.copy_(flat[offset:offset + g.numel()].view_as(g))
+                offset += g.numel()
+
     def _small_grad_norm_sq(self, batch, grad_norm_sq):
         """Squared global gradient norm over the first max(1, B // n_dev)
         rows of each batch tensor, at the step's parameters. Running
@@ -337,6 +432,11 @@ class Trainer:
         small = tuple(b[: max(1, b.shape[0] // self.n_dev)] for b in batch)
         if all(s.shape[0] == b.shape[0] for s, b in zip(small, batch)):
             return grad_norm_sq  # the same rows: see the class docstring
+        return self._grad_norm_sq_of(small)
+
+    def _grad_norm_sq_of(self, small):
+        """Squared gradient norm of the loss over `small` alone; the
+        buffers are left as they were."""
         saved = [b.clone() for b in self.model.buffers()]
         params = [p for p in self.model.parameters() if p.requires_grad]
         loss, _ = self._loss_fn(self.model, *small)
@@ -363,11 +463,16 @@ class Trainer:
         if use_lease:
             # Imported here so that the lease-free path never loads grpc.
             from ..runtime.iterator import LeaseIterator
+            # A gang agrees its lease decisions and meets at a barrier
+            # before rank 0 saves (the reference's multihost_utils hooks).
+            gang_hooks = (dict(distributed_barrier=mesh.barrier,
+                               gang_allreduce=mesh.gang_allreduce)
+                          if self.gang else {})
             iterator = LeaseIterator(
                 self.data_loader, args.checkpoint_dir,
                 load_checkpoint_func=self._load,
                 save_checkpoint_func=self._save,
-                synthetic_data=args.synthetic_data)
+                synthetic_data=args.synthetic_data, **gang_hooks)
             restored = iterator.load_checkpoint(path)
         else:
             iterator = _PlainIterator(self.data_loader)
@@ -405,7 +510,11 @@ class Trainer:
                 for batch in iterator:
                     if batch is not host_batch_ref:
                         host_batch_ref = batch
-                        dev_batch = tuple(upload(b, self.device) for b in batch)
+                        # Every rank builds the same global batch and
+                        # trains on its own rows of it.
+                        rows = (mesh.local_batch_slice(len(batch[0]), self.rank, self.n_dev)
+                                if self.gang else slice(None))
+                        dev_batch = tuple(upload(b[rows], self.device) for b in batch)
                     metrics = self.train_step(*dev_batch)
                     if use_lease:
                         iterator.set_sync_ref(metrics["loss"])
@@ -456,7 +565,11 @@ class Trainer:
         return steps_done
 
     def _save(self, path):
-        save_checkpoint(path, self.state())
+        # The ranks hold one state; two writers racing os.replace on one
+        # path would lose a file. A lease's exit barrier has already
+        # brought the gang to the same step.
+        if self.rank == 0:
+            save_checkpoint(path, self.state())
 
     def _load(self, path):
         return load_checkpoint(path, self.device)

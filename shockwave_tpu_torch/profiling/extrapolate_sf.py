@@ -14,15 +14,16 @@ family and batch size. Estimated rows are recorded in
 __meta__.estimated_rows with their provenance so they are never mistaken
 for measurements; existing (measured) rows are never overwritten.
 
-Do not run it on `data/h100_throughputs.json` yet: a port job with
-sf > 1 is refused (`models/train_common.py`, gangs are ROADMAP.md
-Queue 1, item 4), so sf > 1 rows would plan gangs that cannot run.
+The committed `data/h100_throughputs.json` carries its sf 2 and 4
+priors, written by
+
+    python -m shockwave_tpu_torch.profiling.extrapolate_sf \\
+        --oracle data/h100_throughputs.json --worker_type h100 --sfs 2 4
+
+(a port job of scale factor N trains as an N-rank gang; measuring a
+gang's rate needs a machine with N cards, ROADMAP.md Queue 1, item 12).
 `--oracle` and `--worker_type` are required, so no file is written by
 default.
-
-Usage:
-    python -m shockwave_tpu_torch.profiling.extrapolate_sf \\
-        --oracle some_throughputs.json --worker_type v5e
 """
 import argparse
 import datetime

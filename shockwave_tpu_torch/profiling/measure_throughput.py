@@ -23,8 +23,10 @@ Transformer with flash off, while its trainer runs flash). The oracle's
 Runs on the CUDA card unless `--device cpu` is given (one device).
 Not ported, and refused rather than skipped:
 - A3C and CycleGAN have no port workload (ROADMAP.md Queue 1, item 7);
-- a scale factor above 1 that the device count allows needs a gang
-  (item 4); one above the device count is skipped, as in the reference;
+- a scale factor above 1 that the device count allows: a gang's rate
+  is measured across as many cards (item 12); one above the device
+  count is skipped, as in the reference. The committed h100 file's
+  sf > 1 rows are `extrapolate_sf.py`'s priors;
 - `--trace_out` needs the span tracer (item 3).
 """
 from __future__ import annotations
@@ -67,7 +69,8 @@ TEMPLATES = {"ResNet-18": job_table.resnet18, "ResNet-50": job_table.resnet50,
 DATA_DIR = os.path.join(tempfile.gettempdir(), "swtpu_data")
 
 UNPORTED_ITEM = "ROADMAP.md Queue 1, item 7 (A3C and CycleGAN)"
-GANG_ITEM = "ROADMAP.md Queue 1, item 4 (gangs)"
+GANG_ITEM = ("ROADMAP.md Queue 1, item 12 (sf > 1 oracle rows and the NCCL path "
+             "on a machine with more than one card)")
 TRACING_ITEM = "ROADMAP.md Queue 1, item 3 (fleet tracing and /metrics for the port)"
 
 
@@ -104,7 +107,8 @@ def measure(model_name: str, bs: int, sf: int, steps: int, warmup: int,
         return None
     if sf > 1:
         raise NotImplementedError(
-            f"scale factor {sf} runs as a gang, which is not ported yet: {GANG_ITEM}")
+            f"scale factor {sf} is a gang across {sf} cards, whose rate this "
+            f"profiler does not measure yet: {GANG_ITEM}")
     state, step_fn, batch = build_family(model_name, bs, device)
     dt = marginal_step_time(step_fn, state, batch,
                             n1=max(steps // 4, 2), n2=steps, warmup=warmup)

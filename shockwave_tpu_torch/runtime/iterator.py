@@ -25,9 +25,13 @@ reference's.
   tensor, and lets a failure propagate. The reference catches it and
   logs a warning; on the card a failed sync is a real fault (a failed
   kernel, a lost device), and catching it would hide the device.
-- Gangs (multi-process jobs and their exit barrier) come with ROADMAP.md
-  Queue 1 item 4; the trainer refuses them before an iterator exists.
-  Fleet tracing (the reference's `trainer` and checkpoint spans) is not
+- Gangs (multi-process jobs, `parallel/mesh.py`) get the reference's
+  gang hooks: every time-based decision is agreed across the gang at
+  `gang_sync_every`-step boundaries (duration by max, grants by min),
+  and the exit waits at a barrier so that the gang's checkpoint, which
+  rank 0 writes, is consistent. Gangs drop the run-ahead window: the
+  boundary sync bounds them, as in the reference.
+- Fleet tracing (the reference's `trainer` and checkpoint spans) is not
   ported: a run with SWTPU_SPAN_SHARD_DIR set is refused.
 - Checkpointing is delegated to caller functions.
 - Cut to what the port's jobs use: the final `[PROGRESS]` lines are
@@ -44,7 +48,7 @@ import collections
 import logging
 import os
 import time
-from typing import Any, Callable, Iterable
+from typing import Any, Callable, Iterable, Optional
 
 import torch
 
@@ -75,7 +79,20 @@ def _device_sync(value: Any) -> None:
 class LeaseIterator:
     def __init__(self, data_loader: Iterable, checkpoint_dir: str,
                  load_checkpoint_func: Callable, save_checkpoint_func: Callable,
-                 synthetic_data: bool = False):
+                 synthetic_data: bool = False,
+                 distributed_barrier: Optional[Callable] = None,
+                 gang_allreduce: Optional[Callable] = None,
+                 gang_sync_every: int = 16):
+        """gang_allreduce(value, op) -> float ("max"/"min" across the
+        gang) makes every time-based decision step-deterministic for
+        multi-process gangs: lease grants are agreed by min at grant
+        time, the running duration is agreed by max at `gang_sync_every`
+        step boundaries, and time-based expiry/renewal checks only fire
+        at those boundaries, so all members take identical control paths
+        at identical steps and none enters the exit barrier while a peer
+        still issues training collectives. Steps-based checks are
+        deterministic already (the scheduler's first-requester-computes
+        consensus)."""
         if os.environ.get(obs_names.SHARD_DIR_ENV):
             raise NotImplementedError(
                 f"{obs_names.SHARD_DIR_ENV} asks for fleet tracing, which "
@@ -89,6 +106,13 @@ class LeaseIterator:
         # CLI flag through unguarded.
         self._synthetic_data = (synthetic_data
                                 and getattr(data_loader, "synthetic", True))
+        self._distributed_barrier = distributed_barrier
+        self._gang_allreduce = gang_allreduce
+        self._gang_sync_every = max(int(gang_sync_every), 1)
+        # Absolute agreed-duration threshold for the next time-triggered
+        # renewal (gang mode replaces the per-step countdown, which
+        # drifts epsilon-differently on every member's local clock).
+        self._renewal_duration_threshold = INFINITY
 
         self._job_id = int(os.environ["SWTPU_JOB_ID"])
         self._worker_id = int(os.environ["SWTPU_WORKER_ID"])
@@ -208,49 +232,66 @@ class LeaseIterator:
             else:
                 self._last_degrade_sleep = 0.0
 
-        # Bound async run-ahead: enqueue the newest sync ref (the
-        # previous step's loss) and block on the ref from `runahead`
-        # steps back. Free when the device keeps up; otherwise an honest
-        # wait that keeps the step counter, the duration clock, and the
-        # queued backlog within `runahead` steps of the device — so
-        # lease checks fire on time and a lease-boundary sync never has
-        # to drain a deep queue while heartbeats are due.
-        if (self._sync_ref is not None
-                and self._sync_ref is not self._last_windowed_ref):
-            self._sync_window.append(self._sync_ref)
-            self._last_windowed_ref = self._sync_ref
-            self._steps_without_new_ref = 0
-        else:
-            # Without a fresh per-step ref the window cannot grow and
-            # the run-ahead bound silently disappears — warn once so the
-            # caller knows to set_sync_ref every step.
-            self._steps_without_new_ref += 1
-            if (self._steps_without_new_ref > 2 * self._runahead
-                    and not self._warned_static_ref):
-                self._warned_static_ref = True
-                self._logger.warning(
-                    "no fresh sync ref for %d steps: async run-ahead "
-                    "is unbounded and lease timing/heartbeats may "
-                    "degrade; call set_sync_ref(loss) every step",
-                    self._steps_without_new_ref)
-        if len(self._sync_window) >= 2 * self._runahead:
-            # Steps execute in dispatch order (one stream, each step
-            # reading the last one's weights), so syncing the newest ref
-            # of the drained batch proves everything before it finished:
-            # one device round trip per `runahead` steps, with run-ahead
-            # in [runahead, 2*runahead).
-            newest_drained = None
-            while len(self._sync_window) > self._runahead:
-                newest_drained = self._sync_window.popleft()
-            _device_sync(newest_drained)
+        gang = self._gang_allreduce is not None
+        if not gang:
+            # Bound async run-ahead: enqueue the newest sync ref (the
+            # previous step's loss) and block on the ref from `runahead`
+            # steps back. Free when the device keeps up; otherwise an
+            # honest wait that keeps the step counter, the duration clock,
+            # and the queued backlog within `runahead` steps of the device
+            # — so lease checks fire on time and a lease-boundary sync
+            # never has to drain a deep queue while heartbeats are due.
+            # (Gangs get the same bound from their boundary sync below.)
+            if (self._sync_ref is not None
+                    and self._sync_ref is not self._last_windowed_ref):
+                self._sync_window.append(self._sync_ref)
+                self._last_windowed_ref = self._sync_ref
+                self._steps_without_new_ref = 0
+            else:
+                # Without a fresh per-step ref the window cannot grow and
+                # the run-ahead bound silently disappears — warn once so
+                # the caller knows to set_sync_ref every step.
+                self._steps_without_new_ref += 1
+                if (self._steps_without_new_ref > 2 * self._runahead
+                        and not self._warned_static_ref):
+                    self._warned_static_ref = True
+                    self._logger.warning(
+                        "no fresh sync ref for %d steps: async run-ahead "
+                        "is unbounded and lease timing/heartbeats may "
+                        "degrade; call set_sync_ref(loss) every step",
+                        self._steps_without_new_ref)
+            if len(self._sync_window) >= 2 * self._runahead:
+                # Steps execute in dispatch order (one stream, each step
+                # reading the last one's weights), so syncing the newest
+                # ref of the drained batch proves everything before it
+                # finished: one device round trip per `runahead` steps,
+                # with run-ahead in [runahead, 2*runahead).
+                newest_drained = None
+                while len(self._sync_window) > self._runahead:
+                    newest_drained = self._sync_window.popleft()
+                _device_sync(newest_drained)
+                sync_now = time.time()
+                waited = sync_now - self._prev_time
+                self._duration += waited
+                elapsed += waited  # feeds the renewal countdown below
+                self._prev_time = sync_now
+        # Gang members only evaluate time-based conditions at shared
+        # K-step boundaries, on an agreed (max-allreduced) duration, so
+        # the whole gang reaches the same verdict at the same step.
+        boundary = (not gang) or (self._steps % self._gang_sync_every == 0)
+        if gang and boundary:
+            _device_sync(self._sync_ref)
             sync_now = time.time()
-            waited = sync_now - self._prev_time
-            self._duration += waited
-            elapsed += waited  # feeds the renewal countdown below
+            self._duration += sync_now - self._prev_time
             self._prev_time = sync_now
+            self._duration = max(
+                self._duration,
+                float(self._gang_allreduce(self._duration, "max")))
 
-        if (self._steps_until_lease_update <= 0
-                or self._time_until_lease_update <= 0):
+        time_renewal_due = boundary and (
+            self._duration >= self._renewal_duration_threshold if gang
+            else self._time_until_lease_update <= 0)
+        if self._steps_until_lease_update <= 0 or time_renewal_due:
             # Sync outstanding device work so self._duration is honest at the
             # renewal boundary.
             _device_sync(self._sync_ref)
@@ -259,7 +300,7 @@ class LeaseIterator:
             self._prev_time = sync_now
             self._update_lease()
 
-        if (self._duration >= self._lease.max_duration
+        if ((boundary and self._duration >= self._lease.max_duration)
                 or self._steps >= self._lease.max_steps):
             self._done = True
             self._logger.info(
@@ -268,6 +309,8 @@ class LeaseIterator:
                 self._lease.max_duration,
                 extra={"event": "LEASE", "status": "EXPIRED"})
             _device_sync(self._sync_ref)
+            if self._distributed_barrier is not None:
+                self._distributed_barrier()
             raise StopIteration
 
         try:
@@ -375,8 +418,22 @@ class LeaseIterator:
                     "over deadline (%.1f + %.1f > %.1f)", self._duration,
                     run_time_so_far, deadline,
                     extra={"event": "LEASE", "status": "DEADLINE"})
+                # Gang members reach this with agreed durations at the
+                # same step, so all exit together; the barrier keeps the
+                # gang checkpoint consistent either way.
+                if self._distributed_barrier is not None:
+                    self._distributed_barrier()
                 self.complete(timeout=True)
                 raise StopIteration
+
+        if self._gang_allreduce is not None:
+            # Agree the grant across the gang (min is the safe direction:
+            # nobody outruns a peer's lease). Steps are already identical
+            # via the scheduler's first-requester-computes consensus;
+            # durations can differ by RPC-arrival epsilons.
+            max_steps = int(self._gang_allreduce(max_steps, "min"))
+            max_duration = float(self._gang_allreduce(max_duration, "min"))
+            extra_time = float(self._gang_allreduce(extra_time, "min"))
 
         # Plan the next renewal at LEASE_UPDATE_FRACTION of the new grant; an
         # unchanged grant means this lease is final.
@@ -389,11 +446,14 @@ class LeaseIterator:
                 left + additional * LEASE_UPDATE_FRACTION)
         if max_duration <= self._lease.max_duration:
             self._time_until_lease_update = INFINITY
+            self._renewal_duration_threshold = INFINITY
         else:
             additional = max_duration - self._lease.max_duration
             left = self._lease.max_duration - self._duration
             self._time_until_lease_update = (
                 left + additional * LEASE_UPDATE_FRACTION + extra_time)
+            self._renewal_duration_threshold = (
+                self._duration + self._time_until_lease_update)
 
         self._lease.max_steps = max_steps
         self._lease.max_duration = max_duration + extra_time

@@ -15,6 +15,12 @@ Jobs resolve their trace `working_directory` under the run dirs,
 the canonical trace (translation, language_modeling, recommendation,
 image_classification/{cifar10,imagenet}); serving, A3C (`rl`) and
 CycleGAN have no port workload yet (ROADMAP.md Queue 1, items 6 and 7).
+A job of scale factor N reaches N of this daemon's cards (or N daemons'
+cards) as N RunJobs whose commands carry the gang's rendezvous flags;
+each rank gets its own card and the same `--checkpoint_dir`, and the
+ranks train as one data-parallel gang (`parallel/mesh.py`). Ranks on
+several hosts need a checkpoint root that all of them read, since rank
+0 alone writes the gang's checkpoint.
 The scheduler plans port workers of type `h100` from
 `data/h100_throughputs.json` (`profiling/measure_throughput.py`). Fleet
 tracing and the `/metrics` exporter are not ported yet: `--trace_dir`,

@@ -24,8 +24,9 @@ MAX_BS = 256
 
 
 def loss_fn(model, images, labels):
-    """Cross-entropy; BatchNorm's running statistics update in place."""
-    return F.cross_entropy(model(images), labels), {}
+    """Mean cross-entropy over the images; BatchNorm's running statistics
+    update in place."""
+    return F.cross_entropy(model(images), labels), {"count": labels.shape[0]}
 
 
 def build_trainer(argv=None):

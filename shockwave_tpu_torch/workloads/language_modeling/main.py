@@ -23,8 +23,11 @@ MAX_BS = 80
 
 
 def loss_fn(model, tokens, targets):
+    """Mean cross-entropy over every target token (each row starts from a
+    zero carry, so a rank's rows need nothing of another's)."""
     logits = model(tokens)
-    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1)), {}
+    loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1))
+    return loss, {"count": targets.numel()}
 
 
 def build_trainer(argv=None):

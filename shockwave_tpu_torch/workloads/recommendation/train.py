@@ -24,7 +24,8 @@ MAX_BS = 8192
 
 
 def loss_fn(model, interactions):
-    return multinomial_nll(model(interactions), interactions), {}
+    """Multinomial NLL, a mean over the users (rows)."""
+    return multinomial_nll(model(interactions), interactions), {"count": interactions.shape[0]}
 
 
 def build_trainer(argv=None):

@@ -24,14 +24,16 @@ from shockwave_tpu_torch.models.transformer import Seq2SeqTransformer  # noqa: E
 
 
 def loss_fn(model, src_tokens, tgt_tokens):
-    """Masked cross-entropy over the non-pad target tokens."""
+    """Masked cross-entropy over the non-pad target tokens; `count` is
+    their number (a gang weights each rank's gradient by it)."""
     logits = model(src_tokens, tgt_tokens[:, :-1])
     targets = tgt_tokens[:, 1:]
     mask = (targets != 0).float()
     losses = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                              targets.reshape(-1), reduction="none")
-    loss = (losses * mask.reshape(-1)).sum() / mask.sum().clamp_min(1.0)
-    return loss, {}
+    count = mask.sum()
+    loss = (losses * mask.reshape(-1)).sum() / count.clamp_min(1.0)
+    return loss, {"count": count}
 
 
 def build_trainer(argv=None):

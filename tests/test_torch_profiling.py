@@ -10,18 +10,20 @@ modules they need, against the JAX package's, on the CPU.
   step costs that reach the adaptive growth branch and the step cap.
 - `measure_throughput --device cpu` writes a file the JAX package's
   `read_throughputs` reads, skips the sf = 2 rows, writes symmetric pair
-  entries, and refuses A3C, CycleGAN, `--trace_out` and gangs.
+  entries, and refuses A3C, CycleGAN, `--trace_out` and a gang's rate
+  (which needs as many cards as ranks).
 - `extrapolate_sf` and the reference's write equal files from the same
   input, apart from the time stamp.
 - `measure_startup` spawns the trace's LM command (the CPU asked for) and
   writes the reference's `__meta__` keys.
 - `bench_gpu` at small widths on the CPU returns the reference bench's
   keys, and its FLOP count of a 2-layer model is the closed form.
-- The committed `data/h100_throughputs.json` holds exactly the 23 sf = 1
-  rows of the ported families and its provenance, and the JAX package's
-  simulator plans an `h100` cluster from it: the trace's sf = 1 jobs on
-  it alone, all 120 canonical jobs once `extrapolate_sf` has added sf > 1
-  priors to a copy.
+- The committed `data/h100_throughputs.json` holds the 23 measured
+  sf = 1 rows of the ported families, its provenance, and the sf 2 and 4
+  priors `extrapolate_sf` derives from them, marked as estimated; the
+  JAX package's simulator plans all 120 canonical jobs on an `h100`
+  cluster from it, and its physical scheduler seeds a gang job from the
+  prior, not from its default rate.
 
 Timing windows run at `min_marginal_s` 0.05 s here (the tools' default is
 1 s): these tests check what is written, not the CPU's rates.
@@ -33,7 +35,6 @@ import importlib.util
 import json
 import os
 import pickle
-import shutil
 import subprocess
 import sys
 import types
@@ -274,7 +275,7 @@ def test_measure_throughput_refuses_trace_out(tmp_path):
 
 def test_measure_throughput_refuses_a_gang_the_devices_allow(monkeypatch):
     monkeypatch.setattr(measure_throughput, "device_count", lambda device: 2)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
+    with pytest.raises(NotImplementedError, match="Queue 1, item 12"):
         measure_throughput.measure("LM", 5, 2, 3, 1, device="cpu")
     assert measure_throughput.measure("LM", 5, 4, 3, 1, device="cpu") is None
 
@@ -447,7 +448,17 @@ def test_the_h100_file_holds_the_ported_rows_and_their_provenance():
                 for family in PORTED
                 for bs in measure_throughput.FAMILY_BATCH_SIZES[family]}
     assert len(expected) == 23
-    assert set(throughputs["h100"]) == expected
+    measured = {key for key in throughputs["h100"] if key[1] == 1}
+    assert measured == expected
+    # Every other row is an sf 2 or 4 prior, listed as estimated with the
+    # measured sf = 1 rate it scales.
+    estimated = {ref_oracle.parse_job_type_tuple(key): entry
+                 for key, entry in meta["estimated_rows"]["h100"].items()}
+    assert set(throughputs["h100"]) - measured == set(estimated)
+    assert {sf for _, sf in estimated} == {2, 4} and len(estimated) == 36
+    for (job_type, sf), entry in estimated.items():
+        assert entry["from_sf1"] == throughputs["h100"][(job_type, 1)]["null"]
+        assert 0 < entry["reference_efficiency"] <= 1
     for key, entry in throughputs["h100"].items():
         assert list(entry) == ["null"] and entry["null"] > 0, key
     detail = meta["throughput_detail"]["h100"]
@@ -456,7 +467,6 @@ def test_the_h100_file_holds_the_ported_rows_and_their_provenance():
     assert meta["dispatch_overhead_s"]["h100"] > 0
     assert set(meta["dispatch_overhead_detail"]["h100"]["per_family"]) == {
         "ResNet-18 (batch size 32)", "LM (batch size 20)", "Recommendation (batch size 512)"}
-    assert "estimated_rows" not in meta
 
 
 def test_the_h100_file_covers_every_job_type_of_the_canonical_trace():
@@ -499,16 +509,57 @@ def test_the_simulator_plans_an_h100_cluster_from_the_port_rates(tmp_path):
 
 
 def test_the_canonical_trace_needs_sf_rows_the_port_cannot_measure_yet(tmp_path):
-    """28 of the 120 canonical jobs have scale factor 2 or 4. The
-    committed file has no such row (a port job with sf > 1 is refused
-    until gangs), so the simulator refuses the whole trace on it; with
-    the sf > 1 priors of `extrapolate_sf` on a copy, all 120 complete."""
+    """28 of the 120 canonical jobs have scale factor 2 or 4, whose rates
+    need as many cards as ranks. The committed file carries their priors:
+    exactly what `extrapolate_sf` writes from its measured sf = 1 rows,
+    and the simulator plans all 120 jobs on it."""
+    with open(H100_FILE) as f:
+        committed = json.load(f)
+    measured = json.loads(json.dumps(committed))
+    measured["h100"] = {k: v for k, v in measured["h100"].items()
+                        if oracle.parse_job_type_tuple(k)[1] == 1}
+    for key in ("estimated_rows", "estimated_rows_note", "estimated_rows_updated_at"):
+        measured["__meta__"].pop(key)
+    rewritten = tmp_path / "h100_rewritten.json"
+    rewritten.write_text(json.dumps(measured))
+    extrapolate_sf.main(["--oracle", str(rewritten), "--worker_type", "h100",
+                         "--sfs", "2", "4"])
+    again = json.loads(rewritten.read_text())
+    assert again["h100"] == committed["h100"]
+    assert again["__meta__"]["estimated_rows"] == committed["__meta__"]["estimated_rows"]
     trace = os.path.join(REPO, "data", "canonical_120job.trace")
-    rc, err, _ = simulate(trace, H100_FILE, "h100:32", tmp_path / "measured.pkl")
-    assert rc != 0 and "no oracle throughput for" in err and "', 2) on 'h100'" in err
-    extrapolated = tmp_path / "h100_with_sf_priors.json"
-    shutil.copy(H100_FILE, extrapolated)
-    extrapolate_sf.main(["--oracle", str(extrapolated), "--worker_type", "h100"])
-    rc, err, metrics = simulate(trace, extrapolated, "h100:32", tmp_path / "sim.pkl")
+    rc, err, metrics = simulate(trace, H100_FILE, "h100:32", tmp_path / "sim.pkl")
     assert rc == 0, err[-3000:]
     assert len(metrics["jct_list"]) == 120
+
+
+def test_gang_job_seeds_from_estimated_sf_row_h100():
+    """The twin of the JAX package's `test_gang_job_seeds_from_estimated_
+    sf_row` on the committed H100 file: the physical scheduler starts an
+    sf = 2 job on `h100` workers from the file's prior, not from its
+    default rate."""
+    import socket
+
+    from shockwave_tpu.core.job import Job
+    from shockwave_tpu.sched.physical import PhysicalScheduler
+    from shockwave_tpu.sched.scheduler import DEFAULT_THROUGHPUT, SchedulerConfig
+    from shockwave_tpu.solver import get_policy
+    with socket.socket() as sock:
+        sock.bind(("", 0))
+        port = sock.getsockname()[1]
+    sched = PhysicalScheduler(get_policy("max_min_fairness"), throughputs_file=H100_FILE,
+                              config=SchedulerConfig(time_per_iteration=100.0),
+                              expected_num_workers=1, port=port)
+    try:
+        sched.register_worker("h100", num_chips=2)
+        job = Job(None, "ResNet-18 (batch size 128)", "python3 main.py --batch_size 128",
+                  "image_classification/cifar10", "--num_steps", total_steps=1000,
+                  duration=1000, scale_factor=2)
+        job_id = sched.add_job(job)
+        got = sched._throughputs[job_id]["h100"]
+        want = ref_oracle.read_throughputs(H100_FILE)["h100"][
+            ("ResNet-18 (batch size 128)", 2)]["null"]
+        assert got == want and got != DEFAULT_THROUGHPUT
+    finally:
+        sched._done_event.set()
+        sched._server.stop(grace=0)

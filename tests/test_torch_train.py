@@ -190,10 +190,15 @@ def test_cuda_without_a_card_raises(monkeypatch):
     (["--num_processes", "2", "--process_id", "0"], {}),
 ])
 def test_unported_paths_raise(argv, env, monkeypatch, tmp_path):
+    """Fleet tracing is not ported; a gang member without its rendezvous
+    address fails at once, naming the flag, instead of waiting for peers
+    (`tests/test_torch_gang.py` trains real gangs)."""
     monkeypatch.setattr(train, "Seq2SeqTransformer", SMALL)
     for key, value in env.items():
         monkeypatch.setenv(key, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    error, match = ((ValueError, "--coordinator") if "--num_processes" in argv
+                    else (NotImplementedError, "ROADMAP.md"))
+    with pytest.raises(error, match=match):
         train.main(["-step", "1", "--device", "cpu",
                     "--checkpoint_dir", str(tmp_path)] + argv)
 
