@@ -50,7 +50,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    counters set to 0 (these paths reach none of the kernels): the loss
    must be finite and fall, and a resume from the checkpoint must train
    exactly one more step. Per family: steps/s from the throughput marks,
-   samples/s, peak device memory and checkpoint bytes.
+   samples/s, peak device memory and checkpoint bytes. Then the two mains
+   that drive the lease iterator themselves: A3C (`--workers 4`, 50
+   ticks) and CycleGAN (the trace's command, batch 1, 128 x 128, 10
+   steps): finite losses (a GAN's need not fall), every model's
+   parameters moved, a resume of exactly one more step; steps/s, peak
+   memory, checkpoint bytes, and CycleGAN's FLOPs per step (counted from
+   its convolutions' shapes) and MFU against the card's bf16 peak.
 7. adapt: the dynamic-adaptation monitors under the stand-in scheduler,
    which now records `UpdateResourceRequirement`. ResNet-18 at batch 128
    in `accordion` mode with 10-batch epochs: the per-epoch mean gradient
@@ -61,7 +67,20 @@ Phases, in order; any failure exits non-zero and prints no result:
    grant. Then one dispatch in `gns` mode, past GNS's 50-step window,
    must train and issue no request (on one card the small batch is the
    whole batch).
-8. profile: the profilers of `shockwave_tpu_torch/profiling/`. First
+8. serving: the serving replica. `workloads/serving/serve.py`'s main, in
+   process, with `data/serving_mixed.trace`'s first service command as
+   the tier dispatches its first replica, under a lease of 100 request
+   batches from the stand-in scheduler (which now also records each
+   renewal's measured reports): it must serve exactly 100 batches on
+   `cuda` through its CUDA graph, and its renewal must carry a measured
+   latency delta with samples. Then the request batch through the CUDA
+   graph against eager mode on the same weights and prompt, at batch 1
+   and 8: the tokens must be equal; decode tokens/s of each (generated
+   tokens over the host clock, synced). Then `DecoderLM`'s full forward
+   in bf16 with flash on (K1, one launch per layer) against its einsum
+   path at (8, 64), within the profile phase's logits tolerance, and
+   flash in f32 on the card must raise.
+9. profile: the profilers of `shockwave_tpu_torch/profiling/`. First
    `bench_gpu`'s long path: the full-width flagship with flash on at
    batch 4 x T 2048 under Adam, timed by two-point marginal timing, with
    the launch counters set to 0 just before and read just after: each
@@ -72,12 +91,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    and MFU against the card's bf16 peak. Then one forward of the flash
    model against the einsum path with the same weights, on sources
    padded at ragged lengths, so that the key-padded tile-64 path runs.
-   Then `measure_throughput --only` with one row per ported family into
+   Then `measure_throughput --only` with one row per family into
    a temporary oracle file: every rate must be > 0 and the port's
    `core/oracle.read_throughputs` must read the file back. Then
    `measure_startup` for one job type with one measured run: its
    dispatch overhead must be > 0.
-9. gang: data-parallel gangs of two ranks that share the one card (the
+10. gang: data-parallel gangs of two ranks that share the one card (the
    port's `Dispatcher` with `chip_ids=[0, 0]`, so the ranks pick gloo;
    a gang of one card per rank takes NCCL, which this card alone cannot
    show), under the stand-in scheduler, each rank a subprocess of the
@@ -99,7 +118,8 @@ Phases, in order; any failure exits non-zero and prints no result:
 
 Output: `device:`, `build:`, `ptxas:`, `spills:` and `occupancy:`
 lines, one `kernel_case:` JSON line per shape, `slice:`, `lease:`,
-`families:`, `adapt:`, `profile:` and `gang:` lines, then the `{"kernels": [...]}` line (with the main case's forward + backward
+`families:`, `adapt:`, `serving:`, `profile:` and `gang:` lines, then the
+`{"kernels": [...]}` line (with the main case's forward + backward
 through the port's autograd path and through
 `scaled_dot_product_attention`), the `nvidia-smi` name and power limit,
 and as the last line `{"ok": true, "device": {...}}`.
@@ -180,9 +200,32 @@ ADAPT_BATCH, ADAPT_EPOCH, ADAPT_STEPS, ADAPT_RESUME, GNS_STEPS = 128, 10, 60, 10
 # The profile phase: the bench's long path, one oracle row per ported
 # family at few steps, and one job type's cold dispatch.
 LONG_BATCH, LONG_SEQ, LONG_STEPS = 4, 2048, 10
-PROFILE_ROWS = ("ResNet-18:16", "ResNet-50:16", "Transformer:16", "LM:5", "Recommendation:512")
+PROFILE_ROWS = ("ResNet-18:16", "ResNet-50:16", "Transformer:16", "LM:5", "Recommendation:512",
+                "A3C:4", "CycleGAN:1")
 PROFILE_STEPS, PROFILE_WARMUP = 8, 2
 STARTUP_JOB = "LM (batch size 20)"
+# The families phase's two mains that drive their own loop: A3C with 4
+# environments for 50 ticks, CycleGAN at the trace's batch 1 x 128 x 128
+# for 10 steps; each resumes for one more.
+OWN_LOOP_FAMILIES = {
+    "a3c": ("rl.main", ["--env", "PongDeterministic-v4", "--workers", "4", "--amsgrad", "True",
+                        "--max-steps"], 50),
+    "cyclegan": ("cyclegan.cyclegan", ["--dataset_path", "%s/monet2photo", "--decay_epoch", "0",
+                                       "--n_steps"], 10),
+}
+# The serving phase: data/serving_mixed.trace's first service as the
+# tier dispatches its first replica (index 0, spawned at the service's
+# start), under a lease of 100 request batches; then decode tokens/s at
+# batch 1 and 8, eager and through the CUDA graph, and the decoder's
+# flash path at T = 64 in bf16 against its einsum path.
+SERVING_COMMAND = ("--batch_size 1 --base_rps 8 --peak_rps 16 --period_s 14400 --phase_s 0 "
+                   "--tokens_per_request 64 --decode_tokens_per_s 1600 --max_replicas 12 "
+                   "--spike_seed 7 --num_spikes 1 --spike_mult 10 --spike_duration_s 1800 "
+                   "--replica_of 0 --replica_index 0 --service_lifetime_s 14400 "
+                   "--arrival_phase_s 0").split()
+SERVING_LEASE = 100
+DECODE_BATCHES = {"eager": 10, "graph": 100}
+DECODER_FLASH_SHAPE = (8, 64)
 # The gang phase: two ranks on the one card. The Transformer (global
 # batch 64, gns) under a lease of 10 steps renewed to 20, then a resume
 # granted 5; ResNet-18 (global batch 128, accordion) for 6 steps.
@@ -531,7 +574,7 @@ class StandInScheduler:
 
     def _update_lease(self, req, ctx):
         self.calls.append((time.time(), "UpdateLease", req.job_id, req.steps,
-                           req.max_steps))
+                           req.max_steps, list(req.measured_reports)))
         return self._pb.UpdateLeaseResponse(
             max_steps=min(req.max_steps + 10, self.grants[req.job_id][1]),
             max_duration=req.max_duration, run_time_so_far=0.0, deadline=1e9)
@@ -747,7 +790,193 @@ def families_phase(fa):
                            "peak_mem_gib": peak_gib, "checkpoint_bytes": ckpt_bytes,
                            "loss_first": first, "loss_last": last, "resumed_to": FAMILY_STEPS + 1}
     torch.cuda.empty_cache()
+    for family in OWN_LOOP_FAMILIES:
+        results[family] = own_loop_family(fa, family)
     return results
+
+
+def conv_macs(model, images):
+    """Multiply-accumulates of one forward of a CycleGAN model on
+    `images`, counted from its convolutions' shapes."""
+    from shockwave_tpu_torch.models.cyclegan import Conv, ConvTranspose
+    macs = [0]
+
+    def count(module, inputs, out):
+        if isinstance(module, ConvTranspose):
+            b, cin, h, w = inputs[0].shape
+            macs[0] += b * h * w * cin * module.weight.shape[1] * 9
+        else:
+            b, cout, h, w = out.shape
+            macs[0] += b * h * w * cout * module.weight[0].numel()
+
+    hooks = [m.register_forward_hook(count) for m in model.modules()
+             if isinstance(m, (Conv, ConvTranspose))]
+    with torch.no_grad():
+        model(images)
+    for hook in hooks:
+        hook.remove()
+    return macs[0]
+
+
+def cyclegan_step_flops(job, batch, size):
+    """FLOPs of one CycleGAN step: the generator step runs 6 generator
+    forwards and their backward (input and weight gradients, twice a
+    forward), 2 discriminator forwards and their input-gradient backward;
+    the discriminator step runs 4 discriminator forwards and their
+    backward: 18 generator and 16 discriminator forward-equivalents."""
+    images = torch.zeros(batch, size, size, 3, device=job.device)
+    g_macs, d_macs = (conv_macs(job.models[name], images) for name in ("g_ab", "d_a"))
+    return 2 * (18 * g_macs + 16 * d_macs)
+
+
+def own_loop_family(fa, family):
+    """A3C or CycleGAN through its main (which drives the lease iterator
+    itself), then a resume: finite losses, every model's parameters
+    moved, exactly one more step; steps/s, peak memory, checkpoint bytes
+    (and CycleGAN's FLOPs and MFU)."""
+    import importlib
+    from shockwave_tpu_torch.models import train_common
+    from shockwave_tpu_torch.profiling.device import nvidia_smi, peaks
+    module_name, head, steps = OWN_LOOP_FAMILIES[family]
+    module = importlib.import_module(f"shockwave_tpu_torch.workloads.{module_name}")
+    ckpt = tempfile.mkdtemp(prefix=f"swt_chip_{family}_")
+    try:
+        argv = [a.replace("%s", os.path.join(ckpt, "data")) for a in head]
+        tail = ["--checkpoint_dir", ckpt, "--throughput_estimation_interval", "2"]
+        fresh = module.build_job(argv + [str(steps)])[0]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        t0 = time.time()
+        job, _ = run_main(module, argv + [str(steps)] + tail)
+        wall = time.time() - t0
+        launches = dict(fa.LAUNCHES)
+        check(not any(launches.values()), f"families: {family} launched flash kernels {launches}")
+        keys = ("loss",) if family == "a3c" else ("g_loss", "d_loss")
+        losses = {f"{key}_{when}": float(metrics[key]) for key in keys
+                  for when, metrics in (("first", job.first_metrics), ("last", job.last_metrics))}
+        check(all(math.isfinite(v) for v in losses.values()), f"families: {family} losses {losses}")
+        models = {"model": (job.model, fresh.model)} if family == "a3c" else {
+            name: (job.models[name], fresh.models[name]) for name in job.models}
+        moved = {name: max(float((p - q).abs().max()) for p, q in
+                           zip(trained.state_dict().values(), start.state_dict().values()))
+                 for name, (trained, start) in models.items()}
+        check(all(m > 0 for m in moved.values()), f"families: {family} parameters did not move {moved}")
+        rate = steps_per_s(job)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        ckpt_bytes = os.path.getsize(train_common.checkpoint_path(ckpt))
+        result = {"steps": steps, "wall_s": wall, "steps_per_s": rate, "peak_mem_gib": peak_gib,
+                  "checkpoint_bytes": ckpt_bytes, "max_param_move": moved, **losses}
+        if family == "cyclegan":
+            flops = cyclegan_step_flops(fresh, 1, 128)
+            result.update(batch=1, image=128, flops_per_step=flops,
+                          mfu=flops * rate / peaks(nvidia_smi())[1][1])
+        else:
+            result.update(workers=4)
+        del job, fresh
+        resumed, out = run_main(module, argv + [str(steps + 1)] + tail)
+        check(f"TRAINED 1 steps (cumulative {steps + 1})" in out and resumed.step == steps + 1,
+              f"families: {family} resume did not train exactly one step")
+        result["resumed_to"] = resumed.step
+        del resumed
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return result
+
+
+def decode_rate(fn, prompt, batches, tokens_per_request):
+    """Generated tokens/s of `batches` request batches through `fn`,
+    host clock, synced at the end, after one warm call."""
+    fn(prompt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(batches):
+        fn(prompt)
+    torch.cuda.synchronize()
+    return batches * prompt.shape[0] * tokens_per_request / (time.perf_counter() - t0)
+
+
+def serving_phase(fa, device):
+    from shockwave_tpu_torch.models.decoder import DecoderLM
+    from shockwave_tpu_torch.runtime import rpc
+    from shockwave_tpu_torch.runtime.proto import control_pb2 as pb
+    from shockwave_tpu_torch.serving.measured import find_reports
+    from shockwave_tpu_torch.workloads.serving import serve
+
+    # 1. The trace's replica under a lease of SERVING_LEASE request batches.
+    job_id = 6
+    standin = StandInScheduler(rpc, pb, {job_id: (SERVING_LEASE, SERVING_LEASE)})
+    ckpt = tempfile.mkdtemp(prefix="swt_chip_serving_")
+    saved_env = dict(os.environ)
+    try:
+        os.environ.update(SWTPU_JOB_ID=str(job_id), SWTPU_WORKER_ID="0", SWTPU_ROUND_ID="0",
+                          SWTPU_SCHED_ADDR="127.0.0.1", SWTPU_SCHED_PORT=str(standin.port))
+        t0 = time.time()
+        served, out = run_main(serve, SERVING_COMMAND + [
+            "--num_steps", str(10**9), "--enable_lease_iterator", "--checkpoint_dir", ckpt])
+        lease_s = time.time() - t0
+        renewals = [c for c in standin.calls if c[1] == "UpdateLease" and c[2] == job_id]
+    finally:
+        os.environ.clear()
+        os.environ.update(saved_env)
+        standin.server.stop(grace=0)
+        shutil.rmtree(ckpt, ignore_errors=True)
+    check(served == SERVING_LEASE and f"SERVED {SERVING_LEASE} request batches" in out,
+          f"serving: served {served} request batches under a lease of {SERVING_LEASE}")
+    check("[REPLICA]\tcuda\tcuda_graph" in out, "serving: the replica did not run on cuda")
+    deltas = find_reports([line for c in renewals for line in c[5]])
+    samples = sum(d["sketch"]["n"] for d in deltas)
+    check(bool(deltas) and samples > 0,
+          f"serving: the renewals carried {len(deltas)} measured deltas, {samples} samples")
+
+    # 2. The CUDA graph against eager mode, and decode tokens/s.
+    decode, equal = {}, {}
+    for batch in (1, 8):
+        args = serve.build_parser().parse_args(SERVING_COMMAND + ["--batch_size", str(batch)])
+        model, prompt = serve.build_model_and_prompt(args, device)
+        tokens = args.tokens_per_request
+        graphed = serve.GraphedRequestBatch(model, prompt, tokens)
+        eager = serve.eager_request_batch(model, prompt, tokens)
+        equal[batch] = bool(torch.equal(graphed(prompt), eager))
+        check(equal[batch], f"serving: the CUDA graph's tokens differ from eager mode's at "
+                            f"batch {batch}")
+        for mode, fn in (("eager", lambda p: serve.eager_request_batch(model, p, tokens)),
+                         ("graph", graphed)):
+            decode[f"{mode}_b{batch}"] = decode_rate(fn, prompt, DECODE_BATCHES[mode], tokens)
+        del graphed, model
+    torch.cuda.empty_cache()
+
+    # 3. The decoder's full forward with flash (K1) against its einsum path.
+    b, t = DECODER_FLASH_SHAPE
+    flash = DecoderLM(max_len=t, dtype=torch.bfloat16, use_flash=True).to(device)
+    einsum = DecoderLM(max_len=t, dtype=torch.bfloat16).to(device)
+    einsum.load_state_dict(flash.state_dict())
+    gen = torch.Generator(device=device).manual_seed(0)
+    tokens = torch.randint(0, flash.vocab_size, (b, t), generator=gen, device=device)
+    with torch.no_grad():
+        fa.reset_launch_counts()
+        logits_flash = flash(tokens)
+        launches = dict(fa.LAUNCHES)
+        logits_einsum = einsum(tokens)
+    err = max_abs(logits_flash, logits_einsum)
+    check(bool(torch.isfinite(logits_flash).all()) and err <= LOGITS_TOL,
+          f"serving: decoder flash vs einsum logits differ by {err}")
+    layers = len(flash.blocks)
+    check(launches == {"flash_fwd": layers, "flash_dq": 0, "flash_dkv": 0},
+          f"serving: the decoder's flash forward launched {launches}")
+    try:
+        DecoderLM(max_len=t, use_flash=True).to(device)(tokens)
+        refused = False
+    except TypeError as e:
+        refused = "bfloat16" in str(e)
+    check(refused, "serving: use_flash in f32 on the card did not raise")
+    return {"lease": {"served": served, "renewals": len(renewals), "deltas": len(deltas),
+                      "samples": samples, "wall_s": lease_s},
+            "graph_equals_eager": equal, "decode_tokens_per_s": decode,
+            "tokens_per_request": SERVING_COMMAND[SERVING_COMMAND.index("--tokens_per_request") + 1],
+            "decoder_flash": {"shape": [b, t], "logits_max_abs": err, "launches": launches,
+                              "f32_refused": refused}}
 
 
 def accordion_rule(epoch_norms, launch_bs, max_bs, threshold=0.5):
@@ -1235,6 +1464,10 @@ def main() -> int:
     t0 = time.time()
     adapted = adapt_phase()
     emit("adapt", {"seconds": time.time() - t0, "nvidia_smi": smi, **adapted})
+
+    t0 = time.time()
+    served = serving_phase(fa, device)
+    emit("serving", {"seconds": time.time() - t0, "nvidia_smi": smi, **served})
 
     t0 = time.time()
     profiled = profile_phase(fa, device)

@@ -23,6 +23,15 @@ imports JAX). Every leaf is consumed exactly once: a missing leaf raises
   Conv kernel (kh, kw, in, out) -> weight (out, in, kh, kw)
   BatchNorm scale, bias; batch_stats mean, var -> running_mean, running_var
   <Block>_k/Conv_j, BatchNorm_j -> blocks.k.convs.j, blocks.k.norms.j
+`decoder_flax_to_state_dict`, for `DecoderLM`: embed/embedding,
+  block_i/self_attn/{query,key,value,out} as the Transformer's attention,
+  block_i/{norm1,norm2,mlp_in,mlp_out}, final_norm.
+`a3c_flax_to_state_dict`, for `ActorCritic`: Conv_i -> convs.i (with
+  its bias), Dense_i -> dense.i.
+`cyclegan_flax_to_state_dict`, for `Generator` and `Discriminator`:
+  Conv_i -> convs.i, InstanceNorm_i -> norms.i, ResidualBlock_i ->
+  blocks.i, and ConvTranspose_i kernel (3, 3, in, out) -> ups.i.weight
+  (in, out, 3, 3) flipped in H and W (`models/cyclegan.py` says why).
 """
 from __future__ import annotations
 
@@ -64,42 +73,43 @@ class _Leaves:
             raise ValueError(f"flax leaves left over: {sorted(self.flat)}")
 
 
+def _attention(take, src: str, dst: str, sd: dict) -> None:
+    """DenseGeneral query/key/value (D, H, Dh) and out (H, Dh, D)."""
+    for name in ("query", "key", "value"):
+        kernel = take(f"{src}/{name}/kernel")  # (D, H, Dh)
+        sd[f"{dst}.{name}.weight"] = _tensor(kernel.reshape(kernel.shape[0], -1).T)
+        sd[f"{dst}.{name}.bias"] = _tensor(take(f"{src}/{name}/bias").reshape(-1))
+    kernel = take(f"{src}/out/kernel")  # (H, Dh, D)
+    sd[f"{dst}.out.weight"] = _tensor(kernel.reshape(-1, kernel.shape[-1]).T)
+    sd[f"{dst}.out.bias"] = _tensor(take(f"{src}/out/bias"))
+
+
+def _norm(take, src: str, dst: str, sd: dict) -> None:
+    """A flax norm's scale and bias."""
+    sd[f"{dst}.weight"] = _tensor(take(f"{src}/scale"))
+    sd[f"{dst}.bias"] = _tensor(take(f"{src}/bias"))
+
+
 def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     """The port's state_dict for a flax `Seq2SeqTransformer` tree."""
     leaves = _Leaves(params)
     flat, take = leaves.flat, leaves.take
     sd: Dict[str, torch.Tensor] = {}
-
-    def attention(src: str, dst: str) -> None:
-        for name in ("query", "key", "value"):
-            kernel = take(f"{src}/{name}/kernel")  # (D, H, Dh)
-            sd[f"{dst}.{name}.weight"] = _tensor(
-                kernel.reshape(kernel.shape[0], -1).T)
-            sd[f"{dst}.{name}.bias"] = _tensor(
-                take(f"{src}/{name}/bias").reshape(-1))
-        kernel = take(f"{src}/out/kernel")  # (H, Dh, D)
-        sd[f"{dst}.out.weight"] = _tensor(kernel.reshape(-1, kernel.shape[-1]).T)
-        sd[f"{dst}.out.bias"] = _tensor(take(f"{src}/out/bias"))
-
-    def norm(src: str, dst: str) -> None:
-        sd[f"{dst}.weight"] = _tensor(take(f"{src}/scale"))
-        sd[f"{dst}.bias"] = _tensor(take(f"{src}/bias"))
-
     sd["shared_embedding.weight"] = _tensor(take("shared_embedding/embedding"))
     layers = sorted({m.group(1, 2) for m in (re.match(r"(enc|dec)_(\d+)/", p)
                                              for p in flat) if m})
     for side, index in layers:
         src, dst = f"{side}_{index}", f"{side}.{index}"
-        attention(f"{src}/self_attn", f"{dst}.self_attn")
+        _attention(take, f"{src}/self_attn", f"{dst}.self_attn", sd)
         if side == "dec":
-            attention(f"{src}/cross_attn", f"{dst}.cross_attn")
+            _attention(take, f"{src}/cross_attn", f"{dst}.cross_attn", sd)
         for i in range(3 if side == "dec" else 2):
-            norm(f"{src}/LayerNorm_{i}", f"{dst}.norms.{i}")
+            _norm(take, f"{src}/LayerNorm_{i}", f"{dst}.norms.{i}", sd)
         for i in range(2):
             sd[f"{dst}.mlp.{i}.weight"] = _tensor(take(f"{src}/Dense_{i}/kernel").T)
             sd[f"{dst}.mlp.{i}.bias"] = _tensor(take(f"{src}/Dense_{i}/bias"))
-    norm("enc_norm", "enc_norm")
-    norm("dec_norm", "dec_norm")
+    _norm(take, "enc_norm", "enc_norm", sd)
+    _norm(take, "dec_norm", "dec_norm", sd)
     leaves.done()
     return sd
 
@@ -181,4 +191,69 @@ def resnet_flax_to_state_dict(params: Mapping,
     _dense(take, "Dense_0", "head", sd)
     leaves.done()
     stats.done()
+    return sd
+
+
+def _conv(take, src: str, dst: str, sd: dict) -> None:
+    """A flax Conv kernel (kh, kw, in, out) and its bias."""
+    sd[f"{dst}.weight"] = _tensor(take(f"{src}/kernel").transpose(3, 2, 0, 1))
+    sd[f"{dst}.bias"] = _tensor(take(f"{src}/bias"))
+
+
+def _indices(flat, pattern: str):
+    """The sorted integer suffixes of the top-level modules `pattern`_i."""
+    return sorted({int(m.group(1)) for m in (re.match(pattern + r"_(\d+)/", p) for p in flat) if m})
+
+
+def decoder_flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's state_dict for a flax `DecoderLM` tree."""
+    leaves = _Leaves(params)
+    take = leaves.take
+    sd = {"embed.weight": _tensor(take("embed/embedding"))}
+    for i in _indices(leaves.flat, "block"):
+        src, dst = f"block_{i}", f"blocks.{i}"
+        _attention(take, f"{src}/self_attn", f"{dst}.self_attn", sd)
+        for name in ("norm1", "norm2"):
+            _norm(take, f"{src}/{name}", f"{dst}.{name}", sd)
+        for name in ("mlp_in", "mlp_out"):
+            _dense(take, f"{src}/{name}", f"{dst}.{name}", sd)
+    _norm(take, "final_norm", "final_norm", sd)
+    leaves.done()
+    return sd
+
+
+def a3c_flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's state_dict for a flax `ActorCritic` tree."""
+    leaves = _Leaves(params)
+    sd: Dict[str, torch.Tensor] = {}
+    for i in _indices(leaves.flat, "Conv"):
+        _conv(leaves.take, f"Conv_{i}", f"convs.{i}", sd)
+    for i in _indices(leaves.flat, "Dense"):
+        _dense(leaves.take, f"Dense_{i}", f"dense.{i}", sd)
+    leaves.done()
+    return sd
+
+
+def cyclegan_flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's state_dict for a flax CycleGAN `Generator` or
+    `Discriminator` tree."""
+    leaves = _Leaves(params)
+    sd: Dict[str, torch.Tensor] = {}
+
+    def convs_and_norms(take, flat, src: str, dst: str) -> None:
+        prefix = f"{src}/" if src else ""
+        local = [p[len(prefix):] for p in flat if p.startswith(prefix)]
+        for i in _indices(local, "Conv"):
+            _conv(take, f"{prefix}Conv_{i}", f"{dst}convs.{i}", sd)
+        for i in _indices(local, "InstanceNorm"):
+            _norm(take, f"{prefix}InstanceNorm_{i}", f"{dst}norms.{i}", sd)
+
+    convs_and_norms(leaves.take, leaves.flat, "", "")
+    for i in _indices(leaves.flat, "ResidualBlock"):
+        convs_and_norms(leaves.take, list(leaves.flat), f"ResidualBlock_{i}", f"blocks.{i}.")
+    for i in _indices(leaves.flat, "ConvTranspose"):
+        kernel = leaves.take(f"ConvTranspose_{i}/kernel")  # (kh, kw, in, out)
+        sd[f"ups.{i}.weight"] = _tensor(kernel.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1])
+        sd[f"ups.{i}.bias"] = _tensor(leaves.take(f"ConvTranspose_{i}/bias"))
+    leaves.done()
     return sd

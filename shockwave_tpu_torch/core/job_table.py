@@ -4,8 +4,8 @@ A copy of `shockwave_tpu/core/job_table.py`. The commands are the
 trace's; on a port worker they resolve under the port's run dir
 (`runtime/worker.py` `RUN_DIR`, `shockwave_tpu_torch/workloads`). The
 A3C / CycleGAN templates exist but are excluded from the generator
-table, as in the reference; the port has no workload for them yet
-(ROADMAP.md Queue 1, item 7).
+table, as in the reference; their mains are `workloads/rl/main.py` and
+`workloads/cyclegan/cyclegan.py`.
 """
 from __future__ import annotations
 

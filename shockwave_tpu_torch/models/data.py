@@ -1,8 +1,8 @@
 """Input pipelines of the port's workloads: a copy of
 `shockwave_tpu/models/data.py` for the families the port runs
 (`SyntheticBatches`, `ArrayBatches`, `SparseRowBatches`,
-`LazyImageFolderBatches` and the loaders of CIFAR-10, ImageNet, Multi30k,
-Wikitext-2 and ML-20M).
+`UnpairedBatches`, `LazyImageFolderBatches` and the loaders of CIFAR-10,
+ImageNet, Multi30k, Wikitext-2, ML-20M and monet2photo).
 
 numpy only, and kept byte-for-byte in behaviour: with the same seed the
 synthetic batches are the JAX package's (tokens int32, images NHWC
@@ -17,6 +17,7 @@ Real formats supported per family:
   wikitext2   wiki.train.tokens / train.txt word stream
   multi30k    train.de/train.en parallel sentence files
   ml20m       pro_sg/train.csv (uid,sid) interaction list
+  monet2photo trainA/ + trainB/ image folders (PIL) or monet2photo.npz
 """
 from __future__ import annotations
 
@@ -118,6 +119,44 @@ class SparseRowBatches:
             for j, r in enumerate(order[i * self._bs:(i + 1) * self._bs]):
                 batch[j, self._rows[r]] = 1.0
             yield (batch,)
+
+
+class UnpairedBatches:
+    """Two independently shuffled domains (CycleGAN A/B); each epoch
+    yields min(len(A), len(B)) // batch_size unpaired (a, b) batches.
+    Each domain is either an in-memory array or a list of image paths
+    decoded lazily per batch (an epoch touches only min(len(A), len(B))
+    images, so eagerly decoding a large domain would waste minutes and
+    GBs at every lease re-dispatch)."""
+
+    synthetic = False
+
+    def __init__(self, a, b, batch_size: int, image_size: int = 128,
+                 seed: int = 0):
+        if min(len(a), len(b)) < batch_size:
+            raise ValueError("domain smaller than batch_size")
+        self._a, self._b = a, b
+        self._bs = batch_size
+        self._size = image_size
+        self._rng = np.random.RandomState(seed)
+
+    def __len__(self):
+        return min(len(self._a), len(self._b)) // self._bs
+
+    def _take(self, domain, idx):
+        if isinstance(domain, np.ndarray):
+            return domain[idx]
+        out = np.empty((len(idx), self._size, self._size, 3), np.float32)
+        for j, r in enumerate(idx):
+            out[j] = _decode_image(domain[r], self._size, 127.5, -1.0)
+        return out
+
+    def __iter__(self):
+        oa = self._rng.permutation(len(self._a))
+        ob = self._rng.permutation(len(self._b))
+        for i in range(len(self)):
+            sl = slice(i * self._bs, (i + 1) * self._bs)
+            yield self._take(self._a, oa[sl]), self._take(self._b, ob[sl])
 
 
 def _load_cifar10(data_dir: str) -> Optional[tuple]:
@@ -348,6 +387,70 @@ def wikitext2(batch_size: int, seq_len: int = 35, vocab: int = 33278,
     def make(rng):
         tokens = rng.randint(1, vocab, size=(batch_size, seq_len + 1)).astype(np.int32)
         return tokens[:, :-1], tokens[:, 1:]
+    return SyntheticBatches(make, dataset_size // batch_size, seed)
+
+
+def _list_image_domain(folder: str) -> Optional[list]:
+    """Sorted image paths in `folder`; decoding happens per batch in
+    UnpairedBatches (float32 in [-1, 1], CycleGAN's tanh range)."""
+    if not os.path.isdir(folder):
+        return None
+    try:
+        from PIL import Image  # noqa: F401 - decoding needs PIL later
+    except ImportError:
+        return None
+    exts = (".jpg", ".jpeg", ".png")
+    names = sorted(n for n in os.listdir(folder)
+                   if n.lower().endswith(exts))
+    if not names:
+        return None
+    return [os.path.join(folder, n) for n in names]
+
+
+def _load_monet2photo(data_dir: str, image_size: int) -> Optional[tuple]:
+    """trainA/ (paintings) + trainB/ (photos) folders (lazy path lists),
+    or monet2photo.npz with A/B arrays."""
+    for cand in (data_dir, os.path.join(data_dir, "monet2photo")):
+        a = _list_image_domain(os.path.join(cand, "trainA"))
+        b = _list_image_domain(os.path.join(cand, "trainB"))
+        if a is not None and b is not None:
+            return a, b
+        npz = os.path.join(cand, "monet2photo.npz")
+        if os.path.exists(npz):
+            d = np.load(npz)
+            a, b = np.asarray(d["A"], np.float32), np.asarray(d["B"], np.float32)
+            if a.max() > 1.5:  # stored as uint8 range
+                a, b = a / 127.5 - 1.0, b / 127.5 - 1.0
+            a, b = (_resize_domain(x, image_size) for x in (a, b))
+            return a, b
+    return None
+
+
+def _resize_domain(x: np.ndarray, image_size: int) -> np.ndarray:
+    """Match stored images to the generators' (image_size, image_size)
+    input; nearest-neighbor index resampling keeps numpy-only."""
+    if x.shape[1] == image_size and x.shape[2] == image_size:
+        return x
+    ih = (np.arange(image_size) * x.shape[1] // image_size)
+    iw = (np.arange(image_size) * x.shape[2] // image_size)
+    return np.ascontiguousarray(x[:, ih][:, :, iw])
+
+
+def monet2photo(batch_size: int, image_size: int = 128,
+                dataset_size: int = 1193, seed: int = 0,
+                data_dir: Optional[str] = None):
+    """Unpaired image batches for CycleGAN (domains A=paintings, B=photos)."""
+    if data_dir:
+        real = _load_monet2photo(data_dir, image_size)
+        if real is not None and min(len(real[0]),
+                                    len(real[1])) >= batch_size:
+            return UnpairedBatches(real[0], real[1], batch_size,
+                                   image_size=image_size, seed=seed)
+
+    def make(rng):
+        a = (rng.rand(batch_size, image_size, image_size, 3) * 2 - 1)
+        b = (rng.rand(batch_size, image_size, image_size, 3) * 2 - 1)
+        return a.astype(np.float32), b.astype(np.float32)
     return SyntheticBatches(make, dataset_size // batch_size, seed)
 
 

@@ -575,6 +575,95 @@ class Trainer:
         return load_checkpoint(path, self.device)
 
 
+class LoopJob:
+    """A job whose main drives its own step (A3C and CycleGAN, which have
+    no single loss and SGD step for `Trainer`): a subclass sets `device`,
+    counts `step`, and gives `train_step(*batch) -> metrics` (metrics on
+    the device, `loss` among them), `state()` and `restore(state)`.
+    `run_loop` records the same run attributes `Trainer.run` does."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.step = 0
+        self.first_metrics: Optional[dict] = None
+        self.last_metrics: Optional[dict] = None
+        self.throughput_marks: list = []
+
+
+def run_loop(job: LoopJob, args, data_loader) -> int:
+    """The loop of the mains that drive the lease iterator themselves
+    (the reference's A3C and CycleGAN mains): one iterator step is one
+    `job.train_step` on the batch moved to the job's device, up to the
+    `args.num_steps` budget, with the `[THROUGHPUT_ESTIMATION]` lines, a
+    checkpoint save when the loop ends and the `TRAINED` line, as in
+    `Trainer.run` (whose checkpoint-ahead reconcile it keeps too).
+    Returns the steps run."""
+    use_lease = args.enable_lease_iterator
+    path = checkpoint_path(args.checkpoint_dir)
+
+    def load(p):
+        return load_checkpoint(p, job.device)
+
+    def save(p):
+        save_checkpoint(p, job.state())
+
+    if use_lease:
+        from ..runtime.iterator import LeaseIterator
+        iterator = LeaseIterator(data_loader, args.checkpoint_dir,
+                                 load_checkpoint_func=load, save_checkpoint_func=save,
+                                 synthetic_data=args.synthetic_data)
+        restored = iterator.load_checkpoint(path)
+    else:
+        iterator = _PlainIterator(data_loader)
+        restored = load(path)
+    if restored is not None:
+        job.restore(restored)
+    start_step = job.step
+    budget = args.num_steps
+    if use_lease and budget is not None and start_step >= budget:
+        iterator.report_checkpoint_ahead()
+
+    steps_done = window_steps = 0
+    host_batch_ref, dev_batch = None, None
+    try:
+        while not iterator.done and (budget is None or start_step + steps_done < budget):
+            for batch in iterator:
+                if batch is not host_batch_ref:
+                    host_batch_ref = batch
+                    dev_batch = tuple(upload(b, job.device) for b in batch)
+                metrics = job.train_step(*dev_batch)
+                if use_lease:
+                    iterator.set_sync_ref(metrics["loss"])
+                if job.first_metrics is None:
+                    job.first_metrics = metrics
+                job.last_metrics = metrics
+                steps_done += 1
+                window_steps += 1
+                if window_steps >= args.throughput_estimation_interval:
+                    sync(job.device)
+                    now = time.time()
+                    print(f"[THROUGHPUT_ESTIMATION]\t{now}\t{start_step + steps_done}",
+                          flush=True)
+                    job.throughput_marks.append((now, start_step + steps_done))
+                    window_steps = 0
+                if budget is not None and start_step + steps_done >= budget:
+                    iterator.complete()
+                    break
+            if not use_lease and (budget is None or start_step + steps_done >= budget):
+                break
+    finally:
+        sync(job.device)
+        if use_lease:
+            try:
+                iterator.save_checkpoint(path)
+            finally:
+                iterator.close()
+        else:
+            save(path)
+    print(f"TRAINED {steps_done} steps (cumulative {start_step + steps_done})", flush=True)
+    return steps_done
+
+
 class _PlainIterator:
     """Lease-free iterator with the lease iterator's surface."""
 

@@ -25,8 +25,7 @@ measured, each restoring the checkpoint the previous run saved.
         --oracle data/h100_throughputs.json [--families "LM (batch size 20)"]
 
 The jobs run on the card; `--device cpu` appends `--device cpu` to each
-command. A3C and CycleGAN have no port workload (ROADMAP.md Queue 1,
-item 7) and are refused.
+command.
 """
 import argparse
 import dataclasses
@@ -45,8 +44,6 @@ from ..core.job_table import JOB_TABLE, a3c, cyclegan
 
 WORKLOADS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                          "workloads")
-UNPORTED = {a3c().model, cyclegan().model}
-UNPORTED_ITEM = "ROADMAP.md Queue 1, item 7 (A3C and CycleGAN)"
 
 
 def run_once(template, data_dir, ckpt_dir, timeout):
@@ -95,8 +92,6 @@ def main(argv=None):
         if family not in by_model:
             raise SystemExit(f"unknown job type {family!r}; "
                              f"known: {sorted(by_model)}")
-        if family in UNPORTED:
-            raise SystemExit(f"{family} has no port workload yet: {UNPORTED_ITEM}")
         template = by_model[family]
         if args.device == "cpu":
             template = dataclasses.replace(

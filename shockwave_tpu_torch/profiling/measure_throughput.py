@@ -12,17 +12,21 @@ with the isolated rate under "null".
 
 Each row builds the trainer of its family's trace command
 (`core/job_table.py`) at the row's batch size through the family main's
-`build_trainer`, and times `Trainer.train_step` on one batch with
-two-point marginal timing (`core/timing.py`). The rate is the rate of the job the scheduler
-dispatches: on the card the Transformer runs the CUDA flash kernels, as
-its main turns them on (the JAX package's profiler builds its
-Transformer with flash off, while its trainer runs flash). The oracle's
-`__meta__.throughput_detail[worker_type]` records the card, its
-`nvidia-smi` name and power limit, and the torch version.
+`build_trainer` (A3C's and CycleGAN's `build_job`), and times its
+`train_step` on one batch with two-point marginal timing
+(`core/timing.py`); an A3C step is one update (a 20-step unroll and one
+Adam step over `--workers` environments, the row's batch size), a
+CycleGAN step updates both generators and both discriminators. The rate
+is the rate of the job the scheduler dispatches: on the card the
+Transformer runs the CUDA flash kernels, as its main turns them on (the
+JAX package's profiler builds its Transformer with flash off, while its
+trainer runs flash). The oracle's `__meta__.throughput_detail[worker_type]`
+records the card, its `nvidia-smi` name and power limit, and the torch
+version.
 
-Runs on the CUDA card unless `--device cpu` is given (one device).
-Not ported, and refused rather than skipped:
-- A3C and CycleGAN have no port workload (ROADMAP.md Queue 1, item 7);
+Runs on the CUDA card unless `--device cpu` is given (one device). A3C
+and CycleGAN are one-card families: their sf > 1 rows are skipped, as in
+the reference. Not ported, and refused rather than skipped:
 - a scale factor above 1 that the device count allows: a gang's rate
   is measured across as many cards (item 12); one above the device
   count is skipped, as in the reference. The committed h100 file's
@@ -32,6 +36,7 @@ Not ported, and refused rather than skipped:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import datetime
 import importlib
 import itertools
@@ -45,7 +50,7 @@ import tempfile
 import torch
 
 from ..core import job_table
-from ..core.constants import oracle_job_type
+from ..core.constants import DEFAULT_BS, oracle_job_type
 from ..core.timing import marginal_step_time
 from ..models.train_common import upload
 
@@ -60,34 +65,46 @@ FAMILY_BATCH_SIZES = {
     "CycleGAN": [1],
 }
 
-# Ported family -> its job template (the trace's command at a batch size).
+# Family -> its job template (the trace's command at a batch size; A3C's
+# batch is its number of environments, `--workers`).
 TEMPLATES = {"ResNet-18": job_table.resnet18, "ResNet-50": job_table.resnet50,
              "Transformer": job_table.transformer, "LM": job_table.lm,
-             "Recommendation": job_table.recommendation}
+             "Recommendation": job_table.recommendation,
+             "A3C": lambda bs: _with_flag(job_table.a3c(), f"--workers {bs}"),
+             "CycleGAN": lambda bs: _with_flag(job_table.cyclegan(), f"--batch_size {bs}")}
 # The data root the trace's %s stands for; absent datasets fall back to
 # the loaders' synthetic batches (as in measure_startup.py).
 DATA_DIR = os.path.join(tempfile.gettempdir(), "swtpu_data")
 
-UNPORTED_ITEM = "ROADMAP.md Queue 1, item 7 (A3C and CycleGAN)"
 GANG_ITEM = ("ROADMAP.md Queue 1, item 12 (sf > 1 oracle rows and the NCCL path "
              "on a machine with more than one card)")
 TRACING_ITEM = "ROADMAP.md Queue 1, item 3 (fleet tracing and /metrics for the port)"
 
 
+def _with_flag(template, flag: str):
+    """`template` with `flag` appended to its command (the last value of
+    a flag wins)."""
+    return dataclasses.replace(template, command=f"{template.command} {flag}")
+
+
 def build_family(model_name: str, bs: int, device: str = "cuda"):
     """(trainer, step_fn, batch): the trainer of the family's trace
-    command at batch size `bs`, built by its main's `build_trainer` on
-    `device`; `step_fn(trainer, batch) -> (trainer, loss)` over its
-    `train_step`; and one batch on the device."""
-    if model_name not in TEMPLATES:
-        raise NotImplementedError(f"{model_name} has no port workload yet: {UNPORTED_ITEM}")
+    command at batch size `bs`, built by its main's `build_trainer` (or
+    `build_job`) on `device`; `step_fn(trainer, batch) -> (trainer,
+    loss)` over its `train_step`; and one batch on the device (A3C's is
+    empty)."""
     template = TEMPLATES[model_name](bs)
     # "python3 <script>.py <cli>" under workloads/<working_directory>.
-    script, *cli = shlex.split(template.command % (DATA_DIR,))[1:]
+    command = template.command % (DATA_DIR,) if "%s" in template.command else template.command
+    script, *cli = shlex.split(command)[1:]
     module = ".".join(template.working_directory.split("/") + [script[:-len(".py")]])
     main = importlib.import_module(f"shockwave_tpu_torch.workloads.{module}")
-    trainer = main.build_trainer(cli + ["--device", device])
-    batch = tuple(upload(b, trainer.device) for b in next(iter(trainer.data_loader)))
+    if hasattr(main, "build_job"):
+        trainer, loader, _ = main.build_job(cli + ["--device", device])
+    else:
+        trainer = main.build_trainer(cli + ["--device", device])
+        loader = trainer.data_loader
+    batch = tuple(upload(b, trainer.device) for b in next(iter(loader)))
 
     def step(trainer, batch):
         return trainer, trainer.train_step(*batch)["loss"]
@@ -159,7 +176,7 @@ def measure_pair(fam_a, bs_a, fam_b, bs_b, steps, warmup, dt_cache=None,
     return k_a / dt_q, k_b / dt_q, dt_a, dt_b
 
 
-def provenance(device: str, steps: int, warmup: int) -> dict:
+def provenance(device: str, steps: int, warmup: int, rows) -> dict:
     """What the rates were measured on, for the oracle's __meta__."""
     on_card = device == "cuda"
     smi = None
@@ -175,9 +192,13 @@ def provenance(device: str, steps: int, warmup: int) -> dict:
         "cuda": torch.version.cuda,
         "python": platform.python_version(),
         "host": platform.node(),
-        "method": ("two-point marginal time of Trainer.train_step on one "
-                   "batch (core/timing.py), trainer built by the family "
-                   "main's build_trainer at the row's batch size"),
+        "method": ("two-point marginal time of train_step on one batch "
+                   "(core/timing.py), built by the family main's "
+                   "build_trainer (A3C's and CycleGAN's build_job) at the "
+                   "row's batch size"),
+        # What this run measured (FAMILY:BS): with --merge, the file's
+        # other rows keep the rates an earlier run wrote.
+        "rows": rows,
         "steps": steps,
         "warmup": warmup,
     }
@@ -229,10 +250,6 @@ def main(argv=None):
             p.error(f"unknown families {unknown}; known: {sorted(FAMILY_BATCH_SIZES)}")
         rows = [(family, bs) for family in args.families
                 for bs in FAMILY_BATCH_SIZES[family]]
-    unported = sorted({family for family, _ in rows} - set(TEMPLATES))
-    if unported:
-        p.error(f"{', '.join(unported)}: no port workload yet ({UNPORTED_ITEM})")
-
     oracle = {}
     if args.merge and os.path.exists(args.output):
         with open(args.output) as f:
@@ -246,6 +263,8 @@ def main(argv=None):
                 print(f"skip {family} bs={bs} sf={sf}: "
                       f"only {n_devices} devices", file=sys.stderr)
                 continue
+            if family in DEFAULT_BS and sf > 1:
+                continue  # A3C / CycleGAN are single-chip families
             tput = measure(family, bs, sf, args.steps, args.warmup, args.device)
             key = str((oracle_job_type(family, bs), sf))
             table.setdefault(key, {})["null"] = round(tput, 4)
@@ -268,7 +287,8 @@ def main(argv=None):
                   f"{rate_a:.3f} / {rate_b:.3f} steps/s", flush=True)
 
     oracle.setdefault("__meta__", {}).setdefault("throughput_detail", {})[
-        args.worker_type] = provenance(args.device, args.steps, args.warmup)
+        args.worker_type] = provenance(args.device, args.steps, args.warmup,
+                                       [f"{family}:{bs}" for family, bs in rows])
     os.makedirs(os.path.dirname(os.path.abspath(args.output)), exist_ok=True)
     with open(args.output, "w") as f:
         json.dump(oracle, f, indent=1, sort_keys=True)

@@ -11,10 +11,12 @@ Usage (from the repository root, so the default run dir resolves):
 The cards are counted with `torch.cuda.device_count()`; with none and no
 `--num_chips`, the daemon refuses to start (there is no CPU fallback).
 Jobs resolve their trace `working_directory` under the run dirs,
-`shockwave_tpu_torch/workloads` by default, which holds every family of
-the canonical trace (translation, language_modeling, recommendation,
-image_classification/{cifar10,imagenet}); serving, A3C (`rl`) and
-CycleGAN have no port workload yet (ROADMAP.md Queue 1, items 6 and 7).
+`shockwave_tpu_torch/workloads` by default, which holds every job type
+the reference's worker runs: the canonical trace's families
+(translation, language_modeling, recommendation,
+image_classification/{cifar10,imagenet}), A3C (`rl`), CycleGAN
+(`cyclegan`) and the serving replica (`serving`; the `serving` mode
+resolves under the static run dir, as in the reference).
 A job of scale factor N reaches N of this daemon's cards (or N daemons'
 cards) as N RunJobs whose commands carry the gang's rendezvous flags;
 each rank gets its own card and the same `--checkpoint_dir`, and the
@@ -195,9 +197,8 @@ def main(argv=None):
         run_dirs={"static": args.static_run_dir,
                   "accordion": args.accordion_run_dir,
                   "gns": args.gns_run_dir,
-                  # The port has no serving workload yet (ROADMAP.md
-                  # Queue 1, item 6); the key keeps the dispatcher's
-                  # mode table whole.
+                  # Serving replicas (workloads/serving/serve.py)
+                  # live in the same tree as the static training mains.
                   "serving": args.static_run_dir},
         data_dir=args.data_dir, checkpoint_dir=args.checkpoint_dir)
     signal.signal(signal.SIGINT, lambda s, f: daemon._shutdown())

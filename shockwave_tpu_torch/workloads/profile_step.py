@@ -2,12 +2,13 @@
 """Where a training step of one workload spends its time on the card.
 
     python3 -m shockwave_tpu_torch.workloads.profile_step \
-        [--family translation|lm|recommendation|cifar10|imagenet|flagship_long] \
+        [--family translation|lm|recommendation|cifar10|imagenet|a3c|cyclegan|flagship_long] \
         [--batch_size N] [--steps 5]
 
 Builds the family's full-width trainer through its main's
-`build_trainer` (the translation Transformer at batch 64 with flash on
-by default; the other families at their largest batch, `MAX_BS`) and
+`build_trainer` or `build_job` (the translation Transformer at batch 64
+with flash on by default; the other families at their largest batch,
+`MAX_BS`: A3C with 4 environments, CycleGAN at 1 x 128 x 128) and
 lets it take `--warmup` steps on one batch; `flagship_long` is
 `profiling/bench_gpu.py`'s flagship at T = 2048 (batch 4 by default,
 Adam, K1-K3 in the model). Then, on the same batch:
@@ -43,6 +44,8 @@ FAMILIES = {
     "recommendation": ("recommendation.train", 8192, lambda b: ["--batch_size", b]),
     "cifar10": ("image_classification.cifar10.main", 256, lambda b: ["--batch_size", b]),
     "imagenet": ("image_classification.imagenet.main", 128, lambda b: ["-b", b]),
+    "a3c": ("rl.main", 4, lambda b: ["--workers", b]),
+    "cyclegan": ("cyclegan.cyclegan", 1, lambda b: ["--batch_size", b]),
     "flagship_long": (None, 4, None),
 }
 LONG_SEQ = 2048
@@ -96,8 +99,12 @@ def main(argv=None) -> int:
         _, step = flagship(batch_size, LONG_SEQ)
     else:
         main_module = importlib.import_module(f"shockwave_tpu_torch.workloads.{module}")
-        trainer = main_module.build_trainer(head(str(batch_size)))
-        batch = tuple(upload(b, trainer.device) for b in next(iter(trainer.data_loader)))
+        if hasattr(main_module, "build_job"):
+            trainer, loader, _ = main_module.build_job(head(str(batch_size)))
+        else:
+            trainer = main_module.build_trainer(head(str(batch_size)))
+            loader = trainer.data_loader
+        batch = tuple(upload(b, trainer.device) for b in next(iter(loader)))
 
         def step():
             return trainer.train_step(*batch)

@@ -53,6 +53,11 @@ def test_the_scan_covers_the_port():
     for module in ("device", "measure_throughput", "extrapolate_sf", "measure_startup",
                    "bench_gpu"):
         assert f"shockwave_tpu_torch/profiling/{module}.py" in names
+    for path in ("obs/quantiles.py", "serving/__init__.py", "serving/load.py",
+                 "serving/measured.py", "models/decoder.py", "models/a3c.py",
+                 "models/cyclegan.py", "workloads/serving/serve.py", "workloads/rl/main.py",
+                 "workloads/cyclegan/cyclegan.py"):
+        assert f"shockwave_tpu_torch/{path}" in names
 
 
 @pytest.mark.parametrize("path", port_files(), ids=lambda p: os.path.relpath(p, REPO))

@@ -10,16 +10,17 @@ modules they need, against the JAX package's, on the CPU.
   step costs that reach the adaptive growth branch and the step cap.
 - `measure_throughput --device cpu` writes a file the JAX package's
   `read_throughputs` reads, skips the sf = 2 rows, writes symmetric pair
-  entries, and refuses A3C, CycleGAN, `--trace_out` and a gang's rate
-  (which needs as many cards as ranks).
+  entries, builds A3C and CycleGAN through their mains and skips their
+  sf > 1 rows (one-card families, as in the reference), and refuses
+  `--trace_out` and a gang's rate (which needs as many cards as ranks).
 - `extrapolate_sf` and the reference's write equal files from the same
   input, apart from the time stamp.
 - `measure_startup` spawns the trace's LM command (the CPU asked for) and
   writes the reference's `__meta__` keys.
 - `bench_gpu` at small widths on the CPU returns the reference bench's
   keys, and its FLOP count of a 2-layer model is the closed form.
-- The committed `data/h100_throughputs.json` holds the 23 measured
-  sf = 1 rows of the ported families, its provenance, and the sf 2 and 4
+- The committed `data/h100_throughputs.json` holds the 25 measured
+  sf = 1 rows of every family, its provenance, and the sf 2 and 4
   priors `extrapolate_sf` derives from them, marked as estimated; the
   JAX package's simulator plans all 120 canonical jobs on an `h100`
   cluster from it, and its physical scheduler seeds a gang job from the
@@ -256,15 +257,43 @@ def test_measure_throughput_writes_an_oracle_the_scheduler_reads(
     detail = meta["throughput_detail"]["h100"]
     assert detail["device"] == "cpu" and detail["nvidia_smi"] is None
     assert detail["torch"] == torch.__version__ and detail["measured_at"]
+    assert detail["rows"] == ["LM:5", "Recommendation:512"]
 
 
 @pytest.mark.parametrize("argv", [["--only", "A3C:4"], ["--only", "CycleGAN:1"],
-                                  ["--families", "LM", "A3C"]])
-def test_measure_throughput_refuses_a3c_and_cyclegan(argv, tmp_path, capsys):
-    with pytest.raises(SystemExit):
-        measure_throughput.main(["--device", "cpu", "--output", str(tmp_path / "o.json")] + argv)
-    assert "ROADMAP.md Queue 1, item 7" in capsys.readouterr().err
-    assert not (tmp_path / "o.json").exists()
+                                  ["--families", "A3C", "CycleGAN"]])
+def test_measure_throughput_refuses_a3c_and_cyclegan(argv, tmp_path, monkeypatch):
+    """A3C and CycleGAN are one-card families: a scale factor above 1 is
+    refused for them, as the reference skips it, even where the devices
+    would allow a gang; nothing is built and no row is written."""
+    monkeypatch.setattr(measure_throughput, "device_count", lambda device: 2)
+    monkeypatch.setattr(measure_throughput, "build_family",
+                        lambda *a, **kw: pytest.fail("built a one-card family at sf 2"))
+    out = tmp_path / "o.json"
+    measure_throughput.main(["--device", "cpu", "--output", str(out), "--scale_factors", "2"]
+                            + argv)
+    assert json.loads(out.read_text())["h100"] == {}
+
+
+@pytest.mark.parametrize("family", ["A3C", "CycleGAN"])
+def test_build_family_builds_a3c_and_cyclegan(family, one_thread, monkeypatch):
+    """A3C (4 environments) and CycleGAN (batch 1, 128 x 128, small
+    widths here) from their trace commands through their mains'
+    `build_job`; one step each through the step function."""
+    from shockwave_tpu_torch.models.cyclegan import Discriminator, Generator
+    from shockwave_tpu_torch.workloads.cyclegan import cyclegan
+    monkeypatch.setattr(cyclegan, "Generator",
+                        functools.partial(Generator, base_features=4, num_blocks=1))
+    monkeypatch.setattr(cyclegan, "Discriminator", functools.partial(Discriminator, base_features=4))
+    bs = measure_throughput.FAMILY_BATCH_SIZES[family][0]
+    job, step, batch = measure_throughput.build_family(family, bs, device="cpu")
+    assert job.step == 0 and job.device == torch.device("cpu")
+    if family == "A3C":
+        assert batch == () and job.env_state.ball_x.shape == (bs,)
+    else:
+        assert [b.shape for b in batch] == [(bs, 128, 128, 3)] * 2
+    state, loss = step(job, batch)
+    assert state is job and job.step == 1 and torch.isfinite(loss)
 
 
 def test_measure_throughput_refuses_trace_out(tmp_path):
@@ -360,11 +389,21 @@ def test_measure_startup_writes_the_references_meta(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("family", ["A3C", "CycleGAN"])
-def test_measure_startup_refuses_a3c_and_cyclegan(family, tmp_path):
+def test_measure_startup_refuses_a3c_and_cyclegan(family, tmp_path, monkeypatch):
+    """A3C and CycleGAN are no longer refused: their trace commands are
+    spawned under their run dirs (`rl`, `cyclegan`), the CPU asked for."""
     path = tmp_path / "o.json"
     path.write_text("{}")
-    with pytest.raises(SystemExit, match="Queue 1, item 7"):
-        measure_startup.main(["--oracle", str(path), "--families", family, "--device", "cpu"])
+    spawned = []
+    monkeypatch.setattr(measure_startup, "run_once",
+                        lambda template, *a: spawned.append(template) or 2.0)
+    measure_startup.main(["--oracle", str(path), "--families", family, "--device", "cpu",
+                          "--repeats", "1"])
+    template = {"A3C": job_table.a3c, "CycleGAN": job_table.cyclegan}[family]()
+    assert [t.command for t in spawned] == [f"{template.command} --device cpu"] * 2
+    assert {t.working_directory for t in spawned} == {template.working_directory}
+    meta = json.loads(path.read_text())["__meta__"]
+    assert meta["dispatch_overhead_s"]["h100"] == 2.0
 
 
 # ---------------------------------------------------------------------------
@@ -445,9 +484,9 @@ def test_the_h100_file_holds_the_ported_rows_and_their_provenance():
     throughputs, meta = ref_oracle.read_oracle(H100_FILE)
     assert list(throughputs) == ["h100"]
     expected = {(ref_constants.oracle_job_type(family, bs), 1)
-                for family in PORTED
-                for bs in measure_throughput.FAMILY_BATCH_SIZES[family]}
-    assert len(expected) == 23
+                for family, sizes in measure_throughput.FAMILY_BATCH_SIZES.items()
+                for bs in sizes}
+    assert len(expected) == 25
     measured = {key for key in throughputs["h100"] if key[1] == 1}
     assert measured == expected
     # Every other row is an sf 2 or 4 prior, listed as estimated with the
@@ -476,8 +515,7 @@ def test_the_h100_file_covers_every_job_type_of_the_canonical_trace():
     assert {(job_type, 1) for job_type in job_types} <= set(rows)
     # Accordion and GNS move a job's batch up to its family's MAX_BS.
     for family, max_bs in ref_constants.MAX_BS.items():
-        if family in PORTED:
-            assert (ref_constants.oracle_job_type(family, max_bs), 1) in rows
+        assert (ref_constants.oracle_job_type(family, max_bs), 1) in rows
 
 
 def simulate(trace, throughputs, cluster_spec, out):

@@ -26,7 +26,16 @@ REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 THIS_FILE = os.path.abspath(__file__)
 STEP_S = 1.0
 ROUND_S = 5.0
-BUDGETS = (5, 6)
+# One of the two jobs is preempted and resumed by construction. The
+# scheduler extends a running job's lease into the next round only when
+# its mid-round planning (half way through a round) picks the job again.
+# Once the job's InitJob has arrived, its in-flight time counts against
+# it, and the other job, which has had no time, wins the next round. So
+# the lease of the first job to run ends at the latest with the round
+# after the first mid-round that follows its InitJob: 1.5 rounds, 7.5 s,
+# in which at most 8 steps of STEP_S start. A budget of 10 steps or more
+# cannot finish in that job's first dispatch, whichever job runs first.
+BUDGETS = (10, 11)
 
 
 def free_port():
