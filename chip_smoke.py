@@ -14,13 +14,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    kernel's resident CTA slots (CTAs per SM x SMs) against its grid
    (`occupancy:`).
 3. kernels: each of the three flash-attention kernels (forward, dQ,
-   dK/dV) against its plain PyTorch version on the card, in bf16, at the
+   dK/dV) against its plain PyTorch version on the card. In bf16, at the
    main path's three attention variants (B=64, T=32, H=8, D=64),
    cross-attention with Tq != Tk, head dim 32, the bench shape
    (4, 2048, 8, 64) causal, a causal row that sees no key, and the edges
    of the kernels' two tile widths (32 and 64, chosen by
    `launch_config`): ragged T=17, Tq=32 against Tk=48, T=33, D=32 at
-   T=32 and the key-0 row at T=32. Times are medians of CUDA-event
+   T=32 and the key-0 row at T=32. Then each kernel's f32 instance
+   (f32 FMAs on the SIMT cores) against the plain f32 version, at the
+   main shape key-padded and causal, the decoder's full forward (8 x 64,
+   4 heads of 32, causal), the bench shape and the tile-64 edges; its
+   library time is SDPA's in f32. Times are medians of CUDA-event
    timings of CUDA-graph replays (device time, no host launch cost),
    beside the bound and the PyTorch library call
    (`scaled_dot_product_attention`, a yardstick the port never calls).
@@ -42,7 +46,15 @@ Phases, in order; any failure exits non-zero and prints no result:
    `WorkerDaemon`, in process, takes a `RunJob` for the trace's own
    Transformer command with a 10-step budget and runs the trainer as a
    subprocess on the card: it must see CUDA_VISIBLE_DEVICES=0, exit 0,
-   and its `Done` must report exactly 10 steps.
+   and its `Done` must report exactly 10 steps. That daemon runs with
+   fleet tracing (`trace_dir`) and `obs_port` 0, and the stand-in sends
+   its RunJob with a traceparent in the metadata: the trace directory
+   must hold a worker and a trainer span shard, whose runjob -> launch ->
+   trainer -> ckpt-save chain and done-report hang off the stand-in's
+   context across the process boundary; `/metrics` must count the one
+   RunJob and `/healthz` return the daemon's JSON (`trace:` line: the
+   trainer's start-up inside the dispatch, trainer.ts - launch.ts, the
+   save's and the trainer span's lengths).
 
 6. families: the LM, Recommendation, ResNet-18 and ResNet-50 trainers
    through their mains at their largest batch (`MAX_BS`: 80, 8192, 256,
@@ -78,8 +90,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    and 8: the tokens must be equal; decode tokens/s of each (generated
    tokens over the host clock, synced). Then `DecoderLM`'s full forward
    in bf16 with flash on (K1, one launch per layer) against its einsum
-   path at (8, 64), within the profile phase's logits tolerance, and
-   flash in f32 on the card must raise.
+   path at (8, 64), within the profile phase's logits tolerance. Then
+   the decoder in f32 (its default) with flash on: its logits against
+   the einsum path's and the gradient of a next-token loss through K1-K3's
+   f32 instances against the einsum path's, one launch of each per
+   layer.
 9. profile: the profilers of `shockwave_tpu_torch/profiling/`. First
    `bench_gpu`'s long path: the full-width flagship with flash on at
    batch 4 x T 2048 under Adam, timed by two-point marginal timing, with
@@ -117,12 +132,14 @@ Phases, in order; any failure exits non-zero and prints no result:
    measure nothing of a two-card NCCL gang's speed.
 
 Output: `device:`, `build:`, `ptxas:`, `spills:` and `occupancy:`
-lines, one `kernel_case:` JSON line per shape, `slice:`, `lease:`,
-`families:`, `adapt:`, `serving:`, `profile:` and `gang:` lines, then the
-`{"kernels": [...]}` line (with the main case's forward + backward
-through the port's autograd path and through
-`scaled_dot_product_attention`), the `nvidia-smi` name and power limit,
-and as the last line `{"ok": true, "device": {...}}`.
+lines, one `kernel_case:` JSON line per shape and dtype, `slice:`,
+`lease:`, `trace:`, `families:`, `adapt:`, `serving:`, `profile:` and
+`gang:` lines, then the `{"kernels": [...]}` line (the six kernel
+instances, with the main case's forward + backward through the port's
+autograd path and through `scaled_dot_product_attention`), the
+`nvidia-smi` name and power limit, and as the last line `{"ok": true,
+"device": {...}}`. Copied alone into a directory without the port beside
+it, the script exits 2 and prints no result.
 """
 import contextlib
 import io
@@ -157,6 +174,20 @@ CASES = (
     ("short_masked_row0", 1, 32, 32, 2, 64, True, "key0"),
 )
 MAIN_CASE = "main_enc_self"  # 12 of the 18 launches per step are key-padded, non-causal
+# The f32 instances of K1-K3, in the same form: the main shape key-padded
+# and causal, the decoder's full forward in the serving phase (8 x 64,
+# 4 heads of 32, causal), the bench shape, and the tile-64 edges.
+F32_CASES = (
+    ("main_enc_self_f32", 64, 32, 32, 8, 64, False, "tail"),
+    ("main_dec_self_f32", 64, 32, 32, 8, 64, True, "tail"),
+    ("decoder_f32", 8, 64, 64, 4, 32, True, None),
+    ("bench_causal_f32", 4, 2048, 2048, 8, 64, True, None),
+    ("masked_row0_f32", 1, 128, 128, 2, 64, True, "key0"),
+    ("short_ragged_f32", 3, 17, 17, 2, 64, True, "tail"),
+    ("cross_32x48_f32", 4, 32, 48, 2, 64, False, "tail"),
+    ("short_head_dim_32_f32", 2, 32, 32, 4, 32, True, "tail"),
+)
+MAIN_CASE_F32 = "main_enc_self_f32"
 
 # Tolerances, against the plain version on the same bf16 inputs:
 # - forward output: max abs error 2e-2, on rows that see a key (a row that
@@ -169,11 +200,25 @@ MAIN_CASE = "main_enc_self"  # 12 of the 18 launches per step are key-padded, no
 #   rounded to bf16 in both, so a rounding flip moves a term by 2^-8.
 # - the row that sees no key: dQ, dK and dV of row/key 0 exactly 0.
 FWD_TOL, LSE_TOL, GRAD_TOL = 2e-2, 1e-3, 5e-2
+# The f32 instances against the plain f32 versions (cuBLAS with TF32 off)
+# on unit-normal inputs: every term is f32 in both and only the order of
+# the sums differs (the kernels' online softmax rescales as it goes), a
+# few f32 ulps of values of order 1. Output and lse: max abs error 1e-4;
+# dQ, dK, dV: max|kernel - plain| / max|plain| <= 1e-4.
+F32_TOL = 1e-4
 # Flash against einsum logits of the full-width model in bf16, max abs
 # (the slice at T = 32, the profile phase at T = 2048): the einsum path
 # rounds the scores to bf16 before its softmax, the kernels keep them in
 # f32, and the difference travels through 12 bf16 layers.
 LOGITS_TOL = 5e-2
+
+# The Pallas kernel each CUDA kernel replaces (both of its instances), and
+# the errors of the kernel cases that the kernels line reports for it.
+REPLACES = {"flash_fwd": "shockwave_tpu/ops/flash_attention.py:40",
+            "flash_dq": "shockwave_tpu/ops/flash_attention.py:167",
+            "flash_dkv": "shockwave_tpu/ops/flash_attention.py:222"}
+ERR_KEYS = {"flash_fwd": ("fwd_max_abs",), "flash_dq": ("dq_max_abs",),
+            "flash_dkv": ("dkv_max_abs",)}
 
 STEPS = 30
 BATCH = 64
@@ -226,6 +271,12 @@ SERVING_COMMAND = ("--batch_size 1 --base_rps 8 --peak_rps 16 --period_s 14400 -
 SERVING_LEASE = 100
 DECODE_BATCHES = {"eager": 10, "graph": 100}
 DECODER_FLASH_SHAPE = (8, 64)
+# The decoder in f32 with flash (K1-K3's f32 instances) against its
+# einsum path: logits max abs, and the parameter gradients' max abs error
+# over their largest entry. Both are f32 throughout with TF32 off; the kernels sum in another
+# order and the einsum path's softmax masks with f32's minimum where the
+# kernels use -1e30, which gives the same zeros.
+DECODER_F32_TOL = 1e-4
 # The gang phase: two ranks on the one card. The Transformer (global
 # batch 64, gns) under a lease of 10 steps renewed to 20, then a resume
 # granted 5; ResNet-18 (global batch 128, accordion) for 6 steps.
@@ -256,6 +307,16 @@ def check(ok: bool, what: str) -> None:
         raise Failure(what)
 
 
+def check_launches(fa, launches, per_kernel, where, dtype=torch.bfloat16, kernels=None):
+    """The `dtype` instance of each of `kernels` (default: K1-K3) launched
+    exactly `per_kernel` times and every other instance never."""
+    suffix = fa.KERNEL_DTYPES[dtype]
+    kernels = fa.KERNELS if kernels is None else kernels
+    want = {kname + sfx: per_kernel if sfx == suffix and kname in kernels else 0
+            for sfx in fa.KERNEL_DTYPES.values() for kname in fa.KERNELS}
+    check(launches == want, f"{where}: launched {launches}, not {want}")
+
+
 def emit(tag: str, obj) -> None:
     print(f"{tag}: {json.dumps(obj, sort_keys=True)}", flush=True)
 
@@ -271,7 +332,7 @@ def spills(log: str):
             continue
         spill = re.search(r"(\d+) bytes spill stores", line)
         if spill and int(spill.group(1)) and entry:
-            k = re.search(r"(flash_[a-z]+_kernel)ILi(\d+)ELi(\d+)E", entry)
+            k = re.search(r"(flash_(?:fwd|dq|dkv)(?:_f32)?_kernel)ILi(\d+)ELi(\d+)E", entry)
             name = f"{k.group(1)}<{k.group(2)}, {k.group(3)}>" if k else entry
             found[name] = int(spill.group(1))
     return found
@@ -285,7 +346,7 @@ def main_shape_slots(fa, occupancy, sms):
     per_sm = {(r["kernel"], r["d"], r["tile"]): r["ctas_per_sm"] for r in occupancy}
     rows = []
     for kname in fa.LAUNCHES:
-        length = tk if kname == "flash_dkv" else tq  # K3 tiles the keys
+        length = tk if kname.startswith("flash_dkv") else tq  # K3 tiles the keys
         rows.append({"kernel": kname, "d": d, "tile": tile,
                      "slots": per_sm[(kname, d, tile)] * sms,
                      "grid": b * h * -(-length // tile)})
@@ -339,13 +400,14 @@ def visible_rows(mask, b, h, tq, tk, causal, device):
     return keys.any(dim=1, keepdim=True).expand(-1, tq)
 
 
-def work(b, tq, tk, h, d, causal):
+def work(b, tq, tk, h, d, causal, esize=2):
     """Bytes each kernel must move (each input read once, each output
-    written once) and the FLOPs it must do at this shape: the causal
-    kernels need only the (q, k) pairs with k <= q."""
+    written once; q, k, v, dO and the outputs of `esize` bytes) and the
+    FLOPs it must do at this shape: the causal kernels need only the
+    (q, k) pairs with k <= q."""
     bh = b * h
     pairs = tq * (tq + 1) // 2 if causal else tq * tk
-    q_bytes, kv_bytes = bh * tq * d * 2, bh * tk * d * 2
+    q_bytes, kv_bytes = bh * tq * d * esize, bh * tk * d * esize
     row_bytes, mask_bytes = bh * tq * 4, b * tk
     return {
         "flash_fwd": (2 * q_bytes + 2 * kv_bytes + row_bytes + mask_bytes,
@@ -368,13 +430,19 @@ def max_rel(a, b):
     return max_abs(a, b) / max(float(b.float().abs().max()), 1e-30)
 
 
-def kernel_case(fa, case, seed, device, rates):
+def kernel_case(fa, case, seed, device, rates, dtype=torch.bfloat16):
+    """One shape through K1-K3's `dtype` instance against the plain
+    versions on the same inputs: errors (checked against the dtype's
+    tolerances), the time of each kernel and of its plain version, its
+    bound at `rates` (bytes/s, FLOP/s of the dtype), and the library's."""
     name, b, tq, tk, h, d, causal, mask_kind = case
     gen = torch.Generator(device=device).manual_seed(seed)
     bh, scale = b * h, 1.0 / math.sqrt(d)
+    f32 = dtype == torch.float32
+    suffix = fa.KERNEL_DTYPES[dtype]
 
     def randn(t):
-        return torch.randn(bh, t, d, generator=gen, device=device).to(torch.bfloat16)
+        return torch.randn(bh, t, d, generator=gen, device=device).to(dtype)
 
     q, k, v, g = randn(tq), randn(tk), randn(tk), randn(tq)
     mask = make_mask(mask_kind, b, tk, gen, device)
@@ -397,10 +465,11 @@ def kernel_case(fa, case, seed, device, rates):
             "dkv_max_abs": max(max_abs(dk, dk_p), max_abs(dv, dv_p))}
     for t in (out, lse, dq, dk, dv):
         check(bool(torch.isfinite(t.float()).all()), f"{name}: non-finite kernel output")
-    check(errs["fwd_max_abs"] <= FWD_TOL, f"{name}: forward error {errs['fwd_max_abs']}")
-    check(errs["lse_max_abs"] <= LSE_TOL, f"{name}: lse error {errs['lse_max_abs']}")
+    fwd_tol, lse_tol, grad_tol = (F32_TOL,) * 3 if f32 else (FWD_TOL, LSE_TOL, GRAD_TOL)
+    check(errs["fwd_max_abs"] <= fwd_tol, f"{name}: forward error {errs['fwd_max_abs']}")
+    check(errs["lse_max_abs"] <= lse_tol, f"{name}: lse error {errs['lse_max_abs']}")
     for key in ("dq_max_rel", "dk_max_rel", "dv_max_rel"):
-        check(errs[key] <= GRAD_TOL, f"{name}: {key} {errs[key]}")
+        check(errs[key] <= grad_tol, f"{name}: {key} {errs[key]}")
     if mask_kind == "key0":
         zero = all(float(t[:, 0].abs().max()) == 0.0 for t in (dq, dk, dv))
         check(zero, f"{name}: the row that sees no key leaks gradient")
@@ -415,11 +484,11 @@ def kernel_case(fa, case, seed, device, rates):
         "flash_dkv": (graph_ms(lambda: fa.attention_dkv(q, k, v, *bwd)),
                       graph_ms(lambda: fa.attention_dkv_plain(q, k, v, *bwd))),
     }
-    record = {"case": name, "shape": [b, tq, tk, h, d], "causal": causal,
+    record = {"case": name, "shape": [b, tq, tk, h, d], "causal": causal, "dtype": str(dtype),
               "mask": mask_kind, "tile": fa.launch_config(tq, tk, d), **errs, "kernels": {}}
-    for kname, (nbytes, flops) in work(b, tq, tk, h, d, causal).items():
+    for kname, (nbytes, flops) in work(b, tq, tk, h, d, causal, q.element_size()).items():
         t_bytes, t_ops = nbytes / bw * 1e3, flops / flops_peak * 1e3
-        record["kernels"][kname] = {
+        record["kernels"][kname + suffix] = {
             "ms": times[kname][0], "plain_ms": times[kname][1],
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -509,8 +578,7 @@ def slice_phase(fa, train, device):
         trainer = train.main(argv)
         wall = time.time() - t0
         launches = dict(fa.LAUNCHES)
-        for kname, n in launches.items():
-            check(n == 18 * STEPS, f"slice: {kname} launched {n} times, not {18 * STEPS}")
+        check_launches(fa, launches, 18 * STEPS, "slice")
         first = float(trainer.first_metrics["loss"])
         last = float(trainer.last_metrics["loss"])
         check(math.isfinite(first) and math.isfinite(last), "slice: non-finite loss")
@@ -620,9 +688,65 @@ def lease_dispatch(fa, train, standin, ckpt, round_id, steps):
     return trainer, out, log, launches
 
 
+def http_get(port, path):
+    """(status, body) of a GET on the loopback."""
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=10) as r:
+        return r.status, r.read().decode()
+
+
+def trace_readings(trace_dir, sender):
+    """The daemon leg's fleet trace: the worker's and the trainer's span
+    shards in `trace_dir`, read with the port's copy of the reference's
+    shard reader. The chain runjob -> launch -> trainer -> ckpt-save must
+    hang off the stand-in scheduler's RunJob context `sender`, with a
+    done-report under the runjob span. Returns the trainer's start-up
+    inside the dispatch (trainer.ts - launch.ts), the save's and the
+    trainer span's lengths."""
+    from shockwave_tpu_torch.obs.shard import discover_shards, load_shard
+    shards = [load_shard(path) for path in discover_shards(trace_dir)]
+    roles = sorted(s["role"] for s in shards if s is not None)
+    check(roles == ["trainer", "worker"], f"trace: shards of roles {roles}")
+    events = [dict(span, role=s["role"]) for s in shards for span in s["spans"]]
+    named = {}
+    for e in events:
+        named.setdefault(e["name"], []).append(e)
+    counts = {name: len(named.get(name, [])) for name in
+              ("runjob", "launch", "trainer", "ckpt-load", "ckpt-save", "done-report")}
+    check(all(counts[n] == 1 for n in ("runjob", "launch", "trainer", "done-report"))
+          and counts["ckpt-save"] >= 1, f"trace: spans {counts}")
+    runjob, launch, trainer, done = (named[n][0] for n in
+                                     ("runjob", "launch", "trainer", "done-report"))
+    save = named["ckpt-save"][-1]
+    links = {"runjob": (runjob["parent_id"], sender.span_id),
+             "launch": (launch["parent_id"], runjob["span_id"]),
+             "trainer": (trainer["parent_id"], launch["span_id"]),
+             "ckpt-save": (save["parent_id"], trainer["span_id"]),
+             "done-report": (done["parent_id"], runjob["span_id"])}
+    broken = {name: link for name, link in links.items() if link[0] != link[1]}
+    check(not broken, f"trace: broken parent links {broken}")
+    traces = {e["trace_id"] for e in (runjob, launch, trainer, save, done)}
+    check(traces == {sender.trace_id}, f"trace: trace ids {traces}, not {sender.trace_id}")
+    check(trainer["role"] == "trainer" and launch["role"] == "worker",
+          "trace: the trainer span is not in the trainer's shard")
+    check(trainer["args"]["steps"] == DAEMON_STEPS and launch["args"]["steps"] == DAEMON_STEPS,
+          f"trace: the spans count {trainer['args']['steps']} / {launch['args']['steps']} "
+          f"steps, not {DAEMON_STEPS}")
+    return {"shards": roles, "spans": counts, "chain": ["runjob", "launch", "trainer",
+                                                        "ckpt-save"],
+            "trainer_start_s": trainer["ts"] - launch["ts"],
+            "ckpt_save_ms": save["dur"] * 1e3, "trainer_ms": trainer["dur"] * 1e3,
+            "launch_ms": launch["dur"] * 1e3, "send_to_runjob_ms":
+            (runjob["ts"] - runjob["args"]["send_ts"]) * 1e3}
+
+
 def lease_phase(fa, train):
+    import atexit
+
     import grpc
     from shockwave_tpu_torch.models import train_common
+    from shockwave_tpu_torch.obs import names as obs_names
+    from shockwave_tpu_torch.obs import propagation
     from shockwave_tpu_torch.runtime import clients, rpc
     from shockwave_tpu_torch.runtime.proto import control_pb2 as pb
     from shockwave_tpu_torch.runtime.worker import WorkerDaemon
@@ -646,6 +770,10 @@ def lease_phase(fa, train):
 
     ckpt = tempfile.mkdtemp(prefix="swt_chip_lease_")
     work = tempfile.mkdtemp(prefix="swt_chip_daemon_")
+    # The daemon binds this process's span shard, which flushes at exit
+    # (LIFO: before this removal runs).
+    trace_dir = tempfile.mkdtemp(prefix="swt_chip_trace_")
+    atexit.register(shutil.rmtree, trace_dir, True)
     launched = []
     real_popen = subprocess.Popen
 
@@ -673,8 +801,7 @@ def lease_phase(fa, train):
         path = train_common.checkpoint_path(ckpt)
         check(os.path.exists(path), "lease: no checkpoint at lease expiry")
         ckpt_bytes = os.path.getsize(path)
-        for kname, n in launches.items():
-            check(n == 18 * LEASE_CAP, f"lease: {kname} launched {n} times, not {18 * LEASE_CAP}")
+        check_launches(fa, launches, 18 * LEASE_CAP, "lease")
         lease_steps_per_s = steps_per_s(trainer)
         check(math.isfinite(float(trainer.last_metrics["loss"])), "lease: non-finite loss")
 
@@ -683,12 +810,13 @@ def lease_phase(fa, train):
         resumed, out, log, resumed_launches = lease_dispatch(fa, train, standin, ckpt, 1, STEPS)
         check(f"TRAINED {rest} steps (cumulative {STEPS})" in out and resumed.step == STEPS,
               f"lease: the second dispatch did not resume at {LEASE_CAP} and end at {STEPS}")
-        for kname, n in resumed_launches.items():
-            check(n == 18 * rest, f"lease: resumed {kname} launched {n} times, not {18 * rest}")
+        check_launches(fa, resumed_launches, 18 * rest, "lease: the resumed dispatch")
         del trainer, resumed
         torch.cuda.empty_cache()
 
-        # 2. The worker daemon dispatches the trace's command to the card.
+        # 2. The worker daemon dispatches the trace's command to the
+        # card, with fleet tracing and /metrics on: the stand-in sends
+        # its RunJob under a span context of its own.
         subprocess.Popen = RecordingPopen
         for key in list(os.environ):
             if key.startswith("SWTPU_"):
@@ -702,7 +830,9 @@ def lease_phase(fa, train):
             worker_type="h100", sched_addr="127.0.0.1", sched_port=standin.port,
             worker_port=worker_port, num_chips=1,
             run_dirs={mode: workloads for mode in ("static", "accordion", "gns", "serving")},
-            data_dir=os.path.join(work, "data"), checkpoint_dir=os.path.join(work, "ckpt"))
+            data_dir=os.path.join(work, "data"), checkpoint_dir=os.path.join(work, "ckpt"),
+            trace_dir=trace_dir, obs_port=0)
+        sender = propagation.new_root_context()
         try:
             job = pb.JobDescription(
                 job_id=1, command=("python3 train.py -data %s/translation/"
@@ -712,10 +842,14 @@ def lease_phase(fa, train):
             with grpc.insecure_channel(f"127.0.0.1:{worker_port}") as channel:
                 t_runjob = time.time()
                 rpc.Stub(channel, "shockwave_tpu.SchedulerToWorker").RunJob(
-                    pb.RunJobRequest(jobs=[job], worker_id=0, round_id=0), timeout=30)
+                    pb.RunJobRequest(jobs=[job], worker_id=0, round_id=0), timeout=30,
+                    metadata=propagation.rpc_metadata(sender, send_ts=t_runjob))
             deadline = time.time() + 600
             while 1 not in standin.done and time.time() < deadline:
                 time.sleep(0.2)
+            obs_port = daemon._obs_server.port
+            metrics = http_get(obs_port, "/metrics")
+            health = http_get(obs_port, "/healthz")
         finally:
             daemon._shutdown()
             daemon.join()
@@ -730,6 +864,15 @@ def lease_phase(fa, train):
         check(done_steps == [DAEMON_STEPS] and done_times[0] > 0,
               f"lease: Done reported {done_steps} steps in {done_times} s, not {DAEMON_STEPS}")
         t_init = standin.first("InitJob", 1)[0]
+        sample = f"{obs_names.WORKER_JOBS_DISPATCHED_TOTAL.name} 1"
+        check(metrics[0] == 200 and sample in metrics[1].splitlines(),
+              f"trace: /metrics answered {metrics[0]} without '{sample}'")
+        health_json = json.loads(health[1])
+        check(health[0] == 200 and health_json["status"] == "ok"
+              and health_json["worker_type"] == "h100" and health_json["worker_ids"] == [0],
+              f"trace: /healthz answered {health}")
+        traced = trace_readings(trace_dir, sender)
+        traced.update(runjobs_sent=1, metrics_sample=sample, healthz=health_json)
     finally:
         subprocess.Popen = real_popen
         clients.IteratorToSchedulerClient.update_lease = real_update_lease
@@ -747,7 +890,8 @@ def lease_phase(fa, train):
                            "cuda_visible_devices": env["CUDA_VISIBLE_DEVICES"],
                            "returncode": proc.returncode,
                            "runjob_to_initjob_s": t_init - t_runjob,
-                           "runjob_to_done_s": t_done - t_runjob}}
+                           "runjob_to_done_s": t_done - t_runjob},
+            "trace": traced}
 
 
 def families_phase(fa):
@@ -963,20 +1107,54 @@ def serving_phase(fa, device):
     check(bool(torch.isfinite(logits_flash).all()) and err <= LOGITS_TOL,
           f"serving: decoder flash vs einsum logits differ by {err}")
     layers = len(flash.blocks)
-    check(launches == {"flash_fwd": layers, "flash_dq": 0, "flash_dkv": 0},
-          f"serving: the decoder's flash forward launched {launches}")
-    try:
-        DecoderLM(max_len=t, use_flash=True).to(device)(tokens)
-        refused = False
-    except TypeError as e:
-        refused = "bfloat16" in str(e)
-    check(refused, "serving: use_flash in f32 on the card did not raise")
+    check_launches(fa, launches, layers, "serving: the decoder's bf16 flash forward",
+                   kernels=("flash_fwd",))
+    del flash, einsum
     return {"lease": {"served": served, "renewals": len(renewals), "deltas": len(deltas),
                       "samples": samples, "wall_s": lease_s},
             "graph_equals_eager": equal, "decode_tokens_per_s": decode,
             "tokens_per_request": SERVING_COMMAND[SERVING_COMMAND.index("--tokens_per_request") + 1],
-            "decoder_flash": {"shape": [b, t], "logits_max_abs": err, "launches": launches,
-                              "f32_refused": refused}}
+            "decoder_flash": {"shape": [b, t], "logits_max_abs": err, "launches": launches},
+            "decoder_flash_f32": decoder_flash_f32(fa, device, tokens)}
+
+
+def decoder_flash_f32(fa, device, tokens):
+    """`DecoderLM` in f32 (its default) with flash on against its einsum
+    path on the same weights and tokens: the logits, then the gradient of
+    a next-token loss through K1-K3's f32 instances against the einsum
+    path's. One launch of each per layer, and of no bf16 kernel."""
+    from shockwave_tpu_torch.models.decoder import DecoderLM
+    import torch.nn.functional as F
+    t = tokens.shape[1]
+    flash = DecoderLM(max_len=t, use_flash=True).to(device)
+    einsum = DecoderLM(max_len=t).to(device)
+    einsum.load_state_dict(flash.state_dict())
+
+    def loss_and_grads(model):
+        logits = model(tokens)
+        loss = F.cross_entropy(logits[:, :-1].reshape(-1, logits.shape[-1]),
+                               tokens[:, 1:].reshape(-1))
+        loss.backward()
+        return logits.detach(), {n: p.grad for n, p in model.named_parameters()}
+
+    fa.reset_launch_counts()
+    logits_flash, grads_flash = loss_and_grads(flash)
+    launches = dict(fa.LAUNCHES)
+    logits_einsum, grads_einsum = loss_and_grads(einsum)
+    err = max_abs(logits_flash, logits_einsum)
+    # Relative to the largest gradient entry of any parameter: the key
+    # projections' biases have a zero gradient in exact arithmetic (a
+    # softmax ignores a shift), so each path gives them rounding noise.
+    scale = max(float(g.abs().max()) for g in grads_einsum.values())
+    grad_err = max(max_abs(grads_flash[n], grads_einsum[n]) for n in grads_einsum) / scale
+    check(bool(torch.isfinite(logits_flash).all()) and err <= DECODER_F32_TOL,
+          f"serving: the f32 decoder's flash vs einsum logits differ by {err}")
+    check(grad_err <= DECODER_F32_TOL,
+          f"serving: the f32 decoder's flash vs einsum gradients differ by {grad_err} (relative)")
+    check_launches(fa, launches, len(flash.blocks),
+                   "serving: the f32 decoder's flash forward and backward", torch.float32)
+    return {"shape": list(tokens.shape), "logits_max_abs": err, "grad_max_rel": grad_err,
+            "launches": launches}
 
 
 def accordion_rule(epoch_norms, launch_bs, max_bs, threshold=0.5):
@@ -1104,9 +1282,7 @@ def profile_phase(fa, device):
                                              seq=LONG_SEQ, prefix=prefix)
     launches = dict(fa.LAUNCHES)
     steps = long[f"{prefix}_steps_run"]
-    for kname, n in launches.items():
-        check(n == 18 * steps, f"profile: {kname} launched {n} times in {steps} bench "
-                               f"steps, not {18 * steps}")
+    check_launches(fa, launches, 18 * steps, f"profile: {steps} bench steps")
     first, last = long[f"{prefix}_loss_first"], long[f"{prefix}_loss_last"]
     check(math.isfinite(first) and math.isfinite(last), "profile: non-finite bench loss")
     check(last < first, f"profile: the bench loss did not fall ({first} -> {last})")
@@ -1240,7 +1416,7 @@ def gang_dispatch(dispatcher, standin, outputs, job, round_id):
     return members, dones, text
 
 
-def check_gang_dispatch(name, members, dones, text, steps, step, launches_per_step):
+def check_gang_dispatch(fa, name, members, dones, text, steps, step, launches_per_step):
     """The checks every gang dispatch must pass (see the module docstring)."""
     for m in members:
         check(f"[GANG] rank {m['rank']} of {GANG_RANKS}: backend gloo, device cuda" in text
@@ -1249,10 +1425,8 @@ def check_gang_dispatch(name, members, dones, text, steps, step, launches_per_st
         check(m["steps"] == steps and m["step"] == step,
               f"gang: {name} rank {m['rank']} ran {m['steps']} steps to {m['step']}, "
               f"not {steps} to {step}")
-        for kname, n in m["launches"].items():
-            check(n == launches_per_step * steps,
-                  f"gang: {name} rank {m['rank']} launched {kname} {n} times, "
-                  f"not {launches_per_step} x {steps}")
+        check_launches(fa, m["launches"], launches_per_step * steps,
+                       f"gang: {name} rank {m['rank']}")
     check(dones == {r: steps for r in range(GANG_RANKS)},
           f"gang: {name} Done reported {dones}, not {steps} from each rank")
     check([m["writes"] for m in members] == [1] + [0] * (GANG_RANKS - 1),
@@ -1288,7 +1462,7 @@ def gang_against_one_process(name, gang_ckpt, one, fresh, tol, gang_loss):
             "one_process_steps_per_s": steps_per_s(one)}
 
 
-def gang_phase():
+def gang_phase(fa):
     from shockwave_tpu_torch.runtime import rpc
     from shockwave_tpu_torch.runtime.clients import WorkerToSchedulerClient
     from shockwave_tpu_torch.runtime.dispatcher import Dispatcher
@@ -1334,7 +1508,7 @@ def gang_phase():
         t0 = time.time()
         first, dones, text = gang_dispatch(dispatcher, standin, outputs, transformer, 0)
         first_s = time.time() - t0
-        check_gang_dispatch("transformer", first, dones, text, GANG_CAP, GANG_CAP, 18)
+        check_gang_dispatch(fa, "transformer", first, dones, text, GANG_CAP, GANG_CAP, 18)
         check(all(m["grad_norm_sq_small"] is not None for m in first)
               and len({m["grad_norm_sq_small"] for m in first}) == 1,
               f"gang: the ranks' GNS small norms differ: {first}")
@@ -1342,7 +1516,7 @@ def gang_phase():
         t0 = time.time()
         resumed, dones, text = gang_dispatch(dispatcher, standin, outputs, transformer, 1)
         resume_s = time.time() - t0
-        check_gang_dispatch("transformer resume", resumed, dones, text, GANG_RESUME, total, 18)
+        check_gang_dispatch(fa, "transformer resume", resumed, dones, text, GANG_RESUME, total, 18)
         resnet = dict(
             job_id=rn_job, working_directory="image_classification/cifar10",
             needs_data_dir=True,
@@ -1352,7 +1526,7 @@ def gang_phase():
         t0 = time.time()
         rn, dones, text = gang_dispatch(dispatcher, standin, outputs, resnet, 0)
         resnet_s = time.time() - t0
-        check_gang_dispatch("resnet18", rn, dones, text, GANG_RESNET_STEPS, GANG_RESNET_STEPS, 0)
+        check_gang_dispatch(fa, "resnet18", rn, dones, text, GANG_RESNET_STEPS, GANG_RESNET_STEPS, 0)
 
         # One process on the global batch, the same main and mode.
         ckpt = os.path.join(work, "one")
@@ -1405,10 +1579,15 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card only",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    here = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(here, "shockwave_tpu_torch")):
+        print(f"chip_smoke: the port (shockwave_tpu_torch/) is not beside this script in "
+              f"{here}; run it from a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, here)
     from shockwave_tpu_torch.ops import _build
     from shockwave_tpu_torch.ops import flash_attention as fa
-    from shockwave_tpu_torch.profiling.device import nvidia_smi, peaks
+    from shockwave_tpu_torch.profiling.device import F32_FLOPS, nvidia_smi, peaks
     from shockwave_tpu_torch.workloads.translation import train
 
     device = torch.device("cuda")
@@ -1420,7 +1599,7 @@ def main() -> int:
     emit("device", {"name": kind, "nvidia_smi": smi, "count": torch.cuda.device_count(),
                     "torch": torch.__version__, "cuda": torch.version.cuda,
                     "peaks_from": variant, "peak_bytes_per_s": rates[0],
-                    "peak_bf16_flops": rates[1]})
+                    "peak_bf16_flops": rates[1], "peak_f32_flops": F32_FLOPS[variant]})
 
     t0 = time.time()
     path = _build.build()
@@ -1444,6 +1623,10 @@ def main() -> int:
     for seed, case in enumerate(CASES):
         cases[case[0]] = kernel_case(fa, case, seed, device, rates)
         emit("kernel_case", cases[case[0]])
+    for seed, case in enumerate(F32_CASES):
+        cases[case[0]] = kernel_case(fa, case, seed, device, (rates[0], F32_FLOPS[variant]),
+                                     torch.float32)
+        emit("kernel_case", cases[case[0]])
     kernel_s = time.time() - t0
 
     t0 = time.time()
@@ -1453,9 +1636,11 @@ def main() -> int:
 
     t0 = time.time()
     leased = lease_phase(fa, train)
+    traced = leased.pop("trace")
     leased.update(seconds=time.time() - t0, slice_steps_per_s=sliced["steps_per_s"],
                   nvidia_smi=smi)
     emit("lease", leased)
+    emit("trace", dict(traced, nvidia_smi=smi))
 
     t0 = time.time()
     fams = families_phase(fa)
@@ -1474,30 +1659,50 @@ def main() -> int:
     emit("profile", {"seconds": time.time() - t0, "nvidia_smi": smi, **profiled})
 
     t0 = time.time()
-    ganged = gang_phase()
+    ganged = gang_phase(fa)
     emit("gang", {"seconds": time.time() - t0, "nvidia_smi": smi, **ganged})
 
-    main_case = cases[MAIN_CASE]
-    replaces = {"flash_fwd": "shockwave_tpu/ops/flash_attention.py:40",
-                "flash_dq": "shockwave_tpu/ops/flash_attention.py:167",
-                "flash_dkv": "shockwave_tpu/ops/flash_attention.py:222"}
-    main_cases = [c for n, c in cases.items() if n.startswith("main_")]
-    err_keys = {"flash_fwd": ("fwd_max_abs",), "flash_dq": ("dq_max_abs",),
-                "flash_dkv": ("dkv_max_abs",)}
     kernels = []
-    for kname, source_line in replaces.items():
-        k = main_case["kernels"][kname]
-        kernels.append({
-            "name": kname, "route": "cuda",
-            "source": "shockwave_tpu_torch/csrc/flash_attention.cu",
-            "replaces": source_line, "launches": sliced["launches"][kname],
-            "max_abs_err": max(c[e] for c in main_cases for e in err_keys[kname]),
-            "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-            "bound_by": k["bound_by"],
-            "library_ms": main_case["library_fwd_ms"] if kname == "flash_fwd" else None,
-            "at": f"{MAIN_CASE} {main_case['shape']}",
-            "bench_ms": cases["bench_causal"]["kernels"][kname]["ms"],
-            "bench_long_launches": profiled["launches"][kname]})
+    # Each dtype's row is timed at the shape its main-path launches come
+    # from: the trainer's (bf16) and the f32 decoder's (f32), which runs
+    # no f32 launch at the trainer's shape; the f32 rows give that shape
+    # beside it.
+    for dtype, at_name, prefix, bench in (
+            (torch.bfloat16, MAIN_CASE, "main_", "bench_causal"),
+            (torch.float32, "decoder_f32", ("main_", "decoder_"), "bench_causal_f32")):
+        suffix = fa.KERNEL_DTYPES[dtype]
+        at_case = cases[at_name]
+        main_cases = [c for n, c in cases.items()
+                      if n.startswith(prefix) and c["dtype"] == str(dtype)]
+        # The main path's launches: the slice (bf16), the f32 decoder's
+        # forward and backward in the serving phase (f32).
+        launched = (sliced["launches"] if dtype == torch.bfloat16
+                    else served["decoder_flash_f32"]["launches"])
+        for kname, source_line in REPLACES.items():
+            k = at_case["kernels"][kname + suffix]
+            row = {
+                "name": kname + suffix, "route": "cuda",
+                "source": "shockwave_tpu_torch/csrc/flash_attention.cu",
+                "replaces": source_line, "launches": launched[kname + suffix],
+                "max_abs_err": max(c[e] for c in main_cases for e in ERR_KEYS[kname]),
+                "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                "bound_by": k["bound_by"],
+                "library_ms": at_case["library_fwd_ms"] if kname == "flash_fwd" else None,
+                "at": f"{at_name} {at_case['shape']}",
+                "bench_ms": cases[bench]["kernels"][kname + suffix]["ms"],
+                "bench_library_ms": (cases[bench]["library_fwd_ms"] if kname == "flash_fwd"
+                                     else None),
+                "bench_long_launches": profiled["launches"][kname + suffix]}
+            if dtype == torch.float32:
+                main_case = cases[MAIN_CASE_F32]
+                m = main_case["kernels"][kname + suffix]
+                row.update({"main_at": f"{MAIN_CASE_F32} {main_case['shape']}",
+                            "main_ms": m["ms"], "main_plain_ms": m["plain_ms"],
+                            "main_bound_ms": m["bound_ms"],
+                            "main_library_ms": (main_case["library_fwd_ms"]
+                                                if kname == "flash_fwd" else None)})
+            kernels.append(row)
+    main_case = cases[MAIN_CASE]
     print(json.dumps({"kernels": kernels, "fwd_bwd_ms": main_case["flash_fwd_bwd_ms"],
                       "library_fwd_bwd_ms": main_case["library_fwd_bwd_ms"],
                       "kernel_phase_s": kernel_s, "total_s": time.time() - t_start}),

@@ -1,5 +1,6 @@
-"""Crash-safe checkpoint writes: a copy of the footer recipe of
-`shockwave_tpu/core/durable_io.py` (`write_durable`, `verify_footer`).
+"""Crash-safe writes: a copy of the footer recipe of
+`shockwave_tpu/core/durable_io.py` (`write_durable`, `verify_footer`) and
+of its `write_text_atomic` (span shards).
 
 The port keeps its own copy so that it imports nothing of the JAX
 package. The bytes on disk are the same: payload, then crc32(payload)
@@ -49,6 +50,23 @@ def write_durable(path: str, payload: bytes, magic: bytes,
         # lands at `path`: POSIX does not order two renames in one
         # directory across a crash.
         fsync_dir(os.path.dirname(path) or ".")
+    os.replace(tmp, path)
+    fsync_dir(os.path.dirname(path) or ".")
+    return path
+
+
+def write_text_atomic(path: str, text: str) -> str:
+    """Crash-safe plain-text artifact write: tmp file, fsync, atomic
+    rename, directory fsync — the same replacement discipline as
+    `write_durable` but without the CRC footer, for artifacts that must
+    stay directly readable by external tools (the span shards the
+    scheduler's merge reads): a crash leaves either whole-old or
+    whole-new, never torn."""
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        f.write(text)
+        f.flush()
+        os.fsync(f.fileno())
     os.replace(tmp, path)
     fsync_dir(os.path.dirname(path) or ".")
     return path

@@ -2,7 +2,8 @@
 //
 // These replace the three Pallas TPU kernels of
 // shockwave_tpu/ops/flash_attention.py (_fa_kernel, _dq_kernel,
-// _dkv_kernel). They take (BH, T, D) bf16 tensors, D in {32, 64}, a
+// _dkv_kernel). They take (BH, T, D) bf16 tensors (each also has an f32
+// instance, below the bf16 kernels, on the SIMT cores), D in {32, 64}, a
 // (B, Tk) uint8 key mask (1 = attend, nullptr = all attend, row = bh /
 // heads) and keep the reference's masking constants: causal entries are
 // set to -1e30, masked keys get a -1e30 additive bias after that, and
@@ -25,6 +26,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -736,6 +739,268 @@ __global__ void __launch_bounds__(DkvShape<D, kBlock>::kCtaThreads)
 }
 
 // ---------------------------------------------------------------------------
+// K1-K3 in f32: flash_fwd_f32, flash_dq_f32, flash_dkv_f32.
+//
+// The same three functions on (BH, T, D) f32 tensors, as the Pallas
+// kernels compute them in f32 (every dot there runs with
+// preferred_element_type=f32): full f32 FMAs on the SIMT cores, no TF32,
+// so the results hold the plain f32 versions' digits. Masking is the bf16
+// kernels': -1e30 after the causal where, then the key bias, -inf past a
+// ragged end (so such keys never move a max), p = 0 where s <= -5e29 in
+// the backward.
+//
+// Simple first: a CTA owns kBlock rows of one (batch, head), two threads
+// per row, each holding the even or odd half of the row's D values in
+// registers (the two halves of a dot meet in one shuffle); the other
+// side's tiles (K/V for K1 and K2, Q/dO for K3) are staged in shared
+// memory, kBlock rows at a time, and read as broadcasts (a warp reads two
+// neighbouring floats of one row). K1 keeps an online softmax over the
+// k-tiles, as the bf16 kernel does. Tiles are loaded synchronously: no
+// cp.async ring, no tensor cores.
+//
+// Bound on an H100 SXM (3.35 TB/s, 67 f32 TFLOP/s on the SIMT cores): at
+// the trainer's shape (BH 512, T 32, D 64) in f32 K1 moves 16.9 MB for
+// 0.13 GFLOP, 5.0 us by bytes; at the bench shape (4, 2048, 8, 64) causal
+// it does 17.2 GFLOP, 257 us by operations.
+// ---------------------------------------------------------------------------
+template <int D, int kBlock>
+struct F32Shape {
+  static constexpr int kCtaThreads = 2 * kBlock;  // two threads per row
+  // Two (kBlock, D) tiles and two kBlock rows of f32 (K1 and K2: K, V and
+  // the key bias; K3: Q, dO, lse and delta): at most 33,280 bytes.
+  static constexpr size_t kSmemBytes = (2 * kBlock * D + 2 * kBlock) * sizeof(float);
+  static_assert(kSmemBytes <= 48 * 1024, "static shared-memory limit");
+};
+
+// Rows [row0, row0 + n) of a (rows, D) f32 matrix into an n-row shared
+// tile with 16-byte loads; rows past `rows` are zero-filled.
+template <int D, int kThr>
+__device__ __forceinline__ void load_tile_f32(float* dst, const float* src, int row0, int rows,
+                                              int n) {
+  constexpr int kChunks = D / 4;
+  for (int i = threadIdx.x; i < n * kChunks; i += kThr) {
+    const int r = i / kChunks, c = i % kChunks;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < rows) val = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * D + c * 4);
+    *reinterpret_cast<float4*>(dst + r * D + c * 4) = val;
+  }
+}
+
+// This thread's half (values h, h + 2, ...) of row `row` of a (rows, D)
+// matrix; zeros past `rows`.
+template <int D>
+__device__ __forceinline__ void load_half_row(float (&x)[D / 2], const float* src, int row, int rows,
+                                              int h) {
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) x[i] = row < rows ? src[(size_t)row * D + 2 * i + h] : 0.f;
+}
+
+template <int D>
+__device__ __forceinline__ void store_half_row(float* dst, const float (&x)[D / 2], float scale,
+                                               int row, int rows, int h) {
+  if (row >= rows) return;
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dst[(size_t)row * D + 2 * i + h] = x[i] * scale;
+}
+
+// x . y over the full row: this thread's half against `y` (a shared row),
+// four partial sums, then the pair's other half by one shuffle. Both
+// threads of the pair get the same value.
+template <int D>
+__device__ __forceinline__ float pair_dot(const float (&x)[D / 2], const float* y, int h) {
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) s[i & 3] = fmaf(x[i], y[2 * i + h], s[i & 3]);
+  const float part = (s[0] + s[1]) + (s[2] + s[3]);
+  return part + __shfl_xor_sync(0xffffffffu, part, 1);
+}
+
+// acc += a * y (this thread's half of a shared row y).
+template <int D>
+__device__ __forceinline__ void pair_axpy(float (&acc)[D / 2], float a, const float* y, int h) {
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = fmaf(a, y[2 * i + h], acc[i]);
+}
+
+// K1 in f32. Grid (BH, q-tiles), heaviest causal tile first.
+template <int D, int kBlock>
+__global__ void __launch_bounds__(F32Shape<D, kBlock>::kCtaThreads)
+    flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const uint8_t* __restrict__ mask,
+                         float* __restrict__ out, float* __restrict__ lse, int heads, int tq,
+                         int tk, float scale, int causal) {
+  constexpr int kThr = F32Shape<D, kBlock>::kCtaThreads;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sK = reinterpret_cast<float*>(smem);
+  float* sV = sK + kBlock * D;
+  float* sBias = sV + kBlock * D;
+
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;
+  const int row = qt * kBlock + (threadIdx.x >> 1), h = threadIdx.x & 1;
+  const float* kb = k + (size_t)bh * tk * D;
+  const float* vb = v + (size_t)bh * tk * D;
+  const uint8_t* mask_row = mask != nullptr ? mask + (size_t)(bh / heads) * tk : nullptr;
+  int nk = (tk + kBlock - 1) / kBlock;
+  if (causal) nk = min(nk, qt + 1);  // k-tiles past the diagonal see nothing
+
+  float qr[D / 2], o[D / 2];
+  load_half_row<D>(qr, q + (size_t)bh * tq * D, row, tq, h);
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m = kNegInf, l = 0.f;  // running max and normaliser of the row
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * kBlock;
+    __syncthreads();  // every thread is done with the last tile
+    load_tile_f32<D, kThr>(sK, kb, k0, tk, kBlock);
+    load_tile_f32<D, kThr>(sV, vb, k0, tk, kBlock);
+    for (int j = threadIdx.x; j < kBlock; j += kThr) sBias[j] = key_bias(mask_row, k0 + j, tk);
+    __syncthreads();
+
+    // Scale, causal -1e30, then the key bias, as _fa_kernel orders them.
+    float s[kBlock];
+    float mx = m;
+#pragma unroll
+    for (int j = 0; j < kBlock; ++j) {
+      float x = pair_dot<D>(qr, sK + j * D, h) * scale;
+      if (causal && row < k0 + j) x = kNegInf;
+      x += sBias[j];
+      s[j] = x;
+      mx = fmaxf(mx, x);
+    }
+    const float corr = expf(m - mx);
+    m = mx;
+    l *= corr;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= corr;
+#pragma unroll
+    for (int j = 0; j < kBlock; ++j) {
+      const float p = expf(s[j] - m);
+      l += p;
+      pair_axpy<D>(o, p, sV + j * D, h);
+    }
+  }
+
+  const float lc = fmaxf(l, 1e-30f);
+  store_half_row<D>(out + (size_t)bh * tq * D, o, 1.f / lc, row, tq, h);
+  if (h == 0 && row < tq) lse[(size_t)bh * tq + row] = m + logf(lc);
+}
+
+// K2 in f32: dQ. Grid (BH, q-tiles), heaviest causal tile first.
+template <int D, int kBlock>
+__global__ void __launch_bounds__(F32Shape<D, kBlock>::kCtaThreads)
+    flash_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ g,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        const uint8_t* __restrict__ mask, float* __restrict__ dq, int heads,
+                        int tq, int tk, float scale, int causal) {
+  constexpr int kThr = F32Shape<D, kBlock>::kCtaThreads;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sK = reinterpret_cast<float*>(smem);
+  float* sV = sK + kBlock * D;
+  float* sBias = sV + kBlock * D;
+
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;
+  const int row = qt * kBlock + (threadIdx.x >> 1), h = threadIdx.x & 1;
+  const float* kb = k + (size_t)bh * tk * D;
+  const float* vb = v + (size_t)bh * tk * D;
+  const uint8_t* mask_row = mask != nullptr ? mask + (size_t)(bh / heads) * tk : nullptr;
+  int nk = (tk + kBlock - 1) / kBlock;
+  if (causal) nk = min(nk, qt + 1);
+
+  float qr[D / 2], gr[D / 2], acc[D / 2];
+  load_half_row<D>(qr, q + (size_t)bh * tq * D, row, tq, h);
+  load_half_row<D>(gr, g + (size_t)bh * tq * D, row, tq, h);
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  // A row past tq reads 0 and its dQ is never written.
+  const float row_lse = row < tq ? lse[(size_t)bh * tq + row] : 0.f;
+  const float row_delta = row < tq ? delta[(size_t)bh * tq + row] : 0.f;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * kBlock;
+    __syncthreads();
+    load_tile_f32<D, kThr>(sK, kb, k0, tk, kBlock);
+    load_tile_f32<D, kThr>(sV, vb, k0, tk, kBlock);
+    for (int j = threadIdx.x; j < kBlock; j += kThr) sBias[j] = key_bias(mask_row, k0 + j, tk);
+    __syncthreads();
+
+#pragma unroll 4
+    for (int j = 0; j < kBlock; ++j) {
+      float x = pair_dot<D>(qr, sK + j * D, h) * scale;
+      if (causal && row < k0 + j) x = kNegInf;
+      x += sBias[j];
+      const float p = x <= kNegInf * 0.5f ? 0.f : expf(x - row_lse);
+      const float dp = pair_dot<D>(gr, sV + j * D, h);
+      pair_axpy<D>(acc, p * (dp - row_delta) * scale, sK + j * D, h);
+    }
+  }
+  store_half_row<D>(dq + (size_t)bh * tq * D, acc, 1.f, row, tq, h);
+}
+
+// K3 in f32: dK and dV. Grid (BH, k-tiles); two threads per key row walk
+// the q-tiles from the causal diagonal on.
+template <int D, int kBlock>
+__global__ void __launch_bounds__(F32Shape<D, kBlock>::kCtaThreads)
+    flash_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ g,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         const uint8_t* __restrict__ mask, float* __restrict__ dk,
+                         float* __restrict__ dv, int heads, int tq, int tk, float scale,
+                         int causal) {
+  constexpr int kThr = F32Shape<D, kBlock>::kCtaThreads;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sQ = reinterpret_cast<float*>(smem);
+  float* sG = sQ + kBlock * D;
+  float* sLse = sG + kBlock * D;
+  float* sDelta = sLse + kBlock;
+
+  const int bh = blockIdx.x;
+  const int key = blockIdx.y * kBlock + (threadIdx.x >> 1), h = threadIdx.x & 1;
+  const float* qb = q + (size_t)bh * tq * D;
+  const float* gb = g + (size_t)bh * tq * D;
+  const uint8_t* mask_row = mask != nullptr ? mask + (size_t)(bh / heads) * tk : nullptr;
+  const float bias = key_bias(mask_row, key, tk);
+  const int nq = (tq + kBlock - 1) / kBlock;
+  const int qt0 = causal ? (int)blockIdx.y : 0;  // q-tiles above the diagonal see none of these keys
+
+  float kr[D / 2], vr[D / 2], dk_acc[D / 2], dv_acc[D / 2];
+  load_half_row<D>(kr, k + (size_t)bh * tk * D, key, tk, h);
+  load_half_row<D>(vr, v + (size_t)bh * tk * D, key, tk, h);
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  for (int qt = qt0; qt < nq; ++qt) {
+    const int q0 = qt * kBlock;
+    __syncthreads();
+    load_tile_f32<D, kThr>(sQ, qb, q0, tq, kBlock);
+    load_tile_f32<D, kThr>(sG, gb, q0, tq, kBlock);
+    for (int j = threadIdx.x; j < kBlock; j += kThr) {
+      const bool valid = q0 + j < tq;  // rows past tq read 0
+      sLse[j] = valid ? lse[(size_t)bh * tq + q0 + j] : 0.f;
+      sDelta[j] = valid ? delta[(size_t)bh * tq + q0 + j] : 0.f;
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int j = 0; j < kBlock; ++j) {
+      const int query = q0 + j;
+      float x = pair_dot<D>(kr, sQ + j * D, h) * scale;
+      if (causal && query < key) x = kNegInf;
+      x += bias;
+      const float p = (x <= kNegInf * 0.5f || query >= tq) ? 0.f : expf(x - sLse[j]);
+      const float dpt = pair_dot<D>(vr, sG + j * D, h);
+      pair_axpy<D>(dv_acc, p, sG + j * D, h);
+      pair_axpy<D>(dk_acc, p * (dpt - sDelta[j]) * scale, sQ + j * D, h);
+    }
+  }
+  store_half_row<D>(dk + (size_t)bh * tk * D, dk_acc, 1.f, key, tk, h);
+  store_half_row<D>(dv + (size_t)bh * tk * D, dv_acc, 1.f, key, tk, h);
+}
+
+// ---------------------------------------------------------------------------
 // Launchers.
 // ---------------------------------------------------------------------------
 
@@ -826,6 +1091,62 @@ int occupancy(Kernel kernel, int threads, size_t smem, int* out) {
   return 0;
 }
 
+// The f32 kernels use at most 33,280 bytes of shared memory, under the
+// 48 KB a launch gets without opting in.
+template <int D, int kBlock>
+int launch_fwd_f32(const void* q, const void* k, const void* v, const void* mask, void* out,
+                   void* lse, int bh, int heads, int tq, int tk, float scale, int causal,
+                   cudaStream_t stream) {
+  using Shape = F32Shape<D, kBlock>;
+  const dim3 grid(bh, (tq + kBlock - 1) / kBlock);
+  flash_fwd_f32_kernel<D, kBlock><<<grid, Shape::kCtaThreads, Shape::kSmemBytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const uint8_t*>(mask), static_cast<float*>(out), static_cast<float*>(lse),
+      heads, tq, tk, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+template <int D, int kBlock>
+int launch_dq_f32(const void* q, const void* k, const void* v, const void* g, const void* lse,
+                  const void* delta, const void* mask, void* dq, int bh, int heads, int tq,
+                  int tk, float scale, int causal, cudaStream_t stream) {
+  using Shape = F32Shape<D, kBlock>;
+  const dim3 grid(bh, (tq + kBlock - 1) / kBlock);
+  flash_dq_f32_kernel<D, kBlock><<<grid, Shape::kCtaThreads, Shape::kSmemBytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(g), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const uint8_t*>(mask),
+      static_cast<float*>(dq), heads, tq, tk, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+template <int D, int kBlock>
+int launch_dkv_f32(const void* q, const void* k, const void* v, const void* g, const void* lse,
+                   const void* delta, const void* mask, void* dk, void* dv, int bh, int heads,
+                   int tq, int tk, float scale, int causal, cudaStream_t stream) {
+  using Shape = F32Shape<D, kBlock>;
+  const dim3 grid(bh, (tk + kBlock - 1) / kBlock);
+  flash_dkv_f32_kernel<D, kBlock><<<grid, Shape::kCtaThreads, Shape::kSmemBytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(g), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const uint8_t*>(mask),
+      static_cast<float*>(dk), static_cast<float*>(dv), heads, tq, tk, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+// f(D, kBlock) as integral constants for a supported (head dim, tile)
+// pair; cudaErrorInvalidValue for any other.
+template <typename F>
+int by_shape(int d, int tile, F&& f) {
+  using I32 = std::integral_constant<int, 32>;
+  using I64 = std::integral_constant<int, 64>;
+  if (d == 64 && tile == 32) return f(I64{}, I32{});
+  if (d == 64 && tile == 64) return f(I64{}, I64{});
+  if (d == 32 && tile == 32) return f(I32{}, I32{});
+  if (d == 32 && tile == 64) return f(I32{}, I64{});
+  return (int)cudaErrorInvalidValue;
+}
+
 template <int D, int kBlock>
 int occupancy_of(int kernel, int* out) {
   if (kernel == 0)
@@ -837,6 +1158,13 @@ int occupancy_of(int kernel, int* out) {
   if (kernel == 2)
     return occupancy(flash_dkv_kernel<D, kBlock>, DkvShape<D, kBlock>::kCtaThreads,
                      DkvShape<D, kBlock>::kSmemBytes, out);
+  using F32 = F32Shape<D, kBlock>;
+  if (kernel == 3)
+    return occupancy(flash_fwd_f32_kernel<D, kBlock>, F32::kCtaThreads, F32::kSmemBytes, out);
+  if (kernel == 4)
+    return occupancy(flash_dq_f32_kernel<D, kBlock>, F32::kCtaThreads, F32::kSmemBytes, out);
+  if (kernel == 5)
+    return occupancy(flash_dkv_f32_kernel<D, kBlock>, F32::kCtaThreads, F32::kSmemBytes, out);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -857,15 +1185,10 @@ int swt_flash_fwd(const void* q, const void* k, const void* v, const void* mask,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64 && tile == 32)
-    return launch_fwd<64, 32>(q, k, v, mask, out, lse, bh, heads, tq, tk, scale, causal, s);
-  if (d == 64 && tile == 64)
-    return launch_fwd<64, 64>(q, k, v, mask, out, lse, bh, heads, tq, tk, scale, causal, s);
-  if (d == 32 && tile == 32)
-    return launch_fwd<32, 32>(q, k, v, mask, out, lse, bh, heads, tq, tk, scale, causal, s);
-  if (d == 32 && tile == 64)
-    return launch_fwd<32, 64>(q, k, v, mask, out, lse, bh, heads, tq, tk, scale, causal, s);
-  return (int)cudaErrorInvalidValue;
+  return by_shape(d, tile, [&](auto dd, auto tt) {
+    return launch_fwd<decltype(dd)::value, decltype(tt)::value>(
+        q, k, v, mask, out, lse, bh, heads, tq, tk, scale, causal, s);
+  });
 }
 
 int swt_flash_dq(const void* q, const void* k, const void* v, const void* g, const void* lse,
@@ -874,19 +1197,10 @@ int swt_flash_dq(const void* q, const void* k, const void* v, const void* g, con
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64 && tile == 32)
-    return launch_dq<64, 32>(q, k, v, g, lse, delta, mask, dq, bh, heads, tq, tk, scale,
-                             causal, s);
-  if (d == 64 && tile == 64)
-    return launch_dq<64, 64>(q, k, v, g, lse, delta, mask, dq, bh, heads, tq, tk, scale,
-                             causal, s);
-  if (d == 32 && tile == 32)
-    return launch_dq<32, 32>(q, k, v, g, lse, delta, mask, dq, bh, heads, tq, tk, scale,
-                             causal, s);
-  if (d == 32 && tile == 64)
-    return launch_dq<32, 64>(q, k, v, g, lse, delta, mask, dq, bh, heads, tq, tk, scale,
-                             causal, s);
-  return (int)cudaErrorInvalidValue;
+  return by_shape(d, tile, [&](auto dd, auto tt) {
+    return launch_dq<decltype(dd)::value, decltype(tt)::value>(
+        q, k, v, g, lse, delta, mask, dq, bh, heads, tq, tk, scale, causal, s);
+  });
 }
 
 int swt_flash_dkv(const void* q, const void* k, const void* v, const void* g, const void* lse,
@@ -896,32 +1210,61 @@ int swt_flash_dkv(const void* q, const void* k, const void* v, const void* g, co
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64 && tile == 32)
-    return launch_dkv<64, 32>(q, k, v, g, lse, delta, mask, dk, dv, bh, heads, tq, tk, scale,
-                              causal, s);
-  if (d == 64 && tile == 64)
-    return launch_dkv<64, 64>(q, k, v, g, lse, delta, mask, dk, dv, bh, heads, tq, tk, scale,
-                              causal, s);
-  if (d == 32 && tile == 32)
-    return launch_dkv<32, 32>(q, k, v, g, lse, delta, mask, dk, dv, bh, heads, tq, tk, scale,
-                              causal, s);
-  if (d == 32 && tile == 64)
-    return launch_dkv<32, 64>(q, k, v, g, lse, delta, mask, dk, dv, bh, heads, tq, tk, scale,
-                              causal, s);
-  return (int)cudaErrorInvalidValue;
+  return by_shape(d, tile, [&](auto dd, auto tt) {
+    return launch_dkv<decltype(dd)::value, decltype(tt)::value>(
+        q, k, v, g, lse, delta, mask, dk, dv, bh, heads, tq, tk, scale, causal, s);
+  });
 }
 
-// Occupancy of kernel 0 (K1), 1 (K2) or 2 (K3) at head dim
+// The f32 instances of K1-K3, with the bf16 entries' arguments.
+int swt_flash_fwd_f32(const void* q, const void* k, const void* v, const void* mask, void* out,
+                      void* lse, int bh, int heads, int tq, int tk, int d, int tile,
+                      float scale, int causal, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return by_shape(d, tile, [&](auto dd, auto tt) {
+    return launch_fwd_f32<decltype(dd)::value, decltype(tt)::value>(
+        q, k, v, mask, out, lse, bh, heads, tq, tk, scale, causal, s);
+  });
+}
+
+int swt_flash_dq_f32(const void* q, const void* k, const void* v, const void* g,
+                     const void* lse, const void* delta, const void* mask, void* dq, int bh,
+                     int heads, int tq, int tk, int d, int tile, float scale, int causal,
+                     int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return by_shape(d, tile, [&](auto dd, auto tt) {
+    return launch_dq_f32<decltype(dd)::value, decltype(tt)::value>(
+        q, k, v, g, lse, delta, mask, dq, bh, heads, tq, tk, scale, causal, s);
+  });
+}
+
+int swt_flash_dkv_f32(const void* q, const void* k, const void* v, const void* g,
+                      const void* lse, const void* delta, const void* mask, void* dk, void* dv,
+                      int bh, int heads, int tq, int tk, int d, int tile, float scale,
+                      int causal, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return by_shape(d, tile, [&](auto dd, auto tt) {
+    return launch_dkv_f32<decltype(dd)::value, decltype(tt)::value>(
+        q, k, v, g, lse, delta, mask, dk, dv, bh, heads, tq, tk, scale, causal, s);
+  });
+}
+
+// Occupancy of kernel 0 (K1), 1 (K2), 2 (K3), or 3-5 (their f32
+// instances) at head dim
 // d and tile `tile` on `device`: writes {CTAs per SM, threads per CTA,
 // dynamic shared bytes, registers per thread} to out[0..3].
 int swt_flash_occupancy(int kernel, int d, int tile, int device, int* out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (d == 64 && tile == 32) return occupancy_of<64, 32>(kernel, out);
-  if (d == 64 && tile == 64) return occupancy_of<64, 64>(kernel, out);
-  if (d == 32 && tile == 32) return occupancy_of<32, 32>(kernel, out);
-  if (d == 32 && tile == 64) return occupancy_of<32, 64>(kernel, out);
-  return (int)cudaErrorInvalidValue;
+  return by_shape(d, tile, [&](auto dd, auto tt) {
+    return occupancy_of<decltype(dd)::value, decltype(tt)::value>(kernel, out);
+  });
 }
 
 const char* swt_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

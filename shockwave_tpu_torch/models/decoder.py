@@ -18,9 +18,9 @@ logits). Two things differ from the JAX version in form only:
   buffers;
 - positions are Python ints, so a graph captures each one unrolled.
 
-The CUDA kernels take bf16 only; `use_flash` with another dtype on the
-card raises (the JAX package's Pallas kernel also takes f32). On the CPU
-the flash path runs K1's plain version, in any dtype.
+On the card the flash path runs K1's bf16 or f32 instance, by the
+decoder's dtype (f32 is `DecoderLM`'s default, as the JAX decoder runs
+its Pallas K1 in f32); on the CPU it runs K1's plain version.
 
 Parameters are drawn as flax draws them (lecun-normal dense kernels, zero
 biases, normal(0.02) embedding) from an explicit `torch.Generator`, on
@@ -35,7 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.flash_attention import KERNEL_DTYPE, flash_attention
+from ..ops.flash_attention import flash_attention
 from .transformer import LayerNorm, dense, lecun_normal_, sinusoidal_positions
 
 Caches = List[Tuple[torch.Tensor, torch.Tensor]]
@@ -78,9 +78,6 @@ class CachedSelfAttention(nn.Module):
         align = 16 if self.dtype == torch.bfloat16 else 8
         blockable = t % 1024 == 0 if t > 1024 else t % align == 0
         if self.use_flash and blockable:
-            if x.is_cuda and self.dtype != KERNEL_DTYPE:
-                raise TypeError(f"use_flash on the card needs dtype {KERNEL_DTYPE} (the "
-                                f"CUDA flash kernel's); this decoder computes in {self.dtype}")
             attended = flash_attention(q, k, v, causal=True)
         else:
             causal = torch.ones(t, t, dtype=torch.bool, device=x.device).tril()

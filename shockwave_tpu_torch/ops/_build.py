@@ -31,6 +31,9 @@ _ENTRY_POINTS = (
     ("swt_flash_fwd", [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P]),
     ("swt_flash_dq", [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P]),
     ("swt_flash_dkv", [_P] * 9 + [_I] * 6 + [_F, _I, _I, _P]),
+    ("swt_flash_fwd_f32", [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P]),
+    ("swt_flash_dq_f32", [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P]),
+    ("swt_flash_dkv_f32", [_P] * 9 + [_I] * 6 + [_F, _I, _I, _P]),
     ("swt_flash_occupancy", [_I] * 4 + [_P]),
 )
 

@@ -25,9 +25,13 @@ cast to q's dtype, p = 0 where s <= -5e29 in the backward). A wrapper
 takes the plain version only for a tensor on the CPU; for a CUDA tensor
 it launches its kernel or raises. `LAUNCHES` counts the kernel launches.
 
-The CUDA kernels take bf16 (the main path's type) and head dims 32 and
-64; anything else on the card raises. The plain versions take any dtype
-and head dim.
+Each kernel has two instances on the card, chosen by the inputs' dtype:
+bf16 (the trainer's type: `mma.sync` on the tensor cores) and f32
+(`flash_fwd_f32`, `flash_dq_f32`, `flash_dkv_f32`: f32 FMAs on the SIMT
+cores, as the Pallas kernels compute in f32 and with TF32 off, as the
+port keeps it everywhere). Neither dtype is cast to the other. Any other
+dtype, or a head dim other than 32 and 64, raises on the card. The plain
+versions take any dtype and head dim.
 """
 from __future__ import annotations
 
@@ -41,14 +45,18 @@ from . import _build
 
 NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (32, 64)
-KERNEL_DTYPE = torch.bfloat16
+# The dtypes the kernels take, with the suffix of their instance's launch
+# counter and C entry point.
+KERNEL_DTYPES = {torch.bfloat16: "", torch.float32: "_f32"}
 # Square tiles the kernels are built for (rows per CTA = streamed tile
 # width, 16 rows per warp).
 KERNEL_TILES = (32, 64)
 
-# Launches of each kernel since the last reset; a wrapper adds one where
-# it launches its kernel and nowhere else.
-LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
+# Launches of each kernel instance since the last reset (the bf16 ones,
+# then the f32 ones, in the C library's occupancy order); a wrapper adds
+# one where it launches its kernel and nowhere else.
+LAUNCHES = {name + suffix: 0 for suffix in KERNEL_DTYPES.values() for name in KERNELS}
 
 
 def reset_launch_counts() -> None:
@@ -158,10 +166,10 @@ def _check_kernel_inputs(q, k, v, kv_mask, heads):
                          f"v {tuple(v.shape)} do not match")
     if bh % heads:
         raise ValueError(f"BH={bh} is not a multiple of heads={heads}")
-    for t in (q, k, v):
-        if t.dtype != KERNEL_DTYPE:
-            raise TypeError(f"CUDA flash attention takes {KERNEL_DTYPE}; "
-                            f"got {t.dtype}")
+    if q.dtype not in KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"CUDA flash attention takes torch.bfloat16 or "
+                        f"torch.float32 (q, k and v alike); got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
     if kv_mask is not None and (kv_mask.dtype != torch.bool
                                 or kv_mask.shape != (bh // heads, tk)):
         raise ValueError(f"kv_mask must be bool {(bh // heads, tk)}; got "
@@ -183,23 +191,29 @@ def _device_and_stream(t: torch.Tensor):
     return t.device.index, torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _launch(kernel: str, dtype, *args) -> None:
+    """Launch `kernel`'s instance for `dtype` through its C entry point
+    and count it."""
+    name = kernel + KERNEL_DTYPES[dtype]
+    lib = _build.library()
+    _build.check(lib, getattr(lib, "swt_" + name)(*args), name)
+    LAUNCHES[name] += 1
+
+
 def attention_forward(q, k, v, kv_mask, heads: int, scale: float,
                       causal: bool):
-    """K1: (out, lse). Plain version on the CPU, `flash_fwd` on CUDA."""
+    """K1: (out, lse). Plain version on the CPU, `flash_fwd` (bf16) or
+    `flash_fwd_f32` on CUDA."""
     if _on_cpu(q, k, v, kv_mask):
         return attention_forward_plain(q, k, v, kv_mask, heads, scale, causal)
     _check_kernel_inputs(q, k, v, kv_mask, heads)
     bh, tq, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(bh, tq, dtype=torch.float32, device=q.device)
-    lib = _build.library()
     tk = k.shape[1]
-    rc = lib.swt_flash_fwd(_ptr(q), _ptr(k), _ptr(v), _ptr(kv_mask), _ptr(out),
-                           _ptr(lse), bh, heads, tq, tk, d,
-                           launch_config(tq, tk, d), scale, int(causal),
-                           *_device_and_stream(q))
-    _build.check(lib, rc, "flash_fwd")
-    LAUNCHES["flash_fwd"] += 1
+    _launch("flash_fwd", q.dtype, _ptr(q), _ptr(k), _ptr(v), _ptr(kv_mask), _ptr(out),
+            _ptr(lse), bh, heads, tq, tk, d, launch_config(tq, tk, d), scale, int(causal),
+            *_device_and_stream(q))
     return out, lse
 
 
@@ -214,7 +228,8 @@ def _check_backward_inputs(q, g, lse, delta):
 
 def attention_dq(q, k, v, g, lse, delta, kv_mask, heads: int, scale: float,
                  causal: bool):
-    """K2: dQ. Plain version on the CPU, `flash_dq` on CUDA."""
+    """K2: dQ. Plain version on the CPU, `flash_dq` (bf16) or
+    `flash_dq_f32` on CUDA."""
     if _on_cpu(q, k, v, g, lse, delta, kv_mask):
         return attention_dq_plain(q, k, v, g, lse, delta, kv_mask, heads,
                                   scale, causal)
@@ -223,19 +238,16 @@ def attention_dq(q, k, v, g, lse, delta, kv_mask, heads: int, scale: float,
     bh, tq, d = q.shape
     dq = torch.empty_like(q)
     tk = k.shape[1]
-    lib = _build.library()
-    rc = lib.swt_flash_dq(_ptr(q), _ptr(k), _ptr(v), _ptr(g), _ptr(lse),
-                          _ptr(delta), _ptr(kv_mask), _ptr(dq), bh, heads, tq,
-                          tk, d, launch_config(tq, tk, d), scale, int(causal),
-                          *_device_and_stream(q))
-    _build.check(lib, rc, "flash_dq")
-    LAUNCHES["flash_dq"] += 1
+    _launch("flash_dq", q.dtype, _ptr(q), _ptr(k), _ptr(v), _ptr(g), _ptr(lse), _ptr(delta),
+            _ptr(kv_mask), _ptr(dq), bh, heads, tq, tk, d, launch_config(tq, tk, d), scale,
+            int(causal), *_device_and_stream(q))
     return dq
 
 
 def attention_dkv(q, k, v, g, lse, delta, kv_mask, heads: int, scale: float,
                   causal: bool):
-    """K3: (dK, dV). Plain version on the CPU, `flash_dkv` on CUDA."""
+    """K3: (dK, dV). Plain version on the CPU, `flash_dkv` (bf16) or
+    `flash_dkv_f32` on CUDA."""
     if _on_cpu(q, k, v, g, lse, delta, kv_mask):
         return attention_dkv_plain(q, k, v, g, lse, delta, kv_mask, heads,
                                    scale, causal)
@@ -245,13 +257,9 @@ def attention_dkv(q, k, v, g, lse, delta, kv_mask, heads: int, scale: float,
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     tk = k.shape[1]
-    lib = _build.library()
-    rc = lib.swt_flash_dkv(_ptr(q), _ptr(k), _ptr(v), _ptr(g), _ptr(lse),
-                           _ptr(delta), _ptr(kv_mask), _ptr(dk), _ptr(dv), bh,
-                           heads, tq, tk, d, launch_config(tq, tk, d), scale,
-                           int(causal), *_device_and_stream(q))
-    _build.check(lib, rc, "flash_dkv")
-    LAUNCHES["flash_dkv"] += 1
+    _launch("flash_dkv", q.dtype, _ptr(q), _ptr(k), _ptr(v), _ptr(g), _ptr(lse), _ptr(delta),
+            _ptr(kv_mask), _ptr(dk), _ptr(dv), bh, heads, tq, tk, d, launch_config(tq, tk, d),
+            scale, int(causal), *_device_and_stream(q))
     return dk, dv
 
 
@@ -261,7 +269,7 @@ def kernel_occupancy(device: int = 0):
     threads, dynamic shared memory and registers. Needs the card."""
     lib = _build.library()
     rows = []
-    for kernel, name in enumerate(LAUNCHES):  # 0 K1, 1 K2, 2 K3, as in C
+    for kernel, name in enumerate(LAUNCHES):  # 0-2 K1-K3, 3-5 in f32, as in C
         for d in KERNEL_HEAD_DIMS:
             for tile in KERNEL_TILES:
                 out = (ctypes.c_int * 4)()
@@ -288,8 +296,8 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v, kv_mask, out, lse = ctx.saved_tensors
         delta = (out.float() * g.float()).sum(dim=-1)
-        g16 = g.to(q.dtype).contiguous()
-        args = (g16, lse, delta, kv_mask, ctx.heads, ctx.scale, ctx.causal)
+        gq = g.to(q.dtype).contiguous()
+        args = (gq, lse, delta, kv_mask, ctx.heads, ctx.scale, ctx.causal)
         dq = attention_dq(q, k, v, *args)
         dk, dv = attention_dkv(q, k, v, *args)
         return dq, dk, dv, None, None, None, None

@@ -15,6 +15,8 @@ import subprocess
 PEAKS = {"H100 PCIe": (2.0e12, 756e12), "H100 NVL": (3.9e12, 835e12),
          "H100 SXM": (3.35e12, 989e12)}
 NAME_TAGS = {"PCIe": "H100 PCIe", "NVL": "H100 NVL"}
+# Published f32 FLOP/s outside the tensor cores (the SIMT cores), by part.
+F32_FLOPS = {"H100 PCIe": 51e12, "H100 NVL": 60e12, "H100 SXM": 67e12}
 
 
 def nvidia_smi() -> str:

@@ -26,12 +26,13 @@ version.
 
 Runs on the CUDA card unless `--device cpu` is given (one device). A3C
 and CycleGAN are one-card families: their sf > 1 rows are skipped, as in
-the reference. Not ported, and refused rather than skipped:
-- a scale factor above 1 that the device count allows: a gang's rate
-  is measured across as many cards (item 12); one above the device
-  count is skipped, as in the reference. The committed h100 file's
-  sf > 1 rows are `extrapolate_sf.py`'s priors;
-- `--trace_out` needs the span tracer (item 3).
+the reference. `--trace_out` writes one `profile-measure` span per
+row as Chrome-trace JSON, and each row's wall time goes into the
+`swtpu_profile_measure_seconds` histogram, as in the reference. Not
+ported, and refused rather than skipped: a scale factor above 1 that
+the device count allows (a gang's rate is measured across as many cards,
+item 12); one above the device count is skipped, as in the reference.
+The committed h100 file's sf > 1 rows are `extrapolate_sf.py`'s priors.
 """
 from __future__ import annotations
 
@@ -53,6 +54,9 @@ from ..core import job_table
 from ..core.constants import DEFAULT_BS, oracle_job_type
 from ..core.timing import marginal_step_time
 from ..models.train_common import upload
+from ..obs import Observability
+from ..obs import names as obs_names
+from ..obs.clock import perf_clock
 
 # (family -> profiled batch sizes) mirrors the job template table.
 FAMILY_BATCH_SIZES = {
@@ -78,7 +82,6 @@ DATA_DIR = os.path.join(tempfile.gettempdir(), "swtpu_data")
 
 GANG_ITEM = ("ROADMAP.md Queue 1, item 12 (sf > 1 oracle rows and the NCCL path "
              "on a machine with more than one card)")
-TRACING_ITEM = "ROADMAP.md Queue 1, item 3 (fleet tracing and /metrics for the port)"
 
 
 def _with_flag(template, flag: str):
@@ -223,14 +226,12 @@ def main(argv=None):
     p.add_argument("--merge", action="store_true",
                    help="merge into an existing oracle file")
     p.add_argument("--trace_out", default=None, metavar="TRACE_JSON",
-                   help="not ported yet; refused")
+                   help="export one span per profiled row as Chrome-trace "
+                        "JSON — the profiling session's timeline")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where to measure (default: the CUDA card)")
     args = p.parse_args(argv)
 
-    if args.trace_out:
-        raise NotImplementedError(
-            f"--trace_out needs the span tracer, which is not ported yet: {TRACING_ITEM}")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA card is available; pass --device cpu "
                            "to profile on the CPU")
@@ -250,6 +251,11 @@ def main(argv=None):
             p.error(f"unknown families {unknown}; known: {sorted(FAMILY_BATCH_SIZES)}")
         rows = [(family, bs) for family in args.families
                 for bs in FAMILY_BATCH_SIZES[family]]
+    # Per-row wall time rides the obs pipeline (spans + the
+    # swtpu_profile_measure_seconds histogram); the device timing itself
+    # stays core/timing.marginal_step_time.
+    obs = Observability(clock=perf_clock, enabled=True)
+
     oracle = {}
     if args.merge and os.path.exists(args.output):
         with open(args.output) as f:
@@ -265,7 +271,11 @@ def main(argv=None):
                 continue
             if family in DEFAULT_BS and sf > 1:
                 continue  # A3C / CycleGAN are single-chip families
-            tput = measure(family, bs, sf, args.steps, args.warmup, args.device)
+            with obs.span(obs_names.SPAN_PROFILE_MEASURE, family=family,
+                          bs=bs, sf=sf), \
+                    obs.timed(obs_names.PROFILE_MEASURE_SECONDS,
+                              family=family):
+                tput = measure(family, bs, sf, args.steps, args.warmup, args.device)
             key = str((oracle_job_type(family, bs), sf))
             table.setdefault(key, {})["null"] = round(tput, 4)
             print(f"{args.worker_type} {key}: {tput:.3f} steps/s", flush=True)
@@ -274,9 +284,14 @@ def main(argv=None):
         dt_cache = {}
         for (fam_a, bs_a), (fam_b, bs_b) in \
                 itertools.combinations_with_replacement(rows, 2):
-            rate_a, rate_b, _, _ = measure_pair(
-                fam_a, bs_a, fam_b, bs_b, args.steps, args.warmup,
-                dt_cache=dt_cache, device=args.device)
+            with obs.span(obs_names.SPAN_PROFILE_MEASURE,
+                          family=f"{fam_a}+{fam_b}", bs=[bs_a, bs_b],
+                          sf=1), \
+                    obs.timed(obs_names.PROFILE_MEASURE_SECONDS,
+                              family=f"{fam_a}+{fam_b}"):
+                rate_a, rate_b, _, _ = measure_pair(
+                    fam_a, bs_a, fam_b, bs_b, args.steps, args.warmup,
+                    dt_cache=dt_cache, device=args.device)
             key_a = str((oracle_job_type(fam_a, bs_a), 1))
             key_b = str((oracle_job_type(fam_b, bs_b), 1))
             table.setdefault(key_a, {})[key_b] = [round(rate_a, 4),
@@ -293,6 +308,10 @@ def main(argv=None):
     with open(args.output, "w") as f:
         json.dump(oracle, f, indent=1, sort_keys=True)
     print(f"wrote {args.output}")
+    if args.trace_out:
+        obs.tracer.export_chrome_trace(args.trace_out)
+        print(f"wrote {args.trace_out}")
+    return obs
 
 
 if __name__ == "__main__":

@@ -8,8 +8,14 @@ scrapes progress from the iterator log, and notifies the scheduler.
 The one device binding: a chip id is a CUDA device index, and each job
 gets exclusive use of its card through CUDA_VISIBLE_DEVICES (where the
 reference sets JAX_VISIBLE_DEVICES and TPU_VISIBLE_CHIPS), so the
-trainer sees it as `cuda:0`. Fleet tracing (the reference's launch and
-done-report spans) is not ported yet.
+trainer sees it as `cuda:0`.
+
+With the daemon's span shard (fleet tracing on), each trainer process
+gets a `launch` span over its life, under the RunJob's context, and the
+launch context and the shard directory are exported into its environment
+so that its LeaseIterator continues the trace; the Done report is a
+`done-report` span. Each rank of a gang is its own process, with its own
+launch span.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ from typing import Dict, List, Optional
 
 import grpc
 
+from ..obs import names as obs_names
 from . import faults
 from .resilience import RpcUnavailableError
 
@@ -40,7 +47,12 @@ class Dispatcher:
     def __init__(self, round_duration: float, chip_ids: List[int],
                  worker_rpc_client, sched_addr: str, sched_port: int,
                  run_dirs: Dict[str, str], data_dir: Optional[str],
-                 checkpoint_dir: str):
+                 checkpoint_dir: str, span_shard=None,
+                 trace_dir: Optional[str] = None):
+        # Fleet tracing (opt-in): the daemon's span shard (see the
+        # module docstring).
+        self._span_shard = span_shard
+        self._trace_dir = trace_dir
         self._round_duration = round_duration
         self._worker_rpc_client = worker_rpc_client
         self._sched_addr = sched_addr
@@ -129,7 +141,8 @@ class Dispatcher:
 
     # -- dispatch ----------------------------------------------------------
 
-    def dispatch_jobs(self, jobs: List[dict], worker_id: int, round_id: int):
+    def dispatch_jobs(self, jobs: List[dict], worker_id: int, round_id: int,
+                      trace_parent=None):
         key = (tuple(j["job_id"] for j in jobs), worker_id, round_id)
         with self._lock:
             if key in self._accepted_dispatches:
@@ -149,11 +162,12 @@ class Dispatcher:
         # finding) — removed rather than locked.
         threading.Thread(
             target=self._dispatch_jobs_helper,
-            args=(jobs, worker_id, round_id),
+            args=(jobs, worker_id, round_id, trace_parent),
             daemon=True).start()
 
     def _dispatch_jobs_helper(self, jobs: List[dict], worker_id: int,
-                              round_id: int):
+                              round_id: int, trace_parent=None):
+        from . import spans as spans_mod
         chip_id = self._chip_queue.get()
         results = []
         try:
@@ -175,6 +189,17 @@ class Dispatcher:
                     # training side reads this to throttle itself (the
                     # stub workers scale their simulated rate by it).
                     env["SWTPU_DEGRADE_FACTOR"] = f"{slowdown:.6f}"
+                launch_span = None
+                if self._span_shard is not None:
+                    # One `launch` span per trainer process (its whole
+                    # lifetime), parented under the RunJob context; the
+                    # trainer continues the trace from the env export.
+                    launch_span = self._span_shard.open_span(
+                        obs_names.SPAN_LAUNCH, parent=trace_parent,
+                        job=job["job_id"], round=round_id,
+                        worker=worker_id, chip=chip_id)
+                    spans_mod.export_trace_env(
+                        env, launch_span.context, self._trace_dir)
                 cwd = self._run_dirs.get(job["mode"], ".")
                 if job["working_directory"]:
                     cwd = os.path.join(cwd, job["working_directory"])
@@ -204,15 +229,28 @@ class Dispatcher:
                     # micro-task-failure signal (reference:
                     # scheduler.py:4536-4568).
                     duration = elapsed
+                if launch_span is not None:
+                    self._span_shard.close_span(
+                        launch_span, steps=steps,
+                        returncode=proc.returncode)
                 results.append((job["job_id"], steps, duration, iterator_log))
         finally:
             self._chip_queue.put(chip_id)
+        from contextlib import nullcontext
+        done_span = (self._span_shard.span(
+            obs_names.SPAN_DONE_REPORT, parent=trace_parent,
+            round=round_id, worker=worker_id,
+            jobs=[r[0] for r in results])
+            if self._span_shard is not None else nullcontext())
         try:
-            self._worker_rpc_client.notify_done(
-                job_ids=[r[0] for r in results], worker_id=worker_id,
-                num_steps=[r[1] for r in results],
-                execution_times=[r[2] for r in results],
-                iterator_logs=[r[3] for r in results])
+            with done_span:
+                self._worker_rpc_client.notify_done(
+                    job_ids=[r[0] for r in results], worker_id=worker_id,
+                    num_steps=[r[1] for r in results],
+                    execution_times=[r[2] for r in results],
+                    iterator_logs=[r[3] for r in results])
+            if self._span_shard is not None:
+                self._span_shard.flush()
         except (RpcUnavailableError, grpc.RpcError) as e:
             # The scheduler stayed unreachable through the retry budget
             # — and, under control-plane HA, through the whole failover

@@ -31,8 +31,11 @@ reference's.
   and the exit waits at a barrier so that the gang's checkpoint, which
   rank 0 writes, is consistent. Gangs drop the run-ahead window: the
   boundary sync bounds them, as in the reference.
-- Fleet tracing (the reference's `trainer` and checkpoint spans) is not
-  ported: a run with SWTPU_SPAN_SHARD_DIR set is refused.
+- Fleet tracing is the reference's: with SWTPU_SPAN_SHARD_DIR set (the
+  dispatcher exports it beside the launch span's SWTPU_TRACEPARENT), a
+  `trainer` span covers the dispatch from construction to the lease's
+  end or `close()`, and the caller's checkpoint functions run under
+  `ckpt-load` and `ckpt-save` spans, in this process's span shard.
 - Checkpointing is delegated to caller functions.
 - Cut to what the port's jobs use: the final `[PROGRESS]` lines are
   always written at close (the reference's default `write_on_close`).
@@ -53,6 +56,7 @@ from typing import Any, Callable, Iterable, Optional
 import torch
 
 from ..obs import names as obs_names
+from . import spans as spans_mod
 from .clients import IteratorToSchedulerClient
 from .lease import Lease
 
@@ -60,8 +64,6 @@ INFINITY = 1e9
 LEASE_UPDATE_FRACTION = 0.75
 LOG_FORMAT = "[{asctime}] [{event}] [{status}] {message}"
 DATE_FORMAT = "%Y-%m-%d %H:%M:%S"
-
-_TRACING_ITEM = "ROADMAP.md Queue 1, item 3 (fleet tracing and /metrics for the port)"
 
 
 def _device_sync(value: Any) -> None:
@@ -93,10 +95,6 @@ class LeaseIterator:
         still issues training collectives. Steps-based checks are
         deterministic already (the scheduler's first-requester-computes
         consensus)."""
-        if os.environ.get(obs_names.SHARD_DIR_ENV):
-            raise NotImplementedError(
-                f"{obs_names.SHARD_DIR_ENV} asks for fleet tracing, which "
-                f"the port does not have yet: {_TRACING_ITEM}")
         self._data_loader = data_loader
         self._load_checkpoint_func = load_checkpoint_func
         self._save_checkpoint_func = save_checkpoint_func
@@ -126,6 +124,27 @@ class LeaseIterator:
         self._log_file = os.path.join(round_dir,
                                       f"worker={self._worker_id}.log")
         self._init_logger()
+
+        # Fleet tracing (opt-in): continue the dispatch's trace inside
+        # this training process. The dispatcher exports the launch
+        # span's context + the shard directory into the environment
+        # (runtime/spans.py); the `trainer` span covers this dispatch's
+        # whole lease window and is closed (with the step count) at
+        # lease expiry / completion / close / process exit, whichever
+        # first.
+        self._span_shard = spans_mod.shard_from_env(role="trainer")
+        self._trainer_span = None
+        self._trainer_ctx = None
+        if self._span_shard is not None:
+            self._trainer_span = self._span_shard.open_span(
+                obs_names.SPAN_TRAINER, parent=spans_mod.from_environ(),
+                job=self._job_id, worker=self._worker_id,
+                round=self._round_id)
+            # Kept past the span's close: the post-lease checkpoint
+            # save (the one every dispatch performs) still parents its
+            # ckpt-save span here.
+            self._trainer_ctx = self._trainer_span.context
+            atexit.register(self._close_trainer_span)
 
         self._rpc = IteratorToSchedulerClient(
             self._job_id, self._worker_id, sched_addr, sched_port)
@@ -309,6 +328,7 @@ class LeaseIterator:
                 self._lease.max_duration,
                 extra={"event": "LEASE", "status": "EXPIRED"})
             _device_sync(self._sync_ref)
+            self._close_trainer_span()
             if self._distributed_barrier is not None:
                 self._distributed_barrier()
             raise StopIteration
@@ -340,6 +360,7 @@ class LeaseIterator:
 
     def complete(self, timeout: bool = False) -> None:
         self._done = True
+        self._close_trainer_span()
         self._logger.info("", extra={"event": "LEASE", "status": "COMPLETE"})
 
     def report_checkpoint_ahead(self) -> None:
@@ -367,23 +388,47 @@ class LeaseIterator:
         self._done = True
         self._rpc.update_resource_requirement(big_bs, small_bs)
 
+    def _ckpt_span(self, name):
+        """Checkpoint spans nest under the trainer span's context —
+        which outlives the span's close, because the standard flow is
+        lease expiry (span closed) THEN save_checkpoint. No-op context
+        without a shard."""
+        from contextlib import nullcontext
+        if self._span_shard is None or self._trainer_ctx is None:
+            return nullcontext()
+        return self._span_shard.span(name, parent=self._trainer_ctx,
+                                     job=self._job_id)
+
+    def _close_trainer_span(self) -> None:
+        """Close (once) the dispatch-lifetime trainer span with the
+        final step count; runs at lease exit and again harmlessly from
+        close() and atexit for loops that end otherwise."""
+        if self._span_shard is None or self._trainer_span is None:
+            return
+        span, self._trainer_span = self._trainer_span, None
+        self._span_shard.close_span(span, steps=self._steps,
+                                    done=self._done)
+
     def load_checkpoint(self, *args, **kwargs):
         self._logger.info("", extra={"event": "LOAD CHECKPOINT", "status": "BEGIN"})
-        out = self._load_checkpoint_func(*args, **kwargs)
+        with self._ckpt_span(obs_names.SPAN_CKPT_LOAD):
+            out = self._load_checkpoint_func(*args, **kwargs)
         self._logger.info("", extra={"event": "LOAD CHECKPOINT", "status": "END"})
         return out
 
     def save_checkpoint(self, *args, **kwargs):
         self._logger.info("", extra={"event": "SAVE CHECKPOINT", "status": "BEGIN"})
-        out = self._save_checkpoint_func(*args, **kwargs)
+        with self._ckpt_span(obs_names.SPAN_CKPT_SAVE):
+            out = self._save_checkpoint_func(*args, **kwargs)
         self._logger.info("", extra={"event": "SAVE CHECKPOINT", "status": "END"})
         return out
 
     def close(self) -> None:
         """The exit path, run once: flush buffered telemetry to the log,
-        write the final `[PROGRESS]` lines and close the log. Registered with atexit, as the reference's three
-        exit hooks are; a caller that runs more than one dispatch in one
-        process calls it when its loop ends."""
+        write the final `[PROGRESS]` lines, close the log and the trainer
+        span. Registered with atexit, as the reference's exit hooks are;
+        a caller that runs more than one dispatch in one process calls it
+        when its loop ends."""
         if self._closed:
             return
         self._closed = True
@@ -392,6 +437,8 @@ class LeaseIterator:
         self._write_info()
         self._logger.removeHandler(self._file_handler)
         self._file_handler.close()
+        self._close_trainer_span()
+        atexit.unregister(self._close_trainer_span)
 
     # -- lease protocol ----------------------------------------------------
 

@@ -17,6 +17,7 @@ import grpc
 
 from ..obs import get_observability
 from ..obs import names as obs_names
+from ..obs.propagation import from_rpc_metadata
 from .proto import control_pb2 as pb
 from .resilience import EPOCH_ADVANCED, EPOCH_METADATA_KEY, EPOCH_STALE
 from .rpc import generic_handler
@@ -97,7 +98,11 @@ def serve_worker(port: int, callbacks: Dict[str, Callable],
                  mode=j.mode)
             for j in request.jobs
         ]
-        callbacks["RunJob"](jobs, request.worker_id, request.round_id)
+        # Fleet tracing: the scheduler's span context (traceparent and
+        # send-timestamp metadata) becomes the parent of the runjob span.
+        callbacks["RunJob"](
+            jobs, request.worker_id, request.round_id,
+            trace=from_rpc_metadata(context.invocation_metadata()))
         return pb.Empty()
 
     def kill_job(request, context):

@@ -24,9 +24,11 @@ ranks train as one data-parallel gang (`parallel/mesh.py`). Ranks on
 several hosts need a checkpoint root that all of them read, since rank
 0 alone writes the gang's checkpoint.
 The scheduler plans port workers of type `h100` from
-`data/h100_throughputs.json` (`profiling/measure_throughput.py`). Fleet
-tracing and the `/metrics` exporter are not ported yet: `--trace_dir`,
-`--obs_port` and SWTPU_SPAN_SHARD_DIR are refused.
+`data/h100_throughputs.json` (`profiling/measure_throughput.py`).
+`--obs_port` serves this daemon's `/metrics` and `/healthz`;
+`--trace_dir` (or SWTPU_SPAN_SHARD_DIR) writes its span shard, and its
+trainers', into the drive's trace directory, where the JAX package's
+scheduler merges them with its own (`run_physical.py --trace_dir`).
 """
 from __future__ import annotations
 
@@ -53,8 +55,6 @@ REGISTER_RETRY_WINDOW_S = 300.0
 REGISTER_RETRY_INTERVAL_S = 5.0
 RUN_DIR = "shockwave_tpu_torch/workloads"
 
-_TRACING_ITEM = "ROADMAP.md Queue 1, item 3 (fleet tracing and /metrics for the port)"
-
 
 def detect_num_chips() -> int:
     """CUDA cards visible to this process (0 without a card)."""
@@ -65,9 +65,29 @@ def detect_num_chips() -> int:
 class WorkerDaemon:
     def __init__(self, worker_type: str, sched_addr: str, sched_port: int,
                  worker_port: int, num_chips: int, run_dirs: dict,
-                 data_dir: str, checkpoint_dir: str):
+                 data_dir: str, checkpoint_dir: str,
+                 obs_port: int = None, trace_dir: str = None):
         self._shutdown_event = threading.Event()
+        # Written by RunJob handlers (gRPC pool threads), read by the obs
+        # exporter's request thread (/healthz).
+        self._lock = threading.Lock()
         self._obs = get_observability()
+        self._obs_server = None
+        if obs_port is not None:
+            from ..obs.exporter import ObsHttpServer
+            self._obs_server = ObsHttpServer(
+                self._obs.registry, health_fn=self._obs_health,
+                port=obs_port).start()
+        self._worker_type = worker_type
+        self._last_dispatch_time = 0.0
+        # Fleet tracing (opt-in): this daemon's bounded span shard in
+        # the drive's trace directory; scheduler-propagated span
+        # contexts (RunJob metadata) parent this daemon's runjob/launch
+        # spans, and the dispatcher forwards them into trainers.
+        from . import spans
+        self._trace_dir = trace_dir or spans.trace_dir_from_env()
+        self._span_shard = spans.init_process_shard(self._trace_dir,
+                                                    role="worker")
         self._rpc_client = WorkerToSchedulerClient(sched_addr, sched_port)
 
         # Control-plane HA: reject dispatches from a deposed leader
@@ -113,6 +133,7 @@ class WorkerDaemon:
                 time.sleep(REGISTER_RETRY_INTERVAL_S)
         logger.info("registered %d chips as workers %s (round %.0fs)",
                     num_chips, worker_ids, round_duration)
+        self._worker_ids = worker_ids
         # Done may legitimately block at the scheduler until the round
         # boundary (early finisher); its deadline must cover a round.
         self._rpc_client.stretch_done_deadline(round_duration + 60.0)
@@ -122,7 +143,8 @@ class WorkerDaemon:
             round_duration, chip_ids=list(range(num_chips)),
             worker_rpc_client=self._rpc_client, sched_addr=sched_addr,
             sched_port=sched_port, run_dirs=run_dirs, data_dir=data_dir,
-            checkpoint_dir=checkpoint_dir)
+            checkpoint_dir=checkpoint_dir,
+            span_shard=self._span_shard, trace_dir=self._trace_dir)
 
     def _on_epoch_advance(self, epoch: int) -> None:
         """A new leader's first dispatch reached this daemon: point the
@@ -134,11 +156,43 @@ class WorkerDaemon:
                        "scheduler endpoint", epoch)
         self._rpc_client.refresh_endpoint()
 
-    def _run_job(self, jobs, worker_id, round_id):
+    def _obs_health(self) -> dict:
+        with self._lock:
+            last_dispatch = self._last_dispatch_time
+        return {
+            "worker_type": self._worker_type,
+            "worker_ids": list(getattr(self, "_worker_ids", [])),
+            "leader_epoch_seen": self._fence.epoch,
+            "last_dispatch_age_s": round(
+                time.time() - last_dispatch, 3)
+            if last_dispatch else None,
+        }
+
+    def _run_job(self, jobs, worker_id, round_id, trace=None):
+        # Worker-side dispatch heartbeat: a daemon that stops receiving
+        # RunJobs (partitioned, or starved by the scheduler) shows up as
+        # a growing age on this stamp.
+        now = time.time()
+        with self._lock:
+            self._last_dispatch_time = now
         self._obs.inc(obs_names.WORKER_JOBS_DISPATCHED_TOTAL)
-        self._obs.set_gauge(obs_names.WORKER_LAST_DISPATCH_TIMESTAMP,
-                            time.time())
-        self._dispatcher.dispatch_jobs(jobs, worker_id, round_id)
+        self._obs.set_gauge(obs_names.WORKER_LAST_DISPATCH_TIMESTAMP, now)
+        parent, send_ts = trace if trace is not None else (None, None)
+        if self._span_shard is not None:
+            # The runjob span records this host's RECEIVE stamp beside
+            # the scheduler's send stamp — the RPC timestamp pair the
+            # merge aligns per-host clocks from. The launch span (the
+            # trainer process's lifetime) is the dispatcher's.
+            with self._span_shard.span(
+                    obs_names.SPAN_RUNJOB, parent=parent,
+                    round=round_id, worker=worker_id,
+                    jobs=[j["job_id"] for j in jobs],
+                    **({"send_ts": send_ts} if send_ts is not None
+                       else {})) as ctx:
+                self._dispatcher.dispatch_jobs(jobs, worker_id, round_id,
+                                               trace_parent=ctx)
+        else:
+            self._dispatcher.dispatch_jobs(jobs, worker_id, round_id)
 
     def _kill_job(self, job_id):
         self._dispatcher.kill_job(job_id)
@@ -153,6 +207,11 @@ class WorkerDaemon:
     def join(self):
         self._shutdown_event.wait()
         self._server.stop(grace=1)
+        if self._span_shard is not None:
+            from . import spans
+            spans.flush()
+        if self._obs_server is not None:
+            self._obs_server.stop()
 
 
 def main(argv=None):
@@ -170,19 +229,16 @@ def main(argv=None):
     p.add_argument("--checkpoint_dir", required=True,
                    help="per-deployment checkpoint root; each daemon needs its own")
     p.add_argument("--obs_port", type=int, default=None,
-                   help="not ported yet; refused")
+                   help="serve /metrics + /healthz for this daemon "
+                        "(0 = ephemeral port; default disabled)")
     p.add_argument("--trace_dir", default=None,
-                   help="not ported yet; refused (as is "
-                        f"${obs_names.SHARD_DIR_ENV})")
+                   help="directory this daemon (and its trainer "
+                        "subprocesses) write span shards into; merge "
+                        "with python -m shockwave_tpu.obs.merge "
+                        f"(default: ${obs_names.SHARD_DIR_ENV}, else "
+                        "disabled)")
     p.add_argument("--log_level", default="info", choices=LEVELS)
     args = p.parse_args(argv)
-
-    if args.obs_port is not None:
-        raise NotImplementedError(
-            f"--obs_port (/metrics) is not ported yet: {_TRACING_ITEM}")
-    if args.trace_dir or os.environ.get(obs_names.SHARD_DIR_ENV):
-        raise NotImplementedError(
-            f"fleet tracing is not ported yet: {_TRACING_ITEM}")
 
     setup_logging(args.log_level)
 
@@ -200,7 +256,8 @@ def main(argv=None):
                   # Serving replicas (workloads/serving/serve.py)
                   # live in the same tree as the static training mains.
                   "serving": args.static_run_dir},
-        data_dir=args.data_dir, checkpoint_dir=args.checkpoint_dir)
+        data_dir=args.data_dir, checkpoint_dir=args.checkpoint_dir,
+        obs_port=args.obs_port, trace_dir=args.trace_dir)
     signal.signal(signal.SIGINT, lambda s, f: daemon._shutdown())
     daemon.join()
 

@@ -211,7 +211,9 @@ class TestWrappers:
         q, k, v = (torch.from_numpy(x).requires_grad_()
                    for x in rand_qkv(rng, 1, 32, 2, 32))
         fa.flash_attention(q, k, v, causal=True).sum().backward()
-        assert fa.LAUNCHES == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+        assert set(fa.LAUNCHES) == {"flash_fwd", "flash_dq", "flash_dkv", "flash_fwd_f32",
+                                    "flash_dq_f32", "flash_dkv_f32"}
+        assert not any(fa.LAUNCHES.values())
 
     def test_other_devices_raise(self):
         q = torch.empty(2, 32, 64, device="meta")
@@ -310,9 +312,10 @@ class TestLaunchConfig:
         reachable = {(fa.launch_config(tq, tk, d), d)
                      for d in fa.KERNEL_HEAD_DIMS
                      for tq in self.LENGTHS for tk in self.LENGTHS}
-        reached = {(fa.launch_config(tq, tk, d), d)
-                   for _, _, tq, tk, _, d, _, _ in smoke.CASES}
-        assert reachable == reached
+        for cases in (smoke.CASES, smoke.F32_CASES):
+            reached = {(fa.launch_config(tq, tk, d), d)
+                       for _, _, tq, tk, _, d, _, _ in cases}
+            assert reachable == reached
         # Each width's edges: one past and below the short tile, Tq != Tk
         # inside the long one, and the row that sees no key in both.
         shapes = {c[0]: c for c in smoke.CASES}
@@ -350,6 +353,7 @@ class TestCInterface:
         monkeypatch.setattr(fa._build, "library", lambda: lib)
         monkeypatch.setattr(fa, "_on_cpu", lambda *tensors: False)
         monkeypatch.setattr(fa, "_device_and_stream", lambda t: (0, 0))
+        fa.reset_launch_counts()
         yield lib
         fa.reset_launch_counts()
 
@@ -385,6 +389,37 @@ class TestCInterface:
         assert args[-10:-4] == (bh, heads, tq, tk, d, fa.launch_config(tq, tk, d))
         assert args[-4:] == (0.125, int(causal), 0, 0)
 
+    @pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
+    @pytest.mark.parametrize("dtype,suffix", [(torch.bfloat16, ""), (torch.float32, "_f32")])
+    def test_each_dtype_reaches_its_own_instance(self, lib, kernel, dtype, suffix):
+        """bf16 inputs reach the bf16 kernel, f32 inputs the f32 one, with
+        the same arguments, and only that instance's counter moves."""
+        bh, heads, t, d = 4, 2, 48, 32
+        q, k, v, g = (torch.zeros(bh, t, d, dtype=dtype) for _ in range(4))
+        lse, delta = (torch.zeros(bh, t) for _ in range(2))
+        if kernel == "fwd":
+            out, lse_out = fa.attention_forward(q, k, v, None, heads, 0.25, True)
+            assert out.dtype == dtype and lse_out.dtype == torch.float32
+        elif kernel == "dq":
+            assert fa.attention_dq(q, k, v, g, lse, delta, None, heads, 0.25,
+                                   True).dtype == dtype
+        else:
+            dk, dv = fa.attention_dkv(q, k, v, g, lse, delta, None, heads, 0.25, True)
+            assert dk.dtype == dv.dtype == dtype
+        [(name, args)] = lib.calls
+        assert name == self.ENTRY[kernel] + suffix
+        self._check_types(name, args)
+        assert args[-10:] == (bh, heads, t, t, d, 64, 0.25, 1, 0, 0)
+        assert {n: c for n, c in fa.LAUNCHES.items() if c} == {f"flash_{kernel}{suffix}": 1}
+
+    @pytest.mark.parametrize("dtypes", [(torch.float16,) * 3, (torch.float64,) * 3,
+                                        (torch.bfloat16, torch.float32, torch.bfloat16)])
+    def test_other_dtypes_raise_naming_both(self, lib, dtypes):
+        q, k, v = (torch.zeros(2, 32, 64, dtype=dt) for dt in dtypes)
+        with pytest.raises(TypeError, match=r"takes torch\.bfloat16 or torch\.float32"):
+            fa.attention_forward(q, k, v, None, 1, 0.125, False)
+        assert lib.calls == [] and not any(fa.LAUNCHES.values())
+
     def test_occupancy_asks_for_every_kernel_at_both_tiles(self, lib):
         rows = fa.kernel_occupancy(device=0)
         asked = set()
@@ -392,7 +427,7 @@ class TestCInterface:
             assert name == "swt_flash_occupancy"
             self._check_types(name, args[:-1] + (0,))  # `out` is a ctypes array
             asked.add(args[:3])
-        assert asked == {(kernel, d, tile) for kernel in range(3)
+        assert asked == {(kernel, d, tile) for kernel in range(len(fa.LAUNCHES))
                          for d in fa.KERNEL_HEAD_DIMS for tile in fa.KERNEL_TILES}
         assert {(r["kernel"], r["d"], r["tile"]) for r in rows} >= {
             ("flash_dq", d, tile) for d in (32, 64) for tile in (32, 64)}

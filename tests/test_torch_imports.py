@@ -56,7 +56,8 @@ def test_the_scan_covers_the_port():
     for path in ("obs/quantiles.py", "serving/__init__.py", "serving/load.py",
                  "serving/measured.py", "models/decoder.py", "models/a3c.py",
                  "models/cyclegan.py", "workloads/serving/serve.py", "workloads/rl/main.py",
-                 "workloads/cyclegan/cyclegan.py"):
+                 "workloads/cyclegan/cyclegan.py", "obs/clock.py", "obs/propagation.py",
+                 "obs/tracing.py", "obs/shard.py", "obs/exporter.py", "runtime/spans.py"):
         assert f"shockwave_tpu_torch/{path}" in names
 
 

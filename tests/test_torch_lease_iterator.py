@@ -25,6 +25,7 @@ from shockwave_tpu_torch.runtime import iterator as port_iterator
 STEP_S = 1.0    # fake compute per step
 SYNC_S = 0.25   # fake device wait per sync on a ref
 MAX_STEPS = 60  # the test loop's own bound, past every lease below
+TRACEPARENT = "00-" + "a" * 32 + "-" + "b" * 16 + "-01"  # the launch span's
 
 
 def free_port():
@@ -77,9 +78,12 @@ CASES = {
 }
 
 
-def drive(module, make_ref, case, port, tmp_path, monkeypatch):
+def drive(module, make_ref, case, port, tmp_path, monkeypatch, traced=False):
     """One dispatch: construct the iterator, train until it stops, run
-    the exit path; returns everything the two packages must agree on."""
+    the exit path; returns everything the two packages must agree on.
+    `traced`: fleet tracing on, the process shard's clock the fake one,
+    the launch context TRACEPARENT in the environment, and a checkpoint
+    load before the loop; the shard's spans are returned too."""
     grant, renew, env, ckpt_ahead, telemetry = CASES[case]
     rpcs = []
 
@@ -108,6 +112,13 @@ def drive(module, make_ref, case, port, tmp_path, monkeypatch):
     monkeypatch.setattr(module, "_device_sync", recording_sync)
     for key, value in env.items():
         monkeypatch.setenv(key, value)
+    shard = None
+    if traced:
+        trace_dir = str(tmp_path / "trace")
+        shard = module.spans_mod.ShardSpanWriter(trace_dir, role="trainer", clock=clock.time)
+        monkeypatch.setattr(module.spans_mod, "_SHARD", shard)
+        monkeypatch.setenv("SWTPU_SPAN_SHARD_DIR", trace_dir)
+        monkeypatch.setenv("SWTPU_TRACEPARENT", TRACEPARENT)
     server = serve_scheduler(port, {
         "RegisterWorker": lambda **kw: ([0], 60.0),
         "Done": lambda *a: None,
@@ -119,6 +130,9 @@ def drive(module, make_ref, case, port, tmp_path, monkeypatch):
             data_loader=list(range(1000)), checkpoint_dir=str(tmp_path),
             load_checkpoint_func=lambda path: None,
             save_checkpoint_func=lambda path: None)
+        if traced:
+            clock.sleep(0.5)
+            it.load_checkpoint("ckpt")
         if telemetry:
             it.queue_measurement(telemetry)
         if ckpt_ahead:
@@ -139,13 +153,21 @@ def drive(module, make_ref, case, port, tmp_path, monkeypatch):
     if module is port_iterator:
         it.close()
     else:  # the reference's exit hooks, run now instead of at exit
-        for hook in (it._flush_measured_to_log, it._write_info, it._close_log):
+        hooks = (it._flush_measured_to_log, it._write_info, it._close_log,
+                 it._close_trainer_span)
+        for hook in hooks:
             hook()
             atexit.unregister(hook)
     log = (tmp_path / ".swtpu" / "round=0" / "worker=0.log").read_text()
     lines = [re.sub(r"^\[[0-9: -]+\] ", "", line) for line in log.splitlines()]
-    return {"rpcs": rpcs, "stopped_at": steps, "done": it.done,
-            "syncs": syncs, "log": lines}
+    found = {"rpcs": rpcs, "stopped_at": steps, "done": it.done,
+             "syncs": syncs, "log": lines}
+    if shard is not None:
+        events = shard.tracer.events()
+        names = {e["span_id"]: e["name"] for e in events}
+        found["spans"] = [(e["name"], e["ts"], e["dur"], e["args"], e["trace_id"],
+                           names.get(e["parent_id"], e["parent_id"])) for e in events]
+    return found
 
 
 @pytest.fixture
@@ -155,7 +177,7 @@ def iterator_env(monkeypatch):
                        "SWTPU_SCHED_ADDR": "localhost"}.items():
         monkeypatch.setenv(key, value)
     for key in ("SWTPU_RUNAHEAD_STEPS", "SWTPU_DEGRADE_FACTOR",
-                "SWTPU_SPAN_SHARD_DIR", "SWTPU_HA_ENDPOINT_FILE"):
+                "SWTPU_SPAN_SHARD_DIR", "SWTPU_TRACEPARENT", "SWTPU_HA_ENDPOINT_FILE"):
         monkeypatch.delenv(key, raising=False)
     return monkeypatch
 
@@ -192,6 +214,37 @@ def test_lease_decisions_match_the_reference(case, iterator_env, tmp_path):
     assert ours["done"]
 
 
+@pytest.mark.parametrize("case", ["steps_renewals", "duration_expiry", "checkpoint_ahead"])
+def test_trainer_spans_match_the_reference(case, iterator_env, tmp_path):
+    """With fleet tracing on, both iterators record the same spans under
+    one fake clock: a `trainer` span from construction to the lease's
+    end, with the reference's args (job, worker, round, steps, done),
+    under the launch context from the environment, and `ckpt-load` and
+    `ckpt-save` spans under the trainer span (the save after its close)."""
+    port = free_port()
+    iterator_env.setenv("SWTPU_SCHED_PORT", str(port))
+    ref = drive(ref_iterator, np.float32, case, port, tmp_path / "ref", iterator_env,
+                traced=True)
+    ours = drive(port_iterator, lambda n: torch.tensor(float(n)), case, port,
+                 tmp_path / "port", iterator_env, traced=True)
+    assert ours == ref
+    by_name = {span[0]: span for span in ours["spans"]}
+    # Recorded as they close: the trainer span at the lease's end, before
+    # the save; a dispatch that never trains closes it at exit.
+    assert [span[0] for span in ours["spans"]] == (
+        ["ckpt-load", "ckpt-save", "trainer"] if case == "checkpoint_ahead"
+        else ["ckpt-load", "trainer", "ckpt-save"])
+    trace_id, launch_id = TRACEPARENT.split("-")[1:3]
+    trainer = by_name["trainer"]
+    assert trainer[3] == {"job": 0, "worker": 0, "round": 0, "steps": ours["stopped_at"]
+                          if case != "checkpoint_ahead" else 7, "done": True}
+    assert trainer[4:] == (trace_id, launch_id)
+    for name in ("ckpt-load", "ckpt-save"):
+        assert by_name[name][3] == {"job": 0} and by_name[name][4:] == (trace_id, "trainer")
+    if case != "checkpoint_ahead":
+        assert by_name["ckpt-save"][1] >= trainer[1] + trainer[2]
+
+
 def test_cuda_sync_waits_and_cpu_sync_does_nothing():
     reads = []
 
@@ -223,10 +276,3 @@ def test_a_failed_cuda_sync_is_not_swallowed():
     with pytest.raises(RuntimeError, match="illegal memory access"):
         port_iterator._device_sync(torch.tensor(1.0).as_subclass(BrokenCudaTensor))
 
-
-def test_fleet_tracing_is_refused(iterator_env, tmp_path):
-    iterator_env.setenv("SWTPU_SPAN_SHARD_DIR", str(tmp_path / "trace"))
-    iterator_env.setenv("SWTPU_SCHED_PORT", "1")
-    with pytest.raises(NotImplementedError, match="fleet tracing"):
-        port_iterator.LeaseIterator([], str(tmp_path), None, None)
-    assert not (tmp_path / ".swtpu").exists()

@@ -11,8 +11,9 @@ modules they need, against the JAX package's, on the CPU.
 - `measure_throughput --device cpu` writes a file the JAX package's
   `read_throughputs` reads, skips the sf = 2 rows, writes symmetric pair
   entries, builds A3C and CycleGAN through their mains and skips their
-  sf > 1 rows (one-card families, as in the reference), and refuses
-  `--trace_out` and a gang's rate (which needs as many cards as ranks).
+  sf > 1 rows (one-card families, as in the reference), writes
+  `--trace_out`'s `profile-measure` span and histogram, and refuses a
+  gang's rate (which needs as many cards as ranks).
 - `extrapolate_sf` and the reference's write equal files from the same
   input, apart from the time stamp.
 - `measure_startup` spawns the trace's LM command (the CPU asked for) and
@@ -49,6 +50,7 @@ from shockwave_tpu.core import job_table as ref_job_table
 from shockwave_tpu.core import oracle as ref_oracle
 from shockwave_tpu.core import timing as ref_timing
 from shockwave_tpu_torch.core import constants, job_table, oracle, timing
+from shockwave_tpu_torch.obs import names as port_names
 from shockwave_tpu_torch.profiling import (bench_gpu, device, extrapolate_sf,
                                            measure_startup, measure_throughput)
 
@@ -260,6 +262,28 @@ def test_measure_throughput_writes_an_oracle_the_scheduler_reads(
     assert detail["rows"] == ["LM:5", "Recommendation:512"]
 
 
+def test_measure_throughput_traces_each_row(tmp_path, short_windows, one_thread):
+    """`--trace_out` with one small row: the Chrome trace holds one
+    `profile-measure` span with the reference's args, and the row's wall
+    time is one observation of `swtpu_profile_measure_seconds`."""
+    trace = tmp_path / "trace.json"
+    obs = measure_throughput.main(["--device", "cpu", "--output", str(tmp_path / "o.json"),
+                                   "--only", "LM:5", "--scale_factors", "1",
+                                   "--steps", "3", "--warmup", "1",
+                                   "--trace_out", str(trace)])
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    [span] = [e for e in events if e["name"] == "profile-measure"]
+    assert span["ph"] == "X" and span["dur"] > 0
+    assert {k: span["args"][k] for k in ("family", "bs", "sf")} == {
+        "family": "LM", "bs": 5, "sf": 1}
+    count, total = obs.registry.histogram_stats(
+        port_names.PROFILE_MEASURE_SECONDS, family="LM")
+    assert count == 1 and total > 0
+    assert "swtpu_profile_measure_seconds_count{family=\"LM\"} 1" in (
+        obs.registry.render_prometheus())
+
+
 @pytest.mark.parametrize("argv", [["--only", "A3C:4"], ["--only", "CycleGAN:1"],
                                   ["--families", "A3C", "CycleGAN"]])
 def test_measure_throughput_refuses_a3c_and_cyclegan(argv, tmp_path, monkeypatch):
@@ -294,12 +318,6 @@ def test_build_family_builds_a3c_and_cyclegan(family, one_thread, monkeypatch):
         assert [b.shape for b in batch] == [(bs, 128, 128, 3)] * 2
     state, loss = step(job, batch)
     assert state is job and job.step == 1 and torch.isfinite(loss)
-
-
-def test_measure_throughput_refuses_trace_out(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
-        measure_throughput.main(["--device", "cpu", "--output", str(tmp_path / "o.json"),
-                                 "--trace_out", str(tmp_path / "t.json")])
 
 
 def test_measure_throughput_refuses_a_gang_the_devices_allow(monkeypatch):

@@ -6,10 +6,11 @@
   reference's.
 - The decoder, with the weights carried by
   `convert.decoder_flax_to_state_dict`: the full forward's logits
-  against the JAX `DecoderLM`'s in f32; cached decode against the port's
-  own full forward; greedy decode teacher-forced with the JAX run's
-  tokens; the bf16 flash path (K1's plain version on the CPU) against
-  the einsum path.
+  against the JAX `DecoderLM`'s in f32, with flash off and with flash on
+  (the JAX side's Pallas K1 interpreted); cached decode against the
+  port's own full forward; greedy decode teacher-forced with the JAX
+  run's tokens; the bf16 flash path (K1's plain version on the CPU)
+  against the einsum path.
 - `serve.py` as a subprocess under a stub scheduler (`--device cpu`):
   exactly the granted request batches, and measured reports on a
   renewal.
@@ -180,6 +181,23 @@ def test_greedy_decode_follows_the_jax_run():
     clear = next((i for i, m in enumerate(margins[:12]) if m <= 1e-4), 12)
     assert clear > 0
     np.testing.assert_array_equal(ours_tokens[:, :clear], jax_tokens[:, :clear])
+
+
+def test_flash_path_in_f32_matches_the_jax_decoders_pallas_path():
+    """`use_flash` in f32 (the decoder's default dtype) on both sides: the
+    JAX decoder runs its Pallas K1 (interpreted on the CPU), the port's
+    its K1's plain f32 version (the f32 kernel's on the card); logits
+    within 1e-5, as the einsum paths agree."""
+    model, params, base = flax_decoder(seed=4, use_flash=True)
+    ours = DecoderLM(**WIDTHS, use_flash=True)
+    ours.load_state_dict(base.state_dict())
+    tokens = np.random.RandomState(4).randint(0, 256, (2, 16)).astype(np.int32)
+    want = np.asarray(jax.jit(model.apply)(params, tokens))
+    fa.reset_launch_counts()
+    with torch.no_grad():
+        got = ours(torch.from_numpy(tokens).long()).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5)
+    assert not any(fa.LAUNCHES.values())
 
 
 def test_flash_path_in_bf16_matches_the_einsum_path_on_the_cpu():
