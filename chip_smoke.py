@@ -9,7 +9,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    the torch and CUDA versions.
 2. build: nvcc compiles `shockwave_tpu_torch/csrc/*.cu` (timed); the
    instantiations that spill registers, named from ptxas's report
-   (`spills:`); then each kernel instantiation's resident CTAs per SM,
+   (`spills:`); the HMMA instructions of each f32 instantiation in the
+   library's SASS, by mnemonic (`sass:`; the 3xTF32 kernels must hold
+   TF32 ones); then each kernel instantiation's resident CTAs per SM,
    threads, shared memory and registers, and at the main shape each
    kernel's resident CTA slots (CTAs per SM x SMs) against its grid
    (`occupancy:`).
@@ -21,13 +23,19 @@ Phases, in order; any failure exits non-zero and prints no result:
    of the kernels' two tile widths (32 and 64, chosen by
    `launch_config`): ragged T=17, Tq=32 against Tk=48, T=33, D=32 at
    T=32 and the key-0 row at T=32. Then each kernel's f32 instance
-   (f32 FMAs on the SIMT cores) against the plain f32 version, at the
-   main shape key-padded and causal, the decoder's full forward (8 x 64,
-   4 heads of 32, causal), the bench shape and the tile-64 edges; its
-   library time is SDPA's in f32. Times are medians of CUDA-event
-   timings of CUDA-graph replays (device time, no host launch cost),
-   beside the bound and the PyTorch library call
-   (`scaled_dot_product_attention`, a yardstick the port never calls).
+   (3xTF32 on the tensor cores for K1 and K3, f32 FMAs on the SIMT cores
+   for K2) against the plain f32 version, at the main shape key-padded
+   and causal, the decoder's full forward (8 x 64, 4 heads of 32,
+   causal), the bench shape, and the edges of the f32 instances' tiles
+   (16 up to T = 64 for K1 and K3, 32 up to T = 32 for K2, 64 beyond):
+   ragged T=17, T=65, Tq=32 against Tk=48, Tq=64 against Tk=128, D=32
+   at T=32 and T=128, and the key-0 row at T=48 and T=128; its library
+   time is SDPA's in f32. The f32 bound's operations are reckoned at
+   the card's f32-accurate product rate, a third of its dense TF32
+   rate (3xTF32). Times are medians of CUDA-event timings of CUDA-graph
+   replays (device time, no host launch cost), beside the bound and the
+   PyTorch library call (`scaled_dot_product_attention`, a yardstick the
+   port never calls).
 4. slice: the translation trainer at full width (dim 512, 8 heads,
    6 + 6 layers, batch 64) for 30 steps through
    `shockwave_tpu_torch.workloads.translation.train.main`, with the
@@ -131,8 +139,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    gradient all-reduce's ms per call. Two ranks on one card over gloo
    measure nothing of a two-card NCCL gang's speed.
 
-Output: `device:`, `build:`, `ptxas:`, `spills:` and `occupancy:`
-lines, one `kernel_case:` JSON line per shape and dtype, `slice:`,
+Output: `device:`, `build:`, `ptxas:`, `spills:`, `sass:` and
+`occupancy:` lines, one `kernel_case:` JSON line per shape and dtype, `slice:`,
 `lease:`, `trace:`, `families:`, `adapt:`, `serving:`, `profile:` and
 `gang:` lines, then the `{"kernels": [...]}` line (the six kernel
 instances, with the main case's forward + backward through the port's
@@ -176,7 +184,10 @@ CASES = (
 MAIN_CASE = "main_enc_self"  # 12 of the 18 launches per step are key-padded, non-causal
 # The f32 instances of K1-K3, in the same form: the main shape key-padded
 # and causal, the decoder's full forward in the serving phase (8 x 64,
-# 4 heads of 32, causal), the bench shape, and the tile-64 edges.
+# 4 heads of 32, causal), the bench shape, and the edges of every f32
+# tile (K1 and K3 take 16 up to T = 64, K2 32 up to T = 32, all 64
+# beyond): ragged T = 17 and T = 65, Tq != Tk inside each width, D = 32
+# at each width, and the row that sees no key at each width.
 F32_CASES = (
     ("main_enc_self_f32", 64, 32, 32, 8, 64, False, "tail"),
     ("main_dec_self_f32", 64, 32, 32, 8, 64, True, "tail"),
@@ -186,6 +197,10 @@ F32_CASES = (
     ("short_ragged_f32", 3, 17, 17, 2, 64, True, "tail"),
     ("cross_32x48_f32", 4, 32, 48, 2, 64, False, "tail"),
     ("short_head_dim_32_f32", 2, 32, 32, 4, 32, True, "tail"),
+    ("head_dim_32_f32", 2, 128, 128, 4, 32, True, "tail"),
+    ("one_past_short_f32", 2, 65, 65, 2, 64, True, "tail"),
+    ("cross_64x128_f32", 1, 64, 128, 2, 64, False, None),
+    ("short_masked_row0_f32", 1, 48, 48, 2, 64, True, "key0"),
 )
 MAIN_CASE_F32 = "main_enc_self_f32"
 
@@ -321,6 +336,12 @@ def emit(tag: str, obj) -> None:
     print(f"{tag}: {json.dumps(obj, sort_keys=True)}", flush=True)
 
 
+def kernel_name(mangled: str) -> str:
+    """"flash_..._kernel<D, tile>" of a kernel's mangled name."""
+    k = re.search(r"(flash_(?:fwd|dq|dkv)(?:_f32)?_kernel)ILi(\d+)ELi(\d+)E", mangled)
+    return f"{k.group(1)}<{k.group(2)}, {k.group(3)}>" if k else mangled
+
+
 def spills(log: str):
     """{"kernel<D, tile>": spill store bytes} of every instantiation
     that spills, from ptxas's -v report."""
@@ -332,9 +353,28 @@ def spills(log: str):
             continue
         spill = re.search(r"(\d+) bytes spill stores", line)
         if spill and int(spill.group(1)) and entry:
-            k = re.search(r"(flash_(?:fwd|dq|dkv)(?:_f32)?_kernel)ILi(\d+)ELi(\d+)E", entry)
-            name = f"{k.group(1)}<{k.group(2)}, {k.group(3)}>" if k else entry
-            found[name] = int(spill.group(1))
+            found[kernel_name(entry)] = int(spill.group(1))
+    return found
+
+
+def sass_hmma(library: str):
+    """{"kernel<D, tile>": {HMMA mnemonic: count}} of every f32
+    instantiation in the library's SASS (`cuobjdump --dump-sass`)."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    cuobjdump = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
+    sass = subprocess.run([cuobjdump, "--dump-sass", library], capture_output=True, text=True,
+                          check=True).stdout
+    found, entry = {}, None
+    for line in sass.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            entry = kernel_name(fn.group(1))
+            if "_f32_kernel" in entry:
+                found[entry] = {}
+            continue
+        op = re.search(r"\b(HMMA\S*)", line)
+        if op and entry in found:
+            found[entry][op.group(1)] = found[entry].get(op.group(1), 0) + 1
     return found
 
 
@@ -342,10 +382,10 @@ def main_shape_slots(fa, occupancy, sms):
     """Resident CTA slots (CTAs per SM x SMs) of each kernel at the main
     case's shape and tile, against its grid."""
     _, b, tq, tk, h, d, _, _ = next(c for c in CASES if c[0] == MAIN_CASE)
-    tile = fa.launch_config(tq, tk, d)
     per_sm = {(r["kernel"], r["d"], r["tile"]): r["ctas_per_sm"] for r in occupancy}
     rows = []
     for kname in fa.LAUNCHES:
+        tile = fa.launch_config(tq, tk, d, kname)
         length = tk if kname.startswith("flash_dkv") else tq  # K3 tiles the keys
         rows.append({"kernel": kname, "d": d, "tile": tile,
                      "slots": per_sm[(kname, d, tile)] * sms,
@@ -434,7 +474,8 @@ def kernel_case(fa, case, seed, device, rates, dtype=torch.bfloat16):
     """One shape through K1-K3's `dtype` instance against the plain
     versions on the same inputs: errors (checked against the dtype's
     tolerances), the time of each kernel and of its plain version, its
-    bound at `rates` (bytes/s, FLOP/s of the dtype), and the library's."""
+    bound at `rates` (bytes/s, FLOP/s of the dtype's products, and the
+    name the operations bound goes by), and the library's."""
     name, b, tq, tk, h, d, causal, mask_kind = case
     gen = torch.Generator(device=device).manual_seed(seed)
     bh, scale = b * h, 1.0 / math.sqrt(d)
@@ -475,7 +516,7 @@ def kernel_case(fa, case, seed, device, rates, dtype=torch.bfloat16):
         check(zero, f"{name}: the row that sees no key leaks gradient")
         errs["row0_grads_zero"] = zero
 
-    bw, flops_peak = rates
+    bw, flops_peak, ops_name = rates
     times = {
         "flash_fwd": (graph_ms(lambda: fa.attention_forward(q, k, v, *args)),
                       graph_ms(lambda: fa.attention_forward_plain(q, k, v, *args))),
@@ -485,14 +526,14 @@ def kernel_case(fa, case, seed, device, rates, dtype=torch.bfloat16):
                       graph_ms(lambda: fa.attention_dkv_plain(q, k, v, *bwd))),
     }
     record = {"case": name, "shape": [b, tq, tk, h, d], "causal": causal, "dtype": str(dtype),
-              "mask": mask_kind, "tile": fa.launch_config(tq, tk, d), **errs, "kernels": {}}
+              "mask": mask_kind, **errs, "kernels": {}}
     for kname, (nbytes, flops) in work(b, tq, tk, h, d, causal, q.element_size()).items():
         t_bytes, t_ops = nbytes / bw * 1e3, flops / flops_peak * 1e3
         record["kernels"][kname + suffix] = {
             "ms": times[kname][0], "plain_ms": times[kname][1],
             "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "flops": flops}
+            "bound_by": "bytes" if t_bytes >= t_ops else ops_name,
+            "bytes": nbytes, "flops": flops, "tile": fa.launch_config(tq, tk, d, kname + suffix)}
     record["library_fwd_ms"], record["library_fwd_bwd_ms"] = library_ms(
         q, k, v, g, mask, b, h, tq, tk, d, causal)
     record["flash_fwd_bwd_ms"] = flash_fwd_bwd_ms(fa, q, k, v, g, mask, b, h, tq, tk, d, causal)
@@ -1587,7 +1628,8 @@ def main() -> int:
     sys.path.insert(0, here)
     from shockwave_tpu_torch.ops import _build
     from shockwave_tpu_torch.ops import flash_attention as fa
-    from shockwave_tpu_torch.profiling.device import F32_FLOPS, nvidia_smi, peaks
+    from shockwave_tpu_torch.profiling.device import (F32_FLOPS, f32_product_flops, nvidia_smi,
+                                                      peaks)
     from shockwave_tpu_torch.workloads.translation import train
 
     device = torch.device("cuda")
@@ -1596,10 +1638,12 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
     variant, rates = peaks(smi)
+    f32_rate = f32_product_flops(smi)
     emit("device", {"name": kind, "nvidia_smi": smi, "count": torch.cuda.device_count(),
                     "torch": torch.__version__, "cuda": torch.version.cuda,
                     "peaks_from": variant, "peak_bytes_per_s": rates[0],
-                    "peak_bf16_flops": rates[1], "peak_f32_flops": F32_FLOPS[variant]})
+                    "peak_bf16_flops": rates[1], "peak_f32_simt_flops": F32_FLOPS[variant],
+                    "peak_f32_3xtf32_flops": f32_rate})
 
     t0 = time.time()
     path = _build.build()
@@ -1610,6 +1654,12 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"ptxas: {line.strip()}")
     emit("spills", spills(log))
+    hmma = sass_hmma(path)
+    emit("sass", hmma)
+    for kname in ("flash_fwd_f32_kernel", "flash_dkv_f32_kernel"):
+        for name, ops in hmma.items():
+            if name.startswith(kname):
+                check(any("TF32" in op for op in ops), f"{name}: no TF32 HMMA in its SASS ({ops})")
     occupancy = fa.kernel_occupancy(torch.cuda.current_device())
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     emit("occupancy", {"sms": sms, "kernels": occupancy,
@@ -1621,11 +1671,11 @@ def main() -> int:
     t0 = time.time()
     cases = {}
     for seed, case in enumerate(CASES):
-        cases[case[0]] = kernel_case(fa, case, seed, device, rates)
+        cases[case[0]] = kernel_case(fa, case, seed, device, (*rates, "operations"))
         emit("kernel_case", cases[case[0]])
     for seed, case in enumerate(F32_CASES):
-        cases[case[0]] = kernel_case(fa, case, seed, device, (rates[0], F32_FLOPS[variant]),
-                                     torch.float32)
+        cases[case[0]] = kernel_case(fa, case, seed, device,
+                                     (rates[0], f32_rate, "operations (3xTF32)"), torch.float32)
         emit("kernel_case", cases[case[0]])
     kernel_s = time.time() - t0
 
@@ -1686,10 +1736,12 @@ def main() -> int:
                 "replaces": source_line, "launches": launched[kname + suffix],
                 "max_abs_err": max(c[e] for c in main_cases for e in ERR_KEYS[kname]),
                 "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-                "bound_by": k["bound_by"],
+                "bound_by": k["bound_by"].split()[0],
                 "library_ms": at_case["library_fwd_ms"] if kname == "flash_fwd" else None,
                 "at": f"{at_name} {at_case['shape']}",
                 "bench_ms": cases[bench]["kernels"][kname + suffix]["ms"],
+                "bench_bound_ms": cases[bench]["kernels"][kname + suffix]["bound_ms"],
+                "bench_bound_by": cases[bench]["kernels"][kname + suffix]["bound_by"],
                 "bench_library_ms": (cases[bench]["library_fwd_ms"] if kname == "flash_fwd"
                                      else None),
                 "bench_long_launches": profiled["launches"][kname + suffix]}

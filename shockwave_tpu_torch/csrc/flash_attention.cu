@@ -743,31 +743,79 @@ __global__ void __launch_bounds__(DkvShape<D, kBlock>::kCtaThreads)
 //
 // The same three functions on (BH, T, D) f32 tensors, as the Pallas
 // kernels compute them in f32 (every dot there runs with
-// preferred_element_type=f32): full f32 FMAs on the SIMT cores, no TF32,
-// so the results hold the plain f32 versions' digits. Masking is the bf16
-// kernels': -1e30 after the causal where, then the key bias, -inf past a
-// ragged end (so such keys never move a max), p = 0 where s <= -5e29 in
-// the backward.
+// preferred_element_type=f32), to the plain f32 versions' digits: no
+// one-pass TF32 anywhere. Masking is the bf16 kernels': -1e30 after the
+// causal where, then the key bias, -inf past a ragged end (so such keys
+// never move a max), the running max from -1e30, p = 0 where s <= -5e29
+// in the backward.
 //
-// Simple first: a CTA owns kBlock rows of one (batch, head), two threads
-// per row, each holding the even or odd half of the row's D values in
-// registers (the two halves of a dot meet in one shuffle); the other
-// side's tiles (K/V for K1 and K2, Q/dO for K3) are staged in shared
-// memory, kBlock rows at a time, and read as broadcasts (a warp reads two
-// neighbouring floats of one row). K1 keeps an online softmax over the
-// k-tiles, as the bf16 kernel does. Tiles are loaded synchronously: no
-// cp.async ring, no tensor cores.
+// flash_fwd_f32 (replaces _fa_kernel, shockwave_tpu/ops/flash_attention.py:40)
+// and flash_dkv_f32 (replaces _dkv_kernel, :222) run their products on
+// the tensor cores as 3xTF32, as PyTorch's f32 attention does on sm80+:
+// each operand is split as x = big + small, both TF32 (split_tf32), and
+// a product a.b becomes a_small.b_big + a_big.b_small + a_big.b_big, the
+// small terms first, into one f32 accumulator of mma.sync.m16n8k8.tf32.
+// That keeps about 21 bits of each product (one-pass TF32 keeps 11, which
+// misses the f32 tolerance).
 //
-// Bound on an H100 SXM (3.35 TB/s, 67 f32 TFLOP/s on the SIMT cores): at
-// the trainer's shape (BH 512, T 32, D 64) in f32 K1 moves 16.9 MB for
-// 0.13 GFLOP, 5.0 us by bytes; at the bench shape (4, 2048, 8, 64) causal
-// it does 17.2 GFLOP, 257 us by operations.
+// Bound on an H100 SXM (3.35 TB/s; f32-accurate products at 494.5 / 3 =
+// 164.8 TFLOP/s, a third of the dense TF32 rate):
+// - K1 f32: at the bench shape (4, 2048, 8, 64) causal, 17.2 GFLOP for
+//   67 MB, 104 us by operations; at the f32 decoder's (8, 64, 4 x 32)
+//   causal, 1.06 MB, 0.32 us by bytes.
+// - K3 f32: 34.4 GFLOP for 101 MB, 209 us by operations at the bench
+//   shape; 1.59 MB, 0.47 us by bytes at the decoder's.
+//
+// What the design does about that bound:
+// 1. Tensor cores: K1 runs S = Q.K^T and O += P.V, K3 runs S^T = K.Q^T,
+//    dP^T = V.dO^T, dV += P^T.dO and dK += dS^T.Q, each as three
+//    m16n8k8 TF32 products. Q (K1) and K and V (K3) are split once per
+//    CTA, straight from device memory; the streamed operands are split
+//    as their fragments are read, in three integer and float ops. The
+//    tensor cores' f32 accumulation truncates, so O, dV and dK are summed
+//    one tile (K3: 16 queries) at a time from zero and added up in f32.
+//    Exponentials take __expf (ex2.approx), well inside the tolerance.
+// 2. The accumulator-to-operand hand-off: in m16n8k8.tf32 a lane's A
+//    registers hold columns t and t + 4 of a row, its C registers columns
+//    2t and 2t + 1. Rather than move P (or dS^T) across lanes, the
+//    reduction index is permuted: slot t takes column 2t and slot t + 4
+//    column 2t + 1, and the B fragment of V (dO, Q in K3) is read from
+//    rows 2t and 2t + 1 to match, so the product is unchanged.
+// 3. K/V tiles (K1) and Q/dO/lse/delta tiles (K3) stream through a
+//    two-stage cp.async ring of 16-byte copies; shared rows are padded to
+//    D + 4 floats, so every fragment read is free of bank conflicts.
+//    Two 64-row f32 stages take 70 KB, so the launchers opt in to more
+//    than 48 KB.
+// 4. Warps own 16 rows (K1: queries, K3: keys). K1 keeps its online
+//    softmax in registers, the row max and sum reduced over a quad with
+//    two shuffles. K3 works 16 queries at a time, one chunk live at a
+//    time, so its scores stay at 16 floats beside the split K fragments
+//    and the dK and dV sums; the split V fragments wait in shared memory.
+//    Every instance compiles with 0 spill bytes.
+// 5. Tiles follow the grid: up to T = 64 a CTA is one warp of 16 rows, so
+//    the decoder's 32 (batch, head) pairs give 128 CTAs, not 32, on 132
+//    SMs; longer sequences take 64-row CTAs that share each streamed tile
+//    among four warps.
+// wgmma is not the route yet: for 32-bit types it takes only K-major
+// operands from shared memory, so P.V and every transposed product of K3
+// would need transposed copies of their tiles. That is left for a later
+// speed PR.
+//
+// flash_dq_f32 (replaces _dq_kernel, :167) runs on the SIMT cores; a
+// 3xTF32 version on K3's tile engine is still to come (ROADMAP, Queue 2
+// item 7). A CTA owns kBlock rows of one (batch, head), two threads per
+// row, each holding the even or odd half of the row's D values in
+// registers (the two halves of a dot meet in one shuffle); the K/V tiles
+// are staged in shared memory, kBlock rows at a time, and read as
+// broadcasts. Tiles are loaded synchronously: no cp.async ring, no tensor
+// cores. Its bound at the bench shape is 25.8 GFLOP, 156 us by operations
+// at the same rate.
 // ---------------------------------------------------------------------------
 template <int D, int kBlock>
 struct F32Shape {
   static constexpr int kCtaThreads = 2 * kBlock;  // two threads per row
-  // Two (kBlock, D) tiles and two kBlock rows of f32 (K1 and K2: K, V and
-  // the key bias; K3: Q, dO, lse and delta): at most 33,280 bytes.
+  // Two (kBlock, D) tiles and two kBlock rows of f32 (K2: K, V and the
+  // key bias): at most 33,280 bytes.
   static constexpr size_t kSmemBytes = (2 * kBlock * D + 2 * kBlock) * sizeof(float);
   static_assert(kSmemBytes <= 48 * 1024, "static shared-memory limit");
 };
@@ -822,69 +870,278 @@ __device__ __forceinline__ void pair_axpy(float (&acc)[D / 2], float a, const fl
   for (int i = 0; i < D / 2; ++i) acc[i] = fmaf(a, y[2 * i + h], acc[i]);
 }
 
-// K1 in f32. Grid (BH, q-tiles), heaviest causal tile first.
+// ---------------------------------------------------------------------------
+// 3xTF32 building blocks of K1 and K3 in f32: the TF32 split, mma.sync
+// m16n8k8. g = lane / 4 and t = lane % 4 throughout.
+// ---------------------------------------------------------------------------
+
+// The 3xTF32 kernels' shared tiles keep rows of D + 4 floats (D = 64: 272
+// bytes): the fragment reads below (row g, column t; or row 2t, column g)
+// then fall in 32 different banks, and each row stays 16-byte aligned for
+// cp.async.
+template <int D>
+__host__ __device__ constexpr int f32_stride() {
+  return D + 4;
+}
+
+// N registers of an f32 operand fragment, each split as x = big + small,
+// both TF32.
+template <int N>
+struct Split {
+  uint32_t big[N], small[N];
+};
+
+// x = big + small, both TF32, as CUTLASS's fast f32 GEMMs (and so
+// PyTorch's f32 attention) split an operand: big is x with the 13 bits
+// below TF32's 10 mantissa bits cleared, small = x - big (exact) rounded
+// to nearest by adding half of its dropped bits, which stay in place: the
+// tensor cores read only a TF32 operand's top 19 bits. Three integer or
+// float ops for finite x; cvt.rna.tf32.f32 alone compiles to a longer
+// sequence that also screens infinities and NaNs, which these operands
+// never are. big.big + big.small + small.big then keeps about 21 bits of
+// each product.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = __float_as_uint(x) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big)) + 0x1000u;
+}
+
+// c (16x8 f32) += a (16x8 TF32, row-major) . b (8x8 TF32, col-major).
+// a[0..3] hold (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); b0 (t, g),
+// b1 (t + 4, g); c as in mma_bf16.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a . b to f32 accuracy: the two small terms first, then big . big,
+// all into the one f32 accumulator.
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const Split<4>& a, const Split<2>& b) {
+  mma_tf32(c, a.small, b.big[0], b.big[1]);
+  mma_tf32(c, a.big, b.small[0], b.small[1]);
+  mma_tf32(c, a.big, b.big[0], b.big[1]);
+}
+
+// The A operand of rows [r0, r0 + 16), columns [c0, c0 + 8) of a (rows,
+// D) f32 matrix in device memory, split; rows past `rows` read 0.
+template <int D>
+__device__ __forceinline__ Split<4> split_a_global(const float* x, int r0, int rows, int c0, int g,
+                                                   int t) {
+  const bool in0 = r0 + g < rows, in1 = r0 + g + 8 < rows;
+  const float* x0 = x + (size_t)(in0 ? r0 + g : 0) * D + c0;
+  const float* x1 = x + (size_t)(in1 ? r0 + g + 8 : 0) * D + c0;
+  const float v[4] = {in0 ? x0[t] : 0.f, in1 ? x1[t] : 0.f, in0 ? x0[t + 4] : 0.f,
+                      in1 ? x1[t + 4] : 0.f};
+  Split<4> a;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(v[i], a.big[i], a.small[i]);
+  return a;
+}
+
+// The B operand of A . X^T for 8 rows of X (the n side) at `x` in shared
+// memory, row stride S, 8 columns: b0 = X[g][t], b1 = X[g][t + 4].
+template <int S>
+__device__ __forceinline__ Split<2> split_bt(const float* x, int g, int t) {
+  Split<2> b;
+  split_tf32(x[g * S + t], b.big[0], b.small[0]);
+  split_tf32(x[g * S + t + 4], b.big[1], b.small[1]);
+  return b;
+}
+
+// The B operand of A . X for 8 rows of X (the reduction side) at `x`, 8
+// columns, with the reduction index permuted: slot t takes row 2t, slot
+// t + 4 row 2t + 1, so b0 = X[2t][g] and b1 = X[2t + 1][g]. It pairs with
+// accum_to_a_tf32, which permutes A's columns the same way.
+template <int S>
+__device__ __forceinline__ Split<2> split_b_permuted(const float* x, int g, int t) {
+  Split<2> b;
+  split_tf32(x[2 * t * S + g], b.big[0], b.small[0]);
+  split_tf32(x[(2 * t + 1) * S + g], b.big[1], b.small[1]);
+  return b;
+}
+
+// A 16x8 accumulator tile c (rows g and g + 8, columns 2t and 2t + 1) as
+// a split A operand, its columns permuted as split_b_permuted's rows:
+// slot t holds column 2t and slot t + 4 column 2t + 1. Each lane keeps
+// its own values; nothing moves across lanes.
+__device__ __forceinline__ Split<4> accum_to_a_tf32(const float (&c)[4]) {
+  Split<4> a;
+  split_tf32(c[0], a.big[0], a.small[0]);  // (g, 2t)
+  split_tf32(c[2], a.big[1], a.small[1]);  // (g + 8, 2t)
+  split_tf32(c[1], a.big[2], a.small[2]);  // (g, 2t + 1)
+  split_tf32(c[3], a.big[3], a.small[3]);  // (g + 8, 2t + 1)
+  return a;
+}
+
+// Start cp.async copies of rows [row0, row0 + R) of a (rows, D) f32
+// matrix into an R-row shared tile of stride f32_stride<D>(); rows past
+// `rows` are zero-filled.
+template <int D, int R, int kCtaThreads>
+__device__ __forceinline__ void copy_tile_f32_async(float* dst, const float* src, int row0,
+                                                    int rows) {
+  constexpr int kChunks = D / 4;
+  for (int i = threadIdx.x; i < R * kChunks; i += kCtaThreads) {
+    const int r = i / kChunks, c = i % kChunks;
+    const bool valid = row0 + r < rows;
+    cp_async16(dst + r * f32_stride<D>() + c * 4,
+               src + (size_t)(valid ? row0 + r : 0) * D + c * 4, valid);
+  }
+}
+
+// K1 in f32. Grid (BH, q-tiles), heaviest causal tile first; a CTA of
+// kBlock / 16 warps owns kBlock query rows, 16 per warp, and walks the
+// kBlock-wide k-tiles up to the causal diagonal with an online softmax.
 template <int D, int kBlock>
-__global__ void __launch_bounds__(F32Shape<D, kBlock>::kCtaThreads)
+struct FwdF32Shape {
+  static constexpr int kCtaThreads = kBlock * 2;  // kBlock / 16 warps
+  static constexpr int kTileElems = kBlock * f32_stride<D>();
+  static constexpr size_t kSmemBytes =
+      (4 * kTileElems + 2 * kBlock) * sizeof(float);  // 2 x K, 2 x V, 2 x key bias
+};
+
+template <int D, int kBlock>
+__global__ void __launch_bounds__(FwdF32Shape<D, kBlock>::kCtaThreads)
     flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const uint8_t* __restrict__ mask,
                          float* __restrict__ out, float* __restrict__ lse, int heads, int tq,
                          int tk, float scale, int causal) {
-  constexpr int kThr = F32Shape<D, kBlock>::kCtaThreads;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* sK = reinterpret_cast<float*>(smem);
-  float* sV = sK + kBlock * D;
-  float* sBias = sV + kBlock * D;
+  using Shape = FwdF32Shape<D, kBlock>;
+  constexpr int S = f32_stride<D>();
+  constexpr int kThr = Shape::kCtaThreads;
+  constexpr int kE = Shape::kTileElems;
+  constexpr int kN = kBlock / 8;  // n8 score tiles per row block
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* sK = reinterpret_cast<float*>(smem);  // 2 stages
+  float* sV = sK + 2 * kE;                     // 2 stages
+  float* sBias = sV + 2 * kE;                  // 2 stages
 
   const int bh = blockIdx.x;
-  const int qt = gridDim.y - 1 - blockIdx.y;
-  const int row = qt * kBlock + (threadIdx.x >> 1), h = threadIdx.x & 1;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // causal: the longest k loops start first
+  const int q0 = qt * kBlock;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
   const float* kb = k + (size_t)bh * tk * D;
   const float* vb = v + (size_t)bh * tk * D;
   const uint8_t* mask_row = mask != nullptr ? mask + (size_t)(bh / heads) * tk : nullptr;
+  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+
   int nk = (tk + kBlock - 1) / kBlock;
   if (causal) nk = min(nk, qt + 1);  // k-tiles past the diagonal see nothing
 
-  float qr[D / 2], o[D / 2];
-  load_half_row<D>(qr, q + (size_t)bh * tq * D, row, tq, h);
+  copy_tile_f32_async<D, kBlock, kThr>(sK, kb, 0, tk);
+  copy_tile_f32_async<D, kBlock, kThr>(sV, vb, 0, tk);
+  for (int j = threadIdx.x; j < kBlock; j += kThr) sBias[j] = key_bias(mask_row, j, tk);
+  cp_async_commit();
+
+  // The warp's 16 Q rows, split once while the first tiles arrive.
+  Split<4> qf[D / 8];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-  float m = kNegInf, l = 0.f;  // running max and normaliser of the row
+  for (int kk = 0; kk < D / 8; ++kk)
+    qf[kk] = split_a_global<D>(q + (size_t)bh * tq * D, q0 + warp * 16, tq, kk * 8, g, t);
+
+  float o[D / 8][4] = {};
+  float m[2] = {kNegInf, kNegInf};  // running max of rows g, g + 8
+  float l[2] = {0.f, 0.f};          // this lane's part of their normalisers
 
   for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kBlock;
-    __syncthreads();  // every thread is done with the last tile
-    load_tile_f32<D, kThr>(sK, kb, k0, tk, kBlock);
-    load_tile_f32<D, kThr>(sV, vb, k0, tk, kBlock);
-    for (int j = threadIdx.x; j < kBlock; j += kThr) sBias[j] = key_bias(mask_row, k0 + j, tk);
+    const int buf = kt & 1;
+    if (kt + 1 < nk) {
+      const int k1 = (kt + 1) * kBlock;
+      copy_tile_f32_async<D, kBlock, kThr>(sK + (buf ^ 1) * kE, kb, k1, tk);
+      copy_tile_f32_async<D, kBlock, kThr>(sV + (buf ^ 1) * kE, vb, k1, tk);
+      for (int j = threadIdx.x; j < kBlock; j += kThr)
+        sBias[(buf ^ 1) * kBlock + j] = key_bias(mask_row, k1 + j, tk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
+    const float* cK = sK + buf * kE;
+    const float* cV = sV + buf * kE;
+    const float* cBias = sBias + buf * kBlock;
+    const int k0 = kt * kBlock;
 
-    // Scale, causal -1e30, then the key bias, as _fa_kernel orders them.
-    float s[kBlock];
-    float mx = m;
+    float s[kN][4] = {};
 #pragma unroll
-    for (int j = 0; j < kBlock; ++j) {
-      float x = pair_dot<D>(qr, sK + j * D, h) * scale;
-      if (causal && row < k0 + j) x = kNegInf;
-      x += sBias[j];
-      s[j] = x;
-      mx = fmaxf(mx, x);
+    for (int kk = 0; kk < D / 8; ++kk) {
+#pragma unroll
+      for (int j = 0; j < kN; ++j)
+        mma_3xtf32(s[j], qf[kk], split_bt<S>(cK + j * 8 * S + kk * 8, g, t));
     }
-    const float corr = expf(m - mx);
-    m = mx;
-    l *= corr;
+
+    // Scale, causal -1e30, then the key bias, as _fa_kernel orders them;
+    // the new running max starts from the old one.
+    float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] *= corr;
+    for (int j = 0; j < kN; ++j) {
 #pragma unroll
-    for (int j = 0; j < kBlock; ++j) {
-      const float p = expf(s[j] - m);
-      l += p;
-      pair_axpy<D>(o, p, sV + j * D, h);
+      for (int e = 0; e < 4; ++e) {
+        const int kl = j * 8 + 2 * t + (e & 1);
+        float x = s[j][e] * scale;
+        if (causal && row[e >> 1] < k0 + kl) x = kNegInf;
+        x += cBias[kl];
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
     }
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      corr[h] = __expf(m[h] - mx[h]);
+      m[h] = mx[h];
+      l[h] *= corr[h];
+    }
+#pragma unroll
+    for (int j = 0; j < kN; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = __expf(s[j][e] - m[e >> 1]);
+        s[j][e] = p;
+        l[e >> 1] += p;
+      }
+    }
+
+    // O = O corr + P.V, 8 keys at a time: P's accumulator tiles are A
+    // operands as they stand, V's rows read in the matching order. The
+    // tile's P.V is summed from zero on the tensor cores and added to O by
+    // an FMA, so that the tensor cores' f32 accumulation, which truncates,
+    // runs over one tile and not the whole sequence.
+    float pv[D / 8][4] = {};
+#pragma unroll
+    for (int c = 0; c < kN; ++c) {
+      const Split<4> pa = accum_to_a_tf32(s[c]);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        mma_3xtf32(pv[n], pa, split_b_permuted<S>(cV + c * 8 * S + n * 8, g, t));
+    }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] = fmaf(o[n][e], corr[e >> 1], pv[n][e]);
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
   }
 
-  const float lc = fmaxf(l, 1e-30f);
-  store_half_row<D>(out + (size_t)bh * tq * D, o, 1.f / lc, row, tq, h);
-  if (h == 0 && row < tq) lse[(size_t)bh * tq + row] = m + logf(lc);
+  float* ob = out + (size_t)bh * tq * D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const float lc = fmaxf(l[h], 1e-30f);
+    if (row[h] < tq) {
+      const float inv = 1.f / lc;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<float2*>(ob + (size_t)row[h] * D + n * 8 + 2 * t) =
+            make_float2(o[n][2 * h] * inv, o[n][2 * h + 1] * inv);
+      if (t == 0) lse[(size_t)bh * tq + row[h]] = m[h] + logf(lc);
+    }
+  }
 }
 
 // K2 in f32: dQ. Grid (BH, q-tiles), heaviest causal tile first.
@@ -940,64 +1197,195 @@ __global__ void __launch_bounds__(F32Shape<D, kBlock>::kCtaThreads)
   store_half_row<D>(dq + (size_t)bh * tq * D, acc, 1.f, row, tq, h);
 }
 
-// K3 in f32: dK and dV. Grid (BH, k-tiles); two threads per key row walk
-// the q-tiles from the causal diagonal on.
+// K3 in f32: dK and dV. Grid (BH, k-tiles); a CTA of kBlock / 16 warps
+// owns kBlock keys, 16 per warp, and walks the kBlock-wide q-tiles from
+// the causal diagonal on, 16 queries at a time. A warp keeps its split K
+// rows in registers beside the dK and dV sums; its split V rows wait in
+// shared memory in fragment order (each lane's 8 values of a k8 slice
+// side by side, read back as two 16-byte loads), since registers would
+// not hold both with the scores (255 a thread).
 template <int D, int kBlock>
-__global__ void __launch_bounds__(F32Shape<D, kBlock>::kCtaThreads)
+struct DkvF32Shape {
+  static constexpr int kCtaThreads = kBlock * 2;  // kBlock / 16 warps
+  static constexpr int kTileElems = kBlock * f32_stride<D>();
+  static constexpr int kSplitVElems = kBlock * D * 2;  // big and small of each warp's V rows
+  static constexpr size_t kSmemBytes =
+      (4 * kTileElems + 4 * kBlock + kSplitVElems) *
+      sizeof(float);  // 2 x Q, 2 x dO, 2 x lse, 2 x delta, split V
+};
+
+template <int D, int kBlock>
+__device__ __forceinline__ void copy_q_side_f32_async(float* sQ, float* sG, float* sLse,
+                                                      float* sDelta, const float* qb,
+                                                      const float* gb, const float* lse_b,
+                                                      const float* delta_b, int q0, int tq) {
+  constexpr int kThr = DkvF32Shape<D, kBlock>::kCtaThreads;
+  static_assert(kThr == 2 * kBlock, "one lse and one delta entry per thread");
+  copy_tile_f32_async<D, kBlock, kThr>(sQ, qb, q0, tq);
+  copy_tile_f32_async<D, kBlock, kThr>(sG, gb, q0, tq);
+  // kThr == 2 kBlock: one f32 each, lse then delta; rows past tq read 0.
+  const int i = threadIdx.x % kBlock;
+  const bool valid = q0 + i < tq;
+  const float* src = threadIdx.x < kBlock ? lse_b : delta_b;
+  float* dst = threadIdx.x < kBlock ? sLse : sDelta;
+  cp_async4(dst + i, src + (valid ? q0 + i : 0), valid);
+}
+
+template <int D, int kBlock>
+__global__ void __launch_bounds__(DkvF32Shape<D, kBlock>::kCtaThreads)
     flash_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const float* __restrict__ g,
                          const float* __restrict__ lse, const float* __restrict__ delta,
                          const uint8_t* __restrict__ mask, float* __restrict__ dk,
                          float* __restrict__ dv, int heads, int tq, int tk, float scale,
                          int causal) {
-  constexpr int kThr = F32Shape<D, kBlock>::kCtaThreads;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* sQ = reinterpret_cast<float*>(smem);
-  float* sG = sQ + kBlock * D;
-  float* sLse = sG + kBlock * D;
-  float* sDelta = sLse + kBlock;
+  using Shape = DkvF32Shape<D, kBlock>;
+  constexpr int S = f32_stride<D>();
+  constexpr int kE = Shape::kTileElems;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* sQ = reinterpret_cast<float*>(smem);  // 2 stages
+  float* sG = sQ + 2 * kE;                      // 2 stages
+  float* sLse = sG + 2 * kE;                    // 2 stages
+  float* sDelta = sLse + 2 * kBlock;            // 2 stages
+  uint32_t* sVf = reinterpret_cast<uint32_t*>(sDelta + 2 * kBlock);  // split V
 
   const int bh = blockIdx.x;
-  const int key = blockIdx.y * kBlock + (threadIdx.x >> 1), h = threadIdx.x & 1;
+  const int k0 = blockIdx.y * kBlock;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, t = lane & 3;
   const float* qb = q + (size_t)bh * tq * D;
   const float* gb = g + (size_t)bh * tq * D;
+  const float* lse_b = lse + (size_t)bh * tq;
+  const float* delta_b = delta + (size_t)bh * tq;
   const uint8_t* mask_row = mask != nullptr ? mask + (size_t)(bh / heads) * tk : nullptr;
-  const float bias = key_bias(mask_row, key, tk);
-  const int nq = (tq + kBlock - 1) / kBlock;
-  const int qt0 = causal ? (int)blockIdx.y : 0;  // q-tiles above the diagonal see none of these keys
+  const int key[2] = {k0 + warp * 16 + gq, k0 + warp * 16 + gq + 8};
+  const float bias[2] = {key_bias(mask_row, key[0], tk), key_bias(mask_row, key[1], tk)};
 
-  float kr[D / 2], vr[D / 2], dk_acc[D / 2], dv_acc[D / 2];
-  load_half_row<D>(kr, k + (size_t)bh * tk * D, key, tk, h);
-  load_half_row<D>(vr, v + (size_t)bh * tk * D, key, tk, h);
+  const int nq = (tq + kBlock - 1) / kBlock;
+  // q-tiles above the diagonal see none of these keys
+  const int qt0 = causal ? (int)blockIdx.y : 0;
+
+  if (qt0 < nq)
+    copy_q_side_f32_async<D, kBlock>(sQ, sG, sLse, sDelta, qb, gb, lse_b, delta_b, qt0 * kBlock,
+                                     tq);
+  cp_async_commit();
+
+  // The warp's 16 K and V rows, split once while the first tiles arrive:
+  // K into registers, V into the warp's own slots of sVf (the loop's
+  // first __syncthreads orders these stores before their loads).
+  Split<4> kf[D / 8];
+  uint32_t* vf_lane = sVf + (warp * (D / 8) * 32 + lane) * 8;  // + kk * 256
+  const float* kb = k + (size_t)bh * tk * D;
+  const float* vb = v + (size_t)bh * tk * D;
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int kk = 0; kk < D / 8; ++kk) {
+    kf[kk] = split_a_global<D>(kb, k0 + warp * 16, tk, kk * 8, gq, t);
+    const Split<4> vf = split_a_global<D>(vb, k0 + warp * 16, tk, kk * 8, gq, t);
+    uint4* dst = reinterpret_cast<uint4*>(vf_lane + kk * 256);
+    dst[0] = make_uint4(vf.big[0], vf.big[1], vf.big[2], vf.big[3]);
+    dst[1] = make_uint4(vf.small[0], vf.small[1], vf.small[2], vf.small[3]);
+  }
+  float dk_acc[D / 8][4] = {}, dv_acc[D / 8][4] = {};
 
   for (int qt = qt0; qt < nq; ++qt) {
-    const int q0 = qt * kBlock;
-    __syncthreads();
-    load_tile_f32<D, kThr>(sQ, qb, q0, tq, kBlock);
-    load_tile_f32<D, kThr>(sG, gb, q0, tq, kBlock);
-    for (int j = threadIdx.x; j < kBlock; j += kThr) {
-      const bool valid = q0 + j < tq;  // rows past tq read 0
-      sLse[j] = valid ? lse[(size_t)bh * tq + q0 + j] : 0.f;
-      sDelta[j] = valid ? delta[(size_t)bh * tq + q0 + j] : 0.f;
+    const int buf = (qt - qt0) & 1;
+    if (qt + 1 < nq) {
+      const int nb = buf ^ 1;
+      copy_q_side_f32_async<D, kBlock>(sQ + nb * kE, sG + nb * kE, sLse + nb * kBlock,
+                                       sDelta + nb * kBlock, qb, gb, lse_b, delta_b,
+                                       (qt + 1) * kBlock, tq);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    const float* cLse = sLse + buf * kBlock;
+    const float* cDelta = sDelta + buf * kBlock;
+    const int q0 = qt * kBlock;
 
-#pragma unroll 4
-    for (int j = 0; j < kBlock; ++j) {
-      const int query = q0 + j;
-      float x = pair_dot<D>(kr, sQ + j * D, h) * scale;
-      if (causal && query < key) x = kNegInf;
-      x += bias;
-      const float p = (x <= kNegInf * 0.5f || query >= tq) ? 0.f : expf(x - sLse[j]);
-      const float dpt = pair_dot<D>(vr, sG + j * D, h);
-      pair_axpy<D>(dv_acc, p, sG + j * D, h);
-      pair_axpy<D>(dk_acc, p * (dpt - sDelta[j]) * scale, sQ + j * D, h);
+#pragma unroll 1  // one chunk's operands live at a time: no spills at D = 64
+    for (int c = 0; c < kBlock / 16; ++c) {  // 16 queries at a time
+      const float* cQ = sQ + buf * kE + c * 16 * S;
+      const float* cG = sG + buf * kE + c * 16 * S;
+      float st[2][4] = {}, dpt[2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const uint4* src = reinterpret_cast<const uint4*>(vf_lane + kk * 256);
+        const uint4 vb = src[0], vs = src[1];
+        const Split<4> vf = {{vb.x, vb.y, vb.z, vb.w}, {vs.x, vs.y, vs.z, vs.w}};
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          mma_3xtf32(st[j], kf[kk], split_bt<S>(cQ + j * 8 * S + kk * 8, gq, t));
+          mma_3xtf32(dpt[j], vf, split_bt<S>(cG + j * 8 * S + kk * 8, gq, t));
+        }
+      }
+      // Lane holds keys key[0] (e = 0, 1) and key[1] (e = 2, 3) against
+      // queries ql and ql + 1 of each n8 tile.
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int ql = c * 16 + j * 8 + 2 * t;
+        const float2 lq = *reinterpret_cast<const float2*>(cLse + ql);
+        const float2 dq = *reinterpret_cast<const float2*>(cDelta + ql);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int query = q0 + ql + (e & 1);
+          float x = st[j][e] * scale;
+          if (causal && query < key[e >> 1]) x = kNegInf;
+          x += bias[e >> 1];
+          const float p = (x <= kNegInf * 0.5f || query >= tq)
+                              ? 0.f
+                              : __expf(x - ((e & 1) ? lq.y : lq.x));
+          st[j][e] = p;
+          dpt[j][e] = p * (dpt[j][e] - ((e & 1) ? dq.y : dq.x)) * scale;
+        }
+      }
+      // dV += P^T.dO, then dK += dS^T.Q: the accumulator tiles are A
+      // operands as they stand, dO's and Q's rows read in the matching
+      // order. Each 16 queries' part is summed from zero on the tensor
+      // cores and added to dV and dK in f32 (see K1's O).
+      {
+        const Split<4> pa[2] = {accum_to_a_tf32(st[0]), accum_to_a_tf32(st[1])};
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          float part[4] = {};
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            mma_3xtf32(part, pa[j], split_b_permuted<S>(cG + j * 8 * S + n * 8, gq, t));
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dv_acc[n][e] += part[e];
+        }
+      }
+      {
+        const Split<4> dsa[2] = {accum_to_a_tf32(dpt[0]), accum_to_a_tf32(dpt[1])};
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          float part[4] = {};
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            mma_3xtf32(part, dsa[j], split_b_permuted<S>(cQ + j * 8 * S + n * 8, gq, t));
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dk_acc[n][e] += part[e];
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+  cp_async_wait<0>();  // no copy is left in flight when the loop never ran
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (key[h] >= tk) continue;
+    float* dk_row = dk + ((size_t)bh * tk + key[h]) * D + 2 * t;
+    float* dv_row = dv + ((size_t)bh * tk + key[h]) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<float2*>(dk_row + n * 8) =
+          make_float2(dk_acc[n][2 * h], dk_acc[n][2 * h + 1]);
+      *reinterpret_cast<float2*>(dv_row + n * 8) =
+          make_float2(dv_acc[n][2 * h], dv_acc[n][2 * h + 1]);
     }
   }
-  store_half_row<D>(dk + (size_t)bh * tk * D, dk_acc, 1.f, key, tk, h);
-  store_half_row<D>(dv + (size_t)bh * tk * D, dv_acc, 1.f, key, tk, h);
 }
 
 // ---------------------------------------------------------------------------
@@ -1091,13 +1479,16 @@ int occupancy(Kernel kernel, int threads, size_t smem, int* out) {
   return 0;
 }
 
-// The f32 kernels use at most 33,280 bytes of shared memory, under the
-// 48 KB a launch gets without opting in.
+// The 3xTF32 instances opt in to more than 48 KB of shared memory as the
+// bf16 launchers do (two 64-row f32 stages of two tiles take 70 KB).
 template <int D, int kBlock>
 int launch_fwd_f32(const void* q, const void* k, const void* v, const void* mask, void* out,
                    void* lse, int bh, int heads, int tq, int tk, float scale, int causal,
                    cudaStream_t stream) {
-  using Shape = F32Shape<D, kBlock>;
+  using Shape = FwdF32Shape<D, kBlock>;
+  static bool configured[kMaxDevices] = {};
+  cudaError_t err = set_smem(flash_fwd_f32_kernel<D, kBlock>, Shape::kSmemBytes, configured);
+  if (err != cudaSuccess) return (int)err;
   const dim3 grid(bh, (tq + kBlock - 1) / kBlock);
   flash_fwd_f32_kernel<D, kBlock><<<grid, Shape::kCtaThreads, Shape::kSmemBytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
@@ -1106,6 +1497,8 @@ int launch_fwd_f32(const void* q, const void* k, const void* v, const void* mask
   return (int)cudaGetLastError();
 }
 
+// flash_dq_f32 uses at most 33,280 bytes of shared memory, under the 48 KB
+// a launch gets without opting in.
 template <int D, int kBlock>
 int launch_dq_f32(const void* q, const void* k, const void* v, const void* g, const void* lse,
                   const void* delta, const void* mask, void* dq, int bh, int heads, int tq,
@@ -1124,7 +1517,10 @@ template <int D, int kBlock>
 int launch_dkv_f32(const void* q, const void* k, const void* v, const void* g, const void* lse,
                    const void* delta, const void* mask, void* dk, void* dv, int bh, int heads,
                    int tq, int tk, float scale, int causal, cudaStream_t stream) {
-  using Shape = F32Shape<D, kBlock>;
+  using Shape = DkvF32Shape<D, kBlock>;
+  static bool configured[kMaxDevices] = {};
+  cudaError_t err = set_smem(flash_dkv_f32_kernel<D, kBlock>, Shape::kSmemBytes, configured);
+  if (err != cudaSuccess) return (int)err;
   const dim3 grid(bh, (tk + kBlock - 1) / kBlock);
   flash_dkv_f32_kernel<D, kBlock><<<grid, Shape::kCtaThreads, Shape::kSmemBytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
@@ -1147,6 +1543,21 @@ int by_shape(int d, int tile, F&& f) {
   return (int)cudaErrorInvalidValue;
 }
 
+// The same for the 3xTF32 instances of K1 and K3, whose tiles are 16 (one
+// warp per CTA, for short sequences) and 64.
+template <typename F>
+int by_shape_tf32(int d, int tile, F&& f) {
+  using I16 = std::integral_constant<int, 16>;
+  using I32 = std::integral_constant<int, 32>;
+  using I64 = std::integral_constant<int, 64>;
+  if (d == 64 && tile == 16) return f(I64{}, I16{});
+  if (d == 64 && tile == 64) return f(I64{}, I64{});
+  if (d == 32 && tile == 16) return f(I32{}, I16{});
+  if (d == 32 && tile == 64) return f(I32{}, I64{});
+  return (int)cudaErrorInvalidValue;
+}
+
+// Kernels 0-2 (K1-K3 in bf16) and 4 (K2 in f32).
 template <int D, int kBlock>
 int occupancy_of(int kernel, int* out) {
   if (kernel == 0)
@@ -1159,12 +1570,20 @@ int occupancy_of(int kernel, int* out) {
     return occupancy(flash_dkv_kernel<D, kBlock>, DkvShape<D, kBlock>::kCtaThreads,
                      DkvShape<D, kBlock>::kSmemBytes, out);
   using F32 = F32Shape<D, kBlock>;
-  if (kernel == 3)
-    return occupancy(flash_fwd_f32_kernel<D, kBlock>, F32::kCtaThreads, F32::kSmemBytes, out);
   if (kernel == 4)
     return occupancy(flash_dq_f32_kernel<D, kBlock>, F32::kCtaThreads, F32::kSmemBytes, out);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Kernels 3 (K1 in f32) and 5 (K3 in f32).
+template <int D, int kBlock>
+int occupancy_of_tf32(int kernel, int* out) {
+  using Fwd = FwdF32Shape<D, kBlock>;
+  using Dkv = DkvF32Shape<D, kBlock>;
+  if (kernel == 3)
+    return occupancy(flash_fwd_f32_kernel<D, kBlock>, Fwd::kCtaThreads, Fwd::kSmemBytes, out);
   if (kernel == 5)
-    return occupancy(flash_dkv_f32_kernel<D, kBlock>, F32::kCtaThreads, F32::kSmemBytes, out);
+    return occupancy(flash_dkv_f32_kernel<D, kBlock>, Dkv::kCtaThreads, Dkv::kSmemBytes, out);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1175,7 +1594,8 @@ int occupancy_of(int kernel, int* out) {
 // statically, so PyTorch's current device does not carry over), launches
 // on `stream`, and returns the cudaError_t of the launch (0 = launched);
 // an unsupported head dim or tile returns cudaErrorInvalidValue. `tile`
-// is the square tile (32 or 64) that the wrapper's launch_config chose.
+// is the square tile that the wrapper's launch_config chose for the
+// instance: 32 or 64, or 16 or 64 for the 3xTF32 instances of K1 and K3.
 // Nothing here synchronises.
 extern "C" {
 
@@ -1223,7 +1643,7 @@ int swt_flash_fwd_f32(const void* q, const void* k, const void* v, const void* m
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return by_shape(d, tile, [&](auto dd, auto tt) {
+  return by_shape_tf32(d, tile, [&](auto dd, auto tt) {
     return launch_fwd_f32<decltype(dd)::value, decltype(tt)::value>(
         q, k, v, mask, out, lse, bh, heads, tq, tk, scale, causal, s);
   });
@@ -1249,19 +1669,23 @@ int swt_flash_dkv_f32(const void* q, const void* k, const void* v, const void* g
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return by_shape(d, tile, [&](auto dd, auto tt) {
+  return by_shape_tf32(d, tile, [&](auto dd, auto tt) {
     return launch_dkv_f32<decltype(dd)::value, decltype(tt)::value>(
         q, k, v, g, lse, delta, mask, dk, dv, bh, heads, tq, tk, scale, causal, s);
   });
 }
 
 // Occupancy of kernel 0 (K1), 1 (K2), 2 (K3), or 3-5 (their f32
-// instances) at head dim
-// d and tile `tile` on `device`: writes {CTAs per SM, threads per CTA,
-// dynamic shared bytes, registers per thread} to out[0..3].
+// instances) at head dim d and tile `tile` (16 or 64 for kernels 3 and 5,
+// 32 or 64 for the others) on `device`: writes {CTAs per SM, threads per
+// CTA, dynamic shared bytes, registers per thread} to out[0..3].
 int swt_flash_occupancy(int kernel, int d, int tile, int device, int* out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  if (kernel == 3 || kernel == 5)
+    return by_shape_tf32(d, tile, [&](auto dd, auto tt) {
+      return occupancy_of_tf32<decltype(dd)::value, decltype(tt)::value>(kernel, out);
+    });
   return by_shape(d, tile, [&](auto dd, auto tt) {
     return occupancy_of<decltype(dd)::value, decltype(tt)::value>(kernel, out);
   });

@@ -8,11 +8,11 @@ The port of `shockwave_tpu/ops/flash_attention.py`. Three kernels
   flash_dq   <- _dq_kernel   dQ, k-tiles innermost
   flash_dkv  <- _dkv_kernel  dK and dV, q-tiles innermost
 
-All three kernels own a square tile of 32 or 64 rows of one (batch,
-head) and stream tiles of the same width; each takes its tile from
-`launch_config`, which picks the width from the sequence lengths (32 for
-the trainer's T = 32, 64 otherwise), and the wrapper passes it to the C
-entry point.
+Every kernel owns a square tile of rows of one (batch, head), 16 rows per
+warp, and streams tiles of the same width; each takes its tile from
+`launch_config`, which picks the width of that kernel instance's tile
+from the sequence lengths (`KERNEL_TILES`), and the wrapper passes it to
+the C entry point.
 
 A `torch.autograd.Function` ties them together; its backward computes
 `delta = rowsum(dO * O)` in f32 as plain tensor code (the JAX package
@@ -26,12 +26,15 @@ takes the plain version only for a tensor on the CPU; for a CUDA tensor
 it launches its kernel or raises. `LAUNCHES` counts the kernel launches.
 
 Each kernel has two instances on the card, chosen by the inputs' dtype:
-bf16 (the trainer's type: `mma.sync` on the tensor cores) and f32
-(`flash_fwd_f32`, `flash_dq_f32`, `flash_dkv_f32`: f32 FMAs on the SIMT
-cores, as the Pallas kernels compute in f32 and with TF32 off, as the
-port keeps it everywhere). Neither dtype is cast to the other. Any other
-dtype, or a head dim other than 32 and 64, raises on the card. The plain
-versions take any dtype and head dim.
+bf16 (the trainer's type: `mma.sync` m16n8k16 on the tensor cores) and
+f32 (`flash_fwd_f32`, `flash_dq_f32`, `flash_dkv_f32`), to the plain f32
+versions' digits, as the Pallas kernels compute in f32: `flash_fwd_f32`
+and `flash_dkv_f32` run 3xTF32 products on the tensor cores (`mma.sync`
+m16n8k8, each operand split into two TF32 parts, three products summed
+in f32), `flash_dq_f32` f32 FMAs on the SIMT cores. One-pass TF32 is off,
+as the port keeps it everywhere. Neither dtype is cast to the other. Any
+other dtype, or a head dim other than 32 and 64, raises on the card. The
+plain versions take any dtype and head dim.
 """
 from __future__ import annotations
 
@@ -48,15 +51,20 @@ KERNEL_HEAD_DIMS = (32, 64)
 # The dtypes the kernels take, with the suffix of their instance's launch
 # counter and C entry point.
 KERNEL_DTYPES = {torch.bfloat16: "", torch.float32: "_f32"}
-# Square tiles the kernels are built for (rows per CTA = streamed tile
-# width, 16 rows per warp).
-KERNEL_TILES = (32, 64)
 
 KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 # Launches of each kernel instance since the last reset (the bf16 ones,
 # then the f32 ones, in the C library's occupancy order); a wrapper adds
 # one where it launches its kernel and nowhere else.
 LAUNCHES = {name + suffix: 0 for suffix in KERNEL_DTYPES.values() for name in KERNELS}
+# The square tiles each kernel instance is built for (rows per CTA = the
+# width of the streamed tiles, 16 rows per warp): (short tile, long tile,
+# the longest sequence that takes the short tile). The bf16 kernels and
+# flash_dq_f32 take 32 at the trainer's T = 32; the 3xTF32 instances of K1
+# and K3 take one warp per CTA up to T = 64, so that the f32 decoder's 32
+# (batch, head) pairs at T = 64 give 128 CTAs for the card's 132 SMs.
+KERNEL_TILES = {name: (32, 64, 32) for name in LAUNCHES}
+KERNEL_TILES.update(flash_fwd_f32=(16, 64, 64), flash_dkv_f32=(16, 64, 64))
 
 
 def reset_launch_counts() -> None:
@@ -144,17 +152,20 @@ def _on_cpu(*tensors) -> bool:
                      f"one CUDA device; got {sorted(map(str, devices))}")
 
 
-def launch_config(tq: int, tk: int, d: int) -> int:
-    """The square tile of the kernels for these lengths and head dim: 32
-    when neither sequence is longer (the trainer's T = 32 fills it with no
-    padding rows and one tile per (batch, head)), 64 otherwise."""
+def launch_config(tq: int, tk: int, d: int, instance: str = "flash_fwd") -> int:
+    """The square tile of kernel instance `instance` (a key of `LAUNCHES`)
+    for these lengths and head dim, from `KERNEL_TILES`: the short tile
+    when neither sequence is longer than the instance takes it for (the
+    bf16 kernels' 32 at the trainer's T = 32: no padding rows and one tile
+    per (batch, head)), the long tile otherwise."""
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"CUDA flash attention takes head dims "
                          f"{KERNEL_HEAD_DIMS}; got {d}")
     if tq < 1 or tk < 1:
         raise ValueError(f"CUDA flash attention takes non-empty sequences; "
                          f"got Tq={tq}, Tk={tk}")
-    return KERNEL_TILES[0] if max(tq, tk) <= KERNEL_TILES[0] else KERNEL_TILES[1]
+    short, long, short_up_to = KERNEL_TILES[instance]
+    return short if max(tq, tk) <= short_up_to else long
 
 
 def _check_kernel_inputs(q, k, v, kv_mask, heads):
@@ -191,6 +202,12 @@ def _device_and_stream(t: torch.Tensor):
     return t.device.index, torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _tile(kernel: str, q, tk: int) -> int:
+    """`launch_config`'s tile for `kernel`'s instance of q's dtype."""
+    _, tq, d = q.shape
+    return launch_config(tq, tk, d, kernel + KERNEL_DTYPES[q.dtype])
+
+
 def _launch(kernel: str, dtype, *args) -> None:
     """Launch `kernel`'s instance for `dtype` through its C entry point
     and count it."""
@@ -212,7 +229,7 @@ def attention_forward(q, k, v, kv_mask, heads: int, scale: float,
     lse = torch.empty(bh, tq, dtype=torch.float32, device=q.device)
     tk = k.shape[1]
     _launch("flash_fwd", q.dtype, _ptr(q), _ptr(k), _ptr(v), _ptr(kv_mask), _ptr(out),
-            _ptr(lse), bh, heads, tq, tk, d, launch_config(tq, tk, d), scale, int(causal),
+            _ptr(lse), bh, heads, tq, tk, d, _tile("flash_fwd", q, tk), scale, int(causal),
             *_device_and_stream(q))
     return out, lse
 
@@ -239,7 +256,7 @@ def attention_dq(q, k, v, g, lse, delta, kv_mask, heads: int, scale: float,
     dq = torch.empty_like(q)
     tk = k.shape[1]
     _launch("flash_dq", q.dtype, _ptr(q), _ptr(k), _ptr(v), _ptr(g), _ptr(lse), _ptr(delta),
-            _ptr(kv_mask), _ptr(dq), bh, heads, tq, tk, d, launch_config(tq, tk, d), scale,
+            _ptr(kv_mask), _ptr(dq), bh, heads, tq, tk, d, _tile("flash_dq", q, tk), scale,
             int(causal), *_device_and_stream(q))
     return dq
 
@@ -258,7 +275,7 @@ def attention_dkv(q, k, v, g, lse, delta, kv_mask, heads: int, scale: float,
     dv = torch.empty_like(v)
     tk = k.shape[1]
     _launch("flash_dkv", q.dtype, _ptr(q), _ptr(k), _ptr(v), _ptr(g), _ptr(lse), _ptr(delta),
-            _ptr(kv_mask), _ptr(dk), _ptr(dv), bh, heads, tq, tk, d, launch_config(tq, tk, d),
+            _ptr(kv_mask), _ptr(dk), _ptr(dv), bh, heads, tq, tk, d, _tile("flash_dkv", q, tk),
             scale, int(causal), *_device_and_stream(q))
     return dk, dv
 
@@ -271,7 +288,7 @@ def kernel_occupancy(device: int = 0):
     rows = []
     for kernel, name in enumerate(LAUNCHES):  # 0-2 K1-K3, 3-5 in f32, as in C
         for d in KERNEL_HEAD_DIMS:
-            for tile in KERNEL_TILES:
+            for tile in KERNEL_TILES[name][:2]:
                 out = (ctypes.c_int * 4)()
                 rc = lib.swt_flash_occupancy(kernel, d, tile, device, out)
                 _build.check(lib, rc, f"{name} occupancy")

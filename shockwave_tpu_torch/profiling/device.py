@@ -17,6 +17,8 @@ PEAKS = {"H100 PCIe": (2.0e12, 756e12), "H100 NVL": (3.9e12, 835e12),
 NAME_TAGS = {"PCIe": "H100 PCIe", "NVL": "H100 NVL"}
 # Published f32 FLOP/s outside the tensor cores (the SIMT cores), by part.
 F32_FLOPS = {"H100 PCIe": 51e12, "H100 NVL": 60e12, "H100 SXM": 67e12}
+# Published dense TF32 tensor-core FLOP/s, by part: half the bf16 rate.
+TF32_FLOPS = {"H100 PCIe": 378e12, "H100 NVL": 417.5e12, "H100 SXM": 494.5e12}
 
 
 def nvidia_smi() -> str:
@@ -36,3 +38,14 @@ def peaks(name: str):
                          f"holds the H100 parts {sorted(PEAKS)}")
     variant = next((v for tag, v in NAME_TAGS.items() if tag in name), "H100 SXM")
     return variant, PEAKS[variant]
+
+
+def f32_product_flops(name: str) -> float:
+    """The rate at which the card called `name` does f32-accurate products
+    on its tensor cores, FLOP/s: a third of its dense TF32 rate, since
+    3xTF32 runs three TF32 products for each f32 one (big.big + big.small
+    + small.big). The least time an f32 product can take on the card is
+    reckoned at this rate. Raises ValueError for a card that is not an
+    H100."""
+    variant, _ = peaks(name)
+    return TF32_FLOPS[variant] / 3

@@ -9,6 +9,7 @@ plain PyTorch versions for CPU tensors. Tolerances are test_ops.py's:
 """
 import ctypes
 import importlib
+import math
 import importlib.util
 import os
 
@@ -271,20 +272,41 @@ def _chip_smoke():
 
 
 class TestLaunchConfig:
-    """`launch_config` picks K1's and K3's square tile on the host, so its
-    choice is testable here; the kernels themselves run on the card."""
+    """`launch_config` picks each kernel instance's square tile on the
+    host, so its choice is testable here; the kernels themselves run on
+    the card."""
 
     LENGTHS = list(range(1, 70)) + [96, 127, 128, 129, 512, 2048, 4097]
+    # The 3xTF32 instances, whose short tile is one warp of 16 rows.
+    TF32_INSTANCES = ("flash_fwd_f32", "flash_dkv_f32")
 
     @pytest.mark.parametrize("d", fa.KERNEL_HEAD_DIMS)
     def test_total_over_accepted_shapes(self, d):
-        for tq in self.LENGTHS:
-            for tk in self.LENGTHS:
-                tile = fa.launch_config(tq, tk, d)
-                assert tile in fa.KERNEL_TILES
-                # The short tile only where both sequences fit in it.
-                short = fa.KERNEL_TILES[0]
-                assert (tile == short) == (max(tq, tk) <= short)
+        for name in fa.LAUNCHES:
+            short, long, short_up_to = fa.KERNEL_TILES[name]
+            for tq in self.LENGTHS:
+                for tk in self.LENGTHS:
+                    tile = fa.launch_config(tq, tk, d, name)
+                    assert tile in (short, long)
+                    # The short tile only where both sequences are in its reach.
+                    assert (tile == short) == (max(tq, tk) <= short_up_to)
+                    if name not in self.TF32_INSTANCES:  # bf16 and K2 f32 keep 32 / 64
+                        assert tile == (32 if max(tq, tk) <= 32 else 64)
+                    else:
+                        assert tile == (16 if max(tq, tk) <= 64 else 64)
+                    if name == "flash_fwd":  # the default instance
+                        assert fa.launch_config(tq, tk, d) == tile
+
+    def test_tf32_instances_fill_the_card_at_the_decoders_shape(self):
+        """The f32 decoder's flash path, (8, 64, 4 x 32) causal: K1 and K3
+        in f32 take one-warp CTAs of 16 rows, (32, 4) = 128 CTAs for the
+        card's 132 SMs rather than (32, 1); K2 f32 keeps its tile."""
+        bh, t, d = 8 * 4, 64, 32
+        for name in self.TF32_INSTANCES:
+            tile = fa.launch_config(t, t, d, name)
+            assert tile == 16 and bh * -(-t // tile) == 128
+        assert fa.launch_config(t, t, d, "flash_dq_f32") == 64
+        assert fa.KERNEL_TILES["flash_dq_f32"] == fa.KERNEL_TILES["flash_fwd"]
 
     def test_rejects_what_the_wrapper_rejects(self):
         for d in (16, 48, 128):
@@ -309,13 +331,27 @@ class TestLaunchConfig:
 
     def test_every_config_is_reached_by_a_chip_smoke_case(self):
         smoke = _chip_smoke()
-        reachable = {(fa.launch_config(tq, tk, d), d)
-                     for d in fa.KERNEL_HEAD_DIMS
-                     for tq in self.LENGTHS for tk in self.LENGTHS}
-        for cases in (smoke.CASES, smoke.F32_CASES):
-            reached = {(fa.launch_config(tq, tk, d), d)
-                       for _, _, tq, tk, _, d, _, _ in cases}
-            assert reachable == reached
+        for cases, suffix in ((smoke.CASES, ""), (smoke.F32_CASES, "_f32")):
+            for kernel in fa.KERNELS:
+                name = kernel + suffix
+                reachable = {(fa.launch_config(tq, tk, d, name), d)
+                             for d in fa.KERNEL_HEAD_DIMS
+                             for tq in self.LENGTHS for tk in self.LENGTHS}
+                reached = {(fa.launch_config(tq, tk, d, name), d)
+                           for _, _, tq, tk, _, d, _, _ in cases}
+                assert reachable == reached, name
+        # The 3xTF32 instances' edges in f32: ragged inside the short
+        # tile, one past its reach, Tq != Tk and the row that sees no key
+        # at both widths.
+        for name in self.TF32_INSTANCES:
+            short, long, short_up_to = fa.KERNEL_TILES[name]
+
+            def tile(c):
+                return fa.launch_config(c[2], c[3], c[5], name)
+            assert any(tile(c) == short and c[2] % short for c in smoke.F32_CASES)
+            assert any(max(c[2], c[3]) == short_up_to + 1 for c in smoke.F32_CASES)
+            assert {tile(c) for c in smoke.F32_CASES if c[2] != c[3]} == {short, long}
+            assert {tile(c) for c in smoke.F32_CASES if c[7] == "key0"} == {short, long}
         # Each width's edges: one past and below the short tile, Tq != Tk
         # inside the long one, and the row that sees no key in both.
         shapes = {c[0]: c for c in smoke.CASES}
@@ -409,7 +445,10 @@ class TestCInterface:
         [(name, args)] = lib.calls
         assert name == self.ENTRY[kernel] + suffix
         self._check_types(name, args)
-        assert args[-10:] == (bh, heads, t, t, d, 64, 0.25, 1, 0, 0)
+        # T = 48: the 3xTF32 instances of K1 and K3 take their one-warp
+        # tile, every other instance its 64-row tile.
+        tile = 16 if suffix and kernel != "dq" else 64
+        assert args[-10:] == (bh, heads, t, t, d, tile, 0.25, 1, 0, 0)
         assert {n: c for n, c in fa.LAUNCHES.items() if c} == {f"flash_{kernel}{suffix}": 1}
 
     @pytest.mark.parametrize("dtypes", [(torch.float16,) * 3, (torch.float64,) * 3,
@@ -427,7 +466,104 @@ class TestCInterface:
             assert name == "swt_flash_occupancy"
             self._check_types(name, args[:-1] + (0,))  # `out` is a ctypes array
             asked.add(args[:3])
-        assert asked == {(kernel, d, tile) for kernel in range(len(fa.LAUNCHES))
-                         for d in fa.KERNEL_HEAD_DIMS for tile in fa.KERNEL_TILES}
+        assert asked == {(kernel, d, tile) for kernel, name in enumerate(fa.LAUNCHES)
+                         for d in fa.KERNEL_HEAD_DIMS for tile in fa.KERNEL_TILES[name][:2]}
         assert {(r["kernel"], r["d"], r["tile"]) for r in rows} >= {
             ("flash_dq", d, tile) for d in (32, 64) for tile in (32, 64)}
+        assert {(r["kernel"], r["tile"]) for r in rows if r["kernel"].endswith("_f32")} == {
+            ("flash_fwd_f32", 16), ("flash_fwd_f32", 64), ("flash_dq_f32", 32),
+            ("flash_dq_f32", 64), ("flash_dkv_f32", 16), ("flash_dkv_f32", 64)}
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """x (finite f32) rounded to TF32 as `cvt.rna.tf32.f32` rounds it: to
+    10 mantissa bits, to nearest, ties away from zero, by integer ops on
+    its int32 view (adding half of the dropped 13 bits rounds the
+    magnitude; the mask drops them)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_truncate(x: torch.Tensor) -> torch.Tensor:
+    """x with the 13 bits below TF32's mantissa cleared."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def matmul_tf32(a, b, passes: int, split: str = "rna"):
+    """a @ b as the tensor cores run it on TF32 operands: one pass
+    (big.big, operands rounded) or three (3xTF32: x = big + small,
+    small.big + big.small, then big.big, summed in f32). The split is
+    "rna" (both parts rounded as cvt.rna rounds them) or "kernel" (the
+    f32 kernels' split_tf32: big truncated, small rounded to nearest)."""
+    if passes == 1:
+        return tf32_round(a) @ tf32_round(b)
+    parts = []
+    for x in (a, b):
+        big = tf32_round(x) if split == "rna" else tf32_truncate(x)
+        parts.append((big, tf32_round(x - big)))
+    (a_big, a_small), (b_big, b_small) = parts
+    return (a_small @ b_big + a_big @ b_small) + a_big @ b_big
+
+
+class TestThreeTf32Premise:
+    """The f32 kernels' design rests on 3xTF32 keeping the plain f32
+    versions' digits where one-pass TF32 does not. One causal head (T 256,
+    D 64, seeded unit-normal inputs) runs through the forward (and K3's
+    four backward products) with the products emulated on TF32 operands,
+    against float64: 3xTF32 must stay within 1e-5, under chip_smoke.py's
+    F32_TOL of 1e-4, like the plain f32 path, with both parts rounded as
+    cvt.rna rounds them and with the kernels' own split, while one-pass
+    TF32 must miss 1e-4, which is why the kernels split every operand."""
+
+    T, D = 256, 64
+
+    def _inputs(self):
+        rng = np.random.RandomState(0)
+        return [torch.from_numpy(rng.randn(self.T, self.D).astype(np.float32))
+                for _ in range(4)]
+
+    def _forward(self, q, k, v, matmul):
+        s = matmul(q, k.T) / math.sqrt(self.D)
+        s = torch.where(torch.ones_like(s, dtype=torch.bool).tril(), s, -1e30)
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        return matmul(p, v) / p.sum(-1, keepdim=True), p / p.sum(-1, keepdim=True)
+
+    def _dkv(self, q, k, v, g, p, matmul):
+        """dK and dV as K3 forms them from its four products."""
+        dv = matmul(p.T, g)
+        dp = matmul(v, g.T).T  # dP^T = V.dO^T
+        out = matmul(p, v)
+        ds = p * (dp - (g * out).sum(-1, keepdim=True)) / math.sqrt(self.D)
+        return matmul(ds.T, q), dv
+
+    def _errors(self, run, split):
+        q, k, v, g = self._inputs()
+        ref = run(*(x.double() for x in (q, k, v, g)), lambda a, b: a @ b)
+        errs = {}
+        for label, matmul in (("f32", lambda a, b: a @ b),
+                              ("3xtf32", lambda a, b: matmul_tf32(a, b, 3, split)),
+                              ("tf32", lambda a, b: matmul_tf32(a, b, 1))):
+            got = run(q, k, v, g, matmul)
+            errs[label] = max(float((x.double() - r).abs().max()) for x, r in zip(got, ref))
+        return errs
+
+    def test_rounding_is_cvt_rna(self):
+        one_ulp = 2.0 ** -10
+        x = torch.tensor([1.0 + one_ulp / 2, 1.0 + one_ulp / 2 - 2.0 ** -20,
+                          -(1.0 + one_ulp / 2), 3.0 + 1.5 * one_ulp * 2])
+        assert tf32_round(x).tolist() == [1.0 + one_ulp, 1.0, -(1.0 + one_ulp), 3.0 + 4 * one_ulp]
+
+    @pytest.mark.parametrize("split", ["rna", "kernel"])
+    def test_forward(self, split):
+        errs = self._errors(lambda q, k, v, g, mm: self._forward(q, k, v, mm)[:1], split)
+        assert errs["f32"] <= 1e-5 and errs["3xtf32"] <= 1e-5, errs
+        assert errs["tf32"] > 1e-4, errs
+
+    @pytest.mark.parametrize("split", ["rna", "kernel"])
+    def test_dkv_products(self, split):
+        def run(q, k, v, g, mm):
+            _, p = self._forward(q, k, v, lambda a, b: a @ b)
+            return self._dkv(q, k, v, g, p, mm)
+        errs = self._errors(run, split)
+        assert errs["f32"] <= 1e-5 and errs["3xtf32"] <= 1e-5, errs
+        assert errs["tf32"] > 1e-4, errs

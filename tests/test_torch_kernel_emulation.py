@@ -1,0 +1,121 @@
+"""The f32 kernels' CUDA source, run on the CPU, against the plain versions.
+
+`tests/cuda_emu` compiles `shockwave_tpu_torch/csrc/flash_attention.cu`
+with the host C++ compiler: every CUDA thread of a CTA is a host thread,
+`__syncthreads` and the warp's shuffles are barriers, `mma.sync` m16n8k8
+is computed from the 32 lanes' fragments as the PTX ISA lays them out,
+and `cp.async` copies at once. The C entry points are called as the
+wrappers call them on the card, with `launch_config`'s tile for each
+instance, on CPU tensors made from a seed with numpy. The tolerance is
+chip_smoke.py's F32_TOL (1e-4 abs on out and lse, 1e-4 relative to the
+largest entry on dQ, dK and dV); a wrong fragment index or mask gives
+errors of order 1. What the card alone shows (timing, the tensor cores'
+rounding, a copy that races its use) stays with chip_smoke.py.
+"""
+import ctypes
+import math
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from shockwave_tpu_torch.ops import _build
+from shockwave_tpu_torch.ops import flash_attention as fa
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "cuda_emu"))
+import emulate  # noqa: E402
+
+F32_TOL = 1e-4
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    if emulate.compiler() is None:
+        pytest.skip("no host C++ compiler to build the emulated kernels")
+    lib = ctypes.CDLL(emulate.build(str(tmp_path_factory.mktemp("cuda_emu"))))
+    for name, argtypes in _build._ENTRY_POINTS:
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = ctypes.c_int
+    lib.emu_shared_overruns.restype = ctypes.c_long
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield lib
+    torch.set_num_threads(threads)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _call(lib, kernel, *args, tq, tk, d, scale, causal):
+    """swt_<kernel>_f32(*args, ..., d, tile, scale, causal, device, stream)."""
+    tile = fa.launch_config(tq, tk, d, kernel + "_f32")
+    rc = getattr(lib, f"swt_{kernel}_f32")(*args, d, tile, scale, int(causal), 0, None)
+    assert rc == 0, (kernel, tile, rc)
+
+
+# (B, Tq, Tk, H, D, causal, mask): both tiles of every f32 instance, ragged
+# ends inside and one past the one-warp tile, Tq != Tk, both head dims, and
+# a row that sees no key.
+CASES = [
+    (2, 17, 17, 2, 64, True, "tail"),
+    (2, 32, 32, 2, 32, False, "tail"),
+    (1, 48, 48, 2, 32, True, "key0"),
+    (1, 65, 65, 1, 64, True, "tail"),
+    (1, 32, 80, 2, 32, False, None),
+    (1, 128, 128, 1, 64, True, "key0"),
+]
+
+
+@pytest.mark.parametrize("b,tq,tk,h,d,causal,mask_kind", CASES)
+def test_f32_kernels_match_the_plain_versions(lib, b, tq, tk, h, d, causal, mask_kind):
+    rng = np.random.RandomState(tq + tk + d)
+    bh, scale = b * h, 1.0 / math.sqrt(d)
+    q, g = (torch.from_numpy(rng.randn(bh, tq, d).astype(np.float32)) for _ in range(2))
+    k, v = (torch.from_numpy(rng.randn(bh, tk, d).astype(np.float32)) for _ in range(2))
+    mask = None
+    if mask_kind == "key0":
+        mask = torch.ones(b, tk, dtype=torch.bool)
+        mask[:, 0] = False
+    elif mask_kind == "tail":
+        mask = torch.from_numpy(np.arange(tk)[None, :] < rng.randint(tk // 2, tk + 1, (b, 1)))
+    shape = dict(tq=tq, tk=tk, d=d, scale=scale, causal=causal)
+
+    out, lse = torch.full_like(q, math.nan), torch.full((bh, tq), math.nan)
+    _call(lib, "flash_fwd", *map(_ptr, (q, k, v, mask, out, lse)), bh, h, tq, tk, **shape)
+    out_p, lse_p = fa.attention_forward_plain(q, k, v, mask, h, scale, causal)
+    delta = (out_p * g).sum(-1)
+    bwd = (q, k, v, g, lse_p, delta, mask)
+    dq = torch.full_like(q, math.nan)
+    _call(lib, "flash_dq", *map(_ptr, bwd + (dq,)), bh, h, tq, tk, **shape)
+    dk, dv = torch.full_like(k, math.nan), torch.full_like(v, math.nan)
+    _call(lib, "flash_dkv", *map(_ptr, bwd + (dk, dv)), bh, h, tq, tk, **shape)
+    dq_p = fa.attention_dq_plain(*bwd, h, scale, causal)
+    dk_p, dv_p = fa.attention_dkv_plain(*bwd, h, scale, causal)
+
+    # Rows that see a key (a row that sees none is a uniform average whose
+    # extent depends on the tiling, as in the JAX package).
+    keys = (mask if mask is not None else torch.ones(b, tk, dtype=torch.bool))
+    keys = keys.repeat_interleave(h, dim=0)
+    rows = ((torch.cumsum(keys.int(), 1) > 0)[:, :tq] if causal
+            else keys.any(1, keepdim=True).expand(-1, tq))
+    assert float((out - out_p).abs()[rows].max()) <= F32_TOL
+    assert float((lse - lse_p).abs()[rows].max()) <= F32_TOL
+    for got, want in ((dq, dq_p), (dk, dk_p), (dv, dv_p)):
+        assert torch.isfinite(got).all()
+        assert float((got - want).abs().max() / want.abs().max()) <= F32_TOL
+    if mask_kind == "key0":  # the row that sees no key leaks no gradient
+        for t in (dq, dk, dv):
+            assert float(t[:, 0].abs().max()) == 0.0
+    assert lib.emu_shared_overruns() == 0
+
+
+def test_every_f32_tile_is_emulated():
+    """The cases reach both tiles of each f32 instance at both head dims."""
+    for kernel in fa.KERNELS:
+        name = kernel + "_f32"
+        reached = {(fa.launch_config(tq, tk, d, name), d) for _, tq, tk, _, d, _, _ in CASES}
+        assert reached == {(tile, d) for tile in fa.KERNEL_TILES[name][:2]
+                           for d in fa.KERNEL_HEAD_DIMS}, name

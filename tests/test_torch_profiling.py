@@ -208,6 +208,26 @@ def test_peaks_of_another_card_raise(name):
         device.peaks(name)
 
 
+def test_tf32_peaks_and_the_f32_product_rate():
+    """The dense TF32 peaks are the data sheets' (half of each part's bf16
+    entry), and the f32-accurate product rate is a third of them: 3xTF32
+    runs three TF32 products for each f32 one."""
+    assert device.TF32_FLOPS == {"H100 SXM": 494.5e12, "H100 PCIe": 378e12,
+                                 "H100 NVL": 417.5e12}
+    for variant, (_, bf16) in device.PEAKS.items():
+        assert device.TF32_FLOPS[variant] == bf16 / 2
+        # The SIMT figure stays beside it; the tensor cores' f32 rate is above it.
+        assert device.F32_FLOPS[variant] < device.TF32_FLOPS[variant] / 3
+    for name, variant in (("NVIDIA H100 80GB HBM3, 700.00 W", "H100 SXM"),
+                          ("NVIDIA H100 PCIe", "H100 PCIe"), ("NVIDIA H100 NVL", "H100 NVL")):
+        assert device.f32_product_flops(name) == device.TF32_FLOPS[variant] / 3
+    assert device.f32_product_flops("NVIDIA H100 80GB HBM3, 700.00 W") == pytest.approx(164.833e12,
+                                                                                        rel=1e-5)
+    for name in ("NVIDIA A100-SXM4-80GB", "TPU v5 lite", "cpu"):
+        with pytest.raises(ValueError, match="no published peaks"):
+            device.f32_product_flops(name)
+
+
 # ---------------------------------------------------------------------------
 # The mains' build_trainer: a trainer built, not trained.
 # ---------------------------------------------------------------------------
