@@ -23,19 +23,22 @@ Phases, in order; any failure exits non-zero and prints no result:
    of the kernels' two tile widths (32 and 64, chosen by
    `launch_config`): ragged T=17, Tq=32 against Tk=48, T=33, D=32 at
    T=32 and the key-0 row at T=32. Then each kernel's f32 instance
-   (3xTF32 on the tensor cores for K1 and K3, f32 FMAs on the SIMT cores
-   for K2) against the plain f32 version, at the main shape key-padded
-   and causal, the decoder's full forward (8 x 64, 4 heads of 32,
-   causal), the bench shape, and the edges of the f32 instances' tiles
-   (16 up to T = 64 for K1 and K3, 32 up to T = 32 for K2, 64 beyond):
-   ragged T=17, T=65, Tq=32 against Tk=48, Tq=64 against Tk=128, D=32
-   at T=32 and T=128, and the key-0 row at T=48 and T=128; its library
-   time is SDPA's in f32. The f32 bound's operations are reckoned at
-   the card's f32-accurate product rate, a third of its dense TF32
-   rate (3xTF32). Times are medians of CUDA-event timings of CUDA-graph
-   replays (device time, no host launch cost), beside the bound and the
-   PyTorch library call (`scaled_dot_product_attention`, a yardstick the
-   port never calls).
+   (3xTF32 on the tensor cores) against the plain f32 version, at the
+   main shape key-padded and causal, the decoder's full forward (8 x 64,
+   4 heads of 32, causal), the bench shape, and the edges of the f32
+   instances' tiles (16 up to T = 64, 64 beyond): ragged T=17, T=65,
+   Tq=32 against Tk=48, Tq=64 against Tk=128, D=32 at T=32 and T=128,
+   and the key-0 row at T=48 and T=128; its library time is SDPA's in
+   f32. The f32 bound's operations are reckoned at the card's
+   f32-accurate product rate, a third of its dense TF32 rate (3xTF32).
+   Then head dims the kernels are not built for (`PADDED_CASES`: d = 16
+   and 48, bf16 and f32), forward + backward through `flash_attention`,
+   which zero-pads them to 32 and 64 and slices the output back, against
+   the plain versions at the original d, with the same shape's time at
+   the padded width beside. Times are medians of CUDA-event timings of
+   CUDA-graph replays (device time, no host launch cost), beside the
+   bound and the PyTorch library call (`scaled_dot_product_attention`, a
+   yardstick the port never calls).
 4. slice: the translation trainer at full width (dim 512, 8 heads,
    6 + 6 layers, batch 64) for 30 steps through
    `shockwave_tpu_torch.workloads.translation.train.main`, with the
@@ -102,7 +105,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    the decoder in f32 (its default) with flash on: its logits against
    the einsum path's and the gradient of a next-token loss through K1-K3's
    f32 instances against the einsum path's, one launch of each per
-   layer.
+   layer. Then the same at dim 64, 4 heads (head dim 16, which
+   `flash_attention` pads to 32), in bf16 and in f32.
 9. profile: the profilers of `shockwave_tpu_torch/profiling/`. First
    `bench_gpu`'s long path: the full-width flagship with flash on at
    batch 4 x T 2048 under Adam, timed by two-point marginal timing, with
@@ -140,7 +144,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    measure nothing of a two-card NCCL gang's speed.
 
 Output: `device:`, `build:`, `ptxas:`, `spills:`, `sass:` and
-`occupancy:` lines, one `kernel_case:` JSON line per shape and dtype, `slice:`,
+`occupancy:` lines, one `kernel_case:` JSON line per shape and dtype, one
+`padded_case:` line per padded head dim and dtype, `slice:`,
 `lease:`, `trace:`, `families:`, `adapt:`, `serving:`, `profile:` and
 `gang:` lines, then the `{"kernels": [...]}` line (the six kernel
 instances, with the main case's forward + backward through the port's
@@ -185,9 +190,9 @@ MAIN_CASE = "main_enc_self"  # 12 of the 18 launches per step are key-padded, no
 # The f32 instances of K1-K3, in the same form: the main shape key-padded
 # and causal, the decoder's full forward in the serving phase (8 x 64,
 # 4 heads of 32, causal), the bench shape, and the edges of every f32
-# tile (K1 and K3 take 16 up to T = 64, K2 32 up to T = 32, all 64
-# beyond): ragged T = 17 and T = 65, Tq != Tk inside each width, D = 32
-# at each width, and the row that sees no key at each width.
+# tile (16 up to T = 64, 64 beyond): ragged T = 17 and T = 65, Tq != Tk
+# inside each width, D = 32 at each width, and the row that sees no key
+# at each width.
 F32_CASES = (
     ("main_enc_self_f32", 64, 32, 32, 8, 64, False, "tail"),
     ("main_dec_self_f32", 64, 32, 32, 8, 64, True, "tail"),
@@ -203,6 +208,17 @@ F32_CASES = (
     ("short_masked_row0_f32", 1, 48, 48, 2, 64, True, "key0"),
 )
 MAIN_CASE_F32 = "main_enc_self_f32"
+# Head dims the kernels are not built for, in the same form, through
+# `flash_attention`, which zero-pads them to `kernel_head_dim` (16 -> 32,
+# 48 -> 64) and slices the output back; "_f32" names the f32 instances.
+# d = 16 at the d = 16 decoder's shape (8 x 64, 4 heads, causal), d = 48
+# key-padded at T = 128, which takes the long tiles.
+PADDED_CASES = (
+    ("head_dim_16", 8, 64, 64, 4, 16, True, None),
+    ("head_dim_48", 2, 128, 128, 4, 48, False, "tail"),
+    ("head_dim_16_f32", 8, 64, 64, 4, 16, True, None),
+    ("head_dim_48_f32", 2, 128, 128, 4, 48, False, "tail"),
+)
 
 # Tolerances, against the plain version on the same bf16 inputs:
 # - forward output: max abs error 2e-2, on rows that see a key (a row that
@@ -292,6 +308,12 @@ DECODER_FLASH_SHAPE = (8, 64)
 # order and the einsum path's softmax masks with f32's minimum where the
 # kernels use -1e30, which gives the same zeros.
 DECODER_F32_TOL = 1e-4
+# The decoder at head dim 16 (dim 64, 4 heads): the route through the
+# head-dim pad. In bf16 its logits are held to LOGITS_TOL and its
+# gradients to GRAD_TOL relative to the largest entry (the einsum path
+# rounds the scores and the softmax weights to bf16, flash keeps the
+# scores in f32 and rounds p and dS); in f32 to DECODER_F32_TOL.
+DECODER_PADDED_WIDTHS = dict(dim=64, num_heads=4)
 # The gang phase: two ranks on the one card. The Transformer (global
 # batch 64, gns) under a lease of 10 steps renewed to 20, then a resume
 # granted 5; ResNet-18 (global batch 128, accordion) for 6 steps.
@@ -577,6 +599,62 @@ def flash_fwd_bwd_ms(fa, q, k, v, g, mask, b, h, tq, tk, d, causal):
         return torch.autograd.grad(out, (qg, kg, vg), g4)
 
     return graph_ms(fwd_bwd)
+
+
+def padded_case(fa, case, seed, device):
+    """One head dim that the kernels are not built for (a `PADDED_CASES`
+    entry), forward + backward through `flash_attention`, which pads it
+    to `kernel_head_dim(d)` and slices the output back: one launch of each
+    kernel of the dtype's instance, and the output and gradients against
+    the plain versions at the original d on the same inputs, with the
+    dtype's tolerances. Times: the port's forward + backward at d, at the
+    padded width on inputs of that width, and SDPA's at d."""
+    name, b, tq, tk, h, d, causal, mask_kind = case
+    dtype = torch.float32 if name.endswith("_f32") else torch.bfloat16
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, g = (torch.randn(b, t, h, d, generator=gen, device=device).to(dtype)
+                  for t in (tq, tk, tk, tq))
+    mask = make_mask(mask_kind, b, tk, gen, device)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    fa.reset_launch_counts()
+    out = fa.flash_attention(qg, kg, vg, causal=causal, key_padding_mask=mask)
+    dq, dk, dv = torch.autograd.grad(out, (qg, kg, vg), g)
+    launches = dict(fa.LAUNCHES)
+    torch.cuda.synchronize()
+    check_launches(fa, launches, 1, name, dtype)
+    out = out.detach()
+
+    def bhtd(x):
+        return x.transpose(1, 2).reshape(b * h, x.shape[1], d).contiguous()
+
+    args = (mask, h, 1.0 / math.sqrt(d), causal)
+    qp, kp, vp, gp = map(bhtd, (q, k, v, g))
+    out_p, lse_p = fa.attention_forward_plain(qp, kp, vp, *args)
+    # delta from the port's own output, as its backward forms it.
+    bwd = (gp, lse_p, (bhtd(out).float() * gp.float()).sum(-1)) + args
+    dq_p = fa.attention_dq_plain(qp, kp, vp, *bwd)
+    dk_p, dv_p = fa.attention_dkv_plain(qp, kp, vp, *bwd)
+    rows = visible_rows(mask, b, h, tq, tk, causal, device)
+    errs = {"fwd_max_abs": max_abs(bhtd(out), out_p, rows), "dq_max_rel": max_rel(bhtd(dq), dq_p),
+            "dk_max_rel": max_rel(bhtd(dk), dk_p), "dv_max_rel": max_rel(bhtd(dv), dv_p)}
+    for t in (out, dq, dk, dv):
+        check(bool(torch.isfinite(t.float()).all()), f"{name}: non-finite output")
+    fwd_tol, grad_tol = (F32_TOL, F32_TOL) if dtype == torch.float32 else (FWD_TOL, GRAD_TOL)
+    check(errs["fwd_max_abs"] <= fwd_tol, f"{name}: forward error {errs['fwd_max_abs']}")
+    for key in ("dq_max_rel", "dk_max_rel", "dv_max_rel"):
+        check(errs[key] <= grad_tol, f"{name}: {key} {errs[key]}")
+
+    width = fa.kernel_head_dim(d)
+    wide = [torch.randn(b * h, t, width, generator=gen, device=device).to(dtype)
+            for t in (tq, tk, tk, tq)]
+    library_fwd, library_fwd_bwd = library_ms(qp, kp, vp, gp, mask, b, h, tq, tk, d, causal)
+    return {"case": name, "shape": [b, tq, tk, h, d], "padded_to": width, "causal": causal,
+            "dtype": str(dtype), "mask": mask_kind, **errs, "launches": launches,
+            "flash_fwd_bwd_ms": flash_fwd_bwd_ms(fa, qp, kp, vp, gp, mask, b, h, tq, tk, d,
+                                                 causal),
+            "padded_width_fwd_bwd_ms": flash_fwd_bwd_ms(fa, *wide, mask, b, h, tq, tk, width,
+                                                        causal),
+            "library_fwd_ms": library_fwd, "library_fwd_bwd_ms": library_fwd_bwd}
 
 
 class _Tee(io.TextIOBase):
@@ -1156,19 +1234,25 @@ def serving_phase(fa, device):
             "graph_equals_eager": equal, "decode_tokens_per_s": decode,
             "tokens_per_request": SERVING_COMMAND[SERVING_COMMAND.index("--tokens_per_request") + 1],
             "decoder_flash": {"shape": [b, t], "logits_max_abs": err, "launches": launches},
-            "decoder_flash_f32": decoder_flash_f32(fa, device, tokens)}
+            "decoder_flash_f32": decoder_flash_grads(fa, device, tokens),
+            "decoder_flash_head_dim_16": {
+                "bf16": decoder_flash_grads(fa, device, tokens, torch.bfloat16,
+                                            **DECODER_PADDED_WIDTHS),
+                "f32": decoder_flash_grads(fa, device, tokens, **DECODER_PADDED_WIDTHS)}}
 
 
-def decoder_flash_f32(fa, device, tokens):
-    """`DecoderLM` in f32 (its default) with flash on against its einsum
-    path on the same weights and tokens: the logits, then the gradient of
-    a next-token loss through K1-K3's f32 instances against the einsum
-    path's. One launch of each per layer, and of no bf16 kernel."""
+def decoder_flash_grads(fa, device, tokens, dtype=torch.float32, **widths):
+    """`DecoderLM` in `dtype` (f32, its default, unless given) at its
+    default widths unless `widths` are given, with flash on, against its
+    einsum path on the same weights and tokens: the logits, then the
+    gradient of a next-token loss through K1-K3's `dtype` instances
+    against the einsum path's. One launch of each per layer, and of no
+    other instance."""
     from shockwave_tpu_torch.models.decoder import DecoderLM
     import torch.nn.functional as F
     t = tokens.shape[1]
-    flash = DecoderLM(max_len=t, use_flash=True).to(device)
-    einsum = DecoderLM(max_len=t).to(device)
+    flash = DecoderLM(max_len=t, dtype=dtype, use_flash=True, **widths).to(device)
+    einsum = DecoderLM(max_len=t, dtype=dtype, **widths).to(device)
     einsum.load_state_dict(flash.state_dict())
 
     def loss_and_grads(model):
@@ -1188,14 +1272,17 @@ def decoder_flash_f32(fa, device, tokens):
     # softmax ignores a shift), so each path gives them rounding noise.
     scale = max(float(g.abs().max()) for g in grads_einsum.values())
     grad_err = max(max_abs(grads_flash[n], grads_einsum[n]) for n in grads_einsum) / scale
-    check(bool(torch.isfinite(logits_flash).all()) and err <= DECODER_F32_TOL,
-          f"serving: the f32 decoder's flash vs einsum logits differ by {err}")
-    check(grad_err <= DECODER_F32_TOL,
-          f"serving: the f32 decoder's flash vs einsum gradients differ by {grad_err} (relative)")
-    check_launches(fa, launches, len(flash.blocks),
-                   "serving: the f32 decoder's flash forward and backward", torch.float32)
-    return {"shape": list(tokens.shape), "logits_max_abs": err, "grad_max_rel": grad_err,
-            "launches": launches}
+    logits_tol, grad_tol = ((DECODER_F32_TOL, DECODER_F32_TOL) if dtype == torch.float32
+                            else (LOGITS_TOL, GRAD_TOL))
+    what = f"serving: the {dtype} decoder {widths or ''}"
+    check(bool(torch.isfinite(logits_flash).all()) and err <= logits_tol,
+          f"{what}'s flash vs einsum logits differ by {err}")
+    check(grad_err <= grad_tol,
+          f"{what}'s flash vs einsum gradients differ by {grad_err} (relative)")
+    check_launches(fa, launches, len(flash.blocks), f"{what}'s flash forward and backward",
+                   dtype)
+    return {"shape": list(tokens.shape), "head_dim": flash.dim // flash.num_heads,
+            "logits_max_abs": err, "grad_max_rel": grad_err, "launches": launches}
 
 
 def accordion_rule(epoch_norms, launch_bs, max_bs, threshold=0.5):
@@ -1656,7 +1743,8 @@ def main() -> int:
     emit("spills", spills(log))
     hmma = sass_hmma(path)
     emit("sass", hmma)
-    for kname in ("flash_fwd_f32_kernel", "flash_dkv_f32_kernel"):
+    for kname in ("flash_fwd_f32_kernel", "flash_dq_f32_kernel", "flash_dkv_f32_kernel"):
+        check(any(name.startswith(kname) for name in hmma), f"{kname}: not in the SASS")
         for name, ops in hmma.items():
             if name.startswith(kname):
                 check(any("TF32" in op for op in ops), f"{name}: no TF32 HMMA in its SASS ({ops})")
@@ -1677,6 +1765,8 @@ def main() -> int:
         cases[case[0]] = kernel_case(fa, case, seed, device,
                                      (rates[0], f32_rate, "operations (3xTF32)"), torch.float32)
         emit("kernel_case", cases[case[0]])
+    for seed, case in enumerate(PADDED_CASES):
+        emit("padded_case", padded_case(fa, case, seed, device))
     kernel_s = time.time() - t0
 
     t0 = time.time()

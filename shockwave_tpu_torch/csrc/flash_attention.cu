@@ -3,8 +3,9 @@
 // These replace the three Pallas TPU kernels of
 // shockwave_tpu/ops/flash_attention.py (_fa_kernel, _dq_kernel,
 // _dkv_kernel). They take (BH, T, D) bf16 tensors (each also has an f32
-// instance, below the bf16 kernels, on the SIMT cores), D in {32, 64}, a
-// (B, Tk) uint8 key mask (1 = attend, nullptr = all attend, row = bh /
+// instance, below the bf16 kernels, 3xTF32 on the tensor cores), D in
+// {32, 64} (the wrapper zero-pads any head dim up to 64 to one of them,
+// as the reference pads), a (B, Tk) uint8 key mask (1 = attend, nullptr = all attend, row = bh /
 // heads) and keep the reference's masking constants: causal entries are
 // set to -1e30, masked keys get a -1e30 additive bias after that, and
 // the backward zeroes p wherever s <= -5e29. Rows or keys past a ragged
@@ -749,127 +750,64 @@ __global__ void __launch_bounds__(DkvShape<D, kBlock>::kCtaThreads)
 // never move a max), the running max from -1e30, p = 0 where s <= -5e29
 // in the backward.
 //
-// flash_fwd_f32 (replaces _fa_kernel, shockwave_tpu/ops/flash_attention.py:40)
-// and flash_dkv_f32 (replaces _dkv_kernel, :222) run their products on
-// the tensor cores as 3xTF32, as PyTorch's f32 attention does on sm80+:
-// each operand is split as x = big + small, both TF32 (split_tf32), and
-// a product a.b becomes a_small.b_big + a_big.b_small + a_big.b_big, the
-// small terms first, into one f32 accumulator of mma.sync.m16n8k8.tf32.
-// That keeps about 21 bits of each product (one-pass TF32 keeps 11, which
-// misses the f32 tolerance).
+// All three run their products on the tensor cores as 3xTF32, as
+// PyTorch's f32 attention does on sm80+: flash_fwd_f32 (replaces
+// _fa_kernel, shockwave_tpu/ops/flash_attention.py:40), flash_dq_f32
+// (replaces _dq_kernel, :167) and flash_dkv_f32 (replaces _dkv_kernel,
+// :222). Each operand is split as x = big + small, both TF32
+// (split_tf32), and a product a.b becomes a_small.b_big + a_big.b_small +
+// a_big.b_big, the small terms first, into one f32 accumulator of
+// mma.sync.m16n8k8.tf32. That keeps about 21 bits of each product
+// (one-pass TF32 keeps 11, which misses the f32 tolerance).
 //
 // Bound on an H100 SXM (3.35 TB/s; f32-accurate products at 494.5 / 3 =
 // 164.8 TFLOP/s, a third of the dense TF32 rate):
 // - K1 f32: at the bench shape (4, 2048, 8, 64) causal, 17.2 GFLOP for
 //   67 MB, 104 us by operations; at the f32 decoder's (8, 64, 4 x 32)
 //   causal, 1.06 MB, 0.32 us by bytes.
+// - K2 f32: 25.8 GFLOP for 84 MB, 156 us by operations at the bench
+//   shape; 1.33 MB, 0.40 us by bytes at the decoder's.
 // - K3 f32: 34.4 GFLOP for 101 MB, 209 us by operations at the bench
 //   shape; 1.59 MB, 0.47 us by bytes at the decoder's.
 //
 // What the design does about that bound:
-// 1. Tensor cores: K1 runs S = Q.K^T and O += P.V, K3 runs S^T = K.Q^T,
-//    dP^T = V.dO^T, dV += P^T.dO and dK += dS^T.Q, each as three
-//    m16n8k8 TF32 products. Q (K1) and K and V (K3) are split once per
-//    CTA, straight from device memory; the streamed operands are split
-//    as their fragments are read, in three integer and float ops. The
-//    tensor cores' f32 accumulation truncates, so O, dV and dK are summed
-//    one tile (K3: 16 queries) at a time from zero and added up in f32.
-//    Exponentials take __expf (ex2.approx), well inside the tolerance.
+// 1. Tensor cores: K1 runs S = Q.K^T and O += P.V; K2 runs S = Q.K^T,
+//    dP = dO.V^T and dQ += dS.K; K3 runs S^T = K.Q^T, dP^T = V.dO^T,
+//    dV += P^T.dO and dK += dS^T.Q; each as three m16n8k8 TF32 products.
+//    The operands a CTA owns (K1: Q; K2: Q and dO; K3: K and V) are
+//    split once per CTA, straight from device memory; the streamed
+//    operands are split as their fragments are read, in three integer
+//    and float ops. The tensor cores' f32 accumulation truncates, so O,
+//    dQ, dV and dK are summed one tile (K2 and K3: 16 keys or queries)
+//    at a time from zero and added up in f32. Exponentials take __expf
+//    (ex2.approx), well inside the tolerance.
 // 2. The accumulator-to-operand hand-off: in m16n8k8.tf32 a lane's A
 //    registers hold columns t and t + 4 of a row, its C registers columns
-//    2t and 2t + 1. Rather than move P (or dS^T) across lanes, the
+//    2t and 2t + 1. Rather than move P (or dS, dS^T) across lanes, the
 //    reduction index is permuted: slot t takes column 2t and slot t + 4
-//    column 2t + 1, and the B fragment of V (dO, Q in K3) is read from
-//    rows 2t and 2t + 1 to match, so the product is unchanged.
-// 3. K/V tiles (K1) and Q/dO/lse/delta tiles (K3) stream through a
-//    two-stage cp.async ring of 16-byte copies; shared rows are padded to
-//    D + 4 floats, so every fragment read is free of bank conflicts.
-//    Two 64-row f32 stages take 70 KB, so the launchers opt in to more
-//    than 48 KB.
-// 4. Warps own 16 rows (K1: queries, K3: keys). K1 keeps its online
+//    column 2t + 1, and the B fragment of V (K in K2, dO and Q in K3) is
+//    read from rows 2t and 2t + 1 to match, so the product is unchanged.
+// 3. K/V tiles and the key bias (K1, K2) and Q/dO/lse/delta tiles (K3)
+//    stream through a two-stage cp.async ring of 16-byte copies; shared
+//    rows are padded to D + 4 floats, so every fragment read is free of
+//    bank conflicts. Two 64-row f32 stages take 70 KB, so the launchers
+//    opt in to more than 48 KB.
+// 4. Warps own 16 rows (K1, K2: queries; K3: keys). K1 keeps its online
 //    softmax in registers, the row max and sum reduced over a quad with
-//    two shuffles. K3 works 16 queries at a time, one chunk live at a
-//    time, so its scores stay at 16 floats beside the split K fragments
-//    and the dK and dV sums; the split V fragments wait in shared memory.
-//    Every instance compiles with 0 spill bytes.
+//    two shuffles. K2 and K3 work 16 keys (K3: queries) at a time, one
+//    chunk live at a time, so their scores stay at 16 floats beside the
+//    split operand and the sums held in registers (K2: split Q and dQ;
+//    K3: split K, dK and dV); the other split operand (K2: dO, K3: V)
+//    waits in shared memory in fragment order. Every instance compiles
+//    with 0 spill bytes.
 // 5. Tiles follow the grid: up to T = 64 a CTA is one warp of 16 rows, so
 //    the decoder's 32 (batch, head) pairs give 128 CTAs, not 32, on 132
 //    SMs; longer sequences take 64-row CTAs that share each streamed tile
 //    among four warps.
 // wgmma is not the route yet: for 32-bit types it takes only K-major
-// operands from shared memory, so P.V and every transposed product of K3
-// would need transposed copies of their tiles. That is left for a later
-// speed PR.
-//
-// flash_dq_f32 (replaces _dq_kernel, :167) runs on the SIMT cores; a
-// 3xTF32 version on K3's tile engine is still to come (ROADMAP, Queue 2
-// item 7). A CTA owns kBlock rows of one (batch, head), two threads per
-// row, each holding the even or odd half of the row's D values in
-// registers (the two halves of a dot meet in one shuffle); the K/V tiles
-// are staged in shared memory, kBlock rows at a time, and read as
-// broadcasts. Tiles are loaded synchronously: no cp.async ring, no tensor
-// cores. Its bound at the bench shape is 25.8 GFLOP, 156 us by operations
-// at the same rate.
-// ---------------------------------------------------------------------------
-template <int D, int kBlock>
-struct F32Shape {
-  static constexpr int kCtaThreads = 2 * kBlock;  // two threads per row
-  // Two (kBlock, D) tiles and two kBlock rows of f32 (K2: K, V and the
-  // key bias): at most 33,280 bytes.
-  static constexpr size_t kSmemBytes = (2 * kBlock * D + 2 * kBlock) * sizeof(float);
-  static_assert(kSmemBytes <= 48 * 1024, "static shared-memory limit");
-};
-
-// Rows [row0, row0 + n) of a (rows, D) f32 matrix into an n-row shared
-// tile with 16-byte loads; rows past `rows` are zero-filled.
-template <int D, int kThr>
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* src, int row0, int rows,
-                                              int n) {
-  constexpr int kChunks = D / 4;
-  for (int i = threadIdx.x; i < n * kChunks; i += kThr) {
-    const int r = i / kChunks, c = i % kChunks;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < rows) val = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * D + c * 4);
-    *reinterpret_cast<float4*>(dst + r * D + c * 4) = val;
-  }
-}
-
-// This thread's half (values h, h + 2, ...) of row `row` of a (rows, D)
-// matrix; zeros past `rows`.
-template <int D>
-__device__ __forceinline__ void load_half_row(float (&x)[D / 2], const float* src, int row, int rows,
-                                              int h) {
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) x[i] = row < rows ? src[(size_t)row * D + 2 * i + h] : 0.f;
-}
-
-template <int D>
-__device__ __forceinline__ void store_half_row(float* dst, const float (&x)[D / 2], float scale,
-                                               int row, int rows, int h) {
-  if (row >= rows) return;
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) dst[(size_t)row * D + 2 * i + h] = x[i] * scale;
-}
-
-// x . y over the full row: this thread's half against `y` (a shared row),
-// four partial sums, then the pair's other half by one shuffle. Both
-// threads of the pair get the same value.
-template <int D>
-__device__ __forceinline__ float pair_dot(const float (&x)[D / 2], const float* y, int h) {
-  float s[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) s[i & 3] = fmaf(x[i], y[2 * i + h], s[i & 3]);
-  const float part = (s[0] + s[1]) + (s[2] + s[3]);
-  return part + __shfl_xor_sync(0xffffffffu, part, 1);
-}
-
-// acc += a * y (this thread's half of a shared row y).
-template <int D>
-__device__ __forceinline__ void pair_axpy(float (&acc)[D / 2], float a, const float* y, int h) {
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = fmaf(a, y[2 * i + h], acc[i]);
-}
-
+// operands from shared memory, so P.V, dS.K and every transposed product
+// of K3 would need transposed copies of their tiles. That is left for a
+// later speed PR.
 // ---------------------------------------------------------------------------
 // 3xTF32 building blocks of K1 and K3 in f32: the TF32 split, mma.sync
 // m16n8k8. g = lane / 4 and t = lane % 4 throughout.
@@ -1144,57 +1082,163 @@ __global__ void __launch_bounds__(FwdF32Shape<D, kBlock>::kCtaThreads)
   }
 }
 
-// K2 in f32: dQ. Grid (BH, q-tiles), heaviest causal tile first.
+// K2 in f32: dQ. Grid (BH, q-tiles), heaviest causal tile first; a CTA
+// of kBlock / 16 warps owns kBlock query rows, 16 per warp, and walks the
+// kBlock-wide k-tiles up to the causal diagonal, 16 keys at a time. A warp
+// keeps its split Q rows in registers beside the dQ sum; its split dO
+// rows wait in shared memory in fragment order, big and small parts in
+// planes of their own (each a warp's contiguous 512 bytes per k8 slice,
+// read back as one 16-byte load per lane), as K3 f32 keeps split V.
 template <int D, int kBlock>
-__global__ void __launch_bounds__(F32Shape<D, kBlock>::kCtaThreads)
+struct DqF32Shape {
+  static constexpr int kCtaThreads = kBlock * 2;  // kBlock / 16 warps
+  static constexpr int kTileElems = kBlock * f32_stride<D>();
+  static constexpr int kSplitGElems = kBlock * D * 2;  // big and small of each warp's dO rows
+  static constexpr size_t kSmemBytes =
+      (4 * kTileElems + 2 * kBlock + kSplitGElems) *
+      sizeof(float);  // 2 x K, 2 x V, 2 x key bias, split dO
+};
+
+template <int D, int kBlock>
+__global__ void __launch_bounds__(DqF32Shape<D, kBlock>::kCtaThreads)
     flash_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const float* __restrict__ g,
                         const float* __restrict__ lse, const float* __restrict__ delta,
                         const uint8_t* __restrict__ mask, float* __restrict__ dq, int heads,
                         int tq, int tk, float scale, int causal) {
-  constexpr int kThr = F32Shape<D, kBlock>::kCtaThreads;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* sK = reinterpret_cast<float*>(smem);
-  float* sV = sK + kBlock * D;
-  float* sBias = sV + kBlock * D;
+  using Shape = DqF32Shape<D, kBlock>;
+  constexpr int S = f32_stride<D>();
+  constexpr int kThr = Shape::kCtaThreads;
+  constexpr int kE = Shape::kTileElems;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* sK = reinterpret_cast<float*>(smem);  // 2 stages
+  float* sV = sK + 2 * kE;                     // 2 stages
+  float* sBias = sV + 2 * kE;                  // 2 stages
+  uint32_t* sGf = reinterpret_cast<uint32_t*>(sBias + 2 * kBlock);  // split dO
 
   const int bh = blockIdx.x;
-  const int qt = gridDim.y - 1 - blockIdx.y;
-  const int row = qt * kBlock + (threadIdx.x >> 1), h = threadIdx.x & 1;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // causal: the longest k loops start first
+  const int q0 = qt * kBlock;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, t = lane & 3;
   const float* kb = k + (size_t)bh * tk * D;
   const float* vb = v + (size_t)bh * tk * D;
   const uint8_t* mask_row = mask != nullptr ? mask + (size_t)(bh / heads) * tk : nullptr;
-  int nk = (tk + kBlock - 1) / kBlock;
-  if (causal) nk = min(nk, qt + 1);
-
-  float qr[D / 2], gr[D / 2], acc[D / 2];
-  load_half_row<D>(qr, q + (size_t)bh * tq * D, row, tq, h);
-  load_half_row<D>(gr, g + (size_t)bh * tq * D, row, tq, h);
+  const int row[2] = {q0 + warp * 16 + gq, q0 + warp * 16 + gq + 8};
+  // A row past tq reads 0 (Q, dO, lse and delta): its dS is 0 and its dQ
+  // is never written.
+  float row_lse[2], row_delta[2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-  // A row past tq reads 0 and its dQ is never written.
-  const float row_lse = row < tq ? lse[(size_t)bh * tq + row] : 0.f;
-  const float row_delta = row < tq ? delta[(size_t)bh * tq + row] : 0.f;
+  for (int h = 0; h < 2; ++h) {
+    const bool in = row[h] < tq;
+    row_lse[h] = in ? lse[(size_t)bh * tq + row[h]] : 0.f;
+    row_delta[h] = in ? delta[(size_t)bh * tq + row[h]] : 0.f;
+  }
+
+  int nk = (tk + kBlock - 1) / kBlock;
+  if (causal) nk = min(nk, qt + 1);  // k-tiles past the diagonal see nothing
+
+  copy_tile_f32_async<D, kBlock, kThr>(sK, kb, 0, tk);
+  copy_tile_f32_async<D, kBlock, kThr>(sV, vb, 0, tk);
+  for (int j = threadIdx.x; j < kBlock; j += kThr) sBias[j] = key_bias(mask_row, j, tk);
+  cp_async_commit();
+
+  // The warp's 16 Q and dO rows, split once while the first tiles arrive:
+  // Q into registers, dO into the warp's own slots of sGf (the loop's
+  // first __syncthreads orders these stores before their loads).
+  Split<4> qf[D / 8];
+  uint32_t* gf_warp = sGf + warp * (D / 8) * 256;  // + kk * 256: big plane, then small
+  const float* qb = q + (size_t)bh * tq * D;
+  const float* gb = g + (size_t)bh * tq * D;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    qf[kk] = split_a_global<D>(qb, q0 + warp * 16, tq, kk * 8, gq, t);
+    const Split<4> gf = split_a_global<D>(gb, q0 + warp * 16, tq, kk * 8, gq, t);
+    uint4* dst = reinterpret_cast<uint4*>(gf_warp + kk * 256) + lane;
+    dst[0] = make_uint4(gf.big[0], gf.big[1], gf.big[2], gf.big[3]);
+    dst[32] = make_uint4(gf.small[0], gf.small[1], gf.small[2], gf.small[3]);
+  }
+  float dq_acc[D / 8][4] = {};
 
   for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kBlock;
-    __syncthreads();
-    load_tile_f32<D, kThr>(sK, kb, k0, tk, kBlock);
-    load_tile_f32<D, kThr>(sV, vb, k0, tk, kBlock);
-    for (int j = threadIdx.x; j < kBlock; j += kThr) sBias[j] = key_bias(mask_row, k0 + j, tk);
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < kBlock; ++j) {
-      float x = pair_dot<D>(qr, sK + j * D, h) * scale;
-      if (causal && row < k0 + j) x = kNegInf;
-      x += sBias[j];
-      const float p = x <= kNegInf * 0.5f ? 0.f : expf(x - row_lse);
-      const float dp = pair_dot<D>(gr, sV + j * D, h);
-      pair_axpy<D>(acc, p * (dp - row_delta) * scale, sK + j * D, h);
+    const int buf = kt & 1;
+    if (kt + 1 < nk) {
+      const int k1 = (kt + 1) * kBlock;
+      copy_tile_f32_async<D, kBlock, kThr>(sK + (buf ^ 1) * kE, kb, k1, tk);
+      copy_tile_f32_async<D, kBlock, kThr>(sV + (buf ^ 1) * kE, vb, k1, tk);
+      for (int j = threadIdx.x; j < kBlock; j += kThr)
+        sBias[(buf ^ 1) * kBlock + j] = key_bias(mask_row, k1 + j, tk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
+    __syncthreads();
+    const float* cBias = sBias + buf * kBlock;
+    const int k0 = kt * kBlock;
+    // On the causal diagonal (k0 == q0) the chunks past the warp's own 16
+    // rows hold only keys above them: their dS is 0, so they are skipped.
+    const int nc = (causal && kt == qt) ? warp + 1 : kBlock / 16;
+
+#pragma unroll 1  // one chunk's operands live at a time
+    for (int c = 0; c < nc; ++c) {  // 16 keys at a time
+      const float* cK = sK + buf * kE + c * 16 * S;
+      const float* cV = sV + buf * kE + c * 16 * S;
+      float st[2][4] = {}, dpt[2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const uint4* src = reinterpret_cast<const uint4*>(gf_warp + kk * 256) + lane;
+        const uint4 gbig = src[0], gsmall = src[32];
+        const Split<4> gf = {{gbig.x, gbig.y, gbig.z, gbig.w},
+                             {gsmall.x, gsmall.y, gsmall.z, gsmall.w}};
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          mma_3xtf32(st[j], qf[kk], split_bt<S>(cK + j * 8 * S + kk * 8, gq, t));
+          mma_3xtf32(dpt[j], gf, split_bt<S>(cV + j * 8 * S + kk * 8, gq, t));
+        }
+      }
+      // Lane holds rows row[0] (e = 0, 1) and row[1] (e = 2, 3) against
+      // keys kl and kl + 1 of each n8 tile: dS = p (dP - delta) scale.
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int kl = c * 16 + j * 8 + 2 * t;
+        const float2 bias = *reinterpret_cast<const float2*>(cBias + kl);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          float x = st[j][e] * scale;
+          if (causal && row[h] < k0 + kl + (e & 1)) x = kNegInf;
+          x += (e & 1) ? bias.y : bias.x;
+          const float p = x <= kNegInf * 0.5f ? 0.f : __expf(x - row_lse[h]);
+          dpt[j][e] = p * (dpt[j][e] - row_delta[h]) * scale;
+        }
+      }
+      // dQ += dS.K: dS's accumulator tiles are A operands as they stand,
+      // K's rows read in the matching order. Each 16 keys' part is summed
+      // from zero on the tensor cores and added to dQ in f32 (see K1's O).
+      const Split<4> dsa[2] = {accum_to_a_tf32(dpt[0]), accum_to_a_tf32(dpt[1])};
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        float part[4] = {};
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          mma_3xtf32(part, dsa[j], split_b_permuted<S>(cK + j * 8 * S + n * 8, gq, t));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dq_acc[n][e] += part[e];
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
   }
-  store_half_row<D>(dq + (size_t)bh * tq * D, acc, 1.f, row, tq, h);
+
+  float* dqb = dq + (size_t)bh * tq * D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (row[h] >= tq) continue;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(dqb + (size_t)row[h] * D + n * 8 + 2 * t) =
+          make_float2(dq_acc[n][2 * h], dq_acc[n][2 * h + 1]);
+  }
 }
 
 // K3 in f32: dK and dV. Grid (BH, k-tiles); a CTA of kBlock / 16 warps
@@ -1480,7 +1524,8 @@ int occupancy(Kernel kernel, int threads, size_t smem, int* out) {
 }
 
 // The 3xTF32 instances opt in to more than 48 KB of shared memory as the
-// bf16 launchers do (two 64-row f32 stages of two tiles take 70 KB).
+// bf16 launchers do (two 64-row f32 stages of two tiles take 70 KB; K2
+// and K3 f32 add a CTA's split dO or V, 32 KB more at D = 64).
 template <int D, int kBlock>
 int launch_fwd_f32(const void* q, const void* k, const void* v, const void* mask, void* out,
                    void* lse, int bh, int heads, int tq, int tk, float scale, int causal,
@@ -1497,13 +1542,14 @@ int launch_fwd_f32(const void* q, const void* k, const void* v, const void* mask
   return (int)cudaGetLastError();
 }
 
-// flash_dq_f32 uses at most 33,280 bytes of shared memory, under the 48 KB
-// a launch gets without opting in.
 template <int D, int kBlock>
 int launch_dq_f32(const void* q, const void* k, const void* v, const void* g, const void* lse,
                   const void* delta, const void* mask, void* dq, int bh, int heads, int tq,
                   int tk, float scale, int causal, cudaStream_t stream) {
-  using Shape = F32Shape<D, kBlock>;
+  using Shape = DqF32Shape<D, kBlock>;
+  static bool configured[kMaxDevices] = {};
+  cudaError_t err = set_smem(flash_dq_f32_kernel<D, kBlock>, Shape::kSmemBytes, configured);
+  if (err != cudaSuccess) return (int)err;
   const dim3 grid(bh, (tq + kBlock - 1) / kBlock);
   flash_dq_f32_kernel<D, kBlock><<<grid, Shape::kCtaThreads, Shape::kSmemBytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
@@ -1543,7 +1589,7 @@ int by_shape(int d, int tile, F&& f) {
   return (int)cudaErrorInvalidValue;
 }
 
-// The same for the 3xTF32 instances of K1 and K3, whose tiles are 16 (one
+// The same for the 3xTF32 instances of K1-K3, whose tiles are 16 (one
 // warp per CTA, for short sequences) and 64.
 template <typename F>
 int by_shape_tf32(int d, int tile, F&& f) {
@@ -1557,7 +1603,7 @@ int by_shape_tf32(int d, int tile, F&& f) {
   return (int)cudaErrorInvalidValue;
 }
 
-// Kernels 0-2 (K1-K3 in bf16) and 4 (K2 in f32).
+// Kernels 0-2 (K1-K3 in bf16).
 template <int D, int kBlock>
 int occupancy_of(int kernel, int* out) {
   if (kernel == 0)
@@ -1569,19 +1615,19 @@ int occupancy_of(int kernel, int* out) {
   if (kernel == 2)
     return occupancy(flash_dkv_kernel<D, kBlock>, DkvShape<D, kBlock>::kCtaThreads,
                      DkvShape<D, kBlock>::kSmemBytes, out);
-  using F32 = F32Shape<D, kBlock>;
-  if (kernel == 4)
-    return occupancy(flash_dq_f32_kernel<D, kBlock>, F32::kCtaThreads, F32::kSmemBytes, out);
   return (int)cudaErrorInvalidValue;
 }
 
-// Kernels 3 (K1 in f32) and 5 (K3 in f32).
+// Kernels 3-5 (K1-K3 in f32).
 template <int D, int kBlock>
 int occupancy_of_tf32(int kernel, int* out) {
   using Fwd = FwdF32Shape<D, kBlock>;
+  using Dq = DqF32Shape<D, kBlock>;
   using Dkv = DkvF32Shape<D, kBlock>;
   if (kernel == 3)
     return occupancy(flash_fwd_f32_kernel<D, kBlock>, Fwd::kCtaThreads, Fwd::kSmemBytes, out);
+  if (kernel == 4)
+    return occupancy(flash_dq_f32_kernel<D, kBlock>, Dq::kCtaThreads, Dq::kSmemBytes, out);
   if (kernel == 5)
     return occupancy(flash_dkv_f32_kernel<D, kBlock>, Dkv::kCtaThreads, Dkv::kSmemBytes, out);
   return (int)cudaErrorInvalidValue;
@@ -1595,7 +1641,7 @@ int occupancy_of_tf32(int kernel, int* out) {
 // on `stream`, and returns the cudaError_t of the launch (0 = launched);
 // an unsupported head dim or tile returns cudaErrorInvalidValue. `tile`
 // is the square tile that the wrapper's launch_config chose for the
-// instance: 32 or 64, or 16 or 64 for the 3xTF32 instances of K1 and K3.
+// instance: 32 or 64 for the bf16 instances, 16 or 64 for the f32 ones.
 // Nothing here synchronises.
 extern "C" {
 
@@ -1656,7 +1702,7 @@ int swt_flash_dq_f32(const void* q, const void* k, const void* v, const void* g,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return by_shape(d, tile, [&](auto dd, auto tt) {
+  return by_shape_tf32(d, tile, [&](auto dd, auto tt) {
     return launch_dq_f32<decltype(dd)::value, decltype(tt)::value>(
         q, k, v, g, lse, delta, mask, dq, bh, heads, tq, tk, scale, causal, s);
   });
@@ -1676,13 +1722,13 @@ int swt_flash_dkv_f32(const void* q, const void* k, const void* v, const void* g
 }
 
 // Occupancy of kernel 0 (K1), 1 (K2), 2 (K3), or 3-5 (their f32
-// instances) at head dim d and tile `tile` (16 or 64 for kernels 3 and 5,
-// 32 or 64 for the others) on `device`: writes {CTAs per SM, threads per
+// instances) at head dim d and tile `tile` (16 or 64 for kernels 3-5, 32
+// or 64 for the others) on `device`: writes {CTAs per SM, threads per
 // CTA, dynamic shared bytes, registers per thread} to out[0..3].
 int swt_flash_occupancy(int kernel, int d, int tile, int device, int* out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (kernel == 3 || kernel == 5)
+  if (kernel >= 3)
     return by_shape_tf32(d, tile, [&](auto dd, auto tt) {
       return occupancy_of_tf32<decltype(dd)::value, decltype(tt)::value>(kernel, out);
     });

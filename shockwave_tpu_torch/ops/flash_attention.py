@@ -28,13 +28,19 @@ it launches its kernel or raises. `LAUNCHES` counts the kernel launches.
 Each kernel has two instances on the card, chosen by the inputs' dtype:
 bf16 (the trainer's type: `mma.sync` m16n8k16 on the tensor cores) and
 f32 (`flash_fwd_f32`, `flash_dq_f32`, `flash_dkv_f32`), to the plain f32
-versions' digits, as the Pallas kernels compute in f32: `flash_fwd_f32`
-and `flash_dkv_f32` run 3xTF32 products on the tensor cores (`mma.sync`
-m16n8k8, each operand split into two TF32 parts, three products summed
-in f32), `flash_dq_f32` f32 FMAs on the SIMT cores. One-pass TF32 is off,
-as the port keeps it everywhere. Neither dtype is cast to the other. Any
-other dtype, or a head dim other than 32 and 64, raises on the card. The
-plain versions take any dtype and head dim.
+versions' digits, as the Pallas kernels compute in f32: all three run
+3xTF32 products on the tensor cores (`mma.sync` m16n8k8, each operand
+split into two TF32 parts, three products summed in f32). One-pass TF32
+is off, as the port keeps it everywhere. Neither dtype is cast to the
+other. Any other dtype raises on the card.
+
+The kernels are built for head dims 32 and 64 (`KERNEL_HEAD_DIMS`).
+`flash_attention` zero-pads q, k and v along the head dim to the
+smallest of them that holds it (`kernel_head_dim`, `pad_head_dim`) on
+every device, as the reference pads to its sublane multiple, and slices
+the output back: zero columns add nothing to q.k^T and give zero output
+columns. A head dim above 64 raises on the card; the plain versions take
+any dtype and head dim.
 """
 from __future__ import annotations
 
@@ -59,12 +65,12 @@ KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 LAUNCHES = {name + suffix: 0 for suffix in KERNEL_DTYPES.values() for name in KERNELS}
 # The square tiles each kernel instance is built for (rows per CTA = the
 # width of the streamed tiles, 16 rows per warp): (short tile, long tile,
-# the longest sequence that takes the short tile). The bf16 kernels and
-# flash_dq_f32 take 32 at the trainer's T = 32; the 3xTF32 instances of K1
-# and K3 take one warp per CTA up to T = 64, so that the f32 decoder's 32
-# (batch, head) pairs at T = 64 give 128 CTAs for the card's 132 SMs.
-KERNEL_TILES = {name: (32, 64, 32) for name in LAUNCHES}
-KERNEL_TILES.update(flash_fwd_f32=(16, 64, 64), flash_dkv_f32=(16, 64, 64))
+# the longest sequence that takes the short tile). The bf16 kernels take
+# 32 at the trainer's T = 32; the 3xTF32 instances take one warp per CTA
+# up to T = 64, so that the f32 decoder's 32 (batch, head) pairs at T = 64
+# give 128 CTAs for the card's 132 SMs.
+KERNEL_TILES = {name + suffix: (16, 64, 64) if suffix else (32, 64, 32)
+                for suffix in KERNEL_DTYPES.values() for name in KERNELS}
 
 
 def reset_launch_counts() -> None:
@@ -159,13 +165,30 @@ def launch_config(tq: int, tk: int, d: int, instance: str = "flash_fwd") -> int:
     bf16 kernels' 32 at the trainer's T = 32: no padding rows and one tile
     per (batch, head)), the long tile otherwise."""
     if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"CUDA flash attention takes head dims "
-                         f"{KERNEL_HEAD_DIMS}; got {d}")
+        raise ValueError(f"CUDA flash attention takes head dims {KERNEL_HEAD_DIMS} "
+                         f"(flash_attention pads any head dim up to "
+                         f"{KERNEL_HEAD_DIMS[-1]} to one of them; more waits for "
+                         f"ROADMAP Queue 2 item 9, D = 128 instances); got {d}")
     if tq < 1 or tk < 1:
         raise ValueError(f"CUDA flash attention takes non-empty sequences; "
                          f"got Tq={tq}, Tk={tk}")
     short, long, short_up_to = KERNEL_TILES[instance]
     return short if max(tq, tk) <= short_up_to else long
+
+
+def kernel_head_dim(d: int) -> int:
+    """The head dim a head dim `d` runs at: the smallest of
+    `KERNEL_HEAD_DIMS` that holds it (1-32 -> 32, 33-64 -> 64), or `d`
+    itself above them (the plain versions take it, the kernels refuse
+    it)."""
+    return next((width for width in KERNEL_HEAD_DIMS if d <= width), d)
+
+
+def pad_head_dim(x: torch.Tensor, width: int) -> torch.Tensor:
+    """`x` (..., d) zero-padded on its last axis to `width`: a new tensor
+    (`x` itself when d == width)."""
+    d = x.shape[-1]
+    return x if d == width else torch.nn.functional.pad(x, (0, width - d))
 
 
 def _check_kernel_inputs(q, k, v, kv_mask, heads):
@@ -329,21 +352,27 @@ def flash_attention(q, k, v, causal: bool = False,
     (Tq != Tk) is supported for causal=False. The output is in q's dtype.
     The JAX version's block_q/block_k are Mosaic tiling arguments; the
     CUDA kernels take their tiles from `launch_config` and mask ragged
-    sequence edges themselves, so any lengths are taken.
+    sequence edges themselves, so any lengths are taken. The head dim is
+    zero-padded to `kernel_head_dim(d)` on every device, as the
+    reference's `to_bhtd` pads it, and the output sliced back to `d`.
     """
     b, tq, h, d = q.shape
     tk = k.shape[1]
     if causal and tq != tk:
         raise ValueError("causal flash attention requires Tq == Tk")
     if scale is None:
-        scale = 1.0 / math.sqrt(d)
+        scale = 1.0 / math.sqrt(d)  # the unpadded d
+    width = kernel_head_dim(d)
 
     def to_bhtd(x):
-        return x.transpose(1, 2).reshape(b * h, x.shape[1], d).contiguous()
+        # Padded in the (B, H, T, D) view: one fill and one copy, after
+        # which the reshape is free.
+        x = pad_head_dim(x.transpose(1, 2), width)
+        return x.reshape(b * h, x.shape[2], width).contiguous()
 
     kv_mask = None
     if key_padding_mask is not None:
         kv_mask = key_padding_mask.to(torch.bool).contiguous()
     out = _FlashAttention.apply(to_bhtd(q), to_bhtd(k), to_bhtd(v), kv_mask,
                                 h, float(scale), causal)
-    return out.reshape(b, h, tq, d).transpose(1, 2).to(q.dtype)
+    return out[..., :d].reshape(b, h, tq, d).transpose(1, 2).to(q.dtype)

@@ -1,4 +1,5 @@
-"""The port's flash attention against the JAX package's, on the CPU in f32.
+"""The port's flash attention against the JAX package's, on the CPU in f32
+(and in bf16 at the head dims it pads).
 
 The same numpy inputs go through `shockwave_tpu.ops.flash_attention`
 (Pallas in interpret mode, as tests/test_ops.py runs it) and through
@@ -47,39 +48,44 @@ def rand_qkv(rng, b, t, h, d, tk=None):
             rng.randn(b, tk, h, d).astype(np.float32))
 
 
-def torch_out(q, k, v, **kw):
+# Each helper takes f32 numpy inputs, runs them in `dtype` ("float32" or
+# "bfloat16") and returns f32 numpy arrays.
+
+def torch_out(q, k, v, dtype="float32", **kw):
     kpm = kw.pop("key_padding_mask", None)
     if kpm is not None:
         kpm = torch.from_numpy(kpm)
-    out = fa.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+    out = fa.flash_attention(*(torch.from_numpy(x).to(getattr(torch, dtype)) for x in (q, k, v)),
                              key_padding_mask=kpm, **kw)
-    return out.numpy()
+    return out.float().numpy()
 
 
-def jax_out(q, k, v, **kw):
+def jax_out(q, k, v, dtype="float32", **kw):
     kpm = kw.pop("key_padding_mask", None)
     if kpm is not None:
         kpm = jnp.asarray(kpm)
     return np.asarray(jax_flash_attention(
-        *(jnp.asarray(x) for x in (q, k, v)), key_padding_mask=kpm, **kw))
+        *(jnp.asarray(x, getattr(jnp, dtype)) for x in (q, k, v)), key_padding_mask=kpm, **kw),
+        np.float32)
 
 
-def torch_grads(q, k, v, kpm, causal):
-    qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+def torch_grads(q, k, v, kpm, causal, dtype="float32"):
+    qt, kt, vt = (torch.from_numpy(x).to(getattr(torch, dtype)).requires_grad_()
+                  for x in (q, k, v))
     out = fa.flash_attention(qt, kt, vt, causal=causal,
                              key_padding_mask=torch.from_numpy(kpm))
-    (out ** 2).sum().backward()
-    return [t.grad.numpy() for t in (qt, kt, vt)]
+    (out.float() ** 2).sum().backward()
+    return [t.grad.float().numpy() for t in (qt, kt, vt)]
 
 
-def jax_grads(q, k, v, kpm, causal, **blocks):
+def jax_grads(q, k, v, kpm, causal, dtype="float32", **blocks):
     def loss(q, k, v):
         out = jax_flash_attention(q, k, v, causal=causal,
                                   key_padding_mask=jnp.asarray(kpm), **blocks)
         return (out.astype(jnp.float32) ** 2).sum()
     grads = jax.grad(loss, argnums=(0, 1, 2))(
-        *(jnp.asarray(x) for x in (q, k, v)))
-    return [np.asarray(g) for g in grads]
+        *(jnp.asarray(x, getattr(jnp, dtype)) for x in (q, k, v)))
+    return [np.asarray(g, np.float32) for g in grads]
 
 
 class TestFlashAttention:
@@ -262,6 +268,91 @@ class TestRaggedEdgesAgainstJax:
             assert np.abs(a - b).max() < GRAD_TOL
 
 
+class TestPaddedHeadDimsAgainstJax:
+    """Head dims the CUDA kernels are not built for (8, 16, 48): the
+    port's `flash_attention` zero-pads them to `kernel_head_dim` (32, 32,
+    64) on every device and slices the output back, so on the CPU the
+    plain versions run the very pad and slice that the card runs. The
+    JAX package pads to its sublane multiple of 8 and runs Pallas
+    (interpreted). Same numpy inputs, causal and non-causal, both with a
+    padded key tail; out in the inputs' dtype, gradients of the f32 sum
+    of out squared. Tolerances: f32 as above (FWD_TOL, GRAD_TOL); bf16
+    chip_smoke.py's bf16 ones, BF16_FWD_TOL abs on the output (both round
+    p to bf16 before p.V and the output to bf16, and a rounding flip is
+    one bf16 ulp, 3.9e-3 at |o| < 2) and BF16_GRAD_TOL on each gradient
+    relative to its largest entry (dS and p rounded to bf16 in both)."""
+
+    BF16_FWD_TOL, BF16_GRAD_TOL = 2e-2, 5e-2
+    B, T, H = 2, 32, 2
+
+    def _inputs(self, d, dtype, causal):
+        rng = np.random.RandomState(d + 2 * causal)
+        q, k, v = rand_qkv(rng, self.B, self.T, self.H, d)
+        kpm = np.arange(self.T)[None, :] < np.array([[self.T], [self.T // 2 + 3]])
+        if dtype == "bfloat16":  # both packages get the same bf16 values
+            q, k, v = (torch.from_numpy(x).to(torch.bfloat16).float().numpy() for x in (q, k, v))
+        return q, k, v, kpm
+
+    @pytest.mark.parametrize("causal", [True, False])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("d", [8, 16, 48])
+    def test_forward(self, d, dtype, causal):
+        q, k, v, kpm = self._inputs(d, dtype, causal)
+        fa.reset_launch_counts()
+        out = torch_out(q, k, v, dtype, causal=causal, key_padding_mask=kpm)
+        want = jax_out(q, k, v, dtype, causal=causal, key_padding_mask=kpm)
+        assert out.shape == (self.B, self.T, self.H, d)
+        tol = FWD_TOL if dtype == "float32" else self.BF16_FWD_TOL
+        assert np.abs(out - want).max() < tol
+        assert not any(fa.LAUNCHES.values())
+
+    @pytest.mark.parametrize("causal", [True, False])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("d", [8, 16, 48])
+    def test_gradients(self, d, dtype, causal):
+        q, k, v, kpm = self._inputs(d, dtype, causal)
+        for a, b in zip(torch_grads(q, k, v, kpm, causal, dtype),
+                        jax_grads(q, k, v, kpm, causal, dtype)):
+            assert a.shape == (self.B, self.T, self.H, d)
+            if dtype == "float32":
+                assert np.abs(a - b).max() < GRAD_TOL
+            else:
+                assert np.abs(a - b).max() <= self.BF16_GRAD_TOL * np.abs(b).max()
+
+
+class TestHeadDimPad:
+    """The pad rule that `flash_attention`, the emulation test and
+    chip_smoke.py share."""
+
+    def test_kernel_head_dim(self):
+        assert [fa.kernel_head_dim(d) for d in (1, 8, 16, 31, 32, 33, 48, 63, 64)] == \
+            [32] * 5 + [64] * 4
+        # Above the kernels' widths the head dim is left as it is: the
+        # plain versions take it, the kernels refuse it.
+        assert [fa.kernel_head_dim(d) for d in (65, 80, 128)] == [65, 80, 128]
+        assert all(fa.kernel_head_dim(d) in fa.KERNEL_HEAD_DIMS for d in range(1, 65))
+
+    def test_pad_head_dim(self):
+        x = torch.arange(2 * 3 * 5, dtype=torch.float32).view(2, 3, 5).transpose(0, 1)
+        padded = fa.pad_head_dim(x, 32)
+        assert padded.shape == (3, 2, 32) and padded.is_contiguous()
+        assert torch.equal(padded[..., :5], x) and not padded[..., 5:].any()
+        same = torch.zeros(2, 3, 32)
+        assert fa.pad_head_dim(same, 32) is same
+
+    def test_default_scale_is_the_unpadded_head_dims(self):
+        rng = np.random.RandomState(9)
+        q, k, v = (torch.from_numpy(x) for x in rand_qkv(rng, 1, 16, 2, 16))
+        out = fa.flash_attention(q, k, v, causal=True)
+        assert torch.equal(out, fa.flash_attention(q, k, v, causal=True, scale=1.0 / 4.0))
+        assert not torch.allclose(out, fa.flash_attention(q, k, v, causal=True,
+                                                          scale=1.0 / math.sqrt(32)))
+        # The same as the plain forward at the unpadded width.
+        bhtd = [x.transpose(1, 2).reshape(2, 16, 16) for x in (q, k, v)]
+        plain, _ = fa.attention_forward_plain(*bhtd, None, 2, 0.25, True)
+        assert torch.allclose(out.transpose(1, 2).reshape(2, 16, 16), plain, atol=1e-6)
+
+
 def _chip_smoke():
     """chip_smoke.py as a module (it imports only torch at the top)."""
     spec = importlib.util.spec_from_file_location(
@@ -278,7 +369,7 @@ class TestLaunchConfig:
 
     LENGTHS = list(range(1, 70)) + [96, 127, 128, 129, 512, 2048, 4097]
     # The 3xTF32 instances, whose short tile is one warp of 16 rows.
-    TF32_INSTANCES = ("flash_fwd_f32", "flash_dkv_f32")
+    TF32_INSTANCES = ("flash_fwd_f32", "flash_dq_f32", "flash_dkv_f32")
 
     @pytest.mark.parametrize("d", fa.KERNEL_HEAD_DIMS)
     def test_total_over_accepted_shapes(self, d):
@@ -290,7 +381,7 @@ class TestLaunchConfig:
                     assert tile in (short, long)
                     # The short tile only where both sequences are in its reach.
                     assert (tile == short) == (max(tq, tk) <= short_up_to)
-                    if name not in self.TF32_INSTANCES:  # bf16 and K2 f32 keep 32 / 64
+                    if name not in self.TF32_INSTANCES:  # bf16 keeps 32 / 64
                         assert tile == (32 if max(tq, tk) <= 32 else 64)
                     else:
                         assert tile == (16 if max(tq, tk) <= 64 else 64)
@@ -298,15 +389,17 @@ class TestLaunchConfig:
                         assert fa.launch_config(tq, tk, d) == tile
 
     def test_tf32_instances_fill_the_card_at_the_decoders_shape(self):
-        """The f32 decoder's flash path, (8, 64, 4 x 32) causal: K1 and K3
-        in f32 take one-warp CTAs of 16 rows, (32, 4) = 128 CTAs for the
-        card's 132 SMs rather than (32, 1); K2 f32 keeps its tile."""
+        """The f32 decoder's flash path, (8, 64, 4 x 32) causal: K1, K2 and
+        K3 in f32 take one-warp CTAs of 16 rows, (32, 4) = 128 CTAs for
+        the card's 132 SMs rather than (32, 1); the bf16 instances keep
+        their 64-row tile there."""
         bh, t, d = 8 * 4, 64, 32
+        assert set(self.TF32_INSTANCES) == {n for n in fa.LAUNCHES if n.endswith("_f32")}
         for name in self.TF32_INSTANCES:
             tile = fa.launch_config(t, t, d, name)
             assert tile == 16 and bh * -(-t // tile) == 128
-        assert fa.launch_config(t, t, d, "flash_dq_f32") == 64
-        assert fa.KERNEL_TILES["flash_dq_f32"] == fa.KERNEL_TILES["flash_fwd"]
+            assert fa.KERNEL_TILES[name] == (16, 64, 64)
+        assert fa.launch_config(t, t, d, "flash_dq") == 64
 
     def test_rejects_what_the_wrapper_rejects(self):
         for d in (16, 48, 128):
@@ -445,9 +538,9 @@ class TestCInterface:
         [(name, args)] = lib.calls
         assert name == self.ENTRY[kernel] + suffix
         self._check_types(name, args)
-        # T = 48: the 3xTF32 instances of K1 and K3 take their one-warp
-        # tile, every other instance its 64-row tile.
-        tile = 16 if suffix and kernel != "dq" else 64
+        # T = 48: the 3xTF32 instances take their one-warp tile, the bf16
+        # ones their 64-row tile.
+        tile = 16 if suffix else 64
         assert args[-10:] == (bh, heads, t, t, d, tile, 0.25, 1, 0, 0)
         assert {n: c for n, c in fa.LAUNCHES.items() if c} == {f"flash_{kernel}{suffix}": 1}
 
@@ -471,8 +564,33 @@ class TestCInterface:
         assert {(r["kernel"], r["d"], r["tile"]) for r in rows} >= {
             ("flash_dq", d, tile) for d in (32, 64) for tile in (32, 64)}
         assert {(r["kernel"], r["tile"]) for r in rows if r["kernel"].endswith("_f32")} == {
-            ("flash_fwd_f32", 16), ("flash_fwd_f32", 64), ("flash_dq_f32", 32),
+            ("flash_fwd_f32", 16), ("flash_fwd_f32", 64), ("flash_dq_f32", 16),
             ("flash_dq_f32", 64), ("flash_dkv_f32", 16), ("flash_dkv_f32", 64)}
+
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    @pytest.mark.parametrize("d,width", [(16, 32), (48, 64)])
+    def test_flash_attention_hands_the_kernels_the_padded_width(self, lib, d, width, dtype):
+        """On the card's path `flash_attention` gives every kernel q, k, v
+        and dO zero-padded to `kernel_head_dim(d)`, and the kernels' head
+        dim is that width; the output and gradients come back at d."""
+        b, t, h = 2, 48, 2
+        q, k, v = (torch.randn(b, t, h, d, dtype=dtype, requires_grad=True) for _ in range(3))
+        out = fa.flash_attention(q, k, v, causal=True)
+        assert out.shape == (b, t, h, d) and out.dtype == dtype
+        out.backward(torch.ones_like(out))
+        assert [x.grad.shape for x in (q, k, v)] == [(b, t, h, d)] * 3
+        assert [name for name, _ in lib.calls] == [
+            self.ENTRY[kernel] + fa.KERNEL_DTYPES[dtype] for kernel in ("fwd", "dq", "dkv")]
+        for name, args in lib.calls:
+            self._check_types(name, args)
+            assert args[-10:-4] == (b * h, h, t, t, width, 16 if dtype == torch.float32 else 64)
+            assert args[-4:-2] == (pytest.approx(1.0 / math.sqrt(d)), 1)
+
+    def test_head_dims_above_64_raise_naming_the_item_that_lifts_them(self, lib):
+        q = torch.zeros(1, 32, 2, 80)
+        with pytest.raises(ValueError, match=r"ROADMAP Queue 2 item 9"):
+            fa.flash_attention(q, q, q)
+        assert lib.calls == []
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:

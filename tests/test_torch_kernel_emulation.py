@@ -6,7 +6,9 @@ with the host C++ compiler: every CUDA thread of a CTA is a host thread,
 is computed from the 32 lanes' fragments as the PTX ISA lays them out,
 and `cp.async` copies at once. The C entry points are called as the
 wrappers call them on the card, with `launch_config`'s tile for each
-instance, on CPU tensors made from a seed with numpy. The tolerance is
+instance, on CPU tensors made from a seed with numpy, padded as
+`flash_attention` pads them (head dims 16 and 48 too) and sliced back.
+The tolerance is
 chip_smoke.py's F32_TOL (1e-4 abs on out and lse, 1e-4 relative to the
 largest entry on dQ, dK and dV); a wrong fragment index or mask gives
 errors of order 1. What the card alone shows (timing, the tensor cores'
@@ -67,12 +69,25 @@ CASES = [
     (1, 32, 80, 2, 32, False, None),
     (1, 128, 128, 1, 64, True, "key0"),
 ]
+# The same at head dims the kernels are not built for: d = 16 pads to 32
+# (the one-warp tile; the d = 16 decoder's causal shape), d = 48 to 64
+# (the long tile, key-padded and Tq != Tk, and the row that sees no key).
+PADDED_CASES = [
+    (2, 64, 64, 2, 16, True, "tail"),
+    (1, 32, 80, 2, 48, False, "tail"),
+    (1, 96, 96, 1, 48, True, "key0"),
+]
 
 
-@pytest.mark.parametrize("b,tq,tk,h,d,causal,mask_kind", CASES)
+@pytest.mark.parametrize("b,tq,tk,h,d,causal,mask_kind", CASES + PADDED_CASES)
 def test_f32_kernels_match_the_plain_versions(lib, b, tq, tk, h, d, causal, mask_kind):
+    """q, k, v and dO go in padded through the port's own `pad_head_dim`
+    to `kernel_head_dim(d)` (d itself at 32 and 64), the entry points run
+    at that width, and the outputs, sliced back to d, are held against the
+    plain versions at d; the padded columns come out exactly 0."""
     rng = np.random.RandomState(tq + tk + d)
     bh, scale = b * h, 1.0 / math.sqrt(d)
+    width = fa.kernel_head_dim(d)
     q, g = (torch.from_numpy(rng.randn(bh, tq, d).astype(np.float32)) for _ in range(2))
     k, v = (torch.from_numpy(rng.randn(bh, tk, d).astype(np.float32)) for _ in range(2))
     mask = None
@@ -81,17 +96,20 @@ def test_f32_kernels_match_the_plain_versions(lib, b, tq, tk, h, d, causal, mask
         mask[:, 0] = False
     elif mask_kind == "tail":
         mask = torch.from_numpy(np.arange(tk)[None, :] < rng.randint(tk // 2, tk + 1, (b, 1)))
-    shape = dict(tq=tq, tk=tk, d=d, scale=scale, causal=causal)
+    shape = dict(tq=tq, tk=tk, d=width, scale=scale, causal=causal)
+    qw, kw, vw, gw = (fa.pad_head_dim(x, width) for x in (q, k, v, g))
 
-    out, lse = torch.full_like(q, math.nan), torch.full((bh, tq), math.nan)
-    _call(lib, "flash_fwd", *map(_ptr, (q, k, v, mask, out, lse)), bh, h, tq, tk, **shape)
+    out, lse = torch.full_like(qw, math.nan), torch.full((bh, tq), math.nan)
+    _call(lib, "flash_fwd", *map(_ptr, (qw, kw, vw, mask, out, lse)), bh, h, tq, tk, **shape)
     out_p, lse_p = fa.attention_forward_plain(q, k, v, mask, h, scale, causal)
     delta = (out_p * g).sum(-1)
+    dq = torch.full_like(qw, math.nan)
+    _call(lib, "flash_dq", *map(_ptr, (qw, kw, vw, gw, lse_p, delta, mask, dq)), bh, h, tq, tk,
+          **shape)
+    dk, dv = torch.full_like(kw, math.nan), torch.full_like(vw, math.nan)
+    _call(lib, "flash_dkv", *map(_ptr, (qw, kw, vw, gw, lse_p, delta, mask, dk, dv)), bh, h, tq,
+          tk, **shape)
     bwd = (q, k, v, g, lse_p, delta, mask)
-    dq = torch.full_like(q, math.nan)
-    _call(lib, "flash_dq", *map(_ptr, bwd + (dq,)), bh, h, tq, tk, **shape)
-    dk, dv = torch.full_like(k, math.nan), torch.full_like(v, math.nan)
-    _call(lib, "flash_dkv", *map(_ptr, bwd + (dk, dv)), bh, h, tq, tk, **shape)
     dq_p = fa.attention_dq_plain(*bwd, h, scale, causal)
     dk_p, dv_p = fa.attention_dkv_plain(*bwd, h, scale, causal)
 
@@ -101,11 +119,12 @@ def test_f32_kernels_match_the_plain_versions(lib, b, tq, tk, h, d, causal, mask
     keys = keys.repeat_interleave(h, dim=0)
     rows = ((torch.cumsum(keys.int(), 1) > 0)[:, :tq] if causal
             else keys.any(1, keepdim=True).expand(-1, tq))
-    assert float((out - out_p).abs()[rows].max()) <= F32_TOL
+    for t in (out, dq, dk, dv):
+        assert torch.isfinite(t).all() and not t[..., d:].any()
+    assert float((out[..., :d] - out_p).abs()[rows].max()) <= F32_TOL
     assert float((lse - lse_p).abs()[rows].max()) <= F32_TOL
     for got, want in ((dq, dq_p), (dk, dk_p), (dv, dv_p)):
-        assert torch.isfinite(got).all()
-        assert float((got - want).abs().max() / want.abs().max()) <= F32_TOL
+        assert float((got[..., :d] - want).abs().max() / want.abs().max()) <= F32_TOL
     if mask_kind == "key0":  # the row that sees no key leaks no gradient
         for t in (dq, dk, dv):
             assert float(t[:, 0].abs().max()) == 0.0
@@ -113,9 +132,14 @@ def test_f32_kernels_match_the_plain_versions(lib, b, tq, tk, h, d, causal, mask
 
 
 def test_every_f32_tile_is_emulated():
-    """The cases reach both tiles of each f32 instance at both head dims."""
+    """The cases reach both tiles of each f32 instance at both head dims,
+    and so do the padded cases at their padded widths."""
     for kernel in fa.KERNELS:
         name = kernel + "_f32"
-        reached = {(fa.launch_config(tq, tk, d, name), d) for _, tq, tk, _, d, _, _ in CASES}
-        assert reached == {(tile, d) for tile in fa.KERNEL_TILES[name][:2]
-                           for d in fa.KERNEL_HEAD_DIMS}, name
+
+        def reached(cases):
+            return {(fa.launch_config(tq, tk, fa.kernel_head_dim(d), name), fa.kernel_head_dim(d))
+                    for _, tq, tk, _, d, _, _ in cases}
+        assert reached(CASES) == {(tile, d) for tile in fa.KERNEL_TILES[name][:2]
+                                  for d in fa.KERNEL_HEAD_DIMS}, name
+        assert reached(PADDED_CASES) == {(16, 32), (64, 64)}, name

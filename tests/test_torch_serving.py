@@ -200,6 +200,42 @@ def test_flash_path_in_f32_matches_the_jax_decoders_pallas_path():
     assert not any(fa.LAUNCHES.values())
 
 
+def test_flash_path_at_head_dim_16_matches_the_jax_decoder():
+    """dim 64 with 4 heads (head dim 16, which the port's flash_attention
+    pads to 32 and the JAX package's to its sublane multiple 8) and
+    `use_flash` on both sides, f32, converted weights: the logits within
+    1e-5, as the einsum paths agree, and the gradient of a next-token loss
+    (the JAX tree carried by the same converter) within 5e-4 of its
+    largest entry, test_ops.py's gradient tolerance. Both packages go
+    through their flash paths' own backward (the JAX side's Pallas K2
+    and K3 interpreted)."""
+    widths = dict(WIDTHS, dim=64, num_heads=4)
+    model = FlaxDecoderLM(**widths, use_flash=True)
+    tokens = np.random.RandomState(6).randint(0, 256, (2, 16)).astype(np.int32)
+    params = jax.jit(model.init)(jax.random.PRNGKey(6), tokens[:, :4])
+
+    def loss(p):
+        logits = model.apply(p, tokens)
+        logp = jax.nn.log_softmax(logits[:, :-1], axis=-1)
+        return -jnp.take_along_axis(logp, tokens[:, 1:, None], axis=-1).mean(), logits
+    (_, want), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(params)
+
+    ours = DecoderLM(**widths, use_flash=True)
+    ours.load_state_dict(convert.decoder_flax_to_state_dict(
+        jax.tree_util.tree_map(np.asarray, params["params"])))
+    fa.reset_launch_counts()
+    got = ours(torch.from_numpy(tokens).long())
+    torch.nn.functional.cross_entropy(got[:, :-1].reshape(-1, got.shape[-1]),
+                                      torch.from_numpy(tokens[:, 1:]).long().reshape(-1)).backward()
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=1e-5)
+    want_grads = convert.decoder_flax_to_state_dict(
+        jax.tree_util.tree_map(np.asarray, grads["params"]))
+    top = max(float(g.abs().max()) for g in want_grads.values())
+    for name, param in ours.named_parameters():
+        assert float((param.grad - want_grads[name]).abs().max()) <= 5e-4 * top, name
+    assert not any(fa.LAUNCHES.values())
+
+
 def test_flash_path_in_bf16_matches_the_einsum_path_on_the_cpu():
     """`use_flash` in bf16 at T = 16 runs K1's plain version on the CPU
     (no kernel launch): logits within 2e-2 of the einsum path's (the
