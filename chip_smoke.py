@@ -9,7 +9,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    the torch and CUDA versions.
 2. build: nvcc compiles `shockwave_tpu_torch/csrc/*.cu` (timed); the
    instantiations that spill registers, named from ptxas's report
-   (`spills:`); the HMMA instructions of each f32 instantiation in the
+   (`spills:`); the HMMA instructions of each instantiation in the
    library's SASS, by mnemonic (`sass:`; the 3xTF32 kernels must hold
    TF32 ones); then each kernel instantiation's resident CTAs per SM,
    threads, shared memory and registers, and at the main shape each
@@ -31,11 +31,15 @@ Phases, in order; any failure exits non-zero and prints no result:
    and the key-0 row at T=48 and T=128; its library time is SDPA's in
    f32. The f32 bound's operations are reckoned at the card's
    f32-accurate product rate, a third of its dense TF32 rate (3xTF32).
-   Then head dims the kernels are not built for (`PADDED_CASES`: d = 16
-   and 48, bf16 and f32), forward + backward through `flash_attention`,
-   which zero-pads them to 32 and 64 and slices the output back, against
-   the plain versions at the original d, with the same shape's time at
-   the padded width beside. Times are medians of CUDA-event timings of
+   Both dtypes also run their D = 128 instances (`d128_` cases): the
+   main shape at D = 128, the bench shape (4, 2048, 8, 128) causal,
+   Tq != Tk key-padded, ragged causal, and the key-0 row at both tiles.
+   Then head dims the kernels are not built for (`PADDED_CASES`: d = 16,
+   48, 80 and 96, bf16 and f32), forward + backward through
+   `flash_attention`, which zero-pads them to 32, 64 and 128 and slices
+   the output back, against the plain versions at the original d, with
+   the same shape's time at the padded width beside; and head dim 129,
+   which must raise on the card naming the ROADMAP item that lifts it. Times are medians of CUDA-event timings of
    CUDA-graph replays (device time, no host launch cost), beside the
    bound and the PyTorch library call (`scaled_dot_product_attention`, a
    yardstick the port never calls).
@@ -106,7 +110,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    the einsum path's and the gradient of a next-token loss through K1-K3's
    f32 instances against the einsum path's, one launch of each per
    layer. Then the same at dim 64, 4 heads (head dim 16, which
-   `flash_attention` pads to 32), in bf16 and in f32.
+   `flash_attention` pads to 32), and at dim 512, 4 heads (head dim 128),
+   in bf16 and in f32.
 9. profile: the profilers of `shockwave_tpu_torch/profiling/`. First
    `bench_gpu`'s long path: the full-width flagship with flash on at
    batch 4 x T 2048 under Adam, timed by two-point marginal timing, with
@@ -142,14 +147,22 @@ Phases, in order; any failure exits non-zero and prints no result:
    Printed: the gang's steps/s beside that one-process run's, and the
    gradient all-reduce's ms per call. Two ranks on one card over gloo
    measure nothing of a two-card NCCL gang's speed.
+11. deployed: `profiling/measure_deployed.py` on the LM (batch 20) for
+   three rounds of 40 s, against a temporary copy of
+   `data/h100_throughputs.json`: the unchanged `run_physical.py` and the
+   port's worker as subprocesses, two jobs alternating. Its keys must be
+   written, a lease after round 0 parsed, the deployed rate > 0 and the
+   lease shortfall within [0, round): the deployed and solo rates, the
+   shortfall and the round drain.
 
 Output: `device:`, `build:`, `ptxas:`, `spills:`, `sass:` and
 `occupancy:` lines, one `kernel_case:` JSON line per shape and dtype, one
-`padded_case:` line per padded head dim and dtype, `slice:`,
-`lease:`, `trace:`, `families:`, `adapt:`, `serving:`, `profile:` and
-`gang:` lines, then the `{"kernels": [...]}` line (the six kernel
-instances, with the main case's forward + backward through the port's
-autograd path and through `scaled_dot_product_attention`), the
+`padded_case:` line per padded head dim and dtype, `unbuilt_head_dim:`,
+`slice:`, `lease:`, `trace:`, `families:`, `adapt:`, `serving:`,
+`profile:`, `gang:` and `deployed:` lines, then the `{"kernels": [...]}`
+line (the six kernel instances, each with its D = 128 times beside, and
+the main case's forward + backward through the port's autograd path and
+through `scaled_dot_product_attention`), the
 `nvidia-smi` name and power limit, and as the last line `{"ok": true,
 "device": {...}}`. Copied alone into a directory without the port beside
 it, the script exits 2 and prints no result.
@@ -185,6 +198,15 @@ CASES = (
     ("one_past_short", 2, 33, 33, 2, 64, True, "tail"),
     ("short_head_dim_32", 2, 32, 32, 4, 32, True, "tail"),
     ("short_masked_row0", 1, 32, 32, 2, 64, True, "key0"),
+    # D = 128: the main shape (the short tile, key-padded), the bench
+    # shape, the long tile key-padded and causal, and the row that sees
+    # no key at both tiles.
+    ("d128_main_enc_self", 64, 32, 32, 8, 128, False, "tail"),
+    ("d128_bench_causal", 4, 2048, 2048, 8, 128, True, None),
+    ("d128_cross_48x96", 2, 48, 96, 4, 128, False, "tail"),
+    ("d128_ragged_causal", 2, 100, 100, 4, 128, True, "tail"),
+    ("d128_masked_row0", 1, 128, 128, 2, 128, True, "key0"),
+    ("d128_short_masked_row0", 1, 32, 32, 2, 128, True, "key0"),
 )
 MAIN_CASE = "main_enc_self"  # 12 of the 18 launches per step are key-padded, non-causal
 # The f32 instances of K1-K3, in the same form: the main shape key-padded
@@ -206,19 +228,39 @@ F32_CASES = (
     ("one_past_short_f32", 2, 65, 65, 2, 64, True, "tail"),
     ("cross_64x128_f32", 1, 64, 128, 2, 64, False, None),
     ("short_masked_row0_f32", 1, 48, 48, 2, 64, True, "key0"),
+    # D = 128, as in CASES: the one-warp tile at the main shape, the bench
+    # shape, the long tile key-padded and causal, the key-0 row at both.
+    ("d128_main_enc_self_f32", 64, 32, 32, 8, 128, False, "tail"),
+    ("d128_bench_causal_f32", 4, 2048, 2048, 8, 128, True, None),
+    ("d128_cross_48x96_f32", 2, 48, 96, 4, 128, False, "tail"),
+    ("d128_ragged_causal_f32", 2, 100, 100, 4, 128, True, "tail"),
+    ("d128_masked_row0_f32", 1, 128, 128, 2, 128, True, "key0"),
+    ("d128_short_masked_row0_f32", 1, 48, 48, 2, 128, True, "key0"),
 )
 MAIN_CASE_F32 = "main_enc_self_f32"
+# The D = 128 instances' rows of the kernels line are timed at these
+# cases (the main shape and the bench shape at D = 128), by dtype.
+D128_CASES = {"": ("d128_main_enc_self", "d128_bench_causal"),
+              "_f32": ("d128_main_enc_self_f32", "d128_bench_causal_f32")}
 # Head dims the kernels are not built for, in the same form, through
 # `flash_attention`, which zero-pads them to `kernel_head_dim` (16 -> 32,
-# 48 -> 64) and slices the output back; "_f32" names the f32 instances.
-# d = 16 at the d = 16 decoder's shape (8 x 64, 4 heads, causal), d = 48
-# key-padded at T = 128, which takes the long tiles.
+# 48 -> 64, 80 and 96 -> 128) and slices the output back; "_f32" names
+# the f32 instances. d = 16 at the d = 16 decoder's shape (8 x 64, 4
+# heads, causal), d = 48 and 96 key-padded at T = 128, which takes the
+# long tiles, d = 80 causal at T = 64.
 PADDED_CASES = (
     ("head_dim_16", 8, 64, 64, 4, 16, True, None),
     ("head_dim_48", 2, 128, 128, 4, 48, False, "tail"),
+    ("head_dim_96", 2, 128, 128, 4, 96, False, "tail"),
+    ("head_dim_80", 8, 64, 64, 4, 80, True, None),
     ("head_dim_16_f32", 8, 64, 64, 4, 16, True, None),
     ("head_dim_48_f32", 2, 128, 128, 4, 48, False, "tail"),
+    ("head_dim_96_f32", 2, 128, 128, 4, 96, False, "tail"),
+    ("head_dim_80_f32", 8, 64, 64, 4, 80, True, None),
 )
+# A head dim above the widest kernel width raises on the card, naming the
+# ROADMAP item that lifts it.
+UNBUILT_HEAD_DIM, UNBUILT_ITEM = 129, "ROADMAP Queue 2 item 10"
 
 # Tolerances, against the plain version on the same bf16 inputs:
 # - forward output: max abs error 2e-2, on rows that see a key (a row that
@@ -314,6 +356,14 @@ DECODER_F32_TOL = 1e-4
 # rounds the scores and the softmax weights to bf16, flash keeps the
 # scores in f32 and rounds p and dS); in f32 to DECODER_F32_TOL.
 DECODER_PADDED_WIDTHS = dict(dim=64, num_heads=4)
+# The decoder at head dim 128 (dim 512, 4 heads), the widest kernel
+# width, at the same tolerances.
+DECODER_D128_WIDTHS = dict(dim=512, num_heads=4)
+# The deployed phase: `measure_deployed` on one family, three rounds of
+# 40 s, against a temporary copy of the committed h100 oracle.
+DEPLOYED_FAMILY, DEPLOYED_ROUNDS, DEPLOYED_ROUND_S = "LM (batch size 20)", 3, 40.0
+DEPLOYED_KEYS = ("lease_shortfall_s", "lease_shortfall_s_by_type", "round_drain_s",
+                 "round_drain_s_by_type", "deployed_calibration")
 # The gang phase: two ranks on the one card. The Transformer (global
 # batch 64, gns) under a lease of 10 steps renewed to 20, then a resume
 # granted 5; ResNet-18 (global batch 128, accordion) for 6 steps.
@@ -380,7 +430,7 @@ def spills(log: str):
 
 
 def sass_hmma(library: str):
-    """{"kernel<D, tile>": {HMMA mnemonic: count}} of every f32
+    """{"kernel<D, tile>": {HMMA mnemonic: count}} of every kernel
     instantiation in the library's SASS (`cuobjdump --dump-sass`)."""
     from torch.utils.cpp_extension import CUDA_HOME
     cuobjdump = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
@@ -391,7 +441,7 @@ def sass_hmma(library: str):
         fn = re.search(r"Function : (\S+)", line)
         if fn:
             entry = kernel_name(fn.group(1))
-            if "_f32_kernel" in entry:
+            if entry.startswith("flash_"):
                 found[entry] = {}
             continue
         op = re.search(r"\b(HMMA\S*)", line)
@@ -655,6 +705,21 @@ def padded_case(fa, case, seed, device):
             "padded_width_fwd_bwd_ms": flash_fwd_bwd_ms(fa, *wide, mask, b, h, tq, tk, width,
                                                         causal),
             "library_fwd_ms": library_fwd, "library_fwd_bwd_ms": library_fwd_bwd}
+
+
+def unbuilt_head_dim(fa, device):
+    """A head dim above the widest kernel width on the card: it must
+    raise before any launch, naming the ROADMAP item that lifts it."""
+    q = torch.zeros(1, 32, 2, UNBUILT_HEAD_DIM, dtype=torch.bfloat16, device=device)
+    fa.reset_launch_counts()
+    try:
+        fa.flash_attention(q, q, q)
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    check(raised is not None and UNBUILT_ITEM in raised and not any(fa.LAUNCHES.values()),
+          f"head dim {UNBUILT_HEAD_DIM}: raised {raised!r}, launched {fa.LAUNCHES}")
+    return {"head_dim": UNBUILT_HEAD_DIM, "raised": raised}
 
 
 class _Tee(io.TextIOBase):
@@ -1238,7 +1303,11 @@ def serving_phase(fa, device):
             "decoder_flash_head_dim_16": {
                 "bf16": decoder_flash_grads(fa, device, tokens, torch.bfloat16,
                                             **DECODER_PADDED_WIDTHS),
-                "f32": decoder_flash_grads(fa, device, tokens, **DECODER_PADDED_WIDTHS)}}
+                "f32": decoder_flash_grads(fa, device, tokens, **DECODER_PADDED_WIDTHS)},
+            "decoder_flash_head_dim_128": {
+                "bf16": decoder_flash_grads(fa, device, tokens, torch.bfloat16,
+                                            **DECODER_D128_WIDTHS),
+                "f32": decoder_flash_grads(fa, device, tokens, **DECODER_D128_WIDTHS)}}
 
 
 def decoder_flash_grads(fa, device, tokens, dtype=torch.float32, **widths):
@@ -1701,6 +1770,56 @@ def gang_phase(fa):
                          "grad_mb": rn[0]["grad_mb"], "dispatch_s": resnet_s, **rn_cmp}}
 
 
+def deployed_phase(here):
+    """`measure_deployed` on DEPLOYED_FAMILY for DEPLOYED_ROUNDS rounds of
+    DEPLOYED_ROUND_S against a temporary copy of the committed h100
+    oracle, whose h100 shortfall and drain entries are removed first (its
+    calibration record stays: it keeps the family's solo rate): the keys
+    must come back with a new calibration record, at least one lease
+    after round 0 must have been parsed, the deployed rate must be > 0
+    and the lease shortfall within [0, round)."""
+    from shockwave_tpu_torch.profiling import measure_deployed
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="swt_chip_deployed_")
+    try:
+        oracle = os.path.join(work, "h100_throughputs.json")
+        with open(os.path.join(here, "data", "h100_throughputs.json")) as f:
+            committed = json.load(f)
+        for key in DEPLOYED_KEYS[:-1]:
+            committed["__meta__"].get(key, {}).pop("h100", None)
+        before = (committed["__meta__"].get("deployed_calibration", {}).get("h100", {})
+                  .get("sf=1", {}).get("measured_at"))
+        with open(oracle, "w") as f:
+            json.dump(committed, f)
+        measure_deployed.main(["--worker_type", "h100", "--oracle", oracle,
+                               "--families", DEPLOYED_FAMILY,
+                               "--round_duration", str(DEPLOYED_ROUND_S),
+                               "--rounds", str(DEPLOYED_ROUNDS), "--timeout", "600"])
+        with open(oracle) as f:
+            written = json.load(f)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    meta = written["__meta__"]
+    missing = [key for key in DEPLOYED_KEYS if "h100" not in meta.get(key, {})]
+    check(not missing, f"deployed: measure_deployed did not write {missing}")
+    record = meta["deployed_calibration"]["h100"]["sf=1"]
+    detail = record["per_family"][DEPLOYED_FAMILY]
+    rate = written["h100"][f"('{DEPLOYED_FAMILY}', 1)"]["null"]
+    check(record["measured_at"] != before and detail["deployed_steps_per_s"] == rate,
+          f"deployed: no new calibration record ({record['measured_at']}, {detail})")
+    shortfall = meta["lease_shortfall_s_by_type"]["h100"][DEPLOYED_FAMILY]
+    drain = meta["round_drain_s_by_type"]["h100"][DEPLOYED_FAMILY]
+    check(detail["leases"] >= 1, f"deployed: no lease after round 0 was parsed ({detail})")
+    check(rate > 0, f"deployed: rate {rate}")
+    check(0 <= shortfall < DEPLOYED_ROUND_S,
+          f"deployed: lease shortfall {shortfall} s outside [0, {DEPLOYED_ROUND_S})")
+    return {"family": DEPLOYED_FAMILY, "rounds": DEPLOYED_ROUNDS,
+            "round_s": DEPLOYED_ROUND_S, "deployed_steps_per_s": rate,
+            "solo_steps_per_s": detail["solo_steps_per_s"], "leases": detail["leases"],
+            "mean_lease_s": detail["mean_lease_s"], "lease_shortfall_s": shortfall,
+            "round_drain_s": drain}
+
+
 def main() -> int:
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -1767,6 +1886,7 @@ def main() -> int:
         emit("kernel_case", cases[case[0]])
     for seed, case in enumerate(PADDED_CASES):
         emit("padded_case", padded_case(fa, case, seed, device))
+    emit("unbuilt_head_dim", unbuilt_head_dim(fa, device))
     kernel_s = time.time() - t0
 
     t0 = time.time()
@@ -1802,6 +1922,10 @@ def main() -> int:
     ganged = gang_phase(fa)
     emit("gang", {"seconds": time.time() - t0, "nvidia_smi": smi, **ganged})
 
+    t0 = time.time()
+    deployed = deployed_phase(here)
+    emit("deployed", {"seconds": time.time() - t0, "nvidia_smi": smi, **deployed})
+
     kernels = []
     # Each dtype's row is timed at the shape its main-path launches come
     # from: the trainer's (bf16) and the f32 decoder's (f32), which runs
@@ -1835,6 +1959,21 @@ def main() -> int:
                 "bench_library_ms": (cases[bench]["library_fwd_ms"] if kname == "flash_fwd"
                                      else None),
                 "bench_long_launches": profiled["launches"][kname + suffix]}
+            d128, d128_bench = (cases[n] for n in D128_CASES[suffix])
+            k128 = d128["kernels"][kname + suffix]
+            b128 = d128_bench["kernels"][kname + suffix]
+            widths = "bf16" if dtype == torch.bfloat16 else "f32"
+            row.update({
+                "d128_at": f"{D128_CASES[suffix][0]} {d128['shape']}", "d128_tile": k128["tile"],
+                "d128_ms": k128["ms"], "d128_plain_ms": k128["plain_ms"],
+                "d128_bound_ms": k128["bound_ms"], "d128_bound_by": k128["bound_by"],
+                "d128_library_ms": d128["library_fwd_ms"] if kname == "flash_fwd" else None,
+                "d128_bench_ms": b128["ms"], "d128_bench_bound_ms": b128["bound_ms"],
+                "d128_bench_bound_by": b128["bound_by"],
+                "d128_bench_library_ms": (d128_bench["library_fwd_ms"] if kname == "flash_fwd"
+                                          else None),
+                "d128_decoder_launches":
+                    served["decoder_flash_head_dim_128"][widths]["launches"][kname + suffix]})
             if dtype == torch.float32:
                 main_case = cases[MAIN_CASE_F32]
                 m = main_case["kernels"][kname + suffix]

@@ -4,8 +4,8 @@
 // shockwave_tpu/ops/flash_attention.py (_fa_kernel, _dq_kernel,
 // _dkv_kernel). They take (BH, T, D) bf16 tensors (each also has an f32
 // instance, below the bf16 kernels, 3xTF32 on the tensor cores), D in
-// {32, 64} (the wrapper zero-pads any head dim up to 64 to one of them,
-// as the reference pads), a (B, Tk) uint8 key mask (1 = attend, nullptr = all attend, row = bh /
+// {32, 64, 128} (the wrapper zero-pads any head dim up to 128 to one of
+// them, as the reference pads), a (B, Tk) uint8 key mask (1 = attend, nullptr = all attend, row = bh /
 // heads) and keep the reference's masking constants: causal entries are
 // set to -1e30, masked keys get a -1e30 additive bias after that, and
 // the backward zeroes p wherever s <= -5e29. Rows or keys past a ragged
@@ -581,10 +581,16 @@ __global__ void __launch_bounds__(DqShape<D, kBlock>::kCtaThreads)
 //    cp.async: tile j + 1 is copied while tile j is multiplied.
 // 6. dK and dV are staged through the warp's own K and V rows and
 //    written with 16-byte stores.
+// 7. At D = 128 the dK and dV sums alone (dk_acc, dv_acc: D / 2 floats
+//    each a lane) leave no room for K and V fragments beside them: there
+//    the warp reads its K and V fragments from its own rows of the shared
+//    K and V tiles, which stay in place for the whole loop, as each 16
+//    queries' products need them (kHoldKV false).
 // ---------------------------------------------------------------------------
 template <int D, int kBlock>
 struct DkvShape {
   static constexpr int kCtaThreads = kBlock * 2;
+  static constexpr bool kHoldKV = D <= 64;  // K and V fragments in registers
   static constexpr int kTileElems = kBlock * smem_stride<D>();
   static constexpr size_t kSmemBytes =
       6 * kTileElems * sizeof(bf16)       // K, V, 2 x Q, 2 x dO
@@ -648,8 +654,11 @@ __global__ void __launch_bounds__(DkvShape<D, kBlock>::kCtaThreads)
     copy_q_side_async<D, kBlock>(sQ, sG, sLse, sDelta, qb, gb, lse_b, delta_b, qt0 * kBlock, tq);
   cp_async_commit();
 
-  uint32_t kf[D / 16][4], vf[D / 16][4];
+  constexpr int kHeld = Shape::kHoldKV ? D / 16 : 1;
+  uint32_t kf[kHeld][4], vf[kHeld][4];
   float dk_acc[D / 8][4] = {}, dv_acc[D / 8][4] = {};
+  const bf16* warp_k = sK + warp * 16 * S;
+  const bf16* warp_v = sV + warp * 16 * S;
 
   for (int qt = qt0; qt < nq; ++qt) {
     const int buf = (qt - qt0) & 1;
@@ -664,11 +673,13 @@ __global__ void __launch_bounds__(DkvShape<D, kBlock>::kCtaThreads)
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (qt == qt0) {
+    if constexpr (Shape::kHoldKV) {
+      if (qt == qt0) {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        load_a<S>(kf[kk], sK + warp * 16 * S + kk * 16, lane);
-        load_a<S>(vf[kk], sV + warp * 16 * S + kk * 16, lane);
+        for (int kk = 0; kk < D / 16; ++kk) {
+          load_a<S>(kf[kk], warp_k + kk * 16, lane);
+          load_a<S>(vf[kk], warp_v + kk * 16, lane);
+        }
       }
     }
     const bf16* cQ = sQ + buf * kE;
@@ -682,13 +693,20 @@ __global__ void __launch_bounds__(DkvShape<D, kBlock>::kCtaThreads)
       float st[2][4] = {}, dpt[2][4] = {};
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t b[4];
+        uint32_t ka[4], va[4], b[4];
+        if constexpr (Shape::kHoldKV) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) ka[i] = kf[kk][i], va[i] = vf[kk][i];
+        } else {
+          load_a<S>(ka, warp_k + kk * 16, lane);
+          load_a<S>(va, warp_v + kk * 16, lane);
+        }
         load_bt<S>(b, cQ + c * 16 * S + kk * 16, lane);
-        mma_bf16(st[0], kf[kk], b[0], b[1]);
-        mma_bf16(st[1], kf[kk], b[2], b[3]);
+        mma_bf16(st[0], ka, b[0], b[1]);
+        mma_bf16(st[1], ka, b[2], b[3]);
         load_bt<S>(b, cG + c * 16 * S + kk * 16, lane);
-        mma_bf16(dpt[0], vf[kk], b[0], b[1]);
-        mma_bf16(dpt[1], vf[kk], b[2], b[3]);
+        mma_bf16(dpt[0], va, b[0], b[1]);
+        mma_bf16(dpt[1], va, b[2], b[3]);
       }
       // Lane holds keys key[0] (e = 0, 1) and key[1] (e = 2, 3) against
       // queries ql and ql + 1 of each n8 tile.
@@ -729,7 +747,7 @@ __global__ void __launch_bounds__(DkvShape<D, kBlock>::kCtaThreads)
   cp_async_wait<0>();  // no copy is left in flight when the loop never ran
   __syncthreads();
 
-  // The warp's own K and V rows are free: their fragments are in registers.
+  // The warp's own K and V rows are free: no warp reads them any more.
   bf16* stage_k = sK + warp * 16 * S;
   bf16* stage_v = sV + warp * 16 * S;
   stage_accum<D>(stage_k, dk_acc, 1.f, 1.f, lane);
@@ -799,8 +817,16 @@ __global__ void __launch_bounds__(DkvShape<D, kBlock>::kCtaThreads)
 //    split operand and the sums held in registers (K2: split Q and dQ;
 //    K3: split K, dK and dV); the other split operand (K2: dO, K3: V)
 //    waits in shared memory in fragment order. Every instance compiles
-//    with 0 spill bytes.
-// 5. Tiles follow the grid: up to T = 64 a CTA is one warp of 16 rows, so
+//    with 0 spill bytes at D <= 64.
+// 5. At D = 128 the sums a warp holds (K1: O and the tile's P.V; K2: dQ;
+//    K3: dK and dV) leave no room for a split 16-row operand beside them
+//    (big and small parts: D floats a lane). There the operands a CTA
+//    owns (K1: Q; K2: Q and dO; K3: K and V) wait in shared memory as
+//    they are, in rows of D + 4 floats, and are split as their fragments
+//    are read (split_a_shared), as the streamed tiles are (kOwnedInSmem).
+//    Two 64-row stages of two 128-wide tiles and the owned tiles then
+//    leave room for one CTA per SM.
+// 6. Tiles follow the grid: up to T = 64 a CTA is one warp of 16 rows, so
 //    the decoder's 32 (batch, head) pairs give 128 CTAs, not 32, on 132
 //    SMs; longer sequences take 64-row CTAs that share each streamed tile
 //    among four warps.
@@ -878,6 +904,18 @@ __device__ __forceinline__ Split<4> split_a_global(const float* x, int r0, int r
   return a;
 }
 
+// The same from a raw f32 tile in shared memory: rows g and g + 8,
+// columns [0, 8) at `x` (row stride S), split as they are read. With S =
+// D + 4 the 32 lanes' reads fall in 32 different banks.
+template <int S>
+__device__ __forceinline__ Split<4> split_a_shared(const float* x, int g, int t) {
+  const float v[4] = {x[g * S + t], x[(g + 8) * S + t], x[g * S + t + 4], x[(g + 8) * S + t + 4]};
+  Split<4> a;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(v[i], a.big[i], a.small[i]);
+  return a;
+}
+
 // The B operand of A . X^T for 8 rows of X (the n side) at `x` in shared
 // memory, row stride S, 8 columns: b0 = X[g][t], b1 = X[g][t + 4].
 template <int S>
@@ -935,8 +973,10 @@ template <int D, int kBlock>
 struct FwdF32Shape {
   static constexpr int kCtaThreads = kBlock * 2;  // kBlock / 16 warps
   static constexpr int kTileElems = kBlock * f32_stride<D>();
+  static constexpr bool kOwnedInSmem = D > 64;  // Q in shared memory (design note 5)
   static constexpr size_t kSmemBytes =
-      (4 * kTileElems + 2 * kBlock) * sizeof(float);  // 2 x K, 2 x V, 2 x key bias
+      ((4 + kOwnedInSmem) * kTileElems + 2 * kBlock) *
+      sizeof(float);  // 2 x K, 2 x V, 2 x key bias[, Q]
 };
 
 template <int D, int kBlock>
@@ -954,6 +994,7 @@ __global__ void __launch_bounds__(FwdF32Shape<D, kBlock>::kCtaThreads)
   float* sK = reinterpret_cast<float*>(smem);  // 2 stages
   float* sV = sK + 2 * kE;                     // 2 stages
   float* sBias = sV + 2 * kE;                  // 2 stages
+  float* sQ = sBias + 2 * kBlock;              // kOwnedInSmem only
 
   const int bh = blockIdx.x;
   const int qt = gridDim.y - 1 - blockIdx.y;  // causal: the longest k loops start first
@@ -970,14 +1011,20 @@ __global__ void __launch_bounds__(FwdF32Shape<D, kBlock>::kCtaThreads)
 
   copy_tile_f32_async<D, kBlock, kThr>(sK, kb, 0, tk);
   copy_tile_f32_async<D, kBlock, kThr>(sV, vb, 0, tk);
+  if constexpr (Shape::kOwnedInSmem)
+    copy_tile_f32_async<D, kBlock, kThr>(sQ, q + (size_t)bh * tq * D, q0, tq);
   for (int j = threadIdx.x; j < kBlock; j += kThr) sBias[j] = key_bias(mask_row, j, tk);
   cp_async_commit();
 
-  // The warp's 16 Q rows, split once while the first tiles arrive.
-  Split<4> qf[D / 8];
+  // The warp's 16 Q rows, split once while the first tiles arrive (at D
+  // = 128 split as they are read from sQ).
+  Split<4> qf[Shape::kOwnedInSmem ? 1 : D / 8];
+  if constexpr (!Shape::kOwnedInSmem) {
 #pragma unroll
-  for (int kk = 0; kk < D / 8; ++kk)
-    qf[kk] = split_a_global<D>(q + (size_t)bh * tq * D, q0 + warp * 16, tq, kk * 8, g, t);
+    for (int kk = 0; kk < D / 8; ++kk)
+      qf[kk] = split_a_global<D>(q + (size_t)bh * tq * D, q0 + warp * 16, tq, kk * 8, g, t);
+  }
+  const float* warp_q = sQ + warp * 16 * S;
 
   float o[D / 8][4] = {};
   float m[2] = {kNegInf, kNegInf};  // running max of rows g, g + 8
@@ -1005,9 +1052,14 @@ __global__ void __launch_bounds__(FwdF32Shape<D, kBlock>::kCtaThreads)
     float s[kN][4] = {};
 #pragma unroll
     for (int kk = 0; kk < D / 8; ++kk) {
+      Split<4> qa;
+      if constexpr (Shape::kOwnedInSmem)
+        qa = split_a_shared<S>(warp_q + kk * 8, g, t);
+      else
+        qa = qf[kk];
 #pragma unroll
       for (int j = 0; j < kN; ++j)
-        mma_3xtf32(s[j], qf[kk], split_bt<S>(cK + j * 8 * S + kk * 8, g, t));
+        mma_3xtf32(s[j], qa, split_bt<S>(cK + j * 8 * S + kk * 8, g, t));
     }
 
     // Scale, causal -1e30, then the key bias, as _fa_kernel orders them;
@@ -1094,9 +1146,10 @@ struct DqF32Shape {
   static constexpr int kCtaThreads = kBlock * 2;  // kBlock / 16 warps
   static constexpr int kTileElems = kBlock * f32_stride<D>();
   static constexpr int kSplitGElems = kBlock * D * 2;  // big and small of each warp's dO rows
+  static constexpr bool kOwnedInSmem = D > 64;  // Q and dO as they are (design note 5)
   static constexpr size_t kSmemBytes =
-      (4 * kTileElems + 2 * kBlock + kSplitGElems) *
-      sizeof(float);  // 2 x K, 2 x V, 2 x key bias, split dO
+      (4 * kTileElems + 2 * kBlock + (kOwnedInSmem ? 2 * kTileElems : kSplitGElems)) *
+      sizeof(float);  // 2 x K, 2 x V, 2 x key bias, split dO [or Q and dO]
 };
 
 template <int D, int kBlock>
@@ -1115,6 +1168,8 @@ __global__ void __launch_bounds__(DqF32Shape<D, kBlock>::kCtaThreads)
   float* sV = sK + 2 * kE;                     // 2 stages
   float* sBias = sV + 2 * kE;                  // 2 stages
   uint32_t* sGf = reinterpret_cast<uint32_t*>(sBias + 2 * kBlock);  // split dO
+  float* sQ = sBias + 2 * kBlock;  // kOwnedInSmem: Q, then dO, in place of sGf
+  float* sG = sQ + kE;
 
   const int bh = blockIdx.x;
   const int qt = gridDim.y - 1 - blockIdx.y;  // causal: the longest k loops start first
@@ -1138,25 +1193,34 @@ __global__ void __launch_bounds__(DqF32Shape<D, kBlock>::kCtaThreads)
   int nk = (tk + kBlock - 1) / kBlock;
   if (causal) nk = min(nk, qt + 1);  // k-tiles past the diagonal see nothing
 
+  const float* qb = q + (size_t)bh * tq * D;
+  const float* gb = g + (size_t)bh * tq * D;
   copy_tile_f32_async<D, kBlock, kThr>(sK, kb, 0, tk);
   copy_tile_f32_async<D, kBlock, kThr>(sV, vb, 0, tk);
+  if constexpr (Shape::kOwnedInSmem) {
+    copy_tile_f32_async<D, kBlock, kThr>(sQ, qb, q0, tq);
+    copy_tile_f32_async<D, kBlock, kThr>(sG, gb, q0, tq);
+  }
   for (int j = threadIdx.x; j < kBlock; j += kThr) sBias[j] = key_bias(mask_row, j, tk);
   cp_async_commit();
 
   // The warp's 16 Q and dO rows, split once while the first tiles arrive:
   // Q into registers, dO into the warp's own slots of sGf (the loop's
-  // first __syncthreads orders these stores before their loads).
-  Split<4> qf[D / 8];
+  // first __syncthreads orders these stores before their loads). At D =
+  // 128 both are split as they are read from sQ and sG.
+  Split<4> qf[Shape::kOwnedInSmem ? 1 : D / 8];
   uint32_t* gf_warp = sGf + warp * (D / 8) * 256;  // + kk * 256: big plane, then small
-  const float* qb = q + (size_t)bh * tq * D;
-  const float* gb = g + (size_t)bh * tq * D;
+  const float* warp_q = sQ + warp * 16 * S;
+  const float* warp_g = sG + warp * 16 * S;
+  if constexpr (!Shape::kOwnedInSmem) {
 #pragma unroll
-  for (int kk = 0; kk < D / 8; ++kk) {
-    qf[kk] = split_a_global<D>(qb, q0 + warp * 16, tq, kk * 8, gq, t);
-    const Split<4> gf = split_a_global<D>(gb, q0 + warp * 16, tq, kk * 8, gq, t);
-    uint4* dst = reinterpret_cast<uint4*>(gf_warp + kk * 256) + lane;
-    dst[0] = make_uint4(gf.big[0], gf.big[1], gf.big[2], gf.big[3]);
-    dst[32] = make_uint4(gf.small[0], gf.small[1], gf.small[2], gf.small[3]);
+    for (int kk = 0; kk < D / 8; ++kk) {
+      qf[kk] = split_a_global<D>(qb, q0 + warp * 16, tq, kk * 8, gq, t);
+      const Split<4> gf = split_a_global<D>(gb, q0 + warp * 16, tq, kk * 8, gq, t);
+      uint4* dst = reinterpret_cast<uint4*>(gf_warp + kk * 256) + lane;
+      dst[0] = make_uint4(gf.big[0], gf.big[1], gf.big[2], gf.big[3]);
+      dst[32] = make_uint4(gf.small[0], gf.small[1], gf.small[2], gf.small[3]);
+    }
   }
   float dq_acc[D / 8][4] = {};
 
@@ -1187,13 +1251,19 @@ __global__ void __launch_bounds__(DqF32Shape<D, kBlock>::kCtaThreads)
       float st[2][4] = {}, dpt[2][4] = {};
 #pragma unroll
       for (int kk = 0; kk < D / 8; ++kk) {
-        const uint4* src = reinterpret_cast<const uint4*>(gf_warp + kk * 256) + lane;
-        const uint4 gbig = src[0], gsmall = src[32];
-        const Split<4> gf = {{gbig.x, gbig.y, gbig.z, gbig.w},
-                             {gsmall.x, gsmall.y, gsmall.z, gsmall.w}};
+        Split<4> qa, gf;
+        if constexpr (Shape::kOwnedInSmem) {
+          qa = split_a_shared<S>(warp_q + kk * 8, gq, t);
+          gf = split_a_shared<S>(warp_g + kk * 8, gq, t);
+        } else {
+          const uint4* src = reinterpret_cast<const uint4*>(gf_warp + kk * 256) + lane;
+          const uint4 gbig = src[0], gsmall = src[32];
+          qa = qf[kk];
+          gf = {{gbig.x, gbig.y, gbig.z, gbig.w}, {gsmall.x, gsmall.y, gsmall.z, gsmall.w}};
+        }
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
-          mma_3xtf32(st[j], qf[kk], split_bt<S>(cK + j * 8 * S + kk * 8, gq, t));
+          mma_3xtf32(st[j], qa, split_bt<S>(cK + j * 8 * S + kk * 8, gq, t));
           mma_3xtf32(dpt[j], gf, split_bt<S>(cV + j * 8 * S + kk * 8, gq, t));
         }
       }
@@ -1253,9 +1323,10 @@ struct DkvF32Shape {
   static constexpr int kCtaThreads = kBlock * 2;  // kBlock / 16 warps
   static constexpr int kTileElems = kBlock * f32_stride<D>();
   static constexpr int kSplitVElems = kBlock * D * 2;  // big and small of each warp's V rows
+  static constexpr bool kOwnedInSmem = D > 64;  // K and V as they are (design note 5)
   static constexpr size_t kSmemBytes =
-      (4 * kTileElems + 4 * kBlock + kSplitVElems) *
-      sizeof(float);  // 2 x Q, 2 x dO, 2 x lse, 2 x delta, split V
+      (4 * kTileElems + 4 * kBlock + (kOwnedInSmem ? 2 * kTileElems : kSplitVElems)) *
+      sizeof(float);  // 2 x Q, 2 x dO, 2 x lse, 2 x delta, split V [or K and V]
 };
 
 template <int D, int kBlock>
@@ -1292,6 +1363,8 @@ __global__ void __launch_bounds__(DkvF32Shape<D, kBlock>::kCtaThreads)
   float* sLse = sG + 2 * kE;                    // 2 stages
   float* sDelta = sLse + 2 * kBlock;            // 2 stages
   uint32_t* sVf = reinterpret_cast<uint32_t*>(sDelta + 2 * kBlock);  // split V
+  float* sK = sDelta + 2 * kBlock;  // kOwnedInSmem: K, then V, in place of sVf
+  float* sV = sK + kE;
 
   const int bh = blockIdx.x;
   const int k0 = blockIdx.y * kBlock;
@@ -1309,25 +1382,34 @@ __global__ void __launch_bounds__(DkvF32Shape<D, kBlock>::kCtaThreads)
   // q-tiles above the diagonal see none of these keys
   const int qt0 = causal ? (int)blockIdx.y : 0;
 
+  const float* kb = k + (size_t)bh * tk * D;
+  const float* vb = v + (size_t)bh * tk * D;
   if (qt0 < nq)
     copy_q_side_f32_async<D, kBlock>(sQ, sG, sLse, sDelta, qb, gb, lse_b, delta_b, qt0 * kBlock,
                                      tq);
+  if constexpr (Shape::kOwnedInSmem) {
+    copy_tile_f32_async<D, kBlock, Shape::kCtaThreads>(sK, kb, k0, tk);
+    copy_tile_f32_async<D, kBlock, Shape::kCtaThreads>(sV, vb, k0, tk);
+  }
   cp_async_commit();
 
   // The warp's 16 K and V rows, split once while the first tiles arrive:
   // K into registers, V into the warp's own slots of sVf (the loop's
-  // first __syncthreads orders these stores before their loads).
-  Split<4> kf[D / 8];
+  // first __syncthreads orders these stores before their loads). At D =
+  // 128 both are split as they are read from sK and sV.
+  Split<4> kf[Shape::kOwnedInSmem ? 1 : D / 8];
   uint32_t* vf_lane = sVf + (warp * (D / 8) * 32 + lane) * 8;  // + kk * 256
-  const float* kb = k + (size_t)bh * tk * D;
-  const float* vb = v + (size_t)bh * tk * D;
+  const float* warp_k = sK + warp * 16 * S;
+  const float* warp_v = sV + warp * 16 * S;
+  if constexpr (!Shape::kOwnedInSmem) {
 #pragma unroll
-  for (int kk = 0; kk < D / 8; ++kk) {
-    kf[kk] = split_a_global<D>(kb, k0 + warp * 16, tk, kk * 8, gq, t);
-    const Split<4> vf = split_a_global<D>(vb, k0 + warp * 16, tk, kk * 8, gq, t);
-    uint4* dst = reinterpret_cast<uint4*>(vf_lane + kk * 256);
-    dst[0] = make_uint4(vf.big[0], vf.big[1], vf.big[2], vf.big[3]);
-    dst[1] = make_uint4(vf.small[0], vf.small[1], vf.small[2], vf.small[3]);
+    for (int kk = 0; kk < D / 8; ++kk) {
+      kf[kk] = split_a_global<D>(kb, k0 + warp * 16, tk, kk * 8, gq, t);
+      const Split<4> vf = split_a_global<D>(vb, k0 + warp * 16, tk, kk * 8, gq, t);
+      uint4* dst = reinterpret_cast<uint4*>(vf_lane + kk * 256);
+      dst[0] = make_uint4(vf.big[0], vf.big[1], vf.big[2], vf.big[3]);
+      dst[1] = make_uint4(vf.small[0], vf.small[1], vf.small[2], vf.small[3]);
+    }
   }
   float dk_acc[D / 8][4] = {}, dv_acc[D / 8][4] = {};
 
@@ -1355,12 +1437,19 @@ __global__ void __launch_bounds__(DkvF32Shape<D, kBlock>::kCtaThreads)
       float st[2][4] = {}, dpt[2][4] = {};
 #pragma unroll
       for (int kk = 0; kk < D / 8; ++kk) {
-        const uint4* src = reinterpret_cast<const uint4*>(vf_lane + kk * 256);
-        const uint4 vb = src[0], vs = src[1];
-        const Split<4> vf = {{vb.x, vb.y, vb.z, vb.w}, {vs.x, vs.y, vs.z, vs.w}};
+        Split<4> ka, vf;
+        if constexpr (Shape::kOwnedInSmem) {
+          ka = split_a_shared<S>(warp_k + kk * 8, gq, t);
+          vf = split_a_shared<S>(warp_v + kk * 8, gq, t);
+        } else {
+          const uint4* src = reinterpret_cast<const uint4*>(vf_lane + kk * 256);
+          const uint4 vbig = src[0], vsmall = src[1];
+          ka = kf[kk];
+          vf = {{vbig.x, vbig.y, vbig.z, vbig.w}, {vsmall.x, vsmall.y, vsmall.z, vsmall.w}};
+        }
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
-          mma_3xtf32(st[j], kf[kk], split_bt<S>(cQ + j * 8 * S + kk * 8, gq, t));
+          mma_3xtf32(st[j], ka, split_bt<S>(cQ + j * 8 * S + kk * 8, gq, t));
           mma_3xtf32(dpt[j], vf, split_bt<S>(cG + j * 8 * S + kk * 8, gq, t));
         }
       }
@@ -1525,7 +1614,8 @@ int occupancy(Kernel kernel, int threads, size_t smem, int* out) {
 
 // The 3xTF32 instances opt in to more than 48 KB of shared memory as the
 // bf16 launchers do (two 64-row f32 stages of two tiles take 70 KB; K2
-// and K3 f32 add a CTA's split dO or V, 32 KB more at D = 64).
+// and K3 f32 add a CTA's split dO or V, 32 KB more at D = 64; D = 128
+// takes more, design note 5).
 template <int D, int kBlock>
 int launch_fwd_f32(const void* q, const void* k, const void* v, const void* mask, void* out,
                    void* lse, int bh, int heads, int tq, int tk, float scale, int causal,
@@ -1582,6 +1672,9 @@ template <typename F>
 int by_shape(int d, int tile, F&& f) {
   using I32 = std::integral_constant<int, 32>;
   using I64 = std::integral_constant<int, 64>;
+  using I128 = std::integral_constant<int, 128>;
+  if (d == 128 && tile == 32) return f(I128{}, I32{});
+  if (d == 128 && tile == 64) return f(I128{}, I64{});
   if (d == 64 && tile == 32) return f(I64{}, I32{});
   if (d == 64 && tile == 64) return f(I64{}, I64{});
   if (d == 32 && tile == 32) return f(I32{}, I32{});
@@ -1596,6 +1689,9 @@ int by_shape_tf32(int d, int tile, F&& f) {
   using I16 = std::integral_constant<int, 16>;
   using I32 = std::integral_constant<int, 32>;
   using I64 = std::integral_constant<int, 64>;
+  using I128 = std::integral_constant<int, 128>;
+  if (d == 128 && tile == 16) return f(I128{}, I16{});
+  if (d == 128 && tile == 64) return f(I128{}, I64{});
   if (d == 64 && tile == 16) return f(I64{}, I16{});
   if (d == 64 && tile == 64) return f(I64{}, I64{});
   if (d == 32 && tile == 16) return f(I32{}, I16{});

@@ -34,13 +34,13 @@ split into two TF32 parts, three products summed in f32). One-pass TF32
 is off, as the port keeps it everywhere. Neither dtype is cast to the
 other. Any other dtype raises on the card.
 
-The kernels are built for head dims 32 and 64 (`KERNEL_HEAD_DIMS`).
+The kernels are built for head dims 32, 64 and 128 (`KERNEL_HEAD_DIMS`).
 `flash_attention` zero-pads q, k and v along the head dim to the
 smallest of them that holds it (`kernel_head_dim`, `pad_head_dim`) on
 every device, as the reference pads to its sublane multiple, and slices
 the output back: zero columns add nothing to q.k^T and give zero output
-columns. A head dim above 64 raises on the card; the plain versions take
-any dtype and head dim.
+columns. A head dim above 128 raises on the card (`launch_config`); the
+plain versions take any dtype and head dim.
 """
 from __future__ import annotations
 
@@ -53,7 +53,7 @@ import torch
 from . import _build
 
 NEG_INF = -1e30
-KERNEL_HEAD_DIMS = (32, 64)
+KERNEL_HEAD_DIMS = (32, 64, 128)
 # The dtypes the kernels take, with the suffix of their instance's launch
 # counter and C entry point.
 KERNEL_DTYPES = {torch.bfloat16: "", torch.float32: "_f32"}
@@ -168,7 +168,7 @@ def launch_config(tq: int, tk: int, d: int, instance: str = "flash_fwd") -> int:
         raise ValueError(f"CUDA flash attention takes head dims {KERNEL_HEAD_DIMS} "
                          f"(flash_attention pads any head dim up to "
                          f"{KERNEL_HEAD_DIMS[-1]} to one of them; more waits for "
-                         f"ROADMAP Queue 2 item 9, D = 128 instances); got {d}")
+                         f"ROADMAP Queue 2 item 10, D = 256 instances); got {d}")
     if tq < 1 or tk < 1:
         raise ValueError(f"CUDA flash attention takes non-empty sequences; "
                          f"got Tq={tq}, Tk={tk}")
@@ -178,9 +178,9 @@ def launch_config(tq: int, tk: int, d: int, instance: str = "flash_fwd") -> int:
 
 def kernel_head_dim(d: int) -> int:
     """The head dim a head dim `d` runs at: the smallest of
-    `KERNEL_HEAD_DIMS` that holds it (1-32 -> 32, 33-64 -> 64), or `d`
-    itself above them (the plain versions take it, the kernels refuse
-    it)."""
+    `KERNEL_HEAD_DIMS` that holds it (1-32 -> 32, 33-64 -> 64, 65-128 ->
+    128), or `d` itself above them (the plain versions take it, the
+    kernels refuse it)."""
     return next((width for width in KERNEL_HEAD_DIMS if d <= width), d)
 
 

@@ -147,6 +147,69 @@ inline void mma_m16n8k8_tf32(float* c, const uint32_t* a, uint32_t b0, uint32_t 
   warp_sync();
   for (int e = 0; e < 4; ++e) c[e] = out[e];
 }
+
+inline float bf16_bits_to_float(uint32_t bits16) { return __uint_as_float(bits16 << 16); }
+
+// ldmatrix.sync.aligned.m8n8.x4[.trans].shared.b16: lanes 8i..8i+7 give
+// the row addresses of 8x8 matrix i; register i of lane l holds row l/4,
+// columns 2(l%4) and 2(l%4)+1 of matrix i, the lower column in the low
+// half (with .trans: rows 2(l%4) and 2(l%4)+1, column l/4).
+inline void ldmatrix_x4(uint32_t* r, const void* p, bool trans) {
+  const int ln = lane();
+  auto& x = t_cta->exchange[warp()];
+  const uint32_t offset = (uint32_t)(static_cast<const unsigned char*>(p) - smem());
+  memcpy(&x[ln][0], &offset, 4);
+  warp_sync();
+  auto row = [&](int src) {
+    uint32_t off;
+    memcpy(&off, &x[src][0], 4);
+    return reinterpret_cast<const uint16_t*>(smem() + off);
+  };
+  uint32_t out[4];
+  for (int i = 0; i < 4; ++i) {
+    uint16_t lo, hi;
+    if (trans) {
+      lo = row(8 * i + 2 * (ln & 3))[ln >> 2];
+      hi = row(8 * i + 2 * (ln & 3) + 1)[ln >> 2];
+    } else {
+      lo = row(8 * i + (ln >> 2))[2 * (ln & 3)];
+      hi = row(8 * i + (ln >> 2))[2 * (ln & 3) + 1];
+    }
+    out[i] = (uint32_t)lo | ((uint32_t)hi << 16);
+  }
+  warp_sync();
+  for (int i = 0; i < 4; ++i) r[i] = out[i];
+}
+
+// mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32 from the 32 lanes'
+// fragments as the PTX ISA lays them out (g = lane / 4, t = lane % 4; the
+// lower index of each pair in the low half): a[0] = A(g, 2t..2t+1), a[1]
+// = A(g + 8, 2t..), a[2] = A(g, 2t+8..), a[3] = A(g + 8, 2t+8..); b0 =
+// B(2t..2t+1, g), b1 = B(2t+8..2t+9, g); c as in m16n8k8 above.
+inline void mma_m16n8k16_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  const int ln = lane();
+  auto& x = t_cta->exchange[warp()];
+  const uint32_t regs[6] = {a[0], a[1], a[2], a[3], b0, b1};
+  memcpy(&x[ln][0], regs, sizeof(regs));
+  warp_sync();
+  auto half = [&](int src, int reg, int hi) {
+    uint32_t v;
+    memcpy(&v, &x[src][reg], 4);
+    return bf16_bits_to_float(hi ? v >> 16 : v & 0xffffu);
+  };
+  auto A = [&](int r, int k) { return half((r & 7) * 4 + ((k & 7) >> 1), (r >= 8) + 2 * (k >= 8), k & 1); };
+  auto B = [&](int k, int n) { return half(n * 4 + ((k & 7) >> 1), 4 + (k >= 8), k & 1); };
+  const int g = ln >> 2, t = ln & 3;
+  float out[4];
+  for (int e = 0; e < 4; ++e) {
+    const int r = g + 8 * (e >> 1), n = 2 * t + (e & 1);
+    double sum = 0;
+    for (int k = 0; k < 16; ++k) sum += (double)A(r, k) * (double)B(k, n);
+    out[e] = c[e] + (float)sum;
+  }
+  warp_sync();
+  for (int e = 0; e < 4; ++e) c[e] = out[e];
+}
 }  // namespace emu
 
 extern "C" long emu_shared_overruns() { return emu::g_shared_overruns.load(); }

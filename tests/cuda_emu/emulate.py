@@ -1,9 +1,10 @@
 """Builds the port's CUDA kernel source for the CPU with the host C++
-compiler, so that tests can run its f32 kernels on CPU tensors.
+compiler, so that tests can run its kernels, bf16 and f32, on CPU
+tensors.
 
 `emulated_source` rewrites `shockwave_tpu_torch/csrc/flash_attention.cu`
-into host C++: the PTX helpers (cp.async, mma.sync) get emulated bodies
-from `cuda_runtime.h` here, and each `kernel<<<...>>>(...)` launch runs
+into host C++: the PTX helpers (cp.async, ldmatrix, mma.sync) get
+emulated bodies from `cuda_runtime.h` here, and each `kernel<<<...>>>(...)` launch runs
 its grid on host threads. `build` compiles that into a shared library
 with the same C entry points as the CUDA one. The emulation holds the
 kernels' index math, masking, tiles and shared-memory layout; it shows
@@ -31,9 +32,9 @@ BODIES = {
                  "else memset(dst, 0, 4); }",
     "cp_async_commit": "",
     "cp_async_wait": "",
-    "ldmatrix_x4": "abort();",
-    "ldmatrix_x4_trans": "abort();",
-    "mma_bf16": "abort();",
+    "ldmatrix_x4": "emu::ldmatrix_x4(r, p, false);",
+    "ldmatrix_x4_trans": "emu::ldmatrix_x4(r, p, true);",
+    "mma_bf16": "emu::mma_m16n8k16_bf16(c, a, b0, b1);",
     "mma_tf32": "emu::mma_m16n8k8_tf32(c, a, b0, b1);",
 }
 

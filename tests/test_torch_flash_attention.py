@@ -269,12 +269,12 @@ class TestRaggedEdgesAgainstJax:
 
 
 class TestPaddedHeadDimsAgainstJax:
-    """Head dims the CUDA kernels are not built for (8, 16, 48): the
-    port's `flash_attention` zero-pads them to `kernel_head_dim` (32, 32,
-    64) on every device and slices the output back, so on the CPU the
-    plain versions run the very pad and slice that the card runs. The
-    JAX package pads to its sublane multiple of 8 and runs Pallas
-    (interpreted). Same numpy inputs, causal and non-causal, both with a
+    """Head dims the CUDA kernels are not built for (8, 16, 48, 80, 96):
+    the port's `flash_attention` zero-pads them to `kernel_head_dim` (32,
+    32, 64, 128, 128) on every device and slices the output back, so on
+    the CPU the plain versions run the very pad and slice that the card
+    runs; and d = 128, the widest kernel width, unpadded. The JAX package
+    pads to its sublane multiple of 8 and runs Pallas (interpreted). Same numpy inputs, causal and non-causal, both with a
     padded key tail; out in the inputs' dtype, gradients of the f32 sum
     of out squared. Tolerances: f32 as above (FWD_TOL, GRAD_TOL); bf16
     chip_smoke.py's bf16 ones, BF16_FWD_TOL abs on the output (both round
@@ -295,7 +295,7 @@ class TestPaddedHeadDimsAgainstJax:
 
     @pytest.mark.parametrize("causal", [True, False])
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-    @pytest.mark.parametrize("d", [8, 16, 48])
+    @pytest.mark.parametrize("d", [8, 16, 48, 80, 96, 128])
     def test_forward(self, d, dtype, causal):
         q, k, v, kpm = self._inputs(d, dtype, causal)
         fa.reset_launch_counts()
@@ -308,7 +308,7 @@ class TestPaddedHeadDimsAgainstJax:
 
     @pytest.mark.parametrize("causal", [True, False])
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-    @pytest.mark.parametrize("d", [8, 16, 48])
+    @pytest.mark.parametrize("d", [8, 16, 48, 80, 96, 128])
     def test_gradients(self, d, dtype, causal):
         q, k, v, kpm = self._inputs(d, dtype, causal)
         for a, b in zip(torch_grads(q, k, v, kpm, causal, dtype),
@@ -327,30 +327,39 @@ class TestHeadDimPad:
     def test_kernel_head_dim(self):
         assert [fa.kernel_head_dim(d) for d in (1, 8, 16, 31, 32, 33, 48, 63, 64)] == \
             [32] * 5 + [64] * 4
+        assert [fa.kernel_head_dim(d) for d in (65, 80, 96, 127, 128)] == [128] * 5
         # Above the kernels' widths the head dim is left as it is: the
         # plain versions take it, the kernels refuse it.
-        assert [fa.kernel_head_dim(d) for d in (65, 80, 128)] == [65, 80, 128]
-        assert all(fa.kernel_head_dim(d) in fa.KERNEL_HEAD_DIMS for d in range(1, 65))
+        assert [fa.kernel_head_dim(d) for d in (129, 160, 256)] == [129, 160, 256]
+        assert all(fa.kernel_head_dim(d) in fa.KERNEL_HEAD_DIMS for d in range(1, 129))
 
     def test_pad_head_dim(self):
         x = torch.arange(2 * 3 * 5, dtype=torch.float32).view(2, 3, 5).transpose(0, 1)
         padded = fa.pad_head_dim(x, 32)
         assert padded.shape == (3, 2, 32) and padded.is_contiguous()
         assert torch.equal(padded[..., :5], x) and not padded[..., 5:].any()
+        wide = torch.ones(2, 3, 96, dtype=torch.bfloat16)
+        padded = fa.pad_head_dim(wide, fa.kernel_head_dim(96))
+        assert padded.shape == (2, 3, 128) and padded.dtype == torch.bfloat16
+        assert torch.equal(padded[..., :96], wide) and not padded[..., 96:].any()
         same = torch.zeros(2, 3, 32)
         assert fa.pad_head_dim(same, 32) is same
 
-    def test_default_scale_is_the_unpadded_head_dims(self):
+    def test_default_scale_is_the_unpadded_head_dims(self, d=16):
         rng = np.random.RandomState(9)
-        q, k, v = (torch.from_numpy(x) for x in rand_qkv(rng, 1, 16, 2, 16))
+        q, k, v = (torch.from_numpy(x) for x in rand_qkv(rng, 1, 16, 2, d))
         out = fa.flash_attention(q, k, v, causal=True)
-        assert torch.equal(out, fa.flash_attention(q, k, v, causal=True, scale=1.0 / 4.0))
-        assert not torch.allclose(out, fa.flash_attention(q, k, v, causal=True,
-                                                          scale=1.0 / math.sqrt(32)))
+        assert torch.equal(out, fa.flash_attention(q, k, v, causal=True,
+                                                   scale=1.0 / math.sqrt(d)))
+        assert not torch.allclose(out, fa.flash_attention(
+            q, k, v, causal=True, scale=1.0 / math.sqrt(fa.kernel_head_dim(d))))
         # The same as the plain forward at the unpadded width.
-        bhtd = [x.transpose(1, 2).reshape(2, 16, 16) for x in (q, k, v)]
-        plain, _ = fa.attention_forward_plain(*bhtd, None, 2, 0.25, True)
-        assert torch.allclose(out.transpose(1, 2).reshape(2, 16, 16), plain, atol=1e-6)
+        bhtd = [x.transpose(1, 2).reshape(2, 16, d) for x in (q, k, v)]
+        plain, _ = fa.attention_forward_plain(*bhtd, None, 2, 1.0 / math.sqrt(d), True)
+        assert torch.allclose(out.transpose(1, 2).reshape(2, 16, d), plain, atol=1e-6)
+
+    def test_default_scale_is_the_unpadded_head_dims_above_64(self):
+        self.test_default_scale_is_the_unpadded_head_dims(d=96)
 
 
 def _chip_smoke():
@@ -402,7 +411,7 @@ class TestLaunchConfig:
         assert fa.launch_config(t, t, d, "flash_dq") == 64
 
     def test_rejects_what_the_wrapper_rejects(self):
-        for d in (16, 48, 128):
+        for d in (16, 48, 96, 129, 256):
             with pytest.raises(ValueError):
                 fa.launch_config(32, 32, d)
         for tq, tk in ((0, 32), (32, 0)):
@@ -497,8 +506,8 @@ class TestCInterface:
 
     @pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
     @pytest.mark.parametrize("tq,tk", [(32, 32), (33, 33), (32, 48)])
-    def test_wrapper_hands_over_the_declared_arguments(self, lib, kernel, tq, tk):
-        bh, heads, d = 4, 2, 64
+    def test_wrapper_hands_over_the_declared_arguments(self, lib, kernel, tq, tk, d=64):
+        bh, heads = 4, 2
         q, g = (torch.zeros(bh, tq, d, dtype=torch.bfloat16) for _ in range(2))
         k, v = (torch.zeros(bh, tk, d, dtype=torch.bfloat16) for _ in range(2))
         lse, delta = (torch.zeros(bh, tq) for _ in range(2))
@@ -517,6 +526,11 @@ class TestCInterface:
         # ..., bh, heads, tq, tk, d, tile, scale, causal, device, stream
         assert args[-10:-4] == (bh, heads, tq, tk, d, fa.launch_config(tq, tk, d))
         assert args[-4:] == (0.125, int(causal), 0, 0)
+
+    @pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
+    @pytest.mark.parametrize("tq,tk", [(32, 32), (33, 33), (32, 48)])
+    def test_wrapper_hands_over_the_declared_arguments_at_d128(self, lib, kernel, tq, tk):
+        self.test_wrapper_hands_over_the_declared_arguments(lib, kernel, tq, tk, d=128)
 
     @pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
     @pytest.mark.parametrize("dtype,suffix", [(torch.bfloat16, ""), (torch.float32, "_f32")])
@@ -562,13 +576,15 @@ class TestCInterface:
         assert asked == {(kernel, d, tile) for kernel, name in enumerate(fa.LAUNCHES)
                          for d in fa.KERNEL_HEAD_DIMS for tile in fa.KERNEL_TILES[name][:2]}
         assert {(r["kernel"], r["d"], r["tile"]) for r in rows} >= {
-            ("flash_dq", d, tile) for d in (32, 64) for tile in (32, 64)}
+            ("flash_dq", d, tile) for d in (32, 64, 128) for tile in (32, 64)}
+        assert {(r["kernel"], r["tile"]) for r in rows if r["d"] == 128} == {
+            (name, tile) for name in fa.LAUNCHES for tile in fa.KERNEL_TILES[name][:2]}
         assert {(r["kernel"], r["tile"]) for r in rows if r["kernel"].endswith("_f32")} == {
             ("flash_fwd_f32", 16), ("flash_fwd_f32", 64), ("flash_dq_f32", 16),
             ("flash_dq_f32", 64), ("flash_dkv_f32", 16), ("flash_dkv_f32", 64)}
 
     @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-    @pytest.mark.parametrize("d,width", [(16, 32), (48, 64)])
+    @pytest.mark.parametrize("d,width", [(16, 32), (48, 64), (80, 128), (96, 128), (128, 128)])
     def test_flash_attention_hands_the_kernels_the_padded_width(self, lib, d, width, dtype):
         """On the card's path `flash_attention` gives every kernel q, k, v
         and dO zero-padded to `kernel_head_dim(d)`, and the kernels' head
@@ -586,11 +602,13 @@ class TestCInterface:
             assert args[-10:-4] == (b * h, h, t, t, width, 16 if dtype == torch.float32 else 64)
             assert args[-4:-2] == (pytest.approx(1.0 / math.sqrt(d)), 1)
 
-    def test_head_dims_above_64_raise_naming_the_item_that_lifts_them(self, lib):
-        q = torch.zeros(1, 32, 2, 80)
-        with pytest.raises(ValueError, match=r"ROADMAP Queue 2 item 9"):
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    @pytest.mark.parametrize("d", [129, 160])
+    def test_head_dims_above_128_raise_naming_the_item_that_lifts_them(self, lib, d, dtype):
+        q = torch.zeros(1, 32, 2, d, dtype=dtype)
+        with pytest.raises(ValueError, match=r"ROADMAP Queue 2 item 10, D = 256"):
             fa.flash_attention(q, q, q)
-        assert lib.calls == []
+        assert lib.calls == [] and not any(fa.LAUNCHES.values())
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:

@@ -48,10 +48,10 @@ def test_the_scan_covers_the_port():
     assert "shockwave_tpu_torch/runtime/iterator.py" in names
     assert "shockwave_tpu_torch/runtime/worker.py" in names
     assert "shockwave_tpu_torch/runtime/proto/control_pb2.py" in names
-    for module in ("constants", "job_table", "oracle", "artifacts", "timing"):
+    for module in ("constants", "job_table", "oracle", "artifacts", "timing", "job", "trace"):
         assert f"shockwave_tpu_torch/core/{module}.py" in names
     for module in ("device", "measure_throughput", "extrapolate_sf", "measure_startup",
-                   "bench_gpu"):
+                   "bench_gpu", "measure_deployed"):
         assert f"shockwave_tpu_torch/profiling/{module}.py" in names
     for path in ("obs/quantiles.py", "serving/__init__.py", "serving/load.py",
                  "serving/measured.py", "models/decoder.py", "models/a3c.py",
