@@ -31,18 +31,20 @@ Phases, in order; any failure exits non-zero and prints no result:
    and the key-0 row at T=48 and T=128; its library time is SDPA's in
    f32. The f32 bound's operations are reckoned at the card's
    f32-accurate product rate, a third of its dense TF32 rate (3xTF32).
-   Both dtypes also run their D = 128 instances (`d128_` cases): the
-   main shape at D = 128, the bench shape (4, 2048, 8, 128) causal,
-   Tq != Tk key-padded, ragged causal, and the key-0 row at both tiles.
+   Both dtypes also run their D = 128 and D = 256 instances (`d128_`
+   and `d256_` cases): the main shape at that D, the bench shape (4,
+   2048, 8, D) causal, Tq != Tk key-padded, ragged causal, and the key-0
+   row at both tiles (the f32 instances' long tile is 32 at D = 256).
    Then head dims the kernels are not built for (`PADDED_CASES`: d = 16,
-   48, 80 and 96, bf16 and f32), forward + backward through
-   `flash_attention`, which zero-pads them to 32, 64 and 128 and slices
-   the output back, against the plain versions at the original d, with
-   the same shape's time at the padded width beside; and head dim 129,
-   which must raise on the card naming the ROADMAP item that lifts it. Times are medians of CUDA-event timings of
-   CUDA-graph replays (device time, no host launch cost), beside the
-   bound and the PyTorch library call (`scaled_dot_product_attention`, a
-   yardstick the port never calls).
+   48, 80, 96, 160 and 200, bf16 and f32), forward + backward through
+   `flash_attention`, which zero-pads them to 32, 64, 128 and 256 and
+   slices the output back, against the plain versions at the original d,
+   with the same shape's time at the padded width beside; and head dim
+   257, which must raise on the card naming the ROADMAP entry that
+   tracks it. Times are medians of CUDA-event timings of CUDA-graph
+   replays (device time, no host launch cost), beside the bound and the
+   PyTorch library call (`scaled_dot_product_attention`, a yardstick the
+   port never calls, with the backend its dispatch picked).
 4. slice: the translation trainer at full width (dim 512, 8 heads,
    6 + 6 layers, batch 64) for 30 steps through
    `shockwave_tpu_torch.workloads.translation.train.main`, with the
@@ -110,8 +112,14 @@ Phases, in order; any failure exits non-zero and prints no result:
    the einsum path's and the gradient of a next-token loss through K1-K3's
    f32 instances against the einsum path's, one launch of each per
    layer. Then the same at dim 64, 4 heads (head dim 16, which
-   `flash_attention` pads to 32), and at dim 512, 4 heads (head dim 128),
-   in bf16 and in f32.
+   `flash_attention` pads to 32), at dim 512, 4 heads (head dim 128), and
+   at dim 1024, 4 heads (head dim 256), in bf16 and in f32.
+   bench_line: `profiling/bench_serving_decode.py` at its defaults (batch
+   8, 32 tokens, prompt 8, dim 128, 2 layers, 4 heads) through its
+   `--smoke` gate at 200 tokens/s, its CUDA graph's tokens equal to the
+   eager batch's; then `profiling/headline.py --max_rounds 20` as a
+   subprocess (the canonical trace's simulation on the h100 oracle,
+   bench_gpu, the decode bench, nvidia-smi): exit 0, every key filled.
 9. profile: the profilers of `shockwave_tpu_torch/profiling/`. First
    `bench_gpu`'s long path: the full-width flagship with flash on at
    batch 4 x T 2048 under Adam, timed by two-point marginal timing, with
@@ -159,10 +167,11 @@ Output: `device:`, `build:`, `ptxas:`, `spills:`, `sass:` and
 `occupancy:` lines, one `kernel_case:` JSON line per shape and dtype, one
 `padded_case:` line per padded head dim and dtype, `unbuilt_head_dim:`,
 `slice:`, `lease:`, `trace:`, `families:`, `adapt:`, `serving:`,
-`profile:`, `gang:` and `deployed:` lines, then the `{"kernels": [...]}`
-line (the six kernel instances, each with its D = 128 times beside, and
-the main case's forward + backward through the port's autograd path and
-through `scaled_dot_product_attention`), the
+`bench_line:`, `profile:`, `gang:` and `deployed:` lines, then the
+`{"kernels": [...]}` line (the six kernel instances, each with its D =
+128 and D = 256 times beside, the main case's forward + backward through
+the port's autograd path and through `scaled_dot_product_attention`, the
+same at D = 256, and the bench line's decode rate and headline), the
 `nvidia-smi` name and power limit, and as the last line `{"ok": true,
 "device": {...}}`. Copied alone into a directory without the port beside
 it, the script exits 2 and prints no result.
@@ -207,6 +216,14 @@ CASES = (
     ("d128_ragged_causal", 2, 100, 100, 4, 128, True, "tail"),
     ("d128_masked_row0", 1, 128, 128, 2, 128, True, "key0"),
     ("d128_short_masked_row0", 1, 32, 32, 2, 128, True, "key0"),
+    # D = 256, the same six: K1 and K2 read their Q and dO fragments from
+    # shared memory, K3 runs two warps per 16 keys.
+    ("d256_main_enc_self", 64, 32, 32, 8, 256, False, "tail"),
+    ("d256_bench_causal", 4, 2048, 2048, 8, 256, True, None),
+    ("d256_cross_48x96", 2, 48, 96, 4, 256, False, "tail"),
+    ("d256_ragged_causal", 2, 100, 100, 4, 256, True, "tail"),
+    ("d256_masked_row0", 1, 128, 128, 2, 256, True, "key0"),
+    ("d256_short_masked_row0", 1, 32, 32, 2, 256, True, "key0"),
 )
 MAIN_CASE = "main_enc_self"  # 12 of the 18 launches per step are key-padded, non-causal
 # The f32 instances of K1-K3, in the same form: the main shape key-padded
@@ -236,31 +253,47 @@ F32_CASES = (
     ("d128_ragged_causal_f32", 2, 100, 100, 4, 128, True, "tail"),
     ("d128_masked_row0_f32", 1, 128, 128, 2, 128, True, "key0"),
     ("d128_short_masked_row0_f32", 1, 48, 48, 2, 128, True, "key0"),
+    # D = 256, the same six; the f32 instances' long tile is 32 there, so
+    # the bench shape, the cross case, the ragged case and the long key-0
+    # row run it.
+    ("d256_main_enc_self_f32", 64, 32, 32, 8, 256, False, "tail"),
+    ("d256_bench_causal_f32", 4, 2048, 2048, 8, 256, True, None),
+    ("d256_cross_48x96_f32", 2, 48, 96, 4, 256, False, "tail"),
+    ("d256_ragged_causal_f32", 2, 100, 100, 4, 256, True, "tail"),
+    ("d256_masked_row0_f32", 1, 128, 128, 2, 256, True, "key0"),
+    ("d256_short_masked_row0_f32", 1, 48, 48, 2, 256, True, "key0"),
 )
 MAIN_CASE_F32 = "main_enc_self_f32"
 # The D = 128 instances' rows of the kernels line are timed at these
 # cases (the main shape and the bench shape at D = 128), by dtype.
 D128_CASES = {"": ("d128_main_enc_self", "d128_bench_causal"),
               "_f32": ("d128_main_enc_self_f32", "d128_bench_causal_f32")}
+# The same for the D = 256 instances.
+D256_CASES = {"": ("d256_main_enc_self", "d256_bench_causal"),
+              "_f32": ("d256_main_enc_self_f32", "d256_bench_causal_f32")}
 # Head dims the kernels are not built for, in the same form, through
 # `flash_attention`, which zero-pads them to `kernel_head_dim` (16 -> 32,
-# 48 -> 64, 80 and 96 -> 128) and slices the output back; "_f32" names
-# the f32 instances. d = 16 at the d = 16 decoder's shape (8 x 64, 4
-# heads, causal), d = 48 and 96 key-padded at T = 128, which takes the
-# long tiles, d = 80 causal at T = 64.
+# 48 -> 64, 80 and 96 -> 128, 160 and 200 -> 256) and slices the output
+# back; "_f32" names the f32 instances. d = 16 at the d = 16 decoder's
+# shape (8 x 64, 4 heads, causal), d = 48, 96 and 160 key-padded at T =
+# 128, which takes the long tiles, d = 80 and 200 causal at T = 64.
 PADDED_CASES = (
     ("head_dim_16", 8, 64, 64, 4, 16, True, None),
     ("head_dim_48", 2, 128, 128, 4, 48, False, "tail"),
     ("head_dim_96", 2, 128, 128, 4, 96, False, "tail"),
     ("head_dim_80", 8, 64, 64, 4, 80, True, None),
+    ("head_dim_160", 2, 128, 128, 4, 160, False, "tail"),
+    ("head_dim_200", 8, 64, 64, 4, 200, True, None),
     ("head_dim_16_f32", 8, 64, 64, 4, 16, True, None),
     ("head_dim_48_f32", 2, 128, 128, 4, 48, False, "tail"),
     ("head_dim_96_f32", 2, 128, 128, 4, 96, False, "tail"),
     ("head_dim_80_f32", 8, 64, 64, 4, 80, True, None),
+    ("head_dim_160_f32", 2, 128, 128, 4, 160, False, "tail"),
+    ("head_dim_200_f32", 8, 64, 64, 4, 200, True, None),
 )
 # A head dim above the widest kernel width raises on the card, naming the
-# ROADMAP item that lifts it.
-UNBUILT_HEAD_DIM, UNBUILT_ITEM = 129, "ROADMAP Queue 2 item 10"
+# ROADMAP entry that tracks it.
+UNBUILT_HEAD_DIM, UNBUILT_ITEM = 257, "ROADMAP Queue 3, head dims above 256"
 
 # Tolerances, against the plain version on the same bf16 inputs:
 # - forward output: max abs error 2e-2, on rows that see a key (a row that
@@ -356,9 +389,14 @@ DECODER_F32_TOL = 1e-4
 # rounds the scores and the softmax weights to bf16, flash keeps the
 # scores in f32 and rounds p and dS); in f32 to DECODER_F32_TOL.
 DECODER_PADDED_WIDTHS = dict(dim=64, num_heads=4)
-# The decoder at head dim 128 (dim 512, 4 heads), the widest kernel
-# width, at the same tolerances.
+# The decoder at head dim 128 (dim 512, 4 heads) and at head dim 256
+# (dim 1024, 4 heads), the widest kernel width, at the same tolerances.
 DECODER_D128_WIDTHS = dict(dim=512, num_heads=4)
+DECODER_D256_WIDTHS = dict(dim=1024, num_heads=4)
+# The bench line: `bench_serving_decode` at its defaults must pass its
+# `--smoke` floor (tokens/s); the headline runs its simulation for this
+# many rounds.
+BENCH_DECODE_FLOOR, HEADLINE_ROUNDS = 200.0, 20
 # The deployed phase: `measure_deployed` on one family, three rounds of
 # 40 s, against a temporary copy of the committed h100 oracle.
 DEPLOYED_FAMILY, DEPLOYED_ROUNDS, DEPLOYED_ROUND_S = "LM (batch size 20)", 3, 40.0
@@ -606,15 +644,18 @@ def kernel_case(fa, case, seed, device, rates, dtype=torch.bfloat16):
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else ops_name,
             "bytes": nbytes, "flops": flops, "tile": fa.launch_config(tq, tk, d, kname + suffix)}
-    record["library_fwd_ms"], record["library_fwd_bwd_ms"] = library_ms(
-        q, k, v, g, mask, b, h, tq, tk, d, causal)
+    (record["library_fwd_ms"], record["library_fwd_bwd_ms"],
+     record["library_backend"]) = library_ms(q, k, v, g, mask, b, h, tq, tk, d, causal)
     record["flash_fwd_bwd_ms"] = flash_fwd_bwd_ms(fa, q, k, v, g, mask, b, h, tq, tk, d, causal)
     return record
 
 
 def library_ms(q, k, v, g, mask, b, h, tq, tk, d, causal):
     """`scaled_dot_product_attention` forward, and forward + backward, on
-    the same inputs in (B, H, T, D) layout."""
+    the same inputs in (B, H, T, D) layout, and the backend its own
+    dispatch picks for them (`torch._fused_sdp_choice`, with inputs that
+    need gradients)."""
+    from torch.nn.attention import SDPBackend
     import torch.nn.functional as F
     q4, k4, v4, g4 = (t.view(b, h, -1, d) for t in (q, k, v, g))
     attn_mask = None
@@ -636,7 +677,10 @@ def library_ms(q, k, v, g, mask, b, h, tq, tk, d, causal):
                                              is_causal=is_causal)
         return torch.autograd.grad(out, (qg, kg, vg), g4)
 
-    return graph_ms(fwd), graph_ms(fwd_bwd)
+    names = {int(getattr(SDPBackend, n)): n for n in dir(SDPBackend) if n.isupper()}
+    backend = names.get(torch._fused_sdp_choice(qg, kg, vg, attn_mask, 0.0, is_causal),
+                        "unknown")
+    return graph_ms(fwd), graph_ms(fwd_bwd), backend
 
 
 def flash_fwd_bwd_ms(fa, q, k, v, g, mask, b, h, tq, tk, d, causal):
@@ -697,7 +741,7 @@ def padded_case(fa, case, seed, device):
     width = fa.kernel_head_dim(d)
     wide = [torch.randn(b * h, t, width, generator=gen, device=device).to(dtype)
             for t in (tq, tk, tk, tq)]
-    library_fwd, library_fwd_bwd = library_ms(qp, kp, vp, gp, mask, b, h, tq, tk, d, causal)
+    library_fwd, library_fwd_bwd, _ = library_ms(qp, kp, vp, gp, mask, b, h, tq, tk, d, causal)
     return {"case": name, "shape": [b, tq, tk, h, d], "padded_to": width, "causal": causal,
             "dtype": str(dtype), "mask": mask_kind, **errs, "launches": launches,
             "flash_fwd_bwd_ms": flash_fwd_bwd_ms(fa, qp, kp, vp, gp, mask, b, h, tq, tk, d,
@@ -1307,7 +1351,56 @@ def serving_phase(fa, device):
             "decoder_flash_head_dim_128": {
                 "bf16": decoder_flash_grads(fa, device, tokens, torch.bfloat16,
                                             **DECODER_D128_WIDTHS),
-                "f32": decoder_flash_grads(fa, device, tokens, **DECODER_D128_WIDTHS)}}
+                "f32": decoder_flash_grads(fa, device, tokens, **DECODER_D128_WIDTHS)},
+            "decoder_flash_head_dim_256": {
+                "bf16": decoder_flash_grads(fa, device, tokens, torch.bfloat16,
+                                            **DECODER_D256_WIDTHS),
+                "f32": decoder_flash_grads(fa, device, tokens, **DECODER_D256_WIDTHS)}}
+
+
+def bench_line_phase(here, device):
+    """The port's bench line on the card. `bench_serving_decode` at its
+    defaults, in process, through its `--smoke` gate (BENCH_DECODE_FLOOR
+    tokens/s, its default): exit 0, backend "gpu"; then its request batch
+    (the replica's CUDA graph) against the eager batch on the same
+    weights and prompt: the tokens must be equal. Then the headline as a
+    subprocess with `--max_rounds HEADLINE_ROUNDS`: exit 0, no phase
+    error, and the simulator's, bench_gpu's, the decode bench's and
+    nvidia-smi's keys filled."""
+    from shockwave_tpu_torch.profiling import bench_serving_decode, headline
+    from shockwave_tpu_torch.workloads.serving import serve
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    captured = io.StringIO()
+    with contextlib.redirect_stdout(_Tee(sys.stdout, captured)):
+        rc = bench_serving_decode.main(["--smoke"])
+    decode = json.loads(captured.getvalue().strip().splitlines()[-1])
+    check(rc == 0 and decode["tokens_per_s"] >= BENCH_DECODE_FLOOR
+          and decode["backend"] == "gpu",
+          f"bench_line: bench_serving_decode --smoke exited {rc}: {decode}")
+    args = bench_serving_decode.build_parser().parse_args([])
+    graphed, model, prompt = bench_serving_decode.build_decode(args, device)
+    equal = bool(torch.equal(graphed(prompt),
+                             serve.eager_request_batch(model, prompt, args.tokens_per_request)))
+    check(equal, "bench_line: the decode bench's graph tokens differ from the eager batch's")
+    del graphed, model
+    torch.cuda.empty_cache()
+    decode_s = time.time() - t0
+
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "shockwave_tpu_torch.profiling.headline",
+                           "--max_rounds", str(HEADLINE_ROUNDS)],
+                          cwd=here, capture_output=True, text=True, timeout=900)
+    lines = proc.stdout.strip().splitlines()
+    line = json.loads(lines[-1]) if lines else {}
+    errors = {k: v for k, v in line.items() if k.endswith("_error")}
+    check(proc.returncode == 0 and not errors and set(headline.KEYS) <= set(line),
+          f"bench_line: the headline exited {proc.returncode}: {errors or proc.stderr[-2000:]}")
+    for key in ("makespan", "unfair_fraction", "flagship_steps_per_s", "long_mfu",
+                "attn_flash_ms", "serving_tokens_per_s_per_chip", "nvidia_smi"):
+        check(line[key] is not None, f"bench_line: the headline's {key} is null")
+    return {"decode": decode, "decode_graph_equals_eager": equal, "decode_s": decode_s,
+            "headline": line, "headline_s": time.time() - t0}
 
 
 def decoder_flash_grads(fa, device, tokens, dtype=torch.float32, **widths):
@@ -1915,6 +2008,10 @@ def main() -> int:
     emit("serving", {"seconds": time.time() - t0, "nvidia_smi": smi, **served})
 
     t0 = time.time()
+    benched = bench_line_phase(here, device)
+    emit("bench_line", {"seconds": time.time() - t0, "nvidia_smi": smi, **benched})
+
+    t0 = time.time()
     profiled = profile_phase(fa, device)
     emit("profile", {"seconds": time.time() - t0, "nvidia_smi": smi, **profiled})
 
@@ -1974,6 +2071,25 @@ def main() -> int:
                                           else None),
                 "d128_decoder_launches":
                     served["decoder_flash_head_dim_128"][widths]["launches"][kname + suffix]})
+            d256, d256_bench = (cases[n] for n in D256_CASES[suffix])
+            k256 = d256["kernels"][kname + suffix]
+            b256 = d256_bench["kernels"][kname + suffix]
+            row.update({
+                "d256_at": f"{D256_CASES[suffix][0]} {d256['shape']}", "d256_tile": k256["tile"],
+                "d256_ms": k256["ms"], "d256_plain_ms": k256["plain_ms"],
+                "d256_bound_ms": k256["bound_ms"], "d256_bound_by": k256["bound_by"],
+                "d256_library_ms": d256["library_fwd_ms"] if kname == "flash_fwd" else None,
+                "d256_bench_tile": b256["tile"], "d256_bench_ms": b256["ms"],
+                "d256_bench_plain_ms": b256["plain_ms"], "d256_bench_bound_ms": b256["bound_ms"],
+                "d256_bench_bound_by": b256["bound_by"],
+                "d256_bench_library_ms": (d256_bench["library_fwd_ms"] if kname == "flash_fwd"
+                                          else None),
+                "d256_library_backend": d256_bench["library_backend"],
+                "d256_max_abs_err": max(c[e] for n, c in cases.items()
+                                        if n.startswith("d256_") and c["dtype"] == str(dtype)
+                                        for e in ERR_KEYS[kname]),
+                "d256_decoder_launches":
+                    served["decoder_flash_head_dim_256"][widths]["launches"][kname + suffix]})
             if dtype == torch.float32:
                 main_case = cases[MAIN_CASE_F32]
                 m = main_case["kernels"][kname + suffix]
@@ -1984,8 +2100,19 @@ def main() -> int:
                                                 if kname == "flash_fwd" else None)})
             kernels.append(row)
     main_case = cases[MAIN_CASE]
+    # Forward + backward at D = 256 (the port's autograd path against
+    # SDPA's, and the backend SDPA picked), by dtype and shape.
+    d256_fwd_bwd = {
+        name: {"fwd_bwd_ms": cases[name]["flash_fwd_bwd_ms"],
+               "library_fwd_bwd_ms": cases[name]["library_fwd_bwd_ms"],
+               "library_backend": cases[name]["library_backend"]}
+        for names in D256_CASES.values() for name in names}
     print(json.dumps({"kernels": kernels, "fwd_bwd_ms": main_case["flash_fwd_bwd_ms"],
                       "library_fwd_bwd_ms": main_case["library_fwd_bwd_ms"],
+                      "d256_fwd_bwd": d256_fwd_bwd,
+                      "bench_line": {"decode_tokens_per_s_per_chip":
+                                     benched["decode"]["tokens_per_s_per_chip"],
+                                     "headline": benched["headline"]},
                       "kernel_phase_s": kernel_s, "total_s": time.time() - t_start}),
           flush=True)
     print(smi, flush=True)

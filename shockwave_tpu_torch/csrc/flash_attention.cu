@@ -4,8 +4,8 @@
 // shockwave_tpu/ops/flash_attention.py (_fa_kernel, _dq_kernel,
 // _dkv_kernel). They take (BH, T, D) bf16 tensors (each also has an f32
 // instance, below the bf16 kernels, 3xTF32 on the tensor cores), D in
-// {32, 64, 128} (the wrapper zero-pads any head dim up to 128 to one of
-// them, as the reference pads), a (B, Tk) uint8 key mask (1 = attend, nullptr = all attend, row = bh /
+// {32, 64, 128, 256} (the wrapper zero-pads any head dim up to 256 to one
+// of them, as the reference pads), a (B, Tk) uint8 key mask (1 = attend, nullptr = all attend, row = bh /
 // heads) and keep the reference's masking constants: causal entries are
 // set to -1e30, masked keys get a -1e30 additive bias after that, and
 // the backward zeroes p wherever s <= -5e29. Rows or keys past a ragged
@@ -162,11 +162,12 @@ __device__ __forceinline__ void copy_tile_async(bf16* dst, const bf16* src, int 
 }
 
 // Write 16 staged bf16 rows to rows [row0, row0 + 16) of a (rows, D)
-// matrix with 16-byte stores.
-template <int D>
+// matrix with 16-byte stores: W columns from `dst` and `stage` on (a
+// warp that owns a column slice passes both offset to it).
+template <int D, int W = D>
 __device__ __forceinline__ void warp_store_tile(bf16* dst, const bf16* stage, int row0, int rows,
                                                 int lane) {
-  constexpr int kChunks = D / 8;
+  constexpr int kChunks = W / 8;
   for (int i = lane; i < 16 * kChunks; i += 32) {
     const int r = i / kChunks, c = i % kChunks;
     if (row0 + r < rows)
@@ -175,14 +176,15 @@ __device__ __forceinline__ void warp_store_tile(bf16* dst, const bf16* stage, in
   }
 }
 
-// Stage a warp's 16 x D f32 sum, held as D/8 accumulator tiles, as bf16
-// rows of `stage`.
-template <int D>
-__device__ __forceinline__ void stage_accum(bf16* stage, const float (&acc)[D / 8][4], float scale0,
+// Stage a warp's 16 x W f32 sum (W = D unless the warp owns a column
+// slice), held as W/8 accumulator tiles, as bf16 rows of `stage` (row
+// stride D + 8).
+template <int D, int N = D / 8>
+__device__ __forceinline__ void stage_accum(bf16* stage, const float (&acc)[N][4], float scale0,
                                             float scale1, int lane) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
+  for (int n = 0; n < N; ++n) {
     *reinterpret_cast<uint32_t*>(stage + g * smem_stride<D>() + n * 8 + 2 * t) =
         pack_bf16(acc[n][0] * scale0, acc[n][1] * scale0);
     *reinterpret_cast<uint32_t*>(stage + (g + 8) * smem_stride<D>() + n * 8 + 2 * t) =
@@ -218,10 +220,17 @@ __device__ __forceinline__ void stage_accum(bf16* stage, const float (&acc)[D / 
 //    while tile j is multiplied.
 // 6. The epilogue normalises O, stages it through the warp's own Q rows
 //    and writes 16-byte stores; lse is written once per row.
+// 7. At D = 256 the O sum alone takes 128 registers a lane, and the Q
+//    fragments would take 64 more: there each warp reads its Q fragments
+//    from its own rows of the shared Q tile, which stays in place for the
+//    whole loop, at every k-step (kHoldQ false), as K3 reads K and V at
+//    D = 128. Q plus two K/V stages take 169,472 bytes at kBlock 64: one
+//    CTA per SM (two at kBlock 32).
 // ---------------------------------------------------------------------------
 template <int D, int kBlock>
 struct FwdShape {
   static constexpr int kCtaThreads = kBlock * 2;  // kBlock / 16 warps
+  static constexpr bool kHoldQ = D <= 128;        // Q fragments in registers
   static constexpr int kTileElems = kBlock * smem_stride<D>();
   static constexpr size_t kSmemBytes =
       5 * kTileElems * sizeof(bf16)       // Q, 2 x K, 2 x V
@@ -263,7 +272,8 @@ __global__ void __launch_bounds__(FwdShape<D, kBlock>::kCtaThreads)
   for (int j = threadIdx.x; j < kBlock; j += kThr) sBias[j] = key_bias(mask_row, j, tk);
   cp_async_commit();
 
-  uint32_t qf[D / 16][4];
+  uint32_t qf[Shape::kHoldQ ? D / 16 : 1][4];
+  const bf16* warp_q = sQ + warp * 16 * S;
   float o[D / 8][4] = {};
   float m[2] = {kNegInf, kNegInf};  // running max of rows g, g + 8
   float l[2] = {0.f, 0.f};          // this lane's part of their normalisers
@@ -282,9 +292,11 @@ __global__ void __launch_bounds__(FwdShape<D, kBlock>::kCtaThreads)
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (kt == 0) {
+    if constexpr (Shape::kHoldQ) {
+      if (kt == 0) {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) load_a<S>(qf[kk], sQ + warp * 16 * S + kk * 16, lane);
+        for (int kk = 0; kk < D / 16; ++kk) load_a<S>(qf[kk], warp_q + kk * 16, lane);
+      }
     }
     const bf16* cK = sK + buf * Shape::kTileElems;
     const bf16* cV = sV + buf * Shape::kTileElems;
@@ -294,12 +306,19 @@ __global__ void __launch_bounds__(FwdShape<D, kBlock>::kCtaThreads)
     float s[kN][4] = {};
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t qa[4];
+      if constexpr (Shape::kHoldQ) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) qa[i] = qf[kk][i];
+      } else {
+        load_a<S>(qa, warp_q + kk * 16, lane);
+      }
 #pragma unroll
       for (int nn = 0; nn < kN / 2; ++nn) {
         uint32_t b[4];
         load_bt<S>(b, cK + nn * 16 * S + kk * 16, lane);
-        mma_bf16(s[2 * nn], qf[kk], b[0], b[1]);
-        mma_bf16(s[2 * nn + 1], qf[kk], b[2], b[3]);
+        mma_bf16(s[2 * nn], qa, b[0], b[1]);
+        mma_bf16(s[2 * nn + 1], qa, b[2], b[3]);
       }
     }
 
@@ -367,7 +386,8 @@ __global__ void __launch_bounds__(FwdShape<D, kBlock>::kCtaThreads)
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
     lc[h] = fmaxf(l[h], 1e-30f);
   }
-  // The warp's own Q rows are free: its Q fragments are in registers.
+  // The warp's own Q rows are free: only this warp reads them, and it is
+  // done with them.
   bf16* stage = sQ + warp * 16 * S;
   stage_accum<D>(stage, o, 1.f / lc[0], 1.f / lc[1], lane);
   __syncwarp();
@@ -414,10 +434,16 @@ __global__ void __launch_bounds__(FwdShape<D, kBlock>::kCtaThreads)
 //    scores stay at 16 floats per lane at either tile, and the unrolled
 //    chunk loop leaves the compiler free to overlap one chunk's products
 //    with the next one's.
+// 7. At D = 256 the dQ sum takes 128 registers a lane and the Q and dO
+//    fragments would take 128 more: there each warp reads them from its
+//    own rows of the shared Q and dO tiles at every 16 keys (kHoldQG
+//    false), as K1 reads Q at D = 256. Q, dO and two K/V stages take
+//    203,264 bytes at kBlock 64: one CTA per SM (two at kBlock 32).
 // ---------------------------------------------------------------------------
 template <int D, int kBlock>
 struct DqShape {
   static constexpr int kCtaThreads = kBlock * 2;  // kBlock / 16 warps
+  static constexpr bool kHoldQG = D <= 128;       // Q and dO fragments in registers
   static constexpr int kTileElems = kBlock * smem_stride<D>();
   static constexpr size_t kSmemBytes =
       6 * kTileElems * sizeof(bf16)       // Q, dO, 2 x K, 2 x V
@@ -472,7 +498,10 @@ __global__ void __launch_bounds__(DqShape<D, kBlock>::kCtaThreads)
     row_delta[h] = in ? delta[(size_t)bh * tq + row[h]] : 0.f;
   }
 
-  uint32_t qf[D / 16][4], gf[D / 16][4];
+  constexpr int kHeld = Shape::kHoldQG ? D / 16 : 1;
+  uint32_t qf[kHeld][4], gf[kHeld][4];
+  const bf16* warp_q = sQ + warp * 16 * S;
+  const bf16* warp_g = sG + warp * 16 * S;
   float dq_acc[D / 8][4] = {};
 
   for (int kt = 0; kt < nk; ++kt) {
@@ -489,11 +518,13 @@ __global__ void __launch_bounds__(DqShape<D, kBlock>::kCtaThreads)
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (kt == 0) {
+    if constexpr (Shape::kHoldQG) {
+      if (kt == 0) {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        load_a<S>(qf[kk], sQ + warp * 16 * S + kk * 16, lane);
-        load_a<S>(gf[kk], sG + warp * 16 * S + kk * 16, lane);
+        for (int kk = 0; kk < D / 16; ++kk) {
+          load_a<S>(qf[kk], warp_q + kk * 16, lane);
+          load_a<S>(gf[kk], warp_g + kk * 16, lane);
+        }
       }
     }
     const bf16* cK = sK + buf * kE;
@@ -506,13 +537,20 @@ __global__ void __launch_bounds__(DqShape<D, kBlock>::kCtaThreads)
       float s[2][4] = {}, dp[2][4] = {};
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t b[4];
+        uint32_t qa[4], ga[4], b[4];
+        if constexpr (Shape::kHoldQG) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) qa[i] = qf[kk][i], ga[i] = gf[kk][i];
+        } else {
+          load_a<S>(qa, warp_q + kk * 16, lane);
+          load_a<S>(ga, warp_g + kk * 16, lane);
+        }
         load_bt<S>(b, cK + c * 16 * S + kk * 16, lane);
-        mma_bf16(s[0], qf[kk], b[0], b[1]);
-        mma_bf16(s[1], qf[kk], b[2], b[3]);
+        mma_bf16(s[0], qa, b[0], b[1]);
+        mma_bf16(s[1], qa, b[2], b[3]);
         load_bt<S>(b, cV + c * 16 * S + kk * 16, lane);
-        mma_bf16(dp[0], gf[kk], b[0], b[1]);
-        mma_bf16(dp[1], gf[kk], b[2], b[3]);
+        mma_bf16(dp[0], ga, b[0], b[1]);
+        mma_bf16(dp[1], ga, b[2], b[3]);
       }
       // Scale, causal -1e30, then the key bias, as _dq_kernel orders
       // them; lane holds rows row[0] (e = 0, 1) and row[1] (e = 2, 3)
@@ -543,7 +581,8 @@ __global__ void __launch_bounds__(DqShape<D, kBlock>::kCtaThreads)
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
 
-  // The warp's own Q rows are free: its Q fragments are in registers.
+  // The warp's own Q rows are free: only this warp reads them, and it is
+  // done with them.
   bf16* stage = sQ + warp * 16 * S;
   stage_accum<D>(stage, dq_acc, 1.f, 1.f, lane);
   __syncwarp();
@@ -586,10 +625,21 @@ __global__ void __launch_bounds__(DqShape<D, kBlock>::kCtaThreads)
 //    the warp reads its K and V fragments from its own rows of the shared
 //    K and V tiles, which stay in place for the whole loop, as each 16
 //    queries' products need them (kHoldKV false).
+// 8. At D = 256 the dK and dV sums of 16 keys would take 256 registers a
+//    lane, more than a thread has. There two warps share each 16 keys
+//    (kColSplit 2): warp w owns keys (w % (kBlock / 16)) * 16 on and the
+//    128-column half w / (kBlock / 16) of their dK and dV. Each of the two
+//    forms S^T and dP^T over the full D from the shared K, V, Q and dO
+//    tiles (so the two score products run twice: 6 products per (q, k)
+//    pair in place of 4) and adds its half of dV += P^T.dO and dK +=
+//    dS^T.Q. The CTA has kBlock / 8 warps; shared memory is the same as
+//    one warp per 16 keys would take (203,776 bytes at kBlock 64).
 // ---------------------------------------------------------------------------
 template <int D, int kBlock>
 struct DkvShape {
-  static constexpr int kCtaThreads = kBlock * 2;
+  static constexpr int kColSplit = D > 128 ? 2 : 1;  // warps per 16 keys
+  static constexpr int kCols = D / kColSplit;        // dK and dV columns a warp owns
+  static constexpr int kCtaThreads = kBlock * 2 * kColSplit;
   static constexpr bool kHoldKV = D <= 64;  // K and V fragments in registers
   static constexpr int kTileElems = kBlock * smem_stride<D>();
   static constexpr size_t kSmemBytes =
@@ -603,15 +653,18 @@ __device__ __forceinline__ void copy_q_side_async(bf16* sQ, bf16* sG, float* sLs
                                                   const float* lse_b, const float* delta_b,
                                                   int q0, int tq) {
   constexpr int kThr = DkvShape<D, kBlock>::kCtaThreads;
-  static_assert(kThr == 2 * kBlock, "one lse and one delta entry per thread");
+  static_assert(kThr >= 2 * kBlock, "one lse or one delta entry per thread");
   copy_tile_async<D, kBlock, kThr>(sQ, qb, q0, tq);
   copy_tile_async<D, kBlock, kThr>(sG, gb, q0, tq);
-  // kThr == 2 kBlock: one f32 each, lse then delta; rows past tq read 0.
-  const int i = threadIdx.x % kBlock;
-  const bool valid = q0 + i < tq;
-  const float* src = threadIdx.x < kBlock ? lse_b : delta_b;
-  float* dst = threadIdx.x < kBlock ? sLse : sDelta;
-  cp_async4(dst + i, src + (valid ? q0 + i : 0), valid);
+  // The first 2 kBlock threads: one f32 each, lse then delta; rows past
+  // tq read 0.
+  if (threadIdx.x < 2 * kBlock) {
+    const int i = threadIdx.x % kBlock;
+    const bool valid = q0 + i < tq;
+    const float* src = threadIdx.x < kBlock ? lse_b : delta_b;
+    float* dst = threadIdx.x < kBlock ? sLse : sDelta;
+    cp_async4(dst + i, src + (valid ? q0 + i : 0), valid);
+  }
 }
 
 template <int D, int kBlock>
@@ -635,14 +688,16 @@ __global__ void __launch_bounds__(DkvShape<D, kBlock>::kCtaThreads)
 
   const int bh = blockIdx.x;
   const int k0 = blockIdx.y * kBlock;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // The warp's 16 keys (rw) and the first of its dK and dV columns (col0).
+  const int rw = (threadIdx.x >> 5) % (kBlock / 16), lane = threadIdx.x & 31;
+  const int col0 = (threadIdx.x >> 5) / (kBlock / 16) * Shape::kCols;
   const int gq = lane >> 2, t = lane & 3;
   const bf16* qb = q + (size_t)bh * tq * D;
   const bf16* gb = g + (size_t)bh * tq * D;
   const float* lse_b = lse + (size_t)bh * tq;
   const float* delta_b = delta + (size_t)bh * tq;
   const uint8_t* mask_row = mask != nullptr ? mask + (size_t)(bh / heads) * tk : nullptr;
-  const int key[2] = {k0 + warp * 16 + gq, k0 + warp * 16 + gq + 8};
+  const int key[2] = {k0 + rw * 16 + gq, k0 + rw * 16 + gq + 8};
   const float bias[2] = {key_bias(mask_row, key[0], tk), key_bias(mask_row, key[1], tk)};
 
   const int nq = (tq + kBlock - 1) / kBlock;
@@ -656,9 +711,9 @@ __global__ void __launch_bounds__(DkvShape<D, kBlock>::kCtaThreads)
 
   constexpr int kHeld = Shape::kHoldKV ? D / 16 : 1;
   uint32_t kf[kHeld][4], vf[kHeld][4];
-  float dk_acc[D / 8][4] = {}, dv_acc[D / 8][4] = {};
-  const bf16* warp_k = sK + warp * 16 * S;
-  const bf16* warp_v = sV + warp * 16 * S;
+  float dk_acc[Shape::kCols / 8][4] = {}, dv_acc[Shape::kCols / 8][4] = {};
+  const bf16* warp_k = sK + rw * 16 * S;
+  const bf16* warp_v = sV + rw * 16 * S;
 
   for (int qt = qt0; qt < nq; ++qt) {
     const int buf = (qt - qt0) & 1;
@@ -732,12 +787,12 @@ __global__ void __launch_bounds__(DkvShape<D, kBlock>::kCtaThreads)
       accum_to_a(pa, st[0], st[1]);
       accum_to_a(dsa, dpt[0], dpt[1]);
 #pragma unroll
-      for (int nn = 0; nn < D / 16; ++nn) {
+      for (int nn = 0; nn < Shape::kCols / 16; ++nn) {  // the warp's columns
         uint32_t b[4];
-        load_b<S>(b, cG + c * 16 * S + nn * 16, lane);
+        load_b<S>(b, cG + c * 16 * S + col0 + nn * 16, lane);
         mma_bf16(dv_acc[2 * nn], pa, b[0], b[1]);
         mma_bf16(dv_acc[2 * nn + 1], pa, b[2], b[3]);
-        load_b<S>(b, cQ + c * 16 * S + nn * 16, lane);
+        load_b<S>(b, cQ + c * 16 * S + col0 + nn * 16, lane);
         mma_bf16(dk_acc[2 * nn], dsa, b[0], b[1]);
         mma_bf16(dk_acc[2 * nn + 1], dsa, b[2], b[3]);
       }
@@ -748,13 +803,16 @@ __global__ void __launch_bounds__(DkvShape<D, kBlock>::kCtaThreads)
   __syncthreads();
 
   // The warp's own K and V rows are free: no warp reads them any more.
-  bf16* stage_k = sK + warp * 16 * S;
-  bf16* stage_v = sV + warp * 16 * S;
-  stage_accum<D>(stage_k, dk_acc, 1.f, 1.f, lane);
-  stage_accum<D>(stage_v, dv_acc, 1.f, 1.f, lane);
+  // Each warp stages and stores its own columns.
+  bf16* stage_k = sK + rw * 16 * S + col0;
+  bf16* stage_v = sV + rw * 16 * S + col0;
+  stage_accum<D, Shape::kCols / 8>(stage_k, dk_acc, 1.f, 1.f, lane);
+  stage_accum<D, Shape::kCols / 8>(stage_v, dv_acc, 1.f, 1.f, lane);
   __syncwarp();
-  warp_store_tile<D>(dk + (size_t)bh * tk * D, stage_k, k0 + warp * 16, tk, lane);
-  warp_store_tile<D>(dv + (size_t)bh * tk * D, stage_v, k0 + warp * 16, tk, lane);
+  warp_store_tile<D, Shape::kCols>(dk + (size_t)bh * tk * D + col0, stage_k, k0 + rw * 16, tk,
+                                   lane);
+  warp_store_tile<D, Shape::kCols>(dv + (size_t)bh * tk * D + col0, stage_v, k0 + rw * 16, tk,
+                                   lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -830,6 +888,16 @@ __global__ void __launch_bounds__(DkvShape<D, kBlock>::kCtaThreads)
 //    the decoder's 32 (batch, head) pairs give 128 CTAs, not 32, on 132
 //    SMs; longer sequences take 64-row CTAs that share each streamed tile
 //    among four warps.
+// 7. At D = 256 a 64-row f32 tile takes 66,560 bytes, so two stages of K
+//    and V alone would pass the 227 KB a CTA may take: the long tile is 32
+//    rows (K1: 166,656 bytes; K2, K3: about 200 KB; one CTA per SM). K1's
+//    O takes 128 registers a lane, so the tile's P.V is formed one n8
+//    column tile at a time (each summed from zero over the tile's keys and
+//    added to O by an FMA, the same sums in the same order), from P's
+//    split A operands held for the tile (kN x 8 registers) rather than a
+//    second D-wide sum. K3's dK and dV would take 256 registers: two warps
+//    share each 16 keys, each owning a 128-column half of dK and dV and
+//    forming the scores over the full D, as bf16 K3 does at D = 256.
 // wgmma is not the route yet: for 32-bit types it takes only K-major
 // operands from shared memory, so P.V, dS.K and every transposed product
 // of K3 would need transposed copies of their tiles. That is left for a
@@ -974,6 +1042,7 @@ struct FwdF32Shape {
   static constexpr int kCtaThreads = kBlock * 2;  // kBlock / 16 warps
   static constexpr int kTileElems = kBlock * f32_stride<D>();
   static constexpr bool kOwnedInSmem = D > 64;  // Q in shared memory (design note 5)
+  static constexpr bool kPvByColumn = D > 128;  // design note 7
   static constexpr size_t kSmemBytes =
       ((4 + kOwnedInSmem) * kTileElems + 2 * kBlock) *
       sizeof(float);  // 2 x K, 2 x V, 2 x key bias[, Q]
@@ -1101,18 +1170,33 @@ __global__ void __launch_bounds__(FwdF32Shape<D, kBlock>::kCtaThreads)
     // tile's P.V is summed from zero on the tensor cores and added to O by
     // an FMA, so that the tensor cores' f32 accumulation, which truncates,
     // runs over one tile and not the whole sequence.
-    float pv[D / 8][4] = {};
+    if constexpr (Shape::kPvByColumn) {  // D = 256: one n8 column tile at a time
+      Split<4> pa[kN];
 #pragma unroll
-    for (int c = 0; c < kN; ++c) {
-      const Split<4> pa = accum_to_a_tf32(s[c]);
+      for (int c = 0; c < kN; ++c) pa[c] = accum_to_a_tf32(s[c]);
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-        mma_3xtf32(pv[n], pa, split_b_permuted<S>(cV + c * 8 * S + n * 8, g, t));
-    }
+      for (int n = 0; n < D / 8; ++n) {
+        float pv[4] = {};
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+        for (int c = 0; c < kN; ++c)
+          mma_3xtf32(pv, pa[c], split_b_permuted<S>(cV + c * 8 * S + n * 8, g, t));
 #pragma unroll
-      for (int e = 0; e < 4; ++e) o[n][e] = fmaf(o[n][e], corr[e >> 1], pv[n][e]);
+        for (int e = 0; e < 4; ++e) o[n][e] = fmaf(o[n][e], corr[e >> 1], pv[e]);
+      }
+    } else {
+      float pv[D / 8][4] = {};
+#pragma unroll
+      for (int c = 0; c < kN; ++c) {
+        const Split<4> pa = accum_to_a_tf32(s[c]);
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+          mma_3xtf32(pv[n], pa, split_b_permuted<S>(cV + c * 8 * S + n * 8, g, t));
+      }
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[n][e] = fmaf(o[n][e], corr[e >> 1], pv[n][e]);
+      }
     }
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
@@ -1320,7 +1404,9 @@ __global__ void __launch_bounds__(DqF32Shape<D, kBlock>::kCtaThreads)
 // not hold both with the scores (255 a thread).
 template <int D, int kBlock>
 struct DkvF32Shape {
-  static constexpr int kCtaThreads = kBlock * 2;  // kBlock / 16 warps
+  static constexpr int kColSplit = D > 128 ? 2 : 1;  // warps per 16 keys (design note 7)
+  static constexpr int kCols = D / kColSplit;        // dK and dV columns a warp owns
+  static constexpr int kCtaThreads = kBlock * 2 * kColSplit;  // kBlock / 16 x kColSplit warps
   static constexpr int kTileElems = kBlock * f32_stride<D>();
   static constexpr int kSplitVElems = kBlock * D * 2;  // big and small of each warp's V rows
   static constexpr bool kOwnedInSmem = D > 64;  // K and V as they are (design note 5)
@@ -1335,15 +1421,18 @@ __device__ __forceinline__ void copy_q_side_f32_async(float* sQ, float* sG, floa
                                                       const float* gb, const float* lse_b,
                                                       const float* delta_b, int q0, int tq) {
   constexpr int kThr = DkvF32Shape<D, kBlock>::kCtaThreads;
-  static_assert(kThr == 2 * kBlock, "one lse and one delta entry per thread");
+  static_assert(kThr >= 2 * kBlock, "one lse or one delta entry per thread");
   copy_tile_f32_async<D, kBlock, kThr>(sQ, qb, q0, tq);
   copy_tile_f32_async<D, kBlock, kThr>(sG, gb, q0, tq);
-  // kThr == 2 kBlock: one f32 each, lse then delta; rows past tq read 0.
-  const int i = threadIdx.x % kBlock;
-  const bool valid = q0 + i < tq;
-  const float* src = threadIdx.x < kBlock ? lse_b : delta_b;
-  float* dst = threadIdx.x < kBlock ? sLse : sDelta;
-  cp_async4(dst + i, src + (valid ? q0 + i : 0), valid);
+  // The first 2 kBlock threads: one f32 each, lse then delta; rows past
+  // tq read 0.
+  if (threadIdx.x < 2 * kBlock) {
+    const int i = threadIdx.x % kBlock;
+    const bool valid = q0 + i < tq;
+    const float* src = threadIdx.x < kBlock ? lse_b : delta_b;
+    float* dst = threadIdx.x < kBlock ? sLse : sDelta;
+    cp_async4(dst + i, src + (valid ? q0 + i : 0), valid);
+  }
 }
 
 template <int D, int kBlock>
@@ -1368,7 +1457,9 @@ __global__ void __launch_bounds__(DkvF32Shape<D, kBlock>::kCtaThreads)
 
   const int bh = blockIdx.x;
   const int k0 = blockIdx.y * kBlock;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // The warp's 16 keys (warp) and the first of its dK and dV columns (col0).
+  const int warp = (threadIdx.x >> 5) % (kBlock / 16), lane = threadIdx.x & 31;
+  const int col0 = (threadIdx.x >> 5) / (kBlock / 16) * Shape::kCols;
   const int gq = lane >> 2, t = lane & 3;
   const float* qb = q + (size_t)bh * tq * D;
   const float* gb = g + (size_t)bh * tq * D;
@@ -1411,7 +1502,7 @@ __global__ void __launch_bounds__(DkvF32Shape<D, kBlock>::kCtaThreads)
       dst[1] = make_uint4(vf.small[0], vf.small[1], vf.small[2], vf.small[3]);
     }
   }
-  float dk_acc[D / 8][4] = {}, dv_acc[D / 8][4] = {};
+  float dk_acc[Shape::kCols / 8][4] = {}, dv_acc[Shape::kCols / 8][4] = {};
 
   for (int qt = qt0; qt < nq; ++qt) {
     const int buf = (qt - qt0) & 1;
@@ -1480,11 +1571,12 @@ __global__ void __launch_bounds__(DkvF32Shape<D, kBlock>::kCtaThreads)
       {
         const Split<4> pa[2] = {accum_to_a_tf32(st[0]), accum_to_a_tf32(st[1])};
 #pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
+        for (int n = 0; n < Shape::kCols / 8; ++n) {  // the warp's columns
           float part[4] = {};
 #pragma unroll
           for (int j = 0; j < 2; ++j)
-            mma_3xtf32(part, pa[j], split_b_permuted<S>(cG + j * 8 * S + n * 8, gq, t));
+            mma_3xtf32(part, pa[j],
+                       split_b_permuted<S>(cG + j * 8 * S + col0 + n * 8, gq, t));
 #pragma unroll
           for (int e = 0; e < 4; ++e) dv_acc[n][e] += part[e];
         }
@@ -1492,11 +1584,12 @@ __global__ void __launch_bounds__(DkvF32Shape<D, kBlock>::kCtaThreads)
       {
         const Split<4> dsa[2] = {accum_to_a_tf32(dpt[0]), accum_to_a_tf32(dpt[1])};
 #pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
+        for (int n = 0; n < Shape::kCols / 8; ++n) {
           float part[4] = {};
 #pragma unroll
           for (int j = 0; j < 2; ++j)
-            mma_3xtf32(part, dsa[j], split_b_permuted<S>(cQ + j * 8 * S + n * 8, gq, t));
+            mma_3xtf32(part, dsa[j],
+                       split_b_permuted<S>(cQ + j * 8 * S + col0 + n * 8, gq, t));
 #pragma unroll
           for (int e = 0; e < 4; ++e) dk_acc[n][e] += part[e];
         }
@@ -1509,10 +1602,10 @@ __global__ void __launch_bounds__(DkvF32Shape<D, kBlock>::kCtaThreads)
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (key[h] >= tk) continue;
-    float* dk_row = dk + ((size_t)bh * tk + key[h]) * D + 2 * t;
-    float* dv_row = dv + ((size_t)bh * tk + key[h]) * D + 2 * t;
+    float* dk_row = dk + ((size_t)bh * tk + key[h]) * D + col0 + 2 * t;
+    float* dv_row = dv + ((size_t)bh * tk + key[h]) * D + col0 + 2 * t;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < Shape::kCols / 8; ++n) {
       *reinterpret_cast<float2*>(dk_row + n * 8) =
           make_float2(dk_acc[n][2 * h], dk_acc[n][2 * h + 1]);
       *reinterpret_cast<float2*>(dv_row + n * 8) =
@@ -1615,7 +1708,7 @@ int occupancy(Kernel kernel, int threads, size_t smem, int* out) {
 // The 3xTF32 instances opt in to more than 48 KB of shared memory as the
 // bf16 launchers do (two 64-row f32 stages of two tiles take 70 KB; K2
 // and K3 f32 add a CTA's split dO or V, 32 KB more at D = 64; D = 128
-// takes more, design note 5).
+// and 256 take more, design notes 5 and 7).
 template <int D, int kBlock>
 int launch_fwd_f32(const void* q, const void* k, const void* v, const void* mask, void* out,
                    void* lse, int bh, int heads, int tq, int tk, float scale, int causal,
@@ -1673,6 +1766,9 @@ int by_shape(int d, int tile, F&& f) {
   using I32 = std::integral_constant<int, 32>;
   using I64 = std::integral_constant<int, 64>;
   using I128 = std::integral_constant<int, 128>;
+  using I256 = std::integral_constant<int, 256>;
+  if (d == 256 && tile == 32) return f(I256{}, I32{});
+  if (d == 256 && tile == 64) return f(I256{}, I64{});
   if (d == 128 && tile == 32) return f(I128{}, I32{});
   if (d == 128 && tile == 64) return f(I128{}, I64{});
   if (d == 64 && tile == 32) return f(I64{}, I32{});
@@ -1683,13 +1779,17 @@ int by_shape(int d, int tile, F&& f) {
 }
 
 // The same for the 3xTF32 instances of K1-K3, whose tiles are 16 (one
-// warp per CTA, for short sequences) and 64.
+// warp per CTA, for short sequences) and 64 (32 at D = 256, design note 7
+// of the f32 kernels).
 template <typename F>
 int by_shape_tf32(int d, int tile, F&& f) {
   using I16 = std::integral_constant<int, 16>;
   using I32 = std::integral_constant<int, 32>;
   using I64 = std::integral_constant<int, 64>;
   using I128 = std::integral_constant<int, 128>;
+  using I256 = std::integral_constant<int, 256>;
+  if (d == 256 && tile == 16) return f(I256{}, I16{});
+  if (d == 256 && tile == 32) return f(I256{}, I32{});
   if (d == 128 && tile == 16) return f(I128{}, I16{});
   if (d == 128 && tile == 64) return f(I128{}, I64{});
   if (d == 64 && tile == 16) return f(I64{}, I16{});
@@ -1737,7 +1837,8 @@ int occupancy_of_tf32(int kernel, int* out) {
 // on `stream`, and returns the cudaError_t of the launch (0 = launched);
 // an unsupported head dim or tile returns cudaErrorInvalidValue. `tile`
 // is the square tile that the wrapper's launch_config chose for the
-// instance: 32 or 64 for the bf16 instances, 16 or 64 for the f32 ones.
+// instance: 32 or 64 for the bf16 instances, 16 or 64 for the f32 ones
+// (16 or 32 at D = 256).
 // Nothing here synchronises.
 extern "C" {
 
@@ -1818,8 +1919,8 @@ int swt_flash_dkv_f32(const void* q, const void* k, const void* v, const void* g
 }
 
 // Occupancy of kernel 0 (K1), 1 (K2), 2 (K3), or 3-5 (their f32
-// instances) at head dim d and tile `tile` (16 or 64 for kernels 3-5, 32
-// or 64 for the others) on `device`: writes {CTAs per SM, threads per
+// instances) at head dim d and tile `tile` (16 or 64 for kernels 3-5, 16
+// or 32 at D = 256; 32 or 64 for the others) on `device`: writes {CTAs per SM, threads per
 // CTA, dynamic shared bytes, registers per thread} to out[0..3].
 int swt_flash_occupancy(int kernel, int d, int tile, int device, int* out) {
   cudaError_t err = cudaSetDevice(device);

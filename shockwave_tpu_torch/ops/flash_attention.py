@@ -34,13 +34,13 @@ split into two TF32 parts, three products summed in f32). One-pass TF32
 is off, as the port keeps it everywhere. Neither dtype is cast to the
 other. Any other dtype raises on the card.
 
-The kernels are built for head dims 32, 64 and 128 (`KERNEL_HEAD_DIMS`).
-`flash_attention` zero-pads q, k and v along the head dim to the
-smallest of them that holds it (`kernel_head_dim`, `pad_head_dim`) on
-every device, as the reference pads to its sublane multiple, and slices
-the output back: zero columns add nothing to q.k^T and give zero output
-columns. A head dim above 128 raises on the card (`launch_config`); the
-plain versions take any dtype and head dim.
+The kernels are built for head dims 32, 64, 128 and 256
+(`KERNEL_HEAD_DIMS`). `flash_attention` zero-pads q, k and v along the
+head dim to the smallest of them that holds it (`kernel_head_dim`,
+`pad_head_dim`) on every device, as the reference pads to its sublane
+multiple, and slices the output back: zero columns add nothing to q.k^T
+and give zero output columns. A head dim above 256 raises on the card
+(`launch_config`); the plain versions take any dtype and head dim.
 """
 from __future__ import annotations
 
@@ -53,7 +53,9 @@ import torch
 from . import _build
 
 NEG_INF = -1e30
-KERNEL_HEAD_DIMS = (32, 64, 128)
+KERNEL_HEAD_DIMS = (32, 64, 128, 256)
+# What a head dim above the widest kernel width waits for.
+UNBUILT_HEAD_DIMS = "ROADMAP Queue 3, head dims above 256"
 # The dtypes the kernels take, with the suffix of their instance's launch
 # counter and C entry point.
 KERNEL_DTYPES = {torch.bfloat16: "", torch.float32: "_f32"}
@@ -63,14 +65,21 @@ KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 # then the f32 ones, in the C library's occupancy order); a wrapper adds
 # one where it launches its kernel and nowhere else.
 LAUNCHES = {name + suffix: 0 for suffix in KERNEL_DTYPES.values() for name in KERNELS}
-# The square tiles each kernel instance is built for (rows per CTA = the
-# width of the streamed tiles, 16 rows per warp): (short tile, long tile,
-# the longest sequence that takes the short tile). The bf16 kernels take
-# 32 at the trainer's T = 32; the 3xTF32 instances take one warp per CTA
-# up to T = 64, so that the f32 decoder's 32 (batch, head) pairs at T = 64
-# give 128 CTAs for the card's 132 SMs.
-KERNEL_TILES = {name + suffix: (16, 64, 64) if suffix else (32, 64, 32)
-                for suffix in KERNEL_DTYPES.values() for name in KERNELS}
+# The square tiles each kernel instance is built for, by (instance, head
+# dim) (rows per CTA = the width of the streamed tiles, 16 rows per warp):
+# (short tile, long tile, the longest sequence that takes the short
+# tile). The bf16 kernels take 32 at the trainer's T = 32; the 3xTF32
+# instances take one warp per CTA up to T = 64, so that the f32 decoder's
+# 32 (batch, head) pairs at T = 64 give 128 CTAs for the card's 132 SMs.
+# At D = 256 the 3xTF32 instances' long tile is 32: two stages of 64-row
+# f32 K and V tiles of 256 columns (266 KB) would not fit the 227 KB a CTA
+# may take, 32-row ones leave room for the owned tiles (K1 166,656 bytes,
+# K2 and K3 about 200 KB). The bf16 instances keep 32 and 64 at D = 256
+# (169,472 to 203,776 bytes at 64).
+KERNEL_TILES = {(name + suffix, d): ((16, 32 if d == 256 else 64, 64) if suffix
+                                     else (32, 64, 32))
+                for suffix in KERNEL_DTYPES.values() for name in KERNELS
+                for d in KERNEL_HEAD_DIMS}
 
 
 def reset_launch_counts() -> None:
@@ -168,19 +177,19 @@ def launch_config(tq: int, tk: int, d: int, instance: str = "flash_fwd") -> int:
         raise ValueError(f"CUDA flash attention takes head dims {KERNEL_HEAD_DIMS} "
                          f"(flash_attention pads any head dim up to "
                          f"{KERNEL_HEAD_DIMS[-1]} to one of them; more waits for "
-                         f"ROADMAP Queue 2 item 10, D = 256 instances); got {d}")
+                         f"{UNBUILT_HEAD_DIMS}); got {d}")
     if tq < 1 or tk < 1:
         raise ValueError(f"CUDA flash attention takes non-empty sequences; "
                          f"got Tq={tq}, Tk={tk}")
-    short, long, short_up_to = KERNEL_TILES[instance]
+    short, long, short_up_to = KERNEL_TILES[instance, d]
     return short if max(tq, tk) <= short_up_to else long
 
 
 def kernel_head_dim(d: int) -> int:
     """The head dim a head dim `d` runs at: the smallest of
     `KERNEL_HEAD_DIMS` that holds it (1-32 -> 32, 33-64 -> 64, 65-128 ->
-    128), or `d` itself above them (the plain versions take it, the
-    kernels refuse it)."""
+    128, 129-256 -> 256), or `d` itself above them (the plain versions
+    take it, the kernels refuse it)."""
     return next((width for width in KERNEL_HEAD_DIMS if d <= width), d)
 
 
@@ -311,7 +320,7 @@ def kernel_occupancy(device: int = 0):
     rows = []
     for kernel, name in enumerate(LAUNCHES):  # 0-2 K1-K3, 3-5 in f32, as in C
         for d in KERNEL_HEAD_DIMS:
-            for tile in KERNEL_TILES[name][:2]:
+            for tile in KERNEL_TILES[name, d][:2]:
                 out = (ctypes.c_int * 4)()
                 rc = lib.swt_flash_occupancy(kernel, d, tile, device, out)
                 _build.check(lib, rc, f"{name} occupancy")

@@ -25,6 +25,10 @@ implements it, and like XLA's it takes causal attention at the full T^2.
 
     python -m shockwave_tpu_torch.profiling.bench_gpu [--save_dir DIR]
 
+`--widths` (a JSON object), `--attn_shape` and `--min_marginal_s` shrink
+both parts for a small run on the CPU; by default they are the
+flagship's published widths, (4, 2048, 8, 64) and 1 s timing windows.
+
 Prints one JSON line and saves it through `core/artifacts.py` under
 `reproduce/h100/` ('' disables). Runs on the card unless `--device cpu`
 is given (then there is no peak and no MFU); with no card it raises.
@@ -51,16 +55,17 @@ def card_peak(device: str):
     return torch.cuda.get_device_name(0), peaks(nvidia_smi())[1][1]
 
 
-def timed_op(fn, q, k, v, n1=8, n2=32, warmup=3):
+def timed_op(fn, q, k, v, n1=8, n2=32, warmup=3, **timing):
     """Marginal per-call time for an attention op, chained through q so
     the closing scalar fetch waits for the whole window (two-point
-    timing). Output feeds back as q — shapes match (b, t, h, d)."""
+    timing). Output feeds back as q — shapes match (b, t, h, d).
+    `timing` goes to `marginal_step_time` (`min_marginal_s`)."""
 
     def step(q, _batch):
         out = fn(q, k, v)
         return out.to(q.dtype), out
 
-    return marginal_step_time(step, q, None, n1=n1, n2=n2, warmup=warmup)
+    return marginal_step_time(step, q, None, n1=n1, n2=n2, warmup=warmup, **timing)
 
 
 def unshifted_loss(model, src, tgt):
@@ -107,7 +112,7 @@ def flagship(batch, seq, device="cuda", widths=None):
 
 
 def transformer_train_bench(batch=64, steps=30, warmup=5, seq=None,
-                            prefix="transformer", device="cuda", widths=None):
+                            prefix="transformer", device="cuda", widths=None, **timing):
     """Flagship Seq2SeqTransformer train step at a given sequence length.
 
     seq=None is the model's trace-parity max_len of 64; a long seq (e.g.
@@ -125,7 +130,7 @@ def transformer_train_bench(batch=64, steps=30, warmup=5, seq=None,
         return state, losses[-1]
 
     dt = marginal_step_time(chained, None, None,
-                            n1=max(steps // 4, 2), n2=steps, warmup=warmup)
+                            n1=max(steps // 4, 2), n2=steps, warmup=warmup, **timing)
     flops = count_flops(widths, batch, seq)
     n_params = sum(p.numel() for p in model.parameters())
     _, peak = card_peak(device)
@@ -155,15 +160,16 @@ def einsum_attention(q, k, v):
     return torch.einsum("bhqk,bkhd->bqhd", w, v)
 
 
-def attention_bench(b=4, t=2048, h=8, d=64, device="cuda"):
+def attention_bench(b=4, t=2048, h=8, d=64, device="cuda", **timing):
     """Flash kernel vs einsum attention at long sequence length."""
     from ..ops.flash_attention import flash_attention
 
     gen = torch.Generator(device=device).manual_seed(0)
     q, k, v = (torch.randn(b, t, h, d, generator=gen, device=device).to(torch.bfloat16)
                for _ in range(3))
-    t_flash = timed_op(lambda q, k, v: flash_attention(q, k, v, causal=True), q, k, v)
-    t_ein = timed_op(einsum_attention, q, k, v)
+    t_flash = timed_op(lambda q, k, v: flash_attention(q, k, v, causal=True), q, k, v,
+                       **timing)
+    t_ein = timed_op(einsum_attention, q, k, v, **timing)
     return {
         "flash_attn_ms": round(t_flash * 1e3, 3),
         "einsum_attn_ms": round(t_ein * 1e3, 3),
@@ -188,7 +194,15 @@ def main(argv=None):
                         "('' disables persisting)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where to run (default: the CUDA card)")
+    p.add_argument("--widths", type=json.loads, default=None,
+                   help="JSON object of the flagship's widths to override (vocab_size, "
+                        "dim, num_heads, num_layers, mlp_dim), for a small run")
+    p.add_argument("--attn_shape", type=lambda s: [int(x) for x in s.split(",")],
+                   default=[4, 2048, 8, 64], help="B,T,H,D of the attention part")
+    p.add_argument("--min_marginal_s", type=float, default=1.0,
+                   help="the least marginal timing window, s (core/timing.py)")
     args = p.parse_args(argv)
+    timing = {"min_marginal_s": args.min_marginal_s}
 
     if args.device == "cuda":
         from ..models.train_common import resolve_device
@@ -196,18 +210,20 @@ def main(argv=None):
     name, peak = card_peak(args.device)
     result = {"device": name, "peak_bf16_flops": peak}
     result.update(transformer_train_bench(batch=args.batch, steps=args.steps,
-                                          device=args.device))
+                                          device=args.device, widths=args.widths, **timing))
     if args.long_seq:
         result.update(transformer_train_bench(
             batch=args.long_batch, steps=max(args.steps // 3, 5),
-            seq=args.long_seq, prefix="transformer_long", device=args.device))
+            seq=args.long_seq, prefix="transformer_long", device=args.device,
+            widths=args.widths, **timing))
         # Same regime at 4x the batch: separates small-batch
         # underutilization from kernel cost in the MFU number.
         big = args.long_batch * 4
         result.update(transformer_train_bench(
             batch=big, steps=max(args.steps // 3, 5),
-            seq=args.long_seq, prefix=f"transformer_long_b{big}", device=args.device))
-    result.update(attention_bench(device=args.device))
+            seq=args.long_seq, prefix=f"transformer_long_b{big}", device=args.device,
+            widths=args.widths, **timing))
+    result.update(attention_bench(*args.attn_shape, device=args.device, **timing))
 
     if args.save_dir:
         from ..core.artifacts import save_measurement

@@ -269,11 +269,11 @@ class TestRaggedEdgesAgainstJax:
 
 
 class TestPaddedHeadDimsAgainstJax:
-    """Head dims the CUDA kernels are not built for (8, 16, 48, 80, 96):
-    the port's `flash_attention` zero-pads them to `kernel_head_dim` (32,
-    32, 64, 128, 128) on every device and slices the output back, so on
-    the CPU the plain versions run the very pad and slice that the card
-    runs; and d = 128, the widest kernel width, unpadded. The JAX package
+    """Head dims the CUDA kernels are not built for (8, 16, 48, 80, 96,
+    160): the port's `flash_attention` zero-pads them to `kernel_head_dim`
+    (32, 32, 64, 128, 128, 256) on every device and slices the output
+    back, so on the CPU the plain versions run the very pad and slice that
+    the card runs; and d = 128 and 256, kernel widths, unpadded. The JAX package
     pads to its sublane multiple of 8 and runs Pallas (interpreted). Same numpy inputs, causal and non-causal, both with a
     padded key tail; out in the inputs' dtype, gradients of the f32 sum
     of out squared. Tolerances: f32 as above (FWD_TOL, GRAD_TOL); bf16
@@ -295,7 +295,7 @@ class TestPaddedHeadDimsAgainstJax:
 
     @pytest.mark.parametrize("causal", [True, False])
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-    @pytest.mark.parametrize("d", [8, 16, 48, 80, 96, 128])
+    @pytest.mark.parametrize("d", [8, 16, 48, 80, 96, 128, 160, 256])
     def test_forward(self, d, dtype, causal):
         q, k, v, kpm = self._inputs(d, dtype, causal)
         fa.reset_launch_counts()
@@ -308,7 +308,7 @@ class TestPaddedHeadDimsAgainstJax:
 
     @pytest.mark.parametrize("causal", [True, False])
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-    @pytest.mark.parametrize("d", [8, 16, 48, 80, 96, 128])
+    @pytest.mark.parametrize("d", [8, 16, 48, 80, 96, 128, 160, 256])
     def test_gradients(self, d, dtype, causal):
         q, k, v, kpm = self._inputs(d, dtype, causal)
         for a, b in zip(torch_grads(q, k, v, kpm, causal, dtype),
@@ -328,10 +328,11 @@ class TestHeadDimPad:
         assert [fa.kernel_head_dim(d) for d in (1, 8, 16, 31, 32, 33, 48, 63, 64)] == \
             [32] * 5 + [64] * 4
         assert [fa.kernel_head_dim(d) for d in (65, 80, 96, 127, 128)] == [128] * 5
+        assert [fa.kernel_head_dim(d) for d in (129, 160, 200, 255, 256)] == [256] * 5
         # Above the kernels' widths the head dim is left as it is: the
         # plain versions take it, the kernels refuse it.
-        assert [fa.kernel_head_dim(d) for d in (129, 160, 256)] == [129, 160, 256]
-        assert all(fa.kernel_head_dim(d) in fa.KERNEL_HEAD_DIMS for d in range(1, 129))
+        assert [fa.kernel_head_dim(d) for d in (257, 320, 512)] == [257, 320, 512]
+        assert all(fa.kernel_head_dim(d) in fa.KERNEL_HEAD_DIMS for d in range(1, 257))
 
     def test_pad_head_dim(self):
         x = torch.arange(2 * 3 * 5, dtype=torch.float32).view(2, 3, 5).transpose(0, 1)
@@ -383,7 +384,7 @@ class TestLaunchConfig:
     @pytest.mark.parametrize("d", fa.KERNEL_HEAD_DIMS)
     def test_total_over_accepted_shapes(self, d):
         for name in fa.LAUNCHES:
-            short, long, short_up_to = fa.KERNEL_TILES[name]
+            short, long, short_up_to = fa.KERNEL_TILES[name, d]
             for tq in self.LENGTHS:
                 for tk in self.LENGTHS:
                     tile = fa.launch_config(tq, tk, d, name)
@@ -392,8 +393,8 @@ class TestLaunchConfig:
                     assert (tile == short) == (max(tq, tk) <= short_up_to)
                     if name not in self.TF32_INSTANCES:  # bf16 keeps 32 / 64
                         assert tile == (32 if max(tq, tk) <= 32 else 64)
-                    else:
-                        assert tile == (16 if max(tq, tk) <= 64 else 64)
+                    else:  # f32: a 32-row long tile at D = 256 (shared memory)
+                        assert tile == (16 if max(tq, tk) <= 64 else 32 if d == 256 else 64)
                     if name == "flash_fwd":  # the default instance
                         assert fa.launch_config(tq, tk, d) == tile
 
@@ -407,11 +408,11 @@ class TestLaunchConfig:
         for name in self.TF32_INSTANCES:
             tile = fa.launch_config(t, t, d, name)
             assert tile == 16 and bh * -(-t // tile) == 128
-            assert fa.KERNEL_TILES[name] == (16, 64, 64)
+            assert fa.KERNEL_TILES[name, d] == (16, 64, 64)
         assert fa.launch_config(t, t, d, "flash_dq") == 64
 
     def test_rejects_what_the_wrapper_rejects(self):
-        for d in (16, 48, 96, 129, 256):
+        for d in (16, 48, 96, 129, 257):
             with pytest.raises(ValueError):
                 fa.launch_config(32, 32, d)
         for tq, tk in ((0, 32), (32, 0)):
@@ -444,16 +445,17 @@ class TestLaunchConfig:
                 assert reachable == reached, name
         # The 3xTF32 instances' edges in f32: ragged inside the short
         # tile, one past its reach, Tq != Tk and the row that sees no key
-        # at both widths.
+        # at every width (16, 64, and D = 256's 32).
         for name in self.TF32_INSTANCES:
-            short, long, short_up_to = fa.KERNEL_TILES[name]
+            short, _, short_up_to = fa.KERNEL_TILES[name, 64]
+            widths = {t for d in fa.KERNEL_HEAD_DIMS for t in fa.KERNEL_TILES[name, d][:2]}
 
             def tile(c):
                 return fa.launch_config(c[2], c[3], c[5], name)
             assert any(tile(c) == short and c[2] % short for c in smoke.F32_CASES)
             assert any(max(c[2], c[3]) == short_up_to + 1 for c in smoke.F32_CASES)
-            assert {tile(c) for c in smoke.F32_CASES if c[2] != c[3]} == {short, long}
-            assert {tile(c) for c in smoke.F32_CASES if c[7] == "key0"} == {short, long}
+            assert {tile(c) for c in smoke.F32_CASES if c[2] != c[3]} == widths == {16, 32, 64}
+            assert {tile(c) for c in smoke.F32_CASES if c[7] == "key0"} == widths
         # Each width's edges: one past and below the short tile, Tq != Tk
         # inside the long one, and the row that sees no key in both.
         shapes = {c[0]: c for c in smoke.CASES}
@@ -533,6 +535,11 @@ class TestCInterface:
         self.test_wrapper_hands_over_the_declared_arguments(lib, kernel, tq, tk, d=128)
 
     @pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
+    @pytest.mark.parametrize("tq,tk", [(32, 32), (33, 33), (32, 48)])
+    def test_wrapper_hands_over_the_declared_arguments_at_d256(self, lib, kernel, tq, tk):
+        self.test_wrapper_hands_over_the_declared_arguments(lib, kernel, tq, tk, d=256)
+
+    @pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
     @pytest.mark.parametrize("dtype,suffix", [(torch.bfloat16, ""), (torch.float32, "_f32")])
     def test_each_dtype_reaches_its_own_instance(self, lib, kernel, dtype, suffix):
         """bf16 inputs reach the bf16 kernel, f32 inputs the f32 one, with
@@ -574,17 +581,21 @@ class TestCInterface:
             self._check_types(name, args[:-1] + (0,))  # `out` is a ctypes array
             asked.add(args[:3])
         assert asked == {(kernel, d, tile) for kernel, name in enumerate(fa.LAUNCHES)
-                         for d in fa.KERNEL_HEAD_DIMS for tile in fa.KERNEL_TILES[name][:2]}
+                         for d in fa.KERNEL_HEAD_DIMS for tile in fa.KERNEL_TILES[name, d][:2]}
         assert {(r["kernel"], r["d"], r["tile"]) for r in rows} >= {
-            ("flash_dq", d, tile) for d in (32, 64, 128) for tile in (32, 64)}
-        assert {(r["kernel"], r["tile"]) for r in rows if r["d"] == 128} == {
-            (name, tile) for name in fa.LAUNCHES for tile in fa.KERNEL_TILES[name][:2]}
-        assert {(r["kernel"], r["tile"]) for r in rows if r["kernel"].endswith("_f32")} == {
-            ("flash_fwd_f32", 16), ("flash_fwd_f32", 64), ("flash_dq_f32", 16),
-            ("flash_dq_f32", 64), ("flash_dkv_f32", 16), ("flash_dkv_f32", 64)}
+            ("flash_dq", d, tile) for d in (32, 64, 128, 256) for tile in (32, 64)}
+        for d in (128, 256):
+            assert {(r["kernel"], r["tile"]) for r in rows if r["d"] == d} == {
+                (name, tile) for name in fa.LAUNCHES for tile in fa.KERNEL_TILES[name, d][:2]}
+        for d, long in ((128, 64), (256, 32)):
+            assert {(r["kernel"], r["tile"]) for r in rows
+                    if r["kernel"].endswith("_f32") and r["d"] == d} == {
+                ("flash_fwd_f32", 16), ("flash_fwd_f32", long), ("flash_dq_f32", 16),
+                ("flash_dq_f32", long), ("flash_dkv_f32", 16), ("flash_dkv_f32", long)}
 
     @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-    @pytest.mark.parametrize("d,width", [(16, 32), (48, 64), (80, 128), (96, 128), (128, 128)])
+    @pytest.mark.parametrize("d,width", [(16, 32), (48, 64), (80, 128), (96, 128), (128, 128),
+                                         (160, 256), (256, 256)])
     def test_flash_attention_hands_the_kernels_the_padded_width(self, lib, d, width, dtype):
         """On the card's path `flash_attention` gives every kernel q, k, v
         and dO zero-padded to `kernel_head_dim(d)`, and the kernels' head
@@ -603,10 +614,13 @@ class TestCInterface:
             assert args[-4:-2] == (pytest.approx(1.0 / math.sqrt(d)), 1)
 
     @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-    @pytest.mark.parametrize("d", [129, 160])
+    @pytest.mark.parametrize("d", [257, 320])
     def test_head_dims_above_128_raise_naming_the_item_that_lifts_them(self, lib, d, dtype):
+        """Above the widest kernel width (256 since D = 256 was built; the
+        name dates from when it was 128) a head dim raises before any
+        launch, naming the ROADMAP entry that tracks it."""
         q = torch.zeros(1, 32, 2, d, dtype=dtype)
-        with pytest.raises(ValueError, match=r"ROADMAP Queue 2 item 10, D = 256"):
+        with pytest.raises(ValueError, match=r"ROADMAP Queue 3, head dims above 256"):
             fa.flash_attention(q, q, q)
         assert lib.calls == [] and not any(fa.LAUNCHES.values())
 

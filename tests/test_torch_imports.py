@@ -51,7 +51,7 @@ def test_the_scan_covers_the_port():
     for module in ("constants", "job_table", "oracle", "artifacts", "timing", "job", "trace"):
         assert f"shockwave_tpu_torch/core/{module}.py" in names
     for module in ("device", "measure_throughput", "extrapolate_sf", "measure_startup",
-                   "bench_gpu", "measure_deployed"):
+                   "bench_gpu", "measure_deployed", "bench_serving_decode", "headline"):
         assert f"shockwave_tpu_torch/profiling/{module}.py" in names
     for path in ("obs/quantiles.py", "serving/__init__.py", "serving/load.py",
                  "serving/measured.py", "models/decoder.py", "models/a3c.py",

@@ -8,7 +8,7 @@ lanes' fragments as the PTX ISA lays them out, and `cp.async` copies at
 once. The C entry points are called as the wrappers call them on the
 card, with `launch_config`'s tile for each instance, on CPU tensors made
 from a seed with numpy, padded as `flash_attention` pads them (head dims
-16, 48 and 96 too) and sliced back. The tolerances are chip_smoke.py's:
+16, 48, 96 and 200 too) and sliced back. The tolerances are chip_smoke.py's:
 in f32 F32_TOL (1e-4 abs on out and lse, 1e-4 relative to the largest
 entry on dQ, dK and dV); in bf16 2e-2 abs on out, 1e-3 on lse and 5e-2
 relative on the gradients (p and dS are rounded to bf16 in both, in
@@ -76,6 +76,10 @@ CASES = [
     (1, 128, 128, 1, 64, True, "key0"),
     (2, 24, 24, 1, 128, True, "tail"),
     (1, 40, 72, 1, 128, False, "key0"),
+    # D = 256: the one-warp tile causal with the row that sees no key, the
+    # 32-row long tile (Tq != Tk, key-padded; K3's two warps per 16 keys).
+    (1, 17, 17, 1, 256, True, "key0"),
+    (1, 8, 65, 1, 256, False, "tail"),
 ]
 # The same at head dims the kernels are not built for: d = 16 pads to 32
 # (the one-warp tile; the d = 16 decoder's causal shape), d = 48 to 64
@@ -89,8 +93,13 @@ PADDED_CASES = [
 ]
 # The bf16 instances: both tiles (32 up to T = 32, 64 beyond) at every
 # head dim, ragged ends, Tq != Tk, the row that sees no key at each tile,
-# and d = 96 padded to 128.
+# and d = 96 padded to 128; at D = 256 the short tile with the row that
+# sees no key, the long tile at Tq != Tk, and d = 200 padded to 256 with
+# the row that sees no key at the long tile.
 BF16_CASES = [
+    (1, 32, 32, 1, 256, True, "key0"),
+    (1, 24, 40, 1, 256, False, "tail"),
+    (1, 40, 40, 1, 200, True, "key0"),
     (2, 17, 17, 2, 128, True, "tail"),
     (1, 40, 72, 1, 128, False, "key0"),
     (1, 65, 65, 1, 128, True, "tail"),
@@ -114,7 +123,7 @@ def test_bf16_kernels_match_the_plain_versions(lib, b, tq, tk, h, d, causal, mas
 
 def check_kernels(lib, dtype, b, tq, tk, h, d, causal, mask_kind):
     """q, k, v and dO go in padded through the port's own `pad_head_dim`
-    to `kernel_head_dim(d)` (d itself at 32, 64 and 128), the entry points
+    to `kernel_head_dim(d)` (d itself at 32, 64, 128 and 256), the entry points
     run at that width, and the outputs, sliced back to d, are held against
     the plain versions at d; the padded columns come out exactly 0."""
     rng = np.random.RandomState(tq + tk + d)
@@ -178,17 +187,21 @@ def test_every_f32_tile_is_emulated():
     and so do the padded cases at their padded widths."""
     for kernel in fa.KERNELS:
         name = kernel + "_f32"
-        assert _reached(CASES, name) == {(tile, d) for tile in fa.KERNEL_TILES[name][:2]
-                                         for d in fa.KERNEL_HEAD_DIMS}, name
+        assert _reached(CASES, name) == {(tile, d) for d in fa.KERNEL_HEAD_DIMS
+                                         for tile in fa.KERNEL_TILES[name, d][:2]}, name
         assert _reached(PADDED_CASES, name) == {(16, 32), (64, 64), (64, 128)}, name
 
 
 def test_every_bf16_tile_is_emulated():
     """The bf16 cases reach both tiles of each bf16 instance at every head
-    dim, the row that sees no key at both tiles, and d = 96 padded."""
+    dim, the row that sees no key at both tiles (at D = 256 too), and
+    d = 96 and 200 padded."""
     for name in fa.KERNELS:
-        assert _reached(BF16_CASES, name) == {(tile, d) for tile in fa.KERNEL_TILES[name][:2]
-                                              for d in fa.KERNEL_HEAD_DIMS}, name
-        assert {fa.launch_config(c[1], c[2], fa.kernel_head_dim(c[4]), name)
-                for c in BF16_CASES if c[6] == "key0"} == set(fa.KERNEL_TILES[name][:2])
-    assert any(d not in fa.KERNEL_HEAD_DIMS for _, _, _, _, d, _, _ in BF16_CASES)
+        assert _reached(BF16_CASES, name) == {(tile, d) for d in fa.KERNEL_HEAD_DIMS
+                                              for tile in fa.KERNEL_TILES[name, d][:2]}, name
+        for widths in (fa.KERNEL_HEAD_DIMS, (256,)):
+            assert {fa.launch_config(c[1], c[2], fa.kernel_head_dim(c[4]), name)
+                    for c in BF16_CASES if c[6] == "key0"
+                    and fa.kernel_head_dim(c[4]) in widths} == set(fa.KERNEL_TILES[name, 256][:2])
+    assert {fa.kernel_head_dim(d) for _, _, _, _, d, _, _ in BF16_CASES
+            if d not in fa.KERNEL_HEAD_DIMS} == {128, 256}
