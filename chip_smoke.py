@@ -35,13 +35,15 @@ Phases, in order; any failure exits non-zero and prints no result:
    and `d256_` cases): the main shape at that D, the bench shape (4,
    2048, 8, D) causal, Tq != Tk key-padded, ragged causal, and the key-0
    row at both tiles (the f32 instances' long tile is 32 at D = 256).
-   Then head dims the kernels are not built for (`PADDED_CASES`: d = 16,
-   48, 80, 96, 160 and 200, bf16 and f32), forward + backward through
-   `flash_attention`, which zero-pads them to 32, 64, 128 and 256 and
-   slices the output back, against the plain versions at the original d,
-   with the same shape's time at the padded width beside; and head dim
-   257, which must raise on the card naming the ROADMAP entry that
-   tracks it. Times are medians of CUDA-event timings of CUDA-graph
+   The wide instances (any multiple of 256 above 256, each CTA owning
+   256 output columns) run the same six at D = 512 (`d512_` cases; one
+   tile, 32 rows in bf16, 16 in f32). Then head dims the kernels are not
+   built for (`PADDED_CASES`: d = 16, 48, 80, 96, 160, 200, 264 and 320,
+   bf16 and f32), forward + backward through `flash_attention`, which
+   zero-pads them to 32, 64, 128, 256 and 512 and slices the output back,
+   against the plain versions at the original d, with the same shape's
+   time at the padded width beside; and head dim 257 (`wide_head_dim:`),
+   the narrowest past the template instances, the same way. Times are medians of CUDA-event timings of CUDA-graph
    replays (device time, no host launch cost), beside the bound and the
    PyTorch library call (`scaled_dot_product_attention`, a yardstick the
    port never calls, with the backend its dispatch picked).
@@ -113,7 +115,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    f32 instances against the einsum path's, one launch of each per
    layer. Then the same at dim 64, 4 heads (head dim 16, which
    `flash_attention` pads to 32), at dim 512, 4 heads (head dim 128), and
-   at dim 1024, 4 heads (head dim 256), in bf16 and in f32.
+   at dim 1024, 4 heads (head dim 256) and at dim 2048, 4 heads (head dim
+   512, the wide instances), in bf16 and in f32.
    bench_line: `profiling/bench_serving_decode.py` at its defaults (batch
    8, 32 tokens, prompt 8, dim 128, 2 layers, 4 heads) through its
    `--smoke` gate at 200 tokens/s, its CUDA graph's tokens equal to the
@@ -162,16 +165,32 @@ Phases, in order; any failure exits non-zero and prints no result:
    written, a lease after round 0 parsed, the deployed rate > 0 and the
    lease shortfall within [0, round): the deployed and solo rates, the
    shortfall and the round drain.
+12. parallel: the model-parallel axes. `parallel/dryrun.py`'s
+   `dryrun_multichip(4)` on the card (four ranks sharing it over gloo,
+   one step of each of the reference's meshes, dp x tp x sp and dp x pp
+   x ep) against the same four ranks on the CPU: losses, the gathered
+   updated parameters and the MoE routing; each rank's launches must be
+   the f32 K1-K3's, one each per ring step its causal schedule runs (sp
+   rank i: i + 1). Then ring attention at (4, 2048, 8, 64) bf16, causal,
+   over two sp ranks on the card (this script's `--ring-member` mode)
+   against one process's `flash_attention` on the whole sequence, at the
+   bf16 kernel tolerances, with one launch of each bf16 kernel per ring
+   step; its forward + backward ms beside the one-process kernels' and
+   SDPA's. Two ranks on one card over gloo measure the host copies of
+   every hop, not an NVLink ring.
 
 Output: `device:`, `build:`, `ptxas:`, `spills:`, `sass:` and
 `occupancy:` lines, one `kernel_case:` JSON line per shape and dtype, one
-`padded_case:` line per padded head dim and dtype, `unbuilt_head_dim:`,
+`padded_case:` line per padded head dim and dtype, `wide_head_dim:`,
 `slice:`, `lease:`, `trace:`, `families:`, `adapt:`, `serving:`,
-`bench_line:`, `profile:`, `gang:` and `deployed:` lines, then the
+`bench_line:`, `profile:`, `gang:`, `deployed:` and `parallel:` lines,
+then the
 `{"kernels": [...]}` line (the six kernel instances, each with its D =
-128 and D = 256 times beside, the main case's forward + backward through
-the port's autograd path and through `scaled_dot_product_attention`, the
-same at D = 256, and the bench line's decode rate and headline), the
+128 and D = 256 times beside, and the six wide instances at D = 512; the
+main case's forward + backward through the port's autograd path and
+through `scaled_dot_product_attention`, the same at D = 256 and 512, the
+bench line's decode rate and headline, and the ring's and dryrun's
+numbers), the
 `nvidia-smi` name and power limit, and as the last line `{"ok": true,
 "device": {...}}`. Copied alone into a directory without the port beside
 it, the script exits 2 and prints no result.
@@ -224,6 +243,16 @@ CASES = (
     ("d256_ragged_causal", 2, 100, 100, 4, 256, True, "tail"),
     ("d256_masked_row0", 1, 128, 128, 2, 256, True, "key0"),
     ("d256_short_masked_row0", 1, 32, 32, 2, 256, True, "key0"),
+    # D = 512, the same six on the wide instances (one 32-row tile; each
+    # CTA owns 256 output columns, grid z = 2): the main shape, the bench
+    # shape, Tq != Tk key-padded, ragged causal, the key-0 row at a short
+    # and a long sequence.
+    ("d512_main_enc_self", 64, 32, 32, 8, 512, False, "tail"),
+    ("d512_bench_causal", 4, 2048, 2048, 8, 512, True, None),
+    ("d512_cross_48x96", 2, 48, 96, 4, 512, False, "tail"),
+    ("d512_ragged_causal", 2, 100, 100, 4, 512, True, "tail"),
+    ("d512_masked_row0", 1, 128, 128, 2, 512, True, "key0"),
+    ("d512_short_masked_row0", 1, 32, 32, 2, 512, True, "key0"),
 )
 MAIN_CASE = "main_enc_self"  # 12 of the 18 launches per step are key-padded, non-causal
 # The f32 instances of K1-K3, in the same form: the main shape key-padded
@@ -262,6 +291,13 @@ F32_CASES = (
     ("d256_ragged_causal_f32", 2, 100, 100, 4, 256, True, "tail"),
     ("d256_masked_row0_f32", 1, 128, 128, 2, 256, True, "key0"),
     ("d256_short_masked_row0_f32", 1, 48, 48, 2, 256, True, "key0"),
+    # D = 512 on the wide f32 instances (one 16-row tile), the same six.
+    ("d512_main_enc_self_f32", 64, 32, 32, 8, 512, False, "tail"),
+    ("d512_bench_causal_f32", 4, 2048, 2048, 8, 512, True, None),
+    ("d512_cross_48x96_f32", 2, 48, 96, 4, 512, False, "tail"),
+    ("d512_ragged_causal_f32", 2, 100, 100, 4, 512, True, "tail"),
+    ("d512_masked_row0_f32", 1, 128, 128, 2, 512, True, "key0"),
+    ("d512_short_masked_row0_f32", 1, 48, 48, 2, 512, True, "key0"),
 )
 MAIN_CASE_F32 = "main_enc_self_f32"
 # The D = 128 instances' rows of the kernels line are timed at these
@@ -271,12 +307,16 @@ D128_CASES = {"": ("d128_main_enc_self", "d128_bench_causal"),
 # The same for the D = 256 instances.
 D256_CASES = {"": ("d256_main_enc_self", "d256_bench_causal"),
               "_f32": ("d256_main_enc_self_f32", "d256_bench_causal_f32")}
+# The same for the wide instances, at D = 512.
+D512_CASES = {"": ("d512_main_enc_self", "d512_bench_causal"),
+              "_f32": ("d512_main_enc_self_f32", "d512_bench_causal_f32")}
 # Head dims the kernels are not built for, in the same form, through
 # `flash_attention`, which zero-pads them to `kernel_head_dim` (16 -> 32,
-# 48 -> 64, 80 and 96 -> 128, 160 and 200 -> 256) and slices the output
-# back; "_f32" names the f32 instances. d = 16 at the d = 16 decoder's
-# shape (8 x 64, 4 heads, causal), d = 48, 96 and 160 key-padded at T =
-# 128, which takes the long tiles, d = 80 and 200 causal at T = 64.
+# 48 -> 64, 80 and 96 -> 128, 160 and 200 -> 256, 264 and 320 -> 512, on
+# the wide instances) and slices the output back; "_f32" names the f32
+# instances. d = 16 at the d = 16 decoder's shape (8 x 64, 4 heads,
+# causal), d = 48, 96, 160 and 320 key-padded at T = 128, which takes the
+# long tiles, d = 80, 200 and 264 causal at T = 64.
 PADDED_CASES = (
     ("head_dim_16", 8, 64, 64, 4, 16, True, None),
     ("head_dim_48", 2, 128, 128, 4, 48, False, "tail"),
@@ -284,16 +324,22 @@ PADDED_CASES = (
     ("head_dim_80", 8, 64, 64, 4, 80, True, None),
     ("head_dim_160", 2, 128, 128, 4, 160, False, "tail"),
     ("head_dim_200", 8, 64, 64, 4, 200, True, None),
+    ("head_dim_320", 2, 128, 128, 4, 320, False, "tail"),
+    ("head_dim_264", 8, 64, 64, 4, 264, True, None),
     ("head_dim_16_f32", 8, 64, 64, 4, 16, True, None),
     ("head_dim_48_f32", 2, 128, 128, 4, 48, False, "tail"),
     ("head_dim_96_f32", 2, 128, 128, 4, 96, False, "tail"),
     ("head_dim_80_f32", 8, 64, 64, 4, 80, True, None),
     ("head_dim_160_f32", 2, 128, 128, 4, 160, False, "tail"),
     ("head_dim_200_f32", 8, 64, 64, 4, 200, True, None),
+    ("head_dim_320_f32", 2, 128, 128, 4, 320, False, "tail"),
+    ("head_dim_264_f32", 8, 64, 64, 4, 264, True, None),
 )
-# A head dim above the widest kernel width raises on the card, naming the
-# ROADMAP entry that tracks it.
-UNBUILT_HEAD_DIM, UNBUILT_ITEM = 257, "ROADMAP Queue 3, head dims above 256"
+# The narrowest head dim past the widest template instance, 257, through
+# `flash_attention` on the card (padded to 512, the wide instances), in
+# both dtypes, against the plain versions at d = 257.
+WIDE_HEAD_DIM_CASES = (("head_dim_257", 2, 64, 64, 4, 257, True, "tail"),
+                       ("head_dim_257_f32", 2, 64, 64, 4, 257, True, "tail"))
 
 # Tolerances, against the plain version on the same bf16 inputs:
 # - forward output: max abs error 2e-2, on rows that see a key (a row that
@@ -393,6 +439,9 @@ DECODER_PADDED_WIDTHS = dict(dim=64, num_heads=4)
 # (dim 1024, 4 heads), the widest kernel width, at the same tolerances.
 DECODER_D128_WIDTHS = dict(dim=512, num_heads=4)
 DECODER_D256_WIDTHS = dict(dim=1024, num_heads=4)
+# The decoder at head dim 512 (dim 2048, 4 heads): the wide instances, at
+# the same tolerances.
+DECODER_D512_WIDTHS = dict(dim=2048, num_heads=4)
 # The bench line: `bench_serving_decode` at its defaults must pass its
 # `--smoke` floor (tokens/s); the headline runs its simulation for this
 # many rounds.
@@ -421,6 +470,20 @@ ALLREDUCE_CALLS = 5
 # their scale).
 GANG_TOL = {"transformer": {"loss": 1e-2, "whole": 0.05, "stats": None},
             "resnet18": {"loss": 5e-2, "whole": 0.4, "stats": 5e-2}}
+# The parallel phase. (a) `dryrun_multichip(4)`: four ranks sharing the
+# card over gloo against the same four ranks on the CPU. Both run f32
+# with TF32 off; the card's ring attention runs K1-K3's 3xTF32 instances
+# (about 1e-6 relative to the plain f32 versions) and cuBLAS sums in
+# other orders, so the losses agree to DRYRUN_LOSS_TOL relative and each
+# updated parameter (initial scale 0.02, moved by lr 1e-2 times its
+# gradient) to DRYRUN_PARAM_TOL abs. (b) Ring attention at RING_SHAPE
+# (B, T, H, D) in bf16, causal, over RING_RANKS sp ranks on the card,
+# against one process's `flash_attention` on the whole sequence, at the
+# bf16 kernel tolerances (FWD_TOL on the output, GRAD_TOL relative on
+# dQ, dK and dV); its forward + backward on the host clock, RING_REPS
+# times after a warm-up.
+DRYRUN_RANKS, DRYRUN_LOSS_TOL, DRYRUN_PARAM_TOL = 4, 1e-5, 1e-6
+RING_SHAPE, RING_RANKS, RING_REPS = (4, 2048, 8, 64), 2, 5
 
 
 class Failure(Exception):
@@ -432,13 +495,14 @@ def check(ok: bool, what: str) -> None:
         raise Failure(what)
 
 
-def check_launches(fa, launches, per_kernel, where, dtype=torch.bfloat16, kernels=None):
-    """The `dtype` instance of each of `kernels` (default: K1-K3) launched
-    exactly `per_kernel` times and every other instance never."""
-    suffix = fa.KERNEL_DTYPES[dtype]
+def check_launches(fa, launches, per_kernel, where, dtype=torch.bfloat16, kernels=None,
+                   width=64):
+    """The instance of each of `kernels` (default: K1-K3) for `dtype` at
+    kernel head dim `width` (the wide ones above 256) launched exactly
+    `per_kernel` times and every other instance never."""
     kernels = fa.KERNELS if kernels is None else kernels
-    want = {kname + sfx: per_kernel if sfx == suffix and kname in kernels else 0
-            for sfx in fa.KERNEL_DTYPES.values() for kname in fa.KERNELS}
+    wanted = {fa.instance(kname, dtype, width) for kname in kernels}
+    want = {name: per_kernel if name in wanted else 0 for name in fa.LAUNCHES}
     check(launches == want, f"{where}: launched {launches}, not {want}")
 
 
@@ -447,9 +511,15 @@ def emit(tag: str, obj) -> None:
 
 
 def kernel_name(mangled: str) -> str:
-    """"flash_..._kernel<D, tile>" of a kernel's mangled name."""
+    """"flash_..._kernel<D, tile>" (a wide instance: "flash_..._wide_kernel<
+    type, tile>") of a kernel's mangled name."""
     k = re.search(r"(flash_(?:fwd|dq|dkv)(?:_f32)?_kernel)ILi(\d+)ELi(\d+)E", mangled)
-    return f"{k.group(1)}<{k.group(2)}, {k.group(3)}>" if k else mangled
+    if k:
+        return f"{k.group(1)}<{k.group(2)}, {k.group(3)}>"
+    k = re.search(r"(flash_(?:fwd|dq|dkv)_wide_kernel)I(f|13__nv_bfloat16)Li(\d+)E", mangled)
+    if k:
+        return f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'bf16'}, {k.group(3)}>"
+    return mangled
 
 
 def spills(log: str):
@@ -494,7 +564,7 @@ def main_shape_slots(fa, occupancy, sms):
     _, b, tq, tk, h, d, _, _ = next(c for c in CASES if c[0] == MAIN_CASE)
     per_sm = {(r["kernel"], r["d"], r["tile"]): r["ctas_per_sm"] for r in occupancy}
     rows = []
-    for kname in fa.LAUNCHES:
+    for kname in fa.INSTANCES:
         tile = fa.launch_config(tq, tk, d, kname)
         length = tk if kname.startswith("flash_dkv") else tq  # K3 tiles the keys
         rows.append({"kernel": kname, "d": d, "tile": tile,
@@ -503,12 +573,22 @@ def main_shape_slots(fa, occupancy, sms):
     return rows
 
 
-def graph_ms(fn, inner: int = 20, reps: int = 7) -> float:
+def graph_ms(fn, inner: int = 20, reps: int = 7, replay_ms: float = 20.0) -> float:
     """Median device milliseconds of one call of `fn`: `inner` calls are
     captured in a CUDA graph, which is replayed `reps` times between CUDA
-    events after a warm-up."""
+    events after a warm-up. A call that takes more than `replay_ms /
+    inner` (the milliseconds-long ones at D 256 and 512) is captured fewer
+    times, as many as take about `replay_ms`, at least once: its launch
+    cost is already a small share of it."""
     fn()
     torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    inner = max(1, min(inner, int(replay_ms / max(start.elapsed_time(end), 1e-3))))
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(inner):
@@ -590,7 +670,6 @@ def kernel_case(fa, case, seed, device, rates, dtype=torch.bfloat16):
     gen = torch.Generator(device=device).manual_seed(seed)
     bh, scale = b * h, 1.0 / math.sqrt(d)
     f32 = dtype == torch.float32
-    suffix = fa.KERNEL_DTYPES[dtype]
 
     def randn(t):
         return torch.randn(bh, t, d, generator=gen, device=device).to(dtype)
@@ -639,11 +718,12 @@ def kernel_case(fa, case, seed, device, rates, dtype=torch.bfloat16):
               "mask": mask_kind, **errs, "kernels": {}}
     for kname, (nbytes, flops) in work(b, tq, tk, h, d, causal, q.element_size()).items():
         t_bytes, t_ops = nbytes / bw * 1e3, flops / flops_peak * 1e3
-        record["kernels"][kname + suffix] = {
+        iname = fa.instance(kname, dtype, d)
+        record["kernels"][iname] = {
             "ms": times[kname][0], "plain_ms": times[kname][1],
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else ops_name,
-            "bytes": nbytes, "flops": flops, "tile": fa.launch_config(tq, tk, d, kname + suffix)}
+            "bytes": nbytes, "flops": flops, "tile": fa.launch_config(tq, tk, d, iname)}
     (record["library_fwd_ms"], record["library_fwd_bwd_ms"],
      record["library_backend"]) = library_ms(q, k, v, g, mask, b, h, tq, tk, d, causal)
     record["flash_fwd_bwd_ms"] = flash_fwd_bwd_ms(fa, q, k, v, g, mask, b, h, tq, tk, d, causal)
@@ -710,12 +790,13 @@ def padded_case(fa, case, seed, device):
                   for t in (tq, tk, tk, tq))
     mask = make_mask(mask_kind, b, tk, gen, device)
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    width = fa.kernel_head_dim(d)
     fa.reset_launch_counts()
     out = fa.flash_attention(qg, kg, vg, causal=causal, key_padding_mask=mask)
     dq, dk, dv = torch.autograd.grad(out, (qg, kg, vg), g)
     launches = dict(fa.LAUNCHES)
     torch.cuda.synchronize()
-    check_launches(fa, launches, 1, name, dtype)
+    check_launches(fa, launches, 1, name, dtype, width=width)
     out = out.detach()
 
     def bhtd(x):
@@ -738,7 +819,6 @@ def padded_case(fa, case, seed, device):
     for key in ("dq_max_rel", "dk_max_rel", "dv_max_rel"):
         check(errs[key] <= grad_tol, f"{name}: {key} {errs[key]}")
 
-    width = fa.kernel_head_dim(d)
     wide = [torch.randn(b * h, t, width, generator=gen, device=device).to(dtype)
             for t in (tq, tk, tk, tq)]
     library_fwd, library_fwd_bwd, _ = library_ms(qp, kp, vp, gp, mask, b, h, tq, tk, d, causal)
@@ -749,21 +829,6 @@ def padded_case(fa, case, seed, device):
             "padded_width_fwd_bwd_ms": flash_fwd_bwd_ms(fa, *wide, mask, b, h, tq, tk, width,
                                                         causal),
             "library_fwd_ms": library_fwd, "library_fwd_bwd_ms": library_fwd_bwd}
-
-
-def unbuilt_head_dim(fa, device):
-    """A head dim above the widest kernel width on the card: it must
-    raise before any launch, naming the ROADMAP item that lifts it."""
-    q = torch.zeros(1, 32, 2, UNBUILT_HEAD_DIM, dtype=torch.bfloat16, device=device)
-    fa.reset_launch_counts()
-    try:
-        fa.flash_attention(q, q, q)
-        raised = None
-    except ValueError as e:
-        raised = str(e)
-    check(raised is not None and UNBUILT_ITEM in raised and not any(fa.LAUNCHES.values()),
-          f"head dim {UNBUILT_HEAD_DIM}: raised {raised!r}, launched {fa.LAUNCHES}")
-    return {"head_dim": UNBUILT_HEAD_DIM, "raised": raised}
 
 
 class _Tee(io.TextIOBase):
@@ -1355,7 +1420,11 @@ def serving_phase(fa, device):
             "decoder_flash_head_dim_256": {
                 "bf16": decoder_flash_grads(fa, device, tokens, torch.bfloat16,
                                             **DECODER_D256_WIDTHS),
-                "f32": decoder_flash_grads(fa, device, tokens, **DECODER_D256_WIDTHS)}}
+                "f32": decoder_flash_grads(fa, device, tokens, **DECODER_D256_WIDTHS)},
+            "decoder_flash_head_dim_512": {
+                "bf16": decoder_flash_grads(fa, device, tokens, torch.bfloat16,
+                                            **DECODER_D512_WIDTHS),
+                "f32": decoder_flash_grads(fa, device, tokens, **DECODER_D512_WIDTHS)}}
 
 
 def bench_line_phase(here, device):
@@ -1441,9 +1510,10 @@ def decoder_flash_grads(fa, device, tokens, dtype=torch.float32, **widths):
           f"{what}'s flash vs einsum logits differ by {err}")
     check(grad_err <= grad_tol,
           f"{what}'s flash vs einsum gradients differ by {grad_err} (relative)")
+    head_dim = flash.dim // flash.num_heads
     check_launches(fa, launches, len(flash.blocks), f"{what}'s flash forward and backward",
-                   dtype)
-    return {"shape": list(tokens.shape), "head_dim": flash.dim // flash.num_heads,
+                   dtype, width=fa.kernel_head_dim(head_dim))
+    return {"shape": list(tokens.shape), "head_dim": head_dim,
             "logits_max_abs": err, "grad_max_rel": grad_err, "launches": launches}
 
 
@@ -1676,6 +1746,167 @@ def gang_member(module_name, argv) -> int:
         "grad_norm_sq_small": (float(metrics["grad_norm_sq_small"])
                                if "grad_norm_sq_small" in metrics else None)}), flush=True)
     return 0
+
+
+def ring_inputs(device):
+    """The ring check's global bf16 q, k, v and dO (B, T, H, D), from a
+    seed on `device`."""
+    gen = torch.Generator(device=device).manual_seed(7)
+    return [torch.randn(*RING_SHAPE, generator=gen, device=device).to(torch.bfloat16)
+            for _ in range(4)]
+
+
+def ring_member(rank: int, port: int, path: str) -> int:
+    """`--ring-member RANK PORT OUT`: one of RING_RANKS sp ranks on the
+    card. It makes the global inputs from the seed, runs ring attention
+    (causal) on its sequence shard forward and backward with the launch
+    counters set to 0 just before, then RING_REPS timed repetitions, and
+    saves its blocks of the output and gradients, its launches and the
+    median ms."""
+    import datetime
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from shockwave_tpu_torch.ops import flash_attention as fa
+    from shockwave_tpu_torch.parallel.mesh import make_mesh, shard
+    from shockwave_tpu_torch.parallel.ring_attention import ring_attention
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=RING_RANKS, timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_mesh(sp=RING_RANKS)
+        q, k, v, g = (shard(mesh, x, (None, "sp")).contiguous() for x in ring_inputs(device))
+
+        def fwd_bwd():
+            qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+            out = ring_attention(qg, kg, vg, mesh, causal=True)
+            grads = torch.autograd.grad(out, (qg, kg, vg), g)
+            torch.cuda.synchronize()
+            return out.detach(), grads
+
+        fa.reset_launch_counts()
+        out, (dq, dk, dv) = fwd_bwd()
+        launches = {n: c for n, c in fa.LAUNCHES.items() if c}
+        times = []
+        for _ in range(RING_REPS):
+            dist.barrier()
+            t0 = time.perf_counter()
+            fwd_bwd()
+            times.append((time.perf_counter() - t0) * 1e3)
+        torch.save({"sp": mesh.index("sp"), "launches": launches,
+                    "ms": statistics.median(times),
+                    **{n: t.cpu() for n, t in (("out", out), ("dq", dq), ("dk", dk),
+                                               ("dv", dv))}}, path)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def spawn_ranks(argv_of_rank, n, timeout):
+    """n copies of this script, rank r with `argv_of_rank(r)`; waits for
+    all, kills any left on a failure, and fails with a failed rank's
+    output."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), *argv_of_rank(r)],
+                              cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(n)]
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=timeout)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for r, proc in enumerate(procs):
+        check(proc.returncode == 0, f"rank {r} exited {proc.returncode}:\n{outs[r][-3000:]}")
+    return outs
+
+
+def parallel_phase(fa, device):
+    """(a) `dryrun_multichip(DRYRUN_RANKS)` on the card (its ranks share
+    it over gloo) against the same ranks on the CPU: the losses and the
+    gathered updated parameters of both meshes' steps, and each rank's
+    launches, which must be the f32 K1-K3's, one of each per ring step
+    its schedule runs (sp rank i of n: i + 1, causal). (b) Ring
+    attention over RING_RANKS sp ranks on the card at RING_SHAPE in bf16,
+    causal, against one process's `flash_attention` on the whole
+    sequence, and its forward + backward ms beside the one-process
+    kernels' and SDPA's."""
+    from shockwave_tpu_torch.parallel import dryrun
+    t0 = time.time()
+    card = dryrun.dryrun_multichip(DRYRUN_RANKS, device="cuda")
+    card_s = time.time() - t0
+    cpu = dryrun.dryrun_multichip(DRYRUN_RANKS, device="cpu")
+    meshes = []
+    for index in range(2):
+        ref = cpu[0][index]
+        loss_err = max(abs(r[index]["loss"] - ref["loss"]) / abs(ref["loss"]) for r in card)
+        param_err = max(float(abs(r[index]["params"][n] - ref["params"][n]).max())
+                        for r in card for n in ref["params"])
+        check(loss_err <= DRYRUN_LOSS_TOL, f"parallel: mesh {index} loss differs by {loss_err}")
+        check(param_err <= DRYRUN_PARAM_TOL,
+              f"parallel: mesh {index} parameters differ by {param_err}")
+        routed = all((r[index]["routing"][k] == ref["routing"][k]).all()
+                     for r in card for k in ref["routing"])
+        check(routed, f"parallel: mesh {index}'s MoE routing differs between card and CPU")
+        sp = ref["mesh"]["sp"]
+        launches = []
+        for r in card:
+            i = r[index]["coords"]["sp"]
+            want = {n + "_f32": i + 1 for n in fa.KERNELS}  # causal: the blocks at or before i
+            check(r[index]["launches"] == want,
+                  f"parallel: mesh {index} sp rank {i} of {sp} launched "
+                  f"{r[index]['launches']}, not {want}")
+            launches.append({"coords": r[index]["coords"], "launches": r[index]["launches"]})
+        meshes.append({"mesh": ref["mesh"], "loss": card[0][index]["loss"],
+                       "cpu_loss": ref["loss"], "loss_rel_err": loss_err,
+                       "param_max_abs_err": param_err, "launches": launches})
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    work = tempfile.mkdtemp(prefix="swt_chip_ring_")
+    try:
+        spawn_ranks(lambda r: ["--ring-member", str(r), str(port), os.path.join(work, f"{r}.pt")],
+                    RING_RANKS, timeout=300)
+        parts = sorted((torch.load(os.path.join(work, f"{r}.pt")) for r in range(RING_RANKS)),
+                       key=lambda p: p["sp"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for i, part in enumerate(parts):
+        want = {n: i + 1 for n in fa.KERNELS}
+        check(part["launches"] == want,
+              f"parallel: ring sp rank {i} launched {part['launches']}, not {want}")
+    got = {n: torch.cat([p[n] for p in parts], dim=1).to(device) for n in ("out", "dq", "dk", "dv")}
+    q, k, v, g = ring_inputs(device)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    out = fa.flash_attention(qg, kg, vg, causal=True)
+    dq, dk, dv = torch.autograd.grad(out, (qg, kg, vg), g)
+    out = out.detach()
+    errs = {"fwd_max_abs": max_abs(got["out"], out), "dq_max_rel": max_rel(got["dq"], dq),
+            "dk_max_rel": max_rel(got["dk"], dk), "dv_max_rel": max_rel(got["dv"], dv)}
+    check(errs["fwd_max_abs"] <= FWD_TOL, f"parallel: ring output error {errs['fwd_max_abs']}")
+    for key in ("dq_max_rel", "dk_max_rel", "dv_max_rel"):
+        check(errs[key] <= GRAD_TOL, f"parallel: ring {key} {errs[key]}")
+    b, t, h, d = RING_SHAPE
+
+    def bhtd(x):
+        return x.transpose(1, 2).reshape(b * h, t, d).contiguous()
+
+    qb, kb, vb, gb = map(bhtd, (q, k, v, g))
+    _, library_fwd_bwd, backend = library_ms(qb, kb, vb, gb, None, b, h, t, t, d, True)
+    return {"dryrun": {"ranks": DRYRUN_RANKS, "card_s": card_s, "meshes": meshes},
+            "ring": {"shape": list(RING_SHAPE), "sp": RING_RANKS, "dtype": "bf16",
+                     "causal": True, **errs,
+                     "launches": [p["launches"] for p in parts],
+                     "fwd_bwd_ms": max(p["ms"] for p in parts),
+                     "rank_fwd_bwd_ms": [p["ms"] for p in parts],
+                     "one_process_fwd_bwd_ms": flash_fwd_bwd_ms(fa, qb, kb, vb, gb, None, b, h,
+                                                                t, t, d, True),
+                     "library_fwd_bwd_ms": library_fwd_bwd, "library_backend": backend}}
 
 
 def gang_dispatch(dispatcher, standin, outputs, job, round_id):
@@ -1955,7 +2186,9 @@ def main() -> int:
     emit("spills", spills(log))
     hmma = sass_hmma(path)
     emit("sass", hmma)
-    for kname in ("flash_fwd_f32_kernel", "flash_dq_f32_kernel", "flash_dkv_f32_kernel"):
+    for kname in ("flash_fwd_f32_kernel", "flash_dq_f32_kernel", "flash_dkv_f32_kernel",
+                  "flash_fwd_wide_kernel<float", "flash_dq_wide_kernel<float",
+                  "flash_dkv_wide_kernel<float"):
         check(any(name.startswith(kname) for name in hmma), f"{kname}: not in the SASS")
         for name, ops in hmma.items():
             if name.startswith(kname):
@@ -1979,7 +2212,8 @@ def main() -> int:
         emit("kernel_case", cases[case[0]])
     for seed, case in enumerate(PADDED_CASES):
         emit("padded_case", padded_case(fa, case, seed, device))
-    emit("unbuilt_head_dim", unbuilt_head_dim(fa, device))
+    emit("wide_head_dim", [padded_case(fa, case, seed, device)
+                           for seed, case in enumerate(WIDE_HEAD_DIM_CASES)])
     kernel_s = time.time() - t0
 
     t0 = time.time()
@@ -2022,6 +2256,10 @@ def main() -> int:
     t0 = time.time()
     deployed = deployed_phase(here)
     emit("deployed", {"seconds": time.time() - t0, "nvidia_smi": smi, **deployed})
+
+    t0 = time.time()
+    paralleled = parallel_phase(fa, device)
+    emit("parallel", {"seconds": time.time() - t0, "nvidia_smi": smi, **paralleled})
 
     kernels = []
     # Each dtype's row is timed at the shape its main-path launches come
@@ -2099,20 +2337,54 @@ def main() -> int:
                             "main_library_ms": (main_case["library_fwd_ms"]
                                                 if kname == "flash_fwd" else None)})
             kernels.append(row)
+    # The wide instances: timed at the main and bench shapes at D = 512;
+    # their main-path launches are the d = 512 decoder's (serving phase).
+    for dtype, widths in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        suffix = fa.KERNEL_DTYPES[dtype]
+        at_case, bench_case = (cases[n] for n in D512_CASES[suffix])
+        for kname, source_line in REPLACES.items():
+            iname = fa.instance(kname, dtype, 512)
+            k, b = at_case["kernels"][iname], bench_case["kernels"][iname]
+            fwd = kname == "flash_fwd"
+            kernels.append({
+                "name": iname, "route": "cuda",
+                "source": "shockwave_tpu_torch/csrc/flash_attention.cu",
+                "replaces": source_line,
+                "launches": served["decoder_flash_head_dim_512"][widths]["launches"][iname],
+                "max_abs_err": max(c[e] for n, c in cases.items()
+                                   if n.startswith("d512_") and c["dtype"] == str(dtype)
+                                   for e in ERR_KEYS[kname]),
+                "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                "bound_by": k["bound_by"].split()[0],
+                "library_ms": at_case["library_fwd_ms"] if fwd else None,
+                "at": f"{D512_CASES[suffix][0]} {at_case['shape']}", "tile": k["tile"],
+                "bench_ms": b["ms"], "bench_plain_ms": b["plain_ms"],
+                "bench_bound_ms": b["bound_ms"], "bench_bound_by": b["bound_by"],
+                "bench_library_ms": bench_case["library_fwd_ms"] if fwd else None,
+                "library_backend": bench_case["library_backend"]})
     main_case = cases[MAIN_CASE]
-    # Forward + backward at D = 256 (the port's autograd path against
-    # SDPA's, and the backend SDPA picked), by dtype and shape.
-    d256_fwd_bwd = {
+    # Forward + backward at D = 256 and 512 (the port's autograd path
+    # against SDPA's, and the backend SDPA picked), by dtype and shape.
+    wide_fwd_bwd = {
         name: {"fwd_bwd_ms": cases[name]["flash_fwd_bwd_ms"],
                "library_fwd_bwd_ms": cases[name]["library_fwd_bwd_ms"],
                "library_backend": cases[name]["library_backend"]}
-        for names in D256_CASES.values() for name in names}
+        for cases_of in (D256_CASES, D512_CASES)
+        for names in cases_of.values() for name in names}
     print(json.dumps({"kernels": kernels, "fwd_bwd_ms": main_case["flash_fwd_bwd_ms"],
                       "library_fwd_bwd_ms": main_case["library_fwd_bwd_ms"],
-                      "d256_fwd_bwd": d256_fwd_bwd,
+                      "d256_d512_fwd_bwd": wide_fwd_bwd,
                       "bench_line": {"decode_tokens_per_s_per_chip":
                                      benched["decode"]["tokens_per_s_per_chip"],
                                      "headline": benched["headline"]},
+                      "parallel": {
+                          "ring_fwd_bwd_ms": paralleled["ring"]["fwd_bwd_ms"],
+                          "ring_one_process_fwd_bwd_ms":
+                              paralleled["ring"]["one_process_fwd_bwd_ms"],
+                          "ring_library_fwd_bwd_ms": paralleled["ring"]["library_fwd_bwd_ms"],
+                          "ring_launches": paralleled["ring"]["launches"],
+                          "dryrun_launches": [m["launches"]
+                                              for m in paralleled["dryrun"]["meshes"]]},
                       "kernel_phase_s": kernel_s, "total_s": time.time() - t_start}),
           flush=True)
     print(smi, flush=True)
@@ -2125,4 +2397,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--gang-member"]:
         sys.exit(gang_member(sys.argv[2], sys.argv[3:]))
+    if sys.argv[1:2] == ["--ring-member"]:
+        sys.exit(ring_member(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

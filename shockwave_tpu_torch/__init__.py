@@ -15,7 +15,10 @@ counterpart:
   models/train_common.py       CLI, Trainer, checkpoints, the
                                Accordion/GNS adaptation monitors
   runtime/                     lease iterator, worker daemon, dispatcher
-  parallel/mesh.py             data-parallel gangs over torch.distributed
+  parallel/mesh.py             data-parallel gangs over torch.distributed,
+                               and the (dp, pp, tp, sp, ep) mesh
+  parallel/{comm,ring_attention,pipeline,moe,train_step,dryrun}.py
+                               the model-parallel axes and dryrun_multichip
   core/durable_io.py           the checkpoint CRC footer (copied)
   core/{constants,job_table,oracle}.py
                                the job table and oracle files (copied)

@@ -34,6 +34,12 @@ _ENTRY_POINTS = (
     ("swt_flash_fwd_f32", [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P]),
     ("swt_flash_dq_f32", [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P]),
     ("swt_flash_dkv_f32", [_P] * 9 + [_I] * 6 + [_F, _I, _I, _P]),
+    ("swt_flash_fwd_wide", [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P]),
+    ("swt_flash_dq_wide", [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P]),
+    ("swt_flash_dkv_wide", [_P] * 9 + [_I] * 6 + [_F, _I, _I, _P]),
+    ("swt_flash_fwd_wide_f32", [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P]),
+    ("swt_flash_dq_wide_f32", [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P]),
+    ("swt_flash_dkv_wide_f32", [_P] * 9 + [_I] * 6 + [_F, _I, _I, _P]),
     ("swt_flash_occupancy", [_I] * 4 + [_P]),
 )
 

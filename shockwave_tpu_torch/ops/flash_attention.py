@@ -35,12 +35,16 @@ is off, as the port keeps it everywhere. Neither dtype is cast to the
 other. Any other dtype raises on the card.
 
 The kernels are built for head dims 32, 64, 128 and 256
-(`KERNEL_HEAD_DIMS`). `flash_attention` zero-pads q, k and v along the
-head dim to the smallest of them that holds it (`kernel_head_dim`,
-`pad_head_dim`) on every device, as the reference pads to its sublane
+(`KERNEL_HEAD_DIMS`); above 256 each kernel has a wide instance
+(`flash_fwd_wide`, `flash_dq_wide`, `flash_dkv_wide`, each in bf16 and
+f32) that takes any multiple of 256 at run time, each CTA owning a
+256-column slice of the output. `flash_attention` zero-pads q, k and v
+along the head dim to `kernel_head_dim(d)` (the smallest of
+`KERNEL_HEAD_DIMS` that holds d; 257-512 to 512, wider ones to the next
+multiple of 256) on every device, as the reference pads to its sublane
 multiple, and slices the output back: zero columns add nothing to q.k^T
-and give zero output columns. A head dim above 256 raises on the card
-(`launch_config`); the plain versions take any dtype and head dim.
+and give zero output columns. So every head dim runs on the card; the
+plain versions take any dtype and head dim.
 """
 from __future__ import annotations
 
@@ -54,17 +58,24 @@ from . import _build
 
 NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (32, 64, 128, 256)
-# What a head dim above the widest kernel width waits for.
-UNBUILT_HEAD_DIMS = "ROADMAP Queue 3, head dims above 256"
+# Head dims above the widest of them pad to a multiple of WIDE_SLICE (512
+# at least) and run on the wide instances, whose CTAs own WIDE_SLICE
+# output columns each.
+WIDE_SLICE = 256
 # The dtypes the kernels take, with the suffix of their instance's launch
 # counter and C entry point.
 KERNEL_DTYPES = {torch.bfloat16: "", torch.float32: "_f32"}
 
 KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
-# Launches of each kernel instance since the last reset (the bf16 ones,
-# then the f32 ones, in the C library's occupancy order); a wrapper adds
+WIDE = "_wide"
+# Kernel instances in the C library's occupancy order: K1-K3 in bf16, in
+# f32, then their wide instances in bf16 and in f32.
+INSTANCES = tuple(name + suffix for suffix in KERNEL_DTYPES.values() for name in KERNELS)
+WIDE_INSTANCES = tuple(name + WIDE + suffix for suffix in KERNEL_DTYPES.values()
+                       for name in KERNELS)
+# Launches of each kernel instance since the last reset; a wrapper adds
 # one where it launches its kernel and nowhere else.
-LAUNCHES = {name + suffix: 0 for suffix in KERNEL_DTYPES.values() for name in KERNELS}
+LAUNCHES = {name: 0 for name in INSTANCES + WIDE_INSTANCES}
 # The square tiles each kernel instance is built for, by (instance, head
 # dim) (rows per CTA = the width of the streamed tiles, 16 rows per warp):
 # (short tile, long tile, the longest sequence that takes the short
@@ -80,6 +91,10 @@ KERNEL_TILES = {(name + suffix, d): ((16, 32 if d == 256 else 64, 64) if suffix
                                      else (32, 64, 32))
                 for suffix in KERNEL_DTYPES.values() for name in KERNELS
                 for d in KERNEL_HEAD_DIMS}
+# The wide instances' one tile at any length: 32 rows in bf16, 16 in f32
+# (K3 in f32 takes 101,632 bytes of shared memory at 16 rows, twice that
+# at 32).
+WIDE_TILES = {name: 16 if name.endswith("_f32") else 32 for name in WIDE_INSTANCES}
 
 
 def reset_launch_counts() -> None:
@@ -167,20 +182,31 @@ def _on_cpu(*tensors) -> bool:
                      f"one CUDA device; got {sorted(map(str, devices))}")
 
 
+def instance(kernel: str, dtype, d: int) -> str:
+    """The `LAUNCHES` name of `kernel`'s instance for `dtype` at the
+    kernel head dim `d`: the wide one above `KERNEL_HEAD_DIMS`."""
+    return kernel + (WIDE if d > KERNEL_HEAD_DIMS[-1] else "") + KERNEL_DTYPES[dtype]
+
+
 def launch_config(tq: int, tk: int, d: int, instance: str = "flash_fwd") -> int:
     """The square tile of kernel instance `instance` (a key of `LAUNCHES`)
-    for these lengths and head dim, from `KERNEL_TILES`: the short tile
-    when neither sequence is longer than the instance takes it for (the
-    bf16 kernels' 32 at the trainer's T = 32: no padding rows and one tile
-    per (batch, head)), the long tile otherwise."""
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"CUDA flash attention takes head dims {KERNEL_HEAD_DIMS} "
-                         f"(flash_attention pads any head dim up to "
-                         f"{KERNEL_HEAD_DIMS[-1]} to one of them; more waits for "
-                         f"{UNBUILT_HEAD_DIMS}); got {d}")
+    for these lengths and head dim: for a wide instance its one tile
+    (`WIDE_TILES`); otherwise from `KERNEL_TILES`, the short tile when
+    neither sequence is longer than the instance takes it for (the bf16
+    kernels' 32 at the trainer's T = 32: no padding rows and one tile per
+    (batch, head)), the long tile otherwise."""
+    wide = WIDE in instance
+    built = (d > KERNEL_HEAD_DIMS[-1] and d % WIDE_SLICE == 0) if wide else d in KERNEL_HEAD_DIMS
+    if not built:
+        raise ValueError(f"CUDA flash attention takes head dims {KERNEL_HEAD_DIMS} and, in "
+                         f"its wide instances, multiples of {WIDE_SLICE} above "
+                         f"{KERNEL_HEAD_DIMS[-1]} (flash_attention pads every head dim to "
+                         f"one of them); {instance} got {d}")
     if tq < 1 or tk < 1:
         raise ValueError(f"CUDA flash attention takes non-empty sequences; "
                          f"got Tq={tq}, Tk={tk}")
+    if wide:
+        return WIDE_TILES[instance]
     short, long, short_up_to = KERNEL_TILES[instance, d]
     return short if max(tq, tk) <= short_up_to else long
 
@@ -188,9 +214,12 @@ def launch_config(tq: int, tk: int, d: int, instance: str = "flash_fwd") -> int:
 def kernel_head_dim(d: int) -> int:
     """The head dim a head dim `d` runs at: the smallest of
     `KERNEL_HEAD_DIMS` that holds it (1-32 -> 32, 33-64 -> 64, 65-128 ->
-    128, 129-256 -> 256), or `d` itself above them (the plain versions
-    take it, the kernels refuse it)."""
-    return next((width for width in KERNEL_HEAD_DIMS if d <= width), d)
+    128, 129-256 -> 256), 257-512 -> 512, and above that the next
+    multiple of `WIDE_SLICE` (600 -> 768)."""
+    for width in KERNEL_HEAD_DIMS:
+        if d <= width:
+            return width
+    return max(2 * WIDE_SLICE, -(-d // WIDE_SLICE) * WIDE_SLICE)
 
 
 def pad_head_dim(x: torch.Tensor, width: int) -> torch.Tensor:
@@ -200,19 +229,19 @@ def pad_head_dim(x: torch.Tensor, width: int) -> torch.Tensor:
     return x if d == width else torch.nn.functional.pad(x, (0, width - d))
 
 
-def _check_kernel_inputs(q, k, v, kv_mask, heads):
+def _check_kernel_inputs(q, k, v, kv_mask, heads, kernel="flash_fwd"):
     bh, tq, d = q.shape
     tk = k.shape[1]
-    launch_config(tq, tk, d)
+    if q.dtype not in KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"CUDA flash attention takes torch.bfloat16 or "
+                        f"torch.float32 (q, k and v alike); got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    launch_config(tq, tk, d, instance(kernel, q.dtype, d))
     if k.shape != (bh, tk, d) or v.shape != (bh, tk, d):
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not match")
     if bh % heads:
         raise ValueError(f"BH={bh} is not a multiple of heads={heads}")
-    if q.dtype not in KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"CUDA flash attention takes torch.bfloat16 or "
-                        f"torch.float32 (q, k and v alike); got {q.dtype}, "
-                        f"{k.dtype}, {v.dtype}")
     if kv_mask is not None and (kv_mask.dtype != torch.bool
                                 or kv_mask.shape != (bh // heads, tk)):
         raise ValueError(f"kv_mask must be bool {(bh // heads, tk)}; got "
@@ -234,16 +263,9 @@ def _device_and_stream(t: torch.Tensor):
     return t.device.index, torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _tile(kernel: str, q, tk: int) -> int:
-    """`launch_config`'s tile for `kernel`'s instance of q's dtype."""
-    _, tq, d = q.shape
-    return launch_config(tq, tk, d, kernel + KERNEL_DTYPES[q.dtype])
-
-
-def _launch(kernel: str, dtype, *args) -> None:
-    """Launch `kernel`'s instance for `dtype` through its C entry point
-    and count it."""
-    name = kernel + KERNEL_DTYPES[dtype]
+def _launch(name: str, *args) -> None:
+    """Launch kernel instance `name` through its C entry point and count
+    it."""
     lib = _build.library()
     _build.check(lib, getattr(lib, "swt_" + name)(*args), name)
     LAUNCHES[name] += 1
@@ -255,13 +277,14 @@ def attention_forward(q, k, v, kv_mask, heads: int, scale: float,
     `flash_fwd_f32` on CUDA."""
     if _on_cpu(q, k, v, kv_mask):
         return attention_forward_plain(q, k, v, kv_mask, heads, scale, causal)
-    _check_kernel_inputs(q, k, v, kv_mask, heads)
+    _check_kernel_inputs(q, k, v, kv_mask, heads, "flash_fwd")
     bh, tq, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(bh, tq, dtype=torch.float32, device=q.device)
     tk = k.shape[1]
-    _launch("flash_fwd", q.dtype, _ptr(q), _ptr(k), _ptr(v), _ptr(kv_mask), _ptr(out),
-            _ptr(lse), bh, heads, tq, tk, d, _tile("flash_fwd", q, tk), scale, int(causal),
+    name = instance("flash_fwd", q.dtype, d)
+    _launch(name, _ptr(q), _ptr(k), _ptr(v), _ptr(kv_mask), _ptr(out), _ptr(lse), bh, heads,
+            tq, tk, d, launch_config(tq, tk, d, name), scale, int(causal),
             *_device_and_stream(q))
     return out, lse
 
@@ -282,14 +305,15 @@ def attention_dq(q, k, v, g, lse, delta, kv_mask, heads: int, scale: float,
     if _on_cpu(q, k, v, g, lse, delta, kv_mask):
         return attention_dq_plain(q, k, v, g, lse, delta, kv_mask, heads,
                                   scale, causal)
-    _check_kernel_inputs(q, k, v, kv_mask, heads)
+    _check_kernel_inputs(q, k, v, kv_mask, heads, "flash_dq")
     _check_backward_inputs(q, g, lse, delta)
     bh, tq, d = q.shape
     dq = torch.empty_like(q)
     tk = k.shape[1]
-    _launch("flash_dq", q.dtype, _ptr(q), _ptr(k), _ptr(v), _ptr(g), _ptr(lse), _ptr(delta),
-            _ptr(kv_mask), _ptr(dq), bh, heads, tq, tk, d, _tile("flash_dq", q, tk), scale,
-            int(causal), *_device_and_stream(q))
+    name = instance("flash_dq", q.dtype, d)
+    _launch(name, _ptr(q), _ptr(k), _ptr(v), _ptr(g), _ptr(lse), _ptr(delta), _ptr(kv_mask),
+            _ptr(dq), bh, heads, tq, tk, d, launch_config(tq, tk, d, name), scale, int(causal),
+            *_device_and_stream(q))
     return dq
 
 
@@ -300,33 +324,36 @@ def attention_dkv(q, k, v, g, lse, delta, kv_mask, heads: int, scale: float,
     if _on_cpu(q, k, v, g, lse, delta, kv_mask):
         return attention_dkv_plain(q, k, v, g, lse, delta, kv_mask, heads,
                                    scale, causal)
-    _check_kernel_inputs(q, k, v, kv_mask, heads)
+    _check_kernel_inputs(q, k, v, kv_mask, heads, "flash_dkv")
     _check_backward_inputs(q, g, lse, delta)
     bh, tq, d = q.shape
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     tk = k.shape[1]
-    _launch("flash_dkv", q.dtype, _ptr(q), _ptr(k), _ptr(v), _ptr(g), _ptr(lse), _ptr(delta),
-            _ptr(kv_mask), _ptr(dk), _ptr(dv), bh, heads, tq, tk, d, _tile("flash_dkv", q, tk),
-            scale, int(causal), *_device_and_stream(q))
+    name = instance("flash_dkv", q.dtype, d)
+    _launch(name, _ptr(q), _ptr(k), _ptr(v), _ptr(g), _ptr(lse), _ptr(delta), _ptr(kv_mask),
+            _ptr(dk), _ptr(dv), bh, heads, tq, tk, d, launch_config(tq, tk, d, name), scale,
+            int(causal), *_device_and_stream(q))
     return dk, dv
 
 
 def kernel_occupancy(device: int = 0):
     """Resident CTAs per SM of every kernel instantiation on CUDA device
     `device` (cudaOccupancyMaxActiveBlocksPerMultiprocessor), with its
-    threads, dynamic shared memory and registers. Needs the card."""
+    threads, dynamic shared memory and registers; a wide instance's row
+    is at d = 512 (its resources do not depend on d). Needs the card."""
     lib = _build.library()
     rows = []
-    for kernel, name in enumerate(LAUNCHES):  # 0-2 K1-K3, 3-5 in f32, as in C
-        for d in KERNEL_HEAD_DIMS:
-            for tile in KERNEL_TILES[name, d][:2]:
-                out = (ctypes.c_int * 4)()
-                rc = lib.swt_flash_occupancy(kernel, d, tile, device, out)
-                _build.check(lib, rc, f"{name} occupancy")
-                rows.append({"kernel": name, "d": d, "tile": tile,
-                             "ctas_per_sm": out[0], "threads": out[1],
-                             "smem_bytes": out[2], "registers": out[3]})
+    for kernel, name in enumerate(LAUNCHES):  # the C library's order
+        configs = ([(2 * WIDE_SLICE, WIDE_TILES[name])] if name in WIDE_TILES else
+                   [(d, tile) for d in KERNEL_HEAD_DIMS for tile in KERNEL_TILES[name, d][:2]])
+        for d, tile in configs:
+            out = (ctypes.c_int * 4)()
+            rc = lib.swt_flash_occupancy(kernel, d, tile, device, out)
+            _build.check(lib, rc, f"{name} occupancy")
+            rows.append({"kernel": name, "d": d, "tile": tile,
+                         "ctas_per_sm": out[0], "threads": out[1],
+                         "smem_bytes": out[2], "registers": out[3]})
     return rows
 
 

@@ -1,6 +1,6 @@
-"""Data-parallel gangs over `torch.distributed`.
+"""Gangs and the (dp, pp, tp, sp, ep) mesh over `torch.distributed`.
 
-The port of the data-parallel part of `shockwave_tpu/parallel/mesh.py`.
+The port of `shockwave_tpu/parallel/mesh.py`.
 The scheduler dispatches a job of scale factor N as N processes, each
 with `--coordinator H:P --num_processes N --process_id R`
 (`sched/physical.py`). Where the JAX package joins a `jax.distributed`
@@ -25,17 +25,37 @@ the batch on its devices. The trainer (`models/train_common.py`)
 all-reduces the gradients; BatchNorm (`models/resnet.py`) all-reduces
 its batch statistics.
 
-The model-parallel axes of the JAX mesh (pp, tp, sp, ep) are ROADMAP.md
-Queue 1, item 8.
+`make_mesh` gives a rank its place in the JAX package's five-axis mesh:
+ranks stand in for devices, laid out row-major over (dp, pp, tp, sp, ep)
+as the reference reshapes its device list, and every axis (and the pair
+(dp, sp) that splits a batch) gets a process group of its own. What XLA
+inserts on the TPU for a sharding, the port's modules call explicitly
+(`comm.py`): ring shifts for sp and pp, sums and copies over tp and ep.
+`shard` cuts a global array by a spec (the port's `PartitionSpec`: one
+axis name or None per dimension); `shard_batch`, `replicate` and
+`data_parallel_sharding` are the reference's helpers in those terms.
 """
 from __future__ import annotations
 
 import atexit
 import datetime
-from typing import List, Optional
+import logging
+import math
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 import torch.distributed as dist
+
+logger = logging.getLogger(__name__)
+
+#: The mesh's axes, in the reference's order.
+AXES = ("dp", "pp", "tp", "sp", "ep")
+#: Groups of more than one axis that collectives run over: the axes that
+#: split a batch (a replicated parameter's gradient is summed over them).
+BATCH_AXES = ("dp", "sp")
+Axes = Union[str, Sequence[str]]
+Spec = Tuple[Optional[str], ...]
 
 #: How long a rank waits for its peers: at the rendezvous and in any
 #: collective (a peer that died must not hold the gang for the default 30
@@ -156,3 +176,144 @@ def gang_allreduce(value: float, op: str) -> float:
 def all_reduce_sum(tensor: torch.Tensor, async_op: bool = False):
     """Sum `tensor` in place over the gang, on the default group."""
     return dist.all_reduce(tensor, async_op=async_op)
+
+
+# ---------------------------------------------------------------------------
+# The (dp, pp, tp, sp, ep) mesh.
+# ---------------------------------------------------------------------------
+
+def mesh_shape(world_size: int, dp: Optional[int] = None, tp: int = 1, sp: int = 1,
+               pp: int = 1, ep: int = 1,
+               batch_size: Optional[int] = None) -> Tuple[int, int, int, int, int]:
+    """(dp, pp, tp, sp, ep) over `world_size` ranks, with the reference's
+    rules: dp defaults to the remaining ranks, capped by `batch_size` at
+    the largest divisor of the global batch (the ranks past the mesh then
+    idle); an explicit shape must cover the ranks exactly."""
+    rest = pp * tp * sp * ep
+    if dp is None:
+        assert world_size % rest == 0, (world_size, pp, tp, sp, ep)
+        dp = world_size // rest
+        if batch_size is not None:
+            while dp > 1 and batch_size % dp:
+                dp -= 1
+            if dp * rest < world_size:
+                logger.warning("mesh: batch_size=%d caps dp at %d; %d of %d ranks left out "
+                               "of the mesh and will idle", batch_size, dp,
+                               world_size - dp * rest, world_size)
+    else:
+        # An explicit shape must cover the ranks exactly: a silently
+        # undersized mesh would skew profiling and throughput numbers.
+        assert dp * rest == world_size, f"mesh {dp}x{pp}x{tp}x{sp}x{ep} != {world_size} devices"
+    return dp, pp, tp, sp, ep
+
+
+class Mesh:
+    """One rank's view of a (dp, pp, tp, sp, ep) mesh: the axis sizes
+    (`shape`), its coordinates (`coords`, None on a rank left out of the
+    mesh) and a process group for each axis and for `BATCH_AXES` (None
+    where the group is one rank: every collective over it is the
+    identity)."""
+
+    def __init__(self, shape: Sequence[int], rank: int, groups: Dict[Tuple[str, ...], object]):
+        self.shape = dict(zip(AXES, shape))
+        self.rank = rank
+        inside = rank < math.prod(shape)
+        self.coords = (dict(zip(AXES, (int(c) for c in np.unravel_index(rank, shape))))
+                       if inside else None)
+        self._groups = groups
+
+    @staticmethod
+    def _axes(axes: Axes) -> Tuple[str, ...]:
+        return (axes,) if isinstance(axes, str) else tuple(axes)
+
+    def size(self, axes: Axes) -> int:
+        return math.prod(self.shape[a] for a in self._axes(axes))
+
+    def index(self, axes: Axes) -> int:
+        """This rank's position in its group over `axes` (row-major)."""
+        index = 0
+        for a in self._axes(axes):
+            index = index * self.shape[a] + self.coords[a]
+        return index
+
+    def group(self, axes: Axes):
+        return self._groups[self._axes(axes)]
+
+    def rank_at(self, **coords) -> int:
+        """The global rank at this rank's coordinates with `coords` changed."""
+        at = dict(self.coords, **coords)
+        return int(np.ravel_multi_index([at[a] for a in AXES], [self.shape[a] for a in AXES]))
+
+
+def _group_ranks(shape: Sequence[int], axes: Tuple[str, ...]) -> List[List[int]]:
+    """Every group of ranks that differ only along `axes`, each sorted."""
+    ranks = np.arange(math.prod(shape)).reshape(shape)
+    moved = [AXES.index(a) for a in axes]
+    kept = [i for i in range(len(AXES)) if i not in moved]
+    order = ranks.transpose(kept + moved).reshape(-1, math.prod(shape[i] for i in moved))
+    return [sorted(int(r) for r in row) for row in order]
+
+
+def make_mesh(dp: Optional[int] = None, tp: int = 1, sp: int = 1, pp: int = 1, ep: int = 1,
+              batch_size: Optional[int] = None) -> Mesh:
+    """This rank's mesh over the initialized process group's ranks (one
+    rank when there is none), shaped by `mesh_shape`'s rules. Every rank
+    creates every group in the same order, as `new_group` requires."""
+    world = process_count()
+    shape = mesh_shape(world, dp=dp, tp=tp, sp=sp, pp=pp, ep=ep, batch_size=batch_size)
+    groups = {}
+    for axes in [(a,) for a in AXES] + [BATCH_AXES]:
+        groups[axes] = None
+        for ranks in _group_ranks(shape, axes):
+            if len(ranks) > 1:
+                group = dist.new_group(ranks)
+                if process_index() in ranks:
+                    groups[axes] = group
+    return Mesh(shape, process_index(), groups)
+
+
+def data_parallel_sharding(mesh: Mesh) -> Tuple[Spec, Spec]:
+    """(batch spec, replicated spec) for pure data parallelism."""
+    return ("dp",), ()
+
+
+def shard(mesh: Mesh, x, spec: Spec):
+    """This rank's block of the global array `x` (numpy or torch) under
+    `spec`: dimension i is cut into `mesh.size(spec[i])` equal blocks
+    when spec[i] names an axis."""
+    for dim, axis in enumerate(spec):
+        if axis is not None:
+            n = mesh.size(axis)
+            if x.shape[dim] % n:
+                raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not split over "
+                                 f"{axis}={n}")
+            per = x.shape[dim] // n
+            index = [slice(None)] * x.ndim
+            index[dim] = slice(mesh.index(axis) * per, (mesh.index(axis) + 1) * per)
+            x = x[tuple(index)]
+    return x
+
+
+def shard_batch(mesh: Mesh, batch):
+    """Each leaf's rows of this rank's dp index (a tensor or array, or a
+    dict, list or tuple of them)."""
+    if isinstance(batch, dict):
+        return {k: shard_batch(mesh, v) for k, v in batch.items()}
+    if isinstance(batch, (list, tuple)):
+        return type(batch)(shard_batch(mesh, v) for v in batch)
+    return shard(mesh, batch, ("dp",))
+
+
+def replicate(mesh: Mesh, tree):
+    """Every rank of the mesh holds rank 0's values of `tree` (a tensor,
+    or a dict, list or tuple of them): broadcast over the process group,
+    through the host (gloo)."""
+    if isinstance(tree, dict):
+        return {k: replicate(mesh, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(replicate(mesh, v) for v in tree)
+    if process_count() == 1:
+        return tree
+    host = tree.detach().to("cpu", copy=True)
+    dist.broadcast(host, src=0)
+    return host.to(tree.device)

@@ -83,6 +83,7 @@ struct Launch {
   template <typename... A>
   void operator()(A... args) {
     g_grid = grid;
+    for (unsigned bz = 0; bz < grid.z; ++bz)
     for (unsigned by = 0; by < grid.y; ++by)
       for (unsigned bx = 0; bx < grid.x; ++bx) {
         Cta cta;
@@ -95,7 +96,7 @@ struct Launch {
         for (int t = 0; t < threads; ++t)
           pool.emplace_back([&, t] {
             t_thread = dim3(t);
-            t_block = dim3(bx, by);
+            t_block = dim3(bx, by, bz);
             t_cta = &cta;
             kernel(args...);
           });

@@ -14,10 +14,13 @@ rounding of sums: those need the card (`chip_smoke.py`).
 """
 from __future__ import annotations
 
+import fcntl
+import hashlib
 import os
 import re
 import shutil
 import subprocess
+import tempfile
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(HERE)), "shockwave_tpu_torch", "csrc",
@@ -67,6 +70,25 @@ def emulated_source(path: str = SOURCE) -> str:
 def compiler():
     """The host C++ compiler, or None."""
     return shutil.which(os.environ.get("CXX", "g++"))
+
+
+def cached_build() -> str:
+    """`build` into a directory of the temporary directory keyed by a hash
+    of the emulated source, once: test modules in several processes (the
+    f32 and the bf16 emulation tests) share one build, a lock letting the
+    first build it while the others wait."""
+    key = hashlib.sha256(emulated_source().encode()).hexdigest()[:16]
+    out_dir = os.path.join(tempfile.gettempdir(), f"swt_cuda_emu_{key}")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        lib = os.path.join(out_dir, "libswt_kernels_emulated.so")
+        if not os.path.exists(lib):
+            tmp = os.path.join(out_dir, f"tmp{os.getpid()}")
+            os.makedirs(tmp, exist_ok=True)
+            os.replace(build(tmp), lib)
+            shutil.rmtree(tmp, ignore_errors=True)
+    return lib
 
 
 def build(out_dir: str) -> str:

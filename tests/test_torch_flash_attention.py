@@ -219,7 +219,9 @@ class TestWrappers:
                    for x in rand_qkv(rng, 1, 32, 2, 32))
         fa.flash_attention(q, k, v, causal=True).sum().backward()
         assert set(fa.LAUNCHES) == {"flash_fwd", "flash_dq", "flash_dkv", "flash_fwd_f32",
-                                    "flash_dq_f32", "flash_dkv_f32"}
+                                    "flash_dq_f32", "flash_dkv_f32", "flash_fwd_wide",
+                                    "flash_dq_wide", "flash_dkv_wide", "flash_fwd_wide_f32",
+                                    "flash_dq_wide_f32", "flash_dkv_wide_f32"}
         assert not any(fa.LAUNCHES.values())
 
     def test_other_devices_raise(self):
@@ -268,101 +270,6 @@ class TestRaggedEdgesAgainstJax:
             assert np.abs(a - b).max() < GRAD_TOL
 
 
-class TestPaddedHeadDimsAgainstJax:
-    """Head dims the CUDA kernels are not built for (8, 16, 48, 80, 96,
-    160): the port's `flash_attention` zero-pads them to `kernel_head_dim`
-    (32, 32, 64, 128, 128, 256) on every device and slices the output
-    back, so on the CPU the plain versions run the very pad and slice that
-    the card runs; and d = 128 and 256, kernel widths, unpadded. The JAX package
-    pads to its sublane multiple of 8 and runs Pallas (interpreted). Same numpy inputs, causal and non-causal, both with a
-    padded key tail; out in the inputs' dtype, gradients of the f32 sum
-    of out squared. Tolerances: f32 as above (FWD_TOL, GRAD_TOL); bf16
-    chip_smoke.py's bf16 ones, BF16_FWD_TOL abs on the output (both round
-    p to bf16 before p.V and the output to bf16, and a rounding flip is
-    one bf16 ulp, 3.9e-3 at |o| < 2) and BF16_GRAD_TOL on each gradient
-    relative to its largest entry (dS and p rounded to bf16 in both)."""
-
-    BF16_FWD_TOL, BF16_GRAD_TOL = 2e-2, 5e-2
-    B, T, H = 2, 32, 2
-
-    def _inputs(self, d, dtype, causal):
-        rng = np.random.RandomState(d + 2 * causal)
-        q, k, v = rand_qkv(rng, self.B, self.T, self.H, d)
-        kpm = np.arange(self.T)[None, :] < np.array([[self.T], [self.T // 2 + 3]])
-        if dtype == "bfloat16":  # both packages get the same bf16 values
-            q, k, v = (torch.from_numpy(x).to(torch.bfloat16).float().numpy() for x in (q, k, v))
-        return q, k, v, kpm
-
-    @pytest.mark.parametrize("causal", [True, False])
-    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-    @pytest.mark.parametrize("d", [8, 16, 48, 80, 96, 128, 160, 256])
-    def test_forward(self, d, dtype, causal):
-        q, k, v, kpm = self._inputs(d, dtype, causal)
-        fa.reset_launch_counts()
-        out = torch_out(q, k, v, dtype, causal=causal, key_padding_mask=kpm)
-        want = jax_out(q, k, v, dtype, causal=causal, key_padding_mask=kpm)
-        assert out.shape == (self.B, self.T, self.H, d)
-        tol = FWD_TOL if dtype == "float32" else self.BF16_FWD_TOL
-        assert np.abs(out - want).max() < tol
-        assert not any(fa.LAUNCHES.values())
-
-    @pytest.mark.parametrize("causal", [True, False])
-    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-    @pytest.mark.parametrize("d", [8, 16, 48, 80, 96, 128, 160, 256])
-    def test_gradients(self, d, dtype, causal):
-        q, k, v, kpm = self._inputs(d, dtype, causal)
-        for a, b in zip(torch_grads(q, k, v, kpm, causal, dtype),
-                        jax_grads(q, k, v, kpm, causal, dtype)):
-            assert a.shape == (self.B, self.T, self.H, d)
-            if dtype == "float32":
-                assert np.abs(a - b).max() < GRAD_TOL
-            else:
-                assert np.abs(a - b).max() <= self.BF16_GRAD_TOL * np.abs(b).max()
-
-
-class TestHeadDimPad:
-    """The pad rule that `flash_attention`, the emulation test and
-    chip_smoke.py share."""
-
-    def test_kernel_head_dim(self):
-        assert [fa.kernel_head_dim(d) for d in (1, 8, 16, 31, 32, 33, 48, 63, 64)] == \
-            [32] * 5 + [64] * 4
-        assert [fa.kernel_head_dim(d) for d in (65, 80, 96, 127, 128)] == [128] * 5
-        assert [fa.kernel_head_dim(d) for d in (129, 160, 200, 255, 256)] == [256] * 5
-        # Above the kernels' widths the head dim is left as it is: the
-        # plain versions take it, the kernels refuse it.
-        assert [fa.kernel_head_dim(d) for d in (257, 320, 512)] == [257, 320, 512]
-        assert all(fa.kernel_head_dim(d) in fa.KERNEL_HEAD_DIMS for d in range(1, 257))
-
-    def test_pad_head_dim(self):
-        x = torch.arange(2 * 3 * 5, dtype=torch.float32).view(2, 3, 5).transpose(0, 1)
-        padded = fa.pad_head_dim(x, 32)
-        assert padded.shape == (3, 2, 32) and padded.is_contiguous()
-        assert torch.equal(padded[..., :5], x) and not padded[..., 5:].any()
-        wide = torch.ones(2, 3, 96, dtype=torch.bfloat16)
-        padded = fa.pad_head_dim(wide, fa.kernel_head_dim(96))
-        assert padded.shape == (2, 3, 128) and padded.dtype == torch.bfloat16
-        assert torch.equal(padded[..., :96], wide) and not padded[..., 96:].any()
-        same = torch.zeros(2, 3, 32)
-        assert fa.pad_head_dim(same, 32) is same
-
-    def test_default_scale_is_the_unpadded_head_dims(self, d=16):
-        rng = np.random.RandomState(9)
-        q, k, v = (torch.from_numpy(x) for x in rand_qkv(rng, 1, 16, 2, d))
-        out = fa.flash_attention(q, k, v, causal=True)
-        assert torch.equal(out, fa.flash_attention(q, k, v, causal=True,
-                                                   scale=1.0 / math.sqrt(d)))
-        assert not torch.allclose(out, fa.flash_attention(
-            q, k, v, causal=True, scale=1.0 / math.sqrt(fa.kernel_head_dim(d))))
-        # The same as the plain forward at the unpadded width.
-        bhtd = [x.transpose(1, 2).reshape(2, 16, d) for x in (q, k, v)]
-        plain, _ = fa.attention_forward_plain(*bhtd, None, 2, 1.0 / math.sqrt(d), True)
-        assert torch.allclose(out.transpose(1, 2).reshape(2, 16, d), plain, atol=1e-6)
-
-    def test_default_scale_is_the_unpadded_head_dims_above_64(self):
-        self.test_default_scale_is_the_unpadded_head_dims(d=96)
-
-
 def _chip_smoke():
     """chip_smoke.py as a module (it imports only torch at the top)."""
     spec = importlib.util.spec_from_file_location(
@@ -383,7 +290,7 @@ class TestLaunchConfig:
 
     @pytest.mark.parametrize("d", fa.KERNEL_HEAD_DIMS)
     def test_total_over_accepted_shapes(self, d):
-        for name in fa.LAUNCHES:
+        for name in fa.INSTANCES:
             short, long, short_up_to = fa.KERNEL_TILES[name, d]
             for tq in self.LENGTHS:
                 for tk in self.LENGTHS:
@@ -404,7 +311,7 @@ class TestLaunchConfig:
         the card's 132 SMs rather than (32, 1); the bf16 instances keep
         their 64-row tile there."""
         bh, t, d = 8 * 4, 64, 32
-        assert set(self.TF32_INSTANCES) == {n for n in fa.LAUNCHES if n.endswith("_f32")}
+        assert set(self.TF32_INSTANCES) == {n for n in fa.INSTANCES if n.endswith("_f32")}
         for name in self.TF32_INSTANCES:
             tile = fa.launch_config(t, t, d, name)
             assert tile == 16 and bh * -(-t // tile) == 128
@@ -412,9 +319,18 @@ class TestLaunchConfig:
         assert fa.launch_config(t, t, d, "flash_dq") == 64
 
     def test_rejects_what_the_wrapper_rejects(self):
-        for d in (16, 48, 96, 129, 257):
+        """Widths the wrapper never hands over: not a template instance's
+        (16 ... 600 for K1's instance), not a multiple of 256 above 256
+        (the wide instance's: 256 is a template width)."""
+        for d in (16, 48, 96, 129, 257, 512, 600):
             with pytest.raises(ValueError):
                 fa.launch_config(32, 32, d)
+        for name in fa.WIDE_INSTANCES:
+            for d in (64, 256, 257, 320, 600):
+                with pytest.raises(ValueError):
+                    fa.launch_config(32, 32, d, name)
+            assert {fa.launch_config(t, t, d, name) for t in self.LENGTHS
+                    for d in (512, 768, 1024)} == {fa.WIDE_TILES[name]}
         for tq, tk in ((0, 32), (32, 0)):
             with pytest.raises(ValueError):
                 fa.launch_config(tq, tk, 64)
@@ -441,28 +357,37 @@ class TestLaunchConfig:
                              for d in fa.KERNEL_HEAD_DIMS
                              for tq in self.LENGTHS for tk in self.LENGTHS}
                 reached = {(fa.launch_config(tq, tk, d, name), d)
-                           for _, _, tq, tk, _, d, _, _ in cases}
+                           for _, _, tq, tk, _, d, _, _ in cases if d in fa.KERNEL_HEAD_DIMS}
                 assert reachable == reached, name
+                # The wide instance at D = 512: its one tile at a short and
+                # a long sequence, Tq != Tk, causal and key-padded, key 0.
+                wide = [c for c in cases if c[5] not in fa.KERNEL_HEAD_DIMS]
+                assert {c[5] for c in wide} == {512}
+                assert {max(c[2], c[3]) <= 32 for c in wide} == {True, False}
+                assert any(c[2] != c[3] for c in wide) and any(c[7] == "key0" for c in wide)
+                assert {fa.launch_config(c[2], c[3], 512, kernel + fa.WIDE + suffix)
+                        for c in wide} == {fa.WIDE_TILES[kernel + fa.WIDE + suffix]}
         # The 3xTF32 instances' edges in f32: ragged inside the short
         # tile, one past its reach, Tq != Tk and the row that sees no key
         # at every width (16, 64, and D = 256's 32).
+        f32_cases = [c for c in smoke.F32_CASES if c[5] in fa.KERNEL_HEAD_DIMS]
         for name in self.TF32_INSTANCES:
             short, _, short_up_to = fa.KERNEL_TILES[name, 64]
             widths = {t for d in fa.KERNEL_HEAD_DIMS for t in fa.KERNEL_TILES[name, d][:2]}
 
             def tile(c):
                 return fa.launch_config(c[2], c[3], c[5], name)
-            assert any(tile(c) == short and c[2] % short for c in smoke.F32_CASES)
-            assert any(max(c[2], c[3]) == short_up_to + 1 for c in smoke.F32_CASES)
-            assert {tile(c) for c in smoke.F32_CASES if c[2] != c[3]} == widths == {16, 32, 64}
-            assert {tile(c) for c in smoke.F32_CASES if c[7] == "key0"} == widths
+            assert any(tile(c) == short and c[2] % short for c in f32_cases)
+            assert any(max(c[2], c[3]) == short_up_to + 1 for c in f32_cases)
+            assert {tile(c) for c in f32_cases if c[2] != c[3]} == widths == {16, 32, 64}
+            assert {tile(c) for c in f32_cases if c[7] == "key0"} == widths
         # Each width's edges: one past and below the short tile, Tq != Tk
         # inside the long one, and the row that sees no key in both.
         shapes = {c[0]: c for c in smoke.CASES}
         assert fa.launch_config(33, 33, 64) == 64 and "one_past_short" in shapes
         assert {c[7] for c in smoke.CASES if c[2] == 32 and c[3] == 32} >= {"key0", "tail"}
         assert any(c[2] != c[3] and fa.launch_config(c[2], c[3], c[5]) == 64
-                   for c in smoke.CASES)
+                   for c in smoke.CASES if c[5] in fa.KERNEL_HEAD_DIMS)
 
 
 class _RecordingLibrary:
@@ -522,11 +447,12 @@ class TestCInterface:
         else:
             fa.attention_dkv(q, k, v, g, lse, delta, mask, heads, 0.125, causal)
         [(name, args)] = lib.calls
-        assert name == self.ENTRY[kernel]
+        instance = fa.instance(f"flash_{kernel}", torch.bfloat16, d)
+        assert name == "swt_" + instance
         self._check_types(name, args)
-        assert fa.LAUNCHES[f"flash_{kernel}"] == 1
+        assert fa.LAUNCHES[instance] == 1
         # ..., bh, heads, tq, tk, d, tile, scale, causal, device, stream
-        assert args[-10:-4] == (bh, heads, tq, tk, d, fa.launch_config(tq, tk, d))
+        assert args[-10:-4] == (bh, heads, tq, tk, d, fa.launch_config(tq, tk, d, instance))
         assert args[-4:] == (0.125, int(causal), 0, 0)
 
     @pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
@@ -538,6 +464,15 @@ class TestCInterface:
     @pytest.mark.parametrize("tq,tk", [(32, 32), (33, 33), (32, 48)])
     def test_wrapper_hands_over_the_declared_arguments_at_d256(self, lib, kernel, tq, tk):
         self.test_wrapper_hands_over_the_declared_arguments(lib, kernel, tq, tk, d=256)
+
+    @pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
+    @pytest.mark.parametrize("tq,tk", [(32, 32), (33, 33), (32, 48)])
+    def test_wrapper_hands_over_the_declared_arguments_at_d512(self, lib, kernel, tq, tk):
+        """The wide instances' entry points (d = 512 and 768)."""
+        self.test_wrapper_hands_over_the_declared_arguments(lib, kernel, tq, tk, d=512)
+        lib.calls.clear()
+        fa.reset_launch_counts()
+        self.test_wrapper_hands_over_the_declared_arguments(lib, kernel, tq, tk, d=768)
 
     @pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
     @pytest.mark.parametrize("dtype,suffix", [(torch.bfloat16, ""), (torch.float32, "_f32")])
@@ -580,13 +515,18 @@ class TestCInterface:
             assert name == "swt_flash_occupancy"
             self._check_types(name, args[:-1] + (0,))  # `out` is a ctypes array
             asked.add(args[:3])
-        assert asked == {(kernel, d, tile) for kernel, name in enumerate(fa.LAUNCHES)
-                         for d in fa.KERNEL_HEAD_DIMS for tile in fa.KERNEL_TILES[name, d][:2]}
+        assert asked == {(kernel, d, tile) for kernel, name in enumerate(fa.INSTANCES)
+                         for d in fa.KERNEL_HEAD_DIMS for tile in fa.KERNEL_TILES[name, d][:2]} | {
+            (kernel, 512, fa.WIDE_TILES[name]) for kernel, name in enumerate(fa.LAUNCHES)
+            if name in fa.WIDE_INSTANCES}
+        assert list(fa.LAUNCHES) == list(fa.INSTANCES + fa.WIDE_INSTANCES)  # the C order
+        assert {(r["kernel"], r["tile"]) for r in rows if r["d"] == 512} == {
+            (name, fa.WIDE_TILES[name]) for name in fa.WIDE_INSTANCES}
         assert {(r["kernel"], r["d"], r["tile"]) for r in rows} >= {
             ("flash_dq", d, tile) for d in (32, 64, 128, 256) for tile in (32, 64)}
         for d in (128, 256):
             assert {(r["kernel"], r["tile"]) for r in rows if r["d"] == d} == {
-                (name, tile) for name in fa.LAUNCHES for tile in fa.KERNEL_TILES[name, d][:2]}
+                (name, tile) for name in fa.INSTANCES for tile in fa.KERNEL_TILES[name, d][:2]}
         for d, long in ((128, 64), (256, 32)):
             assert {(r["kernel"], r["tile"]) for r in rows
                     if r["kernel"].endswith("_f32") and r["d"] == d} == {
@@ -595,7 +535,7 @@ class TestCInterface:
 
     @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
     @pytest.mark.parametrize("d,width", [(16, 32), (48, 64), (80, 128), (96, 128), (128, 128),
-                                         (160, 256), (256, 256)])
+                                         (160, 256), (256, 256), (320, 512), (600, 768)])
     def test_flash_attention_hands_the_kernels_the_padded_width(self, lib, d, width, dtype):
         """On the card's path `flash_attention` gives every kernel q, k, v
         and dO zero-padded to `kernel_head_dim(d)`, and the kernels' head
@@ -606,23 +546,33 @@ class TestCInterface:
         assert out.shape == (b, t, h, d) and out.dtype == dtype
         out.backward(torch.ones_like(out))
         assert [x.grad.shape for x in (q, k, v)] == [(b, t, h, d)] * 3
-        assert [name for name, _ in lib.calls] == [
-            self.ENTRY[kernel] + fa.KERNEL_DTYPES[dtype] for kernel in ("fwd", "dq", "dkv")]
-        for name, args in lib.calls:
+        instances = [fa.instance(f"flash_{kernel}", dtype, width)
+                     for kernel in ("fwd", "dq", "dkv")]
+        assert [name for name, _ in lib.calls] == ["swt_" + i for i in instances]
+        for (name, args), instance in zip(lib.calls, instances):
             self._check_types(name, args)
-            assert args[-10:-4] == (b * h, h, t, t, width, 16 if dtype == torch.float32 else 64)
+            tile = fa.launch_config(t, t, width, instance)
+            assert tile == (fa.WIDE_TILES[instance] if width > 256
+                            else 16 if dtype == torch.float32 else 64)
+            assert args[-10:-4] == (b * h, h, t, t, width, tile)
             assert args[-4:-2] == (pytest.approx(1.0 / math.sqrt(d)), 1)
 
     @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
     @pytest.mark.parametrize("d", [257, 320])
     def test_head_dims_above_128_raise_naming_the_item_that_lifts_them(self, lib, d, dtype):
-        """Above the widest kernel width (256 since D = 256 was built; the
-        name dates from when it was 128) a head dim raises before any
-        launch, naming the ROADMAP entry that tracks it."""
-        q = torch.zeros(1, 32, 2, d, dtype=dtype)
-        with pytest.raises(ValueError, match=r"ROADMAP Queue 3, head dims above 256"):
-            fa.flash_attention(q, q, q)
-        assert lib.calls == [] and not any(fa.LAUNCHES.values())
+        """Above the widest template instance (256; the name dates from
+        when head dims above 128 raised) a head dim no longer raises: it
+        pads to 512 and reaches the wide instances' launch config, forward
+        and backward, and only their counters move."""
+        q = torch.zeros(1, 32, 2, d, dtype=dtype, requires_grad=True)
+        fa.flash_attention(q, q, q).sum().backward()
+        suffix = fa.KERNEL_DTYPES[dtype]
+        names = [f"flash_{k}{fa.WIDE}{suffix}" for k in ("fwd", "dq", "dkv")]
+        assert [name for name, _ in lib.calls] == ["swt_" + n for n in names]
+        for (name, args), instance in zip(lib.calls, names):
+            self._check_types(name, args)
+            assert args[-10:-4] == (2, 2, 32, 32, 512, fa.WIDE_TILES[instance])
+        assert {n: c for n, c in fa.LAUNCHES.items() if c} == dict.fromkeys(names, 1)
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:

@@ -57,7 +57,10 @@ def test_the_scan_covers_the_port():
                  "serving/measured.py", "models/decoder.py", "models/a3c.py",
                  "models/cyclegan.py", "workloads/serving/serve.py", "workloads/rl/main.py",
                  "workloads/cyclegan/cyclegan.py", "obs/clock.py", "obs/propagation.py",
-                 "obs/tracing.py", "obs/shard.py", "obs/exporter.py", "runtime/spans.py"):
+                 "obs/tracing.py", "obs/shard.py", "obs/exporter.py", "runtime/spans.py",
+                 "parallel/mesh.py", "parallel/comm.py", "parallel/ring_attention.py",
+                 "parallel/pipeline.py", "parallel/moe.py", "parallel/train_step.py",
+                 "parallel/dryrun.py"):
         assert f"shockwave_tpu_torch/{path}" in names
 
 

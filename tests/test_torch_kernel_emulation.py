@@ -1,4 +1,7 @@
-"""The kernels' CUDA source, run on the CPU, against the plain versions.
+"""The kernels' CUDA source, run on the CPU, against the plain versions
+(the f32 instances here, the bf16 ones in
+`test_torch_kernel_emulation_bf16.py`, which shares this module's
+emulated library, checks and tolerances).
 
 `tests/cuda_emu` compiles `shockwave_tpu_torch/csrc/flash_attention.cu`
 with the host C++ compiler: every CUDA thread of a CTA is a host thread,
@@ -37,10 +40,10 @@ TOLS = {torch.float32: (F32_TOL, F32_TOL, F32_TOL), torch.bfloat16: (2e-2, 1e-3,
 
 
 @pytest.fixture(scope="module")
-def lib(tmp_path_factory):
+def lib():
     if emulate.compiler() is None:
         pytest.skip("no host C++ compiler to build the emulated kernels")
-    lib = ctypes.CDLL(emulate.build(str(tmp_path_factory.mktemp("cuda_emu"))))
+    lib = ctypes.CDLL(emulate.cached_build())
     for name, argtypes in _build._ENTRY_POINTS:
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = ctypes.c_int
@@ -56,9 +59,9 @@ def _ptr(t):
 
 
 def _call(lib, kernel, dtype, *args, tq, tk, d, scale, causal):
-    """swt_<kernel><suffix>(*args, ..., d, tile, scale, causal, device,
-    stream) of the instance for `dtype`."""
-    name = kernel + fa.KERNEL_DTYPES[dtype]
+    """swt_<instance>(*args, ..., d, tile, scale, causal, device, stream)
+    of `kernel`'s instance for `dtype` and d (the wide one above 256)."""
+    name = fa.instance(kernel, dtype, d)
     tile = fa.launch_config(tq, tk, d, name)
     rc = getattr(lib, f"swt_{name}")(*args, d, tile, scale, int(causal), 0, None)
     assert rc == 0, (name, tile, rc)
@@ -84,41 +87,19 @@ CASES = [
 # The same at head dims the kernels are not built for: d = 16 pads to 32
 # (the one-warp tile; the d = 16 decoder's causal shape), d = 48 to 64
 # (the long tile, key-padded and Tq != Tk, and the row that sees no key),
-# d = 96 to 128 (the long tile, key-padded).
+# d = 96 to 128 (the long tile, key-padded), and d = 320 to 512, the wide
+# f32 instances: T = 17 reaches both of their 16-row tiles (the second
+# ragged) and both 256-column slices, with the row that sees no key.
 PADDED_CASES = [
     (2, 64, 64, 2, 16, True, "tail"),
     (1, 32, 80, 2, 48, False, "tail"),
     (1, 96, 96, 1, 48, True, "key0"),
     (1, 72, 72, 1, 96, False, "tail"),
+    (1, 17, 17, 1, 320, True, "key0"),
 ]
-# The bf16 instances: both tiles (32 up to T = 32, 64 beyond) at every
-# head dim, ragged ends, Tq != Tk, the row that sees no key at each tile,
-# and d = 96 padded to 128; at D = 256 the short tile with the row that
-# sees no key, the long tile at Tq != Tk, and d = 200 padded to 256 with
-# the row that sees no key at the long tile.
-BF16_CASES = [
-    (1, 32, 32, 1, 256, True, "key0"),
-    (1, 24, 40, 1, 256, False, "tail"),
-    (1, 40, 40, 1, 200, True, "key0"),
-    (2, 17, 17, 2, 128, True, "tail"),
-    (1, 40, 72, 1, 128, False, "key0"),
-    (1, 65, 65, 1, 128, True, "tail"),
-    (2, 32, 32, 2, 64, True, "key0"),
-    (1, 48, 48, 2, 64, False, "tail"),
-    (2, 24, 24, 2, 32, True, "tail"),
-    (1, 33, 64, 1, 32, False, None),
-    (1, 72, 72, 1, 96, True, "key0"),
-]
-
-
 @pytest.mark.parametrize("b,tq,tk,h,d,causal,mask_kind", CASES + PADDED_CASES)
 def test_f32_kernels_match_the_plain_versions(lib, b, tq, tk, h, d, causal, mask_kind):
     check_kernels(lib, torch.float32, b, tq, tk, h, d, causal, mask_kind)
-
-
-@pytest.mark.parametrize("b,tq,tk,h,d,causal,mask_kind", BF16_CASES)
-def test_bf16_kernels_match_the_plain_versions(lib, b, tq, tk, h, d, causal, mask_kind):
-    check_kernels(lib, torch.bfloat16, b, tq, tk, h, d, causal, mask_kind)
 
 
 def check_kernels(lib, dtype, b, tq, tk, h, d, causal, mask_kind):
@@ -178,8 +159,11 @@ def check_kernels(lib, dtype, b, tq, tk, h, d, causal, mask_kind):
 
 
 def _reached(cases, name):
+    """{(tile, width)} of instance `name` over the cases of its widths."""
+    wide = name in fa.WIDE_INSTANCES
     return {(fa.launch_config(tq, tk, fa.kernel_head_dim(d), name), fa.kernel_head_dim(d))
-            for _, tq, tk, _, d, _, _ in cases}
+            for _, tq, tk, _, d, _, _ in cases
+            if (fa.kernel_head_dim(d) > fa.KERNEL_HEAD_DIMS[-1]) == wide}
 
 
 def test_every_f32_tile_is_emulated():
@@ -190,18 +174,3 @@ def test_every_f32_tile_is_emulated():
         assert _reached(CASES, name) == {(tile, d) for d in fa.KERNEL_HEAD_DIMS
                                          for tile in fa.KERNEL_TILES[name, d][:2]}, name
         assert _reached(PADDED_CASES, name) == {(16, 32), (64, 64), (64, 128)}, name
-
-
-def test_every_bf16_tile_is_emulated():
-    """The bf16 cases reach both tiles of each bf16 instance at every head
-    dim, the row that sees no key at both tiles (at D = 256 too), and
-    d = 96 and 200 padded."""
-    for name in fa.KERNELS:
-        assert _reached(BF16_CASES, name) == {(tile, d) for d in fa.KERNEL_HEAD_DIMS
-                                              for tile in fa.KERNEL_TILES[name, d][:2]}, name
-        for widths in (fa.KERNEL_HEAD_DIMS, (256,)):
-            assert {fa.launch_config(c[1], c[2], fa.kernel_head_dim(c[4]), name)
-                    for c in BF16_CASES if c[6] == "key0"
-                    and fa.kernel_head_dim(c[4]) in widths} == set(fa.KERNEL_TILES[name, 256][:2])
-    assert {fa.kernel_head_dim(d) for _, _, _, _, d, _, _ in BF16_CASES
-            if d not in fa.KERNEL_HEAD_DIMS} == {128, 256}

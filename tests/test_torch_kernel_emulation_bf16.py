@@ -1,0 +1,71 @@
+"""The kernels' CUDA source, run on the CPU, against the plain versions:
+the bf16 instances (the f32 ones are `test_torch_kernel_emulation.py`,
+whose emulated library, checks and tolerances these tests share; the two
+files are apart so that the test workers can run them side by side).
+"""
+import os
+import sys
+
+import pytest
+import torch
+
+from shockwave_tpu_torch.ops import flash_attention as fa
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from test_torch_kernel_emulation import (CASES, PADDED_CASES, _reached,  # noqa: E402
+                                         check_kernels, lib)  # noqa: F401 (a fixture)
+
+# The bf16 instances: both tiles (32 up to T = 32, 64 beyond) at every
+# head dim, ragged ends, Tq != Tk, the row that sees no key at each tile,
+# and d = 96 padded to 128; at D = 256 the short tile with the row that
+# sees no key, the long tile at Tq != Tk, and d = 200 padded to 256 with
+# the row that sees no key at the long tile; at D = 512 the wide bf16
+# instances (one 32-row tile, two 256-column slices), causal and ragged,
+# with the row that sees no key.
+BF16_CASES = [
+    (1, 17, 17, 1, 512, True, "key0"),
+    (1, 32, 32, 1, 256, True, "key0"),
+    (1, 24, 40, 1, 256, False, "tail"),
+    (1, 40, 40, 1, 200, True, "key0"),
+    (2, 17, 17, 2, 128, True, "tail"),
+    (1, 40, 72, 1, 128, False, "key0"),
+    (1, 65, 65, 1, 128, True, "tail"),
+    (2, 32, 32, 2, 64, True, "key0"),
+    (1, 48, 48, 2, 64, False, "tail"),
+    (2, 24, 24, 2, 32, True, "tail"),
+    (1, 33, 64, 1, 32, False, None),
+    (1, 72, 72, 1, 96, True, "key0"),
+]
+
+
+@pytest.mark.parametrize("b,tq,tk,h,d,causal,mask_kind", BF16_CASES)
+def test_bf16_kernels_match_the_plain_versions(lib, b, tq, tk, h, d, causal, mask_kind):
+    check_kernels(lib, torch.bfloat16, b, tq, tk, h, d, causal, mask_kind)
+
+
+def test_every_bf16_tile_is_emulated():
+    """The bf16 cases reach both tiles of each bf16 instance at every head
+    dim, the row that sees no key at both tiles (at D = 256 too), and
+    d = 96 and 200 padded."""
+    for name in fa.KERNELS:
+        assert _reached(BF16_CASES, name) == {(tile, d) for d in fa.KERNEL_HEAD_DIMS
+                                              for tile in fa.KERNEL_TILES[name, d][:2]}, name
+        for widths in (fa.KERNEL_HEAD_DIMS, (256,)):
+            assert {fa.launch_config(c[1], c[2], fa.kernel_head_dim(c[4]), name)
+                    for c in BF16_CASES if c[6] == "key0"
+                    and fa.kernel_head_dim(c[4]) in widths} == set(fa.KERNEL_TILES[name, 256][:2])
+    assert {fa.kernel_head_dim(d) for _, _, _, _, d, _, _ in BF16_CASES
+            if fa.kernel_head_dim(d) != d} == {128, 256}
+
+
+def test_every_wide_instance_is_emulated():
+    """One case each: the bf16 wide instances at D = 512, the f32 ones at d
+    = 320 padded to 512; each at its one tile, the f32 case over two
+    k-tiles (T = 17 > 16), both causal with the row that sees no key."""
+    for cases, suffix in ((BF16_CASES, ""), (CASES + PADDED_CASES, "_f32")):
+        wide = [c for c in cases if fa.kernel_head_dim(c[4]) > fa.KERNEL_HEAD_DIMS[-1]]
+        assert len(wide) == 1 and wide[0][6] == "key0" and wide[0][5]
+        for kernel in fa.KERNELS:
+            name = kernel + fa.WIDE + suffix
+            assert _reached(cases, name) == {(fa.WIDE_TILES[name], 512)}
+    assert -(-17 // fa.WIDE_TILES["flash_fwd_wide_f32"]) == 2
