@@ -35,9 +35,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    and `d256_` cases): the main shape at that D, the bench shape (4,
    2048, 8, D) causal, Tq != Tk key-padded, ragged causal, and the key-0
    row at both tiles (the f32 instances' long tile is 32 at D = 256).
-   The wide instances (any multiple of 256 above 256, each CTA owning
-   256 output columns) run the same six at D = 512 (`d512_` cases; one
-   tile, 32 rows in bf16, 16 in f32). Then head dims the kernels are not
+   The wide instances (any multiple of 256 above 256: K1 on wgmma in
+   64-row tiles of up to 512 output columns, K2 and K3 in CTAs of 256
+   columns, 32 rows in bf16, 16 in f32) run the same six at D = 512
+   (`d512_` cases), and D = 768 (`d768_`: a 512- and a 256-column slice;
+   f32's K1 streams Q there) ragged causal and Tq != Tk key-padded, bf16
+   also at D = 1280 (its K1 streams Q). Then head dims the kernels are not
    built for (`PADDED_CASES`: d = 16, 48, 80, 96, 160, 200, 264 and 320,
    bf16 and f32), forward + backward through `flash_attention`, which
    zero-pads them to 32, 64, 128, 256 and 512 and slices the output back,
@@ -243,16 +246,21 @@ CASES = (
     ("d256_ragged_causal", 2, 100, 100, 4, 256, True, "tail"),
     ("d256_masked_row0", 1, 128, 128, 2, 256, True, "key0"),
     ("d256_short_masked_row0", 1, 32, 32, 2, 256, True, "key0"),
-    # D = 512, the same six on the wide instances (one 32-row tile; each
-    # CTA owns 256 output columns, grid z = 2): the main shape, the bench
-    # shape, Tq != Tk key-padded, ragged causal, the key-0 row at a short
-    # and a long sequence.
+    # D = 512, the same six on the wide instances (K1: 64-row tiles of 512
+    # columns on wgmma; K2, K3: 32-row tiles of 256 columns, grid z = 2):
+    # the main shape, the bench shape, Tq != Tk key-padded, ragged causal,
+    # the key-0 row at a short and a long sequence.
     ("d512_main_enc_self", 64, 32, 32, 8, 512, False, "tail"),
     ("d512_bench_causal", 4, 2048, 2048, 8, 512, True, None),
     ("d512_cross_48x96", 2, 48, 96, 4, 512, False, "tail"),
     ("d512_ragged_causal", 2, 100, 100, 4, 512, True, "tail"),
     ("d512_masked_row0", 1, 128, 128, 2, 512, True, "key0"),
     ("d512_short_masked_row0", 1, 32, 32, 2, 512, True, "key0"),
+    # D = 768: K1's CTAs of 512 and 256 output columns (grid z = 2), K2's
+    # and K3's three slices; D = 1280, where K1 streams Q's chunks.
+    ("d768_ragged_causal", 2, 100, 100, 4, 768, True, "tail"),
+    ("d768_cross_48x96", 2, 48, 96, 4, 768, False, "tail"),
+    ("d1280_ragged_causal", 1, 100, 100, 2, 1280, True, "tail"),
 )
 MAIN_CASE = "main_enc_self"  # 12 of the 18 launches per step are key-padded, non-causal
 # The f32 instances of K1-K3, in the same form: the main shape key-padded
@@ -291,13 +299,17 @@ F32_CASES = (
     ("d256_ragged_causal_f32", 2, 100, 100, 4, 256, True, "tail"),
     ("d256_masked_row0_f32", 1, 128, 128, 2, 256, True, "key0"),
     ("d256_short_masked_row0_f32", 1, 48, 48, 2, 256, True, "key0"),
-    # D = 512 on the wide f32 instances (one 16-row tile), the same six.
+    # D = 512 on the wide f32 instances (K1: 64-row tiles; K2, K3: 16),
+    # the same six.
     ("d512_main_enc_self_f32", 64, 32, 32, 8, 512, False, "tail"),
     ("d512_bench_causal_f32", 4, 2048, 2048, 8, 512, True, None),
     ("d512_cross_48x96_f32", 2, 48, 96, 4, 512, False, "tail"),
     ("d512_ragged_causal_f32", 2, 100, 100, 4, 512, True, "tail"),
     ("d512_masked_row0_f32", 1, 128, 128, 2, 512, True, "key0"),
     ("d512_short_masked_row0_f32", 1, 48, 48, 2, 512, True, "key0"),
+    # D = 768, where K1 in f32 streams Q's chunks: ragged causal, Tq != Tk.
+    ("d768_ragged_causal_f32", 2, 100, 100, 4, 768, True, "tail"),
+    ("d768_cross_48x96_f32", 2, 48, 96, 4, 768, False, "tail"),
 )
 MAIN_CASE_F32 = "main_enc_self_f32"
 # The D = 128 instances' rows of the kernels line are timed at these
@@ -512,13 +524,18 @@ def emit(tag: str, obj) -> None:
 
 def kernel_name(mangled: str) -> str:
     """"flash_..._kernel<D, tile>" (a wide instance: "flash_..._wide_kernel<
-    type, tile>") of a kernel's mangled name."""
+    type, tile>"; K1's: "flash_fwd_wide_kernel<type, Q resident>" or "..., Q
+    streamed>") of a kernel's mangled name."""
     k = re.search(r"(flash_(?:fwd|dq|dkv)(?:_f32)?_kernel)ILi(\d+)ELi(\d+)E", mangled)
     if k:
         return f"{k.group(1)}<{k.group(2)}, {k.group(3)}>"
-    k = re.search(r"(flash_(?:fwd|dq|dkv)_wide_kernel)I(f|13__nv_bfloat16)Li(\d+)E", mangled)
+    k = re.search(r"(flash_(?:fwd|dq|dkv)_wide_kernel)I(f|13__nv_bfloat16)L([ib])(\d+)E",
+                  mangled)
     if k:
-        return f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'bf16'}, {k.group(3)}>"
+        dtype = "float" if k.group(2) == "f" else "bf16"
+        last = k.group(4) if k.group(3) == "i" else (
+            "Q resident" if k.group(4) == "1" else "Q streamed")
+        return f"{k.group(1)}<{dtype}, {last}>"
     return mangled
 
 
@@ -538,8 +555,9 @@ def spills(log: str):
 
 
 def sass_hmma(library: str):
-    """{"kernel<D, tile>": {HMMA mnemonic: count}} of every kernel
-    instantiation in the library's SASS (`cuobjdump --dump-sass`)."""
+    """{"kernel<D, tile>": {HMMA or HGMMA mnemonic: count}} of every kernel
+    instantiation in the library's SASS (`cuobjdump --dump-sass`): mma.sync
+    compiles to HMMA, wgmma to HGMMA."""
     from torch.utils.cpp_extension import CUDA_HOME
     cuobjdump = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
     sass = subprocess.run([cuobjdump, "--dump-sass", library], capture_output=True, text=True,
@@ -552,7 +570,7 @@ def sass_hmma(library: str):
             if entry.startswith("flash_"):
                 found[entry] = {}
             continue
-        op = re.search(r"\b(HMMA\S*)", line)
+        op = re.search(r"\b(H(?:G)?MMA\S*)", line)
         if op and entry in found:
             found[entry][op.group(1)] = found[entry].get(op.group(1), 0) + 1
     return found
@@ -2193,6 +2211,15 @@ def main() -> int:
         for name, ops in hmma.items():
             if name.startswith(kname):
                 check(any("TF32" in op for op in ops), f"{name}: no TF32 HMMA in its SASS ({ops})")
+    # K1 wide runs on wgmma in both dtypes: HGMMA, bf16 and TF32, in each of
+    # its instances (Q resident and streamed).
+    for dtype, operand in (("bf16", "BF16"), ("float", "TF32")):
+        k1 = {name: ops for name, ops in hmma.items()
+              if name.startswith(f"flash_fwd_wide_kernel<{dtype}")}
+        check(len(k1) == 2, f"K1 wide {dtype}: {sorted(k1)} in the SASS, not its two instances")
+        for name, ops in k1.items():
+            check(any(op.startswith("HGMMA") and operand in op for op in ops),
+                  f"{name}: no {operand} HGMMA in its SASS ({ops})")
     occupancy = fa.kernel_occupancy(torch.cuda.current_device())
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     emit("occupancy", {"sms": sms, "kernels": occupancy,
@@ -2348,7 +2375,7 @@ def main() -> int:
             fwd = kname == "flash_fwd"
             kernels.append({
                 "name": iname, "route": "cuda",
-                "source": "shockwave_tpu_torch/csrc/flash_attention.cu",
+                "source": "shockwave_tpu_torch/csrc/flash_attention_wide.cu",
                 "replaces": source_line,
                 "launches": served["decoder_flash_head_dim_512"][widths]["launches"][iname],
                 "max_abs_err": max(c[e] for n, c in cases.items()
@@ -2361,6 +2388,9 @@ def main() -> int:
                 "bench_ms": b["ms"], "bench_plain_ms": b["plain_ms"],
                 "bench_bound_ms": b["bound_ms"], "bench_bound_by": b["bound_by"],
                 "bench_library_ms": bench_case["library_fwd_ms"] if fwd else None,
+                "d768_max_abs_err": max(c[e] for n, c in cases.items()
+                                        if n.startswith(("d768_", "d1280_"))
+                                        and c["dtype"] == str(dtype) for e in ERR_KEYS[kname]),
                 "library_backend": bench_case["library_backend"]})
     main_case = cases[MAIN_CASE]
     # Forward + backward at D = 256 and 512 (the port's autograd path

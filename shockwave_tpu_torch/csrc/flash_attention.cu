@@ -6,7 +6,9 @@
 // instance, below the bf16 kernels, 3xTF32 on the tensor cores), D in
 // {32, 64, 128, 256} (the wrapper zero-pads any head dim up to 256 to one
 // of them, as the reference pads; wider head dims go to the wide
-// instances below them, which take D at run time), a (B, Tk) uint8 key
+// instances in flash_attention_wide.cu, which take D at run time; the
+// building blocks both files use are in flash_attention_common.cuh), a
+// (B, Tk) uint8 key
 // mask (1 = attend, nullptr = all attend, row = bh /
 // heads) and keep the reference's masking constants: causal entries are
 // set to -1e30, masked keys get a -1e30 additive bias after that, and
@@ -26,129 +28,9 @@
 // otherwise. wgmma and TMA need 64-row warpgroup tiles that the T = 32
 // path cannot fill; they are left for the long-sequence paths a later
 // slice brings.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <type_traits>
+#include "flash_attention_common.cuh"
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
-
-constexpr float kNegInf = -1e30f;  // the reference's NEG_INF
-
-__device__ __forceinline__ float minus_infinity() { return __int_as_float(0xff800000); }
-
-// Additive bias of one key, as the reference's _kbias gives it: 0
-// (attend), -1e30 (masked), and -inf past the sequence end.
-__device__ __forceinline__ float key_bias(const uint8_t* mask_row, int key, int tk) {
-  if (key >= tk) return minus_infinity();
-  return (mask_row != nullptr && mask_row[key] == 0) ? kNegInf : 0.f;
-}
-
-// ---------------------------------------------------------------------------
-// Building blocks of the kernels: cp.async, ldmatrix, mma.sync.
-// ---------------------------------------------------------------------------
-
-// Shared tiles keep rows of D + 8 bf16 (D = 64: 144 bytes). The 8 rows an
-// ldmatrix phase reads then start in 8 different 16-byte bank groups, so
-// neither ldmatrix nor the epilogue's staging stores conflict.
-template <int D>
-__host__ __device__ constexpr int smem_stride() {
-  return D + 8;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global -> shared copy; with valid false the 16 bytes are zeroed
-// and nothing is read.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N committed groups of this thread are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of
-// matrix i, and register i of lane l holds row l/4, columns 2(l%4) and
-// 2(l%4)+1 of matrix i (with .trans: of its transpose).
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c (16x8 f32) += a (16x16 bf16, row-major) . b (16x8 bf16, col-major).
-// With g = lane / 4 and t = lane % 4: c[0], c[1] are row g, columns
-// 2t, 2t+1; c[2], c[3] the same columns of row g + 8.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// The A operand (16 x 16, row-major) at `tile` (row stride S) for this lane.
-template <int S>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile, int lane) {
-  ldmatrix_x4(a, tile + (lane & 15) * S + (lane >> 4) * 8);
-}
-
-// B operands of two n8 tiles for A . X^T where X is row-major (rows =
-// n): rows 0-7 and 8-15 of `tile`, columns 0-15. b[0], b[1] feed n-tile
-// 0, b[2], b[3] n-tile 1.
-template <int S>
-__device__ __forceinline__ void load_bt(uint32_t (&b)[4], const bf16* tile, int lane) {
-  ldmatrix_x4(b, tile + (((lane >> 4) << 3) + (lane & 7)) * S + ((lane >> 3) & 1) * 8);
-}
-
-// B operands of two n8 tiles for A . X where X is row-major (rows = k):
-// rows 0-15 of `tile`, columns 0-7 (b[0], b[1]) and 8-15 (b[2], b[3]).
-template <int S>
-__device__ __forceinline__ void load_b(uint32_t (&b)[4], const bf16* tile, int lane) {
-  ldmatrix_x4_trans(b, tile + (((lane >> 3) & 1) * 8 + (lane & 7)) * S + (lane >> 4) * 8);
-}
-
-// The A operand of a 16 x 16 slice of probabilities held as two n8
-// accumulator tiles: the FA2 repacking, no shared memory.
-__device__ __forceinline__ void accum_to_a(uint32_t (&a)[4], const float (&c0)[4],
-                                           const float (&c1)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
-}
 
 // Start cp.async copies of rows [row0, row0 + R) of a (rows, D) bf16
 // matrix into an R-row shared tile; rows past `rows` are zero-filled.
@@ -904,59 +786,6 @@ __global__ void __launch_bounds__(DkvShape<D, kBlock>::kCtaThreads)
 // operands from shared memory, so P.V, dS.K and every transposed product
 // of K3 would need transposed copies of their tiles. That is left for a
 // later speed PR.
-// ---------------------------------------------------------------------------
-// 3xTF32 building blocks of K1 and K3 in f32: the TF32 split, mma.sync
-// m16n8k8. g = lane / 4 and t = lane % 4 throughout.
-// ---------------------------------------------------------------------------
-
-// The 3xTF32 kernels' shared tiles keep rows of D + 4 floats (D = 64: 272
-// bytes): the fragment reads below (row g, column t; or row 2t, column g)
-// then fall in 32 different banks, and each row stays 16-byte aligned for
-// cp.async.
-template <int D>
-__host__ __device__ constexpr int f32_stride() {
-  return D + 4;
-}
-
-// N registers of an f32 operand fragment, each split as x = big + small,
-// both TF32.
-template <int N>
-struct Split {
-  uint32_t big[N], small[N];
-};
-
-// x = big + small, both TF32, as CUTLASS's fast f32 GEMMs (and so
-// PyTorch's f32 attention) split an operand: big is x with the 13 bits
-// below TF32's 10 mantissa bits cleared, small = x - big (exact) rounded
-// to nearest by adding half of its dropped bits, which stay in place: the
-// tensor cores read only a TF32 operand's top 19 bits. Three integer or
-// float ops for finite x; cvt.rna.tf32.f32 alone compiles to a longer
-// sequence that also screens infinities and NaNs, which these operands
-// never are. big.big + big.small + small.big then keeps about 21 bits of
-// each product.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
-  big = __float_as_uint(x) & 0xffffe000u;
-  small = __float_as_uint(x - __uint_as_float(big)) + 0x1000u;
-}
-
-// c (16x8 f32) += a (16x8 TF32, row-major) . b (8x8 TF32, col-major).
-// a[0..3] hold (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); b0 (t, g),
-// b1 (t + 4, g); c as in mma_bf16.
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a . b to f32 accuracy: the two small terms first, then big . big,
-// all into the one f32 accumulator.
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const Split<4>& a, const Split<2>& b) {
-  mma_tf32(c, a.small, b.big[0], b.big[1]);
-  mma_tf32(c, a.big, b.small[0], b.small[1]);
-  mma_tf32(c, a.big, b.big[0], b.big[1]);
-}
 
 // The A operand of rows [r0, r0 + 16), columns [c0, c0 + 8) of a (rows,
 // D) f32 matrix in device memory, split; rows past `rows` read 0.
@@ -971,53 +800,6 @@ __device__ __forceinline__ Split<4> split_a_global(const float* x, int r0, int r
   Split<4> a;
 #pragma unroll
   for (int i = 0; i < 4; ++i) split_tf32(v[i], a.big[i], a.small[i]);
-  return a;
-}
-
-// The same from a raw f32 tile in shared memory: rows g and g + 8,
-// columns [0, 8) at `x` (row stride S), split as they are read. With S =
-// D + 4 the 32 lanes' reads fall in 32 different banks.
-template <int S>
-__device__ __forceinline__ Split<4> split_a_shared(const float* x, int g, int t) {
-  const float v[4] = {x[g * S + t], x[(g + 8) * S + t], x[g * S + t + 4], x[(g + 8) * S + t + 4]};
-  Split<4> a;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) split_tf32(v[i], a.big[i], a.small[i]);
-  return a;
-}
-
-// The B operand of A . X^T for 8 rows of X (the n side) at `x` in shared
-// memory, row stride S, 8 columns: b0 = X[g][t], b1 = X[g][t + 4].
-template <int S>
-__device__ __forceinline__ Split<2> split_bt(const float* x, int g, int t) {
-  Split<2> b;
-  split_tf32(x[g * S + t], b.big[0], b.small[0]);
-  split_tf32(x[g * S + t + 4], b.big[1], b.small[1]);
-  return b;
-}
-
-// The B operand of A . X for 8 rows of X (the reduction side) at `x`, 8
-// columns, with the reduction index permuted: slot t takes row 2t, slot
-// t + 4 row 2t + 1, so b0 = X[2t][g] and b1 = X[2t + 1][g]. It pairs with
-// accum_to_a_tf32, which permutes A's columns the same way.
-template <int S>
-__device__ __forceinline__ Split<2> split_b_permuted(const float* x, int g, int t) {
-  Split<2> b;
-  split_tf32(x[2 * t * S + g], b.big[0], b.small[0]);
-  split_tf32(x[(2 * t + 1) * S + g], b.big[1], b.small[1]);
-  return b;
-}
-
-// A 16x8 accumulator tile c (rows g and g + 8, columns 2t and 2t + 1) as
-// a split A operand, its columns permuted as split_b_permuted's rows:
-// slot t holds column 2t and slot t + 4 column 2t + 1. Each lane keeps
-// its own values; nothing moves across lanes.
-__device__ __forceinline__ Split<4> accum_to_a_tf32(const float (&c)[4]) {
-  Split<4> a;
-  split_tf32(c[0], a.big[0], a.small[0]);  // (g, 2t)
-  split_tf32(c[2], a.big[1], a.small[1]);  // (g + 8, 2t)
-  split_tf32(c[1], a.big[2], a.small[2]);  // (g, 2t + 1)
-  split_tf32(c[3], a.big[3], a.small[3]);  // (g + 8, 2t + 1)
   return a;
 }
 
@@ -1616,616 +1398,6 @@ __global__ void __launch_bounds__(DkvF32Shape<D, kBlock>::kCtaThreads)
   }
 }
 
-// ---------------------------------------------------------------------------
-// K1-K3 at wide head dims: flash_fwd_wide, flash_dq_wide, flash_dkv_wide,
-// each templated on the element type (bf16, or f32 as 3xTF32) and the
-// row tile. They take any padded D above 256 that is a multiple of 256
-// (the wrapper pads 257-512 to 512 and wider head dims to the next
-// multiple of 256, as the reference pads any head dim to its sublane
-// multiple), passed at run time: they replace the same Pallas kernels
-// (_fa_kernel :40, _dq_kernel :167, _dkv_kernel :222) at those widths.
-//
-// Bound on an H100 SXM at the bench shape (4, 2048, 8, 512) causal: K1
-// does 137.5 GFLOP, 139 us by bf16 operations (834 us as 3xTF32); K2 and
-// K3 1.5x and 2x that.
-//
-// What the design does about a head dim no template instance can hold
-// (at D = 256 the f32 instances already take 255 registers and about
-// 200 KB of shared memory):
-// 1. Column slices: a CTA owns 256 columns of its rows' output (K1: O;
-//    K2: dQ; K3: dK and dV), grid z = D / 256, and two warps share each
-//    16 rows, each owning 128 of those columns: the split of the narrow
-//    K3 at D = 256 (kColSplit, note 8 of the bf16 K3), extended to every
-//    kernel and carried on across CTAs. A warp's sums (O or dQ: 64
-//    registers a lane; dK and dV: 128) never depend on D.
-// 2. The scores over the full width: S = Q.K^T (and dP = dO.V^T in the
-//    backward) are summed over 64-column chunks of Q, K, dO and V that
-//    stream through a two-stage cp.async ring in shared memory, so D is a
-//    run-time loop count and shared memory does not grow with it. Every
-//    CTA of a row tile forms the same scores (the warps of a CTA share
-//    the chunks): D / 256 times per row tile in all, the price of a
-//    simple kernel. The chunk steps of every k-tile (K3: q-tile) run as
-//    one flat sequence, so the ring never drains between tiles.
-// 3. The slice operand of the second product (K1: V; K2: K; K3: Q and
-//    dO) is copied with the first chunk of its tile into a two-stage slice
-//    buffer, so it arrives while the scores are summed.
-// 4. The masking, the online softmax, the p = 0 guard where s <= -5e29
-//    and the operand hand-offs are the narrow kernels', fragment for
-//    fragment: bf16 repacks accumulators into m16n8k16 A operands
-//    (accum_to_a), f32 splits them into m16n8k8 TF32 ones with the
-//    reduction index permuted (accum_to_a_tf32). Each tile's part of O,
-//    dQ, dK and dV is summed from zero and added to the sum in f32.
-// 5. Shared memory does not depend on D: 2 stages of the chunks (K1: Q
-//    and K; K2, K3: Q, dO, K and V) and 2 of the slices. bf16 at 32 rows:
-//    K1 52,480 bytes, K2 70,912, K3 104,960; f32 at 16 rows: K1 50,816,
-//    K2 68,224, K3 101,632.
-// ---------------------------------------------------------------------------
-constexpr int kWideChunk = 64;                        // columns of a streamed score tile
-constexpr int kWideSlice = 256;                       // output columns a CTA owns
-constexpr int kWideColSplit = 2;                      // warps per 16 rows
-constexpr int kWideCols = kWideSlice / kWideColSplit;  // output columns a warp owns
-constexpr int kWideTileBf16 = 32, kWideTileF32 = 16;  // rows per CTA
-
-// Row stride of a W-column shared tile: the narrow kernels' padding.
-template <typename T, int W>
-__host__ __device__ constexpr int wide_stride() {
-  return std::is_same<T, bf16>::value ? smem_stride<W>() : f32_stride<W>();
-}
-
-template <typename T, int kBlock>
-struct WideShape {
-  static constexpr int kRowWarps = kBlock / 16;
-  static constexpr int kCtaThreads = kRowWarps * kWideColSplit * 32;
-  static constexpr int kChunkElems = kBlock * wide_stride<T, kWideChunk>();
-  static constexpr int kSliceElems = kBlock * wide_stride<T, kWideSlice>();
-  // Two stages each of kChunks chunk tiles, kSlices slice tiles and
-  // kRows per-row f32 vectors (key bias; lse and delta).
-  template <int kChunks, int kSlices, int kRows>
-  static constexpr size_t smem_bytes() {
-    return (size_t)(2 * kChunks * kChunkElems + 2 * kSlices * kSliceElems) * sizeof(T) +
-           (size_t)2 * kRows * kBlock * sizeof(float);
-  }
-};
-
-// Start cp.async copies of rows [row0, row0 + R), columns [col, col + W)
-// of a (rows, d) matrix into an R-row shared tile; rows past `rows` are
-// zero-filled.
-template <typename T, int W, int R, int kThr>
-__device__ __forceinline__ void copy_cols_async(T* dst, const T* src, int row0, int rows, int d,
-                                                int col) {
-  constexpr int kPer = 16 / (int)sizeof(T);  // elements per 16-byte copy
-  constexpr int kChunks = W / kPer;
-  for (int i = threadIdx.x; i < R * kChunks; i += kThr) {
-    const int r = i / kChunks, c = i % kChunks;
-    const bool valid = row0 + r < rows;
-    cp_async16(dst + r * wide_stride<T, W>() + c * kPer,
-               src + (size_t)(valid ? row0 + r : 0) * d + col + c * kPer, valid);
-  }
-}
-
-// s (16 x kN*8) += A . B^T over one kWideChunk-column chunk: A the warp's
-// 16 rows at `a`, B kN*8 rows at `b`, both of row stride S.
-template <int kN, int S>
-__device__ __forceinline__ void scores_chunk(float (&s)[kN][4], const bf16* a, const bf16* b,
-                                             int lane) {
-#pragma unroll
-  for (int kk = 0; kk < kWideChunk / 16; ++kk) {
-    uint32_t qa[4];
-    load_a<S>(qa, a + kk * 16, lane);
-#pragma unroll
-    for (int nn = 0; nn < kN / 2; ++nn) {
-      uint32_t bb[4];
-      load_bt<S>(bb, b + nn * 16 * S + kk * 16, lane);
-      mma_bf16(s[2 * nn], qa, bb[0], bb[1]);
-      mma_bf16(s[2 * nn + 1], qa, bb[2], bb[3]);
-    }
-  }
-}
-
-template <int kN, int S>
-__device__ __forceinline__ void scores_chunk(float (&s)[kN][4], const float* a, const float* b,
-                                             int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < kWideChunk / 8; ++kk) {
-    const Split<4> qa = split_a_shared<S>(a + kk * 8, g, t);
-#pragma unroll
-    for (int j = 0; j < kN; ++j) mma_3xtf32(s[j], qa, split_bt<S>(b + j * 8 * S + kk * 8, g, t));
-  }
-}
-
-// A 16 x kN*8 accumulator tile (P, dS, P^T or dS^T) as the A operands of
-// the second product.
-template <typename T, int kN>
-struct AccumOperands;
-
-template <int kN>
-struct AccumOperands<bf16, kN> {
-  uint32_t a[kN / 2][4];
-};
-
-template <int kN>
-struct AccumOperands<float, kN> {
-  Split<4> a[kN];
-};
-
-template <int kN>
-__device__ __forceinline__ void to_operands(AccumOperands<bf16, kN>& p, const float (&s)[kN][4]) {
-#pragma unroll
-  for (int c = 0; c < kN / 2; ++c) accum_to_a(p.a[c], s[2 * c], s[2 * c + 1]);
-}
-
-template <int kN>
-__device__ __forceinline__ void to_operands(AccumOperands<float, kN>& p, const float (&s)[kN][4]) {
-#pragma unroll
-  for (int c = 0; c < kN; ++c) p.a[c] = accum_to_a_tf32(s[c]);
-}
-
-// part[j] (16 x 8, j = 0, 1) += P . X for the 16 columns of X at `x`: X's
-// rows are P's kN*8 columns (keys, or queries in K3), row stride S.
-template <int S, int kN>
-__device__ __forceinline__ void product16(float (&part)[2][4], const AccumOperands<bf16, kN>& p,
-                                          const bf16* x, int lane) {
-#pragma unroll
-  for (int c = 0; c < kN / 2; ++c) {
-    uint32_t b[4];
-    load_b<S>(b, x + c * 16 * S, lane);
-    mma_bf16(part[0], p.a[c], b[0], b[1]);
-    mma_bf16(part[1], p.a[c], b[2], b[3]);
-  }
-}
-
-template <int S, int kN>
-__device__ __forceinline__ void product16(float (&part)[2][4], const AccumOperands<float, kN>& p,
-                                          const float* x, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int c = 0; c < kN; ++c) {
-    mma_3xtf32(part[0], p.a[c], split_b_permuted<S>(x + c * 8 * S, g, t));
-    mma_3xtf32(part[1], p.a[c], split_b_permuted<S>(x + c * 8 * S + 8, g, t));
-  }
-}
-
-// sum (kWideCols / 8 n8 tiles) = sum * (corr of the tile's row) + P . X
-// over the warp's kWideCols columns of X at `x`, each 16 columns' part
-// summed from zero (corr nullptr: plain +=).
-template <typename T, int S, int kN>
-__device__ __forceinline__ void add_product(float (&sum)[kWideCols / 8][4],
-                                            const AccumOperands<T, kN>& p, const T* x,
-                                            const float* corr, int lane) {
-#pragma unroll
-  for (int nn = 0; nn < kWideCols / 16; ++nn) {
-    float part[2][4] = {};
-    product16<S>(part, p, x + nn * 16, lane);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        sum[2 * nn + j][e] = corr != nullptr ? fmaf(sum[2 * nn + j][e], corr[e >> 1], part[j][e])
-                                             : sum[2 * nn + j][e] + part[j][e];
-    }
-  }
-}
-
-__device__ __forceinline__ void store2(bf16* p, float a, float b) {
-  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
-}
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-
-// Rows g and g + 8 of a warp's 16 x kWideCols sum into rows[0], rows[1]
-// of a (rows, d) matrix at `dst` (the warp's first column), scaled.
-template <typename T>
-__device__ __forceinline__ void store_rows(T* dst, const float (&sum)[kWideCols / 8][4],
-                                           const int (&rows)[2], int nrows, int d,
-                                           const float (&scale)[2], int lane) {
-  const int t = lane & 3;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (rows[h] >= nrows) continue;
-#pragma unroll
-    for (int n = 0; n < kWideCols / 8; ++n)
-      store2(dst + (size_t)rows[h] * d + n * 8 + 2 * t, sum[n][2 * h] * scale[h],
-             sum[n][2 * h + 1] * scale[h]);
-  }
-}
-
-// K1 at wide head dims. Grid (BH, q-tiles, D / 256), heaviest causal tile
-// first.
-template <typename T, int kBlock>
-__global__ void __launch_bounds__(WideShape<T, kBlock>::kCtaThreads)
-    flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, const uint8_t* __restrict__ mask,
-                          T* __restrict__ out, float* __restrict__ lse, int heads, int tq, int tk,
-                          int d, float scale, int causal) {
-  using Shape = WideShape<T, kBlock>;
-  constexpr int SC = wide_stride<T, kWideChunk>(), SS = wide_stride<T, kWideSlice>();
-  constexpr int kThr = Shape::kCtaThreads, kN = kBlock / 8;
-  constexpr int kEC = Shape::kChunkElems, kES = Shape::kSliceElems;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem);                     // 2 stages of chunks
-  T* sK = sQ + 2 * kEC;                                   // 2 stages of chunks
-  T* sV = sK + 2 * kEC;                                   // 2 stages of the V slice
-  float* sBias = reinterpret_cast<float*>(sV + 2 * kES);  // 2 stages
-
-  const int bh = blockIdx.x;
-  const int qt = gridDim.y - 1 - blockIdx.y;  // causal: the longest k loops start first
-  const int q0 = qt * kBlock;
-  const int slice0 = blockIdx.z * kWideSlice;
-  const int rw = (threadIdx.x >> 5) % Shape::kRowWarps, lane = threadIdx.x & 31;
-  const int col0 = (threadIdx.x >> 5) / Shape::kRowWarps * kWideCols;
-  const int g = lane >> 2, t = lane & 3;
-  const T* qb = q + (size_t)bh * tq * d;
-  const T* kb = k + (size_t)bh * tk * d;
-  const T* vb = v + (size_t)bh * tk * d;
-  const uint8_t* mask_row = mask != nullptr ? mask + (size_t)(bh / heads) * tk : nullptr;
-  const int row[2] = {q0 + rw * 16 + g, q0 + rw * 16 + g + 8};
-
-  int nk = (tk + kBlock - 1) / kBlock;
-  if (causal) nk = min(nk, qt + 1);  // k-tiles past the diagonal see nothing
-  const int nc = d / kWideChunk, steps = nk * nc;
-
-  // Step i: chunk i % nc of k-tile i / nc; its first chunk brings the
-  // tile's V slice and key bias.
-  auto load = [&](int i) {
-    const int kt = i / nc, c = i % nc;
-    copy_cols_async<T, kWideChunk, kBlock, kThr>(sQ + (i & 1) * kEC, qb, q0, tq, d,
-                                                 c * kWideChunk);
-    copy_cols_async<T, kWideChunk, kBlock, kThr>(sK + (i & 1) * kEC, kb, kt * kBlock, tk, d,
-                                                 c * kWideChunk);
-    if (c == 0) {
-      copy_cols_async<T, kWideSlice, kBlock, kThr>(sV + (kt & 1) * kES, vb, kt * kBlock, tk, d,
-                                                   slice0);
-      for (int j = threadIdx.x; j < kBlock; j += kThr)
-        sBias[(kt & 1) * kBlock + j] = key_bias(mask_row, kt * kBlock + j, tk);
-    }
-    cp_async_commit();
-  };
-  load(0);
-
-  float o[kWideCols / 8][4] = {};
-  float m[2] = {kNegInf, kNegInf};  // running max of rows g, g + 8
-  float l[2] = {0.f, 0.f};          // this lane's part of their normalisers
-  float s[kN][4];
-  for (int i = 0; i < steps; ++i) {
-    const int kt = i / nc, c = i % nc;
-    if (i + 1 < steps) {
-      load(i + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (c == 0) {
-#pragma unroll
-      for (int j = 0; j < kN; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    }
-    scores_chunk<kN, SC>(s, sQ + (i & 1) * kEC + rw * 16 * SC, sK + (i & 1) * kEC, lane);
-    if (c == nc - 1) {
-      // Scale, causal -1e30, then the key bias, as _fa_kernel orders
-      // them; the new running max starts from the old one.
-      const float* cBias = sBias + (kt & 1) * kBlock;
-      const int k0 = kt * kBlock;
-      float mx[2] = {m[0], m[1]};
-#pragma unroll
-      for (int j = 0; j < kN; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kl = j * 8 + 2 * t + (e & 1);
-          float x = s[j][e] * scale;
-          if (causal && row[e >> 1] < k0 + kl) x = kNegInf;
-          x += cBias[kl];
-          s[j][e] = x;
-          mx[e >> 1] = fmaxf(mx[e >> 1], x);
-        }
-      }
-      float corr[2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-        corr[h] = __expf(m[h] - mx[h]);
-        m[h] = mx[h];
-        l[h] *= corr[h];
-      }
-#pragma unroll
-      for (int j = 0; j < kN; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = __expf(s[j][e] - m[e >> 1]);
-          s[j][e] = p;
-          l[e >> 1] += p;
-        }
-      }
-      // O = O corr + P.V over the warp's columns of the V slice (P cast to
-      // T in the A operands).
-      AccumOperands<T, kN> pa;
-      to_operands(pa, s);
-      add_product<T, SS>(o, pa, sV + (kt & 1) * kES + col0, corr, lane);
-    }
-    __syncthreads();  // every warp is done with this stage before it is refilled
-  }
-
-  float inv[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-    const float lc = fmaxf(l[h], 1e-30f);
-    inv[h] = 1.f / lc;
-    // lse is the same in every slice: the first warp of slice 0 writes it.
-    if (blockIdx.z == 0 && col0 == 0 && t == 0 && row[h] < tq)
-      lse[(size_t)bh * tq + row[h]] = m[h] + logf(lc);
-  }
-  store_rows(out + (size_t)bh * tq * d + slice0 + col0, o, row, tq, d, inv, lane);
-}
-
-// K2 at wide head dims: dQ. Grid (BH, q-tiles, D / 256), heaviest causal
-// tile first.
-template <typename T, int kBlock>
-__global__ void __launch_bounds__(WideShape<T, kBlock>::kCtaThreads)
-    flash_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ g,
-                         const float* __restrict__ lse, const float* __restrict__ delta,
-                         const uint8_t* __restrict__ mask, T* __restrict__ dq, int heads, int tq,
-                         int tk, int d, float scale, int causal) {
-  using Shape = WideShape<T, kBlock>;
-  constexpr int SC = wide_stride<T, kWideChunk>(), SS = wide_stride<T, kWideSlice>();
-  constexpr int kThr = Shape::kCtaThreads, kN = kBlock / 8;
-  constexpr int kEC = Shape::kChunkElems, kES = Shape::kSliceElems;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem);                      // 2 stages of chunks each
-  T* sG = sQ + 2 * kEC;
-  T* sK = sG + 2 * kEC;
-  T* sV = sK + 2 * kEC;
-  T* sKs = sV + 2 * kEC;                                   // 2 stages of the K slice
-  float* sBias = reinterpret_cast<float*>(sKs + 2 * kES);  // 2 stages
-
-  const int bh = blockIdx.x;
-  const int qt = gridDim.y - 1 - blockIdx.y;  // causal: the longest k loops start first
-  const int q0 = qt * kBlock;
-  const int slice0 = blockIdx.z * kWideSlice;
-  const int rw = (threadIdx.x >> 5) % Shape::kRowWarps, lane = threadIdx.x & 31;
-  const int col0 = (threadIdx.x >> 5) / Shape::kRowWarps * kWideCols;
-  const int t = lane & 3;
-  const T* qb = q + (size_t)bh * tq * d;
-  const T* gb = g + (size_t)bh * tq * d;
-  const T* kb = k + (size_t)bh * tk * d;
-  const T* vb = v + (size_t)bh * tk * d;
-  const uint8_t* mask_row = mask != nullptr ? mask + (size_t)(bh / heads) * tk : nullptr;
-  const int row[2] = {q0 + rw * 16 + (lane >> 2), q0 + rw * 16 + (lane >> 2) + 8};
-  // A row past tq reads 0 (Q, dO, lse and delta): its dS is 0 and its dQ
-  // is never written.
-  float row_lse[2], row_delta[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const bool in = row[h] < tq;
-    row_lse[h] = in ? lse[(size_t)bh * tq + row[h]] : 0.f;
-    row_delta[h] = in ? delta[(size_t)bh * tq + row[h]] : 0.f;
-  }
-
-  int nk = (tk + kBlock - 1) / kBlock;
-  if (causal) nk = min(nk, qt + 1);  // k-tiles past the diagonal see nothing
-  const int nc = d / kWideChunk, steps = nk * nc;
-
-  auto load = [&](int i) {
-    const int kt = i / nc, col = i % nc * kWideChunk, st = i & 1;
-    copy_cols_async<T, kWideChunk, kBlock, kThr>(sQ + st * kEC, qb, q0, tq, d, col);
-    copy_cols_async<T, kWideChunk, kBlock, kThr>(sG + st * kEC, gb, q0, tq, d, col);
-    copy_cols_async<T, kWideChunk, kBlock, kThr>(sK + st * kEC, kb, kt * kBlock, tk, d, col);
-    copy_cols_async<T, kWideChunk, kBlock, kThr>(sV + st * kEC, vb, kt * kBlock, tk, d, col);
-    if (col == 0) {
-      copy_cols_async<T, kWideSlice, kBlock, kThr>(sKs + (kt & 1) * kES, kb, kt * kBlock, tk, d,
-                                                   slice0);
-      for (int j = threadIdx.x; j < kBlock; j += kThr)
-        sBias[(kt & 1) * kBlock + j] = key_bias(mask_row, kt * kBlock + j, tk);
-    }
-    cp_async_commit();
-  };
-  load(0);
-
-  float dq_acc[kWideCols / 8][4] = {};
-  float s[kN][4], dp[kN][4];
-  for (int i = 0; i < steps; ++i) {
-    const int kt = i / nc, c = i % nc, st = i & 1;
-    if (i + 1 < steps) {
-      load(i + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (c == 0) {
-#pragma unroll
-      for (int j = 0; j < kN; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-      }
-    }
-    scores_chunk<kN, SC>(s, sQ + st * kEC + rw * 16 * SC, sK + st * kEC, lane);
-    scores_chunk<kN, SC>(dp, sG + st * kEC + rw * 16 * SC, sV + st * kEC, lane);
-    if (c == nc - 1) {
-      // Scale, causal -1e30, then the key bias, as _dq_kernel orders
-      // them: dS = p (dP - delta) scale, p = 0 where s <= -5e29.
-      const float* cBias = sBias + (kt & 1) * kBlock;
-      const int k0 = kt * kBlock;
-#pragma unroll
-      for (int j = 0; j < kN; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kl = j * 8 + 2 * t + (e & 1), h = e >> 1;
-          float x = s[j][e] * scale;
-          if (causal && row[h] < k0 + kl) x = kNegInf;
-          x += cBias[kl];
-          const float p = x <= kNegInf * 0.5f ? 0.f : __expf(x - row_lse[h]);
-          dp[j][e] = p * (dp[j][e] - row_delta[h]) * scale;
-        }
-      }
-      // dQ += dS.K over the warp's columns of the K slice.
-      AccumOperands<T, kN> dsa;
-      to_operands(dsa, dp);
-      add_product<T, SS>(dq_acc, dsa, sKs + (kt & 1) * kES + col0, nullptr, lane);
-    }
-    __syncthreads();  // every warp is done with this stage before it is refilled
-  }
-  const float one[2] = {1.f, 1.f};
-  store_rows(dq + (size_t)bh * tq * d + slice0 + col0, dq_acc, row, tq, d, one, lane);
-}
-
-// K3 at wide head dims: dK and dV. Grid (BH, k-tiles, D / 256); a CTA
-// owns kBlock keys and walks the q-tiles from the causal diagonal on.
-template <typename T, int kBlock>
-__global__ void __launch_bounds__(WideShape<T, kBlock>::kCtaThreads)
-    flash_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, const T* __restrict__ g,
-                          const float* __restrict__ lse, const float* __restrict__ delta,
-                          const uint8_t* __restrict__ mask, T* __restrict__ dk,
-                          T* __restrict__ dv, int heads, int tq, int tk, int d, float scale,
-                          int causal) {
-  using Shape = WideShape<T, kBlock>;
-  constexpr int SC = wide_stride<T, kWideChunk>(), SS = wide_stride<T, kWideSlice>();
-  constexpr int kThr = Shape::kCtaThreads, kN = kBlock / 8;
-  constexpr int kEC = Shape::kChunkElems, kES = Shape::kSliceElems;
-  static_assert(kThr >= 2 * kBlock, "one lse or one delta entry per thread");
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* sK = reinterpret_cast<T*>(smem);  // 2 stages of chunks each
-  T* sV = sK + 2 * kEC;
-  T* sQ = sV + 2 * kEC;
-  T* sG = sQ + 2 * kEC;
-  T* sQs = sG + 2 * kEC;                                  // 2 stages of the Q slice
-  T* sGs = sQs + 2 * kES;                                 // 2 stages of the dO slice
-  float* sLse = reinterpret_cast<float*>(sGs + 2 * kES);  // 2 stages
-  float* sDelta = sLse + 2 * kBlock;                      // 2 stages
-
-  const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * kBlock;
-  const int slice0 = blockIdx.z * kWideSlice;
-  const int rw = (threadIdx.x >> 5) % Shape::kRowWarps, lane = threadIdx.x & 31;
-  const int col0 = (threadIdx.x >> 5) / Shape::kRowWarps * kWideCols;
-  const int t = lane & 3;
-  const T* qb = q + (size_t)bh * tq * d;
-  const T* gb = g + (size_t)bh * tq * d;
-  const T* kb = k + (size_t)bh * tk * d;
-  const T* vb = v + (size_t)bh * tk * d;
-  const float* lse_b = lse + (size_t)bh * tq;
-  const float* delta_b = delta + (size_t)bh * tq;
-  const uint8_t* mask_row = mask != nullptr ? mask + (size_t)(bh / heads) * tk : nullptr;
-  const int key[2] = {k0 + rw * 16 + (lane >> 2), k0 + rw * 16 + (lane >> 2) + 8};
-  const float bias[2] = {key_bias(mask_row, key[0], tk), key_bias(mask_row, key[1], tk)};
-
-  const int nq = (tq + kBlock - 1) / kBlock;
-  // q-tiles above the diagonal see none of these keys
-  const int qt0 = causal ? (int)blockIdx.y : 0;
-  const int nc = d / kWideChunk, steps = max(nq - qt0, 0) * nc;
-
-  // Step i: chunk i % nc of q-tile qt0 + i / nc; its first chunk brings the
-  // tile's Q and dO slices, lse and delta.
-  auto load = [&](int i) {
-    const int q0 = (qt0 + i / nc) * kBlock, col = i % nc * kWideChunk, st = i & 1;
-    copy_cols_async<T, kWideChunk, kBlock, kThr>(sK + st * kEC, kb, k0, tk, d, col);
-    copy_cols_async<T, kWideChunk, kBlock, kThr>(sV + st * kEC, vb, k0, tk, d, col);
-    copy_cols_async<T, kWideChunk, kBlock, kThr>(sQ + st * kEC, qb, q0, tq, d, col);
-    copy_cols_async<T, kWideChunk, kBlock, kThr>(sG + st * kEC, gb, q0, tq, d, col);
-    if (col == 0) {
-      const int ts = (i / nc) & 1;
-      copy_cols_async<T, kWideSlice, kBlock, kThr>(sQs + ts * kES, qb, q0, tq, d, slice0);
-      copy_cols_async<T, kWideSlice, kBlock, kThr>(sGs + ts * kES, gb, q0, tq, d, slice0);
-      // The first 2 kBlock threads: one f32 each, lse then delta; rows
-      // past tq read 0.
-      if (threadIdx.x < 2 * kBlock) {
-        const int r = threadIdx.x % kBlock;
-        const bool valid = q0 + r < tq;
-        const float* src = threadIdx.x < kBlock ? lse_b : delta_b;
-        float* dst = (threadIdx.x < kBlock ? sLse : sDelta) + ts * kBlock;
-        cp_async4(dst + r, src + (valid ? q0 + r : 0), valid);
-      }
-    }
-    cp_async_commit();
-  };
-  if (steps > 0) load(0);
-
-  float dk_acc[kWideCols / 8][4] = {}, dv_acc[kWideCols / 8][4] = {};
-  float st[kN][4], dpt[kN][4];
-  for (int i = 0; i < steps; ++i) {
-    const int c = i % nc, stage = i & 1, ts = (i / nc) & 1;
-    if (i + 1 < steps) {
-      load(i + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (c == 0) {
-#pragma unroll
-      for (int j = 0; j < kN; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-      }
-    }
-    // S^T = K.Q^T and dP^T = V.dO^T for the warp's 16 keys.
-    scores_chunk<kN, SC>(st, sK + stage * kEC + rw * 16 * SC, sQ + stage * kEC, lane);
-    scores_chunk<kN, SC>(dpt, sV + stage * kEC + rw * 16 * SC, sG + stage * kEC, lane);
-    if (c == nc - 1) {
-      const int q0 = (qt0 + i / nc) * kBlock;
-      const float* cLse = sLse + ts * kBlock;
-      const float* cDelta = sDelta + ts * kBlock;
-      // Lane holds keys key[0] (e = 0, 1) and key[1] (e = 2, 3) against
-      // queries ql and ql + 1 of each n8 tile.
-#pragma unroll
-      for (int j = 0; j < kN; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int ql = j * 8 + 2 * t + (e & 1), query = q0 + ql;
-          float x = st[j][e] * scale;
-          if (causal && query < key[e >> 1]) x = kNegInf;
-          x += bias[e >> 1];
-          const float p =
-              (x <= kNegInf * 0.5f || query >= tq) ? 0.f : __expf(x - cLse[ql]);
-          st[j][e] = p;
-          dpt[j][e] = p * (dpt[j][e] - cDelta[ql]) * scale;
-        }
-      }
-      // dV += P^T.dO, then dK += dS^T.Q, over the warp's columns of the
-      // tile's dO and Q slices.
-      AccumOperands<T, kN> pa;
-      to_operands(pa, st);
-      add_product<T, SS>(dv_acc, pa, sGs + ts * kES + col0, nullptr, lane);
-      to_operands(pa, dpt);
-      add_product<T, SS>(dk_acc, pa, sQs + ts * kES + col0, nullptr, lane);
-    }
-    __syncthreads();  // every warp is done with this stage before it is refilled
-  }
-  cp_async_wait<0>();  // no copy is left in flight when the loop never ran
-
-  const float one[2] = {1.f, 1.f};
-  const size_t base = (size_t)bh * tk * d + slice0 + col0;
-  store_rows(dk + base, dk_acc, key, tk, d, one, lane);
-  store_rows(dv + base, dv_acc, key, tk, d, one, lane);
-}
-
-// ---------------------------------------------------------------------------
-// Launchers.
-// ---------------------------------------------------------------------------
-
-constexpr int kMaxDevices = 64;
-
-// Opt in to more than 48 KB of dynamic shared memory, once per kernel and
-// device (the attribute belongs to the device's context). `done` is the
-// kernel's table of devices already configured.
-template <typename Kernel>
-cudaError_t set_smem(Kernel kernel, size_t bytes, bool (&done)[kMaxDevices]) {
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (done[device]) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err == cudaSuccess) done[device] = true;
-  return err;
-}
-
 template <int D, int kBlock>
 int launch_fwd(const void* q, const void* k, const void* v, const void* mask, void* out,
                void* lse, int bh, int heads, int tq, int tk, float scale, int causal,
@@ -2276,25 +1448,6 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* g, const
   return (int)cudaGetLastError();
 }
 
-// out = {resident CTAs per SM, threads per CTA, dynamic shared bytes,
-// registers per thread} of one kernel instantiation.
-template <typename Kernel>
-int occupancy(Kernel kernel, int threads, size_t smem, int* out) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return (int)err;
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = blocks;
-  out[1] = threads;
-  out[2] = (int)smem;
-  out[3] = attr.numRegs;
-  return 0;
-}
 
 // The 3xTF32 instances opt in to more than 48 KB of shared memory as the
 // bf16 launchers do (two 64-row f32 stages of two tiles take 70 KB; K2
@@ -2350,75 +1503,6 @@ int launch_dkv_f32(const void* q, const void* k, const void* v, const void* g, c
   return (int)cudaGetLastError();
 }
 
-// The wide instances take any multiple of 256 above 256.
-bool wide_head_dim(int d) { return d > 256 && d % kWideSlice == 0; }
-
-template <typename T, int kBlock>
-int launch_fwd_wide(const void* q, const void* k, const void* v, const void* mask, void* out,
-                    void* lse, int bh, int heads, int tq, int tk, int d, float scale, int causal,
-                    cudaStream_t stream) {
-  using Shape = WideShape<T, kBlock>;
-  constexpr size_t kSmem = Shape::template smem_bytes<2, 1, 1>();
-  static bool configured[kMaxDevices] = {};
-  cudaError_t err = set_smem(flash_fwd_wide_kernel<T, kBlock>, kSmem, configured);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(bh, (tq + kBlock - 1) / kBlock, d / kWideSlice);
-  flash_fwd_wide_kernel<T, kBlock><<<grid, Shape::kCtaThreads, kSmem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const uint8_t*>(mask), static_cast<T*>(out), static_cast<float*>(lse), heads,
-      tq, tk, d, scale, causal);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int kBlock>
-int launch_dq_wide(const void* q, const void* k, const void* v, const void* g, const void* lse,
-                   const void* delta, const void* mask, void* dq, int bh, int heads, int tq,
-                   int tk, int d, float scale, int causal, cudaStream_t stream) {
-  using Shape = WideShape<T, kBlock>;
-  constexpr size_t kSmem = Shape::template smem_bytes<4, 1, 1>();
-  static bool configured[kMaxDevices] = {};
-  cudaError_t err = set_smem(flash_dq_wide_kernel<T, kBlock>, kSmem, configured);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(bh, (tq + kBlock - 1) / kBlock, d / kWideSlice);
-  flash_dq_wide_kernel<T, kBlock><<<grid, Shape::kCtaThreads, kSmem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(g), static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const uint8_t*>(mask), static_cast<T*>(dq), heads, tq, tk, d, scale, causal);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int kBlock>
-int launch_dkv_wide(const void* q, const void* k, const void* v, const void* g, const void* lse,
-                    const void* delta, const void* mask, void* dk, void* dv, int bh, int heads,
-                    int tq, int tk, int d, float scale, int causal, cudaStream_t stream) {
-  using Shape = WideShape<T, kBlock>;
-  constexpr size_t kSmem = Shape::template smem_bytes<4, 2, 2>();
-  static bool configured[kMaxDevices] = {};
-  cudaError_t err = set_smem(flash_dkv_wide_kernel<T, kBlock>, kSmem, configured);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(bh, (tk + kBlock - 1) / kBlock, d / kWideSlice);
-  flash_dkv_wide_kernel<T, kBlock><<<grid, Shape::kCtaThreads, kSmem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(g), static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const uint8_t*>(mask), static_cast<T*>(dk), static_cast<T*>(dv), heads, tq, tk,
-      d, scale, causal);
-  return (int)cudaGetLastError();
-}
-
-// Kernels 6-8 (K1-K3 wide in bf16) and 9-11 (in f32).
-template <typename T, int kBlock>
-int occupancy_of_wide(int kernel, int* out) {
-  using Shape = WideShape<T, kBlock>;
-  constexpr int kThr = Shape::kCtaThreads;
-  if (kernel % 3 == 0)
-    return occupancy(flash_fwd_wide_kernel<T, kBlock>, kThr,
-                     Shape::template smem_bytes<2, 1, 1>(), out);
-  if (kernel % 3 == 1)
-    return occupancy(flash_dq_wide_kernel<T, kBlock>, kThr,
-                     Shape::template smem_bytes<4, 1, 1>(), out);
-  return occupancy(flash_dkv_wide_kernel<T, kBlock>, kThr,
-                   Shape::template smem_bytes<4, 2, 2>(), out);
-}
 
 // f(D, kBlock) as integral constants for a supported (head dim, tile)
 // pair; cudaErrorInvalidValue for any other.
@@ -2579,90 +1663,16 @@ int swt_flash_dkv_f32(const void* q, const void* k, const void* v, const void* g
   });
 }
 
-// The wide instances of K1-K3 (any multiple of 256 above 256 as d; tile
-// 32 in bf16, 16 in f32), with the same arguments.
-int swt_flash_fwd_wide(const void* q, const void* k, const void* v, const void* mask, void* out,
-                       void* lse, int bh, int heads, int tq, int tk, int d, int tile, float scale,
-                       int causal, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (!wide_head_dim(d) || tile != kWideTileBf16) return (int)cudaErrorInvalidValue;
-  return launch_fwd_wide<bf16, kWideTileBf16>(q, k, v, mask, out, lse, bh, heads, tq, tk, d,
-                                              scale, causal, static_cast<cudaStream_t>(stream));
-}
-
-int swt_flash_dq_wide(const void* q, const void* k, const void* v, const void* g, const void* lse,
-                      const void* delta, const void* mask, void* dq, int bh, int heads, int tq,
-                      int tk, int d, int tile, float scale, int causal, int device,
-                      void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (!wide_head_dim(d) || tile != kWideTileBf16) return (int)cudaErrorInvalidValue;
-  return launch_dq_wide<bf16, kWideTileBf16>(q, k, v, g, lse, delta, mask, dq, bh, heads, tq, tk,
-                                             d, scale, causal, static_cast<cudaStream_t>(stream));
-}
-
-int swt_flash_dkv_wide(const void* q, const void* k, const void* v, const void* g,
-                       const void* lse, const void* delta, const void* mask, void* dk, void* dv,
-                       int bh, int heads, int tq, int tk, int d, int tile, float scale,
-                       int causal, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (!wide_head_dim(d) || tile != kWideTileBf16) return (int)cudaErrorInvalidValue;
-  return launch_dkv_wide<bf16, kWideTileBf16>(q, k, v, g, lse, delta, mask, dk, dv, bh, heads,
-                                              tq, tk, d, scale, causal,
-                                              static_cast<cudaStream_t>(stream));
-}
-
-int swt_flash_fwd_wide_f32(const void* q, const void* k, const void* v, const void* mask,
-                           void* out, void* lse, int bh, int heads, int tq, int tk, int d,
-                           int tile, float scale, int causal, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (!wide_head_dim(d) || tile != kWideTileF32) return (int)cudaErrorInvalidValue;
-  return launch_fwd_wide<float, kWideTileF32>(q, k, v, mask, out, lse, bh, heads, tq, tk, d,
-                                              scale, causal, static_cast<cudaStream_t>(stream));
-}
-
-int swt_flash_dq_wide_f32(const void* q, const void* k, const void* v, const void* g,
-                          const void* lse, const void* delta, const void* mask, void* dq, int bh,
-                          int heads, int tq, int tk, int d, int tile, float scale, int causal,
-                          int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (!wide_head_dim(d) || tile != kWideTileF32) return (int)cudaErrorInvalidValue;
-  return launch_dq_wide<float, kWideTileF32>(q, k, v, g, lse, delta, mask, dq, bh, heads, tq, tk,
-                                             d, scale, causal, static_cast<cudaStream_t>(stream));
-}
-
-int swt_flash_dkv_wide_f32(const void* q, const void* k, const void* v, const void* g,
-                           const void* lse, const void* delta, const void* mask, void* dk,
-                           void* dv, int bh, int heads, int tq, int tk, int d, int tile,
-                           float scale, int causal, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (!wide_head_dim(d) || tile != kWideTileF32) return (int)cudaErrorInvalidValue;
-  return launch_dkv_wide<float, kWideTileF32>(q, k, v, g, lse, delta, mask, dk, dv, bh, heads,
-                                              tq, tk, d, scale, causal,
-                                              static_cast<cudaStream_t>(stream));
-}
-
 // Occupancy of kernel 0 (K1), 1 (K2), 2 (K3), or 3-5 (their f32
 // instances) at head dim d and tile `tile` (16 or 64 for kernels 3-5, 16
 // or 32 at D = 256; 32 or 64 for the others), or 6-8 (the wide bf16
-// instances, tile 32) and 9-11 (the wide f32 ones, tile 16) at a wide d,
-// on `device`: writes {CTAs per SM, threads per CTA, dynamic shared
+// instances) and 9-11 (the wide f32 ones) at a wide d and their tile
+// (flash_attention_wide.cu), on `device`: writes {CTAs per SM, threads per CTA, dynamic shared
 // bytes, registers per thread} to out[0..3].
 int swt_flash_occupancy(int kernel, int d, int tile, int device, int* out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (kernel >= 6) {
-    const bool f32 = kernel >= 9;
-    if (kernel > 11 || !wide_head_dim(d) || tile != (f32 ? kWideTileF32 : kWideTileBf16))
-      return (int)cudaErrorInvalidValue;
-    return f32 ? occupancy_of_wide<float, kWideTileF32>(kernel, out)
-               : occupancy_of_wide<bf16, kWideTileBf16>(kernel, out);
-  }
+  if (kernel >= 6) return swt::wide_occupancy(kernel, d, tile, out);
   if (kernel >= 3)
     return by_shape_tf32(d, tile, [&](auto dd, auto tt) {
       return occupancy_of_tf32<decltype(dd)::value, decltype(tt)::value>(kernel, out);

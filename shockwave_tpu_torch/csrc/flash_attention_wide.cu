@@ -1,0 +1,1305 @@
+// Flash attention for Hopper (sm_90a) at head dims above 256: the wide
+// instances of K1-K3 (flash_fwd_wide, flash_dq_wide, flash_dkv_wide), each
+// in bf16 and in f32 (3xTF32), which take the padded head dim D at run
+// time: any multiple of 256 above 256 (the wrapper pads 257-512 to 512 and
+// wider head dims to the next multiple of 256, as the reference pads any
+// head dim to its sublane multiple). They replace the same Pallas kernels
+// as the narrow instances in flash_attention.cu (_fa_kernel :40,
+// _dq_kernel :167, _dkv_kernel :222 of shockwave_tpu/ops/flash_attention.py)
+// at those widths, with the same arguments and masking, and share its
+// building blocks (flash_attention_common.cuh). K1 (below K2 and K3) has
+// a design of its own for Hopper; K2 and K3 keep the column-slice design
+// that follows.
+#include "flash_attention_common.cuh"
+
+namespace {
+
+// ---------------------------------------------------------------------------
+// K2 and K3 at wide head dims, templated on the element type (bf16, or
+// f32 as 3xTF32) and the row tile.
+//
+// Bound on an H100 SXM at the bench shape (4, 2048, 8, 512) causal: K2
+// does 206 GFLOP, 209 us by bf16 operations (1.25 ms as 3xTF32); K3
+// 275 GFLOP, 278 us (1.67 ms).
+//
+// What the design does about a head dim no template instance can hold
+// (at D = 256 the f32 instances already take 255 registers and about
+// 200 KB of shared memory):
+// 1. Column slices: a CTA owns 256 columns of its rows' output (K2: dQ;
+//    K3: dK and dV), grid z = D / 256, and two warps share each 16 rows,
+//    each owning 128 of those columns: the split of the narrow K3 at D =
+//    256 (kColSplit, note 8 of the bf16 K3), extended and carried on
+//    across CTAs. A warp's sums (dQ: 64 registers a lane; dK and dV: 128)
+//    never depend on D.
+// 2. The scores over the full width: S = Q.K^T and dP = dO.V^T are
+//    summed over 64-column chunks of Q, K, dO and V that stream through a
+//    two-stage cp.async ring in shared memory, so D is a run-time loop
+//    count and shared memory does not grow with it. The warps of a CTA
+//    share the chunks, but each of the kWideColSplit warps of a row pair
+//    forms the same scores, and so does each of the D / 256 CTAs of a row
+//    tile: kWideColSplit x D / 256 times per tile in all (4 at D = 512),
+//    the price of a simple kernel. The chunk steps of every k-tile (K3:
+//    q-tile) run as one flat sequence, so the ring never drains between
+//    tiles.
+// 3. The slice operand of the second product (K2: K; K3: Q and dO) is
+//    copied with the first chunk of its tile into a two-stage slice
+//    buffer, so it arrives while the scores are summed.
+// 4. The masking, the p = 0 guard where s <= -5e29 and the operand
+//    hand-offs are the narrow kernels', fragment for fragment: bf16
+//    repacks accumulators into m16n8k16 A operands (accum_to_a), f32
+//    splits them into m16n8k8 TF32 ones with the reduction index permuted
+//    (accum_to_a_tf32). Each tile's part of dQ, dK and dV is summed from
+//    zero and added to the sum in f32.
+// 5. Shared memory does not depend on D: 2 stages of the chunks (Q, dO, K
+//    and V) and 2 of the slices. bf16 at 32 rows: K2 70,912 bytes, K3
+//    104,960; f32 at 16 rows: K2 68,224, K3 101,632.
+// ---------------------------------------------------------------------------
+constexpr int kWideChunk = 64;                        // columns of a streamed score tile
+constexpr int kWideSlice = 256;                       // output columns a CTA owns
+constexpr int kWideColSplit = 2;                      // warps per 16 rows
+constexpr int kWideCols = kWideSlice / kWideColSplit;  // output columns a warp owns
+constexpr int kWideTileBf16 = 32, kWideTileF32 = 16;  // rows per CTA of K2 and K3
+
+// Row stride of a W-column shared tile: the narrow kernels' padding.
+template <typename T, int W>
+__host__ __device__ constexpr int wide_stride() {
+  return std::is_same<T, bf16>::value ? smem_stride<W>() : f32_stride<W>();
+}
+
+template <typename T, int kBlock>
+struct WideShape {
+  static constexpr int kRowWarps = kBlock / 16;
+  static constexpr int kCtaThreads = kRowWarps * kWideColSplit * 32;
+  static constexpr int kChunkElems = kBlock * wide_stride<T, kWideChunk>();
+  static constexpr int kSliceElems = kBlock * wide_stride<T, kWideSlice>();
+  // Two stages each of kChunks chunk tiles, kSlices slice tiles and
+  // kRows per-row f32 vectors (key bias; lse and delta).
+  template <int kChunks, int kSlices, int kRows>
+  static constexpr size_t smem_bytes() {
+    return (size_t)(2 * kChunks * kChunkElems + 2 * kSlices * kSliceElems) * sizeof(T) +
+           (size_t)2 * kRows * kBlock * sizeof(float);
+  }
+};
+
+// Start cp.async copies of rows [row0, row0 + R), columns [col, col + W)
+// of a (rows, d) matrix into an R-row shared tile; rows past `rows` are
+// zero-filled.
+template <typename T, int W, int R, int kThr>
+__device__ __forceinline__ void copy_cols_async(T* dst, const T* src, int row0, int rows, int d,
+                                                int col) {
+  constexpr int kPer = 16 / (int)sizeof(T);  // elements per 16-byte copy
+  constexpr int kChunks = W / kPer;
+  for (int i = threadIdx.x; i < R * kChunks; i += kThr) {
+    const int r = i / kChunks, c = i % kChunks;
+    const bool valid = row0 + r < rows;
+    cp_async16(dst + r * wide_stride<T, W>() + c * kPer,
+               src + (size_t)(valid ? row0 + r : 0) * d + col + c * kPer, valid);
+  }
+}
+
+// s (16 x kN*8) += A . B^T over one kWideChunk-column chunk: A the warp's
+// 16 rows at `a`, B kN*8 rows at `b`, both of row stride S.
+template <int kN, int S>
+__device__ __forceinline__ void scores_chunk(float (&s)[kN][4], const bf16* a, const bf16* b,
+                                             int lane) {
+#pragma unroll
+  for (int kk = 0; kk < kWideChunk / 16; ++kk) {
+    uint32_t qa[4];
+    load_a<S>(qa, a + kk * 16, lane);
+#pragma unroll
+    for (int nn = 0; nn < kN / 2; ++nn) {
+      uint32_t bb[4];
+      load_bt<S>(bb, b + nn * 16 * S + kk * 16, lane);
+      mma_bf16(s[2 * nn], qa, bb[0], bb[1]);
+      mma_bf16(s[2 * nn + 1], qa, bb[2], bb[3]);
+    }
+  }
+}
+
+template <int kN, int S>
+__device__ __forceinline__ void scores_chunk(float (&s)[kN][4], const float* a, const float* b,
+                                             int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < kWideChunk / 8; ++kk) {
+    const Split<4> qa = split_a_shared<S>(a + kk * 8, g, t);
+#pragma unroll
+    for (int j = 0; j < kN; ++j) mma_3xtf32(s[j], qa, split_bt<S>(b + j * 8 * S + kk * 8, g, t));
+  }
+}
+
+// A 16 x kN*8 accumulator tile (P, dS, P^T or dS^T) as the A operands of
+// the second product.
+template <typename T, int kN>
+struct AccumOperands;
+
+template <int kN>
+struct AccumOperands<bf16, kN> {
+  uint32_t a[kN / 2][4];
+};
+
+template <int kN>
+struct AccumOperands<float, kN> {
+  Split<4> a[kN];
+};
+
+template <int kN>
+__device__ __forceinline__ void to_operands(AccumOperands<bf16, kN>& p, const float (&s)[kN][4]) {
+#pragma unroll
+  for (int c = 0; c < kN / 2; ++c) accum_to_a(p.a[c], s[2 * c], s[2 * c + 1]);
+}
+
+template <int kN>
+__device__ __forceinline__ void to_operands(AccumOperands<float, kN>& p, const float (&s)[kN][4]) {
+#pragma unroll
+  for (int c = 0; c < kN; ++c) p.a[c] = accum_to_a_tf32(s[c]);
+}
+
+// part[j] (16 x 8, j = 0, 1) += P . X for the 16 columns of X at `x`: X's
+// rows are P's kN*8 columns (keys, or queries in K3), row stride S.
+template <int S, int kN>
+__device__ __forceinline__ void product16(float (&part)[2][4], const AccumOperands<bf16, kN>& p,
+                                          const bf16* x, int lane) {
+#pragma unroll
+  for (int c = 0; c < kN / 2; ++c) {
+    uint32_t b[4];
+    load_b<S>(b, x + c * 16 * S, lane);
+    mma_bf16(part[0], p.a[c], b[0], b[1]);
+    mma_bf16(part[1], p.a[c], b[2], b[3]);
+  }
+}
+
+template <int S, int kN>
+__device__ __forceinline__ void product16(float (&part)[2][4], const AccumOperands<float, kN>& p,
+                                          const float* x, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int c = 0; c < kN; ++c) {
+    mma_3xtf32(part[0], p.a[c], split_b_permuted<S>(x + c * 8 * S, g, t));
+    mma_3xtf32(part[1], p.a[c], split_b_permuted<S>(x + c * 8 * S + 8, g, t));
+  }
+}
+
+// sum (kWideCols / 8 n8 tiles) = sum * (corr of the tile's row) + P . X
+// over the warp's kWideCols columns of X at `x`, each 16 columns' part
+// summed from zero (corr nullptr: plain +=).
+template <typename T, int S, int kN>
+__device__ __forceinline__ void add_product(float (&sum)[kWideCols / 8][4],
+                                            const AccumOperands<T, kN>& p, const T* x,
+                                            const float* corr, int lane) {
+#pragma unroll
+  for (int nn = 0; nn < kWideCols / 16; ++nn) {
+    float part[2][4] = {};
+    product16<S>(part, p, x + nn * 16, lane);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sum[2 * nn + j][e] = corr != nullptr ? fmaf(sum[2 * nn + j][e], corr[e >> 1], part[j][e])
+                                             : sum[2 * nn + j][e] + part[j][e];
+    }
+  }
+}
+
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+// Rows g and g + 8 of a warp's 16 x kWideCols sum into rows[0], rows[1]
+// of a (rows, d) matrix at `dst` (the warp's first column), scaled.
+template <typename T>
+__device__ __forceinline__ void store_rows(T* dst, const float (&sum)[kWideCols / 8][4],
+                                           const int (&rows)[2], int nrows, int d,
+                                           const float (&scale)[2], int lane) {
+  const int t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (rows[h] >= nrows) continue;
+#pragma unroll
+    for (int n = 0; n < kWideCols / 8; ++n)
+      store2(dst + (size_t)rows[h] * d + n * 8 + 2 * t, sum[n][2 * h] * scale[h],
+             sum[n][2 * h + 1] * scale[h]);
+  }
+}
+
+// K2 at wide head dims: dQ. Grid (BH, q-tiles, D / 256), heaviest causal
+// tile first.
+template <typename T, int kBlock>
+__global__ void __launch_bounds__(WideShape<T, kBlock>::kCtaThreads)
+    flash_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ g,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         const uint8_t* __restrict__ mask, T* __restrict__ dq, int heads, int tq,
+                         int tk, int d, float scale, int causal) {
+  using Shape = WideShape<T, kBlock>;
+  constexpr int SC = wide_stride<T, kWideChunk>(), SS = wide_stride<T, kWideSlice>();
+  constexpr int kThr = Shape::kCtaThreads, kN = kBlock / 8;
+  constexpr int kEC = Shape::kChunkElems, kES = Shape::kSliceElems;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* sQ = reinterpret_cast<T*>(smem);                      // 2 stages of chunks each
+  T* sG = sQ + 2 * kEC;
+  T* sK = sG + 2 * kEC;
+  T* sV = sK + 2 * kEC;
+  T* sKs = sV + 2 * kEC;                                   // 2 stages of the K slice
+  float* sBias = reinterpret_cast<float*>(sKs + 2 * kES);  // 2 stages
+
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // causal: the longest k loops start first
+  const int q0 = qt * kBlock;
+  const int slice0 = blockIdx.z * kWideSlice;
+  const int rw = (threadIdx.x >> 5) % Shape::kRowWarps, lane = threadIdx.x & 31;
+  const int col0 = (threadIdx.x >> 5) / Shape::kRowWarps * kWideCols;
+  const int t = lane & 3;
+  const T* qb = q + (size_t)bh * tq * d;
+  const T* gb = g + (size_t)bh * tq * d;
+  const T* kb = k + (size_t)bh * tk * d;
+  const T* vb = v + (size_t)bh * tk * d;
+  const uint8_t* mask_row = mask != nullptr ? mask + (size_t)(bh / heads) * tk : nullptr;
+  const int row[2] = {q0 + rw * 16 + (lane >> 2), q0 + rw * 16 + (lane >> 2) + 8};
+  // A row past tq reads 0 (Q, dO, lse and delta): its dS is 0 and its dQ
+  // is never written.
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool in = row[h] < tq;
+    row_lse[h] = in ? lse[(size_t)bh * tq + row[h]] : 0.f;
+    row_delta[h] = in ? delta[(size_t)bh * tq + row[h]] : 0.f;
+  }
+
+  int nk = (tk + kBlock - 1) / kBlock;
+  if (causal) nk = min(nk, qt + 1);  // k-tiles past the diagonal see nothing
+  const int nc = d / kWideChunk, steps = nk * nc;
+
+  auto load = [&](int i) {
+    const int kt = i / nc, col = i % nc * kWideChunk, st = i & 1;
+    copy_cols_async<T, kWideChunk, kBlock, kThr>(sQ + st * kEC, qb, q0, tq, d, col);
+    copy_cols_async<T, kWideChunk, kBlock, kThr>(sG + st * kEC, gb, q0, tq, d, col);
+    copy_cols_async<T, kWideChunk, kBlock, kThr>(sK + st * kEC, kb, kt * kBlock, tk, d, col);
+    copy_cols_async<T, kWideChunk, kBlock, kThr>(sV + st * kEC, vb, kt * kBlock, tk, d, col);
+    if (col == 0) {
+      copy_cols_async<T, kWideSlice, kBlock, kThr>(sKs + (kt & 1) * kES, kb, kt * kBlock, tk, d,
+                                                   slice0);
+      for (int j = threadIdx.x; j < kBlock; j += kThr)
+        sBias[(kt & 1) * kBlock + j] = key_bias(mask_row, kt * kBlock + j, tk);
+    }
+    cp_async_commit();
+  };
+  load(0);
+
+  float dq_acc[kWideCols / 8][4] = {};
+  float s[kN][4], dp[kN][4];
+  for (int i = 0; i < steps; ++i) {
+    const int kt = i / nc, c = i % nc, st = i & 1;
+    if (i + 1 < steps) {
+      load(i + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (c == 0) {
+#pragma unroll
+      for (int j = 0; j < kN; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      }
+    }
+    scores_chunk<kN, SC>(s, sQ + st * kEC + rw * 16 * SC, sK + st * kEC, lane);
+    scores_chunk<kN, SC>(dp, sG + st * kEC + rw * 16 * SC, sV + st * kEC, lane);
+    if (c == nc - 1) {
+      // Scale, causal -1e30, then the key bias, as _dq_kernel orders
+      // them: dS = p (dP - delta) scale, p = 0 where s <= -5e29.
+      const float* cBias = sBias + (kt & 1) * kBlock;
+      const int k0 = kt * kBlock;
+#pragma unroll
+      for (int j = 0; j < kN; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kl = j * 8 + 2 * t + (e & 1), h = e >> 1;
+          float x = s[j][e] * scale;
+          if (causal && row[h] < k0 + kl) x = kNegInf;
+          x += cBias[kl];
+          const float p = x <= kNegInf * 0.5f ? 0.f : __expf(x - row_lse[h]);
+          dp[j][e] = p * (dp[j][e] - row_delta[h]) * scale;
+        }
+      }
+      // dQ += dS.K over the warp's columns of the K slice.
+      AccumOperands<T, kN> dsa;
+      to_operands(dsa, dp);
+      add_product<T, SS>(dq_acc, dsa, sKs + (kt & 1) * kES + col0, nullptr, lane);
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+  const float one[2] = {1.f, 1.f};
+  store_rows(dq + (size_t)bh * tq * d + slice0 + col0, dq_acc, row, tq, d, one, lane);
+}
+
+// K3 at wide head dims: dK and dV. Grid (BH, k-tiles, D / 256); a CTA
+// owns kBlock keys and walks the q-tiles from the causal diagonal on.
+template <typename T, int kBlock>
+__global__ void __launch_bounds__(WideShape<T, kBlock>::kCtaThreads)
+    flash_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const T* __restrict__ g,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          const uint8_t* __restrict__ mask, T* __restrict__ dk,
+                          T* __restrict__ dv, int heads, int tq, int tk, int d, float scale,
+                          int causal) {
+  using Shape = WideShape<T, kBlock>;
+  constexpr int SC = wide_stride<T, kWideChunk>(), SS = wide_stride<T, kWideSlice>();
+  constexpr int kThr = Shape::kCtaThreads, kN = kBlock / 8;
+  constexpr int kEC = Shape::kChunkElems, kES = Shape::kSliceElems;
+  static_assert(kThr >= 2 * kBlock, "one lse or one delta entry per thread");
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* sK = reinterpret_cast<T*>(smem);  // 2 stages of chunks each
+  T* sV = sK + 2 * kEC;
+  T* sQ = sV + 2 * kEC;
+  T* sG = sQ + 2 * kEC;
+  T* sQs = sG + 2 * kEC;                                  // 2 stages of the Q slice
+  T* sGs = sQs + 2 * kES;                                 // 2 stages of the dO slice
+  float* sLse = reinterpret_cast<float*>(sGs + 2 * kES);  // 2 stages
+  float* sDelta = sLse + 2 * kBlock;                      // 2 stages
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kBlock;
+  const int slice0 = blockIdx.z * kWideSlice;
+  const int rw = (threadIdx.x >> 5) % Shape::kRowWarps, lane = threadIdx.x & 31;
+  const int col0 = (threadIdx.x >> 5) / Shape::kRowWarps * kWideCols;
+  const int t = lane & 3;
+  const T* qb = q + (size_t)bh * tq * d;
+  const T* gb = g + (size_t)bh * tq * d;
+  const T* kb = k + (size_t)bh * tk * d;
+  const T* vb = v + (size_t)bh * tk * d;
+  const float* lse_b = lse + (size_t)bh * tq;
+  const float* delta_b = delta + (size_t)bh * tq;
+  const uint8_t* mask_row = mask != nullptr ? mask + (size_t)(bh / heads) * tk : nullptr;
+  const int key[2] = {k0 + rw * 16 + (lane >> 2), k0 + rw * 16 + (lane >> 2) + 8};
+  const float bias[2] = {key_bias(mask_row, key[0], tk), key_bias(mask_row, key[1], tk)};
+
+  const int nq = (tq + kBlock - 1) / kBlock;
+  // q-tiles above the diagonal see none of these keys
+  const int qt0 = causal ? (int)blockIdx.y : 0;
+  const int nc = d / kWideChunk, steps = max(nq - qt0, 0) * nc;
+
+  // Step i: chunk i % nc of q-tile qt0 + i / nc; its first chunk brings the
+  // tile's Q and dO slices, lse and delta.
+  auto load = [&](int i) {
+    const int q0 = (qt0 + i / nc) * kBlock, col = i % nc * kWideChunk, st = i & 1;
+    copy_cols_async<T, kWideChunk, kBlock, kThr>(sK + st * kEC, kb, k0, tk, d, col);
+    copy_cols_async<T, kWideChunk, kBlock, kThr>(sV + st * kEC, vb, k0, tk, d, col);
+    copy_cols_async<T, kWideChunk, kBlock, kThr>(sQ + st * kEC, qb, q0, tq, d, col);
+    copy_cols_async<T, kWideChunk, kBlock, kThr>(sG + st * kEC, gb, q0, tq, d, col);
+    if (col == 0) {
+      const int ts = (i / nc) & 1;
+      copy_cols_async<T, kWideSlice, kBlock, kThr>(sQs + ts * kES, qb, q0, tq, d, slice0);
+      copy_cols_async<T, kWideSlice, kBlock, kThr>(sGs + ts * kES, gb, q0, tq, d, slice0);
+      // The first 2 kBlock threads: one f32 each, lse then delta; rows
+      // past tq read 0.
+      if (threadIdx.x < 2 * kBlock) {
+        const int r = threadIdx.x % kBlock;
+        const bool valid = q0 + r < tq;
+        const float* src = threadIdx.x < kBlock ? lse_b : delta_b;
+        float* dst = (threadIdx.x < kBlock ? sLse : sDelta) + ts * kBlock;
+        cp_async4(dst + r, src + (valid ? q0 + r : 0), valid);
+      }
+    }
+    cp_async_commit();
+  };
+  if (steps > 0) load(0);
+
+  float dk_acc[kWideCols / 8][4] = {}, dv_acc[kWideCols / 8][4] = {};
+  float st[kN][4], dpt[kN][4];
+  for (int i = 0; i < steps; ++i) {
+    const int c = i % nc, stage = i & 1, ts = (i / nc) & 1;
+    if (i + 1 < steps) {
+      load(i + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (c == 0) {
+#pragma unroll
+      for (int j = 0; j < kN; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+      }
+    }
+    // S^T = K.Q^T and dP^T = V.dO^T for the warp's 16 keys.
+    scores_chunk<kN, SC>(st, sK + stage * kEC + rw * 16 * SC, sQ + stage * kEC, lane);
+    scores_chunk<kN, SC>(dpt, sV + stage * kEC + rw * 16 * SC, sG + stage * kEC, lane);
+    if (c == nc - 1) {
+      const int q0 = (qt0 + i / nc) * kBlock;
+      const float* cLse = sLse + ts * kBlock;
+      const float* cDelta = sDelta + ts * kBlock;
+      // Lane holds keys key[0] (e = 0, 1) and key[1] (e = 2, 3) against
+      // queries ql and ql + 1 of each n8 tile.
+#pragma unroll
+      for (int j = 0; j < kN; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ql = j * 8 + 2 * t + (e & 1), query = q0 + ql;
+          float x = st[j][e] * scale;
+          if (causal && query < key[e >> 1]) x = kNegInf;
+          x += bias[e >> 1];
+          const float p =
+              (x <= kNegInf * 0.5f || query >= tq) ? 0.f : __expf(x - cLse[ql]);
+          st[j][e] = p;
+          dpt[j][e] = p * (dpt[j][e] - cDelta[ql]) * scale;
+        }
+      }
+      // dV += P^T.dO, then dK += dS^T.Q, over the warp's columns of the
+      // tile's dO and Q slices.
+      AccumOperands<T, kN> pa;
+      to_operands(pa, st);
+      add_product<T, SS>(dv_acc, pa, sGs + ts * kES + col0, nullptr, lane);
+      to_operands(pa, dpt);
+      add_product<T, SS>(dk_acc, pa, sQs + ts * kES + col0, nullptr, lane);
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+  cp_async_wait<0>();  // no copy is left in flight when the loop never ran
+
+  const float one[2] = {1.f, 1.f};
+  const size_t base = (size_t)bh * tk * d + slice0 + col0;
+  store_rows(dk + base, dk_acc, key, tk, d, one, lane);
+  store_rows(dv + base, dv_acc, key, tk, d, one, lane);
+}
+
+// ---------------------------------------------------------------------------
+// K1 at wide head dims: flash_fwd_wide, on wgmma in both dtypes (bf16, and
+// f32 as 3xTF32). Replaces _fa_kernel (shockwave_tpu/ops/flash_attention.py:40)
+// at head dims above 256.
+//
+// Grid (BH, q-tiles of 64 rows, ceil(D / 512)), heaviest causal tile
+// first. A CTA is two warpgroups of 128 threads, G = 0 and 1, over 64
+// query rows (warp w of a group holds rows 16w to 16w + 15 of a wgmma
+// accumulator, in mma.sync's C layout) and up to 512 output columns:
+// group G owns half of those columns and sums S over half of the
+// contraction, columns [G D / 2, (G + 1) D / 2).
+//
+// Bound on an H100 SXM (3.35 TB/s; 989 bf16 TFLOP/s; 164.8 TFLOP/s for
+// f32-accurate 3xTF32 products): at the bench shape (4, 2048, 8, 512)
+// causal, 137.5 GFLOP for 268 MB in bf16 (537 MB in f32), 139 us by
+// operations (834 us in f32); at the main shape (64, 32, 8, 512)
+// key-padded, 67 MB, 20 us by bytes (134 MB, 40 us in f32).
+//
+// What held the first wide design (32- and 16-row CTAs of 256 columns,
+// two warps per 16 rows, mma.sync) back, and what this one does:
+// 1. The scores were formed kWideColSplit x D / 256 times per row tile
+//    (4 at D = 512). Here each group forms the 64 x 64 partial S of its
+//    contraction half, and the halves meet in a 16 KB f32 exchange in
+//    shared memory, each thread's 32 scores in its own slots
+//    (conflict-free): group 0 writes its half and arrives at named
+//    barrier 3; group 1 waits there, reads it, writes its own half into
+//    the same slots and arrives at barrier 4, where group 0 waits. One
+//    wait per group and k-tile, and no race: a slot is rewritten only by
+//    its own thread, after the other group has read it. Both groups then
+//    run the same online softmax on the same sum (a + b == b + a, so
+//    their P, max and lse agree bit for bit) and each forms P.V for its
+//    own columns. At D <= 512 the tensor cores do S + P.V once (the CPU
+//    emulation counts the products); each further 512 columns of D adds
+//    a CTA that forms S again.
+// 2. Q was copied again at every k-tile. Here a CTA copies its 64 x D Q
+//    tile once into shared memory (64 KB in bf16, 128 KB in f32 at D =
+//    512), where it stays, and K and V stream through a ring of 8 KB
+//    chunks per group (64 rows of 128 bytes: 64 bf16 or 32 f32 columns;
+//    4 in bf16, 3 in f32): the group's contraction half of K, then its
+//    output columns of V, every k-tile in one flat sequence. Where Q would
+//    not fit (bf16 above D = 1024, f32 above 512) its chunks stream in a
+//    ring of 8 too, each beside the K chunk it meets, two chunks a step
+//    (kQResident false). At the bench shape in bf16: 1,024 CTAs x (64 KB
+//    + 16.5 k-tiles x 128 KB) = 2.2 GB from L2 into shared memory (the
+//    first design: 11). A ring as deep as shared memory allows (8 chunks
+//    in bf16 at D = 512), chosen at run time, ran slower on the card than
+//    these fixed depths, and so did separate S and P.V instances for tiles
+//    of 32 keys (PERF.md).
+// 3. Two __syncthreads per 64-column chunk. Here a group waits once per
+//    step, on its own named barrier (bar.sync 1 + G of 128 threads) after
+//    the step's cp.async groups land, then refills the slots of the
+//    chunks before them (free: every thread of the group waited for its
+//    wgmma on them before the barrier), plus once per k-tile on the
+//    exchange: 9 waits a k-tile at D = 512 in bf16 (the first design: 16
+//    __syncthreads). f32 waits once more per step, after staging (4).
+// 4. No wgmma, and in f32 a third of the products' instructions spent
+//    splitting operands. Both dtypes now form S with wgmma m64n64 and
+//    O += P.V with wgmma m64n64 (bf16) or m64n32 (f32), P from registers
+//    (the S accumulators repacked into A fragments, FA2's hand-off, since
+//    a warpgroup's accumulator and register-A layouts are mma.sync's per
+//    warp). O stays in registers (a group's 64 x 256 f32: 128 registers
+//    a thread). Chunks are copied by 16-byte cp.async of the group's own
+//    128 threads straight into the 128-byte swizzled layout that wgmma
+//    reads (unit u of row r at u ^ (r % 8)); each thread fences its
+//    landed copies (and its staging stores) into the async proxy before
+//    the group's barrier. TMA is not used: it needs a tensor map per
+//    tensor, encoded on the host (cuTensorMapEncodeTiled), and does no more
+//    for rows one swizzle atom (128 bytes) wide than 128 threads of
+//    cp.async do.
+//    bf16: S takes Q and K both from shared memory through matrix
+//    descriptors (K-major, 8-row groups 1,024 bytes apart), four wgmma of
+//    16 columns a chunk; P.V takes V through a transposed (MN-major)
+//    descriptor, so V stays row-major.
+//    f32 stays 3xTF32 (one-pass TF32 misses the 1e-4 tolerance: each
+//    product is a_small.b_big + a_big.b_small + a_big.b_big into one f32
+//    accumulator), on wgmma's TF32, which takes B only K-major from
+//    shared memory. S: Q's fragments are split in registers as they are
+//    read; each K chunk is split in place into its big plane, its small
+//    plane staged in the group's 16 KB scratch. P.V: each V chunk is
+//    staged transposed (keys contiguous) into the scratch as a big and a
+//    small plane, its keys permuted within each 8 as P's A fragments hold
+//    them (slot t key 2t, slot t + 4 key 2t + 1: accum_to_a_tf32). Each
+//    k-tile's part of O is summed from zero (the tensor cores' f32
+//    accumulation truncates) and added to O in f32.
+// Shared memory: 1 KB of alignment, the 16 KB exchange, the rings, f32's
+// 2 x 16 KB scratch and Q where it stays: 148,480 bytes at D = 512 in bf16
+// and 230,400 in f32, one CTA of 8 warps per SM (a thread's registers
+// allow no second).
+// ---------------------------------------------------------------------------
+constexpr int kFwdWideRows = 64;      // query rows per CTA, and keys per k-tile
+constexpr int kFwdWideSlice = 512;    // output columns per CTA (grid z)
+constexpr int kFwdWideThreads = 256;  // two warpgroups
+constexpr int kChunkBytes = 64 * 128;  // a ring chunk: 64 rows of 128 bytes
+constexpr int kExchangeBytes = kFwdWideRows * kFwdWideRows * 4;  // a 64 x 64 f32 S
+constexpr int kSmemAlign = 1024;       // the 128-byte swizzle repeats every 1 KB
+constexpr int kMaxSmemPerCta = 232448;  // the 227 KB an H100 CTA may take
+
+// Ring chunks per group: where Q stays in shared memory, 4 in bf16 and 3
+// in f32 (whose staging scratch takes the room of two more); where Q
+// streams, 8 (a step takes two chunks, which the step before must already
+// have issued: 4 at least).
+template <typename T, bool kQResident>
+constexpr int kFwdWideStages = !kQResident ? 8 : sizeof(T) == 2 ? 4 : 3;
+
+// Shared bytes besides Q: alignment, the exchange, the rings and, in f32,
+// each group's staging scratch (two chunks).
+template <typename T, bool kQResident>
+__host__ __device__ constexpr size_t fwd_wide_fixed_smem() {
+  return kSmemAlign + kExchangeBytes + 2 * kFwdWideStages<T, kQResident> * kChunkBytes +
+         (sizeof(T) == 4 ? 2 * 2 * kChunkBytes : 0);
+}
+
+// Whether Q's 64 x d tile stays in shared memory beside the rest (bf16 up
+// to d = 1024, f32 up to 512).
+template <typename T>
+__host__ __device__ constexpr bool fwd_wide_q_resident(int d) {
+  return fwd_wide_fixed_smem<T, true>() + (size_t)kFwdWideRows * d * sizeof(T) <=
+         kMaxSmemPerCta;
+}
+
+// The CTA's dynamic shared bytes.
+template <typename T, bool kQResident>
+__host__ __device__ constexpr size_t fwd_wide_smem(int d) {
+  return fwd_wide_fixed_smem<T, kQResident>() +
+         (kQResident ? (size_t)kFwdWideRows * d * sizeof(T) : 0);
+}
+
+// Element (r, c) of a chunk: 16-byte unit c / U of row r (U = 16 /
+// sizeof(T) elements a unit) sits at unit (c / U) ^ (r % 8), the layout of
+// wgmma's 128-byte swizzle for a chunk that starts on a 1 KB boundary.
+template <typename T>
+__host__ __device__ constexpr int chunk_index(int r, int c) {
+  return r * 128 / (int)sizeof(T) + (((c * (int)sizeof(T) / 16) ^ r) & 7) * 16 / (int)sizeof(T) +
+         c % (16 / (int)sizeof(T));
+}
+
+// Start cp.async copies of rows [row0, row0 + 64) and the 128 bytes of
+// columns from `col` on of a (rows, d) matrix into a chunk, by a group's
+// 128 threads (tid); rows past `rows` are zero-filled.
+template <typename T>
+__device__ __forceinline__ void copy_chunk(T* dst, const T* src, int row0, int rows, int d,
+                                           int col, int tid) {
+  constexpr int U = 16 / (int)sizeof(T);
+#pragma unroll
+  for (int i = 0; i < kFwdWideRows * 8 / 128; ++i) {
+    const int r = (tid >> 3) + 16 * i, u = tid & 7;
+    const bool valid = row0 + r < rows;
+    cp_async16(dst + r * 8 * U + (u ^ (r & 7)) * U,
+               src + (size_t)(valid ? row0 + r : 0) * d + col + u * U, valid);
+  }
+}
+
+// Wait until at most n (0 to 7) of this thread's cp.async groups are in
+// flight.
+__device__ __forceinline__ void cp_async_wait_at_most(int n) {
+  switch (n) {
+    case 7: cp_async_wait<7>(); break;
+    case 6: cp_async_wait<6>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 1: cp_async_wait<1>(); break;
+    default: cp_async_wait<0>();
+  }
+}
+
+// bar.sync and bar.arrive on named barrier `id` (1-15; __syncthreads
+// takes 0) of `threads` threads.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Make this thread's landed cp.async copies and its stores to shared
+// memory visible to the async proxy, which wgmma reads its shared operands
+// through.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A wgmma matrix descriptor of the tile at p, 128-byte swizzle: start
+// address, leading byte offset `lbo` (K-major: unused; MN-major: the next
+// 64 columns), stride byte offset 1,024 (the next 8 rows; MN-major: the
+// next 8 reduction rows).
+__device__ __forceinline__ uint64_t wgmma_desc(const void* p, uint32_t lbo) {
+  return (uint64_t)((smem_addr(p) & 0x3ffff) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of an accumulator (kN n8
+// tiles) across the asynchronous wgmma that owns it.
+template <int kN>
+__device__ __forceinline__ void wgmma_hold(float (&d)[kN][4]) {
+#pragma unroll
+  for (int j = 0; j < kN; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
+  }
+}
+
+// The accumulator operand list of a 64 x 64 f32 wgmma (d[j][e]: register 4j
+// + e, n8 tile j) and of a 64 x 32 one.
+#define SWT_ACC64(d)                                                                              \
+  "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),      \
+      "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),  \
+      "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]),  \
+      "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),  \
+      "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),  \
+      "+f"(d[7][2]), "+f"(d[7][3])
+#define SWT_ACC32(d)                                                                              \
+  "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),      \
+      "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),  \
+      "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+#define SWT_REGS32                                                                                \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "   \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define SWT_REGS16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+
+// d (64 x 64 f32) += A . B^T over 16 columns, A (64 x 16) and B (64 x 16)
+// bf16 K-major in shared memory at descriptors da and db.
+__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SWT_REGS32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : SWT_ACC64(d)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64 x 64 f32) += A . B over 16 reduction rows: A (64 x 16 bf16) in
+// registers, warp w's rows 16w.. in mma.sync's A layout (accum_to_a), and
+// B (16 x 64 bf16) MN-major (rows of 64 columns) at descriptor db.
+__device__ __forceinline__ void wgmma_rs(float (&d)[8][4], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SWT_REGS32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : SWT_ACC64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 64 f32) += A . B^T over 8 columns in TF32: A (64 x 8) in
+// registers, warp w's rows 16w.. in mma.sync's m16n8k8 A layout (a[0..3]:
+// (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)), and B (64 x 8) K-major
+// at descriptor db. The tensor cores read each operand's top 19 bits.
+__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[8][4], const uint32_t (&a)[4],
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " SWT_REGS32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : SWT_ACC64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// The same for a 64 x 32 accumulator (B 32 x 8).
+__device__ __forceinline__ void wgmma_tf32_n32(float (&d)[4][4], const uint32_t (&a)[4],
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " SWT_REGS16
+      ", {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : SWT_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// s (the warpgroup's 64 x 64 scores) += Q chunk qc . (K chunk kc)^T over
+// the chunk's 64 columns: four wgmma of 16 columns (32 bytes into each
+// swizzled row), waited for before return.
+__device__ __forceinline__ void scores_chunk_wgmma(float (&s)[8][4], const bf16* qc,
+                                                   const bf16* kc) {
+  const uint64_t da = wgmma_desc(qc, 16), db = wgmma_desc(kc, 16);
+  wgmma_fence();
+  wgmma_hold(s);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_ss(s, da + 2 * kk, db + 2 * kk);
+  wgmma_commit();
+  wgmma_wait<0>();
+  wgmma_hold(s);
+}
+
+// o (the warpgroup's 64 rows x 64 columns of O) += P . V over one 64-key
+// tile: p[kk] the A fragments of keys 16kk..16kk + 15, vc the V chunk (64
+// keys x 64 columns, row-major), 16 key rows (2,048 bytes) a wgmma.
+__device__ __forceinline__ void pv_chunk_wgmma(float (&o)[8][4], const uint32_t (&p)[4][4],
+                                               const bf16* vc) {
+  const uint64_t db = wgmma_desc(vc, kChunkBytes);
+  wgmma_fence();
+  wgmma_hold(o);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs(o, p[kk], db + (16 * 128 >> 4) * kk);
+  wgmma_commit();
+  wgmma_wait<0>();
+  wgmma_hold(o);
+}
+
+__device__ __forceinline__ float chunk_at(const float* c, int r, int col) {
+  return c[chunk_index<float>(r, col)];
+}
+
+// Split an f32 K chunk (rows of 32 floats, swizzled) in place into its big
+// TF32 plane, its small plane into `small` at the same positions, by a
+// group's 128 threads.
+__device__ __forceinline__ void split_chunk(float* chunk, float* small, int tid) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int e = 4 * (tid + 128 * i);
+    float4 x = *reinterpret_cast<float4*>(chunk + e);
+    uint32_t b[4], s[4];
+    split_tf32(x.x, b[0], s[0]);
+    split_tf32(x.y, b[1], s[1]);
+    split_tf32(x.z, b[2], s[2]);
+    split_tf32(x.w, b[3], s[3]);
+    *reinterpret_cast<uint4*>(chunk + e) = make_uint4(b[0], b[1], b[2], b[3]);
+    *reinterpret_cast<uint4*>(small + e) = make_uint4(s[0], s[1], s[2], s[3]);
+  }
+}
+
+// Stage an f32 V chunk (64 keys x 32 columns) transposed, keys contiguous,
+// as wgmma's K-major B of P.V: big plane at vt, small plane at vt + 2,048,
+// each two 4 KB atoms of 32 rows (columns of V) x 32 keys. Within each 8
+// keys, slot p holds key 2p (p < 4) or 2(p - 4) + 1, the order of P's A
+// fragments (accum_to_a_tf32). A thread takes one column and 16 keys, 4
+// slots to a 16-byte store.
+__device__ __forceinline__ void stage_v_transposed(const float* vc, float* vt, int tid) {
+  const int n = tid & 31, kq = tid >> 5;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int kp0 = 16 * kq + 4 * i;  // the first of this store's 4 slots
+    uint32_t b[4], s[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int p = (kp0 + j) & 7;
+      const int key = ((kp0 + j) & ~7) + (p < 4 ? 2 * p : 2 * (p - 4) + 1);
+      split_tf32(chunk_at(vc, key, n), b[j], s[j]);
+    }
+    const int at = (kp0 >> 5) * 1024 + chunk_index<float>(n, kp0 & 31);
+    *reinterpret_cast<uint4*>(vt + at) = make_uint4(b[0], b[1], b[2], b[3]);
+    *reinterpret_cast<uint4*>(vt + 2048 + at) = make_uint4(s[0], s[1], s[2], s[3]);
+  }
+}
+
+// s (the warpgroup's 64 x 64 scores) += Q chunk qc . (K chunk kc)^T over
+// the chunk's 32 columns as 3xTF32: four steps of 8 columns, each three
+// wgmma (Q small . K big, Q big . K small, Q big . K big), Q's fragments
+// (warp's rows r0 + g, r0 + g + 8) split as they are read, K's big plane
+// at kc and small plane at ks.
+__device__ __forceinline__ void scores_chunk_tf32(float (&s)[8][4], const float* qc,
+                                                  const float* kc, const float* ks, int r0,
+                                                  int g, int t) {
+  Split<4> a[4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int c = 8 * kk;
+    const float v[4] = {chunk_at(qc, r0 + g, c + t), chunk_at(qc, r0 + g + 8, c + t),
+                        chunk_at(qc, r0 + g, c + t + 4), chunk_at(qc, r0 + g + 8, c + t + 4)};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_tf32(v[i], a[kk].big[i], a[kk].small[i]);
+  }
+  const uint64_t db = wgmma_desc(kc, 16), ds = wgmma_desc(ks, 16);
+  wgmma_fence();
+  wgmma_hold(s);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    wgmma_tf32_n64(s, a[kk].small, db + 2 * kk);
+    wgmma_tf32_n64(s, a[kk].big, ds + 2 * kk);
+    wgmma_tf32_n64(s, a[kk].big, db + 2 * kk);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  wgmma_hold(s);
+}
+
+// o (the warpgroup's 64 rows x 32 columns of O, 4 n8 tiles) = o corr +
+// P . V over one 64-key tile, as 3xTF32 from V's staged transposed planes
+// (vt, stage_v_transposed): the tile's part summed from zero, then added
+// in f32. P (p, the accumulator tiles of keys 8kk..8kk + 7) is split into
+// A fragments (accum_to_a_tf32), 32 keys at a time.
+__device__ __forceinline__ void pv_chunk_tf32(float (&o)[4][4], const float (&p)[8][4],
+                                              const float* vt, const float (&corr)[2]) {
+  float part[4][4] = {};
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    Split<4> a[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = accum_to_a_tf32(p[4 * half + i]);
+    const uint64_t db = wgmma_desc(vt + half * 1024, 16);
+    const uint64_t ds = wgmma_desc(vt + 2048 + half * 1024, 16);
+    wgmma_fence();
+    wgmma_hold(part);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      wgmma_tf32_n32(part, a[i].small, db + 2 * i);
+      wgmma_tf32_n32(part, a[i].big, ds + 2 * i);
+      wgmma_tf32_n32(part, a[i].big, db + 2 * i);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_hold(part);
+  }
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = fmaf(o[n][e], corr[e >> 1], part[n][e]);
+  }
+}
+
+template <typename T, bool kQResident>
+__global__ void __launch_bounds__(kFwdWideThreads, 1)
+    flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const uint8_t* __restrict__ mask,
+                          T* __restrict__ out, float* __restrict__ lse, int heads, int tq, int tk,
+                          int d, float scale, int causal) {
+  constexpr bool kBf16 = std::is_same<T, bf16>::value;
+  constexpr int CC = 128 / (int)sizeof(T);  // columns of a chunk
+  constexpr int kChunkElems = kChunkBytes / (int)sizeof(T);
+  constexpr int kTilesPerChunk = CC / 8;    // n8 tiles of O a V chunk gives
+  constexpr int kMaxV = kFwdWideSlice / 2 / CC;  // V chunks a group takes per k-tile
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* base = smem + (kSmemAlign - smem_addr(smem) % kSmemAlign) % kSmemAlign;
+  const int grp = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  constexpr int kS = kFwdWideStages<T, kQResident>;  // ring chunks a group takes
+  const size_t q_bytes = kQResident ? (size_t)kFwdWideRows * d * sizeof(T) : 0;
+  T* ring = reinterpret_cast<T*>(base) + grp * kS * kChunkElems;  // this group's ring
+  float* ex = reinterpret_cast<float*>(base + 2 * kS * kChunkBytes);
+  T* sQ = reinterpret_cast<T*>(base + 2 * kS * kChunkBytes + kExchangeBytes);
+  float* scratch = reinterpret_cast<float*>(base + 2 * kS * kChunkBytes + kExchangeBytes +
+                                            q_bytes + grp * 2 * kChunkBytes);  // f32 only
+
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // causal: the longest k loops start first
+  const int q0 = qt * kFwdWideRows;
+  const int slice0 = blockIdx.z * kFwdWideSlice;
+  const int half = min(kFwdWideSlice, d - slice0) / 2;  // output columns a group owns
+  const int col0 = slice0 + grp * half;
+  const int nv = half / CC;     // V chunks per k-tile
+  const int nkc = d / 2 / CC;   // contraction chunks per k-tile
+  const int kc0 = grp * nkc;    // the group's first contraction chunk
+  const int per_s = kQResident ? 1 : 2;  // ring chunks a score step takes
+  const int per_tile = nkc * per_s + nv;
+  int nk = (tk + kFwdWideRows - 1) / kFwdWideRows;
+  if (causal) nk = min(nk, qt + 1);  // k-tiles past the diagonal see nothing
+  const int total = nk * per_tile;
+  const T* qb = q + (size_t)bh * tq * d;
+  const T* kb = k + (size_t)bh * tk * d;
+  const T* vb = v + (size_t)bh * tk * d;
+  const uint8_t* mask_row = mask != nullptr ? mask + (size_t)(bh / heads) * tk : nullptr;
+  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+
+  // Ring chunk e: chunk e % per_tile of k-tile e / per_tile (Q and K chunks
+  // of the contraction half, then V chunks of the group's columns), in
+  // slot e % kS.
+  auto load = [&](int e) {
+    T* dst = ring + (e % kS) * kChunkElems;
+    const int kt = e / per_tile, r = e % per_tile;
+    if (r < nkc * per_s) {
+      const int col = (kc0 + r / per_s) * CC;
+      if (per_s == 2 && r % 2 == 0)
+        copy_chunk(dst, qb, q0, tq, d, col, tid);
+      else
+        copy_chunk(dst, kb, kt * kFwdWideRows, tk, d, col, tid);
+    } else {
+      copy_chunk(dst, vb, kt * kFwdWideRows, tk, d, col0 + (r - nkc * per_s) * CC, tid);
+    }
+    cp_async_commit();
+  };
+  if (kQResident) {
+    for (int c = kc0; c < kc0 + nkc; ++c)
+      copy_chunk(sQ + c * kChunkElems, qb, q0, tq, d, c * CC, tid);
+    cp_async_commit();
+  }
+  int loaded = 0, next = 0;  // ring chunks issued, and taken
+  while (loaded < total && loaded < kS) load(loaded++);
+  // Chunks [next, next + n) have landed for the whole group; the slots of
+  // the chunks before them are refilled.
+  auto acquire = [&](int n) {
+    cp_async_wait_at_most(loaded - next - n);
+    fence_async_shared();
+    named_sync(1 + grp, 128);
+    while (loaded < total && loaded < next + kS) load(loaded++);
+  };
+  // f32 staging (into the chunk's slot and the group's scratch), then the
+  // group's second wait, before wgmma reads it.
+  auto staged = [&]() {
+    fence_async_shared();
+    named_sync(1 + grp, 128);
+  };
+
+  float o[kMaxV * kTilesPerChunk][4] = {};  // the group's 64 rows x up to 256 columns
+  float m[2] = {kNegInf, kNegInf};          // running max of rows row[0], row[1]
+  float l[2] = {0.f, 0.f};                  // this lane's part of their normalisers
+  for (int kt = 0; kt < nk; ++kt) {
+    float s[8][4] = {};
+    for (int c = 0; c < nkc; ++c) {
+      acquire(per_s);
+      T* kc = ring + ((next + per_s - 1) % kS) * kChunkElems;
+      const T* qc = kQResident ? sQ + (kc0 + c) * kChunkElems : ring + (next % kS) * kChunkElems;
+      if constexpr (kBf16) {
+        scores_chunk_wgmma(s, qc, kc);
+      } else {
+        split_chunk(kc, scratch, tid);
+        staged();
+        scores_chunk_tf32(s, qc, kc, scratch, warp * 16, g, t);
+      }
+      next += per_s;
+    }
+    // S = the two groups' halves, through the exchange (design note 1).
+    if (grp == 0) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ex[(4 * j + e) * 128 + tid] = s[j][e];
+      }
+      named_arrive(3, 256);
+      named_sync(4, 256);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] += ex[(4 * j + e) * 128 + tid];
+      }
+    } else {
+      named_sync(3, 256);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float other = ex[(4 * j + e) * 128 + tid];
+          ex[(4 * j + e) * 128 + tid] = s[j][e];
+          s[j][e] += other;
+        }
+      }
+      named_arrive(4, 256);
+    }
+    // Scale, causal -1e30, then the key bias, as _fa_kernel orders them;
+    // the new running max starts from the old one.
+    const int k0 = kt * kFwdWideRows;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + j * 8 + 2 * t + (e & 1);
+        float x = s[j][e] * scale;
+        if (causal && row[e >> 1] < key) x = kNegInf;
+        x += key_bias(mask_row, key, tk);
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      corr[h] = __expf(m[h] - mx[h]);
+      m[h] = mx[h];
+      l[h] *= corr[h];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = __expf(s[j][e] - m[e >> 1]);
+        s[j][e] = p;
+        l[e >> 1] += p;
+      }
+    }
+    // O = O corr + P.V over the group's columns, a V chunk a step.
+    if constexpr (kBf16) {
+#pragma unroll
+      for (int n = 0; n < kMaxV * kTilesPerChunk; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[n][e] *= corr[e >> 1];
+      }
+      uint32_t pa[4][4];  // P in bf16 as wgmma's A fragments, 16 keys each
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) accum_to_a(pa[kk], s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int vc = 0; vc < kMaxV; ++vc) {
+        if (vc < nv) {
+          acquire(1);
+          pv_chunk_wgmma(reinterpret_cast<float(&)[8][4]>(o[vc * kTilesPerChunk]), pa,
+                         ring + (next % kS) * kChunkElems);
+          ++next;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int vc = 0; vc < kMaxV; ++vc) {
+        if (vc < nv) {
+          acquire(1);
+          stage_v_transposed(ring + (next % kS) * kChunkElems, scratch, tid);
+          staged();
+          pv_chunk_tf32(reinterpret_cast<float(&)[4][4]>(o[vc * kTilesPerChunk]), s, scratch,
+                        corr);
+          ++next;
+        }
+      }
+    }
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const float lc = fmaxf(l[h], 1e-30f);
+    inv[h] = 1.f / lc;
+    // lse is the same in both groups and every slice: group 0 of slice 0
+    // writes it.
+    if (blockIdx.z == 0 && grp == 0 && t == 0 && row[h] < tq)
+      lse[(size_t)bh * tq + row[h]] = m[h] + logf(lc);
+  }
+  T* ob = out + (size_t)bh * tq * d + col0;
+#pragma unroll
+  for (int n = 0; n < kMaxV * kTilesPerChunk; ++n) {
+    if (n < nv * kTilesPerChunk) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (row[h] < tq)
+          store2(ob + (size_t)row[h] * d + 8 * n + 2 * t, o[n][2 * h] * inv[h],
+                 o[n][2 * h + 1] * inv[h]);
+      }
+    }
+  }
+}
+
+// The wide instances take any multiple of 256 above 256.
+bool wide_head_dim(int d) { return d > 256 && d % kWideSlice == 0; }
+
+template <typename T, bool kQResident>
+int launch_fwd_wide_as(const void* q, const void* k, const void* v, const void* mask, void* out,
+                       void* lse, int bh, int heads, int tq, int tk, int d, float scale,
+                       int causal, cudaStream_t stream) {
+  // The opt-in covers every d: the launch asks for what this d takes.
+  static bool configured[kMaxDevices] = {};
+  cudaError_t err =
+      set_smem(flash_fwd_wide_kernel<T, kQResident>, kMaxSmemPerCta, configured);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = fwd_wide_smem<T, kQResident>(d);
+  const dim3 grid(bh, (tq + kFwdWideRows - 1) / kFwdWideRows,
+                  (d + kFwdWideSlice - 1) / kFwdWideSlice);
+  flash_fwd_wide_kernel<T, kQResident><<<grid, kFwdWideThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const uint8_t*>(mask), static_cast<T*>(out), static_cast<float*>(lse), heads,
+      tq, tk, d, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+// K1 wide with Q staying in shared memory where it fits, streamed where not.
+template <typename T>
+int launch_fwd_wide(const void* q, const void* k, const void* v, const void* mask, void* out,
+                    void* lse, int bh, int heads, int tq, int tk, int d, float scale, int causal,
+                    cudaStream_t stream) {
+  return fwd_wide_q_resident<T>(d)
+             ? launch_fwd_wide_as<T, true>(q, k, v, mask, out, lse, bh, heads, tq, tk, d, scale,
+                                          causal, stream)
+             : launch_fwd_wide_as<T, false>(q, k, v, mask, out, lse, bh, heads, tq, tk, d, scale,
+                                           causal, stream);
+}
+
+template <typename T, int kBlock>
+int launch_dq_wide(const void* q, const void* k, const void* v, const void* g, const void* lse,
+                   const void* delta, const void* mask, void* dq, int bh, int heads, int tq,
+                   int tk, int d, float scale, int causal, cudaStream_t stream) {
+  using Shape = WideShape<T, kBlock>;
+  constexpr size_t kSmem = Shape::template smem_bytes<4, 1, 1>();
+  static bool configured[kMaxDevices] = {};
+  cudaError_t err = set_smem(flash_dq_wide_kernel<T, kBlock>, kSmem, configured);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(bh, (tq + kBlock - 1) / kBlock, d / kWideSlice);
+  flash_dq_wide_kernel<T, kBlock><<<grid, Shape::kCtaThreads, kSmem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(g), static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const uint8_t*>(mask), static_cast<T*>(dq), heads, tq, tk, d, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int kBlock>
+int launch_dkv_wide(const void* q, const void* k, const void* v, const void* g, const void* lse,
+                    const void* delta, const void* mask, void* dk, void* dv, int bh, int heads,
+                    int tq, int tk, int d, float scale, int causal, cudaStream_t stream) {
+  using Shape = WideShape<T, kBlock>;
+  constexpr size_t kSmem = Shape::template smem_bytes<4, 2, 2>();
+  static bool configured[kMaxDevices] = {};
+  cudaError_t err = set_smem(flash_dkv_wide_kernel<T, kBlock>, kSmem, configured);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(bh, (tk + kBlock - 1) / kBlock, d / kWideSlice);
+  flash_dkv_wide_kernel<T, kBlock><<<grid, Shape::kCtaThreads, kSmem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(g), static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const uint8_t*>(mask), static_cast<T*>(dk), static_cast<T*>(dv), heads, tq, tk,
+      d, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+// Kernels 6 and 9 (K1 wide in bf16 and f32) at head dim d, the instance
+// that d takes. The query sets the kernel's shared-memory opt-in to d's
+// bytes; it is put back to the most a CTA may take, which the launcher
+// relies on.
+template <typename T, bool kQResident>
+int occupancy_of_fwd_wide_as(int d, int* out) {
+  const auto kernel = flash_fwd_wide_kernel<T, kQResident>;
+  const int err = occupancy(kernel, kFwdWideThreads, fwd_wide_smem<T, kQResident>(d), out);
+  if (err != 0) return err;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   kMaxSmemPerCta);
+}
+
+template <typename T>
+int occupancy_of_fwd_wide(int d, int* out) {
+  return fwd_wide_q_resident<T>(d) ? occupancy_of_fwd_wide_as<T, true>(d, out)
+                                   : occupancy_of_fwd_wide_as<T, false>(d, out);
+}
+
+// Kernels 7-8 (K2-K3 wide in bf16) and 10-11 (in f32).
+template <typename T, int kBlock>
+int occupancy_of_wide(int kernel, int* out) {
+  using Shape = WideShape<T, kBlock>;
+  constexpr int kThr = Shape::kCtaThreads;
+  if (kernel % 3 == 1)
+    return occupancy(flash_dq_wide_kernel<T, kBlock>, kThr,
+                     Shape::template smem_bytes<4, 1, 1>(), out);
+  return occupancy(flash_dkv_wide_kernel<T, kBlock>, kThr,
+                   Shape::template smem_bytes<4, 2, 2>(), out);
+}
+
+}  // namespace
+
+namespace swt {
+int wide_occupancy(int kernel, int d, int tile, int* out) {
+  const bool f32 = kernel >= 9;
+  if (kernel < 6 || kernel > 11 || !wide_head_dim(d)) return (int)cudaErrorInvalidValue;
+  if (kernel % 3 == 0) {
+    if (tile != kFwdWideRows) return (int)cudaErrorInvalidValue;
+    return f32 ? occupancy_of_fwd_wide<float>(d, out) : occupancy_of_fwd_wide<bf16>(d, out);
+  }
+  if (tile != (f32 ? kWideTileF32 : kWideTileBf16)) return (int)cudaErrorInvalidValue;
+  return f32 ? occupancy_of_wide<float, kWideTileF32>(kernel, out)
+             : occupancy_of_wide<bf16, kWideTileBf16>(kernel, out);
+}
+}  // namespace swt
+
+
+extern "C" {
+
+// The wide instances of K1-K3 (any multiple of 256 above 256 as d; tile
+// 64 for K1, 32 for K2 and K3 in bf16 and 16 in f32), with the narrow
+// entries' arguments (flash_attention.cu).
+int swt_flash_fwd_wide(const void* q, const void* k, const void* v, const void* mask, void* out,
+                       void* lse, int bh, int heads, int tq, int tk, int d, int tile, float scale,
+                       int causal, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!wide_head_dim(d) || tile != kFwdWideRows) return (int)cudaErrorInvalidValue;
+  return launch_fwd_wide<bf16>(q, k, v, mask, out, lse, bh, heads, tq, tk, d, scale, causal,
+                               static_cast<cudaStream_t>(stream));
+}
+
+int swt_flash_dq_wide(const void* q, const void* k, const void* v, const void* g, const void* lse,
+                      const void* delta, const void* mask, void* dq, int bh, int heads, int tq,
+                      int tk, int d, int tile, float scale, int causal, int device,
+                      void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!wide_head_dim(d) || tile != kWideTileBf16) return (int)cudaErrorInvalidValue;
+  return launch_dq_wide<bf16, kWideTileBf16>(q, k, v, g, lse, delta, mask, dq, bh, heads, tq, tk,
+                                             d, scale, causal, static_cast<cudaStream_t>(stream));
+}
+
+int swt_flash_dkv_wide(const void* q, const void* k, const void* v, const void* g,
+                       const void* lse, const void* delta, const void* mask, void* dk, void* dv,
+                       int bh, int heads, int tq, int tk, int d, int tile, float scale,
+                       int causal, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!wide_head_dim(d) || tile != kWideTileBf16) return (int)cudaErrorInvalidValue;
+  return launch_dkv_wide<bf16, kWideTileBf16>(q, k, v, g, lse, delta, mask, dk, dv, bh, heads,
+                                              tq, tk, d, scale, causal,
+                                              static_cast<cudaStream_t>(stream));
+}
+
+int swt_flash_fwd_wide_f32(const void* q, const void* k, const void* v, const void* mask,
+                           void* out, void* lse, int bh, int heads, int tq, int tk, int d,
+                           int tile, float scale, int causal, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!wide_head_dim(d) || tile != kFwdWideRows) return (int)cudaErrorInvalidValue;
+  return launch_fwd_wide<float>(q, k, v, mask, out, lse, bh, heads, tq, tk, d, scale, causal,
+                                static_cast<cudaStream_t>(stream));
+}
+
+int swt_flash_dq_wide_f32(const void* q, const void* k, const void* v, const void* g,
+                          const void* lse, const void* delta, const void* mask, void* dq, int bh,
+                          int heads, int tq, int tk, int d, int tile, float scale, int causal,
+                          int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!wide_head_dim(d) || tile != kWideTileF32) return (int)cudaErrorInvalidValue;
+  return launch_dq_wide<float, kWideTileF32>(q, k, v, g, lse, delta, mask, dq, bh, heads, tq, tk,
+                                             d, scale, causal, static_cast<cudaStream_t>(stream));
+}
+
+int swt_flash_dkv_wide_f32(const void* q, const void* k, const void* v, const void* g,
+                           const void* lse, const void* delta, const void* mask, void* dk,
+                           void* dv, int bh, int heads, int tq, int tk, int d, int tile,
+                           float scale, int causal, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!wide_head_dim(d) || tile != kWideTileF32) return (int)cudaErrorInvalidValue;
+  return launch_dkv_wide<float, kWideTileF32>(q, k, v, g, lse, delta, mask, dk, dv, bh, heads,
+                                              tq, tk, d, scale, causal,
+                                              static_cast<cudaStream_t>(stream));
+}
+
+}  // extern "C"

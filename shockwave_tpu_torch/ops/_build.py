@@ -1,12 +1,14 @@
 """Builds the port's CUDA kernels at first use and loads them with ctypes.
 
-`nvcc` compiles every source under `shockwave_tpu_torch/csrc/` into one
-shared library with a plain C interface (no PyTorch headers, so a build
-takes seconds, not minutes). The library lands in
-`shockwave_tpu_torch/csrc/build/<hash>/`, keyed by a hash of the sources
-and the flags, so an edited kernel is rebuilt and an unchanged one is
-loaded as it is. Nothing here runs at import: the CPU tests import every
-module of the port and never build.
+One `nvcc` per source under `shockwave_tpu_torch/csrc/` (the narrow
+kernels and the wide ones), all started together, compiles an object
+file, and a last `nvcc` links them into one shared library with a plain
+C interface (no PyTorch headers, so a build takes seconds, not minutes).
+The library lands in `shockwave_tpu_torch/csrc/build/<hash>/`, keyed by a
+hash of the sources, the headers they include and the flags, so an
+edited kernel is rebuilt and an unchanged one is loaded as it is.
+Nothing here runs at import: the CPU tests import every module of the
+port and never build.
 """
 from __future__ import annotations
 
@@ -20,10 +22,11 @@ from typing import Optional
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC_DIR, "build")
-SOURCES = ("flash_attention.cu",)
+SOURCES = ("flash_attention.cu", "flash_attention_wide.cu")
+HEADERS = ("flash_attention_common.cuh",)
 LIB_NAME = "libswt_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # (name, argtypes) of every C entry point; each returns a cudaError_t as int.
@@ -60,7 +63,7 @@ def _nvcc() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC_DIR, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     return h.hexdigest()[:16]
@@ -80,15 +83,33 @@ def build() -> str:
         return path
     out_dir = os.path.dirname(path)
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(CSRC_DIR, s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    objects = [os.path.join(out_dir, f"{os.path.splitext(s)[0]}.{tag}.o") for s in SOURCES]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC_DIR, src)]
+                for src, obj in zip(SOURCES, objects)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for cmd in compiles]
+    log = []
+    for cmd, proc in zip(compiles, procs):
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            for other in procs:
+                other.kill()
+                other.wait()
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                               f"{out}\n{err}")
+        log.append(out + err)
+    tmp = f"{path}.{tag}"
+    link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", tmp, *objects]
+    proc = subprocess.run(link, capture_output=True, text=True, check=False)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(link)}\n"
                            f"{proc.stdout}\n{proc.stderr}")
+    for obj in objects:
+        os.remove(obj)
     with open(os.path.join(out_dir, "build.log"), "w") as f:
-        f.write(proc.stdout + proc.stderr)
+        f.write("".join(log))
     os.replace(tmp, path)
     return path
 

@@ -1,7 +1,8 @@
 """Fused flash attention: hand-written CUDA kernels for Hopper.
 
 The port of `shockwave_tpu/ops/flash_attention.py`. Three kernels
-(`csrc/flash_attention.cu`) replace its three Pallas kernels:
+(`csrc/flash_attention.cu`, and their wide instances in
+`csrc/flash_attention_wide.cu`) replace its three Pallas kernels:
 
   flash_fwd  <- _fa_kernel   forward by online softmax, emits a per-row
                              logsumexp `lse` (BH, Tq) f32
@@ -37,8 +38,9 @@ other. Any other dtype raises on the card.
 The kernels are built for head dims 32, 64, 128 and 256
 (`KERNEL_HEAD_DIMS`); above 256 each kernel has a wide instance
 (`flash_fwd_wide`, `flash_dq_wide`, `flash_dkv_wide`, each in bf16 and
-f32) that takes any multiple of 256 at run time, each CTA owning a
-256-column slice of the output. `flash_attention` zero-pads q, k and v
+f32) that takes any multiple of 256 at run time: K1's CTAs own 64 rows
+and up to 512 output columns (bf16 on wgmma), K2's and K3's a 256-column
+slice of the output. `flash_attention` zero-pads q, k and v
 along the head dim to `kernel_head_dim(d)` (the smallest of
 `KERNEL_HEAD_DIMS` that holds d; 257-512 to 512, wider ones to the next
 multiple of 256) on every device, as the reference pads to its sublane
@@ -59,8 +61,8 @@ from . import _build
 NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (32, 64, 128, 256)
 # Head dims above the widest of them pad to a multiple of WIDE_SLICE (512
-# at least) and run on the wide instances, whose CTAs own WIDE_SLICE
-# output columns each.
+# at least) and run on the wide instances (K2's and K3's CTAs own
+# WIDE_SLICE output columns each, K1's up to twice that).
 WIDE_SLICE = 256
 # The dtypes the kernels take, with the suffix of their instance's launch
 # counter and C entry point.
@@ -91,10 +93,13 @@ KERNEL_TILES = {(name + suffix, d): ((16, 32 if d == 256 else 64, 64) if suffix
                                      else (32, 64, 32))
                 for suffix in KERNEL_DTYPES.values() for name in KERNELS
                 for d in KERNEL_HEAD_DIMS}
-# The wide instances' one tile at any length: 32 rows in bf16, 16 in f32
-# (K3 in f32 takes 101,632 bytes of shared memory at 16 rows, twice that
-# at 32).
-WIDE_TILES = {name: 16 if name.endswith("_f32") else 32 for name in WIDE_INSTANCES}
+# The wide instances' one tile at any length: K1's is 64 rows in both
+# dtypes (a wgmma's 64 rows; two warpgroups, each summing the scores over
+# half of the head dim, csrc/flash_attention_wide.cu), K2's and K3's 32
+# in bf16 and 16 in f32 (K3 in f32 takes 101,632 bytes of shared memory
+# at 16 rows, twice that at 32).
+WIDE_TILES = {name: 64 if name.startswith("flash_fwd") else 16 if name.endswith("_f32") else 32
+              for name in WIDE_INSTANCES}
 
 
 def reset_launch_counts() -> None:

@@ -13,7 +13,10 @@
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
+#include <cstdio>
+#include <deque>
 #include <memory>
+#include <mutex>
 #include <thread>
 #include <vector>
 
@@ -62,12 +65,17 @@ namespace emu {
 inline thread_local dim3 t_thread, t_block;
 inline dim3 g_grid;
 inline std::atomic<long> g_shared_overruns{0};
+// Multiply-adds the tensor-core instructions of the last launch issued
+// (mma.sync and wgmma, each as its M x N x K; a 3xTF32 product is three).
+inline std::atomic<long> g_tensor_macs{0};
 
 struct Cta {
   std::vector<unsigned char> smem;
   size_t smem_bytes;
   std::unique_ptr<std::barrier<>> all;
   std::vector<std::unique_ptr<std::barrier<>>> warps;
+  std::unique_ptr<std::barrier<>> named[16];  // bar.sync / bar.arrive ids, made at first use
+  std::mutex named_mu;
   float exchange[32][32][8];  // [warp][lane][value]: shuffles and mma operands
 };
 inline thread_local Cta* t_cta;
@@ -83,6 +91,7 @@ struct Launch {
   template <typename... A>
   void operator()(A... args) {
     g_grid = grid;
+    g_tensor_macs = 0;
     for (unsigned bz = 0; bz < grid.z; ++bz)
     for (unsigned by = 0; by < grid.y; ++by)
       for (unsigned bx = 0; bx < grid.x; ++bx) {
@@ -147,6 +156,7 @@ inline void mma_m16n8k8_tf32(float* c, const uint32_t* a, uint32_t b0, uint32_t 
   }
   warp_sync();
   for (int e = 0; e < 4; ++e) c[e] = out[e];
+  g_tensor_macs += 4 * 8;
 }
 
 inline float bf16_bits_to_float(uint32_t bits16) { return __uint_as_float(bits16 << 16); }
@@ -210,10 +220,139 @@ inline void mma_m16n8k16_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t
   }
   warp_sync();
   for (int e = 0; e < 4; ++e) c[e] = out[e];
+  g_tensor_macs += 4 * 16;
+}
+
+// bar.sync / bar.arrive on named barrier `id` of `count` threads: a
+// barrier of the CTA's, made by its first user. An arrival does not wait.
+inline std::barrier<>& named_barrier(int id, int count) {
+  std::lock_guard<std::mutex> hold(t_cta->named_mu);
+  if (!t_cta->named[id]) t_cta->named[id] = std::make_unique<std::barrier<>>(count);
+  return *t_cta->named[id];
+}
+inline void named_sync(int id, int count) { named_barrier(id, count).arrive_and_wait(); }
+inline void named_arrive(int id, int count) { (void)named_barrier(id, count).arrive(); }
+
+// A wgmma matrix descriptor's operand element as the PTX ISA lays out the
+// 128-byte swizzle (the only mode the kernels use): start address, leading
+// byte offset (LBO) and stride byte offset (SBO), each in 16-byte units.
+// K-major element (mn, k) sits at start + (mn / 8) SBO + (mn % 8) 128 + k
+// E (E the element's bytes); MN-major element (k, mn) at start + (k / 8)
+// SBO + (k % 8) 128 + 2 (mn % 64) + (mn / 64) LBO (bf16 only); then bits
+// 4-6 of the address are XORed with bits 7-9. A bf16 element is read as
+// its value, a TF32 one as its 32 bits' top 19.
+inline float desc_element(uint64_t desc, bool mn_major, int mn, int k, bool tf32 = false) {
+  const uint32_t start = (uint32_t)(desc & 0x3fff) << 4;
+  const uint32_t lbo = (uint32_t)((desc >> 16) & 0x3fff) << 4;
+  const uint32_t sbo = (uint32_t)((desc >> 32) & 0x3fff) << 4;
+  if ((desc >> 62) != 1 || ((desc >> 49) & 7) != 0) {
+    fprintf(stderr, "emulated wgmma: descriptor %llx is not a 128-byte swizzle at offset 0\n",
+            (unsigned long long)desc);
+    abort();
+  }
+  const uint32_t size = tf32 ? 4 : 2;
+  uint32_t off = mn_major ? start + (k / 8) * sbo + (k % 8) * 128 + (mn % 64) * 2 + (mn / 64) * lbo
+                          : start + (mn / 8) * sbo + (mn % 8) * 128 + k * size;
+  off ^= ((off >> 7) & 7) << 4;
+  if (off + size > t_cta->smem_bytes) {
+    ++g_shared_overruns;
+    return 0.f;
+  }
+  if (tf32) {
+    uint32_t bits;
+    memcpy(&bits, t_cta->smem.data() + off, 4);
+    return __uint_as_float(bits & 0xffffe000u);
+  }
+  uint16_t bits;
+  memcpy(&bits, t_cta->smem.data() + off, 2);
+  return bf16_bits_to_float(bits);
+}
+
+// wgmma.mma_async m64n64k16 (f32 += bf16 x bf16) runs when it is waited
+// for, as on the card, where it reads its shared operands and registers
+// asynchronously until then: a kernel that rewrites either before its
+// wgmma_wait reads the rewritten values here too. A from registers is
+// copied at issue (a correct kernel leaves it alone until the wait).
+struct WgmmaOp {
+  float* d;
+  uint64_t da, db;
+  uint32_t a[4];
+  bool a_in_registers;
+  bool tf32 = false;  // m64nNk8 on TF32 (A in registers, B K-major), else m64n64k16 on bf16
+  int n = 64;
+};
+inline thread_local std::vector<WgmmaOp> t_wgmma_open;
+inline thread_local std::deque<std::vector<WgmmaOp>> t_wgmma_groups;
+
+inline void wgmma_ss(float* d, uint64_t da, uint64_t db) {
+  t_wgmma_open.push_back({d, da, db, {0, 0, 0, 0}, false});
+}
+inline void wgmma_rs(float* d, const uint32_t* a, uint64_t db) {
+  t_wgmma_open.push_back({d, 0, db, {a[0], a[1], a[2], a[3]}, true});
+}
+inline void wgmma_tf32(float* d, int n, const uint32_t* a, uint64_t db) {
+  t_wgmma_open.push_back({d, 0, db, {a[0], a[1], a[2], a[3]}, true, true, n});
+}
+inline void wgmma_commit() {
+  t_wgmma_groups.push_back(std::move(t_wgmma_open));
+  t_wgmma_open.clear();
+}
+
+// One op for this thread: warp w of the warpgroup holds rows 16w..16w + 15
+// of the 64 x N accumulator in mma.sync's C layout (n8 tile j in d[4j..4j
+// + 3]); A from registers is mma.sync's A layout per warp (m16n8k16 in
+// bf16, m16n8k8 in TF32); in bf16, B is K-major (A . B^T, S = Q.K^T) for
+// an A in shared memory and MN-major (A . B, P.V) for an A in registers,
+// as the kernels pair them; in TF32 it is K-major.
+inline void wgmma_run(const WgmmaOp& op) {
+  const int ln = lane(), wq = warp() % 4, g = ln >> 2, t = ln & 3;
+  const int depth = op.tf32 ? 8 : 16;
+  auto& x = t_cta->exchange[warp()];
+  if (op.a_in_registers) {
+    memcpy(&x[ln][0], op.a, sizeof(op.a));
+    warp_sync();
+  }
+  auto A = [&](int r, int k) {  // r: 0..15 within the warp's rows
+    if (!op.a_in_registers) return desc_element(op.da, false, 16 * wq + r, k);
+    uint32_t v;
+    if (op.tf32) {
+      memcpy(&v, &x[(r & 7) * 4 + (k & 3)][(r >= 8) + 2 * (k >= 4)], 4);
+      return __uint_as_float(v & 0xffffe000u);
+    }
+    memcpy(&v, &x[(r & 7) * 4 + ((k & 7) >> 1)][(r >= 8) + 2 * (k >= 8)], 4);
+    return bf16_bits_to_float(k & 1 ? v >> 16 : v & 0xffffu);
+  };
+  auto B = [&](int k, int n) {
+    return desc_element(op.db, op.a_in_registers && !op.tf32, n, k, op.tf32);
+  };
+  float out[32];
+  for (int j = 0; j < op.n / 8; ++j)
+    for (int e = 0; e < 4; ++e) {
+      const int r = g + 8 * (e >> 1), n = 8 * j + 2 * t + (e & 1);
+      double sum = 0;
+      for (int k = 0; k < depth; ++k) sum += (double)A(r, k) * (double)B(k, n);
+      out[4 * j + e] = op.d[4 * j + e] + (float)sum;
+    }
+  if (op.a_in_registers) warp_sync();
+  for (int i = 0; i < op.n / 2; ++i) op.d[i] = out[i];
+  g_tensor_macs += op.n / 2 * depth;
+}
+
+// wgmma.wait_group n: the committed groups but the newest n run, in order.
+inline void wgmma_wait(int n) {
+  while ((int)t_wgmma_groups.size() > n) {
+    for (const WgmmaOp& op : t_wgmma_groups.front()) wgmma_run(op);
+    t_wgmma_groups.pop_front();
+  }
 }
 }  // namespace emu
 
+// The library's counters, defined in the one translation unit that
+// emulate.py marks with EMU_EXPORTS.
+#ifdef EMU_EXPORTS
 extern "C" long emu_shared_overruns() { return emu::g_shared_overruns.load(); }
+extern "C" long emu_tensor_products() { return emu::g_tensor_macs.load(); }
+#endif
 
 #define threadIdx (emu::t_thread)
 #define blockIdx (emu::t_block)

@@ -1,16 +1,23 @@
-"""Builds the port's CUDA kernel source for the CPU with the host C++
+"""Builds the port's CUDA kernel sources for the CPU with the host C++
 compiler, so that tests can run its kernels, bf16 and f32, on CPU
 tensors.
 
-`emulated_source` rewrites `shockwave_tpu_torch/csrc/flash_attention.cu`
-into host C++: the PTX helpers (cp.async, ldmatrix, mma.sync) get
-emulated bodies from `cuda_runtime.h` here, and each `kernel<<<...>>>(...)` launch runs
-its grid on host threads. `build` compiles that into a shared library
-with the same C entry points as the CUDA one. The emulation holds the
-kernels' index math, masking, tiles and shared-memory layout; it shows
-no timing, no race between a `cp.async` copy and the compute that should
-wait for it (copies land at once), and none of the tensor cores' own
-rounding of sums: those need the card (`chip_smoke.py`).
+`emulated_source` rewrites a `.cu` file of `shockwave_tpu_torch/csrc/`
+(`flash_attention.cu`, the narrow kernels, and `flash_attention_wide.cu`,
+the wide ones, each with the `.cuh` it includes inlined) into host C++:
+the PTX helpers (cp.async, ldmatrix, mma.sync, wgmma with its fence,
+commit and wait, named barriers, the async-proxy fence) get emulated
+bodies from `cuda_runtime.h` here, and each `kernel<<<...>>>(...)`
+launch runs its grid on host threads. `build` compiles both into one
+shared library with the same C entry points as the CUDA one, which also
+reports the tensor-core multiply-adds of the last launch
+(`emu_tensor_products`). The emulation holds the kernels' index math,
+masking, tiles, shared-memory layout (the 128-byte swizzle and wgmma's
+descriptors included, as the PTX ISA lays them out) and barrier
+protocol; it shows no timing, no race between a `cp.async` copy and the
+compute that should wait for it (copies land at once), and none of the
+tensor cores' own rounding of sums: those need the card
+(`chip_smoke.py`).
 """
 from __future__ import annotations
 
@@ -23,8 +30,9 @@ import subprocess
 import tempfile
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(os.path.dirname(os.path.dirname(HERE)), "shockwave_tpu_torch", "csrc",
-                      "flash_attention.cu")
+CSRC = os.path.join(os.path.dirname(os.path.dirname(HERE)), "shockwave_tpu_torch", "csrc")
+SOURCES = tuple(os.path.join(CSRC, name) for name in ("flash_attention.cu",
+                                                       "flash_attention_wide.cu"))
 
 # Emulated bodies of the helpers that hold inline PTX, by function name.
 BODIES = {
@@ -39,13 +47,26 @@ BODIES = {
     "ldmatrix_x4_trans": "emu::ldmatrix_x4(r, p, true);",
     "mma_bf16": "emu::mma_m16n8k16_bf16(c, a, b0, b1);",
     "mma_tf32": "emu::mma_m16n8k8_tf32(c, a, b0, b1);",
+    "named_sync": "emu::named_sync(id, threads);",
+    "named_arrive": "emu::named_arrive(id, threads);",
+    "fence_async_shared": "",
+    "wgmma_fence": "",
+    "wgmma_commit": "emu::wgmma_commit();",
+    "wgmma_wait": "emu::wgmma_wait(N);",
+    "wgmma_hold": "",
+    "wgmma_ss": "emu::wgmma_ss(&d[0][0], da, db);",
+    "wgmma_rs": "emu::wgmma_rs(&d[0][0], a, db);",
+    "wgmma_tf32_n64": "emu::wgmma_tf32(&d[0][0], 64, a, db);",
+    "wgmma_tf32_n32": "emu::wgmma_tf32(&d[0][0], 32, a, db);",
 }
 
 
-def _replace_body(src: str, name: str, body: str) -> str:
+def _replace_body(src: str, name: str, body: str):
+    """`src` with the body of function `name` replaced, or None when `src`
+    does not define it."""
     match = re.search(r"\b" + name + r"\s*\([^;{]*\)\s*\{", src)
     if match is None:
-        raise ValueError(f"{name} is not defined in {SOURCE}")
+        return None
     depth, end = 1, match.end()
     while depth:
         depth += {"{": 1, "}": -1}.get(src[end], 0)
@@ -53,18 +74,39 @@ def _replace_body(src: str, name: str, body: str) -> str:
     return src[:match.end()] + body + "\n}" + src[end:]
 
 
-def emulated_source(path: str = SOURCE) -> str:
+def _inline_includes(path: str, seen=None) -> str:
+    """The text of `path` with each `#include "x"` of a file beside it
+    replaced by that file's text, once (the headers are `#pragma once`)."""
+    seen = set() if seen is None else seen
     with open(path) as f:
         src = f.read()
+
+    def include(match):
+        inc = os.path.join(os.path.dirname(path), match.group(1))
+        if inc in seen:
+            return ""
+        seen.add(inc)
+        return _inline_includes(inc, seen)
+    return re.sub(r'^#include "([^"]+)"$', include, src, flags=re.M)
+
+
+def emulated_source(path: str = SOURCES[0], exports: bool = False):
+    """Host C++ for the `.cu` file at `path`; with `exports`, the one
+    translation unit that defines the library's counters."""
+    src = _inline_includes(path)
     for name, body in BODIES.items():
-        src = _replace_body(src, name, body)
+        src = _replace_body(src, name, body) or src
     src = re.sub(r"(\w+<[^<>;]*>)<<<([^;]*?)>>>\(", r"emu::launch(\1, \2)(", src)
     src = re.sub(r"extern __shared__ __align__\(\d+\) unsigned char smem\[\];",
                  "unsigned char* smem = emu::smem();", src)
     code = re.sub(r"//.*", "", src)
     if re.search(r"\basm\b", code):
-        raise ValueError("inline PTX left without an emulated body")
-    return src
+        raise ValueError(f"inline PTX left without an emulated body in {path}")
+    return ("#define EMU_EXPORTS\n" if exports else "") + src
+
+
+def _defined(name: str) -> bool:
+    return any(_replace_body(_inline_includes(p), name, "") is not None for p in SOURCES)
 
 
 def compiler():
@@ -77,7 +119,11 @@ def cached_build() -> str:
     of the emulated source, once: test modules in several processes (the
     f32 and the bf16 emulation tests) share one build, a lock letting the
     first build it while the others wait."""
-    key = hashlib.sha256(emulated_source().encode()).hexdigest()[:16]
+    missing = [name for name in BODIES if not _defined(name)]
+    if missing:
+        raise ValueError(f"{missing} are not defined in {SOURCES}")
+    key = hashlib.sha256("".join(emulated_source(p, i == 0)
+                                 for i, p in enumerate(SOURCES)).encode()).hexdigest()[:16]
     out_dir = os.path.join(tempfile.gettempdir(), f"swt_cuda_emu_{key}")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "lock"), "w") as lock:
@@ -91,14 +137,16 @@ def cached_build() -> str:
     return lib
 
 
-def build(out_dir: str) -> str:
-    """Compile the emulated source into `out_dir`; returns the library's
-    path. Raises with the compiler's output when it fails."""
-    cpp = os.path.join(out_dir, "flash_attention_emulated.cpp")
-    lib = os.path.join(out_dir, "libswt_kernels_emulated.so")
-    with open(cpp, "w") as f:
-        f.write(emulated_source())
-    cmd = [compiler(), "-std=c++20", "-O1", "-shared", "-fPIC", "-I", HERE, "-o", lib, cpp,
+def build(out_dir: str, sources=SOURCES, name: str = "libswt_kernels_emulated.so") -> str:
+    """Compile the emulated `sources` into one library in `out_dir`; returns
+    its path. Raises with the compiler's output when it fails."""
+    cpps = []
+    for i, path in enumerate(sources):
+        cpps.append(os.path.join(out_dir, os.path.basename(path) + ".emulated.cpp"))
+        with open(cpps[-1], "w") as f:
+            f.write(emulated_source(path, exports=i == 0))
+    lib = os.path.join(out_dir, name)
+    cmd = [compiler(), "-std=c++20", "-O1", "-shared", "-fPIC", "-I", HERE, "-o", lib, *cpps,
            "-lpthread"]
     proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
     if proc.returncode != 0:

@@ -359,10 +359,11 @@ class TestLaunchConfig:
                 reached = {(fa.launch_config(tq, tk, d, name), d)
                            for _, _, tq, tk, _, d, _, _ in cases if d in fa.KERNEL_HEAD_DIMS}
                 assert reachable == reached, name
-                # The wide instance at D = 512: its one tile at a short and
-                # a long sequence, Tq != Tk, causal and key-padded, key 0.
+                # The wide instance at D = 512 (and at 768, with a slice of
+                # 256 columns): its one tile at a short and a long sequence,
+                # Tq != Tk, causal and key-padded, key 0.
                 wide = [c for c in cases if c[5] not in fa.KERNEL_HEAD_DIMS]
-                assert {c[5] for c in wide} == {512}
+                assert {512, 768} <= {c[5] for c in wide}
                 assert {max(c[2], c[3]) <= 32 for c in wide} == {True, False}
                 assert any(c[2] != c[3] for c in wide) and any(c[7] == "key0" for c in wide)
                 assert {fa.launch_config(c[2], c[3], 512, kernel + fa.WIDE + suffix)
