@@ -11,7 +11,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    instantiations that spill registers, named from ptxas's report
    (`spills:`); the HMMA instructions of each instantiation in the
    library's SASS, by mnemonic (`sass:`; the 3xTF32 kernels must hold
-   TF32 ones); then each kernel instantiation's resident CTAs per SM,
+   TF32 ones, and the wgmma kernels, K1 wide in both dtypes and K2 and K3
+   wide in f32, HGMMA ones of their dtype); then each kernel instantiation's resident CTAs per SM,
    threads, shared memory and registers, and at the main shape each
    kernel's resident CTA slots (CTAs per SM x SMs) against its grid
    (`occupancy:`).
@@ -36,9 +37,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    2048, 8, D) causal, Tq != Tk key-padded, ragged causal, and the key-0
    row at both tiles (the f32 instances' long tile is 32 at D = 256).
    The wide instances (any multiple of 256 above 256: K1 on wgmma in
-   64-row tiles of up to 512 output columns, K2 and K3 in CTAs of 256
-   columns, 32 rows in bf16, 16 in f32) run the same six at D = 512
-   (`d512_` cases), and D = 768 (`d768_`: a 512- and a 256-column slice;
+   64-row tiles of up to 512 output columns; K2 and K3 in bf16 in CTAs of
+   32 rows and 256 columns; K2 and K3 in f32 on wgmma in 64-row tiles, or
+   32 rows of each of two (batch, head) pairs up to T = 32, of up to 512
+   dQ and 256 dK and dV columns) run the same six at D = 512 (`d512_`
+   cases) and the short f32 tile causal with a missing pair and the key-0
+   row, and D = 768 (`d768_`: a 512- and a 256-column slice;
    f32's K1 streams Q there) ragged causal and Tq != Tk key-padded, bf16
    also at D = 1280 (its K1 streams Q). Then head dims the kernels are not
    built for (`PADDED_CASES`: d = 16, 48, 80, 96, 160, 200, 264 and 320,
@@ -49,7 +53,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    the narrowest past the template instances, the same way. Times are medians of CUDA-event timings of CUDA-graph
    replays (device time, no host launch cost), beside the bound and the
    PyTorch library call (`scaled_dot_product_attention`, a yardstick the
-   port never calls, with the backend its dispatch picked).
+   port never calls, with the backend its dispatch picked; its backward,
+   the yardstick of K2 + K3 together, as its forward + backward less its
+   forward).
 4. slice: the translation trainer at full width (dim 512, 8 heads,
    6 + 6 layers, batch 64) for 30 steps through
    `shockwave_tpu_torch.workloads.translation.train.main`, with the
@@ -299,14 +305,16 @@ F32_CASES = (
     ("d256_ragged_causal_f32", 2, 100, 100, 4, 256, True, "tail"),
     ("d256_masked_row0_f32", 1, 128, 128, 2, 256, True, "key0"),
     ("d256_short_masked_row0_f32", 1, 48, 48, 2, 256, True, "key0"),
-    # D = 512 on the wide f32 instances (K1: 64-row tiles; K2, K3: 16),
-    # the same six.
+    # D = 512 on the wide f32 instances (64-row tiles; K2 and K3 32 rows
+    # of two pairs up to T = 32: the main shape), the same six, and the
+    # short tile causal with the key-0 row and, at BH = 3, a missing pair.
     ("d512_main_enc_self_f32", 64, 32, 32, 8, 512, False, "tail"),
     ("d512_bench_causal_f32", 4, 2048, 2048, 8, 512, True, None),
     ("d512_cross_48x96_f32", 2, 48, 96, 4, 512, False, "tail"),
     ("d512_ragged_causal_f32", 2, 100, 100, 4, 512, True, "tail"),
     ("d512_masked_row0_f32", 1, 128, 128, 2, 512, True, "key0"),
     ("d512_short_masked_row0_f32", 1, 48, 48, 2, 512, True, "key0"),
+    ("d512_short32_masked_row0_f32", 1, 32, 32, 3, 512, True, "key0"),
     # D = 768, where K1 in f32 streams Q's chunks: ragged causal, Tq != Tk.
     ("d768_ragged_causal_f32", 2, 100, 100, 4, 768, True, "tail"),
     ("d768_cross_48x96_f32", 2, 48, 96, 4, 768, False, "tail"),
@@ -525,10 +533,16 @@ def emit(tag: str, obj) -> None:
 def kernel_name(mangled: str) -> str:
     """"flash_..._kernel<D, tile>" (a wide instance: "flash_..._wide_kernel<
     type, tile>"; K1's: "flash_fwd_wide_kernel<type, Q resident>" or "..., Q
-    streamed>") of a kernel's mangled name."""
+    streamed>"; f32 K3's "flash_dkv_wide_f32_kernel<rows>", K2's
+    "flash_dq_wide_f32_kernel<rows, 512-column CTAs>" or "..., any D>") of a
+    kernel's mangled name."""
     k = re.search(r"(flash_(?:fwd|dq|dkv)(?:_f32)?_kernel)ILi(\d+)ELi(\d+)E", mangled)
     if k:
         return f"{k.group(1)}<{k.group(2)}, {k.group(3)}>"
+    k = re.search(r"(flash_(?:dq|dkv)_wide_f32_kernel)ILi(\d+)E(?:Lb([01])E)?", mangled)
+    if k:
+        whole = {"1": ", 512-column CTAs", "0": ", any D", None: ""}[k.group(3)]
+        return f"{k.group(1)}<{k.group(2)}{whole}>"
     k = re.search(r"(flash_(?:fwd|dq|dkv)_wide_kernel)I(f|13__nv_bfloat16)L([ib])(\d+)E",
                   mangled)
     if k:
@@ -591,39 +605,12 @@ def main_shape_slots(fa, occupancy, sms):
     return rows
 
 
-def graph_ms(fn, inner: int = 20, reps: int = 7, replay_ms: float = 20.0) -> float:
-    """Median device milliseconds of one call of `fn`: `inner` calls are
-    captured in a CUDA graph, which is replayed `reps` times between CUDA
-    events after a warm-up. A call that takes more than `replay_ms /
-    inner` (the milliseconds-long ones at D 256 and 512) is captured fewer
-    times, as many as take about `replay_ms`, at least once: its launch
-    cost is already a small share of it."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    fn()
-    end.record()
-    end.synchronize()
-    inner = max(1, min(inner, int(replay_ms / max(start.elapsed_time(end), 1e-3))))
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(inner):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    del graph
-    return statistics.median(times)
+def graph_ms(fn) -> float:
+    """Median device ms of one call of `fn`: the port's one CUDA-graph timer,
+    `profiling.device.graph_ms`, which profiling/fwd_wide_ab.py times with
+    too (imported here, once main() has put the port on the path)."""
+    from shockwave_tpu_torch.profiling.device import graph_ms as timer
+    return timer(fn)
 
 
 def make_mask(kind, b, tk, gen, device):
@@ -744,6 +731,10 @@ def kernel_case(fa, case, seed, device, rates, dtype=torch.bfloat16):
             "bytes": nbytes, "flops": flops, "tile": fa.launch_config(tq, tk, d, iname)}
     (record["library_fwd_ms"], record["library_fwd_bwd_ms"],
      record["library_backend"]) = library_ms(q, k, v, g, mask, b, h, tq, tk, d, causal)
+    # SDPA's backward, the one call that computes dQ, dK and dV: the
+    # yardstick of K2 + K3 together.
+    record["library_bwd_ms"] = record["library_fwd_bwd_ms"] - record["library_fwd_ms"]
+    record["library_bwd_by"] = "fwd_bwd - fwd"
     record["flash_fwd_bwd_ms"] = flash_fwd_bwd_ms(fa, q, k, v, g, mask, b, h, tq, tk, d, causal)
     return record
 
@@ -2205,19 +2196,24 @@ def main() -> int:
     hmma = sass_hmma(path)
     emit("sass", hmma)
     for kname in ("flash_fwd_f32_kernel", "flash_dq_f32_kernel", "flash_dkv_f32_kernel",
-                  "flash_fwd_wide_kernel<float", "flash_dq_wide_kernel<float",
-                  "flash_dkv_wide_kernel<float"):
+                  "flash_fwd_wide_kernel<float", "flash_dq_wide_f32_kernel",
+                  "flash_dkv_wide_f32_kernel"):
         check(any(name.startswith(kname) for name in hmma), f"{kname}: not in the SASS")
         for name, ops in hmma.items():
             if name.startswith(kname):
                 check(any("TF32" in op for op in ops), f"{name}: no TF32 HMMA in its SASS ({ops})")
-    # K1 wide runs on wgmma in both dtypes: HGMMA, bf16 and TF32, in each of
-    # its instances (Q resident and streamed).
-    for dtype, operand in (("bf16", "BF16"), ("float", "TF32")):
-        k1 = {name: ops for name, ops in hmma.items()
-              if name.startswith(f"flash_fwd_wide_kernel<{dtype}")}
-        check(len(k1) == 2, f"K1 wide {dtype}: {sorted(k1)} in the SASS, not its two instances")
-        for name, ops in k1.items():
+    # K1 wide runs on wgmma in both dtypes, K2 and K3 wide in f32: HGMMA,
+    # bf16 or TF32, in each of their instances (K1's Q resident and
+    # streamed; K2's and K3's two tiles, K2's for D a multiple of 512 and
+    # any D).
+    for prefix, operand, count in (("flash_fwd_wide_kernel<bf16", "BF16", 2),
+                                   ("flash_fwd_wide_kernel<float", "TF32", 2),
+                                   ("flash_dq_wide_f32_kernel<", "TF32", 4),
+                                   ("flash_dkv_wide_f32_kernel<", "TF32", 2)):
+        found = {name: ops for name, ops in hmma.items() if name.startswith(prefix)}
+        check(len(found) == count, f"{prefix}: {sorted(found)} in the SASS, not its {count} "
+                                   f"instances")
+        for name, ops in found.items():
             check(any(op.startswith("HGMMA") and operand in op for op in ops),
                   f"{name}: no {operand} HGMMA in its SASS ({ops})")
     occupancy = fa.kernel_occupancy(torch.cuda.current_device())
@@ -2321,6 +2317,10 @@ def main() -> int:
                 "bench_library_ms": (cases[bench]["library_fwd_ms"] if kname == "flash_fwd"
                                      else None),
                 "bench_long_launches": profiled["launches"][kname + suffix]}
+            if kname != "flash_fwd":  # K2 + K3's yardstick: SDPA's backward
+                row.update({"library_bwd_ms": at_case["library_bwd_ms"],
+                            "bench_library_bwd_ms": cases[bench]["library_bwd_ms"],
+                            "library_bwd_of": "dQ, dK and dV (SDPA fwd_bwd - fwd)"})
             d128, d128_bench = (cases[n] for n in D128_CASES[suffix])
             k128 = d128["kernels"][kname + suffix]
             b128 = d128_bench["kernels"][kname + suffix]
@@ -2392,6 +2392,10 @@ def main() -> int:
                                         if n.startswith(("d768_", "d1280_"))
                                         and c["dtype"] == str(dtype) for e in ERR_KEYS[kname]),
                 "library_backend": bench_case["library_backend"]})
+            if not fwd:  # K2 + K3's yardstick: SDPA's backward
+                kernels[-1].update({"library_bwd_ms": at_case["library_bwd_ms"],
+                                    "bench_library_bwd_ms": bench_case["library_bwd_ms"],
+                                    "library_bwd_of": "dQ, dK and dV (SDPA fwd_bwd - fwd)"})
     main_case = cases[MAIN_CASE]
     # Forward + backward at D = 256 and 512 (the port's autograd path
     # against SDPA's, and the backend SDPA picked), by dtype and shape.

@@ -7,24 +7,26 @@
 // as the narrow instances in flash_attention.cu (_fa_kernel :40,
 // _dq_kernel :167, _dkv_kernel :222 of shockwave_tpu/ops/flash_attention.py)
 // at those widths, with the same arguments and masking, and share its
-// building blocks (flash_attention_common.cuh). K1 (below K2 and K3) has
-// a design of its own for Hopper; K2 and K3 keep the column-slice design
-// that follows.
+// building blocks (flash_attention_common.cuh). Three designs:
+// - K2 and K3 in bf16 (flash_dq_wide_kernel, flash_dkv_wide_kernel):
+//   32-row CTAs of 256 output columns on mma.sync, the first wide design
+//   (below).
+// - K1 in both dtypes (flash_fwd_wide_kernel): two warpgroups over 64-row
+//   tiles on wgmma, the scores formed once per row tile.
+// - K2 and K3 in f32 (flash_dq_wide_f32_kernel, flash_dkv_wide_f32_kernel):
+//   K1's data flow for the backward, on TF32 wgmma as 3xTF32, after K1.
 #include "flash_attention_common.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------------------
-// K2 and K3 at wide head dims, templated on the element type (bf16, or
-// f32 as 3xTF32) and the row tile.
+// K2 and K3 at wide head dims in bf16, templated on the element type and
+// the row tile (32 rows).
 //
 // Bound on an H100 SXM at the bench shape (4, 2048, 8, 512) causal: K2
-// does 206 GFLOP, 209 us by bf16 operations (1.25 ms as 3xTF32); K3
-// 275 GFLOP, 278 us (1.67 ms).
+// does 206 GFLOP, 209 us by bf16 operations; K3 275 GFLOP, 278 us.
 //
-// What the design does about a head dim no template instance can hold
-// (at D = 256 the f32 instances already take 255 registers and about
-// 200 KB of shared memory):
+// What the design does about a head dim no template instance can hold:
 // 1. Column slices: a CTA owns 256 columns of its rows' output (K2: dQ;
 //    K3: dK and dV), grid z = D / 256, and two warps share each 16 rows,
 //    each owning 128 of those columns: the split of the narrow K3 at D =
@@ -45,25 +47,22 @@ namespace {
 //    copied with the first chunk of its tile into a two-stage slice
 //    buffer, so it arrives while the scores are summed.
 // 4. The masking, the p = 0 guard where s <= -5e29 and the operand
-//    hand-offs are the narrow kernels', fragment for fragment: bf16
-//    repacks accumulators into m16n8k16 A operands (accum_to_a), f32
-//    splits them into m16n8k8 TF32 ones with the reduction index permuted
-//    (accum_to_a_tf32). Each tile's part of dQ, dK and dV is summed from
-//    zero and added to the sum in f32.
+//    hand-offs are the narrow kernels', fragment for fragment:
+//    accumulators are repacked into m16n8k16 A operands (accum_to_a). Each
+//    tile's part of dQ, dK and dV is summed from zero and added in f32.
 // 5. Shared memory does not depend on D: 2 stages of the chunks (Q, dO, K
-//    and V) and 2 of the slices. bf16 at 32 rows: K2 70,912 bytes, K3
-//    104,960; f32 at 16 rows: K2 68,224, K3 101,632.
+//    and V) and 2 of the slices: K2 70,912 bytes, K3 104,960.
 // ---------------------------------------------------------------------------
 constexpr int kWideChunk = 64;                        // columns of a streamed score tile
 constexpr int kWideSlice = 256;                       // output columns a CTA owns
 constexpr int kWideColSplit = 2;                      // warps per 16 rows
 constexpr int kWideCols = kWideSlice / kWideColSplit;  // output columns a warp owns
-constexpr int kWideTileBf16 = 32, kWideTileF32 = 16;  // rows per CTA of K2 and K3
+constexpr int kWideTileBf16 = 32;                    // rows per CTA of K2 and K3
 
-// Row stride of a W-column shared tile: the narrow kernels' padding.
+// Row stride of a W-column shared tile: the narrow bf16 kernels' padding.
 template <typename T, int W>
 __host__ __device__ constexpr int wide_stride() {
-  return std::is_same<T, bf16>::value ? smem_stride<W>() : f32_stride<W>();
+  return smem_stride<W>();
 }
 
 template <typename T, int kBlock>
@@ -116,18 +115,6 @@ __device__ __forceinline__ void scores_chunk(float (&s)[kN][4], const bf16* a, c
   }
 }
 
-template <int kN, int S>
-__device__ __forceinline__ void scores_chunk(float (&s)[kN][4], const float* a, const float* b,
-                                             int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < kWideChunk / 8; ++kk) {
-    const Split<4> qa = split_a_shared<S>(a + kk * 8, g, t);
-#pragma unroll
-    for (int j = 0; j < kN; ++j) mma_3xtf32(s[j], qa, split_bt<S>(b + j * 8 * S + kk * 8, g, t));
-  }
-}
-
 // A 16 x kN*8 accumulator tile (P, dS, P^T or dS^T) as the A operands of
 // the second product.
 template <typename T, int kN>
@@ -139,20 +126,9 @@ struct AccumOperands<bf16, kN> {
 };
 
 template <int kN>
-struct AccumOperands<float, kN> {
-  Split<4> a[kN];
-};
-
-template <int kN>
 __device__ __forceinline__ void to_operands(AccumOperands<bf16, kN>& p, const float (&s)[kN][4]) {
 #pragma unroll
   for (int c = 0; c < kN / 2; ++c) accum_to_a(p.a[c], s[2 * c], s[2 * c + 1]);
-}
-
-template <int kN>
-__device__ __forceinline__ void to_operands(AccumOperands<float, kN>& p, const float (&s)[kN][4]) {
-#pragma unroll
-  for (int c = 0; c < kN; ++c) p.a[c] = accum_to_a_tf32(s[c]);
 }
 
 // part[j] (16 x 8, j = 0, 1) += P . X for the 16 columns of X at `x`: X's
@@ -166,17 +142,6 @@ __device__ __forceinline__ void product16(float (&part)[2][4], const AccumOperan
     load_b<S>(b, x + c * 16 * S, lane);
     mma_bf16(part[0], p.a[c], b[0], b[1]);
     mma_bf16(part[1], p.a[c], b[2], b[3]);
-  }
-}
-
-template <int S, int kN>
-__device__ __forceinline__ void product16(float (&part)[2][4], const AccumOperands<float, kN>& p,
-                                          const float* x, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int c = 0; c < kN; ++c) {
-    mma_3xtf32(part[0], p.a[c], split_b_permuted<S>(x + c * 8 * S, g, t));
-    mma_3xtf32(part[1], p.a[c], split_b_permuted<S>(x + c * 8 * S + 8, g, t));
   }
 }
 
@@ -1114,6 +1079,444 @@ __global__ void __launch_bounds__(kFwdWideThreads, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// K2 and K3 at wide head dims in f32: flash_dq_wide_f32 and
+// flash_dkv_wide_f32, on K1 wide's data flow (TF32 wgmma as 3xTF32, two
+// warpgroups over 64-row tiles, 8 KB chunks streamed through a cp.async
+// ring per group). Replace _dq_kernel (:167) and _dkv_kernel (:222) of
+// shockwave_tpu/ops/flash_attention.py in f32 at head dims above 256.
+//
+// Bound on an H100 SXM at the bench shape (4, 2048, 8, 512) causal, as
+// 3xTF32 at 164.8 TFLOP/s: K2 206 GFLOP, 1.25 ms; K3 275 GFLOP, 1.67 ms.
+// At the main shape (64, 32, 8, 512) key-padded by bytes: K2 168 MB, 50
+// us; K3 201 MB, 60 us.
+//
+// What held the first f32 design (flash_dq_wide_kernel and
+// flash_dkv_wide_kernel at 16 rows, two warps per 16 rows on mma.sync)
+// back, and what this one does:
+// 1. CTAs of 64 threads on 16 rows, 4-6 warps per SM. Here a CTA is two
+//    warpgroups (256 threads) over a 64-row tile, one CTA per SM; a
+//    group's output columns (64 x 256 f32) are 128 registers a thread.
+// 2. Each score tile formed kWideColSplit x D / 256 = 4 times at D = 512.
+//    K3 (grid BH x 64-key tiles x D / 256): group 0 forms S^T = K.Q^T over
+//    the full contraction, turns it into P^T and owns the CTA's 256
+//    columns of dV (dV += P^T.dO); group 1 forms dP^T = V.dO^T and owns
+//    the same columns of dK (dK += dS^T.Q). Group 0 hands P to group 1
+//    through a 16 KB f32 exchange, each thread's 32 values in its own
+//    slots: it waits at named barrier 4 until group 1 has read the last
+//    tile's P (from the second tile on), writes, and arrives at barrier 3,
+//    where group 1 waits; group 1 reads and arrives at 4. Each score tile
+//    is formed D / 256 times (2 at D = 512): no register file holds all
+//    512 columns of both dK and dV. The two groups do equal work, one
+//    score product and one output product each.
+//    K2 (grid BH x 64-query tiles x ceil(D / 512)): group 0 forms S =
+//    Q.K^T, group 1 dP = dO.V^T; they swap tiles through the exchange as
+//    K1 wide's groups swap halves of S (barriers 3 and 4, one wait a
+//    group), and both form the same dS (the same inputs and the same
+//    code). Each owns 256 columns of dQ (dQ += dS.K), so at D <= 512 each
+//    score tile is formed once; each further 512 columns of D adds a CTA
+//    that forms it again. Where D is a multiple of 512 an instance of its
+//    own (kWhole) takes a constant count of output steps.
+// 3. K3 copied its own K and V again at every q-tile, and every operand
+//    of every product was re-read by each warp. Here every operand streams
+//    once per (q-tile, k-tile) and CTA through the group's ring in 8 KB
+//    chunks (64 rows x 32 f32, swizzled for wgmma): two a score step (the
+//    A chunk, then the B chunk), then one per output step (the slice
+//    operand: K3's dO and Q, K2's K), every tile in one flat sequence, 8
+//    chunks deep (a step of two needs 4 at least). A step waits twice on
+//    the group's named barrier, once when its chunks have landed and once
+//    after staging, as K1 wide's f32 steps do. 64 x 512 f32 rows of K and
+//    V (256 KB) cannot stay in shared memory beside the rings, so K3
+//    re-streams them. At the bench shape K3 moves 2,048 CTAs x 16.5
+//    q-tiles x 640 KB = 22 GB from L2 into shared memory (the first
+//    design: 87), K2 1,024 x 16.5 x 640 KB = 11 GB (78). Measured on an
+//    H100 and dropped (PERF.md): rings of 4 and 10 chunks (no faster);
+//    staging the next step while a step's wgmma runs, one barrier a step
+//    (K2 and K3 1.3-1.7x slower); K2's output steps counted at run time
+//    (10% slower than kWhole).
+// 4. 3xTF32 splits per fragment in each of the 4 formations. Here the
+//    score step is K1 wide's (scores_chunk_tf32: A's fragments split in
+//    registers as they are read, B split in place into its big plane, its
+//    small plane staged in the group's scratch) and the output step is
+//    K1's P.V (pv_chunk_tf32): the slice chunk staged transposed as wgmma's
+//    K-major B, its rows permuted within each 8 as the accumulator's A
+//    fragments hold them. Each tile's part of dK, dV and dQ is summed from
+//    zero and added in f32.
+// 5. Short sequences: a 64-row tile at T = 32 would be half padding.
+//    kRows = 32 packs two (batch, head) pairs into one 64-row tile (rows
+//    0-31 the first, 32-63 the second; pairs that do not meet give p = 0),
+//    so the main shape runs half as many CTAs; launch_config picks it up to
+//    T = 32. The masking, the guard p = 0 where s <= -5e29 and the order
+//    (scale, causal -1e30, key bias) are the narrow kernels'; rows past a
+//    ragged end or a missing pair read 0 and are never written.
+// Shared memory: 1 KB of alignment, two rings of 8 chunks, the exchange and
+// each group's 16 KB scratch: 181,248 bytes at every D.
+// ---------------------------------------------------------------------------
+constexpr int kBwdWideStages = 8;   // ring chunks per group
+constexpr int kBwdChunkCols = 32;   // f32 columns of a chunk
+constexpr int kChunkFloats = kChunkBytes / 4;
+constexpr size_t kBwdWideSmem =
+    kSmemAlign + 2 * kBwdWideStages * kChunkBytes + kExchangeBytes + 2 * 2 * kChunkBytes;
+
+// Start cp.async copies of a 64-row chunk of columns [col, col + 32) of
+// 64 / kRows (batch, head) pairs' (len, d) matrices, the first at src and
+// each next head_stride floats on: chunk row r is row row0 + r % kRows of
+// pair r / kRows. Pairs from `pairs` on and rows past `len` are
+// zero-filled.
+template <int kRows>
+__device__ __forceinline__ void copy_chunk_pairs(float* dst, const float* src, size_t head_stride,
+                                                 int pairs, int row0, int len, int d, int col,
+                                                 int tid) {
+#pragma unroll
+  for (int i = 0; i < kFwdWideRows * 8 / 128; ++i) {
+    const int r = (tid >> 3) + 16 * i, u = tid & 7;
+    const int pair = r / kRows, row = row0 + r % kRows;
+    const bool valid = pair < pairs && row < len;
+    cp_async16(dst + r * 32 + (u ^ (r & 7)) * 4,
+               src + (valid ? pair * head_stride + (size_t)row * d : 0) + col + u * 4, valid);
+  }
+}
+
+// The key bias of `key` of (batch, head) pair bh (mask row bh / heads), or
+// -inf where the pair is missing.
+__device__ __forceinline__ float pair_key_bias(const uint8_t* mask, int bh, int nbh, int heads,
+                                               int key, int tk) {
+  if (bh >= nbh) return minus_infinity();
+  return key_bias(mask != nullptr ? mask + (size_t)(bh / heads) * tk : nullptr, key, tk);
+}
+
+// The ring of a group of a K2 or K3 CTA: chunk e of the flat sequence in
+// slot e % kBwdWideStages; `acquire(n)` waits until chunks [next, next + n)
+// have landed for the whole group and refills the slots before them,
+// `staged()` releases what the group staged to wgmma.
+struct BwdRing {
+  float* slots;
+  int loaded, next, total;
+  template <typename Load>
+  __device__ __forceinline__ void start(const Load& load) {
+    loaded = next = 0;
+    while (loaded < total && loaded < kBwdWideStages) load(loaded++);
+  }
+  template <typename Load>
+  __device__ __forceinline__ void acquire(int n, int grp, const Load& load) {
+    cp_async_wait_at_most(loaded - next - n);
+    fence_async_shared();
+    named_sync(1 + grp, 128);
+    while (loaded < total && loaded < next + kBwdWideStages) load(loaded++);
+  }
+  __device__ __forceinline__ float* at(int e) const {
+    return slots + (e % kBwdWideStages) * kChunkFloats;
+  }
+};
+
+__device__ __forceinline__ void staged(int grp) {
+  fence_async_shared();
+  named_sync(1 + grp, 128);
+}
+
+// s (the group's 64 x 64 score tile) = A.B^T over the full contraction:
+// chunk c of the A rows, then chunk c of the B rows, a step each.
+template <typename Load>
+__device__ __forceinline__ void scores_tf32(float (&s)[8][4], BwdRing& ring, float* scratch,
+                                            int nc, int grp, int tid, const Load& load) {
+  const int warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+  }
+  for (int c = 0; c < nc; ++c) {
+    ring.acquire(2, grp, load);
+    float* bc = ring.at(ring.next + 1);
+    split_chunk(bc, scratch, tid);
+    staged(grp);
+    scores_chunk_tf32(s, ring.at(ring.next), bc, scratch, warp * 16, g, t);
+    ring.next += 2;
+  }
+}
+
+// acc (the group's 64 rows x 32 nv columns) += A.X over the tile's 64
+// reduction rows: A the 64 x 64 accumulator tile a (P^T, dS^T or dS), X
+// the next nv ring chunks (64 rows x 32 columns each), each staged
+// transposed, its part summed from zero and added in f32.
+template <int kMaxV, typename Load>
+__device__ __forceinline__ void add_products_tf32(float (&acc)[kMaxV * 4][4],
+                                                  const float (&a)[8][4], BwdRing& ring,
+                                                  float* scratch, int nv, int grp, int tid,
+                                                  const Load& load) {
+  const float one[2] = {1.f, 1.f};
+#pragma unroll
+  for (int vc = 0; vc < kMaxV; ++vc) {
+    if (vc < nv) {
+      ring.acquire(1, grp, load);
+      stage_v_transposed(ring.at(ring.next), scratch, tid);
+      staged(grp);
+      pv_chunk_tf32(reinterpret_cast<float(&)[4][4]>(acc[vc * 4]), a, scratch, one);
+      ++ring.next;
+    }
+  }
+}
+
+// K3 in f32 at wide head dims: dK and dV. Grid (ceil(BH / kPairs),
+// k-tiles of kRows keys, D / 256); a CTA walks the q-tiles from the causal
+// diagonal on.
+template <int kRows>
+__global__ void __launch_bounds__(kFwdWideThreads, 1)
+    flash_dkv_wide_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                              const float* __restrict__ v, const float* __restrict__ g,
+                              const float* __restrict__ lse, const float* __restrict__ delta,
+                              const uint8_t* __restrict__ mask, float* __restrict__ dk,
+                              float* __restrict__ dv, int nbh, int heads, int tq, int tk, int d,
+                              float scale, int causal) {
+  constexpr int kPairs = kFwdWideRows / kRows;  // (batch, head) pairs a tile packs
+  constexpr int kMaxV = kWideSlice / kBwdChunkCols;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* base = smem + (kSmemAlign - smem_addr(smem) % kSmemAlign) % kSmemAlign;
+  const int grp = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31, t = lane & 3;
+  float* ex = reinterpret_cast<float*>(base + 2 * kBwdWideStages * kChunkBytes);
+  float* scratch = reinterpret_cast<float*>(base + 2 * kBwdWideStages * kChunkBytes +
+                                            kExchangeBytes + grp * 2 * kChunkBytes);
+
+  const int bh0 = blockIdx.x * kPairs, pairs = min(kPairs, nbh - bh0);
+  const int kt = blockIdx.y;
+  const int slice0 = blockIdx.z * kWideSlice;
+  const int nc = d / kBwdChunkCols;  // contraction chunks per q-tile
+  const int per_tile = 2 * nc + kMaxV;
+  const int qt0 = causal ? kt : 0;  // q-tiles above the diagonal see none of these keys
+  const int tiles = max((tq + kRows - 1) / kRows - qt0, 0);
+  // Group 0: S^T = K.Q^T, then dV += P^T.dO; group 1: dP^T = V.dO^T, then
+  // dK += dS^T.Q.
+  const size_t q_stride = (size_t)tq * d, kv_stride = (size_t)tk * d;
+  const float* a_src = (grp == 0 ? k : v) + bh0 * kv_stride;
+  const float* b_src = (grp == 0 ? q : g) + bh0 * q_stride;
+  const float* x_src = (grp == 0 ? g : q) + bh0 * q_stride;
+  // The lane's key rows (e >> 1 = h), their pairs and biases.
+  int key[2], kpair[2];
+  float bias[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = warp * 16 + (lane >> 2) + 8 * h;
+    kpair[h] = r / kRows;
+    key[h] = kt * kRows + r % kRows;
+    bias[h] = pair_key_bias(mask, bh0 + kpair[h], nbh, heads, key[h], tk);
+  }
+
+  BwdRing ring{reinterpret_cast<float*>(base) + grp * kBwdWideStages * kChunkFloats, 0, 0,
+               tiles * per_tile};
+  auto load = [&](int e) {
+    const int q0 = (qt0 + e / per_tile) * kRows, r = e % per_tile;
+    float* dst = ring.at(e);
+    if (r >= 2 * nc)
+      copy_chunk_pairs<kRows>(dst, x_src, q_stride, pairs, q0, tq, d,
+                              slice0 + (r - 2 * nc) * kBwdChunkCols, tid);
+    else if (r % 2 == 0)
+      copy_chunk_pairs<kRows>(dst, a_src, kv_stride, pairs, kt * kRows, tk, d,
+                              r / 2 * kBwdChunkCols, tid);
+    else
+      copy_chunk_pairs<kRows>(dst, b_src, q_stride, pairs, q0, tq, d, r / 2 * kBwdChunkCols,
+                              tid);
+    cp_async_commit();
+  };
+  ring.start(load);
+
+  float acc[kMaxV * 4][4] = {};  // the group's 64 keys x 256 columns of dV or dK
+  for (int i = 0; i < tiles; ++i) {
+    const int qt = qt0 + i;
+    float s[8][4];
+    scores_tf32(s, ring, scratch, nc, grp, tid, load);
+    // Lane holds keys key[h] (e >> 1 = h) against the queries of columns
+    // 8j + 2t + (e & 1) of the tile.
+    if (grp == 0) {
+      // P^T: scale, causal -1e30, then the key bias, as _dkv_kernel orders
+      // them; p = 0 where s <= -5e29, and where the query's pair is not the
+      // key's.
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * j + 2 * t + (e & 1), h = e >> 1;
+          const int qpair = c / kRows, query = qt * kRows + c % kRows;
+          float x = s[j][e] * scale;
+          if (causal && query < key[h]) x = kNegInf;
+          x += bias[h];
+          const bool live = qpair == kpair[h] && query < tq && x > kNegInf * 0.5f;
+          s[j][e] = live ? __expf(x - lse[(size_t)(bh0 + qpair) * tq + query]) : 0.f;
+        }
+      }
+      if (i > 0) named_sync(4, 256);  // group 1 has read the last tile's P
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ex[(4 * j + e) * 128 + tid] = s[j][e];
+      }
+      named_arrive(3, 256);
+    } else {
+      // dS^T = p (dP^T - delta) scale.
+      named_sync(3, 256);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * j + 2 * t + (e & 1);
+          const float p = ex[(4 * j + e) * 128 + tid];
+          const float dl =
+              p != 0.f ? delta[(size_t)(bh0 + c / kRows) * tq + qt * kRows + c % kRows] : 0.f;
+          s[j][e] = p * (s[j][e] - dl) * scale;
+        }
+      }
+      named_arrive(4, 256);
+    }
+    add_products_tf32<kMaxV>(acc, s, ring, scratch, kMaxV, grp, tid, load);
+  }
+  if (grp == 0 && tiles > 0) named_sync(4, 256);  // group 1's last arrival
+
+  float* out = grp == 0 ? dv : dk;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (kpair[h] >= pairs || key[h] >= tk) continue;
+    float* row = out + ((size_t)(bh0 + kpair[h]) * tk + key[h]) * d + slice0;
+#pragma unroll
+    for (int n = 0; n < kMaxV * 4; ++n)
+      store2(row + 8 * n + 2 * t, acc[n][2 * h], acc[n][2 * h + 1]);
+  }
+}
+
+// K2 in f32 at wide head dims: dQ. Grid (ceil(BH / kPairs), q-tiles of
+// kRows queries, ceil(D / 512)), heaviest causal tile first. kWhole: D is a
+// multiple of 512, so every CTA owns 512 columns and a group's output
+// steps a tile are a constant (design note 3).
+template <int kRows, bool kWhole>
+__global__ void __launch_bounds__(kFwdWideThreads, 1)
+    flash_dq_wide_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, const float* __restrict__ g,
+                             const float* __restrict__ lse, const float* __restrict__ delta,
+                             const uint8_t* __restrict__ mask, float* __restrict__ dq, int nbh,
+                             int heads, int tq, int tk, int d, float scale, int causal) {
+  constexpr int kPairs = kFwdWideRows / kRows;
+  constexpr int kMaxV = kFwdWideSlice / 2 / kBwdChunkCols;  // output chunks a group owns
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* base = smem + (kSmemAlign - smem_addr(smem) % kSmemAlign) % kSmemAlign;
+  const int grp = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31, t = lane & 3;
+  float* ex = reinterpret_cast<float*>(base + 2 * kBwdWideStages * kChunkBytes);
+  float* scratch = reinterpret_cast<float*>(base + 2 * kBwdWideStages * kChunkBytes +
+                                            kExchangeBytes + grp * 2 * kChunkBytes);
+
+  const int bh0 = blockIdx.x * kPairs, pairs = min(kPairs, nbh - bh0);
+  const int qt = gridDim.y - 1 - blockIdx.y;  // causal: the longest k loops start first
+  const int slice0 = blockIdx.z * kFwdWideSlice;
+  const int half = kWhole ? kFwdWideSlice / 2 : min(kFwdWideSlice, d - slice0) / 2;
+  const int col0 = slice0 + grp * half;
+  const int nv = half / kBwdChunkCols;  // output chunks a group takes per k-tile
+  const int nc = d / kBwdChunkCols;
+  const int per_tile = 2 * nc + nv;
+  int nk = (tk + kRows - 1) / kRows;
+  if (causal) nk = min(nk, qt + 1);  // k-tiles past the diagonal see nothing
+  // Group 0: S = Q.K^T; group 1: dP = dO.V^T; both then dQ += dS.K over
+  // their own columns.
+  const size_t q_stride = (size_t)tq * d, kv_stride = (size_t)tk * d;
+  const float* a_src = (grp == 0 ? q : g) + bh0 * q_stride;
+  const float* b_src = (grp == 0 ? k : v) + bh0 * kv_stride;
+  const float* x_src = k + bh0 * kv_stride;
+  // The lane's query rows (e >> 1 = h): a row past tq or of a missing pair
+  // reads 0 (Q, dO, lse and delta), so its dS is 0, and is never written.
+  int query[2], qpair[2];
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = warp * 16 + (lane >> 2) + 8 * h;
+    qpair[h] = r / kRows;
+    query[h] = qt * kRows + r % kRows;
+    const bool in = qpair[h] < pairs && query[h] < tq;
+    const size_t at = (size_t)(bh0 + qpair[h]) * tq + query[h];
+    row_lse[h] = in ? lse[at] : 0.f;
+    row_delta[h] = in ? delta[at] : 0.f;
+  }
+
+  BwdRing ring{reinterpret_cast<float*>(base) + grp * kBwdWideStages * kChunkFloats, 0, 0,
+               nk * per_tile};
+  auto load = [&](int e) {
+    const int k0 = e / per_tile * kRows, r = e % per_tile;
+    float* dst = ring.at(e);
+    if (r >= 2 * nc)
+      copy_chunk_pairs<kRows>(dst, x_src, kv_stride, pairs, k0, tk, d,
+                              col0 + (r - 2 * nc) * kBwdChunkCols, tid);
+    else if (r % 2 == 0)
+      copy_chunk_pairs<kRows>(dst, a_src, q_stride, pairs, qt * kRows, tq, d,
+                              r / 2 * kBwdChunkCols, tid);
+    else
+      copy_chunk_pairs<kRows>(dst, b_src, kv_stride, pairs, k0, tk, d, r / 2 * kBwdChunkCols,
+                              tid);
+    cp_async_commit();
+  };
+  ring.start(load);
+
+  float acc[kMaxV * 4][4] = {};  // the group's 64 rows x up to 256 columns of dQ
+  for (int kt = 0; kt < nk; ++kt) {
+    float s[8][4], o[8][4];
+    scores_tf32(s, ring, scratch, nc, grp, tid, load);
+    // S and dP through the exchange (K1 wide's protocol): o is the other
+    // group's tile.
+    if (grp == 0) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ex[(4 * j + e) * 128 + tid] = s[j][e];
+      }
+      named_arrive(3, 256);
+      named_sync(4, 256);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[j][e] = ex[(4 * j + e) * 128 + tid];
+      }
+    } else {
+      named_sync(3, 256);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          o[j][e] = ex[(4 * j + e) * 128 + tid];
+          ex[(4 * j + e) * 128 + tid] = s[j][e];
+        }
+      }
+      named_arrive(4, 256);
+    }
+    // Scale, causal -1e30, then the key bias, as _dq_kernel orders them:
+    // dS = p (dP - delta) scale, p = 0 where s <= -5e29 and where the key's
+    // pair is not the query's. The lane holds queries query[h] against the
+    // keys of columns 8j + 2t + (e & 1).
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + 2 * t + (e & 1), h = e >> 1;
+        const int kpair = c / kRows, key = kt * kRows + c % kRows;
+        const float sv = grp == 0 ? s[j][e] : o[j][e];
+        const float dpv = grp == 0 ? o[j][e] : s[j][e];
+        float x = sv * scale;
+        if (causal && query[h] < key) x = kNegInf;
+        x += pair_key_bias(mask, bh0 + kpair, nbh, heads, key, tk);
+        const float p =
+            (x <= kNegInf * 0.5f || kpair != qpair[h]) ? 0.f : __expf(x - row_lse[h]);
+        s[j][e] = p * (dpv - row_delta[h]) * scale;
+      }
+    }
+    add_products_tf32<kMaxV>(acc, s, ring, scratch, nv, grp, tid, load);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (qpair[h] >= pairs || query[h] >= tq) continue;
+    float* row = dq + ((size_t)(bh0 + qpair[h]) * tq + query[h]) * d + col0;
+#pragma unroll
+    for (int n = 0; n < kMaxV * 4; ++n) {
+      if (n < nv * 4) store2(row + 8 * n + 2 * t, acc[n][2 * h], acc[n][2 * h + 1]);
+    }
+  }
+}
+
 // The wide instances take any multiple of 256 above 256.
 bool wide_head_dim(int d) { return d > 256 && d % kWideSlice == 0; }
 
@@ -1148,38 +1551,92 @@ int launch_fwd_wide(const void* q, const void* k, const void* v, const void* mas
                                            causal, stream);
 }
 
-template <typename T, int kBlock>
+template <int kBlock>
 int launch_dq_wide(const void* q, const void* k, const void* v, const void* g, const void* lse,
                    const void* delta, const void* mask, void* dq, int bh, int heads, int tq,
                    int tk, int d, float scale, int causal, cudaStream_t stream) {
-  using Shape = WideShape<T, kBlock>;
+  using Shape = WideShape<bf16, kBlock>;
   constexpr size_t kSmem = Shape::template smem_bytes<4, 1, 1>();
   static bool configured[kMaxDevices] = {};
-  cudaError_t err = set_smem(flash_dq_wide_kernel<T, kBlock>, kSmem, configured);
+  cudaError_t err = set_smem(flash_dq_wide_kernel<bf16, kBlock>, kSmem, configured);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(bh, (tq + kBlock - 1) / kBlock, d / kWideSlice);
-  flash_dq_wide_kernel<T, kBlock><<<grid, Shape::kCtaThreads, kSmem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(g), static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const uint8_t*>(mask), static_cast<T*>(dq), heads, tq, tk, d, scale, causal);
+  flash_dq_wide_kernel<bf16, kBlock><<<grid, Shape::kCtaThreads, kSmem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(g), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const uint8_t*>(mask),
+      static_cast<bf16*>(dq), heads, tq, tk, d, scale, causal);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int kBlock>
+template <int kBlock>
 int launch_dkv_wide(const void* q, const void* k, const void* v, const void* g, const void* lse,
                     const void* delta, const void* mask, void* dk, void* dv, int bh, int heads,
                     int tq, int tk, int d, float scale, int causal, cudaStream_t stream) {
-  using Shape = WideShape<T, kBlock>;
+  using Shape = WideShape<bf16, kBlock>;
   constexpr size_t kSmem = Shape::template smem_bytes<4, 2, 2>();
   static bool configured[kMaxDevices] = {};
-  cudaError_t err = set_smem(flash_dkv_wide_kernel<T, kBlock>, kSmem, configured);
+  cudaError_t err = set_smem(flash_dkv_wide_kernel<bf16, kBlock>, kSmem, configured);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(bh, (tk + kBlock - 1) / kBlock, d / kWideSlice);
-  flash_dkv_wide_kernel<T, kBlock><<<grid, Shape::kCtaThreads, kSmem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(g), static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const uint8_t*>(mask), static_cast<T*>(dk), static_cast<T*>(dv), heads, tq, tk,
-      d, scale, causal);
+  flash_dkv_wide_kernel<bf16, kBlock><<<grid, Shape::kCtaThreads, kSmem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(g), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const uint8_t*>(mask),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), heads, tq, tk, d, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+// The f32 K2 and K3 wide tiles: 64 rows of one (batch, head) pair, or 32
+// rows of each of two.
+bool bwd_wide_f32_tile(int tile) { return tile == kFwdWideRows || tile == kFwdWideRows / 2; }
+
+template <int kRows, bool kWhole>
+int launch_dq_wide_f32_as(const void* q, const void* k, const void* v, const void* g,
+                          const void* lse, const void* delta, const void* mask, void* dq, int bh,
+                          int heads, int tq, int tk, int d, float scale, int causal,
+                          cudaStream_t stream) {
+  static bool configured[kMaxDevices] = {};
+  cudaError_t err = set_smem(flash_dq_wide_f32_kernel<kRows, kWhole>, kBwdWideSmem, configured);
+  if (err != cudaSuccess) return (int)err;
+  constexpr int kPairs = kFwdWideRows / kRows;
+  const dim3 grid((bh + kPairs - 1) / kPairs, (tq + kRows - 1) / kRows,
+                  (d + kFwdWideSlice - 1) / kFwdWideSlice);
+  flash_dq_wide_f32_kernel<kRows, kWhole><<<grid, kFwdWideThreads, kBwdWideSmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(g), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const uint8_t*>(mask),
+      static_cast<float*>(dq), bh, heads, tq, tk, d, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+// K2 wide in f32 at tile kRows: every CTA of 512 columns where D is a
+// multiple of 512.
+template <int kRows>
+int launch_dq_wide_f32_of(const void* q, const void* k, const void* v, const void* g,
+                          const void* lse, const void* delta, const void* mask, void* dq, int bh,
+                          int heads, int tq, int tk, int d, float scale, int causal,
+                          cudaStream_t stream) {
+  const auto launch = d % kFwdWideSlice == 0 ? launch_dq_wide_f32_as<kRows, true>
+                                             : launch_dq_wide_f32_as<kRows, false>;
+  return launch(q, k, v, g, lse, delta, mask, dq, bh, heads, tq, tk, d, scale, causal, stream);
+}
+
+template <int kRows>
+int launch_dkv_wide_f32_as(const void* q, const void* k, const void* v, const void* g,
+                           const void* lse, const void* delta, const void* mask, void* dk,
+                           void* dv, int bh, int heads, int tq, int tk, int d, float scale,
+                           int causal, cudaStream_t stream) {
+  static bool configured[kMaxDevices] = {};
+  cudaError_t err = set_smem(flash_dkv_wide_f32_kernel<kRows>, kBwdWideSmem, configured);
+  if (err != cudaSuccess) return (int)err;
+  constexpr int kPairs = kFwdWideRows / kRows;
+  const dim3 grid((bh + kPairs - 1) / kPairs, (tk + kRows - 1) / kRows, d / kWideSlice);
+  flash_dkv_wide_f32_kernel<kRows><<<grid, kFwdWideThreads, kBwdWideSmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(g), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const uint8_t*>(mask),
+      static_cast<float*>(dk), static_cast<float*>(dv), bh, heads, tq, tk, d, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -1202,16 +1659,24 @@ int occupancy_of_fwd_wide(int d, int* out) {
                                    : occupancy_of_fwd_wide_as<T, false>(d, out);
 }
 
-// Kernels 7-8 (K2-K3 wide in bf16) and 10-11 (in f32).
-template <typename T, int kBlock>
-int occupancy_of_wide(int kernel, int* out) {
-  using Shape = WideShape<T, kBlock>;
+// Kernels 7-8 (K2-K3 wide in bf16).
+int occupancy_of_wide_bf16(int kernel, int* out) {
+  using Shape = WideShape<bf16, kWideTileBf16>;
   constexpr int kThr = Shape::kCtaThreads;
-  if (kernel % 3 == 1)
-    return occupancy(flash_dq_wide_kernel<T, kBlock>, kThr,
+  if (kernel == 7)
+    return occupancy(flash_dq_wide_kernel<bf16, kWideTileBf16>, kThr,
                      Shape::template smem_bytes<4, 1, 1>(), out);
-  return occupancy(flash_dkv_wide_kernel<T, kBlock>, kThr,
+  return occupancy(flash_dkv_wide_kernel<bf16, kWideTileBf16>, kThr,
                    Shape::template smem_bytes<4, 2, 2>(), out);
+}
+
+// Kernels 10-11 (K2-K3 wide in f32) at a tile of kRows rows a pair (K2's
+// instance for D a multiple of 512).
+template <int kRows>
+int occupancy_of_wide_f32(int kernel, int* out) {
+  if (kernel == 10)
+    return occupancy(flash_dq_wide_f32_kernel<kRows, true>, kFwdWideThreads, kBwdWideSmem, out);
+  return occupancy(flash_dkv_wide_f32_kernel<kRows>, kFwdWideThreads, kBwdWideSmem, out);
 }
 
 }  // namespace
@@ -1224,9 +1689,11 @@ int wide_occupancy(int kernel, int d, int tile, int* out) {
     if (tile != kFwdWideRows) return (int)cudaErrorInvalidValue;
     return f32 ? occupancy_of_fwd_wide<float>(d, out) : occupancy_of_fwd_wide<bf16>(d, out);
   }
-  if (tile != (f32 ? kWideTileF32 : kWideTileBf16)) return (int)cudaErrorInvalidValue;
-  return f32 ? occupancy_of_wide<float, kWideTileF32>(kernel, out)
-             : occupancy_of_wide<bf16, kWideTileBf16>(kernel, out);
+  if (!f32) return tile == kWideTileBf16 ? occupancy_of_wide_bf16(kernel, out)
+                                         : (int)cudaErrorInvalidValue;
+  if (!bwd_wide_f32_tile(tile)) return (int)cudaErrorInvalidValue;
+  return tile == kFwdWideRows ? occupancy_of_wide_f32<kFwdWideRows>(kernel, out)
+                              : occupancy_of_wide_f32<kFwdWideRows / 2>(kernel, out);
 }
 }  // namespace swt
 
@@ -1234,8 +1701,8 @@ int wide_occupancy(int kernel, int d, int tile, int* out) {
 extern "C" {
 
 // The wide instances of K1-K3 (any multiple of 256 above 256 as d; tile
-// 64 for K1, 32 for K2 and K3 in bf16 and 16 in f32), with the narrow
-// entries' arguments (flash_attention.cu).
+// 64 for K1, 32 for K2 and K3 in bf16, 64 or 32 (two pairs a CTA) for K2
+// and K3 in f32), with the narrow entries' arguments (flash_attention.cu).
 int swt_flash_fwd_wide(const void* q, const void* k, const void* v, const void* mask, void* out,
                        void* lse, int bh, int heads, int tq, int tk, int d, int tile, float scale,
                        int causal, int device, void* stream) {
@@ -1253,8 +1720,8 @@ int swt_flash_dq_wide(const void* q, const void* k, const void* v, const void* g
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (!wide_head_dim(d) || tile != kWideTileBf16) return (int)cudaErrorInvalidValue;
-  return launch_dq_wide<bf16, kWideTileBf16>(q, k, v, g, lse, delta, mask, dq, bh, heads, tq, tk,
-                                             d, scale, causal, static_cast<cudaStream_t>(stream));
+  return launch_dq_wide<kWideTileBf16>(q, k, v, g, lse, delta, mask, dq, bh, heads, tq, tk, d,
+                                       scale, causal, static_cast<cudaStream_t>(stream));
 }
 
 int swt_flash_dkv_wide(const void* q, const void* k, const void* v, const void* g,
@@ -1264,9 +1731,8 @@ int swt_flash_dkv_wide(const void* q, const void* k, const void* v, const void* 
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (!wide_head_dim(d) || tile != kWideTileBf16) return (int)cudaErrorInvalidValue;
-  return launch_dkv_wide<bf16, kWideTileBf16>(q, k, v, g, lse, delta, mask, dk, dv, bh, heads,
-                                              tq, tk, d, scale, causal,
-                                              static_cast<cudaStream_t>(stream));
+  return launch_dkv_wide<kWideTileBf16>(q, k, v, g, lse, delta, mask, dk, dv, bh, heads, tq, tk,
+                                        d, scale, causal, static_cast<cudaStream_t>(stream));
 }
 
 int swt_flash_fwd_wide_f32(const void* q, const void* k, const void* v, const void* mask,
@@ -1285,9 +1751,11 @@ int swt_flash_dq_wide_f32(const void* q, const void* k, const void* v, const voi
                           int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (!wide_head_dim(d) || tile != kWideTileF32) return (int)cudaErrorInvalidValue;
-  return launch_dq_wide<float, kWideTileF32>(q, k, v, g, lse, delta, mask, dq, bh, heads, tq, tk,
-                                             d, scale, causal, static_cast<cudaStream_t>(stream));
+  if (!wide_head_dim(d) || !bwd_wide_f32_tile(tile)) return (int)cudaErrorInvalidValue;
+  const auto launch = tile == kFwdWideRows ? launch_dq_wide_f32_of<kFwdWideRows>
+                                           : launch_dq_wide_f32_of<kFwdWideRows / 2>;
+  return launch(q, k, v, g, lse, delta, mask, dq, bh, heads, tq, tk, d, scale, causal,
+                static_cast<cudaStream_t>(stream));
 }
 
 int swt_flash_dkv_wide_f32(const void* q, const void* k, const void* v, const void* g,
@@ -1296,10 +1764,11 @@ int swt_flash_dkv_wide_f32(const void* q, const void* k, const void* v, const vo
                            float scale, int causal, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (!wide_head_dim(d) || tile != kWideTileF32) return (int)cudaErrorInvalidValue;
-  return launch_dkv_wide<float, kWideTileF32>(q, k, v, g, lse, delta, mask, dk, dv, bh, heads,
-                                              tq, tk, d, scale, causal,
-                                              static_cast<cudaStream_t>(stream));
+  if (!wide_head_dim(d) || !bwd_wide_f32_tile(tile)) return (int)cudaErrorInvalidValue;
+  const auto launch = tile == kFwdWideRows ? launch_dkv_wide_f32_as<kFwdWideRows>
+                                           : launch_dkv_wide_f32_as<kFwdWideRows / 2>;
+  return launch(q, k, v, g, lse, delta, mask, dk, dv, bh, heads, tq, tk, d, scale, causal,
+                static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

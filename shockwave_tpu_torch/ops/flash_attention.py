@@ -27,20 +27,24 @@ takes the plain version only for a tensor on the CPU; for a CUDA tensor
 it launches its kernel or raises. `LAUNCHES` counts the kernel launches.
 
 Each kernel has two instances on the card, chosen by the inputs' dtype:
-bf16 (the trainer's type: `mma.sync` m16n8k16 on the tensor cores) and
-f32 (`flash_fwd_f32`, `flash_dq_f32`, `flash_dkv_f32`), to the plain f32
-versions' digits, as the Pallas kernels compute in f32: all three run
-3xTF32 products on the tensor cores (`mma.sync` m16n8k8, each operand
-split into two TF32 parts, three products summed in f32). One-pass TF32
-is off, as the port keeps it everywhere. Neither dtype is cast to the
-other. Any other dtype raises on the card.
+bf16 (the trainer's type) and f32 (`flash_fwd_f32`, `flash_dq_f32`,
+`flash_dkv_f32`), to the plain f32 versions' digits, as the Pallas
+kernels compute in f32: every f32 instance runs 3xTF32 products on the
+tensor cores (each operand split into two TF32 parts, three products
+summed in f32). One-pass TF32 is off, as the port keeps it everywhere.
+Neither dtype is cast to the other. Any other dtype raises on the card.
+The narrow instances and bf16 K2 and K3 wide issue `mma.sync` (m16n8k16
+in bf16, m16n8k8 in TF32); K1 wide in both dtypes and K2 and K3 wide in
+f32 issue `wgmma` (m64nNk16 in bf16, m64nNk8 in TF32) from two
+warpgroups over 64-row tiles.
 
 The kernels are built for head dims 32, 64, 128 and 256
 (`KERNEL_HEAD_DIMS`); above 256 each kernel has a wide instance
 (`flash_fwd_wide`, `flash_dq_wide`, `flash_dkv_wide`, each in bf16 and
-f32) that takes any multiple of 256 at run time: K1's CTAs own 64 rows
-and up to 512 output columns (bf16 on wgmma), K2's and K3's a 256-column
-slice of the output. `flash_attention` zero-pads q, k and v
+f32) that takes any multiple of 256 at run time: K1's CTAs and K2's in
+f32 own 64 rows and up to 512 output columns, K3's in f32 64 keys and a
+256-column slice of dK and dV, K2's and K3's in bf16 32 rows and a
+256-column slice. `flash_attention` zero-pads q, k and v
 along the head dim to `kernel_head_dim(d)` (the smallest of
 `KERNEL_HEAD_DIMS` that holds d; 257-512 to 512, wider ones to the next
 multiple of 256) on every device, as the reference pads to its sublane
@@ -93,12 +97,15 @@ KERNEL_TILES = {(name + suffix, d): ((16, 32 if d == 256 else 64, 64) if suffix
                                      else (32, 64, 32))
                 for suffix in KERNEL_DTYPES.values() for name in KERNELS
                 for d in KERNEL_HEAD_DIMS}
-# The wide instances' one tile at any length: K1's is 64 rows in both
-# dtypes (a wgmma's 64 rows; two warpgroups, each summing the scores over
-# half of the head dim, csrc/flash_attention_wide.cu), K2's and K3's 32
-# in bf16 and 16 in f32 (K3 in f32 takes 101,632 bytes of shared memory
-# at 16 rows, twice that at 32).
-WIDE_TILES = {name: 64 if name.startswith("flash_fwd") else 16 if name.endswith("_f32") else 32
+# The wide instances' tiles in KERNEL_TILES' form (short, long, the
+# longest sequence that takes the short tile). K1's is 64 rows in both
+# dtypes (a wgmma's 64 rows; two warpgroups, csrc/flash_attention_wide.cu)
+# and K2's and K3's in bf16 32 at any length. K2 and K3 in f32 take 64 rows
+# (64 queries of K2, 64 keys of K3, on wgmma like K1) and, up to T = 32,
+# 32 rows of each of two (batch, head) pairs packed into one 64-row tile,
+# so that a sequence of 32 fills it: half the CTAs of 64-row tiles there.
+WIDE_TILES = {name: (64, 64, 64) if name.startswith("flash_fwd")
+              else (32, 64, 32) if name.endswith("_f32") else (32, 32, 32)
               for name in WIDE_INSTANCES}
 
 
@@ -195,11 +202,12 @@ def instance(kernel: str, dtype, d: int) -> str:
 
 def launch_config(tq: int, tk: int, d: int, instance: str = "flash_fwd") -> int:
     """The square tile of kernel instance `instance` (a key of `LAUNCHES`)
-    for these lengths and head dim: for a wide instance its one tile
-    (`WIDE_TILES`); otherwise from `KERNEL_TILES`, the short tile when
-    neither sequence is longer than the instance takes it for (the bf16
-    kernels' 32 at the trainer's T = 32: no padding rows and one tile per
-    (batch, head)), the long tile otherwise."""
+    for these lengths and head dim, from `WIDE_TILES` for a wide instance
+    and `KERNEL_TILES` otherwise: the short tile when neither sequence is
+    longer than the instance takes it for (the bf16 kernels' 32 at the
+    trainer's T = 32: no padding rows and one tile per (batch, head); the
+    f32 K2 and K3 wide's two (batch, head) pairs of 32 rows a CTA), the
+    long tile otherwise."""
     wide = WIDE in instance
     built = (d > KERNEL_HEAD_DIMS[-1] and d % WIDE_SLICE == 0) if wide else d in KERNEL_HEAD_DIMS
     if not built:
@@ -210,9 +218,7 @@ def launch_config(tq: int, tk: int, d: int, instance: str = "flash_fwd") -> int:
     if tq < 1 or tk < 1:
         raise ValueError(f"CUDA flash attention takes non-empty sequences; "
                          f"got Tq={tq}, Tk={tk}")
-    if wide:
-        return WIDE_TILES[instance]
-    short, long, short_up_to = KERNEL_TILES[instance, d]
+    short, long, short_up_to = WIDE_TILES[instance] if wide else KERNEL_TILES[instance, d]
     return short if max(tq, tk) <= short_up_to else long
 
 
@@ -278,8 +284,9 @@ def _launch(name: str, *args) -> None:
 
 def attention_forward(q, k, v, kv_mask, heads: int, scale: float,
                       causal: bool):
-    """K1: (out, lse). Plain version on the CPU, `flash_fwd` (bf16) or
-    `flash_fwd_f32` on CUDA."""
+    """K1: (out, lse). Plain version on the CPU; on CUDA `instance`'s
+    choice: `flash_fwd` (bf16) or `flash_fwd_f32`, or above head dim 256
+    `flash_fwd_wide` or `flash_fwd_wide_f32`."""
     if _on_cpu(q, k, v, kv_mask):
         return attention_forward_plain(q, k, v, kv_mask, heads, scale, causal)
     _check_kernel_inputs(q, k, v, kv_mask, heads, "flash_fwd")
@@ -305,8 +312,9 @@ def _check_backward_inputs(q, g, lse, delta):
 
 def attention_dq(q, k, v, g, lse, delta, kv_mask, heads: int, scale: float,
                  causal: bool):
-    """K2: dQ. Plain version on the CPU, `flash_dq` (bf16) or
-    `flash_dq_f32` on CUDA."""
+    """K2: dQ. Plain version on the CPU; on CUDA `flash_dq` (bf16) or
+    `flash_dq_f32`, or above head dim 256 `flash_dq_wide` or
+    `flash_dq_wide_f32`."""
     if _on_cpu(q, k, v, g, lse, delta, kv_mask):
         return attention_dq_plain(q, k, v, g, lse, delta, kv_mask, heads,
                                   scale, causal)
@@ -324,8 +332,9 @@ def attention_dq(q, k, v, g, lse, delta, kv_mask, heads: int, scale: float,
 
 def attention_dkv(q, k, v, g, lse, delta, kv_mask, heads: int, scale: float,
                   causal: bool):
-    """K3: (dK, dV). Plain version on the CPU, `flash_dkv` (bf16) or
-    `flash_dkv_f32` on CUDA."""
+    """K3: (dK, dV). Plain version on the CPU; on CUDA `flash_dkv` (bf16)
+    or `flash_dkv_f32`, or above head dim 256 `flash_dkv_wide` or
+    `flash_dkv_wide_f32`."""
     if _on_cpu(q, k, v, g, lse, delta, kv_mask):
         return attention_dkv_plain(q, k, v, g, lse, delta, kv_mask, heads,
                                    scale, causal)
@@ -345,12 +354,14 @@ def attention_dkv(q, k, v, g, lse, delta, kv_mask, heads: int, scale: float,
 def kernel_occupancy(device: int = 0):
     """Resident CTAs per SM of every kernel instantiation on CUDA device
     `device` (cudaOccupancyMaxActiveBlocksPerMultiprocessor), with its
-    threads, dynamic shared memory and registers; a wide instance's row
-    is at d = 512 (its resources do not depend on d). Needs the card."""
+    threads, dynamic shared memory and registers, at each of its tiles; a
+    wide instance's rows are at d = 512 (only K1's shared memory depends
+    on d). Needs the card."""
     lib = _build.library()
     rows = []
     for kernel, name in enumerate(LAUNCHES):  # the C library's order
-        configs = ([(2 * WIDE_SLICE, WIDE_TILES[name])] if name in WIDE_TILES else
+        configs = ([(2 * WIDE_SLICE, tile) for tile in sorted(set(WIDE_TILES[name][:2]))]
+                   if name in WIDE_TILES else
                    [(d, tile) for d in KERNEL_HEAD_DIMS for tile in KERNEL_TILES[name, d][:2]])
         for d, tile in configs:
             out = (ctypes.c_int * 4)()

@@ -1,5 +1,6 @@
 """The card a measurement ran on: its `nvidia-smi` name and power limit,
-and its published peak rates.
+and its published peak rates; and the one CUDA-graph timer of the
+kernels' measurements (`graph_ms`).
 
 One table for `chip_smoke.py` and the profilers. A peak is looked up
 from the card's name; a card whose name does not say "H100" has no row
@@ -7,6 +8,7 @@ here, and asking for its peaks raises (no rate is assumed for it).
 """
 from __future__ import annotations
 
+import statistics
 import subprocess
 
 # Published dense peaks (NVIDIA data sheets): memory bytes/s, bf16 FLOP/s.
@@ -49,3 +51,38 @@ def f32_product_flops(name: str) -> float:
     H100."""
     variant, _ = peaks(name)
     return TF32_FLOPS[variant] / 3
+
+
+def graph_ms(fn, inner: int = 20, reps: int = 7, replay_ms: float = 20.0) -> float:
+    """Median device milliseconds of one call of `fn` on the card: `inner`
+    calls are captured in a CUDA graph, which is replayed `reps` times
+    between CUDA events after a warm-up. A call that takes more than
+    `replay_ms / inner` (the milliseconds-long ones at D 256 and 512) is
+    captured fewer times, as many as take about `replay_ms`, at least
+    once: its launch cost is already a small share of it. `chip_smoke.py`
+    and `fwd_wide_ab.py` time with it."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    inner = max(1, min(inner, int(replay_ms / max(start.elapsed_time(end), 1e-3))))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    del graph
+    return statistics.median(times)

@@ -1,5 +1,6 @@
-"""K1's wide instances (`flash_fwd_wide`, bf16 and f32) of several checkouts
-of this repository, timed in turns on one card.
+"""The wide instances of K1-K3 (`flash_fwd_wide`, `flash_dq_wide`,
+`flash_dkv_wide`, bf16 and f32) of several checkouts of this repository,
+timed in turns on one card.
 
     python -m shockwave_tpu_torch.profiling.fwd_wide_ab \\
         --trees .archive_check/parent . . .archive_check/parent
@@ -7,29 +8,37 @@ of this repository, timed in turns on one card.
 The trees' kernel libraries are first built side by side, one process
 per tree. Then each tree is run in a process of its own, in the order
 given (parent, change, change, parent keeps a drift of the card out of
-the comparison): the process imports that tree's `shockwave_tpu_torch.ops.flash_attention`,
-builds its kernel library from the tree's sources, and runs each case
-(`CASES`: the d = 512 main shape key-padded, the bench shape (4, 2048, 8,
-512) causal, a ragged causal case at d = 768, in bf16 and f32) through
-`attention_forward` against `attention_forward_plain` on the same inputs
-(errors on the rows that see a key, checked against chip_smoke.py's
-tolerances), timed as medians of CUDA-graph replays beside the plain
-version and `scaled_dot_product_attention`'s forward. Only
-`attention_forward` and `attention_forward_plain` are called, which every
-checkout since the wide instances has. One JSON line per tree and case,
-then the card's `nvidia-smi` name and power limit; with `--build_report`
-also the compiler's lines and the SASS tensor-core mnemonics of each tree's
-`flash_fwd_wide` instances. Exits 1 when a case misses its tolerance, 2
-without a card.
+the comparison): the process imports that tree's
+`shockwave_tpu_torch.ops.flash_attention`, builds its kernel library from
+the tree's sources, and runs each case (`CASES`: the d = 512 main shape
+key-padded, the bench shape (4, 2048, 8, 512) causal, a ragged causal
+case at d = 768, in bf16 and f32) through `attention_forward`,
+`attention_dq` and `attention_dkv` (`--kernels`) against their plain
+versions on the same inputs (the backward on the kernel's own lse and
+delta = rowsum(dO * out), as chip_smoke.py runs it). Errors: the forward
+on the rows that see a key, the gradients relative to the plain one's
+largest entry, checked against chip_smoke.py's tolerances (`TOLS`). Each
+kernel is timed with `profiling.device.graph_ms` (medians of CUDA-graph
+replays, chip_smoke.py's timer) beside its plain version, and so are
+`scaled_dot_product_attention`'s forward and its forward + backward;
+their difference is reported as SDPA's backward (`library_bwd_ms`, "fwd_bwd
+- fwd"), the one PyTorch call that computes dQ, dK and dV, the yardstick
+of K2 + K3 together. Of the port it uses only those six functions,
+`instance`, `LAUNCHES` and `reset_launch_counts`, which every checkout
+since the wide instances has. One JSON line
+per tree and case, then the card's `nvidia-smi` name and power limit; with
+`--build_report` also the compiler's lines and the SASS tensor-core
+mnemonics of each tree's wide kernels. Exits 1 when a case misses its
+tolerance, 2 without a card.
 """
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import math
 import os
 import re
-import statistics
 import subprocess
 import sys
 
@@ -43,45 +52,20 @@ CASES = (
     ("d512_bench_causal_f32", 4, 2048, 8, 512, True, None, "f32"),
     ("d768_ragged_causal_f32", 2, 100, 4, 768, True, "tail", "f32"),
 )
+KERNELS = ("fwd", "dq", "dkv")
+HERE = os.path.dirname(os.path.abspath(__file__))
 # Builds the kernel library of the tree given as its argument.
 BUILD = ("import sys; sys.path.insert(0, sys.argv[1]); "
          "from shockwave_tpu_torch.ops import _build; _build.build()")
-# Forward output and lse, max abs on the rows that see a key: chip_smoke.py's.
-TOLS = {"bf16": (2e-2, 1e-3), "f32": (1e-4, 1e-4)}
-
-
-def graph_ms(fn, inner: int = 20, reps: int = 7, replay_ms: float = 20.0) -> float:
-    """Median device ms of one call of `fn` over CUDA-graph replays, as
-    chip_smoke.py times its kernel cases."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    fn()
-    end.record()
-    end.synchronize()
-    inner = max(1, min(inner, int(replay_ms / max(start.elapsed_time(end), 1e-3))))
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(inner):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    del graph
-    return statistics.median(times)
+# chip_smoke.py's tolerances: forward output and lse, max abs on the rows
+# that see a key; dQ, dK and dV, max abs relative to the plain one's
+# largest entry.
+TOLS = {"bf16": (2e-2, 1e-3, 5e-2), "f32": (1e-4, 1e-4, 1e-4)}
 
 
 def sass_tensor_ops(library: str):
-    """{"flash_fwd_wide_kernel<type>": {mnemonic: count}} of the HMMA and
-    HGMMA instructions in the library's SASS."""
+    """{wide kernel's mangled name: {mnemonic: count}} of the HMMA and HGMMA
+    instructions of every wide kernel in the library's SASS."""
     from torch.utils.cpp_extension import CUDA_HOME
     cuobjdump = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
     sass = subprocess.run([cuobjdump, "--dump-sass", library], capture_output=True, text=True,
@@ -90,9 +74,7 @@ def sass_tensor_ops(library: str):
     for line in sass.splitlines():
         fn = re.search(r"Function : (\S+)", line)
         if fn:
-            k = re.search(r"flash_fwd_wide_kernelI(f|13__nv_bfloat16)", fn.group(1))
-            entry = f"flash_fwd_wide_kernel<{'float' if k.group(1) == 'f' else 'bf16'}>" if k \
-                else None
+            entry = fn.group(1) if "_wide" in fn.group(1) else None
             if entry:
                 found[entry] = {}
             continue
@@ -102,15 +84,107 @@ def sass_tensor_ops(library: str):
     return found
 
 
-def run_tree(tree: str, build_report: bool, seed: int) -> int:
-    """Every case on `tree`'s kernels; one JSON line each."""
+def visible_rows(mask, b, h, t, causal, device):
+    """(BH, T) bool: the rows that see at least one key."""
+    import torch
+    keys = mask if mask is not None else torch.ones(b, t, dtype=torch.bool, device=device)
+    keys = keys.repeat_interleave(h, dim=0)
+    if causal:
+        return torch.cumsum(keys.int(), 1) > 0
+    return keys.any(1, keepdim=True).expand(-1, t)
+
+
+def run_case(fa, case, seed, device, kernels=KERNELS, time_fn=None):
+    """One case through `kernels` of the port `fa` (its flash_attention
+    module) against their plain versions: a JSON-able record of errors,
+    `ok` and, with `time_fn` (a timer of a call, as `graph_ms`), each
+    kernel's, plain version's and SDPA's ms. On the CPU the wrappers run
+    their plain versions, which is how the tests run it."""
+    import torch
+    import torch.nn.functional as F
+    name, b, t, h, d, causal, mask_kind, dt = case
+    dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, g = (torch.randn(b * h, t, d, generator=gen, device=device).to(dtype)
+                  for _ in range(4))
+    mask = None
+    if mask_kind == "tail":
+        lengths = torch.randint(t // 2, t + 1, (b,), generator=gen, device=device)
+        mask = torch.arange(t, device=device)[None, :] < lengths[:, None]
+    args = (mask, h, 1.0 / math.sqrt(d), causal)
+    fa.reset_launch_counts()
+    out, lse = fa.attention_forward(q, k, v, *args)
+    delta = (out.float() * g.float()).sum(dim=-1)
+    bwd = (g, lse, delta) + args
+    calls = {"fwd": (lambda: fa.attention_forward(q, k, v, *args),
+                     lambda: fa.attention_forward_plain(q, k, v, *args)),
+             "dq": (lambda: fa.attention_dq(q, k, v, *bwd),
+                    lambda: fa.attention_dq_plain(q, k, v, *bwd)),
+             "dkv": (lambda: fa.attention_dkv(q, k, v, *bwd),
+                     lambda: fa.attention_dkv_plain(q, k, v, *bwd))}
+    got = {kname: calls[kname][0]() for kname in kernels if kname != "fwd"}
+    launched = dict(fa.LAUNCHES)
+    want = {kname: calls[kname][1]() for kname in kernels}
+    out_tol, lse_tol, grad_tol = TOLS[dt]
+    errs, ok = {}, True
+    if "fwd" in kernels:
+        rows = visible_rows(mask, b, h, t, causal, device)
+        out_p, lse_p = want["fwd"]
+        errs["fwd_max_abs"] = float((out.float() - out_p.float()).abs()[rows].max())
+        errs["lse_max_abs"] = float((lse - lse_p).abs()[rows].max())
+        ok &= errs["fwd_max_abs"] <= out_tol and errs["lse_max_abs"] <= lse_tol
+    for kname in got:
+        pairs = zip(kname[1:], (got[kname],) if kname == "dq" else got[kname],
+                    (want[kname],) if kname == "dq" else want[kname])
+        for grad, x, x_p in pairs:
+            err = float((x.float() - x_p.float()).abs().max() / x_p.float().abs().max())
+            errs[f"d{grad}_max_rel"] = err
+            ok &= err <= grad_tol and bool(torch.isfinite(x.float()).all())
+    ok &= bool(torch.isfinite(out.float()).all())
+    if device.type == "cuda":  # each kernel that ran launched its instance once
+        ok &= {n: c for n, c in launched.items() if c} == {
+            fa.instance("flash_" + kname, dtype, d): 1 for kname in ("fwd", *got)}
+    record = {"case": name, "shape": [b, t, h, d], "causal": causal, "dtype": dt, "ok": ok,
+              **errs}
+    if time_fn is None:
+        return record
+    for kname in kernels:
+        record[kname] = {"ms": time_fn(calls[kname][0]), "plain_ms": time_fn(calls[kname][1])}
+    q4, k4, v4, g4 = (x.view(b, h, t, d) for x in (q, k, v, g))
+    attn_mask = None
+    if mask is not None:
+        attn_mask = mask[:, None, None, :].expand(b, 1, t, t)
+        if causal:
+            attn_mask = attn_mask & torch.ones(t, t, dtype=torch.bool, device=device).tril()
+    is_causal = causal and mask is None
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q4, k4, v4))
+
+    def library_fwd_bwd():
+        o = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=attn_mask, is_causal=is_causal)
+        return torch.autograd.grad(o, (qg, kg, vg), g4)
+
+    record["library_fwd_ms"] = time_fn(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=attn_mask, is_causal=is_causal))
+    record["library_fwd_bwd_ms"] = time_fn(library_fwd_bwd)
+    record["library_bwd_ms"] = record["library_fwd_bwd_ms"] - record["library_fwd_ms"]
+    record["library_bwd_by"] = "fwd_bwd - fwd"
+    return record
+
+
+def run_tree(tree: str, build_report: bool, seed: int, kernels, cases) -> int:
+    """Every case of `cases` on `tree`'s kernels; one JSON line each."""
     sys.path.insert(0, os.path.abspath(tree))
     import time
 
     import torch
-    import torch.nn.functional as F
     from shockwave_tpu_torch.ops import _build
     from shockwave_tpu_torch.ops import flash_attention as fa
+    # This checkout's timer, loaded by path, so that every tree is timed
+    # alike (older trees have no profiling.device.graph_ms).
+    spec = importlib.util.spec_from_file_location("swt_ab_device",
+                                                  os.path.join(HERE, "device.py"))
+    device_mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(device_mod)
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.time()
     path = _build.build()
@@ -119,51 +193,18 @@ def run_tree(tree: str, build_report: bool, seed: int) -> int:
         lines = [ln.strip() for ln in _build.build_log().splitlines()
                  if "registers" in ln or "spill" in ln or "Compiling entry" in ln
                  or "arning" in ln]
-        wide = [ln for i, ln in enumerate(lines) if "fwd_wide" in ln or "arning" in ln
-                or (i and "fwd_wide" in lines[i - 1]) or (i > 1 and "fwd_wide" in lines[i - 2])]
+        wide = [ln for i, ln in enumerate(lines) if "_wide" in ln or "arning" in ln
+                or (i and "_wide" in lines[i - 1]) or (i > 1 and "_wide" in lines[i - 2])]
         print(json.dumps({"tree": tree, "build_s": time.time() - t0, "ptxas": wide,
                           "sass": sass_tensor_ops(path)}), flush=True)
     device = torch.device("cuda")
     failed = 0
-    for i, (name, b, t, h, d, causal, mask_kind, dt) in enumerate(CASES):
-        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
-        gen = torch.Generator(device=device).manual_seed(seed + i)
-        q, k, v = (torch.randn(b * h, t, d, generator=gen, device=device).to(dtype)
-                   for _ in range(3))
-        mask = None
-        if mask_kind == "tail":
-            lengths = torch.randint(t // 2, t + 1, (b,), generator=gen, device=device)
-            mask = torch.arange(t, device=device)[None, :] < lengths[:, None]
-        args = (mask, h, 1.0 / math.sqrt(d), causal)
-        fa.reset_launch_counts()
-        out, lse = fa.attention_forward(q, k, v, *args)
-        launched = dict(fa.LAUNCHES)
-        out_p, lse_p = fa.attention_forward_plain(q, k, v, *args)
-        torch.cuda.synchronize()
-        keys = mask if mask is not None else torch.ones(b, t, dtype=torch.bool, device=device)
-        keys = keys.repeat_interleave(h, dim=0)
-        rows = (torch.cumsum(keys.int(), 1) > 0) if causal else keys.any(1, keepdim=True).expand(
-            -1, t)
-        err = float((out.float() - out_p.float()).abs()[rows].max())
-        lse_err = float((lse - lse_p).abs()[rows].max())
-        tol, lse_tol = TOLS[dt]
-        ok = (err <= tol and lse_err <= lse_tol and bool(torch.isfinite(out.float()).all())
-              and launched.get(fa.instance("flash_fwd", dtype, d)) == 1)
-        failed += not ok
-        q4, k4, v4 = (x.view(b, h, t, d) for x in (q, k, v))
-        attn_mask = None
-        if mask is not None:
-            attn_mask = mask[:, None, None, :].expand(b, 1, t, t)
-            if causal:
-                attn_mask = attn_mask & torch.ones(t, t, dtype=torch.bool, device=device).tril()
-        print(json.dumps({
-            "tree": tree, "case": name, "shape": [b, t, h, d], "causal": causal, "dtype": dt,
-            "ok": ok, "fwd_max_abs": err, "lse_max_abs": lse_err,
-            "ms": graph_ms(lambda: fa.attention_forward(q, k, v, *args)),
-            "plain_ms": graph_ms(lambda: fa.attention_forward_plain(q, k, v, *args)),
-            "library_fwd_ms": graph_ms(lambda: F.scaled_dot_product_attention(
-                q4, k4, v4, attn_mask=attn_mask, is_causal=causal and mask is None))}),
-            flush=True)
+    for i, case in enumerate(CASES):
+        if case[0] not in cases:
+            continue
+        record = run_case(fa, case, seed + i, device, kernels, device_mod.graph_ms)
+        failed += not record["ok"]
+        print(json.dumps({"tree": tree, **record}), flush=True)
     return 1 if failed else 0
 
 
@@ -171,9 +212,13 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--trees", nargs="+", default=["."],
                         help="checkouts of the repository, run in this order")
+    parser.add_argument("--kernels", nargs="+", choices=KERNELS, default=list(KERNELS),
+                        help="the kernels each case runs (default: all three)")
+    parser.add_argument("--cases", nargs="+", choices=[c[0] for c in CASES],
+                        default=[c[0] for c in CASES], help="the cases to run (default: all)")
     parser.add_argument("--build_report", action="store_true",
                         help="print each tree's ptxas lines and SASS tensor-core mnemonics "
-                             "of flash_fwd_wide")
+                             "of its wide kernels")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--one", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
@@ -183,7 +228,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     if args.one:
-        return run_tree(args.one, args.build_report, args.seed)
+        return run_tree(args.one, args.build_report, args.seed, args.kernels, args.cases)
     builds = {tree: subprocess.Popen([sys.executable, "-c", BUILD, os.path.abspath(tree)])
               for tree in dict.fromkeys(args.trees)}
     rc = 0
@@ -195,8 +240,9 @@ def main(argv=None) -> int:
         return rc
     for tree in args.trees:
         cmd = [sys.executable, os.path.abspath(__file__), "--one", tree, "--seed",
-               str(args.seed)] + (["--build_report"] if args.build_report else [])
-        rc |= subprocess.run(cmd, check=False).returncode
+               str(args.seed), "--kernels", *args.kernels, "--cases", *args.cases]
+        rc |= subprocess.run(cmd + (["--build_report"] if args.build_report else []),
+                             check=False).returncode
     from shockwave_tpu_torch.profiling.device import nvidia_smi
     print(nvidia_smi(), flush=True)
     return rc

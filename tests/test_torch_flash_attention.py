@@ -329,8 +329,11 @@ class TestLaunchConfig:
             for d in (64, 256, 257, 320, 600):
                 with pytest.raises(ValueError):
                     fa.launch_config(32, 32, d, name)
-            assert {fa.launch_config(t, t, d, name) for t in self.LENGTHS
-                    for d in (512, 768, 1024)} == {fa.WIDE_TILES[name]}
+            short, long, short_up_to = fa.WIDE_TILES[name]
+            for t in self.LENGTHS:
+                assert {fa.launch_config(t, t, d, name) for d in (512, 768, 1024)} == {
+                    short if t <= short_up_to else long}
+            assert {fa.launch_config(t, t, 512, name) for t in self.LENGTHS} == {short, long}
         for tq, tk in ((0, 32), (32, 0)):
             with pytest.raises(ValueError):
                 fa.launch_config(tq, tk, 64)
@@ -360,14 +363,15 @@ class TestLaunchConfig:
                            for _, _, tq, tk, _, d, _, _ in cases if d in fa.KERNEL_HEAD_DIMS}
                 assert reachable == reached, name
                 # The wide instance at D = 512 (and at 768, with a slice of
-                # 256 columns): its one tile at a short and a long sequence,
-                # Tq != Tk, causal and key-padded, key 0.
+                # 256 columns): its tiles (f32 K2 and K3: 32 rows of two
+                # pairs up to T = 32, 64 beyond) at a short and a long
+                # sequence, Tq != Tk, causal and key-padded, key 0.
                 wide = [c for c in cases if c[5] not in fa.KERNEL_HEAD_DIMS]
                 assert {512, 768} <= {c[5] for c in wide}
                 assert {max(c[2], c[3]) <= 32 for c in wide} == {True, False}
                 assert any(c[2] != c[3] for c in wide) and any(c[7] == "key0" for c in wide)
                 assert {fa.launch_config(c[2], c[3], 512, kernel + fa.WIDE + suffix)
-                        for c in wide} == {fa.WIDE_TILES[kernel + fa.WIDE + suffix]}
+                        for c in wide} == set(fa.WIDE_TILES[kernel + fa.WIDE + suffix][:2])
         # The 3xTF32 instances' edges in f32: ragged inside the short
         # tile, one past its reach, Tq != Tk and the row that sees no key
         # at every width (16, 64, and D = 256's 32).
@@ -518,11 +522,11 @@ class TestCInterface:
             asked.add(args[:3])
         assert asked == {(kernel, d, tile) for kernel, name in enumerate(fa.INSTANCES)
                          for d in fa.KERNEL_HEAD_DIMS for tile in fa.KERNEL_TILES[name, d][:2]} | {
-            (kernel, 512, fa.WIDE_TILES[name]) for kernel, name in enumerate(fa.LAUNCHES)
-            if name in fa.WIDE_INSTANCES}
+            (kernel, 512, tile) for kernel, name in enumerate(fa.LAUNCHES)
+            if name in fa.WIDE_INSTANCES for tile in fa.WIDE_TILES[name][:2]}
         assert list(fa.LAUNCHES) == list(fa.INSTANCES + fa.WIDE_INSTANCES)  # the C order
         assert {(r["kernel"], r["tile"]) for r in rows if r["d"] == 512} == {
-            (name, fa.WIDE_TILES[name]) for name in fa.WIDE_INSTANCES}
+            (name, tile) for name in fa.WIDE_INSTANCES for tile in fa.WIDE_TILES[name][:2]}
         assert {(r["kernel"], r["d"], r["tile"]) for r in rows} >= {
             ("flash_dq", d, tile) for d in (32, 64, 128, 256) for tile in (32, 64)}
         for d in (128, 256):
@@ -553,7 +557,9 @@ class TestCInterface:
         for (name, args), instance in zip(lib.calls, instances):
             self._check_types(name, args)
             tile = fa.launch_config(t, t, width, instance)
-            assert tile == (fa.WIDE_TILES[instance] if width > 256
+            # T = 48: past the reach of every wide instance's short tile
+            # but K1's (one tile of 64).
+            assert tile == (fa.WIDE_TILES[instance][1] if width > 256
                             else 16 if dtype == torch.float32 else 64)
             assert args[-10:-4] == (b * h, h, t, t, width, tile)
             assert args[-4:-2] == (pytest.approx(1.0 / math.sqrt(d)), 1)
@@ -572,7 +578,7 @@ class TestCInterface:
         assert [name for name, _ in lib.calls] == ["swt_" + n for n in names]
         for (name, args), instance in zip(lib.calls, names):
             self._check_types(name, args)
-            assert args[-10:-4] == (2, 2, 32, 32, 512, fa.WIDE_TILES[instance])
+            assert args[-10:-4] == (2, 2, 32, 32, 512, fa.WIDE_TILES[instance][0])
         assert {n: c for n, c in fa.LAUNCHES.items() if c} == dict.fromkeys(names, 1)
 
 

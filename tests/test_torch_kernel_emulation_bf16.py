@@ -60,16 +60,19 @@ def test_every_bf16_tile_is_emulated():
 
 def test_every_wide_instance_is_emulated():
     """One case each: the bf16 wide instances at D = 512, the f32 ones at d
-    = 320 padded to 512; each at its one tile, the f32 K2 and K3 over two
-    tiles (T = 17 > 16), both causal with the row that sees no key. K1's
-    tile is 64 rows in both dtypes (one tile at T = 17); its own cases, two
-    tiles and more head dims are test_torch_kernel_emulation_wide.py's."""
+    = 320 padded to 512; each at the tile T = 17 takes, both causal with
+    the row that sees no key: bf16 K2 and K3 over their one 32-row tile,
+    f32 K2 and K3 over the short tile (32 rows of two (batch, head) pairs,
+    the second missing at BH = 1), K1's 64 rows in both dtypes. Their long
+    tiles, two tiles and more head dims are
+    test_torch_kernel_emulation_wide.py's."""
     for cases, suffix in ((BF16_CASES, ""), (CASES + PADDED_CASES, "_f32")):
         wide = [c for c in cases if fa.kernel_head_dim(c[4]) > fa.KERNEL_HEAD_DIMS[-1]]
         assert len(wide) == 1 and wide[0][6] == "key0" and wide[0][5]
         for kernel in fa.KERNELS:
             name = kernel + fa.WIDE + suffix
-            assert _reached(cases, name) == {(fa.WIDE_TILES[name], 512)}
+            assert _reached(cases, name) == {(fa.WIDE_TILES[name][0], 512)}
     for kernel in ("flash_dq", "flash_dkv"):
-        assert -(-17 // fa.WIDE_TILES[kernel + fa.WIDE + "_f32"]) == 2
-    assert fa.WIDE_TILES["flash_fwd_wide"] == fa.WIDE_TILES["flash_fwd_wide_f32"] == 64
+        assert fa.WIDE_TILES[kernel + fa.WIDE + "_f32"][0] == 32
+        assert fa.launch_config(17, 17, 512, kernel + fa.WIDE + "_f32") == 32
+    assert fa.WIDE_TILES["flash_fwd_wide"][:2] == fa.WIDE_TILES["flash_fwd_wide_f32"][:2] == (64, 64)

@@ -1,16 +1,21 @@
-"""K1's wide instance (`flash_fwd_wide`: two warpgroups of wgmma over
-64-row tiles, bf16 and f32 as 3xTF32; `csrc/flash_attention_wide.cu`)
-run on the CPU, emulated (`tests/cuda_emu`), against the plain version;
-the tensor-core multiply-adds it issues, counted by the emulator; and the
-emulated wgmma, in the layouts the kernel gives it, against a plain
-matmul.
+"""The wgmma instances of the wide kernels run on the CPU, emulated
+(`tests/cuda_emu`), against the plain versions: K1's (`flash_fwd_wide`,
+bf16 and f32 as 3xTF32) and K2's and K3's in f32 (`flash_dq_wide_f32`,
+`flash_dkv_wide_f32`: two warpgroups over 64-row tiles, or 32 rows of
+each of two (batch, head) pairs up to T = 32;
+`csrc/flash_attention_wide.cu`); the tensor-core multiply-adds they
+issue, counted by the emulator; and the emulated wgmma, in the layouts the
+kernels give it, against a plain matmul.
 
 The wide cases cover the row that sees no key, ragged ends at T = 17 and
-T = 100 (two q- and k-tiles), Tq != Tk key-padded, D = 768 (a 512- and a
-256-column slice; f32 streams Q's chunks through the ring there) and D =
-1280 (bf16 streams Q), all at T <= 128. Tolerances are the other
-emulation files' (`TOLS`). K2 and K3 wide run with K1 in
-`test_torch_kernel_emulation*.py`.
+T = 100 (two q- and k-tiles), Tq != Tk key-padded at both tiles of K2 and
+K3 (the short one with a missing pair at BH = 3), D = 768 (a 512- and a
+256-column slice; f32 K1 streams Q's chunks there, K3 runs three slices)
+and D = 1280 (bf16 K1 streams Q), all at T <= 128. Tolerances are the
+other emulation files' (`TOLS`); K2 and K3 hold the plain versions to
+them, and key 0's gradients to exactly 0, through
+`test_torch_kernel_emulation.check_kernels`. The bf16 K2 and K3 wide run
+in `test_torch_kernel_emulation_bf16.py`.
 """
 import ctypes
 import math
@@ -24,7 +29,8 @@ import torch
 from shockwave_tpu_torch.ops import flash_attention as fa
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from test_torch_kernel_emulation import TOLS, _call, _ptr, lib  # noqa: E402,F401 (a fixture)
+from test_torch_kernel_emulation import (TOLS, _call, _ptr, check_kernels,  # noqa: E402
+                                         lib)  # noqa: F401 (a fixture)
 
 import emulate  # noqa: E402  (tests/cuda_emu, on the path through the import above)
 
@@ -36,6 +42,7 @@ WIDE_CASES = [
     (2, 40, 72, 1, 512, False, "tail"),
     (1, 40, 40, 1, 768, True, "tail"),
     (1, 17, 17, 1, 1280, True, "key0"),
+    (3, 24, 32, 1, 512, False, "tail"),
 ]
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
@@ -81,9 +88,17 @@ def test_k1_wide_matches_the_plain_version(lib, dt, b, tq, tk, h, d, causal, mas
 def test_the_wide_cases_reach_every_path():
     """64-row tiles of K1 in both dtypes, two of them at T = 100, one and
     two slices past the first, and Q resident and streamed in each dtype
-    (`fwd_wide_q_resident`: bf16 up to D = 1024, f32 up to 512)."""
+    (`fwd_wide_q_resident`: bf16 up to D = 1024, f32 up to 512); both
+    tiles of f32 K2 and K3, the short one with the row that sees no key,
+    with a missing pair (BH odd) and at Tq != Tk."""
     for name in ("flash_fwd_wide", "flash_fwd_wide_f32"):
-        assert fa.WIDE_TILES[name] == 64
+        assert fa.WIDE_TILES[name][:2] == (64, 64)
+    for name in ("flash_dq_wide_f32", "flash_dkv_wide_f32"):
+        tiles = {fa.launch_config(c[1], c[2], 512, name): c for c in WIDE_CASES}
+        assert set(tiles) == {32, 64}
+        short = [c for c in WIDE_CASES if fa.launch_config(c[1], c[2], 512, name) == 32]
+        assert any(c[6] == "key0" and c[5] for c in short)
+        assert any(c[0] * c[3] % 2 and c[1] != c[2] for c in short)
     widths = {c[4] for c in WIDE_CASES}
     assert {512, 768, 1280} <= widths and max(c[1] for c in WIDE_CASES) == 100
     assert any(-(-d // 512) == 2 and d % 512 for d in widths)  # a 256-column last slice
@@ -110,6 +125,41 @@ def test_k1_wide_forms_the_scores_once_per_row_tile(lib, dt):
         assert lib.emu_tensor_products() == times * tiles * (len(slices) * scores + pv), d
         if d == 512:
             assert lib.emu_tensor_products() == times * tiles * 2 * 64 * 64 * d
+
+
+@pytest.mark.parametrize("b,tq,tk,h,d,causal,mask_kind", WIDE_CASES)
+def test_k2_k3_wide_f32_match_the_plain_versions(lib, b, tq, tk, h, d, causal, mask_kind):
+    """f32 K1, K2 and K3 wide on the same inputs, each held against its
+    plain version (K2 and K3 on the plain lse and delta) at F32_TOL; key
+    0's gradients exactly 0; no copy past shared memory."""
+    check_kernels(lib, torch.float32, b, tq, tk, h, d, causal, mask_kind)
+
+
+@pytest.mark.parametrize("d,slices", [(512, (512,)), (768, (512, 256))])
+def test_k2_k3_wide_f32_form_each_score_tile_once_per_cta(lib, d, slices):
+    """The tensor-core multiply-adds of one launch, at T = 128 not causal
+    (2 x 2 (q-tile, k-tile) pairs of 64 rows), as 3xTF32 (three products
+    each). K2 (CTAs of up to 512 dQ columns): S and dP once per CTA and dQ
+    over its columns, so 3 (S + dP + dQ) at D = 512 and S and dP twice at
+    D = 768. K3 (CTAs of 256 dK and dV columns): S^T and dP^T once per
+    CTA, 3 (2 (S^T + dP^T) + dV + dK) at D = 512 and three times at D =
+    768. The first wide design formed each score tile 4 times at D = 512."""
+    rng = np.random.RandomState(d)
+    t, bh, pairs = 128, 1, 2 * 2
+    q, k, v, g = (torch.from_numpy(rng.randn(bh, t, d).astype(np.float32)) for _ in range(4))
+    lse, delta = torch.zeros(bh, t), torch.zeros(bh, t)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    shape = dict(tq=t, tk=t, d=d, scale=1.0 / math.sqrt(d), causal=False)
+    lib.emu_tensor_products.restype = ctypes.c_long
+    unit = 3 * pairs * 64 * 64  # 3xTF32 x (q-tile, k-tile) pairs x a 64 x 64 tile
+    _call(lib, "flash_dq", torch.float32, *map(_ptr, (q, k, v, g, lse, delta, None, dq)), bh, 1,
+          t, t, **shape)
+    assert lib.emu_tensor_products() == unit * (len(slices) * 2 * d + d)
+    _call(lib, "flash_dkv", torch.float32,
+          *map(_ptr, (q, k, v, g, lse, delta, None, dk, dv)), bh, 1, t, t, **shape)
+    assert lib.emu_tensor_products() == unit * (d // 256 * 2 * d + 2 * d)
+    if d == 512:
+        assert lib.emu_tensor_products() == unit * 6 * d
 
 
 @pytest.fixture(scope="module")
