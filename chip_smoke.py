@@ -11,9 +11,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    instantiations that spill registers, named from ptxas's report
    (`spills:`); the HMMA instructions of each instantiation in the
    library's SASS, by mnemonic (`sass:`; the 3xTF32 kernels must hold
-   TF32 ones, and the wgmma kernels, K1 wide in both dtypes and K2 and K3
-   wide in f32, HGMMA ones of their dtype); then each kernel instantiation's resident CTAs per SM,
-   threads, shared memory and registers, and at the main shape each
+   TF32 ones, and the wgmma kernels, K1-K3 wide in both dtypes, HGMMA
+   ones of their dtype and no HMMA); then each kernel instantiation's
+   resident CTAs per SM, threads, shared memory and registers, and at the
+   main shape each
    kernel's resident CTA slots (CTAs per SM x SMs) against its grid
    (`occupancy:`).
 3. kernels: each of the three flash-attention kernels (forward, dQ,
@@ -36,15 +37,14 @@ Phases, in order; any failure exits non-zero and prints no result:
    and `d256_` cases): the main shape at that D, the bench shape (4,
    2048, 8, D) causal, Tq != Tk key-padded, ragged causal, and the key-0
    row at both tiles (the f32 instances' long tile is 32 at D = 256).
-   The wide instances (any multiple of 256 above 256: K1 on wgmma in
-   64-row tiles of up to 512 output columns; K2 and K3 in bf16 in CTAs of
-   32 rows and 256 columns; K2 and K3 in f32 on wgmma in 64-row tiles, or
-   32 rows of each of two (batch, head) pairs up to T = 32, of up to 512
-   dQ and 256 dK and dV columns) run the same six at D = 512 (`d512_`
+   The wide instances (any multiple of 256 above 256, all on wgmma: K1 in
+   64-row tiles of up to 512 output columns; K2 and K3 in 64-row tiles,
+   or 32 rows of each of two (batch, head) pairs up to T = 32, of up to
+   512 dQ and 256 dK and dV columns) run the same six at D = 512 (`d512_`
    cases) and the short f32 tile causal with a missing pair and the key-0
-   row, and D = 768 (`d768_`: a 512- and a 256-column slice;
-   f32's K1 streams Q there) ragged causal and Tq != Tk key-padded, bf16
-   also at D = 1280 (its K1 streams Q). Then head dims the kernels are not
+   row, and D = 768 (`d768_`: a 512- and a 256-column slice; f32's K1
+   streams Q there, bf16 K2's and K3's their A tiles) ragged causal and
+   Tq != Tk key-padded, bf16 also at D = 1280 (its K1 streams Q). Then head dims the kernels are not
    built for (`PADDED_CASES`: d = 16, 48, 80, 96, 160, 200, 264 and 320,
    bf16 and f32), forward + backward through `flash_attention`, which
    zero-pads them to 32, 64, 128, 256 and 512 and slices the output back,
@@ -168,7 +168,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    gradient all-reduce's ms per call. Two ranks on one card over gloo
    measure nothing of a two-card NCCL gang's speed.
 11. deployed: `profiling/measure_deployed.py` on the LM (batch 20) for
-   three rounds of 40 s, against a temporary copy of
+   three rounds of 30 s, against a temporary copy of
    `data/h100_throughputs.json`: the unchanged `run_physical.py` and the
    port's worker as subprocesses, two jobs alternating. Its keys must be
    written, a lease after round 0 parsed, the deployed rate > 0 and the
@@ -252,18 +252,22 @@ CASES = (
     ("d256_ragged_causal", 2, 100, 100, 4, 256, True, "tail"),
     ("d256_masked_row0", 1, 128, 128, 2, 256, True, "key0"),
     ("d256_short_masked_row0", 1, 32, 32, 2, 256, True, "key0"),
-    # D = 512, the same six on the wide instances (K1: 64-row tiles of 512
-    # columns on wgmma; K2, K3: 32-row tiles of 256 columns, grid z = 2):
-    # the main shape, the bench shape, Tq != Tk key-padded, ragged causal,
-    # the key-0 row at a short and a long sequence.
+    # D = 512, the same six on the wide instances (all on wgmma; K1:
+    # 64-row tiles of 512 columns; K2, K3: 64-row tiles, or 32 rows of two
+    # pairs up to T = 32, of 512 dQ and 256 dK and dV columns, their A
+    # tiles resident): the main shape, the bench shape, Tq != Tk
+    # key-padded, ragged causal, the key-0 row at a short and a long
+    # sequence, and the short tile with a missing pair at BH = 3.
     ("d512_main_enc_self", 64, 32, 32, 8, 512, False, "tail"),
     ("d512_bench_causal", 4, 2048, 2048, 8, 512, True, None),
     ("d512_cross_48x96", 2, 48, 96, 4, 512, False, "tail"),
     ("d512_ragged_causal", 2, 100, 100, 4, 512, True, "tail"),
     ("d512_masked_row0", 1, 128, 128, 2, 512, True, "key0"),
     ("d512_short_masked_row0", 1, 32, 32, 2, 512, True, "key0"),
-    # D = 768: K1's CTAs of 512 and 256 output columns (grid z = 2), K2's
-    # and K3's three slices; D = 1280, where K1 streams Q's chunks.
+    ("d512_short32_masked_row0", 1, 32, 32, 3, 512, True, "key0"),
+    # D = 768: K1's and K2's CTAs of 512 and 256 output columns (grid z =
+    # 2), K3's three slices, K2 and K3 streaming their A tiles; D = 1280,
+    # where K1 streams Q's chunks.
     ("d768_ragged_causal", 2, 100, 100, 4, 768, True, "tail"),
     ("d768_cross_48x96", 2, 48, 96, 4, 768, False, "tail"),
     ("d1280_ragged_causal", 1, 100, 100, 2, 1280, True, "tail"),
@@ -467,8 +471,10 @@ DECODER_D512_WIDTHS = dict(dim=2048, num_heads=4)
 # many rounds.
 BENCH_DECODE_FLOOR, HEADLINE_ROUNDS = 200.0, 20
 # The deployed phase: `measure_deployed` on one family, three rounds of
-# 40 s, against a temporary copy of the committed h100 oracle.
-DEPLOYED_FAMILY, DEPLOYED_ROUNDS, DEPLOYED_ROUND_S = "LM (batch size 20)", 3, 40.0
+# 30 s, against a temporary copy of the committed h100 oracle. Three is
+# the fewest that parse a lease: round 0 is skipped (its cold start) and
+# the last round's lease is cut when the scheduler stops.
+DEPLOYED_FAMILY, DEPLOYED_ROUNDS, DEPLOYED_ROUND_S = "LM (batch size 20)", 3, 30.0
 DEPLOYED_KEYS = ("lease_shortfall_s", "lease_shortfall_s_by_type", "round_drain_s",
                  "round_drain_s_by_type", "deployed_calibration")
 # The gang phase: two ranks on the one card. The Transformer (global
@@ -531,9 +537,10 @@ def emit(tag: str, obj) -> None:
 
 
 def kernel_name(mangled: str) -> str:
-    """"flash_..._kernel<D, tile>" (a wide instance: "flash_..._wide_kernel<
-    type, tile>"; K1's: "flash_fwd_wide_kernel<type, Q resident>" or "..., Q
-    streamed>"; f32 K3's "flash_dkv_wide_f32_kernel<rows>", K2's
+    """"flash_..._kernel<D, tile>" (a wide instance: K1's
+    "flash_fwd_wide_kernel<type, Q resident>" or "..., Q streamed>"; bf16
+    K2's and K3's "flash_dq_wide_kernel<bf16, rows, A resident>" or "...,
+    A streamed>"; f32 K3's "flash_dkv_wide_f32_kernel<rows>", K2's
     "flash_dq_wide_f32_kernel<rows, 512-column CTAs>" or "..., any D>") of a
     kernel's mangled name."""
     k = re.search(r"(flash_(?:fwd|dq|dkv)(?:_f32)?_kernel)ILi(\d+)ELi(\d+)E", mangled)
@@ -543,13 +550,13 @@ def kernel_name(mangled: str) -> str:
     if k:
         whole = {"1": ", 512-column CTAs", "0": ", any D", None: ""}[k.group(3)]
         return f"{k.group(1)}<{k.group(2)}{whole}>"
-    k = re.search(r"(flash_(?:fwd|dq|dkv)_wide_kernel)I(f|13__nv_bfloat16)L([ib])(\d+)E",
-                  mangled)
+    k = re.search(r"(flash_(?:dq|dkv)_wide_kernel)ILi(\d+)ELb([01])E", mangled)
+    if k:
+        return f"{k.group(1)}<bf16, {k.group(2)}, A {('streamed', 'resident')[int(k.group(3))]}>"
+    k = re.search(r"(flash_fwd_wide_kernel)I(f|13__nv_bfloat16)Lb([01])E", mangled)
     if k:
         dtype = "float" if k.group(2) == "f" else "bf16"
-        last = k.group(4) if k.group(3) == "i" else (
-            "Q resident" if k.group(4) == "1" else "Q streamed")
-        return f"{k.group(1)}<{dtype}, {last}>"
+        return f"{k.group(1)}<{dtype}, Q {('streamed', 'resident')[int(k.group(3))]}>"
     return mangled
 
 
@@ -2202,12 +2209,14 @@ def main() -> int:
         for name, ops in hmma.items():
             if name.startswith(kname):
                 check(any("TF32" in op for op in ops), f"{name}: no TF32 HMMA in its SASS ({ops})")
-    # K1 wide runs on wgmma in both dtypes, K2 and K3 wide in f32: HGMMA,
-    # bf16 or TF32, in each of their instances (K1's Q resident and
-    # streamed; K2's and K3's two tiles, K2's for D a multiple of 512 and
-    # any D).
+    # Every wide kernel runs on wgmma: HGMMA, bf16 or TF32, in each of their
+    # instances (K1's Q resident and streamed; K2's and K3's two tiles, in
+    # bf16 the 64-row one with the A tiles resident and streamed, in f32
+    # K2's for D a multiple of 512 and any D), and no HMMA.
     for prefix, operand, count in (("flash_fwd_wide_kernel<bf16", "BF16", 2),
                                    ("flash_fwd_wide_kernel<float", "TF32", 2),
+                                   ("flash_dq_wide_kernel<bf16", "BF16", 3),
+                                   ("flash_dkv_wide_kernel<bf16", "BF16", 3),
                                    ("flash_dq_wide_f32_kernel<", "TF32", 4),
                                    ("flash_dkv_wide_f32_kernel<", "TF32", 2)):
         found = {name: ops for name, ops in hmma.items() if name.startswith(prefix)}
@@ -2216,6 +2225,8 @@ def main() -> int:
         for name, ops in found.items():
             check(any(op.startswith("HGMMA") and operand in op for op in ops),
                   f"{name}: no {operand} HGMMA in its SASS ({ops})")
+            check(not any(op.startswith("HMMA") for op in ops),
+                  f"{name}: HMMA in its SASS ({ops})")
     occupancy = fa.kernel_occupancy(torch.cuda.current_device())
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     emit("occupancy", {"sms": sms, "kernels": occupancy,

@@ -7,164 +7,20 @@
 // as the narrow instances in flash_attention.cu (_fa_kernel :40,
 // _dq_kernel :167, _dkv_kernel :222 of shockwave_tpu/ops/flash_attention.py)
 // at those widths, with the same arguments and masking, and share its
-// building blocks (flash_attention_common.cuh). Three designs:
-// - K2 and K3 in bf16 (flash_dq_wide_kernel, flash_dkv_wide_kernel):
-//   32-row CTAs of 256 output columns on mma.sync, the first wide design
-//   (below).
-// - K1 in both dtypes (flash_fwd_wide_kernel): two warpgroups over 64-row
-//   tiles on wgmma, the scores formed once per row tile.
+// building blocks (flash_attention_common.cuh). One data flow in all six:
+// two warpgroups over 64-row tiles on wgmma, operands streamed through a
+// cp.async ring of 8 KB chunks per group, swizzled as wgmma reads them.
+// - K1 in both dtypes (flash_fwd_wide_kernel): the scores formed once per
+//   row tile.
 // - K2 and K3 in f32 (flash_dq_wide_f32_kernel, flash_dkv_wide_f32_kernel):
-//   K1's data flow for the backward, on TF32 wgmma as 3xTF32, after K1.
+//   K1's data flow for the backward, on TF32 wgmma as 3xTF32.
+// - K2 and K3 in bf16 (flash_dq_wide_kernel, flash_dkv_wide_kernel): the
+//   f32 pair's data flow on bf16 wgmma, with no staging.
 #include "flash_attention_common.cuh"
 
 namespace {
 
-// ---------------------------------------------------------------------------
-// K2 and K3 at wide head dims in bf16, templated on the element type and
-// the row tile (32 rows).
-//
-// Bound on an H100 SXM at the bench shape (4, 2048, 8, 512) causal: K2
-// does 206 GFLOP, 209 us by bf16 operations; K3 275 GFLOP, 278 us.
-//
-// What the design does about a head dim no template instance can hold:
-// 1. Column slices: a CTA owns 256 columns of its rows' output (K2: dQ;
-//    K3: dK and dV), grid z = D / 256, and two warps share each 16 rows,
-//    each owning 128 of those columns: the split of the narrow K3 at D =
-//    256 (kColSplit, note 8 of the bf16 K3), extended and carried on
-//    across CTAs. A warp's sums (dQ: 64 registers a lane; dK and dV: 128)
-//    never depend on D.
-// 2. The scores over the full width: S = Q.K^T and dP = dO.V^T are
-//    summed over 64-column chunks of Q, K, dO and V that stream through a
-//    two-stage cp.async ring in shared memory, so D is a run-time loop
-//    count and shared memory does not grow with it. The warps of a CTA
-//    share the chunks, but each of the kWideColSplit warps of a row pair
-//    forms the same scores, and so does each of the D / 256 CTAs of a row
-//    tile: kWideColSplit x D / 256 times per tile in all (4 at D = 512),
-//    the price of a simple kernel. The chunk steps of every k-tile (K3:
-//    q-tile) run as one flat sequence, so the ring never drains between
-//    tiles.
-// 3. The slice operand of the second product (K2: K; K3: Q and dO) is
-//    copied with the first chunk of its tile into a two-stage slice
-//    buffer, so it arrives while the scores are summed.
-// 4. The masking, the p = 0 guard where s <= -5e29 and the operand
-//    hand-offs are the narrow kernels', fragment for fragment:
-//    accumulators are repacked into m16n8k16 A operands (accum_to_a). Each
-//    tile's part of dQ, dK and dV is summed from zero and added in f32.
-// 5. Shared memory does not depend on D: 2 stages of the chunks (Q, dO, K
-//    and V) and 2 of the slices: K2 70,912 bytes, K3 104,960.
-// ---------------------------------------------------------------------------
-constexpr int kWideChunk = 64;                        // columns of a streamed score tile
-constexpr int kWideSlice = 256;                       // output columns a CTA owns
-constexpr int kWideColSplit = 2;                      // warps per 16 rows
-constexpr int kWideCols = kWideSlice / kWideColSplit;  // output columns a warp owns
-constexpr int kWideTileBf16 = 32;                    // rows per CTA of K2 and K3
-
-// Row stride of a W-column shared tile: the narrow bf16 kernels' padding.
-template <typename T, int W>
-__host__ __device__ constexpr int wide_stride() {
-  return smem_stride<W>();
-}
-
-template <typename T, int kBlock>
-struct WideShape {
-  static constexpr int kRowWarps = kBlock / 16;
-  static constexpr int kCtaThreads = kRowWarps * kWideColSplit * 32;
-  static constexpr int kChunkElems = kBlock * wide_stride<T, kWideChunk>();
-  static constexpr int kSliceElems = kBlock * wide_stride<T, kWideSlice>();
-  // Two stages each of kChunks chunk tiles, kSlices slice tiles and
-  // kRows per-row f32 vectors (key bias; lse and delta).
-  template <int kChunks, int kSlices, int kRows>
-  static constexpr size_t smem_bytes() {
-    return (size_t)(2 * kChunks * kChunkElems + 2 * kSlices * kSliceElems) * sizeof(T) +
-           (size_t)2 * kRows * kBlock * sizeof(float);
-  }
-};
-
-// Start cp.async copies of rows [row0, row0 + R), columns [col, col + W)
-// of a (rows, d) matrix into an R-row shared tile; rows past `rows` are
-// zero-filled.
-template <typename T, int W, int R, int kThr>
-__device__ __forceinline__ void copy_cols_async(T* dst, const T* src, int row0, int rows, int d,
-                                                int col) {
-  constexpr int kPer = 16 / (int)sizeof(T);  // elements per 16-byte copy
-  constexpr int kChunks = W / kPer;
-  for (int i = threadIdx.x; i < R * kChunks; i += kThr) {
-    const int r = i / kChunks, c = i % kChunks;
-    const bool valid = row0 + r < rows;
-    cp_async16(dst + r * wide_stride<T, W>() + c * kPer,
-               src + (size_t)(valid ? row0 + r : 0) * d + col + c * kPer, valid);
-  }
-}
-
-// s (16 x kN*8) += A . B^T over one kWideChunk-column chunk: A the warp's
-// 16 rows at `a`, B kN*8 rows at `b`, both of row stride S.
-template <int kN, int S>
-__device__ __forceinline__ void scores_chunk(float (&s)[kN][4], const bf16* a, const bf16* b,
-                                             int lane) {
-#pragma unroll
-  for (int kk = 0; kk < kWideChunk / 16; ++kk) {
-    uint32_t qa[4];
-    load_a<S>(qa, a + kk * 16, lane);
-#pragma unroll
-    for (int nn = 0; nn < kN / 2; ++nn) {
-      uint32_t bb[4];
-      load_bt<S>(bb, b + nn * 16 * S + kk * 16, lane);
-      mma_bf16(s[2 * nn], qa, bb[0], bb[1]);
-      mma_bf16(s[2 * nn + 1], qa, bb[2], bb[3]);
-    }
-  }
-}
-
-// A 16 x kN*8 accumulator tile (P, dS, P^T or dS^T) as the A operands of
-// the second product.
-template <typename T, int kN>
-struct AccumOperands;
-
-template <int kN>
-struct AccumOperands<bf16, kN> {
-  uint32_t a[kN / 2][4];
-};
-
-template <int kN>
-__device__ __forceinline__ void to_operands(AccumOperands<bf16, kN>& p, const float (&s)[kN][4]) {
-#pragma unroll
-  for (int c = 0; c < kN / 2; ++c) accum_to_a(p.a[c], s[2 * c], s[2 * c + 1]);
-}
-
-// part[j] (16 x 8, j = 0, 1) += P . X for the 16 columns of X at `x`: X's
-// rows are P's kN*8 columns (keys, or queries in K3), row stride S.
-template <int S, int kN>
-__device__ __forceinline__ void product16(float (&part)[2][4], const AccumOperands<bf16, kN>& p,
-                                          const bf16* x, int lane) {
-#pragma unroll
-  for (int c = 0; c < kN / 2; ++c) {
-    uint32_t b[4];
-    load_b<S>(b, x + c * 16 * S, lane);
-    mma_bf16(part[0], p.a[c], b[0], b[1]);
-    mma_bf16(part[1], p.a[c], b[2], b[3]);
-  }
-}
-
-// sum (kWideCols / 8 n8 tiles) = sum * (corr of the tile's row) + P . X
-// over the warp's kWideCols columns of X at `x`, each 16 columns' part
-// summed from zero (corr nullptr: plain +=).
-template <typename T, int S, int kN>
-__device__ __forceinline__ void add_product(float (&sum)[kWideCols / 8][4],
-                                            const AccumOperands<T, kN>& p, const T* x,
-                                            const float* corr, int lane) {
-#pragma unroll
-  for (int nn = 0; nn < kWideCols / 16; ++nn) {
-    float part[2][4] = {};
-    product16<S>(part, p, x + nn * 16, lane);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        sum[2 * nn + j][e] = corr != nullptr ? fmaf(sum[2 * nn + j][e], corr[e >> 1], part[j][e])
-                                             : sum[2 * nn + j][e] + part[j][e];
-    }
-  }
-}
+constexpr int kWideSlice = 256;  // dK and dV columns a K3 CTA owns
 
 __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
@@ -172,266 +28,6 @@ __device__ __forceinline__ void store2(bf16* p, float a, float b) {
 
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-
-// Rows g and g + 8 of a warp's 16 x kWideCols sum into rows[0], rows[1]
-// of a (rows, d) matrix at `dst` (the warp's first column), scaled.
-template <typename T>
-__device__ __forceinline__ void store_rows(T* dst, const float (&sum)[kWideCols / 8][4],
-                                           const int (&rows)[2], int nrows, int d,
-                                           const float (&scale)[2], int lane) {
-  const int t = lane & 3;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (rows[h] >= nrows) continue;
-#pragma unroll
-    for (int n = 0; n < kWideCols / 8; ++n)
-      store2(dst + (size_t)rows[h] * d + n * 8 + 2 * t, sum[n][2 * h] * scale[h],
-             sum[n][2 * h + 1] * scale[h]);
-  }
-}
-
-// K2 at wide head dims: dQ. Grid (BH, q-tiles, D / 256), heaviest causal
-// tile first.
-template <typename T, int kBlock>
-__global__ void __launch_bounds__(WideShape<T, kBlock>::kCtaThreads)
-    flash_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ g,
-                         const float* __restrict__ lse, const float* __restrict__ delta,
-                         const uint8_t* __restrict__ mask, T* __restrict__ dq, int heads, int tq,
-                         int tk, int d, float scale, int causal) {
-  using Shape = WideShape<T, kBlock>;
-  constexpr int SC = wide_stride<T, kWideChunk>(), SS = wide_stride<T, kWideSlice>();
-  constexpr int kThr = Shape::kCtaThreads, kN = kBlock / 8;
-  constexpr int kEC = Shape::kChunkElems, kES = Shape::kSliceElems;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem);                      // 2 stages of chunks each
-  T* sG = sQ + 2 * kEC;
-  T* sK = sG + 2 * kEC;
-  T* sV = sK + 2 * kEC;
-  T* sKs = sV + 2 * kEC;                                   // 2 stages of the K slice
-  float* sBias = reinterpret_cast<float*>(sKs + 2 * kES);  // 2 stages
-
-  const int bh = blockIdx.x;
-  const int qt = gridDim.y - 1 - blockIdx.y;  // causal: the longest k loops start first
-  const int q0 = qt * kBlock;
-  const int slice0 = blockIdx.z * kWideSlice;
-  const int rw = (threadIdx.x >> 5) % Shape::kRowWarps, lane = threadIdx.x & 31;
-  const int col0 = (threadIdx.x >> 5) / Shape::kRowWarps * kWideCols;
-  const int t = lane & 3;
-  const T* qb = q + (size_t)bh * tq * d;
-  const T* gb = g + (size_t)bh * tq * d;
-  const T* kb = k + (size_t)bh * tk * d;
-  const T* vb = v + (size_t)bh * tk * d;
-  const uint8_t* mask_row = mask != nullptr ? mask + (size_t)(bh / heads) * tk : nullptr;
-  const int row[2] = {q0 + rw * 16 + (lane >> 2), q0 + rw * 16 + (lane >> 2) + 8};
-  // A row past tq reads 0 (Q, dO, lse and delta): its dS is 0 and its dQ
-  // is never written.
-  float row_lse[2], row_delta[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const bool in = row[h] < tq;
-    row_lse[h] = in ? lse[(size_t)bh * tq + row[h]] : 0.f;
-    row_delta[h] = in ? delta[(size_t)bh * tq + row[h]] : 0.f;
-  }
-
-  int nk = (tk + kBlock - 1) / kBlock;
-  if (causal) nk = min(nk, qt + 1);  // k-tiles past the diagonal see nothing
-  const int nc = d / kWideChunk, steps = nk * nc;
-
-  auto load = [&](int i) {
-    const int kt = i / nc, col = i % nc * kWideChunk, st = i & 1;
-    copy_cols_async<T, kWideChunk, kBlock, kThr>(sQ + st * kEC, qb, q0, tq, d, col);
-    copy_cols_async<T, kWideChunk, kBlock, kThr>(sG + st * kEC, gb, q0, tq, d, col);
-    copy_cols_async<T, kWideChunk, kBlock, kThr>(sK + st * kEC, kb, kt * kBlock, tk, d, col);
-    copy_cols_async<T, kWideChunk, kBlock, kThr>(sV + st * kEC, vb, kt * kBlock, tk, d, col);
-    if (col == 0) {
-      copy_cols_async<T, kWideSlice, kBlock, kThr>(sKs + (kt & 1) * kES, kb, kt * kBlock, tk, d,
-                                                   slice0);
-      for (int j = threadIdx.x; j < kBlock; j += kThr)
-        sBias[(kt & 1) * kBlock + j] = key_bias(mask_row, kt * kBlock + j, tk);
-    }
-    cp_async_commit();
-  };
-  load(0);
-
-  float dq_acc[kWideCols / 8][4] = {};
-  float s[kN][4], dp[kN][4];
-  for (int i = 0; i < steps; ++i) {
-    const int kt = i / nc, c = i % nc, st = i & 1;
-    if (i + 1 < steps) {
-      load(i + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (c == 0) {
-#pragma unroll
-      for (int j = 0; j < kN; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-      }
-    }
-    scores_chunk<kN, SC>(s, sQ + st * kEC + rw * 16 * SC, sK + st * kEC, lane);
-    scores_chunk<kN, SC>(dp, sG + st * kEC + rw * 16 * SC, sV + st * kEC, lane);
-    if (c == nc - 1) {
-      // Scale, causal -1e30, then the key bias, as _dq_kernel orders
-      // them: dS = p (dP - delta) scale, p = 0 where s <= -5e29.
-      const float* cBias = sBias + (kt & 1) * kBlock;
-      const int k0 = kt * kBlock;
-#pragma unroll
-      for (int j = 0; j < kN; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kl = j * 8 + 2 * t + (e & 1), h = e >> 1;
-          float x = s[j][e] * scale;
-          if (causal && row[h] < k0 + kl) x = kNegInf;
-          x += cBias[kl];
-          const float p = x <= kNegInf * 0.5f ? 0.f : __expf(x - row_lse[h]);
-          dp[j][e] = p * (dp[j][e] - row_delta[h]) * scale;
-        }
-      }
-      // dQ += dS.K over the warp's columns of the K slice.
-      AccumOperands<T, kN> dsa;
-      to_operands(dsa, dp);
-      add_product<T, SS>(dq_acc, dsa, sKs + (kt & 1) * kES + col0, nullptr, lane);
-    }
-    __syncthreads();  // every warp is done with this stage before it is refilled
-  }
-  const float one[2] = {1.f, 1.f};
-  store_rows(dq + (size_t)bh * tq * d + slice0 + col0, dq_acc, row, tq, d, one, lane);
-}
-
-// K3 at wide head dims: dK and dV. Grid (BH, k-tiles, D / 256); a CTA
-// owns kBlock keys and walks the q-tiles from the causal diagonal on.
-template <typename T, int kBlock>
-__global__ void __launch_bounds__(WideShape<T, kBlock>::kCtaThreads)
-    flash_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, const T* __restrict__ g,
-                          const float* __restrict__ lse, const float* __restrict__ delta,
-                          const uint8_t* __restrict__ mask, T* __restrict__ dk,
-                          T* __restrict__ dv, int heads, int tq, int tk, int d, float scale,
-                          int causal) {
-  using Shape = WideShape<T, kBlock>;
-  constexpr int SC = wide_stride<T, kWideChunk>(), SS = wide_stride<T, kWideSlice>();
-  constexpr int kThr = Shape::kCtaThreads, kN = kBlock / 8;
-  constexpr int kEC = Shape::kChunkElems, kES = Shape::kSliceElems;
-  static_assert(kThr >= 2 * kBlock, "one lse or one delta entry per thread");
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* sK = reinterpret_cast<T*>(smem);  // 2 stages of chunks each
-  T* sV = sK + 2 * kEC;
-  T* sQ = sV + 2 * kEC;
-  T* sG = sQ + 2 * kEC;
-  T* sQs = sG + 2 * kEC;                                  // 2 stages of the Q slice
-  T* sGs = sQs + 2 * kES;                                 // 2 stages of the dO slice
-  float* sLse = reinterpret_cast<float*>(sGs + 2 * kES);  // 2 stages
-  float* sDelta = sLse + 2 * kBlock;                      // 2 stages
-
-  const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * kBlock;
-  const int slice0 = blockIdx.z * kWideSlice;
-  const int rw = (threadIdx.x >> 5) % Shape::kRowWarps, lane = threadIdx.x & 31;
-  const int col0 = (threadIdx.x >> 5) / Shape::kRowWarps * kWideCols;
-  const int t = lane & 3;
-  const T* qb = q + (size_t)bh * tq * d;
-  const T* gb = g + (size_t)bh * tq * d;
-  const T* kb = k + (size_t)bh * tk * d;
-  const T* vb = v + (size_t)bh * tk * d;
-  const float* lse_b = lse + (size_t)bh * tq;
-  const float* delta_b = delta + (size_t)bh * tq;
-  const uint8_t* mask_row = mask != nullptr ? mask + (size_t)(bh / heads) * tk : nullptr;
-  const int key[2] = {k0 + rw * 16 + (lane >> 2), k0 + rw * 16 + (lane >> 2) + 8};
-  const float bias[2] = {key_bias(mask_row, key[0], tk), key_bias(mask_row, key[1], tk)};
-
-  const int nq = (tq + kBlock - 1) / kBlock;
-  // q-tiles above the diagonal see none of these keys
-  const int qt0 = causal ? (int)blockIdx.y : 0;
-  const int nc = d / kWideChunk, steps = max(nq - qt0, 0) * nc;
-
-  // Step i: chunk i % nc of q-tile qt0 + i / nc; its first chunk brings the
-  // tile's Q and dO slices, lse and delta.
-  auto load = [&](int i) {
-    const int q0 = (qt0 + i / nc) * kBlock, col = i % nc * kWideChunk, st = i & 1;
-    copy_cols_async<T, kWideChunk, kBlock, kThr>(sK + st * kEC, kb, k0, tk, d, col);
-    copy_cols_async<T, kWideChunk, kBlock, kThr>(sV + st * kEC, vb, k0, tk, d, col);
-    copy_cols_async<T, kWideChunk, kBlock, kThr>(sQ + st * kEC, qb, q0, tq, d, col);
-    copy_cols_async<T, kWideChunk, kBlock, kThr>(sG + st * kEC, gb, q0, tq, d, col);
-    if (col == 0) {
-      const int ts = (i / nc) & 1;
-      copy_cols_async<T, kWideSlice, kBlock, kThr>(sQs + ts * kES, qb, q0, tq, d, slice0);
-      copy_cols_async<T, kWideSlice, kBlock, kThr>(sGs + ts * kES, gb, q0, tq, d, slice0);
-      // The first 2 kBlock threads: one f32 each, lse then delta; rows
-      // past tq read 0.
-      if (threadIdx.x < 2 * kBlock) {
-        const int r = threadIdx.x % kBlock;
-        const bool valid = q0 + r < tq;
-        const float* src = threadIdx.x < kBlock ? lse_b : delta_b;
-        float* dst = (threadIdx.x < kBlock ? sLse : sDelta) + ts * kBlock;
-        cp_async4(dst + r, src + (valid ? q0 + r : 0), valid);
-      }
-    }
-    cp_async_commit();
-  };
-  if (steps > 0) load(0);
-
-  float dk_acc[kWideCols / 8][4] = {}, dv_acc[kWideCols / 8][4] = {};
-  float st[kN][4], dpt[kN][4];
-  for (int i = 0; i < steps; ++i) {
-    const int c = i % nc, stage = i & 1, ts = (i / nc) & 1;
-    if (i + 1 < steps) {
-      load(i + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (c == 0) {
-#pragma unroll
-      for (int j = 0; j < kN; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-      }
-    }
-    // S^T = K.Q^T and dP^T = V.dO^T for the warp's 16 keys.
-    scores_chunk<kN, SC>(st, sK + stage * kEC + rw * 16 * SC, sQ + stage * kEC, lane);
-    scores_chunk<kN, SC>(dpt, sV + stage * kEC + rw * 16 * SC, sG + stage * kEC, lane);
-    if (c == nc - 1) {
-      const int q0 = (qt0 + i / nc) * kBlock;
-      const float* cLse = sLse + ts * kBlock;
-      const float* cDelta = sDelta + ts * kBlock;
-      // Lane holds keys key[0] (e = 0, 1) and key[1] (e = 2, 3) against
-      // queries ql and ql + 1 of each n8 tile.
-#pragma unroll
-      for (int j = 0; j < kN; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int ql = j * 8 + 2 * t + (e & 1), query = q0 + ql;
-          float x = st[j][e] * scale;
-          if (causal && query < key[e >> 1]) x = kNegInf;
-          x += bias[e >> 1];
-          const float p =
-              (x <= kNegInf * 0.5f || query >= tq) ? 0.f : __expf(x - cLse[ql]);
-          st[j][e] = p;
-          dpt[j][e] = p * (dpt[j][e] - cDelta[ql]) * scale;
-        }
-      }
-      // dV += P^T.dO, then dK += dS^T.Q, over the warp's columns of the
-      // tile's dO and Q slices.
-      AccumOperands<T, kN> pa;
-      to_operands(pa, st);
-      add_product<T, SS>(dv_acc, pa, sGs + ts * kES + col0, nullptr, lane);
-      to_operands(pa, dpt);
-      add_product<T, SS>(dk_acc, pa, sQs + ts * kES + col0, nullptr, lane);
-    }
-    __syncthreads();  // every warp is done with this stage before it is refilled
-  }
-  cp_async_wait<0>();  // no copy is left in flight when the loop never ran
-
-  const float one[2] = {1.f, 1.f};
-  const size_t base = (size_t)bh * tk * d + slice0 + col0;
-  store_rows(dk + base, dk_acc, key, tk, d, one, lane);
-  store_rows(dv + base, dv_acc, key, tk, d, one, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -454,7 +50,7 @@ __global__ void __launch_bounds__(WideShape<T, kBlock>::kCtaThreads)
 //
 // What held the first wide design (32- and 16-row CTAs of 256 columns,
 // two warps per 16 rows, mma.sync) back, and what this one does:
-// 1. The scores were formed kWideColSplit x D / 256 times per row tile
+// 1. The scores were formed 2 x D / 256 times per row tile
 //    (4 at D = 512). Here each group forms the 64 x 64 partial S of its
 //    contraction half, and the halves meet in a 16 KB f32 exchange in
 //    shared memory, each thread's 32 scores in its own slots
@@ -1091,13 +687,12 @@ __global__ void __launch_bounds__(kFwdWideThreads, 1)
 // At the main shape (64, 32, 8, 512) key-padded by bytes: K2 168 MB, 50
 // us; K3 201 MB, 60 us.
 //
-// What held the first f32 design (flash_dq_wide_kernel and
-// flash_dkv_wide_kernel at 16 rows, two warps per 16 rows on mma.sync)
-// back, and what this one does:
+// What held the first f32 design (16-row CTAs of 256 output columns, two
+// warps per 16 rows on mma.sync) back, and what this one does:
 // 1. CTAs of 64 threads on 16 rows, 4-6 warps per SM. Here a CTA is two
 //    warpgroups (256 threads) over a 64-row tile, one CTA per SM; a
 //    group's output columns (64 x 256 f32) are 128 registers a thread.
-// 2. Each score tile formed kWideColSplit x D / 256 = 4 times at D = 512.
+// 2. Each score tile formed 2 x D / 256 = 4 times at D = 512.
 //    K3 (grid BH x 64-key tiles x D / 256): group 0 forms S^T = K.Q^T over
 //    the full contraction, turns it into P^T and owns the CTA's 256
 //    columns of dV (dV += P^T.dO); group 1 forms dP^T = V.dO^T and owns
@@ -1158,22 +753,23 @@ constexpr int kChunkFloats = kChunkBytes / 4;
 constexpr size_t kBwdWideSmem =
     kSmemAlign + 2 * kBwdWideStages * kChunkBytes + kExchangeBytes + 2 * 2 * kChunkBytes;
 
-// Start cp.async copies of a 64-row chunk of columns [col, col + 32) of
-// 64 / kRows (batch, head) pairs' (len, d) matrices, the first at src and
-// each next head_stride floats on: chunk row r is row row0 + r % kRows of
-// pair r / kRows. Pairs from `pairs` on and rows past `len` are
-// zero-filled.
-template <int kRows>
-__device__ __forceinline__ void copy_chunk_pairs(float* dst, const float* src, size_t head_stride,
+// Start cp.async copies of a 64-row chunk (the 128 bytes of columns from
+// `col` on: 32 f32 or 64 bf16) of 64 / kRows (batch, head) pairs' (len, d)
+// matrices, the first at src and each next head_stride elements on: chunk
+// row r is row row0 + r % kRows of pair r / kRows. Pairs from `pairs` on
+// and rows past `len` are zero-filled.
+template <int kRows, typename T>
+__device__ __forceinline__ void copy_chunk_pairs(T* dst, const T* src, size_t head_stride,
                                                  int pairs, int row0, int len, int d, int col,
                                                  int tid) {
+  constexpr int U = 16 / (int)sizeof(T);
 #pragma unroll
   for (int i = 0; i < kFwdWideRows * 8 / 128; ++i) {
     const int r = (tid >> 3) + 16 * i, u = tid & 7;
     const int pair = r / kRows, row = row0 + r % kRows;
     const bool valid = pair < pairs && row < len;
-    cp_async16(dst + r * 32 + (u ^ (r & 7)) * 4,
-               src + (valid ? pair * head_stride + (size_t)row * d : 0) + col + u * 4, valid);
+    cp_async16(dst + r * 8 * U + (u ^ (r & 7)) * U,
+               src + (valid ? pair * head_stride + (size_t)row * d : 0) + col + u * U, valid);
   }
 }
 
@@ -1186,26 +782,27 @@ __device__ __forceinline__ float pair_key_bias(const uint8_t* mask, int bh, int 
 }
 
 // The ring of a group of a K2 or K3 CTA: chunk e of the flat sequence in
-// slot e % kBwdWideStages; `acquire(n)` waits until chunks [next, next + n)
-// have landed for the whole group and refills the slots before them,
+// slot e % kStages; `acquire(n)` waits until chunks [next, next + n) have
+// landed for the whole group and refills the slots before them,
 // `staged()` releases what the group staged to wgmma.
+template <typename T = float, int kStages = kBwdWideStages>
 struct BwdRing {
-  float* slots;
+  T* slots;
   int loaded, next, total;
   template <typename Load>
   __device__ __forceinline__ void start(const Load& load) {
     loaded = next = 0;
-    while (loaded < total && loaded < kBwdWideStages) load(loaded++);
+    while (loaded < total && loaded < kStages) load(loaded++);
   }
   template <typename Load>
   __device__ __forceinline__ void acquire(int n, int grp, const Load& load) {
     cp_async_wait_at_most(loaded - next - n);
     fence_async_shared();
     named_sync(1 + grp, 128);
-    while (loaded < total && loaded < next + kBwdWideStages) load(loaded++);
+    while (loaded < total && loaded < next + kStages) load(loaded++);
   }
-  __device__ __forceinline__ float* at(int e) const {
-    return slots + (e % kBwdWideStages) * kChunkFloats;
+  __device__ __forceinline__ T* at(int e) const {
+    return slots + (e % kStages) * (kChunkBytes / (int)sizeof(T));
   }
 };
 
@@ -1217,7 +814,7 @@ __device__ __forceinline__ void staged(int grp) {
 // s (the group's 64 x 64 score tile) = A.B^T over the full contraction:
 // chunk c of the A rows, then chunk c of the B rows, a step each.
 template <typename Load>
-__device__ __forceinline__ void scores_tf32(float (&s)[8][4], BwdRing& ring, float* scratch,
+__device__ __forceinline__ void scores_tf32(float (&s)[8][4], BwdRing<>& ring, float* scratch,
                                             int nc, int grp, int tid, const Load& load) {
   const int warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
 #pragma unroll
@@ -1241,7 +838,7 @@ __device__ __forceinline__ void scores_tf32(float (&s)[8][4], BwdRing& ring, flo
 // transposed, its part summed from zero and added in f32.
 template <int kMaxV, typename Load>
 __device__ __forceinline__ void add_products_tf32(float (&acc)[kMaxV * 4][4],
-                                                  const float (&a)[8][4], BwdRing& ring,
+                                                  const float (&a)[8][4], BwdRing<>& ring,
                                                   float* scratch, int nv, int grp, int tid,
                                                   const Load& load) {
   const float one[2] = {1.f, 1.f};
@@ -1256,6 +853,137 @@ __device__ __forceinline__ void add_products_tf32(float (&acc)[kMaxV * 4][4],
     }
   }
 }
+
+// K3's per-tile terms, as the f32 and bf16 kernels form them (design note
+// 2): group 0 turns its S^T into P^T in s (scale, causal -1e30, then the
+// key bias, as _dkv_kernel orders them; p = 0 where s <= -5e29, past tq,
+// and where the query's pair is not the key's) and hands it to group 1
+// through the exchange: it waits at barrier 4 until group 1 has read the
+// last tile's P (unless `first`), writes and arrives at barrier 3. Group 1
+// waits there and turns its dP^T into dS^T = p (dP^T - delta) scale in s,
+// then arrives at barrier 4. The lane holds keys key[h] (e >> 1 = h) of
+// pairs kpair[h], biases bias[h], against the queries of columns 8j + 2t +
+// (e & 1) of q-tile qt.
+template <int kRows>
+__device__ __forceinline__ void dkv_terms(float (&s)[8][4], float* ex, int grp, int tid, int qt,
+                                          bool first, const int (&key)[2],
+                                          const int (&kpair)[2], const float (&bias)[2],
+                                          const float* lse, const float* delta, int bh0, int tq,
+                                          float scale, int causal) {
+  const int t = tid & 3;
+  if (grp == 0) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + 2 * t + (e & 1), h = e >> 1;
+        const int qpair = c / kRows, query = qt * kRows + c % kRows;
+        float x = s[j][e] * scale;
+        if (causal && query < key[h]) x = kNegInf;
+        x += bias[h];
+        const bool live = qpair == kpair[h] && query < tq && x > kNegInf * 0.5f;
+        s[j][e] = live ? __expf(x - lse[(size_t)(bh0 + qpair) * tq + query]) : 0.f;
+      }
+    }
+    if (!first) named_sync(4, 256);  // group 1 has read the last tile's P
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ex[(4 * j + e) * 128 + tid] = s[j][e];
+    }
+    named_arrive(3, 256);
+  } else {
+    named_sync(3, 256);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + 2 * t + (e & 1);
+        const float p = ex[(4 * j + e) * 128 + tid];
+        const float dl =
+            p != 0.f ? delta[(size_t)(bh0 + c / kRows) * tq + qt * kRows + c % kRows] : 0.f;
+        s[j][e] = p * (s[j][e] - dl) * scale;
+      }
+    }
+    named_arrive(4, 256);
+  }
+}
+
+// K2's per-tile dS, as the f32 and bf16 kernels form it (design note 2):
+// group 0 holds S and group 1 dP in s; they swap tiles through the
+// exchange as K1 wide's groups swap halves of S (barriers 3 and 4, one
+// wait a group), and both form the same dS = p (dP - delta) scale in s:
+// scale, causal -1e30, then the key bias, as _dq_kernel orders them; p = 0
+// where s <= -5e29 and where the key's pair is not the query's. The lane
+// holds queries query[h] (e >> 1 = h) of pairs qpair[h] against the keys
+// of columns 8j + 2t + (e & 1) of k-tile kt.
+template <int kRows>
+__device__ __forceinline__ void dq_terms(float (&s)[8][4], float* ex, int grp, int tid, int kt,
+                                         const int (&query)[2], const int (&qpair)[2],
+                                         const float (&row_lse)[2], const float (&row_delta)[2],
+                                         const uint8_t* mask, int bh0, int nbh, int heads,
+                                         int tk, float scale, int causal) {
+  const int t = tid & 3;
+  float o[8][4];  // the other group's tile
+  if (grp == 0) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ex[(4 * j + e) * 128 + tid] = s[j][e];
+    }
+    named_arrive(3, 256);
+    named_sync(4, 256);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] = ex[(4 * j + e) * 128 + tid];
+    }
+  } else {
+    named_sync(3, 256);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        o[j][e] = ex[(4 * j + e) * 128 + tid];
+        ex[(4 * j + e) * 128 + tid] = s[j][e];
+      }
+    }
+    named_arrive(4, 256);
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = 8 * j + 2 * t + (e & 1), h = e >> 1;
+      const int kpair = c / kRows, key = kt * kRows + c % kRows;
+      const float sv = grp == 0 ? s[j][e] : o[j][e];
+      const float dpv = grp == 0 ? o[j][e] : s[j][e];
+      float x = sv * scale;
+      if (causal && query[h] < key) x = kNegInf;
+      x += pair_key_bias(mask, bh0 + kpair, nbh, heads, key, tk);
+      const float p =
+          (x <= kNegInf * 0.5f || kpair != qpair[h]) ? 0.f : __expf(x - row_lse[h]);
+      s[j][e] = p * (dpv - row_delta[h]) * scale;
+    }
+  }
+}
+
+// The lane's rows of a 64-row tile of kRows-row tiles (K2: queries of
+// q-tile `tile`; K3: keys of k-tile `tile`): row 16 warp + g + 8h (h = e >>
+// 1 of its accumulator entries) is row[h] of (batch, head) pair bh0 +
+// pair[h].
+template <int kRows>
+struct TileRows {
+  int row[2], pair[2];
+  __device__ __forceinline__ TileRows(int tile, int tid) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = (tid >> 5) * 16 + ((tid & 31) >> 2) + 8 * h;
+      pair[h] = r / kRows;
+      row[h] = tile * kRows + r % kRows;
+    }
+  }
+};
 
 // K3 in f32 at wide head dims: dK and dV. Grid (ceil(BH / kPairs),
 // k-tiles of kRows keys, D / 256); a CTA walks the q-tiles from the causal
@@ -1273,7 +1001,7 @@ __global__ void __launch_bounds__(kFwdWideThreads, 1)
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* base = smem + (kSmemAlign - smem_addr(smem) % kSmemAlign) % kSmemAlign;
   const int grp = threadIdx.x >> 7, tid = threadIdx.x & 127;
-  const int warp = tid >> 5, lane = tid & 31, t = lane & 3;
+  const int t = tid & 3;
   float* ex = reinterpret_cast<float*>(base + 2 * kBwdWideStages * kChunkBytes);
   float* scratch = reinterpret_cast<float*>(base + 2 * kBwdWideStages * kChunkBytes +
                                             kExchangeBytes + grp * 2 * kChunkBytes);
@@ -1291,19 +1019,14 @@ __global__ void __launch_bounds__(kFwdWideThreads, 1)
   const float* a_src = (grp == 0 ? k : v) + bh0 * kv_stride;
   const float* b_src = (grp == 0 ? q : g) + bh0 * q_stride;
   const float* x_src = (grp == 0 ? g : q) + bh0 * q_stride;
-  // The lane's key rows (e >> 1 = h), their pairs and biases.
-  int key[2], kpair[2];
+  const TileRows<kRows> keys(kt, tid);
   float bias[2];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = warp * 16 + (lane >> 2) + 8 * h;
-    kpair[h] = r / kRows;
-    key[h] = kt * kRows + r % kRows;
-    bias[h] = pair_key_bias(mask, bh0 + kpair[h], nbh, heads, key[h], tk);
-  }
+  for (int h = 0; h < 2; ++h)
+    bias[h] = pair_key_bias(mask, bh0 + keys.pair[h], nbh, heads, keys.row[h], tk);
 
-  BwdRing ring{reinterpret_cast<float*>(base) + grp * kBwdWideStages * kChunkFloats, 0, 0,
-               tiles * per_tile};
+  BwdRing<> ring{reinterpret_cast<float*>(base) + grp * kBwdWideStages * kChunkFloats, 0, 0,
+                 tiles * per_tile};
   auto load = [&](int e) {
     const int q0 = (qt0 + e / per_tile) * kRows, r = e % per_tile;
     float* dst = ring.at(e);
@@ -1322,51 +1045,10 @@ __global__ void __launch_bounds__(kFwdWideThreads, 1)
 
   float acc[kMaxV * 4][4] = {};  // the group's 64 keys x 256 columns of dV or dK
   for (int i = 0; i < tiles; ++i) {
-    const int qt = qt0 + i;
     float s[8][4];
     scores_tf32(s, ring, scratch, nc, grp, tid, load);
-    // Lane holds keys key[h] (e >> 1 = h) against the queries of columns
-    // 8j + 2t + (e & 1) of the tile.
-    if (grp == 0) {
-      // P^T: scale, causal -1e30, then the key bias, as _dkv_kernel orders
-      // them; p = 0 where s <= -5e29, and where the query's pair is not the
-      // key's.
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = 8 * j + 2 * t + (e & 1), h = e >> 1;
-          const int qpair = c / kRows, query = qt * kRows + c % kRows;
-          float x = s[j][e] * scale;
-          if (causal && query < key[h]) x = kNegInf;
-          x += bias[h];
-          const bool live = qpair == kpair[h] && query < tq && x > kNegInf * 0.5f;
-          s[j][e] = live ? __expf(x - lse[(size_t)(bh0 + qpair) * tq + query]) : 0.f;
-        }
-      }
-      if (i > 0) named_sync(4, 256);  // group 1 has read the last tile's P
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) ex[(4 * j + e) * 128 + tid] = s[j][e];
-      }
-      named_arrive(3, 256);
-    } else {
-      // dS^T = p (dP^T - delta) scale.
-      named_sync(3, 256);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = 8 * j + 2 * t + (e & 1);
-          const float p = ex[(4 * j + e) * 128 + tid];
-          const float dl =
-              p != 0.f ? delta[(size_t)(bh0 + c / kRows) * tq + qt * kRows + c % kRows] : 0.f;
-          s[j][e] = p * (s[j][e] - dl) * scale;
-        }
-      }
-      named_arrive(4, 256);
-    }
+    dkv_terms<kRows>(s, ex, grp, tid, qt0 + i, i == 0, keys.row, keys.pair, bias, lse, delta,
+                     bh0, tq, scale, causal);
     add_products_tf32<kMaxV>(acc, s, ring, scratch, kMaxV, grp, tid, load);
   }
   if (grp == 0 && tiles > 0) named_sync(4, 256);  // group 1's last arrival
@@ -1374,8 +1056,8 @@ __global__ void __launch_bounds__(kFwdWideThreads, 1)
   float* out = grp == 0 ? dv : dk;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    if (kpair[h] >= pairs || key[h] >= tk) continue;
-    float* row = out + ((size_t)(bh0 + kpair[h]) * tk + key[h]) * d + slice0;
+    if (keys.pair[h] >= pairs || keys.row[h] >= tk) continue;
+    float* row = out + ((size_t)(bh0 + keys.pair[h]) * tk + keys.row[h]) * d + slice0;
 #pragma unroll
     for (int n = 0; n < kMaxV * 4; ++n)
       store2(row + 8 * n + 2 * t, acc[n][2 * h], acc[n][2 * h + 1]);
@@ -1398,7 +1080,7 @@ __global__ void __launch_bounds__(kFwdWideThreads, 1)
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* base = smem + (kSmemAlign - smem_addr(smem) % kSmemAlign) % kSmemAlign;
   const int grp = threadIdx.x >> 7, tid = threadIdx.x & 127;
-  const int warp = tid >> 5, lane = tid & 31, t = lane & 3;
+  const int t = tid & 3;
   float* ex = reinterpret_cast<float*>(base + 2 * kBwdWideStages * kChunkBytes);
   float* scratch = reinterpret_cast<float*>(base + 2 * kBwdWideStages * kChunkBytes +
                                             kExchangeBytes + grp * 2 * kChunkBytes);
@@ -1419,23 +1101,20 @@ __global__ void __launch_bounds__(kFwdWideThreads, 1)
   const float* a_src = (grp == 0 ? q : g) + bh0 * q_stride;
   const float* b_src = (grp == 0 ? k : v) + bh0 * kv_stride;
   const float* x_src = k + bh0 * kv_stride;
-  // The lane's query rows (e >> 1 = h): a row past tq or of a missing pair
-  // reads 0 (Q, dO, lse and delta), so its dS is 0, and is never written.
-  int query[2], qpair[2];
+  // A row past tq or of a missing pair reads 0 (Q, dO, lse and delta), so
+  // its dS is 0, and is never written.
+  const TileRows<kRows> rows(qt, tid);
   float row_lse[2], row_delta[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int r = warp * 16 + (lane >> 2) + 8 * h;
-    qpair[h] = r / kRows;
-    query[h] = qt * kRows + r % kRows;
-    const bool in = qpair[h] < pairs && query[h] < tq;
-    const size_t at = (size_t)(bh0 + qpair[h]) * tq + query[h];
+    const bool in = rows.pair[h] < pairs && rows.row[h] < tq;
+    const size_t at = (size_t)(bh0 + rows.pair[h]) * tq + rows.row[h];
     row_lse[h] = in ? lse[at] : 0.f;
     row_delta[h] = in ? delta[at] : 0.f;
   }
 
-  BwdRing ring{reinterpret_cast<float*>(base) + grp * kBwdWideStages * kChunkFloats, 0, 0,
-               nk * per_tile};
+  BwdRing<> ring{reinterpret_cast<float*>(base) + grp * kBwdWideStages * kChunkFloats, 0, 0,
+                 nk * per_tile};
   auto load = [&](int e) {
     const int k0 = e / per_tile * kRows, r = e % per_tile;
     float* dst = ring.at(e);
@@ -1454,65 +1133,350 @@ __global__ void __launch_bounds__(kFwdWideThreads, 1)
 
   float acc[kMaxV * 4][4] = {};  // the group's 64 rows x up to 256 columns of dQ
   for (int kt = 0; kt < nk; ++kt) {
-    float s[8][4], o[8][4];
+    float s[8][4];
     scores_tf32(s, ring, scratch, nc, grp, tid, load);
-    // S and dP through the exchange (K1 wide's protocol): o is the other
-    // group's tile.
-    if (grp == 0) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) ex[(4 * j + e) * 128 + tid] = s[j][e];
-      }
-      named_arrive(3, 256);
-      named_sync(4, 256);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[j][e] = ex[(4 * j + e) * 128 + tid];
-      }
-    } else {
-      named_sync(3, 256);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          o[j][e] = ex[(4 * j + e) * 128 + tid];
-          ex[(4 * j + e) * 128 + tid] = s[j][e];
-        }
-      }
-      named_arrive(4, 256);
-    }
-    // Scale, causal -1e30, then the key bias, as _dq_kernel orders them:
-    // dS = p (dP - delta) scale, p = 0 where s <= -5e29 and where the key's
-    // pair is not the query's. The lane holds queries query[h] against the
-    // keys of columns 8j + 2t + (e & 1).
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = 8 * j + 2 * t + (e & 1), h = e >> 1;
-        const int kpair = c / kRows, key = kt * kRows + c % kRows;
-        const float sv = grp == 0 ? s[j][e] : o[j][e];
-        const float dpv = grp == 0 ? o[j][e] : s[j][e];
-        float x = sv * scale;
-        if (causal && query[h] < key) x = kNegInf;
-        x += pair_key_bias(mask, bh0 + kpair, nbh, heads, key, tk);
-        const float p =
-            (x <= kNegInf * 0.5f || kpair != qpair[h]) ? 0.f : __expf(x - row_lse[h]);
-        s[j][e] = p * (dpv - row_delta[h]) * scale;
-      }
-    }
+    dq_terms<kRows>(s, ex, grp, tid, kt, rows.row, rows.pair, row_lse, row_delta, mask, bh0,
+                    nbh, heads, tk, scale, causal);
     add_products_tf32<kMaxV>(acc, s, ring, scratch, nv, grp, tid, load);
   }
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    if (qpair[h] >= pairs || query[h] >= tq) continue;
-    float* row = dq + ((size_t)(bh0 + qpair[h]) * tq + query[h]) * d + col0;
+    if (rows.pair[h] >= pairs || rows.row[h] >= tq) continue;
+    float* row = dq + ((size_t)(bh0 + rows.pair[h]) * tq + rows.row[h]) * d + col0;
 #pragma unroll
     for (int n = 0; n < kMaxV * 4; ++n) {
       if (n < nv * 4) store2(row + 8 * n + 2 * t, acc[n][2 * h], acc[n][2 * h + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K2 and K3 at wide head dims in bf16: flash_dq_wide and flash_dkv_wide, on
+// the f32 pair's data flow (two warpgroups over 64-row tiles, 8 KB chunks
+// streamed through a cp.async ring per group, K2's exchange and K3's
+// hand-off: dq_terms, dkv_terms) with bf16 wgmma for every product. Replace
+// _dq_kernel (:167) and _dkv_kernel (:222) of
+// shockwave_tpu/ops/flash_attention.py in bf16 at head dims above 256.
+//
+// Bound on an H100 SXM (989 bf16 TFLOP/s; 3.35 TB/s): at the bench shape
+// (4, 2048, 8, 512) causal, by operations, K2 206 GFLOP, 209 us; K3 275
+// GFLOP, 278 us. At the main shape (64, 32, 8, 512) key-padded, by bytes,
+// K2 84 MB, 25 us; K3 101 MB, 30 us.
+//
+// What held the first bf16 design (32-row CTAs of 4 warps and 256 output
+// columns on mma.sync) back, and what this one does:
+// 1. 32-row CTAs, two warps per 16 rows. Here a CTA is two warpgroups (256
+//    threads) over a 64-row tile, one CTA per SM; a group's 256 output
+//    columns (64 rows, f32) are 128 registers a thread. Up to T = 32,
+//    kRows = 32 packs two (batch, head) pairs into a tile, as in f32.
+// 2. Each score tile formed 2 x D / 256 = 4 times at D = 512 (each of two
+//    warps of 16 rows, and each CTA of 256 columns). Here K2 (a CTA per
+//    64-query tile and 512 columns of dQ): group 0 forms S = Q.K^T, group
+//    1 dP = dO.V^T, they swap tiles through the 16 KB f32 exchange and
+//    both form the same dS; each owns 256 columns of dQ, so at D <= 512
+//    each score tile is formed once per CTA. K3 (a CTA per 64-key tile and
+//    256 columns of dK and dV): group 0 forms S^T = K.Q^T, turns it into P^T and owns dV (dV
+//    += P^T.dO); it hands P, in f32 as _dkv_kernel keeps it, to group 1,
+//    which forms dP^T = V.dO^T and owns dK (dK += dS^T.Q): each score tile
+//    is formed D / 256 times (2 at D = 512), since no register file holds
+//    512 columns of both dK and dV.
+// 3. mma.sync from ldmatrix fragments, and the second product's operand
+//    (K2: K; K3: Q and dO) copied a second time into a slice buffer. Here
+//    every product is bf16 wgmma m64n64k16. The scores take both operands
+//    K-major from swizzled chunks through descriptors (wgmma_ss), four
+//    wgmma a chunk. The output products take dS, P^T or dS^T from
+//    registers (the score accumulators repacked into A fragments,
+//    accum_to_a, as K1 wide hands P to P.V) and B, 64 reduction rows x 64
+//    columns, straight from the ring chunk of K (K2), dO or Q (K3),
+//    row-major, through an MN-major descriptor (wgmma_rs): nothing is
+//    staged, nothing transposed. Each tile's part of each 64-column output
+//    chunk is summed from zero and added in f32 (the tensor cores' f32
+//    accumulation truncates).
+// 4. Two __syncthreads per 64-column chunk. Here a chunk is 64 rows x 64
+//    bf16 (8 KB), and a group waits once per step, on its own named
+//    barrier, when the step's chunks have landed (BwdRing), plus once per
+//    tile pair on the exchange. The score's A operands (K2: Q and dO; K3:
+//    K and V) do not change across a CTA's loop: at the 64-row tile, where
+//    both groups' 64 x D tiles fit beside the rings (D = 512: 128 KB;
+//    kResident), a CTA copies them once and they stay, and a score step
+//    takes one chunk (a ring of 4); elsewhere they stream beside the B
+//    chunks, two chunks a step (a ring of 8). The 32-row tile runs up to T
+//    = 32, one tile pair a CTA, where a tile that stays saves no traffic.
+//    At the bench shape K2 then moves 1,024 CTAs x 16.5 k-tiles x 2 groups
+//    x 96 KB = 3.2 GB from L2 into shared memory (streamed: 5.4 GB), K3
+//    2,048 x 16.5 x 192 KB = 6.5 GB (10.8). A tile's CTAs of other columns
+//    sit side by side in grid x, so that they run together and share
+//    their operands' reads in L2. Measured on an H100 and dropped
+//    (PERF.md): the A tiles streamed at D = 512 (K2 1.17x, K3 1.28x slower
+//    at the bench shape); the column CTAs in grid z (K3 1.2x slower at
+//    the main shape); the score steps' wgmma left in flight across the
+//    next step's wait (1-3% faster at the bench shape, 1.5-2% slower at
+//    the main shape); two output parts in turn (K2 5% slower at the main
+//    shape).
+// 5. The masking, the guard p = 0 where s <= -5e29, the order (scale,
+//    causal -1e30, key bias) and the pair test are the f32 pair's; rows
+//    past a ragged end or of a missing pair read 0 and are never written.
+// Shared memory: 1 KB of alignment, the exchange, two rings and, where they
+// stay, the A tiles: 214,016 bytes at D = 512 (kResident), 148,480
+// streamed; one CTA of 8 warps per SM (a thread's registers allow no
+// second).
+// ---------------------------------------------------------------------------
+constexpr int kBwdBf16Cols = 64;  // bf16 columns of a chunk
+
+// Ring chunks per group: 4 where a score step takes one chunk (A resident),
+// 8 where it takes two (a two-chunk step needs 4 at least).
+template <bool kResident>
+constexpr int kBwdBf16Stages = kResident ? 4 : 8;
+
+// The CTA's dynamic shared bytes at head dim d.
+template <bool kResident>
+__host__ __device__ constexpr size_t bwd_wide_bf16_smem(int d) {
+  return kSmemAlign + kExchangeBytes + 2 * kBwdBf16Stages<kResident> * kChunkBytes +
+         (kResident ? (size_t)2 * kFwdWideRows * d * sizeof(bf16) : 0);
+}
+
+// Whether both groups' 64 x d A tiles stay in shared memory: at the
+// 64-row tile, where they fit (d = 512; design note 4).
+template <int kRows>
+constexpr bool kMayStay = kRows == kFwdWideRows;
+
+template <int kRows>
+__host__ __device__ constexpr bool bwd_wide_bf16_resident(int d) {
+  return kMayStay<kRows> && bwd_wide_bf16_smem<true>(d) <= kMaxSmemPerCta;
+}
+
+// s (the group's 64 x 64 score tile) = A.B^T over the full contraction, a
+// step per 64 columns: chunk c of the A rows (resident at a + c chunks, or
+// the ring chunk before B's) and chunk c of the B rows.
+template <bool kResident, typename Ring, typename Load>
+__device__ __forceinline__ void scores_bf16(float (&s)[8][4], Ring& ring, const bf16* a, int nc,
+                                            int grp, const Load& load) {
+  constexpr int kPer = kResident ? 1 : 2;  // ring chunks a step takes
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+  }
+  for (int c = 0; c < nc; ++c) {
+    ring.acquire(kPer, grp, load);
+    scores_chunk_wgmma(s, kResident ? a + c * (kChunkBytes / 2) : ring.at(ring.next),
+                       ring.at(ring.next + kPer - 1));
+    ring.next += kPer;
+  }
+}
+
+// acc (the group's 64 rows x 64 nv columns) += A.X over the tile's 64
+// reduction rows: A the 64 x 64 accumulator tile a (P^T, dS^T or dS) in
+// bf16, X the next nv ring chunks (64 rows x 64 columns each, MN-major),
+// each chunk's part summed from zero and added in f32.
+template <int kMaxV, typename Ring, typename Load>
+__device__ __forceinline__ void add_products_bf16(float (&acc)[kMaxV * 8][4],
+                                                  const float (&a)[8][4], Ring& ring, int nv,
+                                                  int grp, const Load& load) {
+  uint32_t pa[4][4];  // a's A fragments, 16 reduction rows each
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) accum_to_a(pa[kk], a[2 * kk], a[2 * kk + 1]);
+#pragma unroll
+  for (int vc = 0; vc < kMaxV; ++vc) {
+    if (vc < nv) {
+      ring.acquire(1, grp, load);
+      float part[8][4] = {};
+      pv_chunk_wgmma(part, pa, ring.at(ring.next));
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[vc * 8 + j][e] += part[j][e];
+      }
+      ++ring.next;
+    }
+  }
+}
+
+// K3 in bf16 at wide head dims: dK and dV. Grid (ceil(BH / kPairs) x D /
+// 256, k-tiles of kRows keys), a tile's 256-column slices side by side in
+// x; a CTA walks the q-tiles from the causal diagonal on.
+template <int kRows, bool kResident>
+__global__ void __launch_bounds__(kFwdWideThreads, 1)
+    flash_dkv_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ g,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          const uint8_t* __restrict__ mask, bf16* __restrict__ dk,
+                          bf16* __restrict__ dv, int nbh, int heads, int tq, int tk, int d,
+                          float scale, int causal) {
+  constexpr int kPairs = kFwdWideRows / kRows;
+  constexpr int kMaxV = kWideSlice / kBwdBf16Cols;
+  constexpr int kS = kBwdBf16Stages<kResident>, kPer = kResident ? 1 : 2;
+  constexpr int kChunkElems = kChunkBytes / 2;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* base = smem + (kSmemAlign - smem_addr(smem) % kSmemAlign) % kSmemAlign;
+  const int grp = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int t = tid & 3;
+  const int nc = d / kBwdBf16Cols;  // contraction chunks per q-tile
+  float* ex = reinterpret_cast<float*>(base + 2 * kS * kChunkBytes);
+  bf16* sA = reinterpret_cast<bf16*>(base + 2 * kS * kChunkBytes + kExchangeBytes) +
+             grp * nc * kChunkElems;  // the group's A tile, where it stays
+
+  const int slices = d / kWideSlice;  // a tile's CTAs, side by side in x
+  const int bh0 = blockIdx.x / slices * kPairs, pairs = min(kPairs, nbh - bh0);
+  const int kt = blockIdx.y;
+  const int slice0 = blockIdx.x % slices * kWideSlice;
+  const int per_tile = kPer * nc + kMaxV;
+  const int qt0 = causal ? kt : 0;  // q-tiles above the diagonal see none of these keys
+  const int tiles = max((tq + kRows - 1) / kRows - qt0, 0);
+  // Group 0: S^T = K.Q^T, then dV += P^T.dO; group 1: dP^T = V.dO^T, then
+  // dK += dS^T.Q.
+  const size_t q_stride = (size_t)tq * d, kv_stride = (size_t)tk * d;
+  const bf16* a_src = (grp == 0 ? k : v) + bh0 * kv_stride;
+  const bf16* b_src = (grp == 0 ? q : g) + bh0 * q_stride;
+  const bf16* x_src = (grp == 0 ? g : q) + bh0 * q_stride;
+  const TileRows<kRows> keys(kt, tid);
+  float bias[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    bias[h] = pair_key_bias(mask, bh0 + keys.pair[h], nbh, heads, keys.row[h], tk);
+
+  BwdRing<bf16, kS> ring{reinterpret_cast<bf16*>(base) + grp * kS * kChunkElems, 0, 0,
+                         tiles * per_tile};
+  // Chunk e: of q-tile qt0 + e / per_tile, the score steps' chunks (A
+  // streamed: A then B), then the output steps' X chunks of the slice.
+  auto load = [&](int e) {
+    const int q0 = (qt0 + e / per_tile) * kRows, r = e % per_tile;
+    bf16* dst = ring.at(e);
+    if (r >= kPer * nc)
+      copy_chunk_pairs<kRows>(dst, x_src, q_stride, pairs, q0, tq, d,
+                              slice0 + (r - kPer * nc) * kBwdBf16Cols, tid);
+    else if (!kResident && r % 2 == 0)
+      copy_chunk_pairs<kRows>(dst, a_src, kv_stride, pairs, kt * kRows, tk, d,
+                              r / 2 * kBwdBf16Cols, tid);
+    else
+      copy_chunk_pairs<kRows>(dst, b_src, q_stride, pairs, q0, tq, d,
+                              r / kPer * kBwdBf16Cols, tid);
+    cp_async_commit();
+  };
+  if (kResident && tiles > 0) {  // landed by the first step's wait: it is older
+    for (int c = 0; c < nc; ++c)
+      copy_chunk_pairs<kRows>(sA + c * kChunkElems, a_src, kv_stride, pairs, kt * kRows, tk, d,
+                              c * kBwdBf16Cols, tid);
+    cp_async_commit();
+  }
+  ring.start(load);
+
+  float acc[kMaxV * 8][4] = {};  // the group's 64 keys x 256 columns of dV or dK
+  for (int i = 0; i < tiles; ++i) {
+    float s[8][4];
+    scores_bf16<kResident>(s, ring, sA, nc, grp, load);
+    dkv_terms<kRows>(s, ex, grp, tid, qt0 + i, i == 0, keys.row, keys.pair, bias, lse, delta,
+                     bh0, tq, scale, causal);
+    add_products_bf16<kMaxV>(acc, s, ring, kMaxV, grp, load);
+  }
+  if (grp == 0 && tiles > 0) named_sync(4, 256);  // group 1's last arrival
+
+  bf16* out = grp == 0 ? dv : dk;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (keys.pair[h] >= pairs || keys.row[h] >= tk) continue;
+    bf16* row = out + ((size_t)(bh0 + keys.pair[h]) * tk + keys.row[h]) * d + slice0;
+#pragma unroll
+    for (int n = 0; n < kMaxV * 8; ++n)
+      store2(row + 8 * n + 2 * t, acc[n][2 * h], acc[n][2 * h + 1]);
+  }
+}
+
+// K2 in bf16 at wide head dims: dQ. Grid (ceil(BH / kPairs) x ceil(D /
+// 512), q-tiles of kRows queries), a tile's 512-column slices side by
+// side in x, heaviest causal tile first.
+template <int kRows, bool kResident>
+__global__ void __launch_bounds__(kFwdWideThreads, 1)
+    flash_dq_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ g,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         const uint8_t* __restrict__ mask, bf16* __restrict__ dq, int nbh,
+                         int heads, int tq, int tk, int d, float scale, int causal) {
+  constexpr int kPairs = kFwdWideRows / kRows;
+  constexpr int kMaxV = kFwdWideSlice / 2 / kBwdBf16Cols;  // output chunks a group owns
+  constexpr int kS = kBwdBf16Stages<kResident>, kPer = kResident ? 1 : 2;
+  constexpr int kChunkElems = kChunkBytes / 2;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* base = smem + (kSmemAlign - smem_addr(smem) % kSmemAlign) % kSmemAlign;
+  const int grp = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int t = tid & 3;
+  const int nc = d / kBwdBf16Cols;  // contraction chunks per k-tile
+  float* ex = reinterpret_cast<float*>(base + 2 * kS * kChunkBytes);
+  bf16* sA = reinterpret_cast<bf16*>(base + 2 * kS * kChunkBytes + kExchangeBytes) +
+             grp * nc * kChunkElems;  // the group's A tile, where it stays
+
+  const int slices = (d + kFwdWideSlice - 1) / kFwdWideSlice;  // a tile's CTAs, side by side
+  const int bh0 = blockIdx.x / slices * kPairs, pairs = min(kPairs, nbh - bh0);
+  const int qt = gridDim.y - 1 - blockIdx.y;  // causal: the longest k loops start first
+  const int slice0 = blockIdx.x % slices * kFwdWideSlice;
+  // A resident A tile means D = 512: every CTA owns 512 columns.
+  const int half = kResident ? kFwdWideSlice / 2 : min(kFwdWideSlice, d - slice0) / 2;
+  const int col0 = slice0 + grp * half;
+  const int nv = half / kBwdBf16Cols;  // output chunks a group takes per k-tile
+  const int per_tile = kPer * nc + nv;
+  int nk = (tk + kRows - 1) / kRows;
+  if (causal) nk = min(nk, qt + 1);  // k-tiles past the diagonal see nothing
+  // Group 0: S = Q.K^T; group 1: dP = dO.V^T; both then dQ += dS.K over
+  // their own columns.
+  const size_t q_stride = (size_t)tq * d, kv_stride = (size_t)tk * d;
+  const bf16* a_src = (grp == 0 ? q : g) + bh0 * q_stride;
+  const bf16* b_src = (grp == 0 ? k : v) + bh0 * kv_stride;
+  const bf16* x_src = k + bh0 * kv_stride;
+  // A row past tq or of a missing pair reads 0 (Q, dO, lse and delta), so
+  // its dS is 0, and is never written.
+  const TileRows<kRows> rows(qt, tid);
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool in = rows.pair[h] < pairs && rows.row[h] < tq;
+    const size_t at = (size_t)(bh0 + rows.pair[h]) * tq + rows.row[h];
+    row_lse[h] = in ? lse[at] : 0.f;
+    row_delta[h] = in ? delta[at] : 0.f;
+  }
+
+  BwdRing<bf16, kS> ring{reinterpret_cast<bf16*>(base) + grp * kS * kChunkElems, 0, 0,
+                         nk * per_tile};
+  // Chunk e: of k-tile e / per_tile, the score steps' chunks (A streamed: A
+  // then B), then the output steps' K chunks of the group's columns.
+  auto load = [&](int e) {
+    const int k0 = e / per_tile * kRows, r = e % per_tile;
+    bf16* dst = ring.at(e);
+    if (r >= kPer * nc)
+      copy_chunk_pairs<kRows>(dst, x_src, kv_stride, pairs, k0, tk, d,
+                              col0 + (r - kPer * nc) * kBwdBf16Cols, tid);
+    else if (!kResident && r % 2 == 0)
+      copy_chunk_pairs<kRows>(dst, a_src, q_stride, pairs, qt * kRows, tq, d,
+                              r / 2 * kBwdBf16Cols, tid);
+    else
+      copy_chunk_pairs<kRows>(dst, b_src, kv_stride, pairs, k0, tk, d,
+                              r / kPer * kBwdBf16Cols, tid);
+    cp_async_commit();
+  };
+  if (kResident) {  // landed by the first step's wait: it is older
+    for (int c = 0; c < nc; ++c)
+      copy_chunk_pairs<kRows>(sA + c * kChunkElems, a_src, q_stride, pairs, qt * kRows, tq, d,
+                              c * kBwdBf16Cols, tid);
+    cp_async_commit();
+  }
+  ring.start(load);
+
+  float acc[kMaxV * 8][4] = {};  // the group's 64 rows x up to 256 columns of dQ
+  for (int kt = 0; kt < nk; ++kt) {
+    float s[8][4];
+    scores_bf16<kResident>(s, ring, sA, nc, grp, load);
+    dq_terms<kRows>(s, ex, grp, tid, kt, rows.row, rows.pair, row_lse, row_delta, mask, bh0,
+                    nbh, heads, tk, scale, causal);
+    add_products_bf16<kMaxV>(acc, s, ring, nv, grp, load);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (rows.pair[h] >= pairs || rows.row[h] >= tq) continue;
+    bf16* row = dq + ((size_t)(bh0 + rows.pair[h]) * tq + rows.row[h]) * d + col0;
+#pragma unroll
+    for (int n = 0; n < kMaxV * 8; ++n) {
+      if (n < nv * 8) store2(row + 8 * n + 2 * t, acc[n][2 * h], acc[n][2 * h + 1]);
     }
   }
 }
@@ -1551,45 +1515,73 @@ int launch_fwd_wide(const void* q, const void* k, const void* v, const void* mas
                                            causal, stream);
 }
 
-template <int kBlock>
-int launch_dq_wide(const void* q, const void* k, const void* v, const void* g, const void* lse,
-                   const void* delta, const void* mask, void* dq, int bh, int heads, int tq,
-                   int tk, int d, float scale, int causal, cudaStream_t stream) {
-  using Shape = WideShape<bf16, kBlock>;
-  constexpr size_t kSmem = Shape::template smem_bytes<4, 1, 1>();
-  static bool configured[kMaxDevices] = {};
-  cudaError_t err = set_smem(flash_dq_wide_kernel<bf16, kBlock>, kSmem, configured);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(bh, (tq + kBlock - 1) / kBlock, d / kWideSlice);
-  flash_dq_wide_kernel<bf16, kBlock><<<grid, Shape::kCtaThreads, kSmem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(g), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const uint8_t*>(mask),
-      static_cast<bf16*>(dq), heads, tq, tk, d, scale, causal);
-  return (int)cudaGetLastError();
-}
-
-template <int kBlock>
-int launch_dkv_wide(const void* q, const void* k, const void* v, const void* g, const void* lse,
-                    const void* delta, const void* mask, void* dk, void* dv, int bh, int heads,
-                    int tq, int tk, int d, float scale, int causal, cudaStream_t stream) {
-  using Shape = WideShape<bf16, kBlock>;
-  constexpr size_t kSmem = Shape::template smem_bytes<4, 2, 2>();
-  static bool configured[kMaxDevices] = {};
-  cudaError_t err = set_smem(flash_dkv_wide_kernel<bf16, kBlock>, kSmem, configured);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(bh, (tk + kBlock - 1) / kBlock, d / kWideSlice);
-  flash_dkv_wide_kernel<bf16, kBlock><<<grid, Shape::kCtaThreads, kSmem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(g), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const uint8_t*>(mask),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), heads, tq, tk, d, scale, causal);
-  return (int)cudaGetLastError();
-}
-
-// The f32 K2 and K3 wide tiles: 64 rows of one (batch, head) pair, or 32
+// K2 and K3 wide, both dtypes: 64 rows of one (batch, head) pair, or 32
 // rows of each of two.
-bool bwd_wide_f32_tile(int tile) { return tile == kFwdWideRows || tile == kFwdWideRows / 2; }
+bool bwd_wide_tile(int tile) { return tile == kFwdWideRows || tile == kFwdWideRows / 2; }
+
+template <int kRows, bool kResident>
+int launch_dq_wide_as(const void* q, const void* k, const void* v, const void* g, const void* lse,
+                      const void* delta, const void* mask, void* dq, int bh, int heads, int tq,
+                      int tk, int d, float scale, int causal, cudaStream_t stream) {
+  static bool configured[kMaxDevices] = {};
+  cudaError_t err = set_smem(flash_dq_wide_kernel<kRows, kResident>, kMaxSmemPerCta, configured);
+  if (err != cudaSuccess) return (int)err;
+  constexpr int kPairs = kFwdWideRows / kRows;
+  const dim3 grid((bh + kPairs - 1) / kPairs * ((d + kFwdWideSlice - 1) / kFwdWideSlice),
+                  (tq + kRows - 1) / kRows);
+  const size_t smem = bwd_wide_bf16_smem<kResident>(d);
+  flash_dq_wide_kernel<kRows, kResident><<<grid, kFwdWideThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(g), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const uint8_t*>(mask),
+      static_cast<bf16*>(dq), bh, heads, tq, tk, d, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+// K2 wide in bf16 at tile kRows, the A tiles resident where they stay.
+template <int kRows>
+int launch_dq_wide_of(const void* q, const void* k, const void* v, const void* g,
+                      const void* lse, const void* delta, const void* mask, void* dq, int bh,
+                      int heads, int tq, int tk, int d, float scale, int causal,
+                      cudaStream_t stream) {
+  const auto launch = bwd_wide_bf16_resident<kRows>(d)
+                          ? launch_dq_wide_as<kRows, kMayStay<kRows>>
+                          : launch_dq_wide_as<kRows, false>;
+  return launch(q, k, v, g, lse, delta, mask, dq, bh, heads, tq, tk, d, scale, causal, stream);
+}
+
+template <int kRows, bool kResident>
+int launch_dkv_wide_as(const void* q, const void* k, const void* v, const void* g,
+                       const void* lse, const void* delta, const void* mask, void* dk, void* dv,
+                       int bh, int heads, int tq, int tk, int d, float scale, int causal,
+                       cudaStream_t stream) {
+  static bool configured[kMaxDevices] = {};
+  cudaError_t err =
+      set_smem(flash_dkv_wide_kernel<kRows, kResident>, kMaxSmemPerCta, configured);
+  if (err != cudaSuccess) return (int)err;
+  constexpr int kPairs = kFwdWideRows / kRows;
+  const dim3 grid((bh + kPairs - 1) / kPairs * (d / kWideSlice), (tk + kRows - 1) / kRows);
+  const size_t smem = bwd_wide_bf16_smem<kResident>(d);
+  flash_dkv_wide_kernel<kRows, kResident><<<grid, kFwdWideThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(g), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const uint8_t*>(mask),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), bh, heads, tq, tk, d, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+// K3 wide in bf16 at tile kRows, the A tiles resident where they stay.
+template <int kRows>
+int launch_dkv_wide_of(const void* q, const void* k, const void* v, const void* g,
+                       const void* lse, const void* delta, const void* mask, void* dk, void* dv,
+                       int bh, int heads, int tq, int tk, int d, float scale, int causal,
+                       cudaStream_t stream) {
+  const auto launch = bwd_wide_bf16_resident<kRows>(d)
+                          ? launch_dkv_wide_as<kRows, kMayStay<kRows>>
+                          : launch_dkv_wide_as<kRows, false>;
+  return launch(q, k, v, g, lse, delta, mask, dk, dv, bh, heads, tq, tk, d, scale, causal,
+                stream);
+}
 
 template <int kRows, bool kWhole>
 int launch_dq_wide_f32_as(const void* q, const void* k, const void* v, const void* g,
@@ -1640,34 +1632,42 @@ int launch_dkv_wide_f32_as(const void* q, const void* k, const void* v, const vo
   return (int)cudaGetLastError();
 }
 
-// Kernels 6 and 9 (K1 wide in bf16 and f32) at head dim d, the instance
-// that d takes. The query sets the kernel's shared-memory opt-in to d's
-// bytes; it is put back to the most a CTA may take, which the launcher
-// relies on.
-template <typename T, bool kQResident>
-int occupancy_of_fwd_wide_as(int d, int* out) {
-  const auto kernel = flash_fwd_wide_kernel<T, kQResident>;
-  const int err = occupancy(kernel, kFwdWideThreads, fwd_wide_smem<T, kQResident>(d), out);
+// The occupancy of a wide kernel that takes `smem` bytes (its shared bytes
+// at the head dim asked about). The query sets the kernel's shared-memory
+// opt-in to those bytes; it is put back to the most a CTA may take, which
+// the launchers rely on.
+template <typename Kernel>
+int occupancy_restoring(Kernel kernel, size_t smem, int* out) {
+  const int err = occupancy(kernel, kFwdWideThreads, smem, out);
   if (err != 0) return err;
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    kMaxSmemPerCta);
 }
 
+// Kernels 6 and 9 (K1 wide in bf16 and f32) at head dim d, the instance
+// that d takes.
 template <typename T>
 int occupancy_of_fwd_wide(int d, int* out) {
-  return fwd_wide_q_resident<T>(d) ? occupancy_of_fwd_wide_as<T, true>(d, out)
-                                   : occupancy_of_fwd_wide_as<T, false>(d, out);
+  return fwd_wide_q_resident<T>(d)
+             ? occupancy_restoring(flash_fwd_wide_kernel<T, true>, fwd_wide_smem<T, true>(d), out)
+             : occupancy_restoring(flash_fwd_wide_kernel<T, false>, fwd_wide_smem<T, false>(d),
+                                   out);
 }
 
-// Kernels 7-8 (K2-K3 wide in bf16).
-int occupancy_of_wide_bf16(int kernel, int* out) {
-  using Shape = WideShape<bf16, kWideTileBf16>;
-  constexpr int kThr = Shape::kCtaThreads;
-  if (kernel == 7)
-    return occupancy(flash_dq_wide_kernel<bf16, kWideTileBf16>, kThr,
-                     Shape::template smem_bytes<4, 1, 1>(), out);
-  return occupancy(flash_dkv_wide_kernel<bf16, kWideTileBf16>, kThr,
-                   Shape::template smem_bytes<4, 2, 2>(), out);
+// Kernels 7-8 (K2-K3 wide in bf16) at head dim d and a tile of kRows rows
+// a pair, the instance that d takes.
+template <int kRows, bool kResident>
+int occupancy_of_wide_bf16_as(int kernel, int d, int* out) {
+  const size_t smem = bwd_wide_bf16_smem<kResident>(d);
+  return kernel == 7 ? occupancy_restoring(flash_dq_wide_kernel<kRows, kResident>, smem, out)
+                     : occupancy_restoring(flash_dkv_wide_kernel<kRows, kResident>, smem, out);
+}
+
+template <int kRows>
+int occupancy_of_wide_bf16(int kernel, int d, int* out) {
+  return bwd_wide_bf16_resident<kRows>(d)
+             ? occupancy_of_wide_bf16_as<kRows, kMayStay<kRows>>(kernel, d, out)
+             : occupancy_of_wide_bf16_as<kRows, false>(kernel, d, out);
 }
 
 // Kernels 10-11 (K2-K3 wide in f32) at a tile of kRows rows a pair (K2's
@@ -1689,9 +1689,10 @@ int wide_occupancy(int kernel, int d, int tile, int* out) {
     if (tile != kFwdWideRows) return (int)cudaErrorInvalidValue;
     return f32 ? occupancy_of_fwd_wide<float>(d, out) : occupancy_of_fwd_wide<bf16>(d, out);
   }
-  if (!f32) return tile == kWideTileBf16 ? occupancy_of_wide_bf16(kernel, out)
-                                         : (int)cudaErrorInvalidValue;
-  if (!bwd_wide_f32_tile(tile)) return (int)cudaErrorInvalidValue;
+  if (!bwd_wide_tile(tile)) return (int)cudaErrorInvalidValue;
+  if (!f32)
+    return tile == kFwdWideRows ? occupancy_of_wide_bf16<kFwdWideRows>(kernel, d, out)
+                                : occupancy_of_wide_bf16<kFwdWideRows / 2>(kernel, d, out);
   return tile == kFwdWideRows ? occupancy_of_wide_f32<kFwdWideRows>(kernel, out)
                               : occupancy_of_wide_f32<kFwdWideRows / 2>(kernel, out);
 }
@@ -1701,8 +1702,8 @@ int wide_occupancy(int kernel, int d, int tile, int* out) {
 extern "C" {
 
 // The wide instances of K1-K3 (any multiple of 256 above 256 as d; tile
-// 64 for K1, 32 for K2 and K3 in bf16, 64 or 32 (two pairs a CTA) for K2
-// and K3 in f32), with the narrow entries' arguments (flash_attention.cu).
+// 64 for K1, 64 or 32 (two pairs a CTA) for K2 and K3), with the narrow
+// entries' arguments (flash_attention.cu).
 int swt_flash_fwd_wide(const void* q, const void* k, const void* v, const void* mask, void* out,
                        void* lse, int bh, int heads, int tq, int tk, int d, int tile, float scale,
                        int causal, int device, void* stream) {
@@ -1719,9 +1720,11 @@ int swt_flash_dq_wide(const void* q, const void* k, const void* v, const void* g
                       void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (!wide_head_dim(d) || tile != kWideTileBf16) return (int)cudaErrorInvalidValue;
-  return launch_dq_wide<kWideTileBf16>(q, k, v, g, lse, delta, mask, dq, bh, heads, tq, tk, d,
-                                       scale, causal, static_cast<cudaStream_t>(stream));
+  if (!wide_head_dim(d) || !bwd_wide_tile(tile)) return (int)cudaErrorInvalidValue;
+  const auto launch = tile == kFwdWideRows ? launch_dq_wide_of<kFwdWideRows>
+                                           : launch_dq_wide_of<kFwdWideRows / 2>;
+  return launch(q, k, v, g, lse, delta, mask, dq, bh, heads, tq, tk, d, scale, causal,
+                static_cast<cudaStream_t>(stream));
 }
 
 int swt_flash_dkv_wide(const void* q, const void* k, const void* v, const void* g,
@@ -1730,9 +1733,11 @@ int swt_flash_dkv_wide(const void* q, const void* k, const void* v, const void* 
                        int causal, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (!wide_head_dim(d) || tile != kWideTileBf16) return (int)cudaErrorInvalidValue;
-  return launch_dkv_wide<kWideTileBf16>(q, k, v, g, lse, delta, mask, dk, dv, bh, heads, tq, tk,
-                                        d, scale, causal, static_cast<cudaStream_t>(stream));
+  if (!wide_head_dim(d) || !bwd_wide_tile(tile)) return (int)cudaErrorInvalidValue;
+  const auto launch = tile == kFwdWideRows ? launch_dkv_wide_of<kFwdWideRows>
+                                           : launch_dkv_wide_of<kFwdWideRows / 2>;
+  return launch(q, k, v, g, lse, delta, mask, dk, dv, bh, heads, tq, tk, d, scale, causal,
+                static_cast<cudaStream_t>(stream));
 }
 
 int swt_flash_fwd_wide_f32(const void* q, const void* k, const void* v, const void* mask,
@@ -1751,7 +1756,7 @@ int swt_flash_dq_wide_f32(const void* q, const void* k, const void* v, const voi
                           int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (!wide_head_dim(d) || !bwd_wide_f32_tile(tile)) return (int)cudaErrorInvalidValue;
+  if (!wide_head_dim(d) || !bwd_wide_tile(tile)) return (int)cudaErrorInvalidValue;
   const auto launch = tile == kFwdWideRows ? launch_dq_wide_f32_of<kFwdWideRows>
                                            : launch_dq_wide_f32_of<kFwdWideRows / 2>;
   return launch(q, k, v, g, lse, delta, mask, dq, bh, heads, tq, tk, d, scale, causal,
@@ -1764,7 +1769,7 @@ int swt_flash_dkv_wide_f32(const void* q, const void* k, const void* v, const vo
                            float scale, int causal, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (!wide_head_dim(d) || !bwd_wide_f32_tile(tile)) return (int)cudaErrorInvalidValue;
+  if (!wide_head_dim(d) || !bwd_wide_tile(tile)) return (int)cudaErrorInvalidValue;
   const auto launch = tile == kFwdWideRows ? launch_dkv_wide_f32_as<kFwdWideRows>
                                            : launch_dkv_wide_f32_as<kFwdWideRows / 2>;
   return launch(q, k, v, g, lse, delta, mask, dk, dv, bh, heads, tq, tk, d, scale, causal,

@@ -33,18 +33,16 @@ kernels compute in f32: every f32 instance runs 3xTF32 products on the
 tensor cores (each operand split into two TF32 parts, three products
 summed in f32). One-pass TF32 is off, as the port keeps it everywhere.
 Neither dtype is cast to the other. Any other dtype raises on the card.
-The narrow instances and bf16 K2 and K3 wide issue `mma.sync` (m16n8k16
-in bf16, m16n8k8 in TF32); K1 wide in both dtypes and K2 and K3 wide in
-f32 issue `wgmma` (m64nNk16 in bf16, m64nNk8 in TF32) from two
-warpgroups over 64-row tiles.
+The narrow instances issue `mma.sync` (m16n8k16 in bf16, m16n8k8 in
+TF32); the wide ones, K1-K3 in both dtypes, issue `wgmma` (m64nNk16 in
+bf16, m64nNk8 in TF32) from two warpgroups over 64-row tiles.
 
 The kernels are built for head dims 32, 64, 128 and 256
 (`KERNEL_HEAD_DIMS`); above 256 each kernel has a wide instance
 (`flash_fwd_wide`, `flash_dq_wide`, `flash_dkv_wide`, each in bf16 and
-f32) that takes any multiple of 256 at run time: K1's CTAs and K2's in
-f32 own 64 rows and up to 512 output columns, K3's in f32 64 keys and a
-256-column slice of dK and dV, K2's and K3's in bf16 32 rows and a
-256-column slice. `flash_attention` zero-pads q, k and v
+f32) that takes any multiple of 256 at run time: K1's and K2's CTAs own
+64 rows and up to 512 output columns, K3's 64 keys and a 256-column slice
+of dK and dV. `flash_attention` zero-pads q, k and v
 along the head dim to `kernel_head_dim(d)` (the smallest of
 `KERNEL_HEAD_DIMS` that holds d; 257-512 to 512, wider ones to the next
 multiple of 256) on every device, as the reference pads to its sublane
@@ -99,13 +97,12 @@ KERNEL_TILES = {(name + suffix, d): ((16, 32 if d == 256 else 64, 64) if suffix
                 for d in KERNEL_HEAD_DIMS}
 # The wide instances' tiles in KERNEL_TILES' form (short, long, the
 # longest sequence that takes the short tile). K1's is 64 rows in both
-# dtypes (a wgmma's 64 rows; two warpgroups, csrc/flash_attention_wide.cu)
-# and K2's and K3's in bf16 32 at any length. K2 and K3 in f32 take 64 rows
-# (64 queries of K2, 64 keys of K3, on wgmma like K1) and, up to T = 32,
-# 32 rows of each of two (batch, head) pairs packed into one 64-row tile,
-# so that a sequence of 32 fills it: half the CTAs of 64-row tiles there.
-WIDE_TILES = {name: (64, 64, 64) if name.startswith("flash_fwd")
-              else (32, 64, 32) if name.endswith("_f32") else (32, 32, 32)
+# dtypes (a wgmma's 64 rows; two warpgroups, csrc/flash_attention_wide.cu).
+# K2 and K3 in both dtypes take 64 rows (64 queries of K2, 64 keys of K3,
+# on wgmma like K1) and, up to T = 32, 32 rows of each of two (batch, head)
+# pairs packed into one 64-row tile, so that a sequence of 32 fills it:
+# half the CTAs of 64-row tiles there.
+WIDE_TILES = {name: (64, 64, 64) if name.startswith("flash_fwd") else (32, 64, 32)
               for name in WIDE_INSTANCES}
 
 
@@ -206,7 +203,7 @@ def launch_config(tq: int, tk: int, d: int, instance: str = "flash_fwd") -> int:
     and `KERNEL_TILES` otherwise: the short tile when neither sequence is
     longer than the instance takes it for (the bf16 kernels' 32 at the
     trainer's T = 32: no padding rows and one tile per (batch, head); the
-    f32 K2 and K3 wide's two (batch, head) pairs of 32 rows a CTA), the
+    K2 and K3 wide's two (batch, head) pairs of 32 rows a CTA), the
     long tile otherwise."""
     wide = WIDE in instance
     built = (d > KERNEL_HEAD_DIMS[-1] and d % WIDE_SLICE == 0) if wide else d in KERNEL_HEAD_DIMS
@@ -355,8 +352,8 @@ def kernel_occupancy(device: int = 0):
     """Resident CTAs per SM of every kernel instantiation on CUDA device
     `device` (cudaOccupancyMaxActiveBlocksPerMultiprocessor), with its
     threads, dynamic shared memory and registers, at each of its tiles; a
-    wide instance's rows are at d = 512 (only K1's shared memory depends
-    on d). Needs the card."""
+    wide instance's rows are at d = 512 (K1's and bf16 K2's and K3's
+    shared memory depends on d). Needs the card."""
     lib = _build.library()
     rows = []
     for kernel, name in enumerate(LAUNCHES):  # the C library's order

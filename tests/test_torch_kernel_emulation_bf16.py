@@ -20,8 +20,9 @@ from test_torch_kernel_emulation import (CASES, PADDED_CASES, _reached,  # noqa:
 # and d = 96 padded to 128; at D = 256 the short tile with the row that
 # sees no key, the long tile at Tq != Tk, and d = 200 padded to 256 with
 # the row that sees no key at the long tile; at D = 512 the wide bf16
-# instances (one 32-row tile, two 256-column slices), causal and ragged,
-# with the row that sees no key.
+# instances (K2 and K3 on the short tile, 32 rows of each of two (batch,
+# head) pairs, the second missing at BH = 1; K3 in two 256-column
+# slices), causal and ragged, with the row that sees no key.
 BF16_CASES = [
     (1, 17, 17, 1, 512, True, "key0"),
     (1, 32, 32, 1, 256, True, "key0"),
@@ -61,11 +62,10 @@ def test_every_bf16_tile_is_emulated():
 def test_every_wide_instance_is_emulated():
     """One case each: the bf16 wide instances at D = 512, the f32 ones at d
     = 320 padded to 512; each at the tile T = 17 takes, both causal with
-    the row that sees no key: bf16 K2 and K3 over their one 32-row tile,
-    f32 K2 and K3 over the short tile (32 rows of two (batch, head) pairs,
-    the second missing at BH = 1), K1's 64 rows in both dtypes. Their long
-    tiles, two tiles and more head dims are
-    test_torch_kernel_emulation_wide.py's."""
+    the row that sees no key: K2 and K3 over the short tile in both dtypes
+    (32 rows of two (batch, head) pairs, the second missing at BH = 1),
+    K1's 64 rows in both dtypes. Their long tiles, two tiles and more head
+    dims are test_torch_kernel_emulation_wide.py's."""
     for cases, suffix in ((BF16_CASES, ""), (CASES + PADDED_CASES, "_f32")):
         wide = [c for c in cases if fa.kernel_head_dim(c[4]) > fa.KERNEL_HEAD_DIMS[-1]]
         assert len(wide) == 1 and wide[0][6] == "key0" and wide[0][5]
@@ -73,6 +73,7 @@ def test_every_wide_instance_is_emulated():
             name = kernel + fa.WIDE + suffix
             assert _reached(cases, name) == {(fa.WIDE_TILES[name][0], 512)}
     for kernel in ("flash_dq", "flash_dkv"):
-        assert fa.WIDE_TILES[kernel + fa.WIDE + "_f32"][0] == 32
-        assert fa.launch_config(17, 17, 512, kernel + fa.WIDE + "_f32") == 32
+        for suffix in ("", "_f32"):
+            assert fa.WIDE_TILES[kernel + fa.WIDE + suffix][0] == 32
+            assert fa.launch_config(17, 17, 512, kernel + fa.WIDE + suffix) == 32
     assert fa.WIDE_TILES["flash_fwd_wide"][:2] == fa.WIDE_TILES["flash_fwd_wide_f32"][:2] == (64, 64)

@@ -1,6 +1,7 @@
-"""The wgmma instances of the wide kernels run on the CPU, emulated
+"""The wide instances of K1-K3, all on wgmma, run on the CPU, emulated
 (`tests/cuda_emu`), against the plain versions: K1's (`flash_fwd_wide`,
-bf16 and f32 as 3xTF32) and K2's and K3's in f32 (`flash_dq_wide_f32`,
+bf16 and f32 as 3xTF32) and K2's and K3's in both dtypes
+(`flash_dq_wide`, `flash_dkv_wide`, `flash_dq_wide_f32`,
 `flash_dkv_wide_f32`: two warpgroups over 64-row tiles, or 32 rows of
 each of two (batch, head) pairs up to T = 32;
 `csrc/flash_attention_wide.cu`); the tensor-core multiply-adds they
@@ -10,12 +11,11 @@ kernels give it, against a plain matmul.
 The wide cases cover the row that sees no key, ragged ends at T = 17 and
 T = 100 (two q- and k-tiles), Tq != Tk key-padded at both tiles of K2 and
 K3 (the short one with a missing pair at BH = 3), D = 768 (a 512- and a
-256-column slice; f32 K1 streams Q's chunks there, K3 runs three slices)
-and D = 1280 (bf16 K1 streams Q), all at T <= 128. Tolerances are the
-other emulation files' (`TOLS`); K2 and K3 hold the plain versions to
-them, and key 0's gradients to exactly 0, through
-`test_torch_kernel_emulation.check_kernels`. The bf16 K2 and K3 wide run
-in `test_torch_kernel_emulation_bf16.py`.
+256-column slice; f32 K1 and bf16 K2 and K3 stream their A operands
+there, K3 runs three slices) and D = 1280 (bf16 K1 streams Q), all at T
+<= 128. Tolerances are the other emulation files' (`TOLS`); K2 and K3
+hold the plain versions to them, and key 0's gradients to exactly 0,
+through `test_torch_kernel_emulation.check_kernels`.
 """
 import ctypes
 import math
@@ -89,11 +89,14 @@ def test_the_wide_cases_reach_every_path():
     """64-row tiles of K1 in both dtypes, two of them at T = 100, one and
     two slices past the first, and Q resident and streamed in each dtype
     (`fwd_wide_q_resident`: bf16 up to D = 1024, f32 up to 512); both
-    tiles of f32 K2 and K3, the short one with the row that sees no key,
-    with a missing pair (BH odd) and at Tq != Tk."""
+    tiles of K2 and K3 in both dtypes, the short one with the row that
+    sees no key, with a missing pair (BH odd) and at Tq != Tk; bf16 K2's
+    and K3's three instances (`bwd_wide_bf16_resident`: the A tiles stay
+    at the 64-row tile at D = 512, and stream at the 32-row tile and at D
+    >= 768)."""
     for name in ("flash_fwd_wide", "flash_fwd_wide_f32"):
         assert fa.WIDE_TILES[name][:2] == (64, 64)
-    for name in ("flash_dq_wide_f32", "flash_dkv_wide_f32"):
+    for name in ("flash_dq_wide_f32", "flash_dkv_wide_f32", "flash_dq_wide", "flash_dkv_wide"):
         tiles = {fa.launch_config(c[1], c[2], 512, name): c for c in WIDE_CASES}
         assert set(tiles) == {32, 64}
         short = [c for c in WIDE_CASES if fa.launch_config(c[1], c[2], 512, name) == 32]
@@ -103,10 +106,14 @@ def test_the_wide_cases_reach_every_path():
     assert {512, 768, 1280} <= widths and max(c[1] for c in WIDE_CASES) == 100
     assert any(-(-d // 512) == 2 and d % 512 for d in widths)  # a 256-column last slice
     bf16_streams = {d > 1024 for d in widths}
-    f32_streams = {d > 512 for d in widths}
+    f32_streams = {d > 512 for d in widths}  # f32 K1's Q, bf16 K2's and K3's A tiles
     assert bf16_streams == f32_streams == {True, False}
     assert {c[6] for c in WIDE_CASES} == {"key0", "tail"}
     assert any(c[1] != c[2] for c in WIDE_CASES)
+    for name in ("flash_dq_wide", "flash_dkv_wide"):
+        instances = {(tile, tile == 64 and c[4] == 512)
+                     for c in WIDE_CASES for tile in [fa.launch_config(c[1], c[2], c[4], name)]}
+        assert instances == {(64, True), (64, False), (32, False)}
 
 
 @pytest.mark.parametrize("dt", DTYPES)
@@ -135,6 +142,52 @@ def test_k2_k3_wide_f32_match_the_plain_versions(lib, b, tq, tk, h, d, causal, m
     check_kernels(lib, torch.float32, b, tq, tk, h, d, causal, mask_kind)
 
 
+@pytest.mark.parametrize("b,tq,tk,h,d,causal,mask_kind", WIDE_CASES)
+def test_k2_k3_wide_bf16_match_the_plain_versions(lib, b, tq, tk, h, d, causal, mask_kind):
+    """bf16 K1, K2 and K3 wide on the same inputs, each held against its
+    plain version (K2 and K3 on the plain lse and delta) at the bf16
+    tolerances; key 0's gradients exactly 0; no copy past shared memory.
+    K2 and K3 keep their A tiles in shared memory at D = 512 and stream
+    them at D = 768 and 1280."""
+    check_kernels(lib, torch.bfloat16, b, tq, tk, h, d, causal, mask_kind)
+
+
+def _backward_products(lib, dtype, d):
+    """The tensor-core multiply-adds of one K2 and one K3 launch at T = 128
+    not causal (2 x 2 (q-tile, k-tile) pairs of 64 rows), on inputs made
+    from a seed."""
+    rng = np.random.RandomState(d)
+    t, bh = 128, 1
+    q, k, v, g = (torch.from_numpy(rng.randn(bh, t, d).astype(np.float32)).to(dtype)
+                  for _ in range(4))
+    lse, delta = torch.zeros(bh, t), torch.zeros(bh, t)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    shape = dict(tq=t, tk=t, d=d, scale=1.0 / math.sqrt(d), causal=False)
+    lib.emu_tensor_products.restype = ctypes.c_long
+    _call(lib, "flash_dq", dtype, *map(_ptr, (q, k, v, g, lse, delta, None, dq)), bh, 1, t, t,
+          **shape)
+    dq_products = lib.emu_tensor_products()
+    _call(lib, "flash_dkv", dtype, *map(_ptr, (q, k, v, g, lse, delta, None, dk, dv)), bh, 1,
+          t, t, **shape)
+    return dq_products, lib.emu_tensor_products()
+
+
+@pytest.mark.parametrize("d,slices", [(512, (512,)), (768, (512, 256))])
+def test_k2_k3_wide_bf16_form_each_score_tile_once_per_cta(lib, d, slices):
+    """As the f32 pair, in bf16 (one product each): per (q-tile, k-tile)
+    pair K2 forms S + dP + dQ at D = 512, S and dP once per CTA of up to
+    512 dQ columns, and K3 2 (S^T + dP^T) + dV + dK, S^T and dP^T once per
+    CTA of 256 dK and dV columns; the first bf16 design formed each score
+    tile 4 times at D = 512. At D = 768 the A tiles stream (two chunks a
+    score step) and the counts are the same per CTA."""
+    unit = 2 * 2 * 64 * 64  # (q-tile, k-tile) pairs x a 64 x 64 tile
+    dq_products, dkv_products = _backward_products(lib, torch.bfloat16, d)
+    assert dq_products == unit * (len(slices) * 2 * d + d)
+    assert dkv_products == unit * (d // 256 * 2 * d + 2 * d)
+    if d == 512:
+        assert (dq_products, dkv_products) == (unit * 3 * d, unit * 6 * d)
+
+
 @pytest.mark.parametrize("d,slices", [(512, (512,)), (768, (512, 256))])
 def test_k2_k3_wide_f32_form_each_score_tile_once_per_cta(lib, d, slices):
     """The tensor-core multiply-adds of one launch, at T = 128 not causal
@@ -144,22 +197,12 @@ def test_k2_k3_wide_f32_form_each_score_tile_once_per_cta(lib, d, slices):
     D = 768. K3 (CTAs of 256 dK and dV columns): S^T and dP^T once per
     CTA, 3 (2 (S^T + dP^T) + dV + dK) at D = 512 and three times at D =
     768. The first wide design formed each score tile 4 times at D = 512."""
-    rng = np.random.RandomState(d)
-    t, bh, pairs = 128, 1, 2 * 2
-    q, k, v, g = (torch.from_numpy(rng.randn(bh, t, d).astype(np.float32)) for _ in range(4))
-    lse, delta = torch.zeros(bh, t), torch.zeros(bh, t)
-    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-    shape = dict(tq=t, tk=t, d=d, scale=1.0 / math.sqrt(d), causal=False)
-    lib.emu_tensor_products.restype = ctypes.c_long
-    unit = 3 * pairs * 64 * 64  # 3xTF32 x (q-tile, k-tile) pairs x a 64 x 64 tile
-    _call(lib, "flash_dq", torch.float32, *map(_ptr, (q, k, v, g, lse, delta, None, dq)), bh, 1,
-          t, t, **shape)
-    assert lib.emu_tensor_products() == unit * (len(slices) * 2 * d + d)
-    _call(lib, "flash_dkv", torch.float32,
-          *map(_ptr, (q, k, v, g, lse, delta, None, dk, dv)), bh, 1, t, t, **shape)
-    assert lib.emu_tensor_products() == unit * (d // 256 * 2 * d + 2 * d)
+    unit = 3 * 2 * 2 * 64 * 64  # 3xTF32 x (q-tile, k-tile) pairs x a 64 x 64 tile
+    dq_products, dkv_products = _backward_products(lib, torch.float32, d)
+    assert dq_products == unit * (len(slices) * 2 * d + d)
+    assert dkv_products == unit * (d // 256 * 2 * d + 2 * d)
     if d == 512:
-        assert lib.emu_tensor_products() == unit * 6 * d
+        assert dkv_products == unit * 6 * d
 
 
 @pytest.fixture(scope="module")
