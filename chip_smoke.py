@@ -10,9 +10,11 @@ Phases, in order; any failure exits non-zero and prints no result:
 2. build: nvcc compiles `shockwave_tpu_torch/csrc/*.cu` (timed); the
    instantiations that spill registers, named from ptxas's report
    (`spills:`); the HMMA instructions of each instantiation in the
-   library's SASS, by mnemonic (`sass:`; the 3xTF32 kernels must hold
-   TF32 ones, and the wgmma kernels, K1-K3 wide in both dtypes, HGMMA
-   ones of their dtype and no HMMA); then each kernel instantiation's
+   library's SASS, by mnemonic, with the TMA loads (`sass:`; the 3xTF32
+   kernels must hold TF32 ones, the wgmma kernels, K1-K3 wide in both
+   dtypes, HGMMA ones of their dtype and no HMMA, and the TMA-fed K1 and
+   K3 in bf16 at D = 64, 128 and 256 bf16 HGMMA, UTMALDG and no HMMA);
+   then each kernel instantiation's
    resident CTAs per SM, threads, shared memory and registers, and at the
    main shape each
    kernel's resident CTA slots (CTAs per SM x SMs) against its grid
@@ -22,9 +24,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    main path's three attention variants (B=64, T=32, H=8, D=64),
    cross-attention with Tq != Tk, head dim 32, the bench shape
    (4, 2048, 8, 64) causal, a causal row that sees no key, and the edges
-   of the kernels' two tile widths (32 and 64, chosen by
-   `launch_config`): ragged T=17, Tq=32 against Tk=48, T=33, D=32 at
-   T=32 and the key-0 row at T=32. Then each kernel's f32 instance
+   of the kernels' two tile widths (32, and past T = 32 K2's 64 and the
+   TMA-fed K1's 128 rows and K3's 128 keys, chosen by `launch_config`):
+   ragged T=17, Tq=32 against Tk=48, T=33, D=32 at T=32 (both tiles 64
+   there) and the key-0 row at T=32. Then each kernel's f32 instance
    (3xTF32 on the tensor cores) against the plain f32 version, at the
    main shape key-padded and causal, the decoder's full forward (8 x 64,
    4 heads of 32, causal), the bench shape, and the edges of the f32
@@ -195,7 +198,10 @@ Output: `device:`, `build:`, `ptxas:`, `spills:`, `sass:` and
 `bench_line:`, `profile:`, `gang:`, `deployed:` and `parallel:` lines,
 then the
 `{"kernels": [...]}` line (the six kernel instances, each with its D =
-128 and D = 256 times beside, and the six wide instances at D = 512; the
+128 and D = 256 times beside, the six wide instances at D = 512, and the
+two TMA-fed ones, bf16 K1 and K3 on the long tile, at the bench shape
+with its D = 128 and 256 times beside, their launches the profile
+phase's T = 2048 steps'; the
 main case's forward + backward through the port's autograd path and
 through `scaled_dot_product_attention`, the same at D = 256 and 512, the
 bench line's decode rate and headline, and the ring's and dryrun's
@@ -522,12 +528,13 @@ def check(ok: bool, what: str) -> None:
 
 
 def check_launches(fa, launches, per_kernel, where, dtype=torch.bfloat16, kernels=None,
-                   width=64):
+                   width=64, t=32):
     """The instance of each of `kernels` (default: K1-K3) for `dtype` at
-    kernel head dim `width` (the wide ones above 256) launched exactly
+    kernel head dim `width` (the wide ones above 256) and sequences of
+    length `t` (the TMA-fed K1 and K3 past the short tile) launched exactly
     `per_kernel` times and every other instance never."""
     kernels = fa.KERNELS if kernels is None else kernels
-    wanted = {fa.instance(kname, dtype, width) for kname in kernels}
+    wanted = {fa.instance(kname, dtype, width, t, t) for kname in kernels}
     want = {name: per_kernel if name in wanted else 0 for name in fa.LAUNCHES}
     check(launches == want, f"{where}: launched {launches}, not {want}")
 
@@ -546,6 +553,9 @@ def kernel_name(mangled: str) -> str:
     k = re.search(r"(flash_(?:fwd|dq|dkv)(?:_f32)?_kernel)ILi(\d+)ELi(\d+)E", mangled)
     if k:
         return f"{k.group(1)}<{k.group(2)}, {k.group(3)}>"
+    k = re.search(r"(flash_(?:fwd|dkv)_tma_kernel)ILi(\d+)E", mangled)
+    if k:
+        return f"{k.group(1)}<{k.group(2)}>"
     k = re.search(r"(flash_(?:dq|dkv)_wide_f32_kernel)ILi(\d+)E(?:Lb([01])E)?", mangled)
     if k:
         whole = {"1": ", 512-column CTAs", "0": ", any D", None: ""}[k.group(3)]
@@ -576,9 +586,9 @@ def spills(log: str):
 
 
 def sass_hmma(library: str):
-    """{"kernel<D, tile>": {HMMA or HGMMA mnemonic: count}} of every kernel
-    instantiation in the library's SASS (`cuobjdump --dump-sass`): mma.sync
-    compiles to HMMA, wgmma to HGMMA."""
+    """{"kernel<D, tile>": {HMMA, HGMMA or UTMALDG mnemonic: count}} of every
+    kernel instantiation in the library's SASS (`cuobjdump --dump-sass`):
+    mma.sync compiles to HMMA, wgmma to HGMMA, a TMA load to UTMALDG."""
     from torch.utils.cpp_extension import CUDA_HOME
     cuobjdump = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
     sass = subprocess.run([cuobjdump, "--dump-sass", library], capture_output=True, text=True,
@@ -591,7 +601,7 @@ def sass_hmma(library: str):
             if entry.startswith("flash_"):
                 found[entry] = {}
             continue
-        op = re.search(r"\b(H(?:G)?MMA\S*)", line)
+        op = re.search(r"\b(H(?:G)?MMA\S*|UTMALDG\S*)", line)
         if op and entry in found:
             found[entry][op.group(1)] = found[entry].get(op.group(1), 0) + 1
     return found
@@ -727,10 +737,11 @@ def kernel_case(fa, case, seed, device, rates, dtype=torch.bfloat16):
                       graph_ms(lambda: fa.attention_dkv_plain(q, k, v, *bwd))),
     }
     record = {"case": name, "shape": [b, tq, tk, h, d], "causal": causal, "dtype": str(dtype),
-              "mask": mask_kind, **errs, "kernels": {}}
+              "mask": mask_kind, **errs, "kernels": {}, "by_kernel": {}}
     for kname, (nbytes, flops) in work(b, tq, tk, h, d, causal, q.element_size()).items():
         t_bytes, t_ops = nbytes / bw * 1e3, flops / flops_peak * 1e3
-        iname = fa.instance(kname, dtype, d)
+        iname = fa.instance(kname, dtype, d, tq, tk)
+        record["by_kernel"][kname] = iname
         record["kernels"][iname] = {
             "ms": times[kname][0], "plain_ms": times[kname][1],
             "bound_ms": max(t_bytes, t_ops),
@@ -812,7 +823,7 @@ def padded_case(fa, case, seed, device):
     dq, dk, dv = torch.autograd.grad(out, (qg, kg, vg), g)
     launches = dict(fa.LAUNCHES)
     torch.cuda.synchronize()
-    check_launches(fa, launches, 1, name, dtype, width=width)
+    check_launches(fa, launches, 1, name, dtype, width=width, t=max(tq, tk))
     out = out.detach()
 
     def bhtd(x):
@@ -1417,7 +1428,8 @@ def serving_phase(fa, device):
           f"serving: decoder flash vs einsum logits differ by {err}")
     layers = len(flash.blocks)
     check_launches(fa, launches, layers, "serving: the decoder's bf16 flash forward",
-                   kernels=("flash_fwd",))
+                   kernels=("flash_fwd",), width=fa.kernel_head_dim(flash.dim // flash.num_heads),
+                   t=t)
     del flash, einsum
     return {"lease": {"served": served, "renewals": len(renewals), "deltas": len(deltas),
                       "samples": samples, "wall_s": lease_s},
@@ -1528,7 +1540,7 @@ def decoder_flash_grads(fa, device, tokens, dtype=torch.float32, **widths):
           f"{what}'s flash vs einsum gradients differ by {grad_err} (relative)")
     head_dim = flash.dim // flash.num_heads
     check_launches(fa, launches, len(flash.blocks), f"{what}'s flash forward and backward",
-                   dtype, width=fa.kernel_head_dim(head_dim))
+                   dtype, width=fa.kernel_head_dim(head_dim), t=t)
     return {"shape": list(tokens.shape), "head_dim": head_dim,
             "logits_max_abs": err, "grad_max_rel": grad_err, "launches": launches}
 
@@ -1658,7 +1670,7 @@ def profile_phase(fa, device):
                                              seq=LONG_SEQ, prefix=prefix)
     launches = dict(fa.LAUNCHES)
     steps = long[f"{prefix}_steps_run"]
-    check_launches(fa, launches, 18 * steps, f"profile: {steps} bench steps")
+    check_launches(fa, launches, 18 * steps, f"profile: {steps} bench steps", t=LONG_SEQ)
     first, last = long[f"{prefix}_loss_first"], long[f"{prefix}_loss_last"]
     check(math.isfinite(first) and math.isfinite(last), "profile: non-finite bench loss")
     check(last < first, f"profile: the bench loss did not fall ({first} -> {last})")
@@ -1892,8 +1904,10 @@ def parallel_phase(fa, device):
                        key=lambda p: p["sp"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    for i, part in enumerate(parts):
-        want = {n: i + 1 for n in fa.KERNELS}
+    b, t, h, d = RING_SHAPE
+    for i, part in enumerate(parts):  # each rank's chunk of T / sp rows
+        want = {fa.instance(n, torch.bfloat16, d, t // RING_RANKS, t // RING_RANKS): i + 1
+                for n in fa.KERNELS}
         check(part["launches"] == want,
               f"parallel: ring sp rank {i} launched {part['launches']}, not {want}")
     got = {n: torch.cat([p[n] for p in parts], dim=1).to(device) for n in ("out", "dq", "dk", "dv")}
@@ -1907,7 +1921,6 @@ def parallel_phase(fa, device):
     check(errs["fwd_max_abs"] <= FWD_TOL, f"parallel: ring output error {errs['fwd_max_abs']}")
     for key in ("dq_max_rel", "dk_max_rel", "dv_max_rel"):
         check(errs[key] <= GRAD_TOL, f"parallel: ring {key} {errs[key]}")
-    b, t, h, d = RING_SHAPE
 
     def bhtd(x):
         return x.transpose(1, 2).reshape(b * h, t, d).contiguous()
@@ -2160,6 +2173,164 @@ def deployed_phase(here):
             "round_drain_s": drain}
 
 
+def kernel_rows(fa, cases, sliced, served, profiled):
+    """The rows of the `{"kernels": [...]}` line: every kernel instance with
+    its main-path launches, errors, times, bound and library time (see the
+    module docstring), from the kernel cases' records (`cases`) and the
+    slice's, serving phase's and profile phase's results."""
+    kernels = []
+
+    def ran(case, kname):
+        """The record of the instance of kernel `kname` that ran at `case`."""
+        return case["kernels"][case["by_kernel"][kname]]
+
+    # Each dtype's row is timed at the shape its main-path launches come
+    # from: the trainer's (bf16) and the f32 decoder's (f32), which runs
+    # no f32 launch at the trainer's shape; the f32 rows give that shape
+    # beside it. A row's bench and D = 128 / 256 bench fields are there
+    # where the row's instance ran those cases (in bf16 K1's and K3's long
+    # tile is the TMA-fed instances', rows of their own below).
+    for dtype, at_name, prefix, bench in (
+            (torch.bfloat16, MAIN_CASE, "main_", "bench_causal"),
+            (torch.float32, "decoder_f32", ("main_", "decoder_"), "bench_causal_f32")):
+        suffix = fa.KERNEL_DTYPES[dtype]
+        at_case = cases[at_name]
+        main_cases = [c for n, c in cases.items()
+                      if n.startswith(prefix) and c["dtype"] == str(dtype)]
+        # The main path's launches: the slice (bf16), the f32 decoder's
+        # forward and backward in the serving phase (f32).
+        launched = (sliced["launches"] if dtype == torch.bfloat16
+                    else served["decoder_flash_f32"]["launches"])
+        widths = "bf16" if dtype == torch.bfloat16 else "f32"
+        for kname, source_line in REPLACES.items():
+            iname = kname + suffix
+            k = at_case["kernels"][iname]
+            row = {
+                "name": iname, "route": "cuda",
+                "source": "shockwave_tpu_torch/csrc/flash_attention.cu",
+                "replaces": source_line, "launches": launched[iname],
+                "max_abs_err": max(c[e] for c in main_cases for e in ERR_KEYS[kname]),
+                "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                "bound_by": k["bound_by"].split()[0],
+                "library_ms": at_case["library_fwd_ms"] if kname == "flash_fwd" else None,
+                "at": f"{at_name} {at_case['shape']}"}
+            if cases[bench]["by_kernel"][kname] == iname:
+                b64 = ran(cases[bench], kname)
+                row.update({
+                    "bench_ms": b64["ms"], "bench_bound_ms": b64["bound_ms"],
+                    "bench_bound_by": b64["bound_by"],
+                    "bench_library_ms": (cases[bench]["library_fwd_ms"] if kname == "flash_fwd"
+                                         else None),
+                    "bench_long_launches": profiled["launches"][iname]})
+            if kname != "flash_fwd":  # K2 + K3's yardstick: SDPA's backward
+                row.update({"library_bwd_ms": at_case["library_bwd_ms"],
+                            "bench_library_bwd_ms": cases[bench]["library_bwd_ms"],
+                            "library_bwd_of": "dQ, dK and dV (SDPA fwd_bwd - fwd)"})
+            for dw, names in ((128, D128_CASES[suffix]), (256, D256_CASES[suffix])):
+                main_w, bench_w = (cases[n] for n in names)
+                kw = main_w["kernels"][iname]
+                row.update({
+                    f"d{dw}_at": f"{names[0]} {main_w['shape']}", f"d{dw}_tile": kw["tile"],
+                    f"d{dw}_ms": kw["ms"], f"d{dw}_plain_ms": kw["plain_ms"],
+                    f"d{dw}_bound_ms": kw["bound_ms"], f"d{dw}_bound_by": kw["bound_by"],
+                    f"d{dw}_library_ms": (main_w["library_fwd_ms"] if kname == "flash_fwd"
+                                          else None)})
+                # The decoder at this head dim (serving phase), and the
+                # instance its sequence length takes.
+                dec = served[f"decoder_flash_head_dim_{dw}"][widths]
+                dec_name = fa.instance(kname, dtype, dw, dec["shape"][1], dec["shape"][1])
+                row.update({f"d{dw}_decoder_instance": dec_name,
+                            f"d{dw}_decoder_launches": dec["launches"][dec_name]})
+                if bench_w["by_kernel"][kname] == iname:
+                    bw = ran(bench_w, kname)
+                    row.update({
+                        f"d{dw}_bench_tile": bw["tile"], f"d{dw}_bench_ms": bw["ms"],
+                        f"d{dw}_bench_plain_ms": bw["plain_ms"],
+                        f"d{dw}_bench_bound_ms": bw["bound_ms"],
+                        f"d{dw}_bench_bound_by": bw["bound_by"],
+                        f"d{dw}_bench_library_ms": (bench_w["library_fwd_ms"]
+                                                    if kname == "flash_fwd" else None)})
+            row["d256_library_backend"] = cases[D256_CASES[suffix][1]]["library_backend"]
+            row["d256_max_abs_err"] = max(c[e] for n, c in cases.items()
+                                          if n.startswith("d256_") and c["dtype"] == str(dtype)
+                                          and c["by_kernel"][kname] == iname
+                                          for e in ERR_KEYS[kname])
+            if dtype == torch.float32:
+                main_case = cases[MAIN_CASE_F32]
+                m = main_case["kernels"][kname + suffix]
+                row.update({"main_at": f"{MAIN_CASE_F32} {main_case['shape']}",
+                            "main_ms": m["ms"], "main_plain_ms": m["plain_ms"],
+                            "main_bound_ms": m["bound_ms"],
+                            "main_library_ms": (main_case["library_fwd_ms"]
+                                                if kname == "flash_fwd" else None)})
+            kernels.append(row)
+    # The TMA-fed K1 and K3 in bf16: timed at the bench shape, where their
+    # main-path launches come from (the profile phase's T = 2048 steps),
+    # and at the bench shape at D = 128 and 256.
+    for name in fa.TMA_INSTANCES:
+        kname = name.removesuffix(fa.TMA)
+        bench = cases["bench_causal"]
+        k = bench["kernels"][name]
+        fwd = kname == "flash_fwd"
+        row = {
+            "name": name, "route": "cuda",
+            "source": "shockwave_tpu_torch/csrc/flash_attention_tma.cu",
+            "replaces": REPLACES[kname], "launches": profiled["launches"][name],
+            "max_abs_err": max(c[e] for c in cases.values() if name in c["kernels"]
+                               for e in ERR_KEYS[kname]),
+            "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"].split()[0],
+            "library_ms": bench["library_fwd_ms"] if fwd else None,
+            "at": f"bench_causal {bench['shape']}", "tile": k["tile"],
+            "cases": sorted(n for n, c in cases.items() if name in c["kernels"])}
+        if not fwd:
+            row.update({"library_bwd_ms": bench["library_bwd_ms"],
+                        "library_bwd_of": "dQ, dK and dV (SDPA fwd_bwd - fwd)"})
+        for dw in (128, 256):
+            bw_case = cases[f"d{dw}_bench_causal"]
+            bw = bw_case["kernels"][name]
+            row.update({f"d{dw}_bench_tile": bw["tile"], f"d{dw}_bench_ms": bw["ms"],
+                        f"d{dw}_bench_plain_ms": bw["plain_ms"],
+                        f"d{dw}_bench_bound_ms": bw["bound_ms"],
+                        f"d{dw}_bench_bound_by": bw["bound_by"],
+                        f"d{dw}_bench_library_ms": bw_case["library_fwd_ms"] if fwd else None,
+                        f"d{dw}_bench_library_bwd_ms": bw_case["library_bwd_ms"]})
+        kernels.append(row)
+    # The wide instances: timed at the main and bench shapes at D = 512;
+    # their main-path launches are the d = 512 decoder's (serving phase).
+    for dtype, widths in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        suffix = fa.KERNEL_DTYPES[dtype]
+        at_case, bench_case = (cases[n] for n in D512_CASES[suffix])
+        for kname, source_line in REPLACES.items():
+            iname = fa.instance(kname, dtype, 512)
+            k, b = at_case["kernels"][iname], bench_case["kernels"][iname]
+            fwd = kname == "flash_fwd"
+            kernels.append({
+                "name": iname, "route": "cuda",
+                "source": "shockwave_tpu_torch/csrc/flash_attention_wide.cu",
+                "replaces": source_line,
+                "launches": served["decoder_flash_head_dim_512"][widths]["launches"][iname],
+                "max_abs_err": max(c[e] for n, c in cases.items()
+                                   if n.startswith("d512_") and c["dtype"] == str(dtype)
+                                   for e in ERR_KEYS[kname]),
+                "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                "bound_by": k["bound_by"].split()[0],
+                "library_ms": at_case["library_fwd_ms"] if fwd else None,
+                "at": f"{D512_CASES[suffix][0]} {at_case['shape']}", "tile": k["tile"],
+                "bench_ms": b["ms"], "bench_plain_ms": b["plain_ms"],
+                "bench_bound_ms": b["bound_ms"], "bench_bound_by": b["bound_by"],
+                "bench_library_ms": bench_case["library_fwd_ms"] if fwd else None,
+                "d768_max_abs_err": max(c[e] for n, c in cases.items()
+                                        if n.startswith(("d768_", "d1280_"))
+                                        and c["dtype"] == str(dtype) for e in ERR_KEYS[kname]),
+                "library_backend": bench_case["library_backend"]})
+            if not fwd:  # K2 + K3's yardstick: SDPA's backward
+                kernels[-1].update({"library_bwd_ms": at_case["library_bwd_ms"],
+                                    "bench_library_bwd_ms": bench_case["library_bwd_ms"],
+                                    "library_bwd_of": "dQ, dK and dV (SDPA fwd_bwd - fwd)"})
+    return kernels
+
+
 def main() -> int:
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -2227,6 +2398,21 @@ def main() -> int:
                   f"{name}: no {operand} HGMMA in its SASS ({ops})")
             check(not any(op.startswith("HMMA") for op in ops),
                   f"{name}: HMMA in its SASS ({ops})")
+    # The TMA-fed K1 and K3 in bf16, one instance per head dim 64, 128 and
+    # 256: bf16 HGMMA fed by UTMALDG, and no HMMA. The mma.sync K1 and K3
+    # keep only the short tile there.
+    for prefix in ("flash_fwd_tma_kernel<", "flash_dkv_tma_kernel<"):
+        found = {name: ops for name, ops in hmma.items() if name.startswith(prefix)}
+        check(sorted(found) == sorted(f"{prefix}{d}>" for d in fa.TMA_HEAD_DIMS),
+              f"{prefix}: {sorted(found)} in the SASS, not one per head dim {fa.TMA_HEAD_DIMS}")
+        for name, ops in found.items():
+            check(any(op.startswith("HGMMA") and "F32.BF16" in op for op in ops)
+                  and any(op.startswith("UTMALDG") for op in ops)
+                  and not any(op.startswith("HMMA") for op in ops),
+                  f"{name}: not bf16 HGMMA fed by UTMALDG without HMMA ({ops})")
+    for kname in ("flash_fwd_kernel", "flash_dkv_kernel"):
+        check(not any(f"{kname}<{d}, 64>" in hmma for d in fa.TMA_HEAD_DIMS),
+              f"{kname}: a tile-64 instance at D = 64-256 is still built")
     occupancy = fa.kernel_occupancy(torch.cuda.current_device())
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     emit("occupancy", {"sms": sms, "kernels": occupancy,
@@ -2295,118 +2481,7 @@ def main() -> int:
     paralleled = parallel_phase(fa, device)
     emit("parallel", {"seconds": time.time() - t0, "nvidia_smi": smi, **paralleled})
 
-    kernels = []
-    # Each dtype's row is timed at the shape its main-path launches come
-    # from: the trainer's (bf16) and the f32 decoder's (f32), which runs
-    # no f32 launch at the trainer's shape; the f32 rows give that shape
-    # beside it.
-    for dtype, at_name, prefix, bench in (
-            (torch.bfloat16, MAIN_CASE, "main_", "bench_causal"),
-            (torch.float32, "decoder_f32", ("main_", "decoder_"), "bench_causal_f32")):
-        suffix = fa.KERNEL_DTYPES[dtype]
-        at_case = cases[at_name]
-        main_cases = [c for n, c in cases.items()
-                      if n.startswith(prefix) and c["dtype"] == str(dtype)]
-        # The main path's launches: the slice (bf16), the f32 decoder's
-        # forward and backward in the serving phase (f32).
-        launched = (sliced["launches"] if dtype == torch.bfloat16
-                    else served["decoder_flash_f32"]["launches"])
-        for kname, source_line in REPLACES.items():
-            k = at_case["kernels"][kname + suffix]
-            row = {
-                "name": kname + suffix, "route": "cuda",
-                "source": "shockwave_tpu_torch/csrc/flash_attention.cu",
-                "replaces": source_line, "launches": launched[kname + suffix],
-                "max_abs_err": max(c[e] for c in main_cases for e in ERR_KEYS[kname]),
-                "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-                "bound_by": k["bound_by"].split()[0],
-                "library_ms": at_case["library_fwd_ms"] if kname == "flash_fwd" else None,
-                "at": f"{at_name} {at_case['shape']}",
-                "bench_ms": cases[bench]["kernels"][kname + suffix]["ms"],
-                "bench_bound_ms": cases[bench]["kernels"][kname + suffix]["bound_ms"],
-                "bench_bound_by": cases[bench]["kernels"][kname + suffix]["bound_by"],
-                "bench_library_ms": (cases[bench]["library_fwd_ms"] if kname == "flash_fwd"
-                                     else None),
-                "bench_long_launches": profiled["launches"][kname + suffix]}
-            if kname != "flash_fwd":  # K2 + K3's yardstick: SDPA's backward
-                row.update({"library_bwd_ms": at_case["library_bwd_ms"],
-                            "bench_library_bwd_ms": cases[bench]["library_bwd_ms"],
-                            "library_bwd_of": "dQ, dK and dV (SDPA fwd_bwd - fwd)"})
-            d128, d128_bench = (cases[n] for n in D128_CASES[suffix])
-            k128 = d128["kernels"][kname + suffix]
-            b128 = d128_bench["kernels"][kname + suffix]
-            widths = "bf16" if dtype == torch.bfloat16 else "f32"
-            row.update({
-                "d128_at": f"{D128_CASES[suffix][0]} {d128['shape']}", "d128_tile": k128["tile"],
-                "d128_ms": k128["ms"], "d128_plain_ms": k128["plain_ms"],
-                "d128_bound_ms": k128["bound_ms"], "d128_bound_by": k128["bound_by"],
-                "d128_library_ms": d128["library_fwd_ms"] if kname == "flash_fwd" else None,
-                "d128_bench_ms": b128["ms"], "d128_bench_bound_ms": b128["bound_ms"],
-                "d128_bench_bound_by": b128["bound_by"],
-                "d128_bench_library_ms": (d128_bench["library_fwd_ms"] if kname == "flash_fwd"
-                                          else None),
-                "d128_decoder_launches":
-                    served["decoder_flash_head_dim_128"][widths]["launches"][kname + suffix]})
-            d256, d256_bench = (cases[n] for n in D256_CASES[suffix])
-            k256 = d256["kernels"][kname + suffix]
-            b256 = d256_bench["kernels"][kname + suffix]
-            row.update({
-                "d256_at": f"{D256_CASES[suffix][0]} {d256['shape']}", "d256_tile": k256["tile"],
-                "d256_ms": k256["ms"], "d256_plain_ms": k256["plain_ms"],
-                "d256_bound_ms": k256["bound_ms"], "d256_bound_by": k256["bound_by"],
-                "d256_library_ms": d256["library_fwd_ms"] if kname == "flash_fwd" else None,
-                "d256_bench_tile": b256["tile"], "d256_bench_ms": b256["ms"],
-                "d256_bench_plain_ms": b256["plain_ms"], "d256_bench_bound_ms": b256["bound_ms"],
-                "d256_bench_bound_by": b256["bound_by"],
-                "d256_bench_library_ms": (d256_bench["library_fwd_ms"] if kname == "flash_fwd"
-                                          else None),
-                "d256_library_backend": d256_bench["library_backend"],
-                "d256_max_abs_err": max(c[e] for n, c in cases.items()
-                                        if n.startswith("d256_") and c["dtype"] == str(dtype)
-                                        for e in ERR_KEYS[kname]),
-                "d256_decoder_launches":
-                    served["decoder_flash_head_dim_256"][widths]["launches"][kname + suffix]})
-            if dtype == torch.float32:
-                main_case = cases[MAIN_CASE_F32]
-                m = main_case["kernels"][kname + suffix]
-                row.update({"main_at": f"{MAIN_CASE_F32} {main_case['shape']}",
-                            "main_ms": m["ms"], "main_plain_ms": m["plain_ms"],
-                            "main_bound_ms": m["bound_ms"],
-                            "main_library_ms": (main_case["library_fwd_ms"]
-                                                if kname == "flash_fwd" else None)})
-            kernels.append(row)
-    # The wide instances: timed at the main and bench shapes at D = 512;
-    # their main-path launches are the d = 512 decoder's (serving phase).
-    for dtype, widths in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
-        suffix = fa.KERNEL_DTYPES[dtype]
-        at_case, bench_case = (cases[n] for n in D512_CASES[suffix])
-        for kname, source_line in REPLACES.items():
-            iname = fa.instance(kname, dtype, 512)
-            k, b = at_case["kernels"][iname], bench_case["kernels"][iname]
-            fwd = kname == "flash_fwd"
-            kernels.append({
-                "name": iname, "route": "cuda",
-                "source": "shockwave_tpu_torch/csrc/flash_attention_wide.cu",
-                "replaces": source_line,
-                "launches": served["decoder_flash_head_dim_512"][widths]["launches"][iname],
-                "max_abs_err": max(c[e] for n, c in cases.items()
-                                   if n.startswith("d512_") and c["dtype"] == str(dtype)
-                                   for e in ERR_KEYS[kname]),
-                "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-                "bound_by": k["bound_by"].split()[0],
-                "library_ms": at_case["library_fwd_ms"] if fwd else None,
-                "at": f"{D512_CASES[suffix][0]} {at_case['shape']}", "tile": k["tile"],
-                "bench_ms": b["ms"], "bench_plain_ms": b["plain_ms"],
-                "bench_bound_ms": b["bound_ms"], "bench_bound_by": b["bound_by"],
-                "bench_library_ms": bench_case["library_fwd_ms"] if fwd else None,
-                "d768_max_abs_err": max(c[e] for n, c in cases.items()
-                                        if n.startswith(("d768_", "d1280_"))
-                                        and c["dtype"] == str(dtype) for e in ERR_KEYS[kname]),
-                "library_backend": bench_case["library_backend"]})
-            if not fwd:  # K2 + K3's yardstick: SDPA's backward
-                kernels[-1].update({"library_bwd_ms": at_case["library_bwd_ms"],
-                                    "bench_library_bwd_ms": bench_case["library_bwd_ms"],
-                                    "library_bwd_of": "dQ, dK and dV (SDPA fwd_bwd - fwd)"})
+    kernels = kernel_rows(fa, cases, sliced, served, profiled)
     main_case = cases[MAIN_CASE]
     # Forward + backward at D = 256 and 512 (the port's autograd path
     # against SDPA's, and the backend SDPA picked), by dtype and shape.

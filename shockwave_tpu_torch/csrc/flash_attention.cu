@@ -25,9 +25,11 @@
 // ring. The wrapper picks kBlock from the sequence lengths
 // (ops/flash_attention.py:launch_config): 32 when both are at most 32
 // (the trainer's T = 32: a 2-warp CTA per (bh), no padding rows), 64
-// otherwise. wgmma and TMA need 64-row warpgroup tiles that the T = 32
-// path cannot fill; they are left for the long-sequence paths a later
-// slice brings.
+// otherwise. In bf16 at D = 64, 128 and 256, K1's and K3's long tile is
+// the TMA-fed wgmma kernels' (flash_attention_tma.cu, reached from
+// swt_flash_fwd and swt_flash_dkv below), so here K1 and K3 are built at
+// the short tile there (a wgmma tile's 64 rows, which the T = 32 path
+// cannot fill) and at both tiles at D = 32; K2 keeps both at every D.
 #include "flash_attention_common.cuh"
 
 namespace {
@@ -108,8 +110,8 @@ __device__ __forceinline__ void stage_accum(bf16* stage, const float (&acc)[N][4
 //    fragments would take 64 more: there each warp reads its Q fragments
 //    from its own rows of the shared Q tile, which stays in place for the
 //    whole loop, at every k-step (kHoldQ false), as K3 reads K and V at
-//    D = 128. Q plus two K/V stages take 169,472 bytes at kBlock 64: one
-//    CTA per SM (two at kBlock 32).
+//    D = 128. Q plus two K/V stages take 84,736 bytes at kBlock 32 (the
+//    only tile built at D = 256): two CTAs per SM.
 // ---------------------------------------------------------------------------
 template <int D, int kBlock>
 struct FwdShape {
@@ -517,7 +519,9 @@ __global__ void __launch_bounds__(DqShape<D, kBlock>::kCtaThreads)
 //    tiles (so the two score products run twice: 6 products per (q, k)
 //    pair in place of 4) and adds its half of dV += P^T.dO and dK +=
 //    dS^T.Q. The CTA has kBlock / 8 warps; shared memory is the same as
-//    one warp per 16 keys would take (203,776 bytes at kBlock 64).
+//    one warp per 16 keys would take (101,888 bytes at kBlock 32, the only
+//    tile built at D = 256; the TMA-fed K3 takes the long one and forms
+//    each score tile once).
 // ---------------------------------------------------------------------------
 template <int D, int kBlock>
 struct DkvShape {
@@ -1523,6 +1527,23 @@ int by_shape(int d, int tile, F&& f) {
   return (int)cudaErrorInvalidValue;
 }
 
+// The same for K1's and K3's mma.sync instances in bf16: both tiles at D =
+// 32, the short tile only at D = 64, 128 and 256, whose long tile the
+// TMA-fed kernels take (flash_attention_tma.cu, swt::tma_tile).
+template <typename F>
+int by_shape_fwd_dkv(int d, int tile, F&& f) {
+  using I32 = std::integral_constant<int, 32>;
+  using I64 = std::integral_constant<int, 64>;
+  using I128 = std::integral_constant<int, 128>;
+  using I256 = std::integral_constant<int, 256>;
+  if (d == 256 && tile == 32) return f(I256{}, I32{});
+  if (d == 128 && tile == 32) return f(I128{}, I32{});
+  if (d == 64 && tile == 32) return f(I64{}, I32{});
+  if (d == 32 && tile == 32) return f(I32{}, I32{});
+  if (d == 32 && tile == 64) return f(I32{}, I64{});
+  return (int)cudaErrorInvalidValue;
+}
+
 // The same for the 3xTF32 instances of K1-K3, whose tiles are 16 (one
 // warp per CTA, for short sequences) and 64 (32 at D = 256, design note 7
 // of the f32 kernels).
@@ -1544,19 +1565,21 @@ int by_shape_tf32(int d, int tile, F&& f) {
   return (int)cudaErrorInvalidValue;
 }
 
-// Kernels 0-2 (K1-K3 in bf16).
+// Kernels 0 and 2 (K1 and K3 in bf16, on mma.sync).
 template <int D, int kBlock>
-int occupancy_of(int kernel, int* out) {
+int occupancy_of_fwd_dkv(int kernel, int* out) {
   if (kernel == 0)
     return occupancy(flash_fwd_kernel<D, kBlock>, FwdShape<D, kBlock>::kCtaThreads,
                      FwdShape<D, kBlock>::kSmemBytes, out);
-  if (kernel == 1)
-    return occupancy(flash_dq_kernel<D, kBlock>, DqShape<D, kBlock>::kCtaThreads,
-                     DqShape<D, kBlock>::kSmemBytes, out);
-  if (kernel == 2)
-    return occupancy(flash_dkv_kernel<D, kBlock>, DkvShape<D, kBlock>::kCtaThreads,
-                     DkvShape<D, kBlock>::kSmemBytes, out);
-  return (int)cudaErrorInvalidValue;
+  return occupancy(flash_dkv_kernel<D, kBlock>, DkvShape<D, kBlock>::kCtaThreads,
+                   DkvShape<D, kBlock>::kSmemBytes, out);
+}
+
+// Kernel 1 (K2 in bf16).
+template <int D, int kBlock>
+int occupancy_of_dq(int* out) {
+  return occupancy(flash_dq_kernel<D, kBlock>, DqShape<D, kBlock>::kCtaThreads,
+                   DqShape<D, kBlock>::kSmemBytes, out);
 }
 
 // Kernels 3-5 (K1-K3 in f32).
@@ -1581,9 +1604,11 @@ int occupancy_of_tf32(int kernel, int* out) {
 // statically, so PyTorch's current device does not carry over), launches
 // on `stream`, and returns the cudaError_t of the launch (0 = launched);
 // an unsupported head dim or tile returns cudaErrorInvalidValue. `tile`
-// is the square tile that the wrapper's launch_config chose for the
-// instance: 32 or 64 for the bf16 instances, 16 or 64 for the f32 ones
-// (16 or 32 at D = 256).
+// is the tile that the wrapper's launch_config chose for the instance: 32
+// or 64 for the bf16 instances, 16 or 64 for the f32 ones (16 or 32 at D =
+// 256); in bf16 at D = 64, 128 and 256 the long tile of K1 (128 query
+// rows) and of K3 (128 keys, 64 at D = 256) launches the TMA-fed kernels
+// of flash_attention_tma.cu.
 // Nothing here synchronises.
 extern "C" {
 
@@ -1593,7 +1618,9 @@ int swt_flash_fwd(const void* q, const void* k, const void* v, const void* mask,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return by_shape(d, tile, [&](auto dd, auto tt) {
+  if (swt::tma_tile(0, d, tile))
+    return swt::launch_fwd_tma(q, k, v, mask, out, lse, bh, heads, tq, tk, d, scale, causal, s);
+  return by_shape_fwd_dkv(d, tile, [&](auto dd, auto tt) {
     return launch_fwd<decltype(dd)::value, decltype(tt)::value>(
         q, k, v, mask, out, lse, bh, heads, tq, tk, scale, causal, s);
   });
@@ -1618,7 +1645,10 @@ int swt_flash_dkv(const void* q, const void* k, const void* v, const void* g, co
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return by_shape(d, tile, [&](auto dd, auto tt) {
+  if (swt::tma_tile(2, d, tile))
+    return swt::launch_dkv_tma(q, k, v, g, lse, delta, mask, dk, dv, bh, heads, tq, tk, d, scale,
+                               causal, s);
+  return by_shape_fwd_dkv(d, tile, [&](auto dd, auto tt) {
     return launch_dkv<decltype(dd)::value, decltype(tt)::value>(
         q, k, v, g, lse, delta, mask, dk, dv, bh, heads, tq, tk, scale, causal, s);
   });
@@ -1665,7 +1695,9 @@ int swt_flash_dkv_f32(const void* q, const void* k, const void* v, const void* g
 
 // Occupancy of kernel 0 (K1), 1 (K2), 2 (K3), or 3-5 (their f32
 // instances) at head dim d and tile `tile` (16 or 64 for kernels 3-5, 16
-// or 32 at D = 256; 32 or 64 for the others), or 6-8 (the wide bf16
+// or 32 at D = 256; 32 or 64 for the others, but for K1's and K3's long
+// tiles at D = 64-256, the TMA-fed kernels': K1 128, K3 128 or, at D =
+// 256, 64), or 6-8 (the wide bf16
 // instances) and 9-11 (the wide f32 ones) at a wide d and their tile
 // (flash_attention_wide.cu), on `device`: writes {CTAs per SM, threads per CTA, dynamic shared
 // bytes, registers per thread} to out[0..3].
@@ -1677,8 +1709,13 @@ int swt_flash_occupancy(int kernel, int d, int tile, int device, int* out) {
     return by_shape_tf32(d, tile, [&](auto dd, auto tt) {
       return occupancy_of_tf32<decltype(dd)::value, decltype(tt)::value>(kernel, out);
     });
-  return by_shape(d, tile, [&](auto dd, auto tt) {
-    return occupancy_of<decltype(dd)::value, decltype(tt)::value>(kernel, out);
+  if (kernel == 1)
+    return by_shape(d, tile, [&](auto dd, auto tt) {
+      return occupancy_of_dq<decltype(dd)::value, decltype(tt)::value>(out);
+    });
+  if (swt::tma_tile(kernel, d, tile)) return swt::tma_occupancy(kernel, d, out);
+  return by_shape_fwd_dkv(d, tile, [&](auto dd, auto tt) {
+    return occupancy_of_fwd_dkv<decltype(dd)::value, decltype(tt)::value>(kernel, out);
   });
 }
 

@@ -1,6 +1,7 @@
-// Building blocks that the narrow kernels (flash_attention.cu) and the
-// wide ones (flash_attention_wide.cu) share: cp.async, ldmatrix,
-// mma.sync in bf16 and as 3xTF32, and the launch helpers.
+// Building blocks that the narrow kernels (flash_attention.cu), the wide
+// ones (flash_attention_wide.cu) and the TMA-fed ones
+// (flash_attention_tma.cu) share: cp.async, ldmatrix, mma.sync in bf16 and
+// as 3xTF32, named barriers, wgmma in bf16, and the launch helpers.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -230,6 +231,141 @@ __device__ __forceinline__ Split<4> accum_to_a_tf32(const float (&c)[4]) {
 }
 
 // ---------------------------------------------------------------------------
+// Building blocks of the wgmma kernels (flash_attention_wide.cu,
+// flash_attention_tma.cu): named barriers, the async-proxy fence, wgmma's
+// matrix descriptors in the 128-byte swizzle and its bf16 products. A
+// warpgroup's accumulator holds warp w's rows 16w..16w + 15 in mma.sync's C
+// layout, n8 tile j in d[j].
+// ---------------------------------------------------------------------------
+
+// Two adjacent outputs of an accumulator row, (a, b), at p.
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+// bar.sync and bar.arrive on named barrier `id` (1-15; __syncthreads
+// takes 0) of `threads` threads.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Make this thread's landed cp.async copies and its stores to shared
+// memory visible to the async proxy, which wgmma reads its shared operands
+// through.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A wgmma matrix descriptor of the tile at p, 128-byte swizzle: start
+// address, leading byte offset `lbo` (K-major: unused; MN-major: the next
+// 64 columns), stride byte offset 1,024 (the next 8 rows; MN-major: the
+// next 8 reduction rows).
+__device__ __forceinline__ uint64_t wgmma_desc(const void* p, uint32_t lbo) {
+  return (uint64_t)((smem_addr(p) & 0x3ffff) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of an accumulator (kN n8
+// tiles) across the asynchronous wgmma that owns it.
+template <int kN>
+__device__ __forceinline__ void wgmma_hold(float (&d)[kN][4]) {
+#pragma unroll
+  for (int j = 0; j < kN; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
+  }
+}
+
+// The accumulator operand list of a 64 x 64 f32 wgmma (d[j][e]: register 4j
+// + e, n8 tile j) and of a 64 x 32 one.
+#define SWT_ACC64(d)                                                                              \
+  "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),      \
+      "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),  \
+      "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]),  \
+      "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),  \
+      "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),  \
+      "+f"(d[7][2]), "+f"(d[7][3])
+#define SWT_ACC32(d)                                                                              \
+  "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),      \
+      "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),  \
+      "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+#define SWT_REGS32                                                                                \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "   \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define SWT_REGS16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+
+// d (64 x 64 f32) += A . B^T over 16 columns, A (64 x 16) and B (64 x 16)
+// bf16 K-major in shared memory at descriptors da and db.
+__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SWT_REGS32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : SWT_ACC64(d)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64 x 64 f32) += A . B over 16 reduction rows: A (64 x 16 bf16) in
+// registers, warp w's rows 16w.. in mma.sync's A layout (accum_to_a), and
+// B (16 x 64 bf16) MN-major (rows of 64 columns) at descriptor db.
+__device__ __forceinline__ void wgmma_rs(float (&d)[8][4], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SWT_REGS32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : SWT_ACC64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// The operand list of a 64 x 128 f32 accumulator (d[j][e]: register 4j + e,
+// n8 tile j), and its register list.
+#define SWT_ACC128(d)                                                                             \
+  SWT_ACC64(d), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), "+f"(d[9][0]),       \
+      "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), "+f"(d[10][0]), "+f"(d[10][1]),               \
+      "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]),            \
+      "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),            \
+      "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]), "+f"(d[14][0]),            \
+      "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]),            \
+      "+f"(d[15][2]), "+f"(d[15][3])
+#define SWT_REGS64                                                                                \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "   \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "     \
+  "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "     \
+  "%56, %57, %58, %59, %60, %61, %62, %63}"
+
+// d (64 x 128 f32) += A . B^T over 16 columns, A (64 x 16) and B (128 x
+// 16) bf16 K-major in shared memory at descriptors da and db.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[16][4], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SWT_REGS64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : SWT_ACC128(d)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// ---------------------------------------------------------------------------
 // Launchers.
 // ---------------------------------------------------------------------------
 
@@ -277,4 +413,17 @@ namespace swt {
 // flash_attention_wide.cu): {CTAs per SM, threads, dynamic shared bytes,
 // registers} of wide kernel `kernel` at head dim d and tile `tile`.
 int wide_occupancy(int kernel, int d, int tile, int* out);
+
+// The TMA-fed K1 and K3 in bf16 (defined in flash_attention_tma.cu), which
+// take the long tile of kernels 0 (K1) and 2 (K3) at head dims 64, 128 and
+// 256: whether (d, tile) is theirs, their launches with swt_flash_fwd's
+// and swt_flash_dkv's arguments, and their occupancy in the form above.
+bool tma_tile(int kernel, int d, int tile);
+int launch_fwd_tma(const void* q, const void* k, const void* v, const void* mask, void* out,
+                   void* lse, int bh, int heads, int tq, int tk, int d, float scale, int causal,
+                   cudaStream_t stream);
+int launch_dkv_tma(const void* q, const void* k, const void* v, const void* g, const void* lse,
+                   const void* delta, const void* mask, void* dk, void* dv, int bh, int heads,
+                   int tq, int tk, int d, float scale, int causal, cudaStream_t stream);
+int tma_occupancy(int kernel, int d, int* out);
 }  // namespace swt

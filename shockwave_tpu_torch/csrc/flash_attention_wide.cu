@@ -22,14 +22,6 @@ namespace {
 
 constexpr int kWideSlice = 256;  // dK and dV columns a K3 CTA owns
 
-__device__ __forceinline__ void store2(bf16* p, float a, float b) {
-  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
-}
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-
 // ---------------------------------------------------------------------------
 // K1 at wide head dims: flash_fwd_wide, on wgmma in both dtypes (bf16, and
 // f32 as 3xTF32). Replaces _fa_kernel (shockwave_tpu/ops/flash_attention.py:40)
@@ -195,97 +187,6 @@ __device__ __forceinline__ void cp_async_wait_at_most(int n) {
     case 1: cp_async_wait<1>(); break;
     default: cp_async_wait<0>();
   }
-}
-
-// bar.sync and bar.arrive on named barrier `id` (1-15; __syncthreads
-// takes 0) of `threads` threads.
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-__device__ __forceinline__ void named_arrive(int id, int threads) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-// Make this thread's landed cp.async copies and its stores to shared
-// memory visible to the async proxy, which wgmma reads its shared operands
-// through.
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// A wgmma matrix descriptor of the tile at p, 128-byte swizzle: start
-// address, leading byte offset `lbo` (K-major: unused; MN-major: the next
-// 64 columns), stride byte offset 1,024 (the next 8 rows; MN-major: the
-// next 8 reduction rows).
-__device__ __forceinline__ uint64_t wgmma_desc(const void* p, uint32_t lbo) {
-  return (uint64_t)((smem_addr(p) & 0x3ffff) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from moving reads or writes of an accumulator (kN n8
-// tiles) across the asynchronous wgmma that owns it.
-template <int kN>
-__device__ __forceinline__ void wgmma_hold(float (&d)[kN][4]) {
-#pragma unroll
-  for (int j = 0; j < kN; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
-  }
-}
-
-// The accumulator operand list of a 64 x 64 f32 wgmma (d[j][e]: register 4j
-// + e, n8 tile j) and of a 64 x 32 one.
-#define SWT_ACC64(d)                                                                              \
-  "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),      \
-      "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),  \
-      "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]),  \
-      "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),  \
-      "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),  \
-      "+f"(d[7][2]), "+f"(d[7][3])
-#define SWT_ACC32(d)                                                                              \
-  "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),      \
-      "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),  \
-      "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
-#define SWT_REGS32                                                                                \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "   \
-  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-#define SWT_REGS16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
-
-// d (64 x 64 f32) += A . B^T over 16 columns, A (64 x 16) and B (64 x 16)
-// bf16 K-major in shared memory at descriptors da and db.
-__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SWT_REGS32
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : SWT_ACC64(d)
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// d (64 x 64 f32) += A . B over 16 reduction rows: A (64 x 16 bf16) in
-// registers, warp w's rows 16w.. in mma.sync's A layout (accum_to_a), and
-// B (16 x 64 bf16) MN-major (rows of 64 columns) at descriptor db.
-__device__ __forceinline__ void wgmma_rs(float (&d)[8][4], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SWT_REGS32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : SWT_ACC64(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 // d (64 x 64 f32) += A . B^T over 8 columns in TF32: A (64 x 8) in

@@ -1,7 +1,8 @@
 """Builds the port's CUDA kernels at first use and loads them with ctypes.
 
 One `nvcc` per source under `shockwave_tpu_torch/csrc/` (the narrow
-kernels and the wide ones), all started together, compiles an object
+kernels, the wide ones and the TMA-fed K1 and K3), all started together,
+compiles an object
 file, and a last `nvcc` links them into one shared library with a plain
 C interface (no PyTorch headers, so a build takes seconds, not minutes).
 The library lands in `shockwave_tpu_torch/csrc/build/<hash>/`, keyed by a
@@ -22,7 +23,7 @@ from typing import Optional
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC_DIR, "build")
-SOURCES = ("flash_attention.cu", "flash_attention_wide.cu")
+SOURCES = ("flash_attention.cu", "flash_attention_wide.cu", "flash_attention_tma.cu")
 HEADERS = ("flash_attention_common.cuh",)
 LIB_NAME = "libswt_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -35,7 +35,12 @@ summed in f32). One-pass TF32 is off, as the port keeps it everywhere.
 Neither dtype is cast to the other. Any other dtype raises on the card.
 The narrow instances issue `mma.sync` (m16n8k16 in bf16, m16n8k8 in
 TF32); the wide ones, K1-K3 in both dtypes, issue `wgmma` (m64nNk16 in
-bf16, m64nNk8 in TF32) from two warpgroups over 64-row tiles.
+bf16, m64nNk8 in TF32) from two warpgroups over 64-row tiles. In bf16 at
+head dims 64, 128 and 256, K1's and K3's long tile runs the TMA-fed
+kernels of `csrc/flash_attention_tma.cu` (`flash_fwd_tma`,
+`flash_dkv_tma`: a producer warp issues TMA loads completed on mbarriers,
+two consumer warpgroups run `wgmma`), reached through the same C entry
+points as the narrow instances, with their own launch counters.
 
 The kernels are built for head dims 32, 64, 128 and 256
 (`KERNEL_HEAD_DIMS`); above 256 each kernel has a wide instance
@@ -72,14 +77,20 @@ KERNEL_DTYPES = {torch.bfloat16: "", torch.float32: "_f32"}
 
 KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 WIDE = "_wide"
+TMA = "_tma"
 # Kernel instances in the C library's occupancy order: K1-K3 in bf16, in
 # f32, then their wide instances in bf16 and in f32.
 INSTANCES = tuple(name + suffix for suffix in KERNEL_DTYPES.values() for name in KERNELS)
 WIDE_INSTANCES = tuple(name + WIDE + suffix for suffix in KERNEL_DTYPES.values()
                        for name in KERNELS)
+# The TMA-fed K1 and K3 in bf16 (csrc/flash_attention_tma.cu), which run
+# the long tile of `flash_fwd` and `flash_dkv` at TMA_HEAD_DIMS; their C
+# entry points are those two instances'.
+TMA_INSTANCES = ("flash_fwd" + TMA, "flash_dkv" + TMA)
+TMA_HEAD_DIMS = (64, 128, 256)
 # Launches of each kernel instance since the last reset; a wrapper adds
 # one where it launches its kernel and nowhere else.
-LAUNCHES = {name: 0 for name in INSTANCES + WIDE_INSTANCES}
+LAUNCHES = {name: 0 for name in INSTANCES + WIDE_INSTANCES + TMA_INSTANCES}
 # The square tiles each kernel instance is built for, by (instance, head
 # dim) (rows per CTA = the width of the streamed tiles, 16 rows per warp):
 # (short tile, long tile, the longest sequence that takes the short
@@ -89,12 +100,19 @@ LAUNCHES = {name: 0 for name in INSTANCES + WIDE_INSTANCES}
 # At D = 256 the 3xTF32 instances' long tile is 32: two stages of 64-row
 # f32 K and V tiles of 256 columns (266 KB) would not fit the 227 KB a CTA
 # may take, 32-row ones leave room for the owned tiles (K1 166,656 bytes,
-# K2 and K3 about 200 KB). The bf16 instances keep 32 and 64 at D = 256
-# (169,472 to 203,776 bytes at 64).
+# K2 and K3 about 200 KB). The bf16 instances keep 32 up to T = 32; their
+# long tile is 64 (K2 at every head dim, K1 and K3 at D = 32) but for K1's
+# and K3's at TMA_HEAD_DIMS, which the TMA-fed kernels run: K1's 128 query
+# rows (two consumer warpgroups of 64), K3's 128 keys (64 at D = 256, where
+# one group owns dV and the other dK). The TMA instances' entries are their
+# base instance's.
 KERNEL_TILES = {(name + suffix, d): ((16, 32 if d == 256 else 64, 64) if suffix
                                      else (32, 64, 32))
                 for suffix in KERNEL_DTYPES.values() for name in KERNELS
                 for d in KERNEL_HEAD_DIMS}
+KERNEL_TILES.update({(name, d): (32, 64 if "dkv" in name and d == 256 else 128, 32)
+                     for base in ("flash_fwd", "flash_dkv") for name in (base, base + TMA)
+                     for d in TMA_HEAD_DIMS})
 # The wide instances' tiles in KERNEL_TILES' form (short, long, the
 # longest sequence that takes the short tile). K1's is 64 rows in both
 # dtypes (a wgmma's 64 rows; two warpgroups, csrc/flash_attention_wide.cu).
@@ -191,10 +209,25 @@ def _on_cpu(*tensors) -> bool:
                      f"one CUDA device; got {sorted(map(str, devices))}")
 
 
-def instance(kernel: str, dtype, d: int) -> str:
+def instance(kernel: str, dtype, d: int, tq: int = 1, tk: int = 1) -> str:
     """The `LAUNCHES` name of `kernel`'s instance for `dtype` at the
-    kernel head dim `d`: the wide one above `KERNEL_HEAD_DIMS`."""
-    return kernel + (WIDE if d > KERNEL_HEAD_DIMS[-1] else "") + KERNEL_DTYPES[dtype]
+    kernel head dim `d` and sequence lengths `tq`, `tk`: the wide one above
+    `KERNEL_HEAD_DIMS`, the TMA-fed one (`TMA_INSTANCES`) where it takes
+    the long tile."""
+    name = kernel + (WIDE if d > KERNEL_HEAD_DIMS[-1] else "") + KERNEL_DTYPES[dtype]
+    if (name + TMA in TMA_INSTANCES and d in TMA_HEAD_DIMS
+            and max(tq, tk) > KERNEL_TILES[name, d][2]):
+        return name + TMA
+    return name
+
+
+def tile_instance(name: str, d: int, tile: int) -> str:
+    """The instance that runs tile `tile` of instance `name` at head dim
+    `d`: `name`'s TMA-fed instance for its long tile at `TMA_HEAD_DIMS`,
+    else `name`."""
+    if name + TMA in TMA_INSTANCES and d in TMA_HEAD_DIMS and tile == KERNEL_TILES[name, d][1]:
+        return name + TMA
+    return name
 
 
 def launch_config(tq: int, tk: int, d: int, instance: str = "flash_fwd") -> int:
@@ -272,18 +305,20 @@ def _device_and_stream(t: torch.Tensor):
 
 
 def _launch(name: str, *args) -> None:
-    """Launch kernel instance `name` through its C entry point and count
-    it."""
+    """Launch kernel instance `name` through its C entry point (a TMA
+    instance's is its base instance's) and count it."""
     lib = _build.library()
-    _build.check(lib, getattr(lib, "swt_" + name)(*args), name)
+    entry = "swt_" + name.removesuffix(TMA)
+    _build.check(lib, getattr(lib, entry)(*args), name)
     LAUNCHES[name] += 1
 
 
 def attention_forward(q, k, v, kv_mask, heads: int, scale: float,
                       causal: bool):
     """K1: (out, lse). Plain version on the CPU; on CUDA `instance`'s
-    choice: `flash_fwd` (bf16) or `flash_fwd_f32`, or above head dim 256
-    `flash_fwd_wide` or `flash_fwd_wide_f32`."""
+    choice: `flash_fwd` (bf16; `flash_fwd_tma` on its long tile at D =
+    64-256) or `flash_fwd_f32`, or above head dim 256 `flash_fwd_wide` or
+    `flash_fwd_wide_f32`."""
     if _on_cpu(q, k, v, kv_mask):
         return attention_forward_plain(q, k, v, kv_mask, heads, scale, causal)
     _check_kernel_inputs(q, k, v, kv_mask, heads, "flash_fwd")
@@ -291,7 +326,7 @@ def attention_forward(q, k, v, kv_mask, heads: int, scale: float,
     out = torch.empty_like(q)
     lse = torch.empty(bh, tq, dtype=torch.float32, device=q.device)
     tk = k.shape[1]
-    name = instance("flash_fwd", q.dtype, d)
+    name = instance("flash_fwd", q.dtype, d, tq, tk)
     _launch(name, _ptr(q), _ptr(k), _ptr(v), _ptr(kv_mask), _ptr(out), _ptr(lse), bh, heads,
             tq, tk, d, launch_config(tq, tk, d, name), scale, int(causal),
             *_device_and_stream(q))
@@ -320,7 +355,7 @@ def attention_dq(q, k, v, g, lse, delta, kv_mask, heads: int, scale: float,
     bh, tq, d = q.shape
     dq = torch.empty_like(q)
     tk = k.shape[1]
-    name = instance("flash_dq", q.dtype, d)
+    name = instance("flash_dq", q.dtype, d, tq, tk)
     _launch(name, _ptr(q), _ptr(k), _ptr(v), _ptr(g), _ptr(lse), _ptr(delta), _ptr(kv_mask),
             _ptr(dq), bh, heads, tq, tk, d, launch_config(tq, tk, d, name), scale, int(causal),
             *_device_and_stream(q))
@@ -329,9 +364,9 @@ def attention_dq(q, k, v, g, lse, delta, kv_mask, heads: int, scale: float,
 
 def attention_dkv(q, k, v, g, lse, delta, kv_mask, heads: int, scale: float,
                   causal: bool):
-    """K3: (dK, dV). Plain version on the CPU; on CUDA `flash_dkv` (bf16)
-    or `flash_dkv_f32`, or above head dim 256 `flash_dkv_wide` or
-    `flash_dkv_wide_f32`."""
+    """K3: (dK, dV). Plain version on the CPU; on CUDA `flash_dkv` (bf16;
+    `flash_dkv_tma` on its long tile at D = 64-256) or `flash_dkv_f32`, or
+    above head dim 256 `flash_dkv_wide` or `flash_dkv_wide_f32`."""
     if _on_cpu(q, k, v, g, lse, delta, kv_mask):
         return attention_dkv_plain(q, k, v, g, lse, delta, kv_mask, heads,
                                    scale, causal)
@@ -341,7 +376,7 @@ def attention_dkv(q, k, v, g, lse, delta, kv_mask, heads: int, scale: float,
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     tk = k.shape[1]
-    name = instance("flash_dkv", q.dtype, d)
+    name = instance("flash_dkv", q.dtype, d, tq, tk)
     _launch(name, _ptr(q), _ptr(k), _ptr(v), _ptr(g), _ptr(lse), _ptr(delta), _ptr(kv_mask),
             _ptr(dk), _ptr(dv), bh, heads, tq, tk, d, launch_config(tq, tk, d, name), scale,
             int(causal), *_device_and_stream(q))
@@ -353,10 +388,11 @@ def kernel_occupancy(device: int = 0):
     `device` (cudaOccupancyMaxActiveBlocksPerMultiprocessor), with its
     threads, dynamic shared memory and registers, at each of its tiles; a
     wide instance's rows are at d = 512 (K1's and bf16 K2's and K3's
-    shared memory depends on d). Needs the card."""
+    shared memory depends on d). A tile that a TMA-fed instance runs is
+    its row (`tile_instance`). Needs the card."""
     lib = _build.library()
     rows = []
-    for kernel, name in enumerate(LAUNCHES):  # the C library's order
+    for kernel, name in enumerate(INSTANCES + WIDE_INSTANCES):  # the C library's order
         configs = ([(2 * WIDE_SLICE, tile) for tile in sorted(set(WIDE_TILES[name][:2]))]
                    if name in WIDE_TILES else
                    [(d, tile) for d in KERNEL_HEAD_DIMS for tile in KERNEL_TILES[name, d][:2]])
@@ -364,7 +400,7 @@ def kernel_occupancy(device: int = 0):
             out = (ctypes.c_int * 4)()
             rc = lib.swt_flash_occupancy(kernel, d, tile, device, out)
             _build.check(lib, rc, f"{name} occupancy")
-            rows.append({"kernel": name, "d": d, "tile": tile,
+            rows.append({"kernel": tile_instance(name, d, tile), "d": d, "tile": tile,
                          "ctas_per_sm": out[0], "threads": out[1],
                          "smem_bytes": out[2], "registers": out[3]})
     return rows

@@ -1,6 +1,7 @@
 """The wide instances of K1-K3 (`flash_fwd_wide`, `flash_dq_wide`,
-`flash_dkv_wide`, bf16 and f32) of several checkouts of this repository,
-timed in turns on one card.
+`flash_dkv_wide`, bf16 and f32) and the bf16 kernels at head dims 64-256
+(the TMA-fed K1 and K3 on the long tile, since they came) of several
+checkouts of this repository, timed in turns on one card.
 
     python -m shockwave_tpu_torch.profiling.fwd_wide_ab \\
         --trees .archive_check/parent . . .archive_check/parent
@@ -12,7 +13,9 @@ the comparison): the process imports that tree's
 `shockwave_tpu_torch.ops.flash_attention`, builds its kernel library from
 the tree's sources, and runs each case (`CASES`: the d = 512 main shape
 key-padded, the bench shape (4, 2048, 8, 512) causal, a ragged causal
-case at d = 768, in bf16 and f32) through `attention_forward`,
+case at d = 768, in bf16 and f32; the bench shape (4, 2048, 8, D) causal at
+D = 64, 128 and 256 and the main shape (64, 32, 8, 64) key-padded, in
+bf16) through `attention_forward`,
 `attention_dq` and `attention_dkv` (`--kernels`) against their plain
 versions on the same inputs (the backward on the kernel's own lse and
 delta = rowsum(dO * out), as chip_smoke.py runs it). Errors: the forward
@@ -24,12 +27,13 @@ replays, chip_smoke.py's timer) beside its plain version, and so are
 their difference is reported as SDPA's backward (`library_bwd_ms`, "fwd_bwd
 - fwd"), the one PyTorch call that computes dQ, dK and dV, the yardstick
 of K2 + K3 together. Of the port it uses only those six functions,
-`instance`, `LAUNCHES` and `reset_launch_counts`, which every checkout
-since the wide instances has. One JSON line
+`LAUNCHES` and `reset_launch_counts`, which every checkout since the wide
+instances has: each kernel run must have launched one instance of its own
+once. One JSON line
 per tree and case, then the card's `nvidia-smi` name and power limit; with
 `--build_report` also the compiler's lines and the SASS tensor-core
-mnemonics of each tree's wide kernels. Exits 1 when a case misses its
-tolerance, 2 without a card.
+mnemonics and TMA loads of each tree's wide and TMA-fed kernels. Exits 1
+when a case misses its tolerance, 2 without a card.
 """
 from __future__ import annotations
 
@@ -51,6 +55,10 @@ CASES = (
     ("d512_main_enc_self_f32", 64, 32, 8, 512, False, "tail", "f32"),
     ("d512_bench_causal_f32", 4, 2048, 8, 512, True, None, "f32"),
     ("d768_ragged_causal_f32", 2, 100, 4, 768, True, "tail", "f32"),
+    ("bench_causal", 4, 2048, 8, 64, True, None, "bf16"),
+    ("d128_bench_causal", 4, 2048, 8, 128, True, None, "bf16"),
+    ("d256_bench_causal", 4, 2048, 8, 256, True, None, "bf16"),
+    ("main_enc_self", 64, 32, 8, 64, False, "tail", "bf16"),
 )
 KERNELS = ("fwd", "dq", "dkv")
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -64,8 +72,9 @@ TOLS = {"bf16": (2e-2, 1e-3, 5e-2), "f32": (1e-4, 1e-4, 1e-4)}
 
 
 def sass_tensor_ops(library: str):
-    """{wide kernel's mangled name: {mnemonic: count}} of the HMMA and HGMMA
-    instructions of every wide kernel in the library's SASS."""
+    """{kernel's mangled name: {mnemonic: count}} of the HMMA, HGMMA and
+    UTMALDG instructions of every wide or TMA-fed kernel in the library's
+    SASS."""
     from torch.utils.cpp_extension import CUDA_HOME
     cuobjdump = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
     sass = subprocess.run([cuobjdump, "--dump-sass", library], capture_output=True, text=True,
@@ -74,11 +83,11 @@ def sass_tensor_ops(library: str):
     for line in sass.splitlines():
         fn = re.search(r"Function : (\S+)", line)
         if fn:
-            entry = fn.group(1) if "_wide" in fn.group(1) else None
+            entry = fn.group(1) if "_wide" in fn.group(1) or "_tma" in fn.group(1) else None
             if entry:
                 found[entry] = {}
             continue
-        op = re.search(r"\b(H(?:G)?MMA\S*)", line)
+        op = re.search(r"\b(H(?:G)?MMA\S*|UTMALDG\S*)", line)
         if op and entry:
             found[entry][op.group(1)] = found[entry].get(op.group(1), 0) + 1
     return found
@@ -141,9 +150,12 @@ def run_case(fa, case, seed, device, kernels=KERNELS, time_fn=None):
             errs[f"d{grad}_max_rel"] = err
             ok &= err <= grad_tol and bool(torch.isfinite(x.float()).all())
     ok &= bool(torch.isfinite(out.float()).all())
-    if device.type == "cuda":  # each kernel that ran launched its instance once
-        ok &= {n: c for n, c in launched.items() if c} == {
-            fa.instance("flash_" + kname, dtype, d): 1 for kname in ("fwd", *got)}
+    if device.type == "cuda":  # each kernel that ran launched one instance of its own once
+        ran = {n: c for n, c in launched.items() if c}
+        ok &= set(ran.values()) == {1} and sorted(
+            kname for n in ran for kname in ("fwd", *got)
+            if n == "flash_" + kname or n.startswith("flash_" + kname + "_")) == sorted(
+            ("fwd", *got))
     record = {"case": name, "shape": [b, t, h, d], "causal": causal, "dtype": dt, "ok": ok,
               **errs}
     if time_fn is None:
@@ -193,8 +205,10 @@ def run_tree(tree: str, build_report: bool, seed: int, kernels, cases) -> int:
         lines = [ln.strip() for ln in _build.build_log().splitlines()
                  if "registers" in ln or "spill" in ln or "Compiling entry" in ln
                  or "arning" in ln]
-        wide = [ln for i, ln in enumerate(lines) if "_wide" in ln or "arning" in ln
-                or (i and "_wide" in lines[i - 1]) or (i > 1 and "_wide" in lines[i - 2])]
+        def ours(ln):
+            return "_wide" in ln or "_tma" in ln
+        wide = [ln for i, ln in enumerate(lines) if ours(ln) or "arning" in ln
+                or (i and ours(lines[i - 1])) or (i > 1 and ours(lines[i - 2]))]
         print(json.dumps({"tree": tree, "build_s": time.time() - t0, "ptxas": wide,
                           "sass": sass_tensor_ops(path)}), flush=True)
     device = torch.device("cuda")

@@ -9,12 +9,15 @@
 #include <algorithm>
 #include <atomic>
 #include <barrier>
+#include <chrono>
 #include <cmath>
+#include <condition_variable>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
 #include <cstdio>
 #include <deque>
+#include <map>
 #include <memory>
 #include <mutex>
 #include <thread>
@@ -26,6 +29,9 @@
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __align__(n) alignas(n)
+#define __grid_constant__
+
+#include "cuda.h"
 
 struct dim3 {
   unsigned x, y, z;
@@ -46,7 +52,19 @@ inline float __expf(float x) { return exp2f(x * 1.4426950408889634f); }
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidDevice = 101 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidDevice = 101,
+       cudaErrorNotSupported = 801 };
+enum { cudaEnableDefault = 0 };
+typedef enum { cudaDriverEntryPointSuccess = 0, cudaDriverEntryPointSymbolNotFound = 1 }
+    cudaDriverEntryPointQueryResult;
+// What cudaGetDriverEntryPoint hands the kernels: cuTensorMapEncodeTiled only.
+inline cudaError_t cudaGetDriverEntryPoint(const char* symbol, void** fn, unsigned long long,
+                                           cudaDriverEntryPointQueryResult* found) {
+  const bool known = strcmp(symbol, "cuTensorMapEncodeTiled") == 0;
+  *fn = known ? reinterpret_cast<void*>(&emu_encode_tiled) : nullptr;
+  *found = known ? cudaDriverEntryPointSuccess : cudaDriverEntryPointSymbolNotFound;
+  return cudaSuccess;
+}
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 struct cudaFuncAttributes { int numRegs = 0; };
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
@@ -76,6 +94,12 @@ struct Cta {
   std::vector<std::unique_ptr<std::barrier<>>> warps;
   std::unique_ptr<std::barrier<>> named[16];  // bar.sync / bar.arrive ids, made at first use
   std::mutex named_mu;
+  // mbarriers by shared-memory offset: arrivals still pending, the count a
+  // phase starts with, transaction bytes outstanding, phases completed.
+  struct Mbar { int pending = 0, expected = 0; long tx = 0; unsigned phase = 0; };
+  std::map<uint32_t, Mbar> mbars;
+  std::mutex mbar_mu;
+  std::condition_variable mbar_cv;
   float exchange[32][32][8];  // [warp][lane][value]: shuffles and mma operands
 };
 inline thread_local Cta* t_cta;
@@ -268,7 +292,103 @@ inline float desc_element(uint64_t desc, bool mn_major, int mn, int k, bool tf32
   return bf16_bits_to_float(bits);
 }
 
-// wgmma.mma_async m64n64k16 (f32 += bf16 x bf16) runs when it is waited
+// mbarrier.init / arrive / arrive.expect_tx / try_wait.parity and the
+// transaction bytes of cp.async.bulk.tensor, as the PTX ISA defines them
+// for one CTA: a phase completes when its pending arrivals reach 0 and its
+// transaction count is back at 0; then the next phase starts with the
+// barrier's count. try_wait on parity P returns once the phase of parity P
+// has completed (at once for P = 1 on a barrier with no completed phase).
+// A wait that lasts a minute is a deadlock: it aborts with the barrier.
+inline uint32_t shared_offset(const void* p) {
+  return (uint32_t)(static_cast<const unsigned char*>(p) - smem());
+}
+inline Cta::Mbar& mbar_at(const void* bar) {
+  auto it = t_cta->mbars.find(shared_offset(bar));
+  if (it == t_cta->mbars.end()) {
+    fprintf(stderr, "emulated mbarrier at %u used before mbarrier.init\n", shared_offset(bar));
+    abort();
+  }
+  return it->second;
+}
+inline void mbar_settle(Cta::Mbar& m, const void* bar) {
+  if (m.pending < 0) {
+    fprintf(stderr, "emulated mbarrier at %u: more arrivals than its count\n", shared_offset(bar));
+    abort();
+  }
+  if (m.pending == 0 && m.tx == 0) {
+    ++m.phase;
+    m.pending = m.expected;
+    t_cta->mbar_cv.notify_all();
+  }
+}
+inline void mbar_init(void* bar, int count) {
+  std::lock_guard<std::mutex> hold(t_cta->mbar_mu);
+  t_cta->mbars[shared_offset(bar)] = Cta::Mbar{count, count, 0, 0};
+}
+inline void mbar_arrive(void* bar, long tx_bytes = 0) {
+  std::lock_guard<std::mutex> hold(t_cta->mbar_mu);
+  Cta::Mbar& m = mbar_at(bar);
+  m.tx += tx_bytes;
+  --m.pending;
+  mbar_settle(m, bar);
+}
+inline void mbar_complete_tx(void* bar, long bytes) {
+  std::lock_guard<std::mutex> hold(t_cta->mbar_mu);
+  Cta::Mbar& m = mbar_at(bar);
+  m.tx -= bytes;
+  mbar_settle(m, bar);
+}
+inline bool mbar_try_wait(void* bar, uint32_t parity) {
+  std::unique_lock<std::mutex> hold(t_cta->mbar_mu);
+  Cta::Mbar& m = mbar_at(bar);
+  if (!t_cta->mbar_cv.wait_for(hold, std::chrono::seconds(60),
+                               [&] { return (m.phase & 1u) != parity; })) {
+    fprintf(stderr, "emulated mbarrier at %u: parity %u never completed (deadlock)\n",
+            shared_offset(bar), parity);
+    abort();
+  }
+  return true;
+}
+
+// cp.async.bulk.tensor (tile mode) from global to shared memory: the box
+// of `map` at coordinates c (innermost first) lands at dst, row after row,
+// elements out of bounds as zeros; under the 128-byte swizzle, bits 4-6
+// of each shared address are XORed with bits 7-9, which needs dst 1 KB
+// aligned for the pattern wgmma's descriptors assume. Then the box's bytes
+// complete on `bar`. The copy runs in the issuing thread: it has landed
+// before the barrier can complete.
+inline void tma_load(void* dst, const CUtensorMap* map, void* bar, const int* c) {
+  const uint32_t base = shared_offset(dst);
+  if (map->swizzle == CU_TENSOR_MAP_SWIZZLE_128B && base % 1024) {
+    fprintf(stderr, "emulated TMA: 128-byte swizzled box at %u is not 1 KB aligned\n", base);
+    abort();
+  }
+  const int e = map->elem_bytes;
+  size_t n = 1;
+  for (int i = 0; i < map->rank; ++i) n *= map->box[i];
+  const size_t bytes = n * e;
+  if (shared_fits(dst, bytes)) {
+    for (size_t idx = 0; idx < n; ++idx) {
+      size_t rest = idx, src = 0;
+      bool in = true;
+      for (int i = 0; i < map->rank; ++i) {
+        const long coord = (long)c[i] + (long)(rest % map->box[i]);
+        rest /= map->box[i];
+        in = in && coord >= 0 && coord < (long)map->dims[i];
+        src += (size_t)(coord < 0 ? 0 : coord) * (i == 0 ? e : map->strides[i - 1]);
+      }
+      uint32_t off = base + (uint32_t)(idx * e);
+      if (map->swizzle == CU_TENSOR_MAP_SWIZZLE_128B) off ^= ((off >> 7) & 7) << 4;
+      if (in)
+        memcpy(smem() + off, map->base + src, e);
+      else
+        memset(smem() + off, 0, e);
+    }
+  }
+  mbar_complete_tx(bar, (long)bytes);
+}
+
+// wgmma.mma_async m64nNk16 (f32 += bf16 x bf16) runs when it is waited
 // for, as on the card, where it reads its shared operands and registers
 // asynchronously until then: a kernel that rewrites either before its
 // wgmma_wait reads the rewritten values here too. A from registers is
@@ -278,14 +398,14 @@ struct WgmmaOp {
   uint64_t da, db;
   uint32_t a[4];
   bool a_in_registers;
-  bool tf32 = false;  // m64nNk8 on TF32 (A in registers, B K-major), else m64n64k16 on bf16
+  bool tf32 = false;  // m64nNk8 on TF32 (A in registers, B K-major), else m64nNk16 on bf16
   int n = 64;
 };
 inline thread_local std::vector<WgmmaOp> t_wgmma_open;
 inline thread_local std::deque<std::vector<WgmmaOp>> t_wgmma_groups;
 
-inline void wgmma_ss(float* d, uint64_t da, uint64_t db) {
-  t_wgmma_open.push_back({d, da, db, {0, 0, 0, 0}, false});
+inline void wgmma_ss(float* d, uint64_t da, uint64_t db, int n = 64) {
+  t_wgmma_open.push_back({d, da, db, {0, 0, 0, 0}, false, false, n});
 }
 inline void wgmma_rs(float* d, const uint32_t* a, uint64_t db) {
   t_wgmma_open.push_back({d, 0, db, {a[0], a[1], a[2], a[3]}, true});
@@ -325,7 +445,7 @@ inline void wgmma_run(const WgmmaOp& op) {
   auto B = [&](int k, int n) {
     return desc_element(op.db, op.a_in_registers && !op.tf32, n, k, op.tf32);
   };
-  float out[32];
+  float out[128];
   for (int j = 0; j < op.n / 8; ++j)
     for (int e = 0; e < 4; ++e) {
       const int r = g + 8 * (e >> 1), n = 8 * j + 2 * t + (e & 1);

@@ -3,19 +3,26 @@ compiler, so that tests can run its kernels, bf16 and f32, on CPU
 tensors.
 
 `emulated_source` rewrites a `.cu` file of `shockwave_tpu_torch/csrc/`
-(`flash_attention.cu`, the narrow kernels, and `flash_attention_wide.cu`,
-the wide ones, each with the `.cuh` it includes inlined) into host C++:
-the PTX helpers (cp.async, ldmatrix, mma.sync, wgmma with its fence,
-commit and wait, named barriers, the async-proxy fence) get emulated
-bodies from `cuda_runtime.h` here, and each `kernel<<<...>>>(...)`
-launch runs its grid on host threads. `build` compiles both into one
+(`flash_attention.cu`, the narrow kernels, `flash_attention_wide.cu`, the
+wide ones, and `flash_attention_tma.cu`, the TMA-fed K1 and K3, each with
+the `.cuh` it includes inlined) into host C++: the PTX helpers (cp.async,
+ldmatrix, mma.sync, wgmma with its fence, commit and wait, named barriers,
+the async-proxy fence, mbarriers with their phases and transaction bytes,
+cp.async.bulk.tensor with the 128-byte swizzle and zero fill, setmaxnreg
+as a no-op) get emulated bodies from `cuda_runtime.h` here, the
+tensor-map encode call (`cuTensorMapEncodeTiled`) a host stand-in
+(`cuda.h`), and each
+`kernel<<<...>>>(...)` launch runs its grid on host threads, so a
+producer warp and its consumer warpgroups really run side by side.
+`build` compiles the three into one
 shared library with the same C entry points as the CUDA one, which also
 reports the tensor-core multiply-adds of the last launch
 (`emu_tensor_products`). The emulation holds the kernels' index math,
 masking, tiles, shared-memory layout (the 128-byte swizzle and wgmma's
 descriptors included, as the PTX ISA lays them out) and barrier
 protocol; it shows no timing, no race between a `cp.async` copy and the
-compute that should wait for it (copies land at once), and none of the
+compute that should wait for it (copies land at once; a TMA copy lands in
+the producer's thread before its barrier can complete), and none of the
 tensor cores' own rounding of sums: those need the card
 (`chip_smoke.py`).
 """
@@ -32,7 +39,8 @@ import tempfile
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(os.path.dirname(HERE)), "shockwave_tpu_torch", "csrc")
 SOURCES = tuple(os.path.join(CSRC, name) for name in ("flash_attention.cu",
-                                                       "flash_attention_wide.cu"))
+                                                       "flash_attention_wide.cu",
+                                                       "flash_attention_tma.cu"))
 
 # Emulated bodies of the helpers that hold inline PTX, by function name.
 BODIES = {
@@ -55,9 +63,19 @@ BODIES = {
     "wgmma_wait": "emu::wgmma_wait(N);",
     "wgmma_hold": "",
     "wgmma_ss": "emu::wgmma_ss(&d[0][0], da, db);",
+    "wgmma_ss_n128": "emu::wgmma_ss(&d[0][0], da, db, 128);",
     "wgmma_rs": "emu::wgmma_rs(&d[0][0], a, db);",
     "wgmma_tf32_n64": "emu::wgmma_tf32(&d[0][0], 64, a, db);",
     "wgmma_tf32_n32": "emu::wgmma_tf32(&d[0][0], 32, a, db);",
+    "mbar_init": "emu::mbar_init(bar, count);",
+    "mbar_fence_init": "",
+    "mbar_arrive": "emu::mbar_arrive(bar);",
+    "mbar_arrive_expect_tx": "emu::mbar_arrive(bar, bytes);",
+    "mbar_try_wait": "return emu::mbar_try_wait(bar, parity);",
+    "tma_load": "const int c[3] = {col, row, bh}; emu::tma_load(dst, &map, bar, c);",
+    "setmaxnreg_dec": "",
+    "setmaxnreg_inc": "",
+    "fast_exp2": "return exp2f(x);",
 }
 
 

@@ -221,7 +221,8 @@ class TestWrappers:
         assert set(fa.LAUNCHES) == {"flash_fwd", "flash_dq", "flash_dkv", "flash_fwd_f32",
                                     "flash_dq_f32", "flash_dkv_f32", "flash_fwd_wide",
                                     "flash_dq_wide", "flash_dkv_wide", "flash_fwd_wide_f32",
-                                    "flash_dq_wide_f32", "flash_dkv_wide_f32"}
+                                    "flash_dq_wide_f32", "flash_dkv_wide_f32", "flash_fwd_tma",
+                                    "flash_dkv_tma"}
         assert not any(fa.LAUNCHES.values())
 
     def test_other_devices_raise(self):
@@ -298,8 +299,14 @@ class TestLaunchConfig:
                     assert tile in (short, long)
                     # The short tile only where both sequences are in its reach.
                     assert (tile == short) == (max(tq, tk) <= short_up_to)
-                    if name not in self.TF32_INSTANCES:  # bf16 keeps 32 / 64
-                        assert tile == (32 if max(tq, tk) <= 32 else 64)
+                    if name not in self.TF32_INSTANCES:  # bf16: 32, then 64 (K2 at
+                        # every D, K1 and K3 at D = 32) or the TMA-fed K1's 128
+                        # rows and K3's 128 keys (64 at D = 256)
+                        long = (64 if name == "flash_dq" or d == 32 else
+                                128 if name == "flash_fwd" or d < 256 else 64)
+                        assert tile == (32 if max(tq, tk) <= 32 else long)
+                        assert (fa.instance(name, torch.bfloat16, d, tq, tk)
+                                == fa.tile_instance(name, d, tile))
                     else:  # f32: a 32-row long tile at D = 256 (shared memory)
                         assert tile == (16 if max(tq, tk) <= 64 else 32 if d == 256 else 64)
                     if name == "flash_fwd":  # the default instance
@@ -389,10 +396,82 @@ class TestLaunchConfig:
         # Each width's edges: one past and below the short tile, Tq != Tk
         # inside the long one, and the row that sees no key in both.
         shapes = {c[0]: c for c in smoke.CASES}
-        assert fa.launch_config(33, 33, 64) == 64 and "one_past_short" in shapes
+        assert fa.launch_config(33, 33, 64) == 128 and "one_past_short" in shapes
         assert {c[7] for c in smoke.CASES if c[2] == 32 and c[3] == 32} >= {"key0", "tail"}
-        assert any(c[2] != c[3] and fa.launch_config(c[2], c[3], c[5]) == 64
+        assert any(c[2] != c[3] and fa.launch_config(c[2], c[3], c[5]) == 128
                    for c in smoke.CASES if c[5] in fa.KERNEL_HEAD_DIMS)
+        # The TMA-fed K1 and K3 at each of their head dims: the bench shape,
+        # Tq != Tk key-padded, ragged causal and the row that sees no key.
+        for d in fa.TMA_HEAD_DIMS:
+            tma = [c for c in smoke.CASES if c[5] == d and max(c[2], c[3]) > 32]
+            assert any(c[1:4] == (4, 2048, 2048) and c[6] for c in tma), d
+            assert any(c[2] != c[3] and c[7] == "tail" for c in tma), d
+            assert any(c[6] and c[2] % 64 and c[7] == "tail" for c in tma), d
+            assert any(c[7] == "key0" for c in tma), d
+
+
+class TestChipSmokeKernelsLine:
+    """chip_smoke.py's `{"kernels": [...]}` line, assembled on the CPU from
+    stand-in records of its kernel cases and phases (the card fills the
+    numbers): one row per kernel instance, the TMA-fed ones included, each
+    with the contract's keys, its source in the repo and the Pallas kernel
+    it replaces."""
+
+    KEYS = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms"}
+
+    @staticmethod
+    def _record(fa, case, dtype):
+        name, b, tq, tk, h, d, causal, mask = case
+        record = {"case": name, "shape": [b, tq, tk, h, d], "causal": causal,
+                  "dtype": str(dtype), "mask": mask, "kernels": {}, "by_kernel": {},
+                  "library_fwd_ms": 1.0, "library_fwd_bwd_ms": 3.0, "library_bwd_ms": 2.0,
+                  "library_bwd_by": "fwd_bwd - fwd", "library_backend": "FLASH_ATTENTION",
+                  "flash_fwd_bwd_ms": 2.5}
+        for key in ("fwd_max_abs", "lse_max_abs", "dq_max_rel", "dk_max_rel", "dv_max_rel",
+                    "dq_max_abs", "dkv_max_abs"):
+            record[key] = 1e-3
+        for kname in fa.KERNELS:
+            iname = fa.instance(kname, dtype, d, tq, tk)
+            record["by_kernel"][kname] = iname
+            record["kernels"][iname] = {"ms": 0.5, "plain_ms": 5.0, "bound_ms": 0.1,
+                                        "bound_by": "operations", "bytes": 1, "flops": 1,
+                                        "tile": fa.launch_config(tq, tk, d, iname)}
+        return record
+
+    def test_kernels_line_names_every_instance(self):
+        smoke = _chip_smoke()
+        cases = {c[0]: self._record(fa, c, torch.bfloat16) for c in smoke.CASES}
+        cases.update({c[0]: self._record(fa, c, torch.float32) for c in smoke.F32_CASES})
+
+        def launches(names, count):
+            return {n: count if n in names else 0 for n in fa.LAUNCHES}
+
+        sliced = {"launches": launches(fa.INSTANCES[:3], 540)}
+        served = {"decoder_flash_f32": {"launches": launches(fa.INSTANCES[3:6], 2)}}
+        for d in (128, 256, 512):
+            served[f"decoder_flash_head_dim_{d}"] = {
+                widths: {"shape": [8, 64], "launches": launches(
+                    {fa.instance(k, dtype, d, 64, 64) for k in fa.KERNELS}, 2)}
+                for widths, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32))}
+        profiled = {"launches": launches(
+            {fa.instance(k, torch.bfloat16, 64, 2048, 2048) for k in fa.KERNELS}, 180)}
+        rows = smoke.kernel_rows(fa, cases, sliced, served, profiled)
+        assert sorted(r["name"] for r in rows) == sorted(fa.LAUNCHES)
+        for row in rows:
+            assert self.KEYS <= set(row), (row["name"], self.KEYS - set(row))
+            assert os.path.exists(os.path.join(REPO, row["source"])), row
+            assert row["replaces"].startswith("shockwave_tpu/ops/flash_attention.py:")
+            assert row["route"] == "cuda" and row["launches"] > 0, row
+        by_name = {r["name"]: r for r in rows}
+        for name in fa.TMA_INSTANCES:
+            row = by_name[name]
+            assert row["source"] == "shockwave_tpu_torch/csrc/flash_attention_tma.cu"
+            assert row["launches"] == 180 and row["at"].startswith("bench_causal")
+            assert {"d128_bench_ms", "d256_bench_ms"} <= set(row)
+        assert by_name["flash_fwd_tma"]["library_ms"] == 1.0
+        assert by_name["flash_fwd"]["launches"] == 540 and "bench_ms" not in by_name["flash_fwd"]
+        assert by_name["flash_dq"]["bench_long_launches"] == 180
 
 
 class _RecordingLibrary:
@@ -452,8 +531,8 @@ class TestCInterface:
         else:
             fa.attention_dkv(q, k, v, g, lse, delta, mask, heads, 0.125, causal)
         [(name, args)] = lib.calls
-        instance = fa.instance(f"flash_{kernel}", torch.bfloat16, d)
-        assert name == "swt_" + instance
+        instance = fa.instance(f"flash_{kernel}", torch.bfloat16, d, tq, tk)
+        assert name == "swt_" + instance.removesuffix(fa.TMA)  # a TMA instance: its base's
         self._check_types(name, args)
         assert fa.LAUNCHES[instance] == 1
         # ..., bh, heads, tq, tk, d, tile, scale, causal, device, stream
@@ -524,14 +603,17 @@ class TestCInterface:
                          for d in fa.KERNEL_HEAD_DIMS for tile in fa.KERNEL_TILES[name, d][:2]} | {
             (kernel, 512, tile) for kernel, name in enumerate(fa.LAUNCHES)
             if name in fa.WIDE_INSTANCES for tile in fa.WIDE_TILES[name][:2]}
-        assert list(fa.LAUNCHES) == list(fa.INSTANCES + fa.WIDE_INSTANCES)  # the C order
+        assert list(fa.LAUNCHES) == list(fa.INSTANCES + fa.WIDE_INSTANCES + fa.TMA_INSTANCES)
         assert {(r["kernel"], r["tile"]) for r in rows if r["d"] == 512} == {
             (name, tile) for name in fa.WIDE_INSTANCES for tile in fa.WIDE_TILES[name][:2]}
         assert {(r["kernel"], r["d"], r["tile"]) for r in rows} >= {
             ("flash_dq", d, tile) for d in (32, 64, 128, 256) for tile in (32, 64)}
-        for d in (128, 256):
+        for d in (128, 256):  # the long tiles of K1 and K3 in bf16 are the TMA instances'
             assert {(r["kernel"], r["tile"]) for r in rows if r["d"] == d} == {
-                (name, tile) for name in fa.INSTANCES for tile in fa.KERNEL_TILES[name, d][:2]}
+                (fa.tile_instance(name, d, tile), tile) for name in fa.INSTANCES
+                for tile in fa.KERNEL_TILES[name, d][:2]}
+            assert {("flash_fwd_tma", 128), ("flash_dkv_tma", 128 if d == 128 else 64)} <= {
+                (r["kernel"], r["tile"]) for r in rows if r["d"] == d}
         for d, long in ((128, 64), (256, 32)):
             assert {(r["kernel"], r["tile"]) for r in rows
                     if r["kernel"].endswith("_f32") and r["d"] == d} == {
@@ -551,16 +633,21 @@ class TestCInterface:
         assert out.shape == (b, t, h, d) and out.dtype == dtype
         out.backward(torch.ones_like(out))
         assert [x.grad.shape for x in (q, k, v)] == [(b, t, h, d)] * 3
-        instances = [fa.instance(f"flash_{kernel}", dtype, width)
+        instances = [fa.instance(f"flash_{kernel}", dtype, width, t, t)
                      for kernel in ("fwd", "dq", "dkv")]
-        assert [name for name, _ in lib.calls] == ["swt_" + i for i in instances]
+        assert [name for name, _ in lib.calls] == ["swt_" + i.removesuffix(fa.TMA)
+                                                   for i in instances]
         for (name, args), instance in zip(lib.calls, instances):
             self._check_types(name, args)
             tile = fa.launch_config(t, t, width, instance)
             # T = 48: past the reach of every wide instance's short tile
-            # but K1's (one tile of 64).
+            # but K1's (one tile of 64); in bf16 K1 and K3 at 64-256 take
+            # their TMA-fed instances' tiles.
             assert tile == (fa.WIDE_TILES[instance][1] if width > 256
-                            else 16 if dtype == torch.float32 else 64)
+                            else 16 if dtype == torch.float32
+                            else fa.KERNEL_TILES[instance, width][1] if fa.TMA in instance
+                            else 64)
+            assert fa.LAUNCHES[instance] == 1
             assert args[-10:-4] == (b * h, h, t, t, width, tile)
             assert args[-4:-2] == (pytest.approx(1.0 / math.sqrt(d)), 1)
 

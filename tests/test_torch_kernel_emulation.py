@@ -60,11 +60,15 @@ def _ptr(t):
 
 def _call(lib, kernel, dtype, *args, tq, tk, d, scale, causal):
     """swt_<instance>(*args, ..., d, tile, scale, causal, device, stream)
-    of `kernel`'s instance for `dtype` and d (the wide one above 256)."""
-    name = fa.instance(kernel, dtype, d)
+    of `kernel`'s instance for `dtype`, d and the lengths (the wide one
+    above 256; a TMA-fed one through its base instance's entry point), as
+    the wrapper calls it; returns the instance's name."""
+    name = fa.instance(kernel, dtype, d, tq, tk)
     tile = fa.launch_config(tq, tk, d, name)
-    rc = getattr(lib, f"swt_{name}")(*args, d, tile, scale, int(causal), 0, None)
+    rc = getattr(lib, "swt_" + name.removesuffix(fa.TMA))(*args, d, tile, scale, int(causal), 0,
+                                                          None)
     assert rc == 0, (name, tile, rc)
+    return name
 
 
 # (B, Tq, Tk, H, D, causal, mask): both tiles of every f32 instance, ragged

@@ -46,15 +46,24 @@ def test_bf16_kernels_match_the_plain_versions(lib, b, tq, tk, h, d, causal, mas
 
 def test_every_bf16_tile_is_emulated():
     """The bf16 cases reach both tiles of each bf16 instance at every head
-    dim, the row that sees no key at both tiles (at D = 256 too), and
-    d = 96 and 200 padded."""
+    dim (K1's and K3's long tile at D = 64, 128 and 256 through their
+    TMA-fed instances, each at every one of those widths), the row that
+    sees no key at both tiles (at D = 256 too), and d = 96 and 200
+    padded."""
     for name in fa.KERNELS:
         assert _reached(BF16_CASES, name) == {(tile, d) for d in fa.KERNEL_HEAD_DIMS
                                               for tile in fa.KERNEL_TILES[name, d][:2]}, name
         for widths in (fa.KERNEL_HEAD_DIMS, (256,)):
-            assert {fa.launch_config(c[1], c[2], fa.kernel_head_dim(c[4]), name)
-                    for c in BF16_CASES if c[6] == "key0"
-                    and fa.kernel_head_dim(c[4]) in widths} == set(fa.KERNEL_TILES[name, 256][:2])
+            met = set()
+            for c in BF16_CASES:
+                width = fa.kernel_head_dim(c[4])
+                if c[6] == "key0" and width in widths:
+                    tile = fa.launch_config(c[1], c[2], width, name)
+                    met.add("short" if tile == fa.KERNEL_TILES[name, width][0] else "long")
+            assert met == {"short", "long"}, (name, widths)
+    reached = {(fa.instance(name, torch.bfloat16, fa.kernel_head_dim(c[4]), c[1], c[2]),
+                fa.kernel_head_dim(c[4])) for name in fa.KERNELS for c in BF16_CASES}
+    assert {(name, d) for name in fa.TMA_INSTANCES for d in fa.TMA_HEAD_DIMS} <= reached
     assert {fa.kernel_head_dim(d) for _, _, _, _, d, _, _ in BF16_CASES
             if fa.kernel_head_dim(d) != d} == {128, 256}
 
