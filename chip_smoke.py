@@ -12,8 +12,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    (`spills:`); the HMMA instructions of each instantiation in the
    library's SASS, by mnemonic, with the TMA loads (`sass:`; the 3xTF32
    kernels must hold TF32 ones, the wgmma kernels, K1-K3 wide in both
-   dtypes, HGMMA ones of their dtype and no HMMA, and the TMA-fed K1 and
-   K3 in bf16 at D = 64, 128 and 256 bf16 HGMMA, UTMALDG and no HMMA);
+   dtypes, HGMMA ones of their dtype and no HMMA, and the TMA-fed K1-K3
+   in bf16 at D = 64, 128 and 256 bf16 HGMMA, UTMALDG and no HMMA);
    then each kernel instantiation's
    resident CTAs per SM, threads, shared memory and registers, and at the
    main shape each
@@ -24,8 +24,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    main path's three attention variants (B=64, T=32, H=8, D=64),
    cross-attention with Tq != Tk, head dim 32, the bench shape
    (4, 2048, 8, 64) causal, a causal row that sees no key, and the edges
-   of the kernels' two tile widths (32, and past T = 32 K2's 64 and the
-   TMA-fed K1's 128 rows and K3's 128 keys, chosen by `launch_config`):
+   of the kernels' two tile widths (32, and past T = 32 the TMA-fed K1's
+   and K2's 128 rows and K3's 128 keys, chosen by `launch_config`):
    ragged T=17, Tq=32 against Tk=48, T=33, D=32 at T=32 (both tiles 64
    there) and the key-0 row at T=32. Then each kernel's f32 instance
    (3xTF32 on the tensor cores) against the plain f32 version, at the
@@ -199,9 +199,10 @@ Output: `device:`, `build:`, `ptxas:`, `spills:`, `sass:` and
 then the
 `{"kernels": [...]}` line (the six kernel instances, each with its D =
 128 and D = 256 times beside, the six wide instances at D = 512, and the
-two TMA-fed ones, bf16 K1 and K3 on the long tile, at the bench shape
-with its D = 128 and 256 times beside, their launches the profile
-phase's T = 2048 steps'; the
+three TMA-fed ones, bf16 K1-K3 on the long tile, at the bench shape
+with its D = 128 and 256 times beside and, on K2's and K3's rows, K2 + K3
+against SDPA's backward at each D, their launches the profile phase's T
+= 2048 steps'; the
 main case's forward + backward through the port's autograd path and
 through `scaled_dot_product_attention`, the same at D = 256 and 512, the
 bench line's decode rate and headline, and the ring's and dryrun's
@@ -531,7 +532,7 @@ def check_launches(fa, launches, per_kernel, where, dtype=torch.bfloat16, kernel
                    width=64, t=32):
     """The instance of each of `kernels` (default: K1-K3) for `dtype` at
     kernel head dim `width` (the wide ones above 256) and sequences of
-    length `t` (the TMA-fed K1 and K3 past the short tile) launched exactly
+    length `t` (the TMA-fed K1-K3 past the short tile) launched exactly
     `per_kernel` times and every other instance never."""
     kernels = fa.KERNELS if kernels is None else kernels
     wanted = {fa.instance(kname, dtype, width, t, t) for kname in kernels}
@@ -553,7 +554,7 @@ def kernel_name(mangled: str) -> str:
     k = re.search(r"(flash_(?:fwd|dq|dkv)(?:_f32)?_kernel)ILi(\d+)ELi(\d+)E", mangled)
     if k:
         return f"{k.group(1)}<{k.group(2)}, {k.group(3)}>"
-    k = re.search(r"(flash_(?:fwd|dkv)_tma_kernel)ILi(\d+)E", mangled)
+    k = re.search(r"(flash_(?:fwd|dq|dkv)_tma_kernel)ILi(\d+)E", mangled)
     if k:
         return f"{k.group(1)}<{k.group(2)}>"
     k = re.search(r"(flash_(?:dq|dkv)_wide_f32_kernel)ILi(\d+)E(?:Lb([01])E)?", mangled)
@@ -2188,7 +2189,7 @@ def kernel_rows(fa, cases, sliced, served, profiled):
     # from: the trainer's (bf16) and the f32 decoder's (f32), which runs
     # no f32 launch at the trainer's shape; the f32 rows give that shape
     # beside it. A row's bench and D = 128 / 256 bench fields are there
-    # where the row's instance ran those cases (in bf16 K1's and K3's long
+    # where the row's instance ran those cases (in bf16 K1-K3's long
     # tile is the TMA-fed instances', rows of their own below).
     for dtype, at_name, prefix, bench in (
             (torch.bfloat16, MAIN_CASE, "main_", "bench_causal"),
@@ -2264,9 +2265,10 @@ def kernel_rows(fa, cases, sliced, served, profiled):
                             "main_library_ms": (main_case["library_fwd_ms"]
                                                 if kname == "flash_fwd" else None)})
             kernels.append(row)
-    # The TMA-fed K1 and K3 in bf16: timed at the bench shape, where their
+    # The TMA-fed K1-K3 in bf16: timed at the bench shape, where their
     # main-path launches come from (the profile phase's T = 2048 steps),
-    # and at the bench shape at D = 128 and 256.
+    # and at the bench shape at D = 128 and 256; K2's and K3's rows give
+    # K2 + K3 beside SDPA's backward at each D.
     for name in fa.TMA_INSTANCES:
         kname = name.removesuffix(fa.TMA)
         bench = cases["bench_causal"]
@@ -2286,15 +2288,22 @@ def kernel_rows(fa, cases, sliced, served, profiled):
         if not fwd:
             row.update({"library_bwd_ms": bench["library_bwd_ms"],
                         "library_bwd_of": "dQ, dK and dV (SDPA fwd_bwd - fwd)"})
-        for dw in (128, 256):
-            bw_case = cases[f"d{dw}_bench_causal"]
+        for dw in (64, 128, 256):
+            at = "" if dw == 64 else f"d{dw}_"
+            bw_case = cases[at + "bench_causal"]
+            if not fwd:
+                bwd = [bw_case["kernels"][bw_case["by_kernel"][n]]["ms"]
+                       for n in ("flash_dq", "flash_dkv")]
+                row.update({at + "bench_k2_k3_ms": sum(bwd),
+                            at + "bench_library_bwd_ms": bw_case["library_bwd_ms"]})
+            if dw == 64:
+                continue
             bw = bw_case["kernels"][name]
             row.update({f"d{dw}_bench_tile": bw["tile"], f"d{dw}_bench_ms": bw["ms"],
                         f"d{dw}_bench_plain_ms": bw["plain_ms"],
                         f"d{dw}_bench_bound_ms": bw["bound_ms"],
                         f"d{dw}_bench_bound_by": bw["bound_by"],
-                        f"d{dw}_bench_library_ms": bw_case["library_fwd_ms"] if fwd else None,
-                        f"d{dw}_bench_library_bwd_ms": bw_case["library_bwd_ms"]})
+                        f"d{dw}_bench_library_ms": bw_case["library_fwd_ms"] if fwd else None})
         kernels.append(row)
     # The wide instances: timed at the main and bench shapes at D = 512;
     # their main-path launches are the d = 512 decoder's (serving phase).
@@ -2398,10 +2407,10 @@ def main() -> int:
                   f"{name}: no {operand} HGMMA in its SASS ({ops})")
             check(not any(op.startswith("HMMA") for op in ops),
                   f"{name}: HMMA in its SASS ({ops})")
-    # The TMA-fed K1 and K3 in bf16, one instance per head dim 64, 128 and
-    # 256: bf16 HGMMA fed by UTMALDG, and no HMMA. The mma.sync K1 and K3
-    # keep only the short tile there.
-    for prefix in ("flash_fwd_tma_kernel<", "flash_dkv_tma_kernel<"):
+    # The TMA-fed K1-K3 in bf16, one instance per head dim 64, 128 and 256:
+    # bf16 HGMMA fed by UTMALDG, and no HMMA. The mma.sync K1-K3 keep only
+    # the short tile there.
+    for prefix in ("flash_fwd_tma_kernel<", "flash_dq_tma_kernel<", "flash_dkv_tma_kernel<"):
         found = {name: ops for name, ops in hmma.items() if name.startswith(prefix)}
         check(sorted(found) == sorted(f"{prefix}{d}>" for d in fa.TMA_HEAD_DIMS),
               f"{prefix}: {sorted(found)} in the SASS, not one per head dim {fa.TMA_HEAD_DIMS}")
@@ -2410,7 +2419,7 @@ def main() -> int:
                   and any(op.startswith("UTMALDG") for op in ops)
                   and not any(op.startswith("HMMA") for op in ops),
                   f"{name}: not bf16 HGMMA fed by UTMALDG without HMMA ({ops})")
-    for kname in ("flash_fwd_kernel", "flash_dkv_kernel"):
+    for kname in ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"):
         check(not any(f"{kname}<{d}, 64>" in hmma for d in fa.TMA_HEAD_DIMS),
               f"{kname}: a tile-64 instance at D = 64-256 is still built")
     occupancy = fa.kernel_occupancy(torch.cuda.current_device())

@@ -25,11 +25,11 @@
 // ring. The wrapper picks kBlock from the sequence lengths
 // (ops/flash_attention.py:launch_config): 32 when both are at most 32
 // (the trainer's T = 32: a 2-warp CTA per (bh), no padding rows), 64
-// otherwise. In bf16 at D = 64, 128 and 256, K1's and K3's long tile is
+// otherwise. In bf16 at D = 64, 128 and 256, the long tile of K1-K3 is
 // the TMA-fed wgmma kernels' (flash_attention_tma.cu, reached from
-// swt_flash_fwd and swt_flash_dkv below), so here K1 and K3 are built at
-// the short tile there (a wgmma tile's 64 rows, which the T = 32 path
-// cannot fill) and at both tiles at D = 32; K2 keeps both at every D.
+// swt_flash_fwd, swt_flash_dq and swt_flash_dkv below), so here K1-K3 are
+// built at the short tile there (a wgmma tile's 64 rows, which the T = 32
+// path cannot fill) and at both tiles at D = 32.
 #include "flash_attention_common.cuh"
 
 namespace {
@@ -324,7 +324,9 @@ __global__ void __launch_bounds__(FwdShape<D, kBlock>::kCtaThreads)
 //    fragments would take 128 more: there each warp reads them from its
 //    own rows of the shared Q and dO tiles at every 16 keys (kHoldQG
 //    false), as K1 reads Q at D = 256. Q, dO and two K/V stages take
-//    203,264 bytes at kBlock 64: one CTA per SM (two at kBlock 32).
+//    101,632 bytes at kBlock 32: two CTAs per SM. kBlock 64 is built at D
+//    = 32 only: at D = 64-256 the long tile is the TMA-fed K2's
+//    (flash_attention_tma.cu).
 // ---------------------------------------------------------------------------
 template <int D, int kBlock>
 struct DqShape {
@@ -1508,30 +1510,13 @@ int launch_dkv_f32(const void* q, const void* k, const void* v, const void* g, c
 }
 
 
-// f(D, kBlock) as integral constants for a supported (head dim, tile)
-// pair; cudaErrorInvalidValue for any other.
+// f(D, kBlock) as integral constants for a (head dim, tile) pair that
+// K1-K3's mma.sync instances in bf16 are built for, cudaErrorInvalidValue
+// for any other: both tiles at D = 32, the short tile only at D = 64, 128
+// and 256, whose long tile the TMA-fed kernels take (flash_attention_tma.cu,
+// swt::tma_tile).
 template <typename F>
 int by_shape(int d, int tile, F&& f) {
-  using I32 = std::integral_constant<int, 32>;
-  using I64 = std::integral_constant<int, 64>;
-  using I128 = std::integral_constant<int, 128>;
-  using I256 = std::integral_constant<int, 256>;
-  if (d == 256 && tile == 32) return f(I256{}, I32{});
-  if (d == 256 && tile == 64) return f(I256{}, I64{});
-  if (d == 128 && tile == 32) return f(I128{}, I32{});
-  if (d == 128 && tile == 64) return f(I128{}, I64{});
-  if (d == 64 && tile == 32) return f(I64{}, I32{});
-  if (d == 64 && tile == 64) return f(I64{}, I64{});
-  if (d == 32 && tile == 32) return f(I32{}, I32{});
-  if (d == 32 && tile == 64) return f(I32{}, I64{});
-  return (int)cudaErrorInvalidValue;
-}
-
-// The same for K1's and K3's mma.sync instances in bf16: both tiles at D =
-// 32, the short tile only at D = 64, 128 and 256, whose long tile the
-// TMA-fed kernels take (flash_attention_tma.cu, swt::tma_tile).
-template <typename F>
-int by_shape_fwd_dkv(int d, int tile, F&& f) {
   using I32 = std::integral_constant<int, 32>;
   using I64 = std::integral_constant<int, 64>;
   using I128 = std::integral_constant<int, 128>;
@@ -1565,21 +1550,17 @@ int by_shape_tf32(int d, int tile, F&& f) {
   return (int)cudaErrorInvalidValue;
 }
 
-// Kernels 0 and 2 (K1 and K3 in bf16, on mma.sync).
+// Kernels 0-2 (K1-K3 in bf16, on mma.sync).
 template <int D, int kBlock>
-int occupancy_of_fwd_dkv(int kernel, int* out) {
+int occupancy_of_bf16(int kernel, int* out) {
   if (kernel == 0)
     return occupancy(flash_fwd_kernel<D, kBlock>, FwdShape<D, kBlock>::kCtaThreads,
                      FwdShape<D, kBlock>::kSmemBytes, out);
+  if (kernel == 1)
+    return occupancy(flash_dq_kernel<D, kBlock>, DqShape<D, kBlock>::kCtaThreads,
+                     DqShape<D, kBlock>::kSmemBytes, out);
   return occupancy(flash_dkv_kernel<D, kBlock>, DkvShape<D, kBlock>::kCtaThreads,
                    DkvShape<D, kBlock>::kSmemBytes, out);
-}
-
-// Kernel 1 (K2 in bf16).
-template <int D, int kBlock>
-int occupancy_of_dq(int* out) {
-  return occupancy(flash_dq_kernel<D, kBlock>, DqShape<D, kBlock>::kCtaThreads,
-                   DqShape<D, kBlock>::kSmemBytes, out);
 }
 
 // Kernels 3-5 (K1-K3 in f32).
@@ -1606,9 +1587,9 @@ int occupancy_of_tf32(int kernel, int* out) {
 // an unsupported head dim or tile returns cudaErrorInvalidValue. `tile`
 // is the tile that the wrapper's launch_config chose for the instance: 32
 // or 64 for the bf16 instances, 16 or 64 for the f32 ones (16 or 32 at D =
-// 256); in bf16 at D = 64, 128 and 256 the long tile of K1 (128 query
-// rows) and of K3 (128 keys, 64 at D = 256) launches the TMA-fed kernels
-// of flash_attention_tma.cu.
+// 256); in bf16 at D = 64, 128 and 256 the long tile of K1 and K2 (128
+// query rows) and of K3 (128 keys, 64 at D = 256) launches the TMA-fed
+// kernels of flash_attention_tma.cu.
 // Nothing here synchronises.
 extern "C" {
 
@@ -1620,7 +1601,7 @@ int swt_flash_fwd(const void* q, const void* k, const void* v, const void* mask,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (swt::tma_tile(0, d, tile))
     return swt::launch_fwd_tma(q, k, v, mask, out, lse, bh, heads, tq, tk, d, scale, causal, s);
-  return by_shape_fwd_dkv(d, tile, [&](auto dd, auto tt) {
+  return by_shape(d, tile, [&](auto dd, auto tt) {
     return launch_fwd<decltype(dd)::value, decltype(tt)::value>(
         q, k, v, mask, out, lse, bh, heads, tq, tk, scale, causal, s);
   });
@@ -1632,6 +1613,9 @@ int swt_flash_dq(const void* q, const void* k, const void* v, const void* g, con
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (swt::tma_tile(1, d, tile))
+    return swt::launch_dq_tma(q, k, v, g, lse, delta, mask, dq, bh, heads, tq, tk, d, scale,
+                              causal, s);
   return by_shape(d, tile, [&](auto dd, auto tt) {
     return launch_dq<decltype(dd)::value, decltype(tt)::value>(
         q, k, v, g, lse, delta, mask, dq, bh, heads, tq, tk, scale, causal, s);
@@ -1648,7 +1632,7 @@ int swt_flash_dkv(const void* q, const void* k, const void* v, const void* g, co
   if (swt::tma_tile(2, d, tile))
     return swt::launch_dkv_tma(q, k, v, g, lse, delta, mask, dk, dv, bh, heads, tq, tk, d, scale,
                                causal, s);
-  return by_shape_fwd_dkv(d, tile, [&](auto dd, auto tt) {
+  return by_shape(d, tile, [&](auto dd, auto tt) {
     return launch_dkv<decltype(dd)::value, decltype(tt)::value>(
         q, k, v, g, lse, delta, mask, dk, dv, bh, heads, tq, tk, scale, causal, s);
   });
@@ -1695,8 +1679,8 @@ int swt_flash_dkv_f32(const void* q, const void* k, const void* v, const void* g
 
 // Occupancy of kernel 0 (K1), 1 (K2), 2 (K3), or 3-5 (their f32
 // instances) at head dim d and tile `tile` (16 or 64 for kernels 3-5, 16
-// or 32 at D = 256; 32 or 64 for the others, but for K1's and K3's long
-// tiles at D = 64-256, the TMA-fed kernels': K1 128, K3 128 or, at D =
+// or 32 at D = 256; 32 or 64 for the others, but for K1-K3's long tiles
+// at D = 64-256, the TMA-fed kernels': K1 and K2 128, K3 128 or, at D =
 // 256, 64), or 6-8 (the wide bf16
 // instances) and 9-11 (the wide f32 ones) at a wide d and their tile
 // (flash_attention_wide.cu), on `device`: writes {CTAs per SM, threads per CTA, dynamic shared
@@ -1709,13 +1693,9 @@ int swt_flash_occupancy(int kernel, int d, int tile, int device, int* out) {
     return by_shape_tf32(d, tile, [&](auto dd, auto tt) {
       return occupancy_of_tf32<decltype(dd)::value, decltype(tt)::value>(kernel, out);
     });
-  if (kernel == 1)
-    return by_shape(d, tile, [&](auto dd, auto tt) {
-      return occupancy_of_dq<decltype(dd)::value, decltype(tt)::value>(out);
-    });
   if (swt::tma_tile(kernel, d, tile)) return swt::tma_occupancy(kernel, d, out);
-  return by_shape_fwd_dkv(d, tile, [&](auto dd, auto tt) {
-    return occupancy_of_fwd_dkv<decltype(dd)::value, decltype(tt)::value>(kernel, out);
+  return by_shape(d, tile, [&](auto dd, auto tt) {
+    return occupancy_of_bf16<decltype(dd)::value, decltype(tt)::value>(kernel, out);
   });
 }
 

@@ -326,6 +326,16 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t da, uint64_t
       : "l"(da), "l"(db), "r"(1));
 }
 
+// The same for a 64 x 32 accumulator: B (32 x 16) K-major.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[4][4], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " SWT_REGS16
+      ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : SWT_ACC32(d)
+      : "l"(da), "l"(db), "r"(1));
+}
+
 // d (64 x 64 f32) += A . B over 16 reduction rows: A (64 x 16 bf16) in
 // registers, warp w's rows 16w.. in mma.sync's A layout (accum_to_a), and
 // B (16 x 64 bf16) MN-major (rows of 64 columns) at descriptor db.
@@ -414,14 +424,18 @@ namespace swt {
 // registers} of wide kernel `kernel` at head dim d and tile `tile`.
 int wide_occupancy(int kernel, int d, int tile, int* out);
 
-// The TMA-fed K1 and K3 in bf16 (defined in flash_attention_tma.cu), which
-// take the long tile of kernels 0 (K1) and 2 (K3) at head dims 64, 128 and
-// 256: whether (d, tile) is theirs, their launches with swt_flash_fwd's
-// and swt_flash_dkv's arguments, and their occupancy in the form above.
+// The TMA-fed K1-K3 in bf16 (defined in flash_attention_tma.cu), which
+// take the long tile of kernels 0 (K1), 1 (K2) and 2 (K3) at head dims 64,
+// 128 and 256: whether (d, tile) is theirs, their launches with
+// swt_flash_fwd's, swt_flash_dq's and swt_flash_dkv's arguments, and their
+// occupancy in the form above.
 bool tma_tile(int kernel, int d, int tile);
 int launch_fwd_tma(const void* q, const void* k, const void* v, const void* mask, void* out,
                    void* lse, int bh, int heads, int tq, int tk, int d, float scale, int causal,
                    cudaStream_t stream);
+int launch_dq_tma(const void* q, const void* k, const void* v, const void* g, const void* lse,
+                  const void* delta, const void* mask, void* dq, int bh, int heads, int tq,
+                  int tk, int d, float scale, int causal, cudaStream_t stream);
 int launch_dkv_tma(const void* q, const void* k, const void* v, const void* g, const void* lse,
                    const void* delta, const void* mask, void* dk, void* dv, int bh, int heads,
                    int tq, int tk, int d, float scale, int causal, cudaStream_t stream);

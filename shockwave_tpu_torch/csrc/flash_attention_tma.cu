@@ -1,20 +1,20 @@
-// Flash attention for Hopper (sm_90a): K1 (forward) and K3 (dK, dV) in
-// bf16 at head dims 64, 128 and 256 on sequences past the short tile
-// (ops/flash_attention.py:launch_config: max(Tq, Tk) > 32), fed by TMA.
-// They replace _fa_kernel (:40) and _dkv_kernel (:222) of
-// shockwave_tpu/ops/flash_attention.py there, with the narrow kernels'
-// arguments and masking (flash_attention.cu): causal entries -1e30, then
-// the key bias (-1e30 for a masked key, so an entry both causal-masked and
-// padded sits at -2e30), -inf past a ragged end, the running max from
-// -1e30, and p = 0 where s <= -5e29 in the backward. The narrow mma.sync
-// kernels keep the short tile (a wgmma tile has 64 rows) and D = 32; K2
-// keeps its mma.sync kernel.
+// Flash attention for Hopper (sm_90a): K1 (forward), K2 (dQ) and K3 (dK,
+// dV) in bf16 at head dims 64, 128 and 256 on sequences past the short
+// tile (ops/flash_attention.py:launch_config: max(Tq, Tk) > 32), fed by
+// TMA. They replace _fa_kernel (:40), _dq_kernel (:167) and _dkv_kernel
+// (:222) of shockwave_tpu/ops/flash_attention.py there, with the narrow
+// kernels' arguments and masking (flash_attention.cu): causal entries
+// -1e30, then the key bias (-1e30 for a masked key, so an entry both
+// causal-masked and padded sits at -2e30), -inf past a ragged end, the
+// running max from -1e30, and p = 0 where s <= -5e29 in the backward. The
+// narrow mma.sync kernels keep the short tile (a wgmma tile has 64 rows)
+// and D = 32.
 //
-// One CTA shape in both (kTmaThreads = 384 threads):
+// One CTA shape in all three (kTmaThreads = 384 threads):
 // - warpgroup 0 is the producer. After setmaxnreg lowers it to
 //   kProducerRegs registers a thread, its first warp issues every TMA load
-//   and computes the small per-tile vectors (K1: the key bias; K3: lse and
-//   delta) into shared memory; its other warps exit.
+//   and computes the small per-tile vectors (K1 and K2: the key bias; K3:
+//   lse and delta) into shared memory; its other warps exit.
 // - warpgroups 1 and 2 are the consumers. setmaxnreg raises them to
 //   kConsumerRegs; they run only wgmma and the elementwise terms.
 // Operands arrive by TMA (cp.async.bulk.tensor.3d) through 3-D tensor maps
@@ -28,14 +28,14 @@
 // arrival per consumer warp after its last wgmma on the stage). Products
 // read the tiles in place through matrix descriptors: K-major for the
 // scores, MN-major (the tile row-major, as it landed) for the B operand of
-// P.V, P^T.dO and dS^T.Q.
+// P.V, dS.K, P^T.dO and dS^T.Q.
 //
 // Masking is chosen per tile by template, not per element: tiles that
-// need no causal compare, no key bias and no ragged-end test (K1: keys
-// wholly below the group's rows, no key mask, inside Tk; K3: queries wholly
-// at or past the group's keys, inside Tq) take the plain step, the others
-// the masked one, in separate loops, so no wgmma sits behind a per-step
-// branch.
+// need no causal compare, no key bias and no ragged-end test (K1 and K2:
+// keys wholly below the group's rows, no key mask, inside Tk; K3: queries
+// wholly at or past the group's keys, inside Tq) take the plain step, the
+// others the masked one, in separate loops, so no wgmma sits behind a
+// per-step branch.
 #include <cuda.h>  // CUtensorMap and its enums; the encode call is reached at run time
 
 #include "flash_attention_common.cuh"
@@ -218,52 +218,98 @@ __device__ __forceinline__ void turn_pass(int grp, bool last) {
   if (grp == 0 || !last) named_arrive(3 + (grp ^ 1), 256);
 }
 
-// Issue S = Q.K^T for the group's 64 rows (gq) against the kN-key tile at
-// ck, into sc (zeroed here): D / 16 SS wgmma, committed, not waited.
-template <int D>
-__device__ __forceinline__ void fwd_issue_scores(float (&sc)[TmaFwdShape<D>::kN / 8][4],
-                                                 const bf16* gq, const bf16* ck) {
-  using Shape = TmaFwdShape<D>;
-  constexpr int kN = Shape::kN;
+// The SS wgmma of a 64 x kN f32 accumulator, kN = 32, 64 or 128 keys.
+template <int kN>
+__device__ __forceinline__ void wgmma_ss_n(float (&d)[kN / 8][4], uint64_t da, uint64_t db) {
+  if constexpr (kN == 128)
+    wgmma_ss_n128(d, da, db);
+  else if constexpr (kN == 64)
+    wgmma_ss(d, da, db);
+  else
+    wgmma_ss_n32(d, da, db);
+}
+
+// s (64 x kN f32) = A.B^T over D: A the group's 64 rows of a tile of
+// kRowsA rows at a (box c at a + c kRowsA 64), B the kN-row tile at b. SS
+// wgmma, both operands K-major, D / 16 instructions; s is zeroed here, the
+// products issued, not committed.
+template <int D, int kRowsA, int kN>
+__device__ __forceinline__ void scores_ss(float (&s)[kN / 8][4], const bf16* a, const bf16* b) {
 #pragma unroll
   for (int n = 0; n < kN / 8; ++n) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
   }
   wgmma_fence();
-  wgmma_hold(sc);
+  wgmma_hold(s);
 #pragma unroll
   for (int c = 0; c < D / kBox; ++c) {
-    const uint64_t da = wgmma_desc(gq + c * Shape::kRows * kBox, 16);
-    const uint64_t db = wgmma_desc(ck + c * kN * kBox, 16);
+    const uint64_t da = wgmma_desc(a + c * kRowsA * kBox, 16);
+    const uint64_t db = wgmma_desc(b + c * kN * kBox, 16);
 #pragma unroll
-    for (int kk = 0; kk < kBox / 16; ++kk) {
-      if constexpr (kN == 128)
-        wgmma_ss_n128(sc, da + 2 * kk, db + 2 * kk);
-      else
-        wgmma_ss(sc, da + 2 * kk, db + 2 * kk);
-    }
+    for (int kk = 0; kk < kBox / 16; ++kk) wgmma_ss_n<kN>(s, da + 2 * kk, db + 2 * kk);
   }
-  wgmma_commit();
 }
 
-// Issue O += P.V for the kN-key tile whose V is at cv, P the bf16 A
-// fragments pa: RS wgmma, m64n64k16 per 64 output columns and 16 keys,
-// V MN-major; committed, not waited.
-template <int D>
-__device__ __forceinline__ void fwd_issue_pv(float (&o)[D / kBox][8][4],
-                                             const uint32_t (&pa)[TmaFwdShape<D>::kN / 16][4],
-                                             const bf16* cv) {
-  constexpr int kN = TmaFwdShape<D>::kN;
+template <int kC>
+__device__ __forceinline__ void hold_all(float (&acc)[kC][8][4]) {
 #pragma unroll
-  for (int c = 0; c < D / kBox; ++c) wgmma_hold(o[c]);
+  for (int c = 0; c < kC; ++c) wgmma_hold(acc[c]);
+}
+
+// acc (64 x D) += A.X over the kK rows of the tile at x: A the bf16 A
+// fragments a (16 rows of X each; P, dS, P^T or dS^T packed from a score
+// accumulator), X MN-major (row-major, as it landed), a m64n64k16 per 64
+// columns and 16 rows. Issued, not committed.
+template <int D, int kK>
+__device__ __forceinline__ void add_product_rs(float (&acc)[D / kBox][8][4],
+                                               const uint32_t (&a)[kK / 16][4], const bf16* x) {
 #pragma unroll
   for (int c = 0; c < D / kBox; ++c) {
-    const uint64_t db = wgmma_desc(cv + c * kN * kBox, kN * kBox * 2);
+    const uint64_t db = wgmma_desc(x + c * kK * kBox, kK * kBox * 2);
 #pragma unroll
-    for (int kk = 0; kk < kN / 16; ++kk) wgmma_rs(o[c], pa[kk], db + (16 * 128 >> 4) * kk);
+    for (int kk = 0; kk < kK / 16; ++kk) wgmma_rs(acc[c], a[kk], db + (16 * 128 >> 4) * kk);
   }
-  wgmma_commit();
+}
+
+// Write the group's 64 x D f32 sum acc (its rows r0..r0 + 63; each
+// lane's row h times mul[h]) as bf16 rows of out_b (row stride D), rows
+// past tq dropped. The group's own rows of the 128-row tile at `stage`
+// (box c at stage + c 128 64; the group's Q rows) are free once all its
+// warps are past their last product that reads them: the rows go there in
+// the 128-byte swizzle (unit u of row r at u ^ (r % 8)), then out in
+// 16-byte stores of whole 128-byte rows.
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / kBox][8][4],
+                                           const float (&mul)[2], bf16* stage, bf16* out_b,
+                                           int r0, int tq, int grp, int tid) {
+  const int warp = tid >> 5, lane = tid & 31, t = lane & 3;
+  named_sync(1 + grp, 128);
+#pragma unroll
+  for (int c = 0; c < D / kBox; ++c) {
+    bf16* box = stage + c * 128 * kBox;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = warp * 16 + (lane >> 2) + 8 * h;
+        store2(box + r * kBox + ((n ^ (r & 7)) * 8) + 2 * t, acc[c][n][2 * h] * mul[h],
+               acc[c][n][2 * h + 1] * mul[h]);
+      }
+    }
+  }
+  named_sync(1 + grp, 128);
+#pragma unroll
+  for (int c = 0; c < D / kBox; ++c) {
+    const bf16* box = stage + c * 128 * kBox;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = (tid >> 3) + 16 * i, u = tid & 7;
+      if (r0 + r < tq)
+        *reinterpret_cast<uint4*>(out_b + (size_t)(r0 + r) * D + c * kBox + u * 8) =
+            *reinterpret_cast<const uint4*>(box + r * kBox + (u ^ (r & 7)) * 8);
+    }
+  }
 }
 
 // The online softmax of one k-tile, in the base-2 domain (scores times
@@ -436,7 +482,8 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
   uint32_t pa[kN / 16][4];
   mbar_wait(bar_q, 0);
   mbar_wait(&full_k[0], 0);
-  fwd_issue_scores<D>(sc, gq, sk);
+  scores_ss<D, kRows, kN>(sc, gq, sk);
+  wgmma_commit();
   wgmma_wait<0>();
   wgmma_hold(sc);
   if (plain_end > 0)
@@ -449,9 +496,12 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
   run_tiles(0, plain_end, nk, [&](int j, auto masked) {
     const int s = stage_of<kS>(j), sp = stage_of<kS>(j - 1);
     mbar_wait(&full_k[s], phase_of<kS>(j));
-    fwd_issue_scores<D>(sc, gq, sk + s * kN * D);
+    scores_ss<D, kRows, kN>(sc, gq, sk + s * kN * D);
+    wgmma_commit();
     mbar_wait(&full_v[sp], phase_of<kS>(j - 1));
-    fwd_issue_pv<D>(o, pa, sv + sp * kN * D);
+    hold_all(o);
+    add_product_rs<D, kN>(o, pa, sv + sp * kN * D);
+    wgmma_commit();
     wgmma_wait<1>();
     wgmma_hold(sc);
     fwd_softmax<kN, decltype(masked)::value>(sc, m, l, corr, sbias + s * kN, j * kN, row, t,
@@ -479,7 +529,9 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
     const int sp = stage_of<kS>(nk - 1);
     mbar_wait(&full_v[sp], phase_of<kS>(nk - 1));
     wgmma_fence();
-    fwd_issue_pv<D>(o, pa, sv + sp * kN * D);
+    hold_all(o);
+    add_product_rs<D, kN>(o, pa, sv + sp * kN * D);
+    wgmma_commit();
     wgmma_wait<0>();
 #pragma unroll
     for (int c = 0; c < D / kBox; ++c) wgmma_hold(o[c]);
@@ -493,41 +545,264 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
     lc[h] = fmaxf(l[h], 1e-30f);
     inv[h] = 1.f / lc[h];
   }
-  // The group's own Q rows are free once all its warps are past their
-  // last S: O goes there as bf16 in the same swizzle (unit u of row r at u
-  // ^ (r % 8)), then out in 16-byte stores of whole 128-byte rows.
-  named_sync(1 + grp, 128);
-#pragma unroll
-  for (int c = 0; c < D / kBox; ++c) {
-    bf16* box = gq + c * kRows * kBox;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = warp * 16 + (lane >> 2) + 8 * h;
-        store2(box + r * kBox + ((n ^ (r & 7)) * 8) + 2 * t, o[c][n][2 * h] * inv[h],
-               o[c][n][2 * h + 1] * inv[h]);
-      }
-    }
-  }
-  named_sync(1 + grp, 128);
-  bf16* out_b = out + (size_t)bh * tq * D;
-#pragma unroll
-  for (int c = 0; c < D / kBox; ++c) {
-    const bf16* box = gq + c * kRows * kBox;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = (tid >> 3) + 16 * i, u = tid & 7;
-      if (r0 + r < tq)
-        *reinterpret_cast<uint4*>(out_b + (size_t)(r0 + r) * D + c * kBox + u * 8) =
-            *reinterpret_cast<const uint4*>(box + r * kBox + (u ^ (r & 7)) * 8);
-    }
-  }
+  store_rows<D>(o, inv, gq, out + (size_t)bh * tq * D, r0, tq, grp, tid);
   if (t == 0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h)
       if (row[h] < tq) lse[(size_t)bh * tq + row[h]] = m[h] / kLog2e + logf(lc[h]);
   }
+}
+
+// ---------------------------------------------------------------------------
+// K2, dQ: flash_dq_tma_kernel<D>.
+//
+// Grid (BH, q-tiles of 128 rows), heaviest causal tile first, as K1's.
+// Consumer group G owns query rows 64G..64G + 63 of the CTA's tile, their
+// 64 x D f32 dQ sum (D / 2 registers a thread) and, in each thread's
+// registers, its two rows' lse (base 2) and delta, read once. The producer
+// loads the 128 x D Q and dO tiles once, under one barrier, then K and V
+// tiles of kN keys through a ring of kStages, K and V on their own "full"
+// and "empty" barriers (one shared pair stalled K1 1.5x on the card), the
+// tile's key bias with K. Per k-tile a group:
+// 1. issues S = Q.K^T and dP = dO.V^T (64 x kN f32 each) as SS wgmma, both
+//    operands K-major from the swizzled tiles, as one group; V's slot is
+//    released once they have retired;
+// 2. forms P = 2^(S scale log2(e) - lse2) and dS = P (dP - delta) scale in
+//    registers (dq_terms; masked tiles in _dq_kernel's order: causal
+//    -1e30, then the key bias, p = 0 where that is <= -5e29) and packs dS,
+//    rounded to bf16 as the reference's .astype(q.dtype), into A fragments;
+// 3. adds dS.K to dQ with RS wgmma (K MN-major, as K1's P.V reads V) and
+//    releases K's slot once that has retired.
+// 4. Overlap, as K1's: tile j's S and dP are issued right before tile j -
+//    1's dS.K, and tile j's terms run while that product is in flight; the
+//    groups drift apart on their own. On the card this beat waiting for
+//    dS.K before the next scores by 1.16x at D = 128 and 1.23x at D = 256
+//    and matched it at D = 64; K3's turns made K2 1.3-1.7x slower
+//    (PERF.md).
+// Masked and plain tiles are run_tiles' two instances, as in K1.
+// dQ leaves as bf16 through the group's own Q rows, as K1's O does; rows
+// past Tq are not stored.
+//
+// kN keeps S, dP, dS's A fragments and dQ inside a consumer's registers:
+// D = 64: 128 keys (64 + 64 + 32 + 32 a thread), D = 128: 64 (32 + 32 +
+// 16 + 64), D = 256: 32 (16 + 16 + 8 + 128).
+//
+// Bound on an H100 SXM: at the bench shape (4, 2048, 8, D) causal, 25.8 /
+// 51.6 / 103 GFLOP at D = 64 / 128 / 256 (three products per (q, k) pair):
+// 26.1 / 52.1 / 104 us by operations.
+//
+// Shared memory (1 KB alignment, Q and dO, the ring, the bias, the
+// barriers): D = 64: 32 KB + 4 x 32 KB; D = 128: 64 KB + 4 x 32 KB; D =
+// 256: 128 KB + 3 x 32 KB (230,888 bytes: a group holds K_{j-1}, K_j and
+// V_j at once, and with 2 stages the overlap was 1.1x slower than none).
+// ---------------------------------------------------------------------------
+template <int D>
+struct TmaDqShape {
+  static constexpr int kRows = 128;  // query rows a CTA owns
+  static constexpr int kN = D == 64 ? 128 : D == 128 ? 64 : 32;  // keys a k-tile
+  static constexpr int kStages = D == 256 ? 3 : 4;
+  static constexpr int kTileBytes = kN * D * 2;  // one K or V tile
+  static constexpr int kQBytes = kRows * D * 2;  // the Q or dO tile
+  // Byte offsets from the 1 KB aligned base.
+  static constexpr int kG = kQBytes;
+  static constexpr int kK = 2 * kQBytes;
+  static constexpr int kV = kK + kStages * kTileBytes;
+  static constexpr int kBias = kV + kStages * kTileBytes;
+  static constexpr int kBars = kBias + kStages * kN * 4;
+  static constexpr size_t kSmemBytes = kAlign + kBars + (1 + 4 * kStages) * 8;
+  static_assert(kSmemBytes <= kTmaMaxSmem, "K2's tiles do not fit a CTA");
+};
+
+// dS = P (dP - delta) scale in dp, from the group's S (sc) and dP (dp)
+// against the kN keys of the tile at k0: the lane's rows row[h] (lse2[h]
+// in base 2, delta[h]) against key 8n + 2t + (e & 1) of n8 tile n. P =
+// exp(S scale - lse) = 2^(S scale log2(e) - lse2). kMasked: the causal
+// -1e30, then the tile's key bias cb (0, -1e30, or -inf past Tk), and p = 0
+// where that is <= -5e29, as _dq_kernel has it.
+template <int kN, bool kMasked>
+__device__ __forceinline__ void dq_terms(const float (&sc)[kN / 8][4], float (&dp)[kN / 8][4],
+                                         const float* cb, int k0, const int (&row)[2], int t,
+                                         const float (&lse2)[2], const float (&delta)[2],
+                                         float scale, float scale2, int causal) {
+#pragma unroll
+  for (int n = 0; n < kN / 8; ++n) {
+    float2 bias;
+    if constexpr (kMasked) bias = *reinterpret_cast<const float2*>(cb + 8 * n + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1;
+      float p;
+      if constexpr (kMasked) {
+        float x = sc[n][e] * scale;
+        if (causal && row[h] < k0 + 8 * n + 2 * t + (e & 1)) x = kNegInf;
+        x += (e & 1) ? bias.y : bias.x;
+        p = x <= 0.5f * kNegInf ? 0.f : fast_exp2(fmaf(x, kLog2e, -lse2[h]));
+      } else {
+        p = fast_exp2(fmaf(sc[n][e], scale2, -lse2[h]));
+      }
+      dp[n][e] = p * (dp[n][e] - delta[h]) * scale;
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTmaThreads, 1)
+    flash_dq_tma_kernel(const __grid_constant__ CUtensorMap q_map,
+                        const __grid_constant__ CUtensorMap k_map,
+                        const __grid_constant__ CUtensorMap v_map,
+                        const __grid_constant__ CUtensorMap g_map,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        const uint8_t* __restrict__ mask, bf16* __restrict__ dq, int heads,
+                        int tq, int tk, float scale, int causal) {
+  using Shape = TmaDqShape<D>;
+  constexpr int kN = Shape::kN, kS = Shape::kStages, kRows = Shape::kRows;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* base = smem + (kAlign - smem_addr(smem) % kAlign) % kAlign;
+  bf16* sq = reinterpret_cast<bf16*>(base);
+  bf16* sg = reinterpret_cast<bf16*>(base + Shape::kG);
+  bf16* sk = reinterpret_cast<bf16*>(base + Shape::kK);
+  bf16* sv = reinterpret_cast<bf16*>(base + Shape::kV);
+  float* sbias = reinterpret_cast<float*>(base + Shape::kBias);
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(base + Shape::kBars);
+  uint64_t* full_k = bar_q + 1;
+  uint64_t* full_v = full_k + kS;
+  uint64_t* empty_k = full_v + kS;
+  uint64_t* empty_v = empty_k + kS;
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // causal: the longest k loops start first
+  int nk = (tk + kN - 1) / kN;
+  if (causal) nk = min(nk, (q0 + kRows - 1) / kN + 1);  // k-tiles past the diagonal see nothing
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(&full_k[s], 32);  // the producer warp: expect_tx, and the bias stored
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty_k[s], 8);  // one arrival per consumer warp
+      mbar_init(&empty_v[s], 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // the producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    const uint8_t* mask_row = mask != nullptr ? mask + (size_t)(bh / heads) * tk : nullptr;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(bar_q, 2 * Shape::kQBytes);
+      tma_load_tile<D>(sq, q_map, bar_q, kRows, q0, bh);
+      tma_load_tile<D>(sg, g_map, bar_q, kRows, q0, bh);
+    }
+    for (int j = 0; j < nk; ++j) {
+      const int s = stage_of<kS>(j);
+      mbar_wait(&empty_k[s], phase_of<kS>(j) ^ 1);
+      for (int i = lane; i < kN; i += 32) sbias[s * kN + i] = key_bias(mask_row, j * kN + i, tk);
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full_k[s], Shape::kTileBytes);
+        tma_load_tile<D>(sk + s * kN * D, k_map, &full_k[s], kN, j * kN, bh);
+      } else {
+        mbar_arrive(&full_k[s]);
+      }
+      mbar_wait(&empty_v[s], phase_of<kS>(j) ^ 1);
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full_v[s], Shape::kTileBytes);
+        tma_load_tile<D>(sv + s * kN * D, v_map, &full_v[s], kN, j * kN, bh);
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<kConsumerRegs>();
+  const int grp = threadIdx.x / 128 - 1, tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31, t = lane & 3;
+  const int r0 = q0 + 64 * grp;  // the group's first row
+  const int row[2] = {r0 + warp * 16 + (lane >> 2), r0 + warp * 16 + (lane >> 2) + 8};
+  // lse (base 2) and delta of the lane's rows; a row past Tq reads 0 (its
+  // Q and dO rows land as zeros, so its dS is 0) and is not stored.
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool in = row[h] < tq;
+    lse2[h] = in ? lse[(size_t)bh * tq + row[h]] * kLog2e : 0.f;
+    dl[h] = in ? delta[(size_t)bh * tq + row[h]] : 0.f;
+  }
+  bf16* gq = sq + grp * 64 * kBox;  // the group's rows of each Q box
+  const bf16* gg = sg + grp * 64 * kBox;
+  float acc[D / kBox][8][4];
+#pragma unroll
+  for (int c = 0; c < D / kBox; ++c) {
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][n][e] = 0.f;
+    }
+  }
+  const float scale2 = scale * kLog2e;
+
+  // Tiles from `plain_end` on need a mask: the first whose keys pass a row
+  // of the group (causal), or pass Tk; every tile where a key mask is given.
+  int plain_end = min(nk, tk / kN);
+  if (causal) plain_end = min(plain_end, (r0 + 1) / kN);
+  if (mask != nullptr) plain_end = 0;
+
+  auto release = [&](uint64_t* bar) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+  float sc[kN / 8][4], dp[kN / 8][4];
+  uint32_t dsa[kN / 16][4];
+  // S and dP of tile j, issued as one group, not waited.
+  auto issue_scores = [&](int j) {
+    const int s = stage_of<kS>(j);
+    mbar_wait(&full_k[s], phase_of<kS>(j));
+    mbar_wait(&full_v[s], phase_of<kS>(j));
+    scores_ss<D, kRows, kN>(sc, gq, sk + s * kN * D);
+    scores_ss<D, kRows, kN>(dp, gg, sv + s * kN * D);
+    wgmma_commit();
+  };
+  mbar_wait(bar_q, 0);
+
+  // Tile j's S and dP are issued right before tile j - 1's dS.K, and its
+  // terms run while that product is in flight (design note 4).
+  issue_scores(0);
+  wgmma_wait<0>();
+  wgmma_hold(sc);
+  wgmma_hold(dp);
+  release(&empty_v[0]);
+  if (plain_end > 0)
+    dq_terms<kN, false>(sc, dp, sbias, 0, row, t, lse2, dl, scale, scale2, causal);
+  else
+    dq_terms<kN, true>(sc, dp, sbias, 0, row, t, lse2, dl, scale, scale2, causal);
+  pack_p<kN>(dsa, dp);
+  run_tiles(0, plain_end, nk, [&](int j, auto masked) {
+    const int s = stage_of<kS>(j), sp = stage_of<kS>(j - 1);
+    issue_scores(j);
+    hold_all(acc);
+    add_product_rs<D, kN>(acc, dsa, sk + sp * kN * D);
+    wgmma_commit();
+    wgmma_wait<1>();
+    wgmma_hold(sc);
+    wgmma_hold(dp);
+    release(&empty_v[s]);  // V_j is read
+    dq_terms<kN, decltype(masked)::value>(sc, dp, sbias + s * kN, j * kN, row, t, lse2, dl,
+                                          scale, scale2, causal);
+    wgmma_wait<0>();
+    hold_all(acc);
+    release(&empty_k[sp]);  // K_{j-1} and its bias are read
+    pack_p<kN>(dsa, dp);
+  }, 1);
+  wgmma_fence();  // the last tile's dS.K
+  hold_all(acc);
+  add_product_rs<D, kN>(acc, dsa, sk + stage_of<kS>(nk - 1) * kN * D);
+  wgmma_commit();
+  wgmma_wait<0>();
+  hold_all(acc);
+
+  const float one[2] = {1.f, 1.f};
+  store_rows<D>(acc, one, gq, dq + (size_t)bh * tq * D, r0, tq, grp, tid);
 }
 
 // ---------------------------------------------------------------------------
@@ -657,47 +932,6 @@ __device__ __forceinline__ void dkv_grads(float (&dpt)[8][4], const float (&p)[8
   }
 }
 
-// s (64 x 64 f32) = A.B^T over D: A the group's 64 rows of a tile of
-// `a_rows` rows at a (box c at a + c a_rows 64), B the 64-row tile at b.
-template <int D>
-__device__ __forceinline__ void scores_ss(float (&s)[8][4], const bf16* a, int a_rows,
-                                          const bf16* b) {
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-  }
-  wgmma_fence();
-  wgmma_hold(s);
-#pragma unroll
-  for (int c = 0; c < D / kBox; ++c) {
-    const uint64_t da = wgmma_desc(a + c * a_rows * kBox, 16);
-    const uint64_t db = wgmma_desc(b + c * 64 * kBox, 16);
-#pragma unroll
-    for (int kk = 0; kk < kBox / 16; ++kk) wgmma_ss(s, da + 2 * kk, db + 2 * kk);
-  }
-}
-
-// acc (64 x D) += A.X over the tile's 64 queries: A from the 64 x 64
-// accumulator a (P^T or dS^T) packed to bf16, X the 64-row tile at x,
-// MN-major, a m64n64k16 per 64 columns and 16 queries. Issued, not waited.
-template <int D>
-__device__ __forceinline__ void add_product_rs(float (&acc)[D / kBox][8][4],
-                                               const uint32_t (&a)[4][4], const bf16* x) {
-#pragma unroll
-  for (int c = 0; c < D / kBox; ++c) {
-    const uint64_t db = wgmma_desc(x + c * 64 * kBox, 64 * kBox * 2);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc[c], a[kk], db + (16 * 128 >> 4) * kk);
-  }
-}
-
-template <int kC>
-__device__ __forceinline__ void hold_all(float (&acc)[kC][8][4]) {
-#pragma unroll
-  for (int c = 0; c < kC; ++c) wgmma_hold(acc[c]);
-}
-
 template <int D>
 __global__ void __launch_bounds__(kTmaThreads, 1)
     flash_dkv_tma_kernel(const __grid_constant__ CUtensorMap q_map,
@@ -818,9 +1052,9 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
       mbar_wait(&full[s], phase_of<kS>(i));
       float st[8][4], dpt[8][4];
       turn_wait(grp);
-      scores_ss<D>(st, gk, kKeys, cq);
+      scores_ss<D, kKeys, kQ>(st, gk, cq);
       wgmma_commit();
-      scores_ss<D>(dpt, gv, kKeys, cg);
+      scores_ss<D, kKeys, kQ>(dpt, gv, cg);
       wgmma_commit();
       turn_pass(grp, false);
       wgmma_wait<0>();
@@ -833,8 +1067,8 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
       wgmma_fence();
       hold_all(acc);
       hold_all(acc2);
-      add_product_rs<D>(acc, pa, cg);
-      add_product_rs<D>(acc2, dsa, cq);
+      add_product_rs<D, kQ>(acc, pa, cg);
+      add_product_rs<D, kQ>(acc2, dsa, cq);
       wgmma_commit();
       turn_pass(grp, i == tiles - 1);
       wgmma_wait<0>();
@@ -849,7 +1083,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
       const int s = stage_of<kS>(i), q0 = (qt0 + i) * kQ;
       mbar_wait(&full[s], phase_of<kS>(i));
       float st[8][4];
-      scores_ss<D>(st, gk, kKeys, sq + s * kQ * D);
+      scores_ss<D, kKeys, kQ>(st, gk, sq + s * kQ * D);
       wgmma_commit();
       wgmma_wait<0>();
       wgmma_hold(st);
@@ -867,7 +1101,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
       for (int kk = 0; kk < 4; ++kk) accum_to_a(pa[kk], st[2 * kk], st[2 * kk + 1]);
       wgmma_fence();
       hold_all(acc);
-      add_product_rs<D>(acc, pa, sg + s * kQ * D);
+      add_product_rs<D, kQ>(acc, pa, sg + s * kQ * D);
       wgmma_commit();
       wgmma_wait<0>();
       hold_all(acc);
@@ -881,7 +1115,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
       const int s = stage_of<kS>(i);
       mbar_wait(&full[s], phase_of<kS>(i));
       float dpt[8][4], p[8][4];
-      scores_ss<D>(dpt, gv, kKeys, sg + s * kQ * D);
+      scores_ss<D, kKeys, kQ>(dpt, gv, sg + s * kQ * D);
       wgmma_commit();
       wgmma_wait<0>();
       wgmma_hold(dpt);
@@ -898,7 +1132,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
       for (int kk = 0; kk < 4; ++kk) accum_to_a(dsa[kk], dpt[2 * kk], dpt[2 * kk + 1]);
       wgmma_fence();
       hold_all(acc);
-      add_product_rs<D>(acc, dsa, sq + s * kQ * D);
+      add_product_rs<D, kQ>(acc, dsa, sq + s * kQ * D);
       wgmma_commit();
       wgmma_wait<0>();
       hold_all(acc);
@@ -994,6 +1228,28 @@ int launch_fwd_tma_as(const void* q, const void* k, const void* v, const void* m
 }
 
 template <int D>
+int launch_dq_tma_as(const void* q, const void* k, const void* v, const void* g, const void* lse,
+                     const void* delta, const void* mask, void* dq, int bh, int heads, int tq,
+                     int tk, float scale, int causal, cudaStream_t stream) {
+  using Shape = TmaDqShape<D>;
+  CUtensorMap maps[4];
+  int err = tensor_map(&maps[0], q, bh, tq, D, Shape::kRows);
+  if (err == 0) err = tensor_map(&maps[1], k, bh, tk, D, Shape::kN);
+  if (err == 0) err = tensor_map(&maps[2], v, bh, tk, D, Shape::kN);
+  if (err == 0) err = tensor_map(&maps[3], g, bh, tq, D, Shape::kRows);
+  if (err != 0) return err;
+  static bool configured[kMaxDevices] = {};
+  const cudaError_t set = set_smem(flash_dq_tma_kernel<D>, Shape::kSmemBytes, configured);
+  if (set != cudaSuccess) return (int)set;
+  const dim3 grid(bh, (tq + Shape::kRows - 1) / Shape::kRows);
+  flash_dq_tma_kernel<D><<<grid, kTmaThreads, Shape::kSmemBytes, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const uint8_t*>(mask), static_cast<bf16*>(dq),
+      heads, tq, tk, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
 int launch_dkv_tma_as(const void* q, const void* k, const void* v, const void* g, const void* lse,
                       const void* delta, const void* mask, void* dk, void* dv, int bh, int heads,
                       int tq, int tk, float scale, int causal, cudaStream_t stream) {
@@ -1029,10 +1285,11 @@ int by_tma_head_dim(int d, F&& f) {
 
 namespace swt {
 
-// K1's tile is its 128 query rows; K3's its keys (128, or 64 at D = 256).
+// K1's and K2's tile is their 128 query rows; K3's its keys (128, or 64
+// at D = 256).
 bool tma_tile(int kernel, int d, int tile) {
   if (d != 64 && d != 128 && d != 256) return false;
-  if (kernel == 0) return tile == 128;
+  if (kernel == 0 || kernel == 1) return tile == 128;
   if (kernel == 2) return tile == (d == 256 ? 64 : 128);
   return false;
 }
@@ -1043,6 +1300,15 @@ int launch_fwd_tma(const void* q, const void* k, const void* v, const void* mask
   return by_tma_head_dim(d, [&](auto dd) {
     return launch_fwd_tma_as<decltype(dd)::value>(q, k, v, mask, out, lse, bh, heads, tq, tk,
                                                   scale, causal, stream);
+  });
+}
+
+int launch_dq_tma(const void* q, const void* k, const void* v, const void* g, const void* lse,
+                  const void* delta, const void* mask, void* dq, int bh, int heads, int tq,
+                  int tk, int d, float scale, int causal, cudaStream_t stream) {
+  return by_tma_head_dim(d, [&](auto dd) {
+    return launch_dq_tma_as<decltype(dd)::value>(q, k, v, g, lse, delta, mask, dq, bh, heads, tq,
+                                                 tk, scale, causal, stream);
   });
 }
 
@@ -1060,6 +1326,8 @@ int tma_occupancy(int kernel, int d, int* out) {
     constexpr int D = decltype(dd)::value;
     if (kernel == 0)
       return occupancy(flash_fwd_tma_kernel<D>, kTmaThreads, TmaFwdShape<D>::kSmemBytes, out);
+    if (kernel == 1)
+      return occupancy(flash_dq_tma_kernel<D>, kTmaThreads, TmaDqShape<D>::kSmemBytes, out);
     if (kernel == 2)
       return occupancy(flash_dkv_tma_kernel<D>, kTmaThreads, TmaDkvShape<D>::kSmemBytes, out);
     return (int)cudaErrorInvalidValue;

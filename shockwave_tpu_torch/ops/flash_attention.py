@@ -36,11 +36,12 @@ Neither dtype is cast to the other. Any other dtype raises on the card.
 The narrow instances issue `mma.sync` (m16n8k16 in bf16, m16n8k8 in
 TF32); the wide ones, K1-K3 in both dtypes, issue `wgmma` (m64nNk16 in
 bf16, m64nNk8 in TF32) from two warpgroups over 64-row tiles. In bf16 at
-head dims 64, 128 and 256, K1's and K3's long tile runs the TMA-fed
+head dims 64, 128 and 256, the long tile of K1-K3 runs the TMA-fed
 kernels of `csrc/flash_attention_tma.cu` (`flash_fwd_tma`,
-`flash_dkv_tma`: a producer warp issues TMA loads completed on mbarriers,
-two consumer warpgroups run `wgmma`), reached through the same C entry
-points as the narrow instances, with their own launch counters.
+`flash_dq_tma`, `flash_dkv_tma`: a producer warp issues TMA loads
+completed on mbarriers, two consumer warpgroups run `wgmma`), reached
+through the same C entry points as the narrow instances, with their own
+launch counters.
 
 The kernels are built for head dims 32, 64, 128 and 256
 (`KERNEL_HEAD_DIMS`); above 256 each kernel has a wide instance
@@ -83,10 +84,10 @@ TMA = "_tma"
 INSTANCES = tuple(name + suffix for suffix in KERNEL_DTYPES.values() for name in KERNELS)
 WIDE_INSTANCES = tuple(name + WIDE + suffix for suffix in KERNEL_DTYPES.values()
                        for name in KERNELS)
-# The TMA-fed K1 and K3 in bf16 (csrc/flash_attention_tma.cu), which run
-# the long tile of `flash_fwd` and `flash_dkv` at TMA_HEAD_DIMS; their C
-# entry points are those two instances'.
-TMA_INSTANCES = ("flash_fwd" + TMA, "flash_dkv" + TMA)
+# The TMA-fed K1-K3 in bf16 (csrc/flash_attention_tma.cu), which run the
+# long tile of `flash_fwd`, `flash_dq` and `flash_dkv` at TMA_HEAD_DIMS;
+# their C entry points are those instances'.
+TMA_INSTANCES = tuple(name + TMA for name in KERNELS)
 TMA_HEAD_DIMS = (64, 128, 256)
 # Launches of each kernel instance since the last reset; a wrapper adds
 # one where it launches its kernel and nowhere else.
@@ -101,17 +102,16 @@ LAUNCHES = {name: 0 for name in INSTANCES + WIDE_INSTANCES + TMA_INSTANCES}
 # f32 K and V tiles of 256 columns (266 KB) would not fit the 227 KB a CTA
 # may take, 32-row ones leave room for the owned tiles (K1 166,656 bytes,
 # K2 and K3 about 200 KB). The bf16 instances keep 32 up to T = 32; their
-# long tile is 64 (K2 at every head dim, K1 and K3 at D = 32) but for K1's
-# and K3's at TMA_HEAD_DIMS, which the TMA-fed kernels run: K1's 128 query
-# rows (two consumer warpgroups of 64), K3's 128 keys (64 at D = 256, where
-# one group owns dV and the other dK). The TMA instances' entries are their
-# base instance's.
+# long tile is 64 at D = 32 and, at TMA_HEAD_DIMS, the TMA-fed kernels':
+# K1's and K2's 128 query rows (two consumer warpgroups of 64), K3's 128
+# keys (64 at D = 256, where one group owns dV and the other dK). The TMA
+# instances' entries are their base instance's.
 KERNEL_TILES = {(name + suffix, d): ((16, 32 if d == 256 else 64, 64) if suffix
                                      else (32, 64, 32))
                 for suffix in KERNEL_DTYPES.values() for name in KERNELS
                 for d in KERNEL_HEAD_DIMS}
 KERNEL_TILES.update({(name, d): (32, 64 if "dkv" in name and d == 256 else 128, 32)
-                     for base in ("flash_fwd", "flash_dkv") for name in (base, base + TMA)
+                     for base in KERNELS for name in (base, base + TMA)
                      for d in TMA_HEAD_DIMS})
 # The wide instances' tiles in KERNEL_TILES' form (short, long, the
 # longest sequence that takes the short tile). K1's is 64 rows in both
@@ -344,7 +344,8 @@ def _check_backward_inputs(q, g, lse, delta):
 
 def attention_dq(q, k, v, g, lse, delta, kv_mask, heads: int, scale: float,
                  causal: bool):
-    """K2: dQ. Plain version on the CPU; on CUDA `flash_dq` (bf16) or
+    """K2: dQ. Plain version on the CPU; on CUDA `instance`'s choice:
+    `flash_dq` (bf16; `flash_dq_tma` on its long tile at D = 64-256) or
     `flash_dq_f32`, or above head dim 256 `flash_dq_wide` or
     `flash_dq_wide_f32`."""
     if _on_cpu(q, k, v, g, lse, delta, kv_mask):

@@ -1,9 +1,15 @@
 """The wide instances of K1-K3 (`flash_fwd_wide`, `flash_dq_wide`,
 `flash_dkv_wide`, bf16 and f32) and the bf16 kernels at head dims 64-256
-(the TMA-fed K1 and K3 on the long tile, since they came) of several
+(the TMA-fed K1-K3 on the long tile, where a tree has them) of several
 checkouts of this repository, timed in turns on one card.
 
     python -m shockwave_tpu_torch.profiling.fwd_wide_ab \\
+        --trees .archive_check/parent . . .archive_check/parent
+
+K2's A/B at long sequences, K2 + K3 beside SDPA's backward:
+
+    python -m shockwave_tpu_torch.profiling.fwd_wide_ab --kernels dq dkv \\
+        --cases bench_causal d128_bench_causal d256_bench_causal main_enc_self \\
         --trees .archive_check/parent . . .archive_check/parent
 
 The trees' kernel libraries are first built side by side, one process

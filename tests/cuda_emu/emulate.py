@@ -4,7 +4,7 @@ tensors.
 
 `emulated_source` rewrites a `.cu` file of `shockwave_tpu_torch/csrc/`
 (`flash_attention.cu`, the narrow kernels, `flash_attention_wide.cu`, the
-wide ones, and `flash_attention_tma.cu`, the TMA-fed K1 and K3, each with
+wide ones, and `flash_attention_tma.cu`, the TMA-fed K1-K3, each with
 the `.cuh` it includes inlined) into host C++: the PTX helpers (cp.async,
 ldmatrix, mma.sync, wgmma with its fence, commit and wait, named barriers,
 the async-proxy fence, mbarriers with their phases and transaction bytes,
@@ -64,6 +64,7 @@ BODIES = {
     "wgmma_hold": "",
     "wgmma_ss": "emu::wgmma_ss(&d[0][0], da, db);",
     "wgmma_ss_n128": "emu::wgmma_ss(&d[0][0], da, db, 128);",
+    "wgmma_ss_n32": "emu::wgmma_ss(&d[0][0], da, db, 32);",
     "wgmma_rs": "emu::wgmma_rs(&d[0][0], a, db);",
     "wgmma_tf32_n64": "emu::wgmma_tf32(&d[0][0], 64, a, db);",
     "wgmma_tf32_n32": "emu::wgmma_tf32(&d[0][0], 32, a, db);",

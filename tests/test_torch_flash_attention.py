@@ -222,7 +222,7 @@ class TestWrappers:
                                     "flash_dq_f32", "flash_dkv_f32", "flash_fwd_wide",
                                     "flash_dq_wide", "flash_dkv_wide", "flash_fwd_wide_f32",
                                     "flash_dq_wide_f32", "flash_dkv_wide_f32", "flash_fwd_tma",
-                                    "flash_dkv_tma"}
+                                    "flash_dq_tma", "flash_dkv_tma"}
         assert not any(fa.LAUNCHES.values())
 
     def test_other_devices_raise(self):
@@ -299,11 +299,11 @@ class TestLaunchConfig:
                     assert tile in (short, long)
                     # The short tile only where both sequences are in its reach.
                     assert (tile == short) == (max(tq, tk) <= short_up_to)
-                    if name not in self.TF32_INSTANCES:  # bf16: 32, then 64 (K2 at
-                        # every D, K1 and K3 at D = 32) or the TMA-fed K1's 128
-                        # rows and K3's 128 keys (64 at D = 256)
-                        long = (64 if name == "flash_dq" or d == 32 else
-                                128 if name == "flash_fwd" or d < 256 else 64)
+                    if name not in self.TF32_INSTANCES:  # bf16: 32, then 64 (at
+                        # D = 32) or the TMA-fed K1's and K2's 128 rows and
+                        # K3's 128 keys (64 at D = 256)
+                        long = (64 if d == 32 else
+                                128 if name != "flash_dkv" or d < 256 else 64)
                         assert tile == (32 if max(tq, tk) <= 32 else long)
                         assert (fa.instance(name, torch.bfloat16, d, tq, tk)
                                 == fa.tile_instance(name, d, tile))
@@ -471,7 +471,11 @@ class TestChipSmokeKernelsLine:
             assert {"d128_bench_ms", "d256_bench_ms"} <= set(row)
         assert by_name["flash_fwd_tma"]["library_ms"] == 1.0
         assert by_name["flash_fwd"]["launches"] == 540 and "bench_ms" not in by_name["flash_fwd"]
-        assert by_name["flash_dq"]["bench_long_launches"] == 180
+        assert by_name["flash_dq"]["launches"] == 540 and "bench_ms" not in by_name["flash_dq"]
+        assert by_name["flash_dq_tma"]["library_ms"] is None
+        for d in ("", "d128_", "d256_"):  # K2 + K3 beside SDPA's backward at each D
+            assert by_name["flash_dq_tma"][f"{d}bench_k2_k3_ms"] == 1.0
+            assert by_name["flash_dq_tma"][f"{d}bench_library_bwd_ms"] == 2.0
 
 
 class _RecordingLibrary:
@@ -607,12 +611,13 @@ class TestCInterface:
         assert {(r["kernel"], r["tile"]) for r in rows if r["d"] == 512} == {
             (name, tile) for name in fa.WIDE_INSTANCES for tile in fa.WIDE_TILES[name][:2]}
         assert {(r["kernel"], r["d"], r["tile"]) for r in rows} >= {
-            ("flash_dq", d, tile) for d in (32, 64, 128, 256) for tile in (32, 64)}
-        for d in (128, 256):  # the long tiles of K1 and K3 in bf16 are the TMA instances'
+            ("flash_dq", d, 32) for d in (32, 64, 128, 256)} | {("flash_dq", 32, 64)}
+        for d in (128, 256):  # the long tiles of K1-K3 in bf16 are the TMA instances'
             assert {(r["kernel"], r["tile"]) for r in rows if r["d"] == d} == {
                 (fa.tile_instance(name, d, tile), tile) for name in fa.INSTANCES
                 for tile in fa.KERNEL_TILES[name, d][:2]}
-            assert {("flash_fwd_tma", 128), ("flash_dkv_tma", 128 if d == 128 else 64)} <= {
+            assert {("flash_fwd_tma", 128), ("flash_dq_tma", 128),
+                    ("flash_dkv_tma", 128 if d == 128 else 64)} <= {
                 (r["kernel"], r["tile"]) for r in rows if r["d"] == d}
         for d, long in ((128, 64), (256, 32)):
             assert {(r["kernel"], r["tile"]) for r in rows
@@ -641,7 +646,7 @@ class TestCInterface:
             self._check_types(name, args)
             tile = fa.launch_config(t, t, width, instance)
             # T = 48: past the reach of every wide instance's short tile
-            # but K1's (one tile of 64); in bf16 K1 and K3 at 64-256 take
+            # but K1's (one tile of 64); in bf16 K1-K3 at 64-256 take
             # their TMA-fed instances' tiles.
             assert tile == (fa.WIDE_TILES[instance][1] if width > 256
                             else 16 if dtype == torch.float32

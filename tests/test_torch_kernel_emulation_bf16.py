@@ -46,7 +46,7 @@ def test_bf16_kernels_match_the_plain_versions(lib, b, tq, tk, h, d, causal, mas
 
 def test_every_bf16_tile_is_emulated():
     """The bf16 cases reach both tiles of each bf16 instance at every head
-    dim (K1's and K3's long tile at D = 64, 128 and 256 through their
+    dim (K1-K3's long tile at D = 64, 128 and 256 through their
     TMA-fed instances, each at every one of those widths), the row that
     sees no key at both tiles (at D = 256 too), and d = 96 and 200
     padded."""

@@ -1,6 +1,7 @@
-"""The TMA-fed K1 and K3 in bf16 (`flash_fwd_tma`, `flash_dkv_tma`:
-`csrc/flash_attention_tma.cu`) run on the CPU, emulated (`tests/cuda_emu`),
-against the plain versions, and the tensor-core multiply-adds they issue.
+"""The TMA-fed K1-K3 in bf16 (`flash_fwd_tma`, `flash_dq_tma`,
+`flash_dkv_tma`: `csrc/flash_attention_tma.cu`) run on the CPU, emulated
+(`tests/cuda_emu`), against the plain versions, and the tensor-core
+multiply-adds they issue.
 
 The emulator runs each CUDA thread of a CTA as a host thread, so the
 producer warp (TMA loads into the ring, the per-tile bias or lse and
@@ -13,8 +14,7 @@ kernels take): causal at T = 65 and 130 (diagonal and off-diagonal tiles,
 ragged ends), Tq != Tk key-padded, and the row and key that see nothing
 (key 0 masked: its gradients exactly 0). Tolerances are the other
 emulation files' (`TOLS`, chip_smoke.py's), through
-`test_torch_kernel_emulation.check_kernels`, which runs K2 on its
-mma.sync kernel beside them.
+`test_torch_kernel_emulation.check_kernels`.
 """
 import ctypes
 import math
@@ -28,7 +28,7 @@ import torch
 from shockwave_tpu_torch.ops import flash_attention as fa
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from test_torch_kernel_emulation import _call, _ptr, check_kernels, lib  # noqa: E402,F401
+from test_torch_kernel_emulation import TOLS, _call, _ptr, check_kernels, lib  # noqa: E402,F401
 
 CASES = [(b, tq, tk, h, d, causal, mask)
          for d in fa.TMA_HEAD_DIMS
@@ -44,11 +44,12 @@ def test_tma_kernels_match_the_plain_versions(lib, b, tq, tk, h, d, causal, mask
 
 
 def test_the_cases_reach_the_tma_kernels_at_every_width():
-    """Every case takes both TMA instances; K1's T = 130 has a ragged
-    second row tile and, at D = 256, two k-tiles per row tile on the
-    diagonal; K3's T = 130 walks three q-tiles from its first key tile."""
+    """Every case takes the three TMA instances; K1's and K2's T = 130 has
+    a ragged second row tile and, at D = 128 and 256, several k-tiles per
+    row tile on the diagonal; K3's T = 130 walks three q-tiles from its
+    first key tile."""
     for b, tq, tk, h, d, causal, mask in CASES:
-        for kernel in ("flash_fwd", "flash_dkv"):
+        for kernel in fa.KERNELS:
             name = fa.instance(kernel, torch.bfloat16, d, tq, tk)
             assert name == kernel + fa.TMA
             assert fa.launch_config(tq, tk, d, name) == fa.KERNEL_TILES[kernel, d][1]
@@ -77,6 +78,18 @@ def _k1_pairs(tq, tk, d, causal):
     return rows, keys, pairs
 
 
+def _k2_pairs(tq, tk, d, causal):
+    """K2's (row tile, key tile) pairs: 128 query rows a CTA, kN keys a
+    tile (128, 64 and 32 at D = 64, 128 and 256), up to the causal
+    diagonal."""
+    rows, keys = 128, {64: 128, 128: 64, 256: 32}[d]
+    pairs = 0
+    for q0 in range(0, tq, rows):
+        nk = -(-tk // keys)
+        pairs += min(nk, (q0 + rows - 1) // keys + 1) if causal else nk
+    return rows, keys, pairs
+
+
 def _k3_pairs(tq, tk, d, causal):
     """K3's (key tile, q-tile) pairs: kKeys keys a CTA (128, or 64 at D =
     256), 64 queries a tile, from the causal diagonal on."""
@@ -92,9 +105,10 @@ def _k3_pairs(tq, tk, d, causal):
 def test_each_product_is_formed_once_per_tile_pair(lib, d, tq, tk, causal):
     """The emulator's count of tensor-core multiply-adds of one launch: K1
     forms S and P.V once per (row tile, key tile) pair it visits (2 x rows
-    x keys x D), K3 forms S^T, dP^T, dV and dK once per (key tile, q-tile)
-    pair (4 x keys x 64 x D), at D = 256 too, where its two groups split
-    the four products between them."""
+    x keys x D), K2 S, dP and dQ (3 x rows x keys x D), K3 forms S^T,
+    dP^T, dV and dK once per (key tile, q-tile) pair (4 x keys x 64 x D),
+    at D = 256 too, where its two groups split the four products between
+    them."""
     lib.emu_tensor_products.restype = ctypes.c_long
     q, k, v, g = _inputs(tq, tk, d, tq + d)
     scale = 1.0 / math.sqrt(d)
@@ -106,11 +120,54 @@ def test_each_product_is_formed_once_per_tile_pair(lib, d, tq, tk, causal):
     rows, keys, pairs = _k1_pairs(tq, tk, d, causal)
     assert lib.emu_tensor_products() == pairs * 2 * rows * keys * d
     delta = (out.float() * g.float()).sum(-1)
+    dq = torch.empty_like(q)
+    name = _call(lib, "flash_dq", torch.bfloat16, *map(_ptr, (q, k, v, g, lse, delta, None, dq)),
+                 1, 1, tq, tk, **shape)
+    assert name == "flash_dq" + fa.TMA
+    rows, keys, pairs = _k2_pairs(tq, tk, d, causal)
+    assert lib.emu_tensor_products() == pairs * 3 * rows * keys * d
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     name = _call(lib, "flash_dkv", torch.bfloat16,
                  *map(_ptr, (q, k, v, g, lse, delta, None, dk, dv)), 1, 1, tq, tk, **shape)
     assert name == "flash_dkv" + fa.TMA
     keys, queries, pairs = _k3_pairs(tq, tk, d, causal)
     assert lib.emu_tensor_products() == pairs * 4 * keys * queries * d
-    assert torch.isfinite(out.float()).all() and torch.isfinite(dk.float()).all()
+    for t in (out, dq, dk):
+        assert torch.isfinite(t.float()).all()
+    assert lib.emu_shared_overruns() == 0
+
+
+@pytest.mark.parametrize("d", fa.TMA_HEAD_DIMS)
+def test_a_row_that_sees_no_key_gets_zero_dq(lib, d):
+    """dQ of every query row that sees no key is exactly 0 from the TMA-fed
+    K2: the causal row 0 with key 0 masked, and every row of a batch whose
+    keys are all masked (Tq != Tk, two k-tiles at every D); the other
+    batch's dQ stays within the bf16 tolerance of the plain version."""
+    b, tq, tk, h = 2, 65, 130, 2
+    scale = 1.0 / math.sqrt(d)
+    for causal, t_k in ((True, tq), (False, tk)):
+        rng = np.random.RandomState(d + t_k)
+        q, g = (torch.from_numpy(rng.randn(b * h, tq, d).astype(np.float32)).to(torch.bfloat16)
+                for _ in range(2))
+        k, v = (torch.from_numpy(rng.randn(b * h, t_k, d).astype(np.float32)).to(torch.bfloat16)
+                for _ in range(2))
+        mask = torch.ones(b, t_k, dtype=torch.bool)
+        if causal:
+            mask[:, 0] = False
+        else:
+            mask[1] = False
+        out, lse = fa.attention_forward_plain(q, k, v, mask, h, scale, causal)
+        delta = (out.float() * g.float()).sum(-1)
+        dq = torch.full_like(q, math.nan)
+        name = _call(lib, "flash_dq", torch.bfloat16,
+                     *map(_ptr, (q, k, v, g, lse, delta, mask, dq)), b * h, h, tq, t_k, d=d,
+                     scale=scale, causal=causal, tq=tq, tk=t_k)
+        assert name == "flash_dq" + fa.TMA
+        blind = dq[:, 0] if causal else dq[h:]
+        assert float(blind.float().abs().max()) == 0.0
+        seen = dq[:, 1:] if causal else dq[:h]
+        want = fa.attention_dq_plain(q, k, v, g, lse, delta, mask, h, scale, causal)
+        want = want[:, 1:] if causal else want[:h]
+        err = (seen.float() - want.float()).abs().max() / want.float().abs().max()
+        assert float(err) <= TOLS[torch.bfloat16][2]
     assert lib.emu_shared_overruns() == 0
