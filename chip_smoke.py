@@ -9,11 +9,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    the torch and CUDA versions.
 2. build: nvcc compiles `shockwave_tpu_torch/csrc/*.cu` (timed); the
    instantiations that spill registers, named from ptxas's report
-   (`spills:`); the HMMA instructions of each instantiation in the
+   (`spills:`; the TMA-fed f32 K1 and K2 must spill none); the HMMA
+   instructions of each instantiation in the
    library's SASS, by mnemonic, with the TMA loads (`sass:`; the 3xTF32
    kernels must hold TF32 ones, the wgmma kernels, K1-K3 wide in both
-   dtypes, HGMMA ones of their dtype and no HMMA, and the TMA-fed K1-K3
-   in bf16 at D = 64, 128 and 256 bf16 HGMMA, UTMALDG and no HMMA);
+   dtypes, HGMMA ones of their dtype and no HMMA, the TMA-fed K1-K3 in
+   bf16 at D = 64, 128 and 256 bf16 HGMMA, UTMALDG and no HMMA, and the
+   TMA-fed K1 and K2 in f32 there TF32 HGMMA, UTMALDG and no HMMA);
    then each kernel instantiation's
    resident CTAs per SM, threads, shared memory and registers, and at the
    main shape each
@@ -31,7 +33,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    (3xTF32 on the tensor cores) against the plain f32 version, at the
    main shape key-padded and causal, the decoder's full forward (8 x 64,
    4 heads of 32, causal), the bench shape, and the edges of the f32
-   instances' tiles (16 up to T = 64, 64 beyond): ragged T=17, T=65,
+   instances' tiles (16 up to T = 64, 64 beyond; at D = 64, 128 and 256
+   K1's and K2's long tile is the TMA-fed f32 kernels'): ragged T=17, T=65,
    Tq=32 against Tk=48, Tq=64 against Tk=128, D=32 at T=32 and T=128,
    and the key-0 row at T=48 and T=128; its library time is SDPA's in
    f32. The f32 bound's operations are reckoned at the card's
@@ -39,7 +42,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    Both dtypes also run their D = 128 and D = 256 instances (`d128_`
    and `d256_` cases): the main shape at that D, the bench shape (4,
    2048, 8, D) causal, Tq != Tk key-padded, ragged causal, and the key-0
-   row at both tiles (the f32 instances' long tile is 32 at D = 256).
+   row at both tiles (f32 K3's long tile is 32 at D = 256), and in f32
+   T = 65 at both D.
    The wide instances (any multiple of 256 above 256, all on wgmma: K1 in
    64-row tiles of up to 512 output columns; K2 and K3 in 64-row tiles,
    or 32 rows of each of two (batch, head) pairs up to T = 32, of up to
@@ -128,7 +132,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    layer. Then the same at dim 64, 4 heads (head dim 16, which
    `flash_attention` pads to 32), at dim 512, 4 heads (head dim 128), and
    at dim 1024, 4 heads (head dim 256) and at dim 2048, 4 heads (head dim
-   512, the wide instances), in bf16 and in f32.
+   512, the wide instances), in bf16 and in f32. Then the f32 decoder past
+   the f32 short tile, (8, 128) at head dims 64, 128 and 256 (dim 256, 512
+   and 1024, 4 heads): the TMA-fed K1 and K2 in f32 and K3's long tile,
+   one launch of each per layer.
    bench_line: `profiling/bench_serving_decode.py` at its defaults (batch
    8, 32 tokens, prompt 8, dim 128, 2 layers, 4 heads) through its
    `--smoke` gate at 200 tokens/s, its CUDA graph's tokens equal to the
@@ -199,10 +206,11 @@ Output: `device:`, `build:`, `ptxas:`, `spills:`, `sass:` and
 then the
 `{"kernels": [...]}` line (the six kernel instances, each with its D =
 128 and D = 256 times beside, the six wide instances at D = 512, and the
-three TMA-fed ones, bf16 K1-K3 on the long tile, at the bench shape
-with its D = 128 and 256 times beside and, on K2's and K3's rows, K2 + K3
-against SDPA's backward at each D, their launches the profile phase's T
-= 2048 steps'; the
+five TMA-fed ones, bf16 K1-K3 and f32 K1 and K2 on the long tile, at
+their dtype's bench shape with its D = 128 and 256 times beside and, on
+K2's and K3's rows, K2 + K3 against SDPA's backward at each D, their
+launches the profile phase's T = 2048 steps' (bf16) and the f32 decoder's
+at (8, 128) (f32); the
 main case's forward + backward through the port's autograd path and
 through `scaled_dot_product_attention`, the same at D = 256 and 512, the
 bench line's decode rate and headline, and the ring's and dryrun's
@@ -307,6 +315,7 @@ F32_CASES = (
     ("d128_ragged_causal_f32", 2, 100, 100, 4, 128, True, "tail"),
     ("d128_masked_row0_f32", 1, 128, 128, 2, 128, True, "key0"),
     ("d128_short_masked_row0_f32", 1, 48, 48, 2, 128, True, "key0"),
+    ("d128_one_past_short_f32", 2, 65, 65, 2, 128, True, "tail"),
     # D = 256, the same six; the f32 instances' long tile is 32 there, so
     # the bench shape, the cross case, the ragged case and the long key-0
     # row run it.
@@ -316,6 +325,7 @@ F32_CASES = (
     ("d256_ragged_causal_f32", 2, 100, 100, 4, 256, True, "tail"),
     ("d256_masked_row0_f32", 1, 128, 128, 2, 256, True, "key0"),
     ("d256_short_masked_row0_f32", 1, 48, 48, 2, 256, True, "key0"),
+    ("d256_one_past_short_f32", 2, 65, 65, 2, 256, True, "tail"),
     # D = 512 on the wide f32 instances (64-row tiles; K2 and K3 32 rows
     # of two pairs up to T = 32: the main shape), the same six, and the
     # short tile causal with the key-0 row and, at BH = 3, a missing pair.
@@ -470,6 +480,12 @@ DECODER_PADDED_WIDTHS = dict(dim=64, num_heads=4)
 # (dim 1024, 4 heads), the widest kernel width, at the same tolerances.
 DECODER_D128_WIDTHS = dict(dim=512, num_heads=4)
 DECODER_D256_WIDTHS = dict(dim=1024, num_heads=4)
+# The f32 decoder past the f32 short tile, (8, 128) at head dims 64, 128
+# and 256: its flash forward + backward runs the TMA-fed K1 and K2 in f32
+# (and K3's mma.sync long tile), at DECODER_F32_TOL.
+DECODER_LONG_SHAPE = (8, 128)
+DECODER_LONG_WIDTHS = {64: dict(dim=256, num_heads=4), 128: DECODER_D128_WIDTHS,
+                       256: DECODER_D256_WIDTHS}
 # The decoder at head dim 512 (dim 2048, 4 heads): the wide instances, at
 # the same tolerances.
 DECODER_D512_WIDTHS = dict(dim=2048, num_heads=4)
@@ -554,7 +570,7 @@ def kernel_name(mangled: str) -> str:
     k = re.search(r"(flash_(?:fwd|dq|dkv)(?:_f32)?_kernel)ILi(\d+)ELi(\d+)E", mangled)
     if k:
         return f"{k.group(1)}<{k.group(2)}, {k.group(3)}>"
-    k = re.search(r"(flash_(?:fwd|dq|dkv)_tma_kernel)ILi(\d+)E", mangled)
+    k = re.search(r"(flash_(?:fwd|dq|dkv)_tma(?:_f32)?_kernel)ILi(\d+)E", mangled)
     if k:
         return f"{k.group(1)}<{k.group(2)}>"
     k = re.search(r"(flash_(?:dq|dkv)_wide_f32_kernel)ILi(\d+)E(?:Lb([01])E)?", mangled)
@@ -1431,6 +1447,8 @@ def serving_phase(fa, device):
     check_launches(fa, launches, layers, "serving: the decoder's bf16 flash forward",
                    kernels=("flash_fwd",), width=fa.kernel_head_dim(flash.dim // flash.num_heads),
                    t=t)
+    long_tokens = torch.randint(0, flash.vocab_size, DECODER_LONG_SHAPE, generator=gen,
+                                device=device)
     del flash, einsum
     return {"lease": {"served": served, "renewals": len(renewals), "deltas": len(deltas),
                       "samples": samples, "wall_s": lease_s},
@@ -1453,7 +1471,10 @@ def serving_phase(fa, device):
             "decoder_flash_head_dim_512": {
                 "bf16": decoder_flash_grads(fa, device, tokens, torch.bfloat16,
                                             **DECODER_D512_WIDTHS),
-                "f32": decoder_flash_grads(fa, device, tokens, **DECODER_D512_WIDTHS)}}
+                "f32": decoder_flash_grads(fa, device, tokens, **DECODER_D512_WIDTHS)},
+            "decoder_flash_f32_long": {
+                f"head_dim_{d}": decoder_flash_grads(fa, device, long_tokens, **widths)
+                for d, widths in DECODER_LONG_WIDTHS.items()}}
 
 
 def bench_line_phase(here, device):
@@ -2265,32 +2286,40 @@ def kernel_rows(fa, cases, sliced, served, profiled):
                             "main_library_ms": (main_case["library_fwd_ms"]
                                                 if kname == "flash_fwd" else None)})
             kernels.append(row)
-    # The TMA-fed K1-K3 in bf16: timed at the bench shape, where their
-    # main-path launches come from (the profile phase's T = 2048 steps),
-    # and at the bench shape at D = 128 and 256; K2's and K3's rows give
-    # K2 + K3 beside SDPA's backward at each D.
+    # The TMA-fed K1-K3 in bf16 and K1 and K2 in f32: timed at the bench
+    # shape of their dtype, and at the bench shape at D = 128 and 256; K2's
+    # and K3's rows give K2 + K3 beside SDPA's backward at each D. Their
+    # main-path launches: bf16, the profile phase's T = 2048 steps; f32, the
+    # f32 decoder past the short tile at D = 64, 128 and 256 (serving phase).
     for name in fa.TMA_INSTANCES:
-        kname = name.removesuffix(fa.TMA)
-        bench = cases["bench_causal"]
+        f32 = name.endswith("_f32" + fa.TMA)
+        sfx = "_f32" if f32 else ""
+        kname = name.removesuffix(fa.TMA).removesuffix("_f32")
+        bench = cases["bench_causal" + sfx]
         k = bench["kernels"][name]
         fwd = kname == "flash_fwd"
+        launches = (sum(run["launches"][name]
+                        for run in served["decoder_flash_f32_long"].values()) if f32
+                    else profiled["launches"][name])
         row = {
             "name": name, "route": "cuda",
-            "source": "shockwave_tpu_torch/csrc/flash_attention_tma.cu",
-            "replaces": REPLACES[kname], "launches": profiled["launches"][name],
+            "source": "shockwave_tpu_torch/csrc/flash_attention_tma" + sfx + ".cu",
+            "replaces": REPLACES[kname], "launches": launches,
             "max_abs_err": max(c[e] for c in cases.values() if name in c["kernels"]
                                for e in ERR_KEYS[kname]),
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"].split()[0],
             "library_ms": bench["library_fwd_ms"] if fwd else None,
-            "at": f"bench_causal {bench['shape']}", "tile": k["tile"],
+            "at": f"bench_causal{sfx} {bench['shape']}", "tile": k["tile"],
             "cases": sorted(n for n, c in cases.items() if name in c["kernels"])}
         if not fwd:
             row.update({"library_bwd_ms": bench["library_bwd_ms"],
                         "library_bwd_of": "dQ, dK and dV (SDPA fwd_bwd - fwd)"})
+        if f32:
+            row["launches_by"] = "the f32 decoder at (8, 128), head dims 64, 128 and 256"
         for dw in (64, 128, 256):
             at = "" if dw == 64 else f"d{dw}_"
-            bw_case = cases[at + "bench_causal"]
+            bw_case = cases[at + "bench_causal" + sfx]
             if not fwd:
                 bwd = [bw_case["kernels"][bw_case["by_kernel"][n]]["ms"]
                        for n in ("flash_dq", "flash_dkv")]
@@ -2379,7 +2408,11 @@ def main() -> int:
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"ptxas: {line.strip()}")
-    emit("spills", spills(log))
+    spilled = spills(log)
+    emit("spills", spilled)
+    for prefix in ("flash_fwd_tma_f32_kernel<", "flash_dq_tma_f32_kernel<"):
+        check(not any(name.startswith(prefix) for name in spilled),
+              f"{prefix}: spills registers ({spilled})")
     hmma = sass_hmma(path)
     emit("sass", hmma)
     for kname in ("flash_fwd_f32_kernel", "flash_dq_f32_kernel", "flash_dkv_f32_kernel",
@@ -2422,6 +2455,22 @@ def main() -> int:
     for kname in ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"):
         check(not any(f"{kname}<{d}, 64>" in hmma for d in fa.TMA_HEAD_DIMS),
               f"{kname}: a tile-64 instance at D = 64-256 is still built")
+    # The TMA-fed K1 and K2 in f32, one instance per head dim 64, 128 and
+    # 256: TF32 HGMMA fed by UTMALDG, and no HMMA; the mma.sync K1 and K2
+    # in f32 keep only the short tile there (and D = 32).
+    for prefix in ("flash_fwd_tma_f32_kernel<", "flash_dq_tma_f32_kernel<"):
+        found = {name: ops for name, ops in hmma.items() if name.startswith(prefix)}
+        check(sorted(found) == sorted(f"{prefix}{d}>" for d in fa.TMA_HEAD_DIMS),
+              f"{prefix}: {sorted(found)} in the SASS, not one per head dim {fa.TMA_HEAD_DIMS}")
+        for name, ops in found.items():
+            check(any(op.startswith("HGMMA") and "F32.TF32" in op for op in ops)
+                  and any(op.startswith("UTMALDG") for op in ops)
+                  and not any(op.startswith("HMMA") for op in ops),
+                  f"{name}: not TF32 HGMMA fed by UTMALDG without HMMA ({ops})")
+    for kname in ("flash_fwd_f32_kernel", "flash_dq_f32_kernel"):
+        check(not any(f"{kname}<{d}, {tile}>" in hmma for d in fa.TMA_HEAD_DIMS
+                      for tile in (32, 64)),
+              f"{kname}: a long-tile instance at D = 64-256 is still built")
     occupancy = fa.kernel_occupancy(torch.cuda.current_device())
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     emit("occupancy", {"sms": sms, "kernels": occupancy,

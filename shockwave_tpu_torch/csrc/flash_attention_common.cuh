@@ -375,6 +375,80 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[16][4], uint64_t da, ui
       : "l"(da), "l"(db), "r"(1));
 }
 
+// d (64 x 64 f32) += A . B^T over 8 columns in TF32: A (64 x 8) in
+// registers, warp w's rows 16w.. in mma.sync's m16n8k8 A layout (a[0..3]:
+// (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)), and B (64 x 8) K-major
+// at descriptor db. The tensor cores read each operand's top 19 bits.
+__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[8][4], const uint32_t (&a)[4],
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " SWT_REGS32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : SWT_ACC64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// The same for a 64 x 32 accumulator (B 32 x 8).
+__device__ __forceinline__ void wgmma_tf32_n32(float (&d)[4][4], const uint32_t (&a)[4],
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " SWT_REGS16
+      ", {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : SWT_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// The same for a 64 x 16 and a 64 x 8 accumulator (B 16 x 8, 8 x 8).
+#define SWT_ACC16(d)                                                                              \
+  "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),      \
+      "+f"(d[1][2]), "+f"(d[1][3])
+__device__ __forceinline__ void wgmma_tf32_n16(float (&d)[2][4], const uint32_t (&a)[4],
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7}"
+      ", {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : SWT_ACC16(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_tf32_n8(float (&d)[1][4], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {%0, %1, %2, %3}"
+      ", {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x kN f32) += A . B^T over 8 columns in TF32, kN = 8, 16, 32 or 64.
+template <int kN>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[kN / 8][4], const uint32_t (&a)[4],
+                                           uint64_t db) {
+  if constexpr (kN == 64)
+    wgmma_tf32_n64(d, a, db);
+  else if constexpr (kN == 32)
+    wgmma_tf32_n32(d, a, db);
+  else if constexpr (kN == 16)
+    wgmma_tf32_n16(d, a, db);
+  else
+    wgmma_tf32_n8(d, a, db);
+}
+
+// d += A . B^T to f32 accuracy as 3xTF32 (mma_3xtf32's three products, the
+// small terms first, into the one accumulator): A split in registers, B's
+// big plane at descriptor db and its small plane at ds.
+template <int kN>
+__device__ __forceinline__ void wgmma_3xtf32(float (&d)[kN / 8][4], const Split<4>& a,
+                                             uint64_t db, uint64_t ds) {
+  wgmma_tf32<kN>(d, a.small, db);
+  wgmma_tf32<kN>(d, a.big, ds);
+  wgmma_tf32<kN>(d, a.big, db);
+}
+
 // ---------------------------------------------------------------------------
 // Launchers.
 // ---------------------------------------------------------------------------
@@ -440,4 +514,16 @@ int launch_dkv_tma(const void* q, const void* k, const void* v, const void* g, c
                    const void* delta, const void* mask, void* dk, void* dv, int bh, int heads,
                    int tq, int tk, int d, float scale, int causal, cudaStream_t stream);
 int tma_occupancy(int kernel, int d, int* out);
+
+// The TMA-fed K1 and K2 in f32 (defined in flash_attention_tma_f32.cu),
+// which take the long tile (64 rows) of kernels 0 (K1) and 1 (K2) in f32
+// at head dims 64, 128 and 256, in the same form.
+bool tma_f32_tile(int kernel, int d, int tile);
+int launch_fwd_tma_f32(const void* q, const void* k, const void* v, const void* mask, void* out,
+                       void* lse, int bh, int heads, int tq, int tk, int d, float scale,
+                       int causal, cudaStream_t stream);
+int launch_dq_tma_f32(const void* q, const void* k, const void* v, const void* g, const void* lse,
+                      const void* delta, const void* mask, void* dq, int bh, int heads, int tq,
+                      int tk, int d, float scale, int causal, cudaStream_t stream);
+int tma_f32_occupancy(int kernel, int d, int* out);
 }  // namespace swt

@@ -36,82 +36,13 @@
 // wholly at or past the group's keys, inside Tq) take the plain step, the
 // others the masked one, in separate loops, so no wgmma sits behind a
 // per-step branch.
-#include <cuda.h>  // CUtensorMap and its enums; the encode call is reached at run time
-
-#include "flash_attention_common.cuh"
+#include "flash_attention_tma.cuh"
 
 namespace {
 
-constexpr int kTmaThreads = 384;  // a producer warpgroup, two consumer warpgroups
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;  // 128 x 24 + 256 x 240 <= 384 x 168, what the launch gives
 constexpr int kBox = 64;            // columns of a TMA box: 128 bytes of bf16
-constexpr int kAlign = 1024;        // the 128-byte swizzle repeats every 1 KB
-constexpr int kTmaMaxSmem = 232448;  // the 227 KB an H100 CTA may take
-
-// ---------------------------------------------------------------------------
-// mbarriers, TMA and register reallocation.
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-// Make the initialised barriers visible to the async proxy (the TMA unit).
-__device__ __forceinline__ void mbar_fence_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
-}
-
-// Arrive, and add `bytes` to the transaction count the phase waits for.
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Whether the phase of parity `parity` has completed (true at once for
-// parity 1 on a barrier that has not completed a phase yet).
-__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(smem_addr(bar)), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  while (!mbar_try_wait(bar, parity)) {
-  }
-}
-
-// The box of `map` at (col, row, bh) into shared memory at dst, completing
-// its bytes on `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap& map, uint64_t* bar,
-                                         int col, int row, int bh) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(&map)), "r"(smem_addr(bar)), "r"(col), "r"(row), "r"(bh)
-      : "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-
-template <int N>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
-}
 
 // Load the D / 64 boxes of rows [row0, row0 + rows) of (batch, head) bh
 // into the tile at dst (box c at dst + c rows 64).
@@ -120,26 +51,6 @@ __device__ __forceinline__ void tma_load_tile(bf16* dst, const CUtensorMap& map,
                                               int rows, int row0, int bh) {
 #pragma unroll
   for (int c = 0; c < D / kBox; ++c) tma_load(dst + c * rows * kBox, map, bar, c * kBox, row0, bh);
-}
-
-// The stage and the parity of its phase for the i-th tile of a ring of S.
-template <int S>
-__device__ __forceinline__ int stage_of(int i) {
-  return i % S;
-}
-template <int S>
-__device__ __forceinline__ uint32_t phase_of(int i) {
-  return (uint32_t)(i / S) & 1u;
-}
-
-// Run step(i, masked) over tiles [first, n): the masked instance below
-// masked_end and from plain_end on, the plain one between.
-template <typename Step>
-__device__ __forceinline__ void run_tiles(int masked_end, int plain_end, int n, Step&& step,
-                                          int first = 0) {
-  for (int i = first; i < masked_end; ++i) step(i, std::true_type{});
-  for (int i = max(first, masked_end); i < plain_end; ++i) step(i, std::false_type{});
-  for (int i = max(first, plain_end); i < n; ++i) step(i, std::true_type{});
 }
 
 // ---------------------------------------------------------------------------
@@ -195,14 +106,6 @@ struct TmaFwdShape {
   static_assert(kSmemBytes <= kTmaMaxSmem, "K1's tiles do not fit a CTA");
 };
 
-// 2^x by the special-function unit (inputs far below -126 give 0).
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-constexpr float kLog2e = 1.4426950408889634f;
 
 // K3's consumer groups take turns issuing their products ("ping-pong"):
 // group G issues between turn_wait (named barrier 3 + G) and turn_pass,
@@ -312,63 +215,6 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / kBox][8][4],
   }
 }
 
-// The online softmax of one k-tile, in the base-2 domain (scores times
-// scale log2(e); the max m and lse follow): sc holds the tile's raw scores
-// and leaves with p = 2^(x - m); m and l (this lane's part of its rows'
-// normalisers) are updated, corr is the factor O must take. kMasked: the
-// causal -1e30, then the tile's key bias, as _fa_kernel orders them (in
-// base 2 the constants stay as they are: -1e30, or -2e30 masked twice,
-// give p = 0 beside any visible key, as in base e). Plain tiles take the
-// row max of the raw scores (scale > 0) and one FFMA per exponent.
-template <int kN, bool kMasked>
-__device__ __forceinline__ void fwd_softmax(float (&sc)[kN / 8][4], float (&m)[2], float (&l)[2],
-                                            float (&corr)[2], const float* cb, int k0,
-                                            const int (&row)[2], int t, float scale2,
-                                            int causal) {
-  float mx[2];
-  if constexpr (kMasked) {
-    mx[0] = m[0];
-    mx[1] = m[1];
-#pragma unroll
-    for (int n = 0; n < kN / 8; ++n) {
-      const float2 bias = *reinterpret_cast<const float2*>(cb + 8 * n + 2 * t);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = sc[n][e] * scale2;
-        if (causal && row[e >> 1] < k0 + 8 * n + 2 * t + (e & 1)) x = kNegInf;
-        x += (e & 1) ? bias.y : bias.x;
-        sc[n][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-  } else {
-    mx[0] = mx[1] = minus_infinity();
-#pragma unroll
-    for (int n = 0; n < kN / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sc[n][e]);
-    }
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-    if constexpr (!kMasked) mx[h] = fmaxf(m[h], mx[h] * scale2);
-    corr[h] = fast_exp2(m[h] - mx[h]);
-    m[h] = mx[h];
-    l[h] *= corr[h];
-  }
-#pragma unroll
-  for (int n = 0; n < kN / 8; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float p = kMasked ? fast_exp2(sc[n][e] - m[e >> 1])
-                              : fast_exp2(fmaf(sc[n][e], scale2, -m[e >> 1]));
-      sc[n][e] = p;
-      l[e >> 1] += p;
-    }
-  }
-}
 
 template <int kN>
 __device__ __forceinline__ void pack_p(uint32_t (&pa)[kN / 16][4], const float (&sc)[kN / 8][4]) {
@@ -613,37 +459,6 @@ struct TmaDqShape {
   static_assert(kSmemBytes <= kTmaMaxSmem, "K2's tiles do not fit a CTA");
 };
 
-// dS = P (dP - delta) scale in dp, from the group's S (sc) and dP (dp)
-// against the kN keys of the tile at k0: the lane's rows row[h] (lse2[h]
-// in base 2, delta[h]) against key 8n + 2t + (e & 1) of n8 tile n. P =
-// exp(S scale - lse) = 2^(S scale log2(e) - lse2). kMasked: the causal
-// -1e30, then the tile's key bias cb (0, -1e30, or -inf past Tk), and p = 0
-// where that is <= -5e29, as _dq_kernel has it.
-template <int kN, bool kMasked>
-__device__ __forceinline__ void dq_terms(const float (&sc)[kN / 8][4], float (&dp)[kN / 8][4],
-                                         const float* cb, int k0, const int (&row)[2], int t,
-                                         const float (&lse2)[2], const float (&delta)[2],
-                                         float scale, float scale2, int causal) {
-#pragma unroll
-  for (int n = 0; n < kN / 8; ++n) {
-    float2 bias;
-    if constexpr (kMasked) bias = *reinterpret_cast<const float2*>(cb + 8 * n + 2 * t);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int h = e >> 1;
-      float p;
-      if constexpr (kMasked) {
-        float x = sc[n][e] * scale;
-        if (causal && row[h] < k0 + 8 * n + 2 * t + (e & 1)) x = kNegInf;
-        x += (e & 1) ? bias.y : bias.x;
-        p = x <= 0.5f * kNegInf ? 0.f : fast_exp2(fmaf(x, kLog2e, -lse2[h]));
-      } else {
-        p = fast_exp2(fmaf(sc[n][e], scale2, -lse2[h]));
-      }
-      dp[n][e] = p * (dp[n][e] - delta[h]) * scale;
-    }
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(kTmaThreads, 1)
@@ -1168,44 +983,6 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
 // Host side: tensor maps, launchers, occupancy.
 // ---------------------------------------------------------------------------
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled of libcuda, reached through the runtime
-// (cudaGetDriverEntryPoint) so that the library does not link libcuda;
-// null where libcuda lacks it.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A 3-D map over the (bh, t, d) bf16 tensor at `base`: boxes of 64
-// columns x `rows` rows x one (batch, head), 128-byte swizzle, zeros past
-// every edge. Encoded at every call (a few microseconds on the host) and
-// passed by value, so a CUDA graph keeps each launch's own.
-int tensor_map(CUtensorMap* map, const void* base, int bh, int t, int d, int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)t, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)t * d * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)kBox, (cuuint32_t)rows, 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-                            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
 
 template <int D>
 int launch_fwd_tma_as(const void* q, const void* k, const void* v, const void* mask, void* out,
@@ -1213,9 +990,9 @@ int launch_fwd_tma_as(const void* q, const void* k, const void* v, const void* m
                       cudaStream_t stream) {
   using Shape = TmaFwdShape<D>;
   CUtensorMap maps[3];
-  int err = tensor_map(&maps[0], q, bh, tq, D, Shape::kRows);
-  if (err == 0) err = tensor_map(&maps[1], k, bh, tk, D, Shape::kN);
-  if (err == 0) err = tensor_map(&maps[2], v, bh, tk, D, Shape::kN);
+  int err = tensor_map<bf16>(&maps[0], q, bh, tq, D, Shape::kRows);
+  if (err == 0) err = tensor_map<bf16>(&maps[1], k, bh, tk, D, Shape::kN);
+  if (err == 0) err = tensor_map<bf16>(&maps[2], v, bh, tk, D, Shape::kN);
   if (err != 0) return err;
   static bool configured[kMaxDevices] = {};
   const cudaError_t set = set_smem(flash_fwd_tma_kernel<D>, Shape::kSmemBytes, configured);
@@ -1233,10 +1010,10 @@ int launch_dq_tma_as(const void* q, const void* k, const void* v, const void* g,
                      int tk, float scale, int causal, cudaStream_t stream) {
   using Shape = TmaDqShape<D>;
   CUtensorMap maps[4];
-  int err = tensor_map(&maps[0], q, bh, tq, D, Shape::kRows);
-  if (err == 0) err = tensor_map(&maps[1], k, bh, tk, D, Shape::kN);
-  if (err == 0) err = tensor_map(&maps[2], v, bh, tk, D, Shape::kN);
-  if (err == 0) err = tensor_map(&maps[3], g, bh, tq, D, Shape::kRows);
+  int err = tensor_map<bf16>(&maps[0], q, bh, tq, D, Shape::kRows);
+  if (err == 0) err = tensor_map<bf16>(&maps[1], k, bh, tk, D, Shape::kN);
+  if (err == 0) err = tensor_map<bf16>(&maps[2], v, bh, tk, D, Shape::kN);
+  if (err == 0) err = tensor_map<bf16>(&maps[3], g, bh, tq, D, Shape::kRows);
   if (err != 0) return err;
   static bool configured[kMaxDevices] = {};
   const cudaError_t set = set_smem(flash_dq_tma_kernel<D>, Shape::kSmemBytes, configured);
@@ -1255,10 +1032,10 @@ int launch_dkv_tma_as(const void* q, const void* k, const void* v, const void* g
                       int tq, int tk, float scale, int causal, cudaStream_t stream) {
   using Shape = TmaDkvShape<D>;
   CUtensorMap maps[4];
-  int err = tensor_map(&maps[0], q, bh, tq, D, Shape::kQ);
-  if (err == 0) err = tensor_map(&maps[1], k, bh, tk, D, Shape::kKeys);
-  if (err == 0) err = tensor_map(&maps[2], v, bh, tk, D, Shape::kKeys);
-  if (err == 0) err = tensor_map(&maps[3], g, bh, tq, D, Shape::kQ);
+  int err = tensor_map<bf16>(&maps[0], q, bh, tq, D, Shape::kQ);
+  if (err == 0) err = tensor_map<bf16>(&maps[1], k, bh, tk, D, Shape::kKeys);
+  if (err == 0) err = tensor_map<bf16>(&maps[2], v, bh, tk, D, Shape::kKeys);
+  if (err == 0) err = tensor_map<bf16>(&maps[3], g, bh, tq, D, Shape::kQ);
   if (err != 0) return err;
   static bool configured[kMaxDevices] = {};
   const cudaError_t set = set_smem(flash_dkv_tma_kernel<D>, Shape::kSmemBytes, configured);
@@ -1269,16 +1046,6 @@ int launch_dkv_tma_as(const void* q, const void* k, const void* v, const void* g
       static_cast<const float*>(delta), static_cast<const uint8_t*>(mask), static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), heads, tq, tk, scale, causal);
   return (int)cudaGetLastError();
-}
-
-// f(D) as an integral constant for D in 64, 128, 256; cudaErrorInvalidValue
-// for any other.
-template <typename F>
-int by_tma_head_dim(int d, F&& f) {
-  if (d == 64) return f(std::integral_constant<int, 64>{});
-  if (d == 128) return f(std::integral_constant<int, 128>{});
-  if (d == 256) return f(std::integral_constant<int, 256>{});
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace

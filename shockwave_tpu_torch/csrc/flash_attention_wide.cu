@@ -189,31 +189,6 @@ __device__ __forceinline__ void cp_async_wait_at_most(int n) {
   }
 }
 
-// d (64 x 64 f32) += A . B^T over 8 columns in TF32: A (64 x 8) in
-// registers, warp w's rows 16w.. in mma.sync's m16n8k8 A layout (a[0..3]:
-// (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)), and B (64 x 8) K-major
-// at descriptor db. The tensor cores read each operand's top 19 bits.
-__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[8][4], const uint32_t (&a)[4],
-                                               uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " SWT_REGS32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : SWT_ACC64(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// The same for a 64 x 32 accumulator (B 32 x 8).
-__device__ __forceinline__ void wgmma_tf32_n32(float (&d)[4][4], const uint32_t (&a)[4],
-                                               uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " SWT_REGS16
-      ", {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
-      : SWT_ACC32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
 // s (the warpgroup's 64 x 64 scores) += Q chunk qc . (K chunk kc)^T over
 // the chunk's 64 columns: four wgmma of 16 columns (32 bytes into each
 // swizzled row), waited for before return.

@@ -1,7 +1,8 @@
 """The wide instances of K1-K3 (`flash_fwd_wide`, `flash_dq_wide`,
-`flash_dkv_wide`, bf16 and f32) and the bf16 kernels at head dims 64-256
-(the TMA-fed K1-K3 on the long tile, where a tree has them) of several
-checkouts of this repository, timed in turns on one card.
+`flash_dkv_wide`, bf16 and f32) and the kernels at head dims 64-256 (the
+TMA-fed K1-K3 in bf16 and K1 and K2 in f32 on the long tile, where a tree
+has them) of several checkouts of this repository, timed in turns on one
+card.
 
     python -m shockwave_tpu_torch.profiling.fwd_wide_ab \\
         --trees .archive_check/parent . . .archive_check/parent
@@ -12,6 +13,12 @@ K2's A/B at long sequences, K2 + K3 beside SDPA's backward:
         --cases bench_causal d128_bench_causal d256_bench_causal main_enc_self \\
         --trees .archive_check/parent . . .archive_check/parent
 
+The f32 K1 and K2 at long sequences, K2 + K3 beside SDPA's backward:
+
+    python -m shockwave_tpu_torch.profiling.fwd_wide_ab \\
+        --cases bench_causal_f32 d128_bench_causal_f32 d256_bench_causal_f32 \\
+        main_enc_self_f32 --trees .archive_check/parent . . .archive_check/parent
+
 The trees' kernel libraries are first built side by side, one process
 per tree. Then each tree is run in a process of its own, in the order
 given (parent, change, change, parent keeps a drift of the card out of
@@ -21,7 +28,7 @@ the tree's sources, and runs each case (`CASES`: the d = 512 main shape
 key-padded, the bench shape (4, 2048, 8, 512) causal, a ragged causal
 case at d = 768, in bf16 and f32; the bench shape (4, 2048, 8, D) causal at
 D = 64, 128 and 256 and the main shape (64, 32, 8, 64) key-padded, in
-bf16) through `attention_forward`,
+bf16 and in f32) through `attention_forward`,
 `attention_dq` and `attention_dkv` (`--kernels`) against their plain
 versions on the same inputs (the backward on the kernel's own lse and
 delta = rowsum(dO * out), as chip_smoke.py runs it). Errors: the forward
@@ -65,6 +72,10 @@ CASES = (
     ("d128_bench_causal", 4, 2048, 8, 128, True, None, "bf16"),
     ("d256_bench_causal", 4, 2048, 8, 256, True, None, "bf16"),
     ("main_enc_self", 64, 32, 8, 64, False, "tail", "bf16"),
+    ("bench_causal_f32", 4, 2048, 8, 64, True, None, "f32"),
+    ("d128_bench_causal_f32", 4, 2048, 8, 128, True, None, "f32"),
+    ("d256_bench_causal_f32", 4, 2048, 8, 256, True, None, "f32"),
+    ("main_enc_self_f32", 64, 32, 8, 64, False, "tail", "f32"),
 )
 KERNELS = ("fwd", "dq", "dkv")
 HERE = os.path.dirname(os.path.abspath(__file__))

@@ -4,8 +4,9 @@ tensors.
 
 `emulated_source` rewrites a `.cu` file of `shockwave_tpu_torch/csrc/`
 (`flash_attention.cu`, the narrow kernels, `flash_attention_wide.cu`, the
-wide ones, and `flash_attention_tma.cu`, the TMA-fed K1-K3, each with
-the `.cuh` it includes inlined) into host C++: the PTX helpers (cp.async,
+wide ones, `flash_attention_tma.cu`, the TMA-fed K1-K3 in bf16, and
+`flash_attention_tma_f32.cu`, the TMA-fed K1 and K2 in f32, each with the
+`.cuh` files it includes inlined) into host C++: the PTX helpers (cp.async,
 ldmatrix, mma.sync, wgmma with its fence, commit and wait, named barriers,
 the async-proxy fence, mbarriers with their phases and transaction bytes,
 cp.async.bulk.tensor with the 128-byte swizzle and zero fill, setmaxnreg
@@ -14,7 +15,7 @@ tensor-map encode call (`cuTensorMapEncodeTiled`) a host stand-in
 (`cuda.h`), and each
 `kernel<<<...>>>(...)` launch runs its grid on host threads, so a
 producer warp and its consumer warpgroups really run side by side.
-`build` compiles the three into one
+`build` compiles the four into one
 shared library with the same C entry points as the CUDA one, which also
 reports the tensor-core multiply-adds of the last launch
 (`emu_tensor_products`). The emulation holds the kernels' index math,
@@ -40,7 +41,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(os.path.dirname(HERE)), "shockwave_tpu_torch", "csrc")
 SOURCES = tuple(os.path.join(CSRC, name) for name in ("flash_attention.cu",
                                                        "flash_attention_wide.cu",
-                                                       "flash_attention_tma.cu"))
+                                                       "flash_attention_tma.cu",
+                                                       "flash_attention_tma_f32.cu"))
 
 # Emulated bodies of the helpers that hold inline PTX, by function name.
 BODIES = {
@@ -62,12 +64,15 @@ BODIES = {
     "wgmma_commit": "emu::wgmma_commit();",
     "wgmma_wait": "emu::wgmma_wait(N);",
     "wgmma_hold": "",
+    "compiler_fence": "",
     "wgmma_ss": "emu::wgmma_ss(&d[0][0], da, db);",
     "wgmma_ss_n128": "emu::wgmma_ss(&d[0][0], da, db, 128);",
     "wgmma_ss_n32": "emu::wgmma_ss(&d[0][0], da, db, 32);",
     "wgmma_rs": "emu::wgmma_rs(&d[0][0], a, db);",
     "wgmma_tf32_n64": "emu::wgmma_tf32(&d[0][0], 64, a, db);",
     "wgmma_tf32_n32": "emu::wgmma_tf32(&d[0][0], 32, a, db);",
+    "wgmma_tf32_n16": "emu::wgmma_tf32(&d[0][0], 16, a, db);",
+    "wgmma_tf32_n8": "emu::wgmma_tf32(&d[0][0], 8, a, db);",
     "mbar_init": "emu::mbar_init(bar, count);",
     "mbar_fence_init": "",
     "mbar_arrive": "emu::mbar_arrive(bar);",

@@ -222,7 +222,8 @@ class TestWrappers:
                                     "flash_dq_f32", "flash_dkv_f32", "flash_fwd_wide",
                                     "flash_dq_wide", "flash_dkv_wide", "flash_fwd_wide_f32",
                                     "flash_dq_wide_f32", "flash_dkv_wide_f32", "flash_fwd_tma",
-                                    "flash_dq_tma", "flash_dkv_tma"}
+                                    "flash_dq_tma", "flash_dkv_tma", "flash_fwd_f32_tma",
+                                    "flash_dq_f32_tma"}
         assert not any(fa.LAUNCHES.values())
 
     def test_other_devices_raise(self):
@@ -307,8 +308,12 @@ class TestLaunchConfig:
                         assert tile == (32 if max(tq, tk) <= 32 else long)
                         assert (fa.instance(name, torch.bfloat16, d, tq, tk)
                                 == fa.tile_instance(name, d, tile))
-                    else:  # f32: a 32-row long tile at D = 256 (shared memory)
-                        assert tile == (16 if max(tq, tk) <= 64 else 32 if d == 256 else 64)
+                    else:  # f32: 16, then 64 (K3: 32 at D = 256, shared memory),
+                        # at D = 64-256 K1's and K2's TMA-fed instances' 64 rows
+                        long = 32 if name == "flash_dkv_f32" and d == 256 else 64
+                        assert tile == (16 if max(tq, tk) <= 64 else long)
+                        assert (fa.instance(name.removesuffix("_f32"), torch.float32, d, tq, tk)
+                                == fa.tile_instance(name, d, tile))
                     if name == "flash_fwd":  # the default instance
                         assert fa.launch_config(tq, tk, d) == tile
 
@@ -391,7 +396,8 @@ class TestLaunchConfig:
                 return fa.launch_config(c[2], c[3], c[5], name)
             assert any(tile(c) == short and c[2] % short for c in f32_cases)
             assert any(max(c[2], c[3]) == short_up_to + 1 for c in f32_cases)
-            assert {tile(c) for c in f32_cases if c[2] != c[3]} == widths == {16, 32, 64}
+            assert {tile(c) for c in f32_cases if c[2] != c[3]} == widths == (
+                {16, 32, 64} if name == "flash_dkv_f32" else {16, 64})
             assert {tile(c) for c in f32_cases if c[7] == "key0"} == widths
         # Each width's edges: one past and below the short tile, Tq != Tk
         # inside the long one, and the row that sees no key in both.
@@ -454,6 +460,10 @@ class TestChipSmokeKernelsLine:
                 widths: {"shape": [8, 64], "launches": launches(
                     {fa.instance(k, dtype, d, 64, 64) for k in fa.KERNELS}, 2)}
                 for widths, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32))}
+        served["decoder_flash_f32_long"] = {
+            f"head_dim_{d}": {"shape": [8, 128], "launches": launches(
+                {fa.instance(k, torch.float32, d, 128, 128) for k in fa.KERNELS}, 2)}
+            for d in fa.TMA_HEAD_DIMS}
         profiled = {"launches": launches(
             {fa.instance(k, torch.bfloat16, 64, 2048, 2048) for k in fa.KERNELS}, 180)}
         rows = smoke.kernel_rows(fa, cases, sliced, served, profiled)
@@ -466,9 +476,16 @@ class TestChipSmokeKernelsLine:
         by_name = {r["name"]: r for r in rows}
         for name in fa.TMA_INSTANCES:
             row = by_name[name]
-            assert row["source"] == "shockwave_tpu_torch/csrc/flash_attention_tma.cu"
-            assert row["launches"] == 180 and row["at"].startswith("bench_causal")
+            if "_f32" in name:  # f32: launched by the f32 decoder at T = 128
+                assert row["source"] == "shockwave_tpu_torch/csrc/flash_attention_tma_f32.cu"
+                assert row["launches"] == 6 and row["at"].startswith("bench_causal_f32")
+            else:
+                assert row["source"] == "shockwave_tpu_torch/csrc/flash_attention_tma.cu"
+                assert row["launches"] == 180 and row["at"].startswith("bench_causal")
             assert {"d128_bench_ms", "d256_bench_ms"} <= set(row)
+        assert by_name["flash_fwd_f32_tma"]["library_ms"] == 1.0
+        for d in ("", "d128_", "d256_"):  # f32 K2 + K3 beside SDPA's backward at each D
+            assert by_name["flash_dq_f32_tma"][f"{d}bench_k2_k3_ms"] == 1.0
         assert by_name["flash_fwd_tma"]["library_ms"] == 1.0
         assert by_name["flash_fwd"]["launches"] == 540 and "bench_ms" not in by_name["flash_fwd"]
         assert by_name["flash_dq"]["launches"] == 540 and "bench_ms" not in by_name["flash_dq"]
@@ -619,11 +636,11 @@ class TestCInterface:
             assert {("flash_fwd_tma", 128), ("flash_dq_tma", 128),
                     ("flash_dkv_tma", 128 if d == 128 else 64)} <= {
                 (r["kernel"], r["tile"]) for r in rows if r["d"] == d}
-        for d, long in ((128, 64), (256, 32)):
+        for d, long in ((128, 64), (256, 32)):  # f32: K1's and K2's long tile TMA-fed
             assert {(r["kernel"], r["tile"]) for r in rows
-                    if r["kernel"].endswith("_f32") and r["d"] == d} == {
-                ("flash_fwd_f32", 16), ("flash_fwd_f32", long), ("flash_dq_f32", 16),
-                ("flash_dq_f32", long), ("flash_dkv_f32", 16), ("flash_dkv_f32", long)}
+                    if "_f32" in r["kernel"] and r["d"] == d} == {
+                ("flash_fwd_f32", 16), ("flash_fwd_f32_tma", 64), ("flash_dq_f32", 16),
+                ("flash_dq_f32_tma", 64), ("flash_dkv_f32", 16), ("flash_dkv_f32", long)}
 
     @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
     @pytest.mark.parametrize("d,width", [(16, 32), (48, 64), (80, 128), (96, 128), (128, 128),

@@ -63,7 +63,8 @@ def test_every_bf16_tile_is_emulated():
             assert met == {"short", "long"}, (name, widths)
     reached = {(fa.instance(name, torch.bfloat16, fa.kernel_head_dim(c[4]), c[1], c[2]),
                 fa.kernel_head_dim(c[4])) for name in fa.KERNELS for c in BF16_CASES}
-    assert {(name, d) for name in fa.TMA_INSTANCES for d in fa.TMA_HEAD_DIMS} <= reached
+    assert {(name, d) for name in fa.TMA_INSTANCES if "_f32" not in name
+            for d in fa.TMA_HEAD_DIMS} <= reached
     assert {fa.kernel_head_dim(d) for _, _, _, _, d, _, _ in BF16_CASES
             if fa.kernel_head_dim(d) != d} == {128, 256}
 

@@ -29,7 +29,8 @@ def _chip_smoke():
 def test_cases_are_chip_smokes_wide_cases():
     """Each case is the chip_smoke.py kernel case of the same name (its B,
     T, H, D, causal and mask), the main and bench shapes at D = 512 and a
-    ragged causal case at D = 768, in both dtypes."""
+    ragged causal case at D = 768, and the bench shape at D = 64, 128 and
+    256 and the main shape, in both dtypes."""
     smoke = _chip_smoke()
     table = {c[0]: c for c in smoke.CASES + smoke.F32_CASES}
     for name, b, t, h, d, causal, mask, dt in ab.CASES:
@@ -39,6 +40,10 @@ def test_cases_are_chip_smokes_wide_cases():
     for dt in ("", "_f32"):
         assert {"d512_main_enc_self" + dt, "d512_bench_causal" + dt,
                 "d768_ragged_causal" + dt} <= names
+    # The long tile at D = 64, 128 and 256 and the main shape, in both dtypes.
+    for dt in ("", "_f32"):
+        assert {"bench_causal" + dt, "d128_bench_causal" + dt, "d256_bench_causal" + dt,
+                "main_enc_self" + dt} <= names
     assert smoke.D512_CASES == {"": ("d512_main_enc_self", "d512_bench_causal"),
                                 "_f32": ("d512_main_enc_self_f32", "d512_bench_causal_f32")}
 
