@@ -9,13 +9,14 @@ Phases, in order; any failure exits non-zero and prints no result:
    the torch and CUDA versions.
 2. build: nvcc compiles `shockwave_tpu_torch/csrc/*.cu` (timed); the
    instantiations that spill registers, named from ptxas's report
-   (`spills:`; the TMA-fed f32 K1 and K2 must spill none); the HMMA
+   (`spills:`; the TMA-fed f32 K1-K3 must spill none); the HMMA
    instructions of each instantiation in the
    library's SASS, by mnemonic, with the TMA loads (`sass:`; the 3xTF32
    kernels must hold TF32 ones, the wgmma kernels, K1-K3 wide in both
    dtypes, HGMMA ones of their dtype and no HMMA, the TMA-fed K1-K3 in
    bf16 at D = 64, 128 and 256 bf16 HGMMA, UTMALDG and no HMMA, and the
-   TMA-fed K1 and K2 in f32 there TF32 HGMMA, UTMALDG and no HMMA);
+   TMA-fed K1-K3 in f32 there TF32 HGMMA, UTMALDG and no HMMA, and no
+   long-tile mma.sync f32 instance there);
    then each kernel instantiation's
    resident CTAs per SM, threads, shared memory and registers, and at the
    main shape each
@@ -34,7 +35,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    main shape key-padded and causal, the decoder's full forward (8 x 64,
    4 heads of 32, causal), the bench shape, and the edges of the f32
    instances' tiles (16 up to T = 64, 64 beyond; at D = 64, 128 and 256
-   K1's and K2's long tile is the TMA-fed f32 kernels'): ragged T=17, T=65,
+   K1's-K3's long tile is the TMA-fed f32 kernels'): ragged T=17, T=65,
    Tq=32 against Tk=48, Tq=64 against Tk=128, D=32 at T=32 and T=128,
    and the key-0 row at T=48 and T=128; its library time is SDPA's in
    f32. The f32 bound's operations are reckoned at the card's
@@ -42,8 +43,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    Both dtypes also run their D = 128 and D = 256 instances (`d128_`
    and `d256_` cases): the main shape at that D, the bench shape (4,
    2048, 8, D) causal, Tq != Tk key-padded, ragged causal, and the key-0
-   row at both tiles (f32 K3's long tile is 32 at D = 256), and in f32
-   T = 65 at both D.
+   row at both tiles, and in f32 T = 65 at both D.
    The wide instances (any multiple of 256 above 256, all on wgmma: K1 in
    64-row tiles of up to 512 output columns; K2 and K3 in 64-row tiles,
    or 32 rows of each of two (batch, head) pairs up to T = 32, of up to
@@ -134,8 +134,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    at dim 1024, 4 heads (head dim 256) and at dim 2048, 4 heads (head dim
    512, the wide instances), in bf16 and in f32. Then the f32 decoder past
    the f32 short tile, (8, 128) at head dims 64, 128 and 256 (dim 256, 512
-   and 1024, 4 heads): the TMA-fed K1 and K2 in f32 and K3's long tile,
-   one launch of each per layer.
+   and 1024, 4 heads): the TMA-fed K1-K3 in f32, one launch of each per
+   layer.
    bench_line: `profiling/bench_serving_decode.py` at its defaults (batch
    8, 32 tokens, prompt 8, dim 128, 2 layers, 4 heads) through its
    `--smoke` gate at 200 tokens/s, its CUDA graph's tokens equal to the
@@ -206,7 +206,7 @@ Output: `device:`, `build:`, `ptxas:`, `spills:`, `sass:` and
 then the
 `{"kernels": [...]}` line (the six kernel instances, each with its D =
 128 and D = 256 times beside, the six wide instances at D = 512, and the
-five TMA-fed ones, bf16 K1-K3 and f32 K1 and K2 on the long tile, at
+six TMA-fed ones, K1-K3 in bf16 and in f32 on the long tile, at
 their dtype's bench shape with its D = 128 and 256 times beside and, on
 K2's and K3's rows, K2 + K3 against SDPA's backward at each D, their
 launches the profile phase's T = 2048 steps' (bf16) and the f32 decoder's
@@ -316,9 +316,8 @@ F32_CASES = (
     ("d128_masked_row0_f32", 1, 128, 128, 2, 128, True, "key0"),
     ("d128_short_masked_row0_f32", 1, 48, 48, 2, 128, True, "key0"),
     ("d128_one_past_short_f32", 2, 65, 65, 2, 128, True, "tail"),
-    # D = 256, the same six; the f32 instances' long tile is 32 there, so
-    # the bench shape, the cross case, the ragged case and the long key-0
-    # row run it.
+    # D = 256, the same six; the bench shape, the cross case, the ragged
+    # case and the long key-0 row run the TMA-fed f32 instances.
     ("d256_main_enc_self_f32", 64, 32, 32, 8, 256, False, "tail"),
     ("d256_bench_causal_f32", 4, 2048, 2048, 8, 256, True, None),
     ("d256_cross_48x96_f32", 2, 48, 96, 4, 256, False, "tail"),
@@ -481,8 +480,8 @@ DECODER_PADDED_WIDTHS = dict(dim=64, num_heads=4)
 DECODER_D128_WIDTHS = dict(dim=512, num_heads=4)
 DECODER_D256_WIDTHS = dict(dim=1024, num_heads=4)
 # The f32 decoder past the f32 short tile, (8, 128) at head dims 64, 128
-# and 256: its flash forward + backward runs the TMA-fed K1 and K2 in f32
-# (and K3's mma.sync long tile), at DECODER_F32_TOL.
+# and 256: its flash forward + backward runs the TMA-fed K1-K3 in f32, at
+# DECODER_F32_TOL.
 DECODER_LONG_SHAPE = (8, 128)
 DECODER_LONG_WIDTHS = {64: dict(dim=256, num_heads=4), 128: DECODER_D128_WIDTHS,
                        256: DECODER_D256_WIDTHS}
@@ -2286,7 +2285,7 @@ def kernel_rows(fa, cases, sliced, served, profiled):
                             "main_library_ms": (main_case["library_fwd_ms"]
                                                 if kname == "flash_fwd" else None)})
             kernels.append(row)
-    # The TMA-fed K1-K3 in bf16 and K1 and K2 in f32: timed at the bench
+    # The TMA-fed K1-K3 in bf16 and in f32: timed at the bench
     # shape of their dtype, and at the bench shape at D = 128 and 256; K2's
     # and K3's rows give K2 + K3 beside SDPA's backward at each D. Their
     # main-path launches: bf16, the profile phase's T = 2048 steps; f32, the
@@ -2410,7 +2409,8 @@ def main() -> int:
             print(f"ptxas: {line.strip()}")
     spilled = spills(log)
     emit("spills", spilled)
-    for prefix in ("flash_fwd_tma_f32_kernel<", "flash_dq_tma_f32_kernel<"):
+    for prefix in ("flash_fwd_tma_f32_kernel<", "flash_dq_tma_f32_kernel<",
+                   "flash_dkv_tma_f32_kernel<"):
         check(not any(name.startswith(prefix) for name in spilled),
               f"{prefix}: spills registers ({spilled})")
     hmma = sass_hmma(path)
@@ -2455,10 +2455,11 @@ def main() -> int:
     for kname in ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"):
         check(not any(f"{kname}<{d}, 64>" in hmma for d in fa.TMA_HEAD_DIMS),
               f"{kname}: a tile-64 instance at D = 64-256 is still built")
-    # The TMA-fed K1 and K2 in f32, one instance per head dim 64, 128 and
-    # 256: TF32 HGMMA fed by UTMALDG, and no HMMA; the mma.sync K1 and K2
-    # in f32 keep only the short tile there (and D = 32).
-    for prefix in ("flash_fwd_tma_f32_kernel<", "flash_dq_tma_f32_kernel<"):
+    # The TMA-fed K1-K3 in f32, one instance per head dim 64, 128 and 256:
+    # TF32 HGMMA fed by UTMALDG, and no HMMA; the mma.sync K1-K3 in f32
+    # keep only the short tile there (and D = 32).
+    for prefix in ("flash_fwd_tma_f32_kernel<", "flash_dq_tma_f32_kernel<",
+                   "flash_dkv_tma_f32_kernel<"):
         found = {name: ops for name, ops in hmma.items() if name.startswith(prefix)}
         check(sorted(found) == sorted(f"{prefix}{d}>" for d in fa.TMA_HEAD_DIMS),
               f"{prefix}: {sorted(found)} in the SASS, not one per head dim {fa.TMA_HEAD_DIMS}")
@@ -2467,7 +2468,7 @@ def main() -> int:
                   and any(op.startswith("UTMALDG") for op in ops)
                   and not any(op.startswith("HMMA") for op in ops),
                   f"{name}: not TF32 HGMMA fed by UTMALDG without HMMA ({ops})")
-    for kname in ("flash_fwd_f32_kernel", "flash_dq_f32_kernel"):
+    for kname in ("flash_fwd_f32_kernel", "flash_dq_f32_kernel", "flash_dkv_f32_kernel"):
         check(not any(f"{kname}<{d}, {tile}>" in hmma for d in fa.TMA_HEAD_DIMS
                       for tile in (32, 64)),
               f"{kname}: a long-tile instance at D = 64-256 is still built")

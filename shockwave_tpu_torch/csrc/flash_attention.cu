@@ -789,10 +789,11 @@ __global__ void __launch_bounds__(DkvShape<D, kBlock>::kCtaThreads)
 //    second D-wide sum. K3's dK and dV would take 256 registers: two warps
 //    share each 16 keys, each owning a 128-column half of dK and dV and
 //    forming the scores over the full D, as bf16 K3 does at D = 256.
-// (Note 7's K1 and K2 long tiles at D = 256, and their 64-row ones at D =
-// 64 and 128, are no longer built: flash_attention_tma_f32.cu runs them on
-// TF32 wgmma, P.V and dS.K as O^T = V^T.P^T and dQ^T = K^T.dS^T, since
-// wgmma takes 32-bit B operands only K-major. K3 stays here.)
+// (Note 7's long tiles at D = 256, and the 64-row ones at D = 64 and 128,
+// are no longer built: flash_attention_tma_f32.cu runs K1-K3 there on
+// TF32 wgmma, P.V, dS.K, P^T.dO and dS^T.Q as O^T = V^T.P^T, dQ^T =
+// K^T.dS^T, dV^T = dO^T.P and dK^T = Q^T.dS, since wgmma takes 32-bit B
+// operands only K-major. The short tile and D = 32 stay here.)
 
 // The A operand of rows [r0, r0 + 16), columns [c0, c0 + 8) of a (rows,
 // D) f32 matrix in device memory, split; rows past `rows` read 0.
@@ -1530,7 +1531,7 @@ int by_shape(int d, int tile, F&& f) {
   return (int)cudaErrorInvalidValue;
 }
 
-// The same for the 3xTF32 instances of K1 and K2: the short tile (16, one
+// The same for the 3xTF32 instances of K1-K3: the short tile (16, one
 // warp per CTA) at every head dim, the long one (64) at D = 32 only; the
 // TMA-fed kernels of flash_attention_tma_f32.cu take the long tile at D =
 // 64, 128 and 256 (swt::tma_f32_tile).
@@ -1549,26 +1550,6 @@ int by_shape_tf32_short(int d, int tile, F&& f) {
   return (int)cudaErrorInvalidValue;
 }
 
-// The same for K3's 3xTF32 instance, whose tiles are 16 and 64 (32 at D =
-// 256, design note 7 of the f32 kernels).
-template <typename F>
-int by_shape_tf32(int d, int tile, F&& f) {
-  using I16 = std::integral_constant<int, 16>;
-  using I32 = std::integral_constant<int, 32>;
-  using I64 = std::integral_constant<int, 64>;
-  using I128 = std::integral_constant<int, 128>;
-  using I256 = std::integral_constant<int, 256>;
-  if (d == 256 && tile == 16) return f(I256{}, I16{});
-  if (d == 256 && tile == 32) return f(I256{}, I32{});
-  if (d == 128 && tile == 16) return f(I128{}, I16{});
-  if (d == 128 && tile == 64) return f(I128{}, I64{});
-  if (d == 64 && tile == 16) return f(I64{}, I16{});
-  if (d == 64 && tile == 64) return f(I64{}, I64{});
-  if (d == 32 && tile == 16) return f(I32{}, I16{});
-  if (d == 32 && tile == 64) return f(I32{}, I64{});
-  return (int)cudaErrorInvalidValue;
-}
-
 // Kernels 0-2 (K1-K3 in bf16, on mma.sync).
 template <int D, int kBlock>
 int occupancy_of_bf16(int kernel, int* out) {
@@ -1582,22 +1563,16 @@ int occupancy_of_bf16(int kernel, int* out) {
                    DkvShape<D, kBlock>::kSmemBytes, out);
 }
 
-// Kernels 3 and 4 (K1 and K2 in f32, on mma.sync).
+// Kernels 3-5 (K1-K3 in f32, on mma.sync).
 template <int D, int kBlock>
 int occupancy_of_tf32(int kernel, int* out) {
   using Fwd = FwdF32Shape<D, kBlock>;
   using Dq = DqF32Shape<D, kBlock>;
+  using Dkv = DkvF32Shape<D, kBlock>;
   if (kernel == 3)
     return occupancy(flash_fwd_f32_kernel<D, kBlock>, Fwd::kCtaThreads, Fwd::kSmemBytes, out);
   if (kernel == 4)
     return occupancy(flash_dq_f32_kernel<D, kBlock>, Dq::kCtaThreads, Dq::kSmemBytes, out);
-  return (int)cudaErrorInvalidValue;
-}
-
-// Kernel 5 (K3 in f32).
-template <int D, int kBlock>
-int occupancy_of_dkv_tf32(int* out) {
-  using Dkv = DkvF32Shape<D, kBlock>;
   return occupancy(flash_dkv_f32_kernel<D, kBlock>, Dkv::kCtaThreads, Dkv::kSmemBytes, out);
 }
 
@@ -1609,12 +1584,12 @@ int occupancy_of_dkv_tf32(int* out) {
 // on `stream`, and returns the cudaError_t of the launch (0 = launched);
 // an unsupported head dim or tile returns cudaErrorInvalidValue. `tile`
 // is the tile that the wrapper's launch_config chose for the instance: 32
-// or 64 for the bf16 instances, 16 or 64 for the f32 ones (K3's: 16 or 32
-// at D = 256); in bf16 at D = 64, 128 and 256 the long tile of K1 and K2
-// (128 query rows) and of K3 (128 keys, 64 at D = 256) launches the
-// TMA-fed kernels of flash_attention_tma.cu, and in f32 there the long
-// tile of K1 and K2 (64 query rows) those of flash_attention_tma_f32.cu.
-// Nothing here synchronises.
+// or 64 for the bf16 instances, 16 or 64 for the f32 ones; in bf16 at D =
+// 64, 128 and 256 the long tile of K1 and K2 (128 query rows) and of K3
+// (128 keys, 64 at D = 256) launches the TMA-fed kernels of
+// flash_attention_tma.cu, and in f32 there the long tile of K1-K3 (64 query
+// rows, K3's 64 keys) those of flash_attention_tma_f32.cu. Nothing here
+// synchronises.
 extern "C" {
 
 int swt_flash_fwd(const void* q, const void* k, const void* v, const void* mask, void* out,
@@ -1701,29 +1676,27 @@ int swt_flash_dkv_f32(const void* q, const void* k, const void* v, const void* g
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return by_shape_tf32(d, tile, [&](auto dd, auto tt) {
+  if (swt::tma_f32_tile(2, d, tile))
+    return swt::launch_dkv_tma_f32(q, k, v, g, lse, delta, mask, dk, dv, bh, heads, tq, tk, d,
+                                   scale, causal, s);
+  return by_shape_tf32_short(d, tile, [&](auto dd, auto tt) {
     return launch_dkv_f32<decltype(dd)::value, decltype(tt)::value>(
         q, k, v, g, lse, delta, mask, dk, dv, bh, heads, tq, tk, scale, causal, s);
   });
 }
 
 // Occupancy of kernel 0 (K1), 1 (K2), 2 (K3), or 3-5 (their f32
-// instances) at head dim d and tile `tile` (16 or 64 for kernels 3-5, K3's
-// 16 or 32 at D = 256, K1's and K2's long tile at D = 64-256 the TMA-fed
-// f32 kernels'; 32 or 64 for the others, but for K1-K3's long tiles at D =
-// 64-256, the TMA-fed kernels': K1 and K2 128, K3 128 or, at D = 256, 64),
-// or 6-8 (the wide bf16
+// instances) at head dim d and tile `tile` (16 or 64 for kernels 3-5, their
+// long tile at D = 64-256 the TMA-fed f32 kernels'; 32 or 64 for the
+// others, but for K1-K3's long tiles at D = 64-256, the TMA-fed kernels':
+// K1 and K2 128, K3 128 or, at D = 256, 64), or 6-8 (the wide bf16
 // instances) and 9-11 (the wide f32 ones) at a wide d and their tile
-// (flash_attention_wide.cu), on `device`: writes {CTAs per SM, threads per CTA, dynamic shared
-// bytes, registers per thread} to out[0..3].
+// (flash_attention_wide.cu), on `device`: writes {CTAs per SM, threads per
+// CTA, dynamic shared bytes, registers per thread} to out[0..3].
 int swt_flash_occupancy(int kernel, int d, int tile, int device, int* out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (kernel >= 6) return swt::wide_occupancy(kernel, d, tile, out);
-  if (kernel == 5)
-    return by_shape_tf32(d, tile, [&](auto dd, auto tt) {
-      return occupancy_of_dkv_tf32<decltype(dd)::value, decltype(tt)::value>(out);
-    });
   if (kernel >= 3) {
     if (swt::tma_f32_tile(kernel - 3, d, tile)) return swt::tma_f32_occupancy(kernel - 3, d, out);
     return by_shape_tf32_short(d, tile, [&](auto dd, auto tt) {

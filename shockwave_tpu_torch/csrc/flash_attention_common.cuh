@@ -515,9 +515,10 @@ int launch_dkv_tma(const void* q, const void* k, const void* v, const void* g, c
                    int tq, int tk, int d, float scale, int causal, cudaStream_t stream);
 int tma_occupancy(int kernel, int d, int* out);
 
-// The TMA-fed K1 and K2 in f32 (defined in flash_attention_tma_f32.cu),
-// which take the long tile (64 rows) of kernels 0 (K1) and 1 (K2) in f32
-// at head dims 64, 128 and 256, in the same form.
+// The TMA-fed K1-K3 in f32 (defined in flash_attention_tma_f32.cu), which
+// take the long tile (64 rows: K1's and K2's queries, K3's keys) of
+// kernels 0 (K1), 1 (K2) and 2 (K3) in f32 at head dims 64, 128 and 256,
+// in the same form.
 bool tma_f32_tile(int kernel, int d, int tile);
 int launch_fwd_tma_f32(const void* q, const void* k, const void* v, const void* mask, void* out,
                        void* lse, int bh, int heads, int tq, int tk, int d, float scale,
@@ -525,5 +526,9 @@ int launch_fwd_tma_f32(const void* q, const void* k, const void* v, const void* 
 int launch_dq_tma_f32(const void* q, const void* k, const void* v, const void* g, const void* lse,
                       const void* delta, const void* mask, void* dq, int bh, int heads, int tq,
                       int tk, int d, float scale, int causal, cudaStream_t stream);
+int launch_dkv_tma_f32(const void* q, const void* k, const void* v, const void* g,
+                       const void* lse, const void* delta, const void* mask, void* dk, void* dv,
+                       int bh, int heads, int tq, int tk, int d, float scale, int causal,
+                       cudaStream_t stream);
 int tma_f32_occupancy(int kernel, int d, int* out);
 }  // namespace swt

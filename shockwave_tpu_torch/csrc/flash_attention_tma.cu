@@ -675,38 +675,6 @@ struct TmaDkvShape {
   static_assert(kSmemBytes <= kTmaMaxSmem, "K3's tiles do not fit a CTA");
 };
 
-// The lane's p for its key row h (keys key[h]) against query `query` of
-// the q-tile, from its score s: p = exp(s scale - lse) = 2^(s scale log2(e)
-// - lse2), lse2 the query's lse in base 2. The reference's guard, p = 0
-// where the masked score is <= -5e29, is p = 0 for a key that is masked or
-// past Tk (key_live[h] false: its bias is -1e30 or -inf) and, on masked
-// tiles, where the query precedes the key (causal -1e30) or is past Tq;
-// |s scale| is far below 5e29 elsewhere.
-template <bool kMasked>
-__device__ __forceinline__ float dkv_p(float s, float lse2, int query, int h, const int (&key)[2],
-                                       const bool (&key_live)[2], int tq, float scale2,
-                                       int causal) {
-  bool live = key_live[h];
-  if constexpr (kMasked) live = live && !(causal && query < key[h]) && query < tq;
-  return live ? fast_exp2(fmaf(s, scale2, -lse2)) : 0.f;
-}
-
-// The lane's P^T in st from S^T (dkv_p), its keys key[h] against the
-// queries of columns 8n + 2t + (e & 1) of the q-tile at q0.
-template <bool kMasked>
-__device__ __forceinline__ void dkv_probs(float (&st)[8][4], const float* lse2, int q0, int t,
-                                          const int (&key)[2], const bool (&key_live)[2],
-                                          int tq, float scale2, int causal) {
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    const float2 lq = *reinterpret_cast<const float2*>(lse2 + 8 * n + 2 * t);
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      st[n][e] = dkv_p<kMasked>(st[n][e], (e & 1) ? lq.y : lq.x, q0 + 8 * n + 2 * t + (e & 1),
-                                e >> 1, key, key_live, tq, scale2, causal);
-  }
-}
-
 // P^T and dS^T = P^T (dP^T - delta) scale from S^T (st) and dP^T (dpt),
 // packed 16 queries at a time into the A fragments pa and dsa as they are
 // formed, so that few of the f32 terms are live at once.
@@ -733,17 +701,6 @@ __device__ __forceinline__ void dkv_terms(uint32_t (&pa)[4][4], uint32_t (&dsa)[
     }
     accum_to_a(pa[kk], st[2 * kk], st[2 * kk + 1]);
     accum_to_a(dsa[kk], dpt[2 * kk], dpt[2 * kk + 1]);
-  }
-}
-
-// dS^T = P^T (dP^T - delta) scale, in dpt.
-__device__ __forceinline__ void dkv_grads(float (&dpt)[8][4], const float (&p)[8][4],
-                                          const float* delta_t, int t, float scale) {
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    const float2 dl = *reinterpret_cast<const float2*>(delta_t + 8 * n + 2 * t);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dpt[n][e] = p[n][e] * (dpt[n][e] - ((e & 1) ? dl.y : dl.x)) * scale;
   }
 }
 

@@ -1,8 +1,8 @@
 // What the TMA-fed kernels share (flash_attention_tma.cu: K1-K3 in bf16;
-// flash_attention_tma_f32.cu: K1 and K2 in f32): the CTA shape's
-// constants, mbarriers, TMA loads, register reallocation, the ring's
-// stage arithmetic, the online softmax and dQ's terms of one k-tile, and
-// the host's tensor maps.
+// flash_attention_tma_f32.cu: K1-K3 in f32): the CTA shape's constants,
+// mbarriers, TMA loads, register reallocation, the ring's stage
+// arithmetic, the online softmax and dQ's terms of one k-tile, K3's p and
+// dS^T of one q-tile, and the host's tensor maps.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encode call is reached at run time
@@ -195,6 +195,51 @@ __device__ __forceinline__ void dq_terms(const float (&sc)[kN / 8][4], float (&d
       }
       dp[n][e] = p * (dp[n][e] - delta[h]) * scale;
     }
+  }
+}
+
+// K3's p for the lane's key row h (keys key[h]) against query `query` of
+// the q-tile, from its score s: p = exp(s scale - lse) = 2^(s scale log2(e)
+// - lse2), lse2 the query's lse in base 2. The reference's guard, p = 0
+// where the masked score is <= -5e29, is p = 0 for a key that is masked or
+// past Tk (key_live[h] false: its bias is -1e30 or -inf) and, on masked
+// tiles, where the query precedes the key (causal -1e30) or is past Tq;
+// |s scale| is far below 5e29 elsewhere.
+template <bool kMasked>
+__device__ __forceinline__ float dkv_p(float s, float lse2, int query, int h, const int (&key)[2],
+                                       const bool (&key_live)[2], int tq, float scale2,
+                                       int causal) {
+  bool live = key_live[h];
+  if constexpr (kMasked) live = live && !(causal && query < key[h]) && query < tq;
+  return live ? fast_exp2(fmaf(s, scale2, -lse2)) : 0.f;
+}
+
+// The lane's P^T in st (kT n8 tiles of queries) from S^T (dkv_p), its keys
+// key[h] against the queries of columns 8n + 2t + (e & 1) of the q-tile at
+// q0.
+template <bool kMasked, int kT>
+__device__ __forceinline__ void dkv_probs(float (&st)[kT][4], const float* lse2, int q0, int t,
+                                          const int (&key)[2], const bool (&key_live)[2],
+                                          int tq, float scale2, int causal) {
+#pragma unroll
+  for (int n = 0; n < kT; ++n) {
+    const float2 lq = *reinterpret_cast<const float2*>(lse2 + 8 * n + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      st[n][e] = dkv_p<kMasked>(st[n][e], (e & 1) ? lq.y : lq.x, q0 + 8 * n + 2 * t + (e & 1),
+                                e >> 1, key, key_live, tq, scale2, causal);
+  }
+}
+
+// dS^T = P^T (dP^T - delta) scale, in dpt.
+template <int kT>
+__device__ __forceinline__ void dkv_grads(float (&dpt)[kT][4], const float (&p)[kT][4],
+                                          const float* delta_t, int t, float scale) {
+#pragma unroll
+  for (int n = 0; n < kT; ++n) {
+    const float2 dl = *reinterpret_cast<const float2*>(delta_t + 8 * n + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dpt[n][e] = p[n][e] * (dpt[n][e] - ((e & 1) ? dl.y : dl.x)) * scale;
   }
 }
 

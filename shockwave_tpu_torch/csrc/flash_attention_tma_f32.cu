@@ -1,21 +1,23 @@
-// Flash attention for Hopper (sm_90a): K1 (forward) and K2 (dQ) in f32 at
-// head dims 64, 128 and 256 on sequences past the f32 short tile
-// (ops/flash_attention.py:launch_config: max(Tq, Tk) > 64), fed by TMA, on
-// TF32 wgmma as 3xTF32. They replace _fa_kernel (:40) and _dq_kernel (:167)
-// of shockwave_tpu/ops/flash_attention.py there, and compute what the
-// mma.sync f32 kernels of flash_attention.cu (design notes of "K1-K3 in
-// f32") compute: every product a.b as a_small.b_big + a_big.b_small +
-// a_big.b_big (split_tf32) into one f32 accumulator; each k-tile's part of
-// O or dQ summed from zero and added in f32 (the tensor cores' f32
-// accumulation truncates); causal entries -1e30, then the key bias (-1e30
-// for a masked key, -inf past Tk), the running max from -1e30, p = 0 where
-// s <= -5e29 in the backward. The mma.sync kernels keep the f32 short tile
-// (one-warp CTAs up to T = 64), D = 32 and K3.
+// Flash attention for Hopper (sm_90a): K1 (forward), K2 (dQ) and K3 (dK,
+// dV) in f32 at head dims 64, 128 and 256 on sequences past the f32 short
+// tile (ops/flash_attention.py:launch_config: max(Tq, Tk) > 64), fed by
+// TMA, on TF32 wgmma as 3xTF32. They replace _fa_kernel (:40), _dq_kernel
+// (:167) and _dkv_kernel (:222) of shockwave_tpu/ops/flash_attention.py
+// there, and compute what the mma.sync f32 kernels of flash_attention.cu
+// (design notes of "K1-K3 in f32") compute: every product a.b as
+// a_small.b_big + a_big.b_small + a_big.b_big (split_tf32) into one f32
+// accumulator; each tile's part of O, dQ, dK or dV summed from zero and
+// added in f32 (the tensor cores' f32 accumulation truncates); causal
+// entries -1e30, then the key bias (-1e30 for a masked key, -inf past Tk),
+// the running max from -1e30, p = 0 where s <= -5e29 in the backward. The
+// mma.sync kernels keep the f32 short tile (one-warp CTAs up to T = 64)
+// and D = 32.
 //
 // CTA shape: flash_attention_tma.cu's (384 threads). Warpgroup 0 is the
 // producer: setmaxnreg lowers it to kF32ProducerRegs; its thread 0 issues
 // every TMA load, its warps 1-3 (the helpers, kHelpers threads) stage each
-// streamed tile's small TF32 plane and the tile's key bias. Warpgroups 1
+// streamed tile's small TF32 planes and the tile's key bias (K3: lse and
+// delta). Warpgroups 1
 // and 2 are the consumers (setmaxnreg raises them to kF32ConsumerRegs) and
 // run only wgmma and the elementwise terms. Operands arrive by TMA over
 // 3-D tensor maps of (BH, T, D) f32, boxes of 32 columns (128 bytes, the
@@ -88,11 +90,43 @@
 // 4. Masking per tile by template, as in flash_attention_tma.cu: tiles that
 //    need no causal compare, no key bias and no ragged-end test take the
 //    plain step in a loop of their own, the others the masked one.
+// 5. K3 owns 64 keys a CTA and walks q-tiles of kQ queries. A wgmma's M is
+//    64 rows of A, and the keys are the rows that stay: S^T = K.Q^T and
+//    dP^T = V.dO^T put K and V, resident, on A (split from their landing
+//    as read, every q-tile) and stream Q and dO as B (their landings the
+//    big planes, their small planes staged by the helpers). dV and dK
+//    contract over queries, which the landed Q and dO hold as rows, so
+//    they run swapped (note 1): dV^T = dO^T.P and dK^T = Q^T.dS, dO^T and
+//    Q^T split from the landings, P^T and dS^T as planes written into Q's
+//    and dO's small-plane rooms once the score products are past (at D =
+//    64 those hold 256 kQ bytes against the planes' 512 kQ, so the stage
+//    has rooms of its own). The other orientation, S = Q.K^T with K and V
+//    as B, needs 64 queries a tile: at D = 256 Q and dO alone then take
+//    128 KB a stage, beside 128 KB of K, V and their small planes for 32
+//    keys.
+//    The groups split the products: group 0 forms S^T and P^T and owns
+//    dV^T; group 1 forms dP^T, reads P^T back from group 0's planes
+//    (load_planes: exact, after handed[s]) and owns dK^T. A group's sum is
+//    D x 64 f32, D / 2 registers a thread: 32 and 64 at D = 64 and 128,
+//    128 at D = 256, where every tiling tried spilled 44-1,556 bytes with it
+//    all in registers (PERF.md). So at D = 256 the sum's last 64 columns
+//    (32 registers) live in a stash in shared memory (kStash), each part
+//    added there in f32; the keys' bias and the tile loop's bounds are read
+//    from shared memory where they are used; the tile body is one loop
+//    (kOneLoop: three loops of it spilled more); and the consumers take 240
+//    registers, the producer 24. That compiles without spills and ran 1.37x
+//    faster than the mma.sync kernel it replaces; tilings that spilled
+//    16-288 bytes ran up to 1.18x faster still.
+//    Tiles (queries kQ x stages; bytes with the alignment, the terms, the
+//    bias, the bounds, the stash and the barriers): D = 64: 32 x 3
+//    (231,560); D = 128: 32 x 2 (198,504); D = 256: 16 x 1 (230,856); 8 x
+//    2 (n8 score products, twice as many a query) ran 1.01-1.1x slower.
 //
 // Bound on an H100 SXM at f32-accurate products (494.5 / 3 = 164.8
 // TFLOP/s): at the bench shape (4, 2048, 8, D) causal, K1 17.2 / 34.4 /
 // 68.8 GFLOP at D = 64 / 128 / 256 (104 / 209 / 417 us), K2 25.8 / 51.6 /
-// 103 GFLOP (156 / 313 / 626 us).
+// 103 GFLOP (156 / 313 / 626 us), K3 34.4 / 68.8 / 137.5 GFLOP (209 / 417 /
+// 834 us).
 #include "flash_attention_tma.cuh"
 
 namespace {
@@ -259,71 +293,87 @@ __device__ __forceinline__ uint64_t plane_desc(const float* pl, int p, int kk) {
   return wgmma_desc(pl + (f / kF32BoxCols) * kF32BoxFloats, 16) + (f % kF32BoxCols) / 4;
 }
 
-// part (64 x 64 f32: rows 64mt.. of X^T against the group's 64 queries) =
-// X^T.Y^T over the kN keys of one tile, as 3xTF32 from zero: A the m-tile
-// mt of X^T split from the tile x as it landed (split_at_box), B the
-// planes of Y (P or dS) at pl. Waited for before return.
-template <int kN>
-__device__ __forceinline__ void planes_product(float (&part)[8][4], const float* x,
-                                               const float* pl, int mt, int w, int g, int t) {
+// part (64 x kM f32: rows 64mt.. of X^T against kM of the 64 rows of Y,
+// from row m0 on) = X^T.Y^T over the kN keys of one tile, as 3xTF32 from
+// zero: A the m-tile mt of X^T split from the tile x as it landed
+// (split_at_box), B the planes of Y (P or dS) at pl. Waited for before
+// return.
+template <int kN, int kM = 64>
+__device__ __forceinline__ void planes_product(float (&part)[kM / 8][4], const float* x,
+                                               const float* pl, int mt, int w, int g, int t,
+                                               int m0 = 0) {
   Split<4> a[kN / 8];
 #pragma unroll
   for (int kk = 0; kk < kN / 8; ++kk) a[kk] = split_at_box<kN>(x, mt, w, kk, g, t);
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
+  for (int n = 0; n < kM / 8; ++n) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
   }
+  const float* rows = pl + m0 * kF32BoxCols;  // rows m0.. of each 64-row box
   wgmma_fence();
   wgmma_hold(part);
 #pragma unroll
   for (int kk = 0; kk < kN / 8; ++kk)
-    wgmma_3xtf32<64>(part, a[kk], plane_desc<kN>(pl, 0, kk), plane_desc<kN>(pl, 1, kk));
+    wgmma_3xtf32<kM>(part, a[kk], plane_desc<kN>(rows, 0, kk), plane_desc<kN>(rows, 1, kk));
   wgmma_commit();
   wgmma_wait<0>();
   wgmma_hold(part);
 }
 
-// The producer warpgroup of both kernels. Thread 0 loads the resident
-// tiles (`resident`, completing on bar_q), then for each k-tile j, once
-// its stage is empty, K and V into the stage's K and V rooms (kV floats
+// The producer warpgroup of the three kernels. Thread 0 loads the
+// resident tiles (`resident`), then for each streamed tile j < n, once its
+// stage is empty, the kN rows (first + j) kN.. of x_map and of y_map (K1
+// and K2: K and V; K3: Q and dO) into the stage's x and y rooms (kY floats
 // apart), completing on land[s]. The helpers wait for each tile to land,
-// stage K's small plane (and, with kVSmall, V's) right after its tile and
-// the tile's key bias, fence them into the async proxy and arrive on
+// stage x's small plane (and, with kYSmall, y's) right after its tile,
+// store the tile's small vectors (terms(s, j, h): K1's and K2's key bias,
+// K3's lse and delta), fence them into the async proxy and arrive on
 // full[s]. Every other thread returns.
-template <int D, int kN, int kS, int kStageFloats, int kV, bool kVSmall, typename Resident>
-__device__ __forceinline__ void produce(Resident&& resident, float* ring, float* sbias,
+template <int D, int kN, int kS, int kStageFloats, int kY, bool kYSmall,
+          int kRegs = kF32ProducerRegs, typename Resident, typename Terms>
+__device__ __forceinline__ void produce(Resident&& resident, Terms&& terms, float* ring,
                                         uint64_t* land, uint64_t* full, uint64_t* empty,
-                                        const CUtensorMap& k_map, const CUtensorMap& v_map,
-                                        const uint8_t* mask, int heads, int tk, int nk, int bh) {
+                                        const CUtensorMap& x_map, const CUtensorMap& y_map,
+                                        int first, int n, int bh) {
   constexpr int kTile = kN * D;
-  setmaxnreg_dec<kF32ProducerRegs>();
+  setmaxnreg_dec<kRegs>();
   if (threadIdx.x < 32) {
     if (threadIdx.x == 0) {
       resident();
-      for (int j = 0; j < nk; ++j) {
+      for (int j = 0; j < n; ++j) {
         const int s = stage_of<kS>(j);
-        float* kt = ring + s * kStageFloats;
+        float* xt = ring + s * kStageFloats;
         mbar_wait(&empty[s], phase_of<kS>(j) ^ 1);
         mbar_arrive_expect_tx(&land[s], 2 * kTile * 4);
-        tma_load_f32<D>(kt, k_map, &land[s], kN, j * kN, bh);
-        tma_load_f32<D>(kt + kV, v_map, &land[s], kN, j * kN, bh);
+        tma_load_f32<D>(xt, x_map, &land[s], kN, (first + j) * kN, bh);
+        tma_load_f32<D>(xt + kY, y_map, &land[s], kN, (first + j) * kN, bh);
       }
     }
     return;
   }
   const int h = threadIdx.x - 32;
-  const uint8_t* mask_row = mask != nullptr ? mask + (size_t)(bh / heads) * tk : nullptr;
-  for (int j = 0; j < nk; ++j) {
+  for (int j = 0; j < n; ++j) {
     const int s = stage_of<kS>(j);
-    float* kt = ring + s * kStageFloats;
+    float* xt = ring + s * kStageFloats;
     mbar_wait(&land[s], phase_of<kS>(j));
-    stage_small<kTile>(kt, kt + kTile, h);
-    if constexpr (kVSmall) stage_small<kTile>(kt + kV, kt + kV + kTile, h);
-    for (int i = h; i < kN; i += kHelpers) sbias[s * kN + i] = key_bias(mask_row, j * kN + i, tk);
+    stage_small<kTile>(xt, xt + kTile, h);
+    if constexpr (kYSmall) stage_small<kTile>(xt + kY, xt + kY + kTile, h);
+    terms(s, first + j, h);
     fence_async_shared();
     mbar_arrive(&full[s]);
   }
+}
+
+// K1's and K2's helper terms: the key bias of k-tile j's kN keys (0, -1e30
+// for a masked key, -inf past Tk) into stage s's slots of sbias.
+template <int kN>
+__device__ __forceinline__ auto key_bias_terms(float* sbias, const uint8_t* mask, int heads,
+                                               int tk, int bh) {
+  const uint8_t* mask_row = mask != nullptr ? mask + (size_t)(bh / heads) * tk : nullptr;
+  return [=](int s, int j, int h) {
+    for (int i = h; i < kN; i += kHelpers) sbias[s * kN + i] = key_bias(mask_row, j * kN + i, tk);
+  };
 }
 
 // Run step(j, masked) over the group's k-tiles j = grp, grp + 2, ... < nk:
@@ -502,7 +552,8 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
           mbar_arrive_expect_tx(bar_q, Shape::kQBytes);
           tma_load_f32<D>(sq, q_map, bar_q, kF32Rows, q0, bh);
         },
-        ring, sbias, land, full, empty, k_map, v_map, mask, heads, tk, nk, bh);
+        key_bias_terms<kN>(sbias, mask, heads, tk, bh), ring, land, full, empty, k_map, v_map, 0,
+        nk, bh);
     return;
   }
 
@@ -758,7 +809,8 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
           tma_load_f32<D>(sq, q_map, bar_q, kF32Rows, q0, bh);
           tma_load_f32<D>(sg, g_map, bar_q, kF32Rows, q0, bh);
         },
-        ring, sbias, land, full, empty, k_map, v_map, mask, heads, tk, nk, bh);
+        key_bias_terms<kN>(sbias, mask, heads, tk, bh), ring, land, full, empty, k_map, v_map, 0,
+        nk, bh);
     return;
   }
 
@@ -854,6 +906,288 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
   }
 }
 
+// x (64 x kN, accumulator layout) read back from the planes at pl as
+// store_planes wrote them: big + small, the small plane's word less the
+// 0x1000 split_tf32 rounds it by, which gives back x exactly (big and x -
+// big are both exact in f32).
+template <int kN>
+__device__ __forceinline__ void load_planes(float (&x)[kN / 8][4], const float* pl, int w, int g,
+                                            int t) {
+  const uint32_t* u = reinterpret_cast<const uint32_t*>(pl);
+#pragma unroll
+  for (int n = 0; n < kN / 8; ++n) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * w + g + 8 * h;
+#pragma unroll
+      for (int e1 = 0; e1 < 2; ++e1) {
+        uint32_t word[2];
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          const int f = p * kN + 8 * n + t;
+          word[p] = u[(f / kF32BoxCols) * kF32BoxFloats + swz(r, f % kF32BoxCols + 4 * e1)];
+        }
+        x[n][2 * h + e1] = __uint_as_float(word[0]) + __uint_as_float(word[1] - 0x1000u);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K3, dK and dV: flash_dkv_tma_f32_kernel<D>.
+//
+// Grid (BH, k-tiles of 64 keys), heaviest causal tile first; a CTA walks
+// the q-tiles of kQ queries from the causal diagonal on. The producer
+// loads the CTA's 64 x D K and V tiles once, under one barrier, then Q and
+// dO tiles through a ring of kStages; the helpers stage both small planes
+// and the tile's lse (base 2) and delta (0 past Tq). The two consumer
+// groups share the 64 keys and split the products (design note 5): per
+// q-tile
+// - group 0 forms S^T = K.Q^T (64 keys x kQ, 3xTF32; K is A, split from
+//   its resident landing as read, Q is B, its landing and small plane),
+//   P^T = exp(S^T scale - lse) (dkv_probs: the key's bias; masked tiles:
+//   causal and past Tq; p = 0 there), writes P^T's planes (into Q small's
+//   room, or at D = 64 a room of the stage's own), arrives on handed[s],
+//   and adds each of its 64 columns' part of dV^T = dO^T.P, formed from
+//   zero over the tile (planes_product: dO^T split from dO's landing), to
+//   dV^T in f32;
+// - group 1 forms dP^T = V.dO^T the same way, waits for handed[s], reads
+//   P^T back from group 0's planes (load_planes, exact), forms dS^T = P^T
+//   (dP^T - delta) scale (dkv_grads), writes its planes (into dO small's
+//   room, or a room of its own at D = 64) and adds the parts of dK^T =
+//   Q^T.dS to dK^T.
+// Each group releases the stage after its last product. Epilogue: group 0
+// writes dV, group 1 dK, from their sums; keys past Tk are not written. A
+// key that is masked or past Tk has every p = 0, so its dK and dV are
+// exactly 0.
+// ---------------------------------------------------------------------------
+template <int D>
+struct TmaDkvF32Shape {
+  static constexpr int kKeys = kF32Rows;  // keys a CTA owns, both groups'
+  static constexpr int kQ = D == 256 ? 16 : 32;  // queries a q-tile
+  static constexpr int kStages = D == 64 ? 3 : D == 256 ? 1 : 2;
+  // k8 steps of a score product a commit group (two sets of split
+  // fragments beside the group's sum), and the keys of each part of an
+  // output product.
+  static constexpr int kChunk = D == 256 ? 1 : 2;
+  static constexpr int kPartKeys = D == 256 ? 32 : 64;
+  // m-tiles of a group's sum kept in shared memory (design note 5).
+  static constexpr int kStash = D == 256 ? 1 : 0;
+  // One loop over the q-tiles, the masked terms behind a branch, rather
+  // than a loop for each kind of tile (as run_tiles runs them).
+  static constexpr bool kOneLoop = D == 256;
+  // Registers a thread of the producer and of the consumers (128 x
+  // kProducerRegs + 256 x kConsumerRegs within the launch's 384 x 168).
+  static constexpr int kProducerRegs = D == 256 ? 24 : kF32ProducerRegs;
+  static constexpr int kConsumerRegs = D == 256 ? 240 : kF32ConsumerRegs;
+  static constexpr bool kOwnPlanes = D == 64;  // P^T's and dS^T's planes in rooms of their own
+  static constexpr int kTileBytes = kQ * D * 4;           // Q, dO or a small plane
+  static constexpr int kPlaneBytes = kKeys * 2 * kQ * 4;  // P^T's or dS^T's big and small planes
+  static constexpr int kKVBytes = kKeys * D * 4;          // K or V
+  static constexpr int kStageBytes = 4 * kTileBytes + (kOwnPlanes ? 2 * kPlaneBytes : 0);
+  // Byte offsets from the 1 KB aligned base.
+  static constexpr int kV = kKVBytes;
+  static constexpr int kRing = 2 * kKVBytes;
+  static constexpr int kTerms = kRing + kStages * kStageBytes;  // lse2, then delta, per stage
+  static constexpr int kKeyBias = kTerms + 2 * kStages * kQ * 4;  // the 64 keys' bias
+  static constexpr int kBounds = kKeyBias + kKeys * 4;  // each group's copy of the loop's bounds
+  static constexpr int kStashAt = kBounds + 2 * 4 * 4;  // both groups' stashes
+  static constexpr int kBars = kStashAt + kStash * 2 * 32 * 128 * 4;
+  static constexpr size_t kSmemBytes = kAlign + kBars + (1 + 4 * kStages) * 8;
+  static_assert(kSmemBytes <= kTmaMaxSmem, "K3's tiles do not fit a CTA");
+  static_assert(kOwnPlanes || kTileBytes >= kPlaneBytes, "the planes do not fit their room");
+};
+
+template <int D>
+__global__ void __launch_bounds__(kTmaThreads, 1)
+    flash_dkv_tma_f32_kernel(const __grid_constant__ CUtensorMap q_map,
+                             const __grid_constant__ CUtensorMap k_map,
+                             const __grid_constant__ CUtensorMap v_map,
+                             const __grid_constant__ CUtensorMap g_map,
+                             const float* __restrict__ lse, const float* __restrict__ delta,
+                             const uint8_t* __restrict__ mask, float* __restrict__ dk,
+                             float* __restrict__ dv, int heads, int tq, int tk, float scale,
+                             int causal) {
+  using Shape = TmaDkvF32Shape<D>;
+  constexpr int kQ = Shape::kQ, kS = Shape::kStages, kTile = kQ * D;
+  constexpr int kStageFloats = Shape::kStageBytes / 4, kPlaneFloats = Shape::kPlaneBytes / 4;
+  constexpr int kChunk = Shape::kChunk, kM = Shape::kPartKeys;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* base = smem + (kAlign - smem_addr(smem) % kAlign) % kAlign;
+  float* sk = reinterpret_cast<float*>(base);
+  float* sv = reinterpret_cast<float*>(base + Shape::kV);
+  float* ring = reinterpret_cast<float*>(base + Shape::kRing);
+  float* slse = reinterpret_cast<float*>(base + Shape::kTerms);
+  float* sdelta = slse + kS * kQ;
+  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(base + Shape::kBars);
+  uint64_t* land = bar_kv + 1;
+  uint64_t* full = land + kS;
+  uint64_t* empty = full + kS;
+  uint64_t* handed = empty + kS;
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * Shape::kKeys;
+  const int qt0 = causal ? k0 / kQ : 0;  // q-tiles above the diagonal see none of these keys
+  const int tiles = max((tq + kQ - 1) / kQ - qt0, 0);
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(&land[s], 1);
+      mbar_init(&full[s], kHelpers);
+      mbar_init(&empty[s], 8);     // every consumer warp
+      mbar_init(&handed[s], 128);  // every thread of group 0, after its P^T stores
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    const float* lse_b = lse + (size_t)bh * tq;
+    const float* delta_b = delta + (size_t)bh * tq;
+    produce<D, kQ, kS, kStageFloats, 2 * kTile, true, Shape::kProducerRegs>(
+        [&] {
+          mbar_arrive_expect_tx(bar_kv, 2 * Shape::kKVBytes);
+          tma_load_f32<D>(sk, k_map, bar_kv, Shape::kKeys, k0, bh);
+          tma_load_f32<D>(sv, v_map, bar_kv, Shape::kKeys, k0, bh);
+        },
+        [&](int s, int j, int h) {
+          for (int i = h; i < kQ; i += kHelpers) {
+            const int q = j * kQ + i;
+            slse[s * kQ + i] = q < tq ? lse_b[q] * kLog2e : 0.f;
+            sdelta[s * kQ + i] = q < tq ? delta_b[q] : 0.f;
+          }
+        },
+        ring, land, full, empty, q_map, g_map, qt0, tiles, bh);
+    return;
+  }
+
+  setmaxnreg_inc<Shape::kConsumerRegs>();
+  const int grp = threadIdx.x / 128 - 1, tid = threadIdx.x & 127;
+  const int w = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  // The keys' bias (0, -1e30 masked, -inf past Tk) and the q-tile loop's
+  // bounds go to shared memory and are read back where they are used,
+  // rather than held in registers beside the sum: tiles [0, bound[0]) hold
+  // a query before one of the keys (causal), tiles from bound[1] on pass
+  // Tq, bound[2] is the tile count.
+  float* skey = reinterpret_cast<float*>(base + Shape::kKeyBias);
+  volatile int* bound = reinterpret_cast<int*>(base + Shape::kBounds) + 4 * grp;
+  if (grp == 0 && t == 0) {
+    const uint8_t* mask_row = mask != nullptr ? mask + (size_t)(bh / heads) * tk : nullptr;
+    skey[16 * w + g] = key_bias(mask_row, k0 + 16 * w + g, tk);
+    skey[16 * w + g + 8] = key_bias(mask_row, k0 + 16 * w + g + 8, tk);
+  }
+  if (tid == 0) {
+    const int masked_end =
+        causal ? min(max((k0 + Shape::kKeys - 1 + kQ - 1) / kQ - qt0, 0), tiles) : 0;
+    bound[0] = masked_end;
+    bound[1] = max(min(tq / kQ - qt0, tiles), masked_end);
+    bound[2] = tiles;
+  }
+  named_sync(1 + grp, 128);
+  const float scale2 = scale * kLog2e;
+  // The group's sum (group 0: dV^T, group 1: dK^T), m-tiles of 64 columns
+  // of D by the 64 keys: the first kRegTiles in registers, the rest in the
+  // group's stash in shared memory (slot j of thread tid at stash[j 128]).
+  constexpr int kRegTiles = D / 64 - Shape::kStash;
+  float acc[kRegTiles][8][4];
+  float* stash = reinterpret_cast<float*>(base + Shape::kStashAt) +
+                 grp * Shape::kStash * 32 * 128 + tid;
+  zero_all(acc);
+  for (int j = 0; j < Shape::kStash * 32; ++j) stash[j * 128] = 0.f;
+  mbar_wait(bar_kv, 0);
+
+  // Tile i, the masked terms as `masked` says (a type, or a bool tested
+  // at run time).
+  auto step = [&](int i, auto masked) {
+    const int s = stage_of<kS>(i);
+    float* qt = ring + s * kStageFloats;  // Q, Q small, dO, dO small[, P^T's, dS^T's planes]
+    float* gt = qt + 2 * kTile;
+    float* pl_p = Shape::kOwnPlanes ? qt + 4 * kTile : qt + kTile;
+    float* pl_ds = Shape::kOwnPlanes ? pl_p + kPlaneFloats : gt + kTile;
+    mbar_wait(&full[s], phase_of<kS>(i));
+    float sc[1][kQ / 8][4];  // S^T, then P^T (group 0); dP^T, then dS^T (group 1)
+    scores_3xtf32<D, kQ, kChunk, 1>(sc, {grp == 0 ? sk : sv}, {grp == 0 ? qt : gt},
+                                    {(grp == 0 ? qt : gt) + kTile}, w, g, t);
+    float* pl = grp == 0 ? pl_p : pl_ds;
+    if (grp == 0) {
+      const int key[2] = {k0 + 16 * w + g, k0 + 16 * w + g + 8};
+      const bool key_live[2] = {skey[16 * w + g] == 0.f, skey[16 * w + g + 8] == 0.f};
+      auto probs = [&](auto m) {
+        dkv_probs<decltype(m)::value>(sc[0], slse + s * kQ, (qt0 + i) * kQ, t, key, key_live, tq,
+                                      scale2, causal);
+      };
+      if constexpr (std::is_same_v<decltype(masked), bool>) {
+        if (masked)
+          probs(std::true_type{});
+        else
+          probs(std::false_type{});
+      } else {
+        probs(masked);
+      }
+    } else {
+      float p[kQ / 8][4];
+      mbar_wait(&handed[s], phase_of<kS>(i));
+      load_planes<kQ>(p, pl_p, w, g, t);
+      dkv_grads(sc[0], p, sdelta + s * kQ, t, scale);
+    }
+    named_sync(1 + grp, 128);  // the group's score products have read the small plane
+    store_planes<kQ>(pl, sc[0], w, g, t);
+    fence_async_shared();
+    if (grp == 0) mbar_arrive(&handed[s]);
+    named_sync(1 + grp, 128);
+    // Each part of X^T.Y^T (x the landed dO or Q, pl the planes of P^T or
+    // dS^T), formed from zero, added to the sum.
+    const float* x = grp == 0 ? gt : qt;
+#pragma unroll
+    for (int mt = 0; mt < D / 64; ++mt) {
+#pragma unroll
+      for (int m0 = 0; m0 < 64; m0 += kM) {
+        float part[kM / 8][4];
+        planes_product<kQ, kM>(part, x, pl, mt, w, g, t, m0);
+#pragma unroll
+        for (int n = 0; n < kM / 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (mt < kRegTiles)
+              acc[mt < kRegTiles ? mt : 0][m0 / 8 + n][e] += part[n][e];
+            else
+              stash[(((mt - kRegTiles) * 8 + m0 / 8 + n) * 4 + e) * 128] += part[n][e];
+          }
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  };
+  // The q-tiles: one loop, or a loop for each kind of tile (run_tiles').
+  int i = 0;
+  if constexpr (Shape::kOneLoop) {
+    for (; i < bound[2]; ++i) step(i, i < bound[0] || i >= bound[1]);
+  } else {
+    for (; i < bound[0]; ++i) step(i, std::true_type{});
+    for (; i < bound[1]; ++i) step(i, std::false_type{});
+    for (; i < bound[2]; ++i) step(i, std::true_type{});
+  }
+
+  // Column 64 mt + 16 w + g + 8 (e >> 1) of key 8 n + 2 t + (e & 1) is
+  // acc[mt][n][e] (or its stash slot).
+  float* out = (grp == 0 ? dv : dk) + ((size_t)bh * tk + k0) * D;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int kk = 8 * n + 2 * t + (e & 1);
+      if (k0 + kk >= tk) continue;
+#pragma unroll
+      for (int mt = 0; mt < D / 64; ++mt)
+        out[(size_t)kk * D + 64 * mt + 16 * w + g + 8 * (e >> 1)] =
+            mt < kRegTiles ? acc[mt < kRegTiles ? mt : 0][n][e]
+                           : stash[(((mt - kRegTiles) * 8 + n) * 4 + e) * 128];
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Host side: launchers, occupancy.
 // ---------------------------------------------------------------------------
@@ -901,13 +1235,37 @@ int launch_dq_tma_f32_as(const void* q, const void* k, const void* v, const void
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int launch_dkv_tma_f32_as(const void* q, const void* k, const void* v, const void* g,
+                          const void* lse, const void* delta, const void* mask, void* dk,
+                          void* dv, int bh, int heads, int tq, int tk, float scale, int causal,
+                          cudaStream_t stream) {
+  using Shape = TmaDkvF32Shape<D>;
+  CUtensorMap maps[4];
+  int err = tensor_map<float>(&maps[0], q, bh, tq, D, Shape::kQ);
+  if (err == 0) err = tensor_map<float>(&maps[1], k, bh, tk, D, Shape::kKeys);
+  if (err == 0) err = tensor_map<float>(&maps[2], v, bh, tk, D, Shape::kKeys);
+  if (err == 0) err = tensor_map<float>(&maps[3], g, bh, tq, D, Shape::kQ);
+  if (err != 0) return err;
+  static bool configured[kMaxDevices] = {};
+  const cudaError_t set = set_smem(flash_dkv_tma_f32_kernel<D>, Shape::kSmemBytes, configured);
+  if (set != cudaSuccess) return (int)set;
+  const dim3 grid(bh, (tk + Shape::kKeys - 1) / Shape::kKeys);
+  flash_dkv_tma_f32_kernel<D><<<grid, kTmaThreads, Shape::kSmemBytes, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const uint8_t*>(mask),
+      static_cast<float*>(dk), static_cast<float*>(dv), heads, tq, tk, scale, causal);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 namespace swt {
 
-// Their tile is the CTA's 64 query rows, the f32 instances' long tile.
+// Their tile is the CTA's 64 rows (K1's and K2's queries, K3's keys), the
+// f32 instances' long tile.
 bool tma_f32_tile(int kernel, int d, int tile) {
-  return (kernel == 0 || kernel == 1) && (d == 64 || d == 128 || d == 256) && tile == kF32Rows;
+  return kernel >= 0 && kernel <= 2 && (d == 64 || d == 128 || d == 256) && tile == kF32Rows;
 }
 
 int launch_fwd_tma_f32(const void* q, const void* k, const void* v, const void* mask, void* out,
@@ -928,6 +1286,16 @@ int launch_dq_tma_f32(const void* q, const void* k, const void* v, const void* g
   });
 }
 
+int launch_dkv_tma_f32(const void* q, const void* k, const void* v, const void* g,
+                       const void* lse, const void* delta, const void* mask, void* dk, void* dv,
+                       int bh, int heads, int tq, int tk, int d, float scale, int causal,
+                       cudaStream_t stream) {
+  return by_tma_head_dim(d, [&](auto dd) {
+    return launch_dkv_tma_f32_as<decltype(dd)::value>(q, k, v, g, lse, delta, mask, dk, dv, bh,
+                                                      heads, tq, tk, scale, causal, stream);
+  });
+}
+
 int tma_f32_occupancy(int kernel, int d, int* out) {
   return by_tma_head_dim(d, [&](auto dd) {
     constexpr int D = decltype(dd)::value;
@@ -936,6 +1304,9 @@ int tma_f32_occupancy(int kernel, int d, int* out) {
                        out);
     if (kernel == 1)
       return occupancy(flash_dq_tma_f32_kernel<D>, kTmaThreads, TmaDqF32Shape<D>::kSmemBytes,
+                       out);
+    if (kernel == 2)
+      return occupancy(flash_dkv_tma_f32_kernel<D>, kTmaThreads, TmaDkvF32Shape<D>::kSmemBytes,
                        out);
     return (int)cudaErrorInvalidValue;
   });

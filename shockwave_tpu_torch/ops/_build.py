@@ -1,8 +1,8 @@
 """Builds the port's CUDA kernels at first use and loads them with ctypes.
 
 One `nvcc` per source under `shockwave_tpu_torch/csrc/` (the narrow
-kernels, the wide ones, the TMA-fed K1-K3 in bf16 and the TMA-fed K1 and
-K2 in f32), all started together,
+kernels, the wide ones, the TMA-fed K1-K3 in bf16 and in f32), all
+started together,
 compiles an object
 file, and a last `nvcc` links them into one shared library with a plain
 C interface (no PyTorch headers, so a build takes seconds, not minutes).

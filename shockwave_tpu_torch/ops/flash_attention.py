@@ -40,11 +40,11 @@ head dims 64, 128 and 256, the long tile of K1-K3 runs the TMA-fed
 kernels of `csrc/flash_attention_tma.cu` (`flash_fwd_tma`,
 `flash_dq_tma`, `flash_dkv_tma`: a producer warp issues TMA loads
 completed on mbarriers, two consumer warpgroups run `wgmma`), and in f32
-there the long tile of K1 and K2 runs those of
+there the long tile of K1-K3 runs those of
 `csrc/flash_attention_tma_f32.cu` (`flash_fwd_f32_tma`,
-`flash_dq_f32_tma`: the same CTA shape on TF32 `wgmma` as 3xTF32), each
-reached through the same C entry point as its base instance, with its own
-launch counter.
+`flash_dq_f32_tma`, `flash_dkv_f32_tma`: the same CTA shape on TF32
+`wgmma` as 3xTF32), each reached through the same C entry point as its
+base instance, with its own launch counter.
 
 The kernels are built for head dims 32, 64, 128 and 256
 (`KERNEL_HEAD_DIMS`); above 256 each kernel has a wide instance
@@ -89,11 +89,11 @@ WIDE_INSTANCES = tuple(name + WIDE + suffix for suffix in KERNEL_DTYPES.values()
                        for name in KERNELS)
 # The TMA-fed K1-K3 in bf16 (csrc/flash_attention_tma.cu), which run the
 # long tile of `flash_fwd`, `flash_dq` and `flash_dkv` at TMA_HEAD_DIMS,
-# and K1 and K2 in f32 (csrc/flash_attention_tma_f32.cu), which run that
-# of `flash_fwd_f32` and `flash_dq_f32`; their C entry points are those
-# instances'.
-TMA_INSTANCES = tuple(name + TMA for name in KERNELS) + ("flash_fwd_f32" + TMA,
-                                                          "flash_dq_f32" + TMA)
+# and in f32 (csrc/flash_attention_tma_f32.cu), which run that of
+# `flash_fwd_f32`, `flash_dq_f32` and `flash_dkv_f32`; their C entry points
+# are those instances'.
+TMA_INSTANCES = tuple(name + suffix + TMA for suffix in KERNEL_DTYPES.values()
+                      for name in KERNELS)
 TMA_HEAD_DIMS = (64, 128, 256)
 # Launches of each kernel instance since the last reset; a wrapper adds
 # one where it launches its kernel and nowhere else.
@@ -104,25 +104,22 @@ LAUNCHES = {name: 0 for name in INSTANCES + WIDE_INSTANCES + TMA_INSTANCES}
 # tile). The bf16 kernels take 32 at the trainer's T = 32; the 3xTF32
 # instances take one warp per CTA up to T = 64, so that the f32 decoder's
 # 32 (batch, head) pairs at T = 64 give 128 CTAs for the card's 132 SMs.
-# Their long tile is 64 rows; at TMA_HEAD_DIMS K1's and K2's is the
-# TMA-fed f32 kernels' 64 query rows (two consumer warpgroups taking the
-# k-tiles in turns), and K3's is 32 at D = 256: two stages of 64-row f32
-# Q and dO tiles of 256 columns would not fit the 227 KB a CTA may take.
-# The bf16 instances keep 32 up to T = 32; their long tile is 64 at D = 32
-# and, at TMA_HEAD_DIMS, the TMA-fed kernels': K1's and K2's 128 query
-# rows (two consumer warpgroups of 64), K3's 128 keys (64 at D = 256,
-# where one group owns dV and the other dK). The TMA instances' entries
-# are their base instance's.
-KERNEL_TILES = {(name + suffix, d): ((16, 32 if "dkv" in name and d == 256 else 64, 64)
-                                     if suffix else (32, 64, 32))
+# Their long tile is 64 rows; at TMA_HEAD_DIMS it is the TMA-fed f32
+# kernels': K1's and K2's 64 query rows (two consumer warpgroups), K3's 64
+# keys (one group forms P^T and owns dV, the other dS^T and dK). The bf16
+# instances keep 32 up to T = 32; their long tile is 64 at D = 32 and, at
+# TMA_HEAD_DIMS, the TMA-fed kernels': K1's and K2's 128 query rows (two
+# consumer warpgroups of 64), K3's 128 keys (64 at D = 256, where one
+# group owns dV and the other dK). The TMA instances' entries are their
+# base instance's.
+KERNEL_TILES = {(name + suffix, d): (16, 64, 64) if suffix else (32, 64, 32)
                 for suffix in KERNEL_DTYPES.values() for name in KERNELS
                 for d in KERNEL_HEAD_DIMS}
 KERNEL_TILES.update({(name, d): (32, 64 if "dkv" in name and d == 256 else 128, 32)
                      for base in KERNELS for name in (base, base + TMA)
                      for d in TMA_HEAD_DIMS})
-KERNEL_TILES.update({(name, d): (16, 64, 64)
-                     for base in ("flash_fwd_f32", "flash_dq_f32") for name in (base, base + TMA)
-                     for d in TMA_HEAD_DIMS})
+KERNEL_TILES.update({(name + TMA, d): KERNEL_TILES[name, d]
+                     for name in INSTANCES if name.endswith("_f32") for d in TMA_HEAD_DIMS})
 # The wide instances' tiles in KERNEL_TILES' form (short, long, the
 # longest sequence that takes the short tile). K1's is 64 rows in both
 # dtypes (a wgmma's 64 rows; two warpgroups, csrc/flash_attention_wide.cu).
@@ -375,9 +372,10 @@ def attention_dq(q, k, v, g, lse, delta, kv_mask, heads: int, scale: float,
 
 def attention_dkv(q, k, v, g, lse, delta, kv_mask, heads: int, scale: float,
                   causal: bool):
-    """K3: (dK, dV). Plain version on the CPU; on CUDA `flash_dkv` (bf16;
-    `flash_dkv_tma` on its long tile at D = 64-256) or `flash_dkv_f32`, or
-    above head dim 256 `flash_dkv_wide` or `flash_dkv_wide_f32`."""
+    """K3: (dK, dV). Plain version on the CPU; on CUDA `instance`'s choice:
+    `flash_dkv` (bf16; `flash_dkv_tma` on its long tile at D = 64-256) or
+    `flash_dkv_f32` (`flash_dkv_f32_tma` there), or above head dim 256
+    `flash_dkv_wide` or `flash_dkv_wide_f32`."""
     if _on_cpu(q, k, v, g, lse, delta, kv_mask):
         return attention_dkv_plain(q, k, v, g, lse, delta, kv_mask, heads,
                                    scale, causal)

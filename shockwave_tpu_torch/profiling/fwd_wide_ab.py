@@ -1,8 +1,7 @@
 """The wide instances of K1-K3 (`flash_fwd_wide`, `flash_dq_wide`,
 `flash_dkv_wide`, bf16 and f32) and the kernels at head dims 64-256 (the
-TMA-fed K1-K3 in bf16 and K1 and K2 in f32 on the long tile, where a tree
-has them) of several checkouts of this repository, timed in turns on one
-card.
+TMA-fed K1-K3 in bf16 and in f32 on the long tile, where a tree has them)
+of several checkouts of this repository, timed in turns on one card.
 
     python -m shockwave_tpu_torch.profiling.fwd_wide_ab \\
         --trees .archive_check/parent . . .archive_check/parent
@@ -13,7 +12,8 @@ K2's A/B at long sequences, K2 + K3 beside SDPA's backward:
         --cases bench_causal d128_bench_causal d256_bench_causal main_enc_self \\
         --trees .archive_check/parent . . .archive_check/parent
 
-The f32 K1 and K2 at long sequences, K2 + K3 beside SDPA's backward:
+The f32 K1-K3 at long sequences, K2 + K3 beside SDPA's backward (the f32
+K3 alone: `--kernels dkv`):
 
     python -m shockwave_tpu_torch.profiling.fwd_wide_ab \\
         --cases bench_causal_f32 d128_bench_causal_f32 d256_bench_causal_f32 \\

@@ -5,7 +5,7 @@ tensors.
 `emulated_source` rewrites a `.cu` file of `shockwave_tpu_torch/csrc/`
 (`flash_attention.cu`, the narrow kernels, `flash_attention_wide.cu`, the
 wide ones, `flash_attention_tma.cu`, the TMA-fed K1-K3 in bf16, and
-`flash_attention_tma_f32.cu`, the TMA-fed K1 and K2 in f32, each with the
+`flash_attention_tma_f32.cu`, the TMA-fed K1-K3 in f32, each with the
 `.cuh` files it includes inlined) into host C++: the PTX helpers (cp.async,
 ldmatrix, mma.sync, wgmma with its fence, commit and wait, named barriers,
 the async-proxy fence, mbarriers with their phases and transaction bytes,

@@ -223,7 +223,7 @@ class TestWrappers:
                                     "flash_dq_wide", "flash_dkv_wide", "flash_fwd_wide_f32",
                                     "flash_dq_wide_f32", "flash_dkv_wide_f32", "flash_fwd_tma",
                                     "flash_dq_tma", "flash_dkv_tma", "flash_fwd_f32_tma",
-                                    "flash_dq_f32_tma"}
+                                    "flash_dq_f32_tma", "flash_dkv_f32_tma"}
         assert not any(fa.LAUNCHES.values())
 
     def test_other_devices_raise(self):
@@ -308,10 +308,9 @@ class TestLaunchConfig:
                         assert tile == (32 if max(tq, tk) <= 32 else long)
                         assert (fa.instance(name, torch.bfloat16, d, tq, tk)
                                 == fa.tile_instance(name, d, tile))
-                    else:  # f32: 16, then 64 (K3: 32 at D = 256, shared memory),
-                        # at D = 64-256 K1's and K2's TMA-fed instances' 64 rows
-                        long = 32 if name == "flash_dkv_f32" and d == 256 else 64
-                        assert tile == (16 if max(tq, tk) <= 64 else long)
+                    else:  # f32: 16, then 64, at D = 64-256 the TMA-fed
+                        # instances' 64 rows (K1's and K2's queries, K3's keys)
+                        assert tile == (16 if max(tq, tk) <= 64 else 64)
                         assert (fa.instance(name.removesuffix("_f32"), torch.float32, d, tq, tk)
                                 == fa.tile_instance(name, d, tile))
                     if name == "flash_fwd":  # the default instance
@@ -386,7 +385,7 @@ class TestLaunchConfig:
                         for c in wide} == set(fa.WIDE_TILES[kernel + fa.WIDE + suffix][:2])
         # The 3xTF32 instances' edges in f32: ragged inside the short
         # tile, one past its reach, Tq != Tk and the row that sees no key
-        # at every width (16, 64, and D = 256's 32).
+        # at every width (16 and 64).
         f32_cases = [c for c in smoke.F32_CASES if c[5] in fa.KERNEL_HEAD_DIMS]
         for name in self.TF32_INSTANCES:
             short, _, short_up_to = fa.KERNEL_TILES[name, 64]
@@ -396,8 +395,7 @@ class TestLaunchConfig:
                 return fa.launch_config(c[2], c[3], c[5], name)
             assert any(tile(c) == short and c[2] % short for c in f32_cases)
             assert any(max(c[2], c[3]) == short_up_to + 1 for c in f32_cases)
-            assert {tile(c) for c in f32_cases if c[2] != c[3]} == widths == (
-                {16, 32, 64} if name == "flash_dkv_f32" else {16, 64})
+            assert {tile(c) for c in f32_cases if c[2] != c[3]} == widths == {16, 64}
             assert {tile(c) for c in f32_cases if c[7] == "key0"} == widths
         # Each width's edges: one past and below the short tile, Tq != Tk
         # inside the long one, and the row that sees no key in both.
@@ -636,11 +634,11 @@ class TestCInterface:
             assert {("flash_fwd_tma", 128), ("flash_dq_tma", 128),
                     ("flash_dkv_tma", 128 if d == 128 else 64)} <= {
                 (r["kernel"], r["tile"]) for r in rows if r["d"] == d}
-        for d, long in ((128, 64), (256, 32)):  # f32: K1's and K2's long tile TMA-fed
+        for d in (128, 256):  # f32: K1's-K3's long tile TMA-fed
             assert {(r["kernel"], r["tile"]) for r in rows
                     if "_f32" in r["kernel"] and r["d"] == d} == {
                 ("flash_fwd_f32", 16), ("flash_fwd_f32_tma", 64), ("flash_dq_f32", 16),
-                ("flash_dq_f32_tma", 64), ("flash_dkv_f32", 16), ("flash_dkv_f32", long)}
+                ("flash_dq_f32_tma", 64), ("flash_dkv_f32", 16), ("flash_dkv_f32_tma", 64)}
 
     @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
     @pytest.mark.parametrize("d,width", [(16, 32), (48, 64), (80, 128), (96, 128), (128, 128),
