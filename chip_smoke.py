@@ -62,7 +62,20 @@ Phases, in order; any failure exits non-zero and prints no result:
    PyTorch library call (`scaled_dot_product_attention`, a yardstick the
    port never calls, with the backend its dispatch picked; its backward,
    the yardstick of K2 + K3 together, as its forward + backward less its
-   forward).
+   forward). Every kernel case also runs its inputs in the model's layout
+   ((B, T, H, D) tensors handed over as their (B, H, T, D) views, as
+   `flash_attention` hands them): out, lse, dQ, dK and dV must come out
+   bit for bit as from the packed tensors, and the backward's delta
+   kernel (`flash_bwd_delta`) the same bits on both and within DELTA_TOL
+   of its plain version; it is timed at the shapes of its rows
+   (DELTA_TIMED). The bench shape at head dim 32 (`d32_bench_causal`, both
+   dtypes) times the mma.sync instances' long tile there.
+   model_layout: `flash_attention`'s forward + backward on the model's
+   own (B, T, H, D) tensors at the main shape and the bench shape at D =
+   64, 128 and 256 (bf16), beside SDPA's on the same tensors' views and
+   the packed-layout time above; at the main and bench D 64 shapes its
+   device kernels, counted under torch.profiler, must be K1, delta, K2
+   and K3, one each, and nothing else.
 4. slice: the translation trainer at full width (dim 512, 8 heads,
    6 + 6 layers, batch 64) for 30 steps through
    `shockwave_tpu_torch.workloads.translation.train.main`, with the
@@ -201,18 +214,21 @@ Phases, in order; any failure exits non-zero and prints no result:
 Output: `device:`, `build:`, `ptxas:`, `spills:`, `sass:` and
 `occupancy:` lines, one `kernel_case:` JSON line per shape and dtype, one
 `padded_case:` line per padded head dim and dtype, `wide_head_dim:`,
+`model_layout:`,
 `slice:`, `lease:`, `trace:`, `families:`, `adapt:`, `serving:`,
 `bench_line:`, `profile:`, `gang:`, `deployed:` and `parallel:` lines,
 then the
 `{"kernels": [...]}` line (the six kernel instances, each with its D =
 128 and D = 256 times beside, the six wide instances at D = 512, and the
-six TMA-fed ones, K1-K3 in bf16 and in f32 on the long tile, at
+two delta kernels, bf16 and f32, at their main-path shape and their
+bench shape, the six TMA-fed ones, K1-K3 in bf16 and in f32 on the long
+tile, at
 their dtype's bench shape with its D = 128 and 256 times beside and, on
 K2's and K3's rows, K2 + K3 against SDPA's backward at each D, their
 launches the profile phase's T = 2048 steps' (bf16) and the f32 decoder's
 at (8, 128) (f32); the
 main case's forward + backward through the port's autograd path and
-through `scaled_dot_product_attention`, the same at D = 256 and 512, the
+through `scaled_dot_product_attention`, the model layout's, the same at D = 256 and 512, the
 bench line's decode rate and headline, and the ring's and dryrun's
 numbers), the
 `nvidia-smi` name and power limit, and as the last line `{"ok": true,
@@ -243,6 +259,7 @@ CASES = (
     ("main_cross", 64, 32, 32, 8, 64, False, "tail"),
     ("cross_64x128", 1, 64, 128, 2, 64, False, None),
     ("head_dim_32", 2, 128, 128, 4, 32, True, "tail"),
+    ("d32_bench_causal", 4, 2048, 2048, 8, 32, True, None),
     ("bench_causal", 4, 2048, 2048, 8, 64, True, None),
     ("masked_row0", 1, 128, 128, 2, 64, True, "key0"),
     ("short_ragged", 3, 17, 17, 2, 64, True, "tail"),
@@ -304,6 +321,7 @@ F32_CASES = (
     ("cross_32x48_f32", 4, 32, 48, 2, 64, False, "tail"),
     ("short_head_dim_32_f32", 2, 32, 32, 4, 32, True, "tail"),
     ("head_dim_32_f32", 2, 128, 128, 4, 32, True, "tail"),
+    ("d32_bench_causal_f32", 4, 2048, 2048, 8, 32, True, None),
     ("one_past_short_f32", 2, 65, 65, 2, 64, True, "tail"),
     ("cross_64x128_f32", 1, 64, 128, 2, 64, False, None),
     ("short_masked_row0_f32", 1, 48, 48, 2, 64, True, "key0"),
@@ -409,6 +427,21 @@ LOGITS_TOL = 5e-2
 REPLACES = {"flash_fwd": "shockwave_tpu/ops/flash_attention.py:40",
             "flash_dq": "shockwave_tpu/ops/flash_attention.py:167",
             "flash_dkv": "shockwave_tpu/ops/flash_attention.py:222"}
+# delta = rowsum(dO * O) replaces no Pallas kernel: the JAX package's
+# plain jnp, which XLA fuses on the TPU.
+DELTA_REPLACES = "shockwave_tpu/ops/flash_attention.py:290"
+# The delta kernel against the plain version: f32 sums of the same
+# products in another order, max abs error relative to the largest row
+# sum of |dO O|.
+DELTA_TOL = 1e-5
+# The kernel cases whose delta kernel is timed (the rows' shapes), and the
+# forward + backward in the model's layout: (B, T, H, D) tensors handed
+# over as their (B, H, T, D) views, timed beside SDPA on the same views;
+# the first two also counted under torch.profiler (K1, delta, K2 and K3,
+# one launch each, nothing else).
+DELTA_TIMED = ("main_enc_self", "bench_causal", "decoder_f32", "bench_causal_f32")
+MODEL_LAYOUT_CASES = ("main_enc_self", "bench_causal", "d128_bench_causal", "d256_bench_causal")
+MODEL_LAYOUT_COUNTED = ("main_enc_self", "bench_causal")
 ERR_KEYS = {"flash_fwd": ("fwd_max_abs",), "flash_dq": ("dq_max_abs",),
             "flash_dkv": ("dkv_max_abs",)}
 
@@ -545,12 +578,14 @@ def check(ok: bool, what: str) -> None:
 
 def check_launches(fa, launches, per_kernel, where, dtype=torch.bfloat16, kernels=None,
                    width=64, t=32):
-    """The instance of each of `kernels` (default: K1-K3) for `dtype` at
-    kernel head dim `width` (the wide ones above 256) and sequences of
-    length `t` (the TMA-fed K1-K3 past the short tile) launched exactly
-    `per_kernel` times and every other instance never."""
-    kernels = fa.KERNELS if kernels is None else kernels
-    wanted = {fa.instance(kname, dtype, width, t, t) for kname in kernels}
+    """The instance of each of `kernels` (default: K1-K3 and the backward's
+    delta, as `flash_attention`'s forward + backward launches them) for
+    `dtype` at kernel head dim `width` (the wide ones above 256) and
+    sequences of length `t` (the TMA-fed K1-K3 past the short tile)
+    launched exactly `per_kernel` times and every other instance never."""
+    wanted = {fa.instance(kname, dtype, width, t, t) for kname in kernels or fa.KERNELS}
+    if kernels is None:
+        wanted.add(fa.DELTA + fa.KERNEL_DTYPES[dtype])
     want = {name: per_kernel if name in wanted else 0 for name in fa.LAUNCHES}
     check(launches == want, f"{where}: launched {launches}, not {want}")
 
@@ -678,6 +713,7 @@ def work(b, tq, tk, h, d, causal, esize=2):
     q_bytes, kv_bytes = bh * tq * d * esize, bh * tk * d * esize
     row_bytes, mask_bytes = bh * tq * 4, b * tk
     return {
+        "flash_bwd_delta": (2 * q_bytes + row_bytes, 2 * bh * tq * d),
         "flash_fwd": (2 * q_bytes + 2 * kv_bytes + row_bytes + mask_bytes,
                       4 * bh * pairs * d),
         "flash_dq": (3 * q_bytes + 2 * kv_bytes + 2 * row_bytes + mask_bytes,
@@ -726,11 +762,34 @@ def kernel_case(fa, case, seed, device, rates, dtype=torch.bfloat16):
     dk_p, dv_p = fa.attention_dkv_plain(q, k, v, *bwd)
     torch.cuda.synchronize()
 
+    # The model's layout: the same numbers as (B, T, H, D) tensors, handed
+    # over as their (B, H, T, D) views as `flash_attention` hands them;
+    # every output must come out bit for bit as from the packed tensors.
+    def model(x):
+        return x.view(b, h, -1, d).transpose(1, 2).contiguous().transpose(1, 2)
+
+    qm, km, vm, gm = map(model, (q, k, v, g))
+    out_m, lse_m = fa.attention_forward(qm, km, vm, *args)
+    dq_m = fa.attention_dq(qm, km, vm, gm, lse, delta, *args)
+    dk_m, dv_m = fa.attention_dkv(qm, km, vm, gm, lse, delta, *args)
+    delta_k = fa.attention_delta(out, g, h)
+    delta_m = fa.attention_delta(model(out), gm, h)
+    torch.cuda.synchronize()
+    same = torch.equal(lse_m, lse) and torch.equal(delta_m, delta_k) and all(
+        torch.equal(x.reshape(bh, -1, d), y)
+        for x, y in ((out_m, out), (dq_m, dq), (dk_m, dk), (dv_m, dv)))
+    check(same, f"{name}: the model's layout gives other bits than packed tensors")
+    delta_scale = float((out.float() * g.float()).abs().sum(-1).max())
+    delta_err = max_abs(delta_k, delta) / max(delta_scale, 1e-30)
+    check(delta_err <= DELTA_TOL, f"{name}: delta kernel error {delta_err} (relative)")
+
     rows = visible_rows(mask, b, h, tq, tk, causal, device)
     errs = {"fwd_max_abs": max_abs(out, out_p, rows), "lse_max_abs": max_abs(lse, lse_p, rows),
             "dq_max_rel": max_rel(dq, dq_p), "dk_max_rel": max_rel(dk, dk_p),
             "dv_max_rel": max_rel(dv, dv_p), "dq_max_abs": max_abs(dq, dq_p),
-            "dkv_max_abs": max(max_abs(dk, dk_p), max_abs(dv, dv_p))}
+            "dkv_max_abs": max(max_abs(dk, dk_p), max_abs(dv, dv_p)),
+            "delta_max_abs": max_abs(delta_k, delta), "delta_max_rel": delta_err,
+            "layouts_bit_identical": same}
     for t in (out, lse, dq, dk, dv):
         check(bool(torch.isfinite(t.float()).all()), f"{name}: non-finite kernel output")
     fwd_tol, lse_tol, grad_tol = (F32_TOL,) * 3 if f32 else (FWD_TOL, LSE_TOL, GRAD_TOL)
@@ -754,15 +813,28 @@ def kernel_case(fa, case, seed, device, rates, dtype=torch.bfloat16):
     }
     record = {"case": name, "shape": [b, tq, tk, h, d], "causal": causal, "dtype": str(dtype),
               "mask": mask_kind, **errs, "kernels": {}, "by_kernel": {}}
+    if name in DELTA_TIMED:  # in the model's layout, as the backward runs it
+        times["flash_bwd_delta"] = (graph_ms(lambda: fa.attention_delta(out_m, gm, h)),
+                                    graph_ms(lambda: fa.attention_delta_plain(out_m, gm)))
     for kname, (nbytes, flops) in work(b, tq, tk, h, d, causal, q.element_size()).items():
+        if kname not in times:
+            continue
         t_bytes, t_ops = nbytes / bw * 1e3, flops / flops_peak * 1e3
-        iname = fa.instance(kname, dtype, d, tq, tk)
+        iname = (fa.DELTA + fa.KERNEL_DTYPES[dtype] if kname == fa.DELTA
+                 else fa.instance(kname, dtype, d, tq, tk))
         record["by_kernel"][kname] = iname
         record["kernels"][iname] = {
             "ms": times[kname][0], "plain_ms": times[kname][1],
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else ops_name,
-            "bytes": nbytes, "flops": flops, "tile": fa.launch_config(tq, tk, d, iname)}
+            "bytes": nbytes, "flops": flops,
+            "tile": None if kname == fa.DELTA else fa.launch_config(tq, tk, d, iname)}
+    if name in DELTA_TIMED:
+        # torch.linalg.vecdot computes the same row sums in one call, in
+        # f32 for f32 inputs (in bf16 its sums come out rounded to bf16,
+        # not the same function).
+        record["delta_library_ms"] = (graph_ms(lambda: torch.linalg.vecdot(out_m, gm)) if f32
+                                      else None)
     (record["library_fwd_ms"], record["library_fwd_bwd_ms"],
      record["library_backend"]) = library_ms(q, k, v, g, mask, b, h, tq, tk, d, causal)
     # SDPA's backward, the one call that computes dQ, dK and dV: the
@@ -778,15 +850,21 @@ def library_ms(q, k, v, g, mask, b, h, tq, tk, d, causal):
     the same inputs in (B, H, T, D) layout, and the backend its own
     dispatch picks for them (`torch._fused_sdp_choice`, with inputs that
     need gradients)."""
+    return sdpa_ms(*(t.view(b, h, -1, d) for t in (q, k, v, g)), mask, causal)
+
+
+def sdpa_ms(q4, k4, v4, g4, mask, causal):
+    """`library_ms` on (B, H, T, D) tensors or views as they are."""
     from torch.nn.attention import SDPBackend
     import torch.nn.functional as F
-    q4, k4, v4, g4 = (t.view(b, h, -1, d) for t in (q, k, v, g))
+    b, _, tq, _ = q4.shape
+    tk = k4.shape[2]
     attn_mask = None
     if mask is not None:
         attn_mask = mask[:, None, None, :].expand(b, 1, tq, tk)
         if causal:
             attn_mask = attn_mask & torch.ones(tq, tk, dtype=torch.bool,
-                                               device=q.device).tril()
+                                               device=q4.device).tril()
     is_causal = causal and mask is None
 
     def fwd():
@@ -816,6 +894,48 @@ def flash_fwd_bwd_ms(fa, q, k, v, g, mask, b, h, tq, tk, d, causal):
         return torch.autograd.grad(out, (qg, kg, vg), g4)
 
     return graph_ms(fwd_bwd)
+
+
+def model_layout_case(fa, case, seed, device):
+    """Forward + backward of `case` (bf16) through `flash_attention` on the
+    model's own (B, T, H, D) tensors, as the Transformer calls it: its
+    device kernels counted under torch.profiler (MODEL_LAYOUT_COUNTED:
+    exactly K1, delta, K2 and K3, one launch each, nothing else), and its
+    time beside SDPA's forward + backward on the same tensors' (B, H, T,
+    D) views."""
+    from torch.autograd import DeviceType
+    name, b, tq, tk, h, d, causal, mask_kind = case
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, g = (torch.randn(b, t, h, d, generator=gen, device=device).to(torch.bfloat16)
+                  for t in (tq, tk, tk, tq))
+    mask = make_mask(mask_kind, b, tk, gen, device)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def fwd_bwd():
+        out = fa.flash_attention(qg, kg, vg, causal=causal, key_padding_mask=mask)
+        return torch.autograd.grad(out, (qg, kg, vg), g)
+
+    fwd_bwd()
+    torch.cuda.synchronize()
+    record = {"case": name, "shape": [b, tq, tk, h, d], "causal": causal, "mask": mask_kind}
+    if name in MODEL_LAYOUT_COUNTED:
+        fa.reset_launch_counts()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fwd_bwd()
+            torch.cuda.synchronize()
+        launches = dict(fa.LAUNCHES)
+        check_launches(fa, launches, 1, f"model layout: {name}", width=d, t=max(tq, tk))
+        kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        families = sorted(next((f for f in ("flash_bwd_delta", "flash_fwd", "flash_dq",
+                                             "flash_dkv") if f in n), n) for n in kernels)
+        check(families == ["flash_bwd_delta", "flash_dkv", "flash_dq", "flash_fwd"],
+              f"model layout: {name} ran {len(kernels)} device kernels, not K1, delta, K2 "
+              f"and K3 once each: {kernels}")
+        record.update({"device_kernels": len(kernels), "kernel_names": kernels})
+    fwd, fwd_bwd_lib, backend = sdpa_ms(*(t.transpose(1, 2) for t in (q, k, v, g)), mask, causal)
+    record.update({"fwd_bwd_ms": graph_ms(fwd_bwd), "library_fwd_bwd_ms": fwd_bwd_lib,
+                   "library_fwd_ms": fwd, "library_backend": backend})
+    return record
 
 
 def padded_case(fa, case, seed, device):
@@ -2276,6 +2396,18 @@ def kernel_rows(fa, cases, sliced, served, profiled):
                                           if n.startswith("d256_") and c["dtype"] == str(dtype)
                                           and c["by_kernel"][kname] == iname
                                           for e in ERR_KEYS[kname])
+            d32 = cases["d32_bench_causal" + suffix]  # head dim 32's long tile
+            k32 = ran(d32, kname)
+            row.update({"d32_bench_at": f"d32_bench_causal{suffix} {d32['shape']}",
+                        "d32_bench_instance": d32["by_kernel"][kname],
+                        "d32_bench_tile": k32["tile"], "d32_bench_ms": k32["ms"],
+                        "d32_bench_plain_ms": k32["plain_ms"],
+                        "d32_bench_bound_ms": k32["bound_ms"],
+                        "d32_bench_bound_by": k32["bound_by"],
+                        "d32_bench_library_ms": (d32["library_fwd_ms"] if kname == "flash_fwd"
+                                                 else None)})
+            if kname != "flash_fwd":
+                row["d32_bench_library_bwd_ms"] = d32["library_bwd_ms"]
             if dtype == torch.float32:
                 main_case = cases[MAIN_CASE_F32]
                 m = main_case["kernels"][kname + suffix]
@@ -2285,6 +2417,28 @@ def kernel_rows(fa, cases, sliced, served, profiled):
                             "main_library_ms": (main_case["library_fwd_ms"]
                                                 if kname == "flash_fwd" else None)})
             kernels.append(row)
+    # The backward's delta kernel in bf16 and in f32: timed where its
+    # dtype's main-path launches come from (the slice's trainer shape; the
+    # f32 decoder's), and at its dtype's bench shape.
+    for dtype, at_name, bench in ((torch.bfloat16, MAIN_CASE, "bench_causal"),
+                                  (torch.float32, "decoder_f32", "bench_causal_f32")):
+        iname = fa.DELTA + fa.KERNEL_DTYPES[dtype]
+        at_case, bench_case = cases[at_name], cases[bench]
+        k, b = at_case["kernels"][iname], bench_case["kernels"][iname]
+        launched = (sliced["launches"] if dtype == torch.bfloat16
+                    else served["decoder_flash_f32"]["launches"])
+        kernels.append({
+            "name": iname, "route": "cuda",
+            "source": "shockwave_tpu_torch/csrc/flash_attention_delta.cu",
+            "replaces": DELTA_REPLACES, "launches": launched[iname],
+            "max_abs_err": max(c["delta_max_abs"] for c in cases.values()
+                               if c["dtype"] == str(dtype)),
+            "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": at_case["delta_library_ms"],
+            "library_of": "torch.linalg.vecdot (f32 in, f32 out)",
+            "at": f"{at_name} {at_case['shape']}", "bench_ms": b["ms"],
+            "bench_plain_ms": b["plain_ms"], "bench_bound_ms": b["bound_ms"],
+            "bench_library_ms": bench_case["delta_library_ms"]})
     # The TMA-fed K1-K3 in bf16 and in f32: timed at the bench
     # shape of their dtype, and at the bench shape at D = 128 and 256; K2's
     # and K3's rows give K2 + K3 beside SDPA's backward at each D. Their
@@ -2496,6 +2650,14 @@ def main() -> int:
     kernel_s = time.time() - t0
 
     t0 = time.time()
+    by_name = {c[0]: c for c in CASES}
+    modeled = {name: model_layout_case(fa, by_name[name], seed, device)
+               for seed, name in enumerate(MODEL_LAYOUT_CASES)}
+    for name, record in modeled.items():
+        record["packed_fwd_bwd_ms"] = cases[name]["flash_fwd_bwd_ms"]
+    emit("model_layout", {"seconds": time.time() - t0, "nvidia_smi": smi, "cases": modeled})
+
+    t0 = time.time()
     sliced = slice_phase(fa, train, device)
     sliced["seconds"] = time.time() - t0
     emit("slice", sliced)
@@ -2552,6 +2714,10 @@ def main() -> int:
         for names in cases_of.values() for name in names}
     print(json.dumps({"kernels": kernels, "fwd_bwd_ms": main_case["flash_fwd_bwd_ms"],
                       "library_fwd_bwd_ms": main_case["library_fwd_bwd_ms"],
+                      "model_layout_fwd_bwd": {
+                          name: {key: r[key] for key in ("fwd_bwd_ms", "library_fwd_bwd_ms",
+                                                         "packed_fwd_bwd_ms", "device_kernels")
+                                 if key in r} for name, r in modeled.items()},
                       "d256_d512_fwd_bwd": wide_fwd_bwd,
                       "bench_line": {"decode_tokens_per_s_per_chip":
                                      benched["decode"]["tokens_per_s_per_chip"],

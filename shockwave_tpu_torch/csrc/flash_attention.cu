@@ -2,8 +2,9 @@
 //
 // These replace the three Pallas TPU kernels of
 // shockwave_tpu/ops/flash_attention.py (_fa_kernel, _dq_kernel,
-// _dkv_kernel). They take (BH, T, D) bf16 tensors (each also has an f32
-// instance, below the bf16 kernels, 3xTF32 on the tensor cores), D in
+// _dkv_kernel). They take (B, H, T, D) bf16 views (base and strides, rows
+// s.t apart: the model's (B, T, H, D) tensors in place; each also has an
+// f32 instance, below the bf16 kernels, 3xTF32 on the tensor cores), D in
 // {32, 64, 128, 256} (the wrapper zero-pads any head dim up to 256 to one
 // of them, as the reference pads; wider head dims go to the wide
 // instances in flash_attention_wide.cu, which take D at run time; the
@@ -35,29 +36,35 @@
 namespace {
 
 // Start cp.async copies of rows [row0, row0 + R) of a (rows, D) bf16
-// matrix into an R-row shared tile; rows past `rows` are zero-filled.
+// matrix whose rows are `ld` elements apart into an R-row shared tile;
+// rows past `rows` are zero-filled (and read nothing). The tile's row
+// offsets stay in 32 bits (rows_fit).
 template <int D, int R, int kCtaThreads>
-__device__ __forceinline__ void copy_tile_async(bf16* dst, const bf16* src, int row0, int rows) {
+__device__ __forceinline__ void copy_tile_async(bf16* dst, const bf16* src, long long ld, int row0,
+                                                int rows) {
   constexpr int kChunks = D / 8;
+  const int ld32 = (int)ld;
   for (int i = threadIdx.x; i < R * kChunks; i += kCtaThreads) {
     const int r = i / kChunks, c = i % kChunks;
     const bool valid = row0 + r < rows;
-    cp_async16(dst + r * smem_stride<D>() + c * 8, src + (size_t)(valid ? row0 + r : 0) * D + c * 8,
+    cp_async16(dst + r * smem_stride<D>() + c * 8, src + (valid ? row0 + r : 0) * ld32 + c * 8,
                valid);
   }
 }
 
 // Write 16 staged bf16 rows to rows [row0, row0 + 16) of a (rows, D)
-// matrix with 16-byte stores: W columns from `dst` and `stage` on (a
-// warp that owns a column slice passes both offset to it).
+// matrix whose rows are `ld` elements apart with 16-byte stores: W columns
+// from `dst` and `stage` on (a warp that owns a column slice passes both
+// offset to it).
 template <int D, int W = D>
-__device__ __forceinline__ void warp_store_tile(bf16* dst, const bf16* stage, int row0, int rows,
-                                                int lane) {
+__device__ __forceinline__ void warp_store_tile(bf16* dst, long long ld, const bf16* stage,
+                                                int row0, int rows, int lane) {
   constexpr int kChunks = W / 8;
+  const int ld32 = (int)ld;  // rows_fit
   for (int i = lane; i < 16 * kChunks; i += 32) {
     const int r = i / kChunks, c = i % kChunks;
     if (row0 + r < rows)
-      *reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * D + c * 8) =
+      *reinterpret_cast<uint4*>(dst + (row0 + r) * ld32 + c * 8) =
           *reinterpret_cast<const uint4*>(stage + r * smem_stride<D>() + c * 8);
   }
 }
@@ -125,10 +132,11 @@ struct FwdShape {
 
 template <int D, int kBlock>
 __global__ void __launch_bounds__(FwdShape<D, kBlock>::kCtaThreads)
-    flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
-                     bf16* __restrict__ out, float* __restrict__ lse, int heads, int tq, int tk,
-                     float scale, int causal) {
+    flash_fwd_kernel(const bf16* __restrict__ q, Strides qs, const bf16* __restrict__ k,
+                     Strides ks, const bf16* __restrict__ v, Strides vs,
+                     const uint8_t* __restrict__ mask, bf16* __restrict__ out, Strides os,
+                     float* __restrict__ lse, int heads, int tq, int tk, float scale,
+                     int causal) {
   using Shape = FwdShape<D, kBlock>;
   constexpr int S = smem_stride<D>();
   constexpr int kThr = Shape::kCtaThreads;
@@ -144,17 +152,17 @@ __global__ void __launch_bounds__(FwdShape<D, kBlock>::kCtaThreads)
   const int q0 = qt * kBlock;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const bf16* kb = k + (size_t)bh * tk * D;
-  const bf16* vb = v + (size_t)bh * tk * D;
+  const bf16* kb = k + head_offset(ks, bh, heads);
+  const bf16* vb = v + head_offset(vs, bh, heads);
   const uint8_t* mask_row = mask != nullptr ? mask + (size_t)(bh / heads) * tk : nullptr;
   const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
 
   int nk = (tk + kBlock - 1) / kBlock;
   if (causal) nk = min(nk, qt + 1);  // k-tiles past the diagonal see nothing
 
-  copy_tile_async<D, kBlock, kThr>(sQ, q + (size_t)bh * tq * D, q0, tq);
-  copy_tile_async<D, kBlock, kThr>(sK, kb, 0, tk);
-  copy_tile_async<D, kBlock, kThr>(sV, vb, 0, tk);
+  copy_tile_async<D, kBlock, kThr>(sQ, q + head_offset(qs, bh, heads), qs.t, q0, tq);
+  copy_tile_async<D, kBlock, kThr>(sK, kb, ks.t, 0, tk);
+  copy_tile_async<D, kBlock, kThr>(sV, vb, vs.t, 0, tk);
   for (int j = threadIdx.x; j < kBlock; j += kThr) sBias[j] = key_bias(mask_row, j, tk);
   cp_async_commit();
 
@@ -168,8 +176,8 @@ __global__ void __launch_bounds__(FwdShape<D, kBlock>::kCtaThreads)
     const int buf = kt & 1;
     if (kt + 1 < nk) {
       const int k1 = (kt + 1) * kBlock;
-      copy_tile_async<D, kBlock, kThr>(sK + (buf ^ 1) * Shape::kTileElems, kb, k1, tk);
-      copy_tile_async<D, kBlock, kThr>(sV + (buf ^ 1) * Shape::kTileElems, vb, k1, tk);
+      copy_tile_async<D, kBlock, kThr>(sK + (buf ^ 1) * Shape::kTileElems, kb, ks.t, k1, tk);
+      copy_tile_async<D, kBlock, kThr>(sV + (buf ^ 1) * Shape::kTileElems, vb, vs.t, k1, tk);
       for (int j = threadIdx.x; j < kBlock; j += kThr)
         sBias[(buf ^ 1) * kBlock + j] = key_bias(mask_row, k1 + j, tk);
       cp_async_commit();
@@ -277,7 +285,7 @@ __global__ void __launch_bounds__(FwdShape<D, kBlock>::kCtaThreads)
   bf16* stage = sQ + warp * 16 * S;
   stage_accum<D>(stage, o, 1.f / lc[0], 1.f / lc[1], lane);
   __syncwarp();
-  warp_store_tile<D>(out + (size_t)bh * tq * D, stage, q0 + warp * 16, tq, lane);
+  warp_store_tile<D>(out + head_offset(os, bh, heads), os.t, stage, q0 + warp * 16, tq, lane);
   if (t == 0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h)
@@ -340,11 +348,12 @@ struct DqShape {
 
 template <int D, int kBlock>
 __global__ void __launch_bounds__(DqShape<D, kBlock>::kCtaThreads)
-    flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ g,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    const uint8_t* __restrict__ mask, bf16* __restrict__ dq, int heads, int tq,
-                    int tk, float scale, int causal) {
+    flash_dq_kernel(const bf16* __restrict__ q, Strides qs, const bf16* __restrict__ k,
+                    Strides ks, const bf16* __restrict__ v, Strides vs,
+                    const bf16* __restrict__ g, Strides gs, const float* __restrict__ lse,
+                    const float* __restrict__ delta, const uint8_t* __restrict__ mask,
+                    bf16* __restrict__ dq, Strides dqs, int heads, int tq, int tk, float scale,
+                    int causal) {
   using Shape = DqShape<D, kBlock>;
   constexpr int S = smem_stride<D>();
   constexpr int kThr = Shape::kCtaThreads;
@@ -361,18 +370,18 @@ __global__ void __launch_bounds__(DqShape<D, kBlock>::kCtaThreads)
   const int q0 = qt * kBlock;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gq = lane >> 2, t = lane & 3;
-  const bf16* kb = k + (size_t)bh * tk * D;
-  const bf16* vb = v + (size_t)bh * tk * D;
+  const bf16* kb = k + head_offset(ks, bh, heads);
+  const bf16* vb = v + head_offset(vs, bh, heads);
   const uint8_t* mask_row = mask != nullptr ? mask + (size_t)(bh / heads) * tk : nullptr;
   const int row[2] = {q0 + warp * 16 + gq, q0 + warp * 16 + gq + 8};
 
   int nk = (tk + kBlock - 1) / kBlock;
   if (causal) nk = min(nk, qt + 1);  // k-tiles past the diagonal see nothing
 
-  copy_tile_async<D, kBlock, kThr>(sQ, q + (size_t)bh * tq * D, q0, tq);
-  copy_tile_async<D, kBlock, kThr>(sG, g + (size_t)bh * tq * D, q0, tq);
-  copy_tile_async<D, kBlock, kThr>(sK, kb, 0, tk);
-  copy_tile_async<D, kBlock, kThr>(sV, vb, 0, tk);
+  copy_tile_async<D, kBlock, kThr>(sQ, q + head_offset(qs, bh, heads), qs.t, q0, tq);
+  copy_tile_async<D, kBlock, kThr>(sG, g + head_offset(gs, bh, heads), gs.t, q0, tq);
+  copy_tile_async<D, kBlock, kThr>(sK, kb, ks.t, 0, tk);
+  copy_tile_async<D, kBlock, kThr>(sV, vb, vs.t, 0, tk);
   for (int j = threadIdx.x; j < kBlock; j += kThr) sBias[j] = key_bias(mask_row, j, tk);
   cp_async_commit();
 
@@ -396,8 +405,8 @@ __global__ void __launch_bounds__(DqShape<D, kBlock>::kCtaThreads)
     const int buf = kt & 1;
     if (kt + 1 < nk) {
       const int k1 = (kt + 1) * kBlock;
-      copy_tile_async<D, kBlock, kThr>(sK + (buf ^ 1) * kE, kb, k1, tk);
-      copy_tile_async<D, kBlock, kThr>(sV + (buf ^ 1) * kE, vb, k1, tk);
+      copy_tile_async<D, kBlock, kThr>(sK + (buf ^ 1) * kE, kb, ks.t, k1, tk);
+      copy_tile_async<D, kBlock, kThr>(sV + (buf ^ 1) * kE, vb, vs.t, k1, tk);
       for (int j = threadIdx.x; j < kBlock; j += kThr)
         sBias[(buf ^ 1) * kBlock + j] = key_bias(mask_row, k1 + j, tk);
       cp_async_commit();
@@ -474,7 +483,7 @@ __global__ void __launch_bounds__(DqShape<D, kBlock>::kCtaThreads)
   bf16* stage = sQ + warp * 16 * S;
   stage_accum<D>(stage, dq_acc, 1.f, 1.f, lane);
   __syncwarp();
-  warp_store_tile<D>(dq + (size_t)bh * tq * D, stage, q0 + warp * 16, tq, lane);
+  warp_store_tile<D>(dq + head_offset(dqs, bh, heads), dqs.t, stage, q0 + warp * 16, tq, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -539,13 +548,13 @@ struct DkvShape {
 
 template <int D, int kBlock>
 __device__ __forceinline__ void copy_q_side_async(bf16* sQ, bf16* sG, float* sLse, float* sDelta,
-                                                  const bf16* qb, const bf16* gb,
-                                                  const float* lse_b, const float* delta_b,
-                                                  int q0, int tq) {
+                                                  const bf16* qb, long long q_ld, const bf16* gb,
+                                                  long long g_ld, const float* lse_b,
+                                                  const float* delta_b, int q0, int tq) {
   constexpr int kThr = DkvShape<D, kBlock>::kCtaThreads;
   static_assert(kThr >= 2 * kBlock, "one lse or one delta entry per thread");
-  copy_tile_async<D, kBlock, kThr>(sQ, qb, q0, tq);
-  copy_tile_async<D, kBlock, kThr>(sG, gb, q0, tq);
+  copy_tile_async<D, kBlock, kThr>(sQ, qb, q_ld, q0, tq);
+  copy_tile_async<D, kBlock, kThr>(sG, gb, g_ld, q0, tq);
   // The first 2 kBlock threads: one f32 each, lse then delta; rows past
   // tq read 0.
   if (threadIdx.x < 2 * kBlock) {
@@ -559,11 +568,12 @@ __device__ __forceinline__ void copy_q_side_async(bf16* sQ, bf16* sG, float* sLs
 
 template <int D, int kBlock>
 __global__ void __launch_bounds__(DkvShape<D, kBlock>::kCtaThreads)
-    flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ g,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     const uint8_t* __restrict__ mask, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, int heads, int tq, int tk, float scale, int causal) {
+    flash_dkv_kernel(const bf16* __restrict__ q, Strides qs, const bf16* __restrict__ k,
+                     Strides ks, const bf16* __restrict__ v, Strides vs,
+                     const bf16* __restrict__ g, Strides gs, const float* __restrict__ lse,
+                     const float* __restrict__ delta, const uint8_t* __restrict__ mask,
+                     bf16* __restrict__ dk, Strides dks, bf16* __restrict__ dv, Strides dvs,
+                     int heads, int tq, int tk, float scale, int causal) {
   using Shape = DkvShape<D, kBlock>;
   constexpr int S = smem_stride<D>();
   constexpr int kThr = Shape::kCtaThreads;
@@ -582,8 +592,8 @@ __global__ void __launch_bounds__(DkvShape<D, kBlock>::kCtaThreads)
   const int rw = (threadIdx.x >> 5) % (kBlock / 16), lane = threadIdx.x & 31;
   const int col0 = (threadIdx.x >> 5) / (kBlock / 16) * Shape::kCols;
   const int gq = lane >> 2, t = lane & 3;
-  const bf16* qb = q + (size_t)bh * tq * D;
-  const bf16* gb = g + (size_t)bh * tq * D;
+  const bf16* qb = q + head_offset(qs, bh, heads);
+  const bf16* gb = g + head_offset(gs, bh, heads);
   const float* lse_b = lse + (size_t)bh * tq;
   const float* delta_b = delta + (size_t)bh * tq;
   const uint8_t* mask_row = mask != nullptr ? mask + (size_t)(bh / heads) * tk : nullptr;
@@ -593,10 +603,11 @@ __global__ void __launch_bounds__(DkvShape<D, kBlock>::kCtaThreads)
   const int nq = (tq + kBlock - 1) / kBlock;
   const int qt0 = causal ? (int)blockIdx.y : 0;  // q-tiles above the diagonal see none of these keys
 
-  copy_tile_async<D, kBlock, kThr>(sK, k + (size_t)bh * tk * D, k0, tk);
-  copy_tile_async<D, kBlock, kThr>(sV, v + (size_t)bh * tk * D, k0, tk);
+  copy_tile_async<D, kBlock, kThr>(sK, k + head_offset(ks, bh, heads), ks.t, k0, tk);
+  copy_tile_async<D, kBlock, kThr>(sV, v + head_offset(vs, bh, heads), vs.t, k0, tk);
   if (qt0 < nq)
-    copy_q_side_async<D, kBlock>(sQ, sG, sLse, sDelta, qb, gb, lse_b, delta_b, qt0 * kBlock, tq);
+    copy_q_side_async<D, kBlock>(sQ, sG, sLse, sDelta, qb, qs.t, gb, gs.t, lse_b, delta_b,
+                                 qt0 * kBlock, tq);
   cp_async_commit();
 
   constexpr int kHeld = Shape::kHoldKV ? D / 16 : 1;
@@ -610,7 +621,7 @@ __global__ void __launch_bounds__(DkvShape<D, kBlock>::kCtaThreads)
     if (qt + 1 < nq) {
       const int nb = buf ^ 1;
       copy_q_side_async<D, kBlock>(sQ + nb * kE, sG + nb * kE, sLse + nb * kBlock,
-                                   sDelta + nb * kBlock, qb, gb, lse_b, delta_b,
+                                   sDelta + nb * kBlock, qb, qs.t, gb, gs.t, lse_b, delta_b,
                                    (qt + 1) * kBlock, tq);
       cp_async_commit();
       cp_async_wait<1>();
@@ -699,16 +710,16 @@ __global__ void __launch_bounds__(DkvShape<D, kBlock>::kCtaThreads)
   stage_accum<D, Shape::kCols / 8>(stage_k, dk_acc, 1.f, 1.f, lane);
   stage_accum<D, Shape::kCols / 8>(stage_v, dv_acc, 1.f, 1.f, lane);
   __syncwarp();
-  warp_store_tile<D, Shape::kCols>(dk + (size_t)bh * tk * D + col0, stage_k, k0 + rw * 16, tk,
-                                   lane);
-  warp_store_tile<D, Shape::kCols>(dv + (size_t)bh * tk * D + col0, stage_v, k0 + rw * 16, tk,
-                                   lane);
+  warp_store_tile<D, Shape::kCols>(dk + head_offset(dks, bh, heads) + col0, dks.t, stage_k,
+                                   k0 + rw * 16, tk, lane);
+  warp_store_tile<D, Shape::kCols>(dv + head_offset(dvs, bh, heads) + col0, dvs.t, stage_v,
+                                   k0 + rw * 16, tk, lane);
 }
 
 // ---------------------------------------------------------------------------
 // K1-K3 in f32: flash_fwd_f32, flash_dq_f32, flash_dkv_f32.
 //
-// The same three functions on (BH, T, D) f32 tensors, as the Pallas
+// The same three functions on (B, H, T, D) f32 views, as the Pallas
 // kernels compute them in f32 (every dot there runs with
 // preferred_element_type=f32), to the plain f32 versions' digits: no
 // one-pass TF32 anywhere. Masking is the bf16 kernels': -1e30 after the
@@ -796,13 +807,13 @@ __global__ void __launch_bounds__(DkvShape<D, kBlock>::kCtaThreads)
 // operands only K-major. The short tile and D = 32 stay here.)
 
 // The A operand of rows [r0, r0 + 16), columns [c0, c0 + 8) of a (rows,
-// D) f32 matrix in device memory, split; rows past `rows` read 0.
-template <int D>
-__device__ __forceinline__ Split<4> split_a_global(const float* x, int r0, int rows, int c0, int g,
-                                                   int t) {
+// D) f32 matrix in device memory whose rows are `ld` elements apart,
+// split; rows past `rows` read 0.
+__device__ __forceinline__ Split<4> split_a_global(const float* x, long long ld, int r0, int rows,
+                                                   int c0, int g, int t) {
   const bool in0 = r0 + g < rows, in1 = r0 + g + 8 < rows;
-  const float* x0 = x + (size_t)(in0 ? r0 + g : 0) * D + c0;
-  const float* x1 = x + (size_t)(in1 ? r0 + g + 8 : 0) * D + c0;
+  const float* x0 = x + (in0 ? r0 + g : 0) * (int)ld + c0;
+  const float* x1 = x + (in1 ? r0 + g + 8 : 0) * (int)ld + c0;
   const float v[4] = {in0 ? x0[t] : 0.f, in1 ? x1[t] : 0.f, in0 ? x0[t + 4] : 0.f,
                       in1 ? x1[t + 4] : 0.f};
   Split<4> a;
@@ -812,17 +823,18 @@ __device__ __forceinline__ Split<4> split_a_global(const float* x, int r0, int r
 }
 
 // Start cp.async copies of rows [row0, row0 + R) of a (rows, D) f32
-// matrix into an R-row shared tile of stride f32_stride<D>(); rows past
-// `rows` are zero-filled.
+// matrix whose rows are `ld` elements apart into an R-row shared tile of
+// stride f32_stride<D>(); rows past `rows` are zero-filled.
 template <int D, int R, int kCtaThreads>
-__device__ __forceinline__ void copy_tile_f32_async(float* dst, const float* src, int row0,
-                                                    int rows) {
+__device__ __forceinline__ void copy_tile_f32_async(float* dst, const float* src, long long ld,
+                                                    int row0, int rows) {
   constexpr int kChunks = D / 4;
+  const int ld32 = (int)ld;
   for (int i = threadIdx.x; i < R * kChunks; i += kCtaThreads) {
     const int r = i / kChunks, c = i % kChunks;
     const bool valid = row0 + r < rows;
-    cp_async16(dst + r * f32_stride<D>() + c * 4,
-               src + (size_t)(valid ? row0 + r : 0) * D + c * 4, valid);
+    cp_async16(dst + r * f32_stride<D>() + c * 4, src + (valid ? row0 + r : 0) * ld32 + c * 4,
+               valid);
   }
 }
 
@@ -842,10 +854,11 @@ struct FwdF32Shape {
 
 template <int D, int kBlock>
 __global__ void __launch_bounds__(FwdF32Shape<D, kBlock>::kCtaThreads)
-    flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, const uint8_t* __restrict__ mask,
-                         float* __restrict__ out, float* __restrict__ lse, int heads, int tq,
-                         int tk, float scale, int causal) {
+    flash_fwd_f32_kernel(const float* __restrict__ q, Strides qs, const float* __restrict__ k,
+                         Strides ks, const float* __restrict__ v, Strides vs,
+                         const uint8_t* __restrict__ mask, float* __restrict__ out, Strides os,
+                         float* __restrict__ lse, int heads, int tq, int tk, float scale,
+                         int causal) {
   using Shape = FwdF32Shape<D, kBlock>;
   constexpr int S = f32_stride<D>();
   constexpr int kThr = Shape::kCtaThreads;
@@ -862,18 +875,18 @@ __global__ void __launch_bounds__(FwdF32Shape<D, kBlock>::kCtaThreads)
   const int q0 = qt * kBlock;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const float* kb = k + (size_t)bh * tk * D;
-  const float* vb = v + (size_t)bh * tk * D;
+  const float* qb = q + head_offset(qs, bh, heads);
+  const float* kb = k + head_offset(ks, bh, heads);
+  const float* vb = v + head_offset(vs, bh, heads);
   const uint8_t* mask_row = mask != nullptr ? mask + (size_t)(bh / heads) * tk : nullptr;
   const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
 
   int nk = (tk + kBlock - 1) / kBlock;
   if (causal) nk = min(nk, qt + 1);  // k-tiles past the diagonal see nothing
 
-  copy_tile_f32_async<D, kBlock, kThr>(sK, kb, 0, tk);
-  copy_tile_f32_async<D, kBlock, kThr>(sV, vb, 0, tk);
-  if constexpr (Shape::kOwnedInSmem)
-    copy_tile_f32_async<D, kBlock, kThr>(sQ, q + (size_t)bh * tq * D, q0, tq);
+  copy_tile_f32_async<D, kBlock, kThr>(sK, kb, ks.t, 0, tk);
+  copy_tile_f32_async<D, kBlock, kThr>(sV, vb, vs.t, 0, tk);
+  if constexpr (Shape::kOwnedInSmem) copy_tile_f32_async<D, kBlock, kThr>(sQ, qb, qs.t, q0, tq);
   for (int j = threadIdx.x; j < kBlock; j += kThr) sBias[j] = key_bias(mask_row, j, tk);
   cp_async_commit();
 
@@ -883,7 +896,7 @@ __global__ void __launch_bounds__(FwdF32Shape<D, kBlock>::kCtaThreads)
   if constexpr (!Shape::kOwnedInSmem) {
 #pragma unroll
     for (int kk = 0; kk < D / 8; ++kk)
-      qf[kk] = split_a_global<D>(q + (size_t)bh * tq * D, q0 + warp * 16, tq, kk * 8, g, t);
+      qf[kk] = split_a_global(qb, qs.t, q0 + warp * 16, tq, kk * 8, g, t);
   }
   const float* warp_q = sQ + warp * 16 * S;
 
@@ -895,8 +908,8 @@ __global__ void __launch_bounds__(FwdF32Shape<D, kBlock>::kCtaThreads)
     const int buf = kt & 1;
     if (kt + 1 < nk) {
       const int k1 = (kt + 1) * kBlock;
-      copy_tile_f32_async<D, kBlock, kThr>(sK + (buf ^ 1) * kE, kb, k1, tk);
-      copy_tile_f32_async<D, kBlock, kThr>(sV + (buf ^ 1) * kE, vb, k1, tk);
+      copy_tile_f32_async<D, kBlock, kThr>(sK + (buf ^ 1) * kE, kb, ks.t, k1, tk);
+      copy_tile_f32_async<D, kBlock, kThr>(sV + (buf ^ 1) * kE, vb, vs.t, k1, tk);
       for (int j = threadIdx.x; j < kBlock; j += kThr)
         sBias[(buf ^ 1) * kBlock + j] = key_bias(mask_row, k1 + j, tk);
       cp_async_commit();
@@ -993,7 +1006,9 @@ __global__ void __launch_bounds__(FwdF32Shape<D, kBlock>::kCtaThreads)
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
 
-  float* ob = out + (size_t)bh * tq * D;
+  // The tile's row offsets fit 32 bits (rows_fit).
+  float* ob = out + head_offset(os, bh, heads) + q0 * os.t;
+  const int ld = (int)os.t;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
@@ -1003,7 +1018,7 @@ __global__ void __launch_bounds__(FwdF32Shape<D, kBlock>::kCtaThreads)
       const float inv = 1.f / lc;
 #pragma unroll
       for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<float2*>(ob + (size_t)row[h] * D + n * 8 + 2 * t) =
+        *reinterpret_cast<float2*>(ob + (row[h] - q0) * ld + n * 8 + 2 * t) =
             make_float2(o[n][2 * h] * inv, o[n][2 * h + 1] * inv);
       if (t == 0) lse[(size_t)bh * tq + row[h]] = m[h] + logf(lc);
     }
@@ -1030,11 +1045,12 @@ struct DqF32Shape {
 
 template <int D, int kBlock>
 __global__ void __launch_bounds__(DqF32Shape<D, kBlock>::kCtaThreads)
-    flash_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, const float* __restrict__ g,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        const uint8_t* __restrict__ mask, float* __restrict__ dq, int heads,
-                        int tq, int tk, float scale, int causal) {
+    flash_dq_f32_kernel(const float* __restrict__ q, Strides qs, const float* __restrict__ k,
+                        Strides ks, const float* __restrict__ v, Strides vs,
+                        const float* __restrict__ g, Strides gs, const float* __restrict__ lse,
+                        const float* __restrict__ delta, const uint8_t* __restrict__ mask,
+                        float* __restrict__ dq, Strides dqs, int heads, int tq, int tk,
+                        float scale, int causal) {
   using Shape = DqF32Shape<D, kBlock>;
   constexpr int S = f32_stride<D>();
   constexpr int kThr = Shape::kCtaThreads;
@@ -1052,8 +1068,8 @@ __global__ void __launch_bounds__(DqF32Shape<D, kBlock>::kCtaThreads)
   const int q0 = qt * kBlock;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gq = lane >> 2, t = lane & 3;
-  const float* kb = k + (size_t)bh * tk * D;
-  const float* vb = v + (size_t)bh * tk * D;
+  const float* kb = k + head_offset(ks, bh, heads);
+  const float* vb = v + head_offset(vs, bh, heads);
   const uint8_t* mask_row = mask != nullptr ? mask + (size_t)(bh / heads) * tk : nullptr;
   const int row[2] = {q0 + warp * 16 + gq, q0 + warp * 16 + gq + 8};
   // A row past tq reads 0 (Q, dO, lse and delta): its dS is 0 and its dQ
@@ -1069,13 +1085,13 @@ __global__ void __launch_bounds__(DqF32Shape<D, kBlock>::kCtaThreads)
   int nk = (tk + kBlock - 1) / kBlock;
   if (causal) nk = min(nk, qt + 1);  // k-tiles past the diagonal see nothing
 
-  const float* qb = q + (size_t)bh * tq * D;
-  const float* gb = g + (size_t)bh * tq * D;
-  copy_tile_f32_async<D, kBlock, kThr>(sK, kb, 0, tk);
-  copy_tile_f32_async<D, kBlock, kThr>(sV, vb, 0, tk);
+  const float* qb = q + head_offset(qs, bh, heads);
+  const float* gb = g + head_offset(gs, bh, heads);
+  copy_tile_f32_async<D, kBlock, kThr>(sK, kb, ks.t, 0, tk);
+  copy_tile_f32_async<D, kBlock, kThr>(sV, vb, vs.t, 0, tk);
   if constexpr (Shape::kOwnedInSmem) {
-    copy_tile_f32_async<D, kBlock, kThr>(sQ, qb, q0, tq);
-    copy_tile_f32_async<D, kBlock, kThr>(sG, gb, q0, tq);
+    copy_tile_f32_async<D, kBlock, kThr>(sQ, qb, qs.t, q0, tq);
+    copy_tile_f32_async<D, kBlock, kThr>(sG, gb, gs.t, q0, tq);
   }
   for (int j = threadIdx.x; j < kBlock; j += kThr) sBias[j] = key_bias(mask_row, j, tk);
   cp_async_commit();
@@ -1091,8 +1107,8 @@ __global__ void __launch_bounds__(DqF32Shape<D, kBlock>::kCtaThreads)
   if constexpr (!Shape::kOwnedInSmem) {
 #pragma unroll
     for (int kk = 0; kk < D / 8; ++kk) {
-      qf[kk] = split_a_global<D>(qb, q0 + warp * 16, tq, kk * 8, gq, t);
-      const Split<4> gf = split_a_global<D>(gb, q0 + warp * 16, tq, kk * 8, gq, t);
+      qf[kk] = split_a_global(qb, qs.t, q0 + warp * 16, tq, kk * 8, gq, t);
+      const Split<4> gf = split_a_global(gb, gs.t, q0 + warp * 16, tq, kk * 8, gq, t);
       uint4* dst = reinterpret_cast<uint4*>(gf_warp + kk * 256) + lane;
       dst[0] = make_uint4(gf.big[0], gf.big[1], gf.big[2], gf.big[3]);
       dst[32] = make_uint4(gf.small[0], gf.small[1], gf.small[2], gf.small[3]);
@@ -1104,8 +1120,8 @@ __global__ void __launch_bounds__(DqF32Shape<D, kBlock>::kCtaThreads)
     const int buf = kt & 1;
     if (kt + 1 < nk) {
       const int k1 = (kt + 1) * kBlock;
-      copy_tile_f32_async<D, kBlock, kThr>(sK + (buf ^ 1) * kE, kb, k1, tk);
-      copy_tile_f32_async<D, kBlock, kThr>(sV + (buf ^ 1) * kE, vb, k1, tk);
+      copy_tile_f32_async<D, kBlock, kThr>(sK + (buf ^ 1) * kE, kb, ks.t, k1, tk);
+      copy_tile_f32_async<D, kBlock, kThr>(sV + (buf ^ 1) * kE, vb, vs.t, k1, tk);
       for (int j = threadIdx.x; j < kBlock; j += kThr)
         sBias[(buf ^ 1) * kBlock + j] = key_bias(mask_row, k1 + j, tk);
       cp_async_commit();
@@ -1176,13 +1192,14 @@ __global__ void __launch_bounds__(DqF32Shape<D, kBlock>::kCtaThreads)
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
 
-  float* dqb = dq + (size_t)bh * tq * D;
+  float* dqb = dq + head_offset(dqs, bh, heads) + q0 * dqs.t;  // as K1 f32's O
+  const int ld = (int)dqs.t;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (row[h] >= tq) continue;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<float2*>(dqb + (size_t)row[h] * D + n * 8 + 2 * t) =
+      *reinterpret_cast<float2*>(dqb + (row[h] - q0) * ld + n * 8 + 2 * t) =
           make_float2(dq_acc[n][2 * h], dq_acc[n][2 * h + 1]);
   }
 }
@@ -1210,12 +1227,13 @@ struct DkvF32Shape {
 template <int D, int kBlock>
 __device__ __forceinline__ void copy_q_side_f32_async(float* sQ, float* sG, float* sLse,
                                                       float* sDelta, const float* qb,
-                                                      const float* gb, const float* lse_b,
+                                                      long long q_ld, const float* gb,
+                                                      long long g_ld, const float* lse_b,
                                                       const float* delta_b, int q0, int tq) {
   constexpr int kThr = DkvF32Shape<D, kBlock>::kCtaThreads;
   static_assert(kThr >= 2 * kBlock, "one lse or one delta entry per thread");
-  copy_tile_f32_async<D, kBlock, kThr>(sQ, qb, q0, tq);
-  copy_tile_f32_async<D, kBlock, kThr>(sG, gb, q0, tq);
+  copy_tile_f32_async<D, kBlock, kThr>(sQ, qb, q_ld, q0, tq);
+  copy_tile_f32_async<D, kBlock, kThr>(sG, gb, g_ld, q0, tq);
   // The first 2 kBlock threads: one f32 each, lse then delta; rows past
   // tq read 0.
   if (threadIdx.x < 2 * kBlock) {
@@ -1229,12 +1247,12 @@ __device__ __forceinline__ void copy_q_side_f32_async(float* sQ, float* sG, floa
 
 template <int D, int kBlock>
 __global__ void __launch_bounds__(DkvF32Shape<D, kBlock>::kCtaThreads)
-    flash_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, const float* __restrict__ g,
-                         const float* __restrict__ lse, const float* __restrict__ delta,
-                         const uint8_t* __restrict__ mask, float* __restrict__ dk,
-                         float* __restrict__ dv, int heads, int tq, int tk, float scale,
-                         int causal) {
+    flash_dkv_f32_kernel(const float* __restrict__ q, Strides qs, const float* __restrict__ k,
+                         Strides ks, const float* __restrict__ v, Strides vs,
+                         const float* __restrict__ g, Strides gs, const float* __restrict__ lse,
+                         const float* __restrict__ delta, const uint8_t* __restrict__ mask,
+                         float* __restrict__ dk, Strides dks, float* __restrict__ dv, Strides dvs,
+                         int heads, int tq, int tk, float scale, int causal) {
   using Shape = DkvF32Shape<D, kBlock>;
   constexpr int S = f32_stride<D>();
   constexpr int kE = Shape::kTileElems;
@@ -1253,8 +1271,8 @@ __global__ void __launch_bounds__(DkvF32Shape<D, kBlock>::kCtaThreads)
   const int warp = (threadIdx.x >> 5) % (kBlock / 16), lane = threadIdx.x & 31;
   const int col0 = (threadIdx.x >> 5) / (kBlock / 16) * Shape::kCols;
   const int gq = lane >> 2, t = lane & 3;
-  const float* qb = q + (size_t)bh * tq * D;
-  const float* gb = g + (size_t)bh * tq * D;
+  const float* qb = q + head_offset(qs, bh, heads);
+  const float* gb = g + head_offset(gs, bh, heads);
   const float* lse_b = lse + (size_t)bh * tq;
   const float* delta_b = delta + (size_t)bh * tq;
   const uint8_t* mask_row = mask != nullptr ? mask + (size_t)(bh / heads) * tk : nullptr;
@@ -1265,14 +1283,14 @@ __global__ void __launch_bounds__(DkvF32Shape<D, kBlock>::kCtaThreads)
   // q-tiles above the diagonal see none of these keys
   const int qt0 = causal ? (int)blockIdx.y : 0;
 
-  const float* kb = k + (size_t)bh * tk * D;
-  const float* vb = v + (size_t)bh * tk * D;
+  const float* kb = k + head_offset(ks, bh, heads);
+  const float* vb = v + head_offset(vs, bh, heads);
   if (qt0 < nq)
-    copy_q_side_f32_async<D, kBlock>(sQ, sG, sLse, sDelta, qb, gb, lse_b, delta_b, qt0 * kBlock,
-                                     tq);
+    copy_q_side_f32_async<D, kBlock>(sQ, sG, sLse, sDelta, qb, qs.t, gb, gs.t, lse_b, delta_b,
+                                     qt0 * kBlock, tq);
   if constexpr (Shape::kOwnedInSmem) {
-    copy_tile_f32_async<D, kBlock, Shape::kCtaThreads>(sK, kb, k0, tk);
-    copy_tile_f32_async<D, kBlock, Shape::kCtaThreads>(sV, vb, k0, tk);
+    copy_tile_f32_async<D, kBlock, Shape::kCtaThreads>(sK, kb, ks.t, k0, tk);
+    copy_tile_f32_async<D, kBlock, Shape::kCtaThreads>(sV, vb, vs.t, k0, tk);
   }
   cp_async_commit();
 
@@ -1287,8 +1305,8 @@ __global__ void __launch_bounds__(DkvF32Shape<D, kBlock>::kCtaThreads)
   if constexpr (!Shape::kOwnedInSmem) {
 #pragma unroll
     for (int kk = 0; kk < D / 8; ++kk) {
-      kf[kk] = split_a_global<D>(kb, k0 + warp * 16, tk, kk * 8, gq, t);
-      const Split<4> vf = split_a_global<D>(vb, k0 + warp * 16, tk, kk * 8, gq, t);
+      kf[kk] = split_a_global(kb, ks.t, k0 + warp * 16, tk, kk * 8, gq, t);
+      const Split<4> vf = split_a_global(vb, vs.t, k0 + warp * 16, tk, kk * 8, gq, t);
       uint4* dst = reinterpret_cast<uint4*>(vf_lane + kk * 256);
       dst[0] = make_uint4(vf.big[0], vf.big[1], vf.big[2], vf.big[3]);
       dst[1] = make_uint4(vf.small[0], vf.small[1], vf.small[2], vf.small[3]);
@@ -1301,7 +1319,7 @@ __global__ void __launch_bounds__(DkvF32Shape<D, kBlock>::kCtaThreads)
     if (qt + 1 < nq) {
       const int nb = buf ^ 1;
       copy_q_side_f32_async<D, kBlock>(sQ + nb * kE, sG + nb * kE, sLse + nb * kBlock,
-                                       sDelta + nb * kBlock, qb, gb, lse_b, delta_b,
+                                       sDelta + nb * kBlock, qb, qs.t, gb, gs.t, lse_b, delta_b,
                                        (qt + 1) * kBlock, tq);
       cp_async_commit();
       cp_async_wait<1>();
@@ -1394,8 +1412,10 @@ __global__ void __launch_bounds__(DkvF32Shape<D, kBlock>::kCtaThreads)
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (key[h] >= tk) continue;
-    float* dk_row = dk + ((size_t)bh * tk + key[h]) * D + col0 + 2 * t;
-    float* dv_row = dv + ((size_t)bh * tk + key[h]) * D + col0 + 2 * t;
+    float* dk_row = dk + head_offset(dks, bh, heads) + k0 * dks.t +
+                    (key[h] - k0) * (int)dks.t + col0 + 2 * t;  // as K1 f32's O
+    float* dv_row = dv + head_offset(dvs, bh, heads) + k0 * dvs.t +
+                    (key[h] - k0) * (int)dvs.t + col0 + 2 * t;
 #pragma unroll
     for (int n = 0; n < Shape::kCols / 8; ++n) {
       *reinterpret_cast<float2*>(dk_row + n * 8) =
@@ -1407,52 +1427,50 @@ __global__ void __launch_bounds__(DkvF32Shape<D, kBlock>::kCtaThreads)
 }
 
 template <int D, int kBlock>
-int launch_fwd(const void* q, const void* k, const void* v, const void* mask, void* out,
-               void* lse, int bh, int heads, int tq, int tk, float scale, int causal,
-               cudaStream_t stream) {
+int launch_fwd(View q, View k, View v, const void* mask, View out, void* lse, int bh, int heads,
+               int tq, int tk, float scale, int causal, cudaStream_t stream) {
   using Shape = FwdShape<D, kBlock>;
   static bool configured[kMaxDevices] = {};
   cudaError_t err = set_smem(flash_fwd_kernel<D, kBlock>, Shape::kSmemBytes, configured);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(bh, (tq + kBlock - 1) / kBlock);
   flash_fwd_kernel<D, kBlock><<<grid, Shape::kCtaThreads, Shape::kSmemBytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const uint8_t*>(mask), static_cast<bf16*>(out), static_cast<float*>(lse),
+      ptr<const bf16>(q), q.s, ptr<const bf16>(k), k.s, ptr<const bf16>(v), v.s,
+      static_cast<const uint8_t*>(mask), ptr<bf16>(out), out.s, static_cast<float*>(lse),
       heads, tq, tk, scale, causal);
   return (int)cudaGetLastError();
 }
 
 template <int D, int kBlock>
-int launch_dq(const void* q, const void* k, const void* v, const void* g, const void* lse,
-              const void* delta, const void* mask, void* dq, int bh, int heads, int tq, int tk,
-              float scale, int causal, cudaStream_t stream) {
+int launch_dq(View q, View k, View v, View g, const void* lse, const void* delta,
+              const void* mask, View dq, int bh, int heads, int tq, int tk, float scale,
+              int causal, cudaStream_t stream) {
   using Shape = DqShape<D, kBlock>;
   static bool configured[kMaxDevices] = {};
   cudaError_t err = set_smem(flash_dq_kernel<D, kBlock>, Shape::kSmemBytes, configured);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(bh, (tq + kBlock - 1) / kBlock);
   flash_dq_kernel<D, kBlock><<<grid, Shape::kCtaThreads, Shape::kSmemBytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(g), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const uint8_t*>(mask),
-      static_cast<bf16*>(dq), heads, tq, tk, scale, causal);
+      ptr<const bf16>(q), q.s, ptr<const bf16>(k), k.s, ptr<const bf16>(v), v.s,
+      ptr<const bf16>(g), g.s, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const uint8_t*>(mask), ptr<bf16>(dq), dq.s, heads, tq, tk, scale, causal);
   return (int)cudaGetLastError();
 }
 
 template <int D, int kBlock>
-int launch_dkv(const void* q, const void* k, const void* v, const void* g, const void* lse,
-               const void* delta, const void* mask, void* dk, void* dv, int bh, int heads,
-               int tq, int tk, float scale, int causal, cudaStream_t stream) {
+int launch_dkv(View q, View k, View v, View g, const void* lse, const void* delta,
+               const void* mask, View dk, View dv, int bh, int heads, int tq, int tk, float scale,
+               int causal, cudaStream_t stream) {
   using Shape = DkvShape<D, kBlock>;
   static bool configured[kMaxDevices] = {};
   cudaError_t err = set_smem(flash_dkv_kernel<D, kBlock>, Shape::kSmemBytes, configured);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(bh, (tk + kBlock - 1) / kBlock);
   flash_dkv_kernel<D, kBlock><<<grid, Shape::kCtaThreads, Shape::kSmemBytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(g), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const uint8_t*>(mask),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), heads, tq, tk, scale, causal);
+      ptr<const bf16>(q), q.s, ptr<const bf16>(k), k.s, ptr<const bf16>(v), v.s,
+      ptr<const bf16>(g), g.s, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const uint8_t*>(mask), ptr<bf16>(dk), dk.s, ptr<bf16>(dv), dv.s, heads, tq,
+      tk, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -1462,52 +1480,50 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* g, const
 // and K3 f32 add a CTA's split dO or V, 32 KB more at D = 64; D = 128
 // and 256 take more, design notes 5 and 7).
 template <int D, int kBlock>
-int launch_fwd_f32(const void* q, const void* k, const void* v, const void* mask, void* out,
-                   void* lse, int bh, int heads, int tq, int tk, float scale, int causal,
-                   cudaStream_t stream) {
+int launch_fwd_f32(View q, View k, View v, const void* mask, View out, void* lse, int bh,
+                   int heads, int tq, int tk, float scale, int causal, cudaStream_t stream) {
   using Shape = FwdF32Shape<D, kBlock>;
   static bool configured[kMaxDevices] = {};
   cudaError_t err = set_smem(flash_fwd_f32_kernel<D, kBlock>, Shape::kSmemBytes, configured);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(bh, (tq + kBlock - 1) / kBlock);
   flash_fwd_f32_kernel<D, kBlock><<<grid, Shape::kCtaThreads, Shape::kSmemBytes, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const uint8_t*>(mask), static_cast<float*>(out), static_cast<float*>(lse),
+      ptr<const float>(q), q.s, ptr<const float>(k), k.s, ptr<const float>(v), v.s,
+      static_cast<const uint8_t*>(mask), ptr<float>(out), out.s, static_cast<float*>(lse),
       heads, tq, tk, scale, causal);
   return (int)cudaGetLastError();
 }
 
 template <int D, int kBlock>
-int launch_dq_f32(const void* q, const void* k, const void* v, const void* g, const void* lse,
-                  const void* delta, const void* mask, void* dq, int bh, int heads, int tq,
-                  int tk, float scale, int causal, cudaStream_t stream) {
+int launch_dq_f32(View q, View k, View v, View g, const void* lse, const void* delta,
+                  const void* mask, View dq, int bh, int heads, int tq, int tk, float scale,
+                  int causal, cudaStream_t stream) {
   using Shape = DqF32Shape<D, kBlock>;
   static bool configured[kMaxDevices] = {};
   cudaError_t err = set_smem(flash_dq_f32_kernel<D, kBlock>, Shape::kSmemBytes, configured);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(bh, (tq + kBlock - 1) / kBlock);
   flash_dq_f32_kernel<D, kBlock><<<grid, Shape::kCtaThreads, Shape::kSmemBytes, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(g), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const uint8_t*>(mask),
-      static_cast<float*>(dq), heads, tq, tk, scale, causal);
+      ptr<const float>(q), q.s, ptr<const float>(k), k.s, ptr<const float>(v), v.s,
+      ptr<const float>(g), g.s, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const uint8_t*>(mask), ptr<float>(dq), dq.s, heads, tq, tk, scale, causal);
   return (int)cudaGetLastError();
 }
 
 template <int D, int kBlock>
-int launch_dkv_f32(const void* q, const void* k, const void* v, const void* g, const void* lse,
-                   const void* delta, const void* mask, void* dk, void* dv, int bh, int heads,
-                   int tq, int tk, float scale, int causal, cudaStream_t stream) {
+int launch_dkv_f32(View q, View k, View v, View g, const void* lse, const void* delta,
+                   const void* mask, View dk, View dv, int bh, int heads, int tq, int tk,
+                   float scale, int causal, cudaStream_t stream) {
   using Shape = DkvF32Shape<D, kBlock>;
   static bool configured[kMaxDevices] = {};
   cudaError_t err = set_smem(flash_dkv_f32_kernel<D, kBlock>, Shape::kSmemBytes, configured);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(bh, (tk + kBlock - 1) / kBlock);
   flash_dkv_f32_kernel<D, kBlock><<<grid, Shape::kCtaThreads, Shape::kSmemBytes, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(g), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const uint8_t*>(mask),
-      static_cast<float*>(dk), static_cast<float*>(dv), heads, tq, tk, scale, causal);
+      ptr<const float>(q), q.s, ptr<const float>(k), k.s, ptr<const float>(v), v.s,
+      ptr<const float>(g), g.s, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const uint8_t*>(mask), ptr<float>(dk), dk.s, ptr<float>(dv), dv.s, heads, tq,
+      tk, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -1582,19 +1598,22 @@ int occupancy_of_tf32(int kernel, int* out) {
 // current for this library's CUDA runtime (its own copy, linked
 // statically, so PyTorch's current device does not carry over), launches
 // on `stream`, and returns the cudaError_t of the launch (0 = launched);
-// an unsupported head dim or tile returns cudaErrorInvalidValue. `tile`
-// is the tile that the wrapper's launch_config chose for the instance: 32
-// or 64 for the bf16 instances, 16 or 64 for the f32 ones; in bf16 at D =
-// 64, 128 and 256 the long tile of K1 and K2 (128 query rows) and of K3
-// (128 keys, 64 at D = 256) launches the TMA-fed kernels of
-// flash_attention_tma.cu, and in f32 there the long tile of K1-K3 (64 query
-// rows, K3's 64 keys) those of flash_attention_tma_f32.cu. Nothing here
-// synchronises.
+// an unsupported head dim or tile, or a View that breaks the 16-byte rule
+// (aligned16), returns cudaErrorInvalidValue. q, k, v, g, out, dq, dk and
+// dv are (B, H, T, D) views (View: base and strides, B = bh / heads); lse
+// and delta are packed (bh, tq) f32. `tile` is the tile that the wrapper's
+// launch_config chose for the instance: 32 or 64 for the bf16 instances, 16
+// or 64 for the f32 ones; in bf16 at D = 64, 128 and 256 the long tile of
+// K1 and K2 (128 query rows) and of K3 (128 keys, 64 at D = 256) launches
+// the TMA-fed kernels of flash_attention_tma.cu, and in f32 there the long
+// tile of K1-K3 (64 query rows, K3's 64 keys) those of
+// flash_attention_tma_f32.cu. Nothing here synchronises.
 extern "C" {
 
-int swt_flash_fwd(const void* q, const void* k, const void* v, const void* mask, void* out,
-                  void* lse, int bh, int heads, int tq, int tk, int d, int tile, float scale,
-                  int causal, int device, void* stream) {
+int swt_flash_fwd(View q, View k, View v, const void* mask, View out, void* lse, int bh,
+                  int heads, int tq, int tk, int d, int tile, float scale, int causal, int device,
+                  void* stream) {
+  if (!fwd_views_ok(2, q, k, v, out, tq, tk)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1606,9 +1625,10 @@ int swt_flash_fwd(const void* q, const void* k, const void* v, const void* mask,
   });
 }
 
-int swt_flash_dq(const void* q, const void* k, const void* v, const void* g, const void* lse,
-                 const void* delta, const void* mask, void* dq, int bh, int heads, int tq, int tk,
-                 int d, int tile, float scale, int causal, int device, void* stream) {
+int swt_flash_dq(View q, View k, View v, View g, const void* lse, const void* delta,
+                 const void* mask, View dq, int bh, int heads, int tq, int tk, int d, int tile,
+                 float scale, int causal, int device, void* stream) {
+  if (!dq_views_ok(2, q, k, v, g, dq, tq, tk)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1621,10 +1641,10 @@ int swt_flash_dq(const void* q, const void* k, const void* v, const void* g, con
   });
 }
 
-int swt_flash_dkv(const void* q, const void* k, const void* v, const void* g, const void* lse,
-                  const void* delta, const void* mask, void* dk, void* dv, int bh, int heads,
-                  int tq, int tk, int d, int tile, float scale, int causal, int device,
-                  void* stream) {
+int swt_flash_dkv(View q, View k, View v, View g, const void* lse, const void* delta,
+                  const void* mask, View dk, View dv, int bh, int heads, int tq, int tk, int d,
+                  int tile, float scale, int causal, int device, void* stream) {
+  if (!dkv_views_ok(2, q, k, v, g, dk, dv, tq, tk)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1638,9 +1658,10 @@ int swt_flash_dkv(const void* q, const void* k, const void* v, const void* g, co
 }
 
 // The f32 instances of K1-K3, with the bf16 entries' arguments.
-int swt_flash_fwd_f32(const void* q, const void* k, const void* v, const void* mask, void* out,
-                      void* lse, int bh, int heads, int tq, int tk, int d, int tile,
-                      float scale, int causal, int device, void* stream) {
+int swt_flash_fwd_f32(View q, View k, View v, const void* mask, View out, void* lse, int bh,
+                      int heads, int tq, int tk, int d, int tile, float scale, int causal,
+                      int device, void* stream) {
+  if (!fwd_views_ok(4, q, k, v, out, tq, tk)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1653,10 +1674,10 @@ int swt_flash_fwd_f32(const void* q, const void* k, const void* v, const void* m
   });
 }
 
-int swt_flash_dq_f32(const void* q, const void* k, const void* v, const void* g,
-                     const void* lse, const void* delta, const void* mask, void* dq, int bh,
-                     int heads, int tq, int tk, int d, int tile, float scale, int causal,
-                     int device, void* stream) {
+int swt_flash_dq_f32(View q, View k, View v, View g, const void* lse, const void* delta,
+                     const void* mask, View dq, int bh, int heads, int tq, int tk, int d,
+                     int tile, float scale, int causal, int device, void* stream) {
+  if (!dq_views_ok(4, q, k, v, g, dq, tq, tk)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1669,10 +1690,10 @@ int swt_flash_dq_f32(const void* q, const void* k, const void* v, const void* g,
   });
 }
 
-int swt_flash_dkv_f32(const void* q, const void* k, const void* v, const void* g,
-                      const void* lse, const void* delta, const void* mask, void* dk, void* dv,
-                      int bh, int heads, int tq, int tk, int d, int tile, float scale,
-                      int causal, int device, void* stream) {
+int swt_flash_dkv_f32(View q, View k, View v, View g, const void* lse, const void* delta,
+                      const void* mask, View dk, View dv, int bh, int heads, int tq, int tk,
+                      int d, int tile, float scale, int causal, int device, void* stream) {
+  if (!dkv_views_ok(4, q, k, v, g, dk, dv, tq, tk)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

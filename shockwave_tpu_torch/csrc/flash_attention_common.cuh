@@ -18,6 +18,86 @@ constexpr float kNegInf = -1e30f;  // the reference's NEG_INF
 
 __device__ __forceinline__ float minus_infinity() { return __int_as_float(0xff800000); }
 
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// The tensors' layout. K1-K3 read q, k, v and dO and write out, dQ, dK and
+// dV in place as (B, H, T, D) views with packed columns: the model's (B, T,
+// H, D) tensors transposed (row stride H D), a fused QKV projection's
+// slices (row stride 3 H D), or packed (BH, T, D) tensors (b = H T D, h =
+// T D, t = D). lse and delta stay packed (BH, Tq) f32.
+// ---------------------------------------------------------------------------
+
+// Elements between batches, heads and rows; the column stride is 1.
+struct Strides {
+  long long b, h, t;
+};
+
+// What a C entry point takes for each of those tensors, by value: its first
+// element and its strides.
+struct View {
+  void* data;
+  Strides s;
+};
+
+namespace {
+
+// The offset of (batch, head) pair bh's row 0 (batch bh / heads, head bh
+// % heads).
+__host__ __device__ __forceinline__ long long head_offset(const Strides& s, int bh, int heads) {
+  return (long long)(bh / heads) * s.b + (long long)(bh % heads) * s.h;
+}
+
+// cp.async's and TMA's 16-byte rule: the base and every stride of v, in
+// bytes, a multiple of 16, no stride negative (`elem`: bytes an element).
+inline bool aligned16(const View& v, int elem) {
+  const long long s[3] = {v.s.b, v.s.h, v.s.t};
+  for (long long x : s)
+    if (x < 0 || (x * elem) % 16) return false;
+  return reinterpret_cast<uintptr_t>(v.data) % 16 == 0;
+}
+
+template <typename... Views>
+bool all_aligned16(int elem, const Views&... views) {
+  return (aligned16(views, elem) && ...);
+}
+
+// The kernels keep a (batch, head)'s row offsets in 32 bits (row ld): its
+// t rows of v span under 2^31 elements.
+inline bool rows_fit(const View& v, int t) { return (long long)t * v.s.t < (1ll << 31); }
+
+template <typename... Views>
+bool all_rows_fit(int t, const Views&... views) {
+  return (rows_fit(views, t) && ...);
+}
+
+// Whether the views of K1, K2 or K3 (`elem`: bytes an element) keep both
+// rules. An entry point returns cudaErrorInvalidValue for views that do
+// not (the wrapper hands the kernels packed copies of such views).
+inline bool fwd_views_ok(int elem, const View& q, const View& k, const View& v, const View& out,
+                         int tq, int tk) {
+  return all_aligned16(elem, q, k, v, out) && all_rows_fit(tq, q, out) &&
+         all_rows_fit(tk, k, v);
+}
+
+inline bool dq_views_ok(int elem, const View& q, const View& k, const View& v, const View& g,
+                        const View& dq, int tq, int tk) {
+  return all_aligned16(elem, q, k, v, g, dq) && all_rows_fit(tq, q, g, dq) &&
+         all_rows_fit(tk, k, v);
+}
+
+inline bool dkv_views_ok(int elem, const View& q, const View& k, const View& v, const View& g,
+                         const View& dk, const View& dv, int tq, int tk) {
+  return all_aligned16(elem, q, k, v, g, dk, dv) && all_rows_fit(tq, q, g) &&
+         all_rows_fit(tk, k, v, dk, dv);
+}
+
+// A tensor's pointer as the kernels take it.
+template <typename T>
+T* ptr(const View& v) {
+  return static_cast<T*>(v.data);
+}
+
 // Additive bias of one key, as the reference's _kbias gives it: 0
 // (attend), -1e30 (masked), and -inf past the sequence end.
 __device__ __forceinline__ float key_bias(const uint8_t* mask_row, int key, int tk) {
@@ -504,15 +584,14 @@ int wide_occupancy(int kernel, int d, int tile, int* out);
 // swt_flash_fwd's, swt_flash_dq's and swt_flash_dkv's arguments, and their
 // occupancy in the form above.
 bool tma_tile(int kernel, int d, int tile);
-int launch_fwd_tma(const void* q, const void* k, const void* v, const void* mask, void* out,
-                   void* lse, int bh, int heads, int tq, int tk, int d, float scale, int causal,
-                   cudaStream_t stream);
-int launch_dq_tma(const void* q, const void* k, const void* v, const void* g, const void* lse,
-                  const void* delta, const void* mask, void* dq, int bh, int heads, int tq,
-                  int tk, int d, float scale, int causal, cudaStream_t stream);
-int launch_dkv_tma(const void* q, const void* k, const void* v, const void* g, const void* lse,
-                   const void* delta, const void* mask, void* dk, void* dv, int bh, int heads,
-                   int tq, int tk, int d, float scale, int causal, cudaStream_t stream);
+int launch_fwd_tma(View q, View k, View v, const void* mask, View out, void* lse, int bh,
+                   int heads, int tq, int tk, int d, float scale, int causal, cudaStream_t stream);
+int launch_dq_tma(View q, View k, View v, View g, const void* lse, const void* delta,
+                  const void* mask, View dq, int bh, int heads, int tq, int tk, int d, float scale,
+                  int causal, cudaStream_t stream);
+int launch_dkv_tma(View q, View k, View v, View g, const void* lse, const void* delta,
+                   const void* mask, View dk, View dv, int bh, int heads, int tq, int tk, int d,
+                   float scale, int causal, cudaStream_t stream);
 int tma_occupancy(int kernel, int d, int* out);
 
 // The TMA-fed K1-K3 in f32 (defined in flash_attention_tma_f32.cu), which
@@ -520,15 +599,14 @@ int tma_occupancy(int kernel, int d, int* out);
 // kernels 0 (K1), 1 (K2) and 2 (K3) in f32 at head dims 64, 128 and 256,
 // in the same form.
 bool tma_f32_tile(int kernel, int d, int tile);
-int launch_fwd_tma_f32(const void* q, const void* k, const void* v, const void* mask, void* out,
-                       void* lse, int bh, int heads, int tq, int tk, int d, float scale,
-                       int causal, cudaStream_t stream);
-int launch_dq_tma_f32(const void* q, const void* k, const void* v, const void* g, const void* lse,
-                      const void* delta, const void* mask, void* dq, int bh, int heads, int tq,
-                      int tk, int d, float scale, int causal, cudaStream_t stream);
-int launch_dkv_tma_f32(const void* q, const void* k, const void* v, const void* g,
-                       const void* lse, const void* delta, const void* mask, void* dk, void* dv,
-                       int bh, int heads, int tq, int tk, int d, float scale, int causal,
+int launch_fwd_tma_f32(View q, View k, View v, const void* mask, View out, void* lse, int bh,
+                       int heads, int tq, int tk, int d, float scale, int causal,
                        cudaStream_t stream);
+int launch_dq_tma_f32(View q, View k, View v, View g, const void* lse, const void* delta,
+                      const void* mask, View dq, int bh, int heads, int tq, int tk, int d,
+                      float scale, int causal, cudaStream_t stream);
+int launch_dkv_tma_f32(View q, View k, View v, View g, const void* lse, const void* delta,
+                       const void* mask, View dk, View dv, int bh, int heads, int tq, int tk,
+                       int d, float scale, int causal, cudaStream_t stream);
 int tma_f32_occupancy(int kernel, int d, int* out);
 }  // namespace swt

@@ -17,10 +17,12 @@
 //   lse and delta) into shared memory; its other warps exit.
 // - warpgroups 1 and 2 are the consumers. setmaxnreg raises them to
 //   kConsumerRegs; they run only wgmma and the elementwise terms.
-// Operands arrive by TMA (cp.async.bulk.tensor.3d) through 3-D tensor maps
-// over (BH, T, D), boxes of 64 columns (128 bytes, the 128-byte swizzle's
-// row) by the tile's rows: rows past a ragged T land as zeros and never
-// reach into the next (batch, head)'s rows. A tile of R rows and D columns
+// Operands arrive by TMA (cp.async.bulk.tensor.4d) through 4-D tensor maps
+// over (D, T, H, B) with the views' strides (the model's (B, T, H, D)
+// tensors in place), boxes of 64 columns (128 bytes, the 128-byte
+// swizzle's row) by the tile's rows by one head of one batch: rows past a
+// ragged T land as zeros and never reach into another (batch, head)'s
+// rows. A tile of R rows and D columns
 // is D / 64 such boxes, each R rows of 128 bytes in wgmma's 128-byte
 // swizzle, 1 KB aligned. Each streamed stage has a "full" mbarrier (the
 // producer's arrive.expect_tx, completed by the copies' bytes and the
@@ -44,13 +46,13 @@ constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;  // 128 x 24 + 256 x 240 <= 384 x 168, what the launch gives
 constexpr int kBox = 64;            // columns of a TMA box: 128 bytes of bf16
 
-// Load the D / 64 boxes of rows [row0, row0 + rows) of (batch, head) bh
+// Load the D / 64 boxes of rows [row0, row0 + rows) of (batch, head) hb
 // into the tile at dst (box c at dst + c rows 64).
 template <int D>
 __device__ __forceinline__ void tma_load_tile(bf16* dst, const CUtensorMap& map, uint64_t* bar,
-                                              int rows, int row0, int bh) {
+                                              int rows, int row0, Head hb) {
 #pragma unroll
-  for (int c = 0; c < D / kBox; ++c) tma_load(dst + c * rows * kBox, map, bar, c * kBox, row0, bh);
+  for (int c = 0; c < D / kBox; ++c) tma_load(dst + c * rows * kBox, map, bar, c * kBox, row0, hb);
 }
 
 // ---------------------------------------------------------------------------
@@ -176,8 +178,8 @@ __device__ __forceinline__ void add_product_rs(float (&acc)[D / kBox][8][4],
 }
 
 // Write the group's 64 x D f32 sum acc (its rows r0..r0 + 63; each
-// lane's row h times mul[h]) as bf16 rows of out_b (row stride D), rows
-// past tq dropped. The group's own rows of the 128-row tile at `stage`
+// lane's row h times mul[h]) as bf16 rows of out_b (rows `ld` elements
+// apart), rows past tq dropped. The group's own rows of the 128-row tile at `stage`
 // (box c at stage + c 128 64; the group's Q rows) are free once all its
 // warps are past their last product that reads them: the rows go there in
 // the 128-byte swizzle (unit u of row r at u ^ (r % 8)), then out in
@@ -185,7 +187,7 @@ __device__ __forceinline__ void add_product_rs(float (&acc)[D / kBox][8][4],
 template <int D>
 __device__ __forceinline__ void store_rows(const float (&acc)[D / kBox][8][4],
                                            const float (&mul)[2], bf16* stage, bf16* out_b,
-                                           int r0, int tq, int grp, int tid) {
+                                           long long ld, int r0, int tq, int grp, int tid) {
   const int warp = tid >> 5, lane = tid & 31, t = lane & 3;
   named_sync(1 + grp, 128);
 #pragma unroll
@@ -202,6 +204,8 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / kBox][8][4],
     }
   }
   named_sync(1 + grp, 128);
+  bf16* rows = out_b + r0 * ld;
+  const int ld32 = (int)ld;  // rows_fit
 #pragma unroll
   for (int c = 0; c < D / kBox; ++c) {
     const bf16* box = stage + c * 128 * kBox;
@@ -209,7 +213,7 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / kBox][8][4],
     for (int i = 0; i < 4; ++i) {
       const int r = (tid >> 3) + 16 * i, u = tid & 7;
       if (r0 + r < tq)
-        *reinterpret_cast<uint4*>(out_b + (size_t)(r0 + r) * D + c * kBox + u * 8) =
+        *reinterpret_cast<uint4*>(rows + r * ld32 + c * kBox + u * 8) =
             *reinterpret_cast<const uint4*>(box + r * kBox + (u ^ (r & 7)) * 8);
     }
   }
@@ -227,7 +231,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
     flash_fwd_tma_kernel(const __grid_constant__ CUtensorMap q_map,
                          const __grid_constant__ CUtensorMap k_map,
                          const __grid_constant__ CUtensorMap v_map,
-                         const uint8_t* __restrict__ mask, bf16* __restrict__ out,
+                         const uint8_t* __restrict__ mask, bf16* __restrict__ out, Strides os,
                          float* __restrict__ lse, int heads, int tq, int tk, float scale,
                          int causal) {
   using Shape = TmaFwdShape<D>;
@@ -245,6 +249,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
   uint64_t* empty_v = empty_k + kS;
 
   const int bh = blockIdx.x;
+  const Head hb = head_of(bh, heads);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // causal: the longest k loops start first
   int nk = (tk + kN - 1) / kN;
   if (causal) nk = min(nk, (q0 + kRows - 1) / kN + 1);  // k-tiles past the diagonal see nothing
@@ -268,7 +273,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
     const uint8_t* mask_row = mask != nullptr ? mask + (size_t)(bh / heads) * tk : nullptr;
     if (lane == 0) {
       mbar_arrive_expect_tx(bar_q, Shape::kQBytes);
-      tma_load_tile<D>(sq, q_map, bar_q, kRows, q0, bh);
+      tma_load_tile<D>(sq, q_map, bar_q, kRows, q0, hb);
     }
     // K runs one tile ahead of V: a consumer group holds tile j's K and
     // tile j - 1's V at once, and K_{j+1} must not wait behind V_j's slot.
@@ -278,7 +283,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
       for (int i = lane; i < kN; i += 32) sbias[s * kN + i] = key_bias(mask_row, j * kN + i, tk);
       if (lane == 0) {
         mbar_arrive_expect_tx(&full_k[s], Shape::kTileBytes);
-        tma_load_tile<D>(sk + s * kN * D, k_map, &full_k[s], kN, j * kN, bh);
+        tma_load_tile<D>(sk + s * kN * D, k_map, &full_k[s], kN, j * kN, hb);
       } else {
         mbar_arrive(&full_k[s]);
       }
@@ -290,7 +295,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
       mbar_wait(&empty_v[s], phase_of<kS>(j) ^ 1);
       if (lane == 0) {
         mbar_arrive_expect_tx(&full_v[s], Shape::kTileBytes);
-        tma_load_tile<D>(sv + s * kN * D, v_map, &full_v[s], kN, j * kN, bh);
+        tma_load_tile<D>(sv + s * kN * D, v_map, &full_v[s], kN, j * kN, hb);
       }
     }
     return;
@@ -391,7 +396,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
     lc[h] = fmaxf(l[h], 1e-30f);
     inv[h] = 1.f / lc[h];
   }
-  store_rows<D>(o, inv, gq, out + (size_t)bh * tq * D, r0, tq, grp, tid);
+  store_rows<D>(o, inv, gq, out + head_offset(os, bh, heads), os.t, r0, tq, grp, tid);
   if (t == 0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h)
@@ -467,8 +472,8 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
                         const __grid_constant__ CUtensorMap v_map,
                         const __grid_constant__ CUtensorMap g_map,
                         const float* __restrict__ lse, const float* __restrict__ delta,
-                        const uint8_t* __restrict__ mask, bf16* __restrict__ dq, int heads,
-                        int tq, int tk, float scale, int causal) {
+                        const uint8_t* __restrict__ mask, bf16* __restrict__ dq, Strides dqs,
+                        int heads, int tq, int tk, float scale, int causal) {
   using Shape = TmaDqShape<D>;
   constexpr int kN = Shape::kN, kS = Shape::kStages, kRows = Shape::kRows;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -485,6 +490,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
   uint64_t* empty_v = empty_k + kS;
 
   const int bh = blockIdx.x;
+  const Head hb = head_of(bh, heads);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // causal: the longest k loops start first
   int nk = (tk + kN - 1) / kN;
   if (causal) nk = min(nk, (q0 + kRows - 1) / kN + 1);  // k-tiles past the diagonal see nothing
@@ -508,8 +514,8 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
     const uint8_t* mask_row = mask != nullptr ? mask + (size_t)(bh / heads) * tk : nullptr;
     if (lane == 0) {
       mbar_arrive_expect_tx(bar_q, 2 * Shape::kQBytes);
-      tma_load_tile<D>(sq, q_map, bar_q, kRows, q0, bh);
-      tma_load_tile<D>(sg, g_map, bar_q, kRows, q0, bh);
+      tma_load_tile<D>(sq, q_map, bar_q, kRows, q0, hb);
+      tma_load_tile<D>(sg, g_map, bar_q, kRows, q0, hb);
     }
     for (int j = 0; j < nk; ++j) {
       const int s = stage_of<kS>(j);
@@ -517,14 +523,14 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
       for (int i = lane; i < kN; i += 32) sbias[s * kN + i] = key_bias(mask_row, j * kN + i, tk);
       if (lane == 0) {
         mbar_arrive_expect_tx(&full_k[s], Shape::kTileBytes);
-        tma_load_tile<D>(sk + s * kN * D, k_map, &full_k[s], kN, j * kN, bh);
+        tma_load_tile<D>(sk + s * kN * D, k_map, &full_k[s], kN, j * kN, hb);
       } else {
         mbar_arrive(&full_k[s]);
       }
       mbar_wait(&empty_v[s], phase_of<kS>(j) ^ 1);
       if (lane == 0) {
         mbar_arrive_expect_tx(&full_v[s], Shape::kTileBytes);
-        tma_load_tile<D>(sv + s * kN * D, v_map, &full_v[s], kN, j * kN, bh);
+        tma_load_tile<D>(sv + s * kN * D, v_map, &full_v[s], kN, j * kN, hb);
       }
     }
     return;
@@ -617,7 +623,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
   hold_all(acc);
 
   const float one[2] = {1.f, 1.f};
-  store_rows<D>(acc, one, gq, dq + (size_t)bh * tq * D, r0, tq, grp, tid);
+  store_rows<D>(acc, one, gq, dq + head_offset(dqs, bh, heads), dqs.t, r0, tq, grp, tid);
 }
 
 // ---------------------------------------------------------------------------
@@ -711,9 +717,9 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
                          const __grid_constant__ CUtensorMap v_map,
                          const __grid_constant__ CUtensorMap g_map,
                          const float* __restrict__ lse, const float* __restrict__ delta,
-                         const uint8_t* __restrict__ mask, bf16* __restrict__ dk,
-                         bf16* __restrict__ dv, int heads, int tq, int tk, float scale,
-                         int causal) {
+                         const uint8_t* __restrict__ mask, bf16* __restrict__ dk, Strides dks,
+                         bf16* __restrict__ dv, Strides dvs, int heads, int tq, int tk,
+                         float scale, int causal) {
   using Shape = TmaDkvShape<D>;
   constexpr int kS = Shape::kStages, kKeys = Shape::kKeys, kQ = Shape::kQ;
   constexpr int kC = D / kBox;
@@ -731,6 +737,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
   uint64_t* empty = full + kS;
 
   const int bh = blockIdx.x;
+  const Head hb = head_of(bh, heads);
   const int k0 = blockIdx.y * kKeys;
   const int qt0 = causal ? k0 / kQ : 0;  // q-tiles above the diagonal see none of these keys
   const int tiles = max((tq + kQ - 1) / kQ - qt0, 0);
@@ -751,8 +758,8 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
     const int lane = threadIdx.x;
     if (lane == 0) {
       mbar_arrive_expect_tx(bar_kv, 2 * Shape::kKVBytes);
-      tma_load_tile<D>(sk, k_map, bar_kv, kKeys, k0, bh);
-      tma_load_tile<D>(sv, v_map, bar_kv, kKeys, k0, bh);
+      tma_load_tile<D>(sk, k_map, bar_kv, kKeys, k0, hb);
+      tma_load_tile<D>(sv, v_map, bar_kv, kKeys, k0, hb);
     }
     const float* lse_b = lse + (size_t)bh * tq;
     const float* delta_b = delta + (size_t)bh * tq;
@@ -766,8 +773,8 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
       }
       if (lane == 0) {
         mbar_arrive_expect_tx(&full[s], 2 * Shape::kQBytes);
-        tma_load_tile<D>(sq + s * kQ * D, q_map, &full[s], kQ, q0, bh);
-        tma_load_tile<D>(sg + s * kQ * D, g_map, &full[s], kQ, q0, bh);
+        tma_load_tile<D>(sq + s * kQ * D, q_map, &full[s], kQ, q0, hb);
+        tma_load_tile<D>(sg + s * kQ * D, g_map, &full[s], kQ, q0, hb);
       } else {
         mbar_arrive(&full[s]);
       }
@@ -914,11 +921,12 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
   }
 
   // Rows past Tk are not written.
+  bf16* dk_row = dk + head_offset(dks, bh, heads);
+  bf16* dv_row = dv + head_offset(dvs, bh, heads);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (key[h] >= tk) continue;
-    const size_t at = ((size_t)bh * tk + key[h]) * D;
-    bf16* first = Shape::kSplit ? (grp == 0 ? dv : dk) + at : dv + at;
+    bf16* first = Shape::kSplit && grp == 1 ? dk_row + key[h] * dks.t : dv_row + key[h] * dvs.t;
 #pragma unroll
     for (int c = 0; c < kC; ++c) {
 #pragma unroll
@@ -930,7 +938,8 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
       for (int c = 0; c < kC; ++c) {
 #pragma unroll
         for (int n = 0; n < 8; ++n)
-          store2(dk + at + c * kBox + 8 * n + 2 * t, acc2[c][n][2 * h], acc2[c][n][2 * h + 1]);
+          store2(dk_row + key[h] * dks.t + c * kBox + 8 * n + 2 * t, acc2[c][n][2 * h],
+                 acc2[c][n][2 * h + 1]);
       }
     }
   }
@@ -942,35 +951,34 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
 
 
 template <int D>
-int launch_fwd_tma_as(const void* q, const void* k, const void* v, const void* mask, void* out,
-                      void* lse, int bh, int heads, int tq, int tk, float scale, int causal,
-                      cudaStream_t stream) {
+int launch_fwd_tma_as(View q, View k, View v, const void* mask, View out, void* lse, int bh,
+                      int heads, int tq, int tk, float scale, int causal, cudaStream_t stream) {
   using Shape = TmaFwdShape<D>;
   CUtensorMap maps[3];
-  int err = tensor_map<bf16>(&maps[0], q, bh, tq, D, Shape::kRows);
-  if (err == 0) err = tensor_map<bf16>(&maps[1], k, bh, tk, D, Shape::kN);
-  if (err == 0) err = tensor_map<bf16>(&maps[2], v, bh, tk, D, Shape::kN);
+  int err = tensor_map<bf16>(&maps[0], q, bh, heads, tq, D, Shape::kRows);
+  if (err == 0) err = tensor_map<bf16>(&maps[1], k, bh, heads, tk, D, Shape::kN);
+  if (err == 0) err = tensor_map<bf16>(&maps[2], v, bh, heads, tk, D, Shape::kN);
   if (err != 0) return err;
   static bool configured[kMaxDevices] = {};
   const cudaError_t set = set_smem(flash_fwd_tma_kernel<D>, Shape::kSmemBytes, configured);
   if (set != cudaSuccess) return (int)set;
   const dim3 grid(bh, (tq + Shape::kRows - 1) / Shape::kRows);
   flash_fwd_tma_kernel<D><<<grid, kTmaThreads, Shape::kSmemBytes, stream>>>(
-      maps[0], maps[1], maps[2], static_cast<const uint8_t*>(mask), static_cast<bf16*>(out),
+      maps[0], maps[1], maps[2], static_cast<const uint8_t*>(mask), ptr<bf16>(out), out.s,
       static_cast<float*>(lse), heads, tq, tk, scale, causal);
   return (int)cudaGetLastError();
 }
 
 template <int D>
-int launch_dq_tma_as(const void* q, const void* k, const void* v, const void* g, const void* lse,
-                     const void* delta, const void* mask, void* dq, int bh, int heads, int tq,
-                     int tk, float scale, int causal, cudaStream_t stream) {
+int launch_dq_tma_as(View q, View k, View v, View g, const void* lse, const void* delta,
+                     const void* mask, View dq, int bh, int heads, int tq, int tk, float scale,
+                     int causal, cudaStream_t stream) {
   using Shape = TmaDqShape<D>;
   CUtensorMap maps[4];
-  int err = tensor_map<bf16>(&maps[0], q, bh, tq, D, Shape::kRows);
-  if (err == 0) err = tensor_map<bf16>(&maps[1], k, bh, tk, D, Shape::kN);
-  if (err == 0) err = tensor_map<bf16>(&maps[2], v, bh, tk, D, Shape::kN);
-  if (err == 0) err = tensor_map<bf16>(&maps[3], g, bh, tq, D, Shape::kRows);
+  int err = tensor_map<bf16>(&maps[0], q, bh, heads, tq, D, Shape::kRows);
+  if (err == 0) err = tensor_map<bf16>(&maps[1], k, bh, heads, tk, D, Shape::kN);
+  if (err == 0) err = tensor_map<bf16>(&maps[2], v, bh, heads, tk, D, Shape::kN);
+  if (err == 0) err = tensor_map<bf16>(&maps[3], g, bh, heads, tq, D, Shape::kRows);
   if (err != 0) return err;
   static bool configured[kMaxDevices] = {};
   const cudaError_t set = set_smem(flash_dq_tma_kernel<D>, Shape::kSmemBytes, configured);
@@ -978,21 +986,21 @@ int launch_dq_tma_as(const void* q, const void* k, const void* v, const void* g,
   const dim3 grid(bh, (tq + Shape::kRows - 1) / Shape::kRows);
   flash_dq_tma_kernel<D><<<grid, kTmaThreads, Shape::kSmemBytes, stream>>>(
       maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const uint8_t*>(mask), static_cast<bf16*>(dq),
+      static_cast<const float*>(delta), static_cast<const uint8_t*>(mask), ptr<bf16>(dq), dq.s,
       heads, tq, tk, scale, causal);
   return (int)cudaGetLastError();
 }
 
 template <int D>
-int launch_dkv_tma_as(const void* q, const void* k, const void* v, const void* g, const void* lse,
-                      const void* delta, const void* mask, void* dk, void* dv, int bh, int heads,
-                      int tq, int tk, float scale, int causal, cudaStream_t stream) {
+int launch_dkv_tma_as(View q, View k, View v, View g, const void* lse, const void* delta,
+                      const void* mask, View dk, View dv, int bh, int heads, int tq, int tk,
+                      float scale, int causal, cudaStream_t stream) {
   using Shape = TmaDkvShape<D>;
   CUtensorMap maps[4];
-  int err = tensor_map<bf16>(&maps[0], q, bh, tq, D, Shape::kQ);
-  if (err == 0) err = tensor_map<bf16>(&maps[1], k, bh, tk, D, Shape::kKeys);
-  if (err == 0) err = tensor_map<bf16>(&maps[2], v, bh, tk, D, Shape::kKeys);
-  if (err == 0) err = tensor_map<bf16>(&maps[3], g, bh, tq, D, Shape::kQ);
+  int err = tensor_map<bf16>(&maps[0], q, bh, heads, tq, D, Shape::kQ);
+  if (err == 0) err = tensor_map<bf16>(&maps[1], k, bh, heads, tk, D, Shape::kKeys);
+  if (err == 0) err = tensor_map<bf16>(&maps[2], v, bh, heads, tk, D, Shape::kKeys);
+  if (err == 0) err = tensor_map<bf16>(&maps[3], g, bh, heads, tq, D, Shape::kQ);
   if (err != 0) return err;
   static bool configured[kMaxDevices] = {};
   const cudaError_t set = set_smem(flash_dkv_tma_kernel<D>, Shape::kSmemBytes, configured);
@@ -1000,8 +1008,8 @@ int launch_dkv_tma_as(const void* q, const void* k, const void* v, const void* g
   const dim3 grid(bh, (tk + Shape::kKeys - 1) / Shape::kKeys);
   flash_dkv_tma_kernel<D><<<grid, kTmaThreads, Shape::kSmemBytes, stream>>>(
       maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const uint8_t*>(mask), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), heads, tq, tk, scale, causal);
+      static_cast<const float*>(delta), static_cast<const uint8_t*>(mask), ptr<bf16>(dk), dk.s,
+      ptr<bf16>(dv), dv.s, heads, tq, tk, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -1018,27 +1026,26 @@ bool tma_tile(int kernel, int d, int tile) {
   return false;
 }
 
-int launch_fwd_tma(const void* q, const void* k, const void* v, const void* mask, void* out,
-                   void* lse, int bh, int heads, int tq, int tk, int d, float scale, int causal,
-                   cudaStream_t stream) {
+int launch_fwd_tma(View q, View k, View v, const void* mask, View out, void* lse, int bh,
+                   int heads, int tq, int tk, int d, float scale, int causal, cudaStream_t stream) {
   return by_tma_head_dim(d, [&](auto dd) {
     return launch_fwd_tma_as<decltype(dd)::value>(q, k, v, mask, out, lse, bh, heads, tq, tk,
                                                   scale, causal, stream);
   });
 }
 
-int launch_dq_tma(const void* q, const void* k, const void* v, const void* g, const void* lse,
-                  const void* delta, const void* mask, void* dq, int bh, int heads, int tq,
-                  int tk, int d, float scale, int causal, cudaStream_t stream) {
+int launch_dq_tma(View q, View k, View v, View g, const void* lse, const void* delta,
+                  const void* mask, View dq, int bh, int heads, int tq, int tk, int d, float scale,
+                  int causal, cudaStream_t stream) {
   return by_tma_head_dim(d, [&](auto dd) {
     return launch_dq_tma_as<decltype(dd)::value>(q, k, v, g, lse, delta, mask, dq, bh, heads, tq,
                                                  tk, scale, causal, stream);
   });
 }
 
-int launch_dkv_tma(const void* q, const void* k, const void* v, const void* g, const void* lse,
-                   const void* delta, const void* mask, void* dk, void* dv, int bh, int heads,
-                   int tq, int tk, int d, float scale, int causal, cudaStream_t stream) {
+int launch_dkv_tma(View q, View k, View v, View g, const void* lse, const void* delta,
+                   const void* mask, View dk, View dv, int bh, int heads, int tq, int tk, int d,
+                   float scale, int causal, cudaStream_t stream) {
   return by_tma_head_dim(d, [&](auto dd) {
     return launch_dkv_tma_as<decltype(dd)::value>(q, k, v, g, lse, delta, mask, dk, dv, bh,
                                                   heads, tq, tk, scale, causal, stream);

@@ -58,14 +58,23 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
-// The box of `map` at (col, row, bh) into shared memory at dst, completing
-// its bytes on `bar`.
+// A (batch, head) pair's coordinates in a tensor map (tensor_map): head
+// h = bh % heads of batch b = bh / heads.
+struct Head {
+  int h, b;
+};
+
+__device__ __forceinline__ Head head_of(int bh, int heads) { return {bh % heads, bh / heads}; }
+
+// The box of `map` at (col, row) of (batch, head) pair `hb` into shared
+// memory at dst, completing its bytes on `bar`.
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap& map, uint64_t* bar,
-                                         int col, int row, int bh) {
+                                         int col, int row, Head hb) {
   asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(&map)), "r"(smem_addr(bar)), "r"(col), "r"(row), "r"(bh)
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(&map)), "r"(smem_addr(bar)), "r"(col), "r"(row), "r"(hb.h),
+      "r"(hb.b)
       : "memory");
 }
 
@@ -264,25 +273,29 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 3-D map over the (bh, t, d) tensor of T (bf16 or float) at `base`:
-// boxes of one 128-byte swizzle row of columns (64 bf16, 32 f32) x `rows`
-// rows x one (batch, head), 128-byte swizzle, zeros past every edge.
-// Encoded at every call (a few microseconds on the host) and passed by
-// value, so a CUDA graph keeps each launch's own.
+// A 4-D map over the (B, H, T, D) view `x` of T (bf16 or float), dims (d,
+// t, h, b) with x's strides in bytes (B = bh / heads): boxes of one
+// 128-byte swizzle row of columns (64 bf16, 32 f32) x `rows` rows x one
+// head x one batch, 128-byte swizzle, zeros past every edge, so a box never
+// reaches into another (batch, head)'s rows. Encoded at every call (a few
+// microseconds on the host) and passed by value, so a CUDA graph keeps each
+// launch's own.
 template <typename T>
-int tensor_map(CUtensorMap* map, const void* base, int bh, int t, int d, int rows) {
+int tensor_map(CUtensorMap* map, const View& x, int bh, int heads, int t, int d, int rows) {
   static_assert(sizeof(T) == 2 || sizeof(T) == 4, "bf16 or f32 tensors");
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   constexpr cuuint64_t kBytes = sizeof(T);
-  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)t, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * kBytes, (cuuint64_t)t * d * kBytes};
-  const cuuint32_t box[3] = {(cuuint32_t)(128 / kBytes), (cuuint32_t)rows, 1};
-  const cuuint32_t step[3] = {1, 1, 1};
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)t, (cuuint64_t)heads,
+                              (cuuint64_t)(bh / heads)};
+  const cuuint64_t strides[3] = {(cuuint64_t)x.s.t * kBytes, (cuuint64_t)x.s.h * kBytes,
+                                 (cuuint64_t)x.s.b * kBytes};
+  const cuuint32_t box[4] = {(cuuint32_t)(128 / kBytes), (cuuint32_t)rows, 1, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
   const CUresult r = encode(map,
                             sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                                            : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-                            3, const_cast<void*>(base),
+                            4, x.data,
                             dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

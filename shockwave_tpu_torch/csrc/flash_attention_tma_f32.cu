@@ -20,8 +20,9 @@
 // delta). Warpgroups 1
 // and 2 are the consumers (setmaxnreg raises them to kF32ConsumerRegs) and
 // run only wgmma and the elementwise terms. Operands arrive by TMA over
-// 3-D tensor maps of (BH, T, D) f32, boxes of 32 columns (128 bytes, the
-// 128-byte swizzle's row) by the tile's rows, zeros past a ragged end.
+// 4-D tensor maps of (B, H, T, D) f32 views (tensor_map: the model's
+// tensors in place), boxes of 32 columns (128 bytes, the 128-byte
+// swizzle's row) by the tile's rows, zeros past a ragged end.
 // A stage has three mbarriers: "land" (the copies' bytes), "full" (one
 // arrival per helper, after its small-plane and bias stores and their
 // fence into the async proxy) and "empty" (one arrival per warp of the
@@ -144,14 +145,14 @@ __device__ __forceinline__ int swz(int r, int x) {
   return r * kF32BoxCols + (((x >> 2) ^ r) & 7) * 4 + (x & 3);
 }
 
-// Load the D / 32 boxes of rows [row0, row0 + rows) of (batch, head) bh
+// Load the D / 32 boxes of rows [row0, row0 + rows) of (batch, head) hb
 // into the tile at dst (box c at dst + c rows 32).
 template <int D>
 __device__ __forceinline__ void tma_load_f32(float* dst, const CUtensorMap& map, uint64_t* bar,
-                                             int rows, int row0, int bh) {
+                                             int rows, int row0, Head hb) {
 #pragma unroll
   for (int c = 0; c < D / kF32BoxCols; ++c)
-    tma_load(dst + c * rows * kF32BoxCols, map, bar, c * kF32BoxCols, row0, bh);
+    tma_load(dst + c * rows * kF32BoxCols, map, bar, c * kF32BoxCols, row0, hb);
 }
 
 // The small TF32 plane of an f32 tile of n floats at x (split_tf32's small
@@ -335,7 +336,7 @@ template <int D, int kN, int kS, int kStageFloats, int kY, bool kYSmall,
 __device__ __forceinline__ void produce(Resident&& resident, Terms&& terms, float* ring,
                                         uint64_t* land, uint64_t* full, uint64_t* empty,
                                         const CUtensorMap& x_map, const CUtensorMap& y_map,
-                                        int first, int n, int bh) {
+                                        int first, int n, Head hb) {
   constexpr int kTile = kN * D;
   setmaxnreg_dec<kRegs>();
   if (threadIdx.x < 32) {
@@ -346,8 +347,8 @@ __device__ __forceinline__ void produce(Resident&& resident, Terms&& terms, floa
         float* xt = ring + s * kStageFloats;
         mbar_wait(&empty[s], phase_of<kS>(j) ^ 1);
         mbar_arrive_expect_tx(&land[s], 2 * kTile * 4);
-        tma_load_f32<D>(xt, x_map, &land[s], kN, (first + j) * kN, bh);
-        tma_load_f32<D>(xt + kY, y_map, &land[s], kN, (first + j) * kN, bh);
+        tma_load_f32<D>(xt, x_map, &land[s], kN, (first + j) * kN, hb);
+        tma_load_f32<D>(xt + kY, y_map, &land[s], kN, (first + j) * kN, hb);
       }
     }
     return;
@@ -511,8 +512,8 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
                              const __grid_constant__ CUtensorMap k_map,
                              const __grid_constant__ CUtensorMap v_map,
                              const uint8_t* __restrict__ mask, float* __restrict__ out,
-                             float* __restrict__ lse, int heads, int tq, int tk, float scale,
-                             int causal) {
+                             Strides os, float* __restrict__ lse, int heads, int tq, int tk,
+                             float scale, int causal) {
   using Shape = TmaFwdF32Shape<D>;
   constexpr int kN = Shape::kN, kS = Shape::kStages, kTile = kN * D;
   constexpr int kStageFloats = Shape::kStageBytes / 4;
@@ -531,6 +532,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
   uint64_t* empty = full + kS;
 
   const int bh = blockIdx.x;
+  const Head hb = head_of(bh, heads);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kF32Rows;  // causal: the longest k loops first
   int nk = (tk + kN - 1) / kN;
   if (causal) nk = min(nk, (q0 + kF32Rows - 1) / kN + 1);  // k-tiles past the diagonal see nothing
@@ -550,10 +552,10 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
     produce<D, kN, kS, kStageFloats, 2 * kTile, false>(
         [&] {
           mbar_arrive_expect_tx(bar_q, Shape::kQBytes);
-          tma_load_f32<D>(sq, q_map, bar_q, kF32Rows, q0, bh);
+          tma_load_f32<D>(sq, q_map, bar_q, kF32Rows, q0, hb);
         },
         key_bias_terms<kN>(sbias, mask, heads, tk, bh), ring, land, full, empty, k_map, v_map, 0,
-        nk, bh);
+        nk, hb);
     return;
   }
 
@@ -625,7 +627,8 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
   }
-  float* ob = out + ((size_t)bh * tq + q0) * D;
+  float* ob = out + head_offset(os, bh, heads) + q0 * os.t;
+  const int ld = (int)os.t;  // rows_fit: q ld fits 32 bits
   if constexpr (kSplitD) {
     // Both groups hold the same softmax state: each normalises and writes
     // its own columns of O (1 / l of each row through the group's factor
@@ -650,7 +653,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
         for (int mt = 0; mt < kDg / 64; ++mt) {
 #pragma unroll
           for (int h = 0; h < 2; ++h)
-            ob[(size_t)q * D + c0 + 64 * mt + 16 * w + g + 8 * h] = o[mt][n][2 * h + e1] * inv;
+            ob[q * ld + c0 + 64 * mt + 16 * w + g + 8 * h] = o[mt][n][2 * h + e1] * inv;
         }
       }
     }
@@ -696,7 +699,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int e = 2 * h + e1;
-          ob[(size_t)q * D + 64 * mt + 16 * w + g + 8 * h] =
+          ob[q * ld + 64 * mt + 16 * w + g + 8 * h] =
               o[mt][n][e] * a0 + ring[((mt * 8 + n) * 4 + e) * 128 + tid] * a1;
         }
       }
@@ -765,8 +768,8 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
                             const __grid_constant__ CUtensorMap v_map,
                             const __grid_constant__ CUtensorMap g_map,
                             const float* __restrict__ lse, const float* __restrict__ delta,
-                            const uint8_t* __restrict__ mask, float* __restrict__ dq, int heads,
-                            int tq, int tk, float scale, int causal) {
+                            const uint8_t* __restrict__ mask, float* __restrict__ dq,
+                            Strides dqs, int heads, int tq, int tk, float scale, int causal) {
   using Shape = TmaDqF32Shape<D>;
   constexpr int kN = Shape::kN, kS = Shape::kStages, kTile = kN * D;
   constexpr int kStageFloats = Shape::kStageBytes / 4;
@@ -787,6 +790,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
   uint64_t* empty = full + kS;
 
   const int bh = blockIdx.x;
+  const Head hb = head_of(bh, heads);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kF32Rows;  // causal: the longest k loops first
   int nk = (tk + kN - 1) / kN;
   if (causal) nk = min(nk, (q0 + kF32Rows - 1) / kN + 1);  // k-tiles past the diagonal see nothing
@@ -806,11 +810,11 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
     produce<D, kN, kS, kStageFloats, 2 * kTile, true>(
         [&] {
           mbar_arrive_expect_tx(bar_q, 2 * Shape::kQBytes);
-          tma_load_f32<D>(sq, q_map, bar_q, kF32Rows, q0, bh);
-          tma_load_f32<D>(sg, g_map, bar_q, kF32Rows, q0, bh);
+          tma_load_f32<D>(sq, q_map, bar_q, kF32Rows, q0, hb);
+          tma_load_f32<D>(sg, g_map, bar_q, kF32Rows, q0, hb);
         },
         key_bias_terms<kN>(sbias, mask, heads, tk, bh), ring, land, full, empty, k_map, v_map, 0,
-        nk, bh);
+        nk, hb);
     return;
   }
 
@@ -869,7 +873,8 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
     if (lane == 0) mbar_arrive(&empty[s]);
   };
   const int plain_end = plain_tiles<kN>(nk, tk, q0, causal, mask);
-  float* dqb = dq + ((size_t)bh * tq + q0) * D;
+  float* dqb = dq + head_offset(dqs, bh, heads) + q0 * dqs.t;
+  const int ld = (int)dqs.t;  // rows_fit: q ld fits 32 bits
   if constexpr (kSplitD) {  // each group writes its own columns of dQ
     run_tiles(0, plain_end, nk, step);
 #pragma unroll
@@ -880,7 +885,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
         if (q0 + q >= tq) continue;
 #pragma unroll
         for (int mt = 0; mt < kDg / 64; ++mt)
-          dqb[(size_t)q * D + c0 + 64 * mt + 16 * w + g + 8 * (e >> 1)] = acc[mt][n][e];
+          dqb[q * ld + c0 + 64 * mt + 16 * w + g + 8 * (e >> 1)] = acc[mt][n][e];
       }
     }
     return;
@@ -899,7 +904,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
       if (q0 + q >= tq) continue;
 #pragma unroll
       for (int mt = 0; mt < kDg / 64; ++mt)
-        dqb[(size_t)q * D + 64 * mt + 16 * w + g + 8 * (e >> 1)] =
+        dqb[q * ld + 64 * mt + 16 * w + g + 8 * (e >> 1)] =
             acc[mt][n][e] + ring[((mt * 8 + n) * 4 + e) * 128 + tid];
     }
     compiler_fence();  // one column pair's reads of the ring live at a time
@@ -1006,8 +1011,8 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
                              const __grid_constant__ CUtensorMap g_map,
                              const float* __restrict__ lse, const float* __restrict__ delta,
                              const uint8_t* __restrict__ mask, float* __restrict__ dk,
-                             float* __restrict__ dv, int heads, int tq, int tk, float scale,
-                             int causal) {
+                             Strides dks, float* __restrict__ dv, Strides dvs, int heads, int tq,
+                             int tk, float scale, int causal) {
   using Shape = TmaDkvF32Shape<D>;
   constexpr int kQ = Shape::kQ, kS = Shape::kStages, kTile = kQ * D;
   constexpr int kStageFloats = Shape::kStageBytes / 4, kPlaneFloats = Shape::kPlaneBytes / 4;
@@ -1026,6 +1031,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
   uint64_t* handed = empty + kS;
 
   const int bh = blockIdx.x;
+  const Head hb = head_of(bh, heads);
   const int k0 = blockIdx.y * Shape::kKeys;
   const int qt0 = causal ? k0 / kQ : 0;  // q-tiles above the diagonal see none of these keys
   const int tiles = max((tq + kQ - 1) / kQ - qt0, 0);
@@ -1048,8 +1054,8 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
     produce<D, kQ, kS, kStageFloats, 2 * kTile, true, Shape::kProducerRegs>(
         [&] {
           mbar_arrive_expect_tx(bar_kv, 2 * Shape::kKVBytes);
-          tma_load_f32<D>(sk, k_map, bar_kv, Shape::kKeys, k0, bh);
-          tma_load_f32<D>(sv, v_map, bar_kv, Shape::kKeys, k0, bh);
+          tma_load_f32<D>(sk, k_map, bar_kv, Shape::kKeys, k0, hb);
+          tma_load_f32<D>(sv, v_map, bar_kv, Shape::kKeys, k0, hb);
         },
         [&](int s, int j, int h) {
           for (int i = h; i < kQ; i += kHelpers) {
@@ -1058,7 +1064,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
             sdelta[s * kQ + i] = q < tq ? delta_b[q] : 0.f;
           }
         },
-        ring, land, full, empty, q_map, g_map, qt0, tiles, bh);
+        ring, land, full, empty, q_map, g_map, qt0, tiles, hb);
     return;
   }
 
@@ -1172,7 +1178,9 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
 
   // Column 64 mt + 16 w + g + 8 (e >> 1) of key 8 n + 2 t + (e & 1) is
   // acc[mt][n][e] (or its stash slot).
-  float* out = (grp == 0 ? dv : dk) + ((size_t)bh * tk + k0) * D;
+  const Strides& os = grp == 0 ? dvs : dks;
+  float* out = (grp == 0 ? dv : dk) + head_offset(os, bh, heads) + k0 * os.t;
+  const int ld = (int)os.t;  // rows_fit: kk ld fits 32 bits
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
 #pragma unroll
@@ -1181,7 +1189,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
       if (k0 + kk >= tk) continue;
 #pragma unroll
       for (int mt = 0; mt < D / 64; ++mt)
-        out[(size_t)kk * D + 64 * mt + 16 * w + g + 8 * (e >> 1)] =
+        out[kk * ld + 64 * mt + 16 * w + g + 8 * (e >> 1)] =
             mt < kRegTiles ? acc[mt < kRegTiles ? mt : 0][n][e]
                            : stash[(((mt - kRegTiles) * 8 + n) * 4 + e) * 128];
     }
@@ -1193,36 +1201,35 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
 // ---------------------------------------------------------------------------
 
 template <int D>
-int launch_fwd_tma_f32_as(const void* q, const void* k, const void* v, const void* mask,
-                          void* out, void* lse, int bh, int heads, int tq, int tk, float scale,
-                          int causal, cudaStream_t stream) {
+int launch_fwd_tma_f32_as(View q, View k, View v, const void* mask, View out, void* lse, int bh,
+                          int heads, int tq, int tk, float scale, int causal,
+                          cudaStream_t stream) {
   using Shape = TmaFwdF32Shape<D>;
   CUtensorMap maps[3];
-  int err = tensor_map<float>(&maps[0], q, bh, tq, D, kF32Rows);
-  if (err == 0) err = tensor_map<float>(&maps[1], k, bh, tk, D, Shape::kN);
-  if (err == 0) err = tensor_map<float>(&maps[2], v, bh, tk, D, Shape::kN);
+  int err = tensor_map<float>(&maps[0], q, bh, heads, tq, D, kF32Rows);
+  if (err == 0) err = tensor_map<float>(&maps[1], k, bh, heads, tk, D, Shape::kN);
+  if (err == 0) err = tensor_map<float>(&maps[2], v, bh, heads, tk, D, Shape::kN);
   if (err != 0) return err;
   static bool configured[kMaxDevices] = {};
   const cudaError_t set = set_smem(flash_fwd_tma_f32_kernel<D>, Shape::kSmemBytes, configured);
   if (set != cudaSuccess) return (int)set;
   const dim3 grid(bh, (tq + kF32Rows - 1) / kF32Rows);
   flash_fwd_tma_f32_kernel<D><<<grid, kTmaThreads, Shape::kSmemBytes, stream>>>(
-      maps[0], maps[1], maps[2], static_cast<const uint8_t*>(mask), static_cast<float*>(out),
+      maps[0], maps[1], maps[2], static_cast<const uint8_t*>(mask), ptr<float>(out), out.s,
       static_cast<float*>(lse), heads, tq, tk, scale, causal);
   return (int)cudaGetLastError();
 }
 
 template <int D>
-int launch_dq_tma_f32_as(const void* q, const void* k, const void* v, const void* g,
-                         const void* lse, const void* delta, const void* mask, void* dq, int bh,
-                         int heads, int tq, int tk, float scale, int causal,
-                         cudaStream_t stream) {
+int launch_dq_tma_f32_as(View q, View k, View v, View g, const void* lse, const void* delta,
+                         const void* mask, View dq, int bh, int heads, int tq, int tk,
+                         float scale, int causal, cudaStream_t stream) {
   using Shape = TmaDqF32Shape<D>;
   CUtensorMap maps[4];
-  int err = tensor_map<float>(&maps[0], q, bh, tq, D, kF32Rows);
-  if (err == 0) err = tensor_map<float>(&maps[1], k, bh, tk, D, Shape::kN);
-  if (err == 0) err = tensor_map<float>(&maps[2], v, bh, tk, D, Shape::kN);
-  if (err == 0) err = tensor_map<float>(&maps[3], g, bh, tq, D, kF32Rows);
+  int err = tensor_map<float>(&maps[0], q, bh, heads, tq, D, kF32Rows);
+  if (err == 0) err = tensor_map<float>(&maps[1], k, bh, heads, tk, D, Shape::kN);
+  if (err == 0) err = tensor_map<float>(&maps[2], v, bh, heads, tk, D, Shape::kN);
+  if (err == 0) err = tensor_map<float>(&maps[3], g, bh, heads, tq, D, kF32Rows);
   if (err != 0) return err;
   static bool configured[kMaxDevices] = {};
   const cudaError_t set = set_smem(flash_dq_tma_f32_kernel<D>, Shape::kSmemBytes, configured);
@@ -1230,22 +1237,21 @@ int launch_dq_tma_f32_as(const void* q, const void* k, const void* v, const void
   const dim3 grid(bh, (tq + kF32Rows - 1) / kF32Rows);
   flash_dq_tma_f32_kernel<D><<<grid, kTmaThreads, Shape::kSmemBytes, stream>>>(
       maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const uint8_t*>(mask),
-      static_cast<float*>(dq), heads, tq, tk, scale, causal);
+      static_cast<const float*>(delta), static_cast<const uint8_t*>(mask), ptr<float>(dq), dq.s,
+      heads, tq, tk, scale, causal);
   return (int)cudaGetLastError();
 }
 
 template <int D>
-int launch_dkv_tma_f32_as(const void* q, const void* k, const void* v, const void* g,
-                          const void* lse, const void* delta, const void* mask, void* dk,
-                          void* dv, int bh, int heads, int tq, int tk, float scale, int causal,
-                          cudaStream_t stream) {
+int launch_dkv_tma_f32_as(View q, View k, View v, View g, const void* lse, const void* delta,
+                          const void* mask, View dk, View dv, int bh, int heads, int tq, int tk,
+                          float scale, int causal, cudaStream_t stream) {
   using Shape = TmaDkvF32Shape<D>;
   CUtensorMap maps[4];
-  int err = tensor_map<float>(&maps[0], q, bh, tq, D, Shape::kQ);
-  if (err == 0) err = tensor_map<float>(&maps[1], k, bh, tk, D, Shape::kKeys);
-  if (err == 0) err = tensor_map<float>(&maps[2], v, bh, tk, D, Shape::kKeys);
-  if (err == 0) err = tensor_map<float>(&maps[3], g, bh, tq, D, Shape::kQ);
+  int err = tensor_map<float>(&maps[0], q, bh, heads, tq, D, Shape::kQ);
+  if (err == 0) err = tensor_map<float>(&maps[1], k, bh, heads, tk, D, Shape::kKeys);
+  if (err == 0) err = tensor_map<float>(&maps[2], v, bh, heads, tk, D, Shape::kKeys);
+  if (err == 0) err = tensor_map<float>(&maps[3], g, bh, heads, tq, D, Shape::kQ);
   if (err != 0) return err;
   static bool configured[kMaxDevices] = {};
   const cudaError_t set = set_smem(flash_dkv_tma_f32_kernel<D>, Shape::kSmemBytes, configured);
@@ -1253,8 +1259,8 @@ int launch_dkv_tma_f32_as(const void* q, const void* k, const void* v, const voi
   const dim3 grid(bh, (tk + Shape::kKeys - 1) / Shape::kKeys);
   flash_dkv_tma_f32_kernel<D><<<grid, kTmaThreads, Shape::kSmemBytes, stream>>>(
       maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const uint8_t*>(mask),
-      static_cast<float*>(dk), static_cast<float*>(dv), heads, tq, tk, scale, causal);
+      static_cast<const float*>(delta), static_cast<const uint8_t*>(mask), ptr<float>(dk), dk.s,
+      ptr<float>(dv), dv.s, heads, tq, tk, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -1268,28 +1274,27 @@ bool tma_f32_tile(int kernel, int d, int tile) {
   return kernel >= 0 && kernel <= 2 && (d == 64 || d == 128 || d == 256) && tile == kF32Rows;
 }
 
-int launch_fwd_tma_f32(const void* q, const void* k, const void* v, const void* mask, void* out,
-                       void* lse, int bh, int heads, int tq, int tk, int d, float scale,
-                       int causal, cudaStream_t stream) {
+int launch_fwd_tma_f32(View q, View k, View v, const void* mask, View out, void* lse, int bh,
+                       int heads, int tq, int tk, int d, float scale, int causal,
+                       cudaStream_t stream) {
   return by_tma_head_dim(d, [&](auto dd) {
     return launch_fwd_tma_f32_as<decltype(dd)::value>(q, k, v, mask, out, lse, bh, heads, tq, tk,
                                                       scale, causal, stream);
   });
 }
 
-int launch_dq_tma_f32(const void* q, const void* k, const void* v, const void* g, const void* lse,
-                      const void* delta, const void* mask, void* dq, int bh, int heads, int tq,
-                      int tk, int d, float scale, int causal, cudaStream_t stream) {
+int launch_dq_tma_f32(View q, View k, View v, View g, const void* lse, const void* delta,
+                      const void* mask, View dq, int bh, int heads, int tq, int tk, int d,
+                      float scale, int causal, cudaStream_t stream) {
   return by_tma_head_dim(d, [&](auto dd) {
     return launch_dq_tma_f32_as<decltype(dd)::value>(q, k, v, g, lse, delta, mask, dq, bh, heads,
                                                      tq, tk, scale, causal, stream);
   });
 }
 
-int launch_dkv_tma_f32(const void* q, const void* k, const void* v, const void* g,
-                       const void* lse, const void* delta, const void* mask, void* dk, void* dv,
-                       int bh, int heads, int tq, int tk, int d, float scale, int causal,
-                       cudaStream_t stream) {
+int launch_dkv_tma_f32(View q, View k, View v, View g, const void* lse, const void* delta,
+                       const void* mask, View dk, View dv, int bh, int heads, int tq, int tk,
+                       int d, float scale, int causal, cudaStream_t stream) {
   return by_tma_head_dim(d, [&](auto dd) {
     return launch_dkv_tma_f32_as<decltype(dd)::value>(q, k, v, g, lse, delta, mask, dk, dv, bh,
                                                       heads, tq, tk, scale, causal, stream);

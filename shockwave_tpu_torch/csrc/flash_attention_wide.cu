@@ -159,10 +159,11 @@ __host__ __device__ constexpr int chunk_index(int r, int c) {
 }
 
 // Start cp.async copies of rows [row0, row0 + 64) and the 128 bytes of
-// columns from `col` on of a (rows, d) matrix into a chunk, by a group's
-// 128 threads (tid); rows past `rows` are zero-filled.
+// columns from `col` on of a (rows, d) matrix whose rows are `ld` elements
+// apart (rows_fit) into a chunk, by a group's 128 threads
+// (tid); rows past `rows` are zero-filled.
 template <typename T>
-__device__ __forceinline__ void copy_chunk(T* dst, const T* src, int row0, int rows, int d,
+__device__ __forceinline__ void copy_chunk(T* dst, const T* src, int ld, int row0, int rows,
                                            int col, int tid) {
   constexpr int U = 16 / (int)sizeof(T);
 #pragma unroll
@@ -170,7 +171,7 @@ __device__ __forceinline__ void copy_chunk(T* dst, const T* src, int row0, int r
     const int r = (tid >> 3) + 16 * i, u = tid & 7;
     const bool valid = row0 + r < rows;
     cp_async16(dst + r * 8 * U + (u ^ (r & 7)) * U,
-               src + (size_t)(valid ? row0 + r : 0) * d + col + u * U, valid);
+               src + (valid ? row0 + r : 0) * ld + col + u * U, valid);
   }
 }
 
@@ -332,10 +333,11 @@ __device__ __forceinline__ void pv_chunk_tf32(float (&o)[4][4], const float (&p)
 
 template <typename T, bool kQResident>
 __global__ void __launch_bounds__(kFwdWideThreads, 1)
-    flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, const uint8_t* __restrict__ mask,
-                          T* __restrict__ out, float* __restrict__ lse, int heads, int tq, int tk,
-                          int d, float scale, int causal) {
+    flash_fwd_wide_kernel(const T* __restrict__ q, Strides qs, const T* __restrict__ k,
+                          Strides ks, const T* __restrict__ v, Strides vs,
+                          const uint8_t* __restrict__ mask, T* __restrict__ out, Strides os,
+                          float* __restrict__ lse, int heads, int tq, int tk, int d, float scale,
+                          int causal) {
   constexpr bool kBf16 = std::is_same<T, bf16>::value;
   constexpr int CC = 128 / (int)sizeof(T);  // columns of a chunk
   constexpr int kChunkElems = kChunkBytes / (int)sizeof(T);
@@ -367,9 +369,11 @@ __global__ void __launch_bounds__(kFwdWideThreads, 1)
   int nk = (tk + kFwdWideRows - 1) / kFwdWideRows;
   if (causal) nk = min(nk, qt + 1);  // k-tiles past the diagonal see nothing
   const int total = nk * per_tile;
-  const T* qb = q + (size_t)bh * tq * d;
-  const T* kb = k + (size_t)bh * tk * d;
-  const T* vb = v + (size_t)bh * tk * d;
+  const T* qb = q + head_offset(qs, bh, heads);
+  const T* kb = k + head_offset(ks, bh, heads);
+  const T* vb = v + head_offset(vs, bh, heads);
+  // Held across the loop as 32 bits each (rows_fit).
+  const int q_ld = (int)qs.t, k_ld = (int)ks.t, v_ld = (int)vs.t;
   const uint8_t* mask_row = mask != nullptr ? mask + (size_t)(bh / heads) * tk : nullptr;
   const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
 
@@ -382,17 +386,17 @@ __global__ void __launch_bounds__(kFwdWideThreads, 1)
     if (r < nkc * per_s) {
       const int col = (kc0 + r / per_s) * CC;
       if (per_s == 2 && r % 2 == 0)
-        copy_chunk(dst, qb, q0, tq, d, col, tid);
+        copy_chunk(dst, qb, q_ld, q0, tq, col, tid);
       else
-        copy_chunk(dst, kb, kt * kFwdWideRows, tk, d, col, tid);
+        copy_chunk(dst, kb, k_ld, kt * kFwdWideRows, tk, col, tid);
     } else {
-      copy_chunk(dst, vb, kt * kFwdWideRows, tk, d, col0 + (r - nkc * per_s) * CC, tid);
+      copy_chunk(dst, vb, v_ld, kt * kFwdWideRows, tk, col0 + (r - nkc * per_s) * CC, tid);
     }
     cp_async_commit();
   };
   if (kQResident) {
     for (int c = kc0; c < kc0 + nkc; ++c)
-      copy_chunk(sQ + c * kChunkElems, qb, q0, tq, d, c * CC, tid);
+      copy_chunk(sQ + c * kChunkElems, qb, q_ld, q0, tq, c * CC, tid);
     cp_async_commit();
   }
   int loaded = 0, next = 0;  // ring chunks issued, and taken
@@ -537,14 +541,14 @@ __global__ void __launch_bounds__(kFwdWideThreads, 1)
     if (blockIdx.z == 0 && grp == 0 && t == 0 && row[h] < tq)
       lse[(size_t)bh * tq + row[h]] = m[h] + logf(lc);
   }
-  T* ob = out + (size_t)bh * tq * d + col0;
+  T* ob = out + head_offset(os, bh, heads) + col0;
 #pragma unroll
   for (int n = 0; n < kMaxV * kTilesPerChunk; ++n) {
     if (n < nv * kTilesPerChunk) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         if (row[h] < tq)
-          store2(ob + (size_t)row[h] * d + 8 * n + 2 * t, o[n][2 * h] * inv[h],
+          store2(ob + row[h] * os.t + 8 * n + 2 * t, o[n][2 * h] * inv[h],
                  o[n][2 * h + 1] * inv[h]);
       }
     }
@@ -629,15 +633,30 @@ constexpr int kChunkFloats = kChunkBytes / 4;
 constexpr size_t kBwdWideSmem =
     kSmemAlign + 2 * kBwdWideStages * kChunkBytes + kExchangeBytes + 2 * 2 * kChunkBytes;
 
+// The (batch, head) pairs bh0 and bh0 + 1 of a (B, H, T, D) view x (B =
+// BH / heads): row r of pair p at x0 + p step + r ld. The offsets fit 32
+// bits (the wide entries check it: rows_fit, pairs_fit), so a tensor holds
+// four registers across the loops, as a base and a pair stride did.
+template <typename T>
+struct Pairs {
+  const T* x0;
+  int step, ld;
+  __device__ __forceinline__ Pairs(const T* x, const Strides& s, int bh0, int heads)
+      : x0(x + head_offset(s, bh0, heads)),
+        step((int)(head_offset(s, bh0 + 1, heads) - head_offset(s, bh0, heads))),
+        ld((int)s.t) {}
+  __device__ __forceinline__ const T* at(int pair, int row) const {
+    return x0 + (pair * step + row * ld);
+  }
+};
+
 // Start cp.async copies of a 64-row chunk (the 128 bytes of columns from
 // `col` on: 32 f32 or 64 bf16) of 64 / kRows (batch, head) pairs' (len, d)
-// matrices, the first at src and each next head_stride elements on: chunk
-// row r is row row0 + r % kRows of pair r / kRows. Pairs from `pairs` on
-// and rows past `len` are zero-filled.
+// matrices: chunk row r is row row0 + r % kRows of pair r / kRows. Pairs
+// from `pairs` on and rows past `len` are zero-filled.
 template <int kRows, typename T>
-__device__ __forceinline__ void copy_chunk_pairs(T* dst, const T* src, size_t head_stride,
-                                                 int pairs, int row0, int len, int d, int col,
-                                                 int tid) {
+__device__ __forceinline__ void copy_chunk_pairs(T* dst, const Pairs<T>& src, int pairs, int row0,
+                                                 int len, int col, int tid) {
   constexpr int U = 16 / (int)sizeof(T);
 #pragma unroll
   for (int i = 0; i < kFwdWideRows * 8 / 128; ++i) {
@@ -645,7 +664,7 @@ __device__ __forceinline__ void copy_chunk_pairs(T* dst, const T* src, size_t he
     const int pair = r / kRows, row = row0 + r % kRows;
     const bool valid = pair < pairs && row < len;
     cp_async16(dst + r * 8 * U + (u ^ (r & 7)) * U,
-               src + (valid ? pair * head_stride + (size_t)row * d : 0) + col + u * U, valid);
+               (valid ? src.at(pair, row) : src.x0) + col + u * U, valid);
   }
 }
 
@@ -866,12 +885,14 @@ struct TileRows {
 // diagonal on.
 template <int kRows>
 __global__ void __launch_bounds__(kFwdWideThreads, 1)
-    flash_dkv_wide_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                              const float* __restrict__ v, const float* __restrict__ g,
+    flash_dkv_wide_f32_kernel(const float* __restrict__ q, Strides qs,
+                              const float* __restrict__ k, Strides ks,
+                              const float* __restrict__ v, Strides vs,
+                              const float* __restrict__ g, Strides gs,
                               const float* __restrict__ lse, const float* __restrict__ delta,
                               const uint8_t* __restrict__ mask, float* __restrict__ dk,
-                              float* __restrict__ dv, int nbh, int heads, int tq, int tk, int d,
-                              float scale, int causal) {
+                              Strides dks, float* __restrict__ dv, Strides dvs, int nbh,
+                              int heads, int tq, int tk, int d, float scale, int causal) {
   constexpr int kPairs = kFwdWideRows / kRows;  // (batch, head) pairs a tile packs
   constexpr int kMaxV = kWideSlice / kBwdChunkCols;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -891,10 +912,9 @@ __global__ void __launch_bounds__(kFwdWideThreads, 1)
   const int tiles = max((tq + kRows - 1) / kRows - qt0, 0);
   // Group 0: S^T = K.Q^T, then dV += P^T.dO; group 1: dP^T = V.dO^T, then
   // dK += dS^T.Q.
-  const size_t q_stride = (size_t)tq * d, kv_stride = (size_t)tk * d;
-  const float* a_src = (grp == 0 ? k : v) + bh0 * kv_stride;
-  const float* b_src = (grp == 0 ? q : g) + bh0 * q_stride;
-  const float* x_src = (grp == 0 ? g : q) + bh0 * q_stride;
+  const Pairs<float> a_src(grp == 0 ? k : v, grp == 0 ? ks : vs, bh0, heads);
+  const Pairs<float> b_src(grp == 0 ? q : g, grp == 0 ? qs : gs, bh0, heads);
+  const Pairs<float> x_src(grp == 0 ? g : q, grp == 0 ? gs : qs, bh0, heads);
   const TileRows<kRows> keys(kt, tid);
   float bias[2];
 #pragma unroll
@@ -907,14 +927,12 @@ __global__ void __launch_bounds__(kFwdWideThreads, 1)
     const int q0 = (qt0 + e / per_tile) * kRows, r = e % per_tile;
     float* dst = ring.at(e);
     if (r >= 2 * nc)
-      copy_chunk_pairs<kRows>(dst, x_src, q_stride, pairs, q0, tq, d,
-                              slice0 + (r - 2 * nc) * kBwdChunkCols, tid);
-    else if (r % 2 == 0)
-      copy_chunk_pairs<kRows>(dst, a_src, kv_stride, pairs, kt * kRows, tk, d,
-                              r / 2 * kBwdChunkCols, tid);
-    else
-      copy_chunk_pairs<kRows>(dst, b_src, q_stride, pairs, q0, tq, d, r / 2 * kBwdChunkCols,
+      copy_chunk_pairs<kRows>(dst, x_src, pairs, q0, tq, slice0 + (r - 2 * nc) * kBwdChunkCols,
                               tid);
+    else if (r % 2 == 0)
+      copy_chunk_pairs<kRows>(dst, a_src, pairs, kt * kRows, tk, r / 2 * kBwdChunkCols, tid);
+    else
+      copy_chunk_pairs<kRows>(dst, b_src, pairs, q0, tq, r / 2 * kBwdChunkCols, tid);
     cp_async_commit();
   };
   ring.start(load);
@@ -930,10 +948,11 @@ __global__ void __launch_bounds__(kFwdWideThreads, 1)
   if (grp == 0 && tiles > 0) named_sync(4, 256);  // group 1's last arrival
 
   float* out = grp == 0 ? dv : dk;
+  const Strides& os = grp == 0 ? dvs : dks;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (keys.pair[h] >= pairs || keys.row[h] >= tk) continue;
-    float* row = out + ((size_t)(bh0 + keys.pair[h]) * tk + keys.row[h]) * d + slice0;
+    float* row = out + head_offset(os, bh0 + keys.pair[h], heads) + keys.row[h] * os.t + slice0;
 #pragma unroll
     for (int n = 0; n < kMaxV * 4; ++n)
       store2(row + 8 * n + 2 * t, acc[n][2 * h], acc[n][2 * h + 1]);
@@ -946,11 +965,14 @@ __global__ void __launch_bounds__(kFwdWideThreads, 1)
 // steps a tile are a constant (design note 3).
 template <int kRows, bool kWhole>
 __global__ void __launch_bounds__(kFwdWideThreads, 1)
-    flash_dq_wide_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                             const float* __restrict__ v, const float* __restrict__ g,
+    flash_dq_wide_f32_kernel(const float* __restrict__ q, Strides qs,
+                             const float* __restrict__ k, Strides ks,
+                             const float* __restrict__ v, Strides vs,
+                             const float* __restrict__ g, Strides gs,
                              const float* __restrict__ lse, const float* __restrict__ delta,
-                             const uint8_t* __restrict__ mask, float* __restrict__ dq, int nbh,
-                             int heads, int tq, int tk, int d, float scale, int causal) {
+                             const uint8_t* __restrict__ mask, float* __restrict__ dq,
+                             Strides dqs, int nbh, int heads, int tq, int tk, int d, float scale,
+                             int causal) {
   constexpr int kPairs = kFwdWideRows / kRows;
   constexpr int kMaxV = kFwdWideSlice / 2 / kBwdChunkCols;  // output chunks a group owns
   extern __shared__ __align__(128) unsigned char smem[];
@@ -973,10 +995,9 @@ __global__ void __launch_bounds__(kFwdWideThreads, 1)
   if (causal) nk = min(nk, qt + 1);  // k-tiles past the diagonal see nothing
   // Group 0: S = Q.K^T; group 1: dP = dO.V^T; both then dQ += dS.K over
   // their own columns.
-  const size_t q_stride = (size_t)tq * d, kv_stride = (size_t)tk * d;
-  const float* a_src = (grp == 0 ? q : g) + bh0 * q_stride;
-  const float* b_src = (grp == 0 ? k : v) + bh0 * kv_stride;
-  const float* x_src = k + bh0 * kv_stride;
+  const Pairs<float> a_src(grp == 0 ? q : g, grp == 0 ? qs : gs, bh0, heads);
+  const Pairs<float> b_src(grp == 0 ? k : v, grp == 0 ? ks : vs, bh0, heads);
+  const Pairs<float> x_src(k, ks, bh0, heads);
   // A row past tq or of a missing pair reads 0 (Q, dO, lse and delta), so
   // its dS is 0, and is never written.
   const TileRows<kRows> rows(qt, tid);
@@ -995,14 +1016,12 @@ __global__ void __launch_bounds__(kFwdWideThreads, 1)
     const int k0 = e / per_tile * kRows, r = e % per_tile;
     float* dst = ring.at(e);
     if (r >= 2 * nc)
-      copy_chunk_pairs<kRows>(dst, x_src, kv_stride, pairs, k0, tk, d,
-                              col0 + (r - 2 * nc) * kBwdChunkCols, tid);
-    else if (r % 2 == 0)
-      copy_chunk_pairs<kRows>(dst, a_src, q_stride, pairs, qt * kRows, tq, d,
-                              r / 2 * kBwdChunkCols, tid);
-    else
-      copy_chunk_pairs<kRows>(dst, b_src, kv_stride, pairs, k0, tk, d, r / 2 * kBwdChunkCols,
+      copy_chunk_pairs<kRows>(dst, x_src, pairs, k0, tk, col0 + (r - 2 * nc) * kBwdChunkCols,
                               tid);
+    else if (r % 2 == 0)
+      copy_chunk_pairs<kRows>(dst, a_src, pairs, qt * kRows, tq, r / 2 * kBwdChunkCols, tid);
+    else
+      copy_chunk_pairs<kRows>(dst, b_src, pairs, k0, tk, r / 2 * kBwdChunkCols, tid);
     cp_async_commit();
   };
   ring.start(load);
@@ -1019,7 +1038,7 @@ __global__ void __launch_bounds__(kFwdWideThreads, 1)
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (rows.pair[h] >= pairs || rows.row[h] >= tq) continue;
-    float* row = dq + ((size_t)(bh0 + rows.pair[h]) * tq + rows.row[h]) * d + col0;
+    float* row = dq + head_offset(dqs, bh0 + rows.pair[h], heads) + rows.row[h] * dqs.t + col0;
 #pragma unroll
     for (int n = 0; n < kMaxV * 4; ++n) {
       if (n < nv * 4) store2(row + 8 * n + 2 * t, acc[n][2 * h], acc[n][2 * h + 1]);
@@ -1174,12 +1193,12 @@ __device__ __forceinline__ void add_products_bf16(float (&acc)[kMaxV * 8][4],
 // x; a CTA walks the q-tiles from the causal diagonal on.
 template <int kRows, bool kResident>
 __global__ void __launch_bounds__(kFwdWideThreads, 1)
-    flash_dkv_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, const bf16* __restrict__ g,
-                          const float* __restrict__ lse, const float* __restrict__ delta,
-                          const uint8_t* __restrict__ mask, bf16* __restrict__ dk,
-                          bf16* __restrict__ dv, int nbh, int heads, int tq, int tk, int d,
-                          float scale, int causal) {
+    flash_dkv_wide_kernel(const bf16* __restrict__ q, Strides qs, const bf16* __restrict__ k,
+                          Strides ks, const bf16* __restrict__ v, Strides vs,
+                          const bf16* __restrict__ g, Strides gs, const float* __restrict__ lse,
+                          const float* __restrict__ delta, const uint8_t* __restrict__ mask,
+                          bf16* __restrict__ dk, Strides dks, bf16* __restrict__ dv, Strides dvs,
+                          int nbh, int heads, int tq, int tk, int d, float scale, int causal) {
   constexpr int kPairs = kFwdWideRows / kRows;
   constexpr int kMaxV = kWideSlice / kBwdBf16Cols;
   constexpr int kS = kBwdBf16Stages<kResident>, kPer = kResident ? 1 : 2;
@@ -1202,10 +1221,9 @@ __global__ void __launch_bounds__(kFwdWideThreads, 1)
   const int tiles = max((tq + kRows - 1) / kRows - qt0, 0);
   // Group 0: S^T = K.Q^T, then dV += P^T.dO; group 1: dP^T = V.dO^T, then
   // dK += dS^T.Q.
-  const size_t q_stride = (size_t)tq * d, kv_stride = (size_t)tk * d;
-  const bf16* a_src = (grp == 0 ? k : v) + bh0 * kv_stride;
-  const bf16* b_src = (grp == 0 ? q : g) + bh0 * q_stride;
-  const bf16* x_src = (grp == 0 ? g : q) + bh0 * q_stride;
+  const Pairs<bf16> a_src(grp == 0 ? k : v, grp == 0 ? ks : vs, bh0, heads);
+  const Pairs<bf16> b_src(grp == 0 ? q : g, grp == 0 ? qs : gs, bh0, heads);
+  const Pairs<bf16> x_src(grp == 0 ? g : q, grp == 0 ? gs : qs, bh0, heads);
   const TileRows<kRows> keys(kt, tid);
   float bias[2];
 #pragma unroll
@@ -1220,19 +1238,17 @@ __global__ void __launch_bounds__(kFwdWideThreads, 1)
     const int q0 = (qt0 + e / per_tile) * kRows, r = e % per_tile;
     bf16* dst = ring.at(e);
     if (r >= kPer * nc)
-      copy_chunk_pairs<kRows>(dst, x_src, q_stride, pairs, q0, tq, d,
+      copy_chunk_pairs<kRows>(dst, x_src, pairs, q0, tq,
                               slice0 + (r - kPer * nc) * kBwdBf16Cols, tid);
     else if (!kResident && r % 2 == 0)
-      copy_chunk_pairs<kRows>(dst, a_src, kv_stride, pairs, kt * kRows, tk, d,
-                              r / 2 * kBwdBf16Cols, tid);
+      copy_chunk_pairs<kRows>(dst, a_src, pairs, kt * kRows, tk, r / 2 * kBwdBf16Cols, tid);
     else
-      copy_chunk_pairs<kRows>(dst, b_src, q_stride, pairs, q0, tq, d,
-                              r / kPer * kBwdBf16Cols, tid);
+      copy_chunk_pairs<kRows>(dst, b_src, pairs, q0, tq, r / kPer * kBwdBf16Cols, tid);
     cp_async_commit();
   };
   if (kResident && tiles > 0) {  // landed by the first step's wait: it is older
     for (int c = 0; c < nc; ++c)
-      copy_chunk_pairs<kRows>(sA + c * kChunkElems, a_src, kv_stride, pairs, kt * kRows, tk, d,
+      copy_chunk_pairs<kRows>(sA + c * kChunkElems, a_src, pairs, kt * kRows, tk,
                               c * kBwdBf16Cols, tid);
     cp_async_commit();
   }
@@ -1249,10 +1265,11 @@ __global__ void __launch_bounds__(kFwdWideThreads, 1)
   if (grp == 0 && tiles > 0) named_sync(4, 256);  // group 1's last arrival
 
   bf16* out = grp == 0 ? dv : dk;
+  const Strides& os = grp == 0 ? dvs : dks;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (keys.pair[h] >= pairs || keys.row[h] >= tk) continue;
-    bf16* row = out + ((size_t)(bh0 + keys.pair[h]) * tk + keys.row[h]) * d + slice0;
+    bf16* row = out + head_offset(os, bh0 + keys.pair[h], heads) + keys.row[h] * os.t + slice0;
 #pragma unroll
     for (int n = 0; n < kMaxV * 8; ++n)
       store2(row + 8 * n + 2 * t, acc[n][2 * h], acc[n][2 * h + 1]);
@@ -1264,11 +1281,12 @@ __global__ void __launch_bounds__(kFwdWideThreads, 1)
 // side in x, heaviest causal tile first.
 template <int kRows, bool kResident>
 __global__ void __launch_bounds__(kFwdWideThreads, 1)
-    flash_dq_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, const bf16* __restrict__ g,
-                         const float* __restrict__ lse, const float* __restrict__ delta,
-                         const uint8_t* __restrict__ mask, bf16* __restrict__ dq, int nbh,
-                         int heads, int tq, int tk, int d, float scale, int causal) {
+    flash_dq_wide_kernel(const bf16* __restrict__ q, Strides qs, const bf16* __restrict__ k,
+                         Strides ks, const bf16* __restrict__ v, Strides vs,
+                         const bf16* __restrict__ g, Strides gs, const float* __restrict__ lse,
+                         const float* __restrict__ delta, const uint8_t* __restrict__ mask,
+                         bf16* __restrict__ dq, Strides dqs, int nbh, int heads, int tq, int tk,
+                         int d, float scale, int causal) {
   constexpr int kPairs = kFwdWideRows / kRows;
   constexpr int kMaxV = kFwdWideSlice / 2 / kBwdBf16Cols;  // output chunks a group owns
   constexpr int kS = kBwdBf16Stages<kResident>, kPer = kResident ? 1 : 2;
@@ -1295,10 +1313,9 @@ __global__ void __launch_bounds__(kFwdWideThreads, 1)
   if (causal) nk = min(nk, qt + 1);  // k-tiles past the diagonal see nothing
   // Group 0: S = Q.K^T; group 1: dP = dO.V^T; both then dQ += dS.K over
   // their own columns.
-  const size_t q_stride = (size_t)tq * d, kv_stride = (size_t)tk * d;
-  const bf16* a_src = (grp == 0 ? q : g) + bh0 * q_stride;
-  const bf16* b_src = (grp == 0 ? k : v) + bh0 * kv_stride;
-  const bf16* x_src = k + bh0 * kv_stride;
+  const Pairs<bf16> a_src(grp == 0 ? q : g, grp == 0 ? qs : gs, bh0, heads);
+  const Pairs<bf16> b_src(grp == 0 ? k : v, grp == 0 ? ks : vs, bh0, heads);
+  const Pairs<bf16> x_src(k, ks, bh0, heads);
   // A row past tq or of a missing pair reads 0 (Q, dO, lse and delta), so
   // its dS is 0, and is never written.
   const TileRows<kRows> rows(qt, tid);
@@ -1319,19 +1336,17 @@ __global__ void __launch_bounds__(kFwdWideThreads, 1)
     const int k0 = e / per_tile * kRows, r = e % per_tile;
     bf16* dst = ring.at(e);
     if (r >= kPer * nc)
-      copy_chunk_pairs<kRows>(dst, x_src, kv_stride, pairs, k0, tk, d,
-                              col0 + (r - kPer * nc) * kBwdBf16Cols, tid);
+      copy_chunk_pairs<kRows>(dst, x_src, pairs, k0, tk, col0 + (r - kPer * nc) * kBwdBf16Cols,
+                              tid);
     else if (!kResident && r % 2 == 0)
-      copy_chunk_pairs<kRows>(dst, a_src, q_stride, pairs, qt * kRows, tq, d,
-                              r / 2 * kBwdBf16Cols, tid);
+      copy_chunk_pairs<kRows>(dst, a_src, pairs, qt * kRows, tq, r / 2 * kBwdBf16Cols, tid);
     else
-      copy_chunk_pairs<kRows>(dst, b_src, kv_stride, pairs, k0, tk, d,
-                              r / kPer * kBwdBf16Cols, tid);
+      copy_chunk_pairs<kRows>(dst, b_src, pairs, k0, tk, r / kPer * kBwdBf16Cols, tid);
     cp_async_commit();
   };
   if (kResident) {  // landed by the first step's wait: it is older
     for (int c = 0; c < nc; ++c)
-      copy_chunk_pairs<kRows>(sA + c * kChunkElems, a_src, q_stride, pairs, qt * kRows, tq, d,
+      copy_chunk_pairs<kRows>(sA + c * kChunkElems, a_src, pairs, qt * kRows, tq,
                               c * kBwdBf16Cols, tid);
     cp_async_commit();
   }
@@ -1349,7 +1364,7 @@ __global__ void __launch_bounds__(kFwdWideThreads, 1)
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (rows.pair[h] >= pairs || rows.row[h] >= tq) continue;
-    bf16* row = dq + ((size_t)(bh0 + rows.pair[h]) * tq + rows.row[h]) * d + col0;
+    bf16* row = dq + head_offset(dqs, bh0 + rows.pair[h], heads) + rows.row[h] * dqs.t + col0;
 #pragma unroll
     for (int n = 0; n < kMaxV * 8; ++n) {
       if (n < nv * 8) store2(row + 8 * n + 2 * t, acc[n][2 * h], acc[n][2 * h + 1]);
@@ -1361,7 +1376,7 @@ __global__ void __launch_bounds__(kFwdWideThreads, 1)
 bool wide_head_dim(int d) { return d > 256 && d % kWideSlice == 0; }
 
 template <typename T, bool kQResident>
-int launch_fwd_wide_as(const void* q, const void* k, const void* v, const void* mask, void* out,
+int launch_fwd_wide_as(View q, View k, View v, const void* mask, View out,
                        void* lse, int bh, int heads, int tq, int tk, int d, float scale,
                        int causal, cudaStream_t stream) {
   // The opt-in covers every d: the launch asks for what this d takes.
@@ -1373,15 +1388,15 @@ int launch_fwd_wide_as(const void* q, const void* k, const void* v, const void* 
   const dim3 grid(bh, (tq + kFwdWideRows - 1) / kFwdWideRows,
                   (d + kFwdWideSlice - 1) / kFwdWideSlice);
   flash_fwd_wide_kernel<T, kQResident><<<grid, kFwdWideThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const uint8_t*>(mask), static_cast<T*>(out), static_cast<float*>(lse), heads,
+      ptr<const T>(q), q.s, ptr<const T>(k), k.s, ptr<const T>(v), v.s,
+      static_cast<const uint8_t*>(mask), ptr<T>(out), out.s, static_cast<float*>(lse), heads,
       tq, tk, d, scale, causal);
   return (int)cudaGetLastError();
 }
 
 // K1 wide with Q staying in shared memory where it fits, streamed where not.
 template <typename T>
-int launch_fwd_wide(const void* q, const void* k, const void* v, const void* mask, void* out,
+int launch_fwd_wide(View q, View k, View v, const void* mask, View out,
                     void* lse, int bh, int heads, int tq, int tk, int d, float scale, int causal,
                     cudaStream_t stream) {
   return fwd_wide_q_resident<T>(d)
@@ -1396,8 +1411,8 @@ int launch_fwd_wide(const void* q, const void* k, const void* v, const void* mas
 bool bwd_wide_tile(int tile) { return tile == kFwdWideRows || tile == kFwdWideRows / 2; }
 
 template <int kRows, bool kResident>
-int launch_dq_wide_as(const void* q, const void* k, const void* v, const void* g, const void* lse,
-                      const void* delta, const void* mask, void* dq, int bh, int heads, int tq,
+int launch_dq_wide_as(View q, View k, View v, View g, const void* lse,
+                      const void* delta, const void* mask, View dq, int bh, int heads, int tq,
                       int tk, int d, float scale, int causal, cudaStream_t stream) {
   static bool configured[kMaxDevices] = {};
   cudaError_t err = set_smem(flash_dq_wide_kernel<kRows, kResident>, kMaxSmemPerCta, configured);
@@ -1407,17 +1422,17 @@ int launch_dq_wide_as(const void* q, const void* k, const void* v, const void* g
                   (tq + kRows - 1) / kRows);
   const size_t smem = bwd_wide_bf16_smem<kResident>(d);
   flash_dq_wide_kernel<kRows, kResident><<<grid, kFwdWideThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(g), static_cast<const float*>(lse),
+      ptr<const bf16>(q), q.s, ptr<const bf16>(k), k.s, ptr<const bf16>(v), v.s,
+      ptr<const bf16>(g), g.s, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<const uint8_t*>(mask),
-      static_cast<bf16*>(dq), bh, heads, tq, tk, d, scale, causal);
+      ptr<bf16>(dq), dq.s, bh, heads, tq, tk, d, scale, causal);
   return (int)cudaGetLastError();
 }
 
 // K2 wide in bf16 at tile kRows, the A tiles resident where they stay.
 template <int kRows>
-int launch_dq_wide_of(const void* q, const void* k, const void* v, const void* g,
-                      const void* lse, const void* delta, const void* mask, void* dq, int bh,
+int launch_dq_wide_of(View q, View k, View v, View g, const void* lse, const void* delta,
+                      const void* mask, View dq, int bh,
                       int heads, int tq, int tk, int d, float scale, int causal,
                       cudaStream_t stream) {
   const auto launch = bwd_wide_bf16_resident<kRows>(d)
@@ -1427,8 +1442,8 @@ int launch_dq_wide_of(const void* q, const void* k, const void* v, const void* g
 }
 
 template <int kRows, bool kResident>
-int launch_dkv_wide_as(const void* q, const void* k, const void* v, const void* g,
-                       const void* lse, const void* delta, const void* mask, void* dk, void* dv,
+int launch_dkv_wide_as(View q, View k, View v, View g, const void* lse, const void* delta,
+                       const void* mask, View dk, View dv,
                        int bh, int heads, int tq, int tk, int d, float scale, int causal,
                        cudaStream_t stream) {
   static bool configured[kMaxDevices] = {};
@@ -1439,17 +1454,17 @@ int launch_dkv_wide_as(const void* q, const void* k, const void* v, const void* 
   const dim3 grid((bh + kPairs - 1) / kPairs * (d / kWideSlice), (tk + kRows - 1) / kRows);
   const size_t smem = bwd_wide_bf16_smem<kResident>(d);
   flash_dkv_wide_kernel<kRows, kResident><<<grid, kFwdWideThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(g), static_cast<const float*>(lse),
+      ptr<const bf16>(q), q.s, ptr<const bf16>(k), k.s, ptr<const bf16>(v), v.s,
+      ptr<const bf16>(g), g.s, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<const uint8_t*>(mask),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), bh, heads, tq, tk, d, scale, causal);
+      ptr<bf16>(dk), dk.s, ptr<bf16>(dv), dv.s, bh, heads, tq, tk, d, scale, causal);
   return (int)cudaGetLastError();
 }
 
 // K3 wide in bf16 at tile kRows, the A tiles resident where they stay.
 template <int kRows>
-int launch_dkv_wide_of(const void* q, const void* k, const void* v, const void* g,
-                       const void* lse, const void* delta, const void* mask, void* dk, void* dv,
+int launch_dkv_wide_of(View q, View k, View v, View g, const void* lse, const void* delta,
+                       const void* mask, View dk, View dv,
                        int bh, int heads, int tq, int tk, int d, float scale, int causal,
                        cudaStream_t stream) {
   const auto launch = bwd_wide_bf16_resident<kRows>(d)
@@ -1460,8 +1475,8 @@ int launch_dkv_wide_of(const void* q, const void* k, const void* v, const void* 
 }
 
 template <int kRows, bool kWhole>
-int launch_dq_wide_f32_as(const void* q, const void* k, const void* v, const void* g,
-                          const void* lse, const void* delta, const void* mask, void* dq, int bh,
+int launch_dq_wide_f32_as(View q, View k, View v, View g, const void* lse, const void* delta,
+                          const void* mask, View dq, int bh,
                           int heads, int tq, int tk, int d, float scale, int causal,
                           cudaStream_t stream) {
   static bool configured[kMaxDevices] = {};
@@ -1471,18 +1486,18 @@ int launch_dq_wide_f32_as(const void* q, const void* k, const void* v, const voi
   const dim3 grid((bh + kPairs - 1) / kPairs, (tq + kRows - 1) / kRows,
                   (d + kFwdWideSlice - 1) / kFwdWideSlice);
   flash_dq_wide_f32_kernel<kRows, kWhole><<<grid, kFwdWideThreads, kBwdWideSmem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(g), static_cast<const float*>(lse),
+      ptr<const float>(q), q.s, ptr<const float>(k), k.s, ptr<const float>(v), v.s,
+      ptr<const float>(g), g.s, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<const uint8_t*>(mask),
-      static_cast<float*>(dq), bh, heads, tq, tk, d, scale, causal);
+      ptr<float>(dq), dq.s, bh, heads, tq, tk, d, scale, causal);
   return (int)cudaGetLastError();
 }
 
 // K2 wide in f32 at tile kRows: every CTA of 512 columns where D is a
 // multiple of 512.
 template <int kRows>
-int launch_dq_wide_f32_of(const void* q, const void* k, const void* v, const void* g,
-                          const void* lse, const void* delta, const void* mask, void* dq, int bh,
+int launch_dq_wide_f32_of(View q, View k, View v, View g, const void* lse, const void* delta,
+                          const void* mask, View dq, int bh,
                           int heads, int tq, int tk, int d, float scale, int causal,
                           cudaStream_t stream) {
   const auto launch = d % kFwdWideSlice == 0 ? launch_dq_wide_f32_as<kRows, true>
@@ -1491,9 +1506,9 @@ int launch_dq_wide_f32_of(const void* q, const void* k, const void* v, const voi
 }
 
 template <int kRows>
-int launch_dkv_wide_f32_as(const void* q, const void* k, const void* v, const void* g,
-                           const void* lse, const void* delta, const void* mask, void* dk,
-                           void* dv, int bh, int heads, int tq, int tk, int d, float scale,
+int launch_dkv_wide_f32_as(View q, View k, View v, View g, const void* lse, const void* delta,
+                           const void* mask, View dk, View dv, int bh, int heads, int tq, int tk,
+                           int d, float scale,
                            int causal, cudaStream_t stream) {
   static bool configured[kMaxDevices] = {};
   cudaError_t err = set_smem(flash_dkv_wide_f32_kernel<kRows>, kBwdWideSmem, configured);
@@ -1501,10 +1516,10 @@ int launch_dkv_wide_f32_as(const void* q, const void* k, const void* v, const vo
   constexpr int kPairs = kFwdWideRows / kRows;
   const dim3 grid((bh + kPairs - 1) / kPairs, (tk + kRows - 1) / kRows, d / kWideSlice);
   flash_dkv_wide_f32_kernel<kRows><<<grid, kFwdWideThreads, kBwdWideSmem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(g), static_cast<const float*>(lse),
+      ptr<const float>(q), q.s, ptr<const float>(k), k.s, ptr<const float>(v), v.s,
+      ptr<const float>(g), g.s, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<const uint8_t*>(mask),
-      static_cast<float*>(dk), static_cast<float*>(dv), bh, heads, tq, tk, d, scale, causal);
+      ptr<float>(dk), dk.s, ptr<float>(dv), dv.s, bh, heads, tq, tk, d, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -1575,81 +1590,98 @@ int wide_occupancy(int kernel, int d, int tile, int* out) {
 }  // namespace swt
 
 
+namespace {
+
+// Whether the step between two (batch, head) pairs of each view fits 32
+// bits (Pairs; the rows do by rows_fit).
+template <typename... Views>
+bool pairs_fit(const Views&... views) {
+  return ((views.s.b < (1ll << 31) && views.s.h < (1ll << 31)) && ...);
+}
+
+}  // namespace
+
 extern "C" {
 
 // The wide instances of K1-K3 (any multiple of 256 above 256 as d; tile
 // 64 for K1, 64 or 32 (two pairs a CTA) for K2 and K3), with the narrow
 // entries' arguments (flash_attention.cu).
-int swt_flash_fwd_wide(const void* q, const void* k, const void* v, const void* mask, void* out,
-                       void* lse, int bh, int heads, int tq, int tk, int d, int tile, float scale,
-                       int causal, int device, void* stream) {
+int swt_flash_fwd_wide(View q, View k, View v, const void* mask, View out, void* lse, int bh,
+                       int heads, int tq, int tk, int d, int tile, float scale, int causal,
+                       int device, void* stream) {
+  if (!fwd_views_ok(2, q, k, v, out, tq, tk)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (!wide_head_dim(d) || tile != kFwdWideRows) return (int)cudaErrorInvalidValue;
-  return launch_fwd_wide<bf16>(q, k, v, mask, out, lse, bh, heads, tq, tk, d, scale, causal,
-                               static_cast<cudaStream_t>(stream));
+  return launch_fwd_wide<bf16>(q, k, v, mask, out, lse, bh, heads, tq, tk, d,
+                               scale, causal, static_cast<cudaStream_t>(stream));
 }
 
-int swt_flash_dq_wide(const void* q, const void* k, const void* v, const void* g, const void* lse,
-                      const void* delta, const void* mask, void* dq, int bh, int heads, int tq,
-                      int tk, int d, int tile, float scale, int causal, int device,
-                      void* stream) {
+int swt_flash_dq_wide(View q, View k, View v, View g, const void* lse, const void* delta,
+                      const void* mask, View dq, int bh, int heads, int tq, int tk, int d,
+                      int tile, float scale, int causal, int device, void* stream) {
+  if (!dq_views_ok(2, q, k, v, g, dq, tq, tk) || !pairs_fit(q, k, v, g, dq))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (!wide_head_dim(d) || !bwd_wide_tile(tile)) return (int)cudaErrorInvalidValue;
   const auto launch = tile == kFwdWideRows ? launch_dq_wide_of<kFwdWideRows>
                                            : launch_dq_wide_of<kFwdWideRows / 2>;
-  return launch(q, k, v, g, lse, delta, mask, dq, bh, heads, tq, tk, d, scale, causal,
-                static_cast<cudaStream_t>(stream));
+  return launch(q, k, v, g, lse, delta, mask, dq, bh, heads, tq, tk, d,
+                scale, causal, static_cast<cudaStream_t>(stream));
 }
 
-int swt_flash_dkv_wide(const void* q, const void* k, const void* v, const void* g,
-                       const void* lse, const void* delta, const void* mask, void* dk, void* dv,
-                       int bh, int heads, int tq, int tk, int d, int tile, float scale,
-                       int causal, int device, void* stream) {
+int swt_flash_dkv_wide(View q, View k, View v, View g, const void* lse, const void* delta,
+                       const void* mask, View dk, View dv, int bh, int heads, int tq, int tk,
+                       int d, int tile, float scale, int causal, int device, void* stream) {
+  if (!dkv_views_ok(2, q, k, v, g, dk, dv, tq, tk) || !pairs_fit(q, k, v, g, dk, dv))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (!wide_head_dim(d) || !bwd_wide_tile(tile)) return (int)cudaErrorInvalidValue;
   const auto launch = tile == kFwdWideRows ? launch_dkv_wide_of<kFwdWideRows>
                                            : launch_dkv_wide_of<kFwdWideRows / 2>;
-  return launch(q, k, v, g, lse, delta, mask, dk, dv, bh, heads, tq, tk, d, scale, causal,
-                static_cast<cudaStream_t>(stream));
+  return launch(q, k, v, g, lse, delta, mask, dk, dv, bh, heads, tq,
+                tk, d, scale, causal, static_cast<cudaStream_t>(stream));
 }
 
-int swt_flash_fwd_wide_f32(const void* q, const void* k, const void* v, const void* mask,
-                           void* out, void* lse, int bh, int heads, int tq, int tk, int d,
-                           int tile, float scale, int causal, int device, void* stream) {
+int swt_flash_fwd_wide_f32(View q, View k, View v, const void* mask, View out, void* lse, int bh,
+                           int heads, int tq, int tk, int d, int tile, float scale, int causal,
+                           int device, void* stream) {
+  if (!fwd_views_ok(4, q, k, v, out, tq, tk)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (!wide_head_dim(d) || tile != kFwdWideRows) return (int)cudaErrorInvalidValue;
-  return launch_fwd_wide<float>(q, k, v, mask, out, lse, bh, heads, tq, tk, d, scale, causal,
-                                static_cast<cudaStream_t>(stream));
+  return launch_fwd_wide<float>(q, k, v, mask, out, lse, bh, heads, tq, tk,
+                                d, scale, causal, static_cast<cudaStream_t>(stream));
 }
 
-int swt_flash_dq_wide_f32(const void* q, const void* k, const void* v, const void* g,
-                          const void* lse, const void* delta, const void* mask, void* dq, int bh,
-                          int heads, int tq, int tk, int d, int tile, float scale, int causal,
-                          int device, void* stream) {
+int swt_flash_dq_wide_f32(View q, View k, View v, View g, const void* lse, const void* delta,
+                          const void* mask, View dq, int bh, int heads, int tq, int tk, int d,
+                          int tile, float scale, int causal, int device, void* stream) {
+  if (!dq_views_ok(4, q, k, v, g, dq, tq, tk) || !pairs_fit(q, k, v, g, dq))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (!wide_head_dim(d) || !bwd_wide_tile(tile)) return (int)cudaErrorInvalidValue;
   const auto launch = tile == kFwdWideRows ? launch_dq_wide_f32_of<kFwdWideRows>
                                            : launch_dq_wide_f32_of<kFwdWideRows / 2>;
-  return launch(q, k, v, g, lse, delta, mask, dq, bh, heads, tq, tk, d, scale, causal,
-                static_cast<cudaStream_t>(stream));
+  return launch(q, k, v, g, lse, delta, mask, dq, bh, heads, tq, tk, d,
+                scale, causal, static_cast<cudaStream_t>(stream));
 }
 
-int swt_flash_dkv_wide_f32(const void* q, const void* k, const void* v, const void* g,
-                           const void* lse, const void* delta, const void* mask, void* dk,
-                           void* dv, int bh, int heads, int tq, int tk, int d, int tile,
-                           float scale, int causal, int device, void* stream) {
+int swt_flash_dkv_wide_f32(View q, View k, View v, View g, const void* lse, const void* delta,
+                           const void* mask, View dk, View dv, int bh, int heads, int tq, int tk,
+                           int d, int tile, float scale, int causal, int device, void* stream) {
+  if (!dkv_views_ok(4, q, k, v, g, dk, dv, tq, tk) || !pairs_fit(q, k, v, g, dk, dv))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (!wide_head_dim(d) || !bwd_wide_tile(tile)) return (int)cudaErrorInvalidValue;
   const auto launch = tile == kFwdWideRows ? launch_dkv_wide_f32_as<kFwdWideRows>
                                            : launch_dkv_wide_f32_as<kFwdWideRows / 2>;
-  return launch(q, k, v, g, lse, delta, mask, dk, dv, bh, heads, tq, tk, d, scale, causal,
-                static_cast<cudaStream_t>(stream));
+  return launch(q, k, v, g, lse, delta, mask, dk, dv, bh, heads, tq,
+                tk, d, scale, causal, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,8 +1,8 @@
 """Builds the port's CUDA kernels at first use and loads them with ctypes.
 
 One `nvcc` per source under `shockwave_tpu_torch/csrc/` (the narrow
-kernels, the wide ones, the TMA-fed K1-K3 in bf16 and in f32), all
-started together,
+kernels, the wide ones, the TMA-fed K1-K3 in bf16 and in f32, the
+backward's delta), all started together,
 compiles an object
 file, and a last `nvcc` links them into one shared library with a plain
 C interface (no PyTorch headers, so a build takes seconds, not minutes).
@@ -25,27 +25,38 @@ from typing import Optional
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC_DIR, "build")
 SOURCES = ("flash_attention.cu", "flash_attention_wide.cu", "flash_attention_tma.cu",
-           "flash_attention_tma_f32.cu")
+           "flash_attention_tma_f32.cu", "flash_attention_delta.cu")
 HEADERS = ("flash_attention_common.cuh", "flash_attention_tma.cuh")
 LIB_NAME = "libswt_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+class Strides(ctypes.Structure):
+    """csrc's `Strides`: elements between batches, heads and rows of a (B,
+    H, T, D) view whose columns are packed."""
+    _fields_ = [("b", ctypes.c_longlong), ("h", ctypes.c_longlong), ("t", ctypes.c_longlong)]
+
+
+class View(ctypes.Structure):
+    """csrc's `View`, passed by value: a tensor's first element and its
+    strides."""
+    _fields_ = [("data", ctypes.c_void_p), ("s", Strides)]
+
+
+_P, _I, _F, _V = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, View
+_FWD = [_V, _V, _V, _P, _V, _P]              # q, k, v, mask, out, lse
+_DQ = [_V, _V, _V, _V, _P, _P, _P, _V]       # q, k, v, g, lse, delta, mask, dq
+_DKV = [_V, _V, _V, _V, _P, _P, _P, _V, _V]  # ..., dk, dv
+_TAIL = [_I] * 6 + [_F, _I, _I, _P]  # bh, heads, tq, tk, d, tile, scale, causal, device, stream
 # (name, argtypes) of every C entry point; each returns a cudaError_t as int.
-_ENTRY_POINTS = (
-    ("swt_flash_fwd", [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P]),
-    ("swt_flash_dq", [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P]),
-    ("swt_flash_dkv", [_P] * 9 + [_I] * 6 + [_F, _I, _I, _P]),
-    ("swt_flash_fwd_f32", [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P]),
-    ("swt_flash_dq_f32", [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P]),
-    ("swt_flash_dkv_f32", [_P] * 9 + [_I] * 6 + [_F, _I, _I, _P]),
-    ("swt_flash_fwd_wide", [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P]),
-    ("swt_flash_dq_wide", [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P]),
-    ("swt_flash_dkv_wide", [_P] * 9 + [_I] * 6 + [_F, _I, _I, _P]),
-    ("swt_flash_fwd_wide_f32", [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P]),
-    ("swt_flash_dq_wide_f32", [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P]),
-    ("swt_flash_dkv_wide_f32", [_P] * 9 + [_I] * 6 + [_F, _I, _I, _P]),
+_ENTRY_POINTS = tuple(
+    (f"swt_flash_{kernel}{suffix}", args + _TAIL)
+    for suffix in ("", "_f32", "_wide", "_wide_f32")
+    for kernel, args in (("fwd", _FWD), ("dq", _DQ), ("dkv", _DKV))) + (
+    ("swt_flash_bwd_delta", [_V, _V, _P] + [_I] * 5 + [_P]),  # o, g, delta, bh, heads, t, d, ...
+    ("swt_flash_bwd_delta_f32", [_V, _V, _P] + [_I] * 5 + [_P]),
     ("swt_flash_occupancy", [_I] * 4 + [_P]),
 )
 

@@ -15,10 +15,25 @@ warp, and streams tiles of the same width; each takes its tile from
 from the sequence lengths (`KERNEL_TILES`), and the wrapper passes it to
 the C entry point.
 
+The kernels read q, k, v and dO and write out, dQ, dK and dV in place,
+as (B, H, T, D) views with packed columns: each C entry point takes a
+`View` per tensor (its base and its batch, head and row strides in
+elements). `flash_attention` hands over the model's own (B, T, H, D)
+tensors as `x.transpose(1, 2)` and allocates the output and the
+gradients in that layout, so nothing is copied on the way in or out; a
+view that breaks the 16-byte rule of cp.async and TMA reaches a kernel as
+a packed copy (`_kernel_layout`), and an entry point refuses one that
+does not. `attention_forward`, `attention_dq` and `attention_dkv` also
+take packed (BH, T, D) tensors, viewed as (BH / heads, heads, T, D), and
+give packed outputs then. lse and delta stay packed (BH, Tq) f32.
+
 A `torch.autograd.Function` ties them together; its backward computes
-`delta = rowsum(dO * O)` in f32 as plain tensor code (the JAX package
-does this in plain jnp) and then launches the two backward kernels, kept
-as two passes so neither needs atomics.
+`delta = rowsum(dO * O)` in f32 with a fourth hand-written kernel,
+`flash_bwd_delta` (`csrc/flash_attention_delta.cu`: it reads O and dO
+once through their strides; the JAX package forms delta in plain jnp,
+which XLA fuses on the TPU), and then launches the two backward kernels,
+kept as two passes so neither needs atomics. One forward + backward at a
+kernel head dim is four device kernels: K1, delta, K2 and K3.
 
 Beside each kernel sits its plain PyTorch version with the same masking
 constants and casts (scores in f32, p cast to v's dtype before p.V, ds
@@ -28,11 +43,12 @@ it launches its kernel or raises. `LAUNCHES` counts the kernel launches.
 
 Each kernel has two instances on the card, chosen by the inputs' dtype:
 bf16 (the trainer's type) and f32 (`flash_fwd_f32`, `flash_dq_f32`,
-`flash_dkv_f32`), to the plain f32 versions' digits, as the Pallas
-kernels compute in f32: every f32 instance runs 3xTF32 products on the
-tensor cores (each operand split into two TF32 parts, three products
-summed in f32). One-pass TF32 is off, as the port keeps it everywhere.
-Neither dtype is cast to the other. Any other dtype raises on the card.
+`flash_dkv_f32`, `flash_bwd_delta_f32`), to the plain f32 versions'
+digits, as the Pallas kernels compute in f32: every f32 instance of K1-K3
+runs 3xTF32 products on the tensor cores (each operand split into two
+TF32 parts, three products summed in f32). One-pass TF32 is off, as the
+port keeps it everywhere. Neither dtype is cast to the other. Any other
+dtype raises on the card.
 The narrow instances issue `mma.sync` (m16n8k16 in bf16, m16n8k8 in
 TF32); the wide ones, K1-K3 in both dtypes, issue `wgmma` (m64nNk16 in
 bf16, m64nNk8 in TF32) from two warpgroups over 64-row tiles. In bf16 at
@@ -44,7 +60,8 @@ there the long tile of K1-K3 runs those of
 `csrc/flash_attention_tma_f32.cu` (`flash_fwd_f32_tma`,
 `flash_dq_f32_tma`, `flash_dkv_f32_tma`: the same CTA shape on TF32
 `wgmma` as 3xTF32), each reached through the same C entry point as its
-base instance, with its own launch counter.
+base instance, with its own launch counter. Their tensor maps are 4-D
+over (d, t, h, b) with the views' strides.
 
 The kernels are built for head dims 32, 64, 128 and 256
 (`KERNEL_HEAD_DIMS`); above 256 each kernel has a wide instance
@@ -54,10 +71,10 @@ f32) that takes any multiple of 256 at run time: K1's and K2's CTAs own
 of dK and dV. `flash_attention` zero-pads q, k and v
 along the head dim to `kernel_head_dim(d)` (the smallest of
 `KERNEL_HEAD_DIMS` that holds d; 257-512 to 512, wider ones to the next
-multiple of 256) on every device, as the reference pads to its sublane
-multiple, and slices the output back: zero columns add nothing to q.k^T
-and give zero output columns. So every head dim runs on the card; the
-plain versions take any dtype and head dim.
+multiple of 256) on every device, in their (B, T, H, D) layout, as the
+reference pads to its sublane multiple, and slices the output back: zero
+columns add nothing to q.k^T and give zero output columns. So every head
+dim runs on the card; the plain versions take any dtype and head dim.
 """
 from __future__ import annotations
 
@@ -95,9 +112,13 @@ WIDE_INSTANCES = tuple(name + WIDE + suffix for suffix in KERNEL_DTYPES.values()
 TMA_INSTANCES = tuple(name + suffix + TMA for suffix in KERNEL_DTYPES.values()
                       for name in KERNELS)
 TMA_HEAD_DIMS = (64, 128, 256)
+# The backward's delta = rowsum(dO * O) kernel (csrc/flash_attention_delta.cu),
+# in bf16 and in f32.
+DELTA = "flash_bwd_delta"
+DELTA_INSTANCES = tuple(DELTA + suffix for suffix in KERNEL_DTYPES.values())
 # Launches of each kernel instance since the last reset; a wrapper adds
 # one where it launches its kernel and nowhere else.
-LAUNCHES = {name: 0 for name in INSTANCES + WIDE_INSTANCES + TMA_INSTANCES}
+LAUNCHES = {name: 0 for name in INSTANCES + WIDE_INSTANCES + TMA_INSTANCES + DELTA_INSTANCES}
 # The square tiles each kernel instance is built for, by (instance, head
 # dim) (rows per CTA = the width of the streamed tiles, 16 rows per warp):
 # (short tile, long tile, the longest sequence that takes the short
@@ -200,8 +221,18 @@ def attention_dkv_plain(q, k, v, g, lse, delta, kv_mask, heads: int,
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def attention_delta_plain(out, g):
+    """delta = rowsum(dO * O) in f32, as the JAX package's backward forms it
+    in plain jnp (shockwave_tpu/ops/flash_attention.py:290-292): (..., T, D)
+    in, (..., T) out."""
+    return (out.float() * g.float()).sum(dim=-1)
+
+
 # ---------------------------------------------------------------------------
-# Kernel wrappers.
+# Kernel wrappers. q, k, v, dO and the outputs are packed (BH, T, D)
+# tensors, or (B, H, T, D) views: the model's (B, T, H, D) tensors
+# transposed, which the kernels read and write in place through their
+# strides.
 # ---------------------------------------------------------------------------
 
 def _on_cpu(*tensors) -> bool:
@@ -214,6 +245,27 @@ def _on_cpu(*tensors) -> bool:
             return device.type == "cpu"
     raise ValueError(f"flash attention needs all tensors on the CPU or on "
                      f"one CUDA device; got {sorted(map(str, devices))}")
+
+
+def _as_bhtd(x: torch.Tensor, heads: int) -> torch.Tensor:
+    """x as the kernels' (B, H, T, D) view: a packed (BH, T, D) tensor split
+    into (BH / heads, heads, T, D) (a view), a 4-D one as it is."""
+    if x.dim() == 4:
+        return x
+    if x.dim() != 3 or x.shape[0] % heads:
+        raise ValueError(f"flash attention takes (BH, T, D) tensors with BH a multiple of "
+                         f"heads={heads}, or (B, H, T, D) views; got {tuple(x.shape)}")
+    return x.unflatten(0, (x.shape[0] // heads, heads))
+
+
+def _packed(x: torch.Tensor) -> torch.Tensor:
+    """x as (BH, T, D) for the plain versions (a copy of a strided view)."""
+    return x.flatten(0, 1) if x.dim() == 4 else x
+
+
+def _like(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A plain version's (BH, T, D) output in the form of the input x."""
+    return y.unflatten(0, x.shape[:2]) if x.dim() == 4 else y
 
 
 def instance(kernel: str, dtype, d: int, tq: int = 1, tk: int = 1) -> str:
@@ -278,29 +330,69 @@ def pad_head_dim(x: torch.Tensor, width: int) -> torch.Tensor:
 
 
 def _check_kernel_inputs(q, k, v, kv_mask, heads, kernel="flash_fwd"):
-    bh, tq, d = q.shape
-    tk = k.shape[1]
+    """Raise on what the kernels do not take; q, k and v packed or 4-D."""
+    q, k, v = (_as_bhtd(x, heads) for x in (q, k, v))
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
     if q.dtype not in KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"CUDA flash attention takes torch.bfloat16 or "
                         f"torch.float32 (q, k and v alike); got {q.dtype}, "
                         f"{k.dtype}, {v.dtype}")
     launch_config(tq, tk, d, instance(kernel, q.dtype, d))
-    if k.shape != (bh, tk, d) or v.shape != (bh, tk, d):
+    if k.shape != (b, h, tk, d) or v.shape != (b, h, tk, d):
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not match")
-    if bh % heads:
-        raise ValueError(f"BH={bh} is not a multiple of heads={heads}")
+    if h != heads:
+        raise ValueError(f"(B, H, T, D) views with H={h} given heads={heads}")
     if kv_mask is not None and (kv_mask.dtype != torch.bool
-                                or kv_mask.shape != (bh // heads, tk)):
-        raise ValueError(f"kv_mask must be bool {(bh // heads, tk)}; got "
+                                or kv_mask.shape != (b, tk)):
+        raise ValueError(f"kv_mask must be bool {(b, tk)}; got "
                          f"{kv_mask.dtype} {tuple(kv_mask.shape)}")
 
 
+def _fits(x: torch.Tensor) -> bool:
+    """Whether the kernels can read or write (B, H, T, D) view x in place:
+    packed columns, a base and strides (of dims longer than 1) that keep
+    the 16-byte rule of cp.async and TMA, and a (batch, head)'s T rows
+    within 2^31 elements, which the kernels address in 32 bits (csrc's
+    rows_fit). The model's tensors do."""
+    if x.stride(-1) != 1 or x.data_ptr() % 16 or x.shape[2] * x.stride(2) >= 2**31:
+        return False
+    return all(n == 1 or s * x.element_size() % 16 == 0
+               for n, s in zip(x.shape[:-1], x.stride()[:-1]))
+
+
+def _kernel_layout(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, T, D) view x as a kernel takes it: x itself where it `_fits`,
+    else a packed copy."""
+    return x if _fits(x) else x.contiguous()
+
+
+def _empty(b: int, h: int, t: int, d: int, like: torch.Tensor) -> torch.Tensor:
+    """A (B, H, T, D) output in the form of the input `like`: a packed
+    tensor for a packed (BH, T, D) input, else a view of a new (B, T, H, D)
+    tensor, the model's layout."""
+    if like.dim() == 3:
+        return like.new_empty(b, h, t, d)
+    return like.new_empty(b, t, h, d).transpose(1, 2)
+
+
+def _view(x: torch.Tensor) -> _build.View:
+    """The C entry points' View of (B, H, T, D) view x: its base and the
+    strides of its first three dims (a dim of length 1 given its packed
+    stride, which no address uses)."""
+    sizes = x.shape
+    strides = [s if n > 1 else math.prod(sizes[i + 1:])
+               for i, (n, s) in enumerate(zip(sizes[:3], x.stride()[:3]))]
+    return _build.View(x.data_ptr(), _build.Strides(*strides))
+
+
 def _ptr(t: Optional[torch.Tensor]):
+    """The base of a packed tensor (the mask, lse, delta) or None."""
     if t is None:
         return None
     if not t.is_contiguous():
-        raise ValueError("CUDA flash attention takes contiguous tensors")
+        raise ValueError("CUDA flash attention takes contiguous masks, lse and delta")
     if t.data_ptr() % 16:
         raise ValueError("CUDA flash attention takes 16-byte aligned tensors")
     return t.data_ptr()
@@ -325,23 +417,29 @@ def attention_forward(q, k, v, kv_mask, heads: int, scale: float,
     """K1: (out, lse). Plain version on the CPU; on CUDA `instance`'s
     choice: `flash_fwd` (bf16; `flash_fwd_tma` on its long tile at D =
     64-256) or `flash_fwd_f32` (`flash_fwd_f32_tma` there), or above head
-    dim 256 `flash_fwd_wide` or `flash_fwd_wide_f32`."""
+    dim 256 `flash_fwd_wide` or `flash_fwd_wide_f32`. out comes in q's
+    form: packed (BH, Tq, D), or a (B, H, Tq, D) view of a new (B, Tq, H,
+    D) tensor; lse (BH, Tq) f32."""
     if _on_cpu(q, k, v, kv_mask):
-        return attention_forward_plain(q, k, v, kv_mask, heads, scale, causal)
+        out, lse = attention_forward_plain(_packed(q), _packed(k), _packed(v), kv_mask, heads,
+                                           scale, causal)
+        return _like(out, q), lse
     _check_kernel_inputs(q, k, v, kv_mask, heads, "flash_fwd")
-    bh, tq, d = q.shape
-    out = torch.empty_like(q)
-    lse = torch.empty(bh, tq, dtype=torch.float32, device=q.device)
-    tk = k.shape[1]
+    b, h, tq, d = _as_bhtd(q, heads).shape
+    tk = k.shape[-2]
     name = instance("flash_fwd", q.dtype, d, tq, tk)
-    _launch(name, _ptr(q), _ptr(k), _ptr(v), _ptr(kv_mask), _ptr(out), _ptr(lse), bh, heads,
-            tq, tk, d, launch_config(tq, tk, d, name), scale, int(causal),
+    qv, kv, vv = (_kernel_layout(_as_bhtd(x, heads)) for x in (q, k, v))
+    out = _empty(b, h, tq, d, q)
+    lse = torch.empty(b * h, tq, dtype=torch.float32, device=q.device)
+    _launch(name, _view(qv), _view(kv), _view(vv), _ptr(kv_mask), _view(out), _ptr(lse), b * h,
+            heads, tq, tk, d, launch_config(tq, tk, d, name), scale, int(causal),
             *_device_and_stream(q))
-    return out, lse
+    return (out.flatten(0, 1) if q.dim() == 3 else out), lse
 
 
-def _check_backward_inputs(q, g, lse, delta):
-    bh, tq, _ = q.shape
+def _check_backward_inputs(q, g, lse, delta, heads):
+    b, h, tq, _ = _as_bhtd(q, heads).shape
+    bh = b * h
     if g.shape != q.shape or g.dtype != q.dtype:
         raise ValueError("dO must match q in shape and dtype")
     for name, t in (("lse", lse), ("delta", delta)):
@@ -349,46 +447,69 @@ def _check_backward_inputs(q, g, lse, delta):
             raise ValueError(f"{name} must be f32 {(bh, tq)}")
 
 
+def attention_delta(out, g, heads: int):
+    """delta (BH, Tq) f32 = rowsum(dO * O) of the backward; out and g
+    packed (BH, Tq, D) or (B, H, Tq, D) views. Plain version on the CPU; on
+    CUDA `flash_bwd_delta` (bf16) or `flash_bwd_delta_f32`."""
+    if _on_cpu(out, g):
+        return attention_delta_plain(_packed(out), _packed(g))
+    if out.dtype not in KERNEL_DTYPES or g.dtype != out.dtype or g.shape != out.shape:
+        raise TypeError(f"flash_bwd_delta takes out and dO alike in torch.bfloat16 or "
+                        f"torch.float32; got {out.dtype} {tuple(out.shape)}, {g.dtype} "
+                        f"{tuple(g.shape)}")
+    ov, gv = (_kernel_layout(_as_bhtd(x, heads)) for x in (out, g))
+    b, h, t, d = ov.shape
+    delta = torch.empty(b * h, t, dtype=torch.float32, device=out.device)
+    _launch(DELTA + KERNEL_DTYPES[out.dtype], _view(ov), _view(gv), _ptr(delta), b * h, h, t, d,
+            *_device_and_stream(out))
+    return delta
+
+
 def attention_dq(q, k, v, g, lse, delta, kv_mask, heads: int, scale: float,
                  causal: bool):
-    """K2: dQ. Plain version on the CPU; on CUDA `instance`'s choice:
-    `flash_dq` (bf16; `flash_dq_tma` on its long tile at D = 64-256) or
-    `flash_dq_f32` (`flash_dq_f32_tma` there), or above head dim 256
-    `flash_dq_wide` or `flash_dq_wide_f32`."""
+    """K2: dQ, in q's form. Plain version on the CPU; on CUDA `instance`'s
+    choice: `flash_dq` (bf16; `flash_dq_tma` on its long tile at D =
+    64-256) or `flash_dq_f32` (`flash_dq_f32_tma` there), or above head dim
+    256 `flash_dq_wide` or `flash_dq_wide_f32`."""
     if _on_cpu(q, k, v, g, lse, delta, kv_mask):
-        return attention_dq_plain(q, k, v, g, lse, delta, kv_mask, heads,
-                                  scale, causal)
+        dq = attention_dq_plain(_packed(q), _packed(k), _packed(v), _packed(g), lse, delta,
+                                kv_mask, heads, scale, causal)
+        return _like(dq, q)
     _check_kernel_inputs(q, k, v, kv_mask, heads, "flash_dq")
-    _check_backward_inputs(q, g, lse, delta)
-    bh, tq, d = q.shape
-    dq = torch.empty_like(q)
-    tk = k.shape[1]
+    _check_backward_inputs(q, g, lse, delta, heads)
+    b, h, tq, d = _as_bhtd(q, heads).shape
+    tk = k.shape[-2]
     name = instance("flash_dq", q.dtype, d, tq, tk)
-    _launch(name, _ptr(q), _ptr(k), _ptr(v), _ptr(g), _ptr(lse), _ptr(delta), _ptr(kv_mask),
-            _ptr(dq), bh, heads, tq, tk, d, launch_config(tq, tk, d, name), scale, int(causal),
-            *_device_and_stream(q))
-    return dq
+    qv, kv, vv, gv = (_kernel_layout(_as_bhtd(x, heads)) for x in (q, k, v, g))
+    dq = _empty(b, h, tq, d, q)
+    _launch(name, _view(qv), _view(kv), _view(vv), _view(gv), _ptr(lse), _ptr(delta),
+            _ptr(kv_mask), _view(dq), b * h, heads, tq, tk, d, launch_config(tq, tk, d, name),
+            scale, int(causal), *_device_and_stream(q))
+    return dq.flatten(0, 1) if q.dim() == 3 else dq
 
 
 def attention_dkv(q, k, v, g, lse, delta, kv_mask, heads: int, scale: float,
                   causal: bool):
-    """K3: (dK, dV). Plain version on the CPU; on CUDA `instance`'s choice:
-    `flash_dkv` (bf16; `flash_dkv_tma` on its long tile at D = 64-256) or
-    `flash_dkv_f32` (`flash_dkv_f32_tma` there), or above head dim 256
-    `flash_dkv_wide` or `flash_dkv_wide_f32`."""
+    """K3: (dK, dV), in k's form. Plain version on the CPU; on CUDA
+    `instance`'s choice: `flash_dkv` (bf16; `flash_dkv_tma` on its long
+    tile at D = 64-256) or `flash_dkv_f32` (`flash_dkv_f32_tma` there), or
+    above head dim 256 `flash_dkv_wide` or `flash_dkv_wide_f32`."""
     if _on_cpu(q, k, v, g, lse, delta, kv_mask):
-        return attention_dkv_plain(q, k, v, g, lse, delta, kv_mask, heads,
-                                   scale, causal)
+        dk, dv = attention_dkv_plain(_packed(q), _packed(k), _packed(v), _packed(g), lse, delta,
+                                     kv_mask, heads, scale, causal)
+        return _like(dk, k), _like(dv, v)
     _check_kernel_inputs(q, k, v, kv_mask, heads, "flash_dkv")
-    _check_backward_inputs(q, g, lse, delta)
-    bh, tq, d = q.shape
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
-    tk = k.shape[1]
+    _check_backward_inputs(q, g, lse, delta, heads)
+    b, h, tq, d = _as_bhtd(q, heads).shape
+    tk = k.shape[-2]
     name = instance("flash_dkv", q.dtype, d, tq, tk)
-    _launch(name, _ptr(q), _ptr(k), _ptr(v), _ptr(g), _ptr(lse), _ptr(delta), _ptr(kv_mask),
-            _ptr(dk), _ptr(dv), bh, heads, tq, tk, d, launch_config(tq, tk, d, name), scale,
-            int(causal), *_device_and_stream(q))
+    qv, kv, vv, gv = (_kernel_layout(_as_bhtd(x, heads)) for x in (q, k, v, g))
+    dk, dv = (_empty(b, h, tk, d, k) for _ in range(2))
+    _launch(name, _view(qv), _view(kv), _view(vv), _view(gv), _ptr(lse), _ptr(delta),
+            _ptr(kv_mask), _view(dk), _view(dv), b * h, heads, tq, tk, d,
+            launch_config(tq, tk, d, name), scale, int(causal), *_device_and_stream(q))
+    if k.dim() == 3:
+        return dk.flatten(0, 1), dv.flatten(0, 1)
     return dk, dv
 
 
@@ -416,8 +537,11 @@ def kernel_occupancy(device: int = 0):
 
 
 class _FlashAttention(torch.autograd.Function):
-    """(BH, T, D) flash attention; the counterpart of _flash_bhtd's
-    custom_vjp."""
+    """Flash attention on (B, H, T, D) views, the counterpart of
+    _flash_bhtd's custom_vjp: the kernels read q, k, v and dO in place and
+    write the output and the gradients as views of new tensors in the
+    model's (B, T, H, D) layout, so that nothing is copied on the way in or
+    out; the backward forms delta with its own kernel."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, heads, scale, causal):
@@ -429,9 +553,11 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, kv_mask, out, lse = ctx.saved_tensors
-        delta = (out.float() * g.float()).sum(dim=-1)
-        gq = g.to(q.dtype).contiguous()
-        args = (gq, lse, delta, kv_mask, ctx.heads, ctx.scale, ctx.causal)
+        g = g.to(q.dtype)
+        if not g.is_cpu:
+            g = _kernel_layout(g)  # once, for delta, K2 and K3
+        delta = attention_delta(out, g, ctx.heads)
+        args = (g, lse, delta, kv_mask, ctx.heads, ctx.scale, ctx.causal)
         dq = attention_dq(q, k, v, *args)
         dk, dv = attention_dkv(q, k, v, *args)
         return dq, dk, dv, None, None, None, None
@@ -446,9 +572,12 @@ def flash_attention(q, k, v, causal: bool = False,
     (Tq != Tk) is supported for causal=False. The output is in q's dtype.
     The JAX version's block_q/block_k are Mosaic tiling arguments; the
     CUDA kernels take their tiles from `launch_config` and mask ragged
-    sequence edges themselves, so any lengths are taken. The head dim is
-    zero-padded to `kernel_head_dim(d)` on every device, as the
-    reference's `to_bhtd` pads it, and the output sliced back to `d`.
+    sequence edges themselves, so any lengths are taken. The kernels take
+    q, k and v as they are, through their strides (`x.transpose(1, 2)`,
+    no copy), and the output comes back in q's layout. The head dim is
+    zero-padded to `kernel_head_dim(d)` on every device (one pad in the
+    (B, T, H, D) layout), as the reference's `to_bhtd` pads it, and the
+    output sliced back to `d`.
     """
     b, tq, h, d = q.shape
     tk = k.shape[1]
@@ -457,16 +586,9 @@ def flash_attention(q, k, v, causal: bool = False,
     if scale is None:
         scale = 1.0 / math.sqrt(d)  # the unpadded d
     width = kernel_head_dim(d)
-
-    def to_bhtd(x):
-        # Padded in the (B, H, T, D) view: one fill and one copy, after
-        # which the reshape is free.
-        x = pad_head_dim(x.transpose(1, 2), width)
-        return x.reshape(b * h, x.shape[2], width).contiguous()
-
     kv_mask = None
     if key_padding_mask is not None:
         kv_mask = key_padding_mask.to(torch.bool).contiguous()
-    out = _FlashAttention.apply(to_bhtd(q), to_bhtd(k), to_bhtd(v), kv_mask,
-                                h, float(scale), causal)
-    return out[..., :d].reshape(b, h, tq, d).transpose(1, 2).to(q.dtype)
+    out = _FlashAttention.apply(*(pad_head_dim(x, width).transpose(1, 2) for x in (q, k, v)),
+                                kv_mask, h, float(scale), causal)
+    return out.transpose(1, 2)[..., :d].to(q.dtype)

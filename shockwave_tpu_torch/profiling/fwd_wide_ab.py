@@ -19,6 +19,15 @@ K3 alone: `--kernels dkv`):
         --cases bench_causal_f32 d128_bench_causal_f32 d256_bench_causal_f32 \\
         main_enc_self_f32 --trees .archive_check/parent . . .archive_check/parent
 
+The port's attention as the model calls it (`--kernels model`):
+`flash_attention`'s forward + backward on (B, T, H, D) tensors, beside
+SDPA's on the same tensors' (B, H, T, D) views, with the device kernels one
+such call runs, counted under torch.profiler; with K1-K3 alone beside:
+
+    python -m shockwave_tpu_torch.profiling.fwd_wide_ab --kernels fwd dq dkv model \
+        --cases main_enc_self bench_causal d128_bench_causal d256_bench_causal \
+        --trees .archive_check/parent . . .archive_check/parent
+
 The trees' kernel libraries are first built side by side, one process
 per tree. Then each tree is run in a process of its own, in the order
 given (parent, change, change, parent keeps a drift of the card out of
@@ -78,6 +87,9 @@ CASES = (
     ("main_enc_self_f32", 64, 32, 8, 64, False, "tail", "f32"),
 )
 KERNELS = ("fwd", "dq", "dkv")
+# flash_attention's forward + backward in the model's layout, a choice of
+# --kernels beside K1-K3 (not a default).
+MODEL = "model"
 HERE = os.path.dirname(os.path.abspath(__file__))
 # Builds the kernel library of the tree given as its argument.
 BUILD = ("import sys; sys.path.insert(0, sys.argv[1]); "
@@ -138,6 +150,8 @@ def run_case(fa, case, seed, device, kernels=KERNELS, time_fn=None):
         lengths = torch.randint(t // 2, t + 1, (b,), generator=gen, device=device)
         mask = torch.arange(t, device=device)[None, :] < lengths[:, None]
     args = (mask, h, 1.0 / math.sqrt(d), causal)
+    model = MODEL in kernels
+    kernels = tuple(kname for kname in kernels if kname != MODEL)
     fa.reset_launch_counts()
     out, lse = fa.attention_forward(q, k, v, *args)
     delta = (out.float() * g.float()).sum(dim=-1)
@@ -197,6 +211,48 @@ def run_case(fa, case, seed, device, kernels=KERNELS, time_fn=None):
     record["library_fwd_bwd_ms"] = time_fn(library_fwd_bwd)
     record["library_bwd_ms"] = record["library_fwd_bwd_ms"] - record["library_fwd_ms"]
     record["library_bwd_by"] = "fwd_bwd - fwd"
+    if model:
+        record[MODEL] = model_layout(fa, q, k, v, g, mask, b, h, t, d, causal, time_fn)
+    return record
+
+
+def model_layout(fa, q, k, v, g, mask, b, h, t, d, causal, time_fn):
+    """`flash_attention`'s forward + backward on (B, T, H, D) tensors
+    holding the case's numbers, as the model calls it, and SDPA's forward +
+    backward on the same tensors' (B, H, T, D) views: ms of each and, on
+    the card, the device kernels of one port call (torch.profiler, CUDA
+    activity only)."""
+    import torch
+    import torch.nn.functional as F
+    qm, km, vm, gm = (x.view(b, h, t, d).transpose(1, 2).contiguous() for x in (q, k, v, g))
+    ours = [x.detach().requires_grad_() for x in (qm, km, vm)]
+    theirs = [x.detach().requires_grad_() for x in (qm, km, vm)]
+    attn_mask = None
+    if mask is not None:
+        attn_mask = mask[:, None, None, :].expand(b, 1, t, t)
+        if causal:
+            attn_mask = attn_mask & torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
+
+    def port():
+        out = fa.flash_attention(*ours, causal=causal, key_padding_mask=mask)
+        return torch.autograd.grad(out, ours, gm)
+
+    def library():
+        out = F.scaled_dot_product_attention(*(x.transpose(1, 2) for x in theirs),
+                                             attn_mask=attn_mask,
+                                             is_causal=causal and mask is None)
+        return torch.autograd.grad(out, theirs, gm.transpose(1, 2))
+
+    record = {"fwd_bwd_ms": time_fn(port), "library_fwd_bwd_ms": time_fn(library)}
+    if q.is_cuda:
+        from torch.autograd import DeviceType
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            port()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        record.update({"device_kernels": len(names),
+                       "flash_kernels": sum("flash_" in n for n in names)})
     return record
 
 
@@ -243,8 +299,10 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--trees", nargs="+", default=["."],
                         help="checkouts of the repository, run in this order")
-    parser.add_argument("--kernels", nargs="+", choices=KERNELS, default=list(KERNELS),
-                        help="the kernels each case runs (default: all three)")
+    parser.add_argument("--kernels", nargs="+", choices=KERNELS + (MODEL,),
+                        default=list(KERNELS),
+                        help="the kernels each case runs (default: all three), and `model`: "
+                             "flash_attention's forward + backward in the model's layout")
     parser.add_argument("--cases", nargs="+", choices=[c[0] for c in CASES],
                         default=[c[0] for c in CASES], help="the cases to run (default: all)")
     parser.add_argument("--build_report", action="store_true",

@@ -50,9 +50,13 @@ FAMILIES = {
 }
 LONG_SEQ = 2048
 
-# Kernel groups, by a piece of the kernel's name (first match wins).
-GROUPS = (("flash_fwd", ("flash_fwd_kernel",)), ("flash_dq", ("flash_dq_kernel",)),
-          ("flash_dkv", ("flash_dkv_kernel",)),
+# Kernel groups, by a piece of the kernel's name (first match wins). The
+# flash groups take every instance of their kernel by its name's prefix
+# (`flash_fwd_kernel`, `flash_fwd_tma_kernel`, `flash_fwd_tma_f32_kernel`,
+# `flash_fwd_wide_kernel`, ...), and the backward's delta kernel is a group
+# of its own.
+GROUPS = (("flash_bwd_delta", ("flash_bwd_delta",)), ("flash_fwd", ("flash_fwd",)),
+          ("flash_dq", ("flash_dq",)), ("flash_dkv", ("flash_dkv",)),
           ("conv", ("fprop", "dgrad", "wgrad", "conv")),
           ("batch_norm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw")),
           ("lstm", ("lstm", "rnn")),

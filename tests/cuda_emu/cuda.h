@@ -27,6 +27,9 @@ struct alignas(64) CUtensorMap {
   uint32_t box[5];
 };
 
+// A bit per rank of the maps encoded since emu_tensor_map_ranks last read it.
+inline unsigned emu_map_ranks = 0;
+
 inline int emu_elem_bytes(CUtensorMapDataType type) {
   return type == CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 ? 2 : type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 1;
 }
@@ -40,6 +43,7 @@ inline CUresult emu_encode_tiled(CUtensorMap* map, CUtensorMapDataType type, cuu
                                  CUtensorMapInterleave, CUtensorMapSwizzle swizzle,
                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill) {
   if (rank < 1 || rank > 5 || reinterpret_cast<uintptr_t>(base) % 16) return CUDA_ERROR_INVALID_VALUE;
+  emu_map_ranks |= 1u << rank;
   std::memset(map, 0, sizeof(*map));
   map->base = static_cast<const unsigned char*>(base);
   map->rank = (int)rank;

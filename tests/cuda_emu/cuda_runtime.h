@@ -472,6 +472,11 @@ inline void wgmma_wait(int n) {
 #ifdef EMU_EXPORTS
 extern "C" long emu_shared_overruns() { return emu::g_shared_overruns.load(); }
 extern "C" long emu_tensor_products() { return emu::g_tensor_macs.load(); }
+extern "C" unsigned emu_tensor_map_ranks() {
+  const unsigned ranks = emu_map_ranks;
+  emu_map_ranks = 0;
+  return ranks;
+}
 #endif
 
 #define threadIdx (emu::t_thread)

@@ -4,9 +4,10 @@ tensors.
 
 `emulated_source` rewrites a `.cu` file of `shockwave_tpu_torch/csrc/`
 (`flash_attention.cu`, the narrow kernels, `flash_attention_wide.cu`, the
-wide ones, `flash_attention_tma.cu`, the TMA-fed K1-K3 in bf16, and
-`flash_attention_tma_f32.cu`, the TMA-fed K1-K3 in f32, each with the
-`.cuh` files it includes inlined) into host C++: the PTX helpers (cp.async,
+wide ones, `flash_attention_tma.cu`, the TMA-fed K1-K3 in bf16,
+`flash_attention_tma_f32.cu`, the TMA-fed K1-K3 in f32, and
+`flash_attention_delta.cu`, the backward's delta, each with the `.cuh`
+files it includes inlined) into host C++: the PTX helpers (cp.async,
 ldmatrix, mma.sync, wgmma with its fence, commit and wait, named barriers,
 the async-proxy fence, mbarriers with their phases and transaction bytes,
 cp.async.bulk.tensor with the 128-byte swizzle and zero fill, setmaxnreg
@@ -15,10 +16,11 @@ tensor-map encode call (`cuTensorMapEncodeTiled`) a host stand-in
 (`cuda.h`), and each
 `kernel<<<...>>>(...)` launch runs its grid on host threads, so a
 producer warp and its consumer warpgroups really run side by side.
-`build` compiles the four into one
+`build` compiles the five into one
 shared library with the same C entry points as the CUDA one, which also
 reports the tensor-core multiply-adds of the last launch
-(`emu_tensor_products`). The emulation holds the kernels' index math,
+(`emu_tensor_products`) and the ranks of the tensor maps encoded since it
+was last asked (`emu_tensor_map_ranks`, a bit per rank). The emulation holds the kernels' index math,
 masking, tiles, shared-memory layout (the 128-byte swizzle and wgmma's
 descriptors included, as the PTX ISA lays them out) and barrier
 protocol; it shows no timing, no race between a `cp.async` copy and the
@@ -42,7 +44,8 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(HERE)), "shockwave_tpu_torch
 SOURCES = tuple(os.path.join(CSRC, name) for name in ("flash_attention.cu",
                                                        "flash_attention_wide.cu",
                                                        "flash_attention_tma.cu",
-                                                       "flash_attention_tma_f32.cu"))
+                                                       "flash_attention_tma_f32.cu",
+                                                       "flash_attention_delta.cu"))
 
 # Emulated bodies of the helpers that hold inline PTX, by function name.
 BODIES = {
@@ -78,7 +81,7 @@ BODIES = {
     "mbar_arrive": "emu::mbar_arrive(bar);",
     "mbar_arrive_expect_tx": "emu::mbar_arrive(bar, bytes);",
     "mbar_try_wait": "return emu::mbar_try_wait(bar, parity);",
-    "tma_load": "const int c[3] = {col, row, bh}; emu::tma_load(dst, &map, bar, c);",
+    "tma_load": "const int c[4] = {col, row, hb.h, hb.b}; emu::tma_load(dst, &map, bar, c);",
     "setmaxnreg_dec": "",
     "setmaxnreg_inc": "",
     "fast_exp2": "return exp2f(x);",

@@ -29,9 +29,9 @@ __global__ void wgmma_probe_kernel(const T* a, const T* b, const T* v, float* s_
   T* cv = cb + kElems;
   float* scratch = reinterpret_cast<float*>(cv + kElems);  // f32: two chunks
   const int tid = threadIdx.x, g = (tid & 31) >> 2, t = tid & 3;
-  copy_chunk(ca, a, 0, 64, CC, 0, tid);
-  copy_chunk(cb, b, 0, 64, CC, 0, tid);
-  copy_chunk(cv, v, 0, 64, CC, 0, tid);
+  copy_chunk(ca, a, CC, 0, 64, 0, tid);
+  copy_chunk(cb, b, CC, 0, 64, 0, tid);
+  copy_chunk(cv, v, CC, 0, 64, 0, tid);
   cp_async_commit();
   cp_async_wait<0>();
   fence_async_shared();

@@ -144,6 +144,23 @@ class TestFlashAttention:
                         block_q=32, block_k=32)
         assert np.abs(out_p[:, 1:] - out_j[:, 1:]).max() < FWD_TOL
 
+    def test_fused_qkv_views_match(self):
+        """q, k and v as slices of one (B, T, 3, H, D) projection (rows 3 H
+        D apart, as the kernels take them in place on the card): forward
+        and gradients against the JAX package on the same numbers."""
+        rng = np.random.RandomState(9)
+        qkv = rng.randn(2, 64, 3, 2, 64).astype(np.float32)
+        kpm = rng.rand(2, 64) > 0.2
+        fused = torch.from_numpy(qkv).requires_grad_()
+        q, k, v = fused.unbind(2)
+        assert q.stride(1) == 3 * 2 * 64
+        out = fa.flash_attention(q, k, v, causal=True, key_padding_mask=torch.from_numpy(kpm))
+        want = jax_out(*(qkv[:, :, i] for i in range(3)), causal=True, key_padding_mask=kpm)
+        assert np.abs(out.detach().numpy() - want).max() < FWD_TOL
+        (out.float() ** 2).sum().backward()
+        for i, g in enumerate(jax_grads(*(qkv[:, :, i] for i in range(3)), kpm, True)):
+            assert np.abs(fused.grad[:, :, i].numpy() - g).max() < GRAD_TOL
+
     def test_causal_cross_rejected(self):
         rng = np.random.RandomState(4)
         q, k, v = rand_qkv(rng, 1, 64, 2, 64, tk=128)
@@ -223,7 +240,8 @@ class TestWrappers:
                                     "flash_dq_wide", "flash_dkv_wide", "flash_fwd_wide_f32",
                                     "flash_dq_wide_f32", "flash_dkv_wide_f32", "flash_fwd_tma",
                                     "flash_dq_tma", "flash_dkv_tma", "flash_fwd_f32_tma",
-                                    "flash_dq_f32_tma", "flash_dkv_f32_tma"}
+                                    "flash_dq_f32_tma", "flash_dkv_f32_tma",
+                                    "flash_bwd_delta", "flash_bwd_delta_f32"}
         assert not any(fa.LAUNCHES.values())
 
     def test_other_devices_raise(self):
@@ -425,7 +443,7 @@ class TestChipSmokeKernelsLine:
             "bound_ms", "bound_by", "library_ms"}
 
     @staticmethod
-    def _record(fa, case, dtype):
+    def _record(fa, case, dtype, smoke):
         name, b, tq, tk, h, d, causal, mask = case
         record = {"case": name, "shape": [b, tq, tk, h, d], "causal": causal,
                   "dtype": str(dtype), "mask": mask, "kernels": {}, "by_kernel": {},
@@ -433,8 +451,15 @@ class TestChipSmokeKernelsLine:
                   "library_bwd_by": "fwd_bwd - fwd", "library_backend": "FLASH_ATTENTION",
                   "flash_fwd_bwd_ms": 2.5}
         for key in ("fwd_max_abs", "lse_max_abs", "dq_max_rel", "dk_max_rel", "dv_max_rel",
-                    "dq_max_abs", "dkv_max_abs"):
+                    "dq_max_abs", "dkv_max_abs", "delta_max_abs"):
             record[key] = 1e-3
+        if name in smoke.DELTA_TIMED:
+            iname = fa.DELTA + fa.KERNEL_DTYPES[dtype]
+            record["by_kernel"][fa.DELTA] = iname
+            record["kernels"][iname] = {"ms": 0.01, "plain_ms": 0.04, "bound_ms": 0.005,
+                                        "bound_by": "bytes", "bytes": 1, "flops": 1,
+                                        "tile": None}
+            record["delta_library_ms"] = 0.02 if dtype == torch.float32 else None
         for kname in fa.KERNELS:
             iname = fa.instance(kname, dtype, d, tq, tk)
             record["by_kernel"][kname] = iname
@@ -445,14 +470,15 @@ class TestChipSmokeKernelsLine:
 
     def test_kernels_line_names_every_instance(self):
         smoke = _chip_smoke()
-        cases = {c[0]: self._record(fa, c, torch.bfloat16) for c in smoke.CASES}
-        cases.update({c[0]: self._record(fa, c, torch.float32) for c in smoke.F32_CASES})
+        cases = {c[0]: self._record(fa, c, torch.bfloat16, smoke) for c in smoke.CASES}
+        cases.update({c[0]: self._record(fa, c, torch.float32, smoke) for c in smoke.F32_CASES})
 
         def launches(names, count):
             return {n: count if n in names else 0 for n in fa.LAUNCHES}
 
-        sliced = {"launches": launches(fa.INSTANCES[:3], 540)}
-        served = {"decoder_flash_f32": {"launches": launches(fa.INSTANCES[3:6], 2)}}
+        sliced = {"launches": launches(fa.INSTANCES[:3] + fa.DELTA_INSTANCES[:1], 540)}
+        served = {"decoder_flash_f32": {
+            "launches": launches(fa.INSTANCES[3:6] + fa.DELTA_INSTANCES[1:], 2)}}
         for d in (128, 256, 512):
             served[f"decoder_flash_head_dim_{d}"] = {
                 widths: {"shape": [8, 64], "launches": launches(
@@ -472,6 +498,14 @@ class TestChipSmokeKernelsLine:
             assert row["replaces"].startswith("shockwave_tpu/ops/flash_attention.py:")
             assert row["route"] == "cuda" and row["launches"] > 0, row
         by_name = {r["name"]: r for r in rows}
+        for name, launched in zip(fa.DELTA_INSTANCES, (540, 2)):  # on the main path's runs
+            row = by_name[name]
+            assert row["source"] == "shockwave_tpu_torch/csrc/flash_attention_delta.cu"
+            assert row["launches"] == launched and row["bound_by"] == "bytes"
+            assert {"bench_ms", "bench_plain_ms", "bench_bound_ms"} <= set(row)
+        for name in fa.INSTANCES:  # head dim 32's long tile at the bench shape
+            assert by_name[name]["d32_bench_instance"] == name
+            assert by_name[name]["d32_bench_tile"] == fa.KERNEL_TILES[name, 32][1]
         for name in fa.TMA_INSTANCES:
             row = by_name[name]
             if "_f32" in name:  # f32: launched by the f32 decoder at T = 128
@@ -511,7 +545,8 @@ class TestCInterface:
     """What each wrapper hands its C entry point, with the library, the
     device check and the stream replaced (there is no card here): as many
     arguments as `_build._ENTRY_POINTS` declares, each of the declared
-    type, and `launch_config`'s tile right after the head dim."""
+    type (q, k, v, dO and the outputs as `View`s: base and strides), and
+    `launch_config`'s tile right after the head dim."""
 
     ENTRY = {"fwd": "swt_flash_fwd", "dq": "swt_flash_dq", "dkv": "swt_flash_dkv"}
 
@@ -530,7 +565,7 @@ class TestCInterface:
         argtypes = dict(fa._build._ENTRY_POINTS)[name]
         assert len(args) == len(argtypes), (name, len(args), len(argtypes))
         kinds = {ctypes.c_void_p: (int, type(None)), ctypes.c_int: (int,),
-                 ctypes.c_float: (float,)}
+                 ctypes.c_float: (float,), fa._build.View: (fa._build.View,)}
         for i, (arg, argtype) in enumerate(zip(args, argtypes)):
             assert isinstance(arg, kinds[argtype]) and not isinstance(arg, bool), (name, i, arg)
 
@@ -622,7 +657,8 @@ class TestCInterface:
                          for d in fa.KERNEL_HEAD_DIMS for tile in fa.KERNEL_TILES[name, d][:2]} | {
             (kernel, 512, tile) for kernel, name in enumerate(fa.LAUNCHES)
             if name in fa.WIDE_INSTANCES for tile in fa.WIDE_TILES[name][:2]}
-        assert list(fa.LAUNCHES) == list(fa.INSTANCES + fa.WIDE_INSTANCES + fa.TMA_INSTANCES)
+        assert list(fa.LAUNCHES) == list(fa.INSTANCES + fa.WIDE_INSTANCES + fa.TMA_INSTANCES
+                                         + fa.DELTA_INSTANCES)
         assert {(r["kernel"], r["tile"]) for r in rows if r["d"] == 512} == {
             (name, tile) for name in fa.WIDE_INSTANCES for tile in fa.WIDE_TILES[name][:2]}
         assert {(r["kernel"], r["d"], r["tile"]) for r in rows} >= {
@@ -655,8 +691,11 @@ class TestCInterface:
         assert [x.grad.shape for x in (q, k, v)] == [(b, t, h, d)] * 3
         instances = [fa.instance(f"flash_{kernel}", dtype, width, t, t)
                      for kernel in ("fwd", "dq", "dkv")]
+        delta = fa.DELTA + fa.KERNEL_DTYPES[dtype]  # between K1 and K2
         assert [name for name, _ in lib.calls] == ["swt_" + i.removesuffix(fa.TMA)
-                                                   for i in instances]
+                                                   for i in instances[:1] + [delta]
+                                                   + instances[1:]]
+        self._check_types(*lib.calls.pop(1))
         for (name, args), instance in zip(lib.calls, instances):
             self._check_types(name, args)
             tile = fa.launch_config(t, t, width, instance)
@@ -682,11 +721,70 @@ class TestCInterface:
         fa.flash_attention(q, q, q).sum().backward()
         suffix = fa.KERNEL_DTYPES[dtype]
         names = [f"flash_{k}{fa.WIDE}{suffix}" for k in ("fwd", "dq", "dkv")]
-        assert [name for name, _ in lib.calls] == ["swt_" + n for n in names]
+        delta = fa.DELTA + suffix
+        assert [name for name, _ in lib.calls] == ["swt_" + n for n in
+                                                   names[:1] + [delta] + names[1:]]
+        self._check_types(*lib.calls.pop(1))
         for (name, args), instance in zip(lib.calls, names):
             self._check_types(name, args)
             assert args[-10:-4] == (2, 2, 32, 32, 512, fa.WIDE_TILES[instance][0])
-        assert {n: c for n, c in fa.LAUNCHES.items() if c} == dict.fromkeys(names, 1)
+            # The wide instances too take the padded (B, T, H, D) tensors
+            # in place: rows H D apart.
+            for view in (a for a in args if isinstance(a, fa._build.View)):
+                assert (view.s.b, view.s.h, view.s.t) == (32 * 2 * 512, 512, 2 * 512)
+        assert {n: c for n, c in fa.LAUNCHES.items() if c} == dict.fromkeys(names + [delta], 1)
+
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    @pytest.mark.parametrize("t", [32, 48])
+    def test_model_layout_reaches_the_kernels_in_place(self, lib, dtype, t):
+        """With the model's own (B, T, H, D) tensors at d = the kernel width,
+        K1 gets q's, k's and v's own bases with rows H D apart and writes
+        the output into the tensor `flash_attention` returns; delta, K2 and
+        K3 read that output and the incoming gradient in place, and write
+        dQ, dK and dV into the tensors the gradients come back in. Nothing
+        is copied on the way in or out."""
+        b, h, d = 2, 4, 64
+        q, k, v = (torch.zeros(b, t, h, d, dtype=dtype, requires_grad=True) for _ in range(3))
+        out = fa.flash_attention(q, k, v, causal=True)
+        fwd_args = lib.calls[0][1]
+        views = [a for a in fwd_args if isinstance(a, fa._build.View)]
+        assert [x.data for x in views] == [x.data_ptr() for x in (q, k, v, out)]
+        for x in views:
+            assert (x.s.b, x.s.h, x.s.t) == (t * h * d, d, h * d)
+        assert out.is_contiguous() and out.shape == (b, t, h, d)
+        g = torch.zeros(b, t, h, d, dtype=dtype)
+        grads = torch.autograd.grad(out.reshape(b, t, h * d), (q, k, v),
+                                    g.reshape(b, t, h * d))
+        (_, delta_args), (_, dq_args), (_, dkv_args) = lib.calls[1:]
+        assert [delta_args[0].data, delta_args[1].data] == [out.data_ptr(), g.data_ptr()]
+        dq_views = [a for a in dq_args if isinstance(a, fa._build.View)]
+        dkv_views = [a for a in dkv_args if isinstance(a, fa._build.View)]
+        assert [x.data for x in dq_views] == [x.data_ptr() for x in (q, k, v, g, grads[0])]
+        assert [x.data for x in dkv_views] == [x.data_ptr() for x in (q, k, v, g, *grads[1:])]
+        for grad in grads:
+            assert grad.is_contiguous() and grad.shape == (b, t, h, d)
+
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    def test_a_misaligned_view_reaches_the_kernel_as_a_copy(self, lib, dtype):
+        """A view whose rows are not 16 bytes apart (here d + 1 elements)
+        breaks the rule of cp.async and TMA: the wrapper hands the kernel
+        a packed copy, and hands aligned views of other tensors as they
+        are."""
+        b, h, t, d = 1, 2, 48, 64
+        base = torch.zeros(b, h, t, d + 1, dtype=dtype)
+        q = base[..., :d]  # rows d + 1 apart
+        k, v = (torch.zeros(b, t, h, d, dtype=dtype).transpose(1, 2) for _ in range(2))
+        assert not fa._fits(q) and fa._fits(k)
+        fa.attention_forward(q, k, v, None, h, 0.125, True)
+        views = [a for a in lib.calls[0][1] if isinstance(a, fa._build.View)]
+        assert views[0].data != q.data_ptr()
+        assert (views[0].s.b, views[0].s.h, views[0].s.t) == (h * t * d, t * d, d)
+        assert [views[1].data, views[2].data] == [k.data_ptr(), v.data_ptr()]
+        for misaligned in (base[..., 1:d + 1], torch.zeros(b, h, t, d, 2, dtype=dtype)[..., 0]):
+            assert not fa._fits(misaligned)  # an odd base; columns not at stride 1
+            lib.calls.clear()
+            fa.attention_forward(misaligned, k, v, None, h, 0.125, True)
+            assert lib.calls[0][1][0].data != misaligned.data_ptr()
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:

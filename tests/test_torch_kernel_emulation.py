@@ -54,19 +54,27 @@ def lib():
     torch.set_num_threads(threads)
 
 
-def _ptr(t):
-    return None if t is None else t.data_ptr()
+def _arg(t, heads):
+    """What a C entry point takes for `t`: the View of a packed (BH, T, D)
+    tensor or of a (B, H, T, D) view, the base of a mask, lse or delta, or
+    `t` itself (None, an int)."""
+    if not isinstance(t, torch.Tensor):
+        return t
+    return fa._view(fa._as_bhtd(t, heads)) if t.dim() >= 3 else t.data_ptr()
 
 
 def _call(lib, kernel, dtype, *args, tq, tk, d, scale, causal):
     """swt_<instance>(*args, ..., d, tile, scale, causal, device, stream)
     of `kernel`'s instance for `dtype`, d and the lengths (the wide one
     above 256; a TMA-fed one through its base instance's entry point), as
-    the wrapper calls it; returns the instance's name."""
+    the wrapper calls it: `args` are the entry's tensors (q, k, v, ...,
+    each packed (BH, T, D) or a (B, H, T, D) view), then bh, heads, tq and
+    tk. Returns the instance's name."""
+    heads = args[-3]
     name = fa.instance(kernel, dtype, d, tq, tk)
     tile = fa.launch_config(tq, tk, d, name)
-    rc = getattr(lib, "swt_" + name.removesuffix(fa.TMA))(*args, d, tile, scale, int(causal), 0,
-                                                          None)
+    rc = getattr(lib, "swt_" + name.removesuffix(fa.TMA))(
+        *(_arg(t, heads) for t in args), d, tile, scale, int(causal), 0, None)
     assert rc == 0, (name, tile, rc)
     return name
 
@@ -128,15 +136,15 @@ def check_kernels(lib, dtype, b, tq, tk, h, d, causal, mask_kind):
     qw, kw, vw, gw = (fa.pad_head_dim(x, width) for x in (q, k, v, g))
 
     out, lse = torch.full_like(qw, math.nan), torch.full((bh, tq), math.nan)
-    _call(lib, "flash_fwd", dtype, *map(_ptr, (qw, kw, vw, mask, out, lse)), bh, h, tq, tk,
+    _call(lib, "flash_fwd", dtype, qw, kw, vw, mask, out, lse, bh, h, tq, tk,
           **shape)
     out_p, lse_p = fa.attention_forward_plain(q, k, v, mask, h, scale, causal)
     delta = (out_p.float() * g.float()).sum(-1)
     dq = torch.full_like(qw, math.nan)
-    _call(lib, "flash_dq", dtype, *map(_ptr, (qw, kw, vw, gw, lse_p, delta, mask, dq)), bh, h,
+    _call(lib, "flash_dq", dtype, qw, kw, vw, gw, lse_p, delta, mask, dq, bh, h,
           tq, tk, **shape)
     dk, dv = torch.full_like(kw, math.nan), torch.full_like(vw, math.nan)
-    _call(lib, "flash_dkv", dtype, *map(_ptr, (qw, kw, vw, gw, lse_p, delta, mask, dk, dv)), bh,
+    _call(lib, "flash_dkv", dtype, qw, kw, vw, gw, lse_p, delta, mask, dk, dv, bh,
           h, tq, tk, **shape)
     bwd = (q, k, v, g, lse_p, delta, mask)
     dq_p = fa.attention_dq_plain(*bwd, h, scale, causal)

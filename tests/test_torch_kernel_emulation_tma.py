@@ -28,7 +28,7 @@ import torch
 from shockwave_tpu_torch.ops import flash_attention as fa
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from test_torch_kernel_emulation import TOLS, _call, _ptr, check_kernels, lib  # noqa: E402,F401
+from test_torch_kernel_emulation import TOLS, _call, check_kernels, lib  # noqa: E402,F401
 
 CASES = [(b, tq, tk, h, d, causal, mask)
          for d in fa.TMA_HEAD_DIMS
@@ -114,21 +114,21 @@ def test_each_product_is_formed_once_per_tile_pair(lib, d, tq, tk, causal):
     scale = 1.0 / math.sqrt(d)
     shape = dict(tq=tq, tk=tk, d=d, scale=scale, causal=causal)
     out, lse = torch.empty_like(q), torch.empty(1, tq)
-    name = _call(lib, "flash_fwd", torch.bfloat16, *map(_ptr, (q, k, v, None, out, lse)), 1, 1,
+    name = _call(lib, "flash_fwd", torch.bfloat16, q, k, v, None, out, lse, 1, 1,
                  tq, tk, **shape)
     assert name == "flash_fwd" + fa.TMA
     rows, keys, pairs = _k1_pairs(tq, tk, d, causal)
     assert lib.emu_tensor_products() == pairs * 2 * rows * keys * d
     delta = (out.float() * g.float()).sum(-1)
     dq = torch.empty_like(q)
-    name = _call(lib, "flash_dq", torch.bfloat16, *map(_ptr, (q, k, v, g, lse, delta, None, dq)),
+    name = _call(lib, "flash_dq", torch.bfloat16, q, k, v, g, lse, delta, None, dq,
                  1, 1, tq, tk, **shape)
     assert name == "flash_dq" + fa.TMA
     rows, keys, pairs = _k2_pairs(tq, tk, d, causal)
     assert lib.emu_tensor_products() == pairs * 3 * rows * keys * d
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     name = _call(lib, "flash_dkv", torch.bfloat16,
-                 *map(_ptr, (q, k, v, g, lse, delta, None, dk, dv)), 1, 1, tq, tk, **shape)
+                 q, k, v, g, lse, delta, None, dk, dv, 1, 1, tq, tk, **shape)
     assert name == "flash_dkv" + fa.TMA
     keys, queries, pairs = _k3_pairs(tq, tk, d, causal)
     assert lib.emu_tensor_products() == pairs * 4 * keys * queries * d
@@ -160,7 +160,7 @@ def test_a_row_that_sees_no_key_gets_zero_dq(lib, d):
         delta = (out.float() * g.float()).sum(-1)
         dq = torch.full_like(q, math.nan)
         name = _call(lib, "flash_dq", torch.bfloat16,
-                     *map(_ptr, (q, k, v, g, lse, delta, mask, dq)), b * h, h, tq, t_k, d=d,
+                     q, k, v, g, lse, delta, mask, dq, b * h, h, tq, t_k, d=d,
                      scale=scale, causal=causal, tq=tq, tk=t_k)
         assert name == "flash_dq" + fa.TMA
         blind = dq[:, 0] if causal else dq[h:]

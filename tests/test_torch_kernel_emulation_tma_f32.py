@@ -31,7 +31,7 @@ import torch
 from shockwave_tpu_torch.ops import flash_attention as fa
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from test_torch_kernel_emulation import TOLS, _call, _ptr, check_kernels, lib  # noqa: E402,F401
+from test_torch_kernel_emulation import TOLS, _call, check_kernels, lib  # noqa: E402,F401
 
 F32_TMA = ("flash_fwd_f32" + fa.TMA, "flash_dq_f32" + fa.TMA, "flash_dkv_f32" + fa.TMA)
 CASES = [(b, tq, tk, h, d, causal, mask)
@@ -110,21 +110,21 @@ def test_each_product_is_formed_once_per_tile_pair(lib, d, tq, tk, causal):
     scale = 1.0 / math.sqrt(d)
     shape = dict(tq=tq, tk=tk, d=d, scale=scale, causal=causal)
     out, lse = torch.empty_like(q), torch.empty(1, tq)
-    name = _call(lib, "flash_fwd", torch.float32, *map(_ptr, (q, k, v, None, out, lse)), 1, 1,
+    name = _call(lib, "flash_fwd", torch.float32, q, k, v, None, out, lse, 1, 1,
                  tq, tk, **shape)
     assert name == F32_TMA[0]
     keys = K1_KEYS[d]
     assert lib.emu_tensor_products() == _pairs(tq, tk, keys, causal) * 3 * 2 * ROWS * keys * d
     delta = (out * g).sum(-1)
     dq = torch.empty_like(q)
-    name = _call(lib, "flash_dq", torch.float32, *map(_ptr, (q, k, v, g, lse, delta, None, dq)),
+    name = _call(lib, "flash_dq", torch.float32, q, k, v, g, lse, delta, None, dq,
                  1, 1, tq, tk, **shape)
     assert name == F32_TMA[1]
     keys = K2_KEYS[d]
     assert lib.emu_tensor_products() == _pairs(tq, tk, keys, causal) * 3 * 3 * ROWS * keys * d
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     name = _call(lib, "flash_dkv", torch.float32,
-                 *map(_ptr, (q, k, v, g, lse, delta, None, dk, dv)), 1, 1, tq, tk, **shape)
+                 q, k, v, g, lse, delta, None, dk, dv, 1, 1, tq, tk, **shape)
     assert name == F32_TMA[2]
     queries = K3_QUERIES[d]
     assert (lib.emu_tensor_products()
@@ -156,7 +156,7 @@ def test_a_row_that_sees_no_key_gets_zero_dq(lib, d):
         delta = (out * g).sum(-1)
         dq = torch.full_like(q, math.nan)
         name = _call(lib, "flash_dq", torch.float32,
-                     *map(_ptr, (q, k, v, g, lse, delta, mask, dq)), b * h, h, tq, t_k, d=d,
+                     q, k, v, g, lse, delta, mask, dq, b * h, h, tq, t_k, d=d,
                      scale=scale, causal=causal, tq=tq, tk=t_k)
         assert name == F32_TMA[1]
         blind = dq[:, 0] if causal else dq[h:]
@@ -191,7 +191,7 @@ def test_a_key_that_no_row_sees_gets_zero_dk_and_dv(lib, d):
         delta = (out * g).sum(-1)
         dk, dv = torch.full_like(k, math.nan), torch.full_like(v, math.nan)
         name = _call(lib, "flash_dkv", torch.float32,
-                     *map(_ptr, (q, k, v, g, lse, delta, mask, dk, dv)), b * h, h, t_q, t_k, d=d,
+                     q, k, v, g, lse, delta, mask, dk, dv, b * h, h, t_q, t_k, d=d,
                      scale=scale, causal=causal, tq=t_q, tk=t_k)
         assert name == F32_TMA[2]
         want = fa.attention_dkv_plain(q, k, v, g, lse, delta, mask, h, scale, causal)

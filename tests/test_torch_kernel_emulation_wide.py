@@ -29,7 +29,7 @@ import torch
 from shockwave_tpu_torch.ops import flash_attention as fa
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from test_torch_kernel_emulation import (TOLS, _call, _ptr, check_kernels,  # noqa: E402
+from test_torch_kernel_emulation import (TOLS, _call, check_kernels,  # noqa: E402
                                          lib)  # noqa: F401 (a fixture)
 
 import emulate  # noqa: E402  (tests/cuda_emu, on the path through the import above)
@@ -62,7 +62,7 @@ def _forward(lib, dtype, b, tq, tk, h, d, causal, mask_kind, seed):
     elif mask_kind == "tail":
         mask = torch.from_numpy(np.arange(tk)[None, :] < rng.randint(tk // 2, tk + 1, (b, 1)))
     out, lse = torch.full_like(q, math.nan), torch.full((bh, tq), math.nan)
-    _call(lib, "flash_fwd", dtype, *map(_ptr, (q, k, v, mask, out, lse)), bh, h, tq, tk,
+    _call(lib, "flash_fwd", dtype, q, k, v, mask, out, lse, bh, h, tq, tk,
           tq=tq, tk=tk, d=d, scale=scale, causal=causal)
     out_p, lse_p = fa.attention_forward_plain(q, k, v, mask, h, scale, causal)
     keys = (mask if mask is not None else torch.ones(b, tk, dtype=torch.bool))
@@ -164,10 +164,10 @@ def _backward_products(lib, dtype, d):
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     shape = dict(tq=t, tk=t, d=d, scale=1.0 / math.sqrt(d), causal=False)
     lib.emu_tensor_products.restype = ctypes.c_long
-    _call(lib, "flash_dq", dtype, *map(_ptr, (q, k, v, g, lse, delta, None, dq)), bh, 1, t, t,
+    _call(lib, "flash_dq", dtype, q, k, v, g, lse, delta, None, dq, bh, 1, t, t,
           **shape)
     dq_products = lib.emu_tensor_products()
-    _call(lib, "flash_dkv", dtype, *map(_ptr, (q, k, v, g, lse, delta, None, dk, dv)), bh, 1,
+    _call(lib, "flash_dkv", dtype, q, k, v, g, lse, delta, None, dk, dv, bh, 1,
           t, t, **shape)
     return dq_products, lib.emu_tensor_products()
 

@@ -109,3 +109,26 @@ def test_without_a_card_it_exits_2(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert ab.main(["--trees", "."]) == 2
     assert "no CUDA device" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("dt", ["bf16", "f32"])
+def test_a_case_times_the_model_layout_beside_sdpa(dt):
+    """`--kernels model`: flash_attention's forward + backward on the
+    model's (B, T, H, D) tensors and SDPA's on their views, each timed once
+    (the port's first), beside K1 alone; the kernel count is the card's."""
+    timed = []
+
+    def time_fn(fn):
+        result = fn()
+        timed.append(result)
+        return float(len(timed))
+
+    case = ("tiny", 2, 17, 2, 64, True, "tail", dt)
+    record = ab.run_case(fa, case, 0, torch.device("cpu"), ("fwd", ab.MODEL), time_fn)
+    assert record["ok"] and record["fwd"] == {"ms": 1.0, "plain_ms": 2.0}
+    assert record[ab.MODEL] == {"fwd_bwd_ms": 5.0, "library_fwd_bwd_ms": 6.0}
+    port, library = timed[-2:]  # the gradients of q, k and v, (B, T, H, D) each
+    for ours, theirs in zip(port, library):
+        assert ours.shape == theirs.shape == (2, 17, 2, 64)
+        assert float((ours.float() - theirs.float()).abs().max()) <= ab.TOLS[dt][2] * max(
+            1.0, float(theirs.float().abs().max()))
