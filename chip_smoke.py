@@ -9,14 +9,15 @@ Phases, in order; any failure exits non-zero and prints no result:
    the torch and CUDA versions.
 2. build: nvcc compiles `shockwave_tpu_torch/csrc/*.cu` (timed); the
    instantiations that spill registers, named from ptxas's report
-   (`spills:`; the TMA-fed f32 K1-K3 must spill none); the HMMA
-   instructions of each instantiation in the
-   library's SASS, by mnemonic, with the TMA loads (`sass:`; the 3xTF32
-   kernels must hold TF32 ones, the wgmma kernels, K1-K3 wide in both
-   dtypes, HGMMA ones of their dtype and no HMMA, the TMA-fed K1-K3 in
-   bf16 at D = 64, 128 and 256 bf16 HGMMA, UTMALDG and no HMMA, and the
-   TMA-fed K1-K3 in f32 there TF32 HGMMA, UTMALDG and no HMMA, and no
-   long-tile mma.sync f32 instance there);
+   (`spills:`; the TMA-fed f32 K1-K3 and the TMA-fed bf16 K1 and K3 at D
+   = 32 must spill none); the HMMA instructions of each instantiation in
+   the library's SASS, by mnemonic, with the TMA loads (`sass:`; the
+   3xTF32 kernels must hold TF32 ones, the wgmma kernels, K1-K3 wide in
+   both dtypes, HGMMA ones of their dtype and no HMMA, the TMA-fed K1-K3
+   in bf16 at D = 64, 128 and 256, and K1 and K3 at D = 32, bf16 HGMMA,
+   UTMALDG and no HMMA, and no long-tile mma.sync K1 or K3 instance at D
+   = 32, the TMA-fed K1-K3 in f32 at D = 64-256 TF32 HGMMA, UTMALDG and
+   no HMMA, and no long-tile mma.sync f32 instance there);
    then each kernel instantiation's
    resident CTAs per SM, threads, shared memory and registers, and at the
    main shape each
@@ -69,13 +70,19 @@ Phases, in order; any failure exits non-zero and prints no result:
    kernel (`flash_bwd_delta`) the same bits on both and within DELTA_TOL
    of its plain version; it is timed at the shapes of its rows
    (DELTA_TIMED). The bench shape at head dim 32 (`d32_bench_causal`, both
-   dtypes) times the mma.sync instances' long tile there.
+   dtypes) times the long tile there: in bf16 the TMA-fed K1 and K3 on
+   64-byte rows and K2's mma.sync tile, in f32 the mma.sync instances.
+   Each kernel's bound is the largest of its bytes, its operations and
+   its exponentials (one per visible score in each of K1-K3, at 16 a
+   clock on each SM at the card's highest SM clock; `bound_by` "exp"
+   where they set it).
    model_layout: `flash_attention`'s forward + backward on the model's
    own (B, T, H, D) tensors at the main shape and the bench shape at D =
-   64, 128 and 256 (bf16), beside SDPA's on the same tensors' views and
-   the packed-layout time above; at the main and bench D 64 shapes its
-   device kernels, counted under torch.profiler, must be K1, delta, K2
-   and K3, one each, and nothing else.
+   32, 64, 128 and 256 (bf16), beside SDPA's on the same tensors' views
+   and the packed-layout time above; at the main shape and the bench
+   shape at D 64 and 32 its device kernels, counted under
+   torch.profiler, must be K1, delta, K2 and K3, one each, and nothing
+   else.
 4. slice: the translation trainer at full width (dim 512, 8 heads,
    6 + 6 layers, batch 64) for 30 steps through
    `shockwave_tpu_torch.workloads.translation.train.main`, with the
@@ -138,7 +145,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    and 8: the tokens must be equal; decode tokens/s of each (generated
    tokens over the host clock, synced). Then `DecoderLM`'s full forward
    in bf16 with flash on (K1, one launch per layer) against its einsum
-   path at (8, 64), within the profile phase's logits tolerance. Then
+   path at (8, 64), within the profile phase's logits tolerance, and the
+   same in bf16 forward + backward (head dim 32: the TMA-fed K1 and K3,
+   K2's mma.sync tile), logits and gradients. Then
    the decoder in f32 (its default) with flash on: its logits against
    the einsum path's and the gradient of a next-token loss through K1-K3's
    f32 instances against the einsum path's, one launch of each per
@@ -260,6 +269,11 @@ CASES = (
     ("cross_64x128", 1, 64, 128, 2, 64, False, None),
     ("head_dim_32", 2, 128, 128, 4, 32, True, "tail"),
     ("d32_bench_causal", 4, 2048, 2048, 8, 32, True, None),
+    # D = 32, where K1's and K3's long tile is TMA-fed on 64-byte rows:
+    # Tq != Tk key-padded, ragged causal, and the row that sees no key.
+    ("d32_cross_48x96", 2, 48, 96, 4, 32, False, "tail"),
+    ("d32_ragged_causal", 2, 100, 100, 4, 32, True, "tail"),
+    ("d32_masked_row0", 1, 128, 128, 2, 32, True, "key0"),
     ("bench_causal", 4, 2048, 2048, 8, 64, True, None),
     ("masked_row0", 1, 128, 128, 2, 64, True, "key0"),
     ("short_ragged", 3, 17, 17, 2, 64, True, "tail"),
@@ -437,11 +451,12 @@ DELTA_TOL = 1e-5
 # The kernel cases whose delta kernel is timed (the rows' shapes), and the
 # forward + backward in the model's layout: (B, T, H, D) tensors handed
 # over as their (B, H, T, D) views, timed beside SDPA on the same views;
-# the first two also counted under torch.profiler (K1, delta, K2 and K3,
-# one launch each, nothing else).
+# those of MODEL_LAYOUT_COUNTED also counted under torch.profiler (K1,
+# delta, K2 and K3, one launch each, nothing else).
 DELTA_TIMED = ("main_enc_self", "bench_causal", "decoder_f32", "bench_causal_f32")
-MODEL_LAYOUT_CASES = ("main_enc_self", "bench_causal", "d128_bench_causal", "d256_bench_causal")
-MODEL_LAYOUT_COUNTED = ("main_enc_self", "bench_causal")
+MODEL_LAYOUT_CASES = ("main_enc_self", "bench_causal", "d128_bench_causal", "d256_bench_causal",
+                      "d32_bench_causal")
+MODEL_LAYOUT_COUNTED = ("main_enc_self", "bench_causal", "d32_bench_causal")
 ERR_KEYS = {"flash_fwd": ("fwd_max_abs",), "flash_dq": ("dq_max_abs",),
             "flash_dkv": ("dkv_max_abs",)}
 
@@ -703,23 +718,35 @@ def visible_rows(mask, b, h, tq, tk, causal, device):
     return keys.any(dim=1, keepdim=True).expand(-1, tq)
 
 
-def work(b, tq, tk, h, d, causal, esize=2):
+def visible_scores(mask, b, h, tq, tk, causal, device):
+    """The (q, k) scores that this mask and causality leave visible, over
+    all (batch, head) pairs: the exponentials K1, K2 and K3 each need."""
+    keys = mask if mask is not None else torch.ones(b, tk, dtype=torch.bool, device=device)
+    if causal:  # row i sees the unmasked keys <= i
+        return h * int(torch.cumsum(keys.int(), dim=1)[:, :tq].sum())
+    return h * tq * int(keys.sum())
+
+
+def work(b, tq, tk, h, d, causal, esize=2, visible=None):
     """Bytes each kernel must move (each input read once, each output
-    written once; q, k, v, dO and the outputs of `esize` bytes) and the
-    FLOPs it must do at this shape: the causal kernels need only the
-    (q, k) pairs with k <= q."""
+    written once; q, k, v, dO and the outputs of `esize` bytes), the FLOPs
+    it must do at this shape (the causal kernels need only the (q, k)
+    pairs with k <= q), and the exponentials it must take: one per visible
+    score (`visible`, from the mask; by default every causal or full
+    pair) in each of K1, K2 and K3, none in delta."""
     bh = b * h
     pairs = tq * (tq + 1) // 2 if causal else tq * tk
+    exps = bh * pairs if visible is None else visible
     q_bytes, kv_bytes = bh * tq * d * esize, bh * tk * d * esize
     row_bytes, mask_bytes = bh * tq * 4, b * tk
     return {
-        "flash_bwd_delta": (2 * q_bytes + row_bytes, 2 * bh * tq * d),
+        "flash_bwd_delta": (2 * q_bytes + row_bytes, 2 * bh * tq * d, 0),
         "flash_fwd": (2 * q_bytes + 2 * kv_bytes + row_bytes + mask_bytes,
-                      4 * bh * pairs * d),
+                      4 * bh * pairs * d, exps),
         "flash_dq": (3 * q_bytes + 2 * kv_bytes + 2 * row_bytes + mask_bytes,
-                     6 * bh * pairs * d),
+                     6 * bh * pairs * d, exps),
         "flash_dkv": (2 * q_bytes + 4 * kv_bytes + 2 * row_bytes + mask_bytes,
-                      8 * bh * pairs * d),
+                      8 * bh * pairs * d, exps),
     }
 
 
@@ -738,8 +765,9 @@ def kernel_case(fa, case, seed, device, rates, dtype=torch.bfloat16):
     """One shape through K1-K3's `dtype` instance against the plain
     versions on the same inputs: errors (checked against the dtype's
     tolerances), the time of each kernel and of its plain version, its
-    bound at `rates` (bytes/s, FLOP/s of the dtype's products, and the
-    name the operations bound goes by), and the library's."""
+    bound at `rates` (bytes/s, FLOP/s of the dtype's products, the name
+    the operations bound goes by, and exponentials/s), and the
+    library's."""
     name, b, tq, tk, h, d, causal, mask_kind = case
     gen = torch.Generator(device=device).manual_seed(seed)
     bh, scale = b * h, 1.0 / math.sqrt(d)
@@ -802,7 +830,7 @@ def kernel_case(fa, case, seed, device, rates, dtype=torch.bfloat16):
         check(zero, f"{name}: the row that sees no key leaks gradient")
         errs["row0_grads_zero"] = zero
 
-    bw, flops_peak, ops_name = rates
+    bw, flops_peak, ops_name, exps_peak = rates
     times = {
         "flash_fwd": (graph_ms(lambda: fa.attention_forward(q, k, v, *args)),
                       graph_ms(lambda: fa.attention_forward_plain(q, k, v, *args))),
@@ -816,18 +844,21 @@ def kernel_case(fa, case, seed, device, rates, dtype=torch.bfloat16):
     if name in DELTA_TIMED:  # in the model's layout, as the backward runs it
         times["flash_bwd_delta"] = (graph_ms(lambda: fa.attention_delta(out_m, gm, h)),
                                     graph_ms(lambda: fa.attention_delta_plain(out_m, gm)))
-    for kname, (nbytes, flops) in work(b, tq, tk, h, d, causal, q.element_size()).items():
+    seen = visible_scores(mask, b, h, tq, tk, causal, device)
+    for kname, (nbytes, flops, exps) in work(b, tq, tk, h, d, causal, q.element_size(),
+                                             seen).items():
         if kname not in times:
             continue
-        t_bytes, t_ops = nbytes / bw * 1e3, flops / flops_peak * 1e3
+        bounds = {"bytes": nbytes / bw * 1e3, ops_name: flops / flops_peak * 1e3,
+                  "exp": exps / exps_peak * 1e3}
         iname = (fa.DELTA + fa.KERNEL_DTYPES[dtype] if kname == fa.DELTA
                  else fa.instance(kname, dtype, d, tq, tk))
         record["by_kernel"][kname] = iname
         record["kernels"][iname] = {
             "ms": times[kname][0], "plain_ms": times[kname][1],
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else ops_name,
-            "bytes": nbytes, "flops": flops,
+            "bound_ms": max(bounds.values()), "bound_by": max(bounds, key=bounds.get),
+            "ops_bound_ms": bounds[ops_name], "exp_bound_ms": bounds["exp"],
+            "bytes": nbytes, "flops": flops, "exps": exps,
             "tile": None if kname == fa.DELTA else fa.launch_config(tq, tk, d, iname)}
     if name in DELTA_TIMED:
         # torch.linalg.vecdot computes the same row sums in one call, in
@@ -1574,6 +1605,7 @@ def serving_phase(fa, device):
             "graph_equals_eager": equal, "decode_tokens_per_s": decode,
             "tokens_per_request": SERVING_COMMAND[SERVING_COMMAND.index("--tokens_per_request") + 1],
             "decoder_flash": {"shape": [b, t], "logits_max_abs": err, "launches": launches},
+            "decoder_flash_bf16": decoder_flash_grads(fa, device, tokens, torch.bfloat16),
             "decoder_flash_f32": decoder_flash_grads(fa, device, tokens),
             "decoder_flash_head_dim_16": {
                 "bf16": decoder_flash_grads(fa, device, tokens, torch.bfloat16,
@@ -2470,7 +2502,11 @@ def kernel_rows(fa, cases, sliced, served, profiled):
                         "library_bwd_of": "dQ, dK and dV (SDPA fwd_bwd - fwd)"})
         if f32:
             row["launches_by"] = "the f32 decoder at (8, 128), head dims 64, 128 and 256"
-        for dw in (64, 128, 256):
+        if 32 in fa.TMA_HEAD_DIMS[name]:  # the bf16 decoder at head dim 32, forward + backward
+            row["d32_decoder_launches"] = served["decoder_flash_bf16"]["launches"][name]
+        for dw in (32, 64, 128, 256):
+            if dw not in fa.TMA_HEAD_DIMS[name]:
+                continue
             at = "" if dw == 64 else f"d{dw}_"
             bw_case = cases[at + "bench_causal" + sfx]
             if not fwd:
@@ -2536,8 +2572,8 @@ def main() -> int:
     sys.path.insert(0, here)
     from shockwave_tpu_torch.ops import _build
     from shockwave_tpu_torch.ops import flash_attention as fa
-    from shockwave_tpu_torch.profiling.device import (F32_FLOPS, f32_product_flops, nvidia_smi,
-                                                      peaks)
+    from shockwave_tpu_torch.profiling.device import (F32_FLOPS, exp_rate, f32_product_flops,
+                                                      max_sm_clock_hz, nvidia_smi, peaks)
     from shockwave_tpu_torch.workloads.translation import train
 
     device = torch.device("cuda")
@@ -2547,11 +2583,15 @@ def main() -> int:
     smi = nvidia_smi()
     variant, rates = peaks(smi)
     f32_rate = f32_product_flops(smi)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_hz = max_sm_clock_hz()
+    exps_rate = exp_rate(sms, clock_hz)
     emit("device", {"name": kind, "nvidia_smi": smi, "count": torch.cuda.device_count(),
                     "torch": torch.__version__, "cuda": torch.version.cuda,
                     "peaks_from": variant, "peak_bytes_per_s": rates[0],
                     "peak_bf16_flops": rates[1], "peak_f32_simt_flops": F32_FLOPS[variant],
-                    "peak_f32_3xtf32_flops": f32_rate})
+                    "peak_f32_3xtf32_flops": f32_rate, "sms": sms, "max_sm_clock_hz": clock_hz,
+                    "peak_exps_per_s": exps_rate})
 
     t0 = time.time()
     path = _build.build()
@@ -2564,7 +2604,8 @@ def main() -> int:
     spilled = spills(log)
     emit("spills", spilled)
     for prefix in ("flash_fwd_tma_f32_kernel<", "flash_dq_tma_f32_kernel<",
-                   "flash_dkv_tma_f32_kernel<"):
+                   "flash_dkv_tma_f32_kernel<", "flash_fwd_tma_kernel<32>",
+                   "flash_dkv_tma_kernel<32>"):
         check(not any(name.startswith(prefix) for name in spilled),
               f"{prefix}: spills registers ({spilled})")
     hmma = sass_hmma(path)
@@ -2594,40 +2635,40 @@ def main() -> int:
                   f"{name}: no {operand} HGMMA in its SASS ({ops})")
             check(not any(op.startswith("HMMA") for op in ops),
                   f"{name}: HMMA in its SASS ({ops})")
-    # The TMA-fed K1-K3 in bf16, one instance per head dim 64, 128 and 256:
-    # bf16 HGMMA fed by UTMALDG, and no HMMA. The mma.sync K1-K3 keep only
-    # the short tile there.
-    for prefix in ("flash_fwd_tma_kernel<", "flash_dq_tma_kernel<", "flash_dkv_tma_kernel<"):
+    # The TMA-fed K1-K3 in bf16, one instance per head dim of theirs (64,
+    # 128 and 256; K1 and K3 at 32 too, on 64-byte rows): bf16 HGMMA fed
+    # by UTMALDG, and no HMMA. The mma.sync K1-K3 keep only the short tile
+    # there (K2 its long tile at D = 32).
+    for kname in fa.KERNELS:
+        prefix, dims = f"{kname}_tma_kernel<", fa.TMA_HEAD_DIMS[kname + fa.TMA]
         found = {name: ops for name, ops in hmma.items() if name.startswith(prefix)}
-        check(sorted(found) == sorted(f"{prefix}{d}>" for d in fa.TMA_HEAD_DIMS),
-              f"{prefix}: {sorted(found)} in the SASS, not one per head dim {fa.TMA_HEAD_DIMS}")
+        check(sorted(found) == sorted(f"{prefix}{d}>" for d in dims),
+              f"{prefix}: {sorted(found)} in the SASS, not one per head dim {dims}")
         for name, ops in found.items():
             check(any(op.startswith("HGMMA") and "F32.BF16" in op for op in ops)
                   and any(op.startswith("UTMALDG") for op in ops)
                   and not any(op.startswith("HMMA") for op in ops),
                   f"{name}: not bf16 HGMMA fed by UTMALDG without HMMA ({ops})")
-    for kname in ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"):
-        check(not any(f"{kname}<{d}, 64>" in hmma for d in fa.TMA_HEAD_DIMS),
-              f"{kname}: a tile-64 instance at D = 64-256 is still built")
+        check(not any(f"{kname}_kernel<{d}, 64>" in hmma for d in dims),
+              f"{kname}_kernel: a tile-64 instance at a TMA-fed head dim {dims} is still built")
+    check("flash_dq_kernel<32, 64>" in hmma, "flash_dq_kernel<32, 64>: not in the SASS")
     # The TMA-fed K1-K3 in f32, one instance per head dim 64, 128 and 256:
     # TF32 HGMMA fed by UTMALDG, and no HMMA; the mma.sync K1-K3 in f32
     # keep only the short tile there (and D = 32).
-    for prefix in ("flash_fwd_tma_f32_kernel<", "flash_dq_tma_f32_kernel<",
-                   "flash_dkv_tma_f32_kernel<"):
+    for kname in fa.KERNELS:
+        prefix, dims = f"{kname}_tma_f32_kernel<", fa.TMA_HEAD_DIMS[kname + "_f32" + fa.TMA]
         found = {name: ops for name, ops in hmma.items() if name.startswith(prefix)}
-        check(sorted(found) == sorted(f"{prefix}{d}>" for d in fa.TMA_HEAD_DIMS),
-              f"{prefix}: {sorted(found)} in the SASS, not one per head dim {fa.TMA_HEAD_DIMS}")
+        check(sorted(found) == sorted(f"{prefix}{d}>" for d in dims),
+              f"{prefix}: {sorted(found)} in the SASS, not one per head dim {dims}")
         for name, ops in found.items():
             check(any(op.startswith("HGMMA") and "F32.TF32" in op for op in ops)
                   and any(op.startswith("UTMALDG") for op in ops)
                   and not any(op.startswith("HMMA") for op in ops),
                   f"{name}: not TF32 HGMMA fed by UTMALDG without HMMA ({ops})")
-    for kname in ("flash_fwd_f32_kernel", "flash_dq_f32_kernel", "flash_dkv_f32_kernel"):
-        check(not any(f"{kname}<{d}, {tile}>" in hmma for d in fa.TMA_HEAD_DIMS
+        check(not any(f"{kname}_f32_kernel<{d}, {tile}>" in hmma for d in dims
                       for tile in (32, 64)),
-              f"{kname}: a long-tile instance at D = 64-256 is still built")
+              f"{kname}_f32_kernel: a long-tile instance at D = 64-256 is still built")
     occupancy = fa.kernel_occupancy(torch.cuda.current_device())
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     emit("occupancy", {"sms": sms, "kernels": occupancy,
                        "main_shape": main_shape_slots(fa, occupancy, sms)})
     for row in occupancy:
@@ -2637,11 +2678,12 @@ def main() -> int:
     t0 = time.time()
     cases = {}
     for seed, case in enumerate(CASES):
-        cases[case[0]] = kernel_case(fa, case, seed, device, (*rates, "operations"))
+        cases[case[0]] = kernel_case(fa, case, seed, device, (*rates, "operations", exps_rate))
         emit("kernel_case", cases[case[0]])
     for seed, case in enumerate(F32_CASES):
         cases[case[0]] = kernel_case(fa, case, seed, device,
-                                     (rates[0], f32_rate, "operations (3xTF32)"), torch.float32)
+                                     (rates[0], f32_rate, "operations (3xTF32)", exps_rate),
+                                     torch.float32)
         emit("kernel_case", cases[case[0]])
     for seed, case in enumerate(PADDED_CASES):
         emit("padded_case", padded_case(fa, case, seed, device))

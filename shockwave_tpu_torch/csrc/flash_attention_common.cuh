@@ -313,7 +313,7 @@ __device__ __forceinline__ Split<4> accum_to_a_tf32(const float (&c)[4]) {
 // ---------------------------------------------------------------------------
 // Building blocks of the wgmma kernels (flash_attention_wide.cu,
 // flash_attention_tma.cu): named barriers, the async-proxy fence, wgmma's
-// matrix descriptors in the 128-byte swizzle and its bf16 products. A
+// matrix descriptors in the 128- and 64-byte swizzles and its bf16 products. A
 // warpgroup's accumulator holds warp w's rows 16w..16w + 15 in mma.sync's C
 // layout, n8 tile j in d[j].
 // ---------------------------------------------------------------------------
@@ -344,13 +344,20 @@ __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// A wgmma matrix descriptor of the tile at p, 128-byte swizzle: start
-// address, leading byte offset `lbo` (K-major: unused; MN-major: the next
-// 64 columns), stride byte offset 1,024 (the next 8 rows; MN-major: the
-// next 8 reduction rows).
+// A wgmma matrix descriptor of the tile at p, whose rows are kRowBytes
+// long in the swizzle of that width (the PTX ISA's shared-memory matrix
+// layouts): 128 bytes, layout type 1 (bits 62-63), or 64 bytes, layout
+// type 2. Start address, leading byte offset `lbo` (K-major: unused;
+// MN-major: the next 64 or 32 columns), stride byte offset 8 rows
+// (1,024 or 512 bytes: the next 8 rows; MN-major: the next 8 reduction
+// rows). The pattern repeats every 8 rows, so the tile sits on a
+// multiple of that (1 KB or 512 bytes), base offset 0.
+template <int kRowBytes = 128>
 __device__ __forceinline__ uint64_t wgmma_desc(const void* p, uint32_t lbo) {
+  static_assert(kRowBytes == 128 || kRowBytes == 64, "the 128- or the 64-byte swizzle");
+  constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : 2;
   return (uint64_t)((smem_addr(p) & 0x3ffff) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+         ((uint64_t)(8 * kRowBytes >> 4) << 32) | (kLayout << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -425,6 +432,18 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[8][4], const uint32_t (&a)[4
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SWT_REGS32
       ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : SWT_ACC64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// The same for a 64 x 32 accumulator: B (16 x 32 bf16) MN-major (rows of
+// 32 columns, the 64-byte swizzle's row) at descriptor db.
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[4][4], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " SWT_REGS16
+      ", {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : SWT_ACC32(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -580,7 +599,7 @@ int wide_occupancy(int kernel, int d, int tile, int* out);
 
 // The TMA-fed K1-K3 in bf16 (defined in flash_attention_tma.cu), which
 // take the long tile of kernels 0 (K1), 1 (K2) and 2 (K3) at head dims 64,
-// 128 and 256: whether (d, tile) is theirs, their launches with
+// 128 and 256, and of K1 and K3 at 32: whether (d, tile) is theirs, their launches with
 // swt_flash_fwd's, swt_flash_dq's and swt_flash_dkv's arguments, and their
 // occupancy in the form above.
 bool tma_tile(int kernel, int d, int tile);

@@ -1,31 +1,36 @@
 // Flash attention for Hopper (sm_90a): K1 (forward), K2 (dQ) and K3 (dK,
-// dV) in bf16 at head dims 64, 128 and 256 on sequences past the short
-// tile (ops/flash_attention.py:launch_config: max(Tq, Tk) > 32), fed by
-// TMA. They replace _fa_kernel (:40), _dq_kernel (:167) and _dkv_kernel
-// (:222) of shockwave_tpu/ops/flash_attention.py there, with the narrow
+// dV) in bf16 at head dims 64, 128 and 256, and K1 and K3 at 32, on
+// sequences past the short tile (ops/flash_attention.py:launch_config:
+// max(Tq, Tk) > 32), fed by TMA. They replace _fa_kernel (:40),
+// _dq_kernel (:167) and _dkv_kernel (:222) of
+// shockwave_tpu/ops/flash_attention.py there, with the narrow
 // kernels' arguments and masking (flash_attention.cu): causal entries
 // -1e30, then the key bias (-1e30 for a masked key, so an entry both
 // causal-masked and padded sits at -2e30), -inf past a ragged end, the
 // running max from -1e30, and p = 0 where s <= -5e29 in the backward. The
 // narrow mma.sync kernels keep the short tile (a wgmma tile has 64 rows)
-// and D = 32.
+// and K2's long tile at D = 32.
 //
 // One CTA shape in all three (kTmaThreads = 384 threads):
 // - warpgroup 0 is the producer. After setmaxnreg lowers it to
-//   kProducerRegs registers a thread, its first warp issues every TMA load
+//   kProducerRegs registers a thread (K1: TmaFwdShape's, which at D = 32
+//   fits two CTAs an SM), its first warp issues every TMA load
 //   and computes the small per-tile vectors (K1 and K2: the key bias; K3:
 //   lse and delta) into shared memory; its other warps exit.
 // - warpgroups 1 and 2 are the consumers. setmaxnreg raises them to
 //   kConsumerRegs; they run only wgmma and the elementwise terms.
 // Operands arrive by TMA (cp.async.bulk.tensor.4d) through 4-D tensor maps
 // over (D, T, H, B) with the views' strides (the model's (B, T, H, D)
-// tensors in place), boxes of 64 columns (128 bytes, the 128-byte
-// swizzle's row) by the tile's rows by one head of one batch: rows past a
-// ragged T land as zeros and never reach into another (batch, head)'s
-// rows. A tile of R rows and D columns
-// is D / 64 such boxes, each R rows of 128 bytes in wgmma's 128-byte
-// swizzle, 1 KB aligned. Each streamed stage has a "full" mbarrier (the
-// producer's arrive.expect_tx, completed by the copies' bytes and the
+// tensors in place), boxes of kBoxCols<D> columns by the tile's rows by
+// one head of one batch: rows past a ragged T land as zeros and never
+// reach into another (batch, head)'s rows. A box is 64 columns (128 bytes,
+// the 128-byte swizzle's row) at D >= 64, and at D = 32 the whole row, 32
+// columns (64 bytes) in the 64-byte swizzle: a zero-filled 64-column box
+// would double the shared memory and the products of kernels that the
+// exponentials bound there. A tile of R rows and D columns is D /
+// kBoxCols<D> such boxes, each R rows in wgmma's swizzle of that row
+// width, aligned to its pattern (1 KB, or 512 bytes). Each streamed stage
+// has a "full" mbarrier (the producer's arrive.expect_tx, completed by the copies' bytes and the
 // producer warp's arrivals after its plain stores) and an "empty" one (one
 // arrival per consumer warp after its last wgmma on the stage). Products
 // read the tiles in place through matrix descriptors: K-major for the
@@ -44,13 +49,24 @@ namespace {
 
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;  // 128 x 24 + 256 x 240 <= 384 x 168, what the launch gives
-constexpr int kBox = 64;            // columns of a TMA box: 128 bytes of bf16
+// Columns of a TMA box at head dim D: one 128-byte swizzle row of bf16,
+// or at D = 32 the whole 64-byte row (tensor_map picks the swizzle).
+template <int D>
+constexpr int kBoxCols = D == 32 ? 32 : 64;
 
-// Load the D / 64 boxes of rows [row0, row0 + rows) of (batch, head) hb
-// into the tile at dst (box c at dst + c rows 64).
+// A descriptor of a tile of head dim D's boxes (wgmma_desc in the swizzle
+// of their rows).
+template <int D>
+__device__ __forceinline__ uint64_t box_desc(const void* p, uint32_t lbo) {
+  return wgmma_desc<2 * kBoxCols<D>>(p, lbo);
+}
+
+// Load the D / kBoxCols<D> boxes of rows [row0, row0 + rows) of (batch,
+// head) hb into the tile at dst (box c at dst + c rows kBoxCols<D>).
 template <int D>
 __device__ __forceinline__ void tma_load_tile(bf16* dst, const CUtensorMap& map, uint64_t* bar,
                                               int rows, int row0, Head hb) {
+  constexpr int kBox = kBoxCols<D>;
 #pragma unroll
   for (int c = 0; c < D / kBox; ++c) tma_load(dst + c * rows * kBox, map, bar, c * kBox, row0, hb);
 }
@@ -61,7 +77,7 @@ __device__ __forceinline__ void tma_load_tile(bf16* dst, const CUtensorMap& map,
 // Grid (BH, q-tiles of 128 rows), heaviest causal tile first. Consumer
 // group G owns query rows 64G..64G + 63 of the CTA's tile. The producer
 // loads the 128 x D Q tile once, then K and V tiles of kN keys (128 at D =
-// 64 and 128, 64 at D = 256) through a ring of kStages, K and V on
+// 64 and 128, 64 at D = 32 and 256) through a ring of kStages, K and V on
 // separate "full" and "empty" barriers (S can start before V has landed,
 // and K's slot is released as soon as S and the softmax have read it and
 // the tile's key bias (key_bias: 0, -1e30 or -inf), which comes with K).
@@ -84,19 +100,45 @@ __device__ __forceinline__ void tma_load_tile(bf16* dst, const CUtensorMap& map,
 // The epilogue normalises O, stages it as bf16 through the group's own Q
 // rows (in the same swizzle) and writes 16-byte stores; lse once per row.
 //
+// At D = 32 the tiles are one box of 64-byte rows: S is two SS m64nkNk16
+// a k-tile, P.V an RS m64n32k16 per 16 keys (V MN-major as it landed), O
+// 64 x 32 f32 (16 registers a thread). The registers D = 32 frees run two
+// CTAs an SM (kCtas; 80 registers a thread at launch, the consumers raised
+// to 104), so four consumer groups share an SM's special-function units
+// and one CTA's prologue and epilogue run under the other's tiles; S and
+// its P fragments then fit in 104 registers at kN = 64 keys a tile. On
+// the card (PERF.md) that beat one CTA of two groups at kN = 128
+// by 6% at the bench shape, and one CTA of three groups (192 rows, 160
+// registers) by 4%.
+//
 // Bound on an H100 SXM (989 bf16 TFLOP/s, 3.35 TB/s): at the bench shape
-// (4, 2048, 8, D) causal, 17.2 / 34.4 / 68.8 GFLOP at D = 64 / 128 / 256:
-// 17.4 / 34.8 / 69.5 us by operations.
+// (4, 2048, 8, D) causal, 8.6 / 17.2 / 34.4 / 68.8 GFLOP at D = 32 / 64 /
+// 128 / 256: 8.7 / 17.4 / 34.8 / 69.5 us by operations. The exponentials
+// bound it further at D = 32 and 64: one per visible score, 67.1 M at the
+// bench shape, 16 a clock on each of 132 SMs, about 16 us at 1.98 GHz. A
+// 128 x 128 tile's 16,384 exponentials take 1,024 clocks of an SM's
+// special-function units, its products 512 clocks at D = 32: the two
+// groups' softmaxes, each running under the other's and its own next
+// products, keep those units busy.
 //
 // Shared memory (1 KB alignment, Q, the ring, the bias, the barriers):
-// D = 64: 16 KB + 4 x 32 KB; D = 128: 32 KB + 2 x 64 KB; D = 256: 64 KB +
-// 2 x 64 KB. One CTA per SM (the consumers' registers allow no second).
+// D = 32: 8 KB + kStages x 8 KB; D = 64: 16 KB + 4 x 32 KB; D = 128: 32 KB
+// + 2 x 64 KB; D = 256: 64 KB + 2 x 64 KB. One CTA per SM at D >= 64 (the
+// consumers' registers allow no second).
 // ---------------------------------------------------------------------------
 template <int D>
 struct TmaFwdShape {
+  static constexpr int kCtas = D == 32 ? 2 : 1;  // CTAs an SM
   static constexpr int kRows = 128;              // query rows a CTA owns
-  static constexpr int kN = D == 256 ? 64 : 128;  // keys a k-tile
-  static constexpr int kStages = D == 64 ? 4 : 2;
+  static constexpr int kN = D == 256 || kCtas > 1 ? 64 : 128;  // keys a k-tile
+  static constexpr int kStages = D <= 64 ? 4 : 2;
+  // Registers a thread: what the launch gives (65,536 over the SM's
+  // threads, in steps of 8: 168, or 80 at two CTAs), the producer's after
+  // setmaxnreg, and the two consumer groups' (the rest: 240, or 104).
+  static constexpr int kLaunchRegs = 65536 / (kTmaThreads * kCtas) / 8 * 8;
+  static constexpr int kProducerRegs = 24;
+  static constexpr int kConsumerRegs =
+      (kLaunchRegs * kTmaThreads - 128 * kProducerRegs) / 256 / 8 * 8;
   static constexpr int kTileBytes = kN * D * 2;  // one K or V tile
   static constexpr int kQBytes = kRows * D * 2;
   // Byte offsets from the 1 KB aligned base.
@@ -135,11 +177,12 @@ __device__ __forceinline__ void wgmma_ss_n(float (&d)[kN / 8][4], uint64_t da, u
 }
 
 // s (64 x kN f32) = A.B^T over D: A the group's 64 rows of a tile of
-// kRowsA rows at a (box c at a + c kRowsA 64), B the kN-row tile at b. SS
-// wgmma, both operands K-major, D / 16 instructions; s is zeroed here, the
-// products issued, not committed.
+// kRowsA rows at a (box c at a + c kRowsA kBoxCols<D>), B the kN-row tile
+// at b. SS wgmma, both operands K-major, D / 16 instructions (two at D =
+// 32); s is zeroed here, the products issued, not committed.
 template <int D, int kRowsA, int kN>
 __device__ __forceinline__ void scores_ss(float (&s)[kN / 8][4], const bf16* a, const bf16* b) {
+  constexpr int kBox = kBoxCols<D>;
 #pragma unroll
   for (int n = 0; n < kN / 8; ++n) {
 #pragma unroll
@@ -149,57 +192,76 @@ __device__ __forceinline__ void scores_ss(float (&s)[kN / 8][4], const bf16* a, 
   wgmma_hold(s);
 #pragma unroll
   for (int c = 0; c < D / kBox; ++c) {
-    const uint64_t da = wgmma_desc(a + c * kRowsA * kBox, 16);
-    const uint64_t db = wgmma_desc(b + c * kN * kBox, 16);
+    const uint64_t da = box_desc<D>(a + c * kRowsA * kBox, 16);
+    const uint64_t db = box_desc<D>(b + c * kN * kBox, 16);
 #pragma unroll
     for (int kk = 0; kk < kBox / 16; ++kk) wgmma_ss_n<kN>(s, da + 2 * kk, db + 2 * kk);
   }
 }
 
-template <int kC>
-__device__ __forceinline__ void hold_all(float (&acc)[kC][8][4]) {
+template <int kC, int kJ>
+__device__ __forceinline__ void hold_all(float (&acc)[kC][kJ][4]) {
 #pragma unroll
   for (int c = 0; c < kC; ++c) wgmma_hold(acc[c]);
 }
 
+// A group's 64 x D f32 sum: one accumulator per box of columns.
+template <int D>
+using RowSums = float[D / kBoxCols<D>][kBoxCols<D> / 8][4];
+
 // acc (64 x D) += A.X over the kK rows of the tile at x: A the bf16 A
 // fragments a (16 rows of X each; P, dS, P^T or dS^T packed from a score
-// accumulator), X MN-major (row-major, as it landed), a m64n64k16 per 64
-// columns and 16 rows. Issued, not committed.
+// accumulator), X MN-major (row-major, as it landed), an RS m64nNk16 per
+// box of N = kBoxCols<D> columns and 16 rows. Issued, not committed.
 template <int D, int kK>
-__device__ __forceinline__ void add_product_rs(float (&acc)[D / kBox][8][4],
-                                               const uint32_t (&a)[kK / 16][4], const bf16* x) {
+__device__ __forceinline__ void add_product_rs(RowSums<D>& acc, const uint32_t (&a)[kK / 16][4],
+                                               const bf16* x) {
+  constexpr int kBox = kBoxCols<D>;
 #pragma unroll
   for (int c = 0; c < D / kBox; ++c) {
-    const uint64_t db = wgmma_desc(x + c * kK * kBox, kK * kBox * 2);
+    const uint64_t db = box_desc<D>(x + c * kK * kBox, kK * kBox * 2);
 #pragma unroll
-    for (int kk = 0; kk < kK / 16; ++kk) wgmma_rs(acc[c], a[kk], db + (16 * 128 >> 4) * kk);
+    for (int kk = 0; kk < kK / 16; ++kk) {
+      if constexpr (kBox == 64)
+        wgmma_rs(acc[c], a[kk], db + (16 * 128 >> 4) * kk);
+      else
+        wgmma_rs_n32(acc[c], a[kk], db + (16 * 64 >> 4) * kk);
+    }
   }
+}
+
+// The 16-byte unit that unit u of row r of a box of kBox bf16 columns
+// occupies in its swizzle: u ^ (r % 8) in 128-byte rows, u ^ (r / 2 % 4)
+// in 64-byte rows (address bits 4-6 or 4-5 XORed with bits 7-9 or 7-8).
+template <int kBox>
+__device__ __forceinline__ int swizzled_unit(int r, int u) {
+  return kBox == 64 ? u ^ (r & 7) : u ^ ((r >> 1) & 3);
 }
 
 // Write the group's 64 x D f32 sum acc (its rows r0..r0 + 63; each
 // lane's row h times mul[h]) as bf16 rows of out_b (rows `ld` elements
 // apart), rows past tq dropped. The group's own rows of the 128-row tile at `stage`
-// (box c at stage + c 128 64; the group's Q rows) are free once all its
-// warps are past their last product that reads them: the rows go there in
-// the 128-byte swizzle (unit u of row r at u ^ (r % 8)), then out in
-// 16-byte stores of whole 128-byte rows.
+// (box c at stage + c 128 kBoxCols<D>; the group's Q rows) are free once
+// all its warps are past their last product that reads them: the rows go
+// there in the boxes' swizzle (swizzled_unit), then out in 16-byte stores
+// of whole rows.
 template <int D>
-__device__ __forceinline__ void store_rows(const float (&acc)[D / kBox][8][4],
-                                           const float (&mul)[2], bf16* stage, bf16* out_b,
-                                           long long ld, int r0, int tq, int grp, int tid) {
+__device__ __forceinline__ void store_rows(const RowSums<D>& acc, const float (&mul)[2],
+                                           bf16* stage, bf16* out_b, long long ld, int r0, int tq,
+                                           int grp, int tid) {
+  constexpr int kBox = kBoxCols<D>, kUnits = kBox / 8;  // 16-byte units a box row
   const int warp = tid >> 5, lane = tid & 31, t = lane & 3;
   named_sync(1 + grp, 128);
 #pragma unroll
   for (int c = 0; c < D / kBox; ++c) {
     bf16* box = stage + c * 128 * kBox;
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < kUnits; ++n) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int r = warp * 16 + (lane >> 2) + 8 * h;
-        store2(box + r * kBox + ((n ^ (r & 7)) * 8) + 2 * t, acc[c][n][2 * h] * mul[h],
-               acc[c][n][2 * h + 1] * mul[h]);
+        store2(box + r * kBox + swizzled_unit<kBox>(r, n) * 8 + 2 * t,
+               acc[c][n][2 * h] * mul[h], acc[c][n][2 * h + 1] * mul[h]);
       }
     }
   }
@@ -210,11 +272,11 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / kBox][8][4],
   for (int c = 0; c < D / kBox; ++c) {
     const bf16* box = stage + c * 128 * kBox;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = (tid >> 3) + 16 * i, u = tid & 7;
+    for (int i = 0; i < 64 * kUnits / 128; ++i) {
+      const int r = tid / kUnits + (128 / kUnits) * i, u = tid % kUnits;
       if (r0 + r < tq)
         *reinterpret_cast<uint4*>(rows + r * ld32 + c * kBox + u * 8) =
-            *reinterpret_cast<const uint4*>(box + r * kBox + (u ^ (r & 7)) * 8);
+            *reinterpret_cast<const uint4*>(box + r * kBox + swizzled_unit<kBox>(r, u) * 8);
     }
   }
 }
@@ -227,7 +289,7 @@ __device__ __forceinline__ void pack_p(uint32_t (&pa)[kN / 16][4], const float (
 }
 
 template <int D>
-__global__ void __launch_bounds__(kTmaThreads, 1)
+__global__ void __launch_bounds__(kTmaThreads, TmaFwdShape<D>::kCtas)
     flash_fwd_tma_kernel(const __grid_constant__ CUtensorMap q_map,
                          const __grid_constant__ CUtensorMap k_map,
                          const __grid_constant__ CUtensorMap v_map,
@@ -267,7 +329,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
   __syncthreads();
 
   if (threadIdx.x < 128) {  // the producer
-    setmaxnreg_dec<kProducerRegs>();
+    setmaxnreg_dec<Shape::kProducerRegs>();
     if (threadIdx.x >= 32) return;
     const int lane = threadIdx.x;
     const uint8_t* mask_row = mask != nullptr ? mask + (size_t)(bh / heads) * tk : nullptr;
@@ -301,17 +363,18 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
     return;
   }
 
-  setmaxnreg_inc<kConsumerRegs>();
+  setmaxnreg_inc<Shape::kConsumerRegs>();
+  constexpr int kBox = kBoxCols<D>;
   const int grp = threadIdx.x / 128 - 1, tid = threadIdx.x & 127;
   const int warp = tid >> 5, lane = tid & 31, t = lane & 3;
   const int r0 = q0 + 64 * grp;  // the group's first row
   const int row[2] = {r0 + warp * 16 + (lane >> 2), r0 + warp * 16 + (lane >> 2) + 8};
   bf16* gq = sq + grp * 64 * kBox;  // the group's rows of each Q box
-  float o[D / kBox][8][4];
+  RowSums<D> o;
 #pragma unroll
   for (int c = 0; c < D / kBox; ++c) {
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < kBox / 8; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[c][n][e] = 0.f;
     }
@@ -325,6 +388,12 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
   int plain_end = min(nk, tk / kN);
   if (causal) plain_end = min(plain_end, (r0 + 1) / kN);
   if (mask != nullptr) plain_end = 0;
+  // A causal group stops at its last tile with a key at or before its last
+  // row (nk covers the CTA's last row: at 64 keys a tile, group 0's last
+  // tile is all masked; skipping it made K1 5% faster at D = 32 and 2% at D
+  // = 256 on the card, PERF.md). No later tile reuses its slots, so
+  // they need no release.
+  const int nkg = causal ? min(nk, (r0 + 63) / kN + 1) : nk;
 
   // Tile j's S is issued right before tile j - 1's P.V, and its softmax
   // runs while that P.V is in flight; O takes tile j's correction once
@@ -344,7 +413,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
   __syncwarp();
   if (lane == 0) mbar_arrive(&empty_k[0]);  // K and the bias are read
   pack_p<kN>(pa, sc);
-  run_tiles(0, plain_end, nk, [&](int j, auto masked) {
+  run_tiles(0, plain_end, nkg, [&](int j, auto masked) {
     const int s = stage_of<kS>(j), sp = stage_of<kS>(j - 1);
     mbar_wait(&full_k[s], phase_of<kS>(j));
     scores_ss<D, kRows, kN>(sc, gq, sk + s * kN * D);
@@ -367,7 +436,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
 #pragma unroll
     for (int c = 0; c < D / kBox; ++c) {
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
+      for (int n = 0; n < kBox / 8; ++n) {
         o[c][n][0] *= corr[0];
         o[c][n][1] *= corr[0];
         o[c][n][2] *= corr[1];
@@ -377,8 +446,8 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
     pack_p<kN>(pa, sc);
   }, 1);
   {  // the last tile's P.V
-    const int sp = stage_of<kS>(nk - 1);
-    mbar_wait(&full_v[sp], phase_of<kS>(nk - 1));
+    const int sp = stage_of<kS>(nkg - 1);
+    mbar_wait(&full_v[sp], phase_of<kS>(nkg - 1));
     wgmma_fence();
     hold_all(o);
     add_product_rs<D, kN>(o, pa, sv + sp * kN * D);
@@ -550,13 +619,14 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
     lse2[h] = in ? lse[(size_t)bh * tq + row[h]] * kLog2e : 0.f;
     dl[h] = in ? delta[(size_t)bh * tq + row[h]] : 0.f;
   }
+  constexpr int kBox = kBoxCols<D>;
   bf16* gq = sq + grp * 64 * kBox;  // the group's rows of each Q box
   const bf16* gg = sg + grp * 64 * kBox;
-  float acc[D / kBox][8][4];
+  RowSums<D> acc;
 #pragma unroll
   for (int c = 0; c < D / kBox; ++c) {
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < kBox / 8; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[c][n][e] = 0.f;
     }
@@ -652,23 +722,33 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
 // producer; dS^T = P^T (dP^T - delta) scale. At D = 64 and 128 the groups
 // take turns issuing (K1's ping-pong, two turns a tile: the score
 // products, then the output products), so that one group's terms run
-// under the other's products. dK and dV leave straight from the
+// under the other's products (kTurns). dK and dV leave straight from the
 // accumulators.
+// - D = 32: as at D = 64, on one box of 64-byte rows per tile: S^T and
+//   dP^T are two SS m64n64k16 each (K = 32), dV += P^T.dO and dK +=
+//   dS^T.Q an RS m64n32k16 per 16 queries, dV and dK 16 registers a
+//   thread each; a Q and dO stage is 8 KB, so the ring is deep (8 stages
+//   ran 3% faster than 6 on the card). The groups issue without turns:
+//   their products are short at K = 32, and the turns made K3 2% slower
+//   there (PERF.md).
 //
-// Bound on an H100 SXM: at the bench shape (4, 2048, 8, D) causal, 34.4 /
-// 68.8 / 137.5 GFLOP at D = 64 / 128 / 256: 34.8 / 69.5 / 139 us by
-// operations.
+// Bound on an H100 SXM: at the bench shape (4, 2048, 8, D) causal, 17.2 /
+// 34.4 / 68.8 / 137.5 GFLOP at D = 32 / 64 / 128 / 256: 17.4 / 34.8 / 69.5
+// / 139 us by operations. Its 67.1 M exponentials there take about 16 us
+// of the special-function units (16 a clock an SM), level with the
+// products at D = 32.
 //
 // Shared memory: K, V, the ring (Q and dO, lse and delta) and at D = 256
-// the exchange: D = 64: 32 KB + 4 x 16 KB; D = 128: 64 KB + 3 x 32 KB; D =
-// 256: 64 KB + 2 x 64 KB + 16 KB.
+// the exchange: D = 32: 16 KB + 8 x 8 KB; D = 64: 32 KB + 4 x 16 KB; D =
+// 128: 64 KB + 3 x 32 KB; D = 256: 64 KB + 2 x 64 KB + 16 KB.
 // ---------------------------------------------------------------------------
 template <int D>
 struct TmaDkvShape {
   static constexpr bool kSplit = D == 256;  // group 0 owns dV, group 1 dK
   static constexpr int kKeys = kSplit ? 64 : 128;
   static constexpr int kQ = 64;  // queries a q-tile
-  static constexpr int kStages = D == 64 ? 4 : D == 128 ? 3 : 2;
+  static constexpr int kStages = D == 32 ? 8 : D == 64 ? 4 : D == 128 ? 3 : 2;
+  static constexpr bool kTurns = !kSplit && D != 32;  // the groups' ping-pong
   static constexpr int kKVBytes = kKeys * D * 2;  // K or V
   static constexpr int kQBytes = kQ * D * 2;      // a Q or dO tile
   static constexpr int kV = kKVBytes;
@@ -722,7 +802,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
                          float scale, int causal) {
   using Shape = TmaDkvShape<D>;
   constexpr int kS = Shape::kStages, kKeys = Shape::kKeys, kQ = Shape::kQ;
-  constexpr int kC = D / kBox;
+  constexpr int kBox = kBoxCols<D>, kC = D / kBox;
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* base = smem + (kAlign - smem_addr(smem) % kAlign) % kAlign;
   bf16* sk = reinterpret_cast<bf16*>(base);
@@ -801,11 +881,12 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
 
   // The group's 64 keys x D of dV and dK (kSplit: group 0's acc is dV,
   // group 1's dK).
-  float acc[kC][8][4], acc2[Shape::kSplit ? 1 : kC][8][4];
+  RowSums<D> acc;
+  float acc2[Shape::kSplit ? 1 : kC][kBox / 8][4];
 #pragma unroll
   for (int c = 0; c < kC; ++c) {
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < kBox / 8; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[c][n][e] = 0.f;
     }
@@ -813,7 +894,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
 #pragma unroll
   for (int c = 0; c < (Shape::kSplit ? 1 : kC); ++c) {
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < kBox / 8; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc2[c][n][e] = 0.f;
     }
@@ -823,33 +904,33 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
   if constexpr (!Shape::kSplit) {
     // acc: dV, acc2: dK. Two turns of the groups' ping-pong a tile: the
     // score products, then the output products.
-    if (tiles > 0) turn_open(grp);
+    if (Shape::kTurns && tiles > 0) turn_open(grp);
     run_tiles(masked_end, plain_end, tiles, [&](int i, auto masked) {
       const int s = stage_of<kS>(i), q0 = (qt0 + i) * kQ;
       const bf16* cq = sq + s * kQ * D;
       const bf16* cg = sg + s * kQ * D;
       mbar_wait(&full[s], phase_of<kS>(i));
       float st[8][4], dpt[8][4];
-      turn_wait(grp);
+      if constexpr (Shape::kTurns) turn_wait(grp);
       scores_ss<D, kKeys, kQ>(st, gk, cq);
       wgmma_commit();
       scores_ss<D, kKeys, kQ>(dpt, gv, cg);
       wgmma_commit();
-      turn_pass(grp, false);
+      if constexpr (Shape::kTurns) turn_pass(grp, false);
       wgmma_wait<0>();
       wgmma_hold(st);
       wgmma_hold(dpt);
       uint32_t pa[4][4], dsa[4][4];
       dkv_terms<decltype(masked)::value>(pa, dsa, st, dpt, slse + s * kQ, sdelta + s * kQ, q0,
                                          t, key, key_live, tq, scale, scale2, causal);
-      turn_wait(grp);
+      if constexpr (Shape::kTurns) turn_wait(grp);
       wgmma_fence();
       hold_all(acc);
       hold_all(acc2);
       add_product_rs<D, kQ>(acc, pa, cg);
       add_product_rs<D, kQ>(acc2, dsa, cq);
       wgmma_commit();
-      turn_pass(grp, i == tiles - 1);
+      if constexpr (Shape::kTurns) turn_pass(grp, i == tiles - 1);
       wgmma_wait<0>();
       hold_all(acc);
       hold_all(acc2);
@@ -930,14 +1011,14 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
 #pragma unroll
     for (int c = 0; c < kC; ++c) {
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+      for (int n = 0; n < kBox / 8; ++n)
         store2(first + c * kBox + 8 * n + 2 * t, acc[c][n][2 * h], acc[c][n][2 * h + 1]);
     }
     if constexpr (!Shape::kSplit) {
 #pragma unroll
       for (int c = 0; c < kC; ++c) {
 #pragma unroll
-        for (int n = 0; n < 8; ++n)
+        for (int n = 0; n < kBox / 8; ++n)
           store2(dk_row + key[h] * dks.t + c * kBox + 8 * n + 2 * t, acc2[c][n][2 * h],
                  acc2[c][n][2 * h + 1]);
       }
@@ -1018,9 +1099,9 @@ int launch_dkv_tma_as(View q, View k, View v, View g, const void* lse, const voi
 namespace swt {
 
 // K1's and K2's tile is their 128 query rows; K3's its keys (128, or 64
-// at D = 256).
+// at D = 256). K1 and K3 run D = 32 too, K2 only 64, 128 and 256.
 bool tma_tile(int kernel, int d, int tile) {
-  if (d != 64 && d != 128 && d != 256) return false;
+  if (d != 64 && d != 128 && d != 256 && !(d == 32 && kernel != 1)) return false;
   if (kernel == 0 || kernel == 1) return tile == 128;
   if (kernel == 2) return tile == (d == 256 ? 64 : 128);
   return false;
@@ -1028,7 +1109,7 @@ bool tma_tile(int kernel, int d, int tile) {
 
 int launch_fwd_tma(View q, View k, View v, const void* mask, View out, void* lse, int bh,
                    int heads, int tq, int tk, int d, float scale, int causal, cudaStream_t stream) {
-  return by_tma_head_dim(d, [&](auto dd) {
+  return by_tma_head_dim<true>(d, [&](auto dd) {
     return launch_fwd_tma_as<decltype(dd)::value>(q, k, v, mask, out, lse, bh, heads, tq, tk,
                                                   scale, causal, stream);
   });
@@ -1046,19 +1127,23 @@ int launch_dq_tma(View q, View k, View v, View g, const void* lse, const void* d
 int launch_dkv_tma(View q, View k, View v, View g, const void* lse, const void* delta,
                    const void* mask, View dk, View dv, int bh, int heads, int tq, int tk, int d,
                    float scale, int causal, cudaStream_t stream) {
-  return by_tma_head_dim(d, [&](auto dd) {
+  return by_tma_head_dim<true>(d, [&](auto dd) {
     return launch_dkv_tma_as<decltype(dd)::value>(q, k, v, g, lse, delta, mask, dk, dv, bh,
                                                   heads, tq, tk, scale, causal, stream);
   });
 }
 
 int tma_occupancy(int kernel, int d, int* out) {
-  return by_tma_head_dim(d, [&](auto dd) {
+  if (kernel == 1) {
+    return by_tma_head_dim(d, [&](auto dd) {
+      constexpr int D = decltype(dd)::value;
+      return occupancy(flash_dq_tma_kernel<D>, kTmaThreads, TmaDqShape<D>::kSmemBytes, out);
+    });
+  }
+  return by_tma_head_dim<true>(d, [&](auto dd) {
     constexpr int D = decltype(dd)::value;
     if (kernel == 0)
       return occupancy(flash_fwd_tma_kernel<D>, kTmaThreads, TmaFwdShape<D>::kSmemBytes, out);
-    if (kernel == 1)
-      return occupancy(flash_dq_tma_kernel<D>, kTmaThreads, TmaDqShape<D>::kSmemBytes, out);
     if (kernel == 2)
       return occupancy(flash_dkv_tma_kernel<D>, kTmaThreads, TmaDkvShape<D>::kSmemBytes, out);
     return (int)cudaErrorInvalidValue;

@@ -12,7 +12,8 @@
 namespace {
 
 constexpr int kTmaThreads = 384;  // a producer warpgroup, two consumer warpgroups
-constexpr int kAlign = 1024;        // the 128-byte swizzle repeats every 1 KB
+// The 128-byte swizzle repeats every 1 KB, the 64-byte one every 512 bytes.
+constexpr int kAlign = 1024;
 constexpr int kTmaMaxSmem = 232448;  // the 227 KB an H100 CTA may take
 
 // ---------------------------------------------------------------------------
@@ -274,38 +275,46 @@ EncodeTiled encode_tiled() {
 }
 
 // A 4-D map over the (B, H, T, D) view `x` of T (bf16 or float), dims (d,
-// t, h, b) with x's strides in bytes (B = bh / heads): boxes of one
-// 128-byte swizzle row of columns (64 bf16, 32 f32) x `rows` rows x one
-// head x one batch, 128-byte swizzle, zeros past every edge, so a box never
-// reaches into another (batch, head)'s rows. Encoded at every call (a few
-// microseconds on the host) and passed by value, so a CUDA graph keeps each
-// launch's own.
+// t, h, b) with x's strides in bytes (B = bh / heads): boxes of one swizzle
+// row of columns x `rows` rows x one head x one batch, zeros past every
+// edge, so a box never reaches into another (batch, head)'s rows. The row
+// is 128 bytes (64 bf16, 32 f32) in the 128-byte swizzle, or, where d
+// holds less (bf16 at d = 32), d's 64 bytes in the 64-byte swizzle. Encoded
+// at every call (a few microseconds on the host) and passed by value, so a
+// CUDA graph keeps each launch's own.
 template <typename T>
 int tensor_map(CUtensorMap* map, const View& x, int bh, int heads, int t, int d, int rows) {
   static_assert(sizeof(T) == 2 || sizeof(T) == 4, "bf16 or f32 tensors");
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   constexpr cuuint64_t kBytes = sizeof(T);
+  const cuuint32_t row_bytes = d * kBytes < 128 ? (cuuint32_t)(d * kBytes) : 128;
+  if (row_bytes != 128 && row_bytes != 64) return (int)cudaErrorInvalidValue;
   const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)t, (cuuint64_t)heads,
                               (cuuint64_t)(bh / heads)};
   const cuuint64_t strides[3] = {(cuuint64_t)x.s.t * kBytes, (cuuint64_t)x.s.h * kBytes,
                                  (cuuint64_t)x.s.b * kBytes};
-  const cuuint32_t box[4] = {(cuuint32_t)(128 / kBytes), (cuuint32_t)rows, 1, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)(row_bytes / kBytes), (cuuint32_t)rows, 1, 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
   const CUresult r = encode(map,
                             sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                                            : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
                             4, x.data,
                             dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+                            row_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                             : CU_TENSOR_MAP_SWIZZLE_64B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// f(D) as an integral constant for D in 64, 128, 256; cudaErrorInvalidValue
-// for any other.
-template <typename F>
+// f(D) as an integral constant for D in 64, 128, 256, and 32 with kWith32
+// (bf16 K1 and K3, on 64-byte rows); cudaErrorInvalidValue for any other.
+// Only the head dims asked for are instantiated.
+template <bool kWith32 = false, typename F>
 int by_tma_head_dim(int d, F&& f) {
+  if constexpr (kWith32) {
+    if (d == 32) return f(std::integral_constant<int, 32>{});
+  }
   if (d == 64) return f(std::integral_constant<int, 64>{});
   if (d == 128) return f(std::integral_constant<int, 128>{});
   if (d == 256) return f(std::integral_constant<int, 256>{});

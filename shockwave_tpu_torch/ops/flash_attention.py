@@ -55,7 +55,9 @@ bf16, m64nNk8 in TF32) from two warpgroups over 64-row tiles. In bf16 at
 head dims 64, 128 and 256, the long tile of K1-K3 runs the TMA-fed
 kernels of `csrc/flash_attention_tma.cu` (`flash_fwd_tma`,
 `flash_dq_tma`, `flash_dkv_tma`: a producer warp issues TMA loads
-completed on mbarriers, two consumer warpgroups run `wgmma`), and in f32
+completed on mbarriers, two consumer warpgroups run `wgmma`), as does
+that of K1 and K3 at 32 (rows of 64 bytes in the 64-byte swizzle;
+`TMA_HEAD_DIMS` per instance), and in f32
 there the long tile of K1-K3 runs those of
 `csrc/flash_attention_tma_f32.cu` (`flash_fwd_f32_tma`,
 `flash_dq_f32_tma`, `flash_dkv_f32_tma`: the same CTA shape on TF32
@@ -105,13 +107,16 @@ INSTANCES = tuple(name + suffix for suffix in KERNEL_DTYPES.values() for name in
 WIDE_INSTANCES = tuple(name + WIDE + suffix for suffix in KERNEL_DTYPES.values()
                        for name in KERNELS)
 # The TMA-fed K1-K3 in bf16 (csrc/flash_attention_tma.cu), which run the
-# long tile of `flash_fwd`, `flash_dq` and `flash_dkv` at TMA_HEAD_DIMS,
-# and in f32 (csrc/flash_attention_tma_f32.cu), which run that of
-# `flash_fwd_f32`, `flash_dq_f32` and `flash_dkv_f32`; their C entry points
-# are those instances'.
+# long tile of `flash_fwd`, `flash_dq` and `flash_dkv` at their
+# TMA_HEAD_DIMS, and in f32 (csrc/flash_attention_tma_f32.cu), which run
+# that of `flash_fwd_f32`, `flash_dq_f32` and `flash_dkv_f32`; their C
+# entry points are those instances'.
 TMA_INSTANCES = tuple(name + suffix + TMA for suffix in KERNEL_DTYPES.values()
                       for name in KERNELS)
-TMA_HEAD_DIMS = (64, 128, 256)
+# The head dims each TMA-fed instance is built for: 64, 128 and 256, and
+# 32 for bf16 K1 and K3 (K2's long tile at 32 stays on mma.sync).
+TMA_HEAD_DIMS = {name: (32, 64, 128, 256) if name in ("flash_fwd" + TMA, "flash_dkv" + TMA)
+                 else (64, 128, 256) for name in TMA_INSTANCES}
 # The backward's delta = rowsum(dO * O) kernel (csrc/flash_attention_delta.cu),
 # in bf16 and in f32.
 DELTA = "flash_bwd_delta"
@@ -125,22 +130,23 @@ LAUNCHES = {name: 0 for name in INSTANCES + WIDE_INSTANCES + TMA_INSTANCES + DEL
 # tile). The bf16 kernels take 32 at the trainer's T = 32; the 3xTF32
 # instances take one warp per CTA up to T = 64, so that the f32 decoder's
 # 32 (batch, head) pairs at T = 64 give 128 CTAs for the card's 132 SMs.
-# Their long tile is 64 rows; at TMA_HEAD_DIMS it is the TMA-fed f32
-# kernels': K1's and K2's 64 query rows (two consumer warpgroups), K3's 64
-# keys (one group forms P^T and owns dV, the other dS^T and dK). The bf16
-# instances keep 32 up to T = 32; their long tile is 64 at D = 32 and, at
+# Their long tile is 64 rows; at their TMA_HEAD_DIMS it is the TMA-fed
+# f32 kernels': K1's and K2's 64 query rows (two consumer warpgroups),
+# K3's 64 keys (one group forms P^T and owns dV, the other dS^T and dK).
+# The bf16 instances keep 32 up to T = 32; their long tile is, at their
 # TMA_HEAD_DIMS, the TMA-fed kernels': K1's and K2's 128 query rows (two
 # consumer warpgroups of 64), K3's 128 keys (64 at D = 256, where one
-# group owns dV and the other dK). The TMA instances' entries are their
-# base instance's.
+# group owns dV and the other dK); K2's at D = 32 is 64 (mma.sync). The
+# TMA instances' entries are their base instance's.
 KERNEL_TILES = {(name + suffix, d): (16, 64, 64) if suffix else (32, 64, 32)
                 for suffix in KERNEL_DTYPES.values() for name in KERNELS
                 for d in KERNEL_HEAD_DIMS}
 KERNEL_TILES.update({(name, d): (32, 64 if "dkv" in name and d == 256 else 128, 32)
                      for base in KERNELS for name in (base, base + TMA)
-                     for d in TMA_HEAD_DIMS})
+                     for d in TMA_HEAD_DIMS[base + TMA]})
 KERNEL_TILES.update({(name + TMA, d): KERNEL_TILES[name, d]
-                     for name in INSTANCES if name.endswith("_f32") for d in TMA_HEAD_DIMS})
+                     for name in INSTANCES if name.endswith("_f32")
+                     for d in TMA_HEAD_DIMS[name + TMA]})
 # The wide instances' tiles in KERNEL_TILES' form (short, long, the
 # longest sequence that takes the short tile). K1's is 64 rows in both
 # dtypes (a wgmma's 64 rows; two warpgroups, csrc/flash_attention_wide.cu).
@@ -274,17 +280,16 @@ def instance(kernel: str, dtype, d: int, tq: int = 1, tk: int = 1) -> str:
     `KERNEL_HEAD_DIMS`, the TMA-fed one (`TMA_INSTANCES`) where it takes
     the long tile."""
     name = kernel + (WIDE if d > KERNEL_HEAD_DIMS[-1] else "") + KERNEL_DTYPES[dtype]
-    if (name + TMA in TMA_INSTANCES and d in TMA_HEAD_DIMS
-            and max(tq, tk) > KERNEL_TILES[name, d][2]):
+    if d in TMA_HEAD_DIMS.get(name + TMA, ()) and max(tq, tk) > KERNEL_TILES[name, d][2]:
         return name + TMA
     return name
 
 
 def tile_instance(name: str, d: int, tile: int) -> str:
     """The instance that runs tile `tile` of instance `name` at head dim
-    `d`: `name`'s TMA-fed instance for its long tile at `TMA_HEAD_DIMS`,
-    else `name`."""
-    if name + TMA in TMA_INSTANCES and d in TMA_HEAD_DIMS and tile == KERNEL_TILES[name, d][1]:
+    `d`: `name`'s TMA-fed instance for its long tile at its
+    `TMA_HEAD_DIMS`, else `name`."""
+    if d in TMA_HEAD_DIMS.get(name + TMA, ()) and tile == KERNEL_TILES[name, d][1]:
         return name + TMA
     return name
 
@@ -416,7 +421,7 @@ def attention_forward(q, k, v, kv_mask, heads: int, scale: float,
                       causal: bool):
     """K1: (out, lse). Plain version on the CPU; on CUDA `instance`'s
     choice: `flash_fwd` (bf16; `flash_fwd_tma` on its long tile at D =
-    64-256) or `flash_fwd_f32` (`flash_fwd_f32_tma` there), or above head
+    32-256) or `flash_fwd_f32` (`flash_fwd_f32_tma` there), or above head
     dim 256 `flash_fwd_wide` or `flash_fwd_wide_f32`. out comes in q's
     form: packed (BH, Tq, D), or a (B, H, Tq, D) view of a new (B, Tq, H,
     D) tensor; lse (BH, Tq) f32."""
@@ -492,7 +497,7 @@ def attention_dkv(q, k, v, g, lse, delta, kv_mask, heads: int, scale: float,
                   causal: bool):
     """K3: (dK, dV), in k's form. Plain version on the CPU; on CUDA
     `instance`'s choice: `flash_dkv` (bf16; `flash_dkv_tma` on its long
-    tile at D = 64-256) or `flash_dkv_f32` (`flash_dkv_f32_tma` there), or
+    tile at D = 32-256) or `flash_dkv_f32` (`flash_dkv_f32_tma` there), or
     above head dim 256 `flash_dkv_wide` or `flash_dkv_wide_f32`."""
     if _on_cpu(q, k, v, g, lse, delta, kv_mask):
         dk, dv = attention_dkv_plain(_packed(q), _packed(k), _packed(v), _packed(g), lse, delta,

@@ -1,6 +1,6 @@
-"""The card a measurement ran on: its `nvidia-smi` name and power limit,
-and its published peak rates; and the one CUDA-graph timer of the
-kernels' measurements (`graph_ms`).
+"""The card a measurement ran on: its `nvidia-smi` name, power limit and
+highest SM clock, its published peak rates and its exponential rate; and
+the one CUDA-graph timer of the kernels' measurements (`graph_ms`).
 
 One table for `chip_smoke.py` and the profilers. A peak is looked up
 from the card's name; a card whose name does not say "H100" has no row
@@ -21,6 +21,26 @@ NAME_TAGS = {"PCIe": "H100 PCIe", "NVL": "H100 NVL"}
 F32_FLOPS = {"H100 PCIe": 51e12, "H100 NVL": 60e12, "H100 SXM": 67e12}
 # Published dense TF32 tensor-core FLOP/s, by part: half the bf16 rate.
 TF32_FLOPS = {"H100 PCIe": 378e12, "H100 NVL": 417.5e12, "H100 SXM": 494.5e12}
+
+
+# Exponentials (MUFU.EX2, the special-function units) an SM issues a
+# clock on compute capability 9.0: 4 in each of its 4 quadrants (the CUDA
+# C++ Programming Guide's throughput table).
+EX2_PER_CLOCK_PER_SM = 16
+
+
+def exp_rate(sms: int, clock_hz: float) -> float:
+    """Exponentials a second on `sms` SMs at `clock_hz`."""
+    return EX2_PER_CLOCK_PER_SM * sms * clock_hz
+
+
+def max_sm_clock_hz() -> float:
+    """The first card's highest SM clock (`nvidia-smi`'s clocks.max.sm),
+    Hz: the clock the card's peak rates assume."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
 
 
 def nvidia_smi() -> str:

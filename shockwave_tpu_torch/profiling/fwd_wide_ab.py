@@ -37,7 +37,7 @@ the tree's sources, and runs each case (`CASES`: the d = 512 main shape
 key-padded, the bench shape (4, 2048, 8, 512) causal, a ragged causal
 case at d = 768, in bf16 and f32; the bench shape (4, 2048, 8, D) causal at
 D = 64, 128 and 256 and the main shape (64, 32, 8, 64) key-padded, in
-bf16 and in f32) through `attention_forward`,
+bf16 and in f32; the bench shape at D = 32 in bf16) through `attention_forward`,
 `attention_dq` and `attention_dkv` (`--kernels`) against their plain
 versions on the same inputs (the backward on the kernel's own lse and
 delta = rowsum(dO * out), as chip_smoke.py runs it). Errors: the forward
@@ -78,6 +78,7 @@ CASES = (
     ("d512_bench_causal_f32", 4, 2048, 8, 512, True, None, "f32"),
     ("d768_ragged_causal_f32", 2, 100, 4, 768, True, "tail", "f32"),
     ("bench_causal", 4, 2048, 8, 64, True, None, "bf16"),
+    ("d32_bench_causal", 4, 2048, 8, 32, True, None, "bf16"),
     ("d128_bench_causal", 4, 2048, 8, 128, True, None, "bf16"),
     ("d256_bench_causal", 4, 2048, 8, 256, True, None, "bf16"),
     ("main_enc_self", 64, 32, 8, 64, False, "tail", "bf16"),

@@ -13,7 +13,8 @@ enum { CUDA_SUCCESS = 0, CUDA_ERROR_INVALID_VALUE = 1 };
 typedef enum { CU_TENSOR_MAP_DATA_TYPE_UINT8 = 0, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 = 9,
                CU_TENSOR_MAP_DATA_TYPE_FLOAT32 = 7 } CUtensorMapDataType;
 typedef enum { CU_TENSOR_MAP_INTERLEAVE_NONE = 0 } CUtensorMapInterleave;
-typedef enum { CU_TENSOR_MAP_SWIZZLE_NONE = 0, CU_TENSOR_MAP_SWIZZLE_128B = 3 } CUtensorMapSwizzle;
+typedef enum { CU_TENSOR_MAP_SWIZZLE_NONE = 0, CU_TENSOR_MAP_SWIZZLE_64B = 2,
+               CU_TENSOR_MAP_SWIZZLE_128B = 3 } CUtensorMapSwizzle;
 typedef enum { CU_TENSOR_MAP_L2_PROMOTION_NONE = 0, CU_TENSOR_MAP_L2_PROMOTION_L2_128B = 2 }
     CUtensorMapL2promotion;
 typedef enum { CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE = 0 } CUtensorMapFloatOOBfill;
@@ -36,7 +37,8 @@ inline int emu_elem_bytes(CUtensorMapDataType type) {
 
 // cuTensorMapEncodeTiled: checks what the emulated copies rely on (element
 // strides of 1, 16-byte aligned base and strides, a box row of at most 128
-// bytes under the 128-byte swizzle) and records the map.
+// bytes under the 128-byte swizzle and 64 under the 64-byte one) and
+// records the map.
 inline CUresult emu_encode_tiled(CUtensorMap* map, CUtensorMapDataType type, cuuint32_t rank,
                                  void* base, const cuuint64_t* dims, const cuuint64_t* strides,
                                  const cuuint32_t* box, const cuuint32_t* elem_strides,
@@ -59,6 +61,8 @@ inline CUresult emu_encode_tiled(CUtensorMap* map, CUtensorMapDataType type, cuu
     }
   }
   if (swizzle == CU_TENSOR_MAP_SWIZZLE_128B && box[0] * map->elem_bytes > 128)
+    return CUDA_ERROR_INVALID_VALUE;
+  if (swizzle == CU_TENSOR_MAP_SWIZZLE_64B && box[0] * map->elem_bytes > 64)
     return CUDA_ERROR_INVALID_VALUE;
   return CUDA_SUCCESS;
 }

@@ -86,6 +86,10 @@ inline std::atomic<long> g_shared_overruns{0};
 // Multiply-adds the tensor-core instructions of the last launch issued
 // (mma.sync and wgmma, each as its M x N x K; a 3xTF32 product is three).
 inline std::atomic<long> g_tensor_macs{0};
+// wgmma instructions of the last launch, by form (0: A from shared memory,
+// 1: A from registers) and N / 8, counted once per thread of the
+// warpgroup that issues them.
+inline std::atomic<long> g_wgmma_ops[2][33];
 
 struct Cta {
   std::vector<unsigned char> smem;
@@ -116,6 +120,8 @@ struct Launch {
   void operator()(A... args) {
     g_grid = grid;
     g_tensor_macs = 0;
+    for (auto& form : g_wgmma_ops)
+      for (auto& count : form) count = 0;
     for (unsigned bz = 0; bz < grid.z; ++bz)
     for (unsigned by = 0; by < grid.y; ++by)
       for (unsigned bx = 0; bx < grid.x; ++bx) {
@@ -258,26 +264,32 @@ inline void named_sync(int id, int count) { named_barrier(id, count).arrive_and_
 inline void named_arrive(int id, int count) { (void)named_barrier(id, count).arrive(); }
 
 // A wgmma matrix descriptor's operand element as the PTX ISA lays out the
-// 128-byte swizzle (the only mode the kernels use): start address, leading
-// byte offset (LBO) and stride byte offset (SBO), each in 16-byte units.
-// K-major element (mn, k) sits at start + (mn / 8) SBO + (mn % 8) 128 + k
-// E (E the element's bytes); MN-major element (k, mn) at start + (k / 8)
-// SBO + (k % 8) 128 + 2 (mn % 64) + (mn / 64) LBO (bf16 only); then bits
-// 4-6 of the address are XORed with bits 7-9. A bf16 element is read as
-// its value, a TF32 one as its 32 bits' top 19.
+// 128-byte swizzle (layout type 1 in bits 62-63) and the 64-byte one (type
+// 2), the modes the kernels use: start address, leading byte offset (LBO)
+// and stride byte offset (SBO), each in 16-byte units, and R the
+// swizzle's row, 128 or 64 bytes. K-major element (mn, k) sits at start +
+// (mn / 8) SBO + (mn % 8) R + k E (E the element's bytes); MN-major
+// element (k, mn) at start + (k / 8) SBO + (k % 8) R + 2 (mn % (R / 2)) +
+// (mn / (R / 2)) LBO (bf16 only); then address bits 4-6 are XORed with
+// bits 7-9 (128 bytes), or bits 4-5 with bits 7-8 (64 bytes). Any other
+// layout type, or a base offset (bits 49-51) other than 0, aborts. A bf16
+// element is read as its value, a TF32 one as its 32 bits' top 19.
 inline float desc_element(uint64_t desc, bool mn_major, int mn, int k, bool tf32 = false) {
   const uint32_t start = (uint32_t)(desc & 0x3fff) << 4;
   const uint32_t lbo = (uint32_t)((desc >> 16) & 0x3fff) << 4;
   const uint32_t sbo = (uint32_t)((desc >> 32) & 0x3fff) << 4;
-  if ((desc >> 62) != 1 || ((desc >> 49) & 7) != 0) {
-    fprintf(stderr, "emulated wgmma: descriptor %llx is not a 128-byte swizzle at offset 0\n",
-            (unsigned long long)desc);
+  const uint64_t layout = desc >> 62;
+  if ((layout != 1 && layout != 2) || ((desc >> 49) & 7) != 0) {
+    fprintf(stderr, "emulated wgmma: descriptor %llx is not a 128- or 64-byte swizzle at "
+            "offset 0\n", (unsigned long long)desc);
     abort();
   }
+  const uint32_t row = layout == 1 ? 128 : 64, cols = row / 2;
   const uint32_t size = tf32 ? 4 : 2;
-  uint32_t off = mn_major ? start + (k / 8) * sbo + (k % 8) * 128 + (mn % 64) * 2 + (mn / 64) * lbo
-                          : start + (mn / 8) * sbo + (mn % 8) * 128 + k * size;
-  off ^= ((off >> 7) & 7) << 4;
+  uint32_t off = mn_major
+                     ? start + (k / 8) * sbo + (k % 8) * row + (mn % cols) * 2 + (mn / cols) * lbo
+                     : start + (mn / 8) * sbo + (mn % 8) * row + k * size;
+  off ^= ((off >> 7) & (row / 16 - 1)) << 4;
   if (off + size > t_cta->smem_bytes) {
     ++g_shared_overruns;
     return 0.f;
@@ -354,13 +366,18 @@ inline bool mbar_try_wait(void* bar, uint32_t parity) {
 // of `map` at coordinates c (innermost first) lands at dst, row after row,
 // elements out of bounds as zeros; under the 128-byte swizzle, bits 4-6
 // of each shared address are XORed with bits 7-9, which needs dst 1 KB
-// aligned for the pattern wgmma's descriptors assume. Then the box's bytes
-// complete on `bar`. The copy runs in the issuing thread: it has landed
-// before the barrier can complete.
+// aligned for the pattern wgmma's descriptors assume, and under the
+// 64-byte swizzle bits 4-5 with bits 7-8, which needs dst 512-byte
+// aligned. Then the box's bytes complete on `bar`. The copy runs in the
+// issuing thread: it has landed before the barrier can complete.
 inline void tma_load(void* dst, const CUtensorMap* map, void* bar, const int* c) {
   const uint32_t base = shared_offset(dst);
   if (map->swizzle == CU_TENSOR_MAP_SWIZZLE_128B && base % 1024) {
     fprintf(stderr, "emulated TMA: 128-byte swizzled box at %u is not 1 KB aligned\n", base);
+    abort();
+  }
+  if (map->swizzle == CU_TENSOR_MAP_SWIZZLE_64B && base % 512) {
+    fprintf(stderr, "emulated TMA: 64-byte swizzled box at %u is not 512-byte aligned\n", base);
     abort();
   }
   const int e = map->elem_bytes;
@@ -379,6 +396,7 @@ inline void tma_load(void* dst, const CUtensorMap* map, void* bar, const int* c)
       }
       uint32_t off = base + (uint32_t)(idx * e);
       if (map->swizzle == CU_TENSOR_MAP_SWIZZLE_128B) off ^= ((off >> 7) & 7) << 4;
+      if (map->swizzle == CU_TENSOR_MAP_SWIZZLE_64B) off ^= ((off >> 7) & 3) << 4;
       if (in)
         memcpy(smem() + off, map->base + src, e);
       else
@@ -407,8 +425,8 @@ inline thread_local std::deque<std::vector<WgmmaOp>> t_wgmma_groups;
 inline void wgmma_ss(float* d, uint64_t da, uint64_t db, int n = 64) {
   t_wgmma_open.push_back({d, da, db, {0, 0, 0, 0}, false, false, n});
 }
-inline void wgmma_rs(float* d, const uint32_t* a, uint64_t db) {
-  t_wgmma_open.push_back({d, 0, db, {a[0], a[1], a[2], a[3]}, true});
+inline void wgmma_rs(float* d, const uint32_t* a, uint64_t db, int n = 64) {
+  t_wgmma_open.push_back({d, 0, db, {a[0], a[1], a[2], a[3]}, true, false, n});
 }
 inline void wgmma_tf32(float* d, int n, const uint32_t* a, uint64_t db) {
   t_wgmma_open.push_back({d, 0, db, {a[0], a[1], a[2], a[3]}, true, true, n});
@@ -456,6 +474,7 @@ inline void wgmma_run(const WgmmaOp& op) {
   if (op.a_in_registers) warp_sync();
   for (int i = 0; i < op.n / 2; ++i) op.d[i] = out[i];
   g_tensor_macs += op.n / 2 * depth;
+  ++g_wgmma_ops[op.a_in_registers][op.n / 8];
 }
 
 // wgmma.wait_group n: the committed groups but the newest n run, in order.
@@ -472,6 +491,11 @@ inline void wgmma_wait(int n) {
 #ifdef EMU_EXPORTS
 extern "C" long emu_shared_overruns() { return emu::g_shared_overruns.load(); }
 extern "C" long emu_tensor_products() { return emu::g_tensor_macs.load(); }
+// The last launch's wgmma instructions of one form (rs: A from registers)
+// and width n, a warpgroup's instruction once.
+extern "C" long emu_wgmma_instructions(int rs, int n) {
+  return emu::g_wgmma_ops[rs != 0][n / 8].load() / 128;
+}
 extern "C" unsigned emu_tensor_map_ranks() {
   const unsigned ranks = emu_map_ranks;
   emu_map_ranks = 0;

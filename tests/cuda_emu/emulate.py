@@ -10,7 +10,7 @@ wide ones, `flash_attention_tma.cu`, the TMA-fed K1-K3 in bf16,
 files it includes inlined) into host C++: the PTX helpers (cp.async,
 ldmatrix, mma.sync, wgmma with its fence, commit and wait, named barriers,
 the async-proxy fence, mbarriers with their phases and transaction bytes,
-cp.async.bulk.tensor with the 128-byte swizzle and zero fill, setmaxnreg
+cp.async.bulk.tensor with the 128- and 64-byte swizzles and zero fill, setmaxnreg
 as a no-op) get emulated bodies from `cuda_runtime.h` here, the
 tensor-map encode call (`cuTensorMapEncodeTiled`) a host stand-in
 (`cuda.h`), and each
@@ -21,8 +21,8 @@ shared library with the same C entry points as the CUDA one, which also
 reports the tensor-core multiply-adds of the last launch
 (`emu_tensor_products`) and the ranks of the tensor maps encoded since it
 was last asked (`emu_tensor_map_ranks`, a bit per rank). The emulation holds the kernels' index math,
-masking, tiles, shared-memory layout (the 128-byte swizzle and wgmma's
-descriptors included, as the PTX ISA lays them out) and barrier
+masking, tiles, shared-memory layout (the 128- and 64-byte swizzles and
+wgmma's descriptors included, as the PTX ISA lays them out) and barrier
 protocol; it shows no timing, no race between a `cp.async` copy and the
 compute that should wait for it (copies land at once; a TMA copy lands in
 the producer's thread before its barrier can complete), and none of the
@@ -72,6 +72,7 @@ BODIES = {
     "wgmma_ss_n128": "emu::wgmma_ss(&d[0][0], da, db, 128);",
     "wgmma_ss_n32": "emu::wgmma_ss(&d[0][0], da, db, 32);",
     "wgmma_rs": "emu::wgmma_rs(&d[0][0], a, db);",
+    "wgmma_rs_n32": "emu::wgmma_rs(&d[0][0], a, db, 32);",
     "wgmma_tf32_n64": "emu::wgmma_tf32(&d[0][0], 64, a, db);",
     "wgmma_tf32_n32": "emu::wgmma_tf32(&d[0][0], 32, a, db);",
     "wgmma_tf32_n16": "emu::wgmma_tf32(&d[0][0], 16, a, db);",
@@ -143,14 +144,17 @@ def compiler():
 
 def cached_build() -> str:
     """`build` into a directory of the temporary directory keyed by a hash
-    of the emulated source, once: test modules in several processes (the
-    f32 and the bf16 emulation tests) share one build, a lock letting the
-    first build it while the others wait."""
+    of the emulated source and the emulator's headers, once: test modules
+    in several processes (the f32 and the bf16 emulation tests) share one
+    build, a lock letting the first build it while the others wait."""
     missing = [name for name in BODIES if not _defined(name)]
     if missing:
         raise ValueError(f"{missing} are not defined in {SOURCES}")
-    key = hashlib.sha256("".join(emulated_source(p, i == 0)
-                                 for i, p in enumerate(SOURCES)).encode()).hexdigest()[:16]
+    headers = "".join(open(os.path.join(HERE, name)).read()
+                      for name in sorted(os.listdir(HERE)) if name.endswith(".h"))
+    key = hashlib.sha256((headers + "".join(emulated_source(p, i == 0)
+                                            for i, p in enumerate(SOURCES))).encode()
+                         ).hexdigest()[:16]
     out_dir = os.path.join(tempfile.gettempdir(), f"swt_cuda_emu_{key}")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "lock"), "w") as lock:

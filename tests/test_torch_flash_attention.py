@@ -290,6 +290,26 @@ class TestRaggedEdgesAgainstJax:
             assert np.abs(a - b).max() < GRAD_TOL
 
 
+class TestHeadDim32AgainstJax:
+    """Head dims 32 and 16 (padded to 32) at sequences past the short tile,
+    where on the card K1 and K3 run their TMA-fed instances on 64-byte
+    rows and K2 its mma.sync tile: the port (its plain versions on the
+    CPU) against the JAX package, forward and gradients, causal and
+    key-padded, in f32."""
+
+    @pytest.mark.parametrize("d", [16, 32])
+    @pytest.mark.parametrize("t,causal", [(64, True), (128, True), (128, False)])
+    def test_forward_and_gradients(self, d, t, causal):
+        rng = np.random.RandomState(t + d)
+        q, k, v = rand_qkv(rng, 2, t, 2, d)
+        kpm = np.arange(t)[None, :] < np.array([[t], [t // 2 + 3]])
+        err = np.abs(torch_out(q, k, v, causal=causal, key_padding_mask=kpm)
+                     - jax_out(q, k, v, causal=causal, key_padding_mask=kpm)).max()
+        assert err < FWD_TOL, err
+        for a, b in zip(torch_grads(q, k, v, kpm, causal), jax_grads(q, k, v, kpm, causal)):
+            assert np.abs(a - b).max() < GRAD_TOL
+
+
 def _chip_smoke():
     """chip_smoke.py as a module (it imports only torch at the top)."""
     spec = importlib.util.spec_from_file_location(
@@ -318,10 +338,10 @@ class TestLaunchConfig:
                     assert tile in (short, long)
                     # The short tile only where both sequences are in its reach.
                     assert (tile == short) == (max(tq, tk) <= short_up_to)
-                    if name not in self.TF32_INSTANCES:  # bf16: 32, then 64 (at
-                        # D = 32) or the TMA-fed K1's and K2's 128 rows and
-                        # K3's 128 keys (64 at D = 256)
-                        long = (64 if d == 32 else
+                    if name not in self.TF32_INSTANCES:  # bf16: 32, then 64 (K2
+                        # at D = 32, mma.sync) or the TMA-fed K1's and K2's
+                        # 128 rows and K3's 128 keys (64 at D = 256)
+                        long = (64 if d == 32 and name == "flash_dq" else
                                 128 if name != "flash_dkv" or d < 256 else 64)
                         assert tile == (32 if max(tq, tk) <= 32 else long)
                         assert (fa.instance(name, torch.bfloat16, d, tq, tk)
@@ -380,6 +400,31 @@ class TestLaunchConfig:
         for _, _, tq, tk, _, d, _, _ in main:
             assert fa.launch_config(tq, tk, d) == 32
 
+    @pytest.mark.parametrize("t", [33, 48, 64, 100, 128, 2048])
+    def test_head_dim_32_past_the_short_tile_takes_tma_k1_and_k3(self, t):
+        """In bf16 at head dim 32 (and d = 16, which pads to it), past T =
+        32: `instance`, `launch_config` and `tile_instance` pick the
+        TMA-fed K1 and K3 (128 rows, 128 keys) and K2's mma.sync 64-row
+        tile; the longer sequence decides; up to T = 32 all three keep
+        the short tile, and f32 keeps its mma.sync instances."""
+        assert fa.kernel_head_dim(16) == fa.kernel_head_dim(32) == 32
+        for kernel, want, tile in (("flash_fwd", "flash_fwd_tma", 128),
+                                   ("flash_dq", "flash_dq", 64),
+                                   ("flash_dkv", "flash_dkv_tma", 128)):
+            for tq, tk in ((t, t), (16, t), (t, 16)):
+                got = fa.instance(kernel, torch.bfloat16, 32, tq, tk)
+                assert got == want
+                assert fa.launch_config(tq, tk, 32, got) == tile
+            assert fa.tile_instance(kernel, 32, tile) == want
+            assert fa.tile_instance(kernel, 32, 32) == kernel
+            assert fa.instance(kernel, torch.bfloat16, 32, 32, 32) == kernel
+            assert fa.launch_config(32, 32, 32, kernel) == 32
+            assert fa.instance(kernel, torch.float32, 32, t, t) == kernel + "_f32"
+        assert fa.TMA_HEAD_DIMS["flash_fwd" + fa.TMA] == fa.TMA_HEAD_DIMS["flash_dkv" + fa.TMA]
+        assert 32 in fa.TMA_HEAD_DIMS["flash_fwd" + fa.TMA]
+        assert 32 not in fa.TMA_HEAD_DIMS["flash_dq" + fa.TMA]
+        assert all(32 not in fa.TMA_HEAD_DIMS[n] for n in fa.TMA_INSTANCES if "_f32" in n)
+
     def test_every_config_is_reached_by_a_chip_smoke_case(self):
         smoke = _chip_smoke()
         for cases, suffix in ((smoke.CASES, ""), (smoke.F32_CASES, "_f32")):
@@ -424,7 +469,7 @@ class TestLaunchConfig:
                    for c in smoke.CASES if c[5] in fa.KERNEL_HEAD_DIMS)
         # The TMA-fed K1 and K3 at each of their head dims: the bench shape,
         # Tq != Tk key-padded, ragged causal and the row that sees no key.
-        for d in fa.TMA_HEAD_DIMS:
+        for d in fa.TMA_HEAD_DIMS["flash_fwd" + fa.TMA]:
             tma = [c for c in smoke.CASES if c[5] == d and max(c[2], c[3]) > 32]
             assert any(c[1:4] == (4, 2048, 2048) and c[6] for c in tma), d
             assert any(c[2] != c[3] and c[7] == "tail" for c in tma), d
@@ -468,6 +513,32 @@ class TestChipSmokeKernelsLine:
                                         "tile": fa.launch_config(tq, tk, d, iname)}
         return record
 
+    def test_the_bound_counts_each_visible_scores_exponential(self):
+        """`work` gives K1, K2 and K3 one exponential per visible score
+        (every causal pair by default; `visible_scores` from the mask and
+        causality), delta none; at the bench shape 67.1 M, which at 16 a
+        clock on 132 SMs at 1.98 GHz take 0.01605 ms, twice K1's ops
+        bound at D = 32 and under it at D = 64."""
+        smoke = _chip_smoke()
+        from shockwave_tpu_torch.profiling import device
+        exps = 4 * 8 * 2048 * 2049 // 2
+        assert exps == 67_141_632
+        w = smoke.work(4, 2048, 2048, 8, 32, True)
+        assert [w[k][2] for k in ("flash_fwd", "flash_dq", "flash_dkv", "flash_bwd_delta")] == [
+            exps, exps, exps, 0]
+        rate = device.exp_rate(132, 1.98e9)
+        assert exps / rate * 1e3 == pytest.approx(0.01605, rel=1e-3)
+        assert exps / rate > 1.8 * w["flash_fwd"][1] / 989e12
+        assert exps / rate < smoke.work(4, 2048, 2048, 8, 64, True)["flash_fwd"][1] / 989e12 * 1.1
+        cpu = torch.device("cpu")
+        assert smoke.visible_scores(None, 4, 8, 2048, 2048, True, cpu) == exps
+        assert smoke.visible_scores(None, 2, 3, 5, 7, False, cpu) == 2 * 3 * 5 * 7
+        mask = torch.ones(1, 4, dtype=torch.bool)
+        mask[0, 0] = False  # key 0 masked: rows 0..3 see 0, 1, 2, 3 keys
+        assert smoke.visible_scores(mask, 1, 2, 4, 4, True, cpu) == 2 * 6
+        assert smoke.visible_scores(mask, 1, 2, 3, 4, False, cpu) == 2 * 3 * 3
+        assert smoke.work(1, 4, 4, 2, 32, True, visible=12)["flash_dkv"][2] == 12
+
     def test_kernels_line_names_every_instance(self):
         smoke = _chip_smoke()
         cases = {c[0]: self._record(fa, c, torch.bfloat16, smoke) for c in smoke.CASES}
@@ -484,10 +555,12 @@ class TestChipSmokeKernelsLine:
                 widths: {"shape": [8, 64], "launches": launches(
                     {fa.instance(k, dtype, d, 64, 64) for k in fa.KERNELS}, 2)}
                 for widths, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32))}
+        served["decoder_flash_bf16"] = {"launches": launches(
+            {fa.instance(k, torch.bfloat16, 32, 64, 64) for k in fa.KERNELS}, 2)}
         served["decoder_flash_f32_long"] = {
             f"head_dim_{d}": {"shape": [8, 128], "launches": launches(
                 {fa.instance(k, torch.float32, d, 128, 128) for k in fa.KERNELS}, 2)}
-            for d in fa.TMA_HEAD_DIMS}
+            for d in fa.TMA_HEAD_DIMS["flash_fwd_f32" + fa.TMA]}
         profiled = {"launches": launches(
             {fa.instance(k, torch.bfloat16, 64, 2048, 2048) for k in fa.KERNELS}, 180)}
         rows = smoke.kernel_rows(fa, cases, sliced, served, profiled)
@@ -503,9 +576,16 @@ class TestChipSmokeKernelsLine:
             assert row["source"] == "shockwave_tpu_torch/csrc/flash_attention_delta.cu"
             assert row["launches"] == launched and row["bound_by"] == "bytes"
             assert {"bench_ms", "bench_plain_ms", "bench_bound_ms"} <= set(row)
-        for name in fa.INSTANCES:  # head dim 32's long tile at the bench shape
-            assert by_name[name]["d32_bench_instance"] == name
-            assert by_name[name]["d32_bench_tile"] == fa.KERNEL_TILES[name, 32][1]
+        for name in fa.INSTANCES:  # head dim 32's long tile at the bench shape: bf16
+            tile = fa.KERNEL_TILES[name, 32][1]  # K1's and K3's TMA-fed, K2's mma.sync
+            assert by_name[name]["d32_bench_instance"] == fa.tile_instance(name, 32, tile)
+            assert by_name[name]["d32_bench_tile"] == tile
+        for name in ("flash_fwd_tma", "flash_dkv_tma"):  # and their own rows
+            assert {"d32_bench_ms", "d32_bench_bound_ms", "d32_bench_plain_ms",
+                    "d32_bench_library_ms"} <= set(by_name[name])
+            assert by_name[name]["d32_decoder_launches"] == 2
+        assert by_name["flash_dkv_tma"]["d32_bench_k2_k3_ms"] == 1.0
+        assert "d32_bench_ms" not in by_name["flash_dq_tma"]
         for name in fa.TMA_INSTANCES:
             row = by_name[name]
             if "_f32" in name:  # f32: launched by the f32 decoder at T = 128
@@ -633,10 +713,12 @@ class TestCInterface:
         assert name == self.ENTRY[kernel] + suffix
         self._check_types(name, args)
         # T = 48: the 3xTF32 instances take their one-warp tile, the bf16
-        # ones their 64-row tile.
-        tile = 16 if suffix else 64
+        # ones their long tile: K1's and K3's TMA-fed 128 rows, K2's 64.
+        tile = 16 if suffix else 64 if kernel == "dq" else 128
         assert args[-10:] == (bh, heads, t, t, d, tile, 0.25, 1, 0, 0)
-        assert {n: c for n, c in fa.LAUNCHES.items() if c} == {f"flash_{kernel}{suffix}": 1}
+        instance = fa.instance(f"flash_{kernel}", dtype, d, t, t)
+        assert instance == f"flash_{kernel}{suffix}" + ("" if suffix or kernel == "dq" else fa.TMA)
+        assert {n: c for n, c in fa.LAUNCHES.items() if c} == {instance: 1}
 
     @pytest.mark.parametrize("dtypes", [(torch.float16,) * 3, (torch.float64,) * 3,
                                         (torch.bfloat16, torch.float32, torch.bfloat16)])
@@ -733,6 +815,24 @@ class TestCInterface:
             for view in (a for a in args if isinstance(a, fa._build.View)):
                 assert (view.s.b, view.s.h, view.s.t) == (32 * 2 * 512, 512, 2 * 512)
         assert {n: c for n, c in fa.LAUNCHES.items() if c} == dict.fromkeys(names + [delta], 1)
+
+    @pytest.mark.parametrize("d", [16, 32])
+    def test_head_dim_32_reaches_tma_k1_and_k3(self, lib, d):
+        """bf16 at d = 32, and d = 16 padded to 32, at T = 64: the forward +
+        backward launches the TMA-fed K1 (tile 128) through swt_flash_fwd,
+        delta, K2's mma.sync instance (tile 64) and the TMA-fed K3 (tile
+        128) through swt_flash_dkv, once each, at width 32."""
+        b, t, h = 2, 64, 2
+        q, k, v = (torch.zeros(b, t, h, d, dtype=torch.bfloat16, requires_grad=True)
+                   for _ in range(3))
+        fa.flash_attention(q, k, v, causal=True).sum().backward()
+        assert [name for name, _ in lib.calls] == ["swt_flash_fwd", "swt_flash_bwd_delta",
+                                                   "swt_flash_dq", "swt_flash_dkv"]
+        for (name, args), tile in zip(lib.calls[:1] + lib.calls[2:], (128, 64, 128)):
+            self._check_types(name, args)
+            assert args[-10:-4] == (b * h, h, t, t, 32, tile)
+        assert {n: c for n, c in fa.LAUNCHES.items() if c} == {
+            "flash_fwd_tma": 1, "flash_bwd_delta": 1, "flash_dq": 1, "flash_dkv_tma": 1}
 
     @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
     @pytest.mark.parametrize("t", [32, 48])

@@ -46,8 +46,9 @@ def test_bf16_kernels_match_the_plain_versions(lib, b, tq, tk, h, d, causal, mas
 
 def test_every_bf16_tile_is_emulated():
     """The bf16 cases reach both tiles of each bf16 instance at every head
-    dim (K1-K3's long tile at D = 64, 128 and 256 through their
-    TMA-fed instances, each at every one of those widths), the row that
+    dim (K1-K3's long tile at D = 64, 128 and 256, and K1's and K3's at
+    32, through their TMA-fed instances, each at every one of its
+    widths), the row that
     sees no key at both tiles (at D = 256 too), and d = 96 and 200
     padded."""
     for name in fa.KERNELS:
@@ -64,7 +65,7 @@ def test_every_bf16_tile_is_emulated():
     reached = {(fa.instance(name, torch.bfloat16, fa.kernel_head_dim(c[4]), c[1], c[2]),
                 fa.kernel_head_dim(c[4])) for name in fa.KERNELS for c in BF16_CASES}
     assert {(name, d) for name in fa.TMA_INSTANCES if "_f32" not in name
-            for d in fa.TMA_HEAD_DIMS} <= reached
+            for d in fa.TMA_HEAD_DIMS[name]} <= reached
     assert {fa.kernel_head_dim(d) for _, _, _, _, d, _, _ in BF16_CASES
             if fa.kernel_head_dim(d) != d} == {128, 256}
 

@@ -11,9 +11,10 @@ and strides):
 - fused: q, k and v sliced out of one (B, T, 3, H, D) projection, rows 3 H
   D apart; out and dO out of another, dQ, dK and dV into a third.
 The instances: the mma.sync K1-K3 in bf16 (the short tile at D = 64 and
-256, the long one at D = 32) and in f32 (the short tile at D = 64 and
-128, the long one at D = 32), the TMA-fed ones in bf16 (D = 64 and 256)
-and in f32 (D = 64 and 128), whose tensor maps are 4-D over (d, t, h, b),
+256, K2's long one at D = 32) and in f32 (the short tile at D = 64 and
+128, the long one at D = 32), the TMA-fed ones in bf16 (D = 64 and 256,
+and K1 and K3 at D = 32 on 64-byte rows) and in f32 (D = 64 and 128),
+whose tensor maps are 4-D over (d, t, h, b),
 and the wide ones at D = 512 in both dtypes at both of K2's and K3's
 tiles (two (batch, head) pairs a CTA at T = 17, the second of another
 batch at H = 1). The delta kernel is held to its plain version at 1e-6 relative to the largest
@@ -150,7 +151,9 @@ def test_every_layout_gives_the_same_bits(lib, dt, b, t, h, d, causal, mask_kind
 
 def test_the_cases_reach_every_strided_instance():
     """The cases take every instance of K1-K3: the mma.sync ones at both
-    tiles in each dtype, the TMA-fed ones, the wide ones at both tiles."""
+    tiles in each dtype (bf16 K1 and K3 at the short one: their long tile
+    is TMA-fed at every head dim), the TMA-fed ones (bf16 K1 and K3 at D =
+    32 too), the wide ones at both tiles."""
     reached = {fa.instance(k, DTYPES[c[0]], c[4], c[2], c[2]) for c in CASES for k in fa.KERNELS}
     assert set(fa.INSTANCES) | set(fa.TMA_INSTANCES) | set(fa.WIDE_INSTANCES) == reached
     for name in fa.WIDE_INSTANCES:
@@ -161,9 +164,13 @@ def test_the_cases_reach_every_strided_instance():
               fa.launch_config(c[2], c[2], c[4], fa.instance(k, DTYPES[c[0]], c[4], c[2], c[2])))
              for c in CASES for k in fa.KERNELS}
     for name in fa.INSTANCES:
+        long = fa.KERNEL_TILES[name, 32][1]
         assert {tile for n, tile in tiles if n == name} == {
-            min(fa.KERNEL_TILES[name, d][0] for d in fa.KERNEL_HEAD_DIMS),
-            fa.KERNEL_TILES[name, 32][1]}, name
+            min(fa.KERNEL_TILES[name, d][0] for d in fa.KERNEL_HEAD_DIMS)} | (
+            {long} if fa.tile_instance(name, 32, long) == name else set()), name
+    assert {("flash_fwd" + fa.TMA, 128), ("flash_dkv" + fa.TMA, 128)} <= {
+        (fa.instance(k, torch.bfloat16, 32, c[2], c[2]), 128) for c in CASES
+        if c[0] == "bf16" and c[4] == 32 for k in fa.KERNELS}
 
 
 def test_tma_maps_are_four_dimensional(lib):
