@@ -9,15 +9,15 @@ Phases, in order; any failure exits non-zero and prints no result:
    the torch and CUDA versions.
 2. build: nvcc compiles `shockwave_tpu_torch/csrc/*.cu` (timed); the
    instantiations that spill registers, named from ptxas's report
-   (`spills:`; the TMA-fed f32 K1-K3 and the TMA-fed bf16 K1 and K3 at D
-   = 32 must spill none); the HMMA instructions of each instantiation in
+   (`spills:`; the TMA-fed f32 K1-K3 and the TMA-fed bf16 K1-K3 at D = 32
+   must spill none); the HMMA instructions of each instantiation in
    the library's SASS, by mnemonic, with the TMA loads (`sass:`; the
    3xTF32 kernels must hold TF32 ones, the wgmma kernels, K1-K3 wide in
    both dtypes, HGMMA ones of their dtype and no HMMA, the TMA-fed K1-K3
-   in bf16 at D = 64, 128 and 256, and K1 and K3 at D = 32, bf16 HGMMA,
-   UTMALDG and no HMMA, and no long-tile mma.sync K1 or K3 instance at D
-   = 32, the TMA-fed K1-K3 in f32 at D = 64-256 TF32 HGMMA, UTMALDG and
-   no HMMA, and no long-tile mma.sync f32 instance there);
+   in bf16 at D = 32, 64, 128 and 256 bf16 HGMMA, UTMALDG and no HMMA,
+   and no long-tile mma.sync bf16 instance at any of them, the TMA-fed
+   K1-K3 in f32 at D = 64-256 TF32 HGMMA, UTMALDG and no HMMA, and no
+   long-tile mma.sync f32 instance there);
    then each kernel instantiation's
    resident CTAs per SM, threads, shared memory and registers, and at the
    main shape each
@@ -70,8 +70,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    kernel (`flash_bwd_delta`) the same bits on both and within DELTA_TOL
    of its plain version; it is timed at the shapes of its rows
    (DELTA_TIMED). The bench shape at head dim 32 (`d32_bench_causal`, both
-   dtypes) times the long tile there: in bf16 the TMA-fed K1 and K3 on
-   64-byte rows and K2's mma.sync tile, in f32 the mma.sync instances.
+   dtypes) times the long tile there: in bf16 the TMA-fed K1-K3 on
+   64-byte rows, in f32 the mma.sync instances.
    Each kernel's bound is the largest of its bytes, its operations and
    its exponentials (one per visible score in each of K1-K3, at 16 a
    clock on each SM at the card's highest SM clock; `bound_by` "exp"
@@ -146,8 +146,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    tokens over the host clock, synced). Then `DecoderLM`'s full forward
    in bf16 with flash on (K1, one launch per layer) against its einsum
    path at (8, 64), within the profile phase's logits tolerance, and the
-   same in bf16 forward + backward (head dim 32: the TMA-fed K1 and K3,
-   K2's mma.sync tile), logits and gradients. Then
+   same in bf16 forward + backward (head dim 32: the TMA-fed K1-K3),
+   logits and gradients. Then
    the decoder in f32 (its default) with flash on: its logits against
    the einsum path's and the gradient of a next-token loss through K1-K3's
    f32 instances against the einsum path's, one launch of each per
@@ -2605,7 +2605,7 @@ def main() -> int:
     emit("spills", spilled)
     for prefix in ("flash_fwd_tma_f32_kernel<", "flash_dq_tma_f32_kernel<",
                    "flash_dkv_tma_f32_kernel<", "flash_fwd_tma_kernel<32>",
-                   "flash_dkv_tma_kernel<32>"):
+                   "flash_dq_tma_kernel<32>", "flash_dkv_tma_kernel<32>"):
         check(not any(name.startswith(prefix) for name in spilled),
               f"{prefix}: spills registers ({spilled})")
     hmma = sass_hmma(path)
@@ -2635,10 +2635,9 @@ def main() -> int:
                   f"{name}: no {operand} HGMMA in its SASS ({ops})")
             check(not any(op.startswith("HMMA") for op in ops),
                   f"{name}: HMMA in its SASS ({ops})")
-    # The TMA-fed K1-K3 in bf16, one instance per head dim of theirs (64,
-    # 128 and 256; K1 and K3 at 32 too, on 64-byte rows): bf16 HGMMA fed
-    # by UTMALDG, and no HMMA. The mma.sync K1-K3 keep only the short tile
-    # there (K2 its long tile at D = 32).
+    # The TMA-fed K1-K3 in bf16, one instance per head dim of theirs (32,
+    # on 64-byte rows, 64, 128 and 256): bf16 HGMMA fed by UTMALDG, and no
+    # HMMA. The mma.sync K1-K3 keep only the short tile there.
     for kname in fa.KERNELS:
         prefix, dims = f"{kname}_tma_kernel<", fa.TMA_HEAD_DIMS[kname + fa.TMA]
         found = {name: ops for name, ops in hmma.items() if name.startswith(prefix)}
@@ -2651,7 +2650,6 @@ def main() -> int:
                   f"{name}: not bf16 HGMMA fed by UTMALDG without HMMA ({ops})")
         check(not any(f"{kname}_kernel<{d}, 64>" in hmma for d in dims),
               f"{kname}_kernel: a tile-64 instance at a TMA-fed head dim {dims} is still built")
-    check("flash_dq_kernel<32, 64>" in hmma, "flash_dq_kernel<32, 64>: not in the SASS")
     # The TMA-fed K1-K3 in f32, one instance per head dim 64, 128 and 256:
     # TF32 HGMMA fed by UTMALDG, and no HMMA; the mma.sync K1-K3 in f32
     # keep only the short tile there (and D = 32).

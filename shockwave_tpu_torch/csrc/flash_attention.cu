@@ -26,12 +26,11 @@
 // ring. The wrapper picks kBlock from the sequence lengths
 // (ops/flash_attention.py:launch_config): 32 when both are at most 32
 // (the trainer's T = 32: a 2-warp CTA per (bh), no padding rows), 64
-// otherwise. In bf16 at D = 64, 128 and 256, the long tile of K1-K3 is
-// the TMA-fed wgmma kernels' (flash_attention_tma.cu, reached from
-// swt_flash_fwd, swt_flash_dq and swt_flash_dkv below), and so is K1's and
-// K3's at D = 32, so here K1-K3 are built at the short tile (a wgmma
-// tile's 64 rows, which the T = 32 path cannot fill), and K2 at both
-// tiles at D = 32.
+// otherwise. In bf16 the long tile of K1-K3 is the TMA-fed wgmma
+// kernels' at every head dim (flash_attention_tma.cu, reached from
+// swt_flash_fwd, swt_flash_dq and swt_flash_dkv below), so here K1-K3 are
+// built at the short tile only (a wgmma tile's 64 rows, which the T = 32
+// path cannot fill).
 #include "flash_attention_common.cuh"
 
 namespace {
@@ -333,9 +332,8 @@ __global__ void __launch_bounds__(FwdShape<D, kBlock>::kCtaThreads)
 //    fragments would take 128 more: there each warp reads them from its
 //    own rows of the shared Q and dO tiles at every 16 keys (kHoldQG
 //    false), as K1 reads Q at D = 256. Q, dO and two K/V stages take
-//    101,632 bytes at kBlock 32: two CTAs per SM. kBlock 64 is built at D
-//    = 32 only: at D = 64-256 the long tile is the TMA-fed K2's
-//    (flash_attention_tma.cu).
+//    101,632 bytes at kBlock 32: two CTAs per SM. Only kBlock 32 is
+//    built: the long tile is the TMA-fed K2's (flash_attention_tma.cu).
 // ---------------------------------------------------------------------------
 template <int D, int kBlock>
 struct DqShape {
@@ -1529,14 +1527,12 @@ int launch_dkv_f32(View q, View k, View v, View g, const void* lse, const void* 
 }
 
 
-// f(D, kBlock) as integral constants for a (head dim, tile) pair that
-// kernel kKernel's (0: K1, 1: K2, 2: K3) mma.sync instance in bf16 is
-// built for, cudaErrorInvalidValue for any other: the short tile at every
-// head dim, and K2's long tile at D = 32. The TMA-fed kernels take the
-// long tiles of K1-K3 at D = 64, 128 and 256 and of K1 and K3 at D = 32
-// (flash_attention_tma.cu, swt::tma_tile); only the pairs listed here are
-// instantiated.
-template <int kKernel, typename F>
+// f(D, kBlock) as integral constants for a (head dim, tile) pair that the
+// mma.sync K1-K3 in bf16 are built for, cudaErrorInvalidValue for any
+// other: the short tile, at every head dim. The TMA-fed kernels take the
+// long tiles of K1-K3 at every head dim (flash_attention_tma.cu,
+// swt::tma_tile); only the pairs listed here are instantiated.
+template <typename F>
 int by_shape(int d, int tile, F&& f) {
   using I32 = std::integral_constant<int, 32>;
   using I64 = std::integral_constant<int, 64>;
@@ -1546,9 +1542,6 @@ int by_shape(int d, int tile, F&& f) {
   if (d == 128 && tile == 32) return f(I128{}, I32{});
   if (d == 64 && tile == 32) return f(I64{}, I32{});
   if (d == 32 && tile == 32) return f(I32{}, I32{});
-  if constexpr (kKernel == 1) {
-    if (d == 32 && tile == 64) return f(I32{}, I64{});
-  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1588,7 +1581,7 @@ int occupancy_of_bf16(int* out) {
 // occupancy_of_bf16 of kernel kKernel (0-2) at (d, tile), by_shape's pairs.
 template <int kKernel>
 int bf16_occupancy(int d, int tile, int* out) {
-  return by_shape<kKernel>(d, tile, [&](auto dd, auto tt) {
+  return by_shape(d, tile, [&](auto dd, auto tt) {
     return occupancy_of_bf16<kKernel, decltype(dd)::value, decltype(tt)::value>(out);
   });
 }
@@ -1616,11 +1609,11 @@ int occupancy_of_tf32(int kernel, int* out) {
 // (aligned16), returns cudaErrorInvalidValue. q, k, v, g, out, dq, dk and
 // dv are (B, H, T, D) views (View: base and strides, B = bh / heads); lse
 // and delta are packed (bh, tq) f32. `tile` is the tile that the wrapper's
-// launch_config chose for the instance: 32 or 64 for the bf16 instances, 16
-// or 64 for the f32 ones; in bf16 at D = 64, 128 and 256 the long tile of
-// K1 and K2 (128 query rows) and of K3 (128 keys, 64 at D = 256), and at D
-// = 32 that of K1 and K3 (128), launches the TMA-fed kernels of
-// flash_attention_tma.cu, and in f32 there the long
+// launch_config chose for the instance: 32 or the long tile for the bf16
+// instances, 16 or 64 for the f32 ones; in bf16 the long tile of K1 and K2
+// (128 query rows) and of K3 (128 keys, 64 at D = 256) launches the
+// TMA-fed kernels of flash_attention_tma.cu, and in f32 at D = 64, 128
+// and 256 the long
 // tile of K1-K3 (64 query rows, K3's 64 keys) those of
 // flash_attention_tma_f32.cu. Nothing here synchronises.
 extern "C" {
@@ -1634,7 +1627,7 @@ int swt_flash_fwd(View q, View k, View v, const void* mask, View out, void* lse,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (swt::tma_tile(0, d, tile))
     return swt::launch_fwd_tma(q, k, v, mask, out, lse, bh, heads, tq, tk, d, scale, causal, s);
-  return by_shape<0>(d, tile, [&](auto dd, auto tt) {
+  return by_shape(d, tile, [&](auto dd, auto tt) {
     return launch_fwd<decltype(dd)::value, decltype(tt)::value>(
         q, k, v, mask, out, lse, bh, heads, tq, tk, scale, causal, s);
   });
@@ -1650,7 +1643,7 @@ int swt_flash_dq(View q, View k, View v, View g, const void* lse, const void* de
   if (swt::tma_tile(1, d, tile))
     return swt::launch_dq_tma(q, k, v, g, lse, delta, mask, dq, bh, heads, tq, tk, d, scale,
                               causal, s);
-  return by_shape<1>(d, tile, [&](auto dd, auto tt) {
+  return by_shape(d, tile, [&](auto dd, auto tt) {
     return launch_dq<decltype(dd)::value, decltype(tt)::value>(
         q, k, v, g, lse, delta, mask, dq, bh, heads, tq, tk, scale, causal, s);
   });
@@ -1666,7 +1659,7 @@ int swt_flash_dkv(View q, View k, View v, View g, const void* lse, const void* d
   if (swt::tma_tile(2, d, tile))
     return swt::launch_dkv_tma(q, k, v, g, lse, delta, mask, dk, dv, bh, heads, tq, tk, d, scale,
                                causal, s);
-  return by_shape<2>(d, tile, [&](auto dd, auto tt) {
+  return by_shape(d, tile, [&](auto dd, auto tt) {
     return launch_dkv<decltype(dd)::value, decltype(tt)::value>(
         q, k, v, g, lse, delta, mask, dk, dv, bh, heads, tq, tk, scale, causal, s);
   });
@@ -1723,9 +1716,9 @@ int swt_flash_dkv_f32(View q, View k, View v, View g, const void* lse, const voi
 
 // Occupancy of kernel 0 (K1), 1 (K2), 2 (K3), or 3-5 (their f32
 // instances) at head dim d and tile `tile` (16 or 64 for kernels 3-5, their
-// long tile at D = 64-256 the TMA-fed f32 kernels'; 32 or 64 for the
-// others, but for K1-K3's long tiles at D = 64-256 and K1's and K3's at D =
-// 32, the TMA-fed kernels': K1 and K2 128, K3 128 or, at D = 256, 64), or 6-8 (the wide bf16
+// long tile at D = 64-256 the TMA-fed f32 kernels'; for the others 32,
+// or their long tile, the TMA-fed kernels': K1 and K2 128, K3 128 or, at
+// D = 256, 64), or 6-8 (the wide bf16
 // instances) and 9-11 (the wide f32 ones) at a wide d and their tile
 // (flash_attention_wide.cu), on `device`: writes {CTAs per SM, threads per
 // CTA, dynamic shared bytes, registers per thread} to out[0..3].

@@ -1,20 +1,20 @@
 // Flash attention for Hopper (sm_90a): K1 (forward), K2 (dQ) and K3 (dK,
-// dV) in bf16 at head dims 64, 128 and 256, and K1 and K3 at 32, on
-// sequences past the short tile (ops/flash_attention.py:launch_config:
-// max(Tq, Tk) > 32), fed by TMA. They replace _fa_kernel (:40),
+// dV) in bf16 at head dims 32, 64, 128 and 256, on sequences past the
+// short tile (ops/flash_attention.py:launch_config: max(Tq, Tk) > 32), fed
+// by TMA. They replace _fa_kernel (:40),
 // _dq_kernel (:167) and _dkv_kernel (:222) of
 // shockwave_tpu/ops/flash_attention.py there, with the narrow
 // kernels' arguments and masking (flash_attention.cu): causal entries
 // -1e30, then the key bias (-1e30 for a masked key, so an entry both
 // causal-masked and padded sits at -2e30), -inf past a ragged end, the
 // running max from -1e30, and p = 0 where s <= -5e29 in the backward. The
-// narrow mma.sync kernels keep the short tile (a wgmma tile has 64 rows)
-// and K2's long tile at D = 32.
+// narrow mma.sync kernels keep only the short tile (a wgmma tile has 64
+// rows).
 //
 // One CTA shape in all three (kTmaThreads = 384 threads):
 // - warpgroup 0 is the producer. After setmaxnreg lowers it to
-//   kProducerRegs registers a thread (K1: TmaFwdShape's, which at D = 32
-//   fits two CTAs an SM), its first warp issues every TMA load
+//   kProducerRegs registers a thread (TmaRegs; K1 at D = 32 runs two CTAs
+//   an SM), its first warp issues every TMA load
 //   and computes the small per-tile vectors (K1 and K2: the key bias; K3:
 //   lse and delta) into shared memory; its other warps exit.
 // - warpgroups 1 and 2 are the consumers. setmaxnreg raises them to
@@ -47,8 +47,19 @@
 
 namespace {
 
-constexpr int kProducerRegs = 24;
-constexpr int kConsumerRegs = 240;  // 128 x 24 + 256 x 240 <= 384 x 168, what the launch gives
+// Registers a thread of a CTA shape that runs kCtas CTAs an SM: what the
+// launch gives (65,536 over the SM's threads, in steps of 8: 168, or 80 at
+// two CTAs), the producer's after setmaxnreg, and the two consumer groups'
+// (the rest: 240, or 104).
+template <int kCtasPerSm>
+struct TmaRegs {
+  static constexpr int kCtas = kCtasPerSm;
+  static constexpr int kLaunchRegs = 65536 / (kTmaThreads * kCtas) / 8 * 8;
+  static constexpr int kProducerRegs = 24;
+  static constexpr int kConsumerRegs =
+      (kLaunchRegs * kTmaThreads - 128 * kProducerRegs) / 256 / 8 * 8;
+};
+
 // Columns of a TMA box at head dim D: one 128-byte swizzle row of bf16,
 // or at D = 32 the whole 64-byte row (tensor_map picks the swizzle).
 template <int D>
@@ -127,18 +138,10 @@ __device__ __forceinline__ void tma_load_tile(bf16* dst, const CUtensorMap& map,
 // consumers' registers allow no second).
 // ---------------------------------------------------------------------------
 template <int D>
-struct TmaFwdShape {
-  static constexpr int kCtas = D == 32 ? 2 : 1;  // CTAs an SM
+struct TmaFwdShape : TmaRegs<D == 32 ? 2 : 1> {  // two CTAs an SM at D = 32
   static constexpr int kRows = 128;              // query rows a CTA owns
-  static constexpr int kN = D == 256 || kCtas > 1 ? 64 : 128;  // keys a k-tile
+  static constexpr int kN = D == 256 || D == 32 ? 64 : 128;  // keys a k-tile
   static constexpr int kStages = D <= 64 ? 4 : 2;
-  // Registers a thread: what the launch gives (65,536 over the SM's
-  // threads, in steps of 8: 168, or 80 at two CTAs), the producer's after
-  // setmaxnreg, and the two consumer groups' (the rest: 240, or 104).
-  static constexpr int kLaunchRegs = 65536 / (kTmaThreads * kCtas) / 8 * 8;
-  static constexpr int kProducerRegs = 24;
-  static constexpr int kConsumerRegs =
-      (kLaunchRegs * kTmaThreads - 128 * kProducerRegs) / 256 / 8 * 8;
   static constexpr int kTileBytes = kN * D * 2;  // one K or V tile
   static constexpr int kQBytes = kRows * D * 2;
   // Byte offsets from the 1 KB aligned base.
@@ -176,20 +179,23 @@ __device__ __forceinline__ void wgmma_ss_n(float (&d)[kN / 8][4], uint64_t da, u
     wgmma_ss_n32(d, da, db);
 }
 
-// s (64 x kN f32) = A.B^T over D: A the group's 64 rows of a tile of
-// kRowsA rows at a (box c at a + c kRowsA kBoxCols<D>), B the kN-row tile
-// at b. SS wgmma, both operands K-major, D / 16 instructions (two at D =
-// 32); s is zeroed here, the products issued, not committed.
-template <int D, int kRowsA, int kN>
-__device__ __forceinline__ void scores_ss(float (&s)[kN / 8][4], const bf16* a, const bf16* b) {
-  constexpr int kBox = kBoxCols<D>;
+template <int kN>
+__device__ __forceinline__ void zero_scores(float (&s)[kN / 8][4]) {
 #pragma unroll
   for (int n = 0; n < kN / 8; ++n) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
   }
-  wgmma_fence();
-  wgmma_hold(s);
+}
+
+// s (64 x kN f32) += A.B^T over D: A the group's 64 rows of a tile of
+// kRowsA rows at a (box c at a + c kRowsA kBoxCols<D>), B the kN-row tile
+// at b. SS wgmma, both operands K-major, D / 16 instructions (two at D =
+// 32), issued, not committed; s fenced and held by the caller.
+template <int D, int kRowsA, int kN>
+__device__ __forceinline__ void add_scores_ss(float (&s)[kN / 8][4], const bf16* a,
+                                              const bf16* b) {
+  constexpr int kBox = kBoxCols<D>;
 #pragma unroll
   for (int c = 0; c < D / kBox; ++c) {
     const uint64_t da = box_desc<D>(a + c * kRowsA * kBox, 16);
@@ -197,6 +203,16 @@ __device__ __forceinline__ void scores_ss(float (&s)[kN / 8][4], const bf16* a, 
 #pragma unroll
     for (int kk = 0; kk < kBox / 16; ++kk) wgmma_ss_n<kN>(s, da + 2 * kk, db + 2 * kk);
   }
+}
+
+// s = A.B^T (add_scores_ss): s is zeroed here, the products issued, not
+// committed.
+template <int D, int kRowsA, int kN>
+__device__ __forceinline__ void scores_ss(float (&s)[kN / 8][4], const bf16* a, const bf16* b) {
+  zero_scores<kN>(s);
+  wgmma_fence();
+  wgmma_hold(s);
+  add_scores_ss<D, kRowsA, kN>(s, a, b);
 }
 
 template <int kC, int kJ>
@@ -486,7 +502,9 @@ __global__ void __launch_bounds__(kTmaThreads, TmaFwdShape<D>::kCtas)
 // tile's key bias with K. Per k-tile a group:
 // 1. issues S = Q.K^T and dP = dO.V^T (64 x kN f32 each) as SS wgmma, both
 //    operands K-major from the swizzled tiles, as one group; V's slot is
-//    released once they have retired;
+//    released once they have retired. S, dP and dQ are held before the
+//    first of them: held apart, ptxas injected a warpgroup.wait (C7517)
+//    and K2 ran 13% slower at D = 32 and 4-5% at D = 64 and 128 (PERF.md);
 // 2. forms P = 2^(S scale log2(e) - lse2) and dS = P (dP - delta) scale in
 //    registers (dq_terms; masked tiles in _dq_kernel's order: causal
 //    -1e30, then the key bias, p = 0 where that is <= -5e29) and packs dS,
@@ -499,27 +517,40 @@ __global__ void __launch_bounds__(kTmaThreads, TmaFwdShape<D>::kCtas)
 //    dS.K before the next scores by 1.16x at D = 128 and 1.23x at D = 256
 //    and matched it at D = 64; K3's turns made K2 1.3-1.7x slower
 //    (PERF.md).
-// Masked and plain tiles are run_tiles' two instances, as in K1.
+// Masked and plain tiles are run_tiles' two instances, as in K1; a causal
+// group stops at its last tile with a key at or before its last row, as
+// K1's does.
 // dQ leaves as bf16 through the group's own Q rows, as K1's O does; rows
 // past Tq are not stored.
 //
 // kN keeps S, dP, dS's A fragments and dQ inside a consumer's registers:
-// D = 64: 128 keys (64 + 64 + 32 + 32 a thread), D = 128: 64 (32 + 32 +
-// 16 + 64), D = 256: 32 (16 + 16 + 8 + 128).
+// D = 32 and 64: 128 keys (64 + 64 + 32 + 16 or 32 a thread), D = 128: 64
+// (32 + 32 + 16 + 64), D = 256: 32 (16 + 16 + 8 + 128).
 //
-// Bound on an H100 SXM: at the bench shape (4, 2048, 8, D) causal, 25.8 /
-// 51.6 / 103 GFLOP at D = 64 / 128 / 256 (three products per (q, k) pair):
-// 26.1 / 52.1 / 104 us by operations.
+// At D = 32 the tiles are one box of 64-byte rows, as K1's and K3's there:
+// S and dP are two SS m64n128k16 each a k-tile (K = 32), dS.K an RS
+// m64n32k16 per 16 keys (K MN-major as it landed), dQ 64 x 32 f32 (16
+// registers a thread). One CTA an SM (240 registers a consumer), not K1's
+// two: at two CTAs (104 registers a consumer) 64 keys a tile spilled 464 B
+// and ran 2.3x slower on the card, 32 keys 13% slower; a ring 2 deep ran
+// 12% slower than 4, 8 deep no faster (PERF.md).
+//
+// Bound on an H100 SXM: at the bench shape (4, 2048, 8, D) causal, 12.9 /
+// 25.8 / 51.6 / 103 GFLOP at D = 32 / 64 / 128 / 256 (three products per
+// (q, k) pair): 13.0 / 26.1 / 52.1 / 104 us by operations. At D = 32 and
+// 64 the exponentials bound it further, as K1's: K2 recomputes P, 67.1 M
+// there, about 16 us.
 //
 // Shared memory (1 KB alignment, Q and dO, the ring, the bias, the
-// barriers): D = 64: 32 KB + 4 x 32 KB; D = 128: 64 KB + 4 x 32 KB; D =
-// 256: 128 KB + 3 x 32 KB (230,888 bytes: a group holds K_{j-1}, K_j and
-// V_j at once, and with 2 stages the overlap was 1.1x slower than none).
+// barriers): D = 32: 16 KB + 4 x 16 KB; D = 64: 32 KB + 4 x 32 KB; D =
+// 128: 64 KB + 4 x 32 KB; D = 256: 128 KB + 3 x 32 KB (230,888 bytes: a
+// group holds K_{j-1}, K_j and V_j at once, and with 2 stages the overlap
+// was 1.1x slower than none).
 // ---------------------------------------------------------------------------
 template <int D>
-struct TmaDqShape {
+struct TmaDqShape : TmaRegs<1> {
   static constexpr int kRows = 128;  // query rows a CTA owns
-  static constexpr int kN = D == 64 ? 128 : D == 128 ? 64 : 32;  // keys a k-tile
+  static constexpr int kN = D <= 64 ? 128 : D == 128 ? 64 : 32;  // keys a k-tile
   static constexpr int kStages = D == 256 ? 3 : 4;
   static constexpr int kTileBytes = kN * D * 2;  // one K or V tile
   static constexpr int kQBytes = kRows * D * 2;  // the Q or dO tile
@@ -535,7 +566,7 @@ struct TmaDqShape {
 
 
 template <int D>
-__global__ void __launch_bounds__(kTmaThreads, 1)
+__global__ void __launch_bounds__(kTmaThreads, TmaDqShape<D>::kCtas)
     flash_dq_tma_kernel(const __grid_constant__ CUtensorMap q_map,
                         const __grid_constant__ CUtensorMap k_map,
                         const __grid_constant__ CUtensorMap v_map,
@@ -577,7 +608,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
   __syncthreads();
 
   if (threadIdx.x < 128) {  // the producer
-    setmaxnreg_dec<kProducerRegs>();
+    setmaxnreg_dec<Shape::kProducerRegs>();
     if (threadIdx.x >= 32) return;
     const int lane = threadIdx.x;
     const uint8_t* mask_row = mask != nullptr ? mask + (size_t)(bh / heads) * tk : nullptr;
@@ -605,7 +636,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
     return;
   }
 
-  setmaxnreg_inc<kConsumerRegs>();
+  setmaxnreg_inc<Shape::kConsumerRegs>();
   const int grp = threadIdx.x / 128 - 1, tid = threadIdx.x & 127;
   const int warp = tid >> 5, lane = tid & 31, t = lane & 3;
   const int r0 = q0 + 64 * grp;  // the group's first row
@@ -638,6 +669,10 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
   int plain_end = min(nk, tk / kN);
   if (causal) plain_end = min(plain_end, (r0 + 1) / kN);
   if (mask != nullptr) plain_end = 0;
+  // A causal group stops at its last tile with a key at or before its last
+  // row (group 0's last 128 / kN - 1 tiles are all masked); no later tile
+  // reuses its slots, so they need no release.
+  const int nkg = causal ? min(nk, (r0 + 63) / kN + 1) : nk;
 
   auto release = [&](uint64_t* bar) {
     __syncwarp();
@@ -645,13 +680,22 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
   };
   float sc[kN / 8][4], dp[kN / 8][4];
   uint32_t dsa[kN / 16][4];
-  // S and dP of tile j, issued as one group, not waited.
+  // S and dP of tile j, issued as one group, not waited. Both, and dQ
+  // (which the caller's dS.K then adds to), are held before the first
+  // wgmma: a hold between two products' wgmmas makes ptxas serialise them
+  // (C7517).
   auto issue_scores = [&](int j) {
     const int s = stage_of<kS>(j);
     mbar_wait(&full_k[s], phase_of<kS>(j));
     mbar_wait(&full_v[s], phase_of<kS>(j));
-    scores_ss<D, kRows, kN>(sc, gq, sk + s * kN * D);
-    scores_ss<D, kRows, kN>(dp, gg, sv + s * kN * D);
+    zero_scores<kN>(sc);
+    zero_scores<kN>(dp);
+    wgmma_fence();
+    wgmma_hold(sc);
+    wgmma_hold(dp);
+    hold_all(acc);
+    add_scores_ss<D, kRows, kN>(sc, gq, sk + s * kN * D);
+    add_scores_ss<D, kRows, kN>(dp, gg, sv + s * kN * D);
     wgmma_commit();
   };
   mbar_wait(bar_q, 0);
@@ -668,10 +712,9 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
   else
     dq_terms<kN, true>(sc, dp, sbias, 0, row, t, lse2, dl, scale, scale2, causal);
   pack_p<kN>(dsa, dp);
-  run_tiles(0, plain_end, nk, [&](int j, auto masked) {
+  run_tiles(0, plain_end, nkg, [&](int j, auto masked) {
     const int s = stage_of<kS>(j), sp = stage_of<kS>(j - 1);
     issue_scores(j);
-    hold_all(acc);
     add_product_rs<D, kN>(acc, dsa, sk + sp * kN * D);
     wgmma_commit();
     wgmma_wait<1>();
@@ -687,7 +730,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
   }, 1);
   wgmma_fence();  // the last tile's dS.K
   hold_all(acc);
-  add_product_rs<D, kN>(acc, dsa, sk + stage_of<kS>(nk - 1) * kN * D);
+  add_product_rs<D, kN>(acc, dsa, sk + stage_of<kS>(nkg - 1) * kN * D);
   wgmma_commit();
   wgmma_wait<0>();
   hold_all(acc);
@@ -743,7 +786,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
 // 128: 64 KB + 3 x 32 KB; D = 256: 64 KB + 2 x 64 KB + 16 KB.
 // ---------------------------------------------------------------------------
 template <int D>
-struct TmaDkvShape {
+struct TmaDkvShape : TmaRegs<1> {
   static constexpr bool kSplit = D == 256;  // group 0 owns dV, group 1 dK
   static constexpr int kKeys = kSplit ? 64 : 128;
   static constexpr int kQ = 64;  // queries a q-tile
@@ -791,7 +834,7 @@ __device__ __forceinline__ void dkv_terms(uint32_t (&pa)[4][4], uint32_t (&dsa)[
 }
 
 template <int D>
-__global__ void __launch_bounds__(kTmaThreads, 1)
+__global__ void __launch_bounds__(kTmaThreads, TmaDkvShape<D>::kCtas)
     flash_dkv_tma_kernel(const __grid_constant__ CUtensorMap q_map,
                          const __grid_constant__ CUtensorMap k_map,
                          const __grid_constant__ CUtensorMap v_map,
@@ -833,7 +876,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
   __syncthreads();
 
   if (threadIdx.x < 128) {  // the producer
-    setmaxnreg_dec<kProducerRegs>();
+    setmaxnreg_dec<Shape::kProducerRegs>();
     if (threadIdx.x >= 32) return;
     const int lane = threadIdx.x;
     if (lane == 0) {
@@ -862,7 +905,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
     return;
   }
 
-  setmaxnreg_inc<kConsumerRegs>();
+  setmaxnreg_inc<Shape::kConsumerRegs>();
   const int grp = threadIdx.x / 128 - 1, tid = threadIdx.x & 127;
   const int warp = tid >> 5, lane = tid & 31, t = lane & 3;
   const int kg0 = k0 + (Shape::kSplit ? 0 : 64 * grp);  // the group's first key
@@ -1099,9 +1142,9 @@ int launch_dkv_tma_as(View q, View k, View v, View g, const void* lse, const voi
 namespace swt {
 
 // K1's and K2's tile is their 128 query rows; K3's its keys (128, or 64
-// at D = 256). K1 and K3 run D = 32 too, K2 only 64, 128 and 256.
+// at D = 256). All three run D = 32, 64, 128 and 256.
 bool tma_tile(int kernel, int d, int tile) {
-  if (d != 64 && d != 128 && d != 256 && !(d == 32 && kernel != 1)) return false;
+  if (d != 32 && d != 64 && d != 128 && d != 256) return false;
   if (kernel == 0 || kernel == 1) return tile == 128;
   if (kernel == 2) return tile == (d == 256 ? 64 : 128);
   return false;
@@ -1118,7 +1161,7 @@ int launch_fwd_tma(View q, View k, View v, const void* mask, View out, void* lse
 int launch_dq_tma(View q, View k, View v, View g, const void* lse, const void* delta,
                   const void* mask, View dq, int bh, int heads, int tq, int tk, int d, float scale,
                   int causal, cudaStream_t stream) {
-  return by_tma_head_dim(d, [&](auto dd) {
+  return by_tma_head_dim<true>(d, [&](auto dd) {
     return launch_dq_tma_as<decltype(dd)::value>(q, k, v, g, lse, delta, mask, dq, bh, heads, tq,
                                                  tk, scale, causal, stream);
   });
@@ -1134,16 +1177,12 @@ int launch_dkv_tma(View q, View k, View v, View g, const void* lse, const void* 
 }
 
 int tma_occupancy(int kernel, int d, int* out) {
-  if (kernel == 1) {
-    return by_tma_head_dim(d, [&](auto dd) {
-      constexpr int D = decltype(dd)::value;
-      return occupancy(flash_dq_tma_kernel<D>, kTmaThreads, TmaDqShape<D>::kSmemBytes, out);
-    });
-  }
   return by_tma_head_dim<true>(d, [&](auto dd) {
     constexpr int D = decltype(dd)::value;
     if (kernel == 0)
       return occupancy(flash_fwd_tma_kernel<D>, kTmaThreads, TmaFwdShape<D>::kSmemBytes, out);
+    if (kernel == 1)
+      return occupancy(flash_dq_tma_kernel<D>, kTmaThreads, TmaDqShape<D>::kSmemBytes, out);
     if (kernel == 2)
       return occupancy(flash_dkv_tma_kernel<D>, kTmaThreads, TmaDkvShape<D>::kSmemBytes, out);
     return (int)cudaErrorInvalidValue;

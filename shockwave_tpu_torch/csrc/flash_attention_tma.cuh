@@ -308,7 +308,7 @@ int tensor_map(CUtensorMap* map, const View& x, int bh, int heads, int t, int d,
 }
 
 // f(D) as an integral constant for D in 64, 128, 256, and 32 with kWith32
-// (bf16 K1 and K3, on 64-byte rows); cudaErrorInvalidValue for any other.
+// (the bf16 K1-K3, on 64-byte rows); cudaErrorInvalidValue for any other.
 // Only the head dims asked for are instantiated.
 template <bool kWith32 = false, typename F>
 int by_tma_head_dim(int d, F&& f) {

@@ -52,13 +52,12 @@ dtype raises on the card.
 The narrow instances issue `mma.sync` (m16n8k16 in bf16, m16n8k8 in
 TF32); the wide ones, K1-K3 in both dtypes, issue `wgmma` (m64nNk16 in
 bf16, m64nNk8 in TF32) from two warpgroups over 64-row tiles. In bf16 at
-head dims 64, 128 and 256, the long tile of K1-K3 runs the TMA-fed
+head dims 32, 64, 128 and 256, the long tile of K1-K3 runs the TMA-fed
 kernels of `csrc/flash_attention_tma.cu` (`flash_fwd_tma`,
 `flash_dq_tma`, `flash_dkv_tma`: a producer warp issues TMA loads
-completed on mbarriers, two consumer warpgroups run `wgmma`), as does
-that of K1 and K3 at 32 (rows of 64 bytes in the 64-byte swizzle;
-`TMA_HEAD_DIMS` per instance), and in f32
-there the long tile of K1-K3 runs those of
+completed on mbarriers, two consumer warpgroups run `wgmma`; at 32 on
+rows of 64 bytes in the 64-byte swizzle; `TMA_HEAD_DIMS` per instance),
+and in f32 at 64, 128 and 256 the long tile of K1-K3 runs those of
 `csrc/flash_attention_tma_f32.cu` (`flash_fwd_f32_tma`,
 `flash_dq_f32_tma`, `flash_dkv_f32_tma`: the same CTA shape on TF32
 `wgmma` as 3xTF32), each reached through the same C entry point as its
@@ -114,9 +113,9 @@ WIDE_INSTANCES = tuple(name + WIDE + suffix for suffix in KERNEL_DTYPES.values()
 TMA_INSTANCES = tuple(name + suffix + TMA for suffix in KERNEL_DTYPES.values()
                       for name in KERNELS)
 # The head dims each TMA-fed instance is built for: 64, 128 and 256, and
-# 32 for bf16 K1 and K3 (K2's long tile at 32 stays on mma.sync).
-TMA_HEAD_DIMS = {name: (32, 64, 128, 256) if name in ("flash_fwd" + TMA, "flash_dkv" + TMA)
-                 else (64, 128, 256) for name in TMA_INSTANCES}
+# 32 in bf16 (on 64-byte rows; the f32 long tile at 32 stays on mma.sync).
+TMA_HEAD_DIMS = {name: (64, 128, 256) if name.endswith("_f32" + TMA) else (32, 64, 128, 256)
+                 for name in TMA_INSTANCES}
 # The backward's delta = rowsum(dO * O) kernel (csrc/flash_attention_delta.cu),
 # in bf16 and in f32.
 DELTA = "flash_bwd_delta"
@@ -136,8 +135,8 @@ LAUNCHES = {name: 0 for name in INSTANCES + WIDE_INSTANCES + TMA_INSTANCES + DEL
 # The bf16 instances keep 32 up to T = 32; their long tile is, at their
 # TMA_HEAD_DIMS, the TMA-fed kernels': K1's and K2's 128 query rows (two
 # consumer warpgroups of 64), K3's 128 keys (64 at D = 256, where one
-# group owns dV and the other dK); K2's at D = 32 is 64 (mma.sync). The
-# TMA instances' entries are their base instance's.
+# group owns dV and the other dK), at every head dim. The TMA instances'
+# entries are their base instance's.
 KERNEL_TILES = {(name + suffix, d): (16, 64, 64) if suffix else (32, 64, 32)
                 for suffix in KERNEL_DTYPES.values() for name in KERNELS
                 for d in KERNEL_HEAD_DIMS}
@@ -474,8 +473,8 @@ def attention_dq(q, k, v, g, lse, delta, kv_mask, heads: int, scale: float,
                  causal: bool):
     """K2: dQ, in q's form. Plain version on the CPU; on CUDA `instance`'s
     choice: `flash_dq` (bf16; `flash_dq_tma` on its long tile at D =
-    64-256) or `flash_dq_f32` (`flash_dq_f32_tma` there), or above head dim
-    256 `flash_dq_wide` or `flash_dq_wide_f32`."""
+    32-256) or `flash_dq_f32` (`flash_dq_f32_tma` on its long tile at D =
+    64-256), or above head dim 256 `flash_dq_wide` or `flash_dq_wide_f32`."""
     if _on_cpu(q, k, v, g, lse, delta, kv_mask):
         dq = attention_dq_plain(_packed(q), _packed(k), _packed(v), _packed(g), lse, delta,
                                 kv_mask, heads, scale, causal)

@@ -1,5 +1,5 @@
 """The wide instances of K1-K3 (`flash_fwd_wide`, `flash_dq_wide`,
-`flash_dkv_wide`, bf16 and f32) and the kernels at head dims 64-256 (the
+`flash_dkv_wide`, bf16 and f32) and the kernels at head dims 32-256 (the
 TMA-fed K1-K3 in bf16 and in f32 on the long tile, where a tree has them)
 of several checkouts of this repository, timed in turns on one card.
 
@@ -10,6 +10,13 @@ K2's A/B at long sequences, K2 + K3 beside SDPA's backward:
 
     python -m shockwave_tpu_torch.profiling.fwd_wide_ab --kernels dq dkv \\
         --cases bench_causal d128_bench_causal d256_bench_causal main_enc_self \\
+        --trees .archive_check/parent . . .archive_check/parent
+
+At head dim 32, the bench shape and the main shape, with the model-layout
+forward + backward:
+
+    python -m shockwave_tpu_torch.profiling.fwd_wide_ab --kernels fwd dq dkv model \\
+        --cases d32_bench_causal head_dim_32 \\
         --trees .archive_check/parent . . .archive_check/parent
 
 The f32 K1-K3 at long sequences, K2 + K3 beside SDPA's backward (the f32
@@ -37,7 +44,8 @@ the tree's sources, and runs each case (`CASES`: the d = 512 main shape
 key-padded, the bench shape (4, 2048, 8, 512) causal, a ragged causal
 case at d = 768, in bf16 and f32; the bench shape (4, 2048, 8, D) causal at
 D = 64, 128 and 256 and the main shape (64, 32, 8, 64) key-padded, in
-bf16 and in f32; the bench shape at D = 32 in bf16) through `attention_forward`,
+bf16 and in f32; the bench shape and the main shape (2, 128, 4, 32)
+key-padded causal at D = 32 in bf16) through `attention_forward`,
 `attention_dq` and `attention_dkv` (`--kernels`) against their plain
 versions on the same inputs (the backward on the kernel's own lse and
 delta = rowsum(dO * out), as chip_smoke.py runs it). Errors: the forward
@@ -79,6 +87,7 @@ CASES = (
     ("d768_ragged_causal_f32", 2, 100, 4, 768, True, "tail", "f32"),
     ("bench_causal", 4, 2048, 8, 64, True, None, "bf16"),
     ("d32_bench_causal", 4, 2048, 8, 32, True, None, "bf16"),
+    ("head_dim_32", 2, 128, 4, 32, True, "tail", "bf16"),
     ("d128_bench_causal", 4, 2048, 8, 128, True, None, "bf16"),
     ("d256_bench_causal", 4, 2048, 8, 256, True, None, "bf16"),
     ("main_enc_self", 64, 32, 8, 64, False, "tail", "bf16"),

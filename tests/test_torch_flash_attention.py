@@ -292,8 +292,8 @@ class TestRaggedEdgesAgainstJax:
 
 class TestHeadDim32AgainstJax:
     """Head dims 32 and 16 (padded to 32) at sequences past the short tile,
-    where on the card K1 and K3 run their TMA-fed instances on 64-byte
-    rows and K2 its mma.sync tile: the port (its plain versions on the
+    where on the card K1-K3 run their TMA-fed instances on 64-byte rows:
+    the port (its plain versions on the
     CPU) against the JAX package, forward and gradients, causal and
     key-padded, in f32."""
 
@@ -338,11 +338,10 @@ class TestLaunchConfig:
                     assert tile in (short, long)
                     # The short tile only where both sequences are in its reach.
                     assert (tile == short) == (max(tq, tk) <= short_up_to)
-                    if name not in self.TF32_INSTANCES:  # bf16: 32, then 64 (K2
-                        # at D = 32, mma.sync) or the TMA-fed K1's and K2's
-                        # 128 rows and K3's 128 keys (64 at D = 256)
-                        long = (64 if d == 32 and name == "flash_dq" else
-                                128 if name != "flash_dkv" or d < 256 else 64)
+                    if name not in self.TF32_INSTANCES:  # bf16: 32, then the
+                        # TMA-fed K1's and K2's 128 rows and K3's 128 keys
+                        # (64 at D = 256)
+                        long = 128 if name != "flash_dkv" or d < 256 else 64
                         assert tile == (32 if max(tq, tk) <= 32 else long)
                         assert (fa.instance(name, torch.bfloat16, d, tq, tk)
                                 == fa.tile_instance(name, d, tile))
@@ -357,15 +356,15 @@ class TestLaunchConfig:
     def test_tf32_instances_fill_the_card_at_the_decoders_shape(self):
         """The f32 decoder's flash path, (8, 64, 4 x 32) causal: K1, K2 and
         K3 in f32 take one-warp CTAs of 16 rows, (32, 4) = 128 CTAs for
-        the card's 132 SMs rather than (32, 1); the bf16 instances keep
-        their 64-row tile there."""
+        the card's 132 SMs rather than (32, 1); the bf16 instances take
+        their long tile there, K2's the TMA-fed 128 rows."""
         bh, t, d = 8 * 4, 64, 32
         assert set(self.TF32_INSTANCES) == {n for n in fa.INSTANCES if n.endswith("_f32")}
         for name in self.TF32_INSTANCES:
             tile = fa.launch_config(t, t, d, name)
             assert tile == 16 and bh * -(-t // tile) == 128
             assert fa.KERNEL_TILES[name, d] == (16, 64, 64)
-        assert fa.launch_config(t, t, d, "flash_dq") == 64
+        assert fa.launch_config(t, t, d, "flash_dq") == 128
 
     def test_rejects_what_the_wrapper_rejects(self):
         """Widths the wrapper never hands over: not a template instance's
@@ -404,12 +403,12 @@ class TestLaunchConfig:
     def test_head_dim_32_past_the_short_tile_takes_tma_k1_and_k3(self, t):
         """In bf16 at head dim 32 (and d = 16, which pads to it), past T =
         32: `instance`, `launch_config` and `tile_instance` pick the
-        TMA-fed K1 and K3 (128 rows, 128 keys) and K2's mma.sync 64-row
-        tile; the longer sequence decides; up to T = 32 all three keep
-        the short tile, and f32 keeps its mma.sync instances."""
+        TMA-fed K1 and K3 (128 rows, 128 keys), and K2 (128 rows) too; the
+        longer sequence decides; up to T = 32 all three keep the short
+        tile, and f32 keeps its mma.sync instances."""
         assert fa.kernel_head_dim(16) == fa.kernel_head_dim(32) == 32
         for kernel, want, tile in (("flash_fwd", "flash_fwd_tma", 128),
-                                   ("flash_dq", "flash_dq", 64),
+                                   ("flash_dq", "flash_dq_tma", 128),
                                    ("flash_dkv", "flash_dkv_tma", 128)):
             for tq, tk in ((t, t), (16, t), (t, 16)):
                 got = fa.instance(kernel, torch.bfloat16, 32, tq, tk)
@@ -420,9 +419,9 @@ class TestLaunchConfig:
             assert fa.instance(kernel, torch.bfloat16, 32, 32, 32) == kernel
             assert fa.launch_config(32, 32, 32, kernel) == 32
             assert fa.instance(kernel, torch.float32, 32, t, t) == kernel + "_f32"
-        assert fa.TMA_HEAD_DIMS["flash_fwd" + fa.TMA] == fa.TMA_HEAD_DIMS["flash_dkv" + fa.TMA]
-        assert 32 in fa.TMA_HEAD_DIMS["flash_fwd" + fa.TMA]
-        assert 32 not in fa.TMA_HEAD_DIMS["flash_dq" + fa.TMA]
+        assert (fa.TMA_HEAD_DIMS["flash_fwd" + fa.TMA] == fa.TMA_HEAD_DIMS["flash_dq" + fa.TMA]
+                == fa.TMA_HEAD_DIMS["flash_dkv" + fa.TMA])
+        assert all(32 in fa.TMA_HEAD_DIMS[n] for n in fa.TMA_INSTANCES if "_f32" not in n)
         assert all(32 not in fa.TMA_HEAD_DIMS[n] for n in fa.TMA_INSTANCES if "_f32" in n)
 
     def test_every_config_is_reached_by_a_chip_smoke_case(self):
@@ -577,15 +576,15 @@ class TestChipSmokeKernelsLine:
             assert row["launches"] == launched and row["bound_by"] == "bytes"
             assert {"bench_ms", "bench_plain_ms", "bench_bound_ms"} <= set(row)
         for name in fa.INSTANCES:  # head dim 32's long tile at the bench shape: bf16
-            tile = fa.KERNEL_TILES[name, 32][1]  # K1's and K3's TMA-fed, K2's mma.sync
+            tile = fa.KERNEL_TILES[name, 32][1]  # the TMA-fed K1-K3's
             assert by_name[name]["d32_bench_instance"] == fa.tile_instance(name, 32, tile)
             assert by_name[name]["d32_bench_tile"] == tile
-        for name in ("flash_fwd_tma", "flash_dkv_tma"):  # and their own rows
+        for name in ("flash_fwd_tma", "flash_dq_tma", "flash_dkv_tma"):  # and their own rows
             assert {"d32_bench_ms", "d32_bench_bound_ms", "d32_bench_plain_ms",
                     "d32_bench_library_ms"} <= set(by_name[name])
             assert by_name[name]["d32_decoder_launches"] == 2
+        assert by_name["flash_dq_tma"]["d32_bench_k2_k3_ms"] == 1.0
         assert by_name["flash_dkv_tma"]["d32_bench_k2_k3_ms"] == 1.0
-        assert "d32_bench_ms" not in by_name["flash_dq_tma"]
         for name in fa.TMA_INSTANCES:
             row = by_name[name]
             if "_f32" in name:  # f32: launched by the f32 decoder at T = 128
@@ -713,11 +712,12 @@ class TestCInterface:
         assert name == self.ENTRY[kernel] + suffix
         self._check_types(name, args)
         # T = 48: the 3xTF32 instances take their one-warp tile, the bf16
-        # ones their long tile: K1's and K3's TMA-fed 128 rows, K2's 64.
-        tile = 16 if suffix else 64 if kernel == "dq" else 128
+        # ones their long tile: the TMA-fed K1's and K2's 128 rows, K3's
+        # 128 keys.
+        tile = 16 if suffix else 128
         assert args[-10:] == (bh, heads, t, t, d, tile, 0.25, 1, 0, 0)
         instance = fa.instance(f"flash_{kernel}", dtype, d, t, t)
-        assert instance == f"flash_{kernel}{suffix}" + ("" if suffix or kernel == "dq" else fa.TMA)
+        assert instance == f"flash_{kernel}{suffix}" + ("" if suffix else fa.TMA)
         assert {n: c for n, c in fa.LAUNCHES.items() if c} == {instance: 1}
 
     @pytest.mark.parametrize("dtypes", [(torch.float16,) * 3, (torch.float64,) * 3,
@@ -744,7 +744,7 @@ class TestCInterface:
         assert {(r["kernel"], r["tile"]) for r in rows if r["d"] == 512} == {
             (name, tile) for name in fa.WIDE_INSTANCES for tile in fa.WIDE_TILES[name][:2]}
         assert {(r["kernel"], r["d"], r["tile"]) for r in rows} >= {
-            ("flash_dq", d, 32) for d in (32, 64, 128, 256)} | {("flash_dq", 32, 64)}
+            ("flash_dq", d, 32) for d in (32, 64, 128, 256)} | {("flash_dq_tma", 32, 128)}
         for d in (128, 256):  # the long tiles of K1-K3 in bf16 are the TMA instances'
             assert {(r["kernel"], r["tile"]) for r in rows if r["d"] == d} == {
                 (fa.tile_instance(name, d, tile), tile) for name in fa.INSTANCES
@@ -820,19 +820,20 @@ class TestCInterface:
     def test_head_dim_32_reaches_tma_k1_and_k3(self, lib, d):
         """bf16 at d = 32, and d = 16 padded to 32, at T = 64: the forward +
         backward launches the TMA-fed K1 (tile 128) through swt_flash_fwd,
-        delta, K2's mma.sync instance (tile 64) and the TMA-fed K3 (tile
-        128) through swt_flash_dkv, once each, at width 32."""
+        delta, the TMA-fed K2 (tile 128) through swt_flash_dq and the
+        TMA-fed K3 (tile 128) through swt_flash_dkv, once each, at width
+        32."""
         b, t, h = 2, 64, 2
         q, k, v = (torch.zeros(b, t, h, d, dtype=torch.bfloat16, requires_grad=True)
                    for _ in range(3))
         fa.flash_attention(q, k, v, causal=True).sum().backward()
         assert [name for name, _ in lib.calls] == ["swt_flash_fwd", "swt_flash_bwd_delta",
                                                    "swt_flash_dq", "swt_flash_dkv"]
-        for (name, args), tile in zip(lib.calls[:1] + lib.calls[2:], (128, 64, 128)):
+        for name, args in lib.calls[:1] + lib.calls[2:]:
             self._check_types(name, args)
-            assert args[-10:-4] == (b * h, h, t, t, 32, tile)
+            assert args[-10:-4] == (b * h, h, t, t, 32, 128)
         assert {n: c for n, c in fa.LAUNCHES.items() if c} == {
-            "flash_fwd_tma": 1, "flash_bwd_delta": 1, "flash_dq": 1, "flash_dkv_tma": 1}
+            "flash_fwd_tma": 1, "flash_bwd_delta": 1, "flash_dq_tma": 1, "flash_dkv_tma": 1}
 
     @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
     @pytest.mark.parametrize("t", [32, 48])

@@ -46,9 +46,8 @@ def test_bf16_kernels_match_the_plain_versions(lib, b, tq, tk, h, d, causal, mas
 
 def test_every_bf16_tile_is_emulated():
     """The bf16 cases reach both tiles of each bf16 instance at every head
-    dim (K1-K3's long tile at D = 64, 128 and 256, and K1's and K3's at
-    32, through their TMA-fed instances, each at every one of its
-    widths), the row that
+    dim (K1-K3's long tile through their TMA-fed instances, each at every
+    one of its widths), the row that
     sees no key at both tiles (at D = 256 too), and d = 96 and 200
     padded."""
     for name in fa.KERNELS:

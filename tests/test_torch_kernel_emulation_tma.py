@@ -10,11 +10,11 @@ waits, wgmma, the softmax or the gradient terms) run side by side; the
 mbarriers keep their phases and transaction bytes, and TMA lands each box
 in the 128-byte swizzle (D >= 64) or the 64-byte one (D = 32) with zeros
 past the tensor's edges, as the PTX ISA lays them out. The cases, at D =
-64, 128 and 256 (the widths all three kernels take), and at D = 32 for
-K1 and K3 (K2 there runs its mma.sync 64-row tile): causal at T = 65 and
-130 (diagonal and off-diagonal tiles, ragged ends), Tq != Tk key-padded,
-and the row and key that see nothing (key 0 masked: its gradients
-exactly 0); at D = 32 also a 64-row sequence in a 128-row tile.
+32, 64, 128 and 256 (the widths all three kernels take): causal at T = 65
+and 130 (diagonal and off-diagonal tiles, ragged ends), Tq != Tk
+key-padded, and the row and key that see nothing (key 0 masked: its
+gradients exactly 0, and dQ of a row that sees no key); at D = 32 also a
+64-row sequence in a 128-row tile and Tq > Tk.
 Tolerances are the other emulation files' (`TOLS`, chip_smoke.py's),
 through `test_torch_kernel_emulation.check_kernels`.
 """
@@ -34,11 +34,12 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "cud
 import emulate  # noqa: E402
 from test_torch_kernel_emulation import TOLS, _arg, _call, check_kernels, lib  # noqa: E402,F401
 
-# The head dims all three TMA-fed instances take, and those of K1 and K3.
+# The head dims all three TMA-fed instances take, and those on 128-byte
+# rows (all but 32).
 ALL_THREE_DIMS = fa.TMA_HEAD_DIMS["flash_dq" + fa.TMA]
-K1_K3_DIMS = fa.TMA_HEAD_DIMS["flash_fwd" + fa.TMA]
+WIDE_ROW_DIMS = tuple(d for d in ALL_THREE_DIMS if d != 32)
 CASES = [(b, tq, tk, h, d, causal, mask)
-         for d in ALL_THREE_DIMS
+         for d in WIDE_ROW_DIMS
          for b, tq, tk, h, causal, mask in ((1, 65, 65, 1, True, "tail"),
                                              (1, 130, 130, 1, True, None),
                                              (2, 40, 96, 1, False, "tail"),
@@ -56,20 +57,19 @@ def test_tma_kernels_match_the_plain_versions(lib, b, tq, tk, h, d, causal, mask
 
 
 def test_the_cases_reach_the_tma_kernels_at_every_width():
-    """Every case takes the TMA instances of its width (K2 at D = 32 its
-    mma.sync 64-row tile); K1's and K2's T = 130 has a ragged second row
-    tile and, at D = 128 and 256, several k-tiles per row tile on the
-    diagonal; K3's T = 130 walks three q-tiles from its first key tile."""
+    """Every case takes the TMA instances of its width, K2 at D = 32 too;
+    K1's and K2's T = 130 has a ragged second row tile and, at D = 128 and
+    256, several k-tiles per row tile on the diagonal; K3's T = 130 walks
+    three q-tiles from its first key tile."""
     for b, tq, tk, h, d, causal, mask in CASES + D32_CASES:
         for kernel in fa.KERNELS:
             name = fa.instance(kernel, torch.bfloat16, d, tq, tk)
-            tma = d in fa.TMA_HEAD_DIMS[kernel + fa.TMA]
-            assert name == kernel + (fa.TMA if tma else "")
+            assert name == kernel + fa.TMA
             assert fa.launch_config(tq, tk, d, name) == fa.KERNEL_TILES[kernel, d][1]
             assert fa.KERNEL_TILES[kernel, d][1] == (
-                64 if not tma or (kernel == "flash_dkv" and d == 256) else 128)
-    assert {c[4] for c in CASES} == set(ALL_THREE_DIMS)
-    assert set(K1_K3_DIMS) == set(ALL_THREE_DIMS) | {32}
+                64 if kernel == "flash_dkv" and d == 256 else 128)
+    assert {c[4] for c in CASES + D32_CASES} == set(ALL_THREE_DIMS)
+    assert all(fa.TMA_HEAD_DIMS[kernel + fa.TMA] == ALL_THREE_DIMS for kernel in fa.KERNELS)
     for cases in (CASES, D32_CASES):
         assert {c[6] for c in cases} == {"tail", None, "key0"}
         assert any(c[1] != c[2] for c in cases) and any(c[1] % 64 for c in cases if c[5])
@@ -85,28 +85,25 @@ def _inputs(tq, tk, d, seed):
     return q, k, v, g
 
 
-def _k1_pairs(tq, tk, d, causal):
-    """K1's (group, key tile) pairs: 128 query rows a CTA, 64 a consumer
-    group, kN keys a tile (128, or 64 at D = 32 and 256), each group up to
-    the causal diagonal of its own rows."""
-    rows, keys = 64, 64 if d in (32, 256) else 128
-    pairs = 0
+def _group_pairs(tq, tk, keys, causal):
+    """K1's or K2's (group, key tile) pairs: 128 query rows a CTA, 64 a
+    consumer group, `keys` keys a tile, each group up to the causal
+    diagonal of its own rows."""
+    rows, pairs = 64, 0
     for r0 in range(0, -(-tq // 128) * 128, rows):
         nk = -(-tk // keys)
         pairs += min(nk, (r0 + rows - 1) // keys + 1) if causal else nk
     return rows, keys, pairs
 
 
+def _k1_pairs(tq, tk, d, causal):
+    """K1's: kN keys a tile, 128, or 64 at D = 32 and 256."""
+    return _group_pairs(tq, tk, 64 if d in (32, 256) else 128, causal)
+
+
 def _k2_pairs(tq, tk, d, causal):
-    """K2's (row tile, key tile) pairs: 128 query rows a CTA, kN keys a
-    tile (128, 64 and 32 at D = 64, 128 and 256), up to the causal
-    diagonal."""
-    rows, keys = 128, {64: 128, 128: 64, 256: 32}[d]
-    pairs = 0
-    for q0 in range(0, tq, rows):
-        nk = -(-tk // keys)
-        pairs += min(nk, (q0 + rows - 1) // keys + 1) if causal else nk
-    return rows, keys, pairs
+    """K2's: kN keys a tile, 128 at D = 32 and 64, 64 at 128, 32 at 256."""
+    return _group_pairs(tq, tk, {32: 128, 64: 128, 128: 64, 256: 32}[d], causal)
 
 
 def _k3_pairs(tq, tk, d, causal):
@@ -124,7 +121,8 @@ def _k3_pairs(tq, tk, d, causal):
 def test_each_product_is_formed_once_per_tile_pair(lib, d, tq, tk, causal):
     """The emulator's count of tensor-core multiply-adds of one launch: K1
     forms S and P.V once per (group's 64 rows, key tile) pair it visits (2
-    x rows x keys x D), K2 S, dP and dQ (3 x rows x keys x D), K3 forms S^T,
+    x rows x keys x D), K2 S, dP and dQ (3 x rows x keys x D; a causal
+    group, as K1's, stops at its own diagonal), K3 forms S^T,
     dP^T, dV and dK once per (key tile, q-tile) pair (4 x keys x 64 x D),
     at D = 256 too, where its two groups split the four products between
     them."""
@@ -200,8 +198,8 @@ def test_d32_kernels_issue_k16_scores_and_n32_products(lib, tq, tk, causal):
     SM) and P.V with an RS m64n32k16 per 16 keys (4 a tile), a causal
     group only up to its own diagonal; K3's two groups each form S^T and dP^T
     with two SS m64n64k16 each and dV and dK with an RS m64n32k16 per 16
-    queries (4 each a 64-query tile); no other form. K2 there is the
-    mma.sync kernel: no wgmma."""
+    queries (4 each a 64-query tile); no other form. K2's:
+    test_d32_k2_issues_k16_scores_and_n32_products."""
     lib.emu_tensor_products.restype = ctypes.c_long
     lib.emu_wgmma_instructions.restype = ctypes.c_long
     lib.emu_wgmma_instructions.argtypes = [ctypes.c_int, ctypes.c_int]
@@ -222,10 +220,6 @@ def test_d32_kernels_issue_k16_scores_and_n32_products(lib, tq, tk, causal):
     assert lib.emu_tensor_products() == pairs * 2 * rows * keys * d
     assert issued() == {(0, 64): 2 * pairs, (1, 32): 4 * pairs}
     delta = (out.float() * g.float()).sum(-1)
-    dq = torch.empty_like(q)
-    assert _call(lib, "flash_dq", torch.bfloat16, q, k, v, g, lse, delta, None, dq,
-                 1, 1, tq, tk, **shape) == "flash_dq"
-    assert issued() == {}
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     assert _call(lib, "flash_dkv", torch.bfloat16, q, k, v, g, lse, delta, None, dk, dv,
                  1, 1, tq, tk, **shape) == "flash_dkv" + fa.TMA
@@ -233,16 +227,46 @@ def test_d32_kernels_issue_k16_scores_and_n32_products(lib, tq, tk, causal):
     assert (keys, queries) == (128, 64)
     assert lib.emu_tensor_products() == pairs * 4 * keys * queries * d
     assert issued() == {(0, 64): 8 * pairs, (1, 32): 16 * pairs}
-    for t in (out, dq, dk, dv):
+    for t in (out, dk, dv):
         assert torch.isfinite(t.float()).all()
+    assert lib.emu_shared_overruns() == 0
+
+
+@pytest.mark.parametrize("tq,tk,causal", [(130, 130, True), (40, 200, False), (64, 64, True),
+                                          (200, 72, False)])
+def test_d32_k2_issues_k16_scores_and_n32_products(lib, tq, tk, causal):
+    """K2 at D = 32, per (group, key tile) pair, by the emulator's counts of
+    wgmma instructions and multiply-adds: each of its two groups forms S
+    and dP with two SS m64nkNk16 each (K = 32: two k16 steps; kN = 128
+    keys a tile) and dQ += dS.K with an RS m64n32k16 per 16 keys (8 a
+    tile), a causal group only up to its own diagonal; no other form."""
+    lib.emu_tensor_products.restype = ctypes.c_long
+    lib.emu_wgmma_instructions.restype = ctypes.c_long
+    lib.emu_wgmma_instructions.argtypes = [ctypes.c_int, ctypes.c_int]
+    d = 32
+    forms = [(rs, n) for rs in (0, 1) for n in (8, 16, 32, 64, 128, 256)]
+    q, k, v, g = _inputs(tq, tk, d, tq + tk)
+    scale = 1.0 / math.sqrt(d)
+    out, lse = fa.attention_forward_plain(q, k, v, None, 1, scale, causal)
+    delta = (out.float() * g.float()).sum(-1)
+    dq = torch.empty_like(q)
+    assert _call(lib, "flash_dq", torch.bfloat16, q, k, v, g, lse, delta, None, dq, 1, 1,
+                 tq, tk, tq=tq, tk=tk, d=d, scale=scale, causal=causal) == "flash_dq" + fa.TMA
+    rows, keys, pairs = _k2_pairs(tq, tk, d, causal)
+    assert (rows, keys) == (64, 128)
+    assert lib.emu_tensor_products() == pairs * 3 * rows * keys * d
+    issued = {(rs, n): lib.emu_wgmma_instructions(rs, n) for rs, n in forms
+              if lib.emu_wgmma_instructions(rs, n)}
+    assert issued == {(0, keys): 4 * pairs, (1, 32): keys // 16 * pairs}
+    assert torch.isfinite(dq.float()).all()
     assert lib.emu_shared_overruns() == 0
 
 
 def test_d32_long_tile_of_k1_and_k3_is_tma_fed_only(lib):
     """At D = 32 the entry points refuse the retired 64-row mma.sync tile of
     K1 and K3 (cudaErrorInvalidValue: no longer built), so nothing but the
-    TMA-fed tile of 128 runs their long tile there; K2 still takes its
-    64-row tile, and all three their short tile of 32."""
+    TMA-fed tile of 128 runs their long tile there; both keep their short
+    tile of 32. K2's: test_d32_long_tile_of_k2_is_tma_fed_only."""
     d, t, scale = 32, 65, 1.0 / math.sqrt(32)
     q, k, v, g = _inputs(t, t, d, 5)
     out, lse, dq, dk, dv = (torch.zeros_like(q), torch.zeros(1, t), torch.zeros_like(q),
@@ -257,10 +281,24 @@ def test_d32_long_tile_of_k1_and_k3_is_tma_fed_only(lib):
                                    scale, 1, 0, None)
 
     assert rc("swt_flash_fwd", 64) == 1 and rc("swt_flash_dkv", 64) == 1
-    assert rc("swt_flash_dq", 128) == 1  # no TMA-fed K2 at D = 32
     assert [rc(entry, 128) for entry in ("swt_flash_fwd", "swt_flash_dkv")] == [0, 0]
-    assert rc("swt_flash_dq", 64) == 0
-    assert [rc(entry, 32) for entry in calls] == [0, 0, 0]
+    assert [rc(entry, 32) for entry in ("swt_flash_fwd", "swt_flash_dkv")] == [0, 0]
+
+
+def test_d32_long_tile_of_k2_is_tma_fed_only(lib):
+    """At D = 32 K2's entry point refuses its retired 64-row mma.sync tile
+    too (cudaErrorInvalidValue: no longer built), so the TMA-fed tile of
+    128 alone runs the long tile of all three kernels there; K2 keeps its
+    short tile of 32."""
+    d, t, scale = 32, 65, 1.0 / math.sqrt(32)
+    q, k, v, g = _inputs(t, t, d, 5)
+    lse, delta, dq = torch.zeros(1, t), torch.zeros(1, t), torch.zeros_like(q)
+
+    def rc(tile):
+        return lib.swt_flash_dq(*(_arg(x, 1) for x in (q, k, v, g, lse, delta, None, dq)), 1, 1,
+                                t, t, d, tile, scale, 1, 0, None)
+
+    assert [rc(64), rc(128), rc(32)] == [1, 0, 0]
 
 
 @pytest.fixture(scope="module")
