@@ -16,8 +16,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    both dtypes, HGMMA ones of their dtype and no HMMA, the TMA-fed K1-K3
    in bf16 at D = 32, 64, 128 and 256 bf16 HGMMA, UTMALDG and no HMMA,
    and no long-tile mma.sync bf16 instance at any of them, the TMA-fed
-   K1-K3 in f32 at D = 64-256 TF32 HGMMA, UTMALDG and no HMMA, and no
-   long-tile mma.sync f32 instance there);
+   K1 in f32 at D = 64-256 and K2 and K3 at D = 32-256 TF32 HGMMA, UTMALDG
+   and no HMMA, and no long-tile mma.sync f32 instance there, while K1's
+   at D = 32 is still built);
    then each kernel instantiation's
    resident CTAs per SM, threads, shared memory and registers, and at the
    main shape each
@@ -36,9 +37,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    main shape key-padded and causal, the decoder's full forward (8 x 64,
    4 heads of 32, causal), the bench shape, and the edges of the f32
    instances' tiles (16 up to T = 64, 64 beyond; at D = 64, 128 and 256
-   K1's-K3's long tile is the TMA-fed f32 kernels'): ragged T=17, T=65,
-   Tq=32 against Tk=48, Tq=64 against Tk=128, D=32 at T=32 and T=128,
-   and the key-0 row at T=48 and T=128; its library time is SDPA's in
+   K1's-K3's long tile is the TMA-fed f32 kernels', and at D = 32 K2's and
+   K3's, of 128 rows): ragged T=17, T=65, Tq=32 against Tk=48, Tq=64
+   against Tk=128 (at D = 64 and 32), D=32 at T=32 and T=128, and the
+   key-0 row at T=48 and T=128 (D = 32 too); its library time is SDPA's in
    f32. The f32 bound's operations are reckoned at the card's
    f32-accurate product rate, a third of its dense TF32 rate (3xTF32).
    Both dtypes also run their D = 128 and D = 256 instances (`d128_`
@@ -71,7 +73,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    of its plain version; it is timed at the shapes of its rows
    (DELTA_TIMED). The bench shape at head dim 32 (`d32_bench_causal`, both
    dtypes) times the long tile there: in bf16 the TMA-fed K1-K3 on
-   64-byte rows, in f32 the mma.sync instances.
+   64-byte rows, in f32 the mma.sync K1 and the TMA-fed K2 and K3.
    Each kernel's bound is the largest of its bytes, its operations and
    its exponentials (one per visible score in each of K1-K3, at 16 a
    clock on each SM at the card's highest SM clock; `bound_by` "exp"
@@ -155,9 +157,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    `flash_attention` pads to 32), at dim 512, 4 heads (head dim 128), and
    at dim 1024, 4 heads (head dim 256) and at dim 2048, 4 heads (head dim
    512, the wide instances), in bf16 and in f32. Then the f32 decoder past
-   the f32 short tile, (8, 128) at head dims 64, 128 and 256 (dim 256, 512
-   and 1024, 4 heads): the TMA-fed K1-K3 in f32, one launch of each per
-   layer.
+   the f32 short tile, (8, 128) at head dims 32, 64, 128 and 256 (dim 128,
+   256, 512 and 1024, 4 heads): the TMA-fed K1-K3 in f32 (at head dim 32
+   K2 and K3, and the mma.sync K1), one launch of each per layer. No
+   workload runs that path at head dim 32: the serving replica builds its
+   decoder without flash and decodes under no_grad.
    bench_line: `profiling/bench_serving_decode.py` at its defaults (batch
    8, 32 tokens, prompt 8, dim 128, 2 layers, 4 heads) through its
    `--smoke` gate at 200 tokens/s, its CUDA graph's tokens equal to the
@@ -336,6 +340,10 @@ F32_CASES = (
     ("short_head_dim_32_f32", 2, 32, 32, 4, 32, True, "tail"),
     ("head_dim_32_f32", 2, 128, 128, 4, 32, True, "tail"),
     ("d32_bench_causal_f32", 4, 2048, 2048, 8, 32, True, None),
+    # D = 32 past T = 64: K2's 128 query rows and K3's 128 keys (the
+    # TMA-fed f32 instances) with Tq != Tk, and the key-0 row there.
+    ("d32_cross_64x128_f32", 1, 64, 128, 2, 32, False, None),
+    ("d32_masked_row0_f32", 1, 128, 128, 2, 32, True, "key0"),
     ("one_past_short_f32", 2, 65, 65, 2, 64, True, "tail"),
     ("cross_64x128_f32", 1, 64, 128, 2, 64, False, None),
     ("short_masked_row0_f32", 1, 48, 48, 2, 64, True, "key0"),
@@ -527,12 +535,15 @@ DECODER_PADDED_WIDTHS = dict(dim=64, num_heads=4)
 # (dim 1024, 4 heads), the widest kernel width, at the same tolerances.
 DECODER_D128_WIDTHS = dict(dim=512, num_heads=4)
 DECODER_D256_WIDTHS = dict(dim=1024, num_heads=4)
-# The f32 decoder past the f32 short tile, (8, 128) at head dims 64, 128
-# and 256: its flash forward + backward runs the TMA-fed K1-K3 in f32, at
-# DECODER_F32_TOL.
+# The f32 decoder past the f32 short tile, (8, 128) at head dims 32, 64,
+# 128 and 256: its flash forward + backward runs the TMA-fed K1-K3 in f32
+# (K2 and K3 at head dim 32), at DECODER_F32_TOL. This phase is the only
+# caller of K2 and K3 in f32 at head dim 32 past T = 64: the serving
+# replica (workloads/serving/serve.py) builds its decoder without flash
+# and decodes under no_grad.
 DECODER_LONG_SHAPE = (8, 128)
-DECODER_LONG_WIDTHS = {64: dict(dim=256, num_heads=4), 128: DECODER_D128_WIDTHS,
-                       256: DECODER_D256_WIDTHS}
+DECODER_LONG_WIDTHS = {32: dict(dim=128, num_heads=4), 64: dict(dim=256, num_heads=4),
+                       128: DECODER_D128_WIDTHS, 256: DECODER_D256_WIDTHS}
 # The decoder at head dim 512 (dim 2048, 4 heads): the wide instances, at
 # the same tolerances.
 DECODER_D512_WIDTHS = dict(dim=2048, num_heads=4)
@@ -2475,7 +2486,7 @@ def kernel_rows(fa, cases, sliced, served, profiled):
     # shape of their dtype, and at the bench shape at D = 128 and 256; K2's
     # and K3's rows give K2 + K3 beside SDPA's backward at each D. Their
     # main-path launches: bf16, the profile phase's T = 2048 steps; f32, the
-    # f32 decoder past the short tile at D = 64, 128 and 256 (serving phase).
+    # f32 decoder past the short tile at D = 32, 64, 128 and 256 (serving phase).
     for name in fa.TMA_INSTANCES:
         f32 = name.endswith("_f32" + fa.TMA)
         sfx = "_f32" if f32 else ""
@@ -2501,8 +2512,9 @@ def kernel_rows(fa, cases, sliced, served, profiled):
             row.update({"library_bwd_ms": bench["library_bwd_ms"],
                         "library_bwd_of": "dQ, dK and dV (SDPA fwd_bwd - fwd)"})
         if f32:
-            row["launches_by"] = "the f32 decoder at (8, 128), head dims 64, 128 and 256"
-        if 32 in fa.TMA_HEAD_DIMS[name]:  # the bf16 decoder at head dim 32, forward + backward
+            row["launches_by"] = ("the f32 decoder at (8, 128), head dims "
+                                  + ", ".join(map(str, fa.TMA_HEAD_DIMS[name])))
+        elif 32 in fa.TMA_HEAD_DIMS[name]:  # the bf16 decoder at head dim 32, forward + backward
             row["d32_decoder_launches"] = served["decoder_flash_bf16"]["launches"][name]
         for dw in (32, 64, 128, 256):
             if dw not in fa.TMA_HEAD_DIMS[name]:
@@ -2650,9 +2662,10 @@ def main() -> int:
                   f"{name}: not bf16 HGMMA fed by UTMALDG without HMMA ({ops})")
         check(not any(f"{kname}_kernel<{d}, 64>" in hmma for d in dims),
               f"{kname}_kernel: a tile-64 instance at a TMA-fed head dim {dims} is still built")
-    # The TMA-fed K1-K3 in f32, one instance per head dim 64, 128 and 256:
-    # TF32 HGMMA fed by UTMALDG, and no HMMA; the mma.sync K1-K3 in f32
-    # keep only the short tile there (and D = 32).
+    # The TMA-fed K1-K3 in f32, one instance per head dim of theirs (K1 64,
+    # 128 and 256; K2 and K3 32 too): TF32 HGMMA fed by UTMALDG, and no
+    # HMMA; the mma.sync K1-K3 in f32 keep only the short tile there, and
+    # K1 its long tile at D = 32.
     for kname in fa.KERNELS:
         prefix, dims = f"{kname}_tma_f32_kernel<", fa.TMA_HEAD_DIMS[kname + "_f32" + fa.TMA]
         found = {name: ops for name, ops in hmma.items() if name.startswith(prefix)}
@@ -2665,7 +2678,10 @@ def main() -> int:
                   f"{name}: not TF32 HGMMA fed by UTMALDG without HMMA ({ops})")
         check(not any(f"{kname}_f32_kernel<{d}, {tile}>" in hmma for d in dims
                       for tile in (32, 64)),
-              f"{kname}_f32_kernel: a long-tile instance at D = 64-256 is still built")
+              f"{kname}_f32_kernel: a long-tile instance at a TMA-fed head dim {dims} is "
+              f"still built")
+    check("flash_fwd_f32_kernel<32, 64>" in hmma,
+          "flash_fwd_f32_kernel<32, 64>: K1's long tile at D = 32 is not built")
     occupancy = fa.kernel_occupancy(torch.cuda.current_device())
     emit("occupancy", {"sms": sms, "kernels": occupancy,
                        "main_shape": main_shape_slots(fa, occupancy, sms)})
@@ -2676,12 +2692,16 @@ def main() -> int:
     t0 = time.time()
     cases = {}
     for seed, case in enumerate(CASES):
+        t_case = time.time()
         cases[case[0]] = kernel_case(fa, case, seed, device, (*rates, "operations", exps_rate))
+        cases[case[0]]["seconds"] = time.time() - t_case
         emit("kernel_case", cases[case[0]])
     for seed, case in enumerate(F32_CASES):
+        t_case = time.time()
         cases[case[0]] = kernel_case(fa, case, seed, device,
                                      (rates[0], f32_rate, "operations (3xTF32)", exps_rate),
                                      torch.float32)
+        cases[case[0]]["seconds"] = time.time() - t_case
         emit("kernel_case", cases[case[0]])
     for seed, case in enumerate(PADDED_CASES):
         emit("padded_case", padded_case(fa, case, seed, device))

@@ -787,8 +787,9 @@ __global__ void __launch_bounds__(DkvShape<D, kBlock>::kCtaThreads)
 // 6. Tiles follow the grid: up to T = 64 a CTA is one warp of 16 rows, so
 //    the decoder's 32 (batch, head) pairs give 128 CTAs, not 32, on 132
 //    SMs; longer sequences take 64-row CTAs that share each streamed tile
-//    among four warps (K1 and K2 at D = 32 only: at D = 64, 128 and 256
-//    their long tile is flash_attention_tma_f32.cu's TMA-fed kernels').
+//    among four warps (K1 at D = 32 only: K2's and K3's long tile at D =
+//    32-256 and K1's at D = 64-256 are flash_attention_tma_f32.cu's
+//    TMA-fed kernels).
 // 7. At D = 256 a 64-row f32 tile takes 66,560 bytes, so two stages of K
 //    and V alone would pass the 227 KB a CTA may take: the long tile is 32
 //    rows (K1: 166,656 bytes; K2, K3: about 200 KB; one CTA per SM). K1's
@@ -803,7 +804,9 @@ __global__ void __launch_bounds__(DkvShape<D, kBlock>::kCtaThreads)
 // are no longer built: flash_attention_tma_f32.cu runs K1-K3 there on
 // TF32 wgmma, P.V, dS.K, P^T.dO and dS^T.Q as O^T = V^T.P^T, dQ^T =
 // K^T.dS^T, dV^T = dO^T.P and dK^T = Q^T.dS, since wgmma takes 32-bit B
-// operands only K-major. The short tile and D = 32 stay here.)
+// operands only K-major; at D = 32 it runs K2 and K3 there too, as dQ =
+// dS.K, dV = P^T.dO and dK = dS^T.Q from transposed planes of K, Q and dO.
+// The short tile and K1's long tile at D = 32 stay here.)
 
 // The A operand of rows [r0, r0 + 16), columns [c0, c0 + 8) of a (rows,
 // D) f32 matrix in device memory whose rows are `ld` elements apart,
@@ -1546,10 +1549,11 @@ int by_shape(int d, int tile, F&& f) {
 }
 
 // The same for the 3xTF32 instances of K1-K3: the short tile (16, one
-// warp per CTA) at every head dim, the long one (64) at D = 32 only; the
-// TMA-fed kernels of flash_attention_tma_f32.cu take the long tile at D =
+// warp per CTA) at every head dim, and with kLong32 (K1 only) the long one
+// (64) at D = 32; the TMA-fed kernels of flash_attention_tma_f32.cu take
+// the long tile of K1 at D = 64, 128 and 256 and of K2 and K3 at D = 32,
 // 64, 128 and 256 (swt::tma_f32_tile).
-template <typename F>
+template <bool kLong32 = false, typename F>
 int by_shape_tf32_short(int d, int tile, F&& f) {
   using I16 = std::integral_constant<int, 16>;
   using I32 = std::integral_constant<int, 32>;
@@ -1560,7 +1564,9 @@ int by_shape_tf32_short(int d, int tile, F&& f) {
   if (d == 128 && tile == 16) return f(I128{}, I16{});
   if (d == 64 && tile == 16) return f(I64{}, I16{});
   if (d == 32 && tile == 16) return f(I32{}, I16{});
-  if (d == 32 && tile == 64) return f(I32{}, I64{});
+  if constexpr (kLong32) {
+    if (d == 32 && tile == 64) return f(I32{}, I64{});
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1586,17 +1592,27 @@ int bf16_occupancy(int d, int tile, int* out) {
   });
 }
 
-// Kernels 3-5 (K1-K3 in f32, on mma.sync).
-template <int D, int kBlock>
-int occupancy_of_tf32(int kernel, int* out) {
-  using Fwd = FwdF32Shape<D, kBlock>;
-  using Dq = DqF32Shape<D, kBlock>;
-  using Dkv = DkvF32Shape<D, kBlock>;
-  if (kernel == 3)
-    return occupancy(flash_fwd_f32_kernel<D, kBlock>, Fwd::kCtaThreads, Fwd::kSmemBytes, out);
-  if (kernel == 4)
-    return occupancy(flash_dq_f32_kernel<D, kBlock>, Dq::kCtaThreads, Dq::kSmemBytes, out);
-  return occupancy(flash_dkv_f32_kernel<D, kBlock>, Dkv::kCtaThreads, Dkv::kSmemBytes, out);
+// Kernel kKernel of 3-5 (K1-K3 in f32, on mma.sync).
+template <int kKernel, int D, int kBlock>
+int occupancy_of_tf32(int* out) {
+  if constexpr (kKernel == 3)
+    return occupancy(flash_fwd_f32_kernel<D, kBlock>, FwdF32Shape<D, kBlock>::kCtaThreads,
+                     FwdF32Shape<D, kBlock>::kSmemBytes, out);
+  else if constexpr (kKernel == 4)
+    return occupancy(flash_dq_f32_kernel<D, kBlock>, DqF32Shape<D, kBlock>::kCtaThreads,
+                     DqF32Shape<D, kBlock>::kSmemBytes, out);
+  else
+    return occupancy(flash_dkv_f32_kernel<D, kBlock>, DkvF32Shape<D, kBlock>::kCtaThreads,
+                     DkvF32Shape<D, kBlock>::kSmemBytes, out);
+}
+
+// occupancy_of_tf32 of kernel kKernel (3-5) at (d, tile), by_shape_tf32_short's
+// pairs (K1's with the long tile at D = 32).
+template <int kKernel>
+int tf32_occupancy(int d, int tile, int* out) {
+  return by_shape_tf32_short<kKernel == 3>(d, tile, [&](auto dd, auto tt) {
+    return occupancy_of_tf32<kKernel, decltype(dd)::value, decltype(tt)::value>(out);
+  });
 }
 
 }  // namespace
@@ -1610,12 +1626,12 @@ int occupancy_of_tf32(int kernel, int* out) {
 // dv are (B, H, T, D) views (View: base and strides, B = bh / heads); lse
 // and delta are packed (bh, tq) f32. `tile` is the tile that the wrapper's
 // launch_config chose for the instance: 32 or the long tile for the bf16
-// instances, 16 or 64 for the f32 ones; in bf16 the long tile of K1 and K2
-// (128 query rows) and of K3 (128 keys, 64 at D = 256) launches the
-// TMA-fed kernels of flash_attention_tma.cu, and in f32 at D = 64, 128
-// and 256 the long
-// tile of K1-K3 (64 query rows, K3's 64 keys) those of
-// flash_attention_tma_f32.cu. Nothing here synchronises.
+// instances, 16 or the long tile for the f32 ones; in bf16 the long tile
+// of K1 and K2 (128 query rows) and of K3 (128 keys, 64 at D = 256)
+// launches the TMA-fed kernels of flash_attention_tma.cu, and in f32 the
+// long tile of K1 at D = 64, 128 and 256 (64 query rows) and of K2 and K3
+// at D = 32-256 (64 query rows or keys; at D = 32 K2's kRows and K3's
+// kKeys) those of flash_attention_tma_f32.cu. Nothing here synchronises.
 extern "C" {
 
 int swt_flash_fwd(View q, View k, View v, const void* mask, View out, void* lse, int bh,
@@ -1676,7 +1692,7 @@ int swt_flash_fwd_f32(View q, View k, View v, const void* mask, View out, void* 
   if (swt::tma_f32_tile(0, d, tile))
     return swt::launch_fwd_tma_f32(q, k, v, mask, out, lse, bh, heads, tq, tk, d, scale, causal,
                                    s);
-  return by_shape_tf32_short(d, tile, [&](auto dd, auto tt) {
+  return by_shape_tf32_short<true>(d, tile, [&](auto dd, auto tt) {
     return launch_fwd_f32<decltype(dd)::value, decltype(tt)::value>(
         q, k, v, mask, out, lse, bh, heads, tq, tk, scale, causal, s);
   });
@@ -1715,8 +1731,8 @@ int swt_flash_dkv_f32(View q, View k, View v, View g, const void* lse, const voi
 }
 
 // Occupancy of kernel 0 (K1), 1 (K2), 2 (K3), or 3-5 (their f32
-// instances) at head dim d and tile `tile` (16 or 64 for kernels 3-5, their
-// long tile at D = 64-256 the TMA-fed f32 kernels'; for the others 32,
+// instances) at head dim d and tile `tile` (16 or the long tile for kernels
+// 3-5, the TMA-fed f32 kernels' but K1's at D = 32; for the others 32,
 // or their long tile, the TMA-fed kernels': K1 and K2 128, K3 128 or, at
 // D = 256, 64), or 6-8 (the wide bf16
 // instances) and 9-11 (the wide f32 ones) at a wide d and their tile
@@ -1728,9 +1744,9 @@ int swt_flash_occupancy(int kernel, int d, int tile, int device, int* out) {
   if (kernel >= 6) return swt::wide_occupancy(kernel, d, tile, out);
   if (kernel >= 3) {
     if (swt::tma_f32_tile(kernel - 3, d, tile)) return swt::tma_f32_occupancy(kernel - 3, d, out);
-    return by_shape_tf32_short(d, tile, [&](auto dd, auto tt) {
-      return occupancy_of_tf32<decltype(dd)::value, decltype(tt)::value>(kernel, out);
-    });
+    if (kernel == 3) return tf32_occupancy<3>(d, tile, out);
+    if (kernel == 4) return tf32_occupancy<4>(d, tile, out);
+    return tf32_occupancy<5>(d, tile, out);
   }
   if (swt::tma_tile(kernel, d, tile)) return swt::tma_occupancy(kernel, d, out);
   if (kernel == 0) return bf16_occupancy<0>(d, tile, out);

@@ -614,9 +614,9 @@ int launch_dkv_tma(View q, View k, View v, View g, const void* lse, const void* 
 int tma_occupancy(int kernel, int d, int* out);
 
 // The TMA-fed K1-K3 in f32 (defined in flash_attention_tma_f32.cu), which
-// take the long tile (64 rows: K1's and K2's queries, K3's keys) of
-// kernels 0 (K1), 1 (K2) and 2 (K3) in f32 at head dims 64, 128 and 256,
-// in the same form.
+// take the long tile (K1's and K2's query rows, K3's keys: 64, and at D =
+// 32 K2's and K3's own) of kernels 0 (K1) at head dims 64, 128 and 256, and
+// 1 (K2) and 2 (K3) at 32, 64, 128 and 256, in f32, in the same form.
 bool tma_f32_tile(int kernel, int d, int tile);
 int launch_fwd_tma_f32(View q, View k, View v, const void* mask, View out, void* lse, int bh,
                        int heads, int tq, int tk, int d, float scale, int causal,

@@ -1,6 +1,6 @@
-// Flash attention for Hopper (sm_90a): K1 (forward), K2 (dQ) and K3 (dK,
-// dV) in f32 at head dims 64, 128 and 256 on sequences past the f32 short
-// tile (ops/flash_attention.py:launch_config: max(Tq, Tk) > 64), fed by
+// Flash attention for Hopper (sm_90a): K1 (forward) at head dims 64, 128
+// and 256, and K2 (dQ) and K3 (dK, dV) at 32, 64, 128 and 256, in f32 on
+// sequences past the f32 short tile (ops/flash_attention.py:launch_config: max(Tq, Tk) > 64), fed by
 // TMA, on TF32 wgmma as 3xTF32. They replace _fa_kernel (:40), _dq_kernel
 // (:167) and _dkv_kernel (:222) of shockwave_tpu/ops/flash_attention.py
 // there, and compute what the mma.sync f32 kernels of flash_attention.cu
@@ -11,7 +11,8 @@
 // entries -1e30, then the key bias (-1e30 for a masked key, -inf past Tk),
 // the running max from -1e30, p = 0 where s <= -5e29 in the backward. The
 // mma.sync kernels keep the f32 short tile (one-warp CTAs up to T = 64)
-// and D = 32.
+// and K1's long tile at D = 32. K2 and K3 at D = 32 have a section of
+// their own at the end: their output products run unswapped there.
 //
 // CTA shape: flash_attention_tma.cu's (384 threads). Warpgroup 0 is the
 // producer: setmaxnreg lowers it to kF32ProducerRegs; its thread 0 issues
@@ -77,7 +78,8 @@
 //        16 x 3 (231,184).
 //    K2: D = 64: 64 x 3 (231,248); D = 128: 32 x 2 (197,944); D = 256:
 //        8 x 2 (214,136). K2 at D = 128 ran 1.3x faster on 32-key tiles
-//        in 2 stages than on 16-key tiles in 5 (PERF.md).
+//        in 2 stages than on 16-key tiles in 5 (PERF.md). D = 32: the
+//        section of its own (TmaDqF32Shape<32>).
 //    One CTA per SM (the consumers' registers allow no second): 8 consumer
 //    warps, where the mma.sync kernels ran 2 at D = 256 and 4 at D = 128.
 // 3. Registers: a group's O^T or dQ^T is 64 x D f32 (64 x D / 2 at D =
@@ -122,6 +124,7 @@
 //    bias, the bounds, the stash and the barriers): D = 64: 32 x 3
 //    (231,560); D = 128: 32 x 2 (198,504); D = 256: 16 x 1 (230,856); 8 x
 //    2 (n8 score products, twice as many a query) ran 1.01-1.1x slower.
+//    D = 32: the section of its own (TmaDkvF32Shape<32>).
 //
 // Bound on an H100 SXM at f32-accurate products (494.5 / 3 = 164.8
 // TFLOP/s): at the bench shape (4, 2048, 8, D) causal, K1 17.2 / 34.4 /
@@ -741,6 +744,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
 // ---------------------------------------------------------------------------
 template <int D>
 struct TmaDqF32Shape {
+  static constexpr int kRows = kF32Rows;     // query rows a CTA owns
   static constexpr bool kSplitD = D == 256;  // the groups split D, else the k-tiles (note 2)
   static constexpr int kN = D == 64 ? 64 : D == 128 ? 32 : 8;  // keys a k-tile
   static constexpr int kStages = D == 64 ? 3 : 2;
@@ -761,15 +765,15 @@ struct TmaDqF32Shape {
   static_assert(kSplitD || kStages * kStageBytes >= kQBytes, "the merge does not fit");
 };
 
+// The body of flash_dq_tma_f32_kernel<D> at D = 64, 128 and 256.
 template <int D>
-__global__ void __launch_bounds__(kTmaThreads, 1)
-    flash_dq_tma_f32_kernel(const __grid_constant__ CUtensorMap q_map,
-                            const __grid_constant__ CUtensorMap k_map,
-                            const __grid_constant__ CUtensorMap v_map,
-                            const __grid_constant__ CUtensorMap g_map,
-                            const float* __restrict__ lse, const float* __restrict__ delta,
-                            const uint8_t* __restrict__ mask, float* __restrict__ dq,
-                            Strides dqs, int heads, int tq, int tk, float scale, int causal) {
+__device__ __forceinline__ void dq_tma_f32(const CUtensorMap& q_map, const CUtensorMap& k_map,
+                                           const CUtensorMap& v_map, const CUtensorMap& g_map,
+                                           const float* __restrict__ lse,
+                                           const float* __restrict__ delta,
+                                           const uint8_t* __restrict__ mask,
+                                           float* __restrict__ dq, Strides dqs, int heads, int tq,
+                                           int tk, float scale, int causal) {
   using Shape = TmaDqF32Shape<D>;
   constexpr int kN = Shape::kN, kS = Shape::kStages, kTile = kN * D;
   constexpr int kStageFloats = Shape::kStageBytes / 4;
@@ -1003,16 +1007,16 @@ struct TmaDkvF32Shape {
   static_assert(kOwnPlanes || kTileBytes >= kPlaneBytes, "the planes do not fit their room");
 };
 
+// The body of flash_dkv_tma_f32_kernel<D> at D = 64, 128 and 256.
 template <int D>
-__global__ void __launch_bounds__(kTmaThreads, 1)
-    flash_dkv_tma_f32_kernel(const __grid_constant__ CUtensorMap q_map,
-                             const __grid_constant__ CUtensorMap k_map,
-                             const __grid_constant__ CUtensorMap v_map,
-                             const __grid_constant__ CUtensorMap g_map,
-                             const float* __restrict__ lse, const float* __restrict__ delta,
-                             const uint8_t* __restrict__ mask, float* __restrict__ dk,
-                             Strides dks, float* __restrict__ dv, Strides dvs, int heads, int tq,
-                             int tk, float scale, int causal) {
+__device__ __forceinline__ void dkv_tma_f32(const CUtensorMap& q_map, const CUtensorMap& k_map,
+                                            const CUtensorMap& v_map, const CUtensorMap& g_map,
+                                            const float* __restrict__ lse,
+                                            const float* __restrict__ delta,
+                                            const uint8_t* __restrict__ mask,
+                                            float* __restrict__ dk, Strides dks,
+                                            float* __restrict__ dv, Strides dvs, int heads,
+                                            int tq, int tk, float scale, int causal) {
   using Shape = TmaDkvF32Shape<D>;
   constexpr int kQ = Shape::kQ, kS = Shape::kStages, kTile = kQ * D;
   constexpr int kStageFloats = Shape::kStageBytes / 4, kPlaneFloats = Shape::kPlaneBytes / 4;
@@ -1197,6 +1201,521 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
+// K2 and K3 at D = 32: flash_dq_tma_f32_kernel<32>, flash_dkv_tma_f32_kernel<32>.
+//
+// A row of 32 f32 is 128 bytes, one box of the 128-byte swizzle, so every
+// tile lands as one box. The swapped output products of design note 1
+// (dQ^T = K^T.dS^T, dV^T = dO^T.P, dK^T = Q^T.dS) would put D = 32 on a
+// wgmma's M, half of its 64 rows. So here the output products keep their
+// natural orientation, the group's 64 rows (K2: queries; K3: keys) on M
+// and D = 32 on N: dQ = dS.K, dV = P^T.dO and dK = dS^T.Q, each an
+// m64n32k8 per 8 keys (K3: queries) as 3xTF32. A is the score tile the
+// group has just formed, split from its accumulators as read
+// (accum_to_a_tf32): nothing goes through shared memory, and neither
+// group waits for the other within a tile. B contracts over the streamed
+// tile's rows, so the helpers stage that tile's transposed big and small
+// planes (stage_transposed: K's in K2, Q's and dO's in K3), beside the
+// small planes of the tiles as they landed, which the score products
+// take (A the resident tile split, B the streamed tile: K2's Q and dO
+// split once and held, scores_held; K3's K and V split as read,
+// scores_3xtf32). A group's sum is 64 x 32 f32, 16 registers a thread
+// (K3: dK and dV, 32).
+//
+// Bound on an H100 SXM at the bench shape (4, 2048, 8, 32) causal, at
+// f32-accurate products (164.8 TFLOP/s): K2 12.9 GFLOP (78.2 us), K3 17.2
+// GFLOP (104.3 us).
+//
+// A CTA owns 128 rows (K2's queries, K3's keys): consumer group G owns rows
+// 64G..64G + 63, takes every streamed tile that reaches them (a causal
+// group stops, or starts, at its own diagonal) and writes its own sums.
+// That ran 1.4x faster on the card than 64 rows shared by the two groups,
+// which split the streamed tiles and merged their sums at the end (the D
+// = 64 structure; PERF.md).
+// ---------------------------------------------------------------------------
+
+// The slot of row k of a 32-row box in the transposed planes: in each 8,
+// row 2t at slot t and row 2t + 1 at slot t + 4, the k-slots that
+// accum_to_a_tf32 gives an A fragment's columns.
+__device__ __forceinline__ int key_slot(int k) {
+  return (k & ~7) | ((k & 1) << 2) | ((k & 7) >> 1);
+}
+
+// The transposed TF32 planes of an f32 tile of kN rows by 32 columns as it
+// landed at x (one box): element (r, c) at row c, slot key_slot(r % 32),
+// of box r / 32 (32 rows of 32 floats, 4 KB) of the big plane at xt and,
+// kN x 32 floats on, of the small one. That is the K-major B operand of a
+// product that contracts over the tile's rows (rows_products). By helper
+// h of kHelpers: a warp's lanes take 32 rows of one 16-byte unit, so its
+// reads and its writes fall in distinct banks.
+template <int kN>
+__device__ __forceinline__ void stage_transposed(const float* x, float* xt, int h) {
+  static_assert(kN % 32 == 0, "whole boxes");
+  for (int e = h; e < 8 * kN; e += kHelpers) {
+    const int r = e % kN, u = e / kN;
+    const float4 v = *reinterpret_cast<const float4*>(x + swz(r, 4 * u));
+    const float c[4] = {v.x, v.y, v.z, v.w};
+    uint32_t* big = reinterpret_cast<uint32_t*>(xt) + (r / 32) * 32 * kF32BoxCols;
+    uint32_t* small = big + kN * kF32BoxCols;
+    const int slot = key_slot(r % 32);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      uint32_t b, s;
+      split_tf32(c[i], b, s);
+      big[swz(4 * u + i, slot)] = b;
+      small[swz(4 * u + i, slot)] = s;
+    }
+  }
+}
+
+// The descriptor of k8 step kk of transposed plane p (0 big, 1 small) at
+// xt (stage_transposed of a kN-row tile).
+template <int kN>
+__device__ __forceinline__ uint64_t tplane_desc(const float* xt, int p, int kk) {
+  return wgmma_desc(xt + (p * kN + (kk / 4) * 32) * kF32BoxCols, 16) + 2 * (kk % 4);
+}
+
+// The split A fragments of k8 steps 0-3 of the group's 64 rows (16w + g
+// and + 8) of the 64 x 32 tile at x (one box), held for the CTA's life
+// (K2's Q and dO: 4% faster than splitting them again every tile; K3's K
+// and V beside its 64-query score tiles spill).
+__device__ __forceinline__ void split_rows32(Split<4> (&f)[4], const float* x, int w, int g,
+                                             int t) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) f[kk] = split_a_box(x, 16 * w, kk, g, t);
+}
+
+// s[p] (the group's 64 x kN scores) = A_p.B_p^T over D = 32 as 3xTF32 for
+// each of kP products, A_p's split fragments held (f[p]), B_p the kN-row
+// tile at b[p] and its small plane at bs[p]: every product in one commit
+// group, waited for before return.
+template <int kN, int kP>
+__device__ __forceinline__ void scores_held(float (&s)[kP][kN / 8][4], const Split<4> (&f)[kP][4],
+                                            const float* const (&b)[kP],
+                                            const float* const (&bs)[kP]) {
+#pragma unroll
+  for (int p = 0; p < kP; ++p) {
+#pragma unroll
+    for (int n = 0; n < kN / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[p][n][e] = 0.f;
+    }
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int p = 0; p < kP; ++p) wgmma_hold(s[p]);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int p = 0; p < kP; ++p)
+      wgmma_3xtf32<kN>(s[p], f[p][kk], wgmma_desc(b[p], 16) + 2 * kk,
+                       wgmma_desc(bs[p], 16) + 2 * kk);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int p = 0; p < kP; ++p) wgmma_hold(s[p]);
+}
+
+// part[p] (64 x 32 f32: the group's 64 rows against the 32 columns of D)
+// = X_p.Y_p over the kN rows of one streamed tile, as 3xTF32 from zero,
+// for the last kP of the kX score tiles x: A X_p (64 x kN, in the
+// accumulator layout it was formed in, split as read), B the transposed
+// planes of Y_p at yt[p]. kStep k8 steps of every product a commit group,
+// one group ahead of the products (two sets of split fragments, the older
+// retired before its registers are written again), as scores_3xtf32's;
+// waited for before return.
+template <int kN, int kP, int kX, int kStep>
+__device__ __forceinline__ void rows_products(float (&part)[kP][4][4],
+                                              const float (&x)[kX][kN / 8][4],
+                                              const float* const (&yt)[kP]) {
+  static_assert((kN / 8) % kStep == 0, "whole commit groups");
+#pragma unroll
+  for (int p = 0; p < kP; ++p) {
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[p][n][e] = 0.f;
+    }
+  }
+  Split<4> a[2][kP][kStep];
+#pragma unroll
+  for (int c = 0; c < kN / 8 / kStep; ++c) {
+#pragma unroll
+    for (int p = 0; p < kP; ++p) {
+#pragma unroll
+      for (int i = 0; i < kStep; ++i)
+        a[c & 1][p][i] = accum_to_a_tf32(x[kX - kP + p][c * kStep + i]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int p = 0; p < kP; ++p) wgmma_hold(part[p]);
+#pragma unroll
+    for (int p = 0; p < kP; ++p) {
+#pragma unroll
+      for (int i = 0; i < kStep; ++i) {
+        const int kk = c * kStep + i;
+        wgmma_3xtf32<32>(part[p], a[c & 1][p][i], tplane_desc<kN>(yt[p], 0, kk),
+                         tplane_desc<kN>(yt[p], 1, kk));
+      }
+    }
+    wgmma_commit();
+    if (c > 0) wgmma_wait<1>();
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int p = 0; p < kP; ++p) wgmma_hold(part[p]);
+}
+
+// sum += part (64 x 32, the accumulator layout), in f32.
+__device__ __forceinline__ void add_part(float (&sum)[4][4], const float (&part)[4][4]) {
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sum[n][e] += part[n][e];
+  }
+}
+
+// Write the 64 x 32 sum x of the group's rows row[0] and row[1] (their
+// 16w + g and + 8) to rows [0, rows) of out (row stride ld); rows from
+// `rows` on are not written.
+__device__ __forceinline__ void store_rows32(float* out, int ld, const float (&x)[4][4],
+                                             const int (&row)[2], int rows, int t) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (row[h] >= rows) continue;
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+      store2(out + row[h] * ld + 8 * n + 2 * t, x[n][2 * h], x[n][2 * h + 1]);
+  }
+}
+
+// K2 at D = 32. Grid (BH, q-tiles of kRows rows), heaviest causal tile
+// first. The producer loads the kRows x 32 Q and dO tiles once, under one
+// barrier, then K and V tiles of kN keys through a ring of kStages; the
+// helpers stage the small planes of K and V, K's transposed planes and
+// the key bias. Each group splits its rows of Q and dO into registers
+// once (split_rows32); per k-tile it forms S and dP (64 x kN each, one
+// commit group, scores_held), P and dS (dq_terms), and dQ's part dS.K from
+// zero (rows_products), which it adds to dQ in f32.
+template <>
+struct TmaDqF32Shape<32> {
+  static constexpr int kRows = 128;  // query rows a CTA owns, 64 a consumer group
+  static constexpr int kN = 64;       // keys a k-tile
+  static constexpr int kStages = 4;   // 3 ran as fast
+  static constexpr int kStep = kN / 8;  // k8 steps of dS.K a commit group (4 ran 1% slower)
+  static constexpr int kTileBytes = kN * 32 * 4;  // K, V or one of their planes
+  static constexpr int kQBytes = kRows * 32 * 4;  // the Q or dO tile
+  static constexpr int kStageBytes = 6 * kTileBytes;  // K, K small, V, V small, K^T big, small
+  // Byte offsets from the 1 KB aligned base.
+  static constexpr int kG = kQBytes;
+  static constexpr int kRing = 2 * kQBytes;
+  static constexpr int kBias = kRing + kStages * kStageBytes;
+  static constexpr int kBars = kBias + kStages * kN * 4;
+  static constexpr size_t kSmemBytes = kAlign + kBars + (1 + 3 * kStages) * 8;
+  static_assert(kSmemBytes <= kTmaMaxSmem, "K2's tiles do not fit a CTA");
+};
+
+__device__ __forceinline__ void dq_tma_f32_d32(const CUtensorMap& q_map, const CUtensorMap& k_map,
+                                               const CUtensorMap& v_map, const CUtensorMap& g_map,
+                                               const float* __restrict__ lse,
+                                               const float* __restrict__ delta,
+                                               const uint8_t* __restrict__ mask,
+                                               float* __restrict__ dq, Strides dqs, int heads,
+                                               int tq, int tk, float scale, int causal) {
+  using Shape = TmaDqF32Shape<32>;
+  constexpr int kN = Shape::kN, kS = Shape::kStages, kTile = kN * 32, kRows = Shape::kRows;
+  constexpr int kStageFloats = Shape::kStageBytes / 4;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* base = smem + (kAlign - smem_addr(smem) % kAlign) % kAlign;
+  float* sq = reinterpret_cast<float*>(base);
+  float* sg = reinterpret_cast<float*>(base + Shape::kG);
+  float* ring = reinterpret_cast<float*>(base + Shape::kRing);
+  float* sbias = reinterpret_cast<float*>(base + Shape::kBias);
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(base + Shape::kBars);
+  uint64_t* land = bar_q + 1;
+  uint64_t* full = land + kS;
+  uint64_t* empty = full + kS;
+
+  const int bh = blockIdx.x;
+  const Head hb = head_of(bh, heads);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // causal: the longest k loops first
+  int nk = (tk + kN - 1) / kN;
+  if (causal) nk = min(nk, (q0 + kRows - 1) / kN + 1);  // k-tiles past the diagonal see nothing
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(&land[s], 1);
+      mbar_init(&full[s], kHelpers);
+      mbar_init(&empty[s], 8);  // every consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    const auto bias = key_bias_terms<kN>(sbias, mask, heads, tk, bh);
+    produce<32, kN, kS, kStageFloats, 2 * kTile, true>(
+        [&] {
+          mbar_arrive_expect_tx(bar_q, 2 * Shape::kQBytes);
+          tma_load_f32<32>(sq, q_map, bar_q, kRows, q0, hb);
+          tma_load_f32<32>(sg, g_map, bar_q, kRows, q0, hb);
+        },
+        [&](int s, int j, int h) {
+          bias(s, j, h);
+          const float* kt = ring + s * kStageFloats;
+          stage_transposed<kN>(kt, ring + s * kStageFloats + 4 * kTile, h);
+        },
+        ring, land, full, empty, k_map, v_map, 0, nk, hb);
+    return;
+  }
+
+  setmaxnreg_inc<kF32ConsumerRegs>();
+  const int grp = threadIdx.x / 128 - 1, tid = threadIdx.x & 127;
+  const int w = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + 64 * grp;  // the group's first row
+  const int row[2] = {r0 + 16 * w + g, r0 + 16 * w + g + 8};
+  // lse (base 2) and delta of the lane's rows; a row past Tq reads 0 (its
+  // Q and dO rows land as zeros, so its dS is 0) and is not stored.
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool in = row[h] < tq;
+    lse2[h] = in ? lse[(size_t)bh * tq + row[h]] * kLog2e : 0.f;
+    dl[h] = in ? delta[(size_t)bh * tq + row[h]] : 0.f;
+  }
+  const float* gq = sq + (r0 - q0) * kF32BoxCols;  // the group's rows of Q and of dO
+  const float* gg = sg + (r0 - q0) * kF32BoxCols;
+  float acc[4][4];  // dQ: the group's 64 rows by 32 columns
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  }
+  const float scale2 = scale * kLog2e;
+  mbar_wait(bar_q, 0);
+  Split<4> held[2][4];  // Q's and dO's fragments
+  split_rows32(held[0], gq, w, g, t);
+  split_rows32(held[1], gg, w, g, t);
+
+  auto step = [&](int j, auto masked) {
+    const int s = stage_of<kS>(j);
+    const float* kt = ring + s * kStageFloats;
+    const float* vt = kt + 2 * kTile;
+    mbar_wait(&full[s], phase_of<kS>(j));
+    float sd[2][kN / 8][4];  // S, then dP and dS
+    scores_held<kN, 2>(sd, held, {kt, vt}, {kt + kTile, vt + kTile});
+    dq_terms<kN, decltype(masked)::value>(sd[0], sd[1], sbias + s * kN, j * kN, row, t, lse2, dl,
+                                          scale, scale2, causal);
+    float part[1][4][4];
+    rows_products<kN, 1, 2, Shape::kStep>(part, sd, {kt + 4 * kTile});
+    add_part(acc, part[0]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  };
+  // A causal group stops at its last tile with a key at or before its
+  // last row (group 0's last 128 / kN - 1 tiles are all masked); no later
+  // tile reuses their stages, so they need no release.
+  const int nkg = causal ? min(nk, (r0 + 63) / kN + 1) : nk;
+  run_tiles(0, plain_tiles<kN>(nkg, tk, r0, causal, mask), nkg, step);
+  store_rows32(dq + head_offset(dqs, bh, heads), (int)dqs.t, acc, row, tq, t);  // rows_fit
+}
+
+// K3 at D = 32. Grid (BH, k-tiles of kKeys keys), heaviest causal tile
+// first; a CTA walks the q-tiles of kQ queries from the causal diagonal
+// on. The producer loads the CTA's kKeys x 32 K and V tiles once, under
+// one barrier, then Q and dO tiles through a ring of kStages; the helpers
+// stage their small planes, their transposed planes, and the tile's lse
+// (base 2) and delta (0 past Tq). Per q-tile a group that takes it forms
+// S^T = K.Q^T and dP^T = V.dO^T (its 64 keys x kQ, scores_3xtf32: K and V
+// split from their resident landing as read), P^T (dkv_probs: the key's
+// bias; masked tiles: causal and past Tq; p = 0 there) and dS^T
+// (dkv_grads), then dV's part P^T.dO and dK's part dS^T.Q from zero in one
+// commit group (rows_products), which it adds to dV and dK in f32. A key
+// that is masked or past Tk has every p = 0, so its dK and dV are exactly
+// 0; keys past Tk are not written.
+template <>
+struct TmaDkvF32Shape<32> {
+  static constexpr int kKeys = 128;  // keys a CTA owns, 64 a consumer group
+  // Queries a q-tile and its stages: 32 x 4 ran 1.13x slower, 64 x 3 as fast.
+  static constexpr int kQ = 64;
+  static constexpr int kStages = 2;
+  static constexpr int kChunk = 2;    // k8 steps of S^T and of dP^T a score commit group
+  // k8 steps of P^T.dO and of dS^T.Q a commit group: 8 spilled 20 bytes.
+  static constexpr int kStep = 4;
+  static constexpr int kTileBytes = kQ * 32 * 4;    // Q, dO or one of their planes
+  static constexpr int kKVBytes = kKeys * 32 * 4;   // K or V
+  static constexpr int kStageBytes = 8 * kTileBytes;  // Q, dO, their small and transposed planes
+  // Byte offsets from the 1 KB aligned base.
+  static constexpr int kV = kKVBytes;
+  static constexpr int kRing = 2 * kKVBytes;
+  static constexpr int kTerms = kRing + kStages * kStageBytes;  // lse2, then delta, per stage
+  static constexpr int kBars = kTerms + 2 * kStages * kQ * 4;
+  static constexpr size_t kSmemBytes = kAlign + kBars + (1 + 3 * kStages) * 8;
+  static_assert(kSmemBytes <= kTmaMaxSmem, "K3's tiles do not fit a CTA");
+};
+
+__device__ __forceinline__ void dkv_tma_f32_d32(const CUtensorMap& q_map,
+                                                const CUtensorMap& k_map,
+                                                const CUtensorMap& v_map,
+                                                const CUtensorMap& g_map,
+                                                const float* __restrict__ lse,
+                                                const float* __restrict__ delta,
+                                                const uint8_t* __restrict__ mask,
+                                                float* __restrict__ dk, Strides dks,
+                                                float* __restrict__ dv, Strides dvs, int heads,
+                                                int tq, int tk, float scale, int causal) {
+  using Shape = TmaDkvF32Shape<32>;
+  constexpr int kQ = Shape::kQ, kS = Shape::kStages, kTile = kQ * 32, kKeys = Shape::kKeys;
+  constexpr int kStageFloats = Shape::kStageBytes / 4;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* base = smem + (kAlign - smem_addr(smem) % kAlign) % kAlign;
+  float* sk = reinterpret_cast<float*>(base);
+  float* sv = reinterpret_cast<float*>(base + Shape::kV);
+  float* ring = reinterpret_cast<float*>(base + Shape::kRing);
+  float* slse = reinterpret_cast<float*>(base + Shape::kTerms);
+  float* sdelta = slse + kS * kQ;
+  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(base + Shape::kBars);
+  uint64_t* land = bar_kv + 1;
+  uint64_t* full = land + kS;
+  uint64_t* empty = full + kS;
+
+  const int bh = blockIdx.x;
+  const Head hb = head_of(bh, heads);
+  const int k0 = blockIdx.y * kKeys;
+  const int qt0 = causal ? k0 / kQ : 0;  // q-tiles above the diagonal see none of these keys
+  const int tiles = max((tq + kQ - 1) / kQ - qt0, 0);
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(&land[s], 1);
+      mbar_init(&full[s], kHelpers);
+      mbar_init(&empty[s], 8);  // every consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    const float* lse_b = lse + (size_t)bh * tq;
+    const float* delta_b = delta + (size_t)bh * tq;
+    produce<32, kQ, kS, kStageFloats, 2 * kTile, true>(
+        [&] {
+          mbar_arrive_expect_tx(bar_kv, 2 * Shape::kKVBytes);
+          tma_load_f32<32>(sk, k_map, bar_kv, kKeys, k0, hb);
+          tma_load_f32<32>(sv, v_map, bar_kv, kKeys, k0, hb);
+        },
+        [&](int s, int j, int h) {
+          for (int i = h; i < kQ; i += kHelpers) {
+            const int q = j * kQ + i;
+            slse[s * kQ + i] = q < tq ? lse_b[q] * kLog2e : 0.f;
+            sdelta[s * kQ + i] = q < tq ? delta_b[q] : 0.f;
+          }
+          float* qt = ring + s * kStageFloats;
+          stage_transposed<kQ>(qt, qt + 4 * kTile, h);
+          stage_transposed<kQ>(qt + 2 * kTile, qt + 6 * kTile, h);
+        },
+        ring, land, full, empty, q_map, g_map, qt0, tiles, hb);
+    return;
+  }
+
+  setmaxnreg_inc<kF32ConsumerRegs>();
+  const int grp = threadIdx.x / 128 - 1, tid = threadIdx.x & 127;
+  const int w = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int kb = k0 + 64 * grp;  // the group's first key
+  const int key[2] = {kb + 16 * w + g, kb + 16 * w + g + 8};
+  const uint8_t* mask_row = mask != nullptr ? mask + (size_t)(bh / heads) * tk : nullptr;
+  const bool key_live[2] = {key_bias(mask_row, key[0], tk) == 0.f,
+                            key_bias(mask_row, key[1], tk) == 0.f};
+  const float* gk = sk + (kb - k0) * kF32BoxCols;  // the group's rows of K and of V
+  const float* gv = sv + (kb - k0) * kF32BoxCols;
+  float sum[2][4][4];  // dV, dK: the group's 64 keys by 32 columns
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sum[p][n][e] = 0.f;
+    }
+  }
+  const float scale2 = scale * kLog2e;
+  mbar_wait(bar_kv, 0);
+
+  auto step = [&](int i, auto masked) {
+    const int s = stage_of<kS>(i);
+    const float* qt = ring + s * kStageFloats;  // Q, Q small, dO, dO small, Q^T's, dO^T's planes
+    const float* gt = qt + 2 * kTile;
+    mbar_wait(&full[s], phase_of<kS>(i));
+    float sc[2][kQ / 8][4];  // S^T, then P^T; dP^T, then dS^T
+    scores_3xtf32<32, kQ, Shape::kChunk, 2>(sc, {gk, gv}, {qt, gt}, {qt + kTile, gt + kTile}, w,
+                                            g, t);
+    dkv_probs<decltype(masked)::value>(sc[0], slse + s * kQ, (qt0 + i) * kQ, t, key, key_live, tq,
+                                       scale2, causal);
+    dkv_grads(sc[1], sc[0], sdelta + s * kQ, t, scale);
+    float part[2][4][4];  // P^T.dO, dS^T.Q
+    rows_products<kQ, 2, 2, Shape::kStep>(part, sc, {qt + 6 * kTile, qt + 4 * kTile});
+    add_part(sum[0], part[0]);
+    add_part(sum[1], part[1]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  };
+  // Tiles [0, first) end before the group's first key (causal): released
+  // unread. Tiles [first, diag) hold a query before one of its keys, tiles
+  // [past, tiles) pass Tq: the masked step; the plain one between.
+  const int first = causal ? min(max(kb / kQ - qt0, 0), tiles) : 0;
+  const int diag = causal ? min(max((kb + 63 + kQ - 1) / kQ - qt0, first), tiles) : 0;
+  const int past = max(min(tq / kQ - qt0, tiles), diag);
+  for (int i = 0; i < first; ++i) {
+    mbar_wait(&full[stage_of<kS>(i)], phase_of<kS>(i));
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[stage_of<kS>(i)]);
+  }
+  run_tiles(diag, past, tiles, step, first);
+
+  // rows_fit: key ld fits 32 bits.
+  store_rows32(dv + head_offset(dvs, bh, heads), (int)dvs.t, sum[0], key, tk, t);
+  store_rows32(dk + head_offset(dks, bh, heads), (int)dks.t, sum[1], key, tk, t);
+}
+
+// The kernels: K2 and K3 at D = 32 take the bodies above, at D = 64, 128
+// and 256 dq_tma_f32 and dkv_tma_f32.
+template <int D>
+__global__ void __launch_bounds__(kTmaThreads, 1)
+    flash_dq_tma_f32_kernel(const __grid_constant__ CUtensorMap q_map,
+                            const __grid_constant__ CUtensorMap k_map,
+                            const __grid_constant__ CUtensorMap v_map,
+                            const __grid_constant__ CUtensorMap g_map,
+                            const float* __restrict__ lse, const float* __restrict__ delta,
+                            const uint8_t* __restrict__ mask, float* __restrict__ dq,
+                            Strides dqs, int heads, int tq, int tk, float scale, int causal) {
+  if constexpr (D == 32)
+    dq_tma_f32_d32(q_map, k_map, v_map, g_map, lse, delta, mask, dq, dqs, heads, tq, tk, scale,
+                   causal);
+  else
+    dq_tma_f32<D>(q_map, k_map, v_map, g_map, lse, delta, mask, dq, dqs, heads, tq, tk, scale,
+                  causal);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTmaThreads, 1)
+    flash_dkv_tma_f32_kernel(const __grid_constant__ CUtensorMap q_map,
+                             const __grid_constant__ CUtensorMap k_map,
+                             const __grid_constant__ CUtensorMap v_map,
+                             const __grid_constant__ CUtensorMap g_map,
+                             const float* __restrict__ lse, const float* __restrict__ delta,
+                             const uint8_t* __restrict__ mask, float* __restrict__ dk,
+                             Strides dks, float* __restrict__ dv, Strides dvs, int heads, int tq,
+                             int tk, float scale, int causal) {
+  if constexpr (D == 32)
+    dkv_tma_f32_d32(q_map, k_map, v_map, g_map, lse, delta, mask, dk, dks, dv, dvs, heads, tq,
+                    tk, scale, causal);
+  else
+    dkv_tma_f32<D>(q_map, k_map, v_map, g_map, lse, delta, mask, dk, dks, dv, dvs, heads, tq, tk,
+                   scale, causal);
+}
+
+// ---------------------------------------------------------------------------
 // Host side: launchers, occupancy.
 // ---------------------------------------------------------------------------
 
@@ -1226,15 +1745,15 @@ int launch_dq_tma_f32_as(View q, View k, View v, View g, const void* lse, const 
                          float scale, int causal, cudaStream_t stream) {
   using Shape = TmaDqF32Shape<D>;
   CUtensorMap maps[4];
-  int err = tensor_map<float>(&maps[0], q, bh, heads, tq, D, kF32Rows);
+  int err = tensor_map<float>(&maps[0], q, bh, heads, tq, D, Shape::kRows);
   if (err == 0) err = tensor_map<float>(&maps[1], k, bh, heads, tk, D, Shape::kN);
   if (err == 0) err = tensor_map<float>(&maps[2], v, bh, heads, tk, D, Shape::kN);
-  if (err == 0) err = tensor_map<float>(&maps[3], g, bh, heads, tq, D, kF32Rows);
+  if (err == 0) err = tensor_map<float>(&maps[3], g, bh, heads, tq, D, Shape::kRows);
   if (err != 0) return err;
   static bool configured[kMaxDevices] = {};
   const cudaError_t set = set_smem(flash_dq_tma_f32_kernel<D>, Shape::kSmemBytes, configured);
   if (set != cudaSuccess) return (int)set;
-  const dim3 grid(bh, (tq + kF32Rows - 1) / kF32Rows);
+  const dim3 grid(bh, (tq + Shape::kRows - 1) / Shape::kRows);
   flash_dq_tma_f32_kernel<D><<<grid, kTmaThreads, Shape::kSmemBytes, stream>>>(
       maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<const uint8_t*>(mask), ptr<float>(dq), dq.s,
@@ -1268,10 +1787,15 @@ int launch_dkv_tma_f32_as(View q, View k, View v, View g, const void* lse, const
 
 namespace swt {
 
-// Their tile is the CTA's 64 rows (K1's and K2's queries, K3's keys), the
-// f32 instances' long tile.
+// Their tile is the CTA's rows (K1's and K2's queries, K3's keys), the
+// f32 instances' long tile: 64 at D = 64, 128 and 256, and K2's kRows and
+// K3's kKeys at D = 32 (K1 has no instance there).
 bool tma_f32_tile(int kernel, int d, int tile) {
-  return kernel >= 0 && kernel <= 2 && (d == 64 || d == 128 || d == 256) && tile == kF32Rows;
+  const bool wide = d == 64 || d == 128 || d == 256;
+  if (kernel == 0) return wide && tile == kF32Rows;
+  if (kernel == 1) return d == 32 ? tile == TmaDqF32Shape<32>::kRows : wide && tile == kF32Rows;
+  if (kernel == 2) return d == 32 ? tile == TmaDkvF32Shape<32>::kKeys : wide && tile == kF32Rows;
+  return false;
 }
 
 int launch_fwd_tma_f32(View q, View k, View v, const void* mask, View out, void* lse, int bh,
@@ -1286,7 +1810,7 @@ int launch_fwd_tma_f32(View q, View k, View v, const void* mask, View out, void*
 int launch_dq_tma_f32(View q, View k, View v, View g, const void* lse, const void* delta,
                       const void* mask, View dq, int bh, int heads, int tq, int tk, int d,
                       float scale, int causal, cudaStream_t stream) {
-  return by_tma_head_dim(d, [&](auto dd) {
+  return by_tma_head_dim<true>(d, [&](auto dd) {
     return launch_dq_tma_f32_as<decltype(dd)::value>(q, k, v, g, lse, delta, mask, dq, bh, heads,
                                                      tq, tk, scale, causal, stream);
   });
@@ -1295,18 +1819,20 @@ int launch_dq_tma_f32(View q, View k, View v, View g, const void* lse, const voi
 int launch_dkv_tma_f32(View q, View k, View v, View g, const void* lse, const void* delta,
                        const void* mask, View dk, View dv, int bh, int heads, int tq, int tk,
                        int d, float scale, int causal, cudaStream_t stream) {
-  return by_tma_head_dim(d, [&](auto dd) {
+  return by_tma_head_dim<true>(d, [&](auto dd) {
     return launch_dkv_tma_f32_as<decltype(dd)::value>(q, k, v, g, lse, delta, mask, dk, dv, bh,
                                                       heads, tq, tk, scale, causal, stream);
   });
 }
 
 int tma_f32_occupancy(int kernel, int d, int* out) {
-  return by_tma_head_dim(d, [&](auto dd) {
+  return by_tma_head_dim<true>(d, [&](auto dd) {
     constexpr int D = decltype(dd)::value;
-    if (kernel == 0)
-      return occupancy(flash_fwd_tma_f32_kernel<D>, kTmaThreads, TmaFwdF32Shape<D>::kSmemBytes,
-                       out);
+    if constexpr (D != 32) {  // K1 has no instance at D = 32
+      if (kernel == 0)
+        return occupancy(flash_fwd_tma_f32_kernel<D>, kTmaThreads, TmaFwdF32Shape<D>::kSmemBytes,
+                         out);
+    }
     if (kernel == 1)
       return occupancy(flash_dq_tma_f32_kernel<D>, kTmaThreads, TmaDqF32Shape<D>::kSmemBytes,
                        out);

@@ -57,10 +57,11 @@ kernels of `csrc/flash_attention_tma.cu` (`flash_fwd_tma`,
 `flash_dq_tma`, `flash_dkv_tma`: a producer warp issues TMA loads
 completed on mbarriers, two consumer warpgroups run `wgmma`; at 32 on
 rows of 64 bytes in the 64-byte swizzle; `TMA_HEAD_DIMS` per instance),
-and in f32 at 64, 128 and 256 the long tile of K1-K3 runs those of
-`csrc/flash_attention_tma_f32.cu` (`flash_fwd_f32_tma`,
-`flash_dq_f32_tma`, `flash_dkv_f32_tma`: the same CTA shape on TF32
-`wgmma` as 3xTF32), each reached through the same C entry point as its
+and in f32 the long tile of K1 at 64, 128 and 256 and of K2 and K3 at 32,
+64, 128 and 256 runs those of `csrc/flash_attention_tma_f32.cu`
+(`flash_fwd_f32_tma`, `flash_dq_f32_tma`, `flash_dkv_f32_tma`: the same
+CTA shape on TF32 `wgmma` as 3xTF32), each reached through the same C
+entry point as its
 base instance, with its own launch counter. Their tensor maps are 4-D
 over (d, t, h, b) with the views' strides.
 
@@ -112,9 +113,10 @@ WIDE_INSTANCES = tuple(name + WIDE + suffix for suffix in KERNEL_DTYPES.values()
 # entry points are those instances'.
 TMA_INSTANCES = tuple(name + suffix + TMA for suffix in KERNEL_DTYPES.values()
                       for name in KERNELS)
-# The head dims each TMA-fed instance is built for: 64, 128 and 256, and
-# 32 in bf16 (on 64-byte rows; the f32 long tile at 32 stays on mma.sync).
-TMA_HEAD_DIMS = {name: (64, 128, 256) if name.endswith("_f32" + TMA) else (32, 64, 128, 256)
+# The head dims each TMA-fed instance is built for: 32, 64, 128 and 256
+# (bf16 at 32 on 64-byte rows), but for the f32 K1, whose long tile at 32
+# stays on mma.sync.
+TMA_HEAD_DIMS = {name: (64, 128, 256) if name == "flash_fwd_f32" + TMA else (32, 64, 128, 256)
                  for name in TMA_INSTANCES}
 # The backward's delta = rowsum(dO * O) kernel (csrc/flash_attention_delta.cu),
 # in bf16 and in f32.
@@ -131,7 +133,9 @@ LAUNCHES = {name: 0 for name in INSTANCES + WIDE_INSTANCES + TMA_INSTANCES + DEL
 # 32 (batch, head) pairs at T = 64 give 128 CTAs for the card's 132 SMs.
 # Their long tile is 64 rows; at their TMA_HEAD_DIMS it is the TMA-fed
 # f32 kernels': K1's and K2's 64 query rows (two consumer warpgroups),
-# K3's 64 keys (one group forms P^T and owns dV, the other dS^T and dK).
+# K3's 64 keys (one group forms P^T and owns dV, the other dS^T and dK),
+# and at D = 32 K2's 128 query rows and K3's 128 keys (each consumer
+# warpgroup its own 64: `F32_D32_LONG`).
 # The bf16 instances keep 32 up to T = 32; their long tile is, at their
 # TMA_HEAD_DIMS, the TMA-fed kernels': K1's and K2's 128 query rows (two
 # consumer warpgroups of 64), K3's 128 keys (64 at D = 256, where one
@@ -143,6 +147,11 @@ KERNEL_TILES = {(name + suffix, d): (16, 64, 64) if suffix else (32, 64, 32)
 KERNEL_TILES.update({(name, d): (32, 64 if "dkv" in name and d == 256 else 128, 32)
                      for base in KERNELS for name in (base, base + TMA)
                      for d in TMA_HEAD_DIMS[base + TMA]})
+# The f32 K2's query rows and K3's keys a CTA on the long tile at D = 32
+# (csrc/flash_attention_tma_f32.cu: TmaDqF32Shape<32>::kRows,
+# TmaDkvF32Shape<32>::kKeys).
+F32_D32_LONG = {"flash_dq_f32": 128, "flash_dkv_f32": 128}
+KERNEL_TILES.update({(name, 32): (16, rows, 64) for name, rows in F32_D32_LONG.items()})
 KERNEL_TILES.update({(name + TMA, d): KERNEL_TILES[name, d]
                      for name in INSTANCES if name.endswith("_f32")
                      for d in TMA_HEAD_DIMS[name + TMA]})
@@ -473,8 +482,8 @@ def attention_dq(q, k, v, g, lse, delta, kv_mask, heads: int, scale: float,
                  causal: bool):
     """K2: dQ, in q's form. Plain version on the CPU; on CUDA `instance`'s
     choice: `flash_dq` (bf16; `flash_dq_tma` on its long tile at D =
-    32-256) or `flash_dq_f32` (`flash_dq_f32_tma` on its long tile at D =
-    64-256), or above head dim 256 `flash_dq_wide` or `flash_dq_wide_f32`."""
+    32-256) or `flash_dq_f32` (`flash_dq_f32_tma` there), or above head dim
+    256 `flash_dq_wide` or `flash_dq_wide_f32`."""
     if _on_cpu(q, k, v, g, lse, delta, kv_mask):
         dq = attention_dq_plain(_packed(q), _packed(k), _packed(v), _packed(g), lse, delta,
                                 kv_mask, heads, scale, causal)

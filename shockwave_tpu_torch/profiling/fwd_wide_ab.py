@@ -13,7 +13,7 @@ K2's A/B at long sequences, K2 + K3 beside SDPA's backward:
         --trees .archive_check/parent . . .archive_check/parent
 
 At head dim 32, the bench shape and the main shape, with the model-layout
-forward + backward:
+forward + backward (in f32: `d32_bench_causal_f32 head_dim_32_f32`):
 
     python -m shockwave_tpu_torch.profiling.fwd_wide_ab --kernels fwd dq dkv model \\
         --cases d32_bench_causal head_dim_32 \\
@@ -45,7 +45,7 @@ key-padded, the bench shape (4, 2048, 8, 512) causal, a ragged causal
 case at d = 768, in bf16 and f32; the bench shape (4, 2048, 8, D) causal at
 D = 64, 128 and 256 and the main shape (64, 32, 8, 64) key-padded, in
 bf16 and in f32; the bench shape and the main shape (2, 128, 4, 32)
-key-padded causal at D = 32 in bf16) through `attention_forward`,
+key-padded causal at D = 32 in bf16 and in f32) through `attention_forward`,
 `attention_dq` and `attention_dkv` (`--kernels`) against their plain
 versions on the same inputs (the backward on the kernel's own lse and
 delta = rowsum(dO * out), as chip_smoke.py runs it). Errors: the forward
@@ -95,6 +95,8 @@ CASES = (
     ("d128_bench_causal_f32", 4, 2048, 8, 128, True, None, "f32"),
     ("d256_bench_causal_f32", 4, 2048, 8, 256, True, None, "f32"),
     ("main_enc_self_f32", 64, 32, 8, 64, False, "tail", "f32"),
+    ("d32_bench_causal_f32", 4, 2048, 8, 32, True, None, "f32"),
+    ("head_dim_32_f32", 2, 128, 4, 32, True, "tail", "f32"),
 )
 KERNELS = ("fwd", "dq", "dkv")
 # flash_attention's forward + backward in the model's layout, a choice of

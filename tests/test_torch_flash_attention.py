@@ -292,13 +292,14 @@ class TestRaggedEdgesAgainstJax:
 
 class TestHeadDim32AgainstJax:
     """Head dims 32 and 16 (padded to 32) at sequences past the short tile,
-    where on the card K1-K3 run their TMA-fed instances on 64-byte rows:
-    the port (its plain versions on the
-    CPU) against the JAX package, forward and gradients, causal and
-    key-padded, in f32."""
+    where on the card K1-K3 run their TMA-fed instances on 64-byte rows in
+    bf16, and K2 and K3 theirs in f32 (past T = 64; T = 130 ragged past
+    their 128-row tile): the port (its plain versions on the CPU) against
+    the JAX package, forward and gradients, causal and key-padded, in
+    f32."""
 
     @pytest.mark.parametrize("d", [16, 32])
-    @pytest.mark.parametrize("t,causal", [(64, True), (128, True), (128, False)])
+    @pytest.mark.parametrize("t,causal", [(64, True), (128, True), (128, False), (130, True)])
     def test_forward_and_gradients(self, d, t, causal):
         rng = np.random.RandomState(t + d)
         q, k, v = rand_qkv(rng, 2, t, 2, d)
@@ -346,8 +347,10 @@ class TestLaunchConfig:
                         assert (fa.instance(name, torch.bfloat16, d, tq, tk)
                                 == fa.tile_instance(name, d, tile))
                     else:  # f32: 16, then 64, at D = 64-256 the TMA-fed
-                        # instances' 64 rows (K1's and K2's queries, K3's keys)
-                        assert tile == (16 if max(tq, tk) <= 64 else 64)
+                        # instances' 64 rows (K1's and K2's queries, K3's keys),
+                        # at D = 32 K2's and K3's 128
+                        long = 128 if d == 32 and name != "flash_fwd_f32" else 64
+                        assert tile == (16 if max(tq, tk) <= 64 else long)
                         assert (fa.instance(name.removesuffix("_f32"), torch.float32, d, tq, tk)
                                 == fa.tile_instance(name, d, tile))
                     if name == "flash_fwd":  # the default instance
@@ -363,7 +366,7 @@ class TestLaunchConfig:
         for name in self.TF32_INSTANCES:
             tile = fa.launch_config(t, t, d, name)
             assert tile == 16 and bh * -(-t // tile) == 128
-            assert fa.KERNEL_TILES[name, d] == (16, 64, 64)
+            assert fa.KERNEL_TILES[name, d] == (16, fa.F32_D32_LONG.get(name, 64), 64)
         assert fa.launch_config(t, t, d, "flash_dq") == 128
 
     def test_rejects_what_the_wrapper_rejects(self):
@@ -405,7 +408,8 @@ class TestLaunchConfig:
         32: `instance`, `launch_config` and `tile_instance` pick the
         TMA-fed K1 and K3 (128 rows, 128 keys), and K2 (128 rows) too; the
         longer sequence decides; up to T = 32 all three keep the short
-        tile, and f32 keeps its mma.sync instances."""
+        tile, and f32 keeps its mma.sync instances up to T = 64 (and K1
+        past it)."""
         assert fa.kernel_head_dim(16) == fa.kernel_head_dim(32) == 32
         for kernel, want, tile in (("flash_fwd", "flash_fwd_tma", 128),
                                    ("flash_dq", "flash_dq_tma", 128),
@@ -418,11 +422,36 @@ class TestLaunchConfig:
             assert fa.tile_instance(kernel, 32, 32) == kernel
             assert fa.instance(kernel, torch.bfloat16, 32, 32, 32) == kernel
             assert fa.launch_config(32, 32, 32, kernel) == 32
-            assert fa.instance(kernel, torch.float32, 32, t, t) == kernel + "_f32"
+            f32 = fa.instance(kernel, torch.float32, 32, t, t)
+            assert f32 == kernel + "_f32" + (fa.TMA if t > 64 and kernel != "flash_fwd" else "")
         assert (fa.TMA_HEAD_DIMS["flash_fwd" + fa.TMA] == fa.TMA_HEAD_DIMS["flash_dq" + fa.TMA]
                 == fa.TMA_HEAD_DIMS["flash_dkv" + fa.TMA])
         assert all(32 in fa.TMA_HEAD_DIMS[n] for n in fa.TMA_INSTANCES if "_f32" not in n)
-        assert all(32 not in fa.TMA_HEAD_DIMS[n] for n in fa.TMA_INSTANCES if "_f32" in n)
+        assert [n for n in fa.TMA_INSTANCES if "_f32" in n and 32 in fa.TMA_HEAD_DIMS[n]] == [
+            "flash_dq_f32" + fa.TMA, "flash_dkv_f32" + fa.TMA]
+
+    @pytest.mark.parametrize("t", [65, 128, 2048])
+    def test_f32_head_dim_32_past_the_short_tile_takes_tma_k2_and_k3(self, t):
+        """In f32 at head dim 32 (and d = 16, which pads to it), past the f32
+        short tile (T = 64): `instance`, `launch_config` and
+        `tile_instance` pick the TMA-fed K2 and K3 (128 query rows, 128
+        keys, csrc/flash_attention_tma_f32.cu's D = 32 section) whichever
+        sequence is the longer, while K1 keeps `flash_fwd_f32` at its
+        64-row tile; up to T = 64 all three keep the one-warp tile."""
+        assert fa.kernel_head_dim(16) == 32
+        for kernel, want, tile in (("flash_fwd", "flash_fwd_f32", 64),
+                                   ("flash_dq", "flash_dq_f32" + fa.TMA, 128),
+                                   ("flash_dkv", "flash_dkv_f32" + fa.TMA, 128)):
+            for tq, tk in ((t, t), (16, t), (t, 16)):
+                got = fa.instance(kernel, torch.float32, 32, tq, tk)
+                assert got == want
+                assert fa.launch_config(tq, tk, 32, got) == tile
+            assert fa.tile_instance(kernel + "_f32", 32, tile) == want
+            assert fa.tile_instance(kernel + "_f32", 32, 16) == kernel + "_f32"
+            assert fa.instance(kernel, torch.float32, 32, 64, 64) == kernel + "_f32"
+            assert fa.launch_config(64, 64, 32, kernel + "_f32") == 16
+        assert fa.KERNEL_TILES["flash_dq_f32" + fa.TMA, 32] == fa.KERNEL_TILES["flash_dq_f32", 32]
+        assert fa.F32_D32_LONG == {"flash_dq_f32": 128, "flash_dkv_f32": 128}
 
     def test_every_config_is_reached_by_a_chip_smoke_case(self):
         smoke = _chip_smoke()
@@ -447,7 +476,7 @@ class TestLaunchConfig:
                         for c in wide} == set(fa.WIDE_TILES[kernel + fa.WIDE + suffix][:2])
         # The 3xTF32 instances' edges in f32: ragged inside the short
         # tile, one past its reach, Tq != Tk and the row that sees no key
-        # at every width (16 and 64).
+        # at every width (16 and 64, and K2's and K3's 128 at D = 32).
         f32_cases = [c for c in smoke.F32_CASES if c[5] in fa.KERNEL_HEAD_DIMS]
         for name in self.TF32_INSTANCES:
             short, _, short_up_to = fa.KERNEL_TILES[name, 64]
@@ -457,7 +486,8 @@ class TestLaunchConfig:
                 return fa.launch_config(c[2], c[3], c[5], name)
             assert any(tile(c) == short and c[2] % short for c in f32_cases)
             assert any(max(c[2], c[3]) == short_up_to + 1 for c in f32_cases)
-            assert {tile(c) for c in f32_cases if c[2] != c[3]} == widths == {16, 64}
+            assert widths == ({16, 64} if name == "flash_fwd_f32" else {16, 64, 128})
+            assert {tile(c) for c in f32_cases if c[2] != c[3]} == widths
             assert {tile(c) for c in f32_cases if c[7] == "key0"} == widths
         # Each width's edges: one past and below the short tile, Tq != Tk
         # inside the long one, and the row that sees no key in both.

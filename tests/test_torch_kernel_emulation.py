@@ -180,9 +180,16 @@ def _reached(cases, name):
 
 def test_every_f32_tile_is_emulated():
     """The cases reach both tiles of each f32 instance at every head dim,
-    and so do the padded cases at their padded widths."""
+    and so do the padded cases at their padded widths; the long tile is
+    the TMA-fed instance's at its head dims (K2's and K3's at D = 32 too,
+    128 rows there), the mma.sync one's elsewhere (K1's at D = 32)."""
     for kernel in fa.KERNELS:
         name = kernel + "_f32"
         assert _reached(CASES, name) == {(tile, d) for d in fa.KERNEL_HEAD_DIMS
                                          for tile in fa.KERNEL_TILES[name, d][:2]}, name
-        assert _reached(PADDED_CASES, name) == {(16, 32), (64, 64), (64, 128)}, name
+        long_32 = {(fa.tile_instance(name, d, tile), tile) for tile, d in _reached(CASES, name)
+                   if d == 32 and tile > 16}
+        assert long_32 == ({(name, 64)} if kernel == "flash_fwd"
+                           else {(name + fa.TMA, 128)}), name
+        padded = {(16, 32), (64, 64), (64, 128)}
+        assert _reached(PADDED_CASES, name) == padded, name
